@@ -1,0 +1,29 @@
+"""kubernetes_tpu_torch — the PyTorch/CUDA port of kubernetes_tpu.
+
+A second package beside the JAX one, for an NVIDIA H100: the host control
+plane (API objects, store, cache, queue, encoder mirrors) is carried over
+as copies, and the device side is torch tensors plus hand-written CUDA
+kernels (``csrc/``, built with nvcc for sm_90a and loaded with ctypes).
+The JAX package is the reference: the port's tests run both on the same
+inputs and compare bit for bit.
+
+Entry points run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; on the CPU every kernel wrapper takes its plain torch
+version.  The package imports nothing of JAX and nothing of the JAX
+package.
+
+Layout (mirrors the JAX package):
+  api/        object model (copies)
+  sim/        trimmed in-process object store with watch fan-out
+  state/      dictionary, node infos, cache, encoder, selectors
+  framework/  plugin interface, events, PodBatch compiler, runtime
+  plugins/    the default plugin set (main-path plugins + pass-through halves)
+  gang/       in-batch all-or-nothing mask
+  queueing/   the 3-queue PriorityQueue
+  kernels/    CUDA kernel wrappers, plain versions, build/loader
+  csrc/       the .cu sources
+  convert.py  JAX-package arrays (as numpy) → the port's tensors
+  scheduler.py TorchScheduler
+"""
+
+__version__ = "0.1.0"

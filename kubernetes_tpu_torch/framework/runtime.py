@@ -1,0 +1,306 @@
+"""Batched framework runtime: plugin composition + the identity-class dedup
+assignment engine, in torch.
+
+Reference: the JAX package's framework/runtime.py — ``run_filters`` /
+``run_scores`` / ``compute`` / ``diagnose_bits`` (:199-255) and
+``_batch_assign_dedup`` (:747-977).  Both run through the four kernels
+(kernels/): K1 filter bits + raw planes, K2 normalize + weighted total —
+the plugin compositions and the dedup engine's rounds alike — and, in the
+engine, K3 top-K candidates in (value desc, row asc) order and K4 the
+propose/resolve auction with its scatter-add commit.  On CPU tensors each
+kernel wrapper takes its plain torch version.
+
+Ties break by lowest node row (deterministic; no tie noise).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Sequence
+
+import torch
+
+from .interface import DynamicState, PluginWithWeight
+from ..kernels.auction import auction_resolve_commit
+from ..kernels.filter_score import (
+    KERNEL_FILTERS,
+    RAW_PLANES,
+    FilterScorePlan,
+    filter_score_planes,
+)
+from ..kernels.normalize import (
+    KIND_DEFAULT,
+    KIND_DEFAULT_REVERSED,
+    KIND_IDENTITY,
+    CombinePlan,
+    normalize_combine,
+)
+from ..kernels.topk import topk_rows
+from ..plugins.nodeaffinity import NodeAffinityPlugin
+from ..plugins.noderesources import BalancedAllocationPlugin, FitPlugin
+from ..plugins.passthrough import _PassFilter, _PassScore
+from ..plugins.trivial import image_scaled_by_id
+
+_RAW_KIND = {
+    "TaintToleration": KIND_DEFAULT_REVERSED,
+    "NodeAffinity": KIND_DEFAULT,
+    "NodeResourcesFit": KIND_IDENTITY,
+    "NodeResourcesBalancedAllocation": KIND_IDENTITY,
+    "ImageLocality": KIND_IDENTITY,
+}
+
+
+class AssignResult(NamedTuple):
+    node_row: torch.Tensor  # i32[B] assigned node row, -1 = unschedulable
+    feasible_count: torch.Tensor  # i32[B] number of feasible nodes seen
+    dyn: DynamicState  # final dynamic state after all assignments
+    rounds: int = 0  # engine rounds executed
+    # round 0's pass-bit plane i32[C, N] (the pre-assignment state the
+    # diagnosis reads); None when no round ran
+    diag_plane: Optional[torch.Tensor] = None
+
+
+class CouplingFlags(NamedTuple):
+    """Host-computed batch coupling (see the reference's CouplingFlags):
+    reads/solo/comp/multi per pod."""
+
+    reads: torch.Tensor  # bool[B]
+    solo: torch.Tensor  # bool[B]
+    comp: Any = None  # i32[B] | None
+    multi: Any = None  # bool[B] | None
+
+
+def uncoupled_flags(b: int, device) -> CouplingFlags:
+    """The coupling of a batch with no cross-pod reads: every pod its own
+    component, none reads or closes one (the only batches this slice
+    admits)."""
+    zeros = torch.zeros(b, dtype=torch.bool, device=device)
+    return CouplingFlags(reads=zeros, solo=zeros,
+                         comp=torch.arange(b, dtype=torch.int32, device=device),
+                         multi=zeros)
+
+
+def initial_dynamic_state(snap) -> DynamicState:
+    return DynamicState(requested=snap.requested, non_zero=snap.non_zero_requested)
+
+
+def diagnose_bits_from_plane(bits: torch.Tensor, n_filters: int) -> torch.Tensor:
+    """bool[C, K] from a pass-bit plane: does filter k leave row c ANY node
+    (the bits already fold in live nodes and row validity)."""
+    shifts = torch.arange(n_filters, dtype=torch.int32, device=bits.device)
+    return ((bits[:, :, None] >> shifts) & 1).any(dim=1)
+
+
+def pack_diag(bits: torch.Tensor, node_row: torch.Tensor, rounds: int) -> torch.Tensor:
+    """[3, B] i32: node_row; diagnosis bitmask (bit k = filter k leaves the
+    pod a feasible node); engine rounds — the cycle's one fetch (the
+    reference's pack_diag, scheduler.py:918, for ≤ 31 filters)."""
+    n_filters = bits.shape[1]
+    if n_filters > 31:
+        raise NotImplementedError("pack_diag: more than 31 filter plugins")
+    shifts = torch.arange(n_filters, dtype=torch.int32, device=bits.device)
+    packed = (bits.to(torch.int32) << shifts[None, :]).sum(dim=1, dtype=torch.int32)
+    rrow = torch.full_like(packed, int(rounds))
+    return torch.stack([node_row.to(torch.int32), packed, rrow])
+
+
+class BatchedFramework:
+    """Drives a fixed plugin list as tensor programs."""
+
+    def __init__(self, plugins: Sequence[PluginWithWeight]):
+        self.plugins = list(plugins)
+        self.filter_plugins = [p for p in self.plugins if hasattr(p.plugin, "filter")]
+        self.score_plugins = [p for p in self.plugins if hasattr(p.plugin, "score")]
+        self._plans = None
+
+    @property
+    def filter_names(self):
+        """Names of plugins with a Filter, in plugin order (Diagnosis keys)."""
+        return [pw.plugin.name for pw in self.plugins if hasattr(pw.plugin, "filter")]
+
+    # --- plugin compositions, through the kernels ----------------------------
+
+    def static_inputs(self, rows, snap, dyn):
+        """K1's per-cycle inputs for ``rows`` (a PodBatch): NodeAffinity's
+        filter and preferred-weight planes (selector matching, ROADMAP B4,
+        plain torch) and ImageLocality's per-id spread-scaled sizes."""
+        na = NodeAffinityPlugin()
+        return (na.filter(rows, snap, dyn), na.score(rows, snap, dyn),
+                image_scaled_by_id(snap))
+
+    def planes(self, rows, snap, dyn):
+        """K1 over every row of ``rows``: (pass bits i32[B, N], raw f32[5, B, N])."""
+        return filter_score_planes(rows, snap, dyn, *self.static_inputs(rows, snap, dyn),
+                                   self.kernel_plans()[0])
+
+    def _full(self) -> int:
+        return (1 << len(self.filter_names)) - 1
+
+    def run_filters(self, batch, snap, dyn, auxes=None):
+        """bool[B, N]: every filter passes on a live node (the reference's
+        run_filters, runtime.py:199)."""
+        bits, _ = self.planes(batch, snap, dyn)
+        return bits == self._full()
+
+    def run_scores(self, batch, snap, dyn, auxes, mask):
+        """Σ weight · floor(normalize(raw)) over ``mask``, −inf off it (the
+        reference's run_scores, runtime.py:206; runtime/framework.go:874-946)."""
+        _, raw = self.planes(batch, snap, dyn)
+        full = self._full()
+        bits = torch.where(mask, full, 0).to(torch.int32)
+        return normalize_combine(bits, full, raw, self.kernel_plans()[1])[0]
+
+    def compute(self, batch, snap, dyn, auxes=None):
+        bits, raw = self.planes(batch, snap, dyn)
+        full = self._full()
+        total, _ = normalize_combine(bits, full, raw, self.kernel_plans()[1])
+        return bits == full, total
+
+    def diagnose_bits(self, batch, snap, dyn, auxes=None):
+        """bool[B, K]: does filter plugin k leave pod b ANY feasible node."""
+        bits, _ = self.planes(batch, snap, dyn)
+        return diagnose_bits_from_plane(bits, len(self.filter_names))
+
+    # --- the dedup engine's kernel plans -------------------------------------
+
+    def kernel_plans(self):
+        """(FilterScorePlan, CombinePlan) for this plugin list.  The kernels
+        evaluate the main-path plugins; every other plugin must be a
+        pass-through half (its filter all-pass, its score a constant plane
+        whose normalization is folded into ``const_add``)."""
+        if self._plans is not None:
+            return self._plans
+        names = self.filter_names
+        bit_of, pass_bits = {}, 0
+        for k, pw in enumerate(self.filter_plugins):
+            name = pw.plugin.name
+            if name in KERNEL_FILTERS:
+                bit_of[name] = k
+            elif isinstance(pw.plugin, _PassFilter):
+                pass_bits |= 1 << k
+            else:
+                raise NotImplementedError(
+                    f"filter plugin {name} has no kernel path in the dedup "
+                    "engine yet (ROADMAP Queue B)")
+        missing = [n for n in KERNEL_FILTERS if n not in bit_of]
+        if missing or len(names) > 31:
+            raise NotImplementedError(
+                f"the dedup kernels need the default filter set; missing {missing}")
+        fit = balanced = None
+        weights = {}
+        const_add = 0.0
+        for pw in self.score_plugins:
+            p = pw.plugin
+            if p.name in _RAW_KIND:
+                weights[p.name] = float(pw.weight)
+                if isinstance(p, FitPlugin):
+                    fit = p
+                elif isinstance(p, BalancedAllocationPlugin):
+                    balanced = p
+            elif isinstance(p, _PassScore):
+                one = torch.ones((1, 1), dtype=torch.bool)
+                zero = torch.zeros((1, 1), dtype=torch.float32)
+                const_add += float(pw.weight) * float(
+                    torch.floor(p.normalize(zero, one))[0, 0])
+            else:
+                raise NotImplementedError(
+                    f"score plugin {p.name} has no kernel path in the dedup "
+                    "engine yet (ROADMAP Queue B)")
+        if set(weights) != set(RAW_PLANES) or fit is None or balanced is None:
+            raise NotImplementedError(
+                "the dedup kernels need the default score set "
+                f"{RAW_PLANES}; have {sorted(weights)}")
+        self._plans = (
+            FilterScorePlan(fit=fit, balanced=balanced, bit_of=bit_of,
+                            pass_bits=pass_bits),
+            CombinePlan(kinds=tuple(_RAW_KIND[n] for n in RAW_PLANES),
+                        weights=tuple(weights[n] for n in RAW_PLANES),
+                        const_add=const_add),
+        )
+        return self._plans
+
+    # --- identity-class dedup assignment --------------------------------------
+
+    def _batch_assign_dedup(self, batch, snap, dyn, auxes, order,
+                            coupling: CouplingFlags, classes) -> AssignResult:
+        """batch_assign with identity-class-deduplicated dense planes (the
+        reference's _batch_assign_dedup, bit for bit).
+
+        ``classes = (class_of i32[B], rep_batch PodBatch[C], rep_auxes)``:
+        pods of one class have byte-identical compiled rows, so each round
+        computes the planes once per class ([C, N]) and every pod proposes
+        from its class's top-K candidate list (K = min(B, N)).
+
+        The round loop is a Python loop.  Its condition
+        (any pod active, rounds ≤ B) is read on the host once per round —
+        one device→host sync per round; a device-side loop (or a CUDA
+        graph) is queued in ROADMAP Queue B (B5).
+        """
+        class_of, rep_batch, _rep_auxes = classes
+        fs_plan, comb_plan = self.kernel_plans()
+        full = self._full()
+        dev = snap.device
+        b = batch.valid.shape[0]
+        n_cap = snap.num_nodes
+        kcand = min(b, n_cap)
+        class_of = class_of.to(device=dev, dtype=torch.long)
+        reads = coupling.reads.to(dev)
+        solo = coupling.solo.to(dev)
+        if coupling.comp is None:
+            comp = torch.zeros(b, dtype=torch.long, device=dev)
+            multi = torch.ones(b, dtype=torch.bool, device=dev)
+        else:
+            comp = coupling.comp.to(device=dev, dtype=torch.long)
+            multi = coupling.multi.to(dev)
+        reader = reads & multi
+        order = order.to(device=dev, dtype=torch.long)
+        arange_b = torch.arange(b, device=dev)
+
+        na_mask, na_pref, img_scaled = self.static_inputs(rep_batch, snap, dyn)
+
+        pos_of = torch.zeros(b, dtype=torch.long, device=dev).index_copy(
+            0, order, arange_b)
+        nom = batch.nominated_row.long().clamp(0, n_cap - 1)
+        nom_set = batch.nominated_row >= 0
+        # the engine's working copies of the dynamic state (updated in place)
+        dyn = DynamicState(requested=dyn.requested.clone(),
+                           non_zero=dyn.non_zero.clone())
+
+        assigned = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        active = batch.valid.clone()
+        feas_n = torch.zeros(b, dtype=torch.int32, device=dev)
+        comp_oh = comp[:, None] == arange_b[None, :]  # [B, C]
+        rounds = 0
+        diag_plane = None
+        # host read of the loop condition: one sync per round
+        while rounds <= b and bool(active.any()):
+            bits, raw = filter_score_planes(rep_batch, snap, dyn, na_mask,
+                                            na_pref, img_scaled, fs_plan)
+            if diag_plane is None:
+                diag_plane = bits
+            total, feas_cnt = normalize_combine(bits, full, raw, comb_plan)
+            mask_r = bits == full
+            feasible = (feas_cnt > 0)[class_of]
+            cand_val, cand_idx = topk_rows(total, kcand)
+            nom_ok = nom_set & mask_r[class_of, nom]
+
+            # component heads — identical rules to the reference
+            act_pos = torch.where(active & multi, pos_of, b)
+            minpos_c = torch.where(comp_oh, act_pos[:, None], b).amin(dim=0)
+            is_head = active & multi & (pos_of == minpos_c[comp])
+            head_reader = is_head & reader
+            head_unsched = head_reader & ~feasible
+            closed_c = (comp_oh & (head_reader & feasible & solo)[:, None]).any(dim=0)
+            comp_closed = multi & closed_c[comp] & ~is_head
+            unresolved0 = active & feasible & (~reader | is_head) & ~comp_closed
+
+            commit, choice = auction_resolve_commit(
+                cand_val, cand_idx, class_of, pos_of, unresolved0, nom, nom_ok,
+                batch.request, batch.non_zero, dyn.requested, dyn.non_zero)
+            new_unsched = (active & ~reader & ~feasible) | head_unsched
+            resolved = commit | new_unsched
+            feas_n = torch.where(resolved & active, feas_cnt[class_of], feas_n)
+            assigned = torch.where(commit, choice, assigned)
+            active = active & ~resolved
+            rounds += 1
+        return AssignResult(node_row=assigned, feasible_count=feas_n, dyn=dyn,
+                            rounds=rounds, diag_plane=diag_plane)

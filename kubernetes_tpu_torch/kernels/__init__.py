@@ -1,0 +1,71 @@
+"""Hand-written CUDA kernels of the dedup scheduling cycle, with their plain
+torch versions.
+
+Each wrapper takes the plain version for tensors that lie on the CPU and
+launches its kernel for CUDA tensors (raising if the launch fails — there
+is no fallback).  ``LAUNCHES`` counts, per kernel, its launches on the
+card (K3 launches once per pass, so one wrapper call may count more than
+once); ``reset_launches`` zeroes the counts.
+
+  K1 filter_score_planes  csrc/filter_score.cu
+  K2 normalize_combine    csrc/normalize_combine.cu
+  K3 topk_rows            csrc/topk_rows.cu
+  K4 auction_resolve_commit csrc/auction.cu
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+LAUNCHES: Dict[str, int] = {
+    "filter_score_planes": 0,
+    "normalize_combine": 0,
+    "topk_rows": 0,
+    "auction_resolve_commit": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_CTYPE = {"i": ctypes.c_int, "p": ctypes.c_void_p, "f": ctypes.c_float}
+
+
+def bind(lib, name: str, spec: str):
+    """The C launch function ``name`` with argtypes from ``spec`` (one letter
+    per argument: i = int, p = pointer, f = float); returns cudaError_t."""
+    fn = getattr(lib, name)
+    fn.argtypes = [_CTYPE[ch] for ch in spec]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def stream_of(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_dtype(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor has ``dtype`` (the kernels read raw bytes)."""
+    for t in tensors:
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    """Check that every tensor is a contiguous CUDA tensor on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: every input must be a CUDA tensor on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return dev

@@ -1,0 +1,178 @@
+"""The pass-through halves of the plugins whose live content the slice
+does not carry: Coscheduling, the four volume plugins, DynamicResources,
+PodTopologySpread and InterPodAffinity.
+
+For every batch the slice admits (no gang members, no volumes, no resource
+claims, no topology-spread constraints, no pod (anti)affinity, no
+existing-pod affinity groups) the JAX plugins take their ``aux is None``
+branch (Coscheduling: anchor −2): an all-pass filter, an all-zero score
+plane, and each plugin's own ``normalize`` of that plane.  These classes
+give exactly those planes; the scheduler's scope guard raises
+NotImplementedError for anything that would need the live halves
+(ROADMAP Queue A items 7 and 8).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..framework import events as fwk_events
+from ..framework.events import ActionType, ClusterEvent, EventResource
+from ..framework.interface import MAX_NODE_SCORE, Plugin
+from .helpers import default_normalize
+
+
+def _ones(batch, snap):
+    return torch.ones((batch.valid.shape[0], snap.num_nodes), dtype=torch.bool,
+                      device=snap.device)
+
+
+def _zeros(batch, snap):
+    return torch.zeros((batch.valid.shape[0], snap.num_nodes),
+                       dtype=torch.float32, device=snap.device)
+
+
+class _PassFilter(Plugin):
+    """An all-pass filter plane (the JAX plugin's ``aux is None`` branch)."""
+
+    def filter(self, batch, snap, dyn, aux=None):
+        return _ones(batch, snap)
+
+
+class _PassScore(Plugin):
+    """An all-zero raw score plane (the JAX plugin's ``aux is None`` branch)."""
+
+    def score(self, batch, snap, dyn, aux=None, mask=None):
+        return _zeros(batch, snap)
+
+
+class CoschedulingPlugin(_PassScore):
+    """Anchor −2 (no gang member): the anchor-slice match plane is all
+    False, normalized by DefaultNormalizeScore."""
+
+    name = "Coscheduling"
+
+    def events_to_register(self):
+        return [
+            fwk_events.POD_GROUP_CHANGE,
+            ClusterEvent(EventResource.POD, ActionType.ADD | ActionType.DELETE),
+            fwk_events.NODE_ADD,
+        ]
+
+    def normalize(self, scores, mask):
+        return default_normalize(scores, mask)
+
+
+class VolumeRestrictionsPlugin(_PassFilter):
+    name = "VolumeRestrictions"
+
+    def events_to_register(self):
+        return [ClusterEvent(EventResource.POD, ActionType.DELETE)]
+
+
+class NodeVolumeLimitsPlugin(_PassFilter):
+    name = "NodeVolumeLimits"
+
+    def events_to_register(self):
+        return [
+            ClusterEvent(EventResource.CSI_NODE, ActionType.ALL),
+            ClusterEvent(EventResource.POD, ActionType.DELETE),
+        ]
+
+
+class VolumeBindingPlugin(_PassFilter):
+    name = "VolumeBinding"
+
+    def events_to_register(self):
+        return [
+            ClusterEvent(EventResource.PVC, ActionType.ALL),
+            ClusterEvent(EventResource.PV, ActionType.ALL),
+            ClusterEvent(EventResource.STORAGE_CLASS, ActionType.ALL),
+            ClusterEvent(EventResource.NODE, ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
+        ]
+
+
+class VolumeZonePlugin(_PassFilter):
+    name = "VolumeZone"
+
+    def events_to_register(self):
+        return [
+            ClusterEvent(EventResource.PVC, ActionType.ALL),
+            ClusterEvent(EventResource.PV, ActionType.ALL),
+            ClusterEvent(EventResource.NODE, ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
+        ]
+
+
+class DynamicResourcesPlugin(_PassFilter, _PassScore):
+    name = "DynamicResources"
+    dynamic = True
+
+    def events_to_register(self):
+        return [
+            ClusterEvent(EventResource.RESOURCE_CLAIM, ActionType.ALL),
+            ClusterEvent(EventResource.RESOURCE_SLICE, ActionType.ALL),
+            ClusterEvent(EventResource.DEVICE_CLASS, ActionType.ALL),
+            ClusterEvent(EventResource.NODE, ActionType.ADD),
+        ]
+
+    def normalize(self, scores, mask):
+        return torch.where(mask, scores, 0.0)  # already 0..MAX_NODE_SCORE
+
+
+class PodTopologySpreadPlugin(_PassFilter, _PassScore):
+    name = "PodTopologySpread"
+    dynamic = True
+
+    def __init__(self, domain_cap: int = 256):
+        self.domain_cap = domain_cap
+
+    def events_to_register(self):
+        return [
+            ClusterEvent(EventResource.POD, ActionType.ALL),
+            ClusterEvent(EventResource.NODE, ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
+        ]
+
+    def normalize(self, scores, mask):
+        """100·(max+min−s)/max over scored nodes; NaN (ignored) → 0
+        (scoring.go NormalizeScore) — the reference plugin's normalize,
+        which gives 100 on every feasible node of an all-zero plane."""
+        valid = mask & ~torch.isnan(scores)
+        big = torch.where(valid, scores, float("-inf"))
+        small = torch.where(valid, scores, float("inf"))
+        mx = big.amax(dim=-1, keepdim=True)
+        mn = small.amin(dim=-1, keepdim=True)
+        mx = torch.where(torch.isfinite(mx), mx, 0.0)
+        mn = torch.where(torch.isfinite(mn), mn, 0.0)
+        out = torch.where(
+            mx == 0,
+            float(MAX_NODE_SCORE),
+            float(MAX_NODE_SCORE) * (mx + mn - scores) / torch.where(mx == 0, 1.0, mx),
+        )
+        return torch.where(valid, out, 0.0)
+
+
+class InterPodAffinityPlugin(_PassFilter, _PassScore):
+    name = "InterPodAffinity"
+    dynamic = True
+
+    def __init__(self, domain_cap: int = 256):
+        self.domain_cap = domain_cap
+
+    def events_to_register(self):
+        return [
+            ClusterEvent(EventResource.POD, ActionType.ALL),
+            ClusterEvent(EventResource.NODE, ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
+        ]
+
+    def normalize(self, scores, mask):
+        """100·(s−min)/(max−min) over feasible nodes (scoring.go:255+)."""
+        big = torch.where(mask, scores, float("-inf"))
+        small = torch.where(mask, scores, float("inf"))
+        mx = big.amax(dim=-1, keepdim=True)
+        mn = small.amin(dim=-1, keepdim=True)
+        diff = mx - mn
+        ok = torch.isfinite(diff) & (diff > 0)
+        return torch.where(
+            ok & mask, float(MAX_NODE_SCORE) * (scores - torch.where(ok, mn, 0.0))
+            / torch.where(ok, diff, 1.0), 0.0
+        )

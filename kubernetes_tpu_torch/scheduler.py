@@ -1,0 +1,485 @@
+"""TorchScheduler: the synchronous end-to-end scheduling loop on the port.
+
+Reference: the JAX package's TPUScheduler with ``pipeline=False`` and no
+tie noise (scheduler.py: watch handlers :705-800, schedule_cycle, the fused
+dedup cycle ``fused_batch`` :969-1017, bind :3461, run_until_idle :3777),
+itself after pkg/scheduler/scheduler.go (scheduleOne :496, assume :424,
+bind :446) and eventhandlers.go (addAllEventHandlers :251).
+
+One cycle: pop ≤ B → cache snapshot → encoder sync → deferred row-scatter →
+batch compile → identity-class dedup gate → the fused cycle on the device
+(apply_scatter, the dedup engine's rounds through the four kernels, gang
+all-or-nothing, diagnosis bits, pack) → one [3, B] fetch → assume → bind
+through the store → requeue the unschedulable pods with backoff.  Bindings equal the JAX scheduler's, pod for pod.
+
+Scope guard: a batch or cluster that needs anything outside this slice —
+pod (anti)affinity or topology-spread content, existing pods with affinity
+terms, gang members, volumes, resource claims, extenders, profiles,
+``pipeline=True``, a batch too heterogeneous for the dedup engine, a
+batch larger than the auction kernel's one block on cuda, or a failing
+pod that could preempt — raises NotImplementedError naming the
+ROADMAP item.  It never gives a silently different answer.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Set
+
+import numpy as np
+import torch
+
+from . import plugins as P
+from .api import objects as v1
+from .device import resolve_device
+from .framework import events as fwk_events
+from .framework.events import ActionType, ClusterEvent, EventResource
+from .framework.interface import PluginWithWeight
+from .framework.podbatch import PodBatchCompiler, batch_to_device, identity_classes
+from .framework.runtime import (
+    BatchedFramework,
+    diagnose_bits_from_plane,
+    initial_dynamic_state,
+    pack_diag,
+    uncoupled_flags,
+)
+from .gang import POD_GROUP_LABEL, gang_all_or_nothing
+from .queueing import PriorityQueue
+from .queueing.priority_queue import QueuedPodInfo
+from .sim.store import ADDED, DELETED, MODIFIED, ObjectStore, WatchEvent
+from .state.cache import Cache, Snapshot
+from .state.encoding import ClusterEncoder, apply_scatter
+from .state.units import pow2_round_up as _pow2
+
+DEFAULT_SCHEDULER_NAME = "default-scheduler"  # apis/config v1.Pod default
+
+
+def default_plugins(domain_cap: int) -> List[PluginWithWeight]:
+    """Default plugin set + weights, in the reference's order
+    (apis/config/v1beta3/default_plugins.go:32-51)."""
+    PW = PluginWithWeight
+    return [
+        PW(P.CoschedulingPlugin(), 1),
+        PW(P.NodeUnschedulablePlugin(), 0),
+        PW(P.NodeNamePlugin(), 0),
+        PW(P.TaintTolerationPlugin(), 3),
+        PW(P.NodeAffinityPlugin(), 2),
+        PW(P.NodePortsPlugin(), 0),
+        PW(P.FitPlugin(), 1),
+        PW(P.VolumeRestrictionsPlugin(), 0),
+        PW(P.NodeVolumeLimitsPlugin(), 0),
+        PW(P.VolumeBindingPlugin(), 0),
+        PW(P.VolumeZonePlugin(), 0),
+        PW(P.DynamicResourcesPlugin(), 1),
+        PW(P.PodTopologySpreadPlugin(domain_cap=domain_cap), 2),
+        PW(P.InterPodAffinityPlugin(domain_cap=domain_cap), 2),
+        PW(P.BalancedAllocationPlugin(), 1),
+        PW(P.ImageLocalityPlugin(), 1),
+    ]
+
+
+@dataclass
+class CycleStats:
+    attempted: int = 0
+    scheduled: int = 0
+    unschedulable: int = 0
+    batch_seconds: float = 0.0
+
+
+def _unpack_diag(bits: np.ndarray, n_filters: int) -> np.ndarray:
+    """int32[B] bitmask → bool[B, K] diagnosis bits."""
+    return (
+        (bits[:, None].astype(np.int64) >> np.arange(n_filters)[None, :]) & 1
+    ).astype(bool)
+
+
+def _queue_less(a: QueuedPodInfo, b: QueuedPodInfo) -> bool:
+    """The JAX scheduler's queue order for gang-free pods (the Coscheduling
+    QueueSort, gang/directory.py less): priority desc, then the pod's
+    creation timestamp, then its first-attempt timestamp."""
+    pa, pb = a.pod.spec.priority, b.pod.spec.priority
+    if pa != pb:
+        return pa > pb
+    ka = a.pod.metadata.creation_timestamp
+    kb = b.pod.metadata.creation_timestamp
+    if ka != kb:
+        return ka < kb
+    return a.initial_attempt_timestamp < b.initial_attempt_timestamp
+
+
+def _pod_out_of_scope(p: v1.Pod) -> Optional[str]:
+    """Why a pending pod needs something outside this slice, or None."""
+    aff = p.spec.affinity
+    if aff is not None:
+        pa, paa = aff.pod_affinity, aff.pod_anti_affinity
+        if (pa and (pa.required or pa.preferred)) or (
+                paa and (paa.required or paa.preferred)):
+            return ("pod (anti)affinity terms (ROADMAP Queue A item 7, "
+                    "Queue B B12)")
+    if p.spec.topology_spread_constraints:
+        return "topology-spread constraints (ROADMAP Queue A item 7, Queue B B11)"
+    if POD_GROUP_LABEL in p.metadata.labels:
+        return "gang membership (ROADMAP Queue A item 8, Queue B B14)"
+    if getattr(p.spec, "volumes", None):
+        return "volumes (ROADMAP Queue A item 8)"
+    if getattr(p.spec, "resource_claims", None):
+        return "resource claims (ROADMAP Queue A item 8, Queue B B14)"
+    return None
+
+
+class TorchScheduler:
+    """The synchronous scheduling loop over the port (see the module doc)."""
+
+    _KIND_RESOURCE = {
+        "PersistentVolumeClaim": EventResource.PVC,
+        "PersistentVolume": EventResource.PV,
+        "StorageClass": EventResource.STORAGE_CLASS,
+        "CSINode": EventResource.CSI_NODE,
+        "Service": EventResource.SERVICE,
+    }
+    # gang and DRA objects drive subsystems this slice does not carry
+    _UNSUPPORTED_KINDS = {"PodGroup", "ResourceClaim", "ResourceSlice",
+                          "DeviceClass"}
+    # kinds that never unblock scheduling (avoid wildcard requeue storms)
+    _IGNORED_KINDS = {"Lease", "Event", "ReplicaSet", "Deployment", "Job",
+                      "StatefulSet", "DaemonSet", "HorizontalPodAutoscaler",
+                      "ResourceClaimTemplate"}
+
+    def __init__(
+        self,
+        store: ObjectStore,
+        batch_size: int = 64,
+        clock=time.monotonic,
+        namespace_labels: Optional[Dict[str, Dict[str, str]]] = None,
+        pod_initial_backoff: float = 1.0,
+        pod_max_backoff: float = 10.0,
+        batch_wait: float = 0.5,
+        device="cuda",
+        pipeline: bool = False,
+        extenders: Optional[List] = None,
+        profiles: Optional[Dict[str, object]] = None,
+    ):
+        if pipeline:
+            raise NotImplementedError(
+                "pipeline=True (deep-chained dispatch) is not ported yet "
+                "(ROADMAP Queue A item 5)")
+        if extenders:
+            raise NotImplementedError(
+                "scheduler extenders are not ported yet (ROADMAP Queue A item 6)")
+        if profiles:
+            raise NotImplementedError(
+                "scheduler profiles are not ported yet (ROADMAP Queue A item 10)")
+        if torch.device(device).type == "cuda" and batch_size > 1024:
+            raise NotImplementedError(
+                f"batch_size={batch_size} on cuda: the auction kernel runs one "
+                "block of at most 1024 pods; larger batches wait for the "
+                "multi-block auction (ROADMAP Queue B B5)")
+        self.device = resolve_device(device)
+        self.store = store
+        self.clock = clock
+        self.batch_size = batch_size
+        self.batch_wait = batch_wait
+        self.cache = Cache(clock=clock)
+        self.snapshot = Snapshot()
+        self.encoder = ClusterEncoder(device=self.device)
+        self.namespace_labels = namespace_labels or {}
+        self.compiler = PodBatchCompiler(self.encoder, self.namespace_labels)
+        self.fw = BatchedFramework(default_plugins(self.encoder.domain_cap))
+        self.n_filters = len(self.fw.filter_names)
+        event_map: Dict[ClusterEvent, Set[str]] = {}
+        for pw in default_plugins(8):
+            for ev in pw.plugin.events_to_register():
+                event_map.setdefault(ev, set()).add(pw.plugin.name)
+        self.queue = PriorityQueue(
+            less=_queue_less, clock=clock, cluster_event_map=event_map,
+            pod_initial_backoff=pod_initial_backoff,
+            pod_max_backoff=pod_max_backoff,
+        )
+        # host-vs-device wall per phase (seconds, summed over cycles):
+        # "device" brackets the fused cycle from the first upload to the
+        # [3, B] fetch, which synchronises with the card
+        self.phase_wall: Dict[str, float] = {
+            k: 0.0 for k in ("snapshot", "compile", "device", "bind")}
+        self.cycles = 0
+        self.rounds_total = 0
+        # per-pod attempt latency (seconds, wall clock): from the cycle's
+        # start (after the pop) to the pod's own bind or requeue
+        self.attempt_seconds: List[float] = []
+        store.watch(self._on_event)
+
+    # --- event handlers (eventhandlers.go:251+) ------------------------------
+
+    def _on_event(self, ev: WatchEvent):
+        if ev.kind == "Node":
+            self._on_node_event(ev)
+        elif ev.kind == "Pod":
+            self._on_pod_event(ev)
+        elif ev.kind in self._UNSUPPORTED_KINDS:
+            raise NotImplementedError(
+                f"{ev.kind} objects drive the gang / DRA subsystems, which are "
+                "not ported yet (ROADMAP Queue A item 8)")
+        elif ev.kind in self._IGNORED_KINDS:
+            return
+        else:
+            resource = self._KIND_RESOURCE.get(ev.kind, EventResource.WILDCARD)
+            action = {ADDED: ActionType.ADD, MODIFIED: ActionType.UPDATE,
+                      DELETED: ActionType.DELETE}.get(ev.type, ActionType.ALL)
+            if resource == EventResource.WILDCARD:
+                action = ActionType.ALL
+            self.queue.move_all_to_active_or_backoff(ClusterEvent(resource, action))
+
+    def _node_update_action(self, old: Optional[v1.Node], new: v1.Node) -> ActionType:
+        if old is None:
+            return ActionType.ADD
+        action = ActionType(0)
+        if old.status.allocatable != new.status.allocatable:
+            action |= ActionType.UPDATE_NODE_ALLOCATABLE
+        if old.metadata.labels != new.metadata.labels:
+            action |= ActionType.UPDATE_NODE_LABEL
+        if old.spec.taints != new.spec.taints or old.spec.unschedulable != new.spec.unschedulable:
+            action |= ActionType.UPDATE_NODE_TAINT
+        return action or ActionType.UPDATE_NODE_CONDITION
+
+    def _on_node_event(self, ev: WatchEvent):
+        node: v1.Node = ev.obj
+        if ev.type == ADDED:
+            self.cache.add_node(node)
+            self.queue.move_all_to_active_or_backoff(fwk_events.NODE_ADD)
+        elif ev.type == MODIFIED:
+            old_info = self.cache._nodes.get(node.metadata.name)
+            old = old_info.node if old_info else None
+            action = self._node_update_action(old, node)
+            self.cache.update_node(node)
+            self.queue.move_all_to_active_or_backoff(
+                ClusterEvent(EventResource.NODE, action))
+        elif ev.type == DELETED:
+            self.cache.remove_node(node.metadata.name)
+            self.queue.move_all_to_active_or_backoff(fwk_events.NODE_DELETE)
+
+    def _on_pod_event(self, ev: WatchEvent):
+        pod: v1.Pod = ev.obj
+        assigned = bool(pod.spec.node_name)
+        # responsibleForPod: only pods naming this scheduler enter the queue;
+        # assigned pods always feed the cache (they occupy resources)
+        if not assigned and (pod.spec.scheduler_name or DEFAULT_SCHEDULER_NAME) \
+                != DEFAULT_SCHEDULER_NAME:
+            return
+        if ev.type == ADDED:
+            if assigned:
+                self.cache.add_pod(pod)
+            else:
+                self.queue.add(pod)
+        elif ev.type == MODIFIED:
+            if assigned:
+                if pod.uid in self.cache._pod_states and not self.cache.is_assumed(pod):
+                    self.cache.update_pod(pod, pod)
+                else:
+                    self.cache.add_pod(pod)  # also confirms an assumed pod
+                self.queue.move_all_to_active_or_backoff(fwk_events.POD_UPDATE)
+            else:
+                self.queue.update(pod, pod)
+        elif ev.type == DELETED:
+            if assigned or pod.uid in self.cache._pod_states:
+                self.cache.remove_pod(pod)
+                self.queue.move_all_to_active_or_backoff(fwk_events.POD_DELETE)
+            else:
+                self.queue.delete(pod)
+
+    def presize(self, n_nodes: int, n_pods: int):
+        """Pre-grow the encoder's node/pod tiers (the reference's presize)."""
+        self.encoder.reserve(
+            _pow2(n_nodes, 1), _pow2(n_pods, 1),
+            n_ids=16 * n_nodes + 8 * n_pods,
+        )
+        self.encoder._scatter_bucket.setdefault(
+            "node_valid",
+            min(_pow2(n_nodes, 32), max(256, _pow2(self.batch_size, 32))))
+        self.encoder._scatter_bucket.setdefault(
+            "pod_valid",
+            min(_pow2(max(n_pods, 1), 32),
+                max(256, _pow2(2 * self.batch_size, 32))))
+
+    # --- the scheduling cycle ----------------------------------------------------
+
+    def schedule_cycle(self) -> CycleStats:
+        """One synchronous cycle: dispatch, fetch, assume, bind."""
+        stats = CycleStats()
+        if self.batch_wait > 0:
+            self._await_backoff_wave()
+        infos = self.queue.pop_batch(
+            self.batch_size,
+            group_key=lambda qi: qi.pod.spec.scheduler_name or DEFAULT_SCHEDULER_NAME)
+        if not infos:
+            return stats
+        for qi in infos:
+            why = _pod_out_of_scope(qi.pod)
+            if why is not None:
+                raise NotImplementedError(
+                    f"pod {qi.pod.key()} needs {why}: outside this slice")
+        t0 = self.clock()
+        self._cycle_start = time.perf_counter()
+        cycle = self.queue.scheduling_cycle()
+        node_row, diag = self._dispatch(infos)
+        stats.batch_seconds = self.clock() - t0
+        self._complete(infos, node_row)
+        s = self._bind_phase(infos, node_row, diag, cycle)
+        stats.attempted = s.attempted
+        stats.scheduled = s.scheduled
+        stats.unschedulable = s.unschedulable
+        stats.batch_seconds = self.clock() - t0
+        self.cycles += 1
+        return stats
+
+    def _dispatch(self, infos: List[QueuedPodInfo]):
+        t0 = time.perf_counter()
+        changed = self.cache.update_snapshot(self.snapshot)
+        self.encoder.sync(self.snapshot, changed)
+        t1 = time.perf_counter()
+        pods = [qi.pod for qi in infos]
+        batch = self.compiler.compile(pods, pad_to=self.batch_size)
+        class_of, reps = identity_classes(batch)
+        if len(reps) * 2 > batch.size:
+            # the reference routes such a batch to the full [B, N] auction
+            raise NotImplementedError(
+                f"batch of {len(reps)} identity classes in {batch.size} slots: "
+                "the full (non-dedup) assignment engine is not ported yet "
+                "(ROADMAP Queue A item 6, Queue B B8)")
+        cpad = _pow2(len(reps), 4)
+        rep_rows = np.full(cpad, reps[0], dtype=np.int64)
+        rep_rows[: len(reps)] = reps
+        t2 = time.perf_counter()
+        packed = self._fused_cycle(batch, class_of, rep_rows)
+        t3 = time.perf_counter()
+        self.phase_wall["snapshot"] += t1 - t0
+        self.phase_wall["compile"] += t2 - t1
+        self.phase_wall["device"] += t3 - t2
+        self.rounds_total += int(packed[2, 0])
+        return packed[0].copy(), _unpack_diag(packed[1], self.n_filters)
+
+    def _fused_cycle(self, batch, class_of: np.ndarray, rep_rows: np.ndarray) -> np.ndarray:
+        """The device half of the cycle (the reference's fused_batch dedup
+        branch, scheduler.py:969-1017) → the packed [3, B] result on the
+        host (the cycle's one fetch)."""
+        dev = self.device
+        dsnap, upd = self.encoder.to_device_deferred()
+        dsnap = apply_scatter(dsnap, upd)
+        self.encoder.commit_device(dsnap)
+        # the reference's reserve_nominated (scheduler.py:889) adds only the
+        # requests of pods that preemption nominated; this slice has no
+        # preemption (ROADMAP Queue A item 9, Queue B B2), so there are none
+        dyn = initial_dynamic_state(dsnap)
+        dbatch = batch_to_device(batch, dev)
+        rep_batch = dbatch.take(torch.from_numpy(rep_rows).to(dev))
+        b = batch.size
+        order = torch.arange(b, dtype=torch.int32, device=dev)
+        class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
+        res = self.fw._batch_assign_dedup(
+            dbatch, dsnap, dyn, None, order, uncoupled_flags(b, dev),
+            (class_t, rep_batch, None))
+        gang_seg = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        node_row = gang_all_or_nothing(res.node_row, gang_seg)
+        # a dispatched batch holds at least one valid pod, so round 0 ran
+        bits = diagnose_bits_from_plane(res.diag_plane, self.n_filters)[class_t]
+        return pack_diag(bits, node_row, res.rounds).cpu().numpy()
+
+    def _complete(self, infos: List[QueuedPodInfo], node_row: np.ndarray) -> None:
+        """Assume every placed pod in the cache (assume :571)."""
+        name_of = self.encoder.row_to_name()
+        self._node_names = [None] * len(infos)
+        for i, qi in enumerate(infos):
+            row = int(node_row[i])
+            if row < 0:
+                continue
+            name = name_of.get(row)
+            info = self.cache._nodes.get(name) if name is not None else None
+            if info is None or info.node is None:
+                node_row[i] = -1  # node gone since dispatch — retry the pod
+                continue
+            self._node_names[i] = name
+            self.cache.assume_pod(qi.pod, name)
+
+    def _bind_phase(self, infos, node_row, diag, cycle) -> CycleStats:
+        """Bind every placed pod; diagnose and requeue every failed one."""
+        t0 = time.perf_counter()
+        stats = CycleStats(attempted=len(infos))
+        failing = [i for i in range(len(infos)) if int(node_row[i]) < 0]
+        if failing:
+            valid = self.encoder.pod_valid
+            prios = self.encoder.pod_priority[valid]
+            min_sched_prio = int(prios.min()) if prios.size else 1 << 30
+            for i in failing:
+                pod = infos[i].pod
+                if pod.spec.preemption_policy != "Never" \
+                        and min_sched_prio < (pod.spec.priority or 0):
+                    raise NotImplementedError(
+                        f"pod {pod.key()} failed and could preempt: preemption "
+                        "is not ported yet (ROADMAP Queue A item 9)")
+        names = self.fw.filter_names
+        for i, qi in enumerate(infos):
+            row = int(node_row[i])
+            if row >= 0:
+                node_name = self._node_names[i]
+                ok = self.store.bind_pod(qi.pod.namespace, qi.pod.metadata.name,
+                                         node_name)
+                if ok:
+                    self.cache.finish_binding(qi.pod)
+                    stats.scheduled += 1
+                else:  # pod deleted mid-cycle: roll back
+                    self.cache.forget_pod(qi.pod)
+                    if self.store.get("Pod", qi.pod.namespace,
+                                      qi.pod.metadata.name) is not None:
+                        self.queue.add_unschedulable(qi, cycle)
+            else:
+                row_bits = diag[i]
+                failing_plugins = {names[k] for k in range(len(names))
+                                   if not bool(row_bits[k])}
+                qi.unschedulable_plugins = failing_plugins or set(names)
+                stats.unschedulable += 1
+                self.queue.add_unschedulable(qi, cycle)
+            self.attempt_seconds.append(time.perf_counter() - self._cycle_start)
+        self.phase_wall["bind"] += time.perf_counter() - t0
+        return stats
+
+    def _await_backoff_wave(self) -> None:
+        """Hold the cycle briefly while an imminent backoff wave drains into
+        the active queue (the reference's batch-formation hysteresis)."""
+        real_deadline = time.monotonic() + self.batch_wait
+        while True:
+            nxt = self.queue.next_backoff_expiry()
+            a, b, _ = self.queue.pending_count()
+            if b == 0 or nxt is None or a >= self.batch_size // 2 or a >= b:
+                return
+            now = self.clock()
+            if time.monotonic() >= real_deadline or nxt - now > self.batch_wait:
+                return
+            time.sleep(min(0.02, max(nxt - now, 0.001)))
+
+    def run_until_idle(self, max_cycles: int = 1000,
+                       backoff_wait: Optional[float] = None) -> CycleStats:
+        """Drive cycles until nothing is attempted or waiting out backoff."""
+        if backoff_wait is None:
+            backoff_wait = 1.2 * self.queue._max_backoff
+        total = CycleStats()
+        waited = 0.0
+        cycles = 0
+        while cycles < max_cycles:
+            s = self.schedule_cycle()
+            if s.attempted == 0:
+                _a, b, _u = self.queue.pending_count()
+                if b == 0 or waited >= backoff_wait:
+                    break
+                time.sleep(0.05)
+                waited += 0.05
+                continue
+            cycles += 1
+            if s.scheduled:
+                waited = 0.0
+            total.attempted += s.attempted
+            total.scheduled += s.scheduled
+            total.unschedulable += s.unschedulable
+            total.batch_seconds += s.batch_seconds
+        return total
+
+
+__all__ = ["TorchScheduler", "default_plugins"]

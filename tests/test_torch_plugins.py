@@ -1,0 +1,249 @@
+"""Plugin parity: every plugin of the default set, port against the JAX package.
+
+The JAX encoder's arrays go into the port through convert.py, so both
+packages evaluate the same inputs.  For every plugin of ``default_plugins``
+the filter plane, the raw score plane and the normalized plane must be
+equal with no tolerance; so must the composed mask / total, the diagnosis
+bits, and the kernels' plain versions (K1 bit plane + raw planes, K2 total)
+at class granularity.  The clusters cover taints of all three effects,
+tolerations (Exists / Equal / empty key), nodeSelector, required and
+preferred node affinity, host ports with and without a host IP,
+multi-image pods, unschedulable and NotReady nodes, and capacities that put
+scores exactly on a floor boundary.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubernetes_tpu.framework.podbatch import PodBatchCompiler as JCompiler
+from kubernetes_tpu.framework.podbatch import identity_classes
+from kubernetes_tpu.framework.runtime import BatchedFramework as JFramework
+from kubernetes_tpu.framework.runtime import initial_dynamic_state
+from kubernetes_tpu.scheduler import default_plugins as j_default_plugins
+from kubernetes_tpu.state.cache import Cache as JCache, Snapshot as JSnapshot
+from kubernetes_tpu.state.encoding import ClusterEncoder as JEncoder
+from kubernetes_tpu_torch.convert import (
+    batch_from_numpy,
+    dyn_from_numpy,
+    snapshot_from_numpy,
+)
+from kubernetes_tpu_torch.framework.runtime import BatchedFramework as TFramework
+from kubernetes_tpu_torch.kernels.filter_score import filter_score_planes_plain
+from kubernetes_tpu_torch.kernels.normalize import normalize_combine_plain
+from kubernetes_tpu_torch.plugins.nodeaffinity import NodeAffinityPlugin
+from kubernetes_tpu_torch.plugins.trivial import image_scaled_by_id
+from kubernetes_tpu_torch.scheduler import default_plugins as t_default_plugins
+from kubernetes_tpu_torch.state.encoding import SNAPSHOT_FIELDS
+
+from tests.test_torch_common import (
+    make_node_obj,
+    make_pod_obj,
+    node_descs,
+    pod_descs,
+    scheduled_descs,
+)
+
+
+def batch_arrays(batch) -> dict:
+    """A JAX PodBatch as a dict of numpy arrays (nested structs as dicts)."""
+    out = {}
+    for f in dataclasses.fields(batch):
+        if f.name == "pods":
+            continue
+        v = getattr(batch, f.name)
+        if dataclasses.is_dataclass(v):
+            out[f.name] = batch_arrays(v)
+        elif isinstance(v, (np.ndarray, jnp.ndarray)):
+            out[f.name] = np.asarray(v)
+        else:
+            out[f.name] = v
+    return out
+
+
+def snapshot_arrays(dsnap) -> dict:
+    return {k: np.asarray(getattr(dsnap, k)) for k in SNAPSHOT_FIELDS}
+
+
+def build_problem(seed: int, n_nodes: int = 48, n_sched: int = 30, n_pods: int = 40,
+                  boundary: bool = False):
+    """JAX-side problem + the same inputs converted into the port."""
+    rng = np.random.default_rng(seed)
+    nodes = node_descs(rng, n_nodes)
+    if boundary:
+        # empty 1000m / 4Gi nodes: a 250m / 1Gi pod scores Fit exactly
+        # 75 per dimension and BalancedAllocation exactly 100
+        for d in nodes[:8]:
+            d.update(cpu="1000m", memory="4Gi", taints=[], unschedulable=False,
+                     not_ready=False)
+    names = [d["name"] for d in nodes]
+    sched = scheduled_descs(rng, n_sched, names[8:] if boundary else names)
+    pods = pod_descs(rng, n_pods)
+    if boundary:
+        pods[0] = dict(pods[0], req={"cpu": "250m", "memory": "1Gi"})
+    cache = JCache()
+    for d in nodes:
+        cache.add_node(make_node_obj("jax", d))
+    for d in sched:
+        cache.add_pod(make_pod_obj("jax", d))
+    snap = JSnapshot()
+    cache.update_snapshot(snap)
+    enc = JEncoder()
+    enc.full_sync(snap)
+    hbatch = JCompiler(enc).compile([make_pod_obj("jax", d) for d in pods], pad_to=64)
+    fw = JFramework(j_default_plugins(enc.domain_cap))
+    host_auxes = fw.host_prepare(hbatch, snap, enc)
+    batch = jax.tree_util.tree_map(jnp.asarray, hbatch)
+    dsnap = enc.to_device()
+    dyn = initial_dynamic_state(dsnap)
+    auxes = fw.prepare(batch, dsnap, dyn, host_auxes)
+    tsnap = snapshot_from_numpy(snapshot_arrays(dsnap), device="cpu")
+    tbatch = batch_from_numpy(batch_arrays(batch), device="cpu")
+    tdyn = dyn_from_numpy({"requested": np.asarray(dyn.requested),
+                           "non_zero": np.asarray(dyn.non_zero)}, device="cpu")
+    tfw = TFramework(t_default_plugins(enc.domain_cap))
+    return dict(fw=fw, batch=batch, hbatch=hbatch, dsnap=dsnap, dyn=dyn,
+                auxes=auxes, tfw=tfw, tbatch=tbatch, tsnap=tsnap, tdyn=tdyn,
+                host_auxes=host_auxes, planes=_jax_planes(fw, batch, dsnap, dyn, auxes))
+
+
+def _jax_planes(fw, batch, dsnap, dyn, auxes):
+    """Every plugin's filter / raw score / normalized plane, the composed
+    mask and total, and the diagnosis bits — from ONE jitted program, the
+    way the reference scheduler evaluates them."""
+
+    def planes(batch, dsnap, dyn, auxes):
+        mask = fw.run_filters(batch, dsnap, dyn, auxes)
+        out = {"mask": mask,
+               "scores": fw.run_scores(batch, dsnap, dyn, auxes, mask),
+               "diag": fw.diagnose_bits(batch, dsnap, dyn, auxes)}
+        for pw, aux in zip(fw.plugins, auxes):
+            p = pw.plugin
+            if hasattr(p, "filter"):
+                out[p.name + ".filter"] = p.filter(batch, dsnap, dyn, aux)
+            if hasattr(p, "score"):
+                raw = p.score(batch, dsnap, dyn, aux, mask=mask)
+                out[p.name + ".score"] = raw
+                out[p.name + ".normalize"] = p.normalize(raw, mask)
+        return out
+
+    res = jax.jit(planes)(batch, dsnap, dyn, auxes)
+    return {k: np.asarray(v) for k, v in res.items()}
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _eq(a, b, what):
+    a, b = _np(a), _np(b)
+    a = np.broadcast_to(a, b.shape) if a.shape != b.shape else a
+    assert a.shape == b.shape, what
+    assert np.array_equal(a, b), (what, np.argwhere(a != b)[:5])
+
+
+@pytest.fixture(scope="module", params=[0, 1, 2])
+def problem(request):
+    return build_problem(request.param, boundary=request.param == 2)
+
+
+def test_plugin_list_matches(problem):
+    jn = [(pw.plugin.name, pw.weight) for pw in problem["fw"].plugins]
+    tn = [(pw.plugin.name, pw.weight) for pw in problem["tfw"].plugins]
+    assert jn == tn
+    assert problem["fw"].filter_names == problem["tfw"].filter_names
+    # every registered requeue event matches, plugin by plugin
+    for jp, tp in zip(problem["fw"].plugins, problem["tfw"].plugins):
+        je = [(e.resource.value, int(e.action_type), e.label)
+              for e in jp.plugin.events_to_register()]
+        te = [(e.resource.value, int(e.action_type), e.label)
+              for e in tp.plugin.events_to_register()]
+        assert je == te, jp.plugin.name
+
+
+def test_per_plugin_planes_equal(problem):
+    p, jp_ = problem, problem["planes"]
+    jmask = jp_["mask"]
+    tmask = p["tfw"].run_filters(p["tbatch"], p["tsnap"], p["tdyn"])
+    _eq(jmask, tmask, "mask")
+    assert jmask.any() and not jmask.all()
+    tm = torch.from_numpy(jmask.copy())
+    for tpw in p["tfw"].plugins:
+        tp = tpw.plugin
+        if hasattr(tp, "filter"):
+            _eq(jp_[tp.name + ".filter"],
+                tp.filter(p["tbatch"], p["tsnap"], p["tdyn"], None),
+                f"{tp.name} filter")
+        if hasattr(tp, "score"):
+            traw = tp.score(p["tbatch"], p["tsnap"], p["tdyn"], None, mask=tm)
+            _eq(jp_[tp.name + ".score"], traw, f"{tp.name} score")
+            _eq(jp_[tp.name + ".normalize"], tp.normalize(traw, tm),
+                f"{tp.name} normalize")
+
+
+def test_compute_and_diagnosis_equal(problem):
+    p, jp_ = problem, problem["planes"]
+    tm, ts = p["tfw"].compute(p["tbatch"], p["tsnap"], p["tdyn"])
+    _eq(jp_["mask"], tm, "compute mask")
+    _eq(jp_["scores"], ts, "compute scores")
+    _eq(jp_["diag"], p["tfw"].diagnose_bits(p["tbatch"], p["tsnap"], p["tdyn"]),
+        "diagnose_bits")
+
+
+def test_kernel_plain_versions_equal_reference(problem):
+    """K1's bit plane + raw planes and K2's total, at class granularity,
+    against the JAX plugins run on the class representatives."""
+    p = problem
+    class_of, reps = identity_classes(p["hbatch"])
+    jrep = p["batch"].take(jnp.asarray(reps))
+    jrep_aux = p["fw"].prepare(jrep, p["dsnap"], p["dyn"], {
+        k: (v if v is None or k != "Coscheduling" else (v[0], v[1][reps]))
+        for k, v in p["host_auxes"].items()})
+    jp_ = _jax_planes(p["fw"], jrep, p["dsnap"], p["dyn"], jrep_aux)
+    jm, js = jp_["mask"], jp_["scores"]
+    trep = p["tbatch"].take(torch.from_numpy(reps.astype(np.int64)))
+    fs_plan, comb_plan = p["tfw"].kernel_plans()
+    na = NodeAffinityPlugin()
+    bits, raw = filter_score_planes_plain(
+        trep, p["tsnap"], p["tdyn"], na.filter(trep, p["tsnap"], p["tdyn"]),
+        na.score(trep, p["tsnap"], p["tdyn"]), image_scaled_by_id(p["tsnap"]),
+        fs_plan)
+    n_filters = len(p["tfw"].filter_names)
+    full = (1 << n_filters) - 1
+    _eq(jm, bits == full, "K1 mask")
+    # each bit is that filter's plane AND live AND valid
+    live = np.asarray(p["dsnap"].node_valid & p["dsnap"].node_ready)[None, :] \
+        & np.asarray(jrep.valid)[:, None]
+    k = 0
+    for jpw in p["fw"].plugins:
+        if not hasattr(jpw.plugin, "filter"):
+            continue
+        plane = jp_[jpw.plugin.name + ".filter"] & live
+        _eq(plane, ((bits >> k) & 1).bool(), f"K1 bit {jpw.plugin.name}")
+        k += 1
+    raw_names = ["TaintToleration", "NodeAffinity", "NodeResourcesFit",
+                 "NodeResourcesBalancedAllocation", "ImageLocality"]
+    for i, name in enumerate(raw_names):
+        _eq(jp_[name + ".score"], raw[i], f"K1 raw {name}")
+    total, feas = normalize_combine_plain(bits, full, raw, comb_plan)
+    _eq(js, total, "K2 total")
+    _eq(np.asarray(jm).sum(axis=1).astype(np.int32), feas, "K2 feasible count")
+
+
+def test_floor_boundary_scores_are_exact():
+    """The boundary nodes score Fit = 75 and BalancedAllocation = 100 for
+    the 250m / 1Gi pod — exact floors, equal in both packages."""
+    p = build_problem(2, boundary=True)
+    fit = [pw.plugin for pw in p["tfw"].plugins if pw.plugin.name == "NodeResourcesFit"][0]
+    ba = [pw.plugin for pw in p["tfw"].plugins
+          if pw.plugin.name == "NodeResourcesBalancedAllocation"][0]
+    f = fit.score(p["tbatch"], p["tsnap"], p["tdyn"])
+    b = ba.score(p["tbatch"], p["tsnap"], p["tdyn"])
+    assert torch.all(f[0, :8] == 75.0)
+    assert torch.all(b[0, :8] == 100.0)
