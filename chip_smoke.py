@@ -5,32 +5,48 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the four CUDA kernels from kubernetes_tpu_torch/csrc/ (one nvcc
+1. Build the eight CUDA kernels from kubernetes_tpu_torch/csrc/ (one nvcc
    per source, started together).
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
-   CUDA tensors — random and adversarial inputs (all-tie rows, −inf rows,
-   floor-boundary values) at N = 8192 and N = 131072 — exactly equal.
-3. The main path at full size: NorthStar/5000Nodes/10000Pods (5000
-   node_default nodes, 2000 pre-bound and 10000 pending pod_default pods)
-   through TorchScheduler(batch_size=512) on cuda.  Launch counts are zeroed
-   just before and read just after; every kernel must have launched.  Every
-   pod must be bound and no node oversubscribed.
-4. A heterogeneous 5000-node cluster with ~2048 pending pods of 8 classes,
-   scheduled once on cuda (kernels) and once on cpu (plain versions): the
-   bindings must be identical.
-5. Per-kernel timing at the main path's shapes: device time per call
-   (torch.profiler), beside the plain version's wall and, for the top-K,
-   torch.topk / torch.sort; the least time the card could take (the
-   larger of the bytes over 3.35 TB/s and the scalar operations over the
-   67 TFLOP/s float32 peak) is computed from the inputs.
-6. One more NorthStar-shaped cycle under torch.profiler: the cycle's wall,
-   device time by kernel, and the device's idle share.
+   CUDA tensors, exactly equal.  K1–K4: random and adversarial inputs
+   (all-tie rows, −inf rows, floor-boundary values) at N = 8192 and
+   N = 131072.  K5–K8: every domain empty, nodes without the key,
+   minDomains above the present domains, all raw scores 0, ignored (NaN)
+   nodes, five domains with counts 379 and 4927, 3 and 64 domains, one and
+   two constraints.
+3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
+   and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
+   on cuda, launch counts zeroed just before and read just after: every pod
+   bound, no node oversubscribed, K1–K4 launched.
+4. TopologySpreading/5000Nodes at full width (5000 zoned nodes, 5000
+   pod_default pods scheduled first through the path, then 2000
+   pod_topology_spread pods, the measured run, counts zeroed just before):
+   every pod bound, no node oversubscribed, the spread pods' zone counts
+   within maxSkew 5, K1–K8 launched; pods/s, rounds per cycle, wall and
+   host read per round, phase wall.  Then PreferredTopologySpreading at
+   5000 nodes for one cycle of 512 ScheduleAnyway pods: all bound, K5–K8
+   launched.
+5. cuda == cpu bindings: a heterogeneous 5000-node cluster with ~2048
+   pending pods of 8 classes, and three 1000-node spread clusters (1000
+   pod_default pods first, then 512 DoNotSchedule, 512 ScheduleAnyway, or
+   256 spread + 256 pod_default pods in one batch).
+6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
+   round; K5–K8: a TopologySpreading cycle's first round): device time per
+   call (torch.profiler), beside the plain version's wall and, where one
+   PyTorch call computes the same function, that call's time; the least
+   time the card could take (the larger of the bytes over 3.35 TB/s and the
+   scalar operations over the 67 TFLOP/s float32 peak) from the inputs.
+7. One more NorthStar-shaped and one more TopologySpreading cycle under
+   torch.profiler: the cycle's wall, device time by kernel, and the
+   device's idle share.
 
-Output: progress lines, a ``{"kernels": [...]}`` line, the card's name and
-power limit as nvidia-smi prints them, and as the last line
+Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
+on the TopologySpreading run, which launches all eight), the card's name
+and power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
-cycle's table to chiprun_out/profile_cycle.txt.
+cycles' tables to chiprun_out/profile_cycle.txt and
+chiprun_out/profile_spread_cycle.txt.
 """
 
 from __future__ import annotations
@@ -376,6 +392,137 @@ def check_kernels(dev) -> dict:
     return err
 
 
+# --- phase 2: K5–K8 vs plain -------------------------------------------------------------
+
+
+def spread_case(name: str, gen, dev, *, c=4, cc=1, n=8192, p=8192, b=512, d=8, n_dom=3,
+                keyless=0.0, counted=0.9, min_domains=0, counts=None, mask_frac=0.9,
+                soft=True):
+    """A synthetic PodTopologySpread class view (the TSAux fields) plus the
+    round inputs, on ``dev``: ``n_dom`` live domains of ``d``, ``keyless``
+    of the nodes without the key, ``counts`` forced soft/hard count values
+    on the live domains, ``min_domains`` on every constraint."""
+    import torch
+
+    from kubernetes_tpu_torch.plugins.podtopologyspread import TSAux
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen)
+
+    dom = torch.randint(0, max(n_dom, 1), (c, cc, n), generator=gen, dtype=torch.int32)
+    has_key = rnd(c, cc, n) >= keyless
+    dom = torch.where(has_key, dom, d).to(torch.int32)
+    counted_hard = rnd(c, n) < counted
+    counted_soft = rnd(c, n) < counted
+    match_sched = rnd(c, cc, p) < 0.5
+    pod_node = torch.randint(-1, n, (p,), generator=gen, dtype=torch.int32)
+    hard_counts = torch.randint(0, 40, (c, cc, d + 1), generator=gen, dtype=torch.int32)
+    soft_counts = torch.randint(0, 40, (c, cc, d + 1), generator=gen, dtype=torch.int32)
+    if counts is not None:
+        vals = torch.tensor(counts, dtype=torch.int32)
+        idx = torch.randint(0, len(counts), (c, cc, d + 1), generator=gen)
+        hard_counts, soft_counts = vals[idx], vals[idx.flip(-1)]
+    hard_present = (rnd(c, cc, d + 1) < 0.8)
+    hard_present[..., n_dom:] = False
+    aux = TSAux(
+        hard_valid=rnd(c, cc) < 0.8,
+        soft_valid=(rnd(c, cc) < 0.8) if soft else torch.zeros((c, cc), dtype=torch.bool),
+        max_skew=torch.randint(1, 4, (c, cc), generator=gen, dtype=torch.int32),
+        min_domains=torch.full((c, cc), min_domains, dtype=torch.int32),
+        self_match=rnd(c, cc) < 0.5, dom_val=dom, has_key=has_key,
+        counted_hard=counted_hard, counted_soft=counted_soft,
+        hard_counts=hard_counts, soft_counts=soft_counts, hard_present=hard_present,
+        match_pending=rnd(c, cc, 4) < 0.6)
+    if counts is not None:  # the 379 / 4927 cases: maxSkew 1, every row soft
+        aux = aux._replace(max_skew=torch.ones((c, cc), dtype=torch.int32),
+                           soft_valid=torch.ones((c, cc), dtype=torch.bool))
+    full = (1 << 16) - 1
+    bits = torch.where(rnd(c, n) < mask_frac, full, full & ~(1 << 3)).to(torch.int32)
+    bits[c - 1] = torch.where(rnd(n) < 0.5, full, 0).to(torch.int32)
+    total = torch.where(bits == full, torch.randint(0, 700, (c, n), generator=gen).float(),
+                        float("-inf"))
+    commit = rnd(b) < 0.3
+    choice = torch.randint(0, n, (b,), generator=gen, dtype=torch.int32)
+    class_of = torch.randint(0, 4, (b,), generator=gen)
+    to = lambda t: t.to(dev)  # noqa: E731
+    return dict(name=name, aux=aux._replace(**{f: to(getattr(aux, f)) for f in aux._fields}),
+                match_sched=to(match_sched), pod_node=to(pod_node), d=d, full=full,
+                bits=to(bits), total=to(total), commit=to(commit), choice=to(choice),
+                class_of=to(class_of))
+
+
+def check_spread_kernels(dev) -> dict:
+    """K5–K8 against their plain versions on random and adversarial inputs:
+    every domain empty, nodes without the key, minDomains above the present
+    domains, a row whose raw scores are all 0 (max 0), ignored (NaN) nodes,
+    five domains with counts of 379 and 4927 under maxSkew 1, 3 and 64
+    domains, one and two constraints — every output exactly equal."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import spread as K
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    cases = [
+        spread_case("3 domains", gen, dev),
+        spread_case("64 domains, 2 constraints", gen, dev, cc=2, d=64, n_dom=64),
+        spread_case("keyless nodes (ignored / NaN)", gen, dev, keyless=0.3, cc=2),
+        spread_case("every domain empty", gen, dev, counted=0.0, n_dom=0),
+        spread_case("minDomains above present", gen, dev, min_domains=7, d=16, n_dom=5),
+        spread_case("5 domains, counts 379 / 4927", gen, dev, n_dom=5, counts=[379, 4927]),
+        spread_case("all raw scores 0 (max 0)", gen, dev, n_dom=5, counts=[0]),
+        spread_case("no soft constraint", gen, dev, soft=False, cc=2),
+        spread_case("no feasible node", gen, dev, mask_frac=0.0),
+    ]
+    err = {k: 0.0 for k in ("spread_prepare_counts", "spread_filter_bits",
+                            "spread_score_combine", "spread_update_classes")}
+    for cs in cases:
+        aux, what = cs["aux"], cs["name"]
+        args = (cs["match_sched"], cs["pod_node"], aux.dom_val, aux.counted_hard,
+                aux.counted_soft, cs["d"])
+        k5 = K.spread_prepare_counts(*args)
+        p5 = K.spread_prepare_counts_plain(*args)
+        torch.cuda.synchronize()
+        err["spread_prepare_counts"] = max(err["spread_prepare_counts"], require_equal(
+            f"spread_prepare_counts ({what})",
+            [("hard_counts", k5[0], p5[0]), ("soft_counts", k5[1], p5[1]),
+             ("hard_present", k5[2], p5[2])]))
+        for bit in (3, 12):
+            kb, pb = cs["bits"].clone(), cs["bits"].clone()
+            K.spread_filter_bits(aux, kb, bit)
+            K.spread_filter_bits_plain(aux, pb, bit)
+            torch.cuda.synchronize()
+            err["spread_filter_bits"] = max(err["spread_filter_bits"], require_equal(
+                f"spread_filter_bits ({what}, bit {bit})", [("bits", kb, pb)]))
+        kt, pt = cs["total"].clone(), cs["total"].clone()
+        K.spread_score_combine(aux, cs["bits"], cs["full"], kt, 2.0)
+        K.spread_score_combine_plain(aux, cs["bits"], cs["full"], pt, 2.0)
+        torch.cuda.synchronize()
+        err["spread_score_combine"] = max(err["spread_score_combine"], require_equal(
+            f"spread_score_combine ({what})", [("total", kt, pt)]))
+        ka = aux._replace(hard_counts=aux.hard_counts.clone(),
+                          soft_counts=aux.soft_counts.clone())
+        pa = aux._replace(hard_counts=aux.hard_counts.clone(),
+                          soft_counts=aux.soft_counts.clone())
+        K.spread_update_classes(ka, cs["commit"], cs["choice"], cs["class_of"])
+        K.spread_update_classes_plain(pa, cs["commit"], cs["choice"], cs["class_of"])
+        torch.cuda.synchronize()
+        err["spread_update_classes"] = max(err["spread_update_classes"], require_equal(
+            f"spread_update_classes ({what})",
+            [("hard_counts", ka.hard_counts, pa.hard_counts),
+             ("soft_counts", ka.soft_counts, pa.soft_counts)]))
+    # the adversarial cases hit what they are named for
+    c379 = cases[5]
+    raw = K.spread_raw_plane(c379["aux"], c379["bits"] == c379["full"])
+    # round(379 · log(7)) is 738 with XLA:CPU's log(7), 737 with the
+    # correctly rounded one
+    if not bool((raw == 738.0).any()) or bool((raw == 737.0).any()):
+        fail("spread check: the 379-count case did not score round(379 · log 7) = 738")
+    if not bool(torch.isnan(K.spread_raw_plane(cases[2]["aux"])).any()):
+        fail("spread check: the keyless case produced no ignored (NaN) node")
+    log(f"spread kernels vs plain: all equal over {len(cases)} cases")
+    return err
+
+
 # --- phase 3: NorthStar ---------------------------------------------------------------
 
 
@@ -383,7 +530,6 @@ def northstar(dev_name: str) -> dict:
     import torch
 
     from kubernetes_tpu_torch import kernels
-    from kubernetes_tpu_torch.api.resource import compute_pod_resource_request
     from kubernetes_tpu_torch.scheduler import TorchScheduler
     from kubernetes_tpu_torch.sim.store import ObjectStore
     from kubernetes_tpu_torch.testutil import make_node, make_pod
@@ -413,24 +559,12 @@ def northstar(dev_name: str) -> dict:
     wall = time.perf_counter() - t1
     launches = dict(kernels.LAUNCHES)
 
-    pods, _ = store.list("Pod")
-    unbound = [p.metadata.name for p in pods if not p.spec.node_name]
-    if unbound:
-        fail(f"NorthStar: {len(unbound)} pods unbound, e.g. {unbound[:3]}")
+    check_bound_and_fit("NorthStar", store)
     if stats.scheduled != n_pods:
         fail(f"NorthStar: scheduled {stats.scheduled} of {n_pods}")
-    used = {}
-    for p in pods:
-        r = compute_pod_resource_request(p)
-        u = used.setdefault(p.spec.node_name, [0, 0, 0])
-        u[0] += r.milli_cpu
-        u[1] += r.memory
-        u[2] += 1
-    for name, (cpu, mem, count) in used.items():
-        if cpu > 4000 or mem > 32 * 1024 ** 3 or count > 110:
-            fail(f"NorthStar: node {name} oversubscribed ({cpu}m, {mem} B, {count} pods)")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in ("filter_score_planes", "normalize_combine", "topk_rows",
+              "auction_resolve_commit"):
+        if launches[k] <= 0:
             fail(f"NorthStar: kernel {k} never launched on the main path")
     import numpy as np
 
@@ -459,7 +593,217 @@ def northstar(dev_name: str) -> dict:
     return {"record": out, "sched": sched}
 
 
-# --- phase 4: heterogeneous cluster, cuda vs cpu ------------------------------------------
+# --- phase 4: TopologySpreading / PreferredTopologySpreading ----------------------------
+
+ZONE_KEY = "topology.kubernetes.io/zone"
+ZONES3 = ["moon-1", "moon-2", "moon-3"]  # the suite's zones (perf/workloads.py)
+
+
+def zoned_node(i: int):
+    """node_zoned(ZONES3): a 4-cpu / 32Gi / 110-pod node in one of three zones."""
+    from kubernetes_tpu_torch.testutil import make_node
+
+    return (make_node().name(f"node-{i:06d}")
+            .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+            .label(ZONE_KEY, ZONES3[i % len(ZONES3)]).obj())
+
+
+def default_pod(i: int, prefix: str = "pod"):
+    """pod_default: 100m / 500Mi."""
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    return (make_pod().name(f"{prefix}-{i:06d}").uid(f"{prefix}-{i:06d}")
+            .namespace("default").creation_timestamp(float(i))
+            .req({"cpu": "100m", "memory": "500Mi"}).obj())
+
+
+def spread_pod(i: int, prefix: str = "spread", when: str = "DoNotSchedule",
+               ts0: float = 1e6):
+    """pod_topology_spread (maxSkew 5, DoNotSchedule on the zone, selecting
+    color=blue, itself blue) or, with ScheduleAnyway, the preferred twin."""
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    return (make_pod().name(f"{prefix}-{i:06d}").uid(f"{prefix}-{i:06d}")
+            .namespace("default").creation_timestamp(ts0 + i)
+            .req({"cpu": "100m", "memory": "500Mi"}).label("color", "blue")
+            .topology_spread(5, ZONE_KEY, when, labels={"color": "blue"}).obj())
+
+
+def check_bound_and_fit(what: str, store):
+    """Every pod bound, no node past 4 cpu / 32Gi / 110 pods; → the pods."""
+    from kubernetes_tpu_torch.api.resource import compute_pod_resource_request
+
+    pods, _ = store.list("Pod")
+    unbound = [p.metadata.name for p in pods if not p.spec.node_name]
+    if unbound:
+        fail(f"{what}: {len(unbound)} pods unbound, e.g. {unbound[:3]}")
+    used = {}
+    for p in pods:
+        if not p.spec.node_name:
+            continue
+        r = compute_pod_resource_request(p)
+        u = used.setdefault(p.spec.node_name, [0, 0, 0])
+        u[0] += r.milli_cpu
+        u[1] += r.memory
+        u[2] += 1
+    for name, (cpu, mem, count) in used.items():
+        if cpu > 4000 or mem > 32 * 1024 ** 3 or count > 110:
+            fail(f"{what}: node {name} oversubscribed ({cpu}m, {mem} B, {count} pods)")
+    return pods
+
+
+def spread_cluster(dev_name: str, n_nodes: int, n_first: int, batch_size: int = 512,
+                   clock=None):
+    """A TopologySpreading-shaped cluster: zoned nodes, then pod_default pods
+    scheduled first through the path (as the suite does) — → the scheduler."""
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+
+    store = ObjectStore()
+    for i in range(n_nodes):
+        store.create("Node", zoned_node(i))
+    kw = {} if clock is None else {"clock": clock, "batch_wait": 0}
+    sched = TorchScheduler(store, batch_size=batch_size, device=dev_name, **kw)
+    sched.presize(n_nodes, n_first + 2048)
+    for i in range(n_first):
+        store.create("Pod", default_pod(i))
+    stats = sched.run_until_idle()
+    if stats.scheduled != n_first:
+        fail(f"spread cluster: scheduled {stats.scheduled} of the {n_first} first pods")
+    return sched
+
+
+def zone_counts(pods, prefix: str):
+    zone = {f"node-{i:06d}": i % 3 for i in range(100000)}
+    counts = [0, 0, 0]
+    for p in pods:
+        if p.metadata.name.startswith(prefix) and p.spec.node_name:
+            counts[zone[p.spec.node_name]] += 1
+    return counts
+
+
+def topology_spreading(dev_name: str) -> dict:
+    """TopologySpreading/5000Nodes at full width: 5000 zoned nodes, 5000
+    pod_default pods scheduled first, then 2000 pod_topology_spread pods —
+    the measured run, with the launch counts zeroed just before it."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+
+    n_nodes, n_first, n_pods = 5000, 5000, 2000
+    t0 = time.perf_counter()
+    sched = spread_cluster(dev_name, n_nodes, n_first)
+    for i in range(n_pods):
+        sched.store.create("Pod", spread_pod(i))
+    setup_s = time.perf_counter() - t0
+    c0, r0, rr0 = sched.cycles, sched.rounds_total, sched.round_read_s
+    pw0 = dict(sched.phase_wall)
+    att0 = len(sched.attempt_seconds)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    stats = sched.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+
+    pods = check_bound_and_fit("TopologySpreading", sched.store)
+    if stats.scheduled != n_pods:
+        fail(f"TopologySpreading: scheduled {stats.scheduled} of {n_pods}")
+    zc = zone_counts(pods, "spread-")
+    if max(zc) - min(zc) > 5:
+        fail(f"TopologySpreading: zone skew {zc} exceeds maxSkew 5")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"TopologySpreading: kernel {k} never launched on the main path")
+    cycles = sched.cycles - c0
+    rounds = sched.rounds_total - r0
+    read_s = sched.round_read_s - rr0
+    phase = {k: sched.phase_wall[k] - pw0[k] for k in pw0}
+    att = np.asarray(sched.attempt_seconds[att0:])
+    rec = {
+        "nodes": n_nodes, "first_pods": n_first, "pods": n_pods, "batch_size": 512,
+        "setup_s": setup_s, "wall_s": wall, "pods_per_s": n_pods / wall,
+        "cycles": cycles, "rounds": rounds, "rounds_per_cycle": rounds / max(cycles, 1),
+        "round_wall_ms": phase["device"] / max(rounds, 1) * 1e3,
+        "host_read_ms_per_round": read_s / max(rounds, 1) * 1e3,
+        "phase_wall_s": phase, "zone_counts": zc, "launches": launches,
+        "attempt_p50_ms": float(np.percentile(att, 50) * 1e3),
+        "attempt_p99_ms": float(np.percentile(att, 99) * 1e3),
+        "node_tier": sched.encoder._n,
+    }
+    log(f"TopologySpreading/5000Nodes: {n_pods} spread pods bound in {wall:.3f} s = "
+        f"{rec['pods_per_s']:.1f} pods/s; {cycles} cycles, {rec['rounds_per_cycle']:.1f} "
+        f"rounds/cycle; device half {rec['round_wall_ms']:.3f} ms/round, of which host "
+        f"read {rec['host_read_ms_per_round']:.3f} ms; phase wall (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
+        + f"; zones {zc}; attempt p50 {rec['attempt_p50_ms']:.1f} ms, p99 "
+        f"{rec['attempt_p99_ms']:.1f} ms; setup {setup_s:.1f} s; launches {launches}")
+    return {"record": rec, "sched": sched}
+
+
+def preferred_spreading(dev_name: str) -> dict:
+    """PreferredTopologySpreading at 5000 nodes: the same cluster shape,
+    then one cycle of 512 ScheduleAnyway spread pods (the score half)."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+
+    sched = spread_cluster(dev_name, 5000, 5000)
+    for i in range(512):
+        sched.store.create("Pod", spread_pod(i, "pspread", "ScheduleAnyway"))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    r0 = sched.rounds_total
+    t = time.perf_counter()
+    stats = sched.schedule_cycle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    if stats.scheduled != 512:
+        fail(f"PreferredTopologySpreading: scheduled {stats.scheduled} of 512")
+    check_bound_and_fit("PreferredTopologySpreading", sched.store)
+    if launches["spread_score_combine"] <= 0 or launches["spread_prepare_counts"] <= 0:
+        fail(f"PreferredTopologySpreading: the spread kernels did not launch ({launches})")
+    rec = {"pods": 512, "wall_s": wall, "pods_per_s": 512 / wall,
+           "rounds": sched.rounds_total - r0, "launches": launches}
+    log(f"PreferredTopologySpreading/5000Nodes: one cycle of 512 pods in {wall:.3f} s "
+        f"({rec['rounds']} rounds); launches {launches}")
+    return rec
+
+
+# --- phase 5: spread clusters, cuda vs cpu ----------------------------------------------
+
+
+def spread_bindings(device: str, kind: str):
+    """1000 zoned nodes, 1000 pod_default pods first, then 512 spread pods
+    (DoNotSchedule, ScheduleAnyway, or "mixed": 256 spread and 256
+    pod_default pods interleaved in one batch) — → (bindings, launches)."""
+    from kubernetes_tpu_torch import kernels
+
+    t = [0.0]
+
+    def clock():
+        t[0] += 1e-6
+        return t[0]
+
+    sched = spread_cluster(device, 1000, 1000, clock=clock)
+    for i in range(512):
+        if kind == "mixed" and i % 2:
+            sched.store.create("Pod", default_pod(i, "mixdef"))
+            continue
+        when = "ScheduleAnyway" if kind == "preferred" else "DoNotSchedule"
+        sched.store.create("Pod", spread_pod(i, "spread", when, ts0=1e6))
+    kernels.reset_launches()
+    while sched.schedule_cycle().attempted:
+        pass
+    pods, _ = sched.store.list("Pod")
+    return {p.metadata.name: p.spec.node_name for p in pods}, dict(kernels.LAUNCHES)
+
+
+# --- phase 5: heterogeneous cluster, cuda vs cpu ------------------------------------------
 
 
 def hetero_bindings(device: str):
@@ -548,7 +892,7 @@ def hetero_bindings(device: str):
             cycles, wall)
 
 
-# --- phase 5: timing at the main path's shapes ------------------------------------------
+# --- phase 6: timing at the main path's shapes ------------------------------------------
 
 
 def time_kernels(sched, err: dict) -> list:
@@ -681,10 +1025,12 @@ def time_kernels(sched, err: dict) -> list:
         nbytes(total) + c * k * 8, c * n, library_fn=lambda: torch.topk(total, k, dim=1))
     rows[-1]["library_sort_ms"] = device_ms(
         lambda: torch.sort(total, dim=1, descending=True, stable=True))
-    # K4 writes only the committed rows of requested / non_zero; each commit
-    # takes at least one bid, one resolve and its R + 2 adds
-    k4_bytes = (nbytes(cv, ci, class_t, pos_of, unres, nom, nom_ok, dbatch.request,
-                       dbatch.non_zero) + b * 8 + commits * (r + 2) * 4 * 2)
+    # K4 reads its index inputs as int32 and writes only the committed rows
+    # of requested / non_zero; each commit takes at least one bid, one
+    # resolve and its R + 2 adds
+    k4_bytes = (nbytes(cv, unres, nom_ok, dbatch.request, dbatch.non_zero)
+                + 4 * (ci.numel() + class_t.numel() + pos_of.numel() + nom.numel())
+                + b * 8 + commits * (r + 2) * 4 * 2)
     row("auction_resolve_commit", "kubernetes_tpu_torch/csrc/auction.cu",
         "kubernetes_tpu/framework/runtime.py:898", "auction_kernel",
         lambda: auction_resolve_commit(*a_args, work_req, work_nz),
@@ -693,34 +1039,200 @@ def time_kernels(sched, err: dict) -> list:
     return rows
 
 
-# --- phase 6: where one cycle's device time goes ----------------------------------------
+# --- phase 6: K5–K8 at the TopologySpreading shapes --------------------------------------
 
 
-def profile_cycle(sched, out_dir: Path) -> dict:
-    """One more NorthStar-shaped cycle (512 pod_default pods on the same
-    5000-node cluster) under torch.profiler: the cycle's wall, the device
-    time by kernel name, and the device's idle share of the cycle."""
+def time_spread_kernels(sched, err: dict) -> list:
+    """K5–K8 and their plain versions on the inputs of a TopologySpreading
+    cycle's first round: the live 8192-row snapshot (8192-pod tier), a
+    512-pod spread batch (one class, padded to 4), one constraint, the
+    batch's domain bucket; K8 with the commits of that round."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.framework.interface import DynamicState
+    from kubernetes_tpu_torch.framework.podbatch import batch_to_device, identity_classes
+    from kubernetes_tpu_torch.kernels import spread as K
+    from kubernetes_tpu_torch.kernels.auction import auction_resolve_commit
+    from kubernetes_tpu_torch.kernels.filter_score import filter_score_planes
+    from kubernetes_tpu_torch.kernels.normalize import normalize_combine
+    from kubernetes_tpu_torch.kernels.topk import topk_rows
+
+    dev = sched.device
+    fw = sched._framework()
+    snap = sched.encoder.to_device(force_full=True)
+    pods = [spread_pod(i, "tspread", ts0=2e6) for i in range(512)]
+    batch = sched.compiler.compile(pods, pad_to=512)
+    class_of, reps = identity_classes(batch)
+    rep_rows = np.full(4, reps[0], dtype=np.int64)
+    rep_rows[: len(reps)] = reps
+    dbatch = batch_to_device(batch, dev)
+    rep = dbatch.take(torch.from_numpy(rep_rows).to(dev))
+    dyn = DynamicState(requested=snap.requested.clone(),
+                       non_zero=snap.non_zero_requested.clone())
+    idx = next(i for i, pw in enumerate(fw.plugins) if pw.plugin.name == "PodTopologySpread")
+    plug, weight = fw.plugins[idx].plugin, float(fw.plugins[idx].weight)
+    aux = fw.prepare(rep, snap, dyn)[idx]
+    live = frozenset({"PodTopologySpread"})
+    fs_plan, comb_plan = fw.kernel_plans(live)
+    bit = fs_plan.dynamic_bits["PodTopologySpread"]
+    full = (1 << sched.n_filters) - 1
+    bits, raw = filter_score_planes(rep, snap, dyn, *fw.static_inputs(rep, snap, dyn),
+                                    fs_plan)
+    seeded = bits.clone()
+    K.spread_filter_bits(aux, bits, bit)
+    total, _ = normalize_combine(bits, full, raw, comb_plan)
+    base_total = total.clone()
+    K.spread_score_combine(aux, bits, full, total, weight)
+    cv, ci = topk_rows(total, 512)
+    class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
+    b = 512
+    pos_of = torch.arange(b, device=dev)
+    # the coupled component's head: the first pod of the order
+    unres = torch.zeros(b, dtype=torch.bool, device=dev)
+    unres[0] = True
+    nom = torch.zeros(b, dtype=torch.long, device=dev)
+    nom_ok = torch.zeros(b, dtype=torch.bool, device=dev)
+    commit, choice = auction_resolve_commit(
+        cv, ci, class_t, pos_of, unres, nom, nom_ok, dbatch.request, dbatch.non_zero,
+        dyn.requested.clone(), dyn.non_zero.clone())
+
+    # the kernels against their plain versions on these inputs
+    match_sched = plug._selector_vs_pods(rep, snap.pod_label_keys, snap.pod_label_vals,
+                                         snap.pod_ns, snap.numeric) & snap.pod_valid[None, None, :]
+    d = aux.hard_counts.shape[-1] - 1
+    a5 = (match_sched, snap.pod_node, aux.dom_val, aux.counted_hard, aux.counted_soft, d)
+    k5, p5 = K.spread_prepare_counts(*a5), K.spread_prepare_counts_plain(*a5)
+    err["spread_prepare_counts"] = max(err["spread_prepare_counts"], require_equal(
+        "spread_prepare_counts (TopologySpreading)",
+        [("hard", k5[0], p5[0]), ("soft", k5[1], p5[1]), ("present", k5[2], p5[2])]))
+    pb = seeded.clone()
+    K.spread_filter_bits_plain(aux, pb, bit)
+    err["spread_filter_bits"] = max(err["spread_filter_bits"], require_equal(
+        "spread_filter_bits (TopologySpreading)", [("bits", bits, pb)]))
+    pt = base_total.clone()
+    K.spread_score_combine_plain(aux, bits, full, pt, weight)
+    err["spread_score_combine"] = max(err["spread_score_combine"], require_equal(
+        "spread_score_combine (TopologySpreading)", [("total", total, pt)]))
+    ka, pa = plug.engine_copy(aux), plug.engine_copy(aux)
+    K.spread_update_classes(ka, commit, choice, class_t)
+    K.spread_update_classes_plain(pa, commit, choice, class_t)
+    err["spread_update_classes"] = max(err["spread_update_classes"], require_equal(
+        "spread_update_classes (TopologySpreading)",
+        [("hard", ka.hard_counts, pa.hard_counts), ("soft", ka.soft_counts, pa.soft_counts)]))
+    commits = int(commit.sum())
+    if commits != 1:
+        fail(f"spread timing inputs: expected the head's one commit, got {commits}")
+
+    c, cc, d1 = aux.hard_counts.shape
+    n, p = snap.num_nodes, snap.num_pods
+    n_match = int(match_sched.sum())
+    work_bits, work_total = bits.clone(), total.clone()
+    work_aux = plug.engine_copy(aux)
+    rows = []
+
+    def row(name, symbol, fn, plain_fn, n_bytes, n_ops):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        rows.append({
+            "name": name, "route": "cuda", "source": "kubernetes_tpu_torch/csrc/spread.cu",
+            "replaces": SPREAD_REPLACES[name], "launches": None, "max_abs_err": err[name],
+            "ms": device_ms(fn, symbol), "call_ms": time_ms(fn),
+            "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
+            "bound_ms": least, "bound_by": bound_by, "library_ms": None,
+            "bytes": n_bytes, "ops": n_ops,
+            "shape": {"C": c, "Cc": cc, "D+1": d1, "N": n, "P": p, "B": b}})
+
+    # Each input counts at the width the kernel reads it and only where this
+    # run's data makes the function touch it.
+    # K5: the match plane, dom_val and counted_hard read once (the node pass
+    # reads them all); pod_node for the pods some row matches, counted_soft
+    # at their nodes; three tables written; per matching (row, pod) one
+    # gather and up to two atomics, per (row, node) one compare
+    matched = match_sched.any(dim=1) & (snap.pod_node >= 0)[None, :]  # [C, P]
+    m_row, m_pod = torch.nonzero(matched, as_tuple=True)
+    hit_nodes = torch.zeros((c, n), dtype=torch.bool, device=dev)
+    hit_nodes[m_row, snap.pod_node.long().clamp(0, n - 1)[m_pod]] = True
+    row("spread_prepare_counts", "spread_prepare_kernel",
+        lambda: K.spread_prepare_counts(*a5), lambda: K.spread_prepare_counts_plain(*a5),
+        nbytes(match_sched, aux.dom_val, aux.counted_hard) + 4 * int(matched.any(dim=0).sum())
+        + int(hit_nodes.sum()) + 9 * c * cc * d1, 4 * n_match + c * cc * n)
+    # K6: the hard tables and the per-constraint scalars read once, dom_val
+    # and has_key for the hard constraints' rows; the bit plane read and
+    # written only where the filter fails; per (hard row, node) a gather, an
+    # add, two compares
+    n_hard = int(aux.hard_valid.sum())
+    n_fail = int((~K.spread_filter_plane(aux)).sum())
+    row("spread_filter_bits", "spread_filter_kernel",
+        lambda: K.spread_filter_bits(aux, work_bits, bit),
+        lambda: K.spread_filter_bits_plain(aux, work_bits.clone(), bit),
+        nbytes(aux.hard_counts, aux.hard_present, aux.hard_valid, aux.max_skew,
+               aux.min_domains, aux.self_match) + n_hard * n * 5 + 8 * n_fail,
+        4 * n_hard * n + c * cc * d1)
+    # K7: the bit plane (the feasibility mask) and soft_valid read once; the
+    # total read and written on feasible nodes; for the soft constraints
+    # only: has_key on feasible nodes, dom_val on scored ones, their table
+    # row, maxSkew and log-table entry; per feasible (row, node) the
+    # normalization, floor, scale and add, per scored soft term six more
+    feas_mask = bits == full
+    soft_feas = feas_mask[:, None, :] & aux.soft_valid[:, :, None]  # [C, Cc, N]
+    n_soft = int(aux.soft_valid.sum())
+    n_feas_soft = int(soft_feas.sum())
+    n_scored_soft = int((soft_feas & aux.has_key).sum())
+    n_feas = int(feas_mask.sum())
+    row("spread_score_combine", "spread_score_kernel",
+        lambda: K.spread_score_combine(aux, bits, full, work_total, weight),
+        lambda: K.spread_score_combine_plain(aux, bits, full, work_total.clone(), weight),
+        nbytes(bits, aux.soft_valid) + 8 * n_feas + n_feas_soft + 4 * n_scored_soft
+        + n_soft * (4 * d1 + 4 + 4), 8 * n_feas + 6 * n_scored_soft)
+    # K8: the commit flags read once; per committed pod its node and class
+    # (int32) and each row's match bit; per matched row its two counted
+    # bits and its domain; per table add a read and a write
+    committed = torch.nonzero(commit, as_tuple=True)[0]
+    ks = class_t[committed]
+    ns = choice[committed].long().clamp(0, n - 1)
+    mp = aux.match_pending[:, :, ks]  # [C, Cc, commits]
+    adds = int((aux.counted_hard[:, ns][:, None, :] & mp).sum()
+               + (aux.counted_soft[:, ns][:, None, :] & mp).sum())
+    row("spread_update_classes", "spread_update_kernel",
+        lambda: K.spread_update_classes(work_aux, commit, choice, class_t),
+        lambda: K.spread_update_classes_plain(work_aux, commit, choice, class_t),
+        b + commits * (8 + c * cc) + int(mp.sum()) * (2 + 4) + 8 * adds, adds)
+    return rows
+
+
+SPREAD_REPLACES = {
+    "spread_prepare_counts": "kubernetes_tpu/plugins/podtopologyspread.py:73",
+    "spread_filter_bits": "kubernetes_tpu/plugins/podtopologyspread.py:166",
+    "spread_score_combine": "kubernetes_tpu/plugins/podtopologyspread.py:186",
+    "spread_update_classes": "kubernetes_tpu/plugins/podtopologyspread.py:341",
+}
+
+
+# --- phase 7: where one cycle's device time goes ----------------------------------------
+
+
+def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str) -> dict:
+    """One more cycle of 512 pods from ``make_pod(i)`` on ``sched``'s
+    cluster under torch.profiler: the cycle's wall, the device time by
+    kernel name, and the device's idle share of the cycle."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kubernetes_tpu_torch.testutil import make_pod
-
     for i in range(512):
-        sched.store.create("Pod", make_pod().name(f"prof-{i:06d}").uid(f"prof-{i:06d}")
-                           .namespace("default").req({"cpu": "100m", "memory": "500Mi"})
-                           .obj())
+        sched.store.create("Pod", make_pod(i))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):  # the profiler's one-off start-up cost
         (torch.ones(8, device="cuda") + 1).sum().item()
     torch.cuda.synchronize()
+    r0 = sched.rounds_total
     with profile(activities=acts) as prof:
         t = time.perf_counter()
         stats = sched.schedule_cycle()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     if stats.scheduled != 512:
-        fail(f"profiled cycle scheduled {stats.scheduled} of 512")
+        fail(f"profiled {what} cycle scheduled {stats.scheduled} of 512")
 
     def dev_us(e):
         v = getattr(e, "self_device_time_total", None)
@@ -729,20 +1241,21 @@ def profile_cycle(sched, out_dir: Path) -> dict:
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     top = sorted(((dev_us(e) / 1e3, e.count, e.key) for e in events), reverse=True)
-    lines = [f"one NorthStar-shaped cycle under torch.profiler: wall {wall_ms:.3f} ms, "
-             f"device busy {busy_ms:.3f} ms",
+    rounds = sched.rounds_total - r0
+    lines = [f"one {what} cycle ({rounds} rounds) under torch.profiler: wall "
+             f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms",
              f"{'device ms':>10} {'count':>6}  name"]
     lines += [f"{ms:10.4f} {cnt:6d}  {name}" for ms, cnt, name in top]
-    (out_dir / "profile_cycle.txt").write_text("\n".join(lines) + "\n")
-    rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    (out_dir / fname).write_text("\n".join(lines) + "\n")
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "rounds": rounds,
            "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
            "top": [[ms, cnt, name] for ms, cnt, name in top[:12]]}
     if busy_ms:
-        log(f"profiled cycle: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
-            f"(idle share {rec['device_idle_share']:.4f}); top: "
-            + "; ".join(f"{name[:40]} {ms:.3f} ms" for ms, _, name in top[:5]))
+        log(f"profiled {what} cycle ({rounds} rounds): wall {wall_ms:.2f} ms, device busy "
+            f"{busy_ms:.3f} ms (idle share {rec['device_idle_share']:.4f}); top: "
+            + "; ".join(f"{name[:40]} {ms:.3f} ms" for ms, _, name in top[:6]))
     else:
-        log("profiled cycle: the profiler recorded no device time (not measured)")
+        log(f"profiled {what} cycle: the profiler recorded no device time (not measured)")
     return rec
 
 
@@ -756,6 +1269,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     sys.path.insert(0, str(here))
     os.chdir(here)
+    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({card}); torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -770,7 +1284,7 @@ def main() -> None:
     t = time.perf_counter()
     build.build_all()
     record["build_s"] = time.perf_counter() - t
-    log(f"built {len(build.SOURCES)} kernels for sm_90a in {record['build_s']:.1f} s")
+    log(f"built {len(build.SOURCES)} kernel sources for sm_90a in {record['build_s']:.1f} s")
     for name in build.SOURCES:
         for line in build.PTXAS_LOG.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -778,10 +1292,21 @@ def main() -> None:
 
     t = time.perf_counter()
     err = check_kernels(dev)
+    err.update(check_spread_kernels(dev))
     record["kernel_check_s"] = time.perf_counter() - t
 
+    t = time.perf_counter()
     ns = northstar("cuda")
     record["northstar"] = ns["record"]
+    record["northstar"]["phase_s"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    topo = topology_spreading("cuda")
+    record["topology_spreading"] = topo["record"]
+    record["topology_spreading"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    record["preferred_spreading"] = preferred_spreading("cuda")
+    record["preferred_spreading"]["phase_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
     gpu_bind, gpu_launch, gpu_cycles, gpu_wall = hetero_bindings("cuda")
@@ -790,8 +1315,9 @@ def main() -> None:
         diff = [k for k in gpu_bind if gpu_bind[k] != cpu_bind.get(k)]
         fail(f"heterogeneous cluster: cuda and cpu bindings differ for {len(diff)} "
              f"pods, e.g. {diff[:3]}")
-    for k_, v in gpu_launch.items():
-        if v <= 0:
+    for k_ in ("filter_score_planes", "normalize_combine", "topk_rows",
+               "auction_resolve_commit"):
+        if gpu_launch[k_] <= 0:
             fail(f"heterogeneous cluster: kernel {k_} never launched")
     bound = sum(1 for v in gpu_bind.values() if v)
     if not 0 < bound < len(gpu_bind):
@@ -805,13 +1331,40 @@ def main() -> None:
         f"({bound} bound, {len(gpu_bind) - bound} unschedulable); "
         f"cuda {gpu_wall:.2f} s, cpu {cpu_wall:.2f} s; launches {gpu_launch}")
 
-    rows = time_kernels(ns["sched"], err)
+    record["spread_cuda_vs_cpu"] = {}
+    for kind_ in ("spread", "preferred", "mixed"):
+        t = time.perf_counter()
+        gb, gl = spread_bindings("cuda", kind_)
+        cb, _ = spread_bindings("cpu", kind_)
+        if gb != cb:
+            diff = [k for k in gb if gb[k] != cb.get(k)]
+            fail(f"{kind_} spread cluster: cuda and cpu bindings differ for {len(diff)} "
+                 f"pods, e.g. {diff[:3]}")
+        if not all(gb.values()):
+            fail(f"{kind_} spread cluster: not every pod bound")
+        if gl["spread_score_combine"] <= 0 or gl["spread_update_classes"] <= 0:
+            fail(f"{kind_} spread cluster: the spread kernels did not launch ({gl})")
+        record["spread_cuda_vs_cpu"][kind_] = {"pods": len(gb), "launches": gl,
+                                               "s": time.perf_counter() - t}
+        log(f"{kind_} spread cluster, 1000 nodes / 1000 + 512 pods: cuda == cpu "
+            f"bindings ({len(gb)} pods) in {time.perf_counter() - t:.1f} s")
+
+    rows = time_kernels(ns["sched"], err) + time_spread_kernels(topo["sched"], err)
     for r in rows:
-        r["launches"] = ns["record"]["launches"][r["name"]]
+        r["launches"] = topo["record"]["launches"][r["name"]]
+        r["launches_northstar"] = ns["record"]["launches"].get(r["name"])
     record["kernels"] = rows
     out_dir = here / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    record["profile"] = profile_cycle(ns["sched"], out_dir)
+    record["profile"] = profile_cycle(
+        ns["sched"], out_dir, "NorthStar-shaped",
+        lambda i: default_pod(i, "prof"), "profile_cycle.txt")
+    record["profile_spread"] = profile_cycle(
+        topo["sched"], out_dir, "TopologySpreading", lambda i: spread_pod(i, "profspread",
+                                                                          ts0=3e6),
+        "profile_spread_cycle.txt")
+    record["total_s"] = time.perf_counter() - t_start
+    log(f"chip_smoke: all phases passed in {record['total_s']:.1f} s")
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,22 +1,27 @@
 """Batched framework runtime: plugin composition + the identity-class dedup
 assignment engine, in torch.
 
-Reference: the JAX package's framework/runtime.py — ``run_filters`` /
-``run_scores`` / ``compute`` / ``diagnose_bits`` (:199-255) and
-``_batch_assign_dedup`` (:747-977).  Both run through the four kernels
-(kernels/): K1 filter bits + raw planes, K2 normalize + weighted total —
-the plugin compositions and the dedup engine's rounds alike — and, in the
-engine, K3 top-K candidates in (value desc, row asc) order and K4 the
-propose/resolve auction with its scatter-add commit.  On CPU tensors each
-kernel wrapper takes its plain torch version.
+Reference: the JAX package's framework/runtime.py — ``coupling_flags``
+(:90), ``prepare`` (:172), ``run_filters`` / ``run_scores`` / ``compute`` /
+``diagnose_bits`` (:199-255) and ``_batch_assign_dedup`` (:747-977).  Both
+run through the kernels (kernels/): K1 filter bits + raw planes, then a
+live dynamic plugin's filter folded into the bit plane (PodTopologySpread:
+K6), K2 normalize + weighted total, then the dynamic plugin's score folded
+into the total (K7) — the plugin compositions and the dedup engine's rounds
+alike — and, in the engine, K3 top-K candidates in (value desc, row asc)
+order, K4 the propose/resolve auction with its scatter-add commit, and the
+dynamic plugin's class-table update (K8).  On CPU tensors each kernel
+wrapper takes its plain torch version.
 
 Ties break by lowest node row (deterministic; no tie noise).
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Sequence
+import time
+from typing import Any, Dict, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .interface import DynamicState, PluginWithWeight
@@ -57,6 +62,9 @@ class AssignResult(NamedTuple):
     # round 0's pass-bit plane i32[C, N] (the pre-assignment state the
     # diagnosis reads); None when no round ran
     diag_plane: Optional[torch.Tensor] = None
+    # host wall spent in the per-round read of the loop condition (seconds;
+    # it waits for the round's kernels)
+    host_read_s: float = 0.0
 
 
 class CouplingFlags(NamedTuple):
@@ -69,14 +77,18 @@ class CouplingFlags(NamedTuple):
     multi: Any = None  # bool[B] | None
 
 
-def uncoupled_flags(b: int, device) -> CouplingFlags:
-    """The coupling of a batch with no cross-pod reads: every pod its own
-    component, none reads or closes one (the only batches this slice
-    admits)."""
-    zeros = torch.zeros(b, dtype=torch.bool, device=device)
-    return CouplingFlags(reads=zeros, solo=zeros,
-                         comp=torch.arange(b, dtype=torch.int32, device=device),
-                         multi=zeros)
+def coupling_flags(batch, info) -> CouplingFlags:
+    """CouplingFlags of a compiled (host numpy) PodBatch, as numpy arrays,
+    from ``info``, the batch's ``conflict_components`` partition (the
+    reference's coupling_flags, runtime.py:90)."""
+    reads = np.asarray(
+        batch.tsc_valid.any(axis=1)
+        | batch.req_affinity.valid.any(axis=1)
+        | batch.req_anti_affinity.valid.any(axis=1)
+        | batch.pref_affinity.valid.any(axis=1)
+        | batch.pref_anti_affinity.valid.any(axis=1), dtype=bool)
+    solo = np.asarray(batch.req_anti_affinity.valid.any(axis=1), dtype=bool)
+    return CouplingFlags(reads=reads, solo=solo, comp=info.comp, multi=info.multi)
 
 
 def initial_dynamic_state(snap) -> DynamicState:
@@ -110,12 +122,31 @@ class BatchedFramework:
         self.plugins = list(plugins)
         self.filter_plugins = [p for p in self.plugins if hasattr(p.plugin, "filter")]
         self.score_plugins = [p for p in self.plugins if hasattr(p.plugin, "score")]
-        self._plans = None
+        self._plans: Dict[frozenset, tuple] = {}
 
     @property
     def filter_names(self):
         """Names of plugins with a Filter, in plugin order (Diagnosis keys)."""
         return [pw.plugin.name for pw in self.plugins if hasattr(pw.plugin, "filter")]
+
+    # --- device-side prepare ---------------------------------------------------
+
+    def prepare(self, batch, snap, dyn):
+        """One aux per plugin, in plugin order (the reference's prepare,
+        runtime.py:172); None for plugins without a prepare or with nothing
+        to carry for this batch."""
+        auxes = []
+        for pw in self.plugins:
+            fn = getattr(pw.plugin, "prepare", None)
+            auxes.append(None if fn is None else fn(batch, snap, dyn))
+        return tuple(auxes)
+
+    def _live(self, auxes):
+        """[(PluginWithWeight, aux)] of the dynamic plugins whose aux is live
+        (not None) — their planes fold into the kernels' outputs."""
+        if auxes is None:
+            return []
+        return [(pw, aux) for pw, aux in zip(self.plugins, auxes) if aux is not None]
 
     # --- plugin compositions, through the kernels ----------------------------
 
@@ -127,59 +158,97 @@ class BatchedFramework:
         return (na.filter(rows, snap, dyn), na.score(rows, snap, dyn),
                 image_scaled_by_id(snap))
 
-    def planes(self, rows, snap, dyn):
-        """K1 over every row of ``rows``: (pass bits i32[B, N], raw f32[5, B, N])."""
-        return filter_score_planes(rows, snap, dyn, *self.static_inputs(rows, snap, dyn),
-                                   self.kernel_plans()[0])
+    def _fold_filters(self, live, bits, fs_plan):
+        """Each live dynamic filter writes its bit of the pass-bit plane."""
+        for pw, aux in live:
+            bit = fs_plan.dynamic_bits.get(pw.plugin.name)
+            if bit is not None:
+                pw.plugin.filter_bits(aux, bits, bit)
+        return bits
+
+    def _fold_scores(self, live, bits, full, total):
+        """Each live dynamic score adds weight · floor(normalize) into the
+        total.  Every term of the total is an integer-valued float32 below
+        2^24, so the order in which the planes are added does not change
+        the sum (the reference adds the dynamic planes last)."""
+        for pw, aux in live:
+            if hasattr(pw.plugin, "score_into"):
+                pw.plugin.score_into(aux, bits, full, total, float(pw.weight))
+        return total
+
+    def planes(self, rows, snap, dyn, auxes=None):
+        """K1 over every row of ``rows`` with the live dynamic filters folded
+        in: (pass bits i32[B, N], raw f32[5, B, N])."""
+        live = self._live(auxes)
+        fs_plan, _ = self.kernel_plans(self._live_names(live))
+        bits, raw = filter_score_planes(rows, snap, dyn, *self.static_inputs(rows, snap, dyn),
+                                        fs_plan)
+        return self._fold_filters(live, bits, fs_plan), raw
 
     def _full(self) -> int:
         return (1 << len(self.filter_names)) - 1
 
+    @staticmethod
+    def _live_names(live) -> frozenset:
+        return frozenset(pw.plugin.name for pw, _ in live)
+
     def run_filters(self, batch, snap, dyn, auxes=None):
         """bool[B, N]: every filter passes on a live node (the reference's
         run_filters, runtime.py:199)."""
-        bits, _ = self.planes(batch, snap, dyn)
+        bits, _ = self.planes(batch, snap, dyn, auxes)
         return bits == self._full()
 
     def run_scores(self, batch, snap, dyn, auxes, mask):
         """Σ weight · floor(normalize(raw)) over ``mask``, −inf off it (the
         reference's run_scores, runtime.py:206; runtime/framework.go:874-946)."""
-        _, raw = self.planes(batch, snap, dyn)
+        live = self._live(auxes)
+        _, raw = self.planes(batch, snap, dyn, auxes)
         full = self._full()
         bits = torch.where(mask, full, 0).to(torch.int32)
-        return normalize_combine(bits, full, raw, self.kernel_plans()[1])[0]
+        total = normalize_combine(bits, full, raw,
+                                  self.kernel_plans(self._live_names(live))[1])[0]
+        return self._fold_scores(live, bits, full, total)
 
     def compute(self, batch, snap, dyn, auxes=None):
-        bits, raw = self.planes(batch, snap, dyn)
+        live = self._live(auxes)
+        bits, raw = self.planes(batch, snap, dyn, auxes)
         full = self._full()
-        total, _ = normalize_combine(bits, full, raw, self.kernel_plans()[1])
-        return bits == full, total
+        total, _ = normalize_combine(bits, full, raw,
+                                     self.kernel_plans(self._live_names(live))[1])
+        return bits == full, self._fold_scores(live, bits, full, total)
 
     def diagnose_bits(self, batch, snap, dyn, auxes=None):
         """bool[B, K]: does filter plugin k leave pod b ANY feasible node."""
-        bits, _ = self.planes(batch, snap, dyn)
+        bits, _ = self.planes(batch, snap, dyn, auxes)
         return diagnose_bits_from_plane(bits, len(self.filter_names))
 
     # --- the dedup engine's kernel plans -------------------------------------
 
-    def kernel_plans(self):
-        """(FilterScorePlan, CombinePlan) for this plugin list.  The kernels
-        evaluate the main-path plugins; every other plugin must be a
-        pass-through half (its filter all-pass, its score a constant plane
-        whose normalization is folded into ``const_add``)."""
-        if self._plans is not None:
-            return self._plans
+    def kernel_plans(self, live: frozenset = frozenset()):
+        """(FilterScorePlan, CombinePlan) for this plugin list, given the
+        names of the dynamic plugins whose aux is live.  The kernels
+        evaluate the main-path plugins.  A pass-through half contributes its
+        filter as a bit K1 sets and its score as a constant folded into
+        ``const_add``.  A live dynamic plugin (PodTopologySpread) has its
+        bit seeded by K1 as passing — its filter with no aux — and written
+        by its own kernel (K6), and its score added by its kernel (K7); with
+        no aux its score is the constant of its normalized all-zero plane."""
+        if live in self._plans:
+            return self._plans[live]
         names = self.filter_names
-        bit_of, pass_bits = {}, 0
+        bit_of, dynamic_bits, pass_bits = {}, {}, 0
         for k, pw in enumerate(self.filter_plugins):
-            name = pw.plugin.name
-            if name in KERNEL_FILTERS:
-                bit_of[name] = k
-            elif isinstance(pw.plugin, _PassFilter):
+            p = pw.plugin
+            if p.name in KERNEL_FILTERS:
+                bit_of[p.name] = k
+            elif isinstance(p, _PassFilter):
                 pass_bits |= 1 << k
+            elif hasattr(p, "filter_bits"):
+                pass_bits |= 1 << k
+                dynamic_bits[p.name] = k
             else:
                 raise NotImplementedError(
-                    f"filter plugin {name} has no kernel path in the dedup "
+                    f"filter plugin {p.name} has no kernel path in the dedup "
                     "engine yet (ROADMAP Queue B)")
         missing = [n for n in KERNEL_FILTERS if n not in bit_of]
         if missing or len(names) > 31:
@@ -196,12 +265,13 @@ class BatchedFramework:
                     fit = p
                 elif isinstance(p, BalancedAllocationPlugin):
                     balanced = p
-            elif isinstance(p, _PassScore):
+            elif isinstance(p, _PassScore) or (
+                    hasattr(p, "score_into") and p.name not in live):
                 one = torch.ones((1, 1), dtype=torch.bool)
                 zero = torch.zeros((1, 1), dtype=torch.float32)
                 const_add += float(pw.weight) * float(
                     torch.floor(p.normalize(zero, one))[0, 0])
-            else:
+            elif not hasattr(p, "score_into"):
                 raise NotImplementedError(
                     f"score plugin {p.name} has no kernel path in the dedup "
                     "engine yet (ROADMAP Queue B)")
@@ -209,14 +279,14 @@ class BatchedFramework:
             raise NotImplementedError(
                 "the dedup kernels need the default score set "
                 f"{RAW_PLANES}; have {sorted(weights)}")
-        self._plans = (
+        self._plans[live] = (
             FilterScorePlan(fit=fit, balanced=balanced, bit_of=bit_of,
-                            pass_bits=pass_bits),
+                            pass_bits=pass_bits, dynamic_bits=dynamic_bits),
             CombinePlan(kinds=tuple(_RAW_KIND[n] for n in RAW_PLANES),
                         weights=tuple(weights[n] for n in RAW_PLANES),
                         const_add=const_add),
         )
-        return self._plans
+        return self._plans[live]
 
     # --- identity-class dedup assignment --------------------------------------
 
@@ -228,34 +298,43 @@ class BatchedFramework:
         ``classes = (class_of i32[B], rep_batch PodBatch[C], rep_auxes)``:
         pods of one class have byte-identical compiled rows, so each round
         computes the planes once per class ([C, N]) and every pod proposes
-        from its class's top-K candidate list (K = min(B, N)).
+        from its class's top-K candidate list (K = min(B, N)).  A live
+        dynamic plugin's rep aux (PodTopologySpread's class count tables)
+        folds its filter bit (K6) and score (K7) into each round's planes
+        and takes the round's commits through its ``update_batch_classes``
+        hook (K8) — the full path's per-pod tables stay class-uniform, so
+        the class rows reproduce them exactly.  A coupled component commits
+        only its head pod each round (``coupling``).
 
         The round loop is a Python loop.  Its condition
         (any pod active, rounds ≤ B) is read on the host once per round —
         one device→host sync per round; a device-side loop (or a CUDA
         graph) is queued in ROADMAP Queue B (B5).
         """
-        class_of, rep_batch, _rep_auxes = classes
-        fs_plan, comb_plan = self.kernel_plans()
+        class_of, rep_batch, rep_auxes = classes
+        live = self._live(rep_auxes)
+        fs_plan, comb_plan = self.kernel_plans(self._live_names(live))
         full = self._full()
         dev = snap.device
         b = batch.valid.shape[0]
         n_cap = snap.num_nodes
         kcand = min(b, n_cap)
         class_of = class_of.to(device=dev, dtype=torch.long)
-        reads = coupling.reads.to(dev)
-        solo = coupling.solo.to(dev)
+        reads = torch.as_tensor(coupling.reads).to(dev)
+        solo = torch.as_tensor(coupling.solo).to(dev)
         if coupling.comp is None:
             comp = torch.zeros(b, dtype=torch.long, device=dev)
             multi = torch.ones(b, dtype=torch.bool, device=dev)
         else:
-            comp = coupling.comp.to(device=dev, dtype=torch.long)
-            multi = coupling.multi.to(dev)
+            comp = torch.as_tensor(coupling.comp).to(device=dev, dtype=torch.long)
+            multi = torch.as_tensor(coupling.multi).to(dev)
         reader = reads & multi
         order = order.to(device=dev, dtype=torch.long)
         arange_b = torch.arange(b, device=dev)
 
         na_mask, na_pref, img_scaled = self.static_inputs(rep_batch, snap, dyn)
+        # the engine's working copies of the class tables (updated in place)
+        live = [(pw, pw.plugin.engine_copy(aux)) for pw, aux in live]
 
         pos_of = torch.zeros(b, dtype=torch.long, device=dev).index_copy(
             0, order, arange_b)
@@ -271,13 +350,21 @@ class BatchedFramework:
         comp_oh = comp[:, None] == arange_b[None, :]  # [B, C]
         rounds = 0
         diag_plane = None
-        # host read of the loop condition: one sync per round
-        while rounds <= b and bool(active.any()):
+        host_read_s = 0.0
+        while True:
+            # host read of the loop condition: one sync per round
+            t_read = time.perf_counter()
+            go = rounds <= b and bool(active.any())
+            host_read_s += time.perf_counter() - t_read
+            if not go:
+                break
             bits, raw = filter_score_planes(rep_batch, snap, dyn, na_mask,
                                             na_pref, img_scaled, fs_plan)
+            self._fold_filters(live, bits, fs_plan)
             if diag_plane is None:
                 diag_plane = bits
             total, feas_cnt = normalize_combine(bits, full, raw, comb_plan)
+            self._fold_scores(live, bits, full, total)
             mask_r = bits == full
             feasible = (feas_cnt > 0)[class_of]
             cand_val, cand_idx = topk_rows(total, kcand)
@@ -296,6 +383,8 @@ class BatchedFramework:
             commit, choice = auction_resolve_commit(
                 cand_val, cand_idx, class_of, pos_of, unresolved0, nom, nom_ok,
                 batch.request, batch.non_zero, dyn.requested, dyn.non_zero)
+            for pw, aux in live:
+                pw.plugin.update_batch_classes(aux, commit, choice, class_of)
             new_unsched = (active & ~reader & ~feasible) | head_unsched
             resolved = commit | new_unsched
             feas_n = torch.where(resolved & active, feas_cnt[class_of], feas_n)
@@ -303,4 +392,5 @@ class BatchedFramework:
             active = active & ~resolved
             rounds += 1
         return AssignResult(node_row=assigned, feasible_count=feas_n, dyn=dyn,
-                            rounds=rounds, diag_plane=diag_plane)
+                            rounds=rounds, diag_plane=diag_plane,
+                            host_read_s=host_read_s)

@@ -11,6 +11,10 @@ once); ``reset_launches`` zeroes the counts.
   K2 normalize_combine    csrc/normalize_combine.cu
   K3 topk_rows            csrc/topk_rows.cu
   K4 auction_resolve_commit csrc/auction.cu
+  K5 spread_prepare_counts  csrc/spread.cu
+  K6 spread_filter_bits     csrc/spread.cu
+  K7 spread_score_combine   csrc/spread.cu
+  K8 spread_update_classes  csrc/spread.cu
 """
 
 from __future__ import annotations
@@ -25,6 +29,10 @@ LAUNCHES: Dict[str, int] = {
     "normalize_combine": 0,
     "topk_rows": 0,
     "auction_resolve_commit": 0,
+    "spread_prepare_counts": 0,
+    "spread_filter_bits": 0,
+    "spread_score_combine": 0,
+    "spread_update_classes": 0,
 }
 
 

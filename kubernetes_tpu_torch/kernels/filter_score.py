@@ -14,7 +14,7 @@ spread-scaled sizes too (small scatters, plugins/trivial.py).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -44,13 +44,16 @@ KERNEL_FILTERS = ("NodeUnschedulable", "NodeName", "TaintToleration",
 class FilterScorePlan:
     """Static per-framework inputs: the Fit / BalancedAllocation plugin
     objects (their weight and selection vectors), the bit position of each
-    kernel filter in the framework's filter order, and the OR of the bits of
-    the pass-through filters."""
+    kernel filter in the framework's filter order, the OR of the bits K1
+    sets on every live node of a valid row (the pass-through filters', and
+    the dynamic filters' as seeds), and the bit of each dynamic filter that
+    its own kernel writes afterwards."""
 
     fit: FitPlugin
     balanced: BalancedAllocationPlugin
     bit_of: dict  # KERNEL_FILTERS name → bit
     pass_bits: int
+    dynamic_bits: dict = field(default_factory=dict)  # plugin name → bit
 
     def vectors(self, device):
         """(Fit weights f32[R], BalancedAllocation selection bool[R]) on

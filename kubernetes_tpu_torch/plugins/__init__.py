@@ -20,8 +20,8 @@ from .passthrough import (  # noqa: F401
     DynamicResourcesPlugin,
     InterPodAffinityPlugin,
     NodeVolumeLimitsPlugin,
-    PodTopologySpreadPlugin,
     VolumeBindingPlugin,
     VolumeRestrictionsPlugin,
     VolumeZonePlugin,
 )
+from .podtopologyspread import PodTopologySpreadPlugin  # noqa: F401

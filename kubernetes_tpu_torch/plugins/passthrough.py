@@ -1,15 +1,15 @@
-"""The pass-through halves of the plugins whose live content the slice
-does not carry: Coscheduling, the four volume plugins, DynamicResources,
-PodTopologySpread and InterPodAffinity.
+"""The pass-through halves of the plugins whose live content the port does
+not carry yet: Coscheduling, the four volume plugins, DynamicResources and
+InterPodAffinity.
 
-For every batch the slice admits (no gang members, no volumes, no resource
-claims, no topology-spread constraints, no pod (anti)affinity, no
-existing-pod affinity groups) the JAX plugins take their ``aux is None``
-branch (Coscheduling: anchor −2): an all-pass filter, an all-zero score
-plane, and each plugin's own ``normalize`` of that plane.  These classes
-give exactly those planes; the scheduler's scope guard raises
-NotImplementedError for anything that would need the live halves
-(ROADMAP Queue A items 7 and 8).
+For every batch the port admits (no gang members, no volumes, no resource
+claims, no pod (anti)affinity, no existing-pod affinity groups) the JAX
+plugins take their ``aux is None`` branch (Coscheduling: anchor −2): an
+all-pass filter, an all-zero score plane, and each plugin's own
+``normalize`` of that plane.  These classes give exactly those planes; the
+scheduler's scope guard raises NotImplementedError for anything that would
+need the live halves (ROADMAP Queue A items 7 and 8).  PodTopologySpread is
+live (plugins/podtopologyspread.py).
 """
 
 from __future__ import annotations
@@ -117,38 +117,6 @@ class DynamicResourcesPlugin(_PassFilter, _PassScore):
 
     def normalize(self, scores, mask):
         return torch.where(mask, scores, 0.0)  # already 0..MAX_NODE_SCORE
-
-
-class PodTopologySpreadPlugin(_PassFilter, _PassScore):
-    name = "PodTopologySpread"
-    dynamic = True
-
-    def __init__(self, domain_cap: int = 256):
-        self.domain_cap = domain_cap
-
-    def events_to_register(self):
-        return [
-            ClusterEvent(EventResource.POD, ActionType.ALL),
-            ClusterEvent(EventResource.NODE, ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
-        ]
-
-    def normalize(self, scores, mask):
-        """100·(max+min−s)/max over scored nodes; NaN (ignored) → 0
-        (scoring.go NormalizeScore) — the reference plugin's normalize,
-        which gives 100 on every feasible node of an all-zero plane."""
-        valid = mask & ~torch.isnan(scores)
-        big = torch.where(valid, scores, float("-inf"))
-        small = torch.where(valid, scores, float("inf"))
-        mx = big.amax(dim=-1, keepdim=True)
-        mn = small.amin(dim=-1, keepdim=True)
-        mx = torch.where(torch.isfinite(mx), mx, 0.0)
-        mn = torch.where(torch.isfinite(mn), mn, 0.0)
-        out = torch.where(
-            mx == 0,
-            float(MAX_NODE_SCORE),
-            float(MAX_NODE_SCORE) * (mx + mn - scores) / torch.where(mx == 0, 1.0, mx),
-        )
-        return torch.where(valid, out, 0.0)
 
 
 class InterPodAffinityPlugin(_PassFilter, _PassScore):

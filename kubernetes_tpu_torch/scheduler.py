@@ -1,24 +1,31 @@
 """TorchScheduler: the synchronous end-to-end scheduling loop on the port.
 
 Reference: the JAX package's TPUScheduler with ``pipeline=False`` and no
-tie noise (scheduler.py: watch handlers :705-800, schedule_cycle, the fused
-dedup cycle ``fused_batch`` :969-1017, bind :3461, run_until_idle :3777),
-itself after pkg/scheduler/scheduler.go (scheduleOne :496, assume :424,
-bind :446) and eventhandlers.go (addAllEventHandlers :251).
+tie noise (scheduler.py: watch handlers :705-800, schedule_cycle, the
+engine routing ``engine_choice`` :2679 and its dedup gate
+``_dedup_classes`` :2596, the fused dedup cycle ``fused_batch`` :969-1017,
+bind :3461, run_until_idle :3777), itself after
+pkg/scheduler/scheduler.go (scheduleOne :496, assume :424, bind :446) and
+eventhandlers.go (addAllEventHandlers :251).
 
 One cycle: pop ≤ B → cache snapshot → encoder sync → deferred row-scatter →
-batch compile → identity-class dedup gate → the fused cycle on the device
-(apply_scatter, the dedup engine's rounds through the four kernels, gang
+batch compile → conflict partition + engine routing + identity-class dedup
+gate → the fused cycle on the device (apply_scatter, PodTopologySpread's
+class count tables, the dedup engine's rounds through the kernels, gang
 all-or-nothing, diagnosis bits, pack) → one [3, B] fetch → assume → bind
-through the store → requeue the unschedulable pods with backoff.  Bindings equal the JAX scheduler's, pod for pod.
+through the store → requeue the unschedulable pods with backoff.  Bindings
+equal the JAX scheduler's, pod for pod.  Topology-spread pods (DoNotSchedule
+and ScheduleAnyway) are in scope: a self-matching spread class is one
+coupled component, so the dedup engine commits one of its pods per round.
 
-Scope guard: a batch or cluster that needs anything outside this slice —
-pod (anti)affinity or topology-spread content, existing pods with affinity
-terms, gang members, volumes, resource claims, extenders, profiles,
-``pipeline=True``, a batch too heterogeneous for the dedup engine, a
-batch larger than the auction kernel's one block on cuda, or a failing
-pod that could preempt — raises NotImplementedError naming the
-ROADMAP item.  It never gives a silently different answer.
+Scope guard: a batch or cluster that needs anything outside the port —
+pod (anti)affinity content, existing pods with affinity terms, gang
+members, volumes, resource claims, extenders, profiles, ``pipeline=True``,
+a batch the reference routes to its full auction (too heterogeneous for
+the dedup engine, or coupled with a pod that could preempt) or to its
+exact scan, a batch larger than the auction kernel's one block on cuda,
+or a failing pod that could preempt — raises NotImplementedError naming
+the ROADMAP item.  It never gives a silently different answer.
 """
 
 from __future__ import annotations
@@ -34,15 +41,17 @@ from . import plugins as P
 from .api import objects as v1
 from .device import resolve_device
 from .framework import events as fwk_events
+from .api.labels import match_label_selector
+from .framework.conflict import conflict_components
 from .framework.events import ActionType, ClusterEvent, EventResource
 from .framework.interface import PluginWithWeight
 from .framework.podbatch import PodBatchCompiler, batch_to_device, identity_classes
 from .framework.runtime import (
     BatchedFramework,
+    coupling_flags,
     diagnose_bits_from_plane,
     initial_dynamic_state,
     pack_diag,
-    uncoupled_flags,
 )
 from .gang import POD_GROUP_LABEL, gang_all_or_nothing
 from .queueing import PriorityQueue
@@ -53,6 +62,8 @@ from .state.encoding import ClusterEncoder, apply_scatter
 from .state.units import pow2_round_up as _pow2
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"  # apis/config v1.Pod default
+# the reference's default router threshold (TPUScheduler coupled_fraction_threshold)
+COUPLED_FRACTION_THRESHOLD = 0.25
 
 
 def default_plugins(domain_cap: int) -> List[PluginWithWeight]:
@@ -117,8 +128,6 @@ def _pod_out_of_scope(p: v1.Pod) -> Optional[str]:
                 paa and (paa.required or paa.preferred)):
             return ("pod (anti)affinity terms (ROADMAP Queue A item 7, "
                     "Queue B B12)")
-    if p.spec.topology_spread_constraints:
-        return "topology-spread constraints (ROADMAP Queue A item 7, Queue B B11)"
     if POD_GROUP_LABEL in p.metadata.labels:
         return "gang membership (ROADMAP Queue A item 8, Queue B B14)"
     if getattr(p.spec, "volumes", None):
@@ -185,7 +194,8 @@ class TorchScheduler:
         self.encoder = ClusterEncoder(device=self.device)
         self.namespace_labels = namespace_labels or {}
         self.compiler = PodBatchCompiler(self.encoder, self.namespace_labels)
-        self.fw = BatchedFramework(default_plugins(self.encoder.domain_cap))
+        self._fw_domain_cap = -1
+        self.fw = self._framework()
         self.n_filters = len(self.fw.filter_names)
         event_map: Dict[ClusterEvent, Set[str]] = {}
         for pw in default_plugins(8):
@@ -197,16 +207,29 @@ class TorchScheduler:
             pod_max_backoff=pod_max_backoff,
         )
         # host-vs-device wall per phase (seconds, summed over cycles):
-        # "device" brackets the fused cycle from the first upload to the
-        # [3, B] fetch, which synchronises with the card
+        # "partition" is the conflict partition, the engine routing and the
+        # dedup gate; "device" brackets the fused cycle from the first
+        # upload to the [3, B] fetch, which synchronises with the card
         self.phase_wall: Dict[str, float] = {
-            k: 0.0 for k in ("snapshot", "compile", "device", "bind")}
+            k: 0.0 for k in ("snapshot", "compile", "partition", "device", "bind")}
         self.cycles = 0
         self.rounds_total = 0
+        # host wall spent in the dedup engine's per-round read of its loop
+        # condition (seconds, summed over cycles; part of "device")
+        self.round_read_s = 0.0
         # per-pod attempt latency (seconds, wall clock): from the cycle's
         # start (after the pop) to the pod's own bind or requeue
         self.attempt_seconds: List[float] = []
         store.watch(self._on_event)
+
+    def _framework(self) -> BatchedFramework:
+        """The framework for the encoder's current domain_cap, rebuilt when
+        it grows (the reference's _framework, scheduler.py:859-878)."""
+        d = self.encoder.domain_cap
+        if d != self._fw_domain_cap:
+            self.fw = BatchedFramework(default_plugins(d))
+            self._fw_domain_cap = d
+        return self.fw
 
     # --- event handlers (eventhandlers.go:251+) ------------------------------
 
@@ -338,48 +361,172 @@ class TorchScheduler:
         t1 = time.perf_counter()
         pods = [qi.pod for qi in infos]
         batch = self.compiler.compile(pods, pad_to=self.batch_size)
-        class_of, reps = identity_classes(batch)
-        if len(reps) * 2 > batch.size:
-            # the reference routes such a batch to the full [B, N] auction
-            raise NotImplementedError(
-                f"batch of {len(reps)} identity classes in {batch.size} slots: "
-                "the full (non-dedup) assignment engine is not ported yet "
-                "(ROADMAP Queue A item 6, Queue B B8)")
-        cpad = _pow2(len(reps), 4)
-        rep_rows = np.full(cpad, reps[0], dtype=np.int64)
-        rep_rows[: len(reps)] = reps
         t2 = time.perf_counter()
-        packed = self._fused_cycle(batch, class_of, rep_rows)
+        mode, coupling, _info = self.engine_choice(batch)
+        if mode == "scan":
+            raise NotImplementedError(
+                "the reference routes this batch to its exact serial scan "
+                "(greedy_assign), which is not ported yet (ROADMAP Queue A "
+                "item 6, Queue B B9)")
+        class_of, rep_rows, why = self._dedup_classes(batch)
+        if class_of is None:
+            raise NotImplementedError(
+                f"{why}: the reference takes its full (non-dedup) assignment "
+                "engine, which is not ported yet (ROADMAP Queue A item 6, "
+                "Queue B B8)")
         t3 = time.perf_counter()
+        packed = self._fused_cycle(batch, class_of, rep_rows, coupling)
+        t4 = time.perf_counter()
         self.phase_wall["snapshot"] += t1 - t0
         self.phase_wall["compile"] += t2 - t1
-        self.phase_wall["device"] += t3 - t2
+        self.phase_wall["partition"] += t3 - t2
+        self.phase_wall["device"] += t4 - t3
         self.rounds_total += int(packed[2, 0])
         return packed[0].copy(), _unpack_diag(packed[1], self.n_filters)
 
-    def _fused_cycle(self, batch, class_of: np.ndarray, rep_rows: np.ndarray) -> np.ndarray:
+    # --- engine routing (the reference's one shared predicate) -------------------
+
+    def engine_choice(self, batch):
+        """(mode, coupling, partition info): "batch" (the auction engines)
+        or "scan" — the reference's engine_choice (scheduler.py:2679) under
+        its default ``assign_mode="auto"``.  The conflict partition is first
+        relaxed for parallel-safe single-class components; a batch whose
+        largest coupled component exceeds the threshold still takes the
+        auction when the dedup precheck admits it."""
+        info = conflict_components(batch.pods, batch.size,
+                                   namespace_labels=self.namespace_labels)
+        info = self._relax_parallel_safe(info)
+        coupling = coupling_flags(batch, info=info)
+        n_valid = max(int(np.asarray(batch.valid).sum()), 1)
+        if info.max_multi <= max(1, int(COUPLED_FRACTION_THRESHOLD * n_valid)):
+            return "batch", coupling, info
+        if self._dedup_precheck(batch):
+            return "batch", coupling, info
+        return "scan", coupling, info
+
+    def _batch_can_preempt(self, batch) -> bool:
+        """Any valid batch pod that could run the preemption dry-run (the
+        reference's _batch_can_preempt, scheduler.py:2723)."""
+        prios = np.asarray(batch.priority)[np.asarray(batch.valid)]
+        return bool(prios.size) and int(prios.max()) > 0 and any(
+            (p.spec.priority or 0) > 0 and p.spec.preemption_policy != "Never"
+            for p in batch.pods)
+
+    def _class_hooks_ok(self) -> bool:
+        """Every dynamic plugin with per-pod update hooks also has the
+        class-level hook the dedup engine needs."""
+        for pw in self.fw.plugins:
+            p = pw.plugin
+            if p.dynamic and (getattr(p, "update", None) is not None
+                              or getattr(p, "update_batch", None) is not None) \
+                    and getattr(p, "update_batch_classes", None) is None:
+                return False
+        return True
+
+    def _dedup_precheck(self, batch) -> bool:
+        """The router's scan→auction upgrade check (the reference's
+        _dedup_precheck, scheduler.py:2733): class hooks present, no gang
+        members, volumes or resource claims, no pod that could preempt, at
+        most B/2 identity classes."""
+        if not self._class_hooks_ok():
+            return False
+        for p in batch.pods:
+            if POD_GROUP_LABEL in p.metadata.labels or getattr(p.spec, "volumes", None) \
+                    or getattr(p.spec, "resource_claims", None):
+                return False
+        if self._batch_can_preempt(batch):
+            return False
+        _class_of, reps = identity_classes(batch)
+        return len(reps) * 2 <= batch.size
+
+    def _dedup_classes(self, batch):
+        """The identity-class dedup gate (the reference's _dedup_classes,
+        scheduler.py:2596-2677, for a scheduler with no tie noise and no
+        host auxes): → (class_of i32[B], rep_rows i64[Cp], None), or
+        (None, None, why) when the reference takes its full auction.  Cp is
+        the pow-2 bucket of the class count (floor 4), padded with the
+        first rep."""
+        if batch.has_affinity or batch.has_spread:
+            if not self._class_hooks_ok():
+                return None, None, "a dynamic plugin without a class-level update hook"
+            if self._batch_can_preempt(batch):
+                return None, None, "a coupled batch with a pod that could preempt"
+        class_of, reps = identity_classes(batch)
+        if len(reps) * 2 > batch.size:
+            return None, None, (f"a batch of {len(reps)} identity classes in "
+                                f"{batch.size} slots")
+        cpad = _pow2(len(reps), 4)
+        rep_rows = np.full(cpad, reps[0], dtype=np.int64)
+        rep_rows[: len(reps)] = reps
+        return class_of, rep_rows, None
+
+    def _relax_parallel_safe(self, info):
+        """Demote parallel-safe single-class components to singletons (the
+        reference's _relax_parallel_safe, scheduler.py:2773)."""
+        import dataclasses
+
+        reps = info.single_class_reps or {}
+        safe = [r for r, rep in reps.items() if self._class_parallel_safe(rep)]
+        if not safe:
+            return info
+        comp = info.comp.copy()
+        multi = info.multi.copy()
+        for r in safe:
+            idxs = np.nonzero((comp == r) & multi)[0]
+            multi[idxs] = False
+            comp[idxs] = idxs
+        sizes = [int(((comp == r) & multi).sum())
+                 for r in sorted(set(comp[multi].tolist()))]
+        return dataclasses.replace(
+            info, comp=comp, multi=multi, sizes=sizes,
+            single_class_reps={k: v for k, v in reps.items() if k not in safe})
+
+    def _class_parallel_safe(self, rep) -> bool:
+        """May the pods of this single-class component commit in the same
+        auction round?  A self-matching spread constraint's per-domain skew
+        math refuses (the reference's _class_parallel_safe,
+        scheduler.py:2806-2818).  Pods with pod (anti)affinity never reach
+        here: the scope guard refuses them first."""
+        for c in rep.spec.topology_spread_constraints:
+            if match_label_selector(c.label_selector, rep.metadata.labels):
+                return False
+        aff = rep.spec.affinity
+        if aff is not None and (aff.pod_affinity or aff.pod_anti_affinity):
+            raise NotImplementedError(
+                "the parallel-safety test of pod (anti)affinity classes is not "
+                "ported yet (ROADMAP Queue A item 7, Queue B B12)")
+        return True
+
+    def _fused_cycle(self, batch, class_of: np.ndarray, rep_rows: np.ndarray,
+                     coupling) -> np.ndarray:
         """The device half of the cycle (the reference's fused_batch dedup
         branch, scheduler.py:969-1017) → the packed [3, B] result on the
         host (the cycle's one fetch)."""
         dev = self.device
+        fw = self._framework()
         dsnap, upd = self.encoder.to_device_deferred()
         dsnap = apply_scatter(dsnap, upd)
         self.encoder.commit_device(dsnap)
         # the reference's reserve_nominated (scheduler.py:889) adds only the
-        # requests of pods that preemption nominated; this slice has no
+        # requests of pods that preemption nominated; the port has no
         # preemption (ROADMAP Queue A item 9, Queue B B2), so there are none
         dyn = initial_dynamic_state(dsnap)
         dbatch = batch_to_device(batch, dev)
         rep_batch = dbatch.take(torch.from_numpy(rep_rows).to(dev))
+        # the class representatives' plugin auxes: PodTopologySpread's count
+        # tables (K5), None for a batch without spread constraints
+        rep_auxes = fw.prepare(rep_batch, dsnap, dyn)
         b = batch.size
         order = torch.arange(b, dtype=torch.int32, device=dev)
         class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
-        res = self.fw._batch_assign_dedup(
-            dbatch, dsnap, dyn, None, order, uncoupled_flags(b, dev),
-            (class_t, rep_batch, None))
+        res = fw._batch_assign_dedup(
+            dbatch, dsnap, dyn, None, order, coupling, (class_t, rep_batch, rep_auxes))
+        self.round_read_s += res.host_read_s
         gang_seg = torch.full((b,), -1, dtype=torch.int32, device=dev)
         node_row = gang_all_or_nothing(res.node_row, gang_seg)
-        # a dispatched batch holds at least one valid pod, so round 0 ran
+        # a dispatched batch holds at least one valid pod, so round 0 ran; its
+        # bit plane carries K6's spread bit, as the reference diagnoses with
+        # the prepared rep auxes (scheduler.py:1015)
         bits = diagnose_bits_from_plane(res.diag_plane, self.n_filters)[class_t]
         return pack_diag(bits, node_row, res.rounds).cpu().numpy()
 

@@ -150,6 +150,12 @@ def make_pod_obj(pkg: str, d: Dict):
         w = w.preferred_node_affinity(weight, key, values)
     for port, proto, ip in d.get("host_ports", []):
         w = w.host_port(port, proto, ip)
+    # topology spread: (maxSkew, topologyKey, whenUnsatisfiable, selector
+    # labels, minDomains or None)
+    for skew, key, when, sel, min_domains in d.get("spread", []):
+        w = w.topology_spread(skew, key, when, labels=sel, min_domains=min_domains)
+    if d.get("priority") is not None:
+        w = w.priority(d["priority"])
     if d.get("node"):
         w = w.node(d["node"])
     pod = w.obj()

@@ -3,7 +3,8 @@ package's, on the JAX encoder's arrays (through convert.py).
 
 node_row, feasible_count, rounds and the final dynamic state must be
 equal, and so must the diagnosis bits, their [3, B] packing, and
-``gang_all_or_nothing``.  The shapes follow the JAX package's
+``gang_all_or_nothing`` — for uncoupled batches and for a coupled
+topology-spread batch whose class count tables ride the rounds.  The shapes follow the JAX package's
 tests/test_batch_assign.py dedup tests: multi-round contention where every
 node is claimed, tie-heavy identical nodes, templates that fit nowhere,
 and a nominated pod.  On the CPU the engine runs each kernel's plain
@@ -36,7 +37,6 @@ from kubernetes_tpu_torch.framework.runtime import BatchedFramework as TFramewor
 from kubernetes_tpu_torch.framework.runtime import (
     diagnose_bits_from_plane,
     pack_diag,
-    uncoupled_flags,
 )
 from kubernetes_tpu_torch.gang import gang_all_or_nothing as t_gang
 from kubernetes_tpu_torch.kernels.topk import topk_rows_plain
@@ -112,8 +112,7 @@ def _run_both(nodes, sched, pods, nominated=None):
     trep = tbatch.take(torch.from_numpy(rep_rows.astype(np.int64)))
     class_t = torch.from_numpy(class_of.astype(np.int64))
     tres = tfw._batch_assign_dedup(
-        tbatch, tsnap, tdyn, None, torch.arange(b), uncoupled_flags(b, "cpu"),
-        (class_t, trep, None))
+        tbatch, tsnap, tdyn, None, torch.arange(b), coupling, (class_t, trep, None))
     tbits = diagnose_bits_from_plane(tres.diag_plane, len(tfw.filter_names))[class_t]
     return jres, np.asarray(jbits), tres, tbits, enc
 
@@ -218,3 +217,73 @@ def test_topk_plain_matches_lax_top_k():
         # values are finite
         finite = np.isfinite(np.asarray(jv))
         assert np.array_equal(np.asarray(ji)[finite], ti.numpy()[finite])
+
+
+def test_dedup_matches_coupled_spread_component():
+    """A coupled batch: self-matching DoNotSchedule spread pods (one
+    component, one commit per round), ScheduleAnyway pods whose selector
+    matches them, and plain pods, over zoned nodes with running matching
+    pods.  The rep auxes carry PodTopologySpread's class count tables
+    through every round (K5–K8's plain versions); node_row,
+    feasible_count, rounds, the final dynamic state and the diagnosis bits
+    equal the JAX engine's."""
+    from kubernetes_tpu.framework.conflict import conflict_components
+
+    zone = "topology.kubernetes.io/zone"
+    nodes = [dict(d, labels={zone: f"z{i % 3}"}) for i, d in enumerate(_uniform_nodes(15))]
+    sched = [{"name": f"s{i}", "ts": -100.0 + i, "req": {"cpu": "100m"},
+              "labels": {"color": "blue"}, "node": f"n{(3 * i) % 15:02d}"} for i in range(7)]
+    blue = {"color": "blue"}
+    pods = _pods({"req": {"cpu": "1", "memory": "1Gi"},
+                  "spread": [(1, zone, "DoNotSchedule", blue, None)]}, 20, "p", labels=blue)
+    pods += _pods({"req": {"cpu": "500m", "memory": "1Gi"},
+                   "spread": [(1, zone, "ScheduleAnyway", blue, None)]}, 6, "q", 50.0,
+                  labels={"color": "red"})
+    pods += _pods({"req": {"cpu": "2", "memory": "1Gi"}}, 4, "r", 80.0)
+
+    cache = JCache()
+    for d in nodes:
+        cache.add_node(make_node_obj("jax", d))
+    for d in sched:
+        cache.add_pod(make_pod_obj("jax", d))
+    snap = JSnapshot()
+    cache.update_snapshot(snap)
+    enc = JEncoder()
+    enc.full_sync(snap)
+    objs = [make_pod_obj("jax", d) for d in pods]
+    hbatch = JCompiler(enc).compile(objs, pad_to=64)
+    fw = JFramework(j_default_plugins(enc.domain_cap))
+    dsnap = enc.to_device()
+    dyn = initial_dynamic_state(dsnap)
+    class_of, reps = identity_classes(hbatch)
+    rep_rows = np.full(4, reps[0], dtype=np.int32)
+    rep_rows[: len(reps)] = reps
+    coupling = coupling_flags(hbatch, info=conflict_components(objs, hbatch.size))
+    assert np.asarray(coupling.multi).sum() == 26  # spread pods + the red pods
+    host_auxes = fw.host_prepare(hbatch, snap, enc)
+    rep_host = {k: (v if v is None or k != "Coscheduling" else (v[0], v[1][rep_rows]))
+                for k, v in host_auxes.items()}
+
+    def run(batch, dsnap, dyn, order, coupling, class_of, rep_rows):
+        rb = batch.take(rep_rows)
+        ra = fw.prepare(rb, dsnap, dyn, rep_host)
+        res = fw.batch_assign(batch, dsnap, dyn, None, order, coupling,
+                              classes=(class_of, rb, ra))
+        return res, fw.diagnose_bits(rb, dsnap, dyn, ra)[class_of]
+
+    batch = jax.tree_util.tree_map(jnp.asarray, hbatch)
+    jres, jbits = jax.jit(run)(batch, dsnap, dyn, jnp.arange(hbatch.size), coupling,
+                               class_of, rep_rows)
+    tsnap = snapshot_from_numpy(snapshot_arrays(dsnap), device="cpu")
+    tbatch = batch_from_numpy(batch_arrays(batch), device="cpu")
+    tdyn = dyn_from_numpy({"requested": np.asarray(dyn.requested),
+                           "non_zero": np.asarray(dyn.non_zero)}, device="cpu")
+    tfw = TFramework(t_default_plugins(enc.domain_cap))
+    trep = tbatch.take(torch.from_numpy(rep_rows.astype(np.int64)))
+    trep_aux = tfw.prepare(trep, tsnap, tdyn)
+    class_t = torch.from_numpy(class_of.astype(np.int64))
+    tres = tfw._batch_assign_dedup(tbatch, tsnap, tdyn, None, torch.arange(hbatch.size),
+                                   coupling, (class_t, trep, trep_aux))
+    tbits = diagnose_bits_from_plane(tres.diag_plane, len(tfw.filter_names))[class_t]
+    _assert_equal(jres, np.asarray(jbits), tres, tbits)
+    assert int(tres.rounds) >= 20  # the spread component commits one pod per round

@@ -7,7 +7,8 @@ same pods must stay unschedulable.  Clusters: a SchedulingBasic-shaped one
 (node_default nodes, pod_default pods) and a heterogeneous one (a few node
 shapes, zones, taints, images, ports, NotReady / unschedulable nodes, eight
 pod classes, some of which fit nowhere).  The scope guard must raise for
-every feature outside the slice.
+every feature outside the port (topology-spread clusters are held against
+the reference in tests/test_torch_spread.py).
 """
 
 from __future__ import annotations
@@ -120,7 +121,9 @@ def _guard_pod(kind):
     if kind == "affinity":
         return w.pod_affinity("zone", {"app": "x"}).obj()
     if kind == "spread":
-        return w.topology_spread(1, "zone", labels={"app": "x"}).obj()
+        # a spread pod that outranks the running pod: a coupled batch that
+        # could preempt, which the reference takes off the dedup engine
+        return w.topology_spread(1, "zone", labels={"app": "x"}).priority(10).obj()
     if kind == "gang":
         return w.label("pod-group.scheduling/name", "g1").obj()
     if kind == "volume":
@@ -151,8 +154,10 @@ def test_scope_guard_raises(kind):
     if kind == "existing_affinity":
         store.create("Pod", make_pod_obj("torch", {"name": "p", "ts": 0.0,
                                                    "req": {"cpu": "100m"}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         sched.schedule_cycle()
+    if kind == "spread":
+        assert "B8" in str(err.value) or "B9" in str(err.value)
 
 
 def test_scope_guard_raises_for_a_batch_too_heterogeneous_to_dedup():
