@@ -5,7 +5,7 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the eight CUDA kernels from kubernetes_tpu_torch/csrc/ (one nvcc
+1. Build the twelve CUDA kernels from kubernetes_tpu_torch/csrc/ (one nvcc
    per source, started together).
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
    CUDA tensors, exactly equal.  K1–K4: random and adversarial inputs
@@ -13,7 +13,11 @@ Phases, all of which must pass (any failure exits non-zero):
    N = 131072.  K5–K8: every domain empty, nodes without the key,
    minDomains above the present domains, all raw scores 0, ignored (NaN)
    nodes, five domains with counts 379 and 4927, 3 and 64 domains, one and
-   two constraints.
+   two constraints.  K9–K12: tables and planes, keyless nodes, an
+   all-trash group, aff_total 0 with and without a self-match, an
+   all-masked row, normalization over max − min of 97 and 100 (the top
+   node must score 100), negative raw scores, and index groups of every
+   kind.
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
    on cuda, launch counts zeroed just before and read just after: every pod
@@ -25,32 +29,50 @@ Phases, all of which must pass (any failure exits non-zero):
    within maxSkew 5, K1–K8 launched; pods/s, rounds per cycle, wall and
    host read per round, phase wall.  Then PreferredTopologySpreading at
    5000 nodes for one cycle of 512 ScheduleAnyway pods: all bound, K5–K8
-   launched.
+   launched.  Then the three pod-affinity suites at 5000Nodes, full width
+   (SchedulingPodAntiAffinity (5000, 1000, 1000), SchedulingPodAffinity and
+   SchedulingPreferredPodAffinity (5000, 5000, 1000)): the first pods
+   scheduled through the path, the measured pods with the counts zeroed
+   just before; every pod bound, no node oversubscribed, no two green pods
+   on one host, every blue pod in zone1, K1–K4 and K9–K12 launched; the
+   same numbers, with phase_wall["host_prepare"].  The calls of the
+   torch-op programs on the path (B1, B4, B6, B7) are counted on the
+   NorthStar and SchedulingPreferredPodAffinity runs and timed on their
+   last cycle's arguments.  Each path builds its cluster on a fresh heap
+   (the objects of earlier phases frozen out of the collector), and its
+   record counts the full collections inside the measured run.
 5. cuda == cpu bindings: a heterogeneous 5000-node cluster with ~2048
-   pending pods of 8 classes, and three 1000-node spread clusters (1000
+   pending pods of 8 classes; three 1000-node spread clusters (1000
    pod_default pods first, then 512 DoNotSchedule, 512 ScheduleAnyway, or
-   256 spread + 256 pod_default pods in one batch).
+   256 spread + 256 pod_default pods in one batch); the three affinity
+   suites cut to 1000 nodes, 200 first and 512 measured pods; and a mixed
+   queue of zone-affinity, spread, pod_default and preferred
+   hostname-affinity pods.
 6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
-   round; K5–K8: a TopologySpreading cycle's first round): device time per
+   round; K5–K8: a TopologySpreading cycle's first round; K9–K12: a
+   SchedulingPreferredPodAffinity cycle's first round): device time per
    call (torch.profiler), beside the plain version's wall and, where one
    PyTorch call computes the same function, that call's time; the least
    time the card could take (the larger of the bytes over 3.35 TB/s and the
    scalar operations over the 67 TFLOP/s float32 peak) from the inputs.
-7. One more NorthStar-shaped and one more TopologySpreading cycle under
-   torch.profiler: the cycle's wall, device time by kernel, and the
-   device's idle share.
+7. One more NorthStar-shaped, TopologySpreading and
+   SchedulingPreferredPodAffinity cycle under torch.profiler: the cycle's
+   wall, device time by kernel, and the device's idle share.
 
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
-on the TopologySpreading run, which launches all eight), the card's name
-and power limit as nvidia-smi prints them, and as the last line
+on the path that carries each kernel: K1–K8 on the TopologySpreading run,
+K9–K12 on the SchedulingPreferredPodAffinity run), the card's name and
+power limit as nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
-cycles' tables to chiprun_out/profile_cycle.txt and
-chiprun_out/profile_spread_cycle.txt.
+cycles' tables to chiprun_out/profile_cycle.txt,
+chiprun_out/profile_spread_cycle.txt and
+chiprun_out/profile_affinity_cycle.txt.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -62,6 +84,12 @@ from types import SimpleNamespace
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (same sheet)
 SEED = 20261016
+IPA_KERNELS = ("ipa_prepare", "ipa_filter_bits", "ipa_score_combine", "ipa_update_classes")
+# K1–K12 in order: K1–K4 carry every path, K5–K8 the spread path, K9–K12
+# the affinity path
+PATH_KERNELS = ("filter_score_planes", "normalize_combine", "topk_rows",
+                "auction_resolve_commit", "spread_prepare_counts", "spread_filter_bits",
+                "spread_score_combine", "spread_update_classes") + IPA_KERNELS
 
 
 def fail(msg: str) -> None:
@@ -161,6 +189,40 @@ def require_equal(name: str, pairs) -> float:
             fail(f"{name}: kernel and plain version differ in {what} at {bad}")
         err = max(err, max_abs_err(a, b))
     return err
+
+
+def fresh_heap() -> None:
+    """Collect, then move every object alive now out of the collector's
+    reach (gc.freeze), so a path's measured run pays full collections over
+    its own cluster state but not over the clusters of earlier phases, which
+    this script keeps alive for its later phases."""
+    gc.collect()
+    gc.freeze()
+
+
+class GcWatch:
+    """Counts the full (generation 2) collections and their seconds while
+    active: the host pauses inside a measured run."""
+
+    def __init__(self):
+        self.count, self.seconds, self._t = 0, 0.0, None
+
+    def _cb(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.count += 1
+            self.seconds += time.perf_counter() - self._t
+            self._t = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._cb)
 
 
 # --- synthetic inputs ----------------------------------------------------------------
@@ -523,10 +585,191 @@ def check_spread_kernels(dev) -> dict:
     return err
 
 
+# --- phase 2: K9–K12 vs plain -------------------------------------------------------------
+
+IPA_GROUPS = ("req_affinity", "req_anti_affinity", "pref_affinity", "pref_anti_affinity")
+IPA_MUTABLE = ("aff_cnt", "anti_cnt", "paff_cnt", "panti_cnt", "aff_total", "block_dyn",
+               "score_dyn")
+
+
+def ipa_case(name: str, gen, dev, *, c=4, t=2, n=8192, p=8192, b=512, d=8, n_dom=3,
+             keyless=0.1, present=IPA_GROUPS, trash_group=None, static=None, dyn_zero=False,
+             mask_frac=0.9):
+    """A synthetic InterPodAffinity class view (the IPAAux fields) plus the
+    inputs of K9's passes and one round's commits, on ``dev``: ``n_dom``
+    live domains of ``d`` (planes when 4·d ≥ n), ``keyless`` of the nodes
+    without the key, ``trash_group`` a present group whose every term is
+    keyless, ``static`` a forced score_static plane (the normalize cases)."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import interpodaffinity as K
+    from kubernetes_tpu_torch.ops.segment import domain_gather
+    from kubernetes_tpu_torch.plugins.interpodaffinity import IPAAux
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    planes = 4 * d >= n
+    groups = {}
+    for g in IPA_GROUPS:
+        valid = rnd(c, t) < 0.8
+        valid[:, 0] = True
+        if g not in present:
+            valid[:] = False
+        dom = ints(0, max(n_dom, 1), c, t, n)
+        dom = torch.where((rnd(c, t, n) >= keyless) & valid[:, :, None], dom, d)
+        if g == trash_group:
+            dom[:] = d
+        tbl = ints(0, 4, c, t, d + 1)
+        tbl[..., d] = ints(0, 3, c, t)  # the trash slot holds keyless nodes' pods
+        if g == "req_affinity":
+            tbl[:2] = 0  # rows 0 and 1: no matching pod anywhere (aff_total 0)
+        cnt = domain_gather(tbl, dom).contiguous() if planes else tbl
+        if g not in present:
+            cnt = torch.zeros_like(cnt)
+        groups[g] = dict(valid=valid, dom=dom.to(torch.int32).contiguous(), cnt=cnt,
+                         cross=(rnd(c, t, c) < 0.5) & valid[:, :, None],
+                         weight=ints(1, 101, c, t).float() * valid)
+    aff_total = ints(0, 3, c)
+    self_match = rnd(c) < 0.5
+    aff_total[0], self_match[0] = 0, True  # the first pod of a series
+    aff_total[1], self_match[1] = 0, False
+    score_static = ints(-30, 60, c, n).float() if static is None else static
+    full = (1 << 16) - 1
+    bits = torch.where(rnd(c, n) < mask_frac, full, full & ~(1 << 3)).to(torch.int32)
+    if c > 3:
+        bits[3] = 0  # an all-masked row
+    total = torch.where(bits == full, ints(0, 700, c, n).float(), float("-inf"))
+    ga, gn, gp, gq = (groups[g] for g in IPA_GROUPS)
+    aux = IPAAux(
+        dom_aff=ga["dom"], dom_anti=gn["dom"], dom_paff=gp["dom"], dom_panti=gq["dom"],
+        aff_cnt=ga["cnt"], anti_cnt=gn["cnt"], paff_cnt=gp["cnt"], panti_cnt=gq["cnt"],
+        aff_total=aff_total, self_match_all=self_match,
+        exist_anti_block=rnd(c, n) < 0.05, score_static=score_static,
+        aff_term_cross=ga["cross"], aff_cross_all=rnd(c, c) < 0.5,
+        anti_cross=gn["cross"], paff_cross=gp["cross"], panti_cross=gq["cross"],
+        block_dyn=rnd(c, n) < (0.0 if dyn_zero else 0.05),
+        score_dyn=torch.zeros((c, n)) if dyn_zero else ints(-5, 10, c, n).float(),
+        depth=d, present=tuple(present), req_aff_valid=ga["valid"],
+        paff_weight=gp["weight"], panti_weight=gq["weight"], hard_weight=1.0)
+    # K9's inputs: a match plane against P scheduled pods, and G = 8 index
+    # groups with a BLOCK, a SCORE_REQ and a negative SCORE group
+    g_n, k_cap, dw = 8, 4, max(d, 8)
+    node_topo = ints(0, dw + 2, n, k_cap)  # values past the table width read 0
+    node_topo[rnd(n, k_cap) < 0.1] = -1
+    existing = dict(
+        match_g=rnd(g_n, c) < 0.6,
+        aff_counts=ints(0, 3, g_n, dw).float(),
+        aff_slot=torch.tensor([0, 1, 2, 3, 0, 1, -1, 2], dtype=torch.int32),
+        aff_valid=torch.tensor([True] * 7 + [False]),
+        aff_kind=torch.tensor([K.KIND_BLOCK, K.KIND_SCORE_REQ, 1, 1, K.KIND_BLOCK,
+                               1, 1, 1], dtype=torch.int32),
+        aff_weight=torch.tensor([0.0, 1.0, -7.0, 3.0, 0.0, 100.0, 5.0, 2.0]),
+        node_topo=node_topo)
+    to = lambda x: x.to(dev) if torch.is_tensor(x) else x  # noqa: E731
+    return dict(
+        name=name, aux=IPAAux(*[to(v) for v in aux]), d=d, planes=planes, full=full,
+        bits=to(bits), total=to(total),
+        match=to(rnd(c, t, p) < 0.3), pod_node=to(ints(-1, n, p)), pod_valid=to(rnd(p) < 0.9),
+        existing={k: to(v) for k, v in existing.items()},
+        commit=to(rnd(b) < 0.3), choice=to(ints(0, n, b)), class_of=to(ints(0, c, b)))
+
+
+def check_ipa_kernels(dev) -> dict:
+    """K9–K12 against their plain versions, exactly equal, on random and
+    adversarial inputs: tables and planes, keyless nodes, an all-trash group,
+    aff_total 0 with and without a self-match, an all-masked row, a
+    normalization over diff 97 and 100 with the top node at the max,
+    negative raw scores, and index groups of every kind."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import interpodaffinity as K
+    from kubernetes_tpu_torch.plugins.interpodaffinity import InterPodAffinityPlugin
+
+    plug = InterPodAffinityPlugin()
+    gen = torch.Generator().manual_seed(SEED + 9)
+    n = 8192
+
+    def normalize_static(diff):
+        # raw scores in [0, diff] with both ends present: the top node
+        # scores exactly 100 only with the reference's operation order
+        s = torch.randint(0, diff + 1, (4, n), generator=gen).float()
+        s[:, 0], s[:, 1] = 0.0, float(diff)
+        return s
+
+    cases = [
+        ipa_case("tables, 3 zones", gen, dev),
+        ipa_case("planes, hostname domains", gen, dev, d=8192, n_dom=5000),
+        ipa_case("planes, one term, half keyless", gen, dev, t=1, d=4096, n_dom=4000,
+                 keyless=0.5),
+        ipa_case("all-trash anti group", gen, dev, trash_group="req_anti_affinity"),
+        ipa_case("required affinity only", gen, dev, present=("req_affinity",)),
+        ipa_case("preferred anti-affinity only (negative scores)", gen, dev,
+                 present=("pref_anti_affinity",), static=torch.zeros((4, n))),
+        ipa_case("normalize, diff 97", gen, dev, present=("req_anti_affinity",),
+                 static=normalize_static(97), dyn_zero=True, mask_frac=1.0),
+        ipa_case("normalize, diff 100", gen, dev, present=("req_anti_affinity",),
+                 static=normalize_static(100), dyn_zero=True, mask_frac=1.0),
+        ipa_case("no feasible node", gen, dev, mask_frac=0.0),
+    ]
+    err = {k: 0.0 for k in ("ipa_prepare", "ipa_filter_bits", "ipa_score_combine",
+                            "ipa_update_classes")}
+    for cs in cases:
+        aux, what = cs["aux"], cs["name"]
+        a9 = (cs["match"], cs["pod_node"], cs["pod_valid"], aux.dom_paff, cs["d"],
+              cs["planes"])
+        k9, p9 = K.ipa_prepare_counts(*a9), K.ipa_prepare_counts_plain(*a9)
+        ex = cs["existing"]
+        e9 = (ex["match_g"], ex["aff_counts"], ex["aff_slot"], ex["aff_valid"],
+              ex["aff_kind"], ex["aff_weight"], ex["node_topo"], 1.0)
+        k9e, p9e = K.ipa_existing_planes(*e9), K.ipa_existing_planes_plain(*e9)
+        torch.cuda.synchronize()
+        err["ipa_prepare"] = max(err["ipa_prepare"], require_equal(
+            f"ipa_prepare ({what})", [("counts", k9[0], p9[0]), ("total", k9[1], p9[1]),
+                                      ("exist_anti_block", k9e[0], p9e[0]),
+                                      ("score_static", k9e[1], p9e[1])]))
+        for bit in (3, 13):
+            kb, pb = cs["bits"].clone(), cs["bits"].clone()
+            K.ipa_filter_bits(aux, kb, bit)
+            K.ipa_filter_bits_plain(aux, pb, bit)
+            torch.cuda.synchronize()
+            err["ipa_filter_bits"] = max(err["ipa_filter_bits"], require_equal(
+                f"ipa_filter_bits ({what}, bit {bit})", [("bits", kb, pb)]))
+        kt, pt = cs["total"].clone(), cs["total"].clone()
+        K.ipa_score_combine(aux, cs["bits"], cs["full"], kt, 2.0)
+        K.ipa_score_combine_plain(aux, cs["bits"], cs["full"], pt, 2.0)
+        torch.cuda.synchronize()
+        err["ipa_score_combine"] = max(err["ipa_score_combine"], require_equal(
+            f"ipa_score_combine ({what})", [("total", kt, pt)]))
+        if what.startswith("normalize"):
+            # the top node (raw = max) of each unmasked row gains exactly 2 · 100
+            if not bool((kt[:3, 1] - cs["total"][:3, 1] == 200.0).all()):
+                fail(f"ipa_score_combine ({what}): the top node did not score 100")
+        # the engine's working copies, updated in place
+        ka, pa = plug.engine_copy(aux), plug.engine_copy(aux)
+        K.ipa_update_classes(ka, cs["commit"], cs["choice"], cs["class_of"])
+        K.ipa_update_classes_plain(pa, cs["commit"], cs["choice"], cs["class_of"])
+        torch.cuda.synchronize()
+        err["ipa_update_classes"] = max(err["ipa_update_classes"], require_equal(
+            f"ipa_update_classes ({what})",
+            [(f, getattr(ka, f), getattr(pa, f)) for f in IPA_MUTABLE]))
+    # the adversarial cases hit what they are named for
+    if not bool((K.ipa_raw_plane(cases[5]["aux"]) < 0).any()):
+        fail("ipa check: the preferred anti-affinity case produced no negative raw score")
+    first = K.ipa_filter_plane(cases[4]["aux"])
+    if not bool(first[0].any()) or bool(first[1].any()):
+        fail("ipa check: the first-pod escape did not pass row 0 alone")
+    log(f"affinity kernels vs plain: all equal over {len(cases)} cases")
+    return err
+
+
 # --- phase 3: NorthStar ---------------------------------------------------------------
 
 
-def northstar(dev_name: str) -> dict:
+def northstar(dev_name: str, counters=None) -> dict:
     import torch
 
     from kubernetes_tpu_torch import kernels
@@ -535,6 +778,7 @@ def northstar(dev_name: str) -> dict:
     from kubernetes_tpu_torch.testutil import make_node, make_pod
 
     n_nodes, n_pre, n_pods = 5000, 2000, 10000
+    fresh_heap()
     t0 = time.perf_counter()
     store = ObjectStore()
     for i in range(n_nodes):
@@ -553,9 +797,12 @@ def northstar(dev_name: str) -> dict:
 
     torch.cuda.synchronize()
     kernels.reset_launches()
+    if counters is not None:
+        counters.reset()
     t1 = time.perf_counter()
-    stats = sched.run_until_idle()
-    torch.cuda.synchronize()
+    with GcWatch() as gcw:
+        stats = sched.run_until_idle()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = dict(kernels.LAUNCHES)
 
@@ -578,6 +825,8 @@ def northstar(dev_name: str) -> dict:
         "rounds_per_cycle": sched.rounds_total / max(sched.cycles, 1),
         "phase_wall_s": dict(sched.phase_wall),
         "node_tier": sched.encoder._n, "launches": launches,
+        "torch_op_calls": counters.calls() if counters is not None else None,
+        "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds,
     }
     pw = sched.phase_wall
     log(f"NorthStar/5000Nodes/10000Pods: {n_pods} pods bound in {wall:.3f} s = "
@@ -589,7 +838,7 @@ def northstar(dev_name: str) -> dict:
         f"{pw['bind'] / max(sched.cycles, 1) * 1e3:.2f}) vs device "
         f"{pw['device'] / max(sched.cycles, 1) * 1e3:.2f} ms; attempt p50 "
         f"{out['attempt_p50_ms']:.1f} ms, p99 {out['attempt_p99_ms']:.1f} ms; "
-        f"launches {launches}")
+        f"{gcw.count} full collections ({gcw.seconds:.3f} s); launches {launches}")
     return {"record": out, "sched": sched}
 
 
@@ -692,6 +941,7 @@ def topology_spreading(dev_name: str) -> dict:
     from kubernetes_tpu_torch import kernels
 
     n_nodes, n_first, n_pods = 5000, 5000, 2000
+    fresh_heap()
     t0 = time.perf_counter()
     sched = spread_cluster(dev_name, n_nodes, n_first)
     for i in range(n_pods):
@@ -704,8 +954,9 @@ def topology_spreading(dev_name: str) -> dict:
     torch.cuda.synchronize()
     kernels.reset_launches()
     t1 = time.perf_counter()
-    stats = sched.run_until_idle()
-    torch.cuda.synchronize()
+    with GcWatch() as gcw:
+        stats = sched.run_until_idle()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = dict(kernels.LAUNCHES)
 
@@ -715,8 +966,8 @@ def topology_spreading(dev_name: str) -> dict:
     zc = zone_counts(pods, "spread-")
     if max(zc) - min(zc) > 5:
         fail(f"TopologySpreading: zone skew {zc} exceeds maxSkew 5")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in PATH_KERNELS[:8]:
+        if launches[k] <= 0:
             fail(f"TopologySpreading: kernel {k} never launched on the main path")
     cycles = sched.cycles - c0
     rounds = sched.rounds_total - r0
@@ -730,6 +981,7 @@ def topology_spreading(dev_name: str) -> dict:
         "round_wall_ms": phase["device"] / max(rounds, 1) * 1e3,
         "host_read_ms_per_round": read_s / max(rounds, 1) * 1e3,
         "phase_wall_s": phase, "zone_counts": zc, "launches": launches,
+        "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds,
         "attempt_p50_ms": float(np.percentile(att, 50) * 1e3),
         "attempt_p99_ms": float(np.percentile(att, 99) * 1e3),
         "node_tier": sched.encoder._n,
@@ -740,7 +992,8 @@ def topology_spreading(dev_name: str) -> dict:
         f"read {rec['host_read_ms_per_round']:.3f} ms; phase wall (s) "
         + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
         + f"; zones {zc}; attempt p50 {rec['attempt_p50_ms']:.1f} ms, p99 "
-        f"{rec['attempt_p99_ms']:.1f} ms; setup {setup_s:.1f} s; launches {launches}")
+        f"{rec['attempt_p99_ms']:.1f} ms; {gcw.count} full collections "
+        f"({gcw.seconds:.3f} s); setup {setup_s:.1f} s; launches {launches}")
     return {"record": rec, "sched": sched}
 
 
@@ -772,6 +1025,203 @@ def preferred_spreading(dev_name: str) -> dict:
     log(f"PreferredTopologySpreading/5000Nodes: one cycle of 512 pods in {wall:.3f} s "
         f"({rec['rounds']} rounds); launches {launches}")
     return rec
+
+
+# --- phase 4: the pod-affinity suites ------------------------------------------------------
+
+HOST_KEY = "kubernetes.io/hostname"
+
+
+def host_node(i: int):
+    """node_unique_hostname: a 4-cpu / 32Gi / 110-pod node, its own hostname."""
+    from kubernetes_tpu_torch.testutil import make_node
+
+    return (make_node().name(f"node-{i:06d}")
+            .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+            .label(HOST_KEY, f"node-{i:06d}").obj())
+
+
+def zone1_node(i: int):
+    """node_zoned(["zone1"]): every node in the one zone."""
+    from kubernetes_tpu_torch.testutil import make_node
+
+    return (make_node().name(f"node-{i:06d}")
+            .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+            .label(ZONE_KEY, "zone1").obj())
+
+
+def affinity_pod(kind: str, i: int, ns: str, ts0: float = 0.0, tag: str = ""):
+    """The suites' pod templates (perf/workloads.py): pod_anti_affinity
+    (green, required anti-affinity on the hostname), pod_affinity (blue,
+    required affinity on the zone) and pod_preferred_affinity (red,
+    preferred affinity of weight 1 on the hostname), each over the
+    namespaces sched-0 and sched-1."""
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    prefix = {"anti": "anti", "affinity": "aff", "preferred": "paff"}[kind] + tag
+    w = (make_pod().name(f"{prefix}-{ns}-{i:06d}").uid(f"{prefix}-{ns}-{i:06d}")
+         .namespace(ns).creation_timestamp(ts0 + i)
+         .req({"cpu": "100m", "memory": "500Mi"}))
+    if kind == "anti":
+        return (w.label("color", "green").pod_affinity(
+            HOST_KEY, {"color": "green"}, anti=True, namespaces=["sched-0", "sched-1"]).obj())
+    if kind == "affinity":
+        return (w.label("color", "blue").pod_affinity(
+            ZONE_KEY, {"color": "blue"}, namespaces=["sched-0", "sched-1"]).obj())
+    return (w.label("color", "red").pod_affinity(
+        HOST_KEY, {"color": "red"}, weight=1, namespaces=["sched-1", "sched-0"]).obj())
+
+
+# suite → (pod kind, node template, (nodes, first pods, measured pods)) at 5000Nodes
+AFFINITY_SUITES = {
+    "SchedulingPodAntiAffinity": ("anti", host_node, (5000, 1000, 1000)),
+    "SchedulingPodAffinity": ("affinity", zone1_node, (5000, 5000, 1000)),
+    "SchedulingPreferredPodAffinity": ("preferred", host_node, (5000, 5000, 1000)),
+}
+
+
+def affinity_cluster(dev_name: str, suite: str, n_nodes: int, n_first: int,
+                     clock=None):
+    """A suite's cluster: its nodes, then its first pods (namespace sched-0)
+    scheduled through the path, as the suite does — → the scheduler."""
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+
+    kind, node_of, _ = AFFINITY_SUITES[suite]
+    store = ObjectStore()
+    for i in range(n_nodes):
+        store.create("Node", node_of(i))
+    kw = {} if clock is None else {"clock": clock, "batch_wait": 0}
+    sched = TorchScheduler(store, batch_size=512, device=dev_name, **kw)
+    sched.presize(n_nodes, n_first + 2048)
+    for i in range(n_first):
+        store.create("Pod", affinity_pod(kind, i, "sched-0"))
+    stats = sched.run_until_idle()
+    if stats.scheduled != n_first:
+        fail(f"{suite}: scheduled {stats.scheduled} of the {n_first} first pods")
+    return sched
+
+
+def affinity_suite(dev_name: str, suite: str, counters=None) -> dict:
+    """One pod-affinity suite at 5000Nodes, full width: the first pods
+    scheduled through the path, then the measured pods (namespace sched-1),
+    with the launch counts zeroed just before them."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+
+    kind, _, (n_nodes, n_first, n_pods) = AFFINITY_SUITES[suite]
+    fresh_heap()
+    t0 = time.perf_counter()
+    sched = affinity_cluster(dev_name, suite, n_nodes, n_first)
+    for i in range(n_pods):
+        sched.store.create("Pod", affinity_pod(kind, i, "sched-1", ts0=1e6))
+    setup_s = time.perf_counter() - t0
+    c0, r0, rr0 = sched.cycles, sched.rounds_total, sched.round_read_s
+    pw0 = dict(sched.phase_wall)
+    att0 = len(sched.attempt_seconds)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    if counters is not None:
+        counters.reset()
+    t1 = time.perf_counter()
+    with GcWatch() as gcw:
+        stats = sched.run_until_idle()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+
+    pods = check_bound_and_fit(suite, sched.store)
+    if stats.scheduled != n_pods:
+        fail(f"{suite}: scheduled {stats.scheduled} of {n_pods}")
+    placed = [p.spec.node_name for p in pods]
+    if kind == "anti" and len(set(placed)) != len(placed):
+        fail(f"{suite}: two green pods share a host")
+    if kind == "affinity":
+        zone = {n.metadata.name: n.metadata.labels.get(ZONE_KEY)
+                for n in sched.store.list("Node")[0]}
+        if any(zone[name] != "zone1" for name in placed):
+            fail(f"{suite}: a blue pod landed outside zone1")
+    for k in PATH_KERNELS[:4] + IPA_KERNELS:
+        if launches[k] <= 0:
+            fail(f"{suite}: kernel {k} never launched on the main path")
+    cycles = sched.cycles - c0
+    rounds = sched.rounds_total - r0
+    read_s = sched.round_read_s - rr0
+    phase = {k: sched.phase_wall[k] - pw0[k] for k in pw0}
+    att = np.asarray(sched.attempt_seconds[att0:])
+    rec = {
+        "nodes": n_nodes, "first_pods": n_first, "pods": n_pods, "batch_size": 512,
+        "setup_s": setup_s, "wall_s": wall, "pods_per_s": n_pods / wall,
+        "cycles": cycles, "rounds": rounds, "rounds_per_cycle": rounds / max(cycles, 1),
+        "round_wall_ms": phase["device"] / max(rounds, 1) * 1e3,
+        "host_read_ms_per_round": read_s / max(rounds, 1) * 1e3,
+        "phase_wall_s": phase, "launches": launches,
+        "attempt_p50_ms": float(np.percentile(att, 50) * 1e3),
+        "attempt_p99_ms": float(np.percentile(att, 99) * 1e3),
+        "node_tier": sched.encoder._n, "pod_tier": sched.encoder._p,
+        "live_groups": sched.encoder.aff.live_groups,
+        "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds,
+        "torch_op_calls": counters.calls() if counters is not None else None,
+    }
+    log(f"{suite}/5000Nodes: {n_pods} pods bound in {wall:.3f} s = "
+        f"{rec['pods_per_s']:.1f} pods/s; {cycles} cycles, {rec['rounds_per_cycle']:.1f} "
+        f"rounds/cycle; device half {rec['round_wall_ms']:.3f} ms/round, of which host "
+        f"read {rec['host_read_ms_per_round']:.3f} ms; phase wall (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
+        + f"; attempt p50 {rec['attempt_p50_ms']:.1f} ms, p99 {rec['attempt_p99_ms']:.1f} ms;"
+        f" {gcw.count} full collections ({gcw.seconds:.3f} s); setup {setup_s:.1f} s; "
+        f"launches {launches}")
+    return {"record": rec, "sched": sched}
+
+
+def affinity_bindings(device: str, kind: str):
+    """The suites cut so the CPU half stays short: 1000 nodes, 200 first
+    pods, 512 measured; "mixed": 1000 zoned nodes, 200 zone-affinity pods
+    first, then one queue of affinity, spread, pod_default and preferred
+    hostname-affinity pods — → (bindings, launches)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+
+    t = [0.0]
+
+    def clock():
+        t[0] += 1e-6
+        return t[0]
+
+    if kind == "mixed":
+        store = ObjectStore()
+        for i in range(1000):
+            store.create("Node", zoned_node(i))
+        sched = TorchScheduler(store, batch_size=512, device=device, clock=clock,
+                               batch_wait=0)
+        for i in range(200):
+            store.create("Pod", affinity_pod("affinity", i, "sched-0"))
+        sched.run_until_idle()
+        for i in range(512):
+            k = i % 4
+            if k == 0:
+                store.create("Pod", affinity_pod("affinity", i, "sched-1", ts0=1e6))
+            elif k == 1:
+                store.create("Pod", spread_pod(i, "mspread", ts0=1e6))
+            elif k == 2:
+                store.create("Pod", default_pod(i, "mixdef"))
+            else:
+                store.create("Pod", affinity_pod("preferred", i, "sched-1", ts0=1e6))
+    else:
+        suite = next(s for s, v in AFFINITY_SUITES.items() if v[0] == kind)
+        sched = affinity_cluster(device, suite, 1000, 200, clock=clock)
+        store = sched.store
+        for i in range(512):
+            store.create("Pod", affinity_pod(kind, i, "sched-1", ts0=1e6))
+    kernels.reset_launches()
+    while sched.schedule_cycle().attempted:
+        pass
+    pods, _ = store.list("Pod")
+    return {p.metadata.name: p.spec.node_name for p in pods}, dict(kernels.LAUNCHES)
 
 
 # --- phase 5: spread clusters, cuda vs cpu ----------------------------------------------
@@ -1208,6 +1658,300 @@ SPREAD_REPLACES = {
 }
 
 
+IPA_REPLACES = {
+    "ipa_prepare": "kubernetes_tpu/plugins/interpodaffinity.py:197",
+    "ipa_filter_bits": "kubernetes_tpu/plugins/interpodaffinity.py:337",
+    "ipa_score_combine": "kubernetes_tpu/plugins/interpodaffinity.py:368",
+    "ipa_update_classes": "kubernetes_tpu/plugins/interpodaffinity.py:676",
+}
+
+
+# --- phase 6: K9–K12 at the SchedulingPreferredPodAffinity shapes ---------------------------
+
+
+def time_ipa_kernels(sched, err: dict) -> list:
+    """K9–K12 and their plain versions on the inputs of a
+    SchedulingPreferredPodAffinity cycle's first round: the live 8192-row
+    snapshot and pod tier, a 512-pod batch of the measured template (one
+    class, padded to 4), its host match matrix, planes over the hostname
+    bucket; K12 with the commit of that round (the component's head)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.framework.interface import DynamicState
+    from kubernetes_tpu_torch.framework.podbatch import batch_to_device, identity_classes
+    from kubernetes_tpu_torch.kernels import interpodaffinity as K
+    from kubernetes_tpu_torch.kernels.auction import auction_resolve_commit
+    from kubernetes_tpu_torch.kernels.filter_score import filter_score_planes
+    from kubernetes_tpu_torch.kernels.normalize import normalize_combine
+    from kubernetes_tpu_torch.kernels.topk import topk_rows
+    from kubernetes_tpu_torch.scheduler import _host_aux_take
+
+    dev = sched.device
+    fw = sched._framework()
+    snap = sched.encoder.to_device(force_full=True)
+    pods = [affinity_pod("preferred", i, "sched-1", ts0=2e6) for i in range(512)]
+    batch = sched.compiler.compile(pods, pad_to=512)
+    class_of, reps = identity_classes(batch)
+    rep_rows = np.full(4, reps[0], dtype=np.int64)
+    rep_rows[: len(reps)] = reps
+    dbatch = batch_to_device(batch, dev)
+    rep = dbatch.take(torch.from_numpy(rep_rows).to(dev))
+    host = fw.host_prepare(batch, sched.snapshot, sched.encoder,
+                           namespace_labels=sched.namespace_labels)
+    rep_host = _host_aux_take(fw, host, rep_rows)
+    dyn = DynamicState(requested=snap.requested.clone(),
+                       non_zero=snap.non_zero_requested.clone())
+    idx = next(i for i, pw in enumerate(fw.plugins) if pw.plugin.name == "InterPodAffinity")
+    plug, weight = fw.plugins[idx].plugin, float(fw.plugins[idx].weight)
+    aux = fw.prepare(rep, snap, dyn, rep_host)[idx]
+    live = frozenset({"InterPodAffinity"})
+    fs_plan, comb_plan = fw.kernel_plans(live)
+    bit = fs_plan.dynamic_bits["InterPodAffinity"]
+    full = (1 << sched.n_filters) - 1
+    bits, raw = filter_score_planes(rep, snap, dyn, *fw.static_inputs(rep, snap, dyn),
+                                    fs_plan)
+    seeded = bits.clone()
+    K.ipa_filter_bits(aux, bits, bit)
+    total, _ = normalize_combine(bits, full, raw, comb_plan)
+    base_total = total.clone()
+    K.ipa_score_combine(aux, bits, full, total, weight)
+    cv, ci = topk_rows(total, 512)
+    class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
+    b = 512
+    pos_of = torch.arange(b, device=dev)
+    unres = torch.zeros(b, dtype=torch.bool, device=dev)
+    unres[0] = True  # the coupled component's head
+    nom = torch.zeros(b, dtype=torch.long, device=dev)
+    nom_ok = torch.zeros(b, dtype=torch.bool, device=dev)
+    commit, choice = auction_resolve_commit(
+        cv, ci, class_t, pos_of, unres, nom, nom_ok, dbatch.request, dbatch.non_zero,
+        dyn.requested.clone(), dyn.non_zero.clone())
+    if int(commit.sum()) != 1:
+        fail(f"affinity timing inputs: expected the head's one commit, got {int(commit.sum())}")
+
+    # the kernels against their plain versions on these inputs
+    d = aux.depth
+    planes = plug._use_planes(rep, snap)
+    match = plug._match_vs(rep.pref_affinity, snap.pod_label_keys, snap.pod_label_vals,
+                           snap.pod_ns, snap.numeric)
+    a9 = (match, snap.pod_node, snap.pod_valid, aux.dom_paff, d, planes)
+    match_g = torch.as_tensor(rep_host["InterPodAffinity"]["match"]).to(dev)
+    e9 = (match_g, snap.aff_counts, snap.aff_slot, snap.aff_valid, snap.aff_kind,
+          snap.aff_weight, snap.node_topo, plug.hard_weight)
+    k9, p9 = K.ipa_prepare_counts(*a9), K.ipa_prepare_counts_plain(*a9)
+    k9e, p9e = K.ipa_existing_planes(*e9), K.ipa_existing_planes_plain(*e9)
+    err["ipa_prepare"] = max(err["ipa_prepare"], require_equal(
+        "ipa_prepare (SchedulingPreferredPodAffinity)",
+        [("counts", k9[0], p9[0]), ("total", k9[1], p9[1]), ("block", k9e[0], p9e[0]),
+         ("score_static", k9e[1], p9e[1])]))
+    pb = seeded.clone()
+    K.ipa_filter_bits_plain(aux, pb, bit)
+    err["ipa_filter_bits"] = max(err["ipa_filter_bits"], require_equal(
+        "ipa_filter_bits (SchedulingPreferredPodAffinity)", [("bits", bits, pb)]))
+    pt = base_total.clone()
+    K.ipa_score_combine_plain(aux, bits, full, pt, weight)
+    err["ipa_score_combine"] = max(err["ipa_score_combine"], require_equal(
+        "ipa_score_combine (SchedulingPreferredPodAffinity)", [("total", total, pt)]))
+    ka, pa = plug.engine_copy(aux), plug.engine_copy(aux)
+    K.ipa_update_classes(ka, commit, choice, class_t)
+    K.ipa_update_classes_plain(pa, commit, choice, class_t)
+    err["ipa_update_classes"] = max(err["ipa_update_classes"], require_equal(
+        "ipa_update_classes (SchedulingPreferredPodAffinity)",
+        [(f, getattr(ka, f), getattr(pa, f)) for f in IPA_MUTABLE]))
+    if not bool((ka.score_dyn != 0).any()):
+        fail("affinity timing inputs: the head's commit moved no score")
+
+    c, t, n = aux.dom_paff.shape
+    p, g_n = snap.num_pods, snap.aff_valid.shape[0]
+    work_bits, work_total = bits.clone(), total.clone()
+    work_aux = plug.engine_copy(aux)
+    rows = []
+
+    def row(name, symbol, fn, plain_fn, n_bytes, n_ops):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "kubernetes_tpu_torch/csrc/interpodaffinity.cu",
+            "replaces": IPA_REPLACES[name], "launches": None, "max_abs_err": err[name],
+            "ms": device_ms(fn, symbol), "call_ms": time_ms(fn),
+            "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
+            "bound_ms": least, "bound_by": bound_by, "library_ms": None,
+            "bytes": n_bytes, "ops": n_ops,
+            "shape": {"C": c, "T": t, "D": d, "N": n, "P": p, "G": g_n, "B": b,
+                      "planes": planes}})
+
+    # Each input counts once, at the width the kernel reads it, and only
+    # where this run's data makes the function touch it; each output once.
+    # K9: the match plane and pod_valid whole; pod_node and the node's domain
+    # for each matching placed pod; dom and the planes for the gather; for the
+    # existing pass, the host match matrix and the group scalars whole, the
+    # node_topo column and the count at each node's domain of every matched
+    # group, and the block and score planes written.
+    placed = match & snap.pod_valid[None, None, :] & (snap.pod_node >= 0)[None, None, :]
+    n_placed = int(placed.sum())
+    matched_g = int(match_g.any(dim=1).sum())
+    k9_bytes = (nbytes(match, snap.pod_valid) + 8 * n_placed + 4 * c
+                + (2 * 4 * c * t * n if planes else 4 * c * t * (d + 1))
+                + nbytes(match_g) + 13 * g_n + matched_g * n * 8 + c * n * 5)
+    k9_ops = 2 * n_placed + (c * t * n if planes else 0) + 3 * c * n * matched_g
+    row("ipa_prepare", "ipa_",
+        lambda: (K.ipa_prepare_counts(*a9), K.ipa_existing_planes(*e9)),
+        lambda: (K.ipa_prepare_counts_plain(*a9), K.ipa_existing_planes_plain(*e9)),
+        k9_bytes, k9_ops)
+    # K10 (no required term in this batch): the existing-pod block and the
+    # dynamic block planes read once; the bit plane read and written only
+    # where the filter fails
+    n_fail = int((~K.ipa_filter_plane(aux)).sum())
+    row("ipa_filter_bits", "ipa_filter_kernel",
+        lambda: K.ipa_filter_bits(aux, work_bits, bit),
+        lambda: K.ipa_filter_bits_plain(aux, work_bits.clone(), bit),
+        nbytes(aux.exist_anti_block, aux.block_dyn) + 8 * n_fail, 2 * c * n)
+    # K11: the bit plane read once; on feasible nodes the static and dynamic
+    # score, each preferred term's domain and count, and the total read and
+    # written; the term weights; per feasible node the raw sum (2 per term
+    # + 3), the min / max and the normalization, floor, scale and add (5)
+    n_feas = int((bits == full).sum())
+    row("ipa_score_combine", "ipa_score_kernel",
+        lambda: K.ipa_score_combine(aux, bits, full, work_total, weight),
+        lambda: K.ipa_score_combine_plain(aux, bits, full, work_total.clone(), weight),
+        nbytes(bits, aux.paff_weight) + n_feas * (4 + 4 + 8 * t + 8),
+        n_feas * (2 * t + 3 + 2 + 5))
+    # K12: the commit flags read once, the committed pods' node and class;
+    # per (count row, commit) its cross byte and the node's domain; every
+    # count row and committer row that this round's commit reaches reads its
+    # dom row and adds into the planes / score on the committed domain's
+    # nodes (read and write)
+    committed = torch.nonzero(commit, as_tuple=True)[0]
+    ks = class_t[committed]
+    ns_ = choice[committed].long().clamp(0, n - 1)
+    hit_rows = aux.paff_cross[:, :, ks].any(dim=-1)  # [C, T] count rows reached
+    committer = torch.zeros(c, dtype=torch.bool, device=dev)
+    committer[ks] = True
+    dom_at = aux.dom_paff[:, :, ns_]  # [C, T, commits]
+    same = ((aux.dom_paff[:, :, :, None] == dom_at[:, :, None, :])
+            & (dom_at[:, :, None, :] < d)).any(dim=-1)  # [C, T, N] committed domains
+    n_same = int((same & hit_rows[:, :, None]).sum())
+    n_score = int((same.sum(dim=-1) * aux.paff_cross.sum(dim=-1) * committer[:, None]).sum())
+    k12_rows = int(hit_rows.sum()) + int(committer.sum()) * t
+    row("ipa_update_classes", "ipa_update_kernel",
+        lambda: K.ipa_update_classes(work_aux, commit, choice, class_t),
+        lambda: K.ipa_update_classes_plain(work_aux, commit, choice, class_t),
+        b + len(committed) * 8 + c * t * len(committed) * 5 + k12_rows * 4 * n
+        + 8 * n_same + 8 * n_score,
+        c * t * len(committed) + k12_rows * n + n_same + n_score)
+    return rows
+
+
+class OpCounter:
+    """The torch-op programs of the path (ROADMAP Queue B B1, B4, B6, B7),
+    wrapped where the scheduler and the plugins look them up: counts their
+    calls and keeps the last cycle's arguments for timing.  B4's selector
+    matrices all go through ``requirements_match_matrix``; each cycle starts
+    with one ``apply_scatter`` (B1), which clears the kept B4 calls."""
+
+    TARGETS = (
+        ("B1", "kubernetes_tpu_torch.scheduler", "apply_scatter"),
+        ("B4", "kubernetes_tpu_torch.state.selectors", "requirements_match_matrix"),
+        ("B4", "kubernetes_tpu_torch.plugins.helpers", "requirements_match_matrix"),
+        ("B6", "kubernetes_tpu_torch.scheduler", "gang_all_or_nothing"),
+        ("B7", "kubernetes_tpu_torch.scheduler", "diagnose_bits_from_plane"),
+        ("B7", "kubernetes_tpu_torch.scheduler", "pack_diag"),
+    )
+
+    def __init__(self):
+        import importlib
+
+        self.counts = {}
+        self.last = {}
+        for prog, mod_name, attr in self.TARGETS:
+            mod = importlib.import_module(mod_name)
+            setattr(mod, attr, self._wrap(prog, attr, getattr(mod, attr)))
+
+    def _wrap(self, prog, attr, fn):
+        def wrapped(*args, **kw):
+            key = (prog, attr)
+            self.counts[key] = self.counts.get(key, 0) + 1
+            if prog == "B1":
+                self.last.pop(("B4", "requirements_match_matrix"), None)
+            if prog == "B4":
+                self.last.setdefault(key, []).append((args, kw))
+            else:
+                self.last[key] = [(args, kw)]
+            return fn(*args, **kw)
+
+        wrapped.original = fn
+        return wrapped
+
+    def reset(self):
+        self.counts.clear()
+
+    def calls(self) -> dict:
+        return {f"{p} {a}": v for (p, a), v in sorted(self.counts.items())}
+
+    def run_last(self, prog, attr):
+        """Replay the kept calls of one program (its original function)."""
+        import importlib
+
+        mod_name = next(m for p, m, a in self.TARGETS if (p, a) == (prog, attr))
+        fn = getattr(importlib.import_module(mod_name), attr).original
+        return [fn(*a, **kw) for a, kw in self.last.get((prog, attr), [])]
+
+
+def time_torch_ops(counter: OpCounter, what: str) -> list:
+    """Device time per cycle of the torch-op programs (B1, B4, B6, B7) on the
+    last cycle's arguments, with their bound."""
+    out = []
+
+    def args(prog, attr):
+        return counter.last.get((prog, attr), [])
+
+    def row(name, fn, n_bytes, n_ops, calls):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        out.append({"name": name, "shape": what, "ms": device_ms(fn),
+                    "bound_ms": least, "bound_by": bound_by, "bytes": n_bytes,
+                    "ops": n_ops, "calls_per_cycle": calls})
+
+    b1 = args("B1", "apply_scatter")
+    if b1 and b1[0][0][1] is not None:
+        upd = b1[0][0][1]
+        payload = 0
+        for group in (upd.node_rows, upd.pod_rows, upd.aff_rows):
+            if group is not None:
+                rows, vals = group
+                payload += nbytes(rows) + 2 * nbytes(*vals)  # read, then written
+        if upd.numeric is not None:
+            payload += nbytes(upd.numeric)
+        row("B1 apply_scatter", lambda: counter.run_last("B1", "apply_scatter"),
+            payload, 0, 1)
+    b4 = args("B4", "requirements_match_matrix")
+    if b4:
+        n_bytes = n_ops = 0
+        for (req_key, req_op, req_vals, req_num, keys, vals), kw in \
+                [(a[:6], kw) for a, kw in b4]:
+            u, s_ = req_key.shape[0], req_key.shape[1]
+            o, l_ = keys.shape
+            n_bytes += 4 * (u * s_ * (3 + req_vals.shape[-1]) + 2 * o * l_) + u * o
+            n_ops += 3 * u * s_ * o * l_
+        row("B4 selector match", lambda: counter.run_last("B4", "requirements_match_matrix"),
+            n_bytes, n_ops, len(b4))
+    b6 = args("B6", "gang_all_or_nothing")
+    if b6:
+        node_row, seg = b6[0][0][:2]
+        row("B6 gang_all_or_nothing", lambda: counter.run_last("B6", "gang_all_or_nothing"),
+            nbytes(node_row, seg, node_row), node_row.numel(), 1)
+    b7a, b7b = args("B7", "diagnose_bits_from_plane"), args("B7", "pack_diag")
+    if b7a and b7b:
+        plane, n_filters = b7a[0][0][:2]
+        bits = b7b[0][0][0]
+        row("B7 diagnose + pack",
+            lambda: (counter.run_last("B7", "diagnose_bits_from_plane"),
+                     counter.run_last("B7", "pack_diag")),
+            nbytes(plane) + plane.shape[0] * n_filters + 3 * bits.shape[0] * 4,
+            plane.numel() * n_filters + bits.numel(), 2)
+    return out
+
+
 # --- phase 7: where one cycle's device time goes ----------------------------------------
 
 
@@ -1293,12 +2037,15 @@ def main() -> None:
     t = time.perf_counter()
     err = check_kernels(dev)
     err.update(check_spread_kernels(dev))
+    err.update(check_ipa_kernels(dev))
     record["kernel_check_s"] = time.perf_counter() - t
 
+    counters = OpCounter()
     t = time.perf_counter()
-    ns = northstar("cuda")
+    ns = northstar("cuda", counters)
     record["northstar"] = ns["record"]
     record["northstar"]["phase_s"] = time.perf_counter() - t
+    torch_ops = time_torch_ops(counters, "NorthStar")
 
     t = time.perf_counter()
     topo = topology_spreading("cuda")
@@ -1307,6 +2054,19 @@ def main() -> None:
     t = time.perf_counter()
     record["preferred_spreading"] = preferred_spreading("cuda")
     record["preferred_spreading"]["phase_s"] = time.perf_counter() - t
+
+    affinity = {}
+    for suite in AFFINITY_SUITES:
+        t = time.perf_counter()
+        affinity[suite] = affinity_suite("cuda", suite, counters)
+        record[suite] = affinity[suite]["record"]
+        record[suite]["phase_s"] = time.perf_counter() - t
+        if suite == "SchedulingPreferredPodAffinity":
+            torch_ops += time_torch_ops(counters, suite)
+    record["torch_ops"] = torch_ops
+    log("torch-op programs on the path: " + "; ".join(
+        f"{r['name']} ({r['shape']}): {r['ms']:.5f} ms device, {r['calls_per_cycle']} "
+        f"calls a cycle, bound {r['bound_ms']:.7f} ms ({r['bound_by']})" for r in torch_ops))
 
     t = time.perf_counter()
     gpu_bind, gpu_launch, gpu_cycles, gpu_wall = hetero_bindings("cuda")
@@ -1349,10 +2109,40 @@ def main() -> None:
         log(f"{kind_} spread cluster, 1000 nodes / 1000 + 512 pods: cuda == cpu "
             f"bindings ({len(gb)} pods) in {time.perf_counter() - t:.1f} s")
 
-    rows = time_kernels(ns["sched"], err) + time_spread_kernels(topo["sched"], err)
+    record["affinity_cuda_vs_cpu"] = {}
+    for kind_ in ("anti", "affinity", "preferred", "mixed"):
+        t = time.perf_counter()
+        gb, gl = affinity_bindings("cuda", kind_)
+        cb, _ = affinity_bindings("cpu", kind_)
+        if gb != cb:
+            diff = [k for k in gb if gb[k] != cb.get(k)]
+            fail(f"{kind_} affinity cluster: cuda and cpu bindings differ for {len(diff)} "
+                 f"pods, e.g. {diff[:3]}")
+        unbound = sum(1 for v in gb.values() if not v)
+        if kind_ != "anti" and unbound:
+            fail(f"{kind_} affinity cluster: {unbound} pods unbound")
+        for k_ in IPA_KERNELS:
+            if gl[k_] <= 0:
+                fail(f"{kind_} affinity cluster: kernel {k_} never launched ({gl})")
+        record["affinity_cuda_vs_cpu"][kind_] = {"pods": len(gb), "unbound": unbound,
+                                                 "launches": gl,
+                                                 "s": time.perf_counter() - t}
+        log(f"{kind_} affinity cluster, 1000 nodes / 200 + 512 pods: cuda == cpu "
+            f"bindings ({len(gb)} pods, {unbound} unschedulable) in "
+            f"{time.perf_counter() - t:.1f} s")
+
+    pref = affinity["SchedulingPreferredPodAffinity"]
+    rows = (time_kernels(ns["sched"], err) + time_spread_kernels(topo["sched"], err)
+            + time_ipa_kernels(pref["sched"], err))
     for r in rows:
-        r["launches"] = topo["record"]["launches"][r["name"]]
-        r["launches_northstar"] = ns["record"]["launches"].get(r["name"])
+        # each kernel's launches on the path that carries it: K1–K8 on the
+        # TopologySpreading run, K9–K12 on SchedulingPreferredPodAffinity
+        on = pref["record"] if r["name"] in IPA_KERNELS else topo["record"]
+        r["launches"] = on["launches"][r["name"]]
+        r["launches_by_path"] = {
+            "NorthStar": ns["record"]["launches"].get(r["name"]),
+            "TopologySpreading": topo["record"]["launches"].get(r["name"]),
+            **{s_: a["record"]["launches"].get(r["name"]) for s_, a in affinity.items()}}
     record["kernels"] = rows
     out_dir = here / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1363,6 +2153,10 @@ def main() -> None:
         topo["sched"], out_dir, "TopologySpreading", lambda i: spread_pod(i, "profspread",
                                                                           ts0=3e6),
         "profile_spread_cycle.txt")
+    record["profile_affinity"] = profile_cycle(
+        pref["sched"], out_dir, "SchedulingPreferredPodAffinity",
+        lambda i: affinity_pod("preferred", i, "sched-1", ts0=3e6, tag="prof"),
+        "profile_affinity_cycle.txt")
     record["total_s"] = time.perf_counter() - t_start
     log(f"chip_smoke: all phases passed in {record['total_s']:.1f} s")
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

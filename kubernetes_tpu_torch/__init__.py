@@ -15,9 +15,11 @@ package.
 Layout (mirrors the JAX package):
   api/        object model (copies)
   sim/        trimmed in-process object store with watch fan-out
-  state/      dictionary, node infos, cache, encoder, selectors
+  state/      dictionary, node infos, cache, encoder, selectors, the
+              existing-pod affinity index
   framework/  plugin interface, events, PodBatch compiler, runtime
-  plugins/    the default plugin set (main-path plugins + pass-through halves)
+  plugins/    the default plugin set (main-path plugins, live
+              PodTopologySpread and InterPodAffinity, pass-through halves)
   gang/       in-batch all-or-nothing mask
   queueing/   the 3-queue PriorityQueue
   kernels/    CUDA kernel wrappers, plain versions, build/loader

@@ -6,7 +6,10 @@ gives for each field of the JAX package's ``DeviceSnapshot``, ``PodBatch``
 and ``DynamicState`` — and build the port's structures on a given device,
 so the JAX encoder's exact arrays can be fed into the port's runtime and
 kernels.  A compiled-selector or term-group field of a PodBatch is itself a
-dict of its fields.  Dtypes are kept (bool / int32 / float32).
+dict of its fields.  Dtypes are kept (bool / int32 / float32).  The
+snapshot carries the existing-pod affinity groups (``aff_*``) like every
+other field; ``ipa_aux_from_numpy`` carries a prepared InterPodAffinity
+aux.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 
 from .device import resolve_device
 from .framework.interface import DynamicState
-from .framework.podbatch import AffinityTermGroup, PodBatch
+from .framework.podbatch import AFFINITY_GROUPS, AffinityTermGroup, PodBatch
+from .plugins.interpodaffinity import DEFAULT_HARD_POD_AFFINITY_WEIGHT, IPAAux
 from .state.encoding import SNAPSHOT_FIELDS, DeviceSnapshot
 from .state.selectors import CompiledLabelSelectors, CompiledNodeSelectors
 
@@ -92,3 +96,21 @@ def batch_from_numpy(arrays: Mapping, device="cuda") -> PodBatch:
         else:
             kw[name] = _tensor(v, dev)
     return PodBatch(**kw)
+
+
+def ipa_aux_from_numpy(arrays: Mapping[str, np.ndarray], batch: PodBatch, depth: int,
+                       hard_weight: float = DEFAULT_HARD_POD_AFFINITY_WEIGHT,
+                       device="cuda") -> IPAAux:
+    """The port's InterPodAffinity aux from the JAX ``IPAAux`` fields (by
+    name) and the port's PodBatch they were prepared for (its term groups'
+    validity and weights, and ``group_present``), with domain bucket
+    ``depth``."""
+    dev = resolve_device(device)
+    fields = {k: _tensor(arrays[k], dev) for k in IPAAux._fields if k in arrays}
+    return IPAAux(
+        **fields, depth=int(depth),
+        present=tuple(getattr(batch, "group_present", AFFINITY_GROUPS)),
+        req_aff_valid=batch.req_affinity.valid.to(dev),
+        paff_weight=batch.pref_affinity.weight.to(dev),
+        panti_weight=batch.pref_anti_affinity.weight.to(dev),
+        hard_weight=float(hard_weight))

@@ -1,0 +1,493 @@
+// K9–K12: InterPodAffinity's count planes and tables for the identity-class
+// dedup cycle.
+//
+// Replaces (JAX package): plugins/interpodaffinity.py prepare (:197-333,
+// with _counts :166-195), filter (:337-364), score (:368-385) + normalize
+// (:387-398) and update_batch_classes (:676-764), with the ops/segment.py
+// domain gather and scatter-add (:27-97) they are built on.
+//
+// Count state per term group: planes [C, T, N] (the count of matching pods
+// in each node's domain) or tables [C, T, D1] (per domain, D1 = D + 1 with
+// the trash slot D of nodes without the key); dom [C, T, N] holds each
+// node's domain under each term's key, D for an invalid term.  A count
+// tensor is a plane exactly when its width is N.
+//
+// K9 ipa_prepare (three launch functions of this file, one per pass):
+//   count:    one thread per (term row, scheduled pod); an integer atomic
+//             adds each matching placed pod to its node's domain (the
+//             reference builds the same counts through a [C·T, P] × [P, N]
+//             matmul against a pod→node one-hot, 268 MB of float32 at
+//             P = N = 8192).  Bound: bytes (the match plane read once).
+//   gather:   one thread per (term row, node): the table at the node's
+//             domain, for the planes form.  Bound: bytes.
+//   existing: one thread per (class row, node) over the G index groups:
+//             the owner count at the node's domain under the group's key;
+//             a matched BLOCK group with an owner blocks, the others add
+//             weight · count.  Bound: bytes (node_topo and the planes).
+// K10 ipa_filter: one thread per (class row, node); clears the filter's bit
+//   of K1's pass-bit plane in place.  Bound: bytes.
+// K11 ipa_score: one block per class row, two sweeps: the raw score's max
+//   and min over the feasible nodes, then the normalized, floored, weighted
+//   score added into K2's total.  Bound: bytes — at C = 4 the four blocks
+//   leave the card idle.
+// K12 ipa_update: one launch per present term group, one block per
+//   (term row) in two halves.  A count row (pending class c, term t) folds
+//   the round's matching commits into a shared-memory domain delta and adds
+//   it to its table, or to its plane over the nodes of those domains.  A
+//   committer row (class k, term t) folds class k's commits the same way
+//   and, on every node of a committed domain, ORs the block (required
+//   anti-affinity) or adds ±weight · commits into the score of each class
+//   its term matches (float atomics of integer values: exact in any order).
+//   O(commits · C · T + C · T · N) against the reference's O(C · T · N)
+//   one-hot contractions.  Bound: latency (one commit a round on the
+//   preferred-affinity suite).
+//
+// Numerics (built with --fmad=false): every score term is an integer-valued
+// float32 below 2^24, so sums are exact in any order; the normalization is
+// __fdiv_rn(__fmul_rn(100, s − min), max − min), in the reference's order.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#define MAX_NODE_SCORE 100.0f
+#define KIND_BLOCK 0
+#define KIND_SCORE_REQ 2
+#define GROUP_REQ_AFF 0
+#define GROUP_REQ_ANTI 1
+
+// --- block reductions (blockDim.x a multiple of 32, at most 1024) ---------------
+
+__device__ __forceinline__ int block_sum_int(int v, int* scratch) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffff, v, off);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int r = 0;
+    for (int w = 0; w < (int)(blockDim.x / 32); ++w) r += scratch[w];
+    scratch[0] = r;
+  }
+  __syncthreads();
+  return scratch[0];
+}
+
+__device__ __forceinline__ float block_max_float(float v, float* scratch) {
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffff, v, off));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float r = scratch[0];
+    for (int w = 1; w < (int)(blockDim.x / 32); ++w) r = fmaxf(r, scratch[w]);
+    scratch[0] = r;
+  }
+  __syncthreads();
+  return scratch[0];
+}
+
+__device__ __forceinline__ float block_min_float(float v, float* scratch) {
+  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_down_sync(0xffffffff, v, off));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float r = scratch[0];
+    for (int w = 1; w < (int)(blockDim.x / 32); ++w) r = fminf(r, scratch[w]);
+    scratch[0] = r;
+  }
+  __syncthreads();
+  return scratch[0];
+}
+
+// --- K9, count pass ---------------------------------------------------------------
+
+#define COUNT_THREADS 256
+
+__global__ void __launch_bounds__(COUNT_THREADS) ipa_count_kernel(
+    int C, int T, int P, int N, int D1,
+    const uint8_t* __restrict__ match,     // [C, T, P]
+    const int32_t* __restrict__ pod_node,  // [P]
+    const uint8_t* __restrict__ pod_valid, // [P]
+    const int32_t* __restrict__ dom,       // [C, T, N]
+    int32_t* __restrict__ tbl,             // [C, T, D1]
+    int32_t* __restrict__ total) {         // [C]
+  __shared__ int scratch[COUNT_THREADS / 32];
+  const int row = blockIdx.y;  // c * T + t
+  const int c = row / T;
+  const int D = D1 - 1;
+  int mass = 0;
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < P; p += gridDim.x * blockDim.x) {
+    if (!match[(long long)row * P + p] || !pod_valid[p]) continue;
+    int n = pod_node[p];
+    if (n < 0) continue;
+    if (n > N - 1) n = N - 1;  // the reference clips the pod's node row
+    const int dv = dom[(long long)row * N + n];
+    atomicAdd(&tbl[(long long)row * D1 + dv], 1);
+    if (dv < D) mass += 1;
+  }
+  mass = block_sum_int(mass, scratch);
+  if (threadIdx.x == 0 && mass) atomicAdd(&total[c], mass);
+}
+
+extern "C" int launch_ipa_count(int C, int T, int P, int N, int D1, const void* match,
+                                const void* pod_node, const void* pod_valid,
+                                const void* dom, void* tbl, void* total, void* stream) {
+  if (C <= 0 || T <= 0 || P <= 0) return 0;
+  long long blocks = ((long long)P + COUNT_THREADS - 1) / COUNT_THREADS;
+  if (blocks > 256) blocks = 256;
+  dim3 grid((unsigned)blocks, C * T);
+  ipa_count_kernel<<<grid, COUNT_THREADS, 0, (cudaStream_t)stream>>>(
+      C, T, P, N, D1, (const uint8_t*)match, (const int32_t*)pod_node,
+      (const uint8_t*)pod_valid, (const int32_t*)dom, (int32_t*)tbl, (int32_t*)total);
+  return (int)cudaGetLastError();
+}
+
+// --- K9, gather pass (planes) -----------------------------------------------------------
+
+__global__ void ipa_gather_kernel(long long total, int N, int D1,
+                                  const int32_t* __restrict__ tbl,  // [R, D1]
+                                  const int32_t* __restrict__ dom,  // [R, N]
+                                  int32_t* __restrict__ plane) {    // [R, N]
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long row = i / N;
+    plane[i] = tbl[row * D1 + dom[i]];
+  }
+}
+
+extern "C" int launch_ipa_gather(int R, int N, int D1, const void* tbl, const void* dom,
+                                 void* plane, void* stream) {
+  const long long total = (long long)R * N;
+  if (total <= 0) return 0;
+  const int threads = 256;
+  long long blocks = (total + threads - 1) / threads;
+  if (blocks > 4096) blocks = 4096;
+  ipa_gather_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      total, N, D1, (const int32_t*)tbl, (const int32_t*)dom, (int32_t*)plane);
+  return (int)cudaGetLastError();
+}
+
+// --- K9, existing-pod pass ----------------------------------------------------------------
+
+__global__ void ipa_existing_kernel(int G, int C, int N, int K, int Dw,
+                                    const uint8_t* __restrict__ match,      // [G, C]
+                                    const float* __restrict__ counts,       // [G, Dw]
+                                    const int32_t* __restrict__ slot,       // [G]
+                                    const uint8_t* __restrict__ valid,      // [G]
+                                    const int32_t* __restrict__ kind,       // [G]
+                                    const float* __restrict__ weight,       // [G]
+                                    const int32_t* __restrict__ node_topo,  // [N, K]
+                                    float hard_weight,
+                                    uint8_t* __restrict__ block,            // [C, N]
+                                    float* __restrict__ score) {            // [C, N]
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = blockIdx.y;
+  if (n >= N) return;
+  bool blk = false;
+  float s = 0.0f;
+  for (int g = 0; g < G; ++g) {
+    if (!match[(long long)g * C + c]) continue;
+    const int sl = slot[g];
+    const int dv = node_topo[(long long)n * K + min(max(sl, 0), K - 1)];
+    // MISSING (-1) and domains past the table width have no owners
+    const bool has = valid[g] && sl >= 0 && dv >= 0 && dv < Dw;
+    const float cnt = has ? counts[(long long)g * Dw + dv] : 0.0f;
+    const int k = kind[g];
+    if (k == KIND_BLOCK) {
+      if (cnt > 0.5f) blk = true;
+    } else {
+      const float w = (k == KIND_SCORE_REQ) ? hard_weight : weight[g];
+      s = __fadd_rn(s, __fmul_rn(w, cnt));
+    }
+  }
+  block[(long long)c * N + n] = blk ? 1 : 0;
+  score[(long long)c * N + n] = s;
+}
+
+extern "C" int launch_ipa_existing(int G, int C, int N, int K, int Dw, const void* match,
+                                   const void* counts, const void* slot, const void* valid,
+                                   const void* kind, const void* weight,
+                                   const void* node_topo, float hard_weight, void* block,
+                                   void* score, void* stream) {
+  if (C <= 0 || N <= 0) return 0;
+  const int threads = 256;
+  dim3 grid((N + threads - 1) / threads, C);
+  ipa_existing_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      G, C, N, K, Dw, (const uint8_t*)match, (const float*)counts, (const int32_t*)slot,
+      (const uint8_t*)valid, (const int32_t*)kind, (const float*)weight,
+      (const int32_t*)node_topo, hard_weight, (uint8_t*)block, (float*)score);
+  return (int)cudaGetLastError();
+}
+
+// --- K10 ---------------------------------------------------------------------------------
+
+// count of term row `row` at node n: the plane entry, or the table at the
+// node's domain (the trash slot included, as the reference's gather reads it)
+__device__ __forceinline__ int read_count(const int32_t* cnt, int W, int N, long long row,
+                                          int n, int dv) {
+  return (W == N) ? cnt[row * N + n] : cnt[row * W + dv];
+}
+
+__global__ void ipa_filter_kernel(int C, int N, int D, int bit,
+                                  int T1, int W1,
+                                  const uint8_t* __restrict__ aff_valid,   // [C, T1] or null
+                                  const int32_t* __restrict__ dom_aff,     // [C, T1, N]
+                                  const int32_t* __restrict__ aff_cnt,     // [C, T1, W1]
+                                  const int32_t* __restrict__ aff_total,   // [C]
+                                  const uint8_t* __restrict__ self_match,  // [C]
+                                  int T2, int W2,
+                                  const int32_t* __restrict__ dom_anti,    // [C, T2, N] or null
+                                  const int32_t* __restrict__ anti_cnt,    // [C, T2, W2]
+                                  const uint8_t* __restrict__ exist,       // [C, N]
+                                  const uint8_t* __restrict__ block_dyn,   // [C, N]
+                                  int32_t* __restrict__ bits) {            // [C, N]
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = blockIdx.y;
+  if (n >= N) return;
+  bool ok = true;
+  if (aff_valid) {
+    bool keys_all = true, pods_exist = true;
+    for (int t = 0; t < T1; ++t) {
+      const long long row = (long long)c * T1 + t;
+      if (!aff_valid[row]) continue;
+      const int dv = dom_aff[row * N + n];
+      if (dv >= D) keys_all = false;
+      if (read_count(aff_cnt, W1, N, row, n, dv) <= 0) pods_exist = false;
+    }
+    const bool first_pod = aff_total[c] == 0 && self_match[c];
+    ok = keys_all && (pods_exist || first_pod);
+  }
+  if (dom_anti) {
+    for (int t = 0; t < T2; ++t) {
+      const long long row = (long long)c * T2 + t;
+      const int dv = dom_anti[row * N + n];
+      if (dv < D && read_count(anti_cnt, W2, N, row, n, dv) > 0) ok = false;
+    }
+  }
+  const long long cn = (long long)c * N + n;
+  if (exist[cn] || block_dyn[cn]) ok = false;
+  if (!ok) bits[cn] &= ~(1 << bit);
+}
+
+extern "C" int launch_ipa_filter(int C, int N, int D, int bit, int T1, int W1,
+                                 const void* aff_valid, const void* dom_aff,
+                                 const void* aff_cnt, const void* aff_total,
+                                 const void* self_match, int T2, int W2,
+                                 const void* dom_anti, const void* anti_cnt,
+                                 const void* exist, const void* block_dyn, void* bits,
+                                 void* stream) {
+  if (C <= 0 || N <= 0) return 0;
+  const int threads = 256;
+  dim3 grid((N + threads - 1) / threads, C);
+  ipa_filter_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      C, N, D, bit, T1, W1, (const uint8_t*)aff_valid, (const int32_t*)dom_aff,
+      (const int32_t*)aff_cnt, (const int32_t*)aff_total, (const uint8_t*)self_match, T2,
+      W2, (const int32_t*)dom_anti, (const int32_t*)anti_cnt, (const uint8_t*)exist,
+      (const uint8_t*)block_dyn, (int32_t*)bits);
+  return (int)cudaGetLastError();
+}
+
+// --- K11 ---------------------------------------------------------------------------------
+
+#define SCORE_THREADS 1024
+
+struct ScoreGroup {
+  int T, W;
+  const int32_t* dom;   // [C, T, N] or null (group absent)
+  const int32_t* cnt;   // [C, T, W]
+  const float* weight;  // [C, T]
+};
+
+// Σ_t weight · count over the terms whose domain is live at node n
+__device__ __forceinline__ float group_sum(const ScoreGroup& g, int c, int N, int D, int n) {
+  float s = 0.0f;
+  for (int t = 0; t < g.T; ++t) {
+    const long long row = (long long)c * g.T + t;
+    const int dv = g.dom[row * N + n];
+    float term = 0.0f;
+    if (dv < D) term = __fmul_rn((float)read_count(g.cnt, g.W, N, row, n, dv), g.weight[row]);
+    s = __fadd_rn(s, term);
+  }
+  return s;
+}
+
+// the raw score of node n: own + score_static + score_dyn
+__device__ __forceinline__ float raw_score(const ScoreGroup& paff, const ScoreGroup& panti,
+                                           const float* score_static, const float* score_dyn,
+                                           int c, int N, int D, int n) {
+  float own = 0.0f;
+  if (paff.dom) own = __fadd_rn(own, group_sum(paff, c, N, D, n));
+  if (panti.dom) own = __fsub_rn(own, group_sum(panti, c, N, D, n));
+  const long long cn = (long long)c * N + n;
+  return __fadd_rn(__fadd_rn(own, score_static[cn]), score_dyn[cn]);
+}
+
+__global__ void __launch_bounds__(SCORE_THREADS) ipa_score_kernel(
+    int C, int N, int D, int full, const int32_t* __restrict__ bits, ScoreGroup paff,
+    ScoreGroup panti, const float* __restrict__ score_static,
+    const float* __restrict__ score_dyn, float weight, float* __restrict__ total) {
+  __shared__ float scratch[SCORE_THREADS / 32];
+  const int c = blockIdx.x;
+  const int32_t* brow = bits + (long long)c * N;
+  // sweep 1: max and min of the raw score over the feasible nodes
+  float mx = -INFINITY, mn = INFINITY;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    if (brow[n] != full) continue;
+    const float v = raw_score(paff, panti, score_static, score_dyn, c, N, D, n);
+    mx = fmaxf(mx, v);
+    mn = fminf(mn, v);
+  }
+  mx = block_max_float(mx, scratch);
+  mn = block_min_float(mn, scratch);
+  const float diff = __fsub_rn(mx, mn);
+  const bool ok = isfinite(diff) && diff > 0.0f;
+  // sweep 2: normalize, floor, weight, add into the total (−inf off the mask)
+  float* trow = total + (long long)c * N;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    if (brow[n] != full) continue;
+    float out = 0.0f;
+    if (ok) {
+      const float v = raw_score(paff, panti, score_static, score_dyn, c, N, D, n);
+      out = __fdiv_rn(__fmul_rn(MAX_NODE_SCORE, __fsub_rn(v, mn)), diff);
+    }
+    trow[n] = __fadd_rn(trow[n], __fmul_rn(weight, floorf(out)));
+  }
+}
+
+extern "C" int launch_ipa_score(int C, int N, int D, int full, const void* bits, int T3,
+                                int W3, const void* dom_paff, const void* paff_cnt,
+                                const void* paff_w, int T4, int W4, const void* dom_panti,
+                                const void* panti_cnt, const void* panti_w,
+                                const void* score_static, const void* score_dyn,
+                                float weight, void* total, void* stream) {
+  if (C <= 0 || N <= 0) return 0;
+  ScoreGroup paff{T3, W3, (const int32_t*)dom_paff, (const int32_t*)paff_cnt,
+                  (const float*)paff_w};
+  ScoreGroup panti{T4, W4, (const int32_t*)dom_panti, (const int32_t*)panti_cnt,
+                   (const float*)panti_w};
+  ipa_score_kernel<<<C, SCORE_THREADS, 0, (cudaStream_t)stream>>>(
+      C, N, D, full, (const int32_t*)bits, paff, panti, (const float*)score_static,
+      (const float*)score_dyn, weight, (float*)total);
+  return (int)cudaGetLastError();
+}
+
+// --- K12 ---------------------------------------------------------------------------------
+
+#define UPDATE_THREADS 256
+
+__global__ void __launch_bounds__(UPDATE_THREADS) ipa_update_kernel(
+    int group, int B, int C, int T, int N, int D, int planes,
+    const uint8_t* __restrict__ commit,     // [B]
+    const int32_t* __restrict__ choice,     // [B]
+    const int32_t* __restrict__ class_of,   // [B]
+    const int32_t* __restrict__ dom,        // [C, T, N]
+    const uint8_t* __restrict__ cross3,     // [C, T, C] count cross, or null
+    const uint8_t* __restrict__ cross2,     // [C, C] all-terms cross (with row_valid)
+    const uint8_t* __restrict__ row_valid,  // [C, T]
+    const uint8_t* __restrict__ own_cross,  // [C, T, C]: term (k, t) matches class j
+    const float* __restrict__ wt,           // [C, T] or null (use w_scalar)
+    float w_scalar, float sign,
+    int32_t* __restrict__ cnt,              // [C, T, N] planes or [C, T, D + 1] tables
+    int32_t* __restrict__ total,            // [C] or null
+    uint8_t* __restrict__ block_dyn,        // [C, N]
+    float* __restrict__ score_dyn) {        // [C, N]
+  extern __shared__ int delta[];            // [D]: commits per domain of this row
+  __shared__ int scratch[UPDATE_THREADS / 32];
+  const int rows = C * T;
+  const bool own_half = blockIdx.x >= rows;
+  const int row = own_half ? blockIdx.x - rows : blockIdx.x;  // c * T + t
+  const int c = row / T;
+  const int32_t* drow = dom + (long long)row * N;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) delta[d] = 0;
+  __syncthreads();
+  bool any = false;
+  for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    if (!commit[i]) continue;
+    const int k = class_of[i];
+    bool take;
+    if (own_half) {
+      take = k == c;  // the committer's own term (c, t)
+    } else if (cross3) {
+      take = cross3[(long long)row * C + k];
+    } else {
+      take = cross2[(long long)c * C + k] && row_valid[row];
+    }
+    if (!take) continue;
+    const int n = min(max(choice[i], 0), N - 1);
+    const int dv = drow[n];
+    if (dv < D) {  // commits on nodes without the key count nowhere
+      atomicAdd(&delta[dv], 1);
+      any = true;
+    }
+  }
+  if (!__syncthreads_or(any)) return;
+  if (!own_half) {
+    // the pending row's count: table += delta, or plane += delta[dom]
+    int mass = 0;
+    for (int d = threadIdx.x; d < D; d += blockDim.x) {
+      const int v = delta[d];
+      mass += v;
+      if (!planes && v) cnt[(long long)row * (D + 1) + d] += v;
+    }
+    if (planes) {
+      for (int n = threadIdx.x; n < N; n += blockDim.x) {
+        const int dv = drow[n];
+        if (dv < D) {
+          const int v = delta[dv];
+          if (v) cnt[(long long)row * N + n] += v;
+        }
+      }
+    }
+    if (total) {
+      mass = block_sum_int(mass, scratch);
+      if (threadIdx.x == 0) atomicAdd(&total[c], mass);
+    }
+    return;
+  }
+  // the committers' own term (c, t): block or score the classes it matches
+  // on every node of a committed domain
+  const float w = wt ? wt[row] : w_scalar;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const int dv = drow[n];
+    if (dv >= D) continue;
+    const int m = delta[dv];
+    if (!m) continue;
+    for (int j = 0; j < C; ++j) {
+      if (!own_cross[(long long)row * C + j]) continue;
+      const long long jn = (long long)j * N + n;
+      if (group == GROUP_REQ_ANTI) {
+        block_dyn[jn] = 1;
+      } else {
+        atomicAdd(&score_dyn[jn], __fmul_rn(sign, __fmul_rn(w, (float)m)));
+      }
+    }
+  }
+}
+
+extern "C" int launch_ipa_update(int group, int B, int C, int T, int N, int D, int planes,
+                                 const void* commit, const void* choice,
+                                 const void* class_of, const void* dom, const void* cross3,
+                                 const void* cross2, const void* row_valid,
+                                 const void* own_cross, const void* wt, float w_scalar,
+                                 float sign, void* cnt, void* total, void* block_dyn,
+                                 void* score_dyn, void* stream) {
+  if (B <= 0 || C <= 0 || T <= 0 || D <= 0) return 0;
+  const size_t smem = (size_t)D * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(ipa_update_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ipa_update_kernel<<<2 * C * T, UPDATE_THREADS, smem, (cudaStream_t)stream>>>(
+      group, B, C, T, N, D, planes, (const uint8_t*)commit, (const int32_t*)choice,
+      (const int32_t*)class_of, (const int32_t*)dom, (const uint8_t*)cross3,
+      (const uint8_t*)cross2, (const uint8_t*)row_valid, (const uint8_t*)own_cross,
+      (const float*)wt, w_scalar, sign, (int32_t*)cnt, (int32_t*)total,
+      (uint8_t*)block_dyn, (float*)score_dyn);
+  return (int)cudaGetLastError();
+}

@@ -1,9 +1,8 @@
 """Host-side pod–pod conflict partitioner for the hybrid assignment engine.
 
 A copy of the JAX package's framework/conflict.py (host numpy, no device
-code), with the two signature helpers it takes from state/affinity_index.py
-kept here.  The port admits no pod (anti)affinity yet (the scheduler's scope
-guard), but the affinity branches come along unchanged.
+code); its two term-signature helpers come from state/affinity_index.py, as
+in the reference.
 
 The pre-round-6 dispatch heuristic was all-or-nothing: a batch whose
 coupled-pod fraction exceeded ``coupled_fraction_threshold`` abandoned the
@@ -40,33 +39,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..api.labels import affinity_term_matches, match_label_selector
-
-
-def _selector_signature(sel) -> Optional[tuple]:
-    """Hashable identity of a LabelSelector's match semantics."""
-    if sel is None:
-        return None
-    return (
-        tuple(sorted(sel.match_labels.items())),
-        tuple(
-            (e.key, e.operator, tuple(e.values)) for e in sel.match_expressions
-        ),
-    )
-
-
-def _term_signature(term, owner_ns: str) -> tuple:
-    """Two terms with equal signatures match exactly the same target pods
-    (affinity_term_matches semantics: namespaces list, namespaceSelector, the
-    owner-namespace default when both are unset, and the label selector)."""
-    if term.namespaces:
-        ns_key = ("list", tuple(sorted(term.namespaces)))
-        if term.namespace_selector is not None:
-            ns_key = ns_key + ("sel", _selector_signature(term.namespace_selector))
-    elif term.namespace_selector is not None:
-        ns_key = ("sel", _selector_signature(term.namespace_selector))
-    else:
-        ns_key = ("owner", owner_ns)
-    return (term.topology_key, ns_key, _selector_signature(term.label_selector))
+from ..state.affinity_index import _selector_signature, _term_signature
 
 
 @dataclass

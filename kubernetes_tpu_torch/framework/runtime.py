@@ -4,14 +4,15 @@ assignment engine, in torch.
 Reference: the JAX package's framework/runtime.py — ``coupling_flags``
 (:90), ``prepare`` (:172), ``run_filters`` / ``run_scores`` / ``compute`` /
 ``diagnose_bits`` (:199-255) and ``_batch_assign_dedup`` (:747-977).  Both
-run through the kernels (kernels/): K1 filter bits + raw planes, then a
-live dynamic plugin's filter folded into the bit plane (PodTopologySpread:
-K6), K2 normalize + weighted total, then the dynamic plugin's score folded
-into the total (K7) — the plugin compositions and the dedup engine's rounds
-alike — and, in the engine, K3 top-K candidates in (value desc, row asc)
-order, K4 the propose/resolve auction with its scatter-add commit, and the
-dynamic plugin's class-table update (K8).  On CPU tensors each kernel
-wrapper takes its plain torch version.
+run through the kernels (kernels/): K1 filter bits + raw planes, then the
+live dynamic plugins' filters folded into the bit plane (PodTopologySpread:
+K6, InterPodAffinity: K10), K2 normalize + weighted total, then the dynamic
+plugins' scores folded into the total (K7, K11) — the plugin compositions
+and the dedup engine's rounds alike — and, in the engine, K3 top-K
+candidates in (value desc, row asc) order, K4 the propose/resolve auction
+with its scatter-add commit, and the dynamic plugins' class-state updates
+(K8, K12).  On CPU tensors each kernel wrapper takes its plain torch
+version.
 
 Ties break by lowest node row (deterministic; no tie noise).
 """
@@ -129,16 +130,33 @@ class BatchedFramework:
         """Names of plugins with a Filter, in plugin order (Diagnosis keys)."""
         return [pw.plugin.name for pw in self.plugins if hasattr(pw.plugin, "filter")]
 
+    # --- host-side precompute -------------------------------------------------
+
+    def host_prepare(self, batch, snapshot, encoder, namespace_labels=None) -> Dict[str, Any]:
+        """Each plugin's host half by plugin name (the reference's
+        host_prepare, runtime.py:160): InterPodAffinity's existing-pod match
+        matrix."""
+        out: Dict[str, Any] = {}
+        for pw in self.plugins:
+            fn = getattr(pw.plugin, "host_prepare", None)
+            if fn is not None:
+                out[pw.plugin.name] = fn(batch, snapshot, encoder,
+                                         namespace_labels=namespace_labels)
+        return out
+
     # --- device-side prepare ---------------------------------------------------
 
-    def prepare(self, batch, snap, dyn):
+    def prepare(self, batch, snap, dyn, host_auxes: Optional[Dict[str, Any]] = None):
         """One aux per plugin, in plugin order (the reference's prepare,
         runtime.py:172); None for plugins without a prepare or with nothing
-        to carry for this batch."""
+        to carry for this batch.  ``host_auxes`` maps plugin names to their
+        host halves."""
+        host_auxes = host_auxes or {}
         auxes = []
         for pw in self.plugins:
             fn = getattr(pw.plugin, "prepare", None)
-            auxes.append(None if fn is None else fn(batch, snap, dyn))
+            auxes.append(None if fn is None else
+                         fn(batch, snap, dyn, host_auxes.get(pw.plugin.name)))
         return tuple(auxes)
 
     def _live(self, auxes):
@@ -159,7 +177,9 @@ class BatchedFramework:
                 image_scaled_by_id(snap))
 
     def _fold_filters(self, live, bits, fs_plan):
-        """Each live dynamic filter writes its bit of the pass-bit plane."""
+        """Each live dynamic filter writes its bit of the pass-bit plane.
+        Every filter folds before any score: a score normalizes over the
+        final mask (InterPodAffinity's min and max read the spread bit)."""
         for pw, aux in live:
             bit = fs_plan.dynamic_bits.get(pw.plugin.name)
             if bit is not None:
@@ -229,10 +249,12 @@ class BatchedFramework:
         names of the dynamic plugins whose aux is live.  The kernels
         evaluate the main-path plugins.  A pass-through half contributes its
         filter as a bit K1 sets and its score as a constant folded into
-        ``const_add``.  A live dynamic plugin (PodTopologySpread) has its
-        bit seeded by K1 as passing — its filter with no aux — and written
-        by its own kernel (K6), and its score added by its kernel (K7); with
-        no aux its score is the constant of its normalized all-zero plane."""
+        ``const_add``.  A live dynamic plugin (PodTopologySpread,
+        InterPodAffinity) has its bit seeded by K1 as passing — its filter
+        with no aux — and written by its own kernel (K6, K10), and its score
+        added by its kernel (K7, K11); with no aux its score is the constant
+        of its normalized all-zero plane (200 for PodTopologySpread, 0 for
+        InterPodAffinity)."""
         if live in self._plans:
             return self._plans[live]
         names = self.filter_names
@@ -299,10 +321,11 @@ class BatchedFramework:
         pods of one class have byte-identical compiled rows, so each round
         computes the planes once per class ([C, N]) and every pod proposes
         from its class's top-K candidate list (K = min(B, N)).  A live
-        dynamic plugin's rep aux (PodTopologySpread's class count tables)
-        folds its filter bit (K6) and score (K7) into each round's planes
+        dynamic plugin's rep aux (PodTopologySpread's class count tables,
+        InterPodAffinity's count state and block / score planes) folds its
+        filter bit (K6, K10) and score (K7, K11) into each round's planes
         and takes the round's commits through its ``update_batch_classes``
-        hook (K8) — the full path's per-pod tables stay class-uniform, so
+        hook (K8, K12) — the full path's per-pod tables stay class-uniform, so
         the class rows reproduce them exactly.  A coupled component commits
         only its head pod each round (``coupling``).
 

@@ -4,8 +4,8 @@ torch versions.
 Each wrapper takes the plain version for tensors that lie on the CPU and
 launches its kernel for CUDA tensors (raising if the launch fails — there
 is no fallback).  ``LAUNCHES`` counts, per kernel, its launches on the
-card (K3 launches once per pass, so one wrapper call may count more than
-once); ``reset_launches`` zeroes the counts.
+card (K3 and K9 launch once per pass, so one wrapper call may count more
+than once); ``reset_launches`` zeroes the counts.
 
   K1 filter_score_planes  csrc/filter_score.cu
   K2 normalize_combine    csrc/normalize_combine.cu
@@ -15,6 +15,12 @@ once); ``reset_launches`` zeroes the counts.
   K6 spread_filter_bits     csrc/spread.cu
   K7 spread_score_combine   csrc/spread.cu
   K8 spread_update_classes  csrc/spread.cu
+  K9 ipa_prepare            csrc/interpodaffinity.cu (ipa_prepare_counts,
+                            ipa_existing_planes: one count per pass)
+  K10 ipa_filter_bits       csrc/interpodaffinity.cu
+  K11 ipa_score_combine     csrc/interpodaffinity.cu
+  K12 ipa_update_classes    csrc/interpodaffinity.cu (one launch per present
+                            term group)
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ LAUNCHES: Dict[str, int] = {
     "spread_filter_bits": 0,
     "spread_score_combine": 0,
     "spread_update_classes": 0,
+    "ipa_prepare": 0,
+    "ipa_filter_bits": 0,
+    "ipa_score_combine": 0,
+    "ipa_update_classes": 0,
 }
 
 

@@ -31,7 +31,8 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
-SOURCES = ("filter_score", "normalize_combine", "topk_rows", "auction", "spread")
+SOURCES = ("filter_score", "normalize_combine", "topk_rows", "auction", "spread",
+           "interpodaffinity")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

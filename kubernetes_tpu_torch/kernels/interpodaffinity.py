@@ -1,0 +1,474 @@
+"""K9–K12: InterPodAffinity's count planes and tables (CUDA:
+csrc/interpodaffinity.cu).
+
+Replace the JAX package's plugins/interpodaffinity.py programs as the
+identity-class dedup engine runs them, with the ops/segment.py domain
+gathers and scatters they are built on (ROADMAP Queue B, B10 and B12):
+
+  K9  ipa_prepare_counts     ``prepare`` (:197-278) with ``_counts``
+      ipa_existing_planes    (:166-195): per-domain counts of the scheduled
+                             pods each term matches (pass 1), gathered per
+                             node where the counts are planes (pass 2); and
+                             the expansion of the existing-pod affinity
+                             index into the block and static score planes
+                             (:280-321, pass 3)
+  K10 ipa_filter_bits        ``filter`` (:337-364) into K1's pass-bit plane
+  K11 ipa_score_combine      ``score`` (:368-385) + ``normalize`` (:387-398)
+                             + the weighted floor into K2's total
+  K12 ipa_update_classes     ``update_batch_classes`` (:676-764), once per
+                             auction round and present term group
+
+The count state has the reference's two forms (the plugin's
+``_use_planes``): per-node planes ``[C, T, N]`` when the batch's domain
+bucket D is dense (hostname keys), per-domain tables ``[C, T, D+1]``
+otherwise; the last table slot D is the trash slot of nodes without the
+key.  A count tensor is a plane exactly when its last axis is the node
+axis (D + 1 is odd, the node tier a power of two).  Each wrapper takes its
+plain version for CPU tensors and launches its kernel for CUDA tensors
+(raising if the launch fails).
+
+Every score term is an integer-valued float32 below 2^24 (counts times
+integer weights), so sums are exact in any order.  The one float step that
+rounds is the normalization, which the kernel spells
+``__fdiv_rn(__fmul_rn(100, s − min), max − min)`` in the reference's
+order: a reciprocal ``(s − min) · (100 / diff)`` or ``((s − min) / diff) ·
+100`` flips the floor at some diffs (97 and 100 among them).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..framework.podbatch import AFFINITY_GROUPS
+from ..ops.segment import domain_gather, domain_scatter_add
+from . import LAUNCHES, bind, ptr, require_cuda, require_dtype, stream_of
+from .build import check, load
+
+MAX_NODE_SCORE = 100.0
+# the affinity index's group kinds (state/affinity_index.py)
+KIND_BLOCK = 0
+KIND_SCORE_REQ = 2
+# K12's code for each term group (its kernel's GROUP_* constants)
+_GROUP_CODE = {name: k for k, name in enumerate(AFFINITY_GROUPS)}
+# K12 keeps one int per domain of a row in shared memory
+MAX_SHARED_DOMAINS = (227 * 1024) // 4 - 64
+
+
+def read_counts(cnt: torch.Tensor, dom: torch.Tensor) -> torch.Tensor:
+    """Per-node counts ``[..., N]`` from either count form (the reference's
+    ``_read_cnt``)."""
+    if cnt.shape[-1] == dom.shape[-1]:
+        return cnt
+    return domain_gather(cnt, dom)
+
+
+def _is_planes(cnt: torch.Tensor, n: int) -> bool:
+    return cnt.shape[-1] == n
+
+
+# --- K9 ipa_prepare_counts / ipa_existing_planes -------------------------------------
+
+
+def ipa_prepare_counts_plain(match, pod_node, pod_valid, dom, depth: int, planes: bool):
+    """The plain version of the reference's ``_counts`` (its ``[C·T, P] ×
+    [P, N]`` one-hot matmul, here a scatter-add by pod node) and the domain
+    scatter / gather around it."""
+    c, t, p = match.shape
+    n = dom.shape[-1]
+    ok = match & pod_valid[None, None, :] & (pod_node >= 0)[None, None, :]
+    node = pod_node.long().clamp(0, n - 1)
+    count_node = torch.zeros((c * t, n), dtype=torch.int32, device=dom.device)
+    count_node.scatter_add_(1, node[None, :].expand(c * t, p),
+                            ok.reshape(c * t, p).to(torch.int32))
+    tbl = domain_scatter_add(count_node.reshape(c, t, n), dom, depth + 1)
+    total = tbl[..., :depth].sum(dim=(1, 2), dtype=torch.int32)
+    return (domain_gather(tbl, dom) if planes else tbl), total
+
+
+def ipa_prepare_counts(match, pod_node, pod_valid, dom, depth: int, planes: bool):
+    """→ (counts i32 — planes [C, T, N] or tables [C, T, D+1] —, the tables'
+    mass without the trash slot i32[C]).  ``match`` bool[C, T, P]: term
+    (c, t) matches scheduled pod p.  CPU tensors take the plain version;
+    CUDA tensors launch K9's count pass and, for planes, its gather pass."""
+    if not dom.is_cuda:
+        return ipa_prepare_counts_plain(match, pod_node, pod_valid, dom, depth, planes)
+    c, t, p = match.shape
+    n = dom.shape[-1]
+    args = [x.contiguous() for x in (match, pod_node, pod_valid, dom)]
+    dev = require_cuda("ipa_prepare_counts", *args)
+    require_dtype("ipa_prepare_counts", torch.bool, args[0], args[2])
+    require_dtype("ipa_prepare_counts", torch.int32, args[1], args[3])
+    if args[1].shape != (p,) or args[2].shape != (p,) or args[3].shape != (c, t, n):
+        raise ValueError("ipa_prepare_counts: inconsistent shapes")
+    tbl = torch.zeros((c, t, depth + 1), dtype=torch.int32, device=dev)
+    total = torch.zeros((c,), dtype=torch.int32, device=dev)
+    err = _fn("launch_ipa_count", "iiiii" + "p" * 6 + "p")(
+        c, t, p, n, depth + 1, *map(ptr, args), ptr(tbl), ptr(total), stream_of(dev))
+    check(err, "ipa_prepare_counts (count pass)")
+    LAUNCHES["ipa_prepare"] += 1
+    if not planes:
+        return tbl, total
+    plane = torch.empty((c, t, n), dtype=torch.int32, device=dev)
+    err = _fn("launch_ipa_gather", "iii" + "ppp" + "p")(
+        c * t, n, depth + 1, ptr(tbl), ptr(args[3]), ptr(plane), stream_of(dev))
+    check(err, "ipa_prepare_counts (gather pass)")
+    LAUNCHES["ipa_prepare"] += 1
+    return plane, total
+
+
+def ipa_existing_planes_plain(match_g, aff_counts, aff_slot, aff_valid, aff_kind,
+                              aff_weight, node_topo, hard_weight: float):
+    """The reference's expansion of the existing-pod group tables
+    (interpodaffinity.py:292-321): per-group owner counts at each node's
+    domain, then the block plane (a matched BLOCK group with an owner) and
+    the static score plane (Σ_g match · weight · count)."""
+    k_cap = node_topo.shape[1]
+    dwidth = aff_counts.shape[1]
+    slot = aff_slot.long().clamp(0, k_cap - 1)
+    dom_g = node_topo[:, slot].t()  # [G, N]
+    has = (dom_g != -1) & aff_valid[:, None] & (aff_slot >= 0)[:, None] & (dom_g < dwidth)
+    cnt = domain_gather(aff_counts, torch.where(has, dom_g.clamp(0, dwidth - 1), 0))
+    cnt = torch.where(has, cnt, 0.0)  # f32[G, N]
+    mb = (match_g & (aff_kind == KIND_BLOCK)[:, None]).to(torch.float32)
+    block = torch.einsum("gb,gn->bn", mb, (cnt > 0.5).to(torch.float32)) > 0.5
+    w = torch.where(aff_kind == KIND_SCORE_REQ, float(hard_weight), aff_weight)
+    ms = (match_g & (aff_kind != KIND_BLOCK)[:, None]).to(torch.float32) * w[:, None]
+    return block, torch.einsum("gb,gn->bn", ms, cnt)
+
+
+def ipa_existing_planes(match_g, aff_counts, aff_slot, aff_valid, aff_kind, aff_weight,
+                        node_topo, hard_weight: float):
+    """→ (exist_anti_block bool[C, N], score_static f32[C, N]) from the
+    index's group tables (``aff_*``, G groups) and the batch's host match
+    matrix ``match_g`` bool[G, C].  CPU tensors take the plain version;
+    CUDA tensors launch K9's existing-pod pass."""
+    if not node_topo.is_cuda:
+        return ipa_existing_planes_plain(match_g, aff_counts, aff_slot, aff_valid,
+                                         aff_kind, aff_weight, node_topo, hard_weight)
+    g, c = match_g.shape
+    n, k = node_topo.shape
+    dw = aff_counts.shape[1]
+    args = [x.contiguous() for x in (match_g, aff_counts, aff_slot, aff_valid, aff_kind,
+                                     aff_weight, node_topo)]
+    dev = require_cuda("ipa_existing_planes", *args)
+    require_dtype("ipa_existing_planes", torch.bool, args[0], args[3])
+    require_dtype("ipa_existing_planes", torch.float32, args[1], args[5])
+    require_dtype("ipa_existing_planes", torch.int32, args[2], args[4], args[6])
+    if args[1].shape[0] != g or args[2].shape != (g,) or args[3].shape != (g,) \
+            or args[4].shape != (g,) or args[5].shape != (g,):
+        raise ValueError("ipa_existing_planes: inconsistent shapes")
+    block = torch.empty((c, n), dtype=torch.bool, device=dev)
+    score = torch.empty((c, n), dtype=torch.float32, device=dev)
+    err = _fn("launch_ipa_existing", "iiiii" + "p" * 7 + "f" + "pp" + "p")(
+        g, c, n, k, dw, *map(ptr, args), float(hard_weight), ptr(block), ptr(score),
+        stream_of(dev))
+    check(err, "ipa_existing_planes")
+    LAUNCHES["ipa_prepare"] += 1
+    return block, score
+
+
+# --- K10 ipa_filter_bits ------------------------------------------------------------
+
+
+def ipa_filter_plane(aux) -> torch.Tensor:
+    """bool[C, N]: the reference's InterPodAffinity filter
+    (interpodaffinity.py:337-364) — every required-affinity term keyed and
+    matched in the node's domain (or the first pod of a series), no
+    required-anti-affinity match in the node's domain, no existing pod's
+    anti-affinity block, no block from this cycle's commits."""
+    d = aux.depth
+    ok = torch.ones(aux.exist_anti_block.shape, dtype=torch.bool,
+                    device=aux.exist_anti_block.device)
+    if "req_affinity" in aux.present:
+        v = aux.req_aff_valid[:, :, None]
+        cnt = read_counts(aux.aff_cnt, aux.dom_aff)
+        keys_all = (~v | (aux.dom_aff < d)).all(dim=1)
+        pods_exist = (~v | (cnt > 0)).all(dim=1)
+        first_pod = (aux.aff_total == 0) & aux.self_match_all
+        ok = keys_all & (pods_exist | first_pod[:, None])
+    if "req_anti_affinity" in aux.present:
+        # an invalid term's domain is the trash slot D (the plugin's
+        # _group_arrays), so ``dom < d`` carries the term's validity
+        acnt = read_counts(aux.anti_cnt, aux.dom_anti)
+        ok = ok & ~((aux.dom_anti < d) & (acnt > 0)).any(dim=1)
+    return ok & ~aux.exist_anti_block & ~aux.block_dyn
+
+
+def ipa_filter_bits_plain(aux, bits, bit: int):
+    """The plain version: clear ``bit`` of ``bits`` (in place) where the
+    filter fails."""
+    fail = ~ipa_filter_plane(aux)
+    bits &= torch.where(fail, ~(1 << bit), -1).to(torch.int32)
+    return bits
+
+
+def ipa_filter_bits(aux, bits, bit: int):
+    """Write InterPodAffinity's filter into the pass-bit plane ``bits``
+    i32[C, N] in place: K1 seeds ``bit`` on every live node of a valid row
+    (the filter's plane with no aux); this clears it where the filter fails.
+    CPU tensors take the plain version; CUDA tensors launch K10."""
+    if not bits.is_cuda:
+        return ipa_filter_bits_plain(aux, bits, bit)
+    c, n = bits.shape
+    d = aux.depth
+    aff = "req_affinity" in aux.present
+    anti = "req_anti_affinity" in aux.present
+    if not bits.is_contiguous():
+        raise ValueError("ipa_filter_bits: bits must be contiguous (updated in place)")
+    fixed = [x.contiguous() for x in (aux.exist_anti_block, aux.block_dyn)]
+    t1 = aux.dom_aff.shape[1]
+    t2 = aux.dom_anti.shape[1]
+    aff_args = [x.contiguous() for x in (aux.req_aff_valid, aux.dom_aff, aux.aff_cnt,
+                                         aux.aff_total, aux.self_match_all)] if aff else []
+    anti_args = [x.contiguous() for x in (aux.dom_anti, aux.anti_cnt)] if anti else []
+    dev = require_cuda("ipa_filter_bits", bits, *fixed, *aff_args, *anti_args)
+    require_dtype("ipa_filter_bits", torch.int32, bits)
+    require_dtype("ipa_filter_bits", torch.bool, *fixed)
+    if fixed[0].shape != (c, n) or fixed[1].shape != (c, n):
+        raise ValueError("ipa_filter_bits: inconsistent shapes")
+    if aff:
+        require_dtype("ipa_filter_bits", torch.bool, aff_args[0], aff_args[4])
+        require_dtype("ipa_filter_bits", torch.int32, *aff_args[1:4])
+        if aff_args[1].shape != (c, t1, n) or aff_args[0].shape != (c, t1):
+            raise ValueError("ipa_filter_bits: inconsistent affinity shapes")
+    if anti:
+        require_dtype("ipa_filter_bits", torch.int32, *anti_args)
+        if anti_args[0].shape != (c, t2, n):
+            raise ValueError("ipa_filter_bits: inconsistent anti-affinity shapes")
+    w1 = aux.aff_cnt.shape[-1]
+    w2 = aux.anti_cnt.shape[-1]
+    a = [ptr(x) for x in aff_args] if aff else [0] * 5
+    b = [ptr(x) for x in anti_args] if anti else [0] * 2
+    err = _fn("launch_ipa_filter", "iiii" + "ii" + "ppppp" + "ii" + "pp" + "pp" + "p" + "p")(
+        c, n, d, int(bit), t1, w1, *a, t2, w2, *b, ptr(fixed[0]), ptr(fixed[1]),
+        ptr(bits), stream_of(dev))
+    check(err, "ipa_filter_bits")
+    LAUNCHES["ipa_filter_bits"] += 1
+    return bits
+
+
+# --- K11 ipa_score_combine ----------------------------------------------------------
+
+
+def ipa_raw_plane(aux) -> torch.Tensor:
+    """f32[C, N]: the reference's raw InterPodAffinity score
+    (interpodaffinity.py:368-385): ±weight · count over the pod's preferred
+    terms in the node's domain, plus the existing pods' static score and
+    this cycle's commits' score."""
+    d = aux.depth
+    own = 0.0
+    if "pref_affinity" in aux.present:
+        c_paff = read_counts(aux.paff_cnt, aux.dom_paff)
+        own = own + torch.where(aux.dom_paff < d, c_paff * aux.paff_weight[:, :, None],
+                                0.0).sum(dim=1)
+    if "pref_anti_affinity" in aux.present:
+        c_panti = read_counts(aux.panti_cnt, aux.dom_panti)
+        own = own - torch.where(aux.dom_panti < d, c_panti * aux.panti_weight[:, :, None],
+                                0.0).sum(dim=1)
+    return own + aux.score_static + aux.score_dyn
+
+
+def ipa_normalize(scores, mask) -> torch.Tensor:
+    """100·(s−min)/(max−min) over feasible nodes, 0 where max = min or no
+    node is feasible (interpodaffinity.py:387-398, scoring.go NormalizeScore)."""
+    mx = torch.where(mask, scores, float("-inf")).amax(dim=-1, keepdim=True)
+    mn = torch.where(mask, scores, float("inf")).amin(dim=-1, keepdim=True)
+    diff = mx - mn
+    ok = torch.isfinite(diff) & (diff > 0)
+    return torch.where(
+        ok & mask, MAX_NODE_SCORE * (scores - torch.where(ok, mn, 0.0))
+        / torch.where(ok, diff, 1.0), 0.0)
+
+
+def ipa_score_combine_plain(aux, bits, full: int, total, weight: float):
+    """The plain version: total += weight · floor(normalize(score)) (in
+    place; off the mask the total is −inf and the term is 0)."""
+    mask = bits == full
+    total += float(weight) * torch.floor(ipa_normalize(ipa_raw_plane(aux), mask))
+    return total
+
+
+def ipa_score_combine(aux, bits, full: int, total, weight: float):
+    """Add InterPodAffinity's weighted, floored, normalized score into K2's
+    total f32[C, N] in place; the feasibility mask is "all bits of ``bits``
+    set".  CPU tensors take the plain version; CUDA tensors launch K11."""
+    if not bits.is_cuda:
+        return ipa_score_combine_plain(aux, bits, full, total, weight)
+    c, n = bits.shape
+    paff = "pref_affinity" in aux.present
+    panti = "pref_anti_affinity" in aux.present
+    if not total.is_contiguous():
+        raise ValueError("ipa_score_combine: total must be contiguous (updated in place)")
+    fixed = [x.contiguous() for x in (bits, aux.score_static, aux.score_dyn)]
+    pa = [x.contiguous() for x in (aux.dom_paff, aux.paff_cnt, aux.paff_weight)] if paff else []
+    pn = [x.contiguous() for x in (aux.dom_panti, aux.panti_cnt, aux.panti_weight)] \
+        if panti else []
+    dev = require_cuda("ipa_score_combine", total, *fixed, *pa, *pn)
+    require_dtype("ipa_score_combine", torch.int32, fixed[0])
+    require_dtype("ipa_score_combine", torch.float32, total, fixed[1], fixed[2])
+    for grp in (pa, pn):
+        if grp:
+            require_dtype("ipa_score_combine", torch.int32, grp[0], grp[1])
+            require_dtype("ipa_score_combine", torch.float32, grp[2])
+            if grp[0].shape[0] != c or grp[0].shape[2] != n:
+                raise ValueError("ipa_score_combine: inconsistent term shapes")
+    if total.shape != (c, n) or fixed[1].shape != (c, n) or fixed[2].shape != (c, n):
+        raise ValueError("ipa_score_combine: inconsistent shapes")
+    t3, w3 = aux.dom_paff.shape[1], aux.paff_cnt.shape[-1]
+    t4, w4 = aux.dom_panti.shape[1], aux.panti_cnt.shape[-1]
+    a = [ptr(x) for x in pa] if paff else [0] * 3
+    b = [ptr(x) for x in pn] if panti else [0] * 3
+    err = _fn("launch_ipa_score", "iiii" + "p" + "ii" + "ppp" + "ii" + "ppp" + "pp" + "f"
+              + "p" + "p")(
+        c, n, aux.depth, int(full), ptr(fixed[0]), t3, w3, *a, t4, w4, *b,
+        ptr(fixed[1]), ptr(fixed[2]), float(weight), ptr(total), stream_of(dev))
+    check(err, "ipa_score_combine")
+    LAUNCHES["ipa_score_combine"] += 1
+    return total
+
+
+# --- K12 ipa_update_classes ---------------------------------------------------------
+
+
+def _group_update_parts(aux, name: str):
+    """(dom, count state, the count cross [C, T, C] or None with the 2-D
+    all-terms cross and the row validity, the committer's own cross
+    [C, T, C], per-term weight [C, T] or None, scalar weight, sign) of one
+    term group."""
+    if name == "req_affinity":
+        return (aux.dom_aff, aux.aff_cnt, None, aux.aff_term_cross, None,
+                aux.hard_weight, 1.0)
+    if name == "req_anti_affinity":
+        return aux.dom_anti, aux.anti_cnt, aux.anti_cross, aux.anti_cross, None, 0.0, 0.0
+    if name == "pref_affinity":
+        return (aux.dom_paff, aux.paff_cnt, aux.paff_cross, aux.paff_cross,
+                aux.paff_weight, 0.0, 1.0)
+    return (aux.dom_panti, aux.panti_cnt, aux.panti_cross, aux.panti_cross,
+            aux.panti_weight, 0.0, -1.0)
+
+
+def ipa_update_classes_plain(aux, commit, choice, class_of):
+    """The plain version, as the reference computes it: the commits' class
+    one-hot ``u_c`` f32[Cp, N], then per present group the count bump
+    (``einsum`` + domain scatter, the trash slot zeroed, gathered back for
+    planes) and the committers' own block / score planes over their terms'
+    domains; added into the aux in place."""
+    d = aux.depth
+    cp, n = aux.exist_anti_block.shape
+    dev = aux.exist_anti_block.device
+    u_c = torch.zeros((cp, n), dtype=torch.float32, device=dev)
+    u_c.index_put_((class_of.long(), choice.long().clamp(0, n - 1)),
+                   commit.to(torch.float32), accumulate=True)
+    keep = (torch.arange(d + 1, device=dev) < d).to(torch.float32)
+
+    def count_inc(cross, dom, cnt):
+        contrib = torch.einsum("ctk,kn->ctn", cross.to(torch.float32), u_c)
+        tbl = domain_scatter_add(contrib, dom, d + 1) * keep
+        inc = domain_gather(tbl, dom) if _is_planes(cnt, n) else tbl
+        cnt.add_(inc.to(torch.int32))
+        return tbl.sum(dim=(1, 2))
+
+    def same_mass(dom):
+        w = domain_scatter_add(u_c[:, None, :].expand(dom.shape), dom, d + 1) * keep
+        return domain_gather(w, dom)
+
+    def plane(cross, dom, w):
+        return torch.einsum("ktj,ktn->jn", cross.to(torch.float32) * w, same_mass(dom))
+
+    score = aux.score_dyn.clone()
+    if "req_affinity" in aux.present:
+        cross = aux.aff_cross_all[:, None, :] & aux.req_aff_valid[:, :, None]
+        aux.aff_total.add_(count_inc(cross, aux.dom_aff, aux.aff_cnt).to(torch.int32))
+    if "req_anti_affinity" in aux.present:
+        count_inc(aux.anti_cross, aux.dom_anti, aux.anti_cnt)
+        add = torch.einsum("ktj,ktn->jn", aux.anti_cross.to(torch.float32),
+                           same_mass(aux.dom_anti)) > 0.5
+        aux.block_dyn.logical_or_(add)
+    if "pref_affinity" in aux.present:
+        count_inc(aux.paff_cross, aux.dom_paff, aux.paff_cnt)
+    if "pref_anti_affinity" in aux.present:
+        count_inc(aux.panti_cross, aux.dom_panti, aux.panti_cnt)
+    if "req_affinity" in aux.present:
+        w1 = torch.full(aux.dom_aff.shape[:2], float(aux.hard_weight),
+                        dtype=torch.float32, device=dev)[:, :, None]
+        score = score + plane(aux.aff_term_cross, aux.dom_aff, w1)
+    if "pref_affinity" in aux.present:
+        score = score + plane(aux.paff_cross, aux.dom_paff, aux.paff_weight[:, :, None])
+    if "pref_anti_affinity" in aux.present:
+        score = score - plane(aux.panti_cross, aux.dom_panti, aux.panti_weight[:, :, None])
+    aux.score_dyn.copy_(score)
+    return aux
+
+
+def ipa_update_classes(aux, commit, choice, class_of):
+    """Add one auction round's commits (``commit`` bool[B], ``choice`` i32[B]
+    node rows, ``class_of`` [B] class rows) into the class view's count
+    state, ``aff_total``, ``block_dyn`` and ``score_dyn``, in place.  CPU
+    tensors take the plain version; CUDA tensors launch K12 once per present
+    term group: the commits fold into a per-row domain delta (O(commits ·
+    C · T)), then each row the round reached makes one pass over its nodes
+    to bump its counts, or the block / score of the classes its term
+    matches on the committed domains — O(C · T · N) at most, against the
+    reference's one-hot contractions over every row."""
+    if not commit.is_cuda:
+        return ipa_update_classes_plain(aux, commit, choice, class_of)
+    d = aux.depth
+    if d > MAX_SHARED_DOMAINS:
+        raise NotImplementedError(
+            f"ipa_update_classes: a domain bucket of {d} exceeds the {MAX_SHARED_DOMAINS} "
+            "domains one block keeps in shared memory (hostname affinity on more than "
+            "~57k nodes: ROADMAP Queue B B12)")
+    b = commit.shape[0]
+    c, n = aux.exist_anti_block.shape
+    rnd = [commit.contiguous(), choice.to(torch.int32).contiguous(),
+           class_of.to(torch.int32).contiguous()]
+    fixed = [aux.block_dyn, aux.score_dyn, aux.aff_total]
+    for x in fixed:
+        if not x.is_contiguous():
+            raise ValueError("ipa_update_classes: state must be contiguous (updated in place)")
+    dev = require_cuda("ipa_update_classes", *rnd, *fixed)
+    require_dtype("ipa_update_classes", torch.bool, rnd[0], fixed[0])
+    require_dtype("ipa_update_classes", torch.int32, rnd[1], rnd[2], fixed[2])
+    require_dtype("ipa_update_classes", torch.float32, fixed[1])
+    if rnd[1].shape != (b,) or rnd[2].shape != (b,) or fixed[1].shape != (c, n):
+        raise ValueError("ipa_update_classes: inconsistent shapes")
+    for name in AFFINITY_GROUPS:
+        if name not in aux.present:
+            continue
+        dom, cnt, count_cross, own_cross, wt, w_scalar, sign = _group_update_parts(aux, name)
+        t = dom.shape[1]
+        parts = [dom.contiguous(), own_cross.contiguous()]
+        if count_cross is None:  # required affinity: all-terms cross × row validity
+            parts += [aux.aff_cross_all.contiguous(), aux.req_aff_valid.contiguous()]
+        else:
+            parts += [count_cross.contiguous()]
+        if wt is not None:
+            parts.append(wt.contiguous())
+        if not cnt.is_contiguous():
+            raise ValueError("ipa_update_classes: counts must be contiguous (updated in place)")
+        require_cuda("ipa_update_classes", cnt, *parts)
+        require_dtype("ipa_update_classes", torch.int32, parts[0], cnt)
+        if parts[0].shape != (c, t, n) or parts[1].shape != (c, t, c):
+            raise ValueError(f"ipa_update_classes: inconsistent {name} shapes")
+        cross3 = 0 if count_cross is None else ptr(parts[2])
+        cross2 = ptr(parts[2]) if count_cross is None else 0
+        row_valid = ptr(parts[3]) if count_cross is None else 0
+        err = _fn("launch_ipa_update", "iiiiiii" + "ppp" + "p" * 5 + "pff" + "pppp" + "p")(
+            _GROUP_CODE[name], b, c, t, n, d, int(_is_planes(cnt, n)),
+            *map(ptr, rnd), ptr(parts[0]), cross3, cross2, row_valid, ptr(parts[1]),
+            ptr(parts[-1]) if wt is not None else 0, float(w_scalar), float(sign),
+            ptr(cnt), ptr(fixed[2]) if name == "req_affinity" else 0,
+            ptr(fixed[0]), ptr(fixed[1]), stream_of(dev))
+        check(err, f"ipa_update_classes ({name})")
+        LAUNCHES["ipa_update_classes"] += 1
+    return aux
+
+
+_FNS = {}
+
+
+def _fn(name: str, spec: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = bind(load("interpodaffinity"), name, spec)
+    return fn

@@ -18,10 +18,10 @@ from .trivial import (  # noqa: F401
 from .passthrough import (  # noqa: F401
     CoschedulingPlugin,
     DynamicResourcesPlugin,
-    InterPodAffinityPlugin,
     NodeVolumeLimitsPlugin,
     VolumeBindingPlugin,
     VolumeRestrictionsPlugin,
     VolumeZonePlugin,
 )
 from .podtopologyspread import PodTopologySpreadPlugin  # noqa: F401
+from .interpodaffinity import InterPodAffinityPlugin  # noqa: F401

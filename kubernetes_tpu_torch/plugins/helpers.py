@@ -53,6 +53,12 @@ def weighted_term_matrix(req_key, req_op, req_vals, req_num, term_valid, weight,
     return total
 
 
+def flat_selector_matrix(cs, b, t, keys, vals, numeric):
+    """Flattened CompiledLabelSelectors (batch b·t, row-major) × label sets
+    [P, L] → bool[b, t, P]."""
+    return label_match_matrix(cs, keys, vals, numeric=numeric).reshape(b, t, -1)
+
+
 def default_normalize(scores, mask, reverse: bool = False):
     """framework.DefaultNormalizeScore: scale per-pod row to [0, MaxNodeScore] by
     the row max over feasible nodes; reverse flips (max - score)."""

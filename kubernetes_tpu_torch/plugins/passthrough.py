@@ -1,15 +1,14 @@
 """The pass-through halves of the plugins whose live content the port does
-not carry yet: Coscheduling, the four volume plugins, DynamicResources and
-InterPodAffinity.
+not carry yet: Coscheduling, the four volume plugins and DynamicResources.
 
 For every batch the port admits (no gang members, no volumes, no resource
-claims, no pod (anti)affinity, no existing-pod affinity groups) the JAX
-plugins take their ``aux is None`` branch (Coscheduling: anchor −2): an
-all-pass filter, an all-zero score plane, and each plugin's own
-``normalize`` of that plane.  These classes give exactly those planes; the
-scheduler's scope guard raises NotImplementedError for anything that would
-need the live halves (ROADMAP Queue A items 7 and 8).  PodTopologySpread is
-live (plugins/podtopologyspread.py).
+claims) the JAX plugins take their ``aux is None`` branch (Coscheduling:
+anchor −2): an all-pass filter, an all-zero score plane, and each plugin's
+own ``normalize`` of that plane.  These classes give exactly those planes;
+the scheduler's scope guard raises NotImplementedError for anything that
+would need the live halves (ROADMAP Queue A item 8).  PodTopologySpread
+and InterPodAffinity are live (plugins/podtopologyspread.py,
+plugins/interpodaffinity.py).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import torch
 
 from ..framework import events as fwk_events
 from ..framework.events import ActionType, ClusterEvent, EventResource
-from ..framework.interface import MAX_NODE_SCORE, Plugin
+from ..framework.interface import Plugin
 from .helpers import default_normalize
 
 
@@ -117,30 +116,3 @@ class DynamicResourcesPlugin(_PassFilter, _PassScore):
 
     def normalize(self, scores, mask):
         return torch.where(mask, scores, 0.0)  # already 0..MAX_NODE_SCORE
-
-
-class InterPodAffinityPlugin(_PassFilter, _PassScore):
-    name = "InterPodAffinity"
-    dynamic = True
-
-    def __init__(self, domain_cap: int = 256):
-        self.domain_cap = domain_cap
-
-    def events_to_register(self):
-        return [
-            ClusterEvent(EventResource.POD, ActionType.ALL),
-            ClusterEvent(EventResource.NODE, ActionType.ADD | ActionType.UPDATE_NODE_LABEL),
-        ]
-
-    def normalize(self, scores, mask):
-        """100·(s−min)/(max−min) over feasible nodes (scoring.go:255+)."""
-        big = torch.where(mask, scores, float("-inf"))
-        small = torch.where(mask, scores, float("inf"))
-        mx = big.amax(dim=-1, keepdim=True)
-        mn = small.amin(dim=-1, keepdim=True)
-        diff = mx - mn
-        ok = torch.isfinite(diff) & (diff > 0)
-        return torch.where(
-            ok & mask, float(MAX_NODE_SCORE) * (scores - torch.where(ok, mn, 0.0))
-            / torch.where(ok, diff, 1.0), 0.0
-        )

@@ -84,9 +84,10 @@ class PodTopologySpreadPlugin(Plugin):
 
     # --- prepare (PreFilter + the static part of PreScore) -------------------
 
-    def prepare(self, batch, snap, dyn):
+    def prepare(self, batch, snap, dyn, host_aux=None):
         """The count tables of every (pod, constraint) row, or None for a
-        batch without spread constraints (the reference's static skip)."""
+        batch without spread constraints (the reference's static skip).
+        The plugin has no host half: ``host_aux`` is always None."""
         if not getattr(batch, "has_spread", True):
             return None
         d = getattr(batch, "tsc_domain_bucket", None) or self.domain_cap

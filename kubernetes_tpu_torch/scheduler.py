@@ -2,30 +2,36 @@
 
 Reference: the JAX package's TPUScheduler with ``pipeline=False`` and no
 tie noise (scheduler.py: watch handlers :705-800, schedule_cycle, the
-engine routing ``engine_choice`` :2679 and its dedup gate
-``_dedup_classes`` :2596, the fused dedup cycle ``fused_batch`` :969-1017,
-bind :3461, run_until_idle :3777), itself after
+engine routing ``engine_choice`` :2679 with its parallel-safety test
+``_class_parallel_safe`` :2819 and its dedup gate ``_dedup_classes`` :2596,
+the host half ``host_prepare`` :1645 with ``_host_aux_take`` :138, the
+fused dedup cycle ``fused_batch`` :969-1017, bind :3461, run_until_idle
+:3777), itself after
 pkg/scheduler/scheduler.go (scheduleOne :496, assume :424, bind :446) and
 eventhandlers.go (addAllEventHandlers :251).
 
-One cycle: pop ≤ B → cache snapshot → encoder sync → deferred row-scatter →
-batch compile → conflict partition + engine routing + identity-class dedup
-gate → the fused cycle on the device (apply_scatter, PodTopologySpread's
-class count tables, the dedup engine's rounds through the kernels, gang
-all-or-nothing, diagnosis bits, pack) → one [3, B] fetch → assume → bind
-through the store → requeue the unschedulable pods with backoff.  Bindings
-equal the JAX scheduler's, pod for pod.  Topology-spread pods (DoNotSchedule
-and ScheduleAnyway) are in scope: a self-matching spread class is one
+One cycle: pop ≤ B → cache snapshot → encoder sync (with the existing-pod
+affinity index) → batch compile → host_prepare (InterPodAffinity's
+existing-pod match matrix) → conflict partition + engine routing +
+identity-class dedup gate → the fused cycle on the device (apply_scatter,
+the dynamic plugins' class state — PodTopologySpread's count tables,
+InterPodAffinity's count planes or tables and existing-pod planes —, the
+dedup engine's rounds through the kernels, gang all-or-nothing, diagnosis
+bits, pack) → one [3, B] fetch → assume → bind through the store → requeue
+the unschedulable pods with backoff.  Bindings equal the JAX scheduler's,
+pod for pod.  Topology-spread pods and pod (anti)affinity pods (required
+and preferred, and scheduled pods carrying such terms) are in scope: a
+self-matching class whose commits change its own planes unevenly is one
 coupled component, so the dedup engine commits one of its pods per round.
 
 Scope guard: a batch or cluster that needs anything outside the port —
-pod (anti)affinity content, existing pods with affinity terms, gang
-members, volumes, resource claims, extenders, profiles, ``pipeline=True``,
-a batch the reference routes to its full auction (too heterogeneous for
-the dedup engine, or coupled with a pod that could preempt) or to its
-exact scan, a batch larger than the auction kernel's one block on cuda,
-or a failing pod that could preempt — raises NotImplementedError naming
-the ROADMAP item.  It never gives a silently different answer.
+gang members, volumes, resource claims, extenders, profiles,
+``pipeline=True``, a batch the reference routes to its full auction (too
+heterogeneous for the dedup engine, or coupled with a pod that could
+preempt) or to its exact scan, a batch larger than the auction kernel's one
+block on cuda, or a failing pod that could preempt — raises
+NotImplementedError naming the ROADMAP item.  It never gives a silently
+different answer.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from . import plugins as P
 from .api import objects as v1
 from .device import resolve_device
 from .framework import events as fwk_events
-from .api.labels import match_label_selector
+from .api.labels import affinity_term_matches, match_label_selector
 from .framework.conflict import conflict_components
 from .framework.events import ActionType, ClusterEvent, EventResource
 from .framework.interface import PluginWithWeight
@@ -58,6 +64,7 @@ from .queueing import PriorityQueue
 from .queueing.priority_queue import QueuedPodInfo
 from .sim.store import ADDED, DELETED, MODIFIED, ObjectStore, WatchEvent
 from .state.cache import Cache, Snapshot
+from .state.dictionary import MISSING
 from .state.encoding import ClusterEncoder, apply_scatter
 from .state.units import pow2_round_up as _pow2
 
@@ -121,13 +128,6 @@ def _queue_less(a: QueuedPodInfo, b: QueuedPodInfo) -> bool:
 
 def _pod_out_of_scope(p: v1.Pod) -> Optional[str]:
     """Why a pending pod needs something outside this slice, or None."""
-    aff = p.spec.affinity
-    if aff is not None:
-        pa, paa = aff.pod_affinity, aff.pod_anti_affinity
-        if (pa and (pa.required or pa.preferred)) or (
-                paa and (paa.required or paa.preferred)):
-            return ("pod (anti)affinity terms (ROADMAP Queue A item 7, "
-                    "Queue B B12)")
     if POD_GROUP_LABEL in p.metadata.labels:
         return "gang membership (ROADMAP Queue A item 8, Queue B B14)"
     if getattr(p.spec, "volumes", None):
@@ -135,6 +135,23 @@ def _pod_out_of_scope(p: v1.Pod) -> Optional[str]:
     if getattr(p.spec, "resource_claims", None):
         return "resource claims (ROADMAP Queue A item 8, Queue B B14)"
     return None
+
+
+def _host_aux_take(fw, host_auxes, rows):
+    """The identity-class rep view of the host auxes (the reference's
+    _host_aux_take, scheduler.py:138): a plugin with a pod-indexed host aux
+    gathers the rep columns through its ``host_aux_take``; the dedup gate
+    admits no other non-None host aux."""
+    host_auxes = host_auxes or {}
+    out = {}
+    for pw in fw.plugins:
+        name = pw.plugin.name
+        if name not in host_auxes:
+            continue
+        aux = host_auxes[name]
+        fn = getattr(pw.plugin, "host_aux_take", None)
+        out[name] = aux if aux is None or fn is None else fn(aux, rows)
+    return out
 
 
 class TorchScheduler:
@@ -207,11 +224,14 @@ class TorchScheduler:
             pod_max_backoff=pod_max_backoff,
         )
         # host-vs-device wall per phase (seconds, summed over cycles):
-        # "partition" is the conflict partition, the engine routing and the
-        # dedup gate; "device" brackets the fused cycle from the first
-        # upload to the [3, B] fetch, which synchronises with the card
+        # "host_prepare" is the plugins' host halves (InterPodAffinity's
+        # existing-pod match matrix); "partition" is the conflict partition,
+        # the engine routing and the dedup gate; "device" brackets the fused
+        # cycle from the first upload to the [3, B] fetch, which
+        # synchronises with the card
         self.phase_wall: Dict[str, float] = {
-            k: 0.0 for k in ("snapshot", "compile", "partition", "device", "bind")}
+            k: 0.0 for k in ("snapshot", "compile", "host_prepare", "partition", "device",
+                             "bind")}
         self.cycles = 0
         self.rounds_total = 0
         # host wall spent in the dedup engine's per-round read of its loop
@@ -361,6 +381,10 @@ class TorchScheduler:
         t1 = time.perf_counter()
         pods = [qi.pod for qi in infos]
         batch = self.compiler.compile(pods, pad_to=self.batch_size)
+        t_hp = time.perf_counter()
+        fw = self._framework()
+        host_auxes = fw.host_prepare(batch, self.snapshot, self.encoder,
+                                     namespace_labels=self.namespace_labels)
         t2 = time.perf_counter()
         mode, coupling, _info = self.engine_choice(batch)
         if mode == "scan":
@@ -368,17 +392,18 @@ class TorchScheduler:
                 "the reference routes this batch to its exact serial scan "
                 "(greedy_assign), which is not ported yet (ROADMAP Queue A "
                 "item 6, Queue B B9)")
-        class_of, rep_rows, why = self._dedup_classes(batch)
+        class_of, rep_rows, why = self._dedup_classes(batch, host_auxes)
         if class_of is None:
             raise NotImplementedError(
                 f"{why}: the reference takes its full (non-dedup) assignment "
                 "engine, which is not ported yet (ROADMAP Queue A item 6, "
                 "Queue B B8)")
         t3 = time.perf_counter()
-        packed = self._fused_cycle(batch, class_of, rep_rows, coupling)
+        packed = self._fused_cycle(batch, class_of, rep_rows, coupling, host_auxes)
         t4 = time.perf_counter()
         self.phase_wall["snapshot"] += t1 - t0
-        self.phase_wall["compile"] += t2 - t1
+        self.phase_wall["compile"] += t_hp - t1
+        self.phase_wall["host_prepare"] += t2 - t_hp
         self.phase_wall["partition"] += t3 - t2
         self.phase_wall["device"] += t4 - t3
         self.rounds_total += int(packed[2, 0])
@@ -439,18 +464,26 @@ class TorchScheduler:
         _class_of, reps = identity_classes(batch)
         return len(reps) * 2 <= batch.size
 
-    def _dedup_classes(self, batch):
+    def _dedup_classes(self, batch, host_auxes=None):
         """The identity-class dedup gate (the reference's _dedup_classes,
-        scheduler.py:2596-2677, for a scheduler with no tie noise and no
-        host auxes): → (class_of i32[B], rep_rows i64[Cp], None), or
-        (None, None, why) when the reference takes its full auction.  Cp is
-        the pow-2 bucket of the class count (floor 4), padded with the
-        first rep."""
+        scheduler.py:2596-2677, for a scheduler with no tie noise): →
+        (class_of i32[B], rep_rows i64[Cp], None), or (None, None, why) when
+        the reference takes its full auction.  A non-None host aux is
+        admitted when its plugin has a rep view (``host_aux_take``:
+        InterPodAffinity's match matrix).  Cp is the pow-2 bucket of the
+        class count (floor 4), padded with the first rep."""
         if batch.has_affinity or batch.has_spread:
             if not self._class_hooks_ok():
                 return None, None, "a dynamic plugin without a class-level update hook"
             if self._batch_can_preempt(batch):
                 return None, None, "a coupled batch with a pod that could preempt"
+        for name, aux in (host_auxes or {}).items():
+            if aux is None:
+                continue
+            if not any(pw.plugin.name == name
+                       and getattr(pw.plugin, "host_aux_take", None) is not None
+                       for pw in self.fw.plugins):
+                return None, None, f"a pod-indexed host aux of {name}"
         class_of, reps = identity_classes(batch)
         if len(reps) * 2 > batch.size:
             return None, None, (f"a batch of {len(reps)} identity classes in "
@@ -483,22 +516,59 @@ class TorchScheduler:
 
     def _class_parallel_safe(self, rep) -> bool:
         """May the pods of this single-class component commit in the same
-        auction round?  A self-matching spread constraint's per-domain skew
-        math refuses (the reference's _class_parallel_safe,
-        scheduler.py:2806-2818).  Pods with pod (anti)affinity never reach
-        here: the scope guard refuses them first."""
+        auction round (the reference's _class_parallel_safe,
+        scheduler.py:2806-2855)?  True when every SELF-matching term's
+        intra-class effect is used-node-equivalent or plane-uniform: a
+        required anti-affinity term over a key whose every keyed node has
+        its own value (hostname), a required affinity term over a key with
+        at most one live value, a preferred term over a key that every valid
+        node carries with one value (or none does).  A self-matching spread
+        constraint's per-domain skew math refuses."""
         for c in rep.spec.topology_spread_constraints:
             if match_label_selector(c.label_selector, rep.metadata.labels):
                 return False
         aff = rep.spec.affinity
-        if aff is not None and (aff.pod_affinity or aff.pod_anti_affinity):
-            raise NotImplementedError(
-                "the parallel-safety test of pod (anti)affinity classes is not "
-                "ported yet (ROADMAP Queue A item 7, Queue B B12)")
+        if aff is None:
+            return True
+        pa, paa = aff.pod_affinity, aff.pod_anti_affinity
+        groups = (
+            ("anti_req", list(paa.required) if paa else []),
+            ("aff_req", list(pa.required) if pa else []),
+            ("pref", ([wt.pod_affinity_term for wt in pa.preferred] if pa else [])
+             + ([wt.pod_affinity_term for wt in paa.preferred] if paa else [])),
+        )
+        for kind, terms in groups:
+            for term in terms:
+                if not affinity_term_matches(term, rep, rep, self.namespace_labels):
+                    continue
+                n_keyed, n_vals, n_nodes = self._slot_domain_profile(term.topology_key)
+                if kind == "anti_req":
+                    if n_keyed != n_vals:
+                        return False
+                elif kind == "aff_req":
+                    if n_vals > 1:
+                        return False
+                elif n_vals > 1 or (n_vals == 1 and n_keyed != n_nodes):
+                    return False
         return True
 
+    def _slot_domain_profile(self, topo_key: str):
+        """(keyed-node count, distinct live values, valid-node count) of a
+        topology key over the encoder's live node mirror (the reference's
+        _slot_domain_profile, scheduler.py:2857).  An unregistered key has
+        no keyed nodes."""
+        enc = self.encoder
+        valid = np.asarray(enc.node_valid)
+        n_nodes = int(valid.sum())
+        slot = enc._topo_slots.get(topo_key)
+        if slot is None:
+            return 0, 0, n_nodes
+        vals = np.asarray(enc.node_topo)[valid, slot]
+        present = vals != MISSING
+        return int(present.sum()), int(np.unique(vals[present]).size), n_nodes
+
     def _fused_cycle(self, batch, class_of: np.ndarray, rep_rows: np.ndarray,
-                     coupling) -> np.ndarray:
+                     coupling, host_auxes=None) -> np.ndarray:
         """The device half of the cycle (the reference's fused_batch dedup
         branch, scheduler.py:969-1017) → the packed [3, B] result on the
         host (the cycle's one fetch)."""
@@ -513,9 +583,12 @@ class TorchScheduler:
         dyn = initial_dynamic_state(dsnap)
         dbatch = batch_to_device(batch, dev)
         rep_batch = dbatch.take(torch.from_numpy(rep_rows).to(dev))
-        # the class representatives' plugin auxes: PodTopologySpread's count
-        # tables (K5), None for a batch without spread constraints
-        rep_auxes = fw.prepare(rep_batch, dsnap, dyn)
+        # the class representatives' plugin auxes, from the rep view of the
+        # host auxes: PodTopologySpread's count tables (K5), InterPodAffinity's
+        # count state and existing-pod planes (K9); None for a plugin with
+        # nothing to carry for this batch
+        rep_host = _host_aux_take(fw, host_auxes, rep_rows)
+        rep_auxes = fw.prepare(rep_batch, dsnap, dyn, rep_host)
         b = batch.size
         order = torch.arange(b, dtype=torch.int32, device=dev)
         class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
@@ -525,8 +598,8 @@ class TorchScheduler:
         gang_seg = torch.full((b,), -1, dtype=torch.int32, device=dev)
         node_row = gang_all_or_nothing(res.node_row, gang_seg)
         # a dispatched batch holds at least one valid pod, so round 0 ran; its
-        # bit plane carries K6's spread bit, as the reference diagnoses with
-        # the prepared rep auxes (scheduler.py:1015)
+        # bit plane carries the dynamic plugins' bits (K6, K10), as the
+        # reference diagnoses with the prepared rep auxes (scheduler.py:1015)
         bits = diagnose_bits_from_plane(res.diag_plane, self.n_filters)[class_t]
         return pack_diag(bits, node_row, res.rounds).cpu().numpy()
 

@@ -21,10 +21,13 @@ Encoded semantic notes:
 - resource units per state/units.py; requests ceil, allocatable floor; a pod's
   "pods" dimension request is always 1.
 
-Left out on purpose: node-axis sharding (single device) and the
-existing-pod affinity index — its ``aff_*`` tables stay at their empty
-shapes, and a scheduled pod carrying affinity terms raises
-NotImplementedError (ROADMAP Queue A item 7).
+The existing-pod affinity index (state/affinity_index.py) lives here:
+``sync`` applies each scheduled pod's term contributions where the
+reference does, and its ``aff_*`` group tables ride the deferred
+row-scatter like the node and pod rows; growing its group or domain axis
+is a shape change, as in the reference.
+
+Left out on purpose: node-axis sharding (single device).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ..api.resource import (
 )
 from ..device import resolve_device
 from .cache import Snapshot
+from .affinity_index import AffinityIndex
 from .dictionary import MISSING, Dictionary, _parse_numeric
 from .node_info import NodeInfo
 from . import units
@@ -119,7 +123,7 @@ class DeviceSnapshot:
     pod_priority: torch.Tensor  # i32[P]
     pod_request: torch.Tensor  # i32[P, R]
     pod_non_zero: torch.Tensor  # i32[P, 2]
-    # existing-pod affinity groups (empty shapes in this port)
+    # existing-pod affinity groups (state/affinity_index.py)
     aff_valid: torch.Tensor  # bool[G]
     aff_kind: torch.Tensor  # i32[G]
     aff_weight: torch.Tensor  # f32[G]
@@ -181,33 +185,6 @@ def apply_scatter(dsnap: DeviceSnapshot, upd: Optional[PendingScatter]) -> Devic
     return DeviceSnapshot(**out, numeric=numeric)
 
 
-class _EmptyAffinityIndex:
-    """The existing-pod affinity index at its empty shapes.
-
-    The slice schedules no cluster whose scheduled pods carry pod
-    (anti)affinity terms; such a pod raises NotImplementedError instead of
-    silently dropping its terms from the InterPodAffinity tables."""
-
-    def __init__(self):
-        g, d = 8, 8
-        self.aff_valid = np.zeros(g, dtype=bool)
-        self.aff_kind = np.zeros(g, dtype=np.int32)
-        self.aff_weight = np.zeros(g, dtype=np.float32)
-        self.aff_slot = np.full(g, MISSING, dtype=np.int32)
-        self.aff_counts = np.zeros((g, d), dtype=np.float32)
-        self.dirty: set = set()
-
-    def set_pod(self, pi, node_row: int) -> None:
-        if pi.has_affinity_constraints():
-            raise NotImplementedError(
-                f"scheduled pod {pi.pod.key()} carries pod (anti)affinity "
-                "terms: the existing-pod affinity index is not ported yet "
-                "(ROADMAP Queue A item 7, Queue B B12)")
-
-    def remove_pod(self, uid: str) -> None:
-        return None
-
-
 def _put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
@@ -239,7 +216,8 @@ class ClusterEncoder:
         self._n = self.cfg.min_nodes
         self._p = self.cfg.min_pods
         self._alloc_arrays()
-        self.aff = _EmptyAffinityIndex()
+        # incremental existing-pod affinity groups (state/affinity_index.py)
+        self.aff = AffinityIndex(self)
         self._device: Optional[DeviceSnapshot] = None
         self._uploaded_numeric_len = -1
         self._dirty_node_rows: set = set()

@@ -136,7 +136,7 @@ def make_node_obj(pkg: str, d: Dict):
 
 def make_pod_obj(pkg: str, d: Dict):
     tu, v1 = PKGS[pkg]
-    w = (tu.make_pod().name(d["name"]).uid(d["name"]).namespace("default")
+    w = (tu.make_pod().name(d["name"]).uid(d["name"]).namespace(d.get("ns", "default"))
          .req(d["req"]).creation_timestamp(d["ts"]))
     for k, v in d.get("labels", {}).items():
         w = w.label(k, v)
@@ -154,6 +154,10 @@ def make_pod_obj(pkg: str, d: Dict):
     # labels, minDomains or None)
     for skew, key, when, sel, min_domains in d.get("spread", []):
         w = w.topology_spread(skew, key, when, labels=sel, min_domains=min_domains)
+    # pod (anti)affinity: (topologyKey, selector labels, anti, weight or None
+    # for a required term, namespaces or None)
+    for key, sel, anti, weight, namespaces in d.get("pod_affinity", []):
+        w = w.pod_affinity(key, sel, anti=anti, weight=weight, namespaces=namespaces)
     if d.get("priority") is not None:
         w = w.priority(d["priority"])
     if d.get("node"):

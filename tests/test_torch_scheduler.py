@@ -114,31 +114,38 @@ def test_same_pods_unschedulable(runs):
     assert sched.cycles > 1
 
 
-def _guard_pod(kind):
+def _guard_pods(kind):
     from kubernetes_tpu_torch.testutil import make_pod
 
     w = make_pod().name(kind).uid(kind).namespace("default").req({"cpu": "1"})
-    if kind == "affinity":
-        return w.pod_affinity("zone", {"app": "x"}).obj()
+    if kind == "affinity_preemptor":
+        # an affinity pod that outranks the running pod: a coupled batch that
+        # could preempt, which the reference takes off the dedup engine (B8)
+        return [w.label("app", "x").pod_affinity("zone", {"app": "x"}).priority(10).obj()]
+    if kind == "affinity_scan":
+        # one coupled preferred-affinity component of ten distinct classes:
+        # more classes than half the batch, so the reference scans it (B9)
+        return [make_pod().name(f"s{i}").uid(f"s{i}").namespace("default")
+                .req({"cpu": f"{100 + i}m"}).label("app", "x").label("i", str(i))
+                .pod_affinity("kubernetes.io/hostname", {"app": "x"}, weight=1).obj()
+                for i in range(10)]
     if kind == "spread":
         # a spread pod that outranks the running pod: a coupled batch that
         # could preempt, which the reference takes off the dedup engine
-        return w.topology_spread(1, "zone", labels={"app": "x"}).priority(10).obj()
+        return [w.topology_spread(1, "zone", labels={"app": "x"}).priority(10).obj()]
     if kind == "gang":
-        return w.label("pod-group.scheduling/name", "g1").obj()
+        return [w.label("pod-group.scheduling/name", "g1").obj()]
     if kind == "volume":
-        return w.pvc("claim-a").obj()
+        return [w.pvc("claim-a").obj()]
     if kind == "claim":
-        return w.claim("dev-claim").obj()
-    if kind == "preemptor":
-        # fits nowhere, and outranks the running pod: it could preempt
-        return w.req({"cpu": "64"}).priority(10).obj()
-    assert kind == "existing_affinity"
-    return w.node("n0").pod_affinity("zone", {"app": "x"}, anti=True).obj()
+        return [w.claim("dev-claim").obj()]
+    assert kind == "preemptor"
+    # fits nowhere, and outranks the running pod: it could preempt
+    return [w.req({"cpu": "64"}).priority(10).obj()]
 
 
-@pytest.mark.parametrize("kind", ["affinity", "spread", "gang", "volume", "claim",
-                                  "preemptor", "existing_affinity"])
+@pytest.mark.parametrize("kind", ["affinity_preemptor", "spread", "gang", "volume", "claim",
+                                  "preemptor", "affinity_scan"])
 def test_scope_guard_raises(kind):
     """Anything outside the slice raises NotImplementedError naming its
     ROADMAP item — never a silently different answer."""
@@ -146,18 +153,18 @@ def test_scope_guard_raises(kind):
     sched = TorchScheduler(store, batch_size=16, device="cpu", clock=fake_clock(),
                            batch_wait=0)
     store.create("Node", make_node_obj("torch", {
-        "name": "n0", "cpu": "4", "memory": "8Gi", "pods": "110", "labels": {},
+        "name": "n0", "cpu": "4", "memory": "8Gi", "pods": "110", "labels": {"zone": "z0"},
         "taints": [], "images": [], "unschedulable": False, "not_ready": False}))
     store.create("Pod", make_pod_obj("torch", {
         "name": "running", "ts": -1.0, "req": {"cpu": "100m"}, "node": "n0"}))
-    store.create("Pod", _guard_pod(kind))
-    if kind == "existing_affinity":
-        store.create("Pod", make_pod_obj("torch", {"name": "p", "ts": 0.0,
-                                                   "req": {"cpu": "100m"}}))
+    for pod in _guard_pods(kind):
+        store.create("Pod", pod)
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         sched.schedule_cycle()
-    if kind == "spread":
-        assert "B8" in str(err.value) or "B9" in str(err.value)
+    if kind in ("spread", "affinity_preemptor"):
+        assert "B8" in str(err.value)
+    if kind == "affinity_scan":
+        assert "B9" in str(err.value)
 
 
 def test_scope_guard_raises_for_a_batch_too_heterogeneous_to_dedup():
