@@ -5,7 +5,7 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the twelve CUDA kernels from kubernetes_tpu_torch/csrc/ (one nvcc
+1. Build the sixteen CUDA kernels from kubernetes_tpu_torch/csrc/ (one nvcc
    per source, started together).
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
    CUDA tensors, exactly equal.  K1–K4: random and adversarial inputs
@@ -17,11 +17,25 @@ Phases, all of which must pass (any failure exits non-zero):
    all-trash group, aff_total 0 with and without a self-match, an
    all-masked row, normalization over max − min of 97 and 100 (the top
    node must score 100), negative raw scores, and index groups of every
-   kind.
+   kind.  K13–K16: rows of −1, two bundles on one node, a no-op bundle;
+   word and odd row widths with duplicate pad rows; unplaced and invalid
+   prev pods; both IPA count forms, a carry with and without prev terms,
+   an all-invalid prev term group.
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
-   on cuda, launch counts zeroed just before and read just after: every pod
-   bound, no node oversubscribed, K1–K4 launched.
+   on cuda, synchronous, launch counts zeroed just before and read just
+   after: every pod bound, no node oversubscribed, K1–K4 launched.  Then
+   the same suite through the port's perf harness,
+   ``run_workload(build_workload("NorthStar", "5000Nodes/10000Pods"))``:
+   pipelined, depth 3, the 200 ms micro-bucket target with every tier
+   warmed; every measured pod bound, no node oversubscribed, K1–K4, K13
+   and K16 launched in the run and inside the measured window (the
+   harness's KernelLaunchesInWindow item), the window's dispatches chained
+   on placed pods (PipelineInWindow), no kernel built in the window; one
+   profiled steady pipelined cycle with the device's idle share; then the
+   same cell with the overlapped sync switched the other way and back
+   (pods/s, attempt quantiles, and how many background payloads were
+   used as built or rebuilt at dispatch).
 4. TopologySpreading/5000Nodes at full width (5000 zoned nodes, 5000
    pod_default pods scheduled first through the path, then 2000
    pod_topology_spread pods, the measured run, counts zeroed just before):
@@ -29,45 +43,60 @@ Phases, all of which must pass (any failure exits non-zero):
    within maxSkew 5, K1–K8 launched; pods/s, rounds per cycle, wall and
    host read per round, phase wall.  Then PreferredTopologySpreading at
    5000 nodes for one cycle of 512 ScheduleAnyway pods: all bound, K5–K8
-   launched.  Then the three pod-affinity suites at 5000Nodes, full width
+   launched.  Then TopologySpreading again through
+   TorchScheduler(pipeline=True): the same checks, and K14 launched on real
+   carries.  Then the three pod-affinity suites at 5000Nodes, full width
    (SchedulingPodAntiAffinity (5000, 1000, 1000), SchedulingPodAffinity and
    SchedulingPreferredPodAffinity (5000, 5000, 1000)): the first pods
    scheduled through the path, the measured pods with the counts zeroed
    just before; every pod bound, no node oversubscribed, no two green pods
    on one host, every blue pod in zone1, K1–K4 and K9–K12 launched; the
-   same numbers, with phase_wall["host_prepare"].  The calls of the
-   torch-op programs on the path (B1, B4, B6, B7) are counted on the
-   NorthStar and SchedulingPreferredPodAffinity runs and timed on their
-   last cycle's arguments.  Each path builds its cluster on a fresh heap
-   (the objects of earlier phases frozen out of the collector), and its
-   record counts the full collections inside the measured run.
+   same numbers, with phase_wall["host_prepare"]; then
+   SchedulingPreferredPodAffinity through TorchScheduler(pipeline=True),
+   K15 launched on real carries.  Each pipelined run's pods/s, attempt
+   quantiles and phase walls (sync_overlap among them) stand beside its
+   synchronous run's in the record.  The calls of the torch-op programs on
+   the path (B4, B6, B7) are counted on the NorthStar and
+   SchedulingPreferredPodAffinity runs and timed on their last cycle's
+   arguments.  Each path builds its cluster on a fresh heap (the objects of
+   earlier phases frozen out of the collector), and its record counts the
+   full collections inside the measured run.
 5. cuda == cpu bindings: a heterogeneous 5000-node cluster with ~2048
    pending pods of 8 classes; three 1000-node spread clusters (1000
    pod_default pods first, then 512 DoNotSchedule, 512 ScheduleAnyway, or
    256 spread + 256 pod_default pods in one batch); the three affinity
    suites cut to 1000 nodes, 200 first and 512 measured pods; and a mixed
    queue of zone-affinity, spread, pod_default and preferred
-   hostname-affinity pods.
+   hostname-affinity pods.  cuda pipelined == cuda sync bindings at the
+   same segmentation: NorthStar-, spread-, preferred-affinity- and
+   anti-affinity-shaped clusters at 1000 nodes.
 6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
    round; K5–K8: a TopologySpreading cycle's first round; K9–K12: a
-   SchedulingPreferredPodAffinity cycle's first round): device time per
-   call (torch.profiler), beside the plain version's wall and, where one
-   PyTorch call computes the same function, that call's time; the least
-   time the card could take (the larger of the bytes over 3.35 TB/s and the
-   scalar operations over the 67 TFLOP/s float32 peak) from the inputs.
+   SchedulingPreferredPodAffinity cycle's first round; K13–K16: the latest
+   call on the pipelined paths): device time per call (torch.profiler;
+   after three sessions that record nothing, CUDA events around calls
+   queued behind a spin kernel, named in the row's ``ms_source``; one
+   elementwise op is timed both ways as a check),
+   beside the plain version's wall and, where one PyTorch call computes the
+   same function (K3: torch.topk; K13: Tensor.index_add_; K16:
+   Tensor.index_copy per array), that call's time; the least time the card
+   could take (the larger of the bytes over 3.35 TB/s and the scalar
+   operations over the 67 TFLOP/s float32 peak) from the inputs.
 7. One more NorthStar-shaped, TopologySpreading and
    SchedulingPreferredPodAffinity cycle under torch.profiler: the cycle's
    wall, device time by kernel, and the device's idle share.
 
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
 on the path that carries each kernel: K1–K8 on the TopologySpreading run,
-K9–K12 on the SchedulingPreferredPodAffinity run), the card's name and
-power limit as nvidia-smi prints them, and as the last line
+K9–K12 on the SchedulingPreferredPodAffinity run, K13 and K16 on the
+NorthStar harness run, K14 and K15 on the pipelined TopologySpreading and
+SchedulingPreferredPodAffinity runs), the card's name and power limit as
+nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
 cycles' tables to chiprun_out/profile_cycle.txt,
-chiprun_out/profile_spread_cycle.txt and
-chiprun_out/profile_affinity_cycle.txt.
+chiprun_out/profile_spread_cycle.txt, chiprun_out/profile_affinity_cycle.txt
+and chiprun_out/profile_pipelined_cycle.txt.
 """
 
 from __future__ import annotations
@@ -129,12 +158,46 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+# how the latest device_ms call measured: "profiler" or "queued_events"; each
+# kernel row carries it as ``ms_source``
+MS_SOURCE = ["profiler"]
+
+
+def queued_device_ms(fn, reps: int = 20) -> float:
+    """Device time per call without the profiler: a spin kernel holds the
+    stream while the host enqueues ``reps`` calls behind it, so the CUDA
+    events around the calls bracket back-to-back device work and no host
+    launch.  Fails if the host took longer to enqueue than the spin lasted
+    (the calls would then have waited for their launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the card's clock
+    ev[1].record()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    spin_ms = ev[0].elapsed_time(ev[1])
+    if enqueue_ms >= 0.8 * spin_ms:
+        fail(f"queued timing: enqueuing {reps} calls took {enqueue_ms:.2f} ms, the "
+             f"spin only {spin_ms:.2f} ms")
+    return ev[1].elapsed_time(ev[2]) / reps
+
+
 def device_ms(fn, kernel: str = None, reps: int = 20, warmup: int = 3) -> float:
     """Device time per call from torch.profiler: the summed device time of
     the CUDA activities whose name contains ``kernel`` (all of the call's
     device activities when None), over ``reps`` calls.  Unlike CUDA-event
     timing of back-to-back calls, this excludes the host's launch overhead,
-    which for a microsecond kernel is most of the wall."""
+    which for a microsecond kernel is most of the wall.  A profiler session
+    that records no matching device time is tried twice more; if none
+    does, the calls are timed queued behind a spin kernel
+    (``queued_device_ms``, device time too) and ``MS_SOURCE`` says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -142,20 +205,26 @@ def device_ms(fn, kernel: str = None, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if kernel is None or kernel in e.key:
-            v = getattr(e, "self_device_time_total", None)
-            total_us += v if v is not None else getattr(e, "self_cuda_time_total", 0)
-    if total_us <= 0:
-        fail(f"the profiler recorded no device time for {kernel or 'the call'}")
-    return total_us / reps / 1e3
+    MS_SOURCE[0] = "profiler"
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            if kernel is None or kernel in e.key:
+                v = getattr(e, "self_device_time_total", None)
+                total_us += v if v is not None else getattr(e, "self_cuda_time_total", 0)
+        if total_us > 0:
+            return total_us / reps / 1e3
+    MS_SOURCE[0] = "queued_events"
+    ms = queued_device_ms(fn, reps)
+    log(f"  the profiler recorded no device time for {kernel or 'the call'} (three "
+        f"sessions): {ms:.5f} ms a call queued behind a spin kernel instead")
+    return ms
 
 
 def nbytes(*tensors) -> int:
@@ -174,17 +243,25 @@ def max_abs_err(a, b) -> float:
     import torch
 
     a, b = a.double(), b.double()
-    both_inf = torch.isinf(a) & torch.isinf(b) & (a == b)
-    d = torch.where(both_inf, torch.zeros_like(a), (a - b).abs())
+    same = (torch.isinf(a) & torch.isinf(b) & (a == b)) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, torch.zeros_like(a), (a - b).abs())
     return float(d.max()) if d.numel() else 0.0
 
 
-def require_equal(name: str, pairs) -> float:
+def _equal(a, b) -> bool:
+    """Exactly equal, NaN matching NaN (the snapshot's numeric label planes
+    hold NaN for non-numeric values)."""
     import torch
 
+    if a.is_floating_point():
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    return torch.equal(a, b)
+
+
+def require_equal(name: str, pairs) -> float:
     err = 0.0
     for what, a, b in pairs:
-        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+        if a.shape != b.shape or a.dtype != b.dtype or not _equal(a, b):
             bad = (a != b).nonzero()[:5].tolist() if a.shape == b.shape else "shape"
             fail(f"{name}: kernel and plain version differ in {what} at {bad}")
         err = max(err, max_abs_err(a, b))
@@ -766,6 +843,555 @@ def check_ipa_kernels(dev) -> dict:
     return err
 
 
+# --- phase 2: K13–K16 vs plain ------------------------------------------------------------
+
+PIPE_KERNELS = ("prev_delta_apply", "spread_chain_prev", "ipa_chain_prev", "scatter_rows")
+
+
+def check_pipeline_kernels(dev) -> dict:
+    """K13–K16 against their plain versions, exactly equal: K13 with rows of
+    −1, two bundles on one node, a no-op bundle and no bundle; K16 over
+    bool / int32 / float32 arrays of word and odd row widths with duplicate
+    pad rows, at the node and pod tiers; K14 with unplaced and invalid prev
+    pods, one and two constraints; K15 in both count forms, with and
+    without the prev terms (a carry with and without groups), an all-invalid
+    prev term group and every weight sign.  The inputs stay unchanged."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import interpodaffinity as KI
+    from kubernetes_tpu_torch.kernels import prev_delta as KD
+    from kubernetes_tpu_torch.kernels import scatter as KS
+    from kubernetes_tpu_torch.kernels import spread as KSp
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    err = {k: 0.0 for k in PIPE_KERNELS}
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    # K13
+    n, r, b0 = 8192, 8, 512
+    requested, non_zero = ints(0, 4000, n, r).to(dev), ints(0, 4000, n, 2).to(dev)
+    keep = (requested.clone(), non_zero.clone())
+
+    def bundle(kind):
+        rows = ints(-1, n, b0)
+        rows[:64] = 7  # many pods, and both bundles, on one node
+        if kind == "noop":
+            rows[:] = -1
+        return tuple(t.to(dev) for t in (rows, ints(0, 3000, b0, r), ints(0, 3000, b0, 2)))
+
+    for case in (["real"], ["real", "real"], ["noop", "real"], ["noop"], []):
+        bundles = [bundle(k) for k in case]
+        kr, kn = KD.prev_delta_apply(requested, non_zero, bundles)
+        pr, pn = KD.prev_delta_apply_plain(requested, non_zero, bundles)
+        torch.cuda.synchronize()
+        err["prev_delta_apply"] = max(err["prev_delta_apply"], require_equal(
+            f"prev_delta_apply ({'+'.join(case) or 'none'})",
+            [("requested", kr, pr), ("non_zero", kn, pn), ("input requested", requested,
+                                                            keep[0]),
+             ("input non_zero", non_zero, keep[1])]))
+
+    # K16
+    for n_rows, k_real, k in ((8192, 300, 512), (16384, 700, 1024), (8, 3, 8)):
+        floats = torch.rand((n_rows, 8), generator=gen)
+        floats[floats < 0.3] = float("nan")  # as node_label_num holds
+        arrays = [torch.rand(n_rows, generator=gen) < 0.5, ints(-1, 99, n_rows, 16),
+                  floats, ints(0, 9, n_rows),
+                  torch.rand((n_rows, 4), generator=gen) < 0.5,  # 4 bool bytes a row
+                  torch.rand((n_rows, 3), generator=gen) < 0.5]  # 3 bytes: the byte path
+        arrays = [a.to(dev) for a in arrays]
+        rows = torch.randperm(n_rows, generator=gen)[:k_real].sort().values
+        padded = torch.cat([rows, rows[:1].expand(k - k_real)]).to(dev)
+        vals = []
+        for a in arrays:
+            v = torch.empty((k,) + a.shape[1:], dtype=a.dtype)
+            v.copy_(torch.rand(v.shape, generator=gen) < 0.5 if a.dtype == torch.bool
+                    else torch.randint(-50, 50, v.shape, generator=gen).to(a.dtype))
+            v[k_real:] = v[0]  # a duplicate pad row carries its row's value
+            vals.append(v.to(dev))
+        before = [a.clone() for a in arrays]
+        got = KS.scatter_rows(arrays, padded, vals)
+        want = KS.scatter_rows_plain(arrays, padded, vals)
+        torch.cuda.synchronize()
+        err["scatter_rows"] = max(err["scatter_rows"], require_equal(
+            f"scatter_rows ({n_rows} rows, {k} payload rows)",
+            [(f"array {i}", g, w) for i, (g, w) in enumerate(zip(got, want))]
+            + [(f"input {i}", a, b) for i, (a, b) in enumerate(zip(arrays, before))]))
+
+    # K14
+    for cc in (1, 2):
+        cs = spread_case(f"chain, {cc} constraints", gen, dev, cc=cc, keyless=0.2)
+        aux = cs["aux"]
+        c = aux.hard_counts.shape[0]
+        rows = ints(-1, n, b0)
+        rows[:32] = 5
+        valid = torch.rand(b0, generator=gen) < 0.9
+        match = torch.rand((c, cc, b0), generator=gen) < 0.5
+        a14 = (aux, match.to(dev), rows.to(dev), valid.to(dev))
+        kh, ks = KSp.spread_chain_prev(*a14)
+        ph, ps = KSp.spread_chain_prev_plain(*a14)
+        torch.cuda.synchronize()
+        err["spread_chain_prev"] = max(err["spread_chain_prev"], require_equal(
+            f"spread_chain_prev ({cc} constraints)",
+            [("hard_counts", kh, ph), ("soft_counts", ks, ps)]))
+        if torch.equal(kh, aux.hard_counts):
+            fail("spread_chain_prev check: the carry counted nothing")
+
+    # K15
+    cases = [("tables", {}), ("planes", dict(d=8192, n_dom=5000)),
+             ("planes, one term, half keyless", dict(t=1, d=4096, n_dom=4000, keyless=0.5))]
+    for what, kw in cases:
+        cs = ipa_case(f"chain, {what}", gen, dev, **kw)
+        aux = cs["aux"]
+        c, t = aux.aff_cnt.shape[0], aux.aff_cnt.shape[1]
+        k_cap = 4
+        node_topo = ints(0, 6, n, k_cap)
+        node_topo[torch.rand((n, k_cap), generator=gen) < 0.1] = -1
+        node_topo[:, 3] = torch.arange(n, dtype=torch.int32)  # a hostname-like slot
+        rows = ints(-1, n, b0)
+        rows[:16] = 9
+        counts = {g: (torch.rand((c, t, b0), generator=gen) < 0.3).to(dev)
+                  for g in aux.present}
+        own = []
+        for gi, (block, w_scalar, sign) in enumerate(
+                ((True, 0.0, 1.0), (False, 1.0, 1.0), (False, 0.0, 1.0), (False, 0.0, -1.0))):
+            t0 = 2
+            term_valid = torch.rand((b0, t0), generator=gen) < (0.0 if gi == 2 else 0.7)
+            weight = None if w_scalar else torch.randint(1, 101, (b0, t0), generator=gen).float()
+            own.append(KI.OwnTerms(
+                block, (torch.rand((b0, t0, c), generator=gen) < 0.4).to(dev),
+                ints(0, k_cap, b0, t0).to(dev), term_valid.to(dev),
+                None if weight is None else weight.to(dev), w_scalar, sign))
+        for with_groups in (True, False):
+            o = own if with_groups else []
+            a15 = (aux, counts, o, rows.to(dev), node_topo.to(dev), -1)
+            got = KI.ipa_chain_prev(*a15)
+            want = KI.ipa_chain_prev_plain(*a15)
+            torch.cuda.synchronize()
+            if set(got) != set(want):
+                fail(f"ipa_chain_prev ({what}): fields {sorted(got)} vs {sorted(want)}")
+            err["ipa_chain_prev"] = max(err["ipa_chain_prev"], require_equal(
+                f"ipa_chain_prev ({what}, {'with' if with_groups else 'without'} prev terms)",
+                [(f, got[f], want[f]) for f in sorted(got)]))
+            if with_groups and not bool((got["block_dyn"] & ~aux.block_dyn).any()):
+                fail("ipa_chain_prev check: the prev anti terms blocked nothing new")
+    log(f"pipeline kernels vs plain: all equal ({', '.join(PIPE_KERNELS)})")
+    return err
+
+
+# --- phase 3b: NorthStar through the port's perf harness -----------------------------------
+
+
+class KernelArgs:
+    """The pipeline kernels' wrappers, wrapped where the path looks them up:
+    keeps the arguments of their latest calls (K16: the latest call of each
+    array group, by group size) for timing at the path's shapes."""
+
+    TARGETS = (
+        ("prev_delta_apply", "kubernetes_tpu_torch.framework.runtime", "prev_delta_apply"),
+        ("scatter_rows", "kubernetes_tpu_torch.state.encoding", "scatter_rows"),
+        ("spread_chain_prev", "kubernetes_tpu_torch.plugins.podtopologyspread",
+         "spread_chain_prev"),
+        ("ipa_chain_prev", "kubernetes_tpu_torch.plugins.interpodaffinity", "ipa_chain_prev"),
+    )
+
+    def __init__(self):
+        import importlib
+
+        self.last = {}
+        for name, mod_name, attr in self.TARGETS:
+            mod = importlib.import_module(mod_name)
+            setattr(mod, attr, self._wrap(name, getattr(mod, attr)))
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            key = (name, len(args[0])) if name == "scatter_rows" else (name, 0)
+            self.last[key] = (args, kw)
+            return fn(*args, **kw)
+
+        return wrapped
+
+
+def harness_summary(items) -> dict:
+    """The numbers of one NorthStar harness run that the record keeps."""
+    by = {it.labels["Metric"]: it.data for it in items}
+    att = by["scheduler_scheduling_attempt_duration_seconds"]
+    return {"pods_per_s": by["SchedulingThroughput"]["Average"],
+            "attempt_p50_ms": att["Perc50"] * 1e3, "attempt_p99_ms": att["Perc99"] * 1e3,
+            "window_phase_wall_s": by["PhaseWallBreakdown"],
+            "window_pipeline": by["PipelineInWindow"],
+            "window_launches": by["KernelLaunchesInWindow"],
+            "window_kernel_builds": by["KernelBuildsInWindow"]["Count"]}
+
+
+def northstar_harness(counters: KernelArgs, out_dir: Path) -> dict:
+    """NorthStar/5000Nodes/10000Pods through the port's perf harness at full
+    width (B = 512, pipeline depth 3, the 200 ms micro-bucket target, every
+    tier warmed): every measured pod bound, no node oversubscribed, K1–K4,
+    K13 and K16 launched in the run and inside the measured window, the
+    window's dispatches chaining on real carries, no kernel built in the
+    window.  Then (before the harness closes the scheduler) one profiled
+    steady pipelined cycle."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.perf.harness import data_items_to_json, run_workload
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+
+    w = build_workload("NorthStar", "5000Nodes/10000Pods")
+    seen = {}
+
+    def inspect(store, sched):
+        torch.cuda.synchronize()
+        seen["launches"] = dict(kernels.LAUNCHES)
+        seen["sched"] = sched
+        pods = check_bound_and_fit("NorthStar harness", store)
+        seen["pods"] = len(pods)
+        seen["carried_pods"] = sched.carried_pods
+        seen["tiers"] = {int(k): v for k, v in sched._tier_p99.items()}
+        seen["phase_wall_s"] = dict(sched.phase_wall)
+        seen["profile"] = profile_pipelined_cycle(sched, out_dir)
+
+    fresh_heap()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    with GcWatch() as gcw:
+        items = run_workload(w, device="cuda", inspect=inspect)
+    wall = time.perf_counter() - t
+    launches = seen["launches"]
+    summ = harness_summary(items)
+    win, pipe = summ["window_launches"], summ["window_pipeline"]
+    if seen["pods"] != 2000 + 10000:
+        fail(f"NorthStar harness: {seen['pods']} pods in the store, expected 12000")
+    for k in ("prev_delta_apply", "scatter_rows") + PATH_KERNELS[:4]:
+        if launches[k] <= 0:
+            fail(f"NorthStar harness: kernel {k} never launched on the main path")
+        if win[k] <= 0:
+            fail(f"NorthStar harness: kernel {k} never launched in the measured window")
+    if pipe["ChainedDispatches"] <= 0 or pipe["CarriedPods"] <= 0:
+        fail(f"NorthStar harness: no dispatch of the measured window chained on a placed "
+             f"pod ({pipe})")
+    if summ["window_kernel_builds"] != 0:
+        fail(f"NorthStar harness: {summ['window_kernel_builds']} kernel builds in the window")
+    rec = {"items": json.loads(data_items_to_json(items)), "wall_s": wall, **summ,
+           "launches": launches, "carried_pods": seen["carried_pods"],
+           "tier_p99_s": seen["tiers"], "gc_full_collections": gcw.count,
+           "gc_full_s": gcw.seconds, "profile": seen["profile"]}
+    log(f"NorthStar/5000Nodes/10000Pods via perf.harness.run_workload (pipelined, depth 3, "
+        f"200 ms target, overlap_sync {seen['sched'].overlap_sync}): "
+        f"{rec['pods_per_s']:.1f} pods/s, attempt p50 {rec['attempt_p50_ms']:.1f} ms, p99 "
+        f"{rec['attempt_p99_ms']:.1f} ms; window phase wall (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in summ["window_phase_wall_s"].items())
+        + f"; window pipeline {pipe}; tiers {seen['tiers']}; kernel builds in window "
+        f"{summ['window_kernel_builds']:.0f}; whole run {wall:.1f} s; window launches "
+        f"{win}; run launches {launches}")
+    return {"record": rec, "sched": seen["sched"]}
+
+
+def overlap_sync_compare(default_on: bool) -> dict:
+    """The NorthStar harness cell again with the overlapped sync switched
+    the other way, then as the main run had it (the main run being the
+    first of an A-B-A triple in one process): pods/s, attempt quantiles,
+    the window's walls and what became of the background payloads."""
+    import torch
+
+    from kubernetes_tpu_torch.perf.harness import run_workload
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+
+    out = {"main_run_overlap_sync": default_on, "runs": []}
+    for on in (not default_on, default_on):
+        fresh_heap()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        items = run_workload(build_workload("NorthStar", "5000Nodes/10000Pods"),
+                             device="cuda", overlap_sync=on)
+        summ = harness_summary(items)
+        summ["wall_s"] = time.perf_counter() - t
+        summ["overlap_sync"] = on
+        out["runs"].append(summ)
+        log(f"NorthStar harness, overlap_sync {on}: {summ['pods_per_s']:.1f} pods/s, attempt "
+            f"p50 {summ['attempt_p50_ms']:.1f} ms, p99 {summ['attempt_p99_ms']:.1f} ms; "
+            f"window pipeline {summ['window_pipeline']}; snapshot "
+            f"{summ['window_phase_wall_s']['snapshot']:.3f} s, sync_overlap "
+            f"{summ['window_phase_wall_s']['sync_overlap']:.3f} s")
+    return out
+
+
+def profile_pipelined_cycle(sched, out_dir: Path) -> dict:
+    """One steady pipelined NorthStar-shaped cycle under torch.profiler: 1536
+    pod_default pods queued, two cycles to fill the pipeline, then the
+    profiled one (it completes the oldest batch, dispatches a chained one
+    and binds); the device's idle share of its wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(1536):
+        sched.store.create("Pod", default_pod(i, "pprof"))
+    sched.schedule_cycle()
+    sched.schedule_cycle()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        stats = sched.schedule_cycle()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    pads = [fl.batch.size for fl in sched._inflight_q]
+    sched.run_until_idle()
+
+    def dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(((dev_us(e) / 1e3, e.count, e.key) for e in events), reverse=True)
+    lines = [f"one pipelined NorthStar-shaped cycle under torch.profiler (in flight after "
+             f"it: pads {pads}; bound {stats.scheduled}): wall {wall_ms:.3f} ms, device "
+             f"busy {busy_ms:.3f} ms", f"{'device ms':>10} {'count':>6}  name"]
+    lines += [f"{ms:10.4f} {cnt:6d}  {name}" for ms, cnt, name in top]
+    (out_dir / "profile_pipelined_cycle.txt").write_text("\n".join(lines) + "\n")
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "bound": stats.scheduled,
+           "inflight_pads": pads,
+           "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+           "top": [[ms, cnt, name] for ms, cnt, name in top[:12]]}
+    if busy_ms:
+        log(f"profiled pipelined NorthStar cycle: wall {wall_ms:.2f} ms, device busy "
+            f"{busy_ms:.3f} ms (idle share {rec['device_idle_share']:.4f}); bound "
+            f"{stats.scheduled}, in flight {pads}")
+    else:
+        log("profiled pipelined cycle: the profiler recorded no device time (not measured)")
+    return rec
+
+
+# --- phase 5b: cuda pipelined == cuda sync ------------------------------------------------
+
+
+def pipelined_vs_sync(kind: str) -> dict:
+    """One 1000-node cluster on cuda, pipelined (depth 3) and synchronous, at
+    the same segmentation (no latency target, a deterministic clock, no
+    backoff hold): the same node for every pod, and the pipelined run chains
+    real carries.  "northstar": node_default nodes presized past the
+    small-tier bound (so K16 runs), 200 pre-bound pods, 1536 pending pods of
+    four sizes; "spread": 1000 pod_default pods first, then 1024
+    DoNotSchedule spread pods; "preferred" / "anti": the suites' templates,
+    200 first pods then 1024 / 768 measured."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+    from kubernetes_tpu_torch.testutil import make_node, make_pod
+
+    def run(pipeline):
+        t = [0.0]
+
+        def clock():
+            t[0] += 1e-6
+            return t[0]
+
+        kernels.reset_launches()
+        if kind == "northstar":
+            store = ObjectStore()
+            for i in range(1000):
+                store.create("Node", make_node().name(f"node-{i:06d}")
+                             .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"}).obj())
+            for i in range(200):
+                store.create("Pod", make_pod().name(f"pre-{i:06d}").uid(f"pre-{i:06d}")
+                             .namespace("default").req({"cpu": "100m", "memory": "500Mi"})
+                             .node(f"node-{i:06d}").obj())
+            sched = TorchScheduler(store, batch_size=512, device="cuda", clock=clock,
+                                   batch_wait=0, pipeline=pipeline)
+            sched.presize(1100, 2048)
+            for i in range(1536):
+                cpu = ("100m", "250m", "500m", "1")[i % 4]
+                store.create("Pod", make_pod().name(f"pod-{i:06d}").uid(f"pod-{i:06d}")
+                             .namespace("default").creation_timestamp(float(i))
+                             .req({"cpu": cpu, "memory": "500Mi"}).obj())
+        elif kind == "spread":
+            sched = spread_cluster("cuda", 1000, 1000, clock=clock, pipeline=pipeline)
+            for i in range(1024):
+                sched.store.create("Pod", spread_pod(i, "spread", ts0=1e6))
+        else:
+            suite = next(s for s, v in AFFINITY_SUITES.items() if v[0] == kind)
+            sched = affinity_cluster("cuda", suite, 1000, 200, clock=clock, pipeline=pipeline)
+            for i in range(1024 if kind == "preferred" else 768):
+                sched.store.create("Pod", affinity_pod(kind, i, "sched-1", ts0=1e6))
+        c0 = sched.carried_pods
+        t0 = time.perf_counter()
+        sched.run_until_idle()
+        wall = time.perf_counter() - t0
+        pods, _ = sched.store.list("Pod")
+        return ({p.metadata.name: p.spec.node_name for p in pods},
+                sched.carried_pods - c0, dict(kernels.LAUNCHES), wall)
+
+    pb, carried, launches, p_wall = run(True)
+    sb, _, _, s_wall = run(False)
+    if pb != sb:
+        diff = [k for k in pb if pb[k] != sb.get(k)]
+        fail(f"{kind}: cuda pipelined and cuda sync bindings differ for {len(diff)} pods, "
+             f"e.g. {diff[:3]}")
+    if not all(pb.values()):
+        fail(f"{kind}: {sum(1 for v in pb.values() if not v)} pods unbound")
+    if carried <= 0 or launches["prev_delta_apply"] <= 0:
+        fail(f"{kind}: the pipelined run chained no placed pod ({launches})")
+    chain_k = {"spread": "spread_chain_prev", "preferred": "ipa_chain_prev",
+               "anti": "ipa_chain_prev", "northstar": "scatter_rows"}[kind]
+    if launches[chain_k] <= 0:
+        fail(f"{kind}: kernel {chain_k} never launched in the pipelined run")
+    rec = {"pods": len(pb), "carried_pods": carried, "launches": launches,
+           "pipelined_wall_s": p_wall, "sync_wall_s": s_wall}
+    log(f"{kind}-shaped 1000-node cluster: cuda pipelined == cuda sync bindings "
+        f"({len(pb)} pods, {carried} carried pods; pipelined {p_wall:.2f} s, sync "
+        f"{s_wall:.2f} s)")
+    return rec
+
+
+# --- phase 6: K13–K16 at the main path's shapes -------------------------------------------
+
+
+def time_pipeline_kernels(last_calls: dict, err: dict) -> list:
+    """K13–K16 timed on the arguments of their latest calls on the main path
+    (K13 and K16 from the NorthStar harness run, K14 from the pipelined
+    TopologySpreading run, K15 from the pipelined
+    SchedulingPreferredPodAffinity run), each held once more against its
+    plain version there; the bound from what those inputs make the kernel
+    touch."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import interpodaffinity as KI
+    from kubernetes_tpu_torch.kernels import prev_delta as KD
+    from kubernetes_tpu_torch.kernels import scatter as KS
+    from kubernetes_tpu_torch.kernels import spread as KSp
+
+    rows_out = []
+
+    def row(name, src, replaces, symbol, fn, plain_fn, n_bytes, n_ops, shape,
+            library_fn=None):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        rows_out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": None, "max_abs_err": err[name],
+            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
+            "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
+            "bound_ms": least, "bound_by": bound_by,
+            "library_ms": device_ms(library_fn) if library_fn else None,
+            "bytes": n_bytes, "ops": n_ops, "shape": shape})
+
+    def last(key):
+        got = last_calls.get(key)
+        if got is None:
+            fail(f"kernel timing: no recorded path call of {key[0]}")
+        return got[0]
+
+    # K13: in-place adds into the copies; bytes: the bundles, and the rows
+    # they touch read and written
+    requested, non_zero, bundles = last(("prev_delta_apply", 0))
+    kr, kn = KD.prev_delta_apply(requested, non_zero, bundles)
+    pr, pn = KD.prev_delta_apply_plain(requested, non_zero, bundles)
+    err["prev_delta_apply"] = max(err["prev_delta_apply"], require_equal(
+        "prev_delta_apply (path shapes)", [("requested", kr, pr), ("non_zero", kn, pn)]))
+    r = requested.shape[1]
+    placed = torch.cat([b[0][b[0] >= 0] for b in bundles])
+    touched = int(placed.unique().numel())
+    b_bytes = sum(nbytes(*b) for b in bundles)
+    all_rows = torch.cat([b[0] for b in bundles])
+    ok = (all_rows >= 0)[:, None]
+    at = all_rows.long().clamp(0, requested.shape[0] - 1)
+    all_req = torch.where(ok, torch.cat([b[1] for b in bundles]), 0)
+    all_nz = torch.where(ok, torch.cat([b[2] for b in bundles]), 0)
+    work_r, work_n = requested.clone(), non_zero.clone()
+    row("prev_delta_apply", "kubernetes_tpu_torch/csrc/prev_delta.cu",
+        "kubernetes_tpu/scheduler.py:897", "prev_delta_kernel",
+        lambda: KD.prev_delta_apply(requested, non_zero, bundles),
+        lambda: KD.prev_delta_apply_plain(requested, non_zero, bundles),
+        b_bytes + touched * (r + 2) * 4 * 2, int(placed.numel()) * (r + 2),
+        {"N": requested.shape[0], "R": r, "bundles": len(bundles),
+         "B0": [int(b[0].numel()) for b in bundles], "placed": int(placed.numel())},
+        library_fn=lambda: (work_r.index_add_(0, at, all_req),
+                            work_n.index_add_(0, at, all_nz)))
+
+    # K16: the node group (the largest): every array read and written once,
+    # the payload read once
+    node_key = max((k for k in last_calls if k[0] == "scatter_rows"), key=lambda k: k[1])
+    arrays, rows_t, vals = last(node_key)
+    got = KS.scatter_rows(arrays, rows_t, vals)
+    want = KS.scatter_rows_plain(arrays, rows_t, vals)
+    err["scatter_rows"] = max(err["scatter_rows"], require_equal(
+        "scatter_rows (path shapes)", [(f"array {i}", g, w_) for i, (g, w_) in
+                                       enumerate(zip(got, want))]))
+    rl = rows_t.long()
+    row("scatter_rows", "kubernetes_tpu_torch/csrc/scatter_rows.cu",
+        "kubernetes_tpu/state/encoding.py:168,883", "scatter_rows_kernel",
+        lambda: KS.scatter_rows(arrays, rows_t, vals),
+        lambda: KS.scatter_rows_plain(arrays, rows_t, vals),
+        2 * nbytes(*arrays) + nbytes(rows_t, *vals), 0,
+        {"arrays": len(arrays), "rows": arrays[0].shape[0], "payload_rows": rows_t.numel(),
+         "distinct": int(rows_t.unique().numel())},
+        library_fn=lambda: [a.index_copy(0, rl, v) for a, v in zip(arrays, vals)])
+
+    # K14: per matched placed prev pod, its node's counted flags and domain,
+    # and the tables' read-modify-write where it counts
+    aux, match, rows14, valid14 = last(("spread_chain_prev", 0))
+    kh, ks = KSp.spread_chain_prev(aux, match, rows14, valid14)
+    ph, ps = KSp.spread_chain_prev_plain(aux, match, rows14, valid14)
+    err["spread_chain_prev"] = max(err["spread_chain_prev"], require_equal(
+        "spread_chain_prev (path shapes)", [("hard", kh, ph), ("soft", ks, ps)]))
+    hits = int((match & ((rows14 >= 0) & valid14)[None, None, :]).sum())
+    adds = int((kh - aux.hard_counts).sum() + (ks - aux.soft_counts).sum())
+    c, cc, b0 = match.shape
+    row("spread_chain_prev", "kubernetes_tpu_torch/csrc/spread.cu",
+        "kubernetes_tpu/plugins/podtopologyspread.py:306", "spread_chain_kernel",
+        lambda: KSp.spread_chain_prev(aux, match, rows14, valid14),
+        lambda: KSp.spread_chain_prev_plain(aux, match, rows14, valid14),
+        c * cc * b0 + b0 * 5 + hits * 6 + adds * 8, hits,
+        {"C": c, "Cc": cc, "B0": b0, "N": aux.dom_val.shape[-1],
+         "D1": aux.hard_counts.shape[-1], "matched_placed": hits})
+
+    # K15: the count half reads the cross and, per matched placed pod, its
+    # node's domain, then writes the touched tables or planes; the own half
+    # reads the key column of node_topo once per placed valid prev term and
+    # writes the block / score of every matched (class, node)
+    aux, counts, own, rows15, node_topo, missing = last(("ipa_chain_prev", 0))
+    got = KI.ipa_chain_prev(aux, counts, own, rows15, node_topo, missing)
+    want = KI.ipa_chain_prev_plain(aux, counts, own, rows15, node_topo, missing)
+    err["ipa_chain_prev"] = max(err["ipa_chain_prev"], require_equal(
+        "ipa_chain_prev (path shapes)", [(f, got[f], want[f]) for f in sorted(got)]))
+    n = aux.exist_anti_block.shape[1]
+    placed15 = rows15 >= 0
+    b15 = nbytes(rows15)
+    ops15 = 0
+    for name, cross in counts.items():
+        hit = cross & placed15[None, None, :]
+        b15 += cross.numel() + int(hit.sum()) * 4
+        cnt_f = KI.GROUP_FIELDS[name][1]
+        changed = int((got[cnt_f] != getattr(aux, cnt_f)).sum())
+        b15 += changed * 8
+        ops15 += int(hit.sum())
+    for g in own:
+        live = int((g.term_valid & placed15[:, None]).sum())
+        b15 += g.mm.numel() + nbytes(g.topo_key) + g.term_valid.numel() + live * n * 4
+        ops15 += live * n
+    if own:
+        b15 += int((got["block_dyn"] != aux.block_dyn).sum()) \
+            + int((got["score_dyn"] != aux.score_dyn).sum()) * 8
+    row("ipa_chain_prev", "kubernetes_tpu_torch/csrc/interpodaffinity.cu",
+        "kubernetes_tpu/plugins/interpodaffinity.py:533", "ipa_chain",
+        lambda: KI.ipa_chain_prev(aux, counts, own, rows15, node_topo, missing),
+        lambda: KI.ipa_chain_prev_plain(aux, counts, own, rows15, node_topo, missing),
+        b15, ops15,
+        {"C": aux.exist_anti_block.shape[0], "N": n, "B0": rows15.numel(),
+         "count_groups": sorted(counts), "own_groups": len(own),
+         "planes": any(getattr(aux, KI.GROUP_FIELDS[g][1]).shape[-1] == n for g in counts)})
+    for rr in rows_out:
+        log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
+            f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
+            + (f", library {rr['library_ms']:.5f} ms" if rr["library_ms"] is not None else "")
+            + f"; {rr['shape']}")
+    return rows_out
+
+
 # --- phase 3: NorthStar ---------------------------------------------------------------
 
 
@@ -902,7 +1528,7 @@ def check_bound_and_fit(what: str, store):
 
 
 def spread_cluster(dev_name: str, n_nodes: int, n_first: int, batch_size: int = 512,
-                   clock=None):
+                   clock=None, pipeline: bool = False):
     """A TopologySpreading-shaped cluster: zoned nodes, then pod_default pods
     scheduled first through the path (as the suite does) — → the scheduler."""
     from kubernetes_tpu_torch.scheduler import TorchScheduler
@@ -912,7 +1538,8 @@ def spread_cluster(dev_name: str, n_nodes: int, n_first: int, batch_size: int = 
     for i in range(n_nodes):
         store.create("Node", zoned_node(i))
     kw = {} if clock is None else {"clock": clock, "batch_wait": 0}
-    sched = TorchScheduler(store, batch_size=batch_size, device=dev_name, **kw)
+    sched = TorchScheduler(store, batch_size=batch_size, device=dev_name,
+                           pipeline=pipeline, **kw)
     sched.presize(n_nodes, n_first + 2048)
     for i in range(n_first):
         store.create("Pod", default_pod(i))
@@ -931,25 +1558,29 @@ def zone_counts(pods, prefix: str):
     return counts
 
 
-def topology_spreading(dev_name: str) -> dict:
+def topology_spreading(dev_name: str, pipeline: bool = False) -> dict:
     """TopologySpreading/5000Nodes at full width: 5000 zoned nodes, 5000
     pod_default pods scheduled first, then 2000 pod_topology_spread pods —
-    the measured run, with the launch counts zeroed just before it."""
+    the measured run, with the launch counts zeroed just before it.  With
+    ``pipeline`` through TorchScheduler(pipeline=True): K14 must launch on
+    real carries."""
     import numpy as np
     import torch
 
     from kubernetes_tpu_torch import kernels
 
     n_nodes, n_first, n_pods = 5000, 5000, 2000
+    what = "TopologySpreading" + (" (pipelined)" if pipeline else "")
     fresh_heap()
     t0 = time.perf_counter()
-    sched = spread_cluster(dev_name, n_nodes, n_first)
+    sched = spread_cluster(dev_name, n_nodes, n_first, pipeline=pipeline)
     for i in range(n_pods):
         sched.store.create("Pod", spread_pod(i))
     setup_s = time.perf_counter() - t0
     c0, r0, rr0 = sched.cycles, sched.rounds_total, sched.round_read_s
     pw0 = dict(sched.phase_wall)
     att0 = len(sched.attempt_seconds)
+    carried0 = sched.carried_pods
 
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -960,15 +1591,18 @@ def topology_spreading(dev_name: str) -> dict:
     wall = time.perf_counter() - t1
     launches = dict(kernels.LAUNCHES)
 
-    pods = check_bound_and_fit("TopologySpreading", sched.store)
+    pods = check_bound_and_fit(what, sched.store)
     if stats.scheduled != n_pods:
-        fail(f"TopologySpreading: scheduled {stats.scheduled} of {n_pods}")
+        fail(f"{what}: scheduled {stats.scheduled} of {n_pods}")
     zc = zone_counts(pods, "spread-")
     if max(zc) - min(zc) > 5:
-        fail(f"TopologySpreading: zone skew {zc} exceeds maxSkew 5")
-    for k in PATH_KERNELS[:8]:
+        fail(f"{what}: zone skew {zc} exceeds maxSkew 5")
+    for k in PATH_KERNELS[:8] + (("spread_chain_prev", "prev_delta_apply") if pipeline else ()):
         if launches[k] <= 0:
-            fail(f"TopologySpreading: kernel {k} never launched on the main path")
+            fail(f"{what}: kernel {k} never launched on the main path")
+    carried = sched.carried_pods - carried0
+    if pipeline and carried <= 0:
+        fail(f"{what}: no placed pod reached a later dispatch as a carry")
     cycles = sched.cycles - c0
     rounds = sched.rounds_total - r0
     read_s = sched.round_read_s - rr0
@@ -984,9 +1618,9 @@ def topology_spreading(dev_name: str) -> dict:
         "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds,
         "attempt_p50_ms": float(np.percentile(att, 50) * 1e3),
         "attempt_p99_ms": float(np.percentile(att, 99) * 1e3),
-        "node_tier": sched.encoder._n,
+        "node_tier": sched.encoder._n, "pipeline": pipeline, "carried_pods": carried,
     }
-    log(f"TopologySpreading/5000Nodes: {n_pods} spread pods bound in {wall:.3f} s = "
+    log(f"{what}/5000Nodes: {n_pods} spread pods bound in {wall:.3f} s = "
         f"{rec['pods_per_s']:.1f} pods/s; {cycles} cycles, {rec['rounds_per_cycle']:.1f} "
         f"rounds/cycle; device half {rec['round_wall_ms']:.3f} ms/round, of which host "
         f"read {rec['host_read_ms_per_round']:.3f} ms; phase wall (s) "
@@ -1081,7 +1715,7 @@ AFFINITY_SUITES = {
 
 
 def affinity_cluster(dev_name: str, suite: str, n_nodes: int, n_first: int,
-                     clock=None):
+                     clock=None, pipeline: bool = False):
     """A suite's cluster: its nodes, then its first pods (namespace sched-0)
     scheduled through the path, as the suite does — → the scheduler."""
     from kubernetes_tpu_torch.scheduler import TorchScheduler
@@ -1092,7 +1726,7 @@ def affinity_cluster(dev_name: str, suite: str, n_nodes: int, n_first: int,
     for i in range(n_nodes):
         store.create("Node", node_of(i))
     kw = {} if clock is None else {"clock": clock, "batch_wait": 0}
-    sched = TorchScheduler(store, batch_size=512, device=dev_name, **kw)
+    sched = TorchScheduler(store, batch_size=512, device=dev_name, pipeline=pipeline, **kw)
     sched.presize(n_nodes, n_first + 2048)
     for i in range(n_first):
         store.create("Pod", affinity_pod(kind, i, "sched-0"))
@@ -1102,25 +1736,29 @@ def affinity_cluster(dev_name: str, suite: str, n_nodes: int, n_first: int,
     return sched
 
 
-def affinity_suite(dev_name: str, suite: str, counters=None) -> dict:
+def affinity_suite(dev_name: str, suite: str, counters=None, pipeline: bool = False) -> dict:
     """One pod-affinity suite at 5000Nodes, full width: the first pods
     scheduled through the path, then the measured pods (namespace sched-1),
-    with the launch counts zeroed just before them."""
+    with the launch counts zeroed just before them.  With ``pipeline``
+    through TorchScheduler(pipeline=True): K15 must launch on real
+    carries."""
     import numpy as np
     import torch
 
     from kubernetes_tpu_torch import kernels
 
     kind, _, (n_nodes, n_first, n_pods) = AFFINITY_SUITES[suite]
+    what = suite + (" (pipelined)" if pipeline else "")
     fresh_heap()
     t0 = time.perf_counter()
-    sched = affinity_cluster(dev_name, suite, n_nodes, n_first)
+    sched = affinity_cluster(dev_name, suite, n_nodes, n_first, pipeline=pipeline)
     for i in range(n_pods):
         sched.store.create("Pod", affinity_pod(kind, i, "sched-1", ts0=1e6))
     setup_s = time.perf_counter() - t0
     c0, r0, rr0 = sched.cycles, sched.rounds_total, sched.round_read_s
     pw0 = dict(sched.phase_wall)
     att0 = len(sched.attempt_seconds)
+    carried0 = sched.carried_pods
 
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1133,20 +1771,24 @@ def affinity_suite(dev_name: str, suite: str, counters=None) -> dict:
     wall = time.perf_counter() - t1
     launches = dict(kernels.LAUNCHES)
 
-    pods = check_bound_and_fit(suite, sched.store)
+    pods = check_bound_and_fit(what, sched.store)
     if stats.scheduled != n_pods:
-        fail(f"{suite}: scheduled {stats.scheduled} of {n_pods}")
+        fail(f"{what}: scheduled {stats.scheduled} of {n_pods}")
     placed = [p.spec.node_name for p in pods]
     if kind == "anti" and len(set(placed)) != len(placed):
-        fail(f"{suite}: two green pods share a host")
+        fail(f"{what}: two green pods share a host")
     if kind == "affinity":
         zone = {n.metadata.name: n.metadata.labels.get(ZONE_KEY)
                 for n in sched.store.list("Node")[0]}
         if any(zone[name] != "zone1" for name in placed):
-            fail(f"{suite}: a blue pod landed outside zone1")
-    for k in PATH_KERNELS[:4] + IPA_KERNELS:
+            fail(f"{what}: a blue pod landed outside zone1")
+    for k in PATH_KERNELS[:4] + IPA_KERNELS + (
+            ("ipa_chain_prev", "prev_delta_apply") if pipeline else ()):
         if launches[k] <= 0:
-            fail(f"{suite}: kernel {k} never launched on the main path")
+            fail(f"{what}: kernel {k} never launched on the main path")
+    carried = sched.carried_pods - carried0
+    if pipeline and carried <= 0:
+        fail(f"{what}: no placed pod reached a later dispatch as a carry")
     cycles = sched.cycles - c0
     rounds = sched.rounds_total - r0
     read_s = sched.round_read_s - rr0
@@ -1165,8 +1807,9 @@ def affinity_suite(dev_name: str, suite: str, counters=None) -> dict:
         "live_groups": sched.encoder.aff.live_groups,
         "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds,
         "torch_op_calls": counters.calls() if counters is not None else None,
+        "pipeline": pipeline, "carried_pods": carried,
     }
-    log(f"{suite}/5000Nodes: {n_pods} pods bound in {wall:.3f} s = "
+    log(f"{what}/5000Nodes: {n_pods} pods bound in {wall:.3f} s = "
         f"{rec['pods_per_s']:.1f} pods/s; {cycles} cycles, {rec['rounds_per_cycle']:.1f} "
         f"rounds/cycle; device half {rec['round_wall_ms']:.3f} ms/round, of which host "
         f"read {rec['host_read_ms_per_round']:.3f} ms; phase wall (s) "
@@ -1433,7 +2076,7 @@ def time_kernels(sched, err: dict) -> list:
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": None, "max_abs_err": err[name],
-            "ms": device_ms(fn, symbol), "call_ms": time_ms(fn),
+            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
             "plain_ms": time_ms(plain_fn, reps=plain_reps, warmup=1),
             "bound_ms": least, "bound_by": bound_by,
             "library_ms": device_ms(library_fn) if library_fn else None,
@@ -1586,7 +2229,7 @@ def time_spread_kernels(sched, err: dict) -> list:
         rows.append({
             "name": name, "route": "cuda", "source": "kubernetes_tpu_torch/csrc/spread.cu",
             "replaces": SPREAD_REPLACES[name], "launches": None, "max_abs_err": err[name],
-            "ms": device_ms(fn, symbol), "call_ms": time_ms(fn),
+            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
             "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
             "bound_ms": least, "bound_by": bound_by, "library_ms": None,
             "bytes": n_bytes, "ops": n_ops,
@@ -1774,7 +2417,7 @@ def time_ipa_kernels(sched, err: dict) -> list:
             "name": name, "route": "cuda",
             "source": "kubernetes_tpu_torch/csrc/interpodaffinity.cu",
             "replaces": IPA_REPLACES[name], "launches": None, "max_abs_err": err[name],
-            "ms": device_ms(fn, symbol), "call_ms": time_ms(fn),
+            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
             "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
             "bound_ms": least, "bound_by": bound_by, "library_ms": None,
             "bytes": n_bytes, "ops": n_ops,
@@ -1844,11 +2487,12 @@ def time_ipa_kernels(sched, err: dict) -> list:
 
 
 class OpCounter:
-    """The torch-op programs of the path (ROADMAP Queue B B1, B4, B6, B7),
+    """The torch-op programs of the path (ROADMAP Queue B B4, B6, B7),
     wrapped where the scheduler and the plugins look them up: counts their
     calls and keeps the last cycle's arguments for timing.  B4's selector
     matrices all go through ``requirements_match_matrix``; each cycle starts
-    with one ``apply_scatter`` (B1), which clears the kept B4 calls."""
+    with one ``apply_scatter`` (B1, counted; its row-scatter is K16, timed
+    with the kernels), which clears the kept B4 calls."""
 
     TARGETS = (
         ("B1", "kubernetes_tpu_torch.scheduler", "apply_scatter"),
@@ -1899,7 +2543,7 @@ class OpCounter:
 
 
 def time_torch_ops(counter: OpCounter, what: str) -> list:
-    """Device time per cycle of the torch-op programs (B1, B4, B6, B7) on the
+    """Device time per cycle of the torch-op programs (B4, B6, B7) on the
     last cycle's arguments, with their bound."""
     out = []
 
@@ -1912,18 +2556,6 @@ def time_torch_ops(counter: OpCounter, what: str) -> list:
                     "bound_ms": least, "bound_by": bound_by, "bytes": n_bytes,
                     "ops": n_ops, "calls_per_cycle": calls})
 
-    b1 = args("B1", "apply_scatter")
-    if b1 and b1[0][0][1] is not None:
-        upd = b1[0][0][1]
-        payload = 0
-        for group in (upd.node_rows, upd.pod_rows, upd.aff_rows):
-            if group is not None:
-                rows, vals = group
-                payload += nbytes(rows) + 2 * nbytes(*vals)  # read, then written
-        if upd.numeric is not None:
-            payload += nbytes(upd.numeric)
-        row("B1 apply_scatter", lambda: counter.run_last("B1", "apply_scatter"),
-            payload, 0, 1)
     b4 = args("B4", "requirements_match_matrix")
     if b4:
         n_bytes = n_ops = 0
@@ -2038,14 +2670,29 @@ def main() -> None:
     err = check_kernels(dev)
     err.update(check_spread_kernels(dev))
     err.update(check_ipa_kernels(dev))
+    err.update(check_pipeline_kernels(dev))
     record["kernel_check_s"] = time.perf_counter() - t
+    out_dir = here / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
 
     counters = OpCounter()
+    kargs = KernelArgs()
     t = time.perf_counter()
     ns = northstar("cuda", counters)
     record["northstar"] = ns["record"]
     record["northstar"]["phase_s"] = time.perf_counter() - t
     torch_ops = time_torch_ops(counters, "NorthStar")
+
+    # the pipelined main path: NorthStar through the perf harness
+    t = time.perf_counter()
+    nsh = northstar_harness(kargs, out_dir)
+    record["northstar_harness"] = nsh["record"]
+    record["northstar_harness"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    record["overlap_sync_compare"] = overlap_sync_compare(nsh["sched"].overlap_sync)
+    record["overlap_sync_compare"]["phase_s"] = time.perf_counter() - t
+    path_calls = {k: v for k, v in kargs.last.items()
+                  if k[0] in ("prev_delta_apply", "scatter_rows")}
 
     t = time.perf_counter()
     topo = topology_spreading("cuda")
@@ -2054,6 +2701,11 @@ def main() -> None:
     t = time.perf_counter()
     record["preferred_spreading"] = preferred_spreading("cuda")
     record["preferred_spreading"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    topo_pipe = topology_spreading("cuda", pipeline=True)
+    record["topology_spreading_pipelined"] = topo_pipe["record"]
+    record["topology_spreading_pipelined"]["phase_s"] = time.perf_counter() - t
+    path_calls[("spread_chain_prev", 0)] = kargs.last[("spread_chain_prev", 0)]
 
     affinity = {}
     for suite in AFFINITY_SUITES:
@@ -2064,6 +2716,23 @@ def main() -> None:
         if suite == "SchedulingPreferredPodAffinity":
             torch_ops += time_torch_ops(counters, suite)
     record["torch_ops"] = torch_ops
+    t = time.perf_counter()
+    pref_pipe = affinity_suite("cuda", "SchedulingPreferredPodAffinity", pipeline=True)
+    record["SchedulingPreferredPodAffinity_pipelined"] = pref_pipe["record"]
+    record["SchedulingPreferredPodAffinity_pipelined"]["phase_s"] = time.perf_counter() - t
+    path_calls[("ipa_chain_prev", 0)] = kargs.last[("ipa_chain_prev", 0)]
+    # each pipelined run beside the synchronous run of its suite, this call
+    record["pipelined_vs_sync"] = {
+        name: {mode: {k: r_.get(k) for k in ("pods_per_s", "attempt_p50_ms",
+                                             "attempt_p99_ms", "phase_wall_s",
+                                             "window_phase_wall_s", "rounds_per_cycle",
+                                             "carried_pods")}
+               for mode, r_ in (("sync", sync_rec), ("pipelined", pipe_rec))}
+        for name, sync_rec, pipe_rec in (
+            ("NorthStar", ns["record"], nsh["record"]),
+            ("TopologySpreading", topo["record"], topo_pipe["record"]),
+            ("SchedulingPreferredPodAffinity",
+             affinity["SchedulingPreferredPodAffinity"]["record"], pref_pipe["record"]))}
     log("torch-op programs on the path: " + "; ".join(
         f"{r['name']} ({r['shape']}): {r['ms']:.5f} ms device, {r['calls_per_cycle']} "
         f"calls a cycle, bound {r['bound_ms']:.7f} ms ({r['bound_by']})" for r in torch_ops))
@@ -2131,21 +2800,37 @@ def main() -> None:
             f"bindings ({len(gb)} pods, {unbound} unschedulable) in "
             f"{time.perf_counter() - t:.1f} s")
 
+    record["cuda_pipelined_vs_sync"] = {}
+    for kind_ in ("northstar", "spread", "preferred", "anti"):
+        t = time.perf_counter()
+        record["cuda_pipelined_vs_sync"][kind_] = pipelined_vs_sync(kind_)
+        record["cuda_pipelined_vs_sync"][kind_]["s"] = time.perf_counter() - t
+
     pref = affinity["SchedulingPreferredPodAffinity"]
     rows = (time_kernels(ns["sched"], err) + time_spread_kernels(topo["sched"], err)
-            + time_ipa_kernels(pref["sched"], err))
+            + time_ipa_kernels(pref["sched"], err) + time_pipeline_kernels(path_calls, err))
+    # device_ms's fallback, held against the profiler on one elementwise op
+    # (4M floats), so that a run that needs it uses a method checked here
+    x = torch.zeros(1 << 22, device=dev)
+    record["queued_timing_check_ms"] = {
+        "profiler": device_ms(lambda: x.add_(1.0)),
+        "queued_events": queued_device_ms(lambda: x.add_(1.0))}
+    log(f"timing check, 4M-float add_: profiler {record['queued_timing_check_ms']['profiler']:.5f}"
+        f" ms, queued behind a spin {record['queued_timing_check_ms']['queued_events']:.5f} ms")
+    # each kernel's launches on the path that carries it: K1–K8 on the
+    # TopologySpreading run, K9–K12 on SchedulingPreferredPodAffinity, K13
+    # and K16 on the NorthStar harness run, K14 on the pipelined
+    # TopologySpreading run, K15 on the pipelined SchedulingPreferredPodAffinity
+    carrier = {"prev_delta_apply": nsh, "scatter_rows": nsh, "spread_chain_prev": topo_pipe,
+               "ipa_chain_prev": pref_pipe, **{k_: pref for k_ in IPA_KERNELS}}
+    paths = {"NorthStar": ns, "NorthStar harness": nsh, "TopologySpreading": topo,
+             "TopologySpreading pipelined": topo_pipe,
+             "SchedulingPreferredPodAffinity pipelined": pref_pipe, **affinity}
     for r in rows:
-        # each kernel's launches on the path that carries it: K1–K8 on the
-        # TopologySpreading run, K9–K12 on SchedulingPreferredPodAffinity
-        on = pref["record"] if r["name"] in IPA_KERNELS else topo["record"]
-        r["launches"] = on["launches"][r["name"]]
-        r["launches_by_path"] = {
-            "NorthStar": ns["record"]["launches"].get(r["name"]),
-            "TopologySpreading": topo["record"]["launches"].get(r["name"]),
-            **{s_: a["record"]["launches"].get(r["name"]) for s_, a in affinity.items()}}
+        r["launches"] = carrier.get(r["name"], topo)["record"]["launches"][r["name"]]
+        r["launches_by_path"] = {p_: v["record"]["launches"].get(r["name"])
+                                 for p_, v in paths.items()}
     record["kernels"] = rows
-    out_dir = here / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     record["profile"] = profile_cycle(
         ns["sched"], out_dir, "NorthStar-shaped",
         lambda i: default_pod(i, "prof"), "profile_cycle.txt")
@@ -2161,7 +2846,7 @@ def main() -> None:
     log(f"chip_smoke: all phases passed in {record['total_s']:.1f} s")
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms_source", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k_: r[k_] for k_ in keys} for r in rows]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,11 @@
 // K9–K12: InterPodAffinity's count planes and tables for the identity-class
-// dedup cycle.
+// dedup cycle; K15: their deep-pipeline chain hook.
 //
 // Replaces (JAX package): plugins/interpodaffinity.py prepare (:197-333,
 // with _counts :166-195), filter (:337-364), score (:368-385) + normalize
-// (:387-398) and update_batch_classes (:676-764), with the ops/segment.py
-// domain gather and scatter-add (:27-97) they are built on.
+// (:387-398), update_batch_classes (:676-764) and chain_prev (:533-670),
+// with the ops/segment.py domain gather and scatter-add (:27-97) they are
+// built on.
 //
 // Count state per term group: planes [C, T, N] (the count of matching pods
 // in each node's domain) or tables [C, T, D1] (per domain, D1 = D + 1 with
@@ -41,6 +42,25 @@
 //   O(commits · C · T + C · T · N) against the reference's O(C · T · N)
 //   one-hot contractions.  Bound: latency (one commit a round on the
 //   preferred-affinity suite).
+// K15 ipa_chain_prev: a still-in-flight batch's placements folded into this
+//   batch's state before the rounds (deep pipeline), in two launch functions:
+//   count: one launch per present term group of this batch, one block per
+//             term row (c, t): the placed prev pods its term matches fold
+//             into a shared-memory domain delta at their node's domain,
+//             added to the row's table, or to its plane over the nodes of
+//             those domains, and (required affinity) into aff_total.  Nodes
+//             without the key count nowhere (the reference zeroes the trash
+//             slot).  The reference builds a [B0, N] placement one-hot and
+//             contracts it; the node row is read directly here.
+//   own:   one launch per term group the prev batch carries with a valid
+//             term, one block per prev term (j, t): the term's RAW topology
+//             value at the prev pod's node (no domain bucketing, so batches
+//             with other domain buckets chain exactly), then every node with
+//             that value blocks (required anti-affinity) or gains ±weight in
+//             the score of each class row the term matches.  Float atomics
+//             of integer values: exact in any order below 2^24.
+//   Bound: latency for count (≤ B0 pods a row); bytes for own (node_topo's
+//   key column read once per placed prev term).
 //
 // Numerics (built with --fmad=false): every score term is an integer-valued
 // float32 below 2^24, so sums are exact in any order; the normalization is
@@ -489,5 +509,121 @@ extern "C" int launch_ipa_update(int group, int B, int C, int T, int N, int D, i
       (const uint8_t*)cross2, (const uint8_t*)row_valid, (const uint8_t*)own_cross,
       (const float*)wt, w_scalar, sign, (int32_t*)cnt, (int32_t*)total,
       (uint8_t*)block_dyn, (float*)score_dyn);
+  return (int)cudaGetLastError();
+}
+
+// --- K15 ----------------------------------------------------------------------------
+
+#define CHAIN_THREADS 256
+
+__global__ void __launch_bounds__(CHAIN_THREADS) ipa_chain_count_kernel(
+    int B0, int T, int N, int D, int planes,
+    const uint8_t* __restrict__ cross,  // [C, T, B0]: term (c, t) matches prev pod j
+    const int32_t* __restrict__ rows,   // [B0] prev pod's node row, < 0 = not placed
+    const int32_t* __restrict__ dom,    // [C, T, N]
+    int32_t* __restrict__ cnt,          // [C, T, N] planes or [C, T, D + 1] tables
+    int32_t* __restrict__ total) {      // [C] or null
+  extern __shared__ int delta[];        // [D]
+  __shared__ int scratch[CHAIN_THREADS / 32];
+  const int row = blockIdx.x;           // c * T + t
+  const int c = row / T;
+  const int32_t* drow = dom + (long long)row * N;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) delta[d] = 0;
+  __syncthreads();
+  bool any = false;
+  for (int j = threadIdx.x; j < B0; j += blockDim.x) {
+    if (!cross[(long long)row * B0 + j]) continue;
+    const int r = rows[j];
+    if (r < 0) continue;
+    const int dv = drow[min(r, N - 1)];
+    if (dv < D) {
+      atomicAdd(&delta[dv], 1);
+      any = true;
+    }
+  }
+  if (!__syncthreads_or(any)) return;
+  int mass = 0;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    const int v = delta[d];
+    mass += v;
+    if (!planes && v) cnt[(long long)row * (D + 1) + d] += v;
+  }
+  if (planes) {
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      const int dv = drow[n];
+      if (dv < D) {
+        const int v = delta[dv];
+        if (v) cnt[(long long)row * N + n] += v;
+      }
+    }
+  }
+  if (total) {
+    mass = block_sum_int(mass, scratch);
+    if (threadIdx.x == 0) atomicAdd(&total[c], mass);
+  }
+}
+
+extern "C" int launch_ipa_chain_count(int B0, int C, int T, int N, int D, int planes,
+                                      const void* cross, const void* rows, const void* dom,
+                                      void* cnt, void* total, void* stream) {
+  if (B0 <= 0 || C <= 0 || T <= 0 || D <= 0) return 0;
+  const size_t smem = (size_t)D * sizeof(int);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(ipa_chain_count_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ipa_chain_count_kernel<<<C * T, CHAIN_THREADS, smem, (cudaStream_t)stream>>>(
+      B0, T, N, D, planes, (const uint8_t*)cross, (const int32_t*)rows,
+      (const int32_t*)dom, (int32_t*)cnt, (int32_t*)total);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(CHAIN_THREADS) ipa_chain_own_kernel(
+    int T, int C, int N, int K, int missing, int block,
+    const uint8_t* __restrict__ mm,          // [B0, T, C]: prev term (j, t) matches class c
+    const int32_t* __restrict__ topo_key,    // [B0, T] topology slot of the prev term
+    const uint8_t* __restrict__ term_valid,  // [B0, T]
+    const int32_t* __restrict__ rows,        // [B0], < 0 = not placed
+    const int32_t* __restrict__ node_topo,   // [N, K] raw topology values
+    const float* __restrict__ wt,            // [B0, T] or null (use w_scalar)
+    float w_scalar, float sign,
+    uint8_t* __restrict__ block_dyn,         // [C, N]
+    float* __restrict__ score_dyn) {         // [C, N]
+  const int jt = blockIdx.x;                 // j * T + t
+  const int j = jt / T;
+  const int r = rows[j];
+  if (r < 0 || !term_valid[jt]) return;
+  const int key = min(max(topo_key[jt], 0), K - 1);
+  const int v = node_topo[(long long)min(r, N - 1) * K + key];
+  if (v == missing) return;                  // the prev pod's node lacks the key
+  const uint8_t* m = mm + (long long)jt * C;
+  const float w = __fmul_rn(sign, wt ? wt[jt] : w_scalar);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    if (node_topo[(long long)n * K + key] != v) continue;
+    for (int c = 0; c < C; ++c) {
+      if (!m[c]) continue;
+      const long long cn = (long long)c * N + n;
+      if (block) {
+        block_dyn[cn] = 1;
+      } else {
+        atomicAdd(&score_dyn[cn], w);
+      }
+    }
+  }
+}
+
+extern "C" int launch_ipa_chain_own(int B0, int T, int C, int N, int K, int missing,
+                                    int block, const void* mm, const void* topo_key,
+                                    const void* term_valid, const void* rows,
+                                    const void* node_topo, const void* wt, float w_scalar,
+                                    float sign, void* block_dyn, void* score_dyn,
+                                    void* stream) {
+  if (B0 <= 0 || T <= 0 || C <= 0 || N <= 0 || K <= 0) return 0;
+  ipa_chain_own_kernel<<<B0 * T, CHAIN_THREADS, 0, (cudaStream_t)stream>>>(
+      T, C, N, K, missing, block, (const uint8_t*)mm, (const int32_t*)topo_key,
+      (const uint8_t*)term_valid, (const int32_t*)rows, (const int32_t*)node_topo,
+      (const float*)wt, w_scalar, sign, (uint8_t*)block_dyn, (float*)score_dyn);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 // K5–K8: PodTopologySpread's domain count tables for the identity-class
-// dedup cycle.
+// dedup cycle; K14: their deep-pipeline chain hook.
 //
 // Replaces (JAX package): plugins/podtopologyspread.py prepare (:112-134),
-// filter (:166-182), score (:186-215) + normalize (:217-232) and
-// update_batch_classes (:341-364), with the ops/segment.py domain gather,
-// scatter-add and any (:27-97) they are built on.
+// filter (:166-182), score (:186-215) + normalize (:217-232),
+// update_batch_classes (:341-364) and chain_prev (:306-339), with the
+// ops/segment.py domain gather, scatter-add and any (:27-97) they are built
+// on.
 //
 // Tables are [C, Cc, D1] int32 (C class rows, Cc constraints per pod,
 // D1 = D + 1 domains with the trash slot D of nodes without the key);
@@ -28,6 +29,13 @@
 // K8 spread_update_classes: one thread per (committed pod, class
 //   constraint row); integer atomics into the tables.  O(B · C · Cc) where
 //   the reference's einsum is O(C · Cc · N).  Bound: latency.
+// K14 spread_chain_prev: the deep pipeline's chain hook — a still-in-flight
+//   batch's placements folded into this batch's tables (chain_prev,
+//   :306-339).  One thread per (class constraint row, prev pod): a placed
+//   prev pod the row's selector matches adds one at its node's domain,
+//   where that node counts.  The reference scatters a [C, Cc, B0] float
+//   plane over a [.., B0, D+1] one-hot; the integer atomics need none.
+//   Bound: latency (≤ C · Cc · B0 threads, a few hundred bytes written).
 //
 // Numerics (built with --fmad=false): the score term is cnt · w + (maxSkew −
 // 1) as a rounded multiply then a rounded add, summed over the constraints in
@@ -392,5 +400,41 @@ extern "C" int launch_spread_update(int B, int C, int Cc, int Cp, int N, int D1,
       (const int32_t*)class_of, (const uint8_t*)match_pending,
       (const uint8_t*)counted_hard, (const uint8_t*)counted_soft,
       (const int32_t*)dom_val, (int32_t*)hard, (int32_t*)soft);
+  return (int)cudaGetLastError();
+}
+
+// --- K14 ----------------------------------------------------------------------------
+
+__global__ void spread_chain_kernel(int B0, int Cc, int N, int D1,
+                                    const uint8_t* __restrict__ match,  // [C, Cc, B0]
+                                    const int32_t* __restrict__ rows,  // [B0]
+                                    const uint8_t* __restrict__ counted_hard,  // [C, N]
+                                    const uint8_t* __restrict__ counted_soft,  // [C, N]
+                                    const int32_t* __restrict__ dom_val,  // [C, Cc, N]
+                                    int32_t* __restrict__ hard,  // [C, Cc, D1]
+                                    int32_t* __restrict__ soft) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int row = blockIdx.y;  // c * Cc + cc
+  if (j >= B0 || !match[(long long)row * B0 + j]) return;
+  const int r = rows[j];
+  if (r < 0) return;  // the prev pod was not placed
+  const int c = row / Cc;
+  const int n = min(r, N - 1);
+  const int dv = dom_val[(long long)row * N + n];
+  if (counted_hard[(long long)c * N + n]) atomicAdd(&hard[(long long)row * D1 + dv], 1);
+  if (counted_soft[(long long)c * N + n]) atomicAdd(&soft[(long long)row * D1 + dv], 1);
+}
+
+extern "C" int launch_spread_chain(int B0, int C, int Cc, int N, int D1, const void* match,
+                                   const void* rows, const void* counted_hard,
+                                   const void* counted_soft, const void* dom_val, void* hard,
+                                   void* soft, void* stream) {
+  if (B0 <= 0 || C <= 0 || Cc <= 0) return 0;
+  const int threads = 256;
+  dim3 grid((B0 + threads - 1) / threads, C * Cc);
+  spread_chain_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      B0, Cc, N, D1, (const uint8_t*)match, (const int32_t*)rows,
+      (const uint8_t*)counted_hard, (const uint8_t*)counted_soft, (const int32_t*)dom_val,
+      (int32_t*)hard, (int32_t*)soft);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
 """Batched framework runtime: plugin composition + the identity-class dedup
 assignment engine, in torch.
 
-Reference: the JAX package's framework/runtime.py — ``coupling_flags``
-(:90), ``prepare`` (:172), ``run_filters`` / ``run_scores`` / ``compute`` /
-``diagnose_bits`` (:199-255) and ``_batch_assign_dedup`` (:747-977).  Both
+Reference: the JAX package's framework/runtime.py — ``PrevBatch`` (:40-63),
+``coupling_flags`` (:90), ``prepare`` (:172), ``chain_prev`` (:183-195),
+``run_filters`` / ``run_scores`` / ``compute`` / ``diagnose_bits``
+(:199-255) and ``_batch_assign_dedup`` (:747-977) — and the scheduler's
+``apply_prev_delta`` (scheduler.py:897-916) over K13.  Both
 run through the kernels (kernels/): K1 filter bits + raw planes, then the
 live dynamic plugins' filters folded into the bit plane (PodTopologySpread:
 K6, InterPodAffinity: K10), K2 normalize + weighted total, then the dynamic
@@ -40,6 +42,7 @@ from ..kernels.normalize import (
     CombinePlan,
     normalize_combine,
 )
+from ..kernels.prev_delta import prev_delta_apply
 from ..kernels.topk import topk_rows
 from ..plugins.nodeaffinity import NodeAffinityPlugin
 from ..plugins.noderesources import BalancedAllocationPlugin, FitPlugin
@@ -66,6 +69,44 @@ class AssignResult(NamedTuple):
     # host wall spent in the per-round read of the loop condition (seconds;
     # it waits for the round's kernels)
     host_read_s: float = 0.0
+
+
+class PrevBatch(NamedTuple):
+    """The deep pipeline's carry: a still-in-flight batch's identity and its
+    device-resident decisions, consumed by the next batch's cycle
+    (``apply_prev_delta`` for resources, the plugins' ``chain_prev`` hooks
+    for their tables) with no host round trip.  Every tensor lies on the
+    device.  The four (anti)affinity term groups ride only when the
+    dispatching batch has affinity content and the chain is on; with them
+    InterPodAffinity chains the prev batch's own terms too.  The reference
+    pads its carry slots with no-op bundles to keep XLA's shapes stable;
+    the port passes only the real carries (a no-op bundle changes nothing)."""
+
+    rows: torch.Tensor  # i32[B0] node row per prev pod (-1 = none)
+    req: torch.Tensor  # i32[B0, R]
+    nz: torch.Tensor  # i32[B0, 2]
+    valid: torch.Tensor  # bool[B0]
+    label_keys: torch.Tensor  # i32[B0, PL]
+    label_vals: torch.Tensor  # i32[B0, PL]
+    ns: torch.Tensor  # i32[B0]
+    req_affinity: Any = None  # AffinityTermGroup | None (all four together)
+    req_anti_affinity: Any = None
+    pref_affinity: Any = None
+    pref_anti_affinity: Any = None
+    # the prev batch's term groups with a valid term (PodBatch.group_present)
+    group_present: tuple = ()
+
+
+def apply_prev_delta(dyn: DynamicState, prevs: Sequence[PrevBatch]) -> DynamicState:
+    """The in-flight batches' request rows added at their decided node rows
+    (the reference's apply_prev_delta, scheduler.py:897-916, for each
+    bundle, oldest first) — K13 on the card.  A new state: the snapshot
+    arrays ``dyn`` may alias stay untouched."""
+    if not prevs:
+        return dyn
+    req, nz = prev_delta_apply(dyn.requested, dyn.non_zero,
+                               [(p.rows, p.req, p.nz) for p in prevs])
+    return DynamicState(requested=req, non_zero=nz)
 
 
 class CouplingFlags(NamedTuple):
@@ -158,6 +199,16 @@ class BatchedFramework:
             auxes.append(None if fn is None else
                          fn(batch, snap, dyn, host_auxes.get(pw.plugin.name)))
         return tuple(auxes)
+
+    def chain_prev(self, batch, snap, auxes, prev: PrevBatch):
+        """Fold a still-in-flight batch's placements into this batch's plugin
+        auxes (the reference's chain_prev, runtime.py:183-195): each
+        plugin's ``chain_prev`` hook on its live aux."""
+        out = []
+        for pw, aux in zip(self.plugins, auxes):
+            fn = getattr(pw.plugin, "chain_prev", None)
+            out.append(aux if fn is None or aux is None else fn(aux, batch, snap, prev))
+        return tuple(out)
 
     def _live(self, auxes):
         """[(PluginWithWeight, aux)] of the dynamic plugins whose aux is live

@@ -21,6 +21,12 @@ than once); ``reset_launches`` zeroes the counts.
   K11 ipa_score_combine     csrc/interpodaffinity.cu
   K12 ipa_update_classes    csrc/interpodaffinity.cu (one launch per present
                             term group)
+  K13 prev_delta_apply      csrc/prev_delta.cu
+  K14 spread_chain_prev     csrc/spread.cu
+  K15 ipa_chain_prev        csrc/interpodaffinity.cu (one launch per present
+                            term group of this batch, and per prev term group
+                            with a valid term)
+  K16 scatter_rows          csrc/scatter_rows.cu (one launch per array group)
 """
 
 from __future__ import annotations
@@ -43,6 +49,10 @@ LAUNCHES: Dict[str, int] = {
     "ipa_filter_bits": 0,
     "ipa_score_combine": 0,
     "ipa_update_classes": 0,
+    "prev_delta_apply": 0,
+    "spread_chain_prev": 0,
+    "ipa_chain_prev": 0,
+    "scatter_rows": 0,
 }
 
 
@@ -51,12 +61,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-_CTYPE = {"i": ctypes.c_int, "p": ctypes.c_void_p, "f": ctypes.c_float}
+_CTYPE = {"i": ctypes.c_int, "l": ctypes.c_longlong, "p": ctypes.c_void_p,
+          "f": ctypes.c_float}
 
 
 def bind(lib, name: str, spec: str):
     """The C launch function ``name`` with argtypes from ``spec`` (one letter
-    per argument: i = int, p = pointer, f = float); returns cudaError_t."""
+    per argument: i = int, l = long long, p = pointer, f = float); returns cudaError_t."""
     fn = getattr(lib, name)
     fn.argtypes = [_CTYPE[ch] for ch in spec]
     fn.restype = ctypes.c_int

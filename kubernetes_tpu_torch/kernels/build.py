@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 SOURCES = ("filter_score", "normalize_combine", "topk_rows", "auction", "spread",
-           "interpodaffinity")
+           "interpodaffinity", "prev_delta", "scatter_rows")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,6 +44,9 @@ NVCC_FLAGS = [
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# nvcc builds started by this process (a measured window that builds a
+# kernel pays the build inside it; the perf harness reports the count)
+BUILDS = 0
 # ptxas resource reports (registers, shared memory, spills) per source,
 # from the build that produced the loaded library
 PTXAS_LOG: Dict[str, str] = {}
@@ -69,10 +72,12 @@ def _lib_path(name: str) -> Path:
 def _start(name: str):
     """Start the nvcc build of one source; → (Popen, tmp path, final path)
     or None when the library is already built."""
+    global BUILDS
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    BUILDS += 1
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

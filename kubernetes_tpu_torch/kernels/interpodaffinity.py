@@ -1,4 +1,4 @@
-"""K9–K12: InterPodAffinity's count planes and tables (CUDA:
+"""K9–K12, K15: InterPodAffinity's count planes and tables (CUDA:
 csrc/interpodaffinity.cu).
 
 Replace the JAX package's plugins/interpodaffinity.py programs as the
@@ -17,6 +17,11 @@ gathers and scatters they are built on (ROADMAP Queue B, B10 and B12):
                              + the weighted floor into K2's total
   K12 ipa_update_classes     ``update_batch_classes`` (:676-764), once per
                              auction round and present term group
+  K15 ipa_chain_prev         ``chain_prev`` (:533-670): a still-in-flight
+                             batch's placements (deep pipeline) — this
+                             batch's terms against the prev pods' labels
+                             into the counts, and the prev pods' own terms
+                             into ``block_dyn`` / ``score_dyn``
 
 The count state has the reference's two forms (the plugin's
 ``_use_planes``): per-node planes ``[C, T, N]`` when the batch's domain
@@ -36,6 +41,8 @@ order: a reciprocal ``(s − min) · (100 / diff)`` or ``((s − min) / diff) ·
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -462,6 +469,143 @@ def ipa_update_classes(aux, commit, choice, class_of):
         check(err, f"ipa_update_classes ({name})")
         LAUNCHES["ipa_update_classes"] += 1
     return aux
+
+
+# --- K15 ipa_chain_prev -------------------------------------------------------------
+
+# each term group's (domain, count state) fields of the aux
+GROUP_FIELDS = {
+    "req_affinity": ("dom_aff", "aff_cnt"),
+    "req_anti_affinity": ("dom_anti", "anti_cnt"),
+    "pref_affinity": ("dom_paff", "paff_cnt"),
+    "pref_anti_affinity": ("dom_panti", "panti_cnt"),
+}
+
+
+class OwnTerms(NamedTuple):
+    """One term group of the prev batch, for the chain's second half."""
+
+    block: bool  # required anti-affinity: block; the others: score
+    mm: torch.Tensor  # bool[B0, T0, C]: prev term (j, t) matches class row c
+    topo_key: torch.Tensor  # i32[B0, T0] topology slot of each prev term
+    term_valid: torch.Tensor  # bool[B0, T0]
+    weight: Optional[torch.Tensor]  # f32[B0, T0], or None for ``w_scalar``
+    w_scalar: float
+    sign: float  # +1 or −1 (preferred anti-affinity subtracts)
+
+
+def ipa_chain_prev_plain(aux, counts, own, rows, node_topo, missing: int) -> dict:
+    """The plain version, as the reference computes it, with the placement
+    one-hot replaced by a gather at each prev pod's node row: (i) per term
+    group of ``counts`` (name → cross bool[C, T, B0]) the placed matches
+    scattered into the domains of their nodes, the trash slot zeroed,
+    gathered back for planes, and (required affinity) the tables' mass
+    into ``aff_total``; (ii) per ``OwnTerms`` the nodes sharing the prev
+    term's raw topology value at its pod's node, blocked or scored for the
+    class rows the term matches.  → the updated fields, new tensors."""
+    d = aux.depth
+    n = aux.exist_anti_block.shape[1]
+    placed = rows >= 0
+    at = rows.long().clamp(0, n - 1)
+    keep = (torch.arange(d + 1, device=rows.device) < d).to(torch.int32)
+    out = {}
+    for name, cross in counts.items():
+        dom_f, cnt_f = GROUP_FIELDS[name]
+        dom, cnt = getattr(aux, dom_f), getattr(aux, cnt_f)
+        tbl = domain_scatter_add(cross & placed[None, None, :], dom[:, :, at], d + 1) * keep
+        inc = domain_gather(tbl, dom) if _is_planes(cnt, n) else tbl
+        out[cnt_f] = cnt + inc
+        if name == "req_affinity":
+            out["aff_total"] = aux.aff_total + tbl.sum(dim=(1, 2), dtype=torch.int32)
+    block = aux.block_dyn
+    score = aux.score_dyn
+    k_cap = node_topo.shape[1]
+    for g in own:
+        key = g.topo_key.long().clamp(0, k_cap - 1)
+        domp = node_topo[:, key].permute(1, 2, 0)  # [B0, T0, N] raw values
+        hasp = (domp != missing) & g.term_valid[:, :, None]
+        idx = at[:, None, None].expand(domp.shape[0], domp.shape[1], 1)
+        dom_at = domp.gather(2, idx)[..., 0]
+        has_at = hasp.gather(2, idx)[..., 0] & placed[:, None]
+        same = (hasp & has_at[:, :, None] & (domp == dom_at[:, :, None])).to(torch.float32)
+        mm = g.mm.to(torch.float32)
+        if g.block:
+            block = block | (torch.einsum("jtb,jtn->bn", mm, same) > 0.5)
+        else:
+            w = g.weight if g.weight is not None else torch.full(
+                g.term_valid.shape, g.w_scalar, dtype=torch.float32, device=rows.device)
+            score = score + g.sign * torch.einsum("jtb,jtn->bn", mm * w[:, :, None], same)
+    if own:
+        out["block_dyn"] = block
+        out["score_dyn"] = score
+    return out
+
+
+def ipa_chain_prev(aux, counts, own, rows, node_topo, missing: int) -> dict:
+    """Fold a still-in-flight batch's placements into the class view's
+    state (see ``ipa_chain_prev_plain`` for the arguments; ``rows`` i32[B0]
+    already folds in the prev pods' validity).  → the updated fields, new
+    tensors (the inputs stay untouched).  CPU tensors take the plain
+    version; CUDA tensors launch K15 once per group of ``counts`` and once
+    per ``OwnTerms``."""
+    if not rows.is_cuda:
+        return ipa_chain_prev_plain(aux, counts, own, rows, node_topo, missing)
+    d = aux.depth
+    if d > MAX_SHARED_DOMAINS:
+        raise NotImplementedError(
+            f"ipa_chain_prev: a domain bucket of {d} exceeds the {MAX_SHARED_DOMAINS} "
+            "domains one block keeps in shared memory (hostname affinity on more than "
+            "~57k nodes: ROADMAP Queue B B12)")
+    b0 = rows.shape[0]
+    c, n = aux.exist_anti_block.shape
+    rows = rows.to(torch.int32).contiguous()
+    dev = require_cuda("ipa_chain_prev", rows)
+    out = {}
+    for name, cross in counts.items():
+        dom_f, cnt_f = GROUP_FIELDS[name]
+        dom = getattr(aux, dom_f).contiguous()
+        cnt = getattr(aux, cnt_f).clone(memory_format=torch.contiguous_format)
+        cross = cross.contiguous()
+        t = dom.shape[1]
+        total = None
+        if name == "req_affinity":
+            total = aux.aff_total.clone(memory_format=torch.contiguous_format)
+        require_cuda("ipa_chain_prev", cross, dom, cnt, *([total] if total is not None else []))
+        require_dtype("ipa_chain_prev", torch.bool, cross)
+        require_dtype("ipa_chain_prev", torch.int32, dom, cnt)
+        if cross.shape != (c, t, b0) or dom.shape != (c, t, n):
+            raise ValueError(f"ipa_chain_prev: inconsistent {name} shapes")
+        err = _fn("launch_ipa_chain_count", "iiiiii" + "ppp" + "pp" + "p")(
+            b0, c, t, n, d, int(_is_planes(cnt, n)), ptr(cross), ptr(rows), ptr(dom),
+            ptr(cnt), ptr(total) if total is not None else 0, stream_of(dev))
+        check(err, f"ipa_chain_prev ({name} counts)")
+        LAUNCHES["ipa_chain_prev"] += 1
+        out[cnt_f] = cnt
+        if total is not None:
+            out["aff_total"] = total
+    if own:
+        block = aux.block_dyn.clone(memory_format=torch.contiguous_format)
+        score = aux.score_dyn.clone(memory_format=torch.contiguous_format)
+        topo = node_topo.contiguous()
+        require_dtype("ipa_chain_prev", torch.int32, topo)
+        for g in own:
+            parts = [g.mm.contiguous(), g.topo_key.to(torch.int32).contiguous(),
+                     g.term_valid.contiguous()]
+            wt = None if g.weight is None else g.weight.to(torch.float32).contiguous()
+            require_cuda("ipa_chain_prev", *parts, topo, block, score,
+                         *([wt] if wt is not None else []))
+            t0 = parts[1].shape[1]
+            if parts[0].shape != (b0, t0, c) or parts[2].shape != (b0, t0):
+                raise ValueError("ipa_chain_prev: inconsistent prev term shapes")
+            err = _fn("launch_ipa_chain_own", "iiiiiii" + "ppppp" + "pff" + "pp" + "p")(
+                b0, t0, c, n, topo.shape[1], int(missing), int(g.block), *map(ptr, parts),
+                ptr(rows), ptr(topo), ptr(wt) if wt is not None else 0, float(g.w_scalar),
+                float(g.sign), ptr(block), ptr(score), stream_of(dev))
+            check(err, "ipa_chain_prev (prev terms)")
+            LAUNCHES["ipa_chain_prev"] += 1
+        out["block_dyn"] = block
+        out["score_dyn"] = score
+    return out
 
 
 _FNS = {}

@@ -1,0 +1,90 @@
+"""K13: the deep pipeline's in-flight resource delta (CUDA: csrc/prev_delta.cu).
+
+Replaces the JAX package's scheduler.py ``_build_jitted.apply_prev_delta``
+(:897-916, ROADMAP Queue B B2): each still-in-flight batch's request rows
+are added into ``requested`` / ``non_zero`` at the node rows its
+device-resident decision chose, before this batch's prepare and
+assignment; rows below 0 add nothing.  Up to two bundles (depth 3),
+oldest first.
+
+Out of place: the dynamic state starts as an alias of the snapshot's
+``requested`` / ``non_zero_requested`` (``initial_dynamic_state``), and the
+next dispatch's row-scatter starts from that snapshot, so the wrapper adds
+into copies.  CPU tensors take the plain version (``index_add_``); CUDA
+tensors launch K13 once for all bundles.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from . import LAUNCHES, bind, ptr, require_cuda, require_dtype, stream_of
+from .build import check, load
+
+# the fused cycle carries at most two in-flight batches (pipeline_depth ≤ 3)
+MAX_BUNDLES = 2
+
+
+def prev_delta_apply_plain(requested, non_zero, bundles):
+    """The plain version: per bundle, the masked request rows added at the
+    clipped node rows (the reference's ``.at[rows].add``)."""
+    req = requested.clone()
+    nz = non_zero.clone()
+    n = req.shape[0]
+    for rows, b_req, b_nz in bundles:
+        ok = (rows >= 0)[:, None]
+        at = rows.long().clamp(0, n - 1)
+        req.index_add_(0, at, torch.where(ok, b_req, 0).to(req.dtype))
+        nz.index_add_(0, at, torch.where(ok, b_nz, 0).to(nz.dtype))
+    return req, nz
+
+
+def prev_delta_apply(requested: torch.Tensor, non_zero: torch.Tensor,
+                     bundles: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]):
+    """→ (requested i32[N, R], non_zero i32[N, 2]): copies of the inputs
+    with every bundle's ``(rows i32[B0], req i32[B0, R], nz i32[B0, 2])``
+    added at its rows ≥ 0.  CPU tensors take the plain version; CUDA tensors
+    copy the two arrays and launch K13 once."""
+    bundles = list(bundles)
+    if len(bundles) > MAX_BUNDLES:
+        raise ValueError(f"prev_delta_apply: at most {MAX_BUNDLES} bundles")
+    if not requested.is_cuda:
+        return prev_delta_apply_plain(requested, non_zero, bundles)
+    n, r = requested.shape
+    req = requested.clone(memory_format=torch.contiguous_format)
+    nz = non_zero.clone(memory_format=torch.contiguous_format)
+    if not bundles:
+        return req, nz
+    args = []
+    for rows, b_req, b_nz in bundles:
+        part = [rows.to(torch.int32).contiguous(), b_req.contiguous(), b_nz.contiguous()]
+        b0 = part[0].shape[0]
+        if part[1].shape != (b0, r) or part[2].shape != (b0, 2):
+            raise ValueError("prev_delta_apply: inconsistent bundle shapes")
+        args.append(part)
+    dev = require_cuda("prev_delta_apply", req, nz, *(t for p in args for t in p))
+    require_dtype("prev_delta_apply", torch.int32, req, nz, *(t for p in args for t in p))
+    if nz.shape != (n, 2):
+        raise ValueError("prev_delta_apply: non_zero must be [N, 2]")
+    while len(args) < MAX_BUNDLES:
+        args.append(None)
+    flat = []
+    for p in args:
+        flat += [0, 0, 0, 0] if p is None else [p[0].shape[0], *map(ptr, p)]
+    err = _fn("launch_prev_delta", "ippp" * MAX_BUNDLES + "ii" + "pp" + "p")(
+        *flat, n, r, ptr(req), ptr(nz), stream_of(dev))
+    check(err, "prev_delta_apply")
+    LAUNCHES["prev_delta_apply"] += 1
+    return req, nz
+
+
+_FNS = {}
+
+
+def _fn(name: str, spec: str):
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = bind(load("prev_delta"), name, spec)
+    return fn

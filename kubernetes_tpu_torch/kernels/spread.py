@@ -1,4 +1,4 @@
-"""K5–K8: PodTopologySpread's domain count tables (CUDA: csrc/spread.cu).
+"""K5–K8, K14: PodTopologySpread's domain count tables (CUDA: csrc/spread.cu).
 
 Replace the JAX package's plugins/podtopologyspread.py programs as the
 identity-class dedup engine runs them, with the ops/segment.py domain
@@ -12,6 +12,9 @@ gathers and scatters they are built on (ROADMAP Queue B, B10 and B11):
                              + the weighted floor into K2's total
   K8 spread_update_classes   ``update_batch_classes`` (:341-364), once per
                              auction round
+  K14 spread_chain_prev      ``chain_prev`` (:306-339): a still-in-flight
+                             batch's placements (deep pipeline), once per
+                             chained batch before the rounds
 
 Tables are ``[C, Cc, D+1]`` int32 over the class rows C, the constraints
 per pod Cc and the batch's domain bucket D plus the trash slot D of nodes
@@ -361,6 +364,54 @@ def spread_update_classes(aux, commit, choice, class_of) -> Tuple:
     check(err, "spread_update_classes")
     LAUNCHES["spread_update_classes"] += 1
     return aux.hard_counts, aux.soft_counts
+
+
+# --- K14 spread_chain_prev ------------------------------------------------------
+
+
+def spread_chain_prev_plain(aux, match, rows, valid) -> Tuple:
+    """The plain version, as the reference computes it: the placed prev
+    pods' matches gated by their node's counted flags, scattered into the
+    domains of their nodes (trash slot included), added to copies of the
+    tables."""
+    n = aux.dom_val.shape[-1]
+    d1 = aux.hard_counts.shape[-1]
+    placed = (rows >= 0) & valid
+    at = rows.long().clamp(0, n - 1)
+    m = match & placed[None, None, :]
+    dom_at = aux.dom_val[:, :, at]  # [C, Cc, B0]
+    inc_h = domain_scatter_add(m & aux.counted_hard[:, at][:, None, :], dom_at, d1)
+    inc_s = domain_scatter_add(m & aux.counted_soft[:, at][:, None, :], dom_at, d1)
+    return aux.hard_counts + inc_h, aux.soft_counts + inc_s
+
+
+def spread_chain_prev(aux, match, rows, valid) -> Tuple:
+    """→ (hard_counts, soft_counts) i32[C, Cc, D+1]: new tables with a
+    still-in-flight batch's placed pods counted.  ``match`` bool[C, Cc, B0]:
+    constraint (c, cc)'s selector matches prev pod j (same namespace);
+    ``rows`` i32[B0] the prev pods' node rows (< 0 = not placed); ``valid``
+    bool[B0].  CPU tensors take the plain version; CUDA tensors copy the
+    tables and launch K14."""
+    if not rows.is_cuda:
+        return spread_chain_prev_plain(aux, match, rows, valid)
+    c, cc, d1 = aux.hard_counts.shape
+    b0 = rows.shape[0]
+    n = aux.dom_val.shape[-1]
+    args = [(match & valid[None, None, :]).contiguous(), rows.to(torch.int32).contiguous()]
+    args += [t.contiguous() for t in (aux.counted_hard, aux.counted_soft, aux.dom_val)]
+    hard = aux.hard_counts.clone(memory_format=torch.contiguous_format)
+    soft = aux.soft_counts.clone(memory_format=torch.contiguous_format)
+    dev = require_cuda("spread_chain_prev", *args, hard, soft)
+    require_dtype("spread_chain_prev", torch.bool, args[0], args[2], args[3])
+    require_dtype("spread_chain_prev", torch.int32, args[1], args[4], hard, soft)
+    if args[0].shape != (c, cc, b0) or args[4].shape != (c, cc, n) \
+            or args[2].shape != (c, n) or soft.shape != (c, cc, d1):
+        raise ValueError("spread_chain_prev: inconsistent shapes")
+    err = _fn("launch_spread_chain", "iiiii" + "p" * 5 + "pp" + "p")(
+        b0, c, cc, n, d1, *map(ptr, args), ptr(hard), ptr(soft), stream_of(dev))
+    check(err, "spread_chain_prev")
+    LAUNCHES["spread_chain_prev"] += 1
+    return hard, soft
 
 
 _FNS = {}

@@ -1,0 +1,307 @@
+"""Named benchmark workloads after the reference's scheduler_perf suite.
+
+Reference: the JAX package's perf/workloads.py, itself after
+test/integration/scheduler_perf/config/performance-config.yaml and the
+pod / node templates it references (node-default.yaml: 4 cpu / 32Gi / 110
+pods; pod-default.yaml: 100m / 500Mi; the color-selector affinity and
+spread pods).  Each suite has the reference's shape, named sizes
+(initNodes, initPods, measurePods), batch sizes and latency targets;
+``scale`` runs the same shapes small.
+
+The port carries the suites whose pods it schedules: SchedulingBasic,
+NorthStar, Density, TopologySpreading, PreferredTopologySpreading,
+SchedulingNodeAffinity, SchedulingPodAntiAffinity, SchedulingPodAffinity,
+SchedulingPreferredPodAffinity and Unschedulable.  ``build_workload`` of
+any other suite raises NotImplementedError naming the ROADMAP item that
+brings what it needs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+from ..api import objects as v1
+from ..state.units import pow2_round_up
+from ..testutil import make_node, make_pod
+from .harness import Op, Workload
+
+ZONES3 = ["moon-1", "moon-2", "moon-3"]
+
+
+def node_default(i: int) -> v1.Node:
+    return (
+        make_node().name(f"node-{i:06d}")
+        .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+        .obj()
+    )
+
+
+def node_unique_hostname(i: int) -> v1.Node:
+    return (
+        make_node().name(f"node-{i:06d}")
+        .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+        .label("kubernetes.io/hostname", f"node-{i:06d}")
+        .obj()
+    )
+
+
+def node_zoned(zones: List[str]) -> Callable[[int], v1.Node]:
+    def tmpl(i: int) -> v1.Node:
+        return (
+            make_node().name(f"node-{i:06d}")
+            .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+            .label("topology.kubernetes.io/zone", zones[i % len(zones)])
+            .obj()
+        )
+
+    return tmpl
+
+
+def _base_pod(i: int, prefix: str, ns: str = "default"):
+    return make_pod().name(f"{prefix}-{i:06d}").uid(f"{prefix}-{i:06d}").namespace(ns)
+
+
+def pod_default(i: int, ns: str = "default") -> v1.Pod:
+    return _base_pod(i, "pod", ns).req({"cpu": "100m", "memory": "500Mi"}).obj()
+
+
+def pod_large_cpu(i: int) -> v1.Pod:
+    return _base_pod(i, "large", "default").req({"cpu": "9", "memory": "500Mi"}).obj()
+
+
+def pod_anti_affinity(ns: str) -> Callable[[int], v1.Pod]:
+    """pod-with-pod-anti-affinity.yaml: color=green, required anti-affinity
+    on kubernetes.io/hostname across sched-0/sched-1."""
+
+    def tmpl(i: int) -> v1.Pod:
+        return (
+            _base_pod(i, f"anti-{ns}", ns)
+            .req({"cpu": "100m", "memory": "500Mi"})
+            .label("color", "green")
+            .pod_affinity("kubernetes.io/hostname", {"color": "green"}, anti=True,
+                          namespaces=["sched-0", "sched-1"])
+            .obj()
+        )
+
+    return tmpl
+
+
+def pod_affinity(ns: str) -> Callable[[int], v1.Pod]:
+    """pod-with-pod-affinity.yaml: color=blue, required affinity on zone."""
+
+    def tmpl(i: int) -> v1.Pod:
+        return (
+            _base_pod(i, f"aff-{ns}", ns)
+            .req({"cpu": "100m", "memory": "500Mi"})
+            .label("color", "blue")
+            .pod_affinity("topology.kubernetes.io/zone", {"color": "blue"},
+                          namespaces=["sched-0", "sched-1"])
+            .obj()
+        )
+
+    return tmpl
+
+
+def pod_topology_spread(i: int) -> v1.Pod:
+    """pod-with-topology-spreading.yaml: maxSkew=5 DoNotSchedule on zone."""
+    return (
+        _base_pod(i, "spread", "default")
+        .req({"cpu": "100m", "memory": "500Mi"})
+        .label("color", "blue")
+        .topology_spread(5, "topology.kubernetes.io/zone", labels={"color": "blue"})
+        .obj()
+    )
+
+
+def pod_preferred_topology_spread(i: int) -> v1.Pod:
+    """pod-with-preferred-topology-spreading.yaml: maxSkew=5 ScheduleAnyway."""
+    return (
+        _base_pod(i, "pspread", "default")
+        .req({"cpu": "100m", "memory": "500Mi"})
+        .label("color", "blue")
+        .topology_spread(5, "topology.kubernetes.io/zone",
+                         when_unsatisfiable=v1.SCHEDULE_ANYWAY, labels={"color": "blue"})
+        .obj()
+    )
+
+
+def pod_node_affinity(i: int) -> v1.Pod:
+    """pod-with-node-affinity.yaml: required node affinity zone In
+    {zone1, zone2}."""
+    return (
+        _base_pod(i, "naff", "default")
+        .req({"cpu": "100m", "memory": "500Mi"})
+        .node_affinity_in("topology.kubernetes.io/zone", ["zone1", "zone2"])
+        .obj()
+    )
+
+
+def pod_preferred_affinity(ns: str) -> Callable[[int], v1.Pod]:
+    """pod-with-preferred-pod-affinity.yaml: color=red, PREFERRED (w=1)
+    affinity on hostname across sched-0/sched-1."""
+
+    def tmpl(i: int) -> v1.Pod:
+        return (
+            _base_pod(i, f"paff-{ns}", ns)
+            .req({"cpu": "100m", "memory": "500Mi"})
+            .label("color", "red")
+            .pod_affinity("kubernetes.io/hostname", {"color": "red"}, weight=1,
+                          namespaces=["sched-1", "sched-0"])
+            .obj()
+        )
+
+    return tmpl
+
+
+@dataclass
+class Suite:
+    name: str
+    build: Callable[[int, int, int], Workload]  # (initNodes, initPods, measurePods)
+    sizes: Dict[str, tuple]  # workload name → (initNodes, initPods, measurePods)
+    # device batch (None = the build's default): an int, or a dict by size name
+    batch_size: Optional[object] = None
+    # the micro-bucket policy's target (ms), or a dict by size name; None = off
+    latency_target_ms: Optional[object] = None
+
+
+def _three_ops(name, node_tmpl, init_tmpl, measure_tmpl, n, p, mp, skip_init=False):
+    return Workload(
+        name=name,
+        ops=[
+            Op("createNodes", n, node_template=node_tmpl),
+            Op("createPods", p, pod_template=init_tmpl, skip_wait=skip_init),
+            Op("createPods", mp, pod_template=measure_tmpl, collect_metrics=True),
+        ],
+        batch_size=256,
+    )
+
+
+def _basic(n, p, mp) -> Workload:
+    return _three_ops("SchedulingBasic", node_default, pod_default, pod_default, n, p, mp)
+
+
+def _anti_affinity(n, p, mp) -> Workload:
+    return _three_ops("SchedulingPodAntiAffinity", node_unique_hostname,
+                      pod_anti_affinity("sched-0"), pod_anti_affinity("sched-1"), n, p, mp)
+
+
+def _affinity(n, p, mp) -> Workload:
+    return _three_ops("SchedulingPodAffinity", node_zoned(["zone1"]),
+                      pod_affinity("sched-0"), pod_affinity("sched-1"), n, p, mp)
+
+
+def _topology(n, p, mp) -> Workload:
+    return _three_ops("TopologySpreading", node_zoned(ZONES3), pod_default,
+                      pod_topology_spread, n, p, mp)
+
+
+def _node_affinity(n, p, mp) -> Workload:
+    return _three_ops("SchedulingNodeAffinity", node_zoned(["zone1"]), pod_node_affinity,
+                      pod_node_affinity, n, p, mp)
+
+
+def _preferred_affinity(n, p, mp) -> Workload:
+    return _three_ops("SchedulingPreferredPodAffinity", node_unique_hostname,
+                      pod_preferred_affinity("sched-0"), pod_preferred_affinity("sched-1"),
+                      n, p, mp)
+
+
+def _preferred_topology(n, p, mp) -> Workload:
+    return _three_ops("PreferredTopologySpreading", node_zoned(ZONES3), pod_default,
+                      pod_preferred_topology_spread, n, p, mp)
+
+
+def _unschedulable(n, p, mp) -> Workload:
+    # 9-cpu pods never fit a 4-cpu node; they churn the unschedulable queue
+    # while the measured pods schedule
+    return _three_ops("Unschedulable", node_default, pod_large_cpu, pod_default, n, p, mp,
+                      skip_init=True)
+
+
+SUITES: Dict[str, Suite] = {
+    s.name: s
+    for s in [
+        Suite("SchedulingBasic", _basic,
+              {"500Nodes": (500, 500, 1000), "5000Nodes": (5000, 1000, 1000)},
+              batch_size={"5000Nodes": 512}, latency_target_ms={"5000Nodes": 140.0}),
+        Suite("SchedulingPodAntiAffinity", _anti_affinity,
+              {"500Nodes": (500, 100, 400), "5000Nodes": (5000, 1000, 1000)},
+              batch_size={"5000Nodes": 512}),
+        Suite("SchedulingPodAffinity", _affinity,
+              {"500Nodes": (500, 500, 1000), "5000Nodes": (5000, 5000, 1000)},
+              batch_size={"5000Nodes": 512}),
+        Suite("TopologySpreading", _topology,
+              {"500Nodes": (500, 1000, 1000), "5000Nodes": (5000, 5000, 2000)},
+              batch_size={"5000Nodes": 512}),
+        Suite("PreferredTopologySpreading", _preferred_topology,
+              {"500Nodes": (500, 1000, 1000), "5000Nodes": (5000, 5000, 2000)},
+              batch_size={"5000Nodes": 512}),
+        Suite("SchedulingNodeAffinity", _node_affinity,
+              {"500Nodes": (500, 500, 1000), "5000Nodes": (5000, 5000, 1000)},
+              batch_size={"5000Nodes": 512}),
+        Suite("SchedulingPreferredPodAffinity", _preferred_affinity,
+              {"500Nodes": (500, 500, 1000), "5000Nodes": (5000, 5000, 1000)},
+              batch_size={"5000Nodes": 512}),
+        Suite("Unschedulable", _unschedulable,
+              {"500Nodes/200InitPods": (500, 200, 1000),
+               "5000Nodes/200InitPods": (5000, 200, 5000)},
+              batch_size={"5000Nodes/200InitPods": 512}),
+        # the north-star configuration: 5k nodes, 10k pending pods
+        Suite("NorthStar", _basic,
+              {"5000Nodes/10000Pods": (5000, 2000, 10000), "100kNodes": (100_352, 0, 2000)},
+              batch_size={"5000Nodes/10000Pods": 512, "100kNodes": 256},
+              latency_target_ms={"5000Nodes/10000Pods": 200.0}),
+        # scheduler_perf's historic density target
+        Suite("Density", _basic,
+              {"1000Nodes/30000Pods": (1000, 0, 30000), "100Nodes/3000Pods": (100, 0, 3000)},
+              batch_size={"1000Nodes/30000Pods": 512}),
+    ]
+}
+
+# the reference's other suites, and the ROADMAP items that bring what they need
+UNPORTED: Dict[str, str] = {
+    "PreemptionBasic": "preemption (ROADMAP Queue A item 9, Queue B B15, B16)",
+    "SchedulingWithMixedChurn": "selector spread over its churn services (ROADMAP Queue A "
+                                "item 7c) and preemption-capable churn pods (item 9)",
+    "GangBasic": "gang scheduling (ROADMAP Queue A item 8, Queue B B14)",
+    "AutoscaleGang": "gang scheduling (ROADMAP Queue A item 8) and the autoscaler's "
+                     "counterfactual forks (item 9, Queue B B16)",
+    "DeviceClaimGang": "gangs with device claims (ROADMAP Queue A item 8, Queue B B14)",
+    "TrainingJobFlow": "gangs with device claims (ROADMAP Queue A item 8) and the "
+                       "TrainingJob controller (item 10)",
+    "StatefulChurn": "volume binding (ROADMAP Queue A item 8)",
+    "VolumeZoneSpread": "volume binding (ROADMAP Queue A item 8)",
+    "Defrag": "gang scheduling (ROADMAP Queue A item 8) and the descheduler (item 9)",
+    "SchedulingExtender": "scheduler extenders (ROADMAP Queue A item 6)",
+}
+
+
+def build_workload(suite: str, size: str, scale: float = 1.0,
+                   batch_size: Optional[int] = None) -> Workload:
+    """The named workload at ``size``, its counts times ``scale`` (the
+    reference's build_workload: the same floors, batch and latency target)."""
+    if suite in UNPORTED:
+        raise NotImplementedError(f"suite {suite} needs {UNPORTED[suite]}, not ported yet")
+    s = SUITES[suite]
+    n, p, mp = s.sizes[size]
+    if scale != 1.0:
+        n = max(4, int(n * scale))
+        p = max(0, int(p * scale))
+        mp = max(2, int(mp * scale))
+    w = s.build(n, p, mp)
+    w.name = f"{suite}/{size}"
+    suite_batch = s.batch_size
+    if isinstance(suite_batch, dict):
+        suite_batch = suite_batch.get(size)
+    if batch_size is not None:
+        w.batch_size = batch_size
+    elif suite_batch is not None:
+        # the suite's batch capped at the scaled backlog
+        w.batch_size = min(suite_batch, max(16, pow2_round_up(mp)))
+    lt = s.latency_target_ms
+    if isinstance(lt, dict):
+        lt = lt.get(size)
+    if lt is not None:
+        w.latency_target_ms = float(lt)
+    return w

@@ -23,9 +23,10 @@ The arithmetic lives beside its kernels in kernels/interpodaffinity.py:
 ``prepare`` counts and expands through K9, the dedup engine folds
 ``filter`` into K1's bit plane through K10 and ``score`` + ``normalize``
 into K2's total through K11, and ``update_batch_classes`` runs K12 once per
-auction round.  The hooks of the scan, the full engine and the deep
-pipeline (``update``, ``update_batch``, ``chain_prev``, ``filter_row``,
-``score_row``) wait for those engines.
+auction round; the deep pipeline's ``chain_prev`` folds a still-in-flight
+batch's placements in through K15.  The hooks of the scan and the full
+engine (``update``, ``update_batch``, ``filter_row``, ``score_row``) wait
+for those engines.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from ..framework.events import ActionType, ClusterEvent, EventResource
 from ..framework.interface import Plugin
 from ..framework.podbatch import AFFINITY_GROUPS
 from ..kernels.interpodaffinity import (
+    OwnTerms,
+    ipa_chain_prev,
     ipa_existing_planes,
     ipa_filter_bits,
     ipa_filter_plane,
@@ -288,6 +291,55 @@ class InterPodAffinityPlugin(Plugin):
             return None
         return ipa_update_classes(aux, commit, choice, class_of)
 
+    # --- the deep pipeline (K15) -------------------------------------------------
+
+    def chain_prev(self, aux: IPAAux, batch, snap, prev):
+        """Fold a still-in-flight batch's placements (``prev``, a
+        runtime.PrevBatch with its device-resident node rows) into the class
+        view's state, as if those pods were already in the snapshot (the
+        reference's chain_prev, interpodaffinity.py:533-670), in two halves:
+        (i) this batch's term groups against the prev pods' labels bump the
+        counts (and ``aff_total``) at the domain of each placed prev pod's
+        node; (ii) the prev pods' own terms block (required anti-affinity)
+        or score this batch's matching classes on every node that shares
+        the term's raw topology value at the prev pod's node.  A carry
+        without term groups (the dispatching batch has no affinity content,
+        or the chain is off) leaves the aux as it is — the reference's
+        static gate.  New tensors; the aux passed in is unchanged."""
+        if aux is None:
+            return None
+        if prev.req_anti_affinity is None:
+            return aux
+        num = snap.numeric
+        counts = {}
+        if self._present(batch, "req_affinity"):
+            g = batch.req_affinity
+            m = self._match_vs(g, prev.label_keys, prev.label_vals, prev.ns, num)
+            x_all = (m | ~g.valid[:, :, None]).all(dim=1) & g.valid.any(dim=1)[:, None]
+            counts["req_affinity"] = x_all[:, None, :] & g.valid[:, :, None]
+        for name in ("req_anti_affinity", "pref_affinity", "pref_anti_affinity"):
+            if self._present(batch, name):
+                counts[name] = self._match_vs(getattr(batch, name), prev.label_keys,
+                                              prev.label_vals, prev.ns, num)
+        own = []
+
+        def terms(name, block, weight, w_scalar, sign):
+            # a prev group without a valid term matches nothing: skip it
+            if name not in prev.group_present:
+                return
+            pg = getattr(prev, name)
+            mm = self._match_vs(pg, batch.label_keys, batch.label_vals, batch.ns, num)
+            own.append(OwnTerms(block, mm, pg.topo_key, pg.valid, weight, w_scalar, sign))
+
+        terms("req_anti_affinity", True, None, 0.0, 1.0)
+        if self.hard_weight > 0:
+            terms("req_affinity", False, None, self.hard_weight, 1.0)
+        terms("pref_affinity", False, prev.pref_affinity.weight, 0.0, 1.0)
+        terms("pref_anti_affinity", False, prev.pref_anti_affinity.weight, 0.0, -1.0)
+        rows = torch.where(prev.valid, prev.rows, -1)
+        return aux._replace(**ipa_chain_prev(aux, counts, own, rows, snap.node_topo,
+                                             MISSING))
+
     # --- hooks of engines not ported yet --------------------------------------
 
     def update(self, aux, i, node_row, batch, snap):
@@ -295,9 +347,6 @@ class InterPodAffinityPlugin(Plugin):
 
     def update_batch(self, aux, commit, choice, u, batch, snap):
         _not_ported("update_batch", "the full auction (ROADMAP Queue A item 6, Queue B B8)")
-
-    def chain_prev(self, aux, batch, snap, prev):
-        _not_ported("chain_prev", "pipeline=True (ROADMAP Queue A item 5)")
 
     def filter_row(self, batch, snap, dyn, aux, i):
         _not_ported("filter_row", "the exact scan (ROADMAP Queue A item 6, Queue B B9)")

@@ -17,9 +17,10 @@ nodes without the key) over the batch's domain bucket
 in kernels/spread.py: ``prepare`` builds its tables through K5, the
 dedup engine folds ``filter`` into K1's bit plane through K6 and
 ``score`` + ``normalize`` into K2's total through K7, and
-``update_batch_classes`` runs K8 once per auction round.  The hooks of the
-scan, the full engine and the deep pipeline (``update``, ``update_batch``,
-``chain_prev``, ``filter_row``, ``score_row``) wait for those engines.
+``update_batch_classes`` runs K8 once per auction round; the deep
+pipeline's ``chain_prev`` folds a still-in-flight batch's placements in
+through K14.  The hooks of the scan and the full engine (``update``,
+``update_batch``, ``filter_row``, ``score_row``) wait for those engines.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ..kernels.spread import (
     spread_normalize,
     spread_prepare_counts,
     spread_raw_plane,
+    spread_chain_prev,
     spread_score_combine,
     spread_update_classes,
 )
@@ -196,6 +198,23 @@ class PodTopologySpreadPlugin(Plugin):
         spread_update_classes(aux, commit, choice, class_of)
         return aux
 
+    # --- the deep pipeline (K14) ------------------------------------------------
+
+    def chain_prev(self, aux: TSAux, batch, snap, prev):
+        """Fold a still-in-flight batch's placements (``prev``, a
+        runtime.PrevBatch with its device-resident node rows) into the count
+        tables, as if those pods were already in the snapshot (the
+        reference's chain_prev, podtopologyspread.py:306-339): this batch's
+        constraint selectors against the prev pods' labels (same namespace)
+        count where the prev pod's node counts.  New tables; the aux passed
+        in is unchanged."""
+        if aux is None:
+            return None
+        match = self._selector_vs_pods(batch, prev.label_keys, prev.label_vals, prev.ns,
+                                       snap.numeric)
+        hard, soft = spread_chain_prev(aux, match, prev.rows, prev.valid)
+        return aux._replace(hard_counts=hard, soft_counts=soft)
+
     # --- hooks of engines not ported yet --------------------------------------
 
     def update(self, aux, i, node_row, batch, snap):
@@ -204,9 +223,6 @@ class PodTopologySpreadPlugin(Plugin):
     def update_batch(self, aux, commit, choice, u, batch, snap):
         _not_ported("update_batch",
                     "the full auction (ROADMAP Queue A item 6, Queue B B8)")
-
-    def chain_prev(self, aux, batch, snap, prev):
-        _not_ported("chain_prev", "pipeline=True (ROADMAP Queue A item 5)")
 
     def filter_row(self, batch, snap, dyn, aux, i):
         _not_ported("filter_row", "the exact scan (ROADMAP Queue A item 6, Queue B B9)")

@@ -1,44 +1,66 @@
-"""TorchScheduler: the synchronous end-to-end scheduling loop on the port.
+"""TorchScheduler: the end-to-end scheduling loop on the port, synchronous or
+pipelined.
 
-Reference: the JAX package's TPUScheduler with ``pipeline=False`` and no
-tie noise (scheduler.py: watch handlers :705-800, schedule_cycle, the
-engine routing ``engine_choice`` :2679 with its parallel-safety test
-``_class_parallel_safe`` :2819 and its dedup gate ``_dedup_classes`` :2596,
-the host half ``host_prepare`` :1645 with ``_host_aux_take`` :138, the
-fused dedup cycle ``fused_batch`` :969-1017, bind :3461, run_until_idle
-:3777), itself after
-pkg/scheduler/scheduler.go (scheduleOne :496, assume :424, bind :446) and
-eventhandlers.go (addAllEventHandlers :251).
+Reference: the JAX package's TPUScheduler with no tie noise (scheduler.py:
+watch handlers :705-800, the pipelined ``schedule_cycle`` :1066-1221 with
+``_InFlight`` :239, ``_SyncAhead`` :325, the overlapped sync :1319-1453,
+the micro-bucket policy :1455-1520, ``_dispatch_batch`` and ``_bg_fetch``
+:1522-1967, ``_complete`` :1969, the bind phase :2058 with the per-tier
+latency profile :2355-2378, the engine routing ``engine_choice`` :2679 with
+its parallel-safety test ``_class_parallel_safe`` :2819 and its dedup gate
+``_dedup_classes`` :2596, the host half ``host_prepare`` :1645 with
+``_host_aux_take`` :138, the fused dedup cycle ``fused_batch`` :969-1017
+with ``apply_prev_delta`` :897, ``_infos_block_deep`` :3523, run_until_idle
+:3777), itself after pkg/scheduler/scheduler.go (scheduleOne :496, assume
+:424, bind :446, the async binding goroutine :623) and eventhandlers.go
+(addAllEventHandlers :251).
 
-One cycle: pop ≤ B → cache snapshot → encoder sync (with the existing-pod
-affinity index) → batch compile → host_prepare (InterPodAffinity's
-existing-pod match matrix) → conflict partition + engine routing +
-identity-class dedup gate → the fused cycle on the device (apply_scatter,
-the dynamic plugins' class state — PodTopologySpread's count tables,
-InterPodAffinity's count planes or tables and existing-pod planes —, the
-dedup engine's rounds through the kernels, gang all-or-nothing, diagnosis
-bits, pack) → one [3, B] fetch → assume → bind through the store → requeue
-the unschedulable pods with backoff.  Bindings equal the JAX scheduler's,
-pod for pod.  Topology-spread pods and pod (anti)affinity pods (required
-and preferred, and scheduled pods carrying such terms) are in scope: a
-self-matching class whose commits change its own planes unevenly is one
-coupled component, so the dedup engine commits one of its pods per round.
+One dispatch: cache snapshot → encoder sync (with the existing-pod affinity
+index) → batch compile → host_prepare (InterPodAffinity's existing-pod match
+matrix) → conflict partition + engine routing + identity-class dedup gate →
+the fused cycle on the device (apply_scatter through K16, the in-flight
+batches' resource delta through K13, the dynamic plugins' class state —
+PodTopologySpread's count tables, InterPodAffinity's count planes or tables
+and existing-pod planes — with the in-flight batches chained in through
+K14 / K15, the dedup engine's rounds through the kernels, gang
+all-or-nothing, diagnosis bits, pack) → one [3, B] fetch → assume → bind
+through the store → requeue the unschedulable pods with backoff.
+Topology-spread pods and pod (anti)affinity pods (required and preferred,
+and scheduled pods carrying such terms) are in scope: a self-matching class
+whose commits change its own planes unevenly is one coupled component, so
+the dedup engine commits one of its pods per round.
+
+``pipeline=False`` dispatches, completes and binds each batch within one
+``schedule_cycle``.  ``pipeline=True`` keeps up to ``pipeline_depth``
+batches in flight: a batch whose pods carry nothing the chain cannot carry
+dispatches before the newest in-flight batches are fetched, their
+device-resident decisions feeding its cycle as resource deltas and chained
+plugin tables; older batches complete (fetch + assume) before the dispatch
+and bind after it; the next dispatch's snapshot and encoder sync run on a
+background thread meanwhile (``overlap_sync``); and with
+``latency_target_ms`` a chainable batch dispatches at the largest pow-2
+sub-bucket whose measured attempt latency fits the target.  The port's
+dispatch is not asynchronous — the dedup engine reads its loop condition on
+the host every round (ROADMAP Queue B B5) — so the pipeline overlaps host
+work only: the background sync, the fetch and the binds.  Bindings equal
+the JAX scheduler's, pod for pod, in both modes and at every depth.
 
 Scope guard: a batch or cluster that needs anything outside the port —
-gang members, volumes, resource claims, extenders, profiles,
-``pipeline=True``, a batch the reference routes to its full auction (too
-heterogeneous for the dedup engine, or coupled with a pod that could
-preempt) or to its exact scan, a batch larger than the auction kernel's one
-block on cuda, or a failing pod that could preempt — raises
-NotImplementedError naming the ROADMAP item.  It never gives a silently
-different answer.
+gang members, volumes, resource claims, extenders, profiles, a batch the
+reference routes to its full auction (too heterogeneous for the dedup
+engine, or coupled with a pod that could preempt) or to its exact scan, a
+batch larger than the auction kernel's one block on cuda, or a failing pod
+that could preempt (a chained batch defers that to the pod's retry, as the
+reference does) — raises NotImplementedError naming the ROADMAP item.
+It never gives a silently different answer.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Set
+from typing import Dict, List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -51,21 +73,30 @@ from .api.labels import affinity_term_matches, match_label_selector
 from .framework.conflict import conflict_components
 from .framework.events import ActionType, ClusterEvent, EventResource
 from .framework.interface import PluginWithWeight
-from .framework.podbatch import PodBatchCompiler, batch_to_device, identity_classes
+from .framework.podbatch import (
+    AFFINITY_GROUPS,
+    PodBatchCompiler,
+    batch_to_device,
+    identity_classes,
+)
 from .framework.runtime import (
     BatchedFramework,
+    PrevBatch,
+    apply_prev_delta,
     coupling_flags,
     diagnose_bits_from_plane,
     initial_dynamic_state,
     pack_diag,
 )
 from .gang import POD_GROUP_LABEL, gang_all_or_nothing
+from .kernels import build as kernel_build
 from .queueing import PriorityQueue
 from .queueing.priority_queue import QueuedPodInfo
 from .sim.store import ADDED, DELETED, MODIFIED, ObjectStore, WatchEvent
 from .state.cache import Cache, Snapshot
 from .state.dictionary import MISSING
 from .state.encoding import ClusterEncoder, apply_scatter
+from .state.node_info import _pod_host_ports
 from .state.units import pow2_round_up as _pow2
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"  # apis/config v1.Pod default
@@ -103,6 +134,7 @@ class CycleStats:
     scheduled: int = 0
     unschedulable: int = 0
     batch_seconds: float = 0.0
+    in_flight: int = 0  # pods dispatched whose batch is not bound yet
 
 
 def _unpack_diag(bits: np.ndarray, n_filters: int) -> np.ndarray:
@@ -137,6 +169,88 @@ def _pod_out_of_scope(p: v1.Pod) -> Optional[str]:
     return None
 
 
+def _pod_blocks_static(p: v1.Pod) -> bool:
+    """Constraints the deep chain cannot carry (the reference's
+    _pod_blocks_static, scheduler.py:202): host ports and volumes live in
+    host-side structures updated at assume time, and gang members hold
+    Permit state.  Topology spread and pod (anti)affinity chain through
+    the plugins' ``chain_prev`` hooks."""
+    return bool(_pod_host_ports(p) or getattr(p.spec, "volumes", None)
+                or POD_GROUP_LABEL in p.metadata.labels)
+
+
+def _pods_block_deep(pods: Sequence[v1.Pod]) -> bool:
+    """Any pod the deep chain cannot carry, counting every pod that could
+    preempt (the reference's _pods_block_deep, scheduler.py:171; the
+    scheduler's own gate, ``_infos_block_deep``, refines the preemption
+    rule)."""
+    return any(_pod_blocks_static(p)
+               or ((p.spec.priority or 0) > 0 and p.spec.preemption_policy != "Never")
+               for p in pods)
+
+
+def _pod_has_affinity(p: v1.Pod) -> bool:
+    """Any pod (anti)affinity term — agrees with PodBatch.has_affinity (the
+    reference's _pod_has_affinity, scheduler.py:220)."""
+    aff = p.spec.affinity
+    if aff is None:
+        return False
+    pa, paa = aff.pod_affinity, aff.pod_anti_affinity
+    return bool(pa and (pa.required or pa.preferred)) or bool(
+        paa and (paa.required or paa.preferred))
+
+
+@dataclass
+class _InFlight:
+    """One dispatched batch awaiting fetch and bind (the reference's
+    _InFlight, scheduler.py:239)."""
+
+    infos: List[QueuedPodInfo]
+    batch: object  # the compiled PodBatch (host)
+    dbatch: object  # its device copy: the chain's carry reads it
+    node_row_dev: torch.Tensor  # i32[B] decisions, on the device
+    packed_dev: torch.Tensor  # i32[3, B] node_row / diagnosis bits / rounds
+    t0: float  # clock() at the dispatch's start
+    cycle: int
+    # row → node name at dispatch: a later sync may reuse a deleted node's row
+    name_of: Dict[int, str]
+    # carries something the deep chain cannot: the next dispatch completes
+    # this batch first
+    interacts: bool = True
+    node_del_gen: int = -1  # the scheduler's node-delete generation at dispatch
+    chained: bool = False  # dispatched on in-flight carries
+    carried: int = 0  # later dispatches that chained on this batch
+    has_aff: bool = False  # carries pod (anti)affinity terms
+    builds0: int = 0  # kernel builds before the dispatch (kernels/build.BUILDS)
+    # the fetch: a non_blocking copy into pinned memory and the event that
+    # marks it done, polled by the background thread (_bg_fetch)
+    fetch_event: object = None
+    fetch_thread: object = None
+    pinned: object = None
+    fetched: Optional[np.ndarray] = None  # the packed [3, B] on the host
+    fetched_at: float = 0.0  # clock() when the result reached the host
+    node_names: Optional[List[Optional[str]]] = None  # resolved at _complete
+    diag: Optional[np.ndarray] = None  # bool[B, K], unpacked at _complete
+
+
+@dataclass
+class _SyncAhead:
+    """The overlapped snapshot/sync hand-off (the reference's _SyncAhead,
+    scheduler.py:325): one background build of the next dispatch's encoder
+    sync and deferred-scatter payload.  The record carries everything
+    across the thread seam; _complete joins the thread before any assume
+    and the next dispatch consumes or discards the payload."""
+
+    thread: object = None
+    dsnap: object = None
+    upd: object = None
+    consumed: object = None  # dirty rows the payload took (capture_dirty)
+    node_del_gen: int = -1  # a node delete after the capture voids the payload
+    dic_len: int = -1
+    error: object = None
+    wall: float = 0.0  # the thread's wall, folded into phase_wall at the join
+
+
 def _host_aux_take(fw, host_auxes, rows):
     """The identity-class rep view of the host auxes (the reference's
     _host_aux_take, scheduler.py:138): a plugin with a pod-indexed host aux
@@ -155,7 +269,7 @@ def _host_aux_take(fw, host_auxes, rows):
 
 
 class TorchScheduler:
-    """The synchronous scheduling loop over the port (see the module doc)."""
+    """The scheduling loop over the port (see the module doc)."""
 
     _KIND_RESOURCE = {
         "PersistentVolumeClaim": EventResource.PVC,
@@ -183,13 +297,13 @@ class TorchScheduler:
         batch_wait: float = 0.5,
         device="cuda",
         pipeline: bool = False,
+        pipeline_depth: int = 3,
+        chain_affinity: object = "auto",
+        overlap_sync: object = "auto",
+        latency_target_ms: Optional[float] = None,
         extenders: Optional[List] = None,
         profiles: Optional[Dict[str, object]] = None,
     ):
-        if pipeline:
-            raise NotImplementedError(
-                "pipeline=True (deep-chained dispatch) is not ported yet "
-                "(ROADMAP Queue A item 5)")
         if extenders:
             raise NotImplementedError(
                 "scheduler extenders are not ported yet (ROADMAP Queue A item 6)")
@@ -201,7 +315,38 @@ class TorchScheduler:
                 f"batch_size={batch_size} on cuda: the auction kernel runs one "
                 "block of at most 1024 pods; larger batches wait for the "
                 "multi-block auction (ROADMAP Queue B B5)")
+        # the fused cycle carries at most two in-flight batches
+        if not 1 <= pipeline_depth <= 3:
+            raise ValueError(f"pipeline_depth must be 1..3, got {pipeline_depth}")
         self.device = resolve_device(device)
+        self.pipeline = pipeline
+        self.pipeline_depth = pipeline_depth
+        # chain affinity batches on the card (the reference: on any backend
+        # but its CPU one); on the CPU the chain still runs while the last
+        # dispatch deduped (_chain_affinity_now)
+        if chain_affinity == "auto":
+            chain_affinity = self.device.type == "cuda"
+        self.chain_affinity = bool(chain_affinity)
+        self._last_dedup = False
+        # the next dispatch's sync on a background thread: on exactly when
+        # the pipeline is (a synchronous cycle would join it at once)
+        if overlap_sync == "auto":
+            overlap_sync = pipeline
+        self.overlap_sync = bool(overlap_sync)
+        self._sync_ahead: Optional[_SyncAhead] = None
+        self._unconsumed_prep: Optional[_SyncAhead] = None
+        # what became of each background payload at its dispatch (the
+        # reference's sync_overlap counter labels): used as built, rebuilt
+        # from the live mirrors after later changes, or voided by a node delete
+        self.sync_overlap_counts: Dict[str, int] = {
+            "reused": 0, "merged": 0, "fallback_node_delete": 0}
+        # micro-bucket dispatch: None = every cycle pads to batch_size
+        self.latency_target_ms = latency_target_ms
+        self._forced_bucket: Optional[int] = None  # the harness's warm override
+        # pad tier → EMA of the batch's largest attempt latency (seconds)
+        self._tier_p99: Dict[int, float] = {}
+        self._inflight_q: List[_InFlight] = []  # oldest first
+        self._node_del_gen = 0  # bumped on node DELETE (deep-chain gate)
         self.store = store
         self.clock = clock
         self.batch_size = batch_size
@@ -223,24 +368,31 @@ class TorchScheduler:
             pod_initial_backoff=pod_initial_backoff,
             pod_max_backoff=pod_max_backoff,
         )
-        # host-vs-device wall per phase (seconds, summed over cycles):
-        # "host_prepare" is the plugins' host halves (InterPodAffinity's
-        # existing-pod match matrix); "partition" is the conflict partition,
-        # the engine routing and the dedup gate; "device" brackets the fused
-        # cycle from the first upload to the [3, B] fetch, which
-        # synchronises with the card
+        # wall per phase (seconds, summed over cycles): "host_prepare" is the
+        # plugins' host halves (InterPodAffinity's existing-pod match matrix);
+        # "partition" is the conflict partition, the engine routing and the
+        # dedup gate; "device" brackets the fused cycle from the first upload
+        # to the [3, B] result on the card (the round loop syncs with it);
+        # "fetch" is the wait for that result at completion; "queue_wait" the
+        # hold for a backoff wave; "sync_overlap" the background sync's wall
+        # — off the critical path, not part of any cycle's wall
         self.phase_wall: Dict[str, float] = {
             k: 0.0 for k in ("snapshot", "compile", "host_prepare", "partition", "device",
-                             "bind")}
+                             "fetch", "bind", "queue_wait", "sync_overlap")}
         self.cycles = 0
         self.rounds_total = 0
         # host wall spent in the dedup engine's per-round read of its loop
         # condition (seconds, summed over cycles; part of "device")
         self.round_read_s = 0.0
-        # per-pod attempt latency (seconds, wall clock): from the cycle's
-        # start (after the pop) to the pod's own bind or requeue
+        # per-pod attempt latency (seconds, on ``clock``): the batch's
+        # algorithm time (dispatch start → result on the host) plus the
+        # pod's own bind or requeue segment, as the reference measures it
         self.attempt_seconds: List[float] = []
-        store.watch(self._on_event)
+        # placed pods that reached later dispatches as carries, counted once
+        # per dispatch that chained on them (known at their completion)
+        self.carried_pods = 0
+        self.chained_dispatches = 0  # dispatches that chained on in-flight batches
+        self._unwatch = store.watch(self._on_event)
 
     def _framework(self) -> BatchedFramework:
         """The framework for the encoder's current domain_cap, rebuilt when
@@ -297,6 +449,9 @@ class TorchScheduler:
             self.queue.move_all_to_active_or_backoff(
                 ClusterEvent(EventResource.NODE, action))
         elif ev.type == DELETED:
+            # a delete can free an encoder row the next sync reuses: an
+            # in-flight carry's rows would then charge the wrong node
+            self._node_del_gen += 1
             self.cache.remove_node(node.metadata.name)
             self.queue.move_all_to_active_or_backoff(fwk_events.NODE_DELETE)
 
@@ -346,68 +501,391 @@ class TorchScheduler:
     # --- the scheduling cycle ----------------------------------------------------
 
     def schedule_cycle(self) -> CycleStats:
-        """One synchronous cycle: dispatch, fetch, assume, bind."""
+        """One step (the reference's schedule_cycle, scheduler.py:1066-1221).
+
+        Synchronous mode dispatches, completes and binds one batch.  In
+        pipelined mode the popped batch may chain on the newest in-flight
+        batches (the tail): every older in-flight batch completes (fetch +
+        assume) first, the new batch dispatches, then the completed batches
+        bind and the next dispatch's sync starts on a background thread."""
+        inflight = self._inflight_q
         stats = CycleStats()
         if self.batch_wait > 0:
             self._await_backoff_wave()
         infos = self.queue.pop_batch(
             self.batch_size,
             group_key=lambda qi: qi.pod.spec.scheduler_name or DEFAULT_SCHEDULER_NAME)
-        if not infos:
-            return stats
         for qi in infos:
             why = _pod_out_of_scope(qi.pod)
             if why is not None:
                 raise NotImplementedError(
                     f"pod {qi.pod.key()} needs {why}: outside this slice")
-        t0 = self.clock()
-        self._cycle_start = time.perf_counter()
-        cycle = self.queue.scheduling_cycle()
-        node_row, diag = self._dispatch(infos)
-        stats.batch_seconds = self.clock() - t0
-        self._complete(infos, node_row)
-        s = self._bind_phase(infos, node_row, diag, cycle)
-        stats.attempted = s.attempted
-        stats.scheduled = s.scheduled
-        stats.unschedulable = s.unschedulable
-        stats.batch_seconds = self.clock() - t0
-        self.cycles += 1
+        next_interacts = self._infos_block_deep(infos) if infos else True
+        pad = self._pick_bucket(infos, next_interacts)
+        if len(infos) > pad:
+            self.queue.put_back(infos[pad:])
+            infos = infos[:pad]
+        tail = self._chain_tail(infos, next_interacts, pad)
+        completed = []
+        while len(inflight) > tail:
+            fl = inflight.pop(0)
+            completed.append((fl, self._complete(fl)))
+        nxt = None
+        if infos:
+            nxt = self._dispatch(infos, prevs=inflight[len(inflight) - tail:],
+                                 interacts=next_interacts, pad=pad)
+            self.cycles += 1
+        for fl, node_row in completed:  # the binds follow the new dispatch
+            self._merge(stats, self._bind_phase(fl, node_row))
+        if nxt is not None:
+            if self.pipeline:
+                inflight.append(nxt)
+            else:
+                self._merge(stats, self._bind_phase(nxt, self._complete(nxt)))
+        stats.in_flight = sum(len(fl.infos) for fl in inflight)
+        # the next dispatch's sync, after every cache write of this cycle
+        if self.overlap_sync and (inflight or stats.attempted):
+            self._spawn_sync_ahead()
         return stats
 
-    def _dispatch(self, infos: List[QueuedPodInfo]):
-        t0 = time.perf_counter()
+    @staticmethod
+    def _merge(total: CycleStats, s: CycleStats) -> None:
+        total.attempted += s.attempted
+        total.scheduled += s.scheduled
+        total.unschedulable += s.unschedulable
+        total.batch_seconds += s.batch_seconds
+
+    def _chain_tail(self, infos, interacts: bool, pad: int) -> int:
+        """How many of the newest in-flight batches this dispatch chains on
+        (the reference's tail rules, scheduler.py:1126-1149): none when not
+        pipelined or when the batch carries something the chain cannot;
+        else up to depth − 1 (1 for a sub-bucket), stopping at a batch that
+        interacts, an affinity batch under a batch without affinity content
+        (its terms would have no tables to land in), a batch dispatched
+        before a node delete, or one of another pad tier."""
+        if not (infos and self.pipeline) or interacts:
+            return 0
+        has_aff = any(_pod_has_affinity(qi.pod) for qi in infos)
+        limit = 1 if pad < self.batch_size else self.pipeline_depth - 1
+        tail = 0
+        for fl in reversed(self._inflight_q):
+            if (tail >= limit or fl.interacts or (fl.has_aff and not has_aff)
+                    or fl.node_del_gen != self._node_del_gen
+                    or fl.batch.size != pad):
+                break
+            tail += 1
+        return tail
+
+    @property
+    def _chain_affinity_now(self) -> bool:
+        """May affinity batches deep-chain now?  On the card always; on the
+        CPU while the last dispatch deduped (the reference's
+        _chain_affinity_now, scheduler.py:849).  Either way the chain is
+        exact; the gate only decides whether it runs."""
+        return self.chain_affinity or self._last_dedup
+
+    def _infos_block_deep(self, infos: List[QueuedPodInfo]) -> bool:
+        """Must this batch complete the in-flight batches before it
+        dispatches (the reference's _infos_block_deep, scheduler.py:3523)?
+        Yes for a pod the chain cannot carry, for an affinity pod while the
+        affinity chain is off, and for a pod that could preempt and is
+        likely to: a retry, or one that fits no node of the current
+        snapshot."""
+        preempt_qis: List[QueuedPodInfo] = []
+        for qi in infos:
+            p = qi.pod
+            if _pod_blocks_static(p):
+                return True
+            if not self._chain_affinity_now and _pod_has_affinity(p):
+                return True
+            if (p.spec.priority or 0) > 0 and p.spec.preemption_policy != "Never":
+                if qi.attempts > 1 or qi.unschedulable_plugins:
+                    return True
+                preempt_qis.append(qi)
+        if not preempt_qis:
+            return False
+        if not self.pipeline:
+            return True
+        self._join_sync_ahead()  # the fit scan reads the encoder's mirrors
+        enc = self.encoder
+        valid = np.asarray(enc.node_valid)
+        free = enc.allocatable[valid].astype(np.int64) - enc.requested[valid]
+        seen_fit: Dict[bytes, bool] = {}
+        for qi in preempt_qis:
+            req = np.asarray(enc.pod_request_units(qi.pod))
+            key = req.tobytes()
+            fit = seen_fit.get(key)
+            if fit is None:
+                fit = bool(np.any(np.all((req == 0) | (req[None, :] <= free), axis=1)))
+                seen_fit[key] = fit
+            if not fit:
+                return True
+        return False
+
+    # --- micro-bucket dispatch ------------------------------------------------------
+
+    def bucket_tiers(self) -> List[int]:
+        """Pow-2 sub-bucket pads below batch_size, largest first, down to
+        max(16, batch_size / 16) (the reference's bucket_tiers)."""
+        out: List[int] = []
+        t = _pow2(self.batch_size, 1) // 2
+        floor = max(16, self.batch_size // 16)
+        while t >= floor:
+            out.append(t)
+            t //= 2
+        return out
+
+    def _pick_bucket(self, infos, interacts: bool) -> int:
+        """This cycle's dispatch pad (the reference's _pick_bucket):
+        batch_size unless the micro-bucket policy is armed and the batch
+        can ride the chain; ``_forced_bucket`` overrides (warms)."""
+        if self._forced_bucket:
+            return max(1, min(self._forced_bucket, self.batch_size))
+        if self.latency_target_ms is None or not infos or interacts or not self.pipeline:
+            return self.batch_size
+        return self._bucket_from_latency()
+
+    def _bucket_from_latency(self) -> int:
+        """The largest profiled tier whose latency EMA fits 90% of the
+        target (the full batch predicted at twice its largest sub-tier);
+        when every profiled tier overruns, one unprofiled tier below the
+        smallest (the reference's _bucket_from_latency)."""
+        b = self.batch_size
+        prof = self._tier_p99
+        if not prof:
+            return b
+        tgt = self.latency_target_ms / 1e3
+        cand = dict(prof)
+        if b not in cand:
+            t = max(cand)
+            if 2 * t >= _pow2(b, 1):
+                cand[b] = 2.0 * cand[t]
+        fit = [t for t, p in cand.items() if p <= 0.9 * tgt]
+        if fit:
+            return max(fit)
+        lower = [t for t in self.bucket_tiers() if t < min(prof)]
+        return max(lower) if lower else min(prof)
+
+    # --- the overlapped sync ------------------------------------------------------
+
+    def _spawn_sync_ahead(self) -> None:
+        """Start the next dispatch's snapshot sync off the critical path
+        (the reference's _spawn_sync_ahead): the cache diff runs here, the
+        encoder sync and the deferred-scatter build on a thread."""
+        if not self.overlap_sync or self._sync_ahead is not None:
+            return
+        rec = _SyncAhead()
         changed = self.cache.update_snapshot(self.snapshot)
-        self.encoder.sync(self.snapshot, changed)
-        t1 = time.perf_counter()
-        pods = [qi.pod for qi in infos]
-        batch = self.compiler.compile(pods, pad_to=self.batch_size)
-        t_hp = time.perf_counter()
-        fw = self._framework()
-        host_auxes = fw.host_prepare(batch, self.snapshot, self.encoder,
-                                     namespace_labels=self.namespace_labels)
-        t2 = time.perf_counter()
-        mode, coupling, _info = self.engine_choice(batch)
-        if mode == "scan":
-            raise NotImplementedError(
-                "the reference routes this batch to its exact serial scan "
-                "(greedy_assign), which is not ported yet (ROADMAP Queue A "
-                "item 6, Queue B B9)")
-        class_of, rep_rows, why = self._dedup_classes(batch, host_auxes)
-        if class_of is None:
-            raise NotImplementedError(
-                f"{why}: the reference takes its full (non-dedup) assignment "
-                "engine, which is not ported yet (ROADMAP Queue A item 6, "
-                "Queue B B8)")
-        t3 = time.perf_counter()
-        packed = self._fused_cycle(batch, class_of, rep_rows, coupling, host_auxes)
+        rec.node_del_gen = self._node_del_gen
+
+        def _run():
+            t_s = time.perf_counter()
+            try:
+                self.encoder.sync(self.snapshot, changed)
+                rec.consumed = self.encoder.capture_dirty()
+                rec.dsnap, rec.upd = self.encoder.to_device_deferred(consume_force=False)
+                rec.dic_len = len(self.encoder.dic)
+            except Exception as e:  # raised again at the next dispatch
+                rec.error = e
+            rec.wall = time.perf_counter() - t_s
+
+        rec.thread = threading.Thread(target=_run, daemon=True)
+        self._sync_ahead = rec
+        rec.thread.start()
+
+    def _join_sync_ahead(self) -> None:
+        rec = self._sync_ahead
+        if rec is not None and rec.thread is not None:
+            rec.thread.join()
+            rec.thread = None
+            self.phase_wall["sync_overlap"] += rec.wall
+            rec.wall = 0.0
+
+    def _take_sync_ahead(self) -> Optional[_SyncAhead]:
+        """Join and take the background sync at dispatch: the record, or
+        None when none ran or a node delete landed after its capture (the
+        payload is then folded back and the dispatch syncs itself)."""
+        self._join_sync_ahead()
+        rec, self._sync_ahead = self._sync_ahead, None
+        if rec is None:
+            return None
+        if rec.error is not None:
+            raise rec.error
+        if rec.node_del_gen != self._node_del_gen:
+            if rec.upd is not None:
+                self.encoder.restore_dirty(rec.consumed)
+            self.sync_overlap_counts["fallback_node_delete"] += 1
+            return None
+        self._unconsumed_prep = rec
+        return rec
+
+    def _discard_prep(self) -> None:
+        """A dispatch that died between taking the payload and using it
+        folds the payload's rows back."""
+        prep, self._unconsumed_prep = self._unconsumed_prep, None
+        if prep is not None and prep.upd is not None:
+            self.encoder.restore_dirty(prep.consumed)
+
+    def _deferred_snapshot(self, prep: Optional[_SyncAhead]):
+        """The dispatch-time deferred upload (the reference's
+        _deferred_snapshot): the background payload as it is when nothing
+        changed since its capture, else its rows folded back and the
+        payload rebuilt from the live mirrors."""
+        enc = self.encoder
+        self._unconsumed_prep = None
+        if prep is None:
+            return enc.to_device_deferred()
+        if not enc.has_dirty() and len(enc.dic) == prep.dic_len \
+                and not enc._force_full_once:
+            self.sync_overlap_counts["reused"] += 1
+            return prep.dsnap, prep.upd
+        if prep.upd is not None:
+            enc.restore_dirty(prep.consumed)
+        self.sync_overlap_counts["merged"] += 1
+        return enc.to_device_deferred()
+
+    # --- dispatch ---------------------------------------------------------------
+
+    def _dispatch(self, infos: List[QueuedPodInfo], prevs: Sequence[_InFlight] = (),
+                  interacts: bool = True, pad: Optional[int] = None) -> _InFlight:
+        """Snapshot → compile → routing → the fused cycle on the device; the
+        [3, B] result is fetched in the background (the reference's
+        _dispatch_batch with _bg_fetch, scheduler.py:1522-1967).  ``prevs``
+        are the chained in-flight batches, oldest first."""
+        t0 = time.perf_counter()
+        t0_clk = self.clock()
+        builds0 = kernel_build.BUILDS
+        cycle = self.queue.scheduling_cycle()
+        pad = pad or self.batch_size
+        prep = self._take_sync_ahead() if self.overlap_sync else None
+        try:
+            changed = self.cache.update_snapshot(self.snapshot)
+            self.encoder.sync(self.snapshot, changed)
+            t1 = time.perf_counter()
+            pods = [qi.pod for qi in infos]
+            batch = self.compiler.compile(pods, pad_to=pad)
+            t_hp = time.perf_counter()
+            fw = self._framework()
+            host_auxes = fw.host_prepare(batch, self.snapshot, self.encoder,
+                                         namespace_labels=self.namespace_labels)
+            t2 = time.perf_counter()
+            carries = self._carries(prevs, batch)
+            mode, coupling, _info = self.engine_choice(batch)
+            if mode == "scan":
+                raise NotImplementedError(
+                    "the reference routes this batch to its exact serial scan "
+                    "(greedy_assign), which is not ported yet (ROADMAP Queue A "
+                    "item 6, Queue B B9)")
+            class_of, rep_rows, why = self._dedup_classes(batch, host_auxes)
+            self._last_dedup = class_of is not None
+            if class_of is None:
+                raise NotImplementedError(
+                    f"{why}: the reference takes its full (non-dedup) assignment "
+                    "engine, which is not ported yet (ROADMAP Queue A item 6, "
+                    "Queue B B8)")
+            t3 = time.perf_counter()
+            dsnap, upd = self._deferred_snapshot(prep)
+        except Exception:
+            self._discard_prep()
+            raise
+        node_row, packed, dbatch = self._fused_cycle(
+            batch, class_of, rep_rows, coupling, host_auxes, dsnap, upd, carries)
+        self.chained_dispatches += bool(carries)
+        fl = _InFlight(infos=infos, batch=batch, dbatch=dbatch, node_row_dev=node_row,
+                       packed_dev=packed, t0=t0_clk, cycle=cycle,
+                       name_of=dict(self.encoder.row_to_name()), interacts=interacts,
+                       node_del_gen=self._node_del_gen, chained=bool(carries),
+                       has_aff=bool(batch.has_affinity), builds0=builds0)
+        self._start_fetch(fl)
         t4 = time.perf_counter()
         self.phase_wall["snapshot"] += t1 - t0
         self.phase_wall["compile"] += t_hp - t1
         self.phase_wall["host_prepare"] += t2 - t_hp
         self.phase_wall["partition"] += t3 - t2
         self.phase_wall["device"] += t4 - t3
-        self.rounds_total += int(packed[2, 0])
-        return packed[0].copy(), _unpack_diag(packed[1], self.n_filters)
+        return fl
+
+    def _carries(self, prevs: Sequence[_InFlight], batch) -> List[PrevBatch]:
+        """The chained in-flight batches as PrevBatch carries (device
+        tensors); their term groups ride only when this batch has affinity
+        content and the affinity chain is on."""
+        groups = bool(batch.has_affinity) and self._chain_affinity_now
+        out = []
+        for fl in prevs:
+            fl.carried += 1
+            db = fl.dbatch
+            out.append(PrevBatch(
+                rows=fl.node_row_dev, req=db.request, nz=db.non_zero, valid=db.valid,
+                label_keys=db.label_keys, label_vals=db.label_vals, ns=db.ns,
+                group_present=tuple(fl.batch.group_present),
+                **({name: getattr(db, name) for name in AFFINITY_GROUPS} if groups else {})))
+        return out
+
+    def _start_fetch(self, fl: _InFlight) -> None:
+        """Start the [3, B] result's trip to the host: on the card a
+        non_blocking copy into pinned memory and an event, which a
+        background thread polls (the reference's _bg_fetch); on the CPU
+        the result is on the host already."""
+        if fl.packed_dev.device.type != "cuda":
+            fl.fetched = fl.packed_dev.numpy().copy()
+            fl.fetched_at = self.clock()
+            return
+        fl.pinned = torch.empty(fl.packed_dev.shape, dtype=fl.packed_dev.dtype,
+                                pin_memory=True)
+        fl.pinned.copy_(fl.packed_dev, non_blocking=True)
+        fl.fetch_event = torch.cuda.Event()
+        fl.fetch_event.record()
+
+        def _bg_fetch(rec=fl, clk=self.clock):
+            # polling with a sleep releases the GIL; a blocking wait would
+            # hold it and stall the main thread's host work
+            while not rec.fetch_event.query():
+                time.sleep(0.0005)
+            rec.fetched = rec.pinned.numpy().copy()
+            rec.fetched_at = clk()
+
+        fl.fetch_thread = threading.Thread(target=_bg_fetch, daemon=True)
+        fl.fetch_thread.start()
+
+    def _fused_cycle(self, batch, class_of: np.ndarray, rep_rows: np.ndarray,
+                     coupling, host_auxes, dsnap, upd, prevs: Sequence[PrevBatch]):
+        """The device half of a dispatch (the reference's fused_batch dedup
+        branch, scheduler.py:969-1017) → (node_row i32[B], packed i32[3, B],
+        the device batch), all on the device."""
+        dev = self.device
+        fw = self._framework()
+        dsnap = apply_scatter(dsnap, upd)
+        self.encoder.commit_device(dsnap)
+        # the reference's reserve_nominated (scheduler.py:889) adds only the
+        # requests of pods that preemption nominated; the port has no
+        # preemption (ROADMAP Queue A item 9, Queue B B2), so there are none.
+        # The in-flight carries' requests go in at their decided rows (K13),
+        # into copies: the snapshot stays as the next row-scatter needs it.
+        dyn = apply_prev_delta(initial_dynamic_state(dsnap), prevs)
+        dbatch = batch_to_device(batch, dev)
+        rep_batch = dbatch.take(torch.from_numpy(rep_rows).to(dev))
+        # the class representatives' plugin auxes, from the rep view of the
+        # host auxes: PodTopologySpread's count tables (K5), InterPodAffinity's
+        # count state and existing-pod planes (K9); None for a plugin with
+        # nothing to carry for this batch; then the carries chained in
+        # (K14, K15), oldest first
+        rep_host = _host_aux_take(fw, host_auxes, rep_rows)
+        rep_auxes = fw.prepare(rep_batch, dsnap, dyn, rep_host)
+        for prev in prevs:
+            rep_auxes = fw.chain_prev(rep_batch, dsnap, rep_auxes, prev)
+        b = batch.size
+        order = torch.arange(b, dtype=torch.int32, device=dev)
+        class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
+        res = fw._batch_assign_dedup(
+            dbatch, dsnap, dyn, None, order, coupling, (class_t, rep_batch, rep_auxes))
+        self.round_read_s += res.host_read_s
+        gang_seg = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        node_row = gang_all_or_nothing(res.node_row, gang_seg)
+        # a dispatched batch holds at least one valid pod, so round 0 ran; its
+        # bit plane carries the dynamic plugins' bits (K6, K10), as the
+        # reference diagnoses with the prepared rep auxes (scheduler.py:1015)
+        bits = diagnose_bits_from_plane(res.diag_plane, self.n_filters)[class_t]
+        return node_row, pack_diag(bits, node_row, res.rounds), dbatch
 
     # --- engine routing (the reference's one shared predicate) -------------------
 
@@ -567,64 +1045,54 @@ class TorchScheduler:
         present = vals != MISSING
         return int(present.sum()), int(np.unique(vals[present]).size), n_nodes
 
-    def _fused_cycle(self, batch, class_of: np.ndarray, rep_rows: np.ndarray,
-                     coupling, host_auxes=None) -> np.ndarray:
-        """The device half of the cycle (the reference's fused_batch dedup
-        branch, scheduler.py:969-1017) → the packed [3, B] result on the
-        host (the cycle's one fetch)."""
-        dev = self.device
-        fw = self._framework()
-        dsnap, upd = self.encoder.to_device_deferred()
-        dsnap = apply_scatter(dsnap, upd)
-        self.encoder.commit_device(dsnap)
-        # the reference's reserve_nominated (scheduler.py:889) adds only the
-        # requests of pods that preemption nominated; the port has no
-        # preemption (ROADMAP Queue A item 9, Queue B B2), so there are none
-        dyn = initial_dynamic_state(dsnap)
-        dbatch = batch_to_device(batch, dev)
-        rep_batch = dbatch.take(torch.from_numpy(rep_rows).to(dev))
-        # the class representatives' plugin auxes, from the rep view of the
-        # host auxes: PodTopologySpread's count tables (K5), InterPodAffinity's
-        # count state and existing-pod planes (K9); None for a plugin with
-        # nothing to carry for this batch
-        rep_host = _host_aux_take(fw, host_auxes, rep_rows)
-        rep_auxes = fw.prepare(rep_batch, dsnap, dyn, rep_host)
-        b = batch.size
-        order = torch.arange(b, dtype=torch.int32, device=dev)
-        class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
-        res = fw._batch_assign_dedup(
-            dbatch, dsnap, dyn, None, order, coupling, (class_t, rep_batch, rep_auxes))
-        self.round_read_s += res.host_read_s
-        gang_seg = torch.full((b,), -1, dtype=torch.int32, device=dev)
-        node_row = gang_all_or_nothing(res.node_row, gang_seg)
-        # a dispatched batch holds at least one valid pod, so round 0 ran; its
-        # bit plane carries the dynamic plugins' bits (K6, K10), as the
-        # reference diagnoses with the prepared rep auxes (scheduler.py:1015)
-        bits = diagnose_bits_from_plane(res.diag_plane, self.n_filters)[class_t]
-        return pack_diag(bits, node_row, res.rounds).cpu().numpy()
-
-    def _complete(self, infos: List[QueuedPodInfo], node_row: np.ndarray) -> None:
-        """Assume every placed pod in the cache (assume :571)."""
-        name_of = self.encoder.row_to_name()
-        self._node_names = [None] * len(infos)
-        for i, qi in enumerate(infos):
+    def _complete(self, fl: _InFlight) -> np.ndarray:
+        """Wait for the batch's fetched result and assume every placed pod
+        (the reference's _complete, scheduler.py:1969; assume :571) → the
+        node rows, −1 for a pod to requeue."""
+        t_f = time.perf_counter()
+        if fl.fetch_thread is not None:
+            fl.fetch_thread.join()
+            fl.fetch_thread = None
+        self.phase_wall["fetch"] += time.perf_counter() - t_f
+        packed = fl.fetched
+        node_row = packed[0].copy()
+        self.carried_pods += fl.carried * int((node_row >= 0).sum())
+        fl.diag = _unpack_diag(packed[1], self.n_filters)
+        self.rounds_total += int(packed[2, 0])
+        # the background sync reads cache clones; the assumes below write
+        # the cache — join it first
+        self._join_sync_ahead()
+        fl.node_names = [None] * len(fl.infos)
+        for i, qi in enumerate(fl.infos):
             row = int(node_row[i])
             if row < 0:
                 continue
-            name = name_of.get(row)
+            # through the dispatch-time map: a sync since may reuse the row
+            name = fl.name_of.get(row)
             info = self.cache._nodes.get(name) if name is not None else None
             if info is None or info.node is None:
                 node_row[i] = -1  # node gone since dispatch — retry the pod
                 continue
-            self._node_names[i] = name
+            fl.node_names[i] = name
             self.cache.assume_pod(qi.pod, name)
+        return node_row
 
-    def _bind_phase(self, infos, node_row, diag, cycle) -> CycleStats:
-        """Bind every placed pod; diagnose and requeue every failed one."""
+    def _bind_phase(self, fl: _InFlight, node_row: np.ndarray) -> CycleStats:
+        """Bind every placed pod; diagnose and requeue every failed one; feed
+        the micro-bucket policy's latency profile of the batch's pad tier.
+
+        A pod's attempt latency is the reference's (scheduler.py:2093-2111,
+        2365-2378): its batch's algorithm time — dispatch start to the
+        moment the result reached the host — plus the pod's own bind
+        segment.  The wait between the fetch and the bind phase (the
+        pipeline's cycles in flight) is not part of it."""
         t0 = time.perf_counter()
+        algo = max(fl.fetched_at - fl.t0, 0.0)
+        infos = fl.infos
         stats = CycleStats(attempted=len(infos))
         failing = [i for i in range(len(infos)) if int(node_row[i]) < 0]
-        if failing:
+        # a chained batch defers preemption to the retry, as the reference
+        if failing and not fl.chained:
             valid = self.encoder.pod_valid
             prios = self.encoder.pod_priority[valid]
             min_sched_prio = int(prios.min()) if prios.size else 1 << 30
@@ -636,10 +1104,12 @@ class TorchScheduler:
                         f"pod {pod.key()} failed and could preempt: preemption "
                         "is not ported yet (ROADMAP Queue A item 9)")
         names = self.fw.filter_names
+        batch_attempts: List[float] = []
         for i, qi in enumerate(infos):
+            t_pod = self.clock()
             row = int(node_row[i])
             if row >= 0:
-                node_name = self._node_names[i]
+                node_name = fl.node_names[i]
                 ok = self.store.bind_pod(qi.pod.namespace, qi.pod.metadata.name,
                                          node_name)
                 if ok:
@@ -649,35 +1119,57 @@ class TorchScheduler:
                     self.cache.forget_pod(qi.pod)
                     if self.store.get("Pod", qi.pod.namespace,
                                       qi.pod.metadata.name) is not None:
-                        self.queue.add_unschedulable(qi, cycle)
+                        self.queue.add_unschedulable(qi, fl.cycle)
             else:
-                row_bits = diag[i]
+                row_bits = fl.diag[i]
                 failing_plugins = {names[k] for k in range(len(names))
                                    if not bool(row_bits[k])}
                 qi.unschedulable_plugins = failing_plugins or set(names)
                 stats.unschedulable += 1
-                self.queue.add_unschedulable(qi, cycle)
-            self.attempt_seconds.append(time.perf_counter() - self._cycle_start)
+                self.queue.add_unschedulable(qi, fl.cycle)
+            attempt = algo + max(self.clock() - t_pod, 0.0)
+            self.attempt_seconds.append(attempt)
+            batch_attempts.append(attempt)
+        stats.batch_seconds = self.clock() - fl.t0
         self.phase_wall["bind"] += time.perf_counter() - t0
+        # the pad tier's profile: an EMA (α = 0.5) of the batch's largest
+        # attempt, from at least half-full batches that built no kernel
+        # (the reference's scheduler.py:2355-2378)
+        if self.latency_target_ms is not None and batch_attempts \
+                and kernel_build.BUILDS == fl.builds0 \
+                and 2 * len(batch_attempts) >= fl.batch.size:
+            tier, hi = fl.batch.size, max(batch_attempts)
+            prev = self._tier_p99.get(tier)
+            self._tier_p99[tier] = hi if prev is None else 0.5 * prev + 0.5 * hi
         return stats
 
     def _await_backoff_wave(self) -> None:
         """Hold the cycle briefly while an imminent backoff wave drains into
-        the active queue (the reference's batch-formation hysteresis)."""
-        real_deadline = time.monotonic() + self.batch_wait
-        while True:
-            nxt = self.queue.next_backoff_expiry()
-            a, b, _ = self.queue.pending_count()
-            if b == 0 or nxt is None or a >= self.batch_size // 2 or a >= b:
-                return
-            now = self.clock()
-            if time.monotonic() >= real_deadline or nxt - now > self.batch_wait:
-                return
-            time.sleep(min(0.02, max(nxt - now, 0.001)))
+        the active queue (the reference's batch-formation hysteresis); the
+        hold counts as ``queue_wait``."""
+        t_wave = time.monotonic()
+        real_deadline = t_wave + self.batch_wait
+        try:
+            while True:
+                nxt = self.queue.next_backoff_expiry()
+                a, b, _ = self.queue.pending_count()
+                eff = self._bucket_from_latency() \
+                    if self.latency_target_ms is not None else self.batch_size
+                if b == 0 or nxt is None or a >= eff // 2 or a >= b:
+                    return
+                now = self.clock()
+                if time.monotonic() >= real_deadline or nxt - now > self.batch_wait:
+                    return
+                time.sleep(min(0.02, max(nxt - now, 0.001)))
+        finally:
+            waited = time.monotonic() - t_wave
+            if waited > 0.0005:
+                self.phase_wall["queue_wait"] += waited
 
     def run_until_idle(self, max_cycles: int = 1000,
                        backoff_wait: Optional[float] = None) -> CycleStats:
-        """Drive cycles until nothing is attempted or waiting out backoff."""
+        """Drive cycles until nothing is attempted, in flight or waiting out
+        backoff."""
         if backoff_wait is None:
             backoff_wait = 1.2 * self.queue._max_backoff
         total = CycleStats()
@@ -685,7 +1177,7 @@ class TorchScheduler:
         cycles = 0
         while cycles < max_cycles:
             s = self.schedule_cycle()
-            if s.attempted == 0:
+            if s.attempted == 0 and s.in_flight == 0:
                 _a, b, _u = self.queue.pending_count()
                 if b == 0 or waited >= backoff_wait:
                     break
@@ -695,11 +1187,20 @@ class TorchScheduler:
             cycles += 1
             if s.scheduled:
                 waited = 0.0
-            total.attempted += s.attempted
-            total.scheduled += s.scheduled
-            total.unschedulable += s.unschedulable
-            total.batch_seconds += s.batch_seconds
+            self._merge(total, s)
         return total
+
+    def close(self) -> None:
+        """Stop watching the store and join any background sync, raising its
+        error if it failed.  Batches still in flight stay unbound (drive
+        ``run_until_idle`` first)."""
+        unwatch, self._unwatch = self._unwatch, None
+        if unwatch is not None:
+            unwatch()
+        self._join_sync_ahead()
+        rec, self._sync_ahead = self._sync_ahead, None
+        if rec is not None and rec.error is not None:
+            raise rec.error
 
 
 __all__ = ["TorchScheduler", "default_plugins"]

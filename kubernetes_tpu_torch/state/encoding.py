@@ -45,6 +45,7 @@ from ..api.resource import (
     compute_pod_resource_request_non_zero,
 )
 from ..device import resolve_device
+from ..kernels.scatter import scatter_rows
 from .cache import Snapshot
 from .affinity_index import AffinityIndex
 from .dictionary import MISSING, Dictionary, _parse_numeric
@@ -169,8 +170,10 @@ def live_nodes(snap: DeviceSnapshot) -> torch.Tensor:
 
 def apply_scatter(dsnap: DeviceSnapshot, upd: Optional[PendingScatter]) -> DeviceSnapshot:
     """Apply a PendingScatter: a new DeviceSnapshot whose dirty rows carry
-    the payload's values (out of place, like the reference's functional
-    ``.at[rows].set``)."""
+    the payload's values — one ``scatter_rows`` call (K16 on the card) per
+    array group.  Out of place, like the reference's functional
+    ``.at[rows].set``: an in-flight batch of the pipelined scheduler still
+    reads the snapshot this one replaces."""
     if upd is None:
         return dsnap
     out = {k: getattr(dsnap, k) for k in _NODE_ARRAYS + _POD_ARRAYS + _AFF_ARRAYS}
@@ -179,8 +182,7 @@ def apply_scatter(dsnap: DeviceSnapshot, upd: Optional[PendingScatter]) -> Devic
         if group is None:
             continue
         rows, vals = group
-        for k, v in zip(names, vals):
-            out[k] = out[k].index_copy(0, rows, v)
+        out.update(zip(names, scatter_rows([out[k] for k in names], rows, vals)))
     numeric = dsnap.numeric if upd.numeric is None else upd.numeric
     return DeviceSnapshot(**out, numeric=numeric)
 
@@ -226,6 +228,7 @@ class ClusterEncoder:
         self._scatter_bucket.setdefault("aff_valid", 8)
         self._numeric_min = 1024  # floor for the numeric side-table pow2 size
         self._shape_changed = True
+        self._force_full_once = False  # see force_full_next
 
     # affinity-group arrays live on the index; exposed here so the generic
     # array-group upload machinery reads them by name like the other mirrors
@@ -581,14 +584,28 @@ class ClusterEncoder:
 
     # --- device upload -------------------------------------------------------
 
-    def to_device_deferred(self):
+    def force_full_next(self) -> None:
+        """Make the next dispatch-time ``to_device_deferred`` take the
+        full-upload path (the reference's force_full_next; the perf
+        harness's warms use it)."""
+        self._force_full_once = True
+
+    def to_device_deferred(self, consume_force: bool = True):
         """Like to_device, but returns the row-scatter payload instead of
         applying it: ``(dsnap, upd)`` where ``upd`` is None (a full upload
         happened; dsnap is current) or a PendingScatter the caller applies
         with ``apply_scatter`` and then adopts with ``commit_device``.  The
         gates (small-tier full upload, scatter bucket overflow, dirty
         fraction) are the reference's, so the port takes the scatter path
-        on exactly the cycles the JAX scheduler does."""
+        on exactly the cycles the JAX scheduler does.
+
+        ``consume_force=False`` is the overlapped sync's background build:
+        it neither honours nor clears ``force_full_next()`` — the flag may
+        be set while the thread runs, and only the dispatch-time build may
+        consume it."""
+        if consume_force and self._force_full_once:
+            self._force_full_once = False
+            return self.to_device(force_full=True), None
         if self._n <= _SMALL_NODE_TIER:
             return self.to_device(force_full=True), None
         numeric, use_scatter = self._upload_gate()
@@ -647,6 +664,28 @@ class ClusterEncoder:
         padded[: rows.shape[0]] = rows
         vals = tuple(_put(getattr(self, k_)[padded], self.device) for k_ in names)
         return (_put(padded.astype(np.int64), self.device), vals)
+
+    def has_dirty(self) -> bool:
+        """Any mirror rows dirtied since the last upload consumed them."""
+        return bool(self._dirty_node_rows or self._dirty_pod_rows or self.aff.dirty)
+
+    def capture_dirty(self):
+        """Copies of the dirty-row sets an imminent to_device_deferred will
+        consume: the overlapped sync keeps them so that a discarded payload
+        can be undone (restore_dirty)."""
+        return (set(self._dirty_node_rows), set(self._dirty_pod_rows),
+                set(self.aff.dirty))
+
+    def restore_dirty(self, saved) -> None:
+        """Re-mark the rows of a to_device_deferred payload the caller
+        discarded without applying: they never reached the device, so they
+        ride the next payload.  The numeric table's high-water mark is
+        invalidated too (the discarded build stamped it as uploaded)."""
+        n, p, a = saved
+        self._dirty_node_rows |= n
+        self._dirty_pod_rows |= p
+        self.aff.dirty |= a
+        self._uploaded_numeric_len = -1
 
     def commit_device(self, dsnap: DeviceSnapshot):
         """Adopt an updated DeviceSnapshot as the current device state."""

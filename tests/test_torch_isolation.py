@@ -4,7 +4,8 @@ package, and its entry points default to the CUDA device.
 * In a subprocess (this test process already imported JAX through
   tests/conftest.py), a meta-path hook blocks ``jax``, ``jaxlib`` and the
   top-level ``kubernetes_tpu`` package (not ``kubernetes_tpu_torch``); every
-  module of the port and chip_smoke.py must still import.
+  module of the port (the perf harness and the kernel modules among them)
+  and chip_smoke.py must still import.
 * A source scan finds no ``jax`` / ``jaxlib`` / ``kubernetes_tpu`` import in
   the port or in chip_smoke.py.
 * On a machine without CUDA, the default ``device="cuda"`` raises instead
@@ -47,15 +48,25 @@ for name in names:
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 '''
+
+# modules the import check must reach (the walk finds every module; these
+# name the newest ones so a package missing its __init__ cannot slip by)
+REQUIRED = ("kubernetes_tpu_torch.perf.harness", "kubernetes_tpu_torch.perf.workloads",
+            "kubernetes_tpu_torch.kernels.prev_delta", "kubernetes_tpu_torch.kernels.scatter",
+            "kubernetes_tpu_torch.kernels.spread",
+            "kubernetes_tpu_torch.kernels.interpodaffinity",
+            "kubernetes_tpu_torch.scheduler")
 
 
 def test_port_imports_with_jax_and_reference_blocked():
     out = subprocess.run([sys.executable, "-c", _BLOCKER, str(ROOT)],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-4000:]
-    assert int(out.stdout.strip().splitlines()[-1]) >= 30
+    names = out.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 30
+    assert set(REQUIRED) <= set(names), sorted(set(REQUIRED) - set(names))
 
 
 _IMPORT = re.compile(

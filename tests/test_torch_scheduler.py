@@ -184,10 +184,15 @@ def test_scope_guard_raises_for_a_batch_too_heterogeneous_to_dedup():
 
 
 def test_scope_guard_raises_for_pipeline_and_extenders():
-    with pytest.raises(NotImplementedError):
-        TorchScheduler(TStore(), device="cpu", pipeline=True)
+    """pipeline=True is in scope (tests/test_torch_pipeline.py); extenders,
+    pipelined or not, and a depth the fused cycle cannot carry are not."""
+    TorchScheduler(TStore(), device="cpu", pipeline=True)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        TorchScheduler(TStore(), device="cpu", pipeline=True, extenders=[object()])
     with pytest.raises(NotImplementedError):
         TorchScheduler(TStore(), device="cpu", extenders=[object()])
+    with pytest.raises(ValueError):
+        TorchScheduler(TStore(), device="cpu", pipeline=True, pipeline_depth=0)
 
 
 def test_scope_guard_raises_for_a_cuda_batch_beyond_one_block():
