@@ -5,8 +5,8 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the sixteen CUDA kernels from kubernetes_tpu_torch/csrc/ (one nvcc
-   per source, started together).
+1. Build the nineteen CUDA kernels from kubernetes_tpu_torch/csrc/ (one
+   nvcc per source, started together).
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
    CUDA tensors, exactly equal.  K1–K4: random and adversarial inputs
    (all-tie rows, −inf rows, floor-boundary values) at N = 8192 and
@@ -20,7 +20,14 @@ Phases, all of which must pass (any failure exits non-zero):
    kind.  K13–K16: rows of −1, two bundles on one node, a no-op bundle;
    word and odd row widths with duplicate pad rows; unplaced and invalid
    prev pods; both IPA count forms, a carry with and without prev terms,
-   an all-invalid prev term group.
+   an all-invalid prev term group.  K17–K19 (the exact scan's step): ties
+   across the whole row, an all-infeasible row, a nominated row that is
+   infeasible, feasible, past the bucket or the last node, a padding pod,
+   the maximum at the last node; K18 / K19 at full-batch rows B = 512 with
+   the pod on a live node, a keyless node, the last node and none, K19 in
+   both count forms.  K1–K4, K6–K8 and K10–K12 again at C = 512 rows
+   (identity classes, as the full auction runs them) and K1, K2, K6, K7,
+   K10 and K11 on one row (as the scan runs them).
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
    on cuda, synchronous, launch counts zeroed just before and read just
@@ -61,6 +68,22 @@ Phases, all of which must pass (any failure exits non-zero):
    arguments.  Each path builds its cluster on a fresh heap (the objects of
    earlier phases frozen out of the collector), and its record counts the
    full collections inside the measured run.
+4b. The full auction and the exact scan at full width (5000 nodes, B =
+   512, measured pods with the launch counts zeroed just before them, every
+   measured batch through the expected engine, one profiled cycle each):
+   TopologySpreading (5000, 5000, 2000) with assign_mode="scan",
+   synchronous and pipelined (K17, K18; one K17 launch per measured pod);
+   the same suite under "auto" with the spread pods at priority 10 (the
+   router scans them) and with assign_mode="batch" for 512 of them (the
+   full auction: K6–K8 at C = 512); SchedulingPodAntiAffinity (5000, 1000,
+   1000) under "auto" at priority 10, synchronous and pipelined (the full
+   auction; K10–K12 at C = 512); SchedulingPreferredPodAffinity and
+   SchedulingPodAffinity (5000, 5000, 1000) with assign_mode="scan" (K19 in
+   the planes and the tables form); a heterogeneous backlog of 2048 pods of
+   cpu 100m + (i mod 400)m on 5000 nodes (the full auction, uncoupled).
+   Each prints pods/s, steps or rounds per cycle, device wall per step or
+   round, the profiled cycle's device busy time and idle share, and the
+   constraint it checked.
 5. cuda == cpu bindings: a heterogeneous 5000-node cluster with ~2048
    pending pods of 8 classes; three 1000-node spread clusters (1000
    pod_default pods first, then 512 DoNotSchedule, 512 ScheduleAnyway, or
@@ -69,7 +92,10 @@ Phases, all of which must pass (any failure exits non-zero):
    queue of zone-affinity, spread, pod_default and preferred
    hostname-affinity pods.  cuda pipelined == cuda sync bindings at the
    same segmentation: NorthStar-, spread-, preferred-affinity- and
-   anti-affinity-shaped clusters at 1000 nodes.
+   anti-affinity-shaped clusters at 1000 nodes.  Each path of 4b cut to
+   1000 nodes (200 first pods, 512 measured; 128 for the spread full
+   auction, whose CPU half runs a round per pod), and a mixed queue whose four batches take the scan, the full
+   auction (twice) and the dedup engine: cuda == cpu bindings and routes.
 6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
    round; K5–K8: a TopologySpreading cycle's first round; K9–K12: a
    SchedulingPreferredPodAffinity cycle's first round; K13–K16: the latest
@@ -86,11 +112,17 @@ Phases, all of which must pass (any failure exits non-zero):
    SchedulingPreferredPodAffinity cycle under torch.profiler: the cycle's
    wall, device time by kernel, and the device's idle share.
 
+6b. K17–K19 on the arguments of their latest call on the scan paths (K19
+   in both count forms) and K1–K4, K8 and K12 at C = 512 on the full
+   auctions' latest rounds, timed as in 6.
+
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
 on the path that carries each kernel: K1–K8 on the TopologySpreading run,
 K9–K12 on the SchedulingPreferredPodAffinity run, K13 and K16 on the
 NorthStar harness run, K14 and K15 on the pipelined TopologySpreading and
-SchedulingPreferredPodAffinity runs), the card's name and power limit as
+SchedulingPreferredPodAffinity runs, K17 and K18 on the TopologySpreading
+scan, K19 on the two pod-affinity scans, the C = 512 rows on the full
+auction that gave their arguments), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
@@ -195,8 +227,9 @@ def device_ms(fn, kernel: str = None, reps: int = 20, warmup: int = 3) -> float:
     device activities when None), over ``reps`` calls.  Unlike CUDA-event
     timing of back-to-back calls, this excludes the host's launch overhead,
     which for a microsecond kernel is most of the wall.  A profiler session
-    that records no matching device time is tried twice more; if none
-    does, the calls are timed queued behind a spin kernel
+    that records no matching device time, or for a named kernel a number of
+    records that is not a whole multiple of ``reps``, is tried twice more;
+    if none does, the calls are timed queued behind a spin kernel
     (``queued_device_ms``, device time too) and ``MS_SOURCE`` says so."""
     import torch
     from torch.autograd import DeviceType
@@ -211,18 +244,23 @@ def device_ms(fn, kernel: str = None, reps: int = 20, warmup: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
+        total_us, n_events = 0.0, 0
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:
                 continue
             if kernel is None or kernel in e.key:
                 v = getattr(e, "self_device_time_total", None)
                 total_us += v if v is not None else getattr(e, "self_cuda_time_total", 0)
-        if total_us > 0:
+                n_events += e.count
+        # a named kernel launches the same number of times in every call: a
+        # session that kept fewer of its records would read low
+        if total_us > 0 and (kernel is None or n_events % reps == 0):
             return total_us / reps / 1e3
+        if total_us > 0:
+            log(f"  the profiler kept {n_events} records of {kernel} over {reps} calls")
     MS_SOURCE[0] = "queued_events"
     ms = queued_device_ms(fn, reps)
-    log(f"  the profiler recorded no device time for {kernel or 'the call'} (three "
+    log(f"  the profiler recorded no whole device time for {kernel or 'the call'} (three "
         f"sessions): {ms:.5f} ms a call queued behind a spin kernel instead")
     return ms
 
@@ -980,37 +1018,330 @@ def check_pipeline_kernels(dev) -> dict:
     return err
 
 
+# --- phase 2: K17–K19 vs plain, and the reused kernels at C = 512 and at one row ----
+
+SCAN_KERNELS = ("scan_select_assume", "spread_update_row", "ipa_update_row")
+
+
+def full_rows_spread_case(name, gen, dev, *, b=512, cc=2, n=8192, **kw):
+    """A spread_case at full-batch rows: every pod its own class row, the
+    pending axis of match_pending the batch (B × Cc × B), identity classes."""
+    import torch
+
+    cs = spread_case(name, gen, dev, c=b, cc=cc, n=n, b=b, **kw)
+    match = (torch.rand((b, cc, b), generator=gen) < 0.5).to(dev)
+    cs["aux"] = cs["aux"]._replace(match_pending=match)
+    cs["class_of"] = torch.arange(b, device=dev)
+    return cs
+
+
+def check_scan_kernels(dev) -> dict:
+    """K17–K19 against their plain versions, exactly equal, on random and
+    adversarial inputs — K17: ties across the whole row, an all-infeasible
+    row, a nominated row that is infeasible, feasible, out of the bucket or
+    at the last node, a padding pod, the maximum at the last node; K18 and
+    K19 (both count forms) at full-batch rows B = 512 with pod i on a live
+    node, a keyless node, the last node and no node.  Then the reused
+    kernels at the shapes the full auction and the scan give them: K1–K4,
+    K6–K8 and K10–K12 at C = B = 512 rows (identity classes), and K1, K2,
+    K6, K7, K10 and K11 on one row."""
+    import torch
+
+    from kubernetes_tpu_torch.framework.interface import DynamicState
+    from kubernetes_tpu_torch.kernels import interpodaffinity as KI
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.kernels import spread as KSp
+    from kubernetes_tpu_torch.kernels.auction import (
+        auction_resolve_commit,
+        auction_resolve_commit_plain,
+    )
+    from kubernetes_tpu_torch.kernels.filter_score import (
+        filter_score_planes,
+        filter_score_planes_plain,
+    )
+    from kubernetes_tpu_torch.kernels.normalize import (
+        normalize_combine,
+        normalize_combine_plain,
+    )
+    from kubernetes_tpu_torch.kernels.topk import topk_rows, topk_rows_plain
+    from kubernetes_tpu_torch.plugins.interpodaffinity import InterPodAffinityPlugin
+    from kubernetes_tpu_torch.plugins.podtopologyspread import PodTopologySpreadPlugin
+    from kubernetes_tpu_torch.plugins.trivial import image_scaled_by_id
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    err = {k: 0.0 for k in SCAN_KERNELS}
+    reuse = {k: 0.0 for k in ("filter_score_planes", "normalize_combine", "topk_rows",
+                              "auction_resolve_commit", "spread_filter_bits",
+                              "spread_score_combine", "spread_update_classes",
+                              "ipa_filter_bits", "ipa_score_combine",
+                              "ipa_update_classes")}
+    n, b, r = 8192, 512, 8
+    full = (1 << 16) - 1
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    # K17
+    valid = torch.ones(b, dtype=torch.bool)
+    valid[b - 1] = False  # a padding pod
+    nominated = ints(-1, 0, b)
+    request, pod_nz = ints(0, 3000, b, r), ints(0, 3000, b, 2)
+    requested, node_nz = ints(0, 4000, n, r), ints(0, 4000, n, 2)
+    batch_args = [t.to(dev) for t in (nominated, valid, request, pod_nz)]
+
+    def row_case(kind):
+        bits = torch.where(torch.rand(n, generator=gen) < 0.7, full,
+                           full & ~(1 << 5)).to(torch.int32)
+        total = torch.randint(0, 400, (n,), generator=gen).float()
+        nom = -1
+        if kind == "ties":
+            total[:] = 250.0
+        elif kind == "infeasible":
+            bits[:] = full & ~1
+        elif kind == "max at the last node":
+            bits[n - 1] = full
+            total[n - 1] = 1000.0
+        elif kind == "nominated infeasible":
+            bits[77] = 0
+            nom = 77
+        elif kind == "nominated feasible":
+            bits[4000] = full
+            nom = 4000
+        elif kind == "nominated past the bucket":
+            nom = n + 5
+        elif kind == "nominated last node":
+            bits[n - 1] = full
+            nom = n - 1
+        total = torch.where(bits == full, total, float("-inf"))
+        return bits[None].to(dev), total[None].to(dev), nom
+
+    kinds = ("random", "ties", "infeasible", "max at the last node", "nominated infeasible",
+             "nominated feasible", "nominated past the bucket", "nominated last node")
+    for k, kind in enumerate(kinds):
+        bits, total, nom = row_case(kind)
+        for i in (k, b - 1):  # a real pod, then the padding pod
+            nomd = batch_args[0].clone()
+            nomd[i] = nom
+            outs_k = [requested.to(dev), node_nz.to(dev),
+                      torch.full((b,), -7, dtype=torch.int32, device=dev),
+                      torch.full((b,), -7, dtype=torch.int32, device=dev)]
+            outs_p = [t.clone() for t in outs_k]
+            args = (bits, full, total, i, nomd, *batch_args[1:])
+            KS.scan_select_assume(*args, *outs_k)
+            KS.scan_select_assume_plain(*args, *outs_p)
+            torch.cuda.synchronize()
+            err["scan_select_assume"] = max(err["scan_select_assume"], require_equal(
+                f"scan_select_assume ({kind}, pod {i})",
+                [(f, a, c) for f, a, c in zip(("requested", "non_zero", "node_row",
+                                               "feasible_count"), outs_k, outs_p)]))
+            row = int(outs_k[2][i])
+            if kind == "ties" and i != b - 1 and row != int((bits[0] == full).nonzero()[0]):
+                fail("scan_select_assume: a tie did not go to the lowest feasible row")
+            if kind in ("infeasible",) or i == b - 1:
+                if row != -1:
+                    fail(f"scan_select_assume ({kind}, pod {i}): placed a pod it must not")
+            if kind == "nominated feasible" and i != b - 1 and row != 4000:
+                fail("scan_select_assume: the feasible nominated row was not taken")
+
+    # K18: full-batch rows, two constraints, keyless nodes
+    splug = PodTopologySpreadPlugin()
+    for cs in (full_rows_spread_case("K18, 3 domains", gen, dev),
+               full_rows_spread_case("K18, keyless nodes", gen, dev, keyless=0.3)):
+        aux = cs["aux"]
+        keyless = (~aux.has_key[0, 0]).nonzero()
+        nodes = [int(torch.randint(0, n, (1,), generator=gen)), n - 1, -1]
+        if keyless.numel():
+            nodes.append(int(keyless[0, 0]))
+        for i in (0, 301, b - 1):
+            for node in nodes:
+                ka, pa = splug.engine_copy(aux), splug.engine_copy(aux)
+                at = torch.tensor([node], dtype=torch.int32, device=dev)
+                KSp.spread_update_row(ka, i, at)
+                KSp.spread_update_row_plain(pa, i, at)
+                torch.cuda.synchronize()
+                err["spread_update_row"] = max(err["spread_update_row"], require_equal(
+                    f"spread_update_row ({cs['name']}, pod {i}, node {node})",
+                    [("hard_counts", ka.hard_counts, pa.hard_counts),
+                     ("soft_counts", ka.soft_counts, pa.soft_counts)]))
+
+    # K19: full-batch rows, tables and planes, every group present
+    iplug = InterPodAffinityPlugin()
+    ipa_full = []
+    for what, kw in (("tables", {}), ("planes, hostname domains", dict(d=8192, n_dom=5000)),
+                     ("anti-affinity only, planes", dict(d=8192, n_dom=5000, t=1,
+                                                          present=("req_anti_affinity",)))):
+        cs = ipa_case(f"K19, {what}", gen, dev, c=b, **kw)
+        ipa_full.append(cs)
+        aux = cs["aux"]
+        keyless = (aux.dom_anti[0, 0] >= cs["d"]).nonzero()
+        nodes = [int(torch.randint(0, n, (1,), generator=gen)), n - 1, -1]
+        if keyless.numel():
+            nodes.append(int(keyless[0, 0]))
+        for i in (0, 1, 300):
+            for node in nodes:
+                ka, pa = iplug.engine_copy(aux), iplug.engine_copy(aux)
+                at = torch.tensor([node], dtype=torch.int32, device=dev)
+                KI.ipa_update_row(ka, i, at)
+                KI.ipa_update_row_plain(pa, i, at)
+                torch.cuda.synchronize()
+                err["ipa_update_row"] = max(err["ipa_update_row"], require_equal(
+                    f"ipa_update_row ({what}, pod {i}, node {node})",
+                    [(f, getattr(ka, f), getattr(pa, f)) for f in IPA_MUTABLE]))
+        if not bool((ka.block_dyn != aux.block_dyn).any() or
+                    (ka.score_dyn != aux.score_dyn).any()):
+            log(f"  ipa_update_row ({what}): the last step changed no plane")
+
+    # the reused kernels at C = 512 (identity classes) and on one row
+    fw, (fs_plan, comb_plan) = framework_plans()
+    fullf = (1 << len(fw.filter_names)) - 1
+    snap = synthetic_snapshot(n, gen, dev)
+    dyn = DynamicState(requested=snap.requested, non_zero=snap.non_zero_requested)
+    rep, na_mask, na_pref = synthetic_classes(b, n, gen, dev)
+    img = image_scaled_by_id(snap)
+    one = SimpleNamespace(**{k: v[7:8] for k, v in vars(rep).items()})
+    for label, rows, m, pr in (("C = 512", rep, na_mask, na_pref),
+                               ("one row", one, na_mask[7:8], na_pref[7:8])):
+        kb, kr = filter_score_planes(rows, snap, dyn, m, pr, img, fs_plan)
+        pb, pr_ = filter_score_planes_plain(rows, snap, dyn, m, pr, img, fs_plan)
+        kt, kf = normalize_combine(kb, fullf, kr, comb_plan)
+        pt, pf = normalize_combine_plain(kb, fullf, kr, comb_plan)
+        torch.cuda.synchronize()
+        reuse["filter_score_planes"] = max(reuse["filter_score_planes"], require_equal(
+            f"filter_score_planes ({label})", [("bits", kb, pb), ("raw", kr, pr_)]))
+        reuse["normalize_combine"] = max(reuse["normalize_combine"], require_equal(
+            f"normalize_combine ({label})", [("total", kt, pt), ("feasible", kf, pf)]))
+        if label == "C = 512":
+            cv, ci = topk_rows(kt, b)
+            pv, pi = topk_rows_plain(kt, b)
+            ident = torch.arange(b, device=dev)
+            unres = (torch.rand(b, generator=gen) < 0.9).to(dev)
+            nom = torch.randint(0, n, (b,), generator=gen).to(dev)
+            nom_ok = (torch.rand(b, generator=gen) < 0.05).to(dev)
+            a4 = (cv, ci, ident, ident, unres, nom, nom_ok, rep.request, rep.non_zero)
+            kreq, knz = dyn.requested.clone(), dyn.non_zero.clone()
+            preq, pnz = kreq.clone(), knz.clone()
+            kc, kch = auction_resolve_commit(*a4, kreq, knz)
+            pc, pch = auction_resolve_commit_plain(*a4, preq, pnz)
+            torch.cuda.synchronize()
+            reuse["topk_rows"] = max(reuse["topk_rows"], require_equal(
+                "topk_rows (C = 512)", [("values", cv, pv), ("columns", ci, pi)]))
+            reuse["auction_resolve_commit"] = max(
+                reuse["auction_resolve_commit"], require_equal(
+                    "auction_resolve_commit (C = 512, identity classes)",
+                    [("commit", kc, pc), ("choice", kch, pch), ("requested", kreq, preq),
+                     ("non_zero", knz, pnz)]))
+    for scs in (full_rows_spread_case("K6–K8, C = 512", gen, dev, keyless=0.1),):
+        for label, aux, bits, total in (
+                ("C = 512", scs["aux"], scs["bits"], scs["total"]),
+                ("one row", splug.row(scs["aux"], 5), scs["bits"][5:6], scs["total"][5:6])):
+            kb, pb = bits.clone(), bits.clone()
+            KSp.spread_filter_bits(aux, kb, 3)
+            KSp.spread_filter_bits_plain(aux, pb, 3)
+            kt, pt = total.clone(), total.clone()
+            KSp.spread_score_combine(aux, bits, scs["full"], kt, 2.0)
+            KSp.spread_score_combine_plain(aux, bits, scs["full"], pt, 2.0)
+            torch.cuda.synchronize()
+            reuse["spread_filter_bits"] = max(reuse["spread_filter_bits"], require_equal(
+                f"spread_filter_bits ({label})", [("bits", kb, pb)]))
+            reuse["spread_score_combine"] = max(reuse["spread_score_combine"], require_equal(
+                f"spread_score_combine ({label})", [("total", kt, pt)]))
+        ka, pa = splug.engine_copy(scs["aux"]), splug.engine_copy(scs["aux"])
+        KSp.spread_update_classes(ka, scs["commit"], scs["choice"], scs["class_of"])
+        KSp.spread_update_classes_plain(pa, scs["commit"], scs["choice"], scs["class_of"])
+        torch.cuda.synchronize()
+        reuse["spread_update_classes"] = max(reuse["spread_update_classes"], require_equal(
+            "spread_update_classes (C = 512, identity classes)",
+            [("hard_counts", ka.hard_counts, pa.hard_counts),
+             ("soft_counts", ka.soft_counts, pa.soft_counts)]))
+    for cs in ipa_full[:2]:
+        ident = torch.arange(b, device=dev)
+        for label, aux, bits, total in (
+                ("C = 512", cs["aux"], cs["bits"], cs["total"]),
+                ("one row", iplug.row(cs["aux"], 9), cs["bits"][9:10], cs["total"][9:10])):
+            kb, pb = bits.clone(), bits.clone()
+            KI.ipa_filter_bits(aux, kb, 3)
+            KI.ipa_filter_bits_plain(aux, pb, 3)
+            kt, pt = total.clone(), total.clone()
+            KI.ipa_score_combine(aux, bits, cs["full"], kt, 2.0)
+            KI.ipa_score_combine_plain(aux, bits, cs["full"], pt, 2.0)
+            torch.cuda.synchronize()
+            reuse["ipa_filter_bits"] = max(reuse["ipa_filter_bits"], require_equal(
+                f"ipa_filter_bits ({cs['name']}, {label})", [("bits", kb, pb)]))
+            reuse["ipa_score_combine"] = max(reuse["ipa_score_combine"], require_equal(
+                f"ipa_score_combine ({cs['name']}, {label})", [("total", kt, pt)]))
+        ka, pa = iplug.engine_copy(cs["aux"]), iplug.engine_copy(cs["aux"])
+        KI.ipa_update_classes(ka, cs["commit"], cs["choice"], ident)
+        KI.ipa_update_classes_plain(pa, cs["commit"], cs["choice"], ident)
+        torch.cuda.synchronize()
+        reuse["ipa_update_classes"] = max(reuse["ipa_update_classes"], require_equal(
+            f"ipa_update_classes ({cs['name']}, C = 512, identity classes)",
+            [(f, getattr(ka, f), getattr(pa, f)) for f in IPA_MUTABLE]))
+    log(f"scan kernels vs plain: all equal ({', '.join(SCAN_KERNELS)}); the reused kernels "
+        f"equal at C = 512 and on one row ({', '.join(reuse)})")
+    return err, reuse
+
+
 # --- phase 3b: NorthStar through the port's perf harness -----------------------------------
 
 
+RT = "kubernetes_tpu_torch.framework.runtime"
+SPREAD_PLUGIN = "kubernetes_tpu_torch.plugins.podtopologyspread"
+IPA_PLUGIN = "kubernetes_tpu_torch.plugins.interpodaffinity"
+
+
 class KernelArgs:
-    """The pipeline kernels' wrappers, wrapped where the path looks them up:
-    keeps the arguments of their latest calls (K16: the latest call of each
-    array group, by group size) for timing at the path's shapes."""
+    """Kernel wrappers, wrapped where the path looks them up: keeps the
+    arguments of the latest call of each (under ``key(name, args)``, by
+    default its name) where its ``keep(args)`` holds, for timing at the
+    path's shapes.  ``install()`` wraps them for the rest of the run; as a
+    context manager it wraps them for the ``with`` block."""
 
-    TARGETS = (
-        ("prev_delta_apply", "kubernetes_tpu_torch.framework.runtime", "prev_delta_apply"),
-        ("scatter_rows", "kubernetes_tpu_torch.state.encoding", "scatter_rows"),
-        ("spread_chain_prev", "kubernetes_tpu_torch.plugins.podtopologyspread",
-         "spread_chain_prev"),
-        ("ipa_chain_prev", "kubernetes_tpu_torch.plugins.interpodaffinity", "ipa_chain_prev"),
-    )
+    def __init__(self, targets, key=None):
+        # name → (module, attribute, keep or None)
+        self.targets = targets
+        self.key = key or (lambda name, args: name)
+        self.last = {}
+        self._saved = []
 
-    def __init__(self):
+    def install(self):
         import importlib
 
-        self.last = {}
-        for name, mod_name, attr in self.TARGETS:
+        for name, (mod_name, attr, keep) in self.targets.items():
             mod = importlib.import_module(mod_name)
-            setattr(mod, attr, self._wrap(name, getattr(mod, attr)))
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(name, fn, keep))
+        return self
 
-    def _wrap(self, name, fn):
+    __enter__ = install
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        self._saved = []
+
+    def _wrap(self, name, fn, keep):
         def wrapped(*args, **kw):
-            key = (name, len(args[0])) if name == "scatter_rows" else (name, 0)
-            self.last[key] = (args, kw)
+            if keep is None or keep(args):
+                self.last[self.key(name, args)] = (args, kw)
             return fn(*args, **kw)
 
         return wrapped
+
+
+# the pipeline kernels' wrappers (K13–K16)
+PIPELINE_TARGETS = {
+    "prev_delta_apply": (RT, "prev_delta_apply", None),
+    "scatter_rows": ("kubernetes_tpu_torch.state.encoding", "scatter_rows", None),
+    "spread_chain_prev": (SPREAD_PLUGIN, "spread_chain_prev", None),
+    "ipa_chain_prev": (IPA_PLUGIN, "ipa_chain_prev", None),
+}
+
+
+def pipeline_key(name, args):
+    """K16's latest call of each array group (by group size); the other
+    pipeline kernels' latest call."""
+    return (name, len(args[0])) if name == "scatter_rows" else (name, 0)
 
 
 def harness_summary(items) -> dict:
@@ -1493,15 +1824,17 @@ def default_pod(i: int, prefix: str = "pod"):
 
 
 def spread_pod(i: int, prefix: str = "spread", when: str = "DoNotSchedule",
-               ts0: float = 1e6):
+               ts0: float = 1e6, priority: int = 0):
     """pod_topology_spread (maxSkew 5, DoNotSchedule on the zone, selecting
-    color=blue, itself blue) or, with ScheduleAnyway, the preferred twin."""
+    color=blue, itself blue) or, with ScheduleAnyway, the preferred twin;
+    with ``priority`` a pod of that priority (it could preempt)."""
     from kubernetes_tpu_torch.testutil import make_pod
 
-    return (make_pod().name(f"{prefix}-{i:06d}").uid(f"{prefix}-{i:06d}")
-            .namespace("default").creation_timestamp(ts0 + i)
-            .req({"cpu": "100m", "memory": "500Mi"}).label("color", "blue")
-            .topology_spread(5, ZONE_KEY, when, labels={"color": "blue"}).obj())
+    w = (make_pod().name(f"{prefix}-{i:06d}").uid(f"{prefix}-{i:06d}")
+         .namespace("default").creation_timestamp(ts0 + i)
+         .req({"cpu": "100m", "memory": "500Mi"}).label("color", "blue")
+         .topology_spread(5, ZONE_KEY, when, labels={"color": "blue"}))
+    return (w.priority(priority) if priority else w).obj()
 
 
 def check_bound_and_fit(what: str, store):
@@ -1528,7 +1861,7 @@ def check_bound_and_fit(what: str, store):
 
 
 def spread_cluster(dev_name: str, n_nodes: int, n_first: int, batch_size: int = 512,
-                   clock=None, pipeline: bool = False):
+                   clock=None, pipeline: bool = False, **sched_kw):
     """A TopologySpreading-shaped cluster: zoned nodes, then pod_default pods
     scheduled first through the path (as the suite does) — → the scheduler."""
     from kubernetes_tpu_torch.scheduler import TorchScheduler
@@ -1539,7 +1872,7 @@ def spread_cluster(dev_name: str, n_nodes: int, n_first: int, batch_size: int = 
         store.create("Node", zoned_node(i))
     kw = {} if clock is None else {"clock": clock, "batch_wait": 0}
     sched = TorchScheduler(store, batch_size=batch_size, device=dev_name,
-                           pipeline=pipeline, **kw)
+                           pipeline=pipeline, **kw, **sched_kw)
     sched.presize(n_nodes, n_first + 2048)
     for i in range(n_first):
         store.create("Pod", default_pod(i))
@@ -1684,7 +2017,8 @@ def zone1_node(i: int):
             .label(ZONE_KEY, "zone1").obj())
 
 
-def affinity_pod(kind: str, i: int, ns: str, ts0: float = 0.0, tag: str = ""):
+def affinity_pod(kind: str, i: int, ns: str, ts0: float = 0.0, tag: str = "",
+                 priority: int = 0):
     """The suites' pod templates (perf/workloads.py): pod_anti_affinity
     (green, required anti-affinity on the hostname), pod_affinity (blue,
     required affinity on the zone) and pod_preferred_affinity (red,
@@ -1696,6 +2030,8 @@ def affinity_pod(kind: str, i: int, ns: str, ts0: float = 0.0, tag: str = ""):
     w = (make_pod().name(f"{prefix}-{ns}-{i:06d}").uid(f"{prefix}-{ns}-{i:06d}")
          .namespace(ns).creation_timestamp(ts0 + i)
          .req({"cpu": "100m", "memory": "500Mi"}))
+    if priority:
+        w = w.priority(priority)
     if kind == "anti":
         return (w.label("color", "green").pod_affinity(
             HOST_KEY, {"color": "green"}, anti=True, namespaces=["sched-0", "sched-1"]).obj())
@@ -1715,7 +2051,7 @@ AFFINITY_SUITES = {
 
 
 def affinity_cluster(dev_name: str, suite: str, n_nodes: int, n_first: int,
-                     clock=None, pipeline: bool = False):
+                     clock=None, pipeline: bool = False, **sched_kw):
     """A suite's cluster: its nodes, then its first pods (namespace sched-0)
     scheduled through the path, as the suite does — → the scheduler."""
     from kubernetes_tpu_torch.scheduler import TorchScheduler
@@ -1726,7 +2062,8 @@ def affinity_cluster(dev_name: str, suite: str, n_nodes: int, n_first: int,
     for i in range(n_nodes):
         store.create("Node", node_of(i))
     kw = {} if clock is None else {"clock": clock, "batch_wait": 0}
-    sched = TorchScheduler(store, batch_size=512, device=dev_name, pipeline=pipeline, **kw)
+    sched = TorchScheduler(store, batch_size=512, device=dev_name, pipeline=pipeline, **kw,
+                           **sched_kw)
     sched.presize(n_nodes, n_first + 2048)
     for i in range(n_first):
         store.create("Pod", affinity_pod(kind, i, "sched-0"))
@@ -2083,28 +2420,12 @@ def time_kernels(sched, err: dict) -> list:
             "bytes": n_bytes, "ops": n_ops, "shape": {"C": c, "N": n, "B": b, "K": k},
         })
 
-    k1_in = [rep.valid, rep.request, rep.non_zero, rep.node_name_id, rep.tol_valid,
-             rep.tol_key, rep.tol_val, rep.tol_op, rep.tol_effect, rep.ports,
-             rep.ports_ip, rep.image_ids, snap.node_valid, snap.node_ready,
-             snap.node_name_ids, snap.unschedulable, snap.allocatable, dyn.requested,
-             dyn.non_zero, snap.taint_keys, snap.taint_vals, snap.taint_effects,
-             snap.ports, snap.ports_ip, snap.image_ids, na_mask, na_pref]
-    # of ImageLocality's per-id table K1 needs only the entries at the class
-    # rows' image ids, one f32 each
-    img_gathered = int((rep.image_ids >= 0).sum()) * img.element_size()
-    # per (class, node): taint × toleration matches, port × port and image ×
-    # image compares, ~12 arithmetic steps per resource dimension
-    pod_t, pod_p, pod_i = (rep.tol_key.shape[1], rep.ports.shape[1],
-                           rep.image_ids.shape[1])
-    node_t, node_p, node_i = (snap.taint_keys.shape[1], snap.ports.shape[1],
-                              snap.image_ids.shape[1])
     r = dyn.requested.shape[1]
-    k1_ops = c * n * (node_t * pod_t + pod_p * node_p + pod_i * node_i + 12 * r)
     row("filter_score_planes", "kubernetes_tpu_torch/csrc/filter_score.cu",
         "kubernetes_tpu/framework/runtime.py:852", "filter_score_kernel",
         lambda: filter_score_planes(rep, snap, dyn, na_mask, na_pref, img, fs_plan),
         lambda: filter_score_planes_plain(rep, snap, dyn, na_mask, na_pref, img, fs_plan),
-        nbytes(*k1_in, bits, raw) + img_gathered, k1_ops)
+        *k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw))
     # per (class, node, plane): the row max, the scaling, the floor, the add
     row("normalize_combine", "kubernetes_tpu_torch/csrc/normalize_combine.cu",
         "kubernetes_tpu/framework/runtime.py:857", "normalize_combine_kernel",
@@ -2130,6 +2451,30 @@ def time_kernels(sched, err: dict) -> list:
         lambda: auction_resolve_commit_plain(*a_args, work_req, work_nz),
         k4_bytes, commits * (r + 4), plain_reps=3)
     return rows
+
+
+def k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw):
+    """(bytes, operations) K1 needs on these inputs: every input read once
+    and both outputs written once; per (class, node) the taint × toleration
+    matches, port × port and image × image compares and ~12 arithmetic
+    steps per resource dimension."""
+    c, n = bits.shape
+    k1_in = [rep.valid, rep.request, rep.non_zero, rep.node_name_id, rep.tol_valid,
+             rep.tol_key, rep.tol_val, rep.tol_op, rep.tol_effect, rep.ports,
+             rep.ports_ip, rep.image_ids, snap.node_valid, snap.node_ready,
+             snap.node_name_ids, snap.unschedulable, snap.allocatable, dyn.requested,
+             dyn.non_zero, snap.taint_keys, snap.taint_vals, snap.taint_effects,
+             snap.ports, snap.ports_ip, snap.image_ids, na_mask, na_pref]
+    # of ImageLocality's per-id table K1 needs only the entries at the class
+    # rows' image ids, one f32 each
+    img_gathered = int((rep.image_ids >= 0).sum()) * img.element_size()
+    pod_t, pod_p, pod_i = (rep.tol_key.shape[1], rep.ports.shape[1],
+                           rep.image_ids.shape[1])
+    node_t, node_p, node_i = (snap.taint_keys.shape[1], snap.ports.shape[1],
+                              snap.image_ids.shape[1])
+    r = dyn.requested.shape[1]
+    ops = c * n * (node_t * pod_t + pod_p * node_p + pod_i * node_i + 12 * r)
+    return nbytes(*k1_in, bits, raw) + img_gathered, ops
 
 
 # --- phase 6: K5–K8 at the TopologySpreading shapes --------------------------------------
@@ -2590,7 +2935,9 @@ def time_torch_ops(counter: OpCounter, what: str) -> list:
 def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str) -> dict:
     """One more cycle of 512 pods from ``make_pod(i)`` on ``sched``'s
     cluster under torch.profiler: the cycle's wall, the device time by
-    kernel name, and the device's idle share of the cycle."""
+    kernel name, and the device's idle share of the cycle.  A pipelined
+    scheduler runs until idle under the profiler (its cycle dispatches the
+    batch; a later one binds it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2604,7 +2951,7 @@ def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str) -> dict
     r0 = sched.rounds_total
     with profile(activities=acts) as prof:
         t = time.perf_counter()
-        stats = sched.schedule_cycle()
+        stats = sched.run_until_idle() if sched.pipeline else sched.schedule_cycle()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     if stats.scheduled != 512:
@@ -2633,6 +2980,584 @@ def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str) -> dict
     else:
         log(f"profiled {what} cycle: the profiler recorded no device time (not measured)")
     return rec
+
+
+# --- phase 4b: the full auction and the exact scan at full width -----------------------
+
+# K1/K2 and the engine's own kernels on each engine's path
+SCAN_PATH_KERNELS = ("filter_score_planes", "normalize_combine", "scan_select_assume")
+FULL_PATH_KERNELS = ("filter_score_planes", "normalize_combine", "topk_rows",
+                     "auction_resolve_commit")
+
+
+def dual_node(i: int):
+    """A 4-cpu / 32Gi / 110-pod node in one of three zones, with its own hostname."""
+    from kubernetes_tpu_torch.testutil import make_node
+
+    return (make_node().name(f"node-{i:06d}")
+            .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+            .label(ZONE_KEY, ZONES3[i % len(ZONES3)]).label(HOST_KEY, f"node-{i:06d}").obj())
+
+
+def hetero_pod(i: int, prefix: str = "het", ts0: float = 0.0):
+    """The heterogeneous backlog's pod: cpu 100m + (i mod 400)m, 500Mi — a
+    512-pod batch holds 400 identity classes."""
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    return (make_pod().name(f"{prefix}-{i:06d}").uid(f"{prefix}-{i:06d}")
+            .namespace("default").creation_timestamp(ts0 + i)
+            .req({"cpu": f"{100 + i % 400}m", "memory": "500Mi"}).obj())
+
+
+def hetero_cluster(dev_name: str, n_nodes: int, n_first: int, clock=None,
+                   pipeline: bool = False, **sched_kw):
+    """n_nodes 4-cpu / 32Gi / 110-pod nodes and no pod scheduled first —
+    → the scheduler."""
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+
+    store = ObjectStore()
+    for i in range(n_nodes):
+        store.create("Node", host_node(i))
+    kw = {} if clock is None else {"clock": clock, "batch_wait": 0}
+    sched = TorchScheduler(store, batch_size=512, device=dev_name, pipeline=pipeline, **kw,
+                           **sched_kw)
+    sched.presize(n_nodes, n_first + 2560)
+    return sched
+
+
+# name → (cluster maker (device, nodes, first pods, clock, pipeline), scheduler
+# kwargs, measured pod maker, (nodes, first pods, measured pods) at full width and
+# cut for the cuda-vs-cpu check, the engine every measured batch takes, the
+# kernels the path must launch, the constraint checked)
+ENGINE_PATHS = {
+    "TopologySpreading scan": (
+        spread_cluster, {"assign_mode": "scan"}, lambda i, t="": spread_pod(i, "sc" + t),
+        (5000, 5000, 2000), (1000, 200, 512), "scan",
+        SCAN_PATH_KERNELS + ("spread_filter_bits", "spread_score_combine",
+                             "spread_update_row"), "zones"),
+    "TopologySpreading priority 10": (
+        spread_cluster, {}, lambda i, t="": spread_pod(i, "p10" + t, priority=10),
+        (5000, 5000, 2000), (1000, 200, 512), "scan",
+        SCAN_PATH_KERNELS + ("spread_filter_bits", "spread_score_combine",
+                             "spread_update_row"), "zones"),
+    "TopologySpreading priority 10, full auction": (
+        spread_cluster, {"assign_mode": "batch"},
+        lambda i, t="": spread_pod(i, "pb" + t, priority=10),
+        (5000, 5000, 512), (1000, 200, 128), "full",
+        FULL_PATH_KERNELS + ("spread_filter_bits", "spread_score_combine",
+                             "spread_update_classes"), "zones"),
+    "SchedulingPodAntiAffinity priority 10": (
+        lambda dev, n, f, clock=None, pipeline=False, **kw: affinity_cluster(
+            dev, "SchedulingPodAntiAffinity", n, f, clock=clock, pipeline=pipeline, **kw),
+        {}, lambda i, t="": affinity_pod("anti", i, "sched-1", ts0=1e6, tag=t, priority=10),
+        (5000, 1000, 1000), (1000, 200, 512), "full",
+        FULL_PATH_KERNELS + ("ipa_filter_bits", "ipa_score_combine", "ipa_update_classes"),
+        "anti"),
+    "SchedulingPreferredPodAffinity scan": (
+        lambda dev, n, f, clock=None, pipeline=False, **kw: affinity_cluster(
+            dev, "SchedulingPreferredPodAffinity", n, f, clock=clock, pipeline=pipeline, **kw),
+        {"assign_mode": "scan"},
+        lambda i, t="": affinity_pod("preferred", i, "sched-1", ts0=1e6, tag=t),
+        (5000, 5000, 1000), (1000, 200, 512), "scan",
+        SCAN_PATH_KERNELS + ("ipa_filter_bits", "ipa_score_combine", "ipa_update_row"), None),
+    "SchedulingPodAffinity scan": (
+        lambda dev, n, f, clock=None, pipeline=False, **kw: affinity_cluster(
+            dev, "SchedulingPodAffinity", n, f, clock=clock, pipeline=pipeline, **kw),
+        {"assign_mode": "scan"},
+        lambda i, t="": affinity_pod("affinity", i, "sched-1", ts0=1e6, tag=t),
+        (5000, 5000, 1000), (1000, 200, 512), "scan",
+        SCAN_PATH_KERNELS + ("ipa_filter_bits", "ipa_update_row"), "zone1"),
+    "heterogeneous backlog": (
+        hetero_cluster, {}, lambda i, t="": hetero_pod(i, "het" + t),
+        (5000, 0, 2048), (1000, 0, 512), "full", FULL_PATH_KERNELS, None),
+}
+
+
+def route_counter(sched) -> list:
+    """Record each dispatch's engine ("scan", "full" or "dedup") on this
+    scheduler instance."""
+    routes = []
+    orig = sched._fused_cycle
+
+    def fused_cycle(batch, mode, classes, *a, **kw):
+        routes.append("scan" if mode == "scan" else ("dedup" if classes is not None else "full"))
+        return orig(batch, mode, classes, *a, **kw)
+
+    sched._fused_cycle = fused_cycle
+    return routes
+
+
+def check_constraint(what: str, check, sched, pods) -> str:
+    if check == "zones":
+        zc = zone_counts(pods, ENGINE_PREFIX[what])
+        if max(zc) - min(zc) > 5:
+            fail(f"{what}: zone skew {zc} exceeds maxSkew 5")
+        return f"zone counts {zc} within maxSkew 5"
+    placed = [p.spec.node_name for p in pods]
+    if check == "anti":
+        green = [p.spec.node_name for p in pods if p.metadata.labels.get("color") == "green"]
+        if len(set(green)) != len(green):
+            fail(f"{what}: two green pods share a host")
+        return f"{len(green)} green pods on {len(set(green))} hosts"
+    if check == "zone1":
+        zone = {n.metadata.name: n.metadata.labels.get(ZONE_KEY)
+                for n in sched.store.list("Node")[0]}
+        if any(zone[name] != "zone1" for name in placed):
+            fail(f"{what}: a blue pod landed outside zone1")
+        return "every blue pod in zone1"
+    return "every pod bound within its node's capacity"
+
+
+ENGINE_PREFIX = {"TopologySpreading scan": "sc-", "TopologySpreading priority 10": "p10-",
+                 "TopologySpreading priority 10, full auction": "pb-"}
+
+
+def engine_path(dev_name: str, what: str, out_dir: Path, pipeline: bool = False,
+                recorder=None) -> dict:
+    """One engine path at full width: the cluster, its first pods through
+    the path, then the measured pods with the launch counts zeroed just
+    before them (and the recorder, when given, keeping the latest kernel
+    arguments); every measured pod bound, no node oversubscribed, the
+    path's constraint held, every measured batch through the expected
+    engine, its kernels launched; then one profiled cycle."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+
+    build_cluster, kw, make_pod, (n_nodes, n_first, n_pods), _cut, engine, need, check = \
+        ENGINE_PATHS[what]
+    label = what + (" (pipelined)" if pipeline else "")
+    fresh_heap()
+    t0 = time.perf_counter()
+    sched = build_cluster(dev_name, n_nodes, n_first, pipeline=pipeline, **kw)
+    for i in range(n_pods):
+        sched.store.create("Pod", make_pod(i))
+    setup_s = time.perf_counter() - t0
+    c0, r0, rr0 = sched.cycles, sched.rounds_total, sched.round_read_s
+    pw0 = dict(sched.phase_wall)
+    att0 = len(sched.attempt_seconds)
+    carried0 = sched.carried_pods
+    routes = route_counter(sched)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with GcWatch() as gcw:
+        if recorder is not None:
+            with recorder:
+                stats = sched.run_until_idle()
+        else:
+            stats = sched.run_until_idle()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    del sched._fused_cycle  # the instance wrapper: the profiled cycle runs unwrapped
+
+    pods = check_bound_and_fit(label, sched.store)
+    if stats.scheduled != n_pods:
+        fail(f"{label}: scheduled {stats.scheduled} of {n_pods}")
+    held = check_constraint(what, check, sched, pods)
+    if set(routes) != {engine}:
+        fail(f"{label}: the measured batches took {sorted(set(routes))}, not {engine}")
+    for k in need + (("prev_delta_apply",) if pipeline else ()):
+        if launches[k] <= 0:
+            fail(f"{label}: kernel {k} never launched on the main path")
+    if engine == "scan" and launches["scan_select_assume"] != n_pods:
+        fail(f"{label}: {launches['scan_select_assume']} scan steps for {n_pods} pods")
+    if engine == "full" and launches["scan_select_assume"]:
+        fail(f"{label}: the full auction ran scan steps")
+    carried = sched.carried_pods - carried0
+    if pipeline and carried <= 0:
+        fail(f"{label}: no placed pod reached a later dispatch as a carry")
+    cycles = sched.cycles - c0
+    rounds = sched.rounds_total - r0
+    phase = {k: sched.phase_wall[k] - pw0[k] for k in pw0}
+    att = np.asarray(sched.attempt_seconds[att0:])
+    unit = "steps" if engine == "scan" else "rounds"
+    rec = {
+        "nodes": n_nodes, "first_pods": n_first, "pods": n_pods, "batch_size": 512,
+        "engine": engine, "assign_mode": kw.get("assign_mode", "auto"), "pipeline": pipeline,
+        "setup_s": setup_s, "wall_s": wall, "pods_per_s": n_pods / wall, "cycles": cycles,
+        unit: rounds, f"{unit}_per_cycle": rounds / max(cycles, 1),
+        f"device_ms_per_{unit[:-1]}": phase["device"] / max(rounds, 1) * 1e3,
+        "host_read_s": sched.round_read_s - rr0, "phase_wall_s": phase, "constraint": held,
+        "launches": launches, "routes": routes, "carried_pods": carried,
+        "attempt_p50_ms": float(np.percentile(att, 50) * 1e3),
+        "attempt_p99_ms": float(np.percentile(att, 99) * 1e3),
+        "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds,
+        "node_tier": sched.encoder._n,
+    }
+    log(f"{label}/5000Nodes ({engine}): {n_pods} pods bound in {wall:.3f} s = "
+        f"{rec['pods_per_s']:.1f} pods/s; {cycles} cycles, "
+        f"{rec[f'{unit}_per_cycle']:.1f} {unit}/cycle, device half "
+        f"{rec[f'device_ms_per_{unit[:-1]}']:.4f} ms per {unit[:-1]}; {held}; attempt p50 "
+        f"{rec['attempt_p50_ms']:.1f} ms, p99 {rec['attempt_p99_ms']:.1f} ms; phase wall (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase.items())
+        + f"; setup {setup_s:.1f} s; launches {launches}")
+    fname = "profile_" + what.lower().replace(",", "").replace(" ", "_") \
+        + ("_pipelined" if pipeline else "") + ".txt"
+    rec["profile"] = profile_cycle(sched, out_dir, label, lambda i: make_pod(i, "prof"), fname)
+    return {"record": rec, "sched": sched}
+
+
+def engine_bindings(device: str, what: str):
+    """A path's cluster cut for the CPU half (1000 nodes, 200 first pods,
+    512 measured) — → (bindings, launches, routes)."""
+    from kubernetes_tpu_torch import kernels
+
+    build_cluster, kw, make_pod, _full, (n_nodes, n_first, n_pods), _e, _k, _c = \
+        ENGINE_PATHS[what]
+    t = [0.0]
+
+    def clock():
+        t[0] += 1e-6
+        return t[0]
+
+    sched = build_cluster(device, n_nodes, n_first, clock=clock, **kw)
+    for i in range(n_pods):
+        sched.store.create("Pod", make_pod(i))
+    routes = route_counter(sched)
+    kernels.reset_launches()
+    while sched.schedule_cycle().attempted:
+        pass
+    pods, _ = sched.store.list("Pod")
+    return ({p.metadata.name: p.spec.node_name for p in pods}, dict(kernels.LAUNCHES),
+            routes)
+
+
+def mixed_engine_bindings(device: str):
+    """1000 zoned nodes with hostnames and one queue whose batches take
+    every engine: zone-spread pods at priority 10 (the scan), hostname
+    anti-affinity pods at priority 10 (the full auction), pod_default pods
+    (the dedup engine) and the heterogeneous backlog's pods (the full
+    auction) — → (bindings, launches, routes)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+
+    t = [0.0]
+
+    def clock():
+        t[0] += 1e-6
+        return t[0]
+
+    store = ObjectStore()
+    for i in range(1000):
+        store.create("Node", dual_node(i))
+    sched = TorchScheduler(store, batch_size=512, device=device, clock=clock, batch_wait=0)
+    sched.presize(1000, 2560)
+    for i in range(512):
+        store.create("Pod", spread_pod(i, "mxs", priority=10, ts0=float(i)))
+    for i in range(512):
+        store.create("Pod", affinity_pod("anti", i, "sched-1", ts0=1e3, tag="mx",
+                                         priority=10))
+    for i in range(512):
+        store.create("Pod", default_pod(i, "mxd"))
+    for i in range(512):
+        store.create("Pod", hetero_pod(i, "mxh", ts0=1e4))
+    routes = route_counter(sched)
+    kernels.reset_launches()
+    while sched.schedule_cycle().attempted:
+        pass
+    pods, _ = store.list("Pod")
+    return ({p.metadata.name: p.spec.node_name for p in pods}, dict(kernels.LAUNCHES),
+            routes)
+
+
+# the engine runs, in order: (path, pipelined)
+ENGINE_RUNS = (
+    ("TopologySpreading scan", False), ("TopologySpreading scan", True),
+    ("TopologySpreading priority 10", False),
+    ("TopologySpreading priority 10, full auction", False),
+    ("SchedulingPodAntiAffinity priority 10", False),
+    ("SchedulingPodAntiAffinity priority 10", True),
+    ("SchedulingPreferredPodAffinity scan", False), ("SchedulingPodAffinity scan", False),
+    ("heterogeneous backlog", False),
+)
+# each engine timing row → the run whose launches it reports
+ENGINE_CARRIER = {
+    "scan_select_assume": "TopologySpreading scan",
+    "spread_update_row": "TopologySpreading scan",
+    "ipa_update_row (planes)": "SchedulingPreferredPodAffinity scan",
+    "ipa_update_row (tables)": "SchedulingPodAffinity scan",
+    "filter_score_planes (C = 512)": "heterogeneous backlog",
+    "normalize_combine (C = 512)": "heterogeneous backlog",
+    "topk_rows (C = 512)": "heterogeneous backlog",
+    "auction_resolve_commit (C = 512)": "heterogeneous backlog",
+    "ipa_update_classes (C = 512)": "SchedulingPodAntiAffinity priority 10",
+    "spread_update_classes (C = 512)": "TopologySpreading priority 10, full auction",
+}
+
+
+def rows512(args):
+    return args[0].shape[0] == 512 if hasattr(args[0], "shape") \
+        else args[0].valid.shape[0] == 512
+
+
+def scan_recorder():
+    return KernelArgs({"scan_select_assume": (RT, "scan_select_assume", None),
+                       "spread_update_row": (SPREAD_PLUGIN, "spread_update_row", None),
+                       "ipa_update_row": (IPA_PLUGIN, "ipa_update_row", None)})
+
+
+def full_recorder():
+    return KernelArgs({"filter_score_planes": (RT, "filter_score_planes", rows512),
+                       "normalize_combine": (RT, "normalize_combine", rows512),
+                       "topk_rows": (RT, "topk_rows", rows512),
+                       "auction_resolve_commit": (RT, "auction_resolve_commit", rows512),
+                       "ipa_update_classes": (IPA_PLUGIN, "ipa_update_classes",
+                                              lambda a: a[0].exist_anti_block.shape[0]
+                                              == 512),
+                       "spread_update_classes": (SPREAD_PLUGIN, "spread_update_classes",
+                                                 lambda a: a[0].match_pending.shape[0]
+                                                 == 512)})
+
+
+SCAN_REPLACES = {
+    "scan_select_assume": "kubernetes_tpu/framework/runtime.py:358",
+    "spread_update_row": "kubernetes_tpu/plugins/podtopologyspread.py:287",
+    "ipa_update_row": "kubernetes_tpu/plugins/interpodaffinity.py:447",
+}
+SCAN_SOURCES = {
+    "scan_select_assume": "kubernetes_tpu_torch/csrc/scan.cu",
+    "spread_update_row": "kubernetes_tpu_torch/csrc/spread.cu",
+    "ipa_update_row": "kubernetes_tpu_torch/csrc/interpodaffinity.cu",
+}
+
+
+def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: dict,
+                        dev) -> list:
+    """K17–K19 on the arguments of their latest call on the scan paths (K19
+    in both count forms), and K1–K4, K8 and K12 at C = B = 512 class rows —
+    K1–K4 on the heterogeneous backlog's latest full-auction round, K12 on
+    SchedulingPodAntiAffinity's, K8 on TopologySpreading's at priority 10
+    through the full auction: device time, the plain version's wall and the
+    least time the card could take, from what these inputs need."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import interpodaffinity as KI
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.kernels import spread as KSp
+    from kubernetes_tpu_torch.kernels.auction import (
+        auction_resolve_commit,
+        auction_resolve_commit_plain,
+    )
+    from kubernetes_tpu_torch.kernels.filter_score import (
+        filter_score_planes,
+        filter_score_planes_plain,
+    )
+    from kubernetes_tpu_torch.kernels.normalize import (
+        normalize_combine,
+        normalize_combine_plain,
+    )
+    from kubernetes_tpu_torch.kernels.topk import topk_rows, topk_rows_plain
+    from kubernetes_tpu_torch.plugins.interpodaffinity import InterPodAffinityPlugin
+    from kubernetes_tpu_torch.plugins.podtopologyspread import PodTopologySpreadPlugin
+
+    rows = []
+    iplug = InterPodAffinityPlugin()
+
+    def row(name, label, src, replaces, symbol, fn, plain_fn, n_bytes, n_ops, shape,
+            max_err, library_fn=None):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        rows.append({
+            "name": label, "kernel": name, "symbol": symbol, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": None, "max_abs_err": max_err,
+            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
+            "plain_ms": time_ms(plain_fn, reps=5, warmup=1), "bound_ms": least,
+            "bound_by": bound_by,
+            "library_ms": device_ms(library_fn) if library_fn else None,
+            "bytes": n_bytes, "ops": n_ops, "shape": shape})
+
+    # K17: pod i's bit and total rows read once, its nominated row, valid
+    # flag and request rows; the node's requested / non_zero rows read and
+    # written; per node a compare, a count and a max
+    (bits, full, total, i, nominated, valid, request, pod_nz, requested, node_nz, node_row,
+     feas), _ = scan_args["scan_select_assume"]
+    n, r = requested.shape
+    out = [requested.clone(), node_nz.clone(), node_row.clone(), feas.clone()]
+    a17 = (bits, full, total, i, nominated, valid, request, pod_nz)
+    row("scan_select_assume", "scan_select_assume", SCAN_SOURCES["scan_select_assume"],
+        SCAN_REPLACES["scan_select_assume"], "scan_select_kernel",
+        lambda: KS.scan_select_assume(*a17, *out),
+        lambda: KS.scan_select_assume_plain(*a17, *[o.clone() for o in out]),
+        nbytes(bits, total) + 4 + 1 + 4 * (r + 2) + 2 * 4 * (r + 2) + 8, 3 * n,
+        {"N": n, "R": r}, err["scan_select_assume"])
+
+    # K18: pod i's match column and, per matching row, the node's domain and
+    # counted bits; a read and a write per table add
+    (aux, i, at), _ = scan_args["spread_update_row"]
+    plug = PodTopologySpreadPlugin()
+    work = plug.engine_copy(aux)
+    b, cc, _bp = aux.match_pending.shape
+    node = max(int(at.reshape(-1)[0]), 0)
+    hit = aux.match_pending[:, :, i]
+    n_hit = int(hit.sum())
+    adds = int((hit & aux.counted_hard[:, node][:, None]).sum()
+               + (hit & aux.counted_soft[:, node][:, None]).sum())
+    row("spread_update_row", "spread_update_row", SCAN_SOURCES["spread_update_row"],
+        SCAN_REPLACES["spread_update_row"], "spread_update_row_kernel",
+        lambda: KSp.spread_update_row(work, i, at),
+        lambda: KSp.spread_update_row_plain(plug.engine_copy(aux), i, at),
+        4 + b * cc + n_hit * 4 + 2 * b + 8 * adds, b * cc,
+        {"B": b, "Cc": cc, "N": aux.dom_val.shape[-1], "D+1": aux.hard_counts.shape[-1]},
+        err["spread_update_row"])
+
+    # K19, per count form: per pending row (j, t) pod i matches, the domain
+    # at the node, and for planes the row's dom and count read and the
+    # count written (tables: one count); pod i's own term rows read once;
+    # for each pod j one of pod i's terms matches, score_dyn (and block_dyn
+    # for anti-affinity) read and written on the term's domain
+    for form, key in (("planes", "ipa_update_row"), ("tables", "ipa_update_row tables")):
+        (aux, i, at), _ = scan_args[key]
+        cnts = [getattr(aux, KI.GROUP_FIELDS[g][1]) for g in aux.present]
+        if any((c_.shape[-1] == aux.exist_anti_block.shape[1]) != (form == "planes")
+               for c_ in cnts):
+            fail(f"ipa_update_row timing: the {key} arguments are not in the {form} form")
+        node = max(int(at.reshape(-1)[0]), 0)
+        n_ = aux.exist_anti_block.shape[1]
+        d = aux.depth
+        nbytes_, nops = 4, 0
+        for g in aux.present:
+            dom_f, cnt_f = KI.GROUP_FIELDS[g]
+            dom, cnt = getattr(aux, dom_f), getattr(aux, cnt_f)
+            cross = {"req_affinity": aux.aff_term_cross,
+                     "req_anti_affinity": aux.anti_cross,
+                     "pref_affinity": aux.paff_cross,
+                     "pref_anti_affinity": aux.panti_cross}[g]
+            col = (aux.aff_cross_all[:, i:i + 1] & aux.req_aff_valid) \
+                if g == "req_affinity" else cross[:, :, i]
+            dat = dom[:, :, node]
+            inc = col & (dat < d)
+            n_inc = int(inc.sum())
+            nbytes_ += col.numel() + 4 * int(col.sum())
+            if cnt.shape[-1] == n_:  # planes: the row's domains read, its domain's counts written
+                n_same = int(((dom == dat[:, :, None]) & inc[:, :, None]).sum())
+                nbytes_ += n_inc * 4 * n_ + 8 * n_same
+                nops += n_inc * n_
+            else:  # tables: one count read and written
+                nbytes_ += n_inc * 8
+                nops += n_inc
+            same = (dom[i] == dom[i, :, node][:, None]) & (dom[i] < d)  # [T, N]
+            own = cross[i]  # [T, B]: pod i's term t matches pod j
+            n_cells = int(((own.t().float() @ same.float()) > 0).sum())
+            nbytes_ += 4 * dom.shape[1] * n_ + own.numel() \
+                + n_cells * (8 + (2 if g == "req_anti_affinity" else 0))
+            nops += n_cells * dom.shape[1]
+        work = iplug.engine_copy(aux)
+        row("ipa_update_row", f"ipa_update_row ({form})", SCAN_SOURCES["ipa_update_row"],
+            SCAN_REPLACES["ipa_update_row"], "ipa_update_row_kernel",
+            lambda: KI.ipa_update_row(work, i, at),
+            lambda: KI.ipa_update_row_plain(iplug.engine_copy(aux), i, at),
+            nbytes_, nops,
+            {"B": aux.exist_anti_block.shape[0], "N": n_, "D": d, "present": list(aux.present),
+             "planes": form == "planes"}, err["ipa_update_row"])
+
+    # the reused kernels at C = B = 512 on the heterogeneous backlog's latest
+    # full-auction round (the formulas of time_kernels)
+    args1, _ = full_args["filter_score_planes"]
+    rep, snap, dyn, na_mask, na_pref, img, fs_plan = args1
+    bits, raw = filter_score_planes(*args1)
+    c, n = bits.shape
+    k1_bytes, k1_ops = k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw)
+    shape = {"C": c, "N": n, "B": 512}
+    row("filter_score_planes", "filter_score_planes (C = 512)",
+        "kubernetes_tpu_torch/csrc/filter_score.cu", "kubernetes_tpu/framework/runtime.py:550",
+        "filter_score_kernel", lambda: filter_score_planes(*args1),
+        lambda: filter_score_planes_plain(*args1), k1_bytes, k1_ops, shape,
+        reuse_err["filter_score_planes"])
+    # K2 reads the raw planes only on feasible nodes
+    (bits2, full2, raw2, plan2), _ = full_args["normalize_combine"]
+    total, feas = normalize_combine(bits2, full2, raw2, plan2)
+    n_feas = int(feas.sum())
+    row("normalize_combine", "normalize_combine (C = 512)",
+        "kubernetes_tpu_torch/csrc/normalize_combine.cu",
+        "kubernetes_tpu/framework/runtime.py:550", "normalize_combine_kernel",
+        lambda: normalize_combine(bits2, full2, raw2, plan2),
+        lambda: normalize_combine_plain(bits2, full2, raw2, plan2),
+        nbytes(bits2, total, feas) + 4 * raw2.shape[0] * n_feas,
+        n_feas * raw2.shape[0] * 4, dict(shape, feasible=n_feas),
+        reuse_err["normalize_combine"])
+    (eff, k), _ = full_args["topk_rows"]
+    row("topk_rows", "topk_rows (C = 512)", "kubernetes_tpu_torch/csrc/topk_rows.cu",
+        "kubernetes_tpu/framework/runtime.py:571", "topk_pass_kernel",
+        lambda: topk_rows(eff, k), lambda: topk_rows_plain(eff, k),
+        nbytes(eff) + c * k * 8, c * n, dict(shape, K=k), reuse_err["topk_rows"],
+        library_fn=lambda: torch.topk(eff, k, dim=1))
+    a4, _ = full_args["auction_resolve_commit"]
+    kreq, knz = a4[9].clone(), a4[10].clone()
+    kc, _kch = auction_resolve_commit(*a4[:9], kreq, knz)
+    commits = int(kc.sum())
+    cv, ci, class_t, pos_of, unres, nom, nom_ok, req_b, nz_b = a4[:9]
+    rr = req_b.shape[1]
+    k4_bytes = (nbytes(cv, unres, nom_ok, req_b, nz_b)
+                + 4 * (ci.numel() + class_t.numel() + pos_of.numel() + nom.numel())
+                + 512 * 8 + commits * (rr + 2) * 4 * 2)
+    row("auction_resolve_commit", "auction_resolve_commit (C = 512)",
+        "kubernetes_tpu_torch/csrc/auction.cu", "kubernetes_tpu/framework/runtime.py:603",
+        "auction_kernel",
+        lambda: auction_resolve_commit(*a4[:9], a4[9].clone(), a4[10].clone()),
+        lambda: auction_resolve_commit_plain(*a4[:9], a4[9].clone(), a4[10].clone()),
+        k4_bytes, commits * (rr + 4), dict(shape, commits=commits),
+        reuse_err["auction_resolve_commit"])
+
+    # K12 at C = 512 on SchedulingPodAntiAffinity's latest full-auction round
+    (aux, commit, choice, class_t), _ = full_args["ipa_update_classes"]
+    work = iplug.engine_copy(aux)
+    committed = torch.nonzero(commit, as_tuple=True)[0]
+    ks = class_t[committed].long()
+    ns_ = choice[committed].long().clamp(0, aux.exist_anti_block.shape[1] - 1)
+    c, n = aux.exist_anti_block.shape
+    d = aux.depth
+    k12_bytes, k12_ops = commit.numel() + len(committed) * 8, 0
+    for g in aux.present:
+        dom_f, _cnt_f = KI.GROUP_FIELDS[g]
+        dom = getattr(aux, dom_f)
+        t = dom.shape[1]
+        cross = {"req_affinity": aux.aff_term_cross, "req_anti_affinity": aux.anti_cross,
+                 "pref_affinity": aux.paff_cross, "pref_anti_affinity": aux.panti_cross}[g]
+        hit_rows = cross[:, :, ks].any(dim=-1)
+        committer = torch.zeros(c, dtype=torch.bool, device=dev)
+        committer[ks] = True
+        rows_ = int(hit_rows.sum()) + int(committer.sum()) * t
+        k12_bytes += c * t * len(committed) * 5 + rows_ * 4 * n
+        k12_ops += c * t * len(committed) + rows_ * n
+    row("ipa_update_classes", "ipa_update_classes (C = 512)",
+        "kubernetes_tpu_torch/csrc/interpodaffinity.cu",
+        "kubernetes_tpu/plugins/interpodaffinity.py:766", "ipa_update_kernel",
+        lambda: KI.ipa_update_classes(work, commit, choice, class_t),
+        lambda: KI.ipa_update_classes_plain(iplug.engine_copy(aux), commit, choice, class_t),
+        k12_bytes, k12_ops, {"C": c, "N": n, "D": d, "commits": len(committed),
+                             "present": list(aux.present)},
+        reuse_err["ipa_update_classes"])
+
+    # K8 at C = 512 on the spread full auction's latest round: the commit
+    # flags read once; per committed pod its node and class and each row's
+    # match bit; per matched row its two counted bits and its domain; per
+    # table add a read and a write
+    (aux8, commit, choice, class_t), _ = full_args["spread_update_classes"]
+    splug = PodTopologySpreadPlugin()
+    work8 = splug.engine_copy(aux8)
+    c, cc, _cp = aux8.match_pending.shape
+    n = aux8.dom_val.shape[-1]
+    committed = torch.nonzero(commit, as_tuple=True)[0]
+    ks = class_t[committed].long()
+    ns8 = choice[committed].long().clamp(0, n - 1)
+    mp = aux8.match_pending[:, :, ks]
+    adds = int((aux8.counted_hard[:, ns8][:, None, :] & mp).sum()
+               + (aux8.counted_soft[:, ns8][:, None, :] & mp).sum())
+    row("spread_update_classes", "spread_update_classes (C = 512)",
+        "kubernetes_tpu_torch/csrc/spread.cu", "kubernetes_tpu/plugins/podtopologyspread.py:366",
+        "spread_update_kernel",
+        lambda: KSp.spread_update_classes(work8, commit, choice, class_t),
+        lambda: KSp.spread_update_classes_plain(splug.engine_copy(aux8), commit, choice,
+                                                class_t),
+        commit.numel() + len(committed) * (8 + c * cc) + int(mp.sum()) * 6 + 8 * adds, adds,
+        {"C": c, "Cc": cc, "N": n, "D+1": aux8.hard_counts.shape[-1],
+         "commits": len(committed)}, reuse_err["spread_update_classes"])
+    return rows
 
 
 def main() -> None:
@@ -2671,12 +3596,14 @@ def main() -> None:
     err.update(check_spread_kernels(dev))
     err.update(check_ipa_kernels(dev))
     err.update(check_pipeline_kernels(dev))
+    scan_err, reuse_err = check_scan_kernels(dev)
+    err.update(scan_err)
     record["kernel_check_s"] = time.perf_counter() - t
     out_dir = here / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
 
     counters = OpCounter()
-    kargs = KernelArgs()
+    kargs = KernelArgs(PIPELINE_TARGETS, key=pipeline_key).install()
     t = time.perf_counter()
     ns = northstar("cuda", counters)
     record["northstar"] = ns["record"]
@@ -2733,6 +3660,21 @@ def main() -> None:
             ("TopologySpreading", topo["record"], topo_pipe["record"]),
             ("SchedulingPreferredPodAffinity",
              affinity["SchedulingPreferredPodAffinity"]["record"], pref_pipe["record"]))}
+    # the full auction and the exact scan at full width: each synchronous
+    # run keeps its kernels' latest arguments for the timing phase
+    engine_runs, recorders = {}, {}
+    for what, pipeline in ENGINE_RUNS:
+        t = time.perf_counter()
+        recorder = None
+        if not pipeline:
+            recorder = scan_recorder() if ENGINE_PATHS[what][5] == "scan" else full_recorder()
+            recorders[what] = recorder
+        key = what + (" (pipelined)" if pipeline else "")
+        engine_runs[key] = engine_path("cuda", what, out_dir, pipeline=pipeline,
+                                       recorder=recorder)["record"]
+        engine_runs[key]["phase_s"] = time.perf_counter() - t
+    record["engine_paths"] = engine_runs
+
     log("torch-op programs on the path: " + "; ".join(
         f"{r['name']} ({r['shape']}): {r['ms']:.5f} ms device, {r['calls_per_cycle']} "
         f"calls a cycle, bound {r['bound_ms']:.7f} ms ({r['bound_by']})" for r in torch_ops))
@@ -2800,6 +3742,35 @@ def main() -> None:
             f"bindings ({len(gb)} pods, {unbound} unschedulable) in "
             f"{time.perf_counter() - t:.1f} s")
 
+    record["engine_cuda_vs_cpu"] = {}
+    for what in list(ENGINE_PATHS) + ["mixed queue"]:
+        t = time.perf_counter()
+        if what == "mixed queue":
+            (gb, gl, gr), (cb, _, cr) = mixed_engine_bindings("cuda"), mixed_engine_bindings("cpu")
+            need = ("scan_select_assume", "spread_update_row", "topk_rows",
+                    "ipa_update_classes")
+            if not {"scan", "full", "dedup"} <= set(gr):
+                fail(f"mixed queue: the batches took {gr}, not every engine")
+        else:
+            (gb, gl, gr), (cb, _, cr) = engine_bindings("cuda", what), engine_bindings("cpu", what)
+            need = ENGINE_PATHS[what][6]
+        if gb != cb:
+            diff = [k for k in gb if gb[k] != cb.get(k)]
+            fail(f"{what} (1000 nodes): cuda and cpu bindings differ for {len(diff)} pods, "
+                 f"e.g. {diff[:3]}")
+        if gr != cr:
+            fail(f"{what} (1000 nodes): cuda routes {gr} differ from cpu routes {cr}")
+        for k_ in need:
+            if gl[k_] <= 0:
+                fail(f"{what} (1000 nodes): kernel {k_} never launched ({gl})")
+        unbound = sum(1 for v in gb.values() if not v)
+        if unbound:
+            fail(f"{what} (1000 nodes): {unbound} pods unbound")
+        record["engine_cuda_vs_cpu"][what] = {"pods": len(gb), "routes": gr, "launches": gl,
+                                              "s": time.perf_counter() - t}
+        log(f"{what}, 1000 nodes: cuda == cpu bindings ({len(gb)} pods, routes {gr}) in "
+            f"{time.perf_counter() - t:.1f} s")
+
     record["cuda_pipelined_vs_sync"] = {}
     for kind_ in ("northstar", "spread", "preferred", "anti"):
         t = time.perf_counter()
@@ -2809,6 +3780,17 @@ def main() -> None:
     pref = affinity["SchedulingPreferredPodAffinity"]
     rows = (time_kernels(ns["sched"], err) + time_spread_kernels(topo["sched"], err)
             + time_ipa_kernels(pref["sched"], err) + time_pipeline_kernels(path_calls, err))
+    scan_args = dict(recorders["TopologySpreading scan"].last)
+    scan_args["ipa_update_row"] = \
+        recorders["SchedulingPreferredPodAffinity scan"].last["ipa_update_row"]
+    scan_args["ipa_update_row tables"] = \
+        recorders["SchedulingPodAffinity scan"].last["ipa_update_row"]
+    full_args = dict(recorders["heterogeneous backlog"].last)
+    full_args["ipa_update_classes"] = \
+        recorders["SchedulingPodAntiAffinity priority 10"].last["ipa_update_classes"]
+    full_args["spread_update_classes"] = \
+        recorders["TopologySpreading priority 10, full auction"].last["spread_update_classes"]
+    engine_rows = time_engine_kernels(scan_args, full_args, err, reuse_err, dev)
     # device_ms's fallback, held against the profiler on one elementwise op
     # (4M floats), so that a run that needs it uses a method checked here
     x = torch.zeros(1 << 22, device=dev)
@@ -2830,6 +3812,23 @@ def main() -> None:
         r["launches"] = carrier.get(r["name"], topo)["record"]["launches"][r["name"]]
         r["launches_by_path"] = {p_: v["record"]["launches"].get(r["name"])
                                  for p_, v in paths.items()}
+    # the engine rows: K17 and K18 on the TopologySpreading scan, K19 on the
+    # two pod-affinity scans (planes, tables), the C = 512 rows on the full
+    # auctions that gave their arguments
+    for r in engine_rows:
+        run = engine_runs[ENGINE_CARRIER[r["name"]]]
+        r["launches"] = run["launches"][r["kernel"]]
+        # the kernel's device time per launch inside the path's profiled
+        # cycle (idle gaps between launches; the timed calls run back to back)
+        hits = [(ms, cnt) for ms, cnt, name in run["profile"].get("top", [])
+                if name.startswith(r["symbol"] + "(")]
+        r["path_ms"] = sum(ms for ms, _ in hits) / max(sum(c for _, c in hits), 1) \
+            if hits else None
+        r["launches_by_path"] = {p_: v["launches"].get(r["kernel"])
+                                 for p_, v in engine_runs.items()}
+        if r["launches"] <= 0:
+            fail(f"{r['name']}: no launch on {ENGINE_CARRIER[r['name']]}")
+    rows += engine_rows
     record["kernels"] = rows
     record["profile"] = profile_cycle(
         ns["sched"], out_dir, "NorthStar-shaped",

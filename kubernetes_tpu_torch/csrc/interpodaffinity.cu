@@ -1,9 +1,11 @@
 // K9–K12: InterPodAffinity's count planes and tables for the identity-class
-// dedup cycle; K15: their deep-pipeline chain hook.
+// dedup cycle (and, at identity classes, the full auction); K15: their
+// deep-pipeline chain hook; K19: the exact scan's per-pod update.
 //
 // Replaces (JAX package): plugins/interpodaffinity.py prepare (:197-333,
 // with _counts :166-195), filter (:337-364), score (:368-385) + normalize
-// (:387-398), update_batch_classes (:676-764) and chain_prev (:533-670),
+// (:387-398), update_batch_classes (:676-764), update_batch (:766-864),
+// chain_prev (:533-670) and update (:447-530),
 // with the ops/segment.py domain gather and scatter-add (:27-97) they are
 // built on.
 //
@@ -61,6 +63,24 @@
 //             of integer values: exact in any order below 2^24.
 //   Bound: latency for count (≤ B0 pods a row); bytes for own (node_topo's
 //   key column read once per placed prev term).
+//
+// K19 ipa_update_row: the scan's step update (update, :447-530) — pod i
+//   placed on the node K17 wrote to node_row[i] (read on the card; < 0: no
+//   change), at full-batch rows B, both count forms, one launch for every
+//   present term group.  One thread per (pending pod j, node n): (1, 2, 4)
+//   each of j's terms that pod i matches, where pod i's node has the key,
+//   adds one to j's plane over the nodes of that domain (planes form) or,
+//   by the row's first thread, to j's table at the domain (tables form),
+//   and the keyed required-affinity terms add to aff_total[j]; (3) pod i's
+//   own required anti-affinity terms that match j block n when n shares the
+//   term's domain at pod i's node; (5) pod i's own terms score j at such n:
+//   + hardPodAffinityWeight per required-affinity term, then + the weight
+//   of each preferred-affinity term, then − the weight of each preferred
+//   anti-affinity term, added to score_dyn in the reference's order.  Each
+//   (j, t, n) cell has one writer: no atomics.  The reference rewrites the
+//   same [B, T, N] planes with one-hot compares.  Bound: bytes (j's domain
+//   planes of every group with a term pod i matches, read once, and
+//   score_dyn read; a few of them written).
 //
 // Numerics (built with --fmad=false): every score term is an integer-valued
 // float32 below 2^24, so sums are exact in any order; the normalization is
@@ -625,5 +645,125 @@ extern "C" int launch_ipa_chain_own(int B0, int T, int C, int N, int K, int miss
       T, C, N, K, missing, block, (const uint8_t*)mm, (const int32_t*)topo_key,
       (const uint8_t*)term_valid, (const int32_t*)rows, (const int32_t*)node_topo,
       (const float*)wt, w_scalar, sign, (uint8_t*)block_dyn, (float*)score_dyn);
+  return (int)cudaGetLastError();
+}
+
+// --- K19 ----------------------------------------------------------------------------
+
+// one term group of the full-batch aux for K19 (T = 0: the group is absent)
+struct RowGroup {
+  int T;                      // terms per pod
+  int W;                      // count width: N (planes) or D + 1 (tables)
+  const int32_t* dom;         // [B, T, N]
+  int32_t* cnt;               // [B, T, W]
+  const uint8_t* cross;       // [B, T, B]: term (b, t) matches pod j
+  const float* wt;            // [B, T] or null (w_scalar)
+  float w_scalar;
+};
+
+#define ROW_THREADS 256
+
+__device__ __forceinline__ bool count_inc(const RowGroup& g, int j, int t, int B, int N,
+                                          int D, int i, int node, bool all_cross,
+                                          const uint8_t* row_valid, int* dat) {
+  // pending pod j's term (j, t) gains pod i where i matches it and pod i's
+  // node has the term's key
+  const long long jt = (long long)j * g.T + t;
+  const bool match = all_cross ? row_valid[jt] : g.cross[jt * B + i];
+  if (!match) return false;
+  *dat = g.dom[jt * N + node];
+  return *dat < D;
+}
+
+__device__ __forceinline__ void bump_counts(const RowGroup& g, int j, int n, int B, int N,
+                                            int D, int i, int node, bool all_cross,
+                                            const uint8_t* row_valid, int* mass) {
+  for (int t = 0; t < g.T; ++t) {
+    int dat;
+    if (!count_inc(g, j, t, B, N, D, i, node, all_cross, row_valid, &dat)) continue;
+    const long long jt = (long long)j * g.T + t;
+    if (g.W == N) {  // planes: every node of the domain
+      if (g.dom[jt * N + n] == dat) g.cnt[jt * N + n] += 1;
+    } else if (n == 0) {  // tables: one add, by the row's first thread
+      g.cnt[jt * g.W + dat] += 1;
+    }
+    *mass += 1;
+  }
+}
+
+__device__ __forceinline__ float own_plane(const RowGroup& g, int j, int n, int B, int N,
+                                           int D, int i, int node) {
+  // Σ_t weight(i, t) over pod i's terms that match pod j and share pod i's
+  // node's domain at node n (the reference's plane(), one (j, n) entry)
+  float s = 0.0f;
+  for (int t = 0; t < g.T; ++t) {
+    const long long it = (long long)i * g.T + t;
+    if (!g.cross[it * B + j]) continue;
+    const int dv = g.dom[it * N + n];
+    if (dv >= D || dv != g.dom[it * N + node]) continue;
+    s = __fadd_rn(s, g.wt ? g.wt[it] : g.w_scalar);
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(ROW_THREADS) ipa_update_row_kernel(
+    int B, int N, int D, int i, const int32_t* __restrict__ node_at,  // pod i's node
+    RowGroup aff, const uint8_t* __restrict__ aff_cross_all,  // [B, B]
+    const uint8_t* __restrict__ req_aff_valid,                // [B, T1]
+    int32_t* __restrict__ aff_total,                          // [B]
+    RowGroup anti, RowGroup paff, RowGroup panti,
+    uint8_t* __restrict__ block_dyn, float* __restrict__ score_dyn) {
+  const int node = *node_at;
+  if (node < 0) return;  // pod i was not placed: the step changes nothing
+  const int j = blockIdx.y;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  // 1), 2), 4): pod j's count state gains pod i
+  if (aff.T && aff_cross_all[(long long)j * B + i]) {
+    int mass = 0;
+    bump_counts(aff, j, n, B, N, D, i, node, true, req_aff_valid, &mass);
+    if (n == 0 && mass) aff_total[j] += mass;  // the table mass, one per keyed term
+  }
+  int unused = 0;
+  if (anti.T) bump_counts(anti, j, n, B, N, D, i, node, false, nullptr, &unused);
+  if (paff.T) bump_counts(paff, j, n, B, N, D, i, node, false, nullptr, &unused);
+  if (panti.T) bump_counts(panti, j, n, B, N, D, i, node, false, nullptr, &unused);
+  // 3): pod i's own required anti-affinity terms block pod j on their domains
+  const long long jn = (long long)j * N + n;
+  if (anti.T && own_plane(anti, j, n, B, N, D, i, node) > 0.0f) block_dyn[jn] = 1;
+  // 5): pod i's own terms score pod j, added in the reference's order
+  float s = score_dyn[jn];
+  const float s0 = s;
+  if (aff.T) s = __fadd_rn(s, own_plane(aff, j, n, B, N, D, i, node));
+  if (paff.T) s = __fadd_rn(s, own_plane(paff, j, n, B, N, D, i, node));
+  if (panti.T) s = __fsub_rn(s, own_plane(panti, j, n, B, N, D, i, node));
+  if (s != s0) score_dyn[jn] = s;
+}
+
+extern "C" int launch_ipa_update_row(
+    int B, int N, int D, int i, const void* node_at,
+    int T1, int W1, const void* dom_aff, void* aff_cnt, const void* aff_term_cross,
+    const void* aff_cross_all, const void* req_aff_valid, void* aff_total, float hard_weight,
+    int T2, int W2, const void* dom_anti, void* anti_cnt, const void* anti_cross,
+    int T3, int W3, const void* dom_paff, void* paff_cnt, const void* paff_cross,
+    const void* paff_weight,
+    int T4, int W4, const void* dom_panti, void* panti_cnt, const void* panti_cross,
+    const void* panti_weight,
+    void* block_dyn, void* score_dyn, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  RowGroup aff{T1, W1, (const int32_t*)dom_aff, (int32_t*)aff_cnt,
+               (const uint8_t*)aff_term_cross, nullptr, hard_weight};
+  // the block reads only whether a term hits: weight 1
+  RowGroup anti{T2, W2, (const int32_t*)dom_anti, (int32_t*)anti_cnt,
+                (const uint8_t*)anti_cross, nullptr, 1.0f};
+  RowGroup paff{T3, W3, (const int32_t*)dom_paff, (int32_t*)paff_cnt,
+                (const uint8_t*)paff_cross, (const float*)paff_weight, 0.0f};
+  RowGroup panti{T4, W4, (const int32_t*)dom_panti, (int32_t*)panti_cnt,
+                 (const uint8_t*)panti_cross, (const float*)panti_weight, 0.0f};
+  dim3 grid((N + ROW_THREADS - 1) / ROW_THREADS, B);
+  ipa_update_row_kernel<<<grid, ROW_THREADS, 0, (cudaStream_t)stream>>>(
+      B, N, D, i, (const int32_t*)node_at, aff, (const uint8_t*)aff_cross_all,
+      (const uint8_t*)req_aff_valid, (int32_t*)aff_total, anti, paff, panti,
+      (uint8_t*)block_dyn, (float*)score_dyn);
   return (int)cudaGetLastError();
 }

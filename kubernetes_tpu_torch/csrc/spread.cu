@@ -1,9 +1,11 @@
 // K5–K8: PodTopologySpread's domain count tables for the identity-class
-// dedup cycle; K14: their deep-pipeline chain hook.
+// dedup cycle (and, at identity classes, the full auction); K14: their
+// deep-pipeline chain hook; K18: the exact scan's per-pod update.
 //
 // Replaces (JAX package): plugins/podtopologyspread.py prepare (:112-134),
 // filter (:166-182), score (:186-215) + normalize (:217-232),
-// update_batch_classes (:341-364) and chain_prev (:306-339), with the
+// update_batch_classes (:341-364), update_batch (:366-388), chain_prev
+// (:306-339) and update (:287-304), with the
 // ops/segment.py domain gather, scatter-add and any (:27-97) they are built
 // on.
 //
@@ -36,6 +38,13 @@
 //   where that node counts.  The reference scatters a [C, Cc, B0] float
 //   plane over a [.., B0, D+1] one-hot; the integer atomics need none.
 //   Bound: latency (≤ C · Cc · B0 threads, a few hundred bytes written).
+// K18 spread_update_row: the scan's step update (update, :287-304) — pod i
+//   placed on the node K17 wrote to node_row[i] (read on the card; < 0: no
+//   change).  One thread per (pending pod j, constraint) whose selector
+//   matches pod i: one add at the node's domain (the trash slot for a
+//   keyless node, as the reference's point scatter) where the node counts
+//   for j.  No one-hot, no host read.  Bound: latency (B · Cc threads, the
+//   match column read once).
 //
 // Numerics (built with --fmad=false): the score term is cnt · w + (maxSkew −
 // 1) as a rounded multiply then a rounded add, summed over the constraints in
@@ -434,6 +443,44 @@ extern "C" int launch_spread_chain(int B0, int C, int Cc, int N, int D1, const v
   dim3 grid((B0 + threads - 1) / threads, C * Cc);
   spread_chain_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       B0, Cc, N, D1, (const uint8_t*)match, (const int32_t*)rows,
+      (const uint8_t*)counted_hard, (const uint8_t*)counted_soft, (const int32_t*)dom_val,
+      (int32_t*)hard, (int32_t*)soft);
+  return (int)cudaGetLastError();
+}
+
+// --- K18 ----------------------------------------------------------------------------
+
+__global__ void spread_update_row_kernel(int B, int Cc, int Bp, int N, int D1, int i,
+                                         const int32_t* __restrict__ node_at,  // pod i's node
+                                         const uint8_t* __restrict__ match_pending,  // [B, Cc, Bp]
+                                         const uint8_t* __restrict__ counted_hard,  // [B, N]
+                                         const uint8_t* __restrict__ counted_soft,  // [B, N]
+                                         const int32_t* __restrict__ dom_val,  // [B, Cc, N]
+                                         int32_t* __restrict__ hard,  // [B, Cc, D1]
+                                         int32_t* __restrict__ soft) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;  // j * Cc + cc
+  if (row >= B * Cc) return;
+  const int n = *node_at;
+  if (n < 0) return;  // pod i was not placed: the step changes nothing
+  if (!match_pending[(long long)row * Bp + i]) return;
+  const int j = row / Cc;
+  const int dv = dom_val[(long long)row * N + n];  // the trash slot for a keyless node
+  // one thread owns each (j, cc) row: plain adds, no other thread writes it
+  if (counted_hard[(long long)j * N + n]) hard[(long long)row * D1 + dv] += 1;
+  if (counted_soft[(long long)j * N + n]) soft[(long long)row * D1 + dv] += 1;
+}
+
+extern "C" int launch_spread_update_row(int B, int Cc, int Bp, int N, int D1, int i,
+                                        const void* node_at, const void* match_pending,
+                                        const void* counted_hard, const void* counted_soft,
+                                        const void* dom_val, void* hard, void* soft,
+                                        void* stream) {
+  if (B <= 0 || Cc <= 0) return 0;
+  const int threads = 256;
+  const int rows = B * Cc;
+  spread_update_row_kernel<<<(rows + threads - 1) / threads, threads, 0,
+                             (cudaStream_t)stream>>>(
+      B, Cc, Bp, N, D1, i, (const int32_t*)node_at, (const uint8_t*)match_pending,
       (const uint8_t*)counted_hard, (const uint8_t*)counted_soft, (const int32_t*)dom_val,
       (int32_t*)hard, (int32_t*)soft);
   return (int)cudaGetLastError();

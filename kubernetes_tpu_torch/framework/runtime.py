@@ -1,20 +1,24 @@
-"""Batched framework runtime: plugin composition + the identity-class dedup
-assignment engine, in torch.
+"""Batched framework runtime: plugin composition and the three assignment
+engines, in torch.
 
 Reference: the JAX package's framework/runtime.py — ``PrevBatch`` (:40-63),
 ``coupling_flags`` (:90), ``prepare`` (:172), ``chain_prev`` (:183-195),
 ``run_filters`` / ``run_scores`` / ``compute`` / ``diagnose_bits``
-(:199-255) and ``_batch_assign_dedup`` (:747-977) — and the scheduler's
-``apply_prev_delta`` (scheduler.py:897-916) over K13.  Both
-run through the kernels (kernels/): K1 filter bits + raw planes, then the
-live dynamic plugins' filters folded into the bit plane (PodTopologySpread:
-K6, InterPodAffinity: K10), K2 normalize + weighted total, then the dynamic
-plugins' scores folded into the total (K7, K11) — the plugin compositions
-and the dedup engine's rounds alike — and, in the engine, K3 top-K
-candidates in (value desc, row asc) order, K4 the propose/resolve auction
-with its scatter-add commit, and the dynamic plugins' class-state updates
-(K8, K12).  On CPU tensors each kernel wrapper takes its plain torch
-version.
+(:199-255), the exact serial scan ``greedy_assign`` (:327-432, with
+``select_host`` :299 and ``_apply_dynamic`` :434), the full auction
+``batch_assign`` (:450-745) and its identity-class dedup form
+``_batch_assign_dedup`` (:747-977) — and the scheduler's
+``apply_prev_delta`` (scheduler.py:897-916) over K13.  All run through the
+kernels (kernels/): K1 filter bits + raw planes, then the live dynamic
+plugins' filters folded into the bit plane (PodTopologySpread: K6,
+InterPodAffinity: K10), K2 normalize + weighted total, then the dynamic
+plugins' scores folded into the total (K7, K11).  The auctions add K3
+top-K candidates in (value desc, row asc) order, K4 the propose/resolve
+auction with its scatter-add commit, and the dynamic plugins' round
+updates (K8, K12); the full auction is the dedup engine at one class per
+pod.  The scan runs K1, K2, K6, K7, K10 and K11 on one pod's row per step,
+then K17 (select + assume) and the plugins' row updates (K18, K19).  On
+CPU tensors each kernel wrapper takes its plain torch version.
 
 Ties break by lowest node row (deterministic; no tie noise).
 """
@@ -34,6 +38,7 @@ from ..kernels.filter_score import (
     RAW_PLANES,
     FilterScorePlan,
     filter_score_planes,
+    pod_row,
 )
 from ..kernels.normalize import (
     KIND_DEFAULT,
@@ -43,6 +48,7 @@ from ..kernels.normalize import (
     normalize_combine,
 )
 from ..kernels.prev_delta import prev_delta_apply
+from ..kernels.scan import scan_select_assume
 from ..kernels.topk import topk_rows
 from ..plugins.nodeaffinity import NodeAffinityPlugin
 from ..plugins.noderesources import BalancedAllocationPlugin, FitPlugin
@@ -62,12 +68,12 @@ class AssignResult(NamedTuple):
     node_row: torch.Tensor  # i32[B] assigned node row, -1 = unschedulable
     feasible_count: torch.Tensor  # i32[B] number of feasible nodes seen
     dyn: DynamicState  # final dynamic state after all assignments
-    rounds: int = 0  # engine rounds executed
-    # round 0's pass-bit plane i32[C, N] (the pre-assignment state the
-    # diagnosis reads); None when no round ran
+    rounds: int = 0  # engine rounds executed (scan steps for greedy_assign)
+    # the auctions' round-0 pass-bit plane i32[C, N] (the pre-assignment
+    # state the diagnosis reads); None when no round ran, and for the scan
     diag_plane: Optional[torch.Tensor] = None
-    # host wall spent in the per-round read of the loop condition (seconds;
-    # it waits for the round's kernels)
+    # host wall spent in the auctions' per-round read of the loop condition
+    # (seconds; it waits for the round's kernels); the scan reads nothing
     host_read_s: float = 0.0
 
 
@@ -361,7 +367,92 @@ class BatchedFramework:
         )
         return self._plans[live]
 
-    # --- identity-class dedup assignment --------------------------------------
+    # --- the exact serial scan (B9) ---------------------------------------------
+
+    def greedy_assign(self, batch, snap, dyn, auxes, order) -> AssignResult:
+        """Schedule the batch pod by pod in ``order`` with exact
+        greedy-sequential semantics (the reference's greedy_assign,
+        runtime.py:327-432, with no tie noise), bit for bit.
+
+        Each step computes pod i's row against the carried state: K1 over
+        the pod's single row (the static filters and scores as in the
+        reference's precompute — they do not read the dynamic state — and
+        Fit / BalancedAllocation as its filter_row / score_row), the live
+        dynamic plugins' filter and score on their aux row (K6 / K10, K7 /
+        K11), K2's normalized weighted total; then K17 selects the node
+        (``select_host``: the first maximum, the nominated row when it is
+        feasible) and assumes the pod's request into ``dyn``, writing
+        ``node_row[i]`` on the device, and ``_apply_dynamic`` runs each live
+        plugin's ``update`` (K18, K19), which reads that node there.  The
+        host knows the trip count — the positions of ``order`` up to the
+        last valid pod, from one read of ``batch.valid`` before the first
+        step — so the steps queue back to back with no device→host read
+        between the first and the last.  ``order`` is a host sequence of
+        pod rows.  The inputs are not modified: the scan works on copies
+        of ``dyn`` and of the live auxes' mutable state."""
+        order = np.asarray(order, dtype=np.int64)
+        valid = np.asarray(batch.valid.cpu(), dtype=bool)
+        hits = np.nonzero(valid[order])[0]
+        n_valid = int(hits[-1]) + 1 if hits.size else 0
+        dev = snap.device
+        b = batch.valid.shape[0]
+        live = self._live(auxes)
+        fs_plan, comb_plan = self.kernel_plans(self._live_names(live))
+        full = self._full()
+        na_mask, na_pref, img_scaled = self.static_inputs(batch, snap, dyn)
+        live = [(pw, pw.plugin.engine_copy(aux)) for pw, aux in live]
+        dyn = DynamicState(requested=dyn.requested.clone(), non_zero=dyn.non_zero.clone())
+        node_row = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        feasible_count = torch.zeros((b,), dtype=torch.int32, device=dev)
+        for k in range(n_valid):
+            i = int(order[k])
+            rows = [(pw, pw.plugin.row(aux, i)) for pw, aux in live]
+            bits, raw = filter_score_planes(pod_row(batch, i), snap, dyn, na_mask[i:i + 1],
+                                            na_pref[i:i + 1], img_scaled, fs_plan)
+            self._fold_filters(rows, bits, fs_plan)
+            total, _ = normalize_combine(bits, full, raw, comb_plan)
+            self._fold_scores(rows, bits, full, total)
+            scan_select_assume(bits, full, total, i, batch.nominated_row, batch.valid,
+                               batch.request, batch.non_zero, dyn.requested, dyn.non_zero,
+                               node_row, feasible_count)
+            self._apply_dynamic(live, i, node_row[i:i + 1], batch, snap)
+        return AssignResult(node_row=node_row, feasible_count=feasible_count, dyn=dyn,
+                            rounds=n_valid)
+
+    @staticmethod
+    def _apply_dynamic(live, i: int, node_at, batch, snap) -> None:
+        """The plugins' half of the scan's assume (the reference's
+        _apply_dynamic, runtime.py:434-448; K17 did the resources): each
+        live dynamic plugin's ``update`` with pod i at ``node_at`` (i32[1]
+        on the device; below 0: not placed), in place."""
+        for pw, aux in live:
+            fn = getattr(pw.plugin, "update", None)
+            if fn is not None:
+                fn(aux, i, node_at, batch, snap)
+
+    # --- the full auction (B8) and its identity-class dedup form -----------------
+
+    def batch_assign(self, batch, snap, dyn, auxes, order, coupling: CouplingFlags,
+                     classes=None) -> AssignResult:
+        """Whole-batch parallel assignment (the reference's batch_assign,
+        runtime.py:450-745, ``key=None``), bit for bit.  ``classes`` selects
+        the identity-class dedup path (``_batch_assign_dedup``); without it
+        the full path runs the dedup engine at one class per pod — the
+        reference's update_batch is update_batch_classes at pod
+        granularity (podtopologyspread.py:341-347), its per-pod planes are
+        the class planes at identity classes, and its full argmax over
+        unused nodes is the dedup engine's top-min(B, N) candidate walk
+        (runtime.py:761-770) — over the full-batch ``auxes``.  The full
+        path adds each round's commits to the dynamic state through a
+        float32 one-hot contraction; a request above 2^24 units rounds
+        there, and so it does here."""
+        if classes is not None:
+            return self._batch_assign_dedup(batch, snap, dyn, auxes, order, coupling,
+                                            classes)
+        ident = torch.arange(batch.valid.shape[0], device=snap.device)
+        return self._auction(batch, snap, dyn, order, coupling, ident, batch, auxes,
+                             batch.request.to(torch.float32).to(torch.int32),
+                             batch.non_zero.to(torch.float32).to(torch.int32))
 
     def _batch_assign_dedup(self, batch, snap, dyn, auxes, order,
                             coupling: CouplingFlags, classes) -> AssignResult:
@@ -377,15 +468,23 @@ class BatchedFramework:
         filter bit (K6, K10) and score (K7, K11) into each round's planes
         and takes the round's commits through its ``update_batch_classes``
         hook (K8, K12) — the full path's per-pod tables stay class-uniform, so
-        the class rows reproduce them exactly.  A coupled component commits
-        only its head pod each round (``coupling``).
+        the class rows reproduce them exactly."""
+        class_of, rep_batch, rep_auxes = classes
+        return self._auction(batch, snap, dyn, order, coupling, class_of, rep_batch,
+                             rep_auxes, batch.request, batch.non_zero)
+
+    def _auction(self, batch, snap, dyn, order, coupling: CouplingFlags, class_of,
+                 rep_batch, rep_auxes, commit_request, commit_nz) -> AssignResult:
+        """The auction rounds over class rows ``rep_batch`` (pod b's row is
+        ``class_of[b]``) with the live rep auxes; K4 adds each winner's
+        ``commit_request`` / ``commit_nz`` row at its node.  A coupled
+        component commits only its head pod each round (``coupling``).
 
         The round loop is a Python loop.  Its condition
         (any pod active, rounds ≤ B) is read on the host once per round —
         one device→host sync per round; a device-side loop (or a CUDA
         graph) is queued in ROADMAP Queue B (B5).
         """
-        class_of, rep_batch, rep_auxes = classes
         live = self._live(rep_auxes)
         fs_plan, comb_plan = self.kernel_plans(self._live_names(live))
         full = self._full()
@@ -403,7 +502,7 @@ class BatchedFramework:
             comp = torch.as_tensor(coupling.comp).to(device=dev, dtype=torch.long)
             multi = torch.as_tensor(coupling.multi).to(dev)
         reader = reads & multi
-        order = order.to(device=dev, dtype=torch.long)
+        order = torch.as_tensor(order).to(device=dev, dtype=torch.long)
         arange_b = torch.arange(b, device=dev)
 
         na_mask, na_pref, img_scaled = self.static_inputs(rep_batch, snap, dyn)
@@ -456,7 +555,7 @@ class BatchedFramework:
 
             commit, choice = auction_resolve_commit(
                 cand_val, cand_idx, class_of, pos_of, unresolved0, nom, nom_ok,
-                batch.request, batch.non_zero, dyn.requested, dyn.non_zero)
+                commit_request, commit_nz, dyn.requested, dyn.non_zero)
             for pw, aux in live:
                 pw.plugin.update_batch_classes(aux, commit, choice, class_of)
             new_unsched = (active & ~reader & ~feasible) | head_unsched

@@ -1,5 +1,5 @@
-"""Hand-written CUDA kernels of the dedup scheduling cycle, with their plain
-torch versions.
+"""Hand-written CUDA kernels of the scheduling cycle, with their plain torch
+versions.
 
 Each wrapper takes the plain version for tensors that lie on the CPU and
 launches its kernel for CUDA tensors (raising if the launch fails — there
@@ -27,6 +27,13 @@ than once); ``reset_launches`` zeroes the counts.
                             term group of this batch, and per prev term group
                             with a valid term)
   K16 scatter_rows          csrc/scatter_rows.cu (one launch per array group)
+  K17 scan_select_assume    csrc/scan.cu (the exact scan: one launch per step)
+  K18 spread_update_row     csrc/spread.cu (one launch per scan step)
+  K19 ipa_update_row        csrc/interpodaffinity.cu (one launch per scan step)
+
+The full auction runs K1–K4, K6–K8 and K10–K12 at identity classes (one
+class row per pod); the exact scan runs K1, K2, K6, K7, K10 and K11 on one
+pod's row per step, then K17–K19.
 """
 
 from __future__ import annotations
@@ -53,6 +60,9 @@ LAUNCHES: Dict[str, int] = {
     "spread_chain_prev": 0,
     "ipa_chain_prev": 0,
     "scatter_rows": 0,
+    "scan_select_assume": 0,
+    "spread_update_row": 0,
+    "ipa_update_row": 0,
 }
 
 

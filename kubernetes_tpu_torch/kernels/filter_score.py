@@ -15,6 +15,7 @@ spread-scaled sizes too (small scatters, plugins/trivial.py).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 
 import torch
 
@@ -38,6 +39,16 @@ RAW_PLANES = ("TaintToleration", "NodeAffinity", "NodeResourcesFit",
 # the six filter plugins the kernel evaluates, by framework name
 KERNEL_FILTERS = ("NodeUnschedulable", "NodeName", "TaintToleration",
                   "NodeAffinity", "NodePorts", "NodeResourcesFit")
+
+# the PodBatch rows K1 (and its plain version) reads, in launch order
+ROW_FIELDS = ("valid", "request", "non_zero", "node_name_id", "tol_valid", "tol_key",
+              "tol_val", "tol_op", "tol_effect", "ports", "ports_ip", "image_ids")
+
+
+def pod_row(batch, i: int) -> SimpleNamespace:
+    """Pod i's rows of ``batch`` that K1 reads (views) — the exact scan's
+    one-row input, without a whole PodBatch per step."""
+    return SimpleNamespace(**{f: getattr(batch, f)[i:i + 1] for f in ROW_FIELDS})
 
 
 @dataclass
@@ -116,10 +127,7 @@ def filter_score_planes(rep, snap, dyn: DynamicState, na_mask, na_pref,
     c, n = rep.valid.shape[0], snap.num_nodes
     r = snap.allocatable.shape[1]
     dev = snap.device
-    cls = [rep.valid, rep.request, rep.non_zero, rep.node_name_id,
-           rep.tol_valid, rep.tol_key, rep.tol_val, rep.tol_op, rep.tol_effect,
-           rep.ports, rep.ports_ip, rep.image_ids]
-    cls = [t.contiguous() for t in cls]
+    cls = [getattr(rep, f).contiguous() for f in ROW_FIELDS]
     live = live_nodes(snap).contiguous()
     nodes = [live, snap.node_valid, snap.node_name_ids, snap.unschedulable,
              snap.allocatable, dyn.requested, dyn.non_zero, snap.taint_keys,

@@ -1,4 +1,4 @@
-"""K9–K12, K15: InterPodAffinity's count planes and tables (CUDA:
+"""K9–K12, K15, K19: InterPodAffinity's count planes and tables (CUDA:
 csrc/interpodaffinity.cu).
 
 Replace the JAX package's plugins/interpodaffinity.py programs as the
@@ -22,6 +22,13 @@ gathers and scatters they are built on (ROADMAP Queue B, B10 and B12):
                              batch's terms against the prev pods' labels
                              into the counts, and the prev pods' own terms
                              into ``block_dyn`` / ``score_dyn``
+  K19 ipa_update_row         ``update`` (:447-530): one placed pod into the
+                             full-batch count state and dynamic planes,
+                             once per scan step
+
+The full auction runs K10–K12 at one class row per pod (its
+``update_batch``, :766-864, is K12 at identity classes); the scan runs
+K10 and K11 on one row.
 
 The count state has the reference's two forms (the plugin's
 ``_use_planes``): per-node planes ``[C, T, N]`` when the batch's domain
@@ -606,6 +613,122 @@ def ipa_chain_prev(aux, counts, own, rows, node_topo, missing: int) -> dict:
         out["block_dyn"] = block
         out["score_dyn"] = score
     return out
+
+
+# --- K19 ipa_update_row -------------------------------------------------------------
+
+
+def ipa_update_row_plain(aux, i: int, node_row):
+    """The plain version of the reference's ``update`` (interpodaffinity.py
+    :447-530) at full-batch rows, with no read on the host: pod i at node
+    ``node_row`` (an i32[1] tensor; below 0 nothing changes).  (1, 2, 4) the
+    pending pods' terms pod i matches gain it at the domain of its node
+    (where the node has the key), through a same-domain compare-add on
+    planes or a point add on tables, and ``aff_total`` the keyed required
+    terms; (3) pod i's own required anti-affinity terms block the pods they
+    match on the nodes of their domain; (5) pod i's own terms score them
+    there: + hardPodAffinityWeight, + the preferred weights, − the preferred
+    anti-affinity weights, in that order.  In place."""
+    d = aux.depth
+    n = aux.exist_anti_block.shape[1]
+    node = node_row.reshape(1).long()
+    placed = node >= 0
+    at = node.clamp(0, n - 1)
+
+    def count(cnt, dom, cross_col):
+        # cross_col [B, T]: term (b, t) matches pod i
+        dom_at = dom.index_select(2, at)[..., 0]  # [B, T]
+        inc = (cross_col & (dom_at < d) & placed).to(torch.int32)
+        if _is_planes(cnt, n):
+            cnt.add_(inc[:, :, None] * (dom == dom_at[:, :, None]).to(torch.int32))
+        else:
+            cnt.scatter_add_(-1, dom_at.long()[:, :, None], inc[:, :, None])
+        return inc
+
+    def same(dom_i):
+        # [T, N]: node n shares pod i's node's domain under pod i's term t
+        return (dom_i == dom_i.index_select(1, at)) & (dom_i < d) & placed
+
+    def plane(cross_i, dom_i, w):
+        # cross_i [T, B], dom_i [T, N], w [T] → f32[B, N]
+        return torch.einsum("tj,tn->jn", cross_i.to(torch.float32) * w[:, None],
+                            same(dom_i).to(torch.float32))
+
+    if "req_affinity" in aux.present:
+        inc = count(aux.aff_cnt, aux.dom_aff,
+                    aux.aff_cross_all[:, i:i + 1] & aux.req_aff_valid)
+        aux.aff_total.add_(inc.sum(dim=1, dtype=torch.int32))
+    if "req_anti_affinity" in aux.present:
+        count(aux.anti_cnt, aux.dom_anti, aux.anti_cross[:, :, i])
+        hit = (aux.anti_cross[i][:, :, None] & same(aux.dom_anti[i])[:, None, :]).any(dim=0)
+        aux.block_dyn.logical_or_(hit)
+    if "pref_affinity" in aux.present:
+        count(aux.paff_cnt, aux.dom_paff, aux.paff_cross[:, :, i])
+    if "pref_anti_affinity" in aux.present:
+        count(aux.panti_cnt, aux.dom_panti, aux.panti_cross[:, :, i])
+    score = aux.score_dyn
+    if "req_affinity" in aux.present:
+        w1 = torch.full((aux.dom_aff.shape[1],), float(aux.hard_weight),
+                        dtype=torch.float32, device=score.device)
+        score = score + plane(aux.aff_term_cross[i], aux.dom_aff[i], w1)
+    if "pref_affinity" in aux.present:
+        score = score + plane(aux.paff_cross[i], aux.dom_paff[i], aux.paff_weight[i])
+    if "pref_anti_affinity" in aux.present:
+        score = score - plane(aux.panti_cross[i], aux.dom_panti[i], aux.panti_weight[i])
+    if score is not aux.score_dyn:
+        aux.score_dyn.copy_(score)
+    return aux
+
+
+def ipa_update_row(aux, i: int, node_row):
+    """Add pod i, placed at ``node_row`` (i32[1] on the device, written there
+    by K17; below 0: not placed), into the full-batch aux's count state,
+    ``aff_total``, ``block_dyn`` and ``score_dyn``, in place.  CPU tensors
+    take the plain version; CUDA tensors launch K19 once for every present
+    term group, one thread per (pending pod, node)."""
+    if not node_row.is_cuda:
+        return ipa_update_row_plain(aux, i, node_row)
+    b, n = aux.exist_anti_block.shape
+    fixed = [node_row, aux.block_dyn, aux.score_dyn, aux.aff_total]
+    dev = require_cuda("ipa_update_row", *fixed)
+    require_dtype("ipa_update_row", torch.int32, node_row, aux.aff_total)
+    require_dtype("ipa_update_row", torch.bool, aux.block_dyn)
+    require_dtype("ipa_update_row", torch.float32, aux.score_dyn)
+    if node_row.numel() != 1 or aux.score_dyn.shape != (b, n) or not 0 <= i < b:
+        raise ValueError("ipa_update_row: inconsistent shapes")
+    args = []
+    for name in AFFINITY_GROUPS:
+        dom_f, cnt_f = GROUP_FIELDS[name]
+        dom, cnt = getattr(aux, dom_f), getattr(aux, cnt_f)
+        cross = {"req_affinity": aux.aff_term_cross, "req_anti_affinity": aux.anti_cross,
+                 "pref_affinity": aux.paff_cross,
+                 "pref_anti_affinity": aux.panti_cross}[name]
+        extra = []
+        if name == "req_affinity":
+            extra = [aux.aff_cross_all, aux.req_aff_valid]
+        elif name != "req_anti_affinity":
+            extra = [aux.paff_weight if name == "pref_affinity" else aux.panti_weight]
+        if name not in aux.present:
+            args += [0, 0, 0, 0, 0] + [0] * len(extra)
+            continue
+        t = dom.shape[1]
+        require_cuda("ipa_update_row", dom, cnt, cross, *extra)
+        require_dtype("ipa_update_row", torch.int32, dom, cnt)
+        require_dtype("ipa_update_row", torch.bool, cross)
+        if dom.shape != (b, t, n) or cross.shape != (b, t, b) or cnt.shape[:2] != (b, t):
+            raise ValueError(f"ipa_update_row: inconsistent {name} shapes")
+        args += [t, cnt.shape[-1], ptr(dom), ptr(cnt), ptr(cross)] + [ptr(x) for x in extra]
+    # launch_ipa_update_row's order: aff (T1, W1, dom, cnt, own cross, all-terms
+    # cross, row validity), aff_total and the hard weight, then anti, paff, panti
+    aff, rest = args[:7], args[7:]
+    err = _fn("launch_ipa_update_row", "iiiip" + "iipppppp" + "f" + "iippp" + "iipppp"
+              + "iipppp" + "pp" + "p")(
+        b, n, aux.depth, int(i), ptr(node_row), *aff, ptr(aux.aff_total),
+        float(aux.hard_weight), *rest, ptr(aux.block_dyn), ptr(aux.score_dyn),
+        stream_of(dev))
+    check(err, "ipa_update_row")
+    LAUNCHES["ipa_update_row"] += 1
+    return aux
 
 
 _FNS = {}

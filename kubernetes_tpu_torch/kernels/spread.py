@@ -1,4 +1,5 @@
-"""K5–K8, K14: PodTopologySpread's domain count tables (CUDA: csrc/spread.cu).
+"""K5–K8, K14, K18: PodTopologySpread's domain count tables (CUDA:
+csrc/spread.cu).
 
 Replace the JAX package's plugins/podtopologyspread.py programs as the
 identity-class dedup engine runs them, with the ops/segment.py domain
@@ -15,6 +16,11 @@ gathers and scatters they are built on (ROADMAP Queue B, B10 and B11):
   K14 spread_chain_prev      ``chain_prev`` (:306-339): a still-in-flight
                              batch's placements (deep pipeline), once per
                              chained batch before the rounds
+  K18 spread_update_row      ``update`` (:287-304): one placed pod into the
+                             full-batch tables, once per scan step
+
+The full auction runs K6–K8 at one class row per pod (its ``update_batch``,
+:366-388, is K8 at identity classes); the scan runs K6 and K7 on one row.
 
 Tables are ``[C, Cc, D+1]`` int32 over the class rows C, the constraints
 per pod Cc and the batch's domain bucket D plus the trash slot D of nodes
@@ -412,6 +418,56 @@ def spread_chain_prev(aux, match, rows, valid) -> Tuple:
     check(err, "spread_chain_prev")
     LAUNCHES["spread_chain_prev"] += 1
     return hard, soft
+
+
+# --- K18 spread_update_row -------------------------------------------------------
+
+
+def spread_update_row_plain(aux, i: int, node_row):
+    """The plain version of the reference's ``update`` (podtopologyspread.py
+    :287-304) with no read on the host: pod i at node ``node_row`` (an
+    i32[1] tensor; below 0 nothing changes) counts for every (pending pod,
+    constraint) whose selector matches it, at the node's domain (the trash
+    slot for a keyless node), where the node counts for that pod; added into
+    the tables in place."""
+    n = aux.dom_val.shape[-1]
+    node = node_row.reshape(1).long()
+    at = node.clamp(0, n - 1)
+    dom_at = aux.dom_val.index_select(2, at)  # [B, Cc, 1]
+    hit = aux.match_pending[:, :, i:i + 1] & (node >= 0)  # [B, Cc, 1]
+    for table, counted in ((aux.hard_counts, aux.counted_hard),
+                           (aux.soft_counts, aux.counted_soft)):
+        inc = hit & counted.index_select(1, at)[:, None, :]
+        table.scatter_add_(-1, dom_at.long(), inc.to(table.dtype))
+    return aux.hard_counts, aux.soft_counts
+
+
+def spread_update_row(aux, i: int, node_row):
+    """Add pod i, placed at ``node_row`` (i32[1] on the device, written there
+    by K17; below 0: not placed), into the full-batch tables
+    ``aux.hard_counts`` / ``aux.soft_counts`` in place.  CPU tensors take
+    the plain version; CUDA tensors launch K18, one thread per (pending
+    pod, constraint)."""
+    if not node_row.is_cuda:
+        return spread_update_row_plain(aux, i, node_row)
+    b, cc, bp = aux.match_pending.shape
+    n = aux.dom_val.shape[-1]
+    d1 = aux.hard_counts.shape[-1]
+    ins = [node_row, aux.match_pending, aux.counted_hard, aux.counted_soft, aux.dom_val]
+    dev = require_cuda("spread_update_row", *ins, aux.hard_counts, aux.soft_counts)
+    require_dtype("spread_update_row", torch.bool, *ins[1:4])
+    require_dtype("spread_update_row", torch.int32, node_row, aux.dom_val,
+                  aux.hard_counts, aux.soft_counts)
+    if node_row.numel() != 1 or aux.dom_val.shape != (b, cc, n) \
+            or aux.counted_hard.shape != (b, n) or aux.soft_counts.shape != (b, cc, d1) \
+            or not 0 <= i < bp:
+        raise ValueError("spread_update_row: inconsistent shapes")
+    err = _fn("launch_spread_update_row", "iiiiii" + "p" * 5 + "pp" + "p")(
+        b, cc, bp, n, d1, int(i), ptr(node_row), *map(ptr, ins[1:]), ptr(aux.hard_counts),
+        ptr(aux.soft_counts), stream_of(dev))
+    check(err, "spread_update_row")
+    LAUNCHES["spread_update_row"] += 1
+    return aux.hard_counts, aux.soft_counts
 
 
 _FNS = {}

@@ -74,3 +74,11 @@ def default_normalize(scores, mask, reverse: bool = False):
         return torch.where(zero_max, float(MAX_NODE_SCORE),
                            float(MAX_NODE_SCORE) - scaled)
     return torch.where(zero_max, 0.0, scaled)
+
+
+def node_tensor(node_row, device) -> torch.Tensor:
+    """A placed pod's node row as the i32[1] tensor the scan's update
+    kernels read (an int, or a tensor already on the device)."""
+    if isinstance(node_row, torch.Tensor):
+        return node_row.reshape(1).to(device=device, dtype=torch.int32)
+    return torch.tensor([int(node_row)], dtype=torch.int32, device=device)

@@ -24,9 +24,11 @@ The arithmetic lives beside its kernels in kernels/interpodaffinity.py:
 ``filter`` into K1's bit plane through K10 and ``score`` + ``normalize``
 into K2's total through K11, and ``update_batch_classes`` runs K12 once per
 auction round; the deep pipeline's ``chain_prev`` folds a still-in-flight
-batch's placements in through K15.  The hooks of the scan and the full
-engine (``update``, ``update_batch``, ``filter_row``, ``score_row``) wait
-for those engines.
+batch's placements in through K15.  The full auction runs the same kernels
+at one class per pod (the reference's ``update_batch`` is
+``update_batch_classes`` at identity classes); the exact scan runs K10 and
+K11 on one pod's ``row`` per step (the reference's ``filter_row`` and
+``score_row``) and ``update`` through K19.
 """
 
 from __future__ import annotations
@@ -50,10 +52,11 @@ from ..kernels.interpodaffinity import (
     ipa_raw_plane,
     ipa_score_combine,
     ipa_update_classes,
+    ipa_update_row,
 )
 from ..ops.segment import check_count_bound
 from ..state.dictionary import MISSING
-from .helpers import flat_selector_matrix
+from .helpers import flat_selector_matrix, node_tensor
 
 DEFAULT_HARD_POD_AFFINITY_WEIGHT = 1  # apis/config InterPodAffinityArgs default
 
@@ -92,11 +95,6 @@ class IPAAux(NamedTuple):
 # the count state and the dynamic planes: what the dedup engine updates
 _MUTABLE = ("aff_cnt", "anti_cnt", "paff_cnt", "panti_cnt", "aff_total",
             "block_dyn", "score_dyn")
-
-
-def _not_ported(hook: str, item: str):
-    raise NotImplementedError(
-        f"InterPodAffinity.{hook} belongs to {item}, which is not ported yet")
 
 
 class InterPodAffinityPlugin(Plugin):
@@ -340,16 +338,19 @@ class InterPodAffinityPlugin(Plugin):
         return aux._replace(**ipa_chain_prev(aux, counts, own, rows, snap.node_topo,
                                              MISSING))
 
-    # --- hooks of engines not ported yet --------------------------------------
+    # --- the exact scan: one pod's row (K10, K11) and its update (K19) ----------
 
-    def update(self, aux, i, node_row, batch, snap):
-        _not_ported("update", "the exact scan (ROADMAP Queue A item 6, Queue B B9)")
+    def row(self, aux: IPAAux, i: int) -> IPAAux:
+        """Pod i's row of a full-batch aux: views, so the scan's updates to
+        the counts and planes show through."""
+        return aux._replace(**{f: v[i:i + 1] for f, v in aux._asdict().items()
+                               if isinstance(v, torch.Tensor)})
 
-    def update_batch(self, aux, commit, choice, u, batch, snap):
-        _not_ported("update_batch", "the full auction (ROADMAP Queue A item 6, Queue B B8)")
-
-    def filter_row(self, batch, snap, dyn, aux, i):
-        _not_ported("filter_row", "the exact scan (ROADMAP Queue A item 6, Queue B B9)")
-
-    def score_row(self, batch, snap, dyn, aux, i, mask_row=None):
-        _not_ported("score_row", "the exact scan (ROADMAP Queue A item 6, Queue B B9)")
+    def update(self, aux: IPAAux, i: int, node_row, batch, snap):
+        """Pod i placed at ``node_row`` (an i32[1] tensor on the aux's device,
+        or an int; below 0: not placed) — the reference's update
+        (:447-530), through K19.  The aux changes in place (the engine works
+        on an ``engine_copy``)."""
+        if aux is None:
+            return None
+        return ipa_update_row(aux, i, node_tensor(node_row, aux.block_dyn.device))

@@ -19,8 +19,11 @@ dedup engine folds ``filter`` into K1's bit plane through K6 and
 ``score`` + ``normalize`` into K2's total through K7, and
 ``update_batch_classes`` runs K8 once per auction round; the deep
 pipeline's ``chain_prev`` folds a still-in-flight batch's placements in
-through K14.  The hooks of the scan and the full engine (``update``,
-``update_batch``, ``filter_row``, ``score_row``) wait for those engines.
+through K14.  The full auction runs the same kernels at one class per pod (the
+reference's ``update_batch`` is ``update_batch_classes`` at identity
+classes); the exact scan runs K6 and K7 on one pod's ``row`` per step
+(the reference's ``filter_row`` and ``score_row``) and ``update`` through
+K18.
 """
 
 from __future__ import annotations
@@ -42,11 +45,12 @@ from ..kernels.spread import (
     spread_chain_prev,
     spread_score_combine,
     spread_update_classes,
+    spread_update_row,
 )
 from ..ops.segment import check_count_bound
 from ..state.dictionary import MISSING
 from ..state.selectors import label_match_matrix
-from .helpers import label_selector_matrix, node_selector_matrix
+from .helpers import label_selector_matrix, node_selector_matrix, node_tensor
 
 
 class TSAux(NamedTuple):
@@ -63,11 +67,6 @@ class TSAux(NamedTuple):
     soft_counts: torch.Tensor  # i32[B, C, D+1]
     hard_present: torch.Tensor  # bool[B, C, D+1] domains with ≥1 counted node
     match_pending: torch.Tensor  # bool[B, C, B] — selector (b,c) matches pending pod j
-
-
-def _not_ported(hook: str, item: str):
-    raise NotImplementedError(
-        f"PodTopologySpread.{hook} belongs to {item}, which is not ported yet")
 
 
 class PodTopologySpreadPlugin(Plugin):
@@ -215,17 +214,19 @@ class PodTopologySpreadPlugin(Plugin):
         hard, soft = spread_chain_prev(aux, match, prev.rows, prev.valid)
         return aux._replace(hard_counts=hard, soft_counts=soft)
 
-    # --- hooks of engines not ported yet --------------------------------------
+    # --- the exact scan: one pod's row (K6, K7) and its update (K18) ------------
 
-    def update(self, aux, i, node_row, batch, snap):
-        _not_ported("update", "the exact scan (ROADMAP Queue A item 6, Queue B B9)")
+    def row(self, aux: TSAux, i: int) -> TSAux:
+        """Pod i's row of a full-batch aux: views, so the scan's updates to
+        the tables show through."""
+        return aux._replace(**{f: getattr(aux, f)[i:i + 1] for f in aux._fields})
 
-    def update_batch(self, aux, commit, choice, u, batch, snap):
-        _not_ported("update_batch",
-                    "the full auction (ROADMAP Queue A item 6, Queue B B8)")
-
-    def filter_row(self, batch, snap, dyn, aux, i):
-        _not_ported("filter_row", "the exact scan (ROADMAP Queue A item 6, Queue B B9)")
-
-    def score_row(self, batch, snap, dyn, aux, i, mask_row=None):
-        _not_ported("score_row", "the exact scan (ROADMAP Queue A item 6, Queue B B9)")
+    def update(self, aux: TSAux, i: int, node_row, batch, snap):
+        """Pod i placed at ``node_row`` (an i32[1] tensor on the aux's device,
+        or an int; below 0: not placed) — the reference's update (:287-304),
+        through K18.  The tables change in place (the engine works on an
+        ``engine_copy``)."""
+        if aux is None:
+            return None
+        spread_update_row(aux, i, node_tensor(node_row, aux.dom_val.device))
+        return aux

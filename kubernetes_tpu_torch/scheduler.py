@@ -6,11 +6,13 @@ watch handlers :705-800, the pipelined ``schedule_cycle`` :1066-1221 with
 ``_InFlight`` :239, ``_SyncAhead`` :325, the overlapped sync :1319-1453,
 the micro-bucket policy :1455-1520, ``_dispatch_batch`` and ``_bg_fetch``
 :1522-1967, ``_complete`` :1969, the bind phase :2058 with the per-tier
-latency profile :2355-2378, the engine routing ``engine_choice`` :2679 with
-its parallel-safety test ``_class_parallel_safe`` :2819 and its dedup gate
-``_dedup_classes`` :2596, the host half ``host_prepare`` :1645 with
-``_host_aux_take`` :138, the fused dedup cycle ``fused_batch`` :969-1017
-with ``apply_prev_delta`` :897, ``_infos_block_deep`` :3523, run_until_idle
+latency profile :2355-2378, the engine routing ``engine_choice`` :2679
+(``assign_mode`` / ``coupled_fraction_threshold`` :362-365) with its
+parallel-safety test ``_class_parallel_safe`` :2819, its dedup gate
+``_dedup_classes`` :2596 and precheck ``_dedup_precheck`` :2733, the host
+half ``host_prepare`` :1645 with ``_host_aux_take`` :138, the fused cycles
+``fused_greedy`` :954-967 and ``fused_batch`` :969-1017 with
+``apply_prev_delta`` :897, ``_infos_block_deep`` :3523, run_until_idle
 :3777), itself after pkg/scheduler/scheduler.go (scheduleOne :496, assume
 :424, bind :446, the async binding goroutine :623) and eventhandlers.go
 (addAllEventHandlers :251).
@@ -19,12 +21,20 @@ One dispatch: cache snapshot → encoder sync (with the existing-pod affinity
 index) → batch compile → host_prepare (InterPodAffinity's existing-pod match
 matrix) → conflict partition + engine routing + identity-class dedup gate →
 the fused cycle on the device (apply_scatter through K16, the in-flight
-batches' resource delta through K13, the dynamic plugins' class state —
+batches' resource delta through K13, the dynamic plugins' state —
 PodTopologySpread's count tables, InterPodAffinity's count planes or tables
-and existing-pod planes — with the in-flight batches chained in through
-K14 / K15, the dedup engine's rounds through the kernels, gang
+and existing-pod planes, at class rows for the dedup engine and at pod rows
+for the full auction and the scan — with the in-flight batches chained in
+through K14 / K15, the routed engine through the kernels, gang
 all-or-nothing, diagnosis bits, pack) → one [3, B] fetch → assume → bind
-through the store → requeue the unschedulable pods with backoff.
+through the store → requeue the unschedulable pods with backoff.  The
+router (``assign_mode="auto"``, as the reference) sends a batch to the
+dedup engine when its identity classes fill at most half the batch and it
+is not a coupled batch with a pod that could preempt; to the full auction
+(``batch_assign``) otherwise, when its largest coupled component is at most
+``coupled_fraction_threshold`` of the batch or the dedup precheck admits
+it; else to the exact serial scan (``greedy_assign``).  ``"batch"`` and
+``"scan"`` force the auctions or the scan.
 Topology-spread pods and pod (anti)affinity pods (required and preferred,
 and scheduled pods carrying such terms) are in scope: a self-matching class
 whose commits change its own planes unevenly is one coupled component, so
@@ -40,19 +50,18 @@ and bind after it; the next dispatch's snapshot and encoder sync run on a
 background thread meanwhile (``overlap_sync``); and with
 ``latency_target_ms`` a chainable batch dispatches at the largest pow-2
 sub-bucket whose measured attempt latency fits the target.  The port's
-dispatch is not asynchronous — the dedup engine reads its loop condition on
+dispatch is not asynchronous — the auctions read their loop condition on
 the host every round (ROADMAP Queue B B5) — so the pipeline overlaps host
 work only: the background sync, the fetch and the binds.  Bindings equal
 the JAX scheduler's, pod for pod, in both modes and at every depth.
 
 Scope guard: a batch or cluster that needs anything outside the port —
-gang members, volumes, resource claims, extenders, profiles, a batch the
-reference routes to its full auction (too heterogeneous for the dedup
-engine, or coupled with a pod that could preempt) or to its exact scan, a
-batch larger than the auction kernel's one block on cuda, or a failing pod
-that could preempt (a chained batch defers that to the pod's retry, as the
-reference does) — raises NotImplementedError naming the ROADMAP item.
-It never gives a silently different answer.
+gang members, volumes, resource claims, extenders, profiles, a batch
+larger than the auction kernel's one block on cuda, or a failing pod that
+could preempt (a chained batch defers that to the pod's retry, as the
+reference does) — raises NotImplementedError naming the ROADMAP item.  It
+never gives a silently different answer.  The port takes no ``rng_key``:
+ties break by the lowest node row (tie noise is ROADMAP Queue A item 6b).
 """
 
 from __future__ import annotations
@@ -100,8 +109,7 @@ from .state.node_info import _pod_host_ports
 from .state.units import pow2_round_up as _pow2
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"  # apis/config v1.Pod default
-# the reference's default router threshold (TPUScheduler coupled_fraction_threshold)
-COUPLED_FRACTION_THRESHOLD = 0.25
+ASSIGN_MODES = ("auto", "batch", "scan")
 
 
 def default_plugins(domain_cap: int) -> List[PluginWithWeight]:
@@ -301,12 +309,16 @@ class TorchScheduler:
         chain_affinity: object = "auto",
         overlap_sync: object = "auto",
         latency_target_ms: Optional[float] = None,
+        assign_mode: str = "auto",
+        coupled_fraction_threshold: float = 0.25,
         extenders: Optional[List] = None,
         profiles: Optional[Dict[str, object]] = None,
     ):
+        if assign_mode not in ASSIGN_MODES:
+            raise ValueError(f"unknown assign_mode {assign_mode!r}")
         if extenders:
             raise NotImplementedError(
-                "scheduler extenders are not ported yet (ROADMAP Queue A item 6)")
+                "scheduler extenders are not ported yet (ROADMAP Queue A item 6b)")
         if profiles:
             raise NotImplementedError(
                 "scheduler profiles are not ported yet (ROADMAP Queue A item 10)")
@@ -319,6 +331,10 @@ class TorchScheduler:
         if not 1 <= pipeline_depth <= 3:
             raise ValueError(f"pipeline_depth must be 1..3, got {pipeline_depth}")
         self.device = resolve_device(device)
+        # "auto": the reference's router; "batch" / "scan" force the
+        # auctions or the exact serial scan (the reference's assign_mode)
+        self.assign_mode = assign_mode
+        self.coupled_fraction_threshold = coupled_fraction_threshold
         self.pipeline = pipeline
         self.pipeline_depth = pipeline_depth
         # chain affinity batches on the card (the reference: on any backend
@@ -771,25 +787,19 @@ class TorchScheduler:
             t2 = time.perf_counter()
             carries = self._carries(prevs, batch)
             mode, coupling, _info = self.engine_choice(batch)
-            if mode == "scan":
-                raise NotImplementedError(
-                    "the reference routes this batch to its exact serial scan "
-                    "(greedy_assign), which is not ported yet (ROADMAP Queue A "
-                    "item 6, Queue B B9)")
-            class_of, rep_rows, why = self._dedup_classes(batch, host_auxes)
-            self._last_dedup = class_of is not None
-            if class_of is None:
-                raise NotImplementedError(
-                    f"{why}: the reference takes its full (non-dedup) assignment "
-                    "engine, which is not ported yet (ROADMAP Queue A item 6, "
-                    "Queue B B8)")
+            classes = None
+            if mode == "batch":
+                class_of, rep_rows, _why = self._dedup_classes(batch, host_auxes)
+                if class_of is not None:
+                    classes = (class_of, rep_rows)
+            self._last_dedup = classes is not None
             t3 = time.perf_counter()
             dsnap, upd = self._deferred_snapshot(prep)
         except Exception:
             self._discard_prep()
             raise
         node_row, packed, dbatch = self._fused_cycle(
-            batch, class_of, rep_rows, coupling, host_auxes, dsnap, upd, carries)
+            batch, mode, classes, coupling, host_auxes, dsnap, upd, carries)
         self.chained_dispatches += bool(carries)
         fl = _InFlight(infos=infos, batch=batch, dbatch=dbatch, node_row_dev=node_row,
                        packed_dev=packed, t0=t0_clk, cycle=cycle,
@@ -847,11 +857,14 @@ class TorchScheduler:
         fl.fetch_thread = threading.Thread(target=_bg_fetch, daemon=True)
         fl.fetch_thread.start()
 
-    def _fused_cycle(self, batch, class_of: np.ndarray, rep_rows: np.ndarray,
-                     coupling, host_auxes, dsnap, upd, prevs: Sequence[PrevBatch]):
-        """The device half of a dispatch (the reference's fused_batch dedup
-        branch, scheduler.py:969-1017) → (node_row i32[B], packed i32[3, B],
-        the device batch), all on the device."""
+    def _fused_cycle(self, batch, mode: str, classes, coupling, host_auxes, dsnap, upd,
+                     prevs: Sequence[PrevBatch]):
+        """The device half of a dispatch → (node_row i32[B], packed i32[3, B],
+        the device batch), all on the device.  ``mode`` is the router's
+        "batch" or "scan"; ``classes`` the dedup gate's (class_of, rep_rows)
+        or None.  The dedup engine is the reference's fused_batch dedup
+        branch (scheduler.py:969-1017), the full auction its ``classes is
+        None`` branch (:985-997), the scan its fused_greedy (:954-967)."""
         dev = self.device
         fw = self._framework()
         dsnap = apply_scatter(dsnap, upd)
@@ -863,45 +876,67 @@ class TorchScheduler:
         # into copies: the snapshot stays as the next row-scatter needs it.
         dyn = apply_prev_delta(initial_dynamic_state(dsnap), prevs)
         dbatch = batch_to_device(batch, dev)
-        rep_batch = dbatch.take(torch.from_numpy(rep_rows).to(dev))
-        # the class representatives' plugin auxes, from the rep view of the
-        # host auxes: PodTopologySpread's count tables (K5), InterPodAffinity's
-        # count state and existing-pod planes (K9); None for a plugin with
-        # nothing to carry for this batch; then the carries chained in
-        # (K14, K15), oldest first
-        rep_host = _host_aux_take(fw, host_auxes, rep_rows)
-        rep_auxes = fw.prepare(rep_batch, dsnap, dyn, rep_host)
-        for prev in prevs:
-            rep_auxes = fw.chain_prev(rep_batch, dsnap, rep_auxes, prev)
         b = batch.size
-        order = torch.arange(b, dtype=torch.int32, device=dev)
-        class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
-        res = fw._batch_assign_dedup(
-            dbatch, dsnap, dyn, None, order, coupling, (class_t, rep_batch, rep_auxes))
-        self.round_read_s += res.host_read_s
+        if classes is not None:
+            class_of, rep_rows = classes
+            rows = dbatch.take(torch.from_numpy(rep_rows).to(dev))
+            host = _host_aux_take(fw, host_auxes, rep_rows)
+        else:
+            rows, host = dbatch, host_auxes
+        # the plugin auxes of the rows the engine computes (the class
+        # representatives for the dedup engine, every pod otherwise):
+        # PodTopologySpread's count tables (K5), InterPodAffinity's count
+        # state and existing-pod planes (K9); None for a plugin with nothing
+        # to carry for this batch; then the carries chained in (K14, K15),
+        # oldest first
+        auxes = fw.prepare(rows, dsnap, dyn, host)
+        for prev in prevs:
+            auxes = fw.chain_prev(rows, dsnap, auxes, prev)
+        if mode == "scan":
+            # the diagnosis reads the state before the scan (the reference's
+            # fused_greedy diagnoses with the pre-scan dyn and auxes)
+            bits = diagnose_bits_from_plane(fw.planes(dbatch, dsnap, dyn, auxes)[0],
+                                            self.n_filters)
+            res = fw.greedy_assign(dbatch, dsnap, dyn, auxes, np.arange(b))
+        else:
+            order = torch.arange(b, dtype=torch.int32, device=dev)
+            if classes is not None:
+                class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
+                res = fw.batch_assign(dbatch, dsnap, dyn, None, order, coupling,
+                                      classes=(class_t, rows, auxes))
+            else:
+                class_t = None
+                res = fw.batch_assign(dbatch, dsnap, dyn, auxes, order, coupling)
+            self.round_read_s += res.host_read_s
+            # a dispatched batch holds at least one valid pod, so round 0
+            # ran; its bit plane carries the dynamic plugins' bits (K6,
+            # K10), as the reference diagnoses with the prepared auxes
+            bits = diagnose_bits_from_plane(res.diag_plane, self.n_filters)
+            if class_t is not None:
+                bits = bits[class_t]
         gang_seg = torch.full((b,), -1, dtype=torch.int32, device=dev)
         node_row = gang_all_or_nothing(res.node_row, gang_seg)
-        # a dispatched batch holds at least one valid pod, so round 0 ran; its
-        # bit plane carries the dynamic plugins' bits (K6, K10), as the
-        # reference diagnoses with the prepared rep auxes (scheduler.py:1015)
-        bits = diagnose_bits_from_plane(res.diag_plane, self.n_filters)[class_t]
         return node_row, pack_diag(bits, node_row, res.rounds), dbatch
 
     # --- engine routing (the reference's one shared predicate) -------------------
 
     def engine_choice(self, batch):
         """(mode, coupling, partition info): "batch" (the auction engines)
-        or "scan" — the reference's engine_choice (scheduler.py:2679) under
-        its default ``assign_mode="auto"``.  The conflict partition is first
+        or "scan" — the reference's engine_choice (scheduler.py:2679).
+        ``assign_mode="scan"`` always scans (no partition); "batch" always
+        takes the auctions.  Under "auto" the conflict partition is first
         relaxed for parallel-safe single-class components; a batch whose
-        largest coupled component exceeds the threshold still takes the
-        auction when the dedup precheck admits it."""
+        largest coupled component exceeds ``coupled_fraction_threshold``
+        of its valid pods scans unless the dedup precheck admits it."""
+        if self.assign_mode == "scan":
+            return "scan", None, None
         info = conflict_components(batch.pods, batch.size,
                                    namespace_labels=self.namespace_labels)
         info = self._relax_parallel_safe(info)
         coupling = coupling_flags(batch, info=info)
         n_valid = max(int(np.asarray(batch.valid).sum()), 1)
-        if info.max_multi <= max(1, int(COUPLED_FRACTION_THRESHOLD * n_valid)):
+        if self.assign_mode == "batch" or info.max_multi <= max(
+                1, int(self.coupled_fraction_threshold * n_valid)):
             return "batch", coupling, info
         if self._dedup_precheck(batch):
             return "batch", coupling, info
@@ -945,27 +980,29 @@ class TorchScheduler:
     def _dedup_classes(self, batch, host_auxes=None):
         """The identity-class dedup gate (the reference's _dedup_classes,
         scheduler.py:2596-2677, for a scheduler with no tie noise): →
-        (class_of i32[B], rep_rows i64[Cp], None), or (None, None, why) when
-        the reference takes its full auction.  A non-None host aux is
-        admitted when its plugin has a rep view (``host_aux_take``:
-        InterPodAffinity's match matrix).  Cp is the pow-2 bucket of the
-        class count (floor 4), padded with the first rep."""
+        (class_of i32[B], rep_rows i64[Cp], None), or (None, None, reason)
+        when the batch takes the full auction, ``reason`` the label the
+        reference counts it under (``scheduler_dedup_fallback_total``):
+        "class_hook", "preemption", "pod_indexed_aux" or "heterogeneous".
+        A non-None host aux is admitted when its plugin has a rep view
+        (``host_aux_take``: InterPodAffinity's match matrix).  Cp is the
+        pow-2 bucket of the class count (floor 4), padded with the first
+        rep."""
         if batch.has_affinity or batch.has_spread:
             if not self._class_hooks_ok():
-                return None, None, "a dynamic plugin without a class-level update hook"
+                return None, None, "class_hook"
             if self._batch_can_preempt(batch):
-                return None, None, "a coupled batch with a pod that could preempt"
+                return None, None, "preemption"
         for name, aux in (host_auxes or {}).items():
             if aux is None:
                 continue
             if not any(pw.plugin.name == name
                        and getattr(pw.plugin, "host_aux_take", None) is not None
                        for pw in self.fw.plugins):
-                return None, None, f"a pod-indexed host aux of {name}"
+                return None, None, "pod_indexed_aux"
         class_of, reps = identity_classes(batch)
         if len(reps) * 2 > batch.size:
-            return None, None, (f"a batch of {len(reps)} identity classes in "
-                                f"{batch.size} slots")
+            return None, None, "heterogeneous"
         cpad = _pow2(len(reps), 4)
         rep_rows = np.full(cpad, reps[0], dtype=np.int64)
         rep_rows[: len(reps)] = reps

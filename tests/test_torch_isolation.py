@@ -57,6 +57,7 @@ REQUIRED = ("kubernetes_tpu_torch.perf.harness", "kubernetes_tpu_torch.perf.work
             "kubernetes_tpu_torch.kernels.prev_delta", "kubernetes_tpu_torch.kernels.scatter",
             "kubernetes_tpu_torch.kernels.spread",
             "kubernetes_tpu_torch.kernels.interpodaffinity",
+            "kubernetes_tpu_torch.kernels.scan",
             "kubernetes_tpu_torch.scheduler")
 
 

@@ -8,7 +8,9 @@ same pods must stay unschedulable.  Clusters: a SchedulingBasic-shaped one
 shapes, zones, taints, images, ports, NotReady / unschedulable nodes, eight
 pod classes, some of which fit nowhere).  The scope guard must raise for
 every feature outside the port (topology-spread clusters are held against
-the reference in tests/test_torch_spread.py).
+the reference in tests/test_torch_spread.py); the batches the reference
+sends to its full auction or its exact scan run on the port with the
+reference's bindings.
 """
 
 from __future__ import annotations
@@ -18,10 +20,12 @@ import pytest
 
 from kubernetes_tpu.scheduler import TPUScheduler
 from kubernetes_tpu.sim.store import ObjectStore as JStore
+from kubernetes_tpu_torch.framework.runtime import BatchedFramework
 from kubernetes_tpu_torch.scheduler import TorchScheduler
 from kubernetes_tpu_torch.sim.store import ObjectStore as TStore
 
 from tests.test_torch_common import (
+    PKGS,
     fake_clock,
     make_node_obj,
     make_pod_obj,
@@ -114,9 +118,8 @@ def test_same_pods_unschedulable(runs):
     assert sched.cycles > 1
 
 
-def _guard_pods(kind):
-    from kubernetes_tpu_torch.testutil import make_pod
-
+def _guard_pods(kind, pkg="torch"):
+    make_pod = PKGS[pkg][0].make_pod
     w = make_pod().name(kind).uid(kind).namespace("default").req({"cpu": "1"})
     if kind == "affinity_preemptor":
         # an affinity pod that outranks the running pod: a coupled batch that
@@ -144,43 +147,94 @@ def _guard_pods(kind):
     return [w.req({"cpu": "64"}).priority(10).obj()]
 
 
+_GUARD_NODE = {"name": "n0", "cpu": "4", "memory": "8Gi", "pods": "110",
+               "labels": {"zone": "z0"}, "taints": [], "images": [],
+               "unschedulable": False, "not_ready": False}
+_GUARD_RUNNING = {"name": "running", "ts": -1.0, "req": {"cpu": "100m"}, "node": "n0"}
+# the batches the reference takes off its dedup engine, with the engine it
+# takes: now in the port
+_ENGINE_OF = {"affinity_preemptor": "batch_assign", "spread": "batch_assign",
+              "affinity_scan": "greedy_assign"}
+
+
+def _engine_log(monkeypatch):
+    """Record the port's full-auction (classes=None) and scan calls."""
+    log = []
+    orig_batch, orig_scan = BatchedFramework.batch_assign, BatchedFramework.greedy_assign
+
+    def batch_assign(self, *a, classes=None, **kw):
+        if classes is None:
+            log.append("batch_assign")
+        return orig_batch(self, *a, classes=classes, **kw)
+
+    def greedy_assign(self, *a, **kw):
+        log.append("greedy_assign")
+        return orig_scan(self, *a, **kw)
+
+    monkeypatch.setattr(BatchedFramework, "batch_assign", batch_assign)
+    monkeypatch.setattr(BatchedFramework, "greedy_assign", greedy_assign)
+    return log
+
+
+def _guard_bindings(pkg, nodes, pre, pods, batch_size):
+    if pkg == "jax":
+        store = JStore()
+        sched = TPUScheduler(store, batch_size=batch_size, pipeline=False, rng_key=None,
+                             clock=fake_clock(), batch_wait=0)
+    else:
+        store = TStore()
+        sched = TorchScheduler(store, batch_size=batch_size, device="cpu",
+                               clock=fake_clock(), batch_wait=0)
+    for d in nodes:
+        store.create("Node", make_node_obj(pkg, d))
+    for d in pre:
+        store.create("Pod", make_pod_obj(pkg, d))
+    for pod in pods(pkg):
+        store.create("Pod", pod)
+    return _drive(sched, store)
+
+
 @pytest.mark.parametrize("kind", ["affinity_preemptor", "spread", "gang", "volume", "claim",
                                   "preemptor", "affinity_scan"])
-def test_scope_guard_raises(kind):
+def test_scope_guard_raises(kind, monkeypatch):
     """Anything outside the slice raises NotImplementedError naming its
-    ROADMAP item — never a silently different answer."""
+    ROADMAP item — never a silently different answer.  The coupled batches
+    with a pod that could preempt (the reference's full auction) and the
+    coupled batch of many classes (its exact scan) are in the slice now:
+    they bind as the reference binds them, through that engine."""
+    if kind in _ENGINE_OF:
+        jb = _guard_bindings("jax", [_GUARD_NODE], [_GUARD_RUNNING],
+                             lambda pkg: _guard_pods(kind, pkg), 16)
+        log = _engine_log(monkeypatch)
+        tb = _guard_bindings("torch", [_GUARD_NODE], [_GUARD_RUNNING],
+                             lambda pkg: _guard_pods(kind, pkg), 16)
+        assert tb == jb
+        assert all(tb.values())
+        assert log and set(log) == {_ENGINE_OF[kind]}
+        return
     store = TStore()
     sched = TorchScheduler(store, batch_size=16, device="cpu", clock=fake_clock(),
                            batch_wait=0)
-    store.create("Node", make_node_obj("torch", {
-        "name": "n0", "cpu": "4", "memory": "8Gi", "pods": "110", "labels": {"zone": "z0"},
-        "taints": [], "images": [], "unschedulable": False, "not_ready": False}))
-    store.create("Pod", make_pod_obj("torch", {
-        "name": "running", "ts": -1.0, "req": {"cpu": "100m"}, "node": "n0"}))
+    store.create("Node", make_node_obj("torch", _GUARD_NODE))
+    store.create("Pod", make_pod_obj("torch", _GUARD_RUNNING))
     for pod in _guard_pods(kind):
         store.create("Pod", pod)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         sched.schedule_cycle()
-    if kind in ("spread", "affinity_preemptor"):
-        assert "B8" in str(err.value)
-    if kind == "affinity_scan":
-        assert "B9" in str(err.value)
 
 
-def test_scope_guard_raises_for_a_batch_too_heterogeneous_to_dedup():
+def test_scope_guard_raises_for_a_batch_too_heterogeneous_to_dedup(monkeypatch):
     """More identity classes than half the batch: the reference takes its
-    full [B, N] engine, which this slice does not carry."""
-    store = TStore()
-    sched = TorchScheduler(store, batch_size=4, device="cpu", clock=fake_clock(),
-                           batch_wait=0)
-    store.create("Node", make_node_obj("torch", {
-        "name": "n0", "cpu": "4", "memory": "8Gi", "pods": "110", "labels": {},
-        "taints": [], "images": [], "unschedulable": False, "not_ready": False}))
-    for i, cpu in enumerate(["100m", "200m", "300m"]):
-        store.create("Pod", make_pod_obj("torch", {"name": f"p{i}", "ts": float(i),
-                                                   "req": {"cpu": cpu}}))
-    with pytest.raises(NotImplementedError, match="non-dedup"):
-        sched.schedule_cycle()
+    full [B, N] engine, and so does the port now — with the reference's
+    bindings."""
+    node = dict(_GUARD_NODE, labels={})
+    pods = [{"name": f"p{i}", "ts": float(i), "req": {"cpu": cpu}}
+            for i, cpu in enumerate(["100m", "200m", "300m"])]
+    jb = _guard_bindings("jax", [node], pods, lambda pkg: [], 4)
+    log = _engine_log(monkeypatch)
+    tb = _guard_bindings("torch", [node], pods, lambda pkg: [], 4)
+    assert tb == jb and all(tb.values())
+    assert log == ["batch_assign"]
 
 
 def test_scope_guard_raises_for_pipeline_and_extenders():
