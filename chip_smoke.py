@@ -5,7 +5,7 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the nineteen CUDA kernels from kubernetes_tpu_torch/csrc/ (one
+1. Build the twenty-three CUDA kernels from kubernetes_tpu_torch/csrc/ (one
    nvcc per source, started together).
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
    CUDA tensors, exactly equal.  K1–K4: random and adversarial inputs
@@ -27,7 +27,13 @@ Phases, all of which must pass (any failure exits non-zero):
    the pod on a live node, a keyless node, the last node and none, K19 in
    both count forms.  K1–K4, K6–K8 and K10–K12 again at C = 512 rows
    (identity classes, as the full auction runs them) and K1, K2, K6, K7,
-   K10 and K11 on one row (as the scan runs them).
+   K10 and K11 on one row (as the scan runs them).  K20–K23 at GangBasic's
+   shapes: K20 with gangs of 8 at B = 512 and 1024, no gangs, one
+   incomplete gang; K21 on 512 anchored rows over 8192 nodes in slices of
+   8 with a row whose anchor slice holds no feasible node, anchor −2, and
+   on one row; K22 at C = B = 512, on class-gathered rows and at 31
+   filters; K23 with every operator, NaN and absent keys, empty terms,
+   match_all / match_none, both numeric forms and the numeric path off.
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
    on cuda, synchronous, launch counts zeroed just before and read just
@@ -62,12 +68,18 @@ Phases, all of which must pass (any failure exits non-zero):
    SchedulingPreferredPodAffinity through TorchScheduler(pipeline=True),
    K15 launched on real carries.  Each pipelined run's pods/s, attempt
    quantiles and phase walls (sync_overlap among them) stand beside its
-   synchronous run's in the record.  The calls of the torch-op programs on
-   the path (B4, B6, B7) are counted on the NorthStar and
-   SchedulingPreferredPodAffinity runs and timed on their last cycle's
-   arguments.  Each path builds its cluster on a fresh heap (the objects of
-   earlier phases frozen out of the collector), and its record counts the
-   full collections inside the measured run.
+   synchronous run's in the record.  Each path builds its cluster on a
+   fresh heap (the objects of earlier phases frozen out of the collector),
+   and its record counts the full collections inside the measured run.
+4c. GangBasic/5000Nodes (5000 nodes labelled into 8-host slices, 600
+   PodGroups of min_member 8 with a 60 s timeout, 4800 gang pods of 3 cpu,
+   one per host; B = 512) through TorchScheduler synchronously, launch
+   counts zeroed just before and read just after: all 4800 bound, no gang
+   partly bound, no node oversubscribed, K1–K4 and K20–K23 launched; the
+   gangs spread over more than one slice counted; one profiled cycle of 64
+   fresh gangs.  Then through ``perf.harness.run_workload`` (pipelined):
+   the same checks, K1–K4 and K20–K23 inside the measured window, pods/s,
+   gangs/s and time-to-full-slice p50 / p99.
 4b. The full auction and the exact scan at full width (5000 nodes, B =
    512, measured pods with the launch counts zeroed just before them, every
    measured batch through the expected engine, one profiled cycle each):
@@ -96,6 +108,11 @@ Phases, all of which must pass (any failure exits non-zero):
    1000 nodes (200 first pods, 512 measured; 128 for the spread full
    auction, whose CPU half runs a round per pod), and a mixed queue whose four batches take the scan, the full
    auction (twice) and the dedup engine: cuda == cpu bindings and routes.
+   GangBasic/500Nodes: cuda == cpu bindings.  Starved gangs (1020 sliced
+   nodes, 130 gangs of 8, B = 20, a fake clock): split gangs hold at
+   Permit, the gang that cannot complete times out after 60 s and requeues
+   atomically, none is partly bound; cuda == cpu on bindings, PodGroup
+   phases, held binds and queue counts per cycle, and the gang counters.
 6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
    round; K5–K8: a TopologySpreading cycle's first round; K9–K12: a
    SchedulingPreferredPodAffinity cycle's first round; K13–K16: the latest
@@ -115,6 +132,10 @@ Phases, all of which must pass (any failure exits non-zero):
 6b. K17–K19 on the arguments of their latest call on the scan paths (K19
    in both count forms) and K1–K4, K8 and K12 at C = 512 on the full
    auctions' latest rounds, timed as in 6.
+6c. K20–K23 on the arguments of their latest call on the GangBasic/5000Nodes
+   synchronous run (K23: the node-affinity filter's node-selector call),
+   timed as in 6; K20 beside the one PyTorch pair that computes the same
+   mask (``index_add_`` + gather).
 
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
 on the path that carries each kernel: K1–K8 on the TopologySpreading run,
@@ -122,13 +143,14 @@ K9–K12 on the SchedulingPreferredPodAffinity run, K13 and K16 on the
 NorthStar harness run, K14 and K15 on the pipelined TopologySpreading and
 SchedulingPreferredPodAffinity runs, K17 and K18 on the TopologySpreading
 scan, K19 on the two pod-affinity scans, the C = 512 rows on the full
-auction that gave their arguments), the card's name and power limit as
+auction that gave their arguments, K20–K23 on the GangBasic synchronous
+run), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
 cycles' tables to chiprun_out/profile_cycle.txt,
-chiprun_out/profile_spread_cycle.txt, chiprun_out/profile_affinity_cycle.txt
-and chiprun_out/profile_pipelined_cycle.txt.
+chiprun_out/profile_spread_cycle.txt, chiprun_out/profile_affinity_cycle.txt,
+chiprun_out/profile_pipelined_cycle.txt and chiprun_out/profile_gang_cycle.txt.
 """
 
 from __future__ import annotations
@@ -1726,7 +1748,7 @@ def time_pipeline_kernels(last_calls: dict, err: dict) -> list:
 # --- phase 3: NorthStar ---------------------------------------------------------------
 
 
-def northstar(dev_name: str, counters=None) -> dict:
+def northstar(dev_name: str) -> dict:
     import torch
 
     from kubernetes_tpu_torch import kernels
@@ -1754,8 +1776,6 @@ def northstar(dev_name: str, counters=None) -> dict:
 
     torch.cuda.synchronize()
     kernels.reset_launches()
-    if counters is not None:
-        counters.reset()
     t1 = time.perf_counter()
     with GcWatch() as gcw:
         stats = sched.run_until_idle()
@@ -1782,7 +1802,6 @@ def northstar(dev_name: str, counters=None) -> dict:
         "rounds_per_cycle": sched.rounds_total / max(sched.cycles, 1),
         "phase_wall_s": dict(sched.phase_wall),
         "node_tier": sched.encoder._n, "launches": launches,
-        "torch_op_calls": counters.calls() if counters is not None else None,
         "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds,
     }
     pw = sched.phase_wall
@@ -2073,7 +2092,7 @@ def affinity_cluster(dev_name: str, suite: str, n_nodes: int, n_first: int,
     return sched
 
 
-def affinity_suite(dev_name: str, suite: str, counters=None, pipeline: bool = False) -> dict:
+def affinity_suite(dev_name: str, suite: str, pipeline: bool = False) -> dict:
     """One pod-affinity suite at 5000Nodes, full width: the first pods
     scheduled through the path, then the measured pods (namespace sched-1),
     with the launch counts zeroed just before them.  With ``pipeline``
@@ -2099,8 +2118,6 @@ def affinity_suite(dev_name: str, suite: str, counters=None, pipeline: bool = Fa
 
     torch.cuda.synchronize()
     kernels.reset_launches()
-    if counters is not None:
-        counters.reset()
     t1 = time.perf_counter()
     with GcWatch() as gcw:
         stats = sched.run_until_idle()
@@ -2143,7 +2160,6 @@ def affinity_suite(dev_name: str, suite: str, counters=None, pipeline: bool = Fa
         "node_tier": sched.encoder._n, "pod_tier": sched.encoder._p,
         "live_groups": sched.encoder.aff.live_groups,
         "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds,
-        "torch_op_calls": counters.calls() if counters is not None else None,
         "pipeline": pipeline, "carried_pods": carried,
     }
     log(f"{what}/5000Nodes: {n_pods} pods bound in {wall:.3f} s = "
@@ -2831,102 +2847,541 @@ def time_ipa_kernels(sched, err: dict) -> list:
     return rows
 
 
-class OpCounter:
-    """The torch-op programs of the path (ROADMAP Queue B B4, B6, B7),
-    wrapped where the scheduler and the plugins look them up: counts their
-    calls and keeps the last cycle's arguments for timing.  B4's selector
-    matrices all go through ``requirements_match_matrix``; each cycle starts
-    with one ``apply_scatter`` (B1, counted; its row-scatter is K16, timed
-    with the kernels), which clears the kept B4 calls."""
+# --- phase 2c: K20–K23 vs plain (the gang slice's kernels) --------------------------
 
-    TARGETS = (
-        ("B1", "kubernetes_tpu_torch.scheduler", "apply_scatter"),
-        ("B4", "kubernetes_tpu_torch.state.selectors", "requirements_match_matrix"),
-        ("B4", "kubernetes_tpu_torch.plugins.helpers", "requirements_match_matrix"),
-        ("B6", "kubernetes_tpu_torch.scheduler", "gang_all_or_nothing"),
-        ("B7", "kubernetes_tpu_torch.scheduler", "diagnose_bits_from_plane"),
-        ("B7", "kubernetes_tpu_torch.scheduler", "pack_diag"),
+GANG_KERNELS = ("gang_all_or_nothing", "cosched_score_into", "diag_pack", "selector_match")
+GANG_SOURCES = {"gang_all_or_nothing": "kubernetes_tpu_torch/csrc/gang.cu",
+                "cosched_score_into": "kubernetes_tpu_torch/csrc/cosched.cu",
+                "diag_pack": "kubernetes_tpu_torch/csrc/diag_pack.cu",
+                "selector_match": "kubernetes_tpu_torch/csrc/selector_match.cu"}
+GANG_REPLACES = {"gang_all_or_nothing": "kubernetes_tpu/gang/device.py:17",
+                 "cosched_score_into": "kubernetes_tpu/gang/coscheduling.py:100",
+                 "diag_pack": "kubernetes_tpu/framework/runtime.py:237",
+                 "selector_match": "kubernetes_tpu/state/selectors.py:299"}
+GANG_SYMBOLS = {"gang_all_or_nothing": "gang_all_or_nothing_kernel",
+                "cosched_score_into": "cosched_score_into_kernel",
+                "diag_pack": "diag_pack_kernel", "selector_match": "selector_"}
+SLICE_LABEL = "tpu.kubernetes.io/slice"
+POD_GROUP_LABEL = "pod-group.scheduling/name"
+
+
+def selector_case(dev):
+    """Compiled label and node selectors of every operator (NaN and absent
+    keys, empty terms, match_all / match_none, a duplicate) and label sets,
+    as the plugins hand them to K23: the compiled arrays on the card."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.api import objects as v1
+    from kubernetes_tpu_torch.framework.podbatch import _field_to_device
+    from kubernetes_tpu_torch.state.dictionary import Dictionary
+    from kubernetes_tpu_torch.state.selectors import (
+        compile_label_selectors,
+        compile_node_selectors,
     )
 
+    E, NE = v1.LabelSelectorRequirement, v1.NodeSelectorRequirement
+    LS, NS, T = v1.LabelSelector, v1.NodeSelector, v1.NodeSelectorTerm
+    labels = [
+        LS(match_labels={"zone": "z1"}),
+        LS(match_expressions=[E(key="zone", operator="NotIn", values=["z1", "z9"])]),
+        LS(match_expressions=[E(key="disk", operator="Exists")]),
+        LS(match_expressions=[E(key="disk", operator="DoesNotExist")]),
+        LS(match_expressions=[E(key="gen", operator="Gt", values=["5"])]),
+        LS(match_expressions=[E(key="gen", operator="Lt", values=["5"])]),
+        LS(match_expressions=[E(key="gen", operator="Gt", values=["nan"])]),
+        LS(match_expressions=[E(key="absent", operator="NotIn", values=["a"]),
+                              E(key="absent", operator="Lt", values=["100"])]),
+        LS(match_expressions=[E(key="rack", operator="In", values=["r1", "r7", "r8"]),
+                              E(key="zone", operator="NotIn", values=["z2"])]),
+        LS(), None, LS(match_labels={"zone": "z1"}),
+    ]
+    nodes_sel = [
+        NS(node_selector_terms=[T(match_expressions=[NE(key="zone", operator="In",
+                                                        values=["z1", "z3"])])]),
+        NS(node_selector_terms=[T(match_expressions=[NE(key="gen", operator="Gt",
+                                                        values=["5"])]),
+                                T(match_expressions=[NE(key="disk",
+                                                        operator="DoesNotExist")])]),
+        NS(node_selector_terms=[T(match_expressions=[]),
+                                T(match_expressions=[NE(key="rack", operator="Exists"),
+                                                     NE(key="gen", operator="Lt",
+                                                        values=["0"])])]),
+        NS(node_selector_terms=[T(match_expressions=[])]),
+        None,
+    ]
+    dic = Dictionary()
+    cs = compile_label_selectors(labels, dic)
+    cns = compile_node_selectors(nodes_sel, dic)
+    rng = np.random.default_rng(SEED + 23)
+    o, width = 8192, 8
+    keys = np.full((o, width), -1, np.int32)
+    vals = np.full((o, width), -1, np.int32)
+    pool = {"zone": ["z1", "z2", "z3"], "disk": ["ssd", "hdd"], "gen": ["3", "12", "abc", "-4", "7"],
+            "rack": ["r1", "r7", "r2"], "note": ["x"]}
+    for i in range(o):
+        ks = [k for k in pool if rng.random() < 0.6]
+        for j, k in enumerate(sorted(ks)):
+            keys[i, j] = dic.intern(k)
+            vals[i, j] = dic.intern(pool[k][int(rng.integers(len(pool[k])))])
+    numeric = dic.numeric_table(min_size=64)
+    vals_num = np.where(vals >= 0, numeric[np.clip(vals, 0, numeric.shape[0] - 1)],
+                        np.nan).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (_field_to_device(cs, dev), _field_to_device(cns, dev), t(keys), t(vals),
+            t(vals_num), t(numeric))
+
+
+def check_gang_kernels(dev) -> dict:
+    """K20–K23 against their plain versions, exactly equal, at GangBasic's
+    shapes (B = 512, gangs of 8; C = 512 anchored rows over N = 8192 nodes
+    in slices of 8) and on edge inputs: K20 with no gangs, one incomplete
+    gang, B = 1024; K21 with an anchor slice that holds no feasible node,
+    anchor −2, one row; K22 at 31 filters, on class-gathered rows and on
+    one row per pod; K23 with every operator, NaN and absent keys, empty
+    terms, match_all / match_none, a side-table and a vals_num form, the
+    numeric path off, and at the path's node-affinity shape."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import cosched as KC
+    from kubernetes_tpu_torch.kernels import diag as KD
+    from kubernetes_tpu_torch.kernels import gang as KG
+    from kubernetes_tpu_torch.kernels import selectors as KS
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    err = {k: 0.0 for k in GANG_KERNELS}
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    # K20
+    cases = []
+    for b in (512, 1024):
+        node_row = ints(0, 8192, b)
+        node_row[torch.rand(b, generator=gen) < 0.02] = -1
+        seg = torch.arange(b, dtype=torch.int32) // 8
+        seg[torch.rand(b, generator=gen) < 0.1] = -1
+        cases.append((f"B = {b}, gangs of 8", node_row, seg))
+    cases.append(("no gangs", ints(-1, 50, 512), torch.full((512,), -1, dtype=torch.int32)))
+    one = ints(0, 100, 64)
+    one[3] = -1
+    seg = torch.full((64,), -1, dtype=torch.int32)
+    seg[:8] = 0
+    cases.append(("one incomplete gang", one, seg))
+    for what, node_row, seg in cases:
+        a = (node_row.to(dev), seg.to(dev))
+        got, want = KG.gang_all_or_nothing(*a), KG.gang_all_or_nothing_plain(*a)
+        torch.cuda.synchronize()
+        err["gang_all_or_nothing"] = max(err["gang_all_or_nothing"], require_equal(
+            f"gang_all_or_nothing ({what})", [("node_row", got, want)]))
+    if not bool((got[:8] == -1).all()):
+        fail("gang_all_or_nothing check: the incomplete gang was not withdrawn")
+
+    # K21
+    n, full = 8192, (1 << 12) - 1
+    slice_dom = (torch.arange(n, dtype=torch.int32) // 8)
+    slice_dom[5000:] = -1  # rows past the cluster's nodes: no slice
+    for what, c in (("C = 512 anchored rows", 512), ("one row", 1)):
+        anchor = ints(0, 625, c)
+        anchor[torch.rand(c, generator=gen) < 0.2] = -2
+        bits = torch.where(torch.rand((c, n), generator=gen) < 0.7, full,
+                           ints(0, full, c, n))
+        if c > 1:
+            anchor[0] = 3  # its slice holds no feasible node
+            bits[0, 24:32] = 0
+            anchor[1] = -2
+        total = torch.where(bits == full, torch.randint(0, 400, (c, n), generator=gen).float(),
+                            float("-inf"))
+        a = [x.to(dev) for x in (bits, total, anchor, slice_dom)]
+        got = KC.cosched_score_into(a[0], full, a[1].clone(), a[2], a[3], 1.0)
+        want = KC.cosched_score_into_plain(a[0], full, a[1].clone(), a[2], a[3], 1.0)
+        torch.cuda.synchronize()
+        err["cosched_score_into"] = max(err["cosched_score_into"], require_equal(
+            f"cosched_score_into ({what})", [("total", got, want)]))
+        if c > 1 and not torch.equal(got[0], a[1][0]):
+            fail("cosched_score_into check: a row with no feasible anchor node scored")
+
+    # K22
+    nf = 12
+    for what, c, b, nbits in (("C = B = 512", 512, 512, nf), ("class rows, C = 4", 4, 512, nf),
+                              ("31 filters", 64, 64, 31)):
+        plane = torch.randint(0, 1 << nbits, (c, n), generator=gen, dtype=torch.int32)
+        plane[0] &= ~(1 << 3)  # filter 3 fails every node of row 0
+        class_of = None if c == b else torch.randint(0, c, (b,), generator=gen)
+        node_row = ints(-1, n, b)
+        a = (plane.to(dev), nbits, None if class_of is None else class_of.to(dev),
+             node_row.to(dev), 17)
+        got, want = KD.diag_pack(*a), KD.diag_pack_plain(*a)
+        torch.cuda.synchronize()
+        err["diag_pack"] = max(err["diag_pack"], require_equal(
+            f"diag_pack ({what})", [("packed", got, want)]))
+
+    # K23
+    cs, cns, keys, vals, vals_num, numeric = selector_case(dev)
+    u, s_ = cs.req_key.shape
+    lab = (cs.req_key.reshape(u, 1, s_), cs.req_op.reshape(u, 1, s_),
+           cs.req_vals.reshape(u, 1, s_, -1), cs.req_num.reshape(u, 1, s_))
+    node = (cns.req_key, cns.req_op, cns.req_vals, cns.req_num)
+    sel_cases = [
+        ("label selectors, side table", lab, (None, None, cs.match_none), None, True,
+         cs.index),
+        ("label selectors, vals_num", lab, (None, None, cs.match_none), vals_num, True,
+         cs.index),
+        ("label selectors, numeric off", lab, (None, None, cs.match_none), None, False,
+         cs.index),
+        ("node selectors", node, (cns.term_valid, cns.match_all, None), vals_num, True,
+         cns.index),
+        ("requirement rows, no index", lab, (None, None, None), None, True, None),
+    ]
+    for what, req, opt, vn, has_num, index in sel_cases:
+        kw = dict(vals_num=vn, numeric=numeric, has_numeric=has_num, index=index)
+        got = KS.selector_match(*req, *opt, keys, vals, **kw)
+        want = KS.selector_match_plain(*req, *opt, keys, vals, **kw)
+        torch.cuda.synchronize()
+        err["selector_match"] = max(err["selector_match"], require_equal(
+            f"selector_match ({what})", [("match", got, want)]))
+        if not 0 < int(got.sum()) < got.numel():
+            fail(f"selector_match check ({what}): a degenerate matrix")
+    log(f"gang-slice kernels vs plain: all equal ({', '.join(GANG_KERNELS)})")
+    return err
+
+
+# --- phase 4c: GangBasic -------------------------------------------------------------
+
+GANG_TARGETS = {
+    "gang_all_or_nothing": ("kubernetes_tpu_torch.scheduler", "gang_all_or_nothing", None),
+    "diag_pack": ("kubernetes_tpu_torch.scheduler", "diag_pack", None),
+    # the full auction's planes (C = B), not a scan row
+    "cosched_score_into": ("kubernetes_tpu_torch.gang.coscheduling", "cosched_score_into",
+                           lambda a: a[0].shape[0] > 1),
+    "selector_match": ("kubernetes_tpu_torch.state.selectors", "selector_match", None),
+}
+
+
+def gang_key(name, args):
+    """K23's latest call of each mode (label / node selectors); the others'
+    latest call."""
+    if name == "selector_match":
+        return (name, "node" if args[4] is not None else "label")
+    return (name, 0)
+
+
+def gang_slices(store):
+    """(gangs, gangs split over more than one slice, partly bound gangs)."""
+    nodes = {n.metadata.name: n.metadata.labels.get(SLICE_LABEL)
+             for n in store.list("Node")[0]}
+    members = {}
+    for p in store.list("Pod")[0]:
+        g = p.metadata.labels.get(POD_GROUP_LABEL)
+        if g:
+            members.setdefault(g, []).append(p.spec.node_name)
+    split = sum(1 for ns in members.values()
+                if all(ns) and len({nodes[x] for x in ns}) > 1)
+    partial = sum(1 for ns in members.values() if any(ns) and not all(ns))
+    return len(members), split, partial
+
+
+def gang_cluster(dev_name: str, n_nodes: int, n_gangs: int, batch_size: int, clock=None):
+    """GangBasic's cluster (perf/workloads.py: node_sliced, podgroup_template,
+    pod_gang; gangs of 8): → (store, synchronous scheduler) with every
+    object created."""
+    from kubernetes_tpu_torch.perf.workloads import node_sliced, pod_gang, podgroup_template
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+
+    store = ObjectStore()
+    kw = {} if clock is None else {"clock": clock, "batch_wait": 0}
+    sched = TorchScheduler(store, batch_size=batch_size, device=dev_name, **kw)
+    sched.presize(n_nodes, n_gangs * 8)
+    nt, pt, gt = node_sliced(), pod_gang(), podgroup_template()
+    for i in range(n_nodes):
+        n = nt(i)
+        n.metadata.creation_timestamp = 0.0
+        store.create("Node", n)
+    for j in range(n_gangs):
+        kind, pg = gt(j)
+        pg.metadata.creation_timestamp = 1.0
+        store.create(kind, pg)
+    for i in range(n_gangs * 8):
+        p = pt(i)
+        p.metadata.creation_timestamp = 2.0 + i
+        store.create("Pod", p)
+    return store, sched
+
+
+def gang_basic_sync(kargs: KernelArgs, out_dir: Path, dev_name: str = "cuda") -> dict:
+    """GangBasic/5000Nodes through TorchScheduler(batch_size=512), synchronous:
+    5000 sliced nodes, 600 PodGroups of 8, 4800 gang pods (one per host),
+    launch counts zeroed just before the run and read just after.  Every pod
+    bound, no gang partly bound, no node oversubscribed, K1–K4 and K20–K23
+    launched; then one profiled cycle of 64 fresh gangs on the hosts the
+    first 64 gangs freed."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.perf.workloads import pod_gang, podgroup_template
+
+    fresh_heap()
+    t0 = time.perf_counter()
+    store, sched = gang_cluster(dev_name, 5000, 600, 512)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with GcWatch() as gcw, kargs:
+        stats = sched.run_until_idle()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    check_bound_and_fit("GangBasic", store)
+    gangs, split, partial = gang_slices(store)
+    if stats.scheduled != 4800 or partial:
+        fail(f"GangBasic: scheduled {stats.scheduled} of 4800, {partial} gangs partly bound")
+    for k in PATH_KERNELS[:4] + GANG_KERNELS:
+        if launches[k] <= 0:
+            fail(f"GangBasic: kernel {k} never launched on the main path")
+    d = sched.gangs
+    rec = {"nodes": 5000, "gangs": gangs, "pods": 4800, "batch_size": 512,
+           "setup_s": setup_s, "wall_s": wall, "pods_per_s": 4800 / wall,
+           "gangs_per_s": gangs / wall, "gangs_split_over_slices": split,
+           "partly_bound_gangs": partial, "cycles": sched.cycles,
+           "rounds_per_cycle": sched.rounds_total / max(sched.cycles, 1),
+           "phase_wall_s": dict(sched.phase_wall), "launches": launches,
+           "gang_attempts": dict(d.attempts), "gang_timeouts": d.timeouts,
+           "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds}
+    log(f"GangBasic/5000Nodes synchronous: 4800 pods in {gangs} gangs bound in {wall:.3f} s "
+        f"= {rec['pods_per_s']:.1f} pods/s, {rec['gangs_per_s']:.2f} gangs/s; "
+        f"{sched.cycles} cycles, {rec['rounds_per_cycle']:.2f} rounds/cycle; partly bound "
+        f"gangs {partial}; gangs over more than one slice {split}; gang attempts "
+        f"{d.attempts}; launches {launches}")
+    # the profiled cycle: the first 64 gangs' pods deleted, 64 new gangs
+    for i in range(512):
+        store.delete("Pod", "default", pod_gang()(i).metadata.name)
+    for j in range(64):
+        kind, pg = podgroup_template()(700 + j)
+        store.create(kind, pg)
+    rec["profile"] = profile_cycle(sched, out_dir, "GangBasic", lambda i: pod_gang()(5600 + i),
+                                   "profile_gang_cycle.txt")
+    return {"record": rec, "sched": sched}
+
+
+def gang_basic_harness(dev_name: str = "cuda") -> dict:
+    """GangBasic/5000Nodes through the port's perf harness
+    (``run_workload``: pipelined, depth 3, B = 512): every measured pod
+    bound, no gang partly bound, K1–K4 and K20–K23 launched inside the
+    measured window, GangThroughput and TimeToFullSlice."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.perf.harness import data_items_to_json, run_workload
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+
+    seen = {}
+
+    def inspect(store, sched):
+        torch.cuda.synchronize()
+        seen["launches"] = dict(kernels.LAUNCHES)
+        check_bound_and_fit("GangBasic harness", store)
+        seen["gangs"] = gang_slices(store)
+        seen["phase_wall_s"] = dict(sched.phase_wall)
+
+    fresh_heap()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    items = run_workload(build_workload("GangBasic", "5000Nodes"), device=dev_name,
+                         inspect=inspect)
+    wall = time.perf_counter() - t
+    by = {it.labels["Metric"]: it.data for it in items}
+    win = by["KernelLaunchesInWindow"]
+    gangs, split, partial = seen["gangs"]
+    if partial or by["GangThroughput"]["Gangs"] != 600:
+        fail(f"GangBasic harness: {by['GangThroughput']['Gangs']:.0f} of 600 gangs whole, "
+             f"{partial} partly bound")
+    for k in PATH_KERNELS[:4] + GANG_KERNELS:
+        if win[k] <= 0:
+            fail(f"GangBasic harness: kernel {k} never launched in the measured window")
+    if by["KernelBuildsInWindow"]["Count"] != 0:
+        fail("GangBasic harness: a kernel was built inside the measured window")
+    att, tfs = by["scheduler_scheduling_attempt_duration_seconds"], by["TimeToFullSlice"]
+    rec = {"items": json.loads(data_items_to_json(items)), "wall_s": wall,
+           "pods_per_s": by["SchedulingThroughput"]["Average"],
+           "gangs_per_s": by["GangThroughput"]["Average"],
+           "time_to_full_slice_p50_s": tfs["Perc50"], "time_to_full_slice_p99_s": tfs["Perc99"],
+           "attempt_p50_ms": att["Perc50"] * 1e3, "attempt_p99_ms": att["Perc99"] * 1e3,
+           "gangs_split_over_slices": split, "partly_bound_gangs": partial,
+           "window_launches": win, "window_phase_wall_s": by["PhaseWallBreakdown"],
+           "launches": seen["launches"]}
+    log(f"GangBasic/5000Nodes via perf.harness.run_workload (pipelined): "
+        f"{rec['pods_per_s']:.1f} pods/s, {rec['gangs_per_s']:.2f} gangs/s, time to full "
+        f"slice p50 {tfs['Perc50'] * 1e3:.1f} ms, p99 {tfs['Perc99'] * 1e3:.1f} ms; attempt "
+        f"p50 {rec['attempt_p50_ms']:.1f} ms, p99 {rec['attempt_p99_ms']:.1f} ms; partly "
+        f"bound gangs {partial}; gangs over more than one slice {split}; window launches "
+        + ", ".join(f"{k} {win[k]:.0f}" for k in PATH_KERNELS[:4] + GANG_KERNELS))
+    return rec
+
+
+def gang_bindings(device: str):
+    """GangBasic/500Nodes (500 sliced nodes, 60 gangs of 8, B = 64) through
+    the synchronous scheduler: → (bindings, launches)."""
+    from kubernetes_tpu_torch import kernels
+
+    store, sched = gang_cluster(device, 500, 60, 64, clock=_FixedClock())
+    kernels.reset_launches()
+    sched.run_until_idle()
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    return ({p.metadata.name: p.spec.node_name for p in store.list("Pod")[0]},
+            dict(kernels.LAUNCHES))
+
+
+class _FixedClock:
+    """A clock the caller moves: deadlines in the gang paths reproduce."""
+
     def __init__(self):
-        import importlib
+        self.t = 0.0
 
-        self.counts = {}
-        self.last = {}
-        for prog, mod_name, attr in self.TARGETS:
-            mod = importlib.import_module(mod_name)
-            setattr(mod, attr, self._wrap(prog, attr, getattr(mod, attr)))
-
-    def _wrap(self, prog, attr, fn):
-        def wrapped(*args, **kw):
-            key = (prog, attr)
-            self.counts[key] = self.counts.get(key, 0) + 1
-            if prog == "B1":
-                self.last.pop(("B4", "requirements_match_matrix"), None)
-            if prog == "B4":
-                self.last.setdefault(key, []).append((args, kw))
-            else:
-                self.last[key] = [(args, kw)]
-            return fn(*args, **kw)
-
-        wrapped.original = fn
-        return wrapped
-
-    def reset(self):
-        self.counts.clear()
-
-    def calls(self) -> dict:
-        return {f"{p} {a}": v for (p, a), v in sorted(self.counts.items())}
-
-    def run_last(self, prog, attr):
-        """Replay the kept calls of one program (its original function)."""
-        import importlib
-
-        mod_name = next(m for p, m, a in self.TARGETS if (p, a) == (prog, attr))
-        fn = getattr(importlib.import_module(mod_name), attr).original
-        return [fn(*a, **kw) for a, kw in self.last.get((prog, attr), [])]
+    def __call__(self):
+        return self.t
 
 
-def time_torch_ops(counter: OpCounter, what: str) -> list:
-    """Device time per cycle of the torch-op programs (B4, B6, B7) on the
-    last cycle's arguments, with their bound."""
-    out = []
+def gang_starved(device: str):
+    """1020 sliced nodes (room for 127 gangs and half of one more) and 130
+    gangs of 8 at B = 20, so every other gang splits over two batches and
+    holds its first half at Permit until the second half places; the last
+    split gang's second half finds no node.  A fake clock moves 5 s a
+    cycle: that gang times out after its 60 s and requeues atomically; no
+    gang is ever partly bound.  → (bindings, PodGroup phases, held binds
+    per cycle, queue counts per cycle, partly bound gangs per cycle, the
+    directory's counters, launches)."""
+    from kubernetes_tpu_torch import kernels
 
-    def args(prog, attr):
-        return counter.last.get((prog, attr), [])
+    clock = _FixedClock()
+    store, sched = gang_cluster(device, 1020, 130, 20, clock=clock)
+    kernels.reset_launches()
+    held, active, partial = [], [], []
+    for _ in range(120):
+        s = sched.schedule_cycle()
+        held.append(s.waiting)
+        active.append(sched.queue.pending_count())
+        partial.append(gang_slices(store)[2])
+        clock.t += 5.0
+        if s.attempted == 0 and s.waiting == 0 and sched.queue.pending_count()[0] == 0:
+            break
+    if device == "cuda":
+        import torch
 
-    def row(name, fn, n_bytes, n_ops, calls):
+        torch.cuda.synchronize()
+    d = sched.gangs
+    return ({p.metadata.name: p.spec.node_name for p in store.list("Pod")[0]},
+            {g.metadata.name: g.phase for g in store.list("PodGroup")[0]},
+            held, active, partial, (dict(d.attempts), d.timeouts), dict(kernels.LAUNCHES))
+
+
+def time_gang_kernels(last_calls: dict, err: dict) -> list:
+    """K20–K23 timed on the arguments of their latest calls on the
+    GangBasic/5000Nodes synchronous run, each held once more against its
+    plain version there; the bound from what those inputs need."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import cosched as KC
+    from kubernetes_tpu_torch.kernels import diag as KD
+    from kubernetes_tpu_torch.kernels import gang as KG
+    from kubernetes_tpu_torch.kernels import selectors as KS
+
+    rows_out = []
+
+    def last(key):
+        got = last_calls.get(key)
+        if got is None:
+            fail(f"kernel timing: no recorded path call of {key}")
+        return got
+
+    def row(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None):
         least, bound_by = bound_ms(n_bytes, n_ops)
-        out.append({"name": name, "shape": what, "ms": device_ms(fn),
-                    "bound_ms": least, "bound_by": bound_by, "bytes": n_bytes,
-                    "ops": n_ops, "calls_per_cycle": calls})
+        rows_out.append({
+            "name": name, "route": "cuda", "source": GANG_SOURCES[name],
+            "replaces": GANG_REPLACES[name], "launches": None, "max_abs_err": err[name],
+            "ms": device_ms(fn, GANG_SYMBOLS[name]), "ms_source": MS_SOURCE[0],
+            "call_ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
+            "bound_ms": least, "bound_by": bound_by,
+            "library_ms": device_ms(library_fn) if library_fn else None,
+            "bytes": n_bytes, "ops": n_ops, "shape": shape})
 
-    b4 = args("B4", "requirements_match_matrix")
-    if b4:
-        n_bytes = n_ops = 0
-        for (req_key, req_op, req_vals, req_num, keys, vals), kw in \
-                [(a[:6], kw) for a, kw in b4]:
-            u, s_ = req_key.shape[0], req_key.shape[1]
-            o, l_ = keys.shape
-            n_bytes += 4 * (u * s_ * (3 + req_vals.shape[-1]) + 2 * o * l_) + u * o
-            n_ops += 3 * u * s_ * o * l_
-        row("B4 selector match", lambda: counter.run_last("B4", "requirements_match_matrix"),
-            n_bytes, n_ops, len(b4))
-    b6 = args("B6", "gang_all_or_nothing")
-    if b6:
-        node_row, seg = b6[0][0][:2]
-        row("B6 gang_all_or_nothing", lambda: counter.run_last("B6", "gang_all_or_nothing"),
-            nbytes(node_row, seg, node_row), node_row.numel(), 1)
-    b7a, b7b = args("B7", "diagnose_bits_from_plane"), args("B7", "pack_diag")
-    if b7a and b7b:
-        plane, n_filters = b7a[0][0][:2]
-        bits = b7b[0][0][0]
-        row("B7 diagnose + pack",
-            lambda: (counter.run_last("B7", "diagnose_bits_from_plane"),
-                     counter.run_last("B7", "pack_diag")),
-            nbytes(plane) + plane.shape[0] * n_filters + 3 * bits.shape[0] * 4,
-            plane.numel() * n_filters + bits.numel(), 2)
-    return out
+    # K20: node_row and gang_seg read, the rows written
+    (node_row, seg), _ = last(("gang_all_or_nothing", 0))
+    got, want = KG.gang_all_or_nothing(node_row, seg), KG.gang_all_or_nothing_plain(node_row, seg)
+    err["gang_all_or_nothing"] = max(err["gang_all_or_nothing"], require_equal(
+        "gang_all_or_nothing (path shapes)", [("node_row", got, want)]))
+    b = node_row.numel()
+    member = seg >= 0
+    segl = torch.where(member, seg, b).long()
+    missed = (member & (node_row < 0)).float()
+    acc = torch.zeros(b + 1, device=node_row.device)
+    row("gang_all_or_nothing", lambda: KG.gang_all_or_nothing(node_row, seg),
+        lambda: KG.gang_all_or_nothing_plain(node_row, seg), 3 * 4 * b, 2 * b,
+        {"B": b, "gangs": int(seg.max()) + 1, "members": int(member.sum())},
+        library_fn=lambda: acc.zero_().index_add_(0, segl, missed)[segl])
+
+    # K21: the anchors and the slice plane once, then bits + total read and
+    # the total written where a row's anchor slice holds the node
+    (bits, full, total, anchor, slice_dom, weight), _ = last(("cosched_score_into", 0))
+    base = total.clone()
+    got = KC.cosched_score_into(bits, full, base.clone(), anchor, slice_dom, weight)
+    want = KC.cosched_score_into_plain(bits, full, base.clone(), anchor, slice_dom, weight)
+    err["cosched_score_into"] = max(err["cosched_score_into"], require_equal(
+        "cosched_score_into (path shapes)", [("total", got, want)]))
+    c, n = bits.shape
+    match = int(((anchor[:, None] >= 0) & (slice_dom[None, :] == anchor[:, None])).sum())
+    work = base.clone()
+    row("cosched_score_into", lambda: KC.cosched_score_into(bits, full, work, anchor,
+                                                            slice_dom, weight),
+        lambda: KC.cosched_score_into_plain(bits, full, base.clone(), anchor, slice_dom,
+                                            weight),
+        4 * (c + n) + 12 * match, match,
+        {"C": c, "N": n, "anchored_rows": int((anchor >= 0).sum()), "matches": match})
+
+    # K22: the plane once, node_row (and class_of) read, [3, B] written
+    (plane, nf, class_of, node_row2, rounds), _ = last(("diag_pack", 0))
+    got = KD.diag_pack(plane, nf, class_of, node_row2, rounds)
+    want = KD.diag_pack_plain(plane, nf, class_of, node_row2, rounds)
+    err["diag_pack"] = max(err["diag_pack"], require_equal(
+        "diag_pack (path shapes)", [("packed", got, want)]))
+    b2 = node_row2.numel()
+    row("diag_pack", lambda: KD.diag_pack(plane, nf, class_of, node_row2, rounds),
+        lambda: KD.diag_pack_plain(plane, nf, class_of, node_row2, rounds),
+        nbytes(plane) + 4 * b2 * (4 + (class_of is not None)), plane.numel(),
+        {"C": plane.shape[0], "N": plane.shape[1], "B": b2, "filters": nf,
+         "classes": class_of is not None})
+
+    # K23: the node-affinity filter's node-selector call (the wider mode):
+    # label sets, selectors and the numbers read once, [B, O] written;
+    # one key compare per (row, term, requirement, object, label column)
+    args, kw = last(("selector_match", "node"))
+    got, want = KS.selector_match(*args, **kw), KS.selector_match_plain(*args, **kw)
+    err["selector_match"] = max(err["selector_match"], require_equal(
+        "selector_match (path shapes)", [("match", got, want)]))
+    req_key, keys = args[0], args[7]
+    u, t, s_ = req_key.shape
+    o, lab = keys.shape
+    sel_bytes = nbytes(*(a for a in args[:7] if a is not None))
+    nums = ([kw.get("vals_num") if kw.get("vals_num") is not None else kw.get("numeric")]
+            if kw.get("has_numeric", True) else [])
+    row("selector_match", lambda: KS.selector_match(*args, **kw),
+        lambda: KS.selector_match_plain(*args, **kw),
+        sel_bytes + nbytes(keys, args[8], *nums)
+        + got.numel() + (nbytes(kw["index"]) if kw.get("index") is not None else 0),
+        u * t * s_ * o * lab,
+        {"U": u, "T": t, "S": s_, "O": o, "L": lab, "B": got.shape[0],
+         "has_numeric": bool(kw.get("has_numeric", True))})
+    for rr in rows_out:
+        log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
+            f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
+            + (f", library {rr['library_ms']:.5f} ms" if rr["library_ms"] is not None else "")
+            + f"; {rr['shape']}")
+    return rows_out
 
 
 # --- phase 7: where one cycle's device time goes ----------------------------------------
@@ -3598,17 +4053,16 @@ def main() -> None:
     err.update(check_pipeline_kernels(dev))
     scan_err, reuse_err = check_scan_kernels(dev)
     err.update(scan_err)
+    err.update(check_gang_kernels(dev))
     record["kernel_check_s"] = time.perf_counter() - t
     out_dir = here / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
 
-    counters = OpCounter()
     kargs = KernelArgs(PIPELINE_TARGETS, key=pipeline_key).install()
     t = time.perf_counter()
-    ns = northstar("cuda", counters)
+    ns = northstar("cuda")
     record["northstar"] = ns["record"]
     record["northstar"]["phase_s"] = time.perf_counter() - t
-    torch_ops = time_torch_ops(counters, "NorthStar")
 
     # the pipelined main path: NorthStar through the perf harness
     t = time.perf_counter()
@@ -3637,12 +4091,9 @@ def main() -> None:
     affinity = {}
     for suite in AFFINITY_SUITES:
         t = time.perf_counter()
-        affinity[suite] = affinity_suite("cuda", suite, counters)
+        affinity[suite] = affinity_suite("cuda", suite)
         record[suite] = affinity[suite]["record"]
         record[suite]["phase_s"] = time.perf_counter() - t
-        if suite == "SchedulingPreferredPodAffinity":
-            torch_ops += time_torch_ops(counters, suite)
-    record["torch_ops"] = torch_ops
     t = time.perf_counter()
     pref_pipe = affinity_suite("cuda", "SchedulingPreferredPodAffinity", pipeline=True)
     record["SchedulingPreferredPodAffinity_pipelined"] = pref_pipe["record"]
@@ -3675,9 +4126,16 @@ def main() -> None:
         engine_runs[key]["phase_s"] = time.perf_counter() - t
     record["engine_paths"] = engine_runs
 
-    log("torch-op programs on the path: " + "; ".join(
-        f"{r['name']} ({r['shape']}): {r['ms']:.5f} ms device, {r['calls_per_cycle']} "
-        f"calls a cycle, bound {r['bound_ms']:.7f} ms ({r['bound_by']})" for r in torch_ops))
+    # gang scheduling: GangBasic/5000Nodes synchronous (its K20–K23 calls
+    # kept for the timing phase) and through the perf harness
+    gang_args = KernelArgs(GANG_TARGETS, key=gang_key)
+    t = time.perf_counter()
+    gang = gang_basic_sync(gang_args, out_dir)
+    record["gang_basic"] = gang["record"]
+    record["gang_basic"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    record["gang_basic_harness"] = gang_basic_harness()
+    record["gang_basic_harness"]["phase_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
     gpu_bind, gpu_launch, gpu_cycles, gpu_wall = hetero_bindings("cuda")
@@ -3771,6 +4229,45 @@ def main() -> None:
         log(f"{what}, 1000 nodes: cuda == cpu bindings ({len(gb)} pods, routes {gr}) in "
             f"{time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    (gb, gl), (cb, _) = gang_bindings("cuda"), gang_bindings("cpu")
+    if gb != cb:
+        diff = [k for k in gb if gb[k] != cb.get(k)]
+        fail(f"GangBasic/500Nodes: cuda and cpu bindings differ for {len(diff)} pods, "
+             f"e.g. {diff[:3]}")
+    if not all(gb.values()):
+        fail("GangBasic/500Nodes: not every gang pod bound")
+    for k_ in PATH_KERNELS[:4] + GANG_KERNELS:
+        if gl[k_] <= 0:
+            fail(f"GangBasic/500Nodes: kernel {k_} never launched ({gl})")
+    record["gang_bindings"] = {"pods": len(gb), "launches": gl, "s": time.perf_counter() - t}
+    log(f"GangBasic/500Nodes: cuda == cpu bindings ({len(gb)} pods) in "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    g_res, c_res = gang_starved("cuda"), gang_starved("cpu")
+    names = ("bindings", "PodGroup phases", "held binds per cycle",
+             "queue counts per cycle", "partly bound gangs per cycle", "gang counters")
+    for what, a, b in zip(names, g_res[:6], c_res[:6]):
+        if a != b:
+            fail(f"starved gangs: cuda and cpu differ in {what}")
+    g_bind, g_phase, g_held, _g_active, g_partial, (g_att, g_to), g_launch = g_res
+    n_bound = sum(1 for v in g_bind.values() if v)
+    if max(g_partial) or n_bound % 8 or not max(g_held) or not g_to:
+        fail(f"starved gangs: partly bound {max(g_partial)}, bound {n_bound}, held "
+             f"{max(g_held)}, timeouts {g_to}: expected whole gangs only, holds and "
+             "timeouts")
+    for k_ in GANG_KERNELS:
+        if g_launch[k_] <= 0:
+            fail(f"starved gangs: kernel {k_} never launched ({g_launch})")
+    record["gang_starved"] = {"bound": n_bound, "held_per_cycle": g_held,
+                              "gang_attempts": g_att, "gang_timeouts": g_to,
+                              "phases": sorted(set(g_phase.values())),
+                              "launches": g_launch, "s": time.perf_counter() - t}
+    log(f"starved gangs, 1020 nodes / 130 gangs of 8: cuda == cpu on bindings, phases, "
+        f"held binds and requeues; {n_bound} pods bound in whole gangs, held binds per "
+        f"cycle {g_held}, gang attempts {g_att}, timeouts {g_to} "
+        f"({time.perf_counter() - t:.1f} s)")
+
     record["cuda_pipelined_vs_sync"] = {}
     for kind_ in ("northstar", "spread", "preferred", "anti"):
         t = time.perf_counter()
@@ -3780,6 +4277,7 @@ def main() -> None:
     pref = affinity["SchedulingPreferredPodAffinity"]
     rows = (time_kernels(ns["sched"], err) + time_spread_kernels(topo["sched"], err)
             + time_ipa_kernels(pref["sched"], err) + time_pipeline_kernels(path_calls, err))
+    gang_rows = time_gang_kernels(gang_args.last, err)
     scan_args = dict(recorders["TopologySpreading scan"].last)
     scan_args["ipa_update_row"] = \
         recorders["SchedulingPreferredPodAffinity scan"].last["ipa_update_row"]
@@ -3829,6 +4327,14 @@ def main() -> None:
         if r["launches"] <= 0:
             fail(f"{r['name']}: no launch on {ENGINE_CARRIER[r['name']]}")
     rows += engine_rows
+    # K20–K23: their launches on the GangBasic/5000Nodes synchronous run
+    for r in gang_rows:
+        r["launches"] = gang["record"]["launches"][r["name"]]
+        r["launches_by_path"] = {"GangBasic": r["launches"],
+                                 "GangBasic harness": record["gang_basic_harness"]
+                                 ["launches"][r["name"]],
+                                 "NorthStar": ns["record"]["launches"].get(r["name"])}
+    rows += gang_rows
     record["kernels"] = rows
     record["profile"] = profile_cycle(
         ns["sched"], out_dir, "NorthStar-shaped",

@@ -9,7 +9,7 @@ kernels.  A compiled-selector or term-group field of a PodBatch is itself a
 dict of its fields.  Dtypes are kept (bool / int32 / float32).  The
 snapshot carries the existing-pod affinity groups (``aff_*``) like every
 other field; ``ipa_aux_from_numpy`` carries a prepared InterPodAffinity
-aux.
+aux and ``cosched_aux_from_numpy`` Coscheduling's anchor-slice aux.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 from .device import resolve_device
 from .framework.interface import DynamicState
 from .framework.podbatch import AFFINITY_GROUPS, AffinityTermGroup, PodBatch
+from .gang.coscheduling import CoschedAux
 from .plugins.interpodaffinity import DEFAULT_HARD_POD_AFFINITY_WEIGHT, IPAAux
 from .state.encoding import SNAPSHOT_FIELDS, DeviceSnapshot
 from .state.selectors import CompiledLabelSelectors, CompiledNodeSelectors
@@ -114,3 +115,13 @@ def ipa_aux_from_numpy(arrays: Mapping[str, np.ndarray], batch: PodBatch, depth:
         paff_weight=batch.pref_affinity.weight.to(dev),
         panti_weight=batch.pref_anti_affinity.weight.to(dev),
         hard_weight=float(hard_weight))
+
+
+def cosched_aux_from_numpy(aux, device="cuda") -> CoschedAux:
+    """The port's Coscheduling aux from the JAX plugin's host aux
+    ``(slice_dom i32[N], anchor i32[B])`` (what its ``host_prepare`` gives
+    and its ``prepare`` passes on), as int32 tensors on ``device``."""
+    dev = resolve_device(device)
+    slice_dom, anchor = aux
+    return CoschedAux(slice_dom=_tensor(np.asarray(slice_dom, dtype=np.int32), dev),
+                      anchor=_tensor(np.asarray(anchor, dtype=np.int32), dev))

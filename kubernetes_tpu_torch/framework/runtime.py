@@ -17,8 +17,12 @@ top-K candidates in (value desc, row asc) order, K4 the propose/resolve
 auction with its scatter-add commit, and the dynamic plugins' round
 updates (K8, K12); the full auction is the dedup engine at one class per
 pod.  The scan runs K1, K2, K6, K7, K10 and K11 on one pod's row per step,
-then K17 (select + assume) and the plugins' row updates (K18, K19).  On
-CPU tensors each kernel wrapper takes its plain torch version.
+then K17 (select + assume) and the plugins' row updates (K18, K19).
+Coscheduling's anchor-slice score, where a gang anchors, goes into the
+total through K21; NodeAffinity's selector planes come from K23.  The
+diagnosis and the packed result are K22's (``pack_diag`` /
+``diagnose_bits_from_plane`` are its plain pieces).  On CPU tensors each
+kernel wrapper takes its plain torch version.
 
 Ties break by lowest node row (deterministic; no tie noise).
 """
@@ -33,6 +37,7 @@ import torch
 
 from .interface import DynamicState, PluginWithWeight
 from ..kernels.auction import auction_resolve_commit
+from ..kernels.diag import MAX_FILTERS, diagnose_bits_plain, pack_diag_plain
 from ..kernels.filter_score import (
     KERNEL_FILTERS,
     RAW_PLANES,
@@ -143,24 +148,19 @@ def initial_dynamic_state(snap) -> DynamicState:
     return DynamicState(requested=snap.requested, non_zero=snap.non_zero_requested)
 
 
-def diagnose_bits_from_plane(bits: torch.Tensor, n_filters: int) -> torch.Tensor:
-    """bool[C, K] from a pass-bit plane: does filter k leave row c ANY node
-    (the bits already fold in live nodes and row validity)."""
-    shifts = torch.arange(n_filters, dtype=torch.int32, device=bits.device)
-    return ((bits[:, :, None] >> shifts) & 1).any(dim=1)
+# the diagnosis (the reference's diagnose_bits, runtime.py:237) and the
+# cycle's packed result (its pack_diag, scheduler.py:918) run as one kernel,
+# K22 (kernels/diag.py ``diag_pack``); these are its plain pieces
+diagnose_bits_from_plane = diagnose_bits_plain
 
 
 def pack_diag(bits: torch.Tensor, node_row: torch.Tensor, rounds: int) -> torch.Tensor:
     """[3, B] i32: node_row; diagnosis bitmask (bit k = filter k leaves the
-    pod a feasible node); engine rounds — the cycle's one fetch (the
+    pod a feasible node); engine rounds — the plain half of K22 (the
     reference's pack_diag, scheduler.py:918, for ≤ 31 filters)."""
-    n_filters = bits.shape[1]
-    if n_filters > 31:
+    if bits.shape[1] > MAX_FILTERS:
         raise NotImplementedError("pack_diag: more than 31 filter plugins")
-    shifts = torch.arange(n_filters, dtype=torch.int32, device=bits.device)
-    packed = (bits.to(torch.int32) << shifts[None, :]).sum(dim=1, dtype=torch.int32)
-    rrow = torch.full_like(packed, int(rounds))
-    return torch.stack([node_row.to(torch.int32), packed, rrow])
+    return pack_diag_plain(bits, node_row, rounds)
 
 
 class BatchedFramework:
@@ -170,6 +170,12 @@ class BatchedFramework:
         self.plugins = list(plugins)
         self.filter_plugins = [p for p in self.plugins if hasattr(p.plugin, "filter")]
         self.score_plugins = [p for p in self.plugins if hasattr(p.plugin, "score")]
+        # the host binding cycle's hook lists, precomputed once (the
+        # reference's runtime.py:153-156)
+        self.reserve_plugins = [p for p in self.plugins if hasattr(p.plugin, "reserve")]
+        self.permit_plugins = [p for p in self.plugins if hasattr(p.plugin, "permit")]
+        self.pre_bind_plugins = [p for p in self.plugins if hasattr(p.plugin, "pre_bind")]
+        self.post_bind_plugins = [p for p in self.plugins if hasattr(p.plugin, "post_bind")]
         self._plans: Dict[frozenset, tuple] = {}
 
     @property
@@ -227,8 +233,8 @@ class BatchedFramework:
 
     def static_inputs(self, rows, snap, dyn):
         """K1's per-cycle inputs for ``rows`` (a PodBatch): NodeAffinity's
-        filter and preferred-weight planes (selector matching, ROADMAP B4,
-        plain torch) and ImageLocality's per-id spread-scaled sizes."""
+        filter and preferred-weight planes (selector matching through K23)
+        and ImageLocality's per-id spread-scaled sizes."""
         na = NodeAffinityPlugin()
         return (na.filter(rows, snap, dyn), na.score(rows, snap, dyn),
                 image_scaled_by_id(snap))
@@ -311,7 +317,9 @@ class BatchedFramework:
         with no aux — and written by its own kernel (K6, K10), and its score
         added by its kernel (K7, K11); with no aux its score is the constant
         of its normalized all-zero plane (200 for PodTopologySpread, 0 for
-        InterPodAffinity)."""
+        InterPodAffinity).  Coscheduling likewise: live (K21) when a row of
+        the batch anchors a gang, else the constant 0 of its all-False
+        plane."""
         if live in self._plans:
             return self._plans[live]
         names = self.filter_names
@@ -557,7 +565,9 @@ class BatchedFramework:
                 cand_val, cand_idx, class_of, pos_of, unresolved0, nom, nom_ok,
                 commit_request, commit_nz, dyn.requested, dyn.non_zero)
             for pw, aux in live:
-                pw.plugin.update_batch_classes(aux, commit, choice, class_of)
+                fn = getattr(pw.plugin, "update_batch_classes", None)
+                if fn is not None:  # Coscheduling's anchors do not change
+                    fn(aux, commit, choice, class_of)
             new_unsched = (active & ~reader & ~feasible) | head_unsched
             resolved = commit | new_unsched
             feas_n = torch.where(resolved & active, feas_cnt[class_of], feas_n)

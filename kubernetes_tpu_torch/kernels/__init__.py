@@ -30,10 +30,18 @@ than once); ``reset_launches`` zeroes the counts.
   K17 scan_select_assume    csrc/scan.cu (the exact scan: one launch per step)
   K18 spread_update_row     csrc/spread.cu (one launch per scan step)
   K19 ipa_update_row        csrc/interpodaffinity.cu (one launch per scan step)
+  K20 gang_all_or_nothing   csrc/gang.cu (one launch per dispatch)
+  K21 cosched_score_into    csrc/cosched.cu (per round or scan step of a
+                            batch that anchors a gang)
+  K22 diag_pack             csrc/diag_pack.cu (one launch per dispatch)
+  K23 selector_match        csrc/selector_match.cu (one launch per selector
+                            matrix: the unique rows, then the gather by index)
 
 The full auction runs K1–K4, K6–K8 and K10–K12 at identity classes (one
 class row per pod); the exact scan runs K1, K2, K6, K7, K10 and K11 on one
-pod's row per step, then K17–K19.
+pod's row per step, then K17–K19.  Every dispatch ends in K20 (the gang
+mask) and K22 (the packed result); K23 matches the selectors of the
+plugins' inputs, and K21 adds Coscheduling's score where a gang anchors.
 """
 
 from __future__ import annotations
@@ -63,6 +71,10 @@ LAUNCHES: Dict[str, int] = {
     "scan_select_assume": 0,
     "spread_update_row": 0,
     "ipa_update_row": 0,
+    "gang_all_or_nothing": 0,
+    "cosched_score_into": 0,
+    "diag_pack": 0,
+    "selector_match": 0,
 }
 
 

@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 SOURCES = ("filter_score", "normalize_combine", "topk_rows", "auction", "spread",
-           "interpodaffinity", "prev_delta", "scatter_rows", "scan")
+           "interpodaffinity", "prev_delta", "scatter_rows", "scan", "gang", "cosched",
+           "diag_pack", "selector_match")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -9,8 +9,8 @@ util.go:165).  A workload runs against the in-process store and
 ``TorchScheduler(pipeline=True)`` with the workload's micro-bucket latency
 target — what the JAX package's ``bench.py`` measures.
 
-Trimmed to what the port runs: the createNodes and createPods opcodes
-(with ``skip_wait``).  Before the measured window: every kernel is built
+Trimmed to what the port runs: the createNodes, createObjects (PodGroups)
+and createPods opcodes (with ``skip_wait``).  Before the measured window: every kernel is built
 (``kernels/build.py`` build_all), then the suite-template warms, the
 micro-bucket tier bursts (5 × tier pods per tier through the real
 pipelined regime, which fill the scheduler's per-tier latency profiles)
@@ -29,7 +29,12 @@ inside the window), and two items of the port's own:
 KernelLaunchesInWindow (each kernel's launches on the card inside the
 window) and PipelineInWindow (dispatches, those that chained on in-flight
 batches, the placed pods they carried, and what became of the background
-sync's payloads: reused, rebuilt, voided by a node delete).
+sync's payloads: reused, rebuilt, voided by a node delete).  A gang suite
+(``Workload.gang_size``) adds the reference's GangThroughput (gangs whose
+last member bound in the window, per second) and TimeToFullSlice (window
+start → a gang's last member bound; nearest-rank quantiles, Perc99 beside
+the reference's Perc50 / Perc90 / Max) (the reference's harness.py:431-460,
+:646-660).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Callable, Dict, List, Optional
 from .. import kernels
 from ..api import objects as v1
 from ..device import resolve_device
+from ..gang import POD_GROUP_LABEL
 from ..kernels import build as kernel_build
 from ..scheduler import TorchScheduler
 from ..sim.store import ObjectStore
@@ -51,12 +57,15 @@ from ..testutil import make_node, make_pod
 
 @dataclass
 class Op:
-    """One opcode: createNodes | createPods."""
+    """One opcode: createNodes | createObjects | createPods."""
 
     opcode: str
     count: int = 0
     node_template: Optional[Callable[[int], v1.Node]] = None
     pod_template: Optional[Callable[[int], v1.Pod]] = None
+    # createObjects: i → (kind, object) for setup objects that are not
+    # nodes or pods (PodGroups)
+    object_template: Optional[Callable[[int], tuple]] = None
     collect_metrics: bool = False
     # createPods only: do not drive the scheduler to completion afterwards
     # (scheduler_perf's skipWaitToCompletion, for never-schedulable fillers)
@@ -71,6 +80,9 @@ class Workload:
     # the scheduler's micro-bucket latency target (TorchScheduler
     # latency_target_ms); the harness warms every bucket tier pre-window
     latency_target_ms: Optional[float] = None
+    # gang suites: members per gang, for the GangThroughput and
+    # TimeToFullSlice items
+    gang_size: Optional[int] = None
 
 
 @dataclass
@@ -167,6 +179,11 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
     pending = {(p.namespace, p.metadata.name) for p in created}
     target = len(created)
     done = 0
+    # gang suites: per-group bind counts → time-to-full-slice (window start
+    # → the gang's last member bound)
+    gang_counts: Dict[str, int] = {}
+    gang_done_t: List[float] = []
+    t0 = clock()
 
     def on_bind(ev):
         nonlocal done
@@ -176,6 +193,11 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
         if key in pending:
             pending.discard(key)
             done += 1
+            g = ev.obj.metadata.labels.get(POD_GROUP_LABEL) if w.gang_size else None
+            if g:
+                gang_counts[g] = gang_counts.get(g, 0) + 1
+                if gang_counts[g] == w.gang_size:
+                    gang_done_t.append(clock() - t0)
 
     unwatch = store.watch(on_bind)
     phase0 = dict(sched.phase_wall)
@@ -201,10 +223,11 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
             if done > done_pre:
                 t_last = clock()
             if stats.attempted == 0 and stats.in_flight == 0 and done == done_pre:
-                # pods may be waiting out their backoff: spin rather than
-                # misread the empty active queue as done
+                # pods may be waiting out their backoff or held at Permit:
+                # spin rather than misread the empty active queue as done
                 a, b, u = sched.queue.pending_count()
-                if (a == 0 and b == 0 and u == 0) or waited > 30.0:
+                if (a == 0 and b == 0 and u == 0 and stats.waiting == 0) \
+                        or waited > 30.0:
                     break
                 time.sleep(0.02)
                 waited += 0.02
@@ -224,6 +247,19 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
         gc.unfreeze()
         unwatch()
     samples = sorted(sched.attempt_seconds[att0:])
+    gang_items = []
+    if w.gang_size:
+        gd = sorted(gang_done_t)
+        gang_items = [
+            DataItem(labels={"Name": w.name, "Metric": "GangThroughput"},
+                     data={"Average": round(len(gd) / total_s, 2) if total_s > 0 else 0.0,
+                           "Gangs": float(len(gd))},
+                     unit="gangs/s"),
+            DataItem(labels={"Name": w.name, "Metric": "TimeToFullSlice"},
+                     data={"Perc50": _quantile(gd, 0.50), "Perc90": _quantile(gd, 0.90),
+                           "Perc99": _quantile(gd, 0.99), "Max": gd[-1] if gd else 0.0},
+                     unit="s"),
+        ]
     return [
         DataItem(labels={"Name": w.name, "Metric": "SchedulingThroughput"},
                  data={"Average": round(done / total_s, 1) if total_s > 0 else 0.0},
@@ -248,7 +284,7 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
         DataItem(labels={"Name": w.name, "Metric": "PipelineInWindow"},
                  data={k: float(v - pipe0[k]) for k, v in _pipeline_counts(sched).items()},
                  unit="count"),
-    ]
+    ] + gang_items
 
 
 def _pipeline_counts(sched: TorchScheduler) -> Dict[str, int]:
@@ -287,6 +323,12 @@ def run_workload(w: Workload, device="cuda", clock=time.perf_counter,
             for _ in range(op.count):
                 store.create("Node", tmpl(node_idx))
                 node_idx += 1
+        elif op.opcode == "createObjects":
+            # per-op indices from 0, so templates that name each other line
+            # up (gang pods naming their pg-{i})
+            for j in range(op.count):
+                kind, obj = op.object_template(j)
+                store.create(kind, obj)
         elif op.opcode == "createPods":
             tmpl = op.pod_template or default_pod
             if op.collect_metrics:
@@ -303,9 +345,9 @@ def run_workload(w: Workload, device="cuda", clock=time.perf_counter,
                 sched.run_until_idle()
         else:
             raise NotImplementedError(
-                f"opcode {op.opcode}: the port's harness runs createNodes and createPods "
-                "(the others come with the suites that need them, ROADMAP Queue A items "
-                "7c-10)")
+                f"opcode {op.opcode}: the port's harness runs createNodes, createObjects "
+                "and createPods (the others come with the suites that need them, ROADMAP "
+                "Queue A items 9-10)")
     if inspect is not None:
         inspect(store, sched)
     sched.close()

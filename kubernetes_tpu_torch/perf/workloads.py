@@ -11,7 +11,7 @@ spread pods).  Each suite has the reference's shape, named sizes
 The port carries the suites whose pods it schedules: SchedulingBasic,
 NorthStar, Density, TopologySpreading, PreferredTopologySpreading,
 SchedulingNodeAffinity, SchedulingPodAntiAffinity, SchedulingPodAffinity,
-SchedulingPreferredPodAffinity and Unschedulable.  ``build_workload`` of
+SchedulingPreferredPodAffinity, Unschedulable and GangBasic.  ``build_workload`` of
 any other suite raises NotImplementedError naming the ROADMAP item that
 brings what it needs.
 """
@@ -154,6 +154,59 @@ def pod_preferred_affinity(ns: str) -> Callable[[int], v1.Pod]:
     return tmpl
 
 
+GANG_SIZE = 8  # members per slice job (one multi-host TPU slice)
+
+
+def node_sliced(gang_size: int = GANG_SIZE) -> Callable[[int], v1.Node]:
+    """One TPU host VM per node, ``gang_size`` hosts per slice — the slice
+    label feeds the Coscheduling anchor-slice score plane."""
+    from ..gang import SLICE_LABEL
+
+    def tmpl(i: int) -> v1.Node:
+        return (
+            make_node().name(f"node-{i:06d}")
+            .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"})
+            .label(SLICE_LABEL, f"slice-{i // gang_size:05d}")
+            .obj()
+        )
+
+    return tmpl
+
+
+def pod_gang(gang_size: int = GANG_SIZE) -> Callable[[int], v1.Pod]:
+    """Gang member i belongs to PodGroup pg-{i // gang_size}; the 3-cpu
+    request packs ONE member per 4-cpu host (a slice job owns its hosts).
+    Harness warm indices (≥ 9M) yield plain pods: the warms exercise the
+    normal bind path, not the quorum gate of a group that does not exist."""
+    from ..gang import POD_GROUP_LABEL
+
+    def tmpl(i: int) -> v1.Pod:
+        if i >= 9_000_000:
+            return pod_default(i)
+        return (
+            _base_pod(i, "gang", "default")
+            .label(POD_GROUP_LABEL, f"pg-{i // gang_size:05d}")
+            .req({"cpu": "3000m", "memory": "500Mi"})
+            .obj()
+        )
+
+    return tmpl
+
+
+def podgroup_template(gang_size: int = GANG_SIZE) -> Callable[[int], tuple]:
+    """PodGroup pg-{i}: min_member ``gang_size``, a 60 s schedule timeout."""
+
+    def tmpl(i: int):
+        pg = v1.PodGroup(
+            metadata=v1.ObjectMeta(name=f"pg-{i:05d}", namespace="default"),
+            min_member=gang_size,
+            schedule_timeout_seconds=60,
+        )
+        return ("PodGroup", pg)
+
+    return tmpl
+
+
 @dataclass
 class Suite:
     name: str
@@ -212,6 +265,24 @@ def _preferred_topology(n, p, mp) -> Workload:
                       pod_preferred_topology_spread, n, p, mp)
 
 
+def _gang_basic(n, p, mp) -> Workload:
+    # a scaled-down run may shrink mp below the slice size: the gang shrinks
+    # with it so every group can still reach quorum
+    gs = GANG_SIZE if mp >= GANG_SIZE else max(2, mp)
+    ngangs = max(1, mp // gs)
+    return Workload(
+        name="GangBasic",
+        ops=[
+            Op("createNodes", n, node_template=node_sliced(gs)),
+            Op("createObjects", ngangs, object_template=podgroup_template(gs)),
+            Op("createPods", ngangs * gs, pod_template=pod_gang(gs),
+               collect_metrics=True),
+        ],
+        batch_size=64,
+        gang_size=gs,
+    )
+
+
 def _unschedulable(n, p, mp) -> Workload:
     # 9-cpu pods never fit a 4-cpu node; they churn the unschedulable queue
     # while the measured pods schedule
@@ -256,6 +327,13 @@ SUITES: Dict[str, Suite] = {
         Suite("Density", _basic,
               {"1000Nodes/30000Pods": (1000, 0, 30000), "100Nodes/3000Pods": (100, 0, 3000)},
               batch_size={"1000Nodes/30000Pods": 512}),
+        # gang scheduling: N/8 slice jobs of 8 members, one member per host,
+        # capacity slightly over the job count (every gang lands); measures
+        # gangs/s and time-to-full-slice beside pods/s
+        Suite("GangBasic", _gang_basic,
+              {"64Nodes": (64, 0, 56), "500Nodes": (500, 0, 480),
+               "5000Nodes": (5000, 0, 4800)},
+              batch_size={"5000Nodes": 512}),
     ]
 }
 
@@ -264,16 +342,16 @@ UNPORTED: Dict[str, str] = {
     "PreemptionBasic": "preemption (ROADMAP Queue A item 9, Queue B B15, B16)",
     "SchedulingWithMixedChurn": "selector spread over its churn services (ROADMAP Queue A "
                                 "item 7c) and preemption-capable churn pods (item 9)",
-    "GangBasic": "gang scheduling (ROADMAP Queue A item 8, Queue B B14)",
-    "AutoscaleGang": "gang scheduling (ROADMAP Queue A item 8) and the autoscaler's "
-                     "counterfactual forks (item 9, Queue B B16)",
-    "DeviceClaimGang": "gangs with device claims (ROADMAP Queue A item 8, Queue B B14)",
-    "TrainingJobFlow": "gangs with device claims (ROADMAP Queue A item 8) and the "
-                       "TrainingJob controller (item 10)",
-    "StatefulChurn": "volume binding (ROADMAP Queue A item 8)",
-    "VolumeZoneSpread": "volume binding (ROADMAP Queue A item 8)",
-    "Defrag": "gang scheduling (ROADMAP Queue A item 8) and the descheduler (item 9)",
-    "SchedulingExtender": "scheduler extenders (ROADMAP Queue A item 6)",
+    "AutoscaleGang": "the autoscaler's counterfactual forks (ROADMAP Queue A item 9, "
+                     "Queue B B16; its gangs came with item 8a)",
+    "DeviceClaimGang": "device claims (ROADMAP Queue A item 8b, Queue B B14; its gangs "
+                       "came with item 8a)",
+    "TrainingJobFlow": "device claims (ROADMAP Queue A item 8b) and the TrainingJob "
+                       "controller (item 10; its gangs came with item 8a)",
+    "StatefulChurn": "volume binding (ROADMAP Queue A item 8c)",
+    "VolumeZoneSpread": "volume binding (ROADMAP Queue A item 8c)",
+    "Defrag": "the descheduler (ROADMAP Queue A item 9; its gangs came with item 8a)",
+    "SchedulingExtender": "scheduler extenders (ROADMAP Queue A item 6b)",
 }
 
 

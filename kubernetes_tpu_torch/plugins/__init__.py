@@ -3,7 +3,7 @@
 Reference: pkg/scheduler/framework/plugins/ (registry.go:47-81).  Filter
 returns ``bool[B, N]``, Score ``float32[B, N]``.  The plugins whose live
 content is outside this slice keep only their pass-through halves
-(plugins/passthrough.py).
+(plugins/passthrough.py); Coscheduling lives in gang/coscheduling.py.
 """
 
 from .noderesources import FitPlugin, BalancedAllocationPlugin  # noqa: F401
@@ -16,7 +16,6 @@ from .trivial import (  # noqa: F401
     ImageLocalityPlugin,
 )
 from .passthrough import (  # noqa: F401
-    CoschedulingPlugin,
     DynamicResourcesPlugin,
     NodeVolumeLimitsPlugin,
     VolumeBindingPlugin,

@@ -1,7 +1,8 @@
-"""Shared device helpers for the plugin tensor programs (plain torch).
+"""Shared device helpers for the plugin tensor programs.
 
 Selector-vs-object matrices go through the batched evaluators in
-state/selectors.py (unique-selector dedup + broadcast compares).
+state/selectors.py (unique-selector dedup; K23 on the card, its plain
+broadcast compares on the CPU).
 """
 
 from __future__ import annotations
@@ -9,8 +10,8 @@ from __future__ import annotations
 import torch
 
 from ..framework.interface import MAX_NODE_SCORE
+from ..kernels.selectors import _as
 from ..state.selectors import (
-    _as,
     label_match_matrix,
     node_match_matrix,
     requirements_match_matrix,

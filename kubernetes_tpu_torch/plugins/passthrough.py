@@ -1,24 +1,22 @@
 """The pass-through halves of the plugins whose live content the port does
-not carry yet: Coscheduling, the four volume plugins and DynamicResources.
+not carry yet: the four volume plugins and DynamicResources.
 
-For every batch the port admits (no gang members, no volumes, no resource
-claims) the JAX plugins take their ``aux is None`` branch (Coscheduling:
-anchor −2): an all-pass filter, an all-zero score plane, and each plugin's
-own ``normalize`` of that plane.  These classes give exactly those planes;
-the scheduler's scope guard raises NotImplementedError for anything that
-would need the live halves (ROADMAP Queue A item 8).  PodTopologySpread
-and InterPodAffinity are live (plugins/podtopologyspread.py,
-plugins/interpodaffinity.py).
+For every batch the port admits (no volumes, no resource claims) the JAX
+plugins take their ``aux is None`` branch: an all-pass filter, an all-zero
+score plane, and each plugin's own ``normalize`` of that plane.  These
+classes give exactly those planes; the scheduler's scope guard raises
+NotImplementedError for anything that would need the live halves (ROADMAP
+Queue A items 8b, 8c).  PodTopologySpread, InterPodAffinity and
+Coscheduling are live (plugins/podtopologyspread.py,
+plugins/interpodaffinity.py, gang/coscheduling.py).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..framework import events as fwk_events
 from ..framework.events import ActionType, ClusterEvent, EventResource
 from ..framework.interface import Plugin
-from .helpers import default_normalize
 
 
 def _ones(batch, snap):
@@ -43,23 +41,6 @@ class _PassScore(Plugin):
 
     def score(self, batch, snap, dyn, aux=None, mask=None):
         return _zeros(batch, snap)
-
-
-class CoschedulingPlugin(_PassScore):
-    """Anchor −2 (no gang member): the anchor-slice match plane is all
-    False, normalized by DefaultNormalizeScore."""
-
-    name = "Coscheduling"
-
-    def events_to_register(self):
-        return [
-            fwk_events.POD_GROUP_CHANGE,
-            ClusterEvent(EventResource.POD, ActionType.ADD | ActionType.DELETE),
-            fwk_events.NODE_ADD,
-        ]
-
-    def normalize(self, scores, mask):
-        return default_normalize(scores, mask)
 
 
 class VolumeRestrictionsPlugin(_PassFilter):

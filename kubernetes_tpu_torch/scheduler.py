@@ -13,7 +13,10 @@ parallel-safety test ``_class_parallel_safe`` :2819, its dedup gate
 half ``host_prepare`` :1645 with ``_host_aux_take`` :138, the fused cycles
 ``fused_greedy`` :954-967 and ``fused_batch`` :969-1017 with
 ``apply_prev_delta`` :897, ``_infos_block_deep`` :3523, run_until_idle
-:3777), itself after pkg/scheduler/scheduler.go (scheduleOne :496, assume
+:3777; the gang runtime: the directory :582-595, ``_gang_prefilter`` :1223,
+the binding cycle ``_run_reserve_and_bind`` :3364 / ``_finish_bind`` :3428
+with its Permit hold ``_WaitingBind`` :103 and ``_flush_waiting_binds``
+:2409), itself after pkg/scheduler/scheduler.go (scheduleOne :496, assume
 :424, bind :446, the async binding goroutine :623) and eventhandlers.go
 (addAllEventHandlers :251).
 
@@ -25,9 +28,10 @@ batches' resource delta through K13, the dynamic plugins' state —
 PodTopologySpread's count tables, InterPodAffinity's count planes or tables
 and existing-pod planes, at class rows for the dedup engine and at pod rows
 for the full auction and the scan — with the in-flight batches chained in
-through K14 / K15, the routed engine through the kernels, gang
-all-or-nothing, diagnosis bits, pack) → one [3, B] fetch → assume → bind
-through the store → requeue the unschedulable pods with backoff.  The
+through K14 / K15, the routed engine through the kernels, the gang
+all-or-nothing mask (K20), diagnosis bits + pack (K22)) → one [3, B] fetch
+→ assume → reserve → permit → bind through the store → requeue the
+unschedulable pods with backoff.  The
 router (``assign_mode="auto"``, as the reference) sends a batch to the
 dedup engine when its identity classes fill at most half the batch and it
 is not a coupled batch with a pod that could preempt; to the full auction
@@ -38,7 +42,16 @@ it; else to the exact serial scan (``greedy_assign``).  ``"batch"`` and
 Topology-spread pods and pod (anti)affinity pods (required and preferred,
 and scheduled pods carrying such terms) are in scope: a self-matching class
 whose commits change its own planes unevenly is one coupled component, so
-the dedup engine commits one of its pods per round.
+the dedup engine commits one of its pods per round.  Gang members are in
+scope: a GangDirectory (gang/directory.py) tracks PodGroups and members
+from the watch; the queue sorts by the directory's gang-cohesive ``less``
+and requeues gangs atomically; a member below quorum is rejected at
+PreFilter before any device work; a batch that anchors a gang takes the
+full auction with Coscheduling's anchor-slice score (K21); the in-batch
+mask withdraws a partly placed gang; a placed member whose gang is not
+complete holds at Permit (assumed, reserve kept) until its last sibling
+releases it or the PodGroup's timeout rolls the whole gang back into the
+queue together (``_flush_waiting_binds``, at the end of every cycle).
 
 ``pipeline=False`` dispatches, completes and binds each batch within one
 ``schedule_cycle``.  ``pipeline=True`` keeps up to ``pipeline_depth``
@@ -56,7 +69,7 @@ work only: the background sync, the fetch and the binds.  Bindings equal
 the JAX scheduler's, pod for pod, in both modes and at every depth.
 
 Scope guard: a batch or cluster that needs anything outside the port —
-gang members, volumes, resource claims, extenders, profiles, a batch
+volumes, resource claims, extenders, profiles, a batch
 larger than the auction kernel's one block on cuda, or a failing pod that
 could preempt (a chained batch defers that to the pod's retry, as the
 reference does) — raises NotImplementedError naming the ROADMAP item.  It
@@ -81,7 +94,7 @@ from .framework import events as fwk_events
 from .api.labels import affinity_term_matches, match_label_selector
 from .framework.conflict import conflict_components
 from .framework.events import ActionType, ClusterEvent, EventResource
-from .framework.interface import PluginWithWeight
+from .framework.interface import Code, PluginWithWeight
 from .framework.podbatch import (
     AFFINITY_GROUPS,
     PodBatchCompiler,
@@ -93,12 +106,12 @@ from .framework.runtime import (
     PrevBatch,
     apply_prev_delta,
     coupling_flags,
-    diagnose_bits_from_plane,
     initial_dynamic_state,
-    pack_diag,
 )
-from .gang import POD_GROUP_LABEL, gang_all_or_nothing
+from .framework.waiting_pods import WaitingPodsMap
+from .gang import POD_GROUP_LABEL, CoschedulingPlugin, GangDirectory, gang_all_or_nothing
 from .kernels import build as kernel_build
+from .kernels.diag import diag_pack
 from .queueing import PriorityQueue
 from .queueing.priority_queue import QueuedPodInfo
 from .sim.store import ADDED, DELETED, MODIFIED, ObjectStore, WatchEvent
@@ -117,7 +130,7 @@ def default_plugins(domain_cap: int) -> List[PluginWithWeight]:
     (apis/config/v1beta3/default_plugins.go:32-51)."""
     PW = PluginWithWeight
     return [
-        PW(P.CoschedulingPlugin(), 1),
+        PW(CoschedulingPlugin(), 1),
         PW(P.NodeUnschedulablePlugin(), 0),
         PW(P.NodeNamePlugin(), 0),
         PW(P.TaintTolerationPlugin(), 3),
@@ -136,6 +149,25 @@ def default_plugins(domain_cap: int) -> List[PluginWithWeight]:
     ]
 
 
+# _run_reserve_and_bind outcome: a holds_on_wait Permit plugin (gang
+# Coscheduling) left the pod pending — assume + reserve kept, bind deferred
+_PERMIT_WAIT = object()
+
+
+@dataclass
+class _WaitingBind:
+    """A binding cycle held open at Permit (the gang all-or-nothing hold; the
+    reference's _WaitingBind, scheduler.py:103): the pod stays assumed in
+    the cache on ``node_name`` with ``reserved`` plugins intact;
+    _flush_waiting_binds finishes or rolls it back."""
+
+    qi: QueuedPodInfo
+    node_name: str
+    fw: object
+    reserved: List
+    since: float  # clock() when the hold began
+
+
 @dataclass
 class CycleStats:
     attempted: int = 0
@@ -143,6 +175,9 @@ class CycleStats:
     unschedulable: int = 0
     batch_seconds: float = 0.0
     in_flight: int = 0  # pods dispatched whose batch is not bound yet
+    # gang members assumed and holding a Permit wait (bind deferred until
+    # the gang completes or the wait deadline fires) at cycle end
+    waiting: int = 0
 
 
 def _unpack_diag(bits: np.ndarray, n_filters: int) -> np.ndarray:
@@ -152,28 +187,12 @@ def _unpack_diag(bits: np.ndarray, n_filters: int) -> np.ndarray:
     ).astype(bool)
 
 
-def _queue_less(a: QueuedPodInfo, b: QueuedPodInfo) -> bool:
-    """The JAX scheduler's queue order for gang-free pods (the Coscheduling
-    QueueSort, gang/directory.py less): priority desc, then the pod's
-    creation timestamp, then its first-attempt timestamp."""
-    pa, pb = a.pod.spec.priority, b.pod.spec.priority
-    if pa != pb:
-        return pa > pb
-    ka = a.pod.metadata.creation_timestamp
-    kb = b.pod.metadata.creation_timestamp
-    if ka != kb:
-        return ka < kb
-    return a.initial_attempt_timestamp < b.initial_attempt_timestamp
-
-
 def _pod_out_of_scope(p: v1.Pod) -> Optional[str]:
     """Why a pending pod needs something outside this slice, or None."""
-    if POD_GROUP_LABEL in p.metadata.labels:
-        return "gang membership (ROADMAP Queue A item 8, Queue B B14)"
     if getattr(p.spec, "volumes", None):
-        return "volumes (ROADMAP Queue A item 8)"
+        return "volumes (ROADMAP Queue A item 8c)"
     if getattr(p.spec, "resource_claims", None):
-        return "resource claims (ROADMAP Queue A item 8, Queue B B14)"
+        return "resource claims (ROADMAP Queue A item 8b, Queue B B14)"
     return None
 
 
@@ -286,9 +305,8 @@ class TorchScheduler:
         "CSINode": EventResource.CSI_NODE,
         "Service": EventResource.SERVICE,
     }
-    # gang and DRA objects drive subsystems this slice does not carry
-    _UNSUPPORTED_KINDS = {"PodGroup", "ResourceClaim", "ResourceSlice",
-                          "DeviceClass"}
+    # DRA objects drive a subsystem this slice does not carry
+    _UNSUPPORTED_KINDS = {"ResourceClaim", "ResourceSlice", "DeviceClass"}
     # kinds that never unblock scheduling (avoid wildcard requeue storms)
     _IGNORED_KINDS = {"Lease", "Event", "ReplicaSet", "Deployment", "Job",
                       "StatefulSet", "DaemonSet", "HorizontalPodAutoscaler",
@@ -373,17 +391,29 @@ class TorchScheduler:
         self.namespace_labels = namespace_labels or {}
         self.compiler = PodBatchCompiler(self.encoder, self.namespace_labels)
         self._fw_domain_cap = -1
-        self.fw = self._framework()
-        self.n_filters = len(self.fw.filter_names)
         event_map: Dict[ClusterEvent, Set[str]] = {}
         for pw in default_plugins(8):
             for ev in pw.plugin.events_to_register():
                 event_map.setdefault(ev, set()).add(pw.plugin.name)
+        # the gang runtime (the reference's scheduler.py:582-595): one
+        # directory wired into the Coscheduling plugin; its less is the
+        # Coscheduling QueueSort (gang cohesion over PrioritySort) and its
+        # group key gives the queue gang-atomic activate / requeue
+        self.gangs = GangDirectory(store, clock=clock)
         self.queue = PriorityQueue(
-            less=_queue_less, clock=clock, cluster_event_map=event_map,
+            less=self.gangs.less, clock=clock, cluster_event_map=event_map,
             pod_initial_backoff=pod_initial_backoff,
             pod_max_backoff=pod_max_backoff,
+            group_key=self.gangs.queue_group_key,
         )
+        self.waiting_pods = WaitingPodsMap(clock=clock)
+        self.gangs.bind_runtime(self.waiting_pods)
+        # uid → _WaitingBind: binding cycles held open at Permit (gang
+        # members keep their assume + reserve until the gang completes or
+        # the wait deadline fires — flushed at the end of every cycle)
+        self._waiting_binds: Dict[str, _WaitingBind] = {}
+        self.fw = self._framework()
+        self.n_filters = len(self.fw.filter_names)
         # wall per phase (seconds, summed over cycles): "host_prepare" is the
         # plugins' host halves (InterPodAffinity's existing-pod match matrix);
         # "partition" is the conflict partition, the engine routing and the
@@ -417,6 +447,11 @@ class TorchScheduler:
         if d != self._fw_domain_cap:
             self.fw = BatchedFramework(default_plugins(d))
             self._fw_domain_cap = d
+            # wire the Coscheduling plugin to the shared gang directory
+            for pw in self.fw.plugins:
+                attach = getattr(pw.plugin, "attach_gang_directory", None)
+                if attach is not None:
+                    attach(self.gangs)
         return self.fw
 
     # --- event handlers (eventhandlers.go:251+) ------------------------------
@@ -426,10 +461,18 @@ class TorchScheduler:
             self._on_node_event(ev)
         elif ev.kind == "Pod":
             self._on_pod_event(ev)
+        elif ev.kind == "PodGroup":
+            # gang directory first (quorum counts read it), then requeue
+            # members whose Coscheduling rejection this change may resolve
+            self.gangs.on_group_event(ev.type, ev.obj)
+            action = {ADDED: ActionType.ADD, MODIFIED: ActionType.UPDATE,
+                      DELETED: ActionType.DELETE}.get(ev.type, ActionType.ALL)
+            self.queue.move_all_to_active_or_backoff(
+                ClusterEvent(EventResource.POD_GROUP, action))
         elif ev.kind in self._UNSUPPORTED_KINDS:
             raise NotImplementedError(
-                f"{ev.kind} objects drive the gang / DRA subsystems, which are "
-                "not ported yet (ROADMAP Queue A item 8)")
+                f"{ev.kind} objects drive the DRA subsystem, which is not ported "
+                "yet (ROADMAP Queue A item 8b)")
         elif ev.kind in self._IGNORED_KINDS:
             return
         else:
@@ -454,6 +497,7 @@ class TorchScheduler:
 
     def _on_node_event(self, ev: WatchEvent):
         node: v1.Node = ev.obj
+        self.gangs.invalidate_nodes()  # the slice-domain plane is stale
         if ev.type == ADDED:
             self.cache.add_node(node)
             self.queue.move_all_to_active_or_backoff(fwk_events.NODE_ADD)
@@ -479,6 +523,13 @@ class TorchScheduler:
         if not assigned and (pod.spec.scheduler_name or DEFAULT_SCHEDULER_NAME) \
                 != DEFAULT_SCHEDULER_NAME:
             return
+        if ev.type == DELETED and pod.uid in self._waiting_binds:
+            # a gang member deleted while holding its Permit wait: abort the
+            # held binding cycle through the unreserve chain (the
+            # Coscheduling group-failure hook fails the gang's remaining
+            # waiters now instead of timing them out)
+            self._cancel_waiting_bind(pod.uid)
+        self.gangs.on_pod_event(ev.type, pod, assigned)
         if ev.type == ADDED:
             if assigned:
                 self.cache.add_pod(pod)
@@ -531,6 +582,11 @@ class TorchScheduler:
         infos = self.queue.pop_batch(
             self.batch_size,
             group_key=lambda qi: qi.pod.spec.scheduler_name or DEFAULT_SCHEDULER_NAME)
+        # the gang PreFilter quorum gate: a member whose group is below
+        # minMember can never form the gang — rejected here, before any
+        # compile or device work
+        if infos and self.gangs.active:
+            infos = self._gang_prefilter(infos, stats)
         for qi in infos:
             why = _pod_out_of_scope(qi.pod)
             if why is not None:
@@ -558,11 +614,37 @@ class TorchScheduler:
                 inflight.append(nxt)
             else:
                 self._merge(stats, self._bind_phase(nxt, self._complete(nxt)))
+        # resolve the gang Permit holds: released members bind now (the last
+        # sibling's permit this cycle allowed them), expired ones roll the
+        # whole gang back and requeue it atomically
+        ws = self._flush_waiting_binds()
+        stats.scheduled += ws.scheduled
+        stats.unschedulable += ws.unschedulable
+        stats.waiting = len(self._waiting_binds)
         stats.in_flight = sum(len(fl.infos) for fl in inflight)
         # the next dispatch's sync, after every cache write of this cycle
         if self.overlap_sync and (inflight or stats.attempted):
             self._spawn_sync_ahead()
         return stats
+
+    def _gang_prefilter(self, infos: List[QueuedPodInfo],
+                        stats: CycleStats) -> List[QueuedPodInfo]:
+        """The host PreFilter pass (Coscheduling quorum; the reference's
+        _gang_prefilter, scheduler.py:1223): rejected members go straight to
+        the unschedulable queue with the plugin's diagnosis — no device work
+        — and requeue on sibling-pod / PodGroup events."""
+        keep: List[QueuedPodInfo] = []
+        cycle = self.queue.scheduling_cycle()
+        for qi in infos:
+            st = self.gangs.prefilter(qi.pod)
+            if st is None or st.is_success():
+                keep.append(qi)
+                continue
+            qi.unschedulable_plugins = {st.plugin or "Coscheduling"}
+            stats.attempted += 1
+            stats.unschedulable += 1
+            self.queue.add_unschedulable(qi, cycle)
+        return keep
 
     @staticmethod
     def _merge(total: CycleStats, s: CycleStats) -> None:
@@ -780,6 +862,11 @@ class TorchScheduler:
             t1 = time.perf_counter()
             pods = [qi.pod for qi in infos]
             batch = self.compiler.compile(pods, pad_to=pad)
+            # the gang context of this batch: Coscheduling's host_prepare
+            # reads the staged pods (the compiled batch carries none), the
+            # device mask reads the segment ids
+            self.gangs.stage_batch(pods)
+            gang_seg = self.gangs.gang_segments(pods, batch.size)
             t_hp = time.perf_counter()
             fw = self._framework()
             host_auxes = fw.host_prepare(batch, self.snapshot, self.encoder,
@@ -799,7 +886,7 @@ class TorchScheduler:
             self._discard_prep()
             raise
         node_row, packed, dbatch = self._fused_cycle(
-            batch, mode, classes, coupling, host_auxes, dsnap, upd, carries)
+            batch, mode, classes, coupling, host_auxes, dsnap, upd, carries, gang_seg)
         self.chained_dispatches += bool(carries)
         fl = _InFlight(infos=infos, batch=batch, dbatch=dbatch, node_row_dev=node_row,
                        packed_dev=packed, t0=t0_clk, cycle=cycle,
@@ -858,13 +945,15 @@ class TorchScheduler:
         fl.fetch_thread.start()
 
     def _fused_cycle(self, batch, mode: str, classes, coupling, host_auxes, dsnap, upd,
-                     prevs: Sequence[PrevBatch]):
+                     prevs: Sequence[PrevBatch], gang_seg: np.ndarray):
         """The device half of a dispatch → (node_row i32[B], packed i32[3, B],
         the device batch), all on the device.  ``mode`` is the router's
         "batch" or "scan"; ``classes`` the dedup gate's (class_of, rep_rows)
-        or None.  The dedup engine is the reference's fused_batch dedup
+        or None; ``gang_seg`` i32[B] the batch's gang segment ids (−1: no
+        gang).  The dedup engine is the reference's fused_batch dedup
         branch (scheduler.py:969-1017), the full auction its ``classes is
-        None`` branch (:985-997), the scan its fused_greedy (:954-967)."""
+        None`` branch (:985-997), the scan its fused_greedy (:954-967); each
+        ends in the gang mask (K20) and the diagnosis + pack (K22)."""
         dev = self.device
         fw = self._framework()
         dsnap = apply_scatter(dsnap, upd)
@@ -892,11 +981,11 @@ class TorchScheduler:
         auxes = fw.prepare(rows, dsnap, dyn, host)
         for prev in prevs:
             auxes = fw.chain_prev(rows, dsnap, auxes, prev)
+        class_t = None
         if mode == "scan":
             # the diagnosis reads the state before the scan (the reference's
             # fused_greedy diagnoses with the pre-scan dyn and auxes)
-            bits = diagnose_bits_from_plane(fw.planes(dbatch, dsnap, dyn, auxes)[0],
-                                            self.n_filters)
+            plane = fw.planes(dbatch, dsnap, dyn, auxes)[0]
             res = fw.greedy_assign(dbatch, dsnap, dyn, auxes, np.arange(b))
         else:
             order = torch.arange(b, dtype=torch.int32, device=dev)
@@ -905,18 +994,15 @@ class TorchScheduler:
                 res = fw.batch_assign(dbatch, dsnap, dyn, None, order, coupling,
                                       classes=(class_t, rows, auxes))
             else:
-                class_t = None
                 res = fw.batch_assign(dbatch, dsnap, dyn, auxes, order, coupling)
             self.round_read_s += res.host_read_s
             # a dispatched batch holds at least one valid pod, so round 0
             # ran; its bit plane carries the dynamic plugins' bits (K6,
             # K10), as the reference diagnoses with the prepared auxes
-            bits = diagnose_bits_from_plane(res.diag_plane, self.n_filters)
-            if class_t is not None:
-                bits = bits[class_t]
-        gang_seg = torch.full((b,), -1, dtype=torch.int32, device=dev)
-        node_row = gang_all_or_nothing(res.node_row, gang_seg)
-        return node_row, pack_diag(bits, node_row, res.rounds), dbatch
+            plane = res.diag_plane
+        node_row = gang_all_or_nothing(res.node_row, torch.from_numpy(gang_seg).to(dev))
+        packed = diag_pack(plane, self.n_filters, class_t, node_row, res.rounds)
+        return node_row, packed, dbatch
 
     # --- engine routing (the reference's one shared predicate) -------------------
 
@@ -983,7 +1069,8 @@ class TorchScheduler:
         (class_of i32[B], rep_rows i64[Cp], None), or (None, None, reason)
         when the batch takes the full auction, ``reason`` the label the
         reference counts it under (``scheduler_dedup_fallback_total``):
-        "class_hook", "preemption", "pod_indexed_aux" or "heterogeneous".
+        "class_hook", "preemption", "gang_anchor", "pod_indexed_aux" or
+        "heterogeneous".
         A non-None host aux is admitted when its plugin has a rep view
         (``host_aux_take``: InterPodAffinity's match matrix).  Cp is the
         pow-2 bucket of the class count (floor 4), padded with the first
@@ -996,6 +1083,14 @@ class TorchScheduler:
         for name, aux in (host_auxes or {}).items():
             if aux is None:
                 continue
+            if name == "Coscheduling":
+                # admitted while no batch pod anchors a gang (the anchors are
+                # then uniformly negative); a gang-anchoring batch takes the
+                # full auction (the reference's "gang_anchor" fallback)
+                anchor = np.asarray(aux[1])
+                if anchor.size == 0 or int(anchor.max()) < 0:
+                    continue
+                return None, None, "gang_anchor"
             if not any(pw.plugin.name == name
                        and getattr(pw.plugin, "host_aux_take", None) is not None
                        for pw in self.fw.plugins):
@@ -1115,8 +1210,10 @@ class TorchScheduler:
         return node_row
 
     def _bind_phase(self, fl: _InFlight, node_row: np.ndarray) -> CycleStats:
-        """Bind every placed pod; diagnose and requeue every failed one; feed
-        the micro-bucket policy's latency profile of the batch's pad tier.
+        """The binding cycle of every placed pod (reserve → permit → bind; a
+        gang member whose gang is not complete holds at Permit); diagnose
+        and requeue every failed one; feed the micro-bucket policy's latency
+        profile of the batch's pad tier.
 
         A pod's attempt latency is the reference's (scheduler.py:2093-2111,
         2365-2378): its batch's algorithm time — dispatch start to the
@@ -1135,38 +1232,54 @@ class TorchScheduler:
             min_sched_prio = int(prios.min()) if prios.size else 1 << 30
             for i in failing:
                 pod = infos[i].pod
+                # the gang guard: a member of a gang that cannot fully place
+                # never preempts (the reference's allows_preemption)
                 if pod.spec.preemption_policy != "Never" \
-                        and min_sched_prio < (pod.spec.priority or 0):
+                        and min_sched_prio < (pod.spec.priority or 0) \
+                        and self.gangs.allows_preemption(pod):
                     raise NotImplementedError(
                         f"pod {pod.key()} failed and could preempt: preemption "
                         "is not ported yet (ROADMAP Queue A item 9)")
-        names = self.fw.filter_names
+        fw = self._framework()
+        names = fw.filter_names
         batch_attempts: List[float] = []
         for i, qi in enumerate(infos):
             t_pod = self.clock()
             row = int(node_row[i])
+            held = False
             if row >= 0:
                 node_name = fl.node_names[i]
-                ok = self.store.bind_pod(qi.pod.namespace, qi.pod.metadata.name,
-                                         node_name)
-                if ok:
+                ok = self._run_reserve_and_bind(fw, qi, node_name)
+                if ok is _PERMIT_WAIT:
+                    # held at Permit: neither scheduled nor unschedulable yet
+                    held = True
+                elif ok:
                     self.cache.finish_binding(qi.pod)
                     stats.scheduled += 1
-                else:  # pod deleted mid-cycle: roll back
+                else:  # reserve / permit / bind failed: roll back
                     self.cache.forget_pod(qi.pod)
+                    # a pod deleted mid-cycle consumed its DELETE event
+                    # already: requeueing it would leave a ghost
                     if self.store.get("Pod", qi.pod.namespace,
                                       qi.pod.metadata.name) is not None:
                         self.queue.add_unschedulable(qi, fl.cycle)
             else:
                 row_bits = fl.diag[i]
-                failing_plugins = {names[k] for k in range(len(names))
-                                   if not bool(row_bits[k])}
-                qi.unschedulable_plugins = failing_plugins or set(names)
+                if bool(np.all(row_bits)) and self.gangs.is_member(qi.pod):
+                    # every filter left the pod a node yet none came back:
+                    # the gang mask withdrew its gang (a sibling missed) —
+                    # attributed to Coscheduling, as the reference does
+                    qi.unschedulable_plugins = {"Coscheduling"}
+                else:
+                    failing_plugins = {names[k] for k in range(len(names))
+                                       if not bool(row_bits[k])}
+                    qi.unschedulable_plugins = failing_plugins or set(names)
                 stats.unschedulable += 1
                 self.queue.add_unschedulable(qi, fl.cycle)
             attempt = algo + max(self.clock() - t_pod, 0.0)
             self.attempt_seconds.append(attempt)
-            batch_attempts.append(attempt)
+            if not held:  # as the reference, a held attempt feeds no tier
+                batch_attempts.append(attempt)
         stats.batch_seconds = self.clock() - fl.t0
         self.phase_wall["bind"] += time.perf_counter() - t0
         # the pad tier's profile: an EMA (α = 0.5) of the batch's largest
@@ -1179,6 +1292,163 @@ class TorchScheduler:
             prev = self._tier_p99.get(tier)
             self._tier_p99[tier] = hi if prev is None else 0.5 * prev + 0.5 * hi
         return stats
+
+    # --- the binding cycle and the Permit hold ------------------------------------
+
+    @staticmethod
+    def _unreserve(pod: v1.Pod, node_name: str, reserved) -> None:
+        """Unreserve the plugins that reserved, in reverse order."""
+        for done in reversed(reserved):
+            un = getattr(done.plugin, "unreserve", None)
+            if un is not None:
+                un(None, pod, node_name)
+
+    def _run_reserve_and_bind(self, fw, qi: QueuedPodInfo, node_name: str):
+        """Reserve → Permit → PreBind → Bind → PostBind (the reference's
+        _run_reserve_and_bind, scheduler.py:3364; scheduler.go:584-698).
+
+        → True (bound), False (rejected, rolled back), or _PERMIT_WAIT: a
+        Permit plugin with ``holds_on_wait`` (Coscheduling) left the pod
+        pending — the assume and the reserve are kept and the rest of the
+        binding cycle waits for _flush_waiting_binds (released when the gang
+        completes, rolled back when the wait deadline fires).  A Wait from
+        no holding plugin fails the cycle.  On any failure the plugins that
+        reserved are unreserved in reverse order."""
+        pod = qi.pod
+        reserved = []
+
+        def rollback():
+            # the waiting-pod entry dies with its binding cycle
+            self.waiting_pods.remove(pod.uid)
+            self._unreserve(pod, node_name, reserved)
+
+        for pw in fw.reserve_plugins:
+            status = pw.plugin.reserve(None, pod, node_name)
+            if status is not None and not status.is_success():
+                rollback()
+                return False
+            reserved.append(pw)
+        if fw.permit_plugins:
+            holding = False
+            for pw in fw.permit_plugins:
+                status, timeout = pw.plugin.permit(None, pod, node_name)
+                if status is not None and status.code == Code.WAIT:
+                    self.waiting_pods.add(pod, pw.plugin.name, timeout)
+                    holding = holding or getattr(pw.plugin, "holds_on_wait", False)
+                elif status is not None and not status.is_success():
+                    rollback()
+                    return False
+            reason = self.waiting_pods.wait_on_permit(pod)
+            if reason is not None:
+                if holding and self.waiting_pods.get(pod.uid) is not None:
+                    # still pending (not rejected): hold the binding cycle
+                    # open — gang members keep their node until the last
+                    # sibling releases them or the deadline fires
+                    self._waiting_binds[pod.uid] = _WaitingBind(
+                        qi=qi, node_name=node_name, fw=fw, reserved=reserved,
+                        since=self.clock())
+                    self.gangs.note_waiting(pod, node_name)
+                    return _PERMIT_WAIT
+                rollback()
+                return False
+        return self._finish_bind(fw, pod, node_name, reserved)
+
+    def _finish_bind(self, fw, pod: v1.Pod, node_name: str, reserved) -> bool:
+        """The post-Permit half of the binding cycle (PreBind → Bind →
+        PostBind; the reference's _finish_bind, scheduler.py:3428), shared
+        by the synchronous path and the waiting-bind flush; rolls back
+        ``reserved`` on failure."""
+
+        def rollback():
+            self.waiting_pods.remove(pod.uid)
+            self._unreserve(pod, node_name, reserved)
+
+        for pw in fw.pre_bind_plugins:
+            status = pw.plugin.pre_bind(None, pod, node_name)
+            if status is not None and not status.is_success():
+                rollback()
+                return False
+        if not self.store.bind_pod(pod.namespace, pod.metadata.name, node_name):
+            # the pod was deleted mid-cycle: unreserve too
+            rollback()
+            return False
+        for pw in fw.post_bind_plugins:
+            pw.plugin.post_bind(None, pod, node_name)
+        return True
+
+    def _cancel_waiting_bind(self, uid: str) -> None:
+        """Abort a held binding cycle without finishing it: unreserve in
+        reverse, forget the assume, drop the waiting entries."""
+        wb = self._waiting_binds.pop(uid, None)
+        if wb is None:
+            return
+        self.waiting_pods.remove(uid)
+        self._unreserve(wb.qi.pod, wb.node_name, wb.reserved)
+        self.cache.forget_pod(wb.qi.pod)
+
+    def _flush_waiting_binds(self) -> CycleStats:
+        """Resolve the binding cycles held open at Permit (the reference's
+        _flush_waiting_binds, scheduler.py:2409).
+
+        Allowed pods (the gang's last member released them) finish the
+        PreBind → Bind → PostBind half; rejected or expired pods roll back —
+        unreserve runs the Coscheduling group-failure hook, which rejects
+        every still-waiting sibling, so one member's deadline fails the
+        whole gang in this one flush — and every requeued gang pod re-enters
+        the active queue together through the group-aware
+        PriorityQueue.activate (the atomic gang requeue)."""
+        stats = CycleStats()
+        if not self._waiting_binds:
+            return stats
+        requeued: List[v1.Pod] = []
+        # to a fixed point: a member's timeout rejects its siblings' entries
+        # through the group-failure hook, and those resolve in this flush
+        progress = True
+        while progress:
+            progress = False
+            for uid in list(self._waiting_binds):
+                wb = self._waiting_binds.get(uid)
+                if wb is None:
+                    continue  # a sibling's rejection already consumed it
+                progress = self._flush_one_waiting(uid, wb, stats, requeued) or progress
+        if requeued:
+            self.queue.activate(requeued)
+        return stats
+
+    def _flush_one_waiting(self, uid: str, wb: _WaitingBind, stats: CycleStats,
+                           requeued: List[v1.Pod]) -> bool:
+        """Resolve one held binding cycle (the reference's
+        _flush_one_waiting, scheduler.py:2442); → True when it left the map."""
+        pod = wb.qi.pod
+        reason = self.waiting_pods.wait_on_permit(pod)
+        if reason is None:
+            # allowed: the deferred PreBind → Bind → PostBind half
+            del self._waiting_binds[uid]
+            ok = self._finish_bind(wb.fw, pod, wb.node_name, wb.reserved)
+            # the reference observes the held attempt from the hold's start
+            self.attempt_seconds.append(self.clock() - wb.since)
+            if ok:
+                self.cache.finish_binding(pod)
+                stats.scheduled += 1
+            else:
+                self.cache.forget_pod(pod)
+                if self.store.get("Pod", pod.namespace, pod.metadata.name) is not None:
+                    self.queue.add_unschedulable(wb.qi, None)
+                    requeued.append(pod)
+            return True
+        if self.waiting_pods.get(uid) is None:
+            # rejected or the deadline expired: roll the cycle back; the
+            # unreserve chain fires the gang group-failure hook
+            del self._waiting_binds[uid]
+            self.gangs.note_wait_rejected(pod, reason)
+            self._unreserve(pod, wb.node_name, wb.reserved)
+            self.cache.forget_pod(pod)
+            stats.unschedulable += 1
+            if self.store.get("Pod", pod.namespace, pod.metadata.name) is not None:
+                self.queue.add_unschedulable(wb.qi, None)
+                requeued.append(pod)
+            return True
+        return False  # still waiting: the hold stays
 
     def _await_backoff_wave(self) -> None:
         """Hold the cycle briefly while an imminent backoff wave drains into
@@ -1205,8 +1475,8 @@ class TorchScheduler:
 
     def run_until_idle(self, max_cycles: int = 1000,
                        backoff_wait: Optional[float] = None) -> CycleStats:
-        """Drive cycles until nothing is attempted, in flight or waiting out
-        backoff."""
+        """Drive cycles until nothing is attempted, in flight, held at Permit
+        or waiting out backoff (up to ``backoff_wait`` seconds of spin)."""
         if backoff_wait is None:
             backoff_wait = 1.2 * self.queue._max_backoff
         total = CycleStats()
@@ -1216,7 +1486,9 @@ class TorchScheduler:
             s = self.schedule_cycle()
             if s.attempted == 0 and s.in_flight == 0:
                 _a, b, _u = self.queue.pending_count()
-                if b == 0 or waited >= backoff_wait:
+                # gang Permit holds resolve on later cycles (release or
+                # deadline), so they keep the spin alive up to the budget
+                if (b == 0 and s.waiting == 0) or waited >= backoff_wait:
                     break
                 time.sleep(0.05)
                 waited += 0.05

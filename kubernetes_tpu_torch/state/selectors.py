@@ -2,10 +2,10 @@
 
 The reference evaluates selectors per (pod, node/pod) pair in Go
 (apimachinery labels.Selector; component-helpers nodeaffinity). Here a batch of
-selectors is *compiled once* host-side into padded int32 arrays, and evaluation is a
-pure torch function over dictionary-encoded label tensors, broadcast along both
-the selector batch and the node/pod axes, so a whole ``[pods, nodes]`` or
-``[terms, pods]`` match matrix is a handful of tensor ops.
+selectors is *compiled once* host-side into padded int32 arrays, and a whole
+``[pods, nodes]`` or ``[terms, pods]`` match matrix is one call of K23
+(kernels/selectors.py; its plain version broadcasts the compares along both the
+selector batch and the node/pod axes on the CPU).
 
 Encoding (MISSING = -1 is the universal pad):
   requirement ops: IN=0 NOT_IN=1 EXISTS=2 DOES_NOT_EXIST=3 GT=4 LT=5, PAD=-1
@@ -27,18 +27,20 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ..api import objects as v1
 from .dictionary import MISSING, Dictionary
 
-OP_IN = 0
-OP_NOT_IN = 1
-OP_EXISTS = 2
-OP_DOES_NOT_EXIST = 3
-OP_GT = 4
-OP_LT = 5
-OP_PAD = -1
+from ..kernels.selectors import (  # noqa: F401  (the op codes live beside K23)
+    OP_DOES_NOT_EXIST,
+    OP_EXISTS,
+    OP_GT,
+    OP_IN,
+    OP_LT,
+    OP_NOT_IN,
+    OP_PAD,
+    selector_match,
+)
 
 _OP_CODE = {
     v1.OP_IN: OP_IN,
@@ -265,34 +267,7 @@ def compile_node_selectors(
     )
 
 
-# --- device evaluation (plain torch ops; ROADMAP Queue B item B4) -----------
-
-
-def _as(a, device) -> torch.Tensor:
-    """A compiled-selector field as a tensor on ``device`` (compiled batches
-    hold numpy on the host until PodBatch.to_device moves them)."""
-    if torch.is_tensor(a):
-        return a.to(device)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
-def _op_select(req_op, present, in_vals, gt, lt):
-    """Pick each requirement's result by op code via a where-chain."""
-    picked = torch.where(
-        req_op == OP_IN, present & in_vals,
-        torch.where(
-            req_op == OP_NOT_IN, (~present) | (~in_vals),  # absent key matches
-            torch.where(
-                req_op == OP_EXISTS, present,
-                torch.where(
-                    req_op == OP_DOES_NOT_EXIST, ~present,
-                    torch.where(req_op == OP_GT, gt,
-                                torch.where(req_op == OP_LT, lt, True)),
-                ),
-            ),
-        ),
-    )
-    return torch.where(req_op == OP_PAD, True, picked)
+# --- device evaluation (K23; kernels/selectors.py) ----------------------------
 
 
 def requirements_match_matrix(
@@ -305,45 +280,25 @@ def requirements_match_matrix(
     keys/vals i32[O, L] (-1 padded); vals_num f32[O, L] — numeric parse of each
     label value (NaN unparseable), used for Gt/Lt.  When has_numeric is
     False the numeric path is skipped; when True and vals_num is None, the
-    numbers come from one [O, L] gather of the dictionary numeric
-    side-table.  Returns bool[U, O]."""
-    dev = keys.device
-    rk = _as(req_key, dev)[:, :, None, None]  # [U, S, 1, 1]
-    km = (keys[None, None, :, :] == rk) & (rk >= 0)  # [U, S, O, L]
-    present = km.any(dim=-1)  # [U, S, O]
-    # label keys are unique per object → at most one L column matches
-    miss = torch.full((), MISSING, dtype=vals.dtype, device=dev)
-    val = torch.where(km, vals[None, None, :, :], miss).amax(dim=-1)  # [U, S, O]
-    rv = _as(req_vals, dev)
-    in_vals = ((rv[:, :, None, :] == val[:, :, :, None])
-               & (val[:, :, :, None] >= 0)).any(dim=-1)  # [U, S, O]
-    if has_numeric:
-        if vals_num is None:
-            safe = vals.clamp(0, numeric.shape[0] - 1).long()
-            vals_num = torch.where(vals >= 0, numeric[safe],
-                                   torch.tensor(float("nan"), device=dev))
-        ninf = torch.tensor(float("-inf"), device=dev)
-        vn = torch.where(km, vals_num[None, None, :, :], ninf).amax(dim=-1)
-        rn = _as(req_num, dev)[:, :, None]
-        gt = present & (vn > rn)
-        lt = present & (vn < rn)
-    else:
-        gt = lt = torch.zeros_like(present)
-    ok = _op_select(_as(req_op, dev)[:, :, None], present, in_vals, gt, lt)
-    return ok.all(dim=1)  # [U, O]
+    numbers come from the dictionary numeric side-table.  Returns
+    bool[U, O].  Through K23 on the card, its plain version on the CPU."""
+    u, s = req_key.shape
+    return selector_match(
+        req_key.reshape(u, 1, s), req_op.reshape(u, 1, s), req_vals.reshape(u, 1, s, -1),
+        req_num.reshape(u, 1, s), None, None, None, keys, vals, vals_num=vals_num,
+        numeric=numeric, has_numeric=has_numeric)
 
 
 def label_match_matrix(
     cs: CompiledLabelSelectors, keys, vals, vals_num=None, numeric=None
 ):
     """Compiled selector batch (B rows, U unique) × label sets [O, L] → bool[B, O]."""
-    dev = keys.device
-    m_u = requirements_match_matrix(
-        cs.req_key, cs.req_op, cs.req_vals, cs.req_num, keys, vals,
-        vals_num=vals_num, numeric=numeric, has_numeric=cs.has_numeric,
-    )
-    m_u = m_u & ~_as(cs.match_none, dev)[:, None]
-    return m_u[_as(cs.index, dev).long()]  # [B, O]
+    u, s = cs.req_key.shape
+    return selector_match(
+        cs.req_key.reshape(u, 1, s), cs.req_op.reshape(u, 1, s),
+        cs.req_vals.reshape(u, 1, s, -1), cs.req_num.reshape(u, 1, s), None, None,
+        cs.match_none, keys, vals, vals_num=vals_num, numeric=numeric,
+        has_numeric=cs.has_numeric, index=cs.index)
 
 
 def node_match_matrix(
@@ -351,16 +306,7 @@ def node_match_matrix(
 ):
     """Compiled NodeSelector batch (B rows, U unique) × label sets [O, L] →
     bool[B, O].  OR over valid terms, AND within a term; match_all rows → True."""
-    dev = keys.device
-    u, t, s = cns.req_key.shape
-    per_term = requirements_match_matrix(
-        _as(cns.req_key, dev).reshape(u * t, s),
-        _as(cns.req_op, dev).reshape(u * t, s),
-        _as(cns.req_vals, dev).reshape(u * t, s, -1),
-        _as(cns.req_num, dev).reshape(u * t, s),
-        keys, vals, vals_num=vals_num, numeric=numeric,
-        has_numeric=cns.has_numeric,
-    ).reshape(u, t, -1)  # [U, T, O]
-    any_term = (per_term & _as(cns.term_valid, dev)[:, :, None]).any(dim=1)
-    m_u = _as(cns.match_all, dev)[:, None] | any_term
-    return m_u[_as(cns.index, dev).long()]
+    return selector_match(
+        cns.req_key, cns.req_op, cns.req_vals, cns.req_num, cns.term_valid,
+        cns.match_all, None, keys, vals, vals_num=vals_num, numeric=numeric,
+        has_numeric=cns.has_numeric, index=cns.index)

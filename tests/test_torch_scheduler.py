@@ -201,7 +201,22 @@ def test_scope_guard_raises(kind, monkeypatch):
     ROADMAP item — never a silently different answer.  The coupled batches
     with a pod that could preempt (the reference's full auction) and the
     coupled batch of many classes (its exact scan) are in the slice now:
-    they bind as the reference binds them, through that engine."""
+    they bind as the reference binds them, through that engine.  So are
+    gang members: one whose PodGroup does not exist stays pending, as in
+    the reference."""
+    if kind == "gang":
+        # gang members are in the slice now (the gang runtime): a member of
+        # a PodGroup that does not exist is rejected at the Coscheduling
+        # PreFilter, as the reference rejects it, before any engine runs
+        jb = _guard_bindings("jax", [_GUARD_NODE], [_GUARD_RUNNING],
+                             lambda pkg: _guard_pods(kind, pkg), 16)
+        log = _engine_log(monkeypatch)
+        tb = _guard_bindings("torch", [_GUARD_NODE], [_GUARD_RUNNING],
+                             lambda pkg: _guard_pods(kind, pkg), 16)
+        assert tb == jb
+        assert sum(1 for v in tb.values() if not v) == 1
+        assert log == []
+        return
     if kind in _ENGINE_OF:
         jb = _guard_bindings("jax", [_GUARD_NODE], [_GUARD_RUNNING],
                              lambda pkg: _guard_pods(kind, pkg), 16)
