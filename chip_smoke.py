@@ -5,7 +5,7 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the twenty-three CUDA kernels from kubernetes_tpu_torch/csrc/ (one
+1. Build the twenty-six CUDA kernels from kubernetes_tpu_torch/csrc/ (one
    nvcc per source, started together).
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
    CUDA tensors, exactly equal.  K1–K4: random and adversarial inputs
@@ -34,6 +34,11 @@ Phases, all of which must pass (any failure exits non-zero):
    on one row; K22 at C = B = 512, on class-gathered rows and at 31
    filters; K23 with every operator, NaN and absent keys, empty terms,
    match_all / match_none, both numeric forms and the numeric path off.
+   K24–K26 (DynamicResources) at C = 1, 64 and 512 rows over N = 8192
+   (pinned, blocked and zero-demand rows, nodes without inventory, negative
+   free; K25 at weights 1 and 2), K25 over the floor grid (capacity 1–256 ×
+   used 0–capacity, equal to the integer floor, the pins (61, 61) and
+   (53, 100)), K26 as an auction round, at class rows and as a scan step.
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
    on cuda, synchronous, launch counts zeroed just before and read just
@@ -80,6 +85,19 @@ Phases, all of which must pass (any failure exits non-zero):
    fresh gangs.  Then through ``perf.harness.run_workload`` (pipelined):
    the same checks, K1–K4 and K20–K23 inside the measured window, pods/s,
    gangs/s and time-to-full-slice p50 / p99.
+4d. DeviceClaimGang/5000Nodes (GangBasic's cluster plus the warm host,
+   one 4-chip ResourceSlice per host, 4800 named 4-chip claims, one per
+   gang pod) through TorchScheduler(batch_size=64) synchronously, launch
+   counts zeroed just before and read just after: all 4800 bound, every
+   claim Reserved for its pod with the 4 named chips of its node, no chip
+   held twice, no gang split over slices or partly bound, K1–K4, K20–K23
+   and K24–K26 launched, the claim series' 4800 allocations; pods/s,
+   gangs/s, claims/s; one profiled cycle of 8 more gangs.  Then through
+   ``perf.harness.run_workload`` (pipelined, the suite's B = 512): the same
+   checks, K1–K4, K20–K26 inside the measured window, pods/s, gangs/s,
+   time to full slice p50 / p99 and ClaimsAllocated.  NorthStar and
+   GangBasic fail if a DynamicResources kernel launched (claim-free
+   batches carry no claim aux).
 4b. The full auction and the exact scan at full width (5000 nodes, B =
    512, measured pods with the launch counts zeroed just before them, every
    measured batch through the expected engine, one profiled cycle each):
@@ -113,6 +131,8 @@ Phases, all of which must pass (any failure exits non-zero):
    Permit, the gang that cannot complete times out after 60 s and requeues
    atomically, none is partly bound; cuda == cpu on bindings, PodGroup
    phases, held binds and queue counts per cycle, and the gang counters.
+   DeviceClaimGang/500Nodes cut to 125 nodes (15 gangs, B = 64): cuda ==
+   cpu on bindings, every claim's fields and the claim series.
 6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
    round; K5–K8: a TopologySpreading cycle's first round; K9–K12: a
    SchedulingPreferredPodAffinity cycle's first round; K13–K16: the latest
@@ -136,6 +156,9 @@ Phases, all of which must pass (any failure exits non-zero):
    synchronous run (K23: the node-affinity filter's node-selector call),
    timed as in 6; K20 beside the one PyTorch pair that computes the same
    mask (``index_add_`` + gather).
+6d. K24–K26 on the arguments of their latest call on the
+   DeviceClaimGang/5000Nodes synchronous run, timed as in 6; K26 beside
+   ``index_add_`` of the committed pods' demands.
 
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
 on the path that carries each kernel: K1–K8 on the TopologySpreading run,
@@ -144,13 +167,14 @@ NorthStar harness run, K14 and K15 on the pipelined TopologySpreading and
 SchedulingPreferredPodAffinity runs, K17 and K18 on the TopologySpreading
 scan, K19 on the two pod-affinity scans, the C = 512 rows on the full
 auction that gave their arguments, K20–K23 on the GangBasic synchronous
-run), the card's name and power limit as
+run, K24–K26 on the DeviceClaimGang synchronous run), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
 cycles' tables to chiprun_out/profile_cycle.txt,
 chiprun_out/profile_spread_cycle.txt, chiprun_out/profile_affinity_cycle.txt,
-chiprun_out/profile_pipelined_cycle.txt and chiprun_out/profile_gang_cycle.txt.
+chiprun_out/profile_pipelined_cycle.txt, chiprun_out/profile_gang_cycle.txt and
+chiprun_out/profile_claim_gang_cycle.txt.
 """
 
 from __future__ import annotations
@@ -1790,6 +1814,10 @@ def northstar(dev_name: str) -> dict:
               "auction_resolve_commit"):
         if launches[k] <= 0:
             fail(f"NorthStar: kernel {k} never launched on the main path")
+    # a claim-free batch leaves DynamicResources' kernels idle (its aux is None)
+    if any(launches[k] for k in ("dra_filter_bits", "dra_score_into", "dra_take")):
+        fail(f"NorthStar: a DynamicResources kernel launched on claim-free batches "
+             f"({launches})")
     import numpy as np
 
     att = np.asarray(sched.attempt_seconds[-n_pods:])
@@ -3140,6 +3168,8 @@ def gang_basic_sync(kargs: KernelArgs, out_dir: Path, dev_name: str = "cuda") ->
     for k in PATH_KERNELS[:4] + GANG_KERNELS:
         if launches[k] <= 0:
             fail(f"GangBasic: kernel {k} never launched on the main path")
+    if any(launches[k] for k in DRA_KERNELS):
+        fail(f"GangBasic: a DynamicResources kernel launched on claim-free gangs ({launches})")
     d = sched.gangs
     rec = {"nodes": 5000, "gangs": gangs, "pods": 4800, "batch_size": 512,
            "setup_s": setup_s, "wall_s": wall, "pods_per_s": 4800 / wall,
@@ -3384,11 +3414,450 @@ def time_gang_kernels(last_calls: dict, err: dict) -> list:
     return rows_out
 
 
+# --- K24–K26 and DeviceClaimGang -------------------------------------------------------
+
+DRA_KERNELS = ("dra_filter_bits", "dra_score_into", "dra_take")
+DRA_SOURCE = "kubernetes_tpu_torch/csrc/dra.cu"
+DRA_REPLACES = {"dra_filter_bits": "kubernetes_tpu/dra/plugin.py:109",
+                "dra_score_into": "kubernetes_tpu/dra/plugin.py:137",
+                "dra_take": "kubernetes_tpu/dra/plugin.py:157"}
+DRA_SYMBOLS = {k: k + "_kernel" for k in DRA_KERNELS}
+DRA_PLUGIN = "kubernetes_tpu_torch.dra.plugin"
+# the full auction's planes (C = B), not a scan row
+DRA_TARGETS = {
+    "dra_filter_bits": (DRA_PLUGIN, "dra_filter_bits", lambda a: a[0].shape[0] > 1),
+    "dra_score_into": (DRA_PLUGIN, "dra_score_into", lambda a: a[0].shape[0] > 1),
+    "dra_take": (DRA_PLUGIN, "dra_take", lambda a: a[1].numel() > 1),
+}
+
+
+def dra_case(gen, c: int, n: int):
+    """A claim batch's inputs on the CPU: demand 0–8 (a fifth of the rows
+    0), a fifth of the rows pinned (some to nodes without inventory), a
+    tenth blocked; node inventories of 0–16 chips (the first three and the
+    rows past 5000 empty) with allocations up to three past the capacity
+    (negative free, a slice that shrank under allocated claims)."""
+    import torch
+
+    demand = torch.randint(0, 9, (c,), generator=gen, dtype=torch.int32)
+    demand[torch.rand(c, generator=gen) < 0.2] = 0
+    pinned = torch.where(torch.rand(c, generator=gen) < 0.2,
+                         torch.randint(0, n, (c,), generator=gen), -1).to(torch.int32)
+    blocked = torch.rand(c, generator=gen) < 0.1
+    cap = torch.tensor([0, 2, 4, 8, 16], dtype=torch.int32)[
+        torch.randint(0, 5, (n,), generator=gen)]
+    cap[:3] = 0
+    cap[5000:] = 0
+    alloc = torch.minimum(torch.randint(0, 18, (n,), generator=gen, dtype=torch.int32),
+                          cap + 3)
+    alloc[cap == 0] = 0
+    return demand, pinned, blocked, cap, (cap - alloc).to(torch.int32)
+
+
+def check_dra_kernels(dev) -> dict:
+    """K24–K26 against their plain versions on the card, exactly: K24 and
+    K25 at C = 1, 64 and 512 rows over N = 8192 nodes (pinned, blocked and
+    zero-demand rows, nodes without inventory, negative free; K25 with
+    weights 1 and 2 over a bit plane with infeasible entries), K25 over the
+    full floor grid (capacity 1–256 × used 0–capacity: every score equals
+    the integer floor(100 · used / capacity), the pins (61, 61) → 100 and
+    (53, 100) → 53); K26 as an auction round (a commit mask, many pods on
+    one node), at class rows, and as a scan step (one pod, at a node and
+    not placed)."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import dra as KR
+
+    gen = torch.Generator().manual_seed(SEED + 24)
+    err = {k: 0.0 for k in DRA_KERNELS}
+    n = 8192
+    for c in (1, 64, 512):
+        demand, pinned, blocked, cap, free = (t.to(dev) for t in dra_case(gen, c, n))
+        bit, full = 11, (1 << 16) - 1
+        bits = torch.where(torch.rand((c, n), generator=gen) < 0.7, full,
+                           torch.randint(0, full, (c, n), generator=gen,
+                                         dtype=torch.int32)).to(torch.int32).to(dev)
+        got = KR.dra_filter_bits(bits.clone(), bit, demand, pinned, blocked, free)
+        want = KR.dra_filter_bits_plain(bits.clone(), bit, demand, pinned, blocked, free)
+        torch.cuda.synchronize()
+        err["dra_filter_bits"] = max(err["dra_filter_bits"], require_equal(
+            f"dra_filter_bits (C = {c})", [("bits", got, want)]))
+        for w in (1.0, 2.0):
+            total = torch.where(bits == full, torch.randint(0, 400, (c, n), generator=gen)
+                                .float().to(dev), float("-inf"))
+            got = KR.dra_score_into(bits, full, total.clone(), cap, free, demand, w)
+            want = KR.dra_score_into_plain(bits, full, total.clone(), cap, free, demand, w)
+            torch.cuda.synchronize()
+            err["dra_score_into"] = max(err["dra_score_into"], require_equal(
+                f"dra_score_into (C = {c}, weight {w})", [("total", got, want)]))
+        if c == 512 and torch.equal(got, total):
+            fail("dra_score_into check: the score added nothing")
+        # K26: an auction round (class rows = pods), then at class rows
+        commit = (torch.rand(c, generator=gen) < 0.6).to(dev)
+        choice = torch.randint(0, n, (c,), generator=gen, dtype=torch.int32).to(dev)
+        choice[: c // 4] = 7  # many commits on one node
+        got = KR.dra_take(free.clone(), choice, demand, commit=commit)
+        want = KR.dra_take_plain(free.clone(), choice, demand, commit=commit)
+        cls = torch.randint(0, max(c // 8, 1), (c,), generator=gen,
+                            dtype=torch.int32).to(dev)
+        got2 = KR.dra_take(free.clone(), choice, demand, commit=commit, class_of=cls)
+        want2 = KR.dra_take_plain(free.clone(), choice, demand, commit=commit, class_of=cls)
+        torch.cuda.synchronize()
+        err["dra_take"] = max(err["dra_take"], require_equal(
+            f"dra_take (C = {c})", [("free", got, want), ("free, class rows", got2, want2)]))
+    for node in (5, -1, n - 1):  # the scan's step
+        at = torch.tensor([node], dtype=torch.int32, device=dev)
+        got = KR.dra_take(free.clone(), at, demand[3:4])
+        want = KR.dra_take_plain(free.clone(), at, demand[3:4])
+        torch.cuda.synchronize()
+        err["dra_take"] = max(err["dra_take"], require_equal(
+            f"dra_take (scan step at {node})", [("free", got, want)]))
+    # the floor grid: one row of demand 1, one node per (used, capacity)
+    pairs = [(u, cp) for cp in range(1, 257) for u in range(cp + 1)]
+    used = torch.tensor([u for u, _ in pairs], dtype=torch.int32)
+    cap = torch.tensor([cp for _, cp in pairs], dtype=torch.int32)
+    free = (cap - used + 1).to(torch.int32)
+    one = torch.ones(1, dtype=torch.int32)
+    a = [x.to(dev) for x in (torch.ones((1, len(pairs)), dtype=torch.int32),
+                             torch.zeros((1, len(pairs))), cap, free, one)]
+    got = KR.dra_score_into(a[0], 1, a[1].clone(), a[2], a[3], a[4], 1.0)
+    want = KR.dra_score_into_plain(a[0], 1, a[1].clone(), a[2], a[3], a[4], 1.0)
+    torch.cuda.synchronize()
+    err["dra_score_into"] = max(err["dra_score_into"], require_equal(
+        "dra_score_into (floor grid)", [("total", got, want)]))
+    exact = (used.long() * 100 // cap.long()).float().to(dev)
+    if not torch.equal(got[0], exact):
+        fail("dra_score_into check: the floor grid differs from floor(100 · used / cap)")
+    at = {p: k for k, p in enumerate(pairs)}
+    if float(got[0, at[(61, 61)]]) != 100.0 or float(got[0, at[(53, 100)]]) != 53.0:
+        fail("dra_score_into check: a floor pin moved")
+    log(f"DRA kernels vs plain: all equal ({', '.join(DRA_KERNELS)}; floor grid of "
+        f"{len(pairs)} pairs)")
+    return err
+
+
+def claim_gang_cluster(dev_name: str, size: str, batch_size: int, scale: float = 1.0,
+                       clock=None):
+    """DeviceClaimGang's cluster from the port's workload (perf/workloads.py:
+    sliced nodes, the warm host, the device class, one 4-chip ResourceSlice
+    per host, the warm pool, the PodGroups, one 4-chip claim per member and
+    the members, one per host): → (store, synchronous scheduler, workload)
+    with every object created (node indices across the createNodes ops, as
+    the harness counts them)."""
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+
+    w = build_workload("DeviceClaimGang", size, scale=scale)
+    store = ObjectStore()
+    kw = {} if clock is None else {"clock": clock, "batch_wait": 0}
+    sched = TorchScheduler(store, batch_size=batch_size, device=dev_name, **kw)
+    sched.presize(sum(op.count for op in w.ops if op.opcode == "createNodes"),
+                  sum(op.count for op in w.ops if op.opcode == "createPods"))
+    node_idx = 0
+    for op in w.ops:
+        if op.opcode == "createNodes":
+            for _ in range(op.count):
+                nd = op.node_template(node_idx)
+                node_idx += 1
+                nd.metadata.creation_timestamp = 0.0
+                store.create("Node", nd)
+        elif op.opcode == "createObjects":
+            for j in range(op.count):
+                kind, obj = op.object_template(j)
+                obj.metadata.creation_timestamp = 1.0
+                store.create(kind, obj)
+        else:
+            for i in range(op.count):
+                p = op.pod_template(i)
+                p.metadata.creation_timestamp = 2.0 + i
+                store.create("Pod", p)
+    return store, sched, w
+
+
+def claim_checks(what: str, store) -> dict:
+    """Every gang pod bound (no node oversubscribed), every gang claim
+    Reserved for its pod with 4 named chips of that pod's node in its slice's
+    pool, no chip held by two claims, no gang partly bound or split over
+    slices; → the counts."""
+    check_bound_and_fit(what, store)
+    nodes = {nd.metadata.name: nd.metadata.labels.get(SLICE_LABEL)
+             for nd in store.list("Node")[0]}
+    pods = {p.metadata.uid: p for p in store.list("Pod")[0]}
+    held, reserved = [], 0
+    for c in store.list("ResourceClaim")[0]:
+        held += list(c.allocated_devices)
+        if not c.metadata.name.startswith("gangclaim-"):
+            continue
+        pod = pods.get(c.reserved_for)
+        node = pod.spec.node_name if pod is not None else None
+        want = [f"{nodes.get(node)}/{node}-chip{k}" for k in range(4)]
+        if c.state != "Reserved" or node is None or c.allocated_node != node \
+                or list(c.allocated_devices) != want:
+            fail(f"{what}: claim {c.metadata.name} is {c.state} on {c.allocated_node!r} "
+                 f"with {c.allocated_devices} for {c.reserved_for!r}")
+        reserved += 1
+    if len(held) != len(set(held)):
+        fail(f"{what}: {len(held) - len(set(held))} chips held by two claims")
+    gangs, split, partial = gang_slices(store)
+    if split or partial:
+        fail(f"{what}: {split} gangs split over slices, {partial} partly bound")
+    return {"claims_reserved": reserved, "chips_held": len(held), "gangs": gangs}
+
+
+def claim_gang_sync(kargs: KernelArgs, out_dir: Path, dev_name: str = "cuda") -> dict:
+    """DeviceClaimGang/5000Nodes through TorchScheduler(batch_size=64),
+    synchronous, launch counts zeroed just before the run and read just
+    after: all 4800 pods bound, 4800 claims Reserved with 4 named chips of
+    their pod's node, no chip twice, no gang split or partly bound, K1–K4,
+    K20–K23 and K24–K26 launched; pods/s, gangs/s, claims/s; then one
+    profiled cycle of 8 more gangs on the 200 hosts left free."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.perf.workloads import (
+        dra_claim_template,
+        pod_claim_gang,
+        podgroup_template,
+    )
+
+    fresh_heap()
+    t0 = time.perf_counter()
+    store, sched, w = claim_gang_cluster(dev_name, "5000Nodes", 64)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with GcWatch() as gcw, kargs:
+        stats = sched.run_until_idle()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    if stats.scheduled != 4800:
+        fail(f"DeviceClaimGang: scheduled {stats.scheduled} of 4800")
+    got = claim_checks("DeviceClaimGang", store)
+    if got["claims_reserved"] != 4800:
+        fail(f"DeviceClaimGang: {got['claims_reserved']} of 4800 claims Reserved")
+    for k in PATH_KERNELS[:4] + GANG_KERNELS + DRA_KERNELS:
+        if launches[k] <= 0:
+            fail(f"DeviceClaimGang: kernel {k} never launched on the main path")
+    series = dict(sched.dra_plugin.claims_allocated)
+    if series["allocated"] != 4800:
+        fail(f"DeviceClaimGang: the claim series counted {series}")
+    rec = {"nodes": 5000, "gangs": got["gangs"], "pods": 4800, "batch_size": 64,
+           "setup_s": setup_s, "wall_s": wall, "pods_per_s": 4800 / wall,
+           "gangs_per_s": got["gangs"] / wall, "claims_per_s": series["allocated"] / wall,
+           "claims_reserved": got["claims_reserved"], "chips_held": got["chips_held"],
+           "claim_series": series, "cycles": sched.cycles,
+           "rounds_per_cycle": sched.rounds_total / max(sched.cycles, 1),
+           "phase_wall_s": dict(sched.phase_wall), "launches": launches,
+           "gang_attempts": dict(sched.gangs.attempts),
+           "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds}
+    log(f"DeviceClaimGang/5000Nodes synchronous (B = 64): 4800 pods in {got['gangs']} gangs "
+        f"bound in {wall:.3f} s = {rec['pods_per_s']:.1f} pods/s, {rec['gangs_per_s']:.2f} "
+        f"gangs/s, {rec['claims_per_s']:.1f} claims/s; {sched.cycles} cycles, "
+        f"{rec['rounds_per_cycle']:.2f} rounds/cycle; {got['claims_reserved']} claims "
+        f"Reserved, {got['chips_held']} chips held once each, no gang split; launches "
+        + ", ".join(f"{k} {launches[k]}" for k in PATH_KERNELS[:4] + GANG_KERNELS
+                    + DRA_KERNELS))
+    # the profiled cycle: 8 more gangs (64 pods, their claims) on hosts 4800–4999
+    for j in range(600, 608):
+        kind, pg = podgroup_template()(j)
+        store.create(kind, pg)
+    for i in range(4800, 4864):
+        kind, claim = dra_claim_template(i)
+        store.create(kind, claim)
+    rec["profile"] = profile_cycle(sched, out_dir, "DeviceClaimGang",
+                                   lambda i: pod_claim_gang()(4800 + i),
+                                   "profile_claim_gang_cycle.txt", n_pods=64)
+    return {"record": rec, "sched": sched}
+
+
+def claim_gang_harness(dev_name: str = "cuda") -> dict:
+    """DeviceClaimGang/5000Nodes through the port's perf harness
+    (``run_workload``: pipelined, depth 3, the suite's B = 512): every
+    measured pod bound, every claim Reserved on its pod's node, no chip
+    twice, no gang split or partly bound, K1–K4, K20–K23 and K24–K26
+    launched inside the measured window; pods/s, GangThroughput,
+    TimeToFullSlice p50 / p99 and ClaimsAllocated."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.perf.harness import data_items_to_json, run_workload
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+
+    seen = {}
+
+    def inspect(store, sched):
+        torch.cuda.synchronize()
+        seen["launches"] = dict(kernels.LAUNCHES)
+        seen["claims"] = claim_checks("DeviceClaimGang harness", store)
+        seen["phase_wall_s"] = dict(sched.phase_wall)
+
+    fresh_heap()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    w = build_workload("DeviceClaimGang", "5000Nodes")
+    items = run_workload(w, device=dev_name, inspect=inspect)
+    wall = time.perf_counter() - t
+    by = {it.labels["Metric"]: it.data for it in items}
+    win = by["KernelLaunchesInWindow"]
+    if by["GangThroughput"]["Gangs"] != 600 or by["ClaimsAllocated"]["Count"] != 4800:
+        fail(f"DeviceClaimGang harness: {by['GangThroughput']['Gangs']:.0f} of 600 gangs, "
+             f"{by['ClaimsAllocated']['Count']:.0f} of 4800 claims in the window")
+    if seen["claims"]["claims_reserved"] != 4800:
+        fail(f"DeviceClaimGang harness: {seen['claims']['claims_reserved']} claims Reserved")
+    for k in PATH_KERNELS[:4] + GANG_KERNELS + DRA_KERNELS:
+        if win[k] <= 0:
+            fail(f"DeviceClaimGang harness: kernel {k} never launched in the measured window")
+    if by["KernelBuildsInWindow"]["Count"] != 0:
+        fail("DeviceClaimGang harness: a kernel was built inside the measured window")
+    att, tfs = by["scheduler_scheduling_attempt_duration_seconds"], by["TimeToFullSlice"]
+    rec = {"items": json.loads(data_items_to_json(items)), "wall_s": wall,
+           "batch_size": w.batch_size,
+           "pods_per_s": by["SchedulingThroughput"]["Average"],
+           "gangs_per_s": by["GangThroughput"]["Average"],
+           "claims_per_s": by["ClaimsAllocated"]["PerSecond"],
+           "time_to_full_slice_p50_s": tfs["Perc50"], "time_to_full_slice_p99_s": tfs["Perc99"],
+           "attempt_p50_ms": att["Perc50"] * 1e3, "attempt_p99_ms": att["Perc99"] * 1e3,
+           "window_launches": win, "window_phase_wall_s": by["PhaseWallBreakdown"],
+           "launches": seen["launches"], **seen["claims"]}
+    log(f"DeviceClaimGang/5000Nodes via perf.harness.run_workload (pipelined, B = "
+        f"{w.batch_size}): {rec['pods_per_s']:.1f} pods/s, {rec['gangs_per_s']:.2f} gangs/s, "
+        f"{rec['claims_per_s']:.1f} claims/s; time to full slice p50 "
+        f"{tfs['Perc50'] * 1e3:.1f} ms, p99 {tfs['Perc99'] * 1e3:.1f} ms; attempt p50 "
+        f"{rec['attempt_p50_ms']:.1f} ms, p99 {rec['attempt_p99_ms']:.1f} ms; window launches "
+        + ", ".join(f"{k} {win[k]:.0f}" for k in PATH_KERNELS[:4] + GANG_KERNELS
+                    + DRA_KERNELS))
+    return rec
+
+
+def claim_gang_bindings(device: str):
+    """DeviceClaimGang/500Nodes cut to a quarter (125 sliced nodes, 15 gangs
+    of 8 with their claims, B = 64) through the synchronous scheduler: →
+    (bindings, claims, the claim series, launches)."""
+    from kubernetes_tpu_torch import kernels
+
+    store, sched, _w = claim_gang_cluster(device, "500Nodes", 64, scale=0.25,
+                                          clock=_FixedClock())
+    kernels.reset_launches()
+    sched.run_until_idle()
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+    claims = {c.metadata.name: (c.state, c.allocated_node, list(c.allocated_devices),
+                                c.reserved_for) for c in store.list("ResourceClaim")[0]}
+    return ({p.metadata.name: p.spec.node_name for p in store.list("Pod")[0]}, claims,
+            dict(sched.dra_plugin.claims_allocated), dict(kernels.LAUNCHES))
+
+
+def time_dra_kernels(last_calls: dict, err: dict) -> list:
+    """K24–K26 timed on the arguments of their latest calls on the
+    DeviceClaimGang/5000Nodes synchronous run, each held once more against
+    its plain version there; the bound from what those inputs need."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import dra as KR
+
+    rows_out = []
+
+    def last(name):
+        got = last_calls.get(name)
+        if got is None:
+            fail(f"kernel timing: no recorded path call of {name}")
+        return got
+
+    def row(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        rows_out.append({
+            "name": name, "route": "cuda", "source": DRA_SOURCE,
+            "replaces": DRA_REPLACES[name], "launches": None, "max_abs_err": err[name],
+            "ms": device_ms(fn, DRA_SYMBOLS[name]), "ms_source": MS_SOURCE[0],
+            "call_ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
+            "bound_ms": least, "bound_by": bound_by,
+            "library_ms": device_ms(library_fn) if library_fn else None,
+            "bytes": n_bytes, "ops": n_ops, "shape": shape})
+
+    # K24: demand / pinned / blocked and free read once, the failing
+    # entries' words read and written; four compares per entry
+    (bits, bit, demand, pinned, blocked, free), _ = last("dra_filter_bits")
+    base = bits.clone()
+    got = KR.dra_filter_bits(base.clone(), bit, demand, pinned, blocked, free)
+    want = KR.dra_filter_bits_plain(base.clone(), bit, demand, pinned, blocked, free)
+    err["dra_filter_bits"] = max(err["dra_filter_bits"], require_equal(
+        "dra_filter_bits (path shapes)", [("bits", got, want)]))
+    c, n = bits.shape
+    # the recorded plane is the one the call wrote: count the entries the
+    # test fails (each written, whatever its bit held)
+    n_fail = int((~KR.dra_filter_plane(demand, pinned, blocked, free)).sum())
+    work = base.clone()
+    row("dra_filter_bits", lambda: KR.dra_filter_bits(work, bit, demand, pinned, blocked,
+                                                      free),
+        lambda: KR.dra_filter_bits_plain(base.clone(), bit, demand, pinned, blocked, free),
+        9 * c + 4 * n + 8 * n_fail, 4 * c * n,
+        {"C": c, "N": n, "failing": n_fail, "demand_rows": int((demand > 0).sum())})
+
+    # K25: the bit plane read, the feasible entries' totals read and written,
+    # cap / free and demand once; six float32 operations a scored entry
+    (bits2, full, total, cap, free2, demand2, weight), _ = last("dra_score_into")
+    base = total.clone()
+    got = KR.dra_score_into(bits2, full, base.clone(), cap, free2, demand2, weight)
+    want = KR.dra_score_into_plain(bits2, full, base.clone(), cap, free2, demand2, weight)
+    err["dra_score_into"] = max(err["dra_score_into"], require_equal(
+        "dra_score_into (path shapes)", [("total", got, want)]))
+    c2, n2 = bits2.shape
+    feas = bits2 == full
+    n_feas = int(feas.sum())
+    n_scored = int((feas & (demand2[:, None] > 0) & (cap[None, :] > 0)).sum())
+    work = base.clone()
+    row("dra_score_into", lambda: KR.dra_score_into(bits2, full, work, cap, free2, demand2,
+                                                    weight),
+        lambda: KR.dra_score_into_plain(bits2, full, base.clone(), cap, free2, demand2,
+                                        weight),
+        4 * c2 * n2 + 8 * n_feas + 8 * n2 + 4 * c2, 6 * n_scored,
+        {"C": c2, "N": n2, "feasible": n_feas, "scored": n_scored})
+
+    # K26: commit, choice and demand read once, each committed pod's node
+    # read and written; one subtraction a commit.  Library: index_add_ of
+    # the committed pods' demands (the same function on the same inputs)
+    (free3, choice, demand3), kw = last("dra_take")
+    commit, class_of = kw.get("commit"), kw.get("class_of")
+    base = free3.clone()
+    got = KR.dra_take(base.clone(), choice, demand3, commit=commit, class_of=class_of)
+    want = KR.dra_take_plain(base.clone(), choice, demand3, commit=commit, class_of=class_of)
+    err["dra_take"] = max(err["dra_take"], require_equal(
+        "dra_take (path shapes)", [("free", got, want)]))
+    b = choice.numel()
+    taken = commit if commit is not None else choice >= 0
+    n_commit = int(taken.sum())
+    idx = choice.long()[taken]
+    rows_ = torch.arange(b, device=choice.device) if class_of is None else class_of.long()
+    neg = -demand3[rows_][taken]
+    work = base.clone()
+    lib = base.clone()
+    row("dra_take", lambda: KR.dra_take(work, choice, demand3, commit=commit,
+                                        class_of=class_of),
+        lambda: KR.dra_take_plain(base.clone(), choice, demand3, commit=commit,
+                                  class_of=class_of),
+        b * (1 + 4 + 4) + 8 * n_commit, n_commit,
+        {"B": b, "N": free3.numel(), "commits": n_commit},
+        library_fn=lambda: lib.index_add_(0, idx, neg))
+    for rr in rows_out:
+        log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
+            f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
+            + (f", library {rr['library_ms']:.5f} ms" if rr["library_ms"] is not None else "")
+            + f"; {rr['shape']}")
+    return rows_out
+
+
 # --- phase 7: where one cycle's device time goes ----------------------------------------
 
 
-def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str) -> dict:
-    """One more cycle of 512 pods from ``make_pod(i)`` on ``sched``'s
+def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str,
+                  n_pods: int = 512) -> dict:
+    """One more cycle of ``n_pods`` pods from ``make_pod(i)`` on ``sched``'s
     cluster under torch.profiler: the cycle's wall, the device time by
     kernel name, and the device's idle share of the cycle.  A pipelined
     scheduler runs until idle under the profiler (its cycle dispatches the
@@ -3397,7 +3866,7 @@ def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str) -> dict
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for i in range(512):
+    for i in range(n_pods):
         sched.store.create("Pod", make_pod(i))
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts):  # the profiler's one-off start-up cost
@@ -3409,8 +3878,8 @@ def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str) -> dict
         stats = sched.run_until_idle() if sched.pipeline else sched.schedule_cycle()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    if stats.scheduled != 512:
-        fail(f"profiled {what} cycle scheduled {stats.scheduled} of 512")
+    if stats.scheduled != n_pods:
+        fail(f"profiled {what} cycle scheduled {stats.scheduled} of {n_pods}")
 
     def dev_us(e):
         v = getattr(e, "self_device_time_total", None)
@@ -4054,6 +4523,7 @@ def main() -> None:
     scan_err, reuse_err = check_scan_kernels(dev)
     err.update(scan_err)
     err.update(check_gang_kernels(dev))
+    err.update(check_dra_kernels(dev))
     record["kernel_check_s"] = time.perf_counter() - t
     out_dir = here / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4136,6 +4606,17 @@ def main() -> None:
     t = time.perf_counter()
     record["gang_basic_harness"] = gang_basic_harness()
     record["gang_basic_harness"]["phase_s"] = time.perf_counter() - t
+
+    # device claims: DeviceClaimGang/5000Nodes synchronous (its K24–K26
+    # calls kept for the timing phase) and through the perf harness
+    dra_args = KernelArgs(DRA_TARGETS)
+    t = time.perf_counter()
+    claim = claim_gang_sync(dra_args, out_dir)
+    record["device_claim_gang"] = claim["record"]
+    record["device_claim_gang"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    record["device_claim_gang_harness"] = claim_gang_harness()
+    record["device_claim_gang_harness"]["phase_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
     gpu_bind, gpu_launch, gpu_cycles, gpu_wall = hetero_bindings("cuda")
@@ -4268,6 +4749,23 @@ def main() -> None:
         f"cycle {g_held}, gang attempts {g_att}, timeouts {g_to} "
         f"({time.perf_counter() - t:.1f} s)")
 
+    t = time.perf_counter()
+    g_res, c_res = claim_gang_bindings("cuda"), claim_gang_bindings("cpu")
+    for what, a, b in zip(("bindings", "claims", "claim series"), g_res[:3], c_res[:3]):
+        if a != b:
+            fail(f"DeviceClaimGang/500Nodes cut to 125 nodes: cuda and cpu differ in {what}")
+    if not all(g_res[0].values()) or g_res[2]["allocated"] != len(g_res[0]):
+        fail(f"DeviceClaimGang/500Nodes cut to 125 nodes: not every pod bound with its "
+             f"claim ({g_res[2]})")
+    for k_ in DRA_KERNELS:
+        if g_res[3][k_] <= 0:
+            fail(f"DeviceClaimGang/500Nodes cut to 125 nodes: kernel {k_} never launched")
+    record["claim_gang_bindings"] = {"pods": len(g_res[0]), "claim_series": g_res[2],
+                                     "launches": g_res[3], "s": time.perf_counter() - t}
+    log(f"DeviceClaimGang/500Nodes cut to 125 nodes (15 gangs, B = 64): cuda == cpu "
+        f"bindings, claims and claim series ({len(g_res[0])} pods, {g_res[2]}) in "
+        f"{time.perf_counter() - t:.1f} s")
+
     record["cuda_pipelined_vs_sync"] = {}
     for kind_ in ("northstar", "spread", "preferred", "anti"):
         t = time.perf_counter()
@@ -4278,6 +4776,7 @@ def main() -> None:
     rows = (time_kernels(ns["sched"], err) + time_spread_kernels(topo["sched"], err)
             + time_ipa_kernels(pref["sched"], err) + time_pipeline_kernels(path_calls, err))
     gang_rows = time_gang_kernels(gang_args.last, err)
+    dra_rows = time_dra_kernels(dra_args.last, err)
     scan_args = dict(recorders["TopologySpreading scan"].last)
     scan_args["ipa_update_row"] = \
         recorders["SchedulingPreferredPodAffinity scan"].last["ipa_update_row"]
@@ -4335,6 +4834,14 @@ def main() -> None:
                                  ["launches"][r["name"]],
                                  "NorthStar": ns["record"]["launches"].get(r["name"])}
     rows += gang_rows
+    # K24–K26: their launches on the DeviceClaimGang/5000Nodes synchronous run
+    for r in dra_rows:
+        r["launches"] = claim["record"]["launches"][r["name"]]
+        r["launches_by_path"] = {"DeviceClaimGang": r["launches"],
+                                 "DeviceClaimGang harness": record[
+                                     "device_claim_gang_harness"]["launches"][r["name"]],
+                                 "GangBasic": gang["record"]["launches"].get(r["name"])}
+    rows += dra_rows
     record["kernels"] = rows
     record["profile"] = profile_cycle(
         ns["sched"], out_dir, "NorthStar-shaped",

@@ -9,7 +9,8 @@ kernels.  A compiled-selector or term-group field of a PodBatch is itself a
 dict of its fields.  Dtypes are kept (bool / int32 / float32).  The
 snapshot carries the existing-pod affinity groups (``aff_*``) like every
 other field; ``ipa_aux_from_numpy`` carries a prepared InterPodAffinity
-aux and ``cosched_aux_from_numpy`` Coscheduling's anchor-slice aux.
+aux, ``cosched_aux_from_numpy`` Coscheduling's anchor-slice aux and
+``dra_aux_from_numpy`` DynamicResources' claim aux.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .dra.plugin import DraAux
 from .framework.interface import DynamicState
 from .framework.podbatch import AFFINITY_GROUPS, AffinityTermGroup, PodBatch
 from .gang.coscheduling import CoschedAux
@@ -125,3 +127,18 @@ def cosched_aux_from_numpy(aux, device="cuda") -> CoschedAux:
     slice_dom, anchor = aux
     return CoschedAux(slice_dom=_tensor(np.asarray(slice_dom, dtype=np.int32), dev),
                       anchor=_tensor(np.asarray(anchor, dtype=np.int32), dev))
+
+
+def dra_aux_from_numpy(host_aux: Mapping[str, np.ndarray], claim_capacity,
+                       claim_allocated, device="cuda") -> DraAux:
+    """The port's DynamicResources aux from the JAX plugin's host aux
+    (``{"demand", "pinned", "blocked"}``, what its ``host_prepare`` gives)
+    and the snapshot's claim planes: ``free = capacity − allocated``, as the
+    JAX plugin's ``prepare`` computes it."""
+    dev = resolve_device(device)
+    cap = np.asarray(claim_capacity, dtype=np.int32)
+    free = (cap - np.asarray(claim_allocated, dtype=np.int32)).astype(np.int32)
+    return DraAux(demand=_tensor(np.asarray(host_aux["demand"], dtype=np.int32), dev),
+                  pinned=_tensor(np.asarray(host_aux["pinned"], dtype=np.int32), dev),
+                  blocked=_tensor(np.asarray(host_aux["blocked"], dtype=bool), dev),
+                  free=_tensor(free, dev), capacity=_tensor(cap, dev))

@@ -19,10 +19,13 @@ updates (K8, K12); the full auction is the dedup engine at one class per
 pod.  The scan runs K1, K2, K6, K7, K10 and K11 on one pod's row per step,
 then K17 (select + assume) and the plugins' row updates (K18, K19).
 Coscheduling's anchor-slice score, where a gang anchors, goes into the
-total through K21; NodeAffinity's selector planes come from K23.  The
-diagnosis and the packed result are K22's (``pack_diag`` /
-``diagnose_bits_from_plane`` are its plain pieces).  On CPU tensors each
-kernel wrapper takes its plain torch version.
+total through K21; NodeAffinity's selector planes come from K23.  In a
+batch with resource claims DynamicResources writes its bit through K24,
+adds its score through K25 and takes each placed pod's chips through K26
+(every auction round, every scan step).  The diagnosis and the packed
+result are K22's (``pack_diag`` / ``diagnose_bits_from_plane`` are its
+plain pieces).  On CPU tensors each kernel wrapper takes its plain torch
+version.
 
 Ties break by lowest node row (deterministic; no tie noise).
 """
@@ -57,7 +60,7 @@ from ..kernels.scan import scan_select_assume
 from ..kernels.topk import topk_rows
 from ..plugins.nodeaffinity import NodeAffinityPlugin
 from ..plugins.noderesources import BalancedAllocationPlugin, FitPlugin
-from ..plugins.passthrough import _PassFilter, _PassScore
+from ..plugins.passthrough import _PassFilter
 from ..plugins.trivial import image_scaled_by_id
 
 _RAW_KIND = {
@@ -310,16 +313,16 @@ class BatchedFramework:
     def kernel_plans(self, live: frozenset = frozenset()):
         """(FilterScorePlan, CombinePlan) for this plugin list, given the
         names of the dynamic plugins whose aux is live.  The kernels
-        evaluate the main-path plugins.  A pass-through half contributes its
-        filter as a bit K1 sets and its score as a constant folded into
-        ``const_add``.  A live dynamic plugin (PodTopologySpread,
-        InterPodAffinity) has its bit seeded by K1 as passing — its filter
-        with no aux — and written by its own kernel (K6, K10), and its score
-        added by its kernel (K7, K11); with no aux its score is the constant
-        of its normalized all-zero plane (200 for PodTopologySpread, 0 for
-        InterPodAffinity).  Coscheduling likewise: live (K21) when a row of
-        the batch anchors a gang, else the constant 0 of its all-False
-        plane."""
+        evaluate the main-path plugins.  A pass-through half (the volume
+        filters) contributes its filter as a bit K1 sets.  A live dynamic
+        plugin (PodTopologySpread, InterPodAffinity, DynamicResources) has
+        its bit seeded by K1 as passing — its filter with no aux — and
+        written by its own kernel (K6, K10, K24), and its score added by its
+        kernel (K7, K11, K25); with no aux its score is the constant of its
+        normalized all-zero plane (200 for PodTopologySpread, 0 for
+        InterPodAffinity and DynamicResources), folded into ``const_add``.
+        Coscheduling likewise: live (K21) when a row of the batch anchors a
+        gang, else the constant 0 of its all-False plane."""
         if live in self._plans:
             return self._plans[live]
         names = self.filter_names
@@ -352,8 +355,7 @@ class BatchedFramework:
                     fit = p
                 elif isinstance(p, BalancedAllocationPlugin):
                     balanced = p
-            elif isinstance(p, _PassScore) or (
-                    hasattr(p, "score_into") and p.name not in live):
+            elif hasattr(p, "score_into") and p.name not in live:
                 one = torch.ones((1, 1), dtype=torch.bool)
                 zero = torch.zeros((1, 1), dtype=torch.float32)
                 const_add += float(pw.weight) * float(

@@ -15,10 +15,12 @@ Differences from the reference:
   (gang_timeouts_total) and ``wait_durations`` (the observations of
   gang_wait_duration_seconds);
 - the chaos kill-point in ``note_waiting`` is left out (the port carries no
-  fault injection);
-- the claim-demand resolver (``attach_claim_resolver``) stays unattached
-  until DRA is ported (ROADMAP Queue A item 8b): every anchor pick is
-  claim-blind.
+  fault injection).
+
+The scheduler attaches its DraIndex's ``pod_claim_demand`` as the
+claim-demand resolver (``attach_claim_resolver``), as the reference does:
+a fresh gang with pending claims anchors to a slice whose free chips cover
+them (``_best_free_slice``).
 
 All deadline math runs on the INJECTED clock (the scheduler's own), never
 raw ``time.monotonic()`` — gang-timeout tests drive a fake clock and the

@@ -36,12 +36,18 @@ than once); ``reset_launches`` zeroes the counts.
   K22 diag_pack             csrc/diag_pack.cu (one launch per dispatch)
   K23 selector_match        csrc/selector_match.cu (one launch per selector
                             matrix: the unique rows, then the gather by index)
+  K24 dra_filter_bits       csrc/dra.cu (per round or scan step of a batch
+                            with resource claims)
+  K25 dra_score_into        csrc/dra.cu (the same)
+  K26 dra_take              csrc/dra.cu (per auction round or scan step)
 
 The full auction runs K1–K4, K6–K8 and K10–K12 at identity classes (one
 class row per pod); the exact scan runs K1, K2, K6, K7, K10 and K11 on one
 pod's row per step, then K17–K19.  Every dispatch ends in K20 (the gang
 mask) and K22 (the packed result); K23 matches the selectors of the
 plugins' inputs, and K21 adds Coscheduling's score where a gang anchors.
+A batch with resource claims adds DynamicResources' filter (K24) and score
+(K25) to every round or step and takes the placed pods' chips (K26).
 """
 
 from __future__ import annotations
@@ -75,6 +81,9 @@ LAUNCHES: Dict[str, int] = {
     "cosched_score_into": 0,
     "diag_pack": 0,
     "selector_match": 0,
+    "dra_filter_bits": 0,
+    "dra_score_into": 0,
+    "dra_take": 0,
 }
 
 

@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 SOURCES = ("filter_score", "normalize_combine", "topk_rows", "auction", "spread",
            "interpodaffinity", "prev_delta", "scatter_rows", "scan", "gang", "cosched",
-           "diag_pack", "selector_match")
+           "diag_pack", "selector_match", "dra")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

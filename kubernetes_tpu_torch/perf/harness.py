@@ -9,12 +9,12 @@ util.go:165).  A workload runs against the in-process store and
 ``TorchScheduler(pipeline=True)`` with the workload's micro-bucket latency
 target — what the JAX package's ``bench.py`` measures.
 
-Trimmed to what the port runs: the createNodes, createObjects (PodGroups)
-and createPods opcodes (with ``skip_wait``).  Before the measured window: every kernel is built
-(``kernels/build.py`` build_all), then the suite-template warms, the
-micro-bucket tier bursts (5 × tier pods per tier through the real
-pipelined regime, which fill the scheduler's per-tier latency profiles)
-and a settle dispatch.  The reference's XLA-only warms — the
+Trimmed to what the port runs: the createNodes, createObjects (PodGroups,
+the DRA objects) and createPods opcodes (with ``skip_wait``).  Before the
+measured window: every kernel is built (``kernels/build.py`` build_all),
+then the suite-template warms, the micro-bucket tier bursts (5 × tier
+pods per tier through the real pipelined regime, which fill the
+scheduler's per-tier latency profiles) and a settle dispatch.  The reference's XLA-only warms — the
 anti-affinity scan warm and the priority-1 failure warm — pre-compile
 programs the port does not have, and are left out.  The window freezes
 the warmed heap out of the collector (``gc.freeze``).
@@ -34,7 +34,10 @@ sync's payloads: reused, rebuilt, voided by a node delete).  A gang suite
 last member bound in the window, per second) and TimeToFullSlice (window
 start → a gang's last member bound; nearest-rank quantiles, Perc99 beside
 the reference's Perc50 / Perc90 / Max) (the reference's harness.py:431-460,
-:646-660).
+:646-660); a DRA suite (``Workload.dra``) adds ClaimsAllocated (claims
+allocated in the window and per second: the window's delta of
+DynamicResources' "allocated" counter, so the warm pods' commits do not
+count; the reference's :467-474, :636-644).
 """
 
 from __future__ import annotations
@@ -83,6 +86,9 @@ class Workload:
     # gang suites: members per gang, for the GangThroughput and
     # TimeToFullSlice items
     gang_size: Optional[int] = None
+    # DRA suites (DeviceClaimGang): the ClaimsAllocated item, from the
+    # window's delta of DynamicResources' "allocated" counter
+    dra: bool = False
 
 
 @dataclass
@@ -205,6 +211,8 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
     builds0 = kernel_build.BUILDS
     launches0 = dict(kernels.LAUNCHES)
     pipe0 = _pipeline_counts(sched)
+    # the window's delta: the warm pods' claim commits do not count
+    claims0 = sched.dra_plugin.claims_allocated["allocated"]
     gc.collect()
     gc.freeze()
     try:
@@ -247,6 +255,14 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
         gc.unfreeze()
         unwatch()
     samples = sorted(sched.attempt_seconds[att0:])
+    dra_items = []
+    if w.dra:
+        allocated = float(sched.dra_plugin.claims_allocated["allocated"] - claims0)
+        dra_items = [DataItem(
+            labels={"Name": w.name, "Metric": "ClaimsAllocated"},
+            data={"Count": allocated,
+                  "PerSecond": round(allocated / total_s, 2) if total_s > 0 else 0.0},
+            unit="claims/s")]
     gang_items = []
     if w.gang_size:
         gd = sorted(gang_done_t)
@@ -284,7 +300,7 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
         DataItem(labels={"Name": w.name, "Metric": "PipelineInWindow"},
                  data={k: float(v - pipe0[k]) for k, v in _pipeline_counts(sched).items()},
                  unit="count"),
-    ] + gang_items
+    ] + dra_items + gang_items
 
 
 def _pipeline_counts(sched: TorchScheduler) -> Dict[str, int]:

@@ -11,9 +11,9 @@ spread pods).  Each suite has the reference's shape, named sizes
 The port carries the suites whose pods it schedules: SchedulingBasic,
 NorthStar, Density, TopologySpreading, PreferredTopologySpreading,
 SchedulingNodeAffinity, SchedulingPodAntiAffinity, SchedulingPodAffinity,
-SchedulingPreferredPodAffinity, Unschedulable and GangBasic.  ``build_workload`` of
-any other suite raises NotImplementedError naming the ROADMAP item that
-brings what it needs.
+SchedulingPreferredPodAffinity, Unschedulable, GangBasic and
+DeviceClaimGang.  ``build_workload`` of any other suite raises
+NotImplementedError naming the ROADMAP item that brings what it needs.
 """
 
 from __future__ import annotations
@@ -207,6 +207,139 @@ def podgroup_template(gang_size: int = GANG_SIZE) -> Callable[[int], tuple]:
     return tmpl
 
 
+# --- Dynamic resource allocation (DRA) -------------------------------------------
+
+CHIPS_PER_HOST = 4  # chips each host's ResourceSlice publishes
+
+# warm-pod offsets the harness's template warms dispatch (9_990_000 + 2·wi +
+# j, perf/harness.py _warm); the warm pool provisions one claim and one
+# singleton PodGroup per offset, so the warm batches run the claim path
+DRA_WARM_POOL = 8
+
+
+def dra_class_template(i: int) -> tuple:
+    from ..dra.api import DeviceClass
+
+    return ("DeviceClass", DeviceClass(metadata=v1.ObjectMeta(name="tpu")))
+
+
+def dra_slice_template(gang_size: int = GANG_SIZE) -> Callable[[int], tuple]:
+    """ResourceSlice j publishes host node-j's chips into pool slice-{j//gs}
+    — the TPU driver's per-node inventory, one slice label per pool."""
+    from ..dra.api import ATTR_CHIP_INDEX, ATTR_HOST, ATTR_MEMORY, ATTR_SLICE, Device, \
+        ResourceSlice
+
+    def tmpl(j: int) -> tuple:
+        host = f"node-{j:06d}"
+        sl = f"slice-{j // gang_size:05d}"
+        devs = [
+            # device names carry the host: unique within the pool (several
+            # hosts publish into one slice's pool), so "<pool>/<device>"
+            # pins (slice, host, chip) exactly
+            Device(name=f"{host}-chip{c}", attributes={
+                ATTR_SLICE: sl, ATTR_HOST: host,
+                ATTR_CHIP_INDEX: str(c), ATTR_MEMORY: "16",
+            })
+            for c in range(CHIPS_PER_HOST)
+        ]
+        return ("ResourceSlice", ResourceSlice(
+            metadata=v1.ObjectMeta(name=f"rs-{host}"), node_name=host, pool=sl,
+            devices=devs))
+
+    return tmpl
+
+
+def dra_claim_template(j: int) -> tuple:
+    from ..dra.api import DeviceRequest, ResourceClaim
+
+    return ("ResourceClaim", ResourceClaim(
+        metadata=v1.ObjectMeta(name=f"gangclaim-{j:06d}", namespace="default"),
+        request=DeviceRequest(device_class_name="tpu", count=CHIPS_PER_HOST)))
+
+
+def dra_warm_node(n: int) -> Callable[[int], v1.Node]:
+    """One dedicated warm host (index n, its own slice label): warm pods pin
+    here through a node selector, so the chips their claims consume — left
+    Reserved when the harness deletes the warm pods — never shrink a
+    measured slice below a gang's demand."""
+    from ..gang import SLICE_LABEL
+
+    def tmpl(i: int) -> v1.Node:
+        return (
+            make_node().name(f"node-{i:06d}")
+            .capacity({"cpu": "8", "memory": "32Gi", "pods": "110"})
+            .label("dra-warm", "1")
+            .label(SLICE_LABEL, "slice-warm")
+            .obj()
+        )
+
+    return tmpl
+
+
+def dra_warm_slice(n: int) -> Callable[[int], tuple]:
+    from ..dra.api import ATTR_CHIP_INDEX, ATTR_HOST, ATTR_SLICE, Device, ResourceSlice
+
+    def tmpl(j: int) -> tuple:
+        host = f"node-{n:06d}"
+        devs = [
+            Device(name=f"chip{c}", attributes={
+                ATTR_SLICE: "slice-warm", ATTR_HOST: host, ATTR_CHIP_INDEX: str(c),
+            })
+            for c in range(2 * DRA_WARM_POOL)
+        ]
+        return ("ResourceSlice", ResourceSlice(
+            metadata=v1.ObjectMeta(name=f"rs-{host}"), node_name=host,
+            pool="slice-warm", devices=devs))
+
+    return tmpl
+
+
+def dra_warm_claim_template(j: int) -> tuple:
+    from ..dra.api import DeviceRequest, ResourceClaim
+
+    return ("ResourceClaim", ResourceClaim(
+        metadata=v1.ObjectMeta(name=f"warmclaim-{j}", namespace="default"),
+        request=DeviceRequest(device_class_name="tpu", count=1)))
+
+
+def dra_warm_group_template(j: int) -> tuple:
+    # min_member=1: the warm singleton gang reaches quorum at once, so the
+    # warm batch runs the whole gang + claim path (anchor score, claim
+    # filter / score, Reserve, the PreBind commit) end to end
+    pg = v1.PodGroup(metadata=v1.ObjectMeta(name=f"wg-{j}", namespace="default"),
+                     min_member=1, schedule_timeout_seconds=60)
+    return ("PodGroup", pg)
+
+
+def pod_claim_gang(gang_size: int = GANG_SIZE) -> Callable[[int], v1.Pod]:
+    """Gang member i claims its host's whole chip inventory (one named
+    ResourceClaim per member, created beforehand); warm indices (≥ 9M)
+    yield singleton-gang pods claiming ONE warm-pool chip, pinned to the
+    warm host."""
+    from ..gang import POD_GROUP_LABEL
+
+    def tmpl(i: int) -> v1.Pod:
+        if i >= 9_000_000:
+            k = i - 9_990_000
+            return (
+                _base_pod(i, "dwarm", "default")
+                .label(POD_GROUP_LABEL, f"wg-{k}")
+                .req({"cpu": "100m", "memory": "100Mi"})
+                .node_selector({"dra-warm": "1"})
+                .claim(f"warmclaim-{k}")
+                .obj()
+            )
+        return (
+            _base_pod(i, "dgang", "default")
+            .label(POD_GROUP_LABEL, f"pg-{i // gang_size:05d}")
+            .req({"cpu": "3000m", "memory": "500Mi"})
+            .claim(f"gangclaim-{i:06d}")
+            .obj()
+        )
+
+    return tmpl
+
+
 @dataclass
 class Suite:
     name: str
@@ -283,6 +416,35 @@ def _gang_basic(n, p, mp) -> Workload:
     )
 
 
+def _device_claim_gang(n, p, mp) -> Workload:
+    """DeviceClaimGang: GangBasic's all-or-nothing slice jobs, each member
+    carrying a named ResourceClaim for its host's chips — the anchor-slice
+    pick counts claim demand, Filter / Score run on the claim planes,
+    Reserve / PreBind allocate named devices with CAS exactly once.
+    Measures claims/s beside gangs/s and time to full slice."""
+    gs = GANG_SIZE if mp >= GANG_SIZE else max(2, mp)
+    ngangs = max(1, mp // gs)
+    return Workload(
+        name="DeviceClaimGang",
+        ops=[
+            Op("createNodes", n, node_template=node_sliced(gs)),
+            Op("createNodes", 1, node_template=dra_warm_node(n)),
+            Op("createObjects", 1, object_template=dra_class_template),
+            Op("createObjects", n, object_template=dra_slice_template(gs)),
+            Op("createObjects", 1, object_template=dra_warm_slice(n)),
+            Op("createObjects", DRA_WARM_POOL, object_template=dra_warm_claim_template),
+            Op("createObjects", DRA_WARM_POOL, object_template=dra_warm_group_template),
+            Op("createObjects", ngangs, object_template=podgroup_template(gs)),
+            Op("createObjects", ngangs * gs, object_template=dra_claim_template),
+            Op("createPods", ngangs * gs, pod_template=pod_claim_gang(gs),
+               collect_metrics=True),
+        ],
+        batch_size=64,
+        gang_size=gs,
+        dra=True,
+    )
+
+
 def _unschedulable(n, p, mp) -> Workload:
     # 9-cpu pods never fit a 4-cpu node; they churn the unschedulable queue
     # while the measured pods schedule
@@ -334,6 +496,13 @@ SUITES: Dict[str, Suite] = {
               {"64Nodes": (64, 0, 56), "500Nodes": (500, 0, 480),
                "5000Nodes": (5000, 0, 4800)},
               batch_size={"5000Nodes": 512}),
+        # gang scheduling with named-device claims: every member carries a
+        # ResourceClaim for its host's chips; the anchor-slice pick counts
+        # claim demand and PreBind commits the allocations with CAS
+        Suite("DeviceClaimGang", _device_claim_gang,
+              {"64Nodes": (64, 0, 56), "500Nodes": (500, 0, 480),
+               "5000Nodes": (5000, 0, 4800)},
+              batch_size={"5000Nodes": 512}),
     ]
 }
 
@@ -344,10 +513,8 @@ UNPORTED: Dict[str, str] = {
                                 "item 7c) and preemption-capable churn pods (item 9)",
     "AutoscaleGang": "the autoscaler's counterfactual forks (ROADMAP Queue A item 9, "
                      "Queue B B16; its gangs came with item 8a)",
-    "DeviceClaimGang": "device claims (ROADMAP Queue A item 8b, Queue B B14; its gangs "
-                       "came with item 8a)",
-    "TrainingJobFlow": "device claims (ROADMAP Queue A item 8b) and the TrainingJob "
-                       "controller (item 10; its gangs came with item 8a)",
+    "TrainingJobFlow": "the TrainingJob controller (ROADMAP Queue A item 10; its gangs "
+                       "came with item 8a, its device claims with item 8b)",
     "StatefulChurn": "volume binding (ROADMAP Queue A item 8c)",
     "VolumeZoneSpread": "volume binding (ROADMAP Queue A item 8c)",
     "Defrag": "the descheduler (ROADMAP Queue A item 9; its gangs came with item 8a)",

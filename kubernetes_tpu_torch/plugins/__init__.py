@@ -1,9 +1,10 @@
 """The default plugin set as batched tensor programs (plain torch).
 
 Reference: pkg/scheduler/framework/plugins/ (registry.go:47-81).  Filter
-returns ``bool[B, N]``, Score ``float32[B, N]``.  The plugins whose live
-content is outside this slice keep only their pass-through halves
-(plugins/passthrough.py); Coscheduling lives in gang/coscheduling.py.
+returns ``bool[B, N]``, Score ``float32[B, N]``.  The volume plugins,
+whose live content is outside this slice, keep only their pass-through
+halves (plugins/passthrough.py); Coscheduling lives in gang/coscheduling.py
+and DynamicResources in dra/plugin.py.
 """
 
 from .noderesources import FitPlugin, BalancedAllocationPlugin  # noqa: F401
@@ -16,7 +17,6 @@ from .trivial import (  # noqa: F401
     ImageLocalityPlugin,
 )
 from .passthrough import (  # noqa: F401
-    DynamicResourcesPlugin,
     NodeVolumeLimitsPlugin,
     VolumeBindingPlugin,
     VolumeRestrictionsPlugin,

@@ -13,7 +13,8 @@ parallel-safety test ``_class_parallel_safe`` :2819, its dedup gate
 half ``host_prepare`` :1645 with ``_host_aux_take`` :138, the fused cycles
 ``fused_greedy`` :954-967 and ``fused_batch`` :969-1017 with
 ``apply_prev_delta`` :897, ``_infos_block_deep`` :3523, run_until_idle
-:3777; the gang runtime: the directory :582-595, ``_gang_prefilter`` :1223,
+:3777; the DRA wiring :553-562, :589, :718-723, :751-753, :1605; the gang
+runtime: the directory :582-595, ``_gang_prefilter`` :1223,
 the binding cycle ``_run_reserve_and_bind`` :3364 / ``_finish_bind`` :3428
 with its Permit hold ``_WaitingBind`` :103 and ``_flush_waiting_binds``
 :2409), itself after pkg/scheduler/scheduler.go (scheduleOne :496, assume
@@ -21,8 +22,9 @@ with its Permit hold ``_WaitingBind`` :103 and ``_flush_waiting_binds``
 (addAllEventHandlers :251).
 
 One dispatch: cache snapshot → encoder sync (with the existing-pod affinity
-index) → batch compile → host_prepare (InterPodAffinity's existing-pod match
-matrix) → conflict partition + engine routing + identity-class dedup gate →
+index) and the DRA index's claim planes → batch compile → host_prepare
+(InterPodAffinity's existing-pod match matrix, DynamicResources' claim
+resolution) → conflict partition + engine routing + identity-class dedup gate →
 the fused cycle on the device (apply_scatter through K16, the in-flight
 batches' resource delta through K13, the dynamic plugins' state —
 PodTopologySpread's count tables, InterPodAffinity's count planes or tables
@@ -52,6 +54,14 @@ mask withdraws a partly placed gang; a placed member whose gang is not
 complete holds at Permit (assumed, reserve kept) until its last sibling
 releases it or the PodGroup's timeout rolls the whole gang back into the
 queue together (``_flush_waiting_binds``, at the end of every cycle).
+Pods with resource claims are in scope: a DraIndex (dra/index.py) tracks
+device classes, ResourceSlice inventories and claim allocations from the
+watch and projects each node's chips into the encoder's claim planes; a
+batch with claim pods takes the full auction (or the scan) with
+DynamicResources' filter, score and device assume (K24–K26); Reserve picks
+named devices, PreBind commits each claim with CAS (all-or-nothing per
+pod), Unreserve — a gang timeout among its callers — releases them; the
+gang anchor-slice pick counts the gang's pending chip demand.
 
 ``pipeline=False`` dispatches, completes and binds each batch within one
 ``schedule_cycle``.  ``pipeline=True`` keeps up to ``pipeline_depth``
@@ -69,7 +79,7 @@ work only: the background sync, the fetch and the binds.  Bindings equal
 the JAX scheduler's, pod for pod, in both modes and at every depth.
 
 Scope guard: a batch or cluster that needs anything outside the port —
-volumes, resource claims, extenders, profiles, a batch
+volumes, extenders, profiles, a batch
 larger than the auction kernel's one block on cuda, or a failing pod that
 could preempt (a chained batch defers that to the pod's retry, as the
 reference does) — raises NotImplementedError naming the ROADMAP item.  It
@@ -90,6 +100,7 @@ import torch
 from . import plugins as P
 from .api import objects as v1
 from .device import resolve_device
+from .dra import DraIndex, DynamicResourcesPlugin
 from .framework import events as fwk_events
 from .api.labels import affinity_term_matches, match_label_selector
 from .framework.conflict import conflict_components
@@ -125,9 +136,10 @@ DEFAULT_SCHEDULER_NAME = "default-scheduler"  # apis/config v1.Pod default
 ASSIGN_MODES = ("auto", "batch", "scan")
 
 
-def default_plugins(domain_cap: int) -> List[PluginWithWeight]:
+def default_plugins(domain_cap: int, dra_index=None) -> List[PluginWithWeight]:
     """Default plugin set + weights, in the reference's order
-    (apis/config/v1beta3/default_plugins.go:32-51)."""
+    (apis/config/v1beta3/default_plugins.go:32-51); ``dra_index`` is the
+    scheduler's DraIndex, which DynamicResources resolves claims in."""
     PW = PluginWithWeight
     return [
         PW(CoschedulingPlugin(), 1),
@@ -141,7 +153,7 @@ def default_plugins(domain_cap: int) -> List[PluginWithWeight]:
         PW(P.NodeVolumeLimitsPlugin(), 0),
         PW(P.VolumeBindingPlugin(), 0),
         PW(P.VolumeZonePlugin(), 0),
-        PW(P.DynamicResourcesPlugin(), 1),
+        PW(DynamicResourcesPlugin(dra_index), 1),
         PW(P.PodTopologySpreadPlugin(domain_cap=domain_cap), 2),
         PW(P.InterPodAffinityPlugin(domain_cap=domain_cap), 2),
         PW(P.BalancedAllocationPlugin(), 1),
@@ -191,9 +203,11 @@ def _pod_out_of_scope(p: v1.Pod) -> Optional[str]:
     """Why a pending pod needs something outside this slice, or None."""
     if getattr(p.spec, "volumes", None):
         return "volumes (ROADMAP Queue A item 8c)"
-    if getattr(p.spec, "resource_claims", None):
-        return "resource claims (ROADMAP Queue A item 8b, Queue B B14)"
     return None
+
+
+def _dra_plugin(fw: BatchedFramework) -> DynamicResourcesPlugin:
+    return next(pw.plugin for pw in fw.plugins if pw.plugin.name == "DynamicResources")
 
 
 def _pod_blocks_static(p: v1.Pod) -> bool:
@@ -304,10 +318,16 @@ class TorchScheduler:
         "StorageClass": EventResource.STORAGE_CLASS,
         "CSINode": EventResource.CSI_NODE,
         "Service": EventResource.SERVICE,
+        "ResourceClaim": EventResource.RESOURCE_CLAIM,
+        "ResourceSlice": EventResource.RESOURCE_SLICE,
+        "DeviceClass": EventResource.DEVICE_CLASS,
     }
-    # DRA objects drive a subsystem this slice does not carry
-    _UNSUPPORTED_KINDS = {"ResourceClaim", "ResourceSlice", "DeviceClass"}
-    # kinds that never unblock scheduling (avoid wildcard requeue storms)
+    # DRA kinds feed the index before the requeue fires (claim-plane dirt
+    # must precede the pods the event unblocks)
+    _DRA_KINDS = frozenset(("ResourceClaim", "ResourceSlice", "DeviceClass"))
+    # kinds that never unblock scheduling (avoid wildcard requeue storms); a
+    # ResourceClaimTemplate only matters once the claim controller stamps a
+    # claim from it — THAT create requeues
     _IGNORED_KINDS = {"Lease", "Event", "ReplicaSet", "Deployment", "Job",
                       "StatefulSet", "DaemonSet", "HorizontalPodAutoscaler",
                       "ResourceClaimTemplate"}
@@ -391,6 +411,11 @@ class TorchScheduler:
         self.namespace_labels = namespace_labels or {}
         self.compiler = PodBatchCompiler(self.encoder, self.namespace_labels)
         self._fw_domain_cap = -1
+        # the DRA ledger: device inventory and claim allocations, projected
+        # into the encoder's claim planes right after every foreground sync
+        # (_dispatch) and read by DynamicResources' Reserve / PreBind and the
+        # gang anchor-slice resolver (the reference's scheduler.py:553-589)
+        self.dra = DraIndex(store)
         event_map: Dict[ClusterEvent, Set[str]] = {}
         for pw in default_plugins(8):
             for ev in pw.plugin.events_to_register():
@@ -400,6 +425,7 @@ class TorchScheduler:
         # Coscheduling QueueSort (gang cohesion over PrioritySort) and its
         # group key gives the queue gang-atomic activate / requeue
         self.gangs = GangDirectory(store, clock=clock)
+        self.gangs.attach_claim_resolver(self.dra.pod_claim_demand)
         self.queue = PriorityQueue(
             less=self.gangs.less, clock=clock, cluster_event_map=event_map,
             pod_initial_backoff=pod_initial_backoff,
@@ -445,14 +471,26 @@ class TorchScheduler:
         it grows (the reference's _framework, scheduler.py:859-878)."""
         d = self.encoder.domain_cap
         if d != self._fw_domain_cap:
-            self.fw = BatchedFramework(default_plugins(d))
+            prev = getattr(self, "fw", None)
+            self.fw = BatchedFramework(default_plugins(d, dra_index=self.dra))
             self._fw_domain_cap = d
             # wire the Coscheduling plugin to the shared gang directory
             for pw in self.fw.plugins:
                 attach = getattr(pw.plugin, "attach_gang_directory", None)
                 if attach is not None:
                     attach(self.gangs)
+            if prev is not None:
+                # the DRA series outlive a rebuilt framework (the
+                # reference's are process-wide metrics)
+                old, new = _dra_plugin(prev), _dra_plugin(self.fw)
+                new.claims_allocated = old.claims_allocated
+                new.allocation_durations = old.allocation_durations
         return self.fw
+
+    @property
+    def dra_plugin(self) -> DynamicResourcesPlugin:
+        """The live DynamicResources plugin (its claim series)."""
+        return _dra_plugin(self._framework())
 
     # --- event handlers (eventhandlers.go:251+) ------------------------------
 
@@ -469,13 +507,11 @@ class TorchScheduler:
                       DELETED: ActionType.DELETE}.get(ev.type, ActionType.ALL)
             self.queue.move_all_to_active_or_backoff(
                 ClusterEvent(EventResource.POD_GROUP, action))
-        elif ev.kind in self._UNSUPPORTED_KINDS:
-            raise NotImplementedError(
-                f"{ev.kind} objects drive the DRA subsystem, which is not ported "
-                "yet (ROADMAP Queue A item 8b)")
         elif ev.kind in self._IGNORED_KINDS:
             return
         else:
+            if ev.kind in self._DRA_KINDS:
+                self.dra.on_event(ev.type, ev.obj)
             resource = self._KIND_RESOURCE.get(ev.kind, EventResource.WILDCARD)
             action = {ADDED: ActionType.ADD, MODIFIED: ActionType.UPDATE,
                       DELETED: ActionType.DELETE}.get(ev.type, ActionType.ALL)
@@ -500,6 +536,9 @@ class TorchScheduler:
         self.gangs.invalidate_nodes()  # the slice-domain plane is stale
         if ev.type == ADDED:
             self.cache.add_node(node)
+            # a (re)added node may land on a freed encoder row whose claim
+            # planes were zeroed: re-project its inventory next flush
+            self.dra.note_node(node.metadata.name)
             self.queue.move_all_to_active_or_backoff(fwk_events.NODE_ADD)
         elif ev.type == MODIFIED:
             old_info = self.cache._nodes.get(node.metadata.name)
@@ -859,6 +898,10 @@ class TorchScheduler:
         try:
             changed = self.cache.update_snapshot(self.snapshot)
             self.encoder.sync(self.snapshot, changed)
+            # the DRA claim planes: the dirty nodes' (capacity, allocated)
+            # into the encoder's mirrors before the deferred upload, so the
+            # flush rides the same row-scatter as the node sync
+            self.dra.flush_to_encoder(self.encoder)
             t1 = time.perf_counter()
             pods = [qi.pod for qi in infos]
             batch = self.compiler.compile(pods, pad_to=pad)

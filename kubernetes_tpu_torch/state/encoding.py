@@ -500,6 +500,24 @@ class ClusterEncoder:
             if self._pod_owner.get(uid) == name:
                 self._remove_pod_row(uid)
 
+    # --- DRA claim planes (dra/index.py is the writer) -----------------------
+
+    def set_claim_row(self, name: str, capacity: int, allocated: int) -> bool:
+        """Write a node's claim planes by NAME (the reference's
+        set_claim_row); False when the node has no row yet (the index
+        retries on its next flush once the node encodes).  No-change writes
+        skip the dirty mark, so a steady-state flush uploads nothing."""
+        row = self.node_rows.get(name)
+        if row is None:
+            return False
+        if (self.claim_capacity[row] == capacity
+                and self.claim_allocated[row] == allocated):
+            return True
+        self.claim_capacity[row] = capacity
+        self.claim_allocated[row] = allocated
+        self._dirty_node_rows.add(row)
+        return True
+
     # --- scheduled-pod encoding ---------------------------------------------
 
     def _encode_pod(self, pod: v1.Pod, node_row: int) -> int:

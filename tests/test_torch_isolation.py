@@ -58,6 +58,9 @@ REQUIRED = ("kubernetes_tpu_torch.perf.harness", "kubernetes_tpu_torch.perf.work
             "kubernetes_tpu_torch.kernels.spread",
             "kubernetes_tpu_torch.kernels.interpodaffinity",
             "kubernetes_tpu_torch.kernels.scan",
+            "kubernetes_tpu_torch.dra.api", "kubernetes_tpu_torch.dra.index",
+            "kubernetes_tpu_torch.dra.controller", "kubernetes_tpu_torch.dra.plugin",
+            "kubernetes_tpu_torch.kernels.dra",
             "kubernetes_tpu_torch.scheduler")
 
 

@@ -203,11 +203,17 @@ def test_scope_guard_raises(kind, monkeypatch):
     coupled batch of many classes (its exact scan) are in the slice now:
     they bind as the reference binds them, through that engine.  So are
     gang members: one whose PodGroup does not exist stays pending, as in
-    the reference."""
-    if kind == "gang":
+    the reference.  So are pods with resource claims: one whose claim does
+    not exist stays pending, as in the reference."""
+    if kind in ("gang", "claim"):
         # gang members are in the slice now (the gang runtime): a member of
         # a PodGroup that does not exist is rejected at the Coscheduling
-        # PreFilter, as the reference rejects it, before any engine runs
+        # PreFilter, as the reference rejects it, before any engine runs.
+        # Claim pods are in the slice too (DRA): a claim that does not exist
+        # is unresolvable, so DynamicResources' filter fails every node; as
+        # in the reference (which has no claim PreFilter) the batch takes
+        # the full auction for its pod-indexed claim aux, and the pod stays
+        # pending
         jb = _guard_bindings("jax", [_GUARD_NODE], [_GUARD_RUNNING],
                              lambda pkg: _guard_pods(kind, pkg), 16)
         log = _engine_log(monkeypatch)
@@ -215,7 +221,7 @@ def test_scope_guard_raises(kind, monkeypatch):
                              lambda pkg: _guard_pods(kind, pkg), 16)
         assert tb == jb
         assert sum(1 for v in tb.values() if not v) == 1
-        assert log == []
+        assert log == ([] if kind == "gang" else ["batch_assign"])
         return
     if kind in _ENGINE_OF:
         jb = _guard_bindings("jax", [_GUARD_NODE], [_GUARD_RUNNING],
