@@ -5,8 +5,9 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the twenty-six CUDA kernels from kubernetes_tpu_torch/csrc/ (one
-   nvcc per source, started together).
+1. Build the twenty-nine CUDA kernels from kubernetes_tpu_torch/csrc/ (one
+   nvcc per source) and the host C++ reprieve sweep
+   (csrc/preempt_sweep.cpp, g++), all started together.
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
    CUDA tensors, exactly equal.  K1–K4: random and adversarial inputs
    (all-tie rows, −inf rows, floor-boundary values) at N = 8192 and
@@ -39,6 +40,14 @@ Phases, all of which must pass (any failure exits non-zero):
    free; K25 at weights 1 and 2), K25 over the floor grid (capacity 1–256 ×
    used 0–capacity, equal to the integer floor, the pins (61, 61) and
    (53, 100)), K26 as an auction round, at class rows and as a scan step.
+   K27 + K28 (the preemption candidate mask over priority levels) at N =
+   8192, P = 32768, B = 512, R = 4 with 128 live levels, odd-KiB memory
+   requests on 2^25-KiB nodes (float32 sums round), unbound and invalid
+   pods, dead nodes, padding rows and failing static bits, and with batch
+   rows at a (node, threshold)'s exact float32 fit value and one ulp above;
+   K29 (the dense form) at B = 64 over 300 priorities; K13 with the
+   nominated bundle beside two in-flight bundles.  Their plain versions
+   run on CPU copies of the inputs.
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
    on cuda, synchronous, launch counts zeroed just before and read just
@@ -98,6 +107,19 @@ Phases, all of which must pass (any failure exits non-zero):
    time to full slice p50 / p99 and ClaimsAllocated.  NorthStar and
    GangBasic fail if a DynamicResources kernel launched (claim-free
    batches carry no claim aux).
+4e. PreemptionBasic/5000Nodes (5000 nodes of 4 cpu / 32Gi, 20000 low pods
+   of 900m / 500Mi at priority 0 scheduled first, then 5000 high pods of
+   3000m / 500Mi at priority 10; B = 512) through TorchScheduler
+   synchronously, launch counts zeroed just before the high pods and read
+   just after: every high pod bound, exactly 15000 victims and all of them
+   low pods, every node holding one high and one low pod, no node over
+   allocatable, K1 and K27 + K28 launched, the C++ reprieve sweep run;
+   pods/s, attempt p50 / p99, preemption attempts, victims, fast binds,
+   phase walls; one profiled failing cycle of 512 priority-20 pods that
+   each preempt (idle share, top device ops).  Then through
+   ``perf.harness.run_workload`` (pipelined, B = 512): the same checks,
+   K27 + K28 launched by the failure warm before the window and inside it,
+   no kernel built in the window.
 4b. The full auction and the exact scan at full width (5000 nodes, B =
    512, measured pods with the launch counts zeroed just before them, every
    measured batch through the expected engine, one profiled cycle each):
@@ -133,6 +155,12 @@ Phases, all of which must pass (any failure exits non-zero):
    phases, held binds and queue counts per cycle, and the gang counters.
    DeviceClaimGang/500Nodes cut to 125 nodes (15 gangs, B = 64): cuda ==
    cpu on bindings, every claim's fields and the claim series.
+   Preemption three ways (a clock the script moves): PreemptionBasic/
+   500Nodes (fast binds; K27 + K28), the same with
+   ``nominated_fast_bind=False`` (nominations live across cycles: K13's
+   nominated bundle with live rows), and 200 nodes whose running pods
+   carry 800 priorities (the dense form, K29): cuda == cpu on bindings,
+   victims, the nominations after every step and the outcomes.
 6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
    round; K5–K8: a TopologySpreading cycle's first round; K9–K12: a
    SchedulingPreferredPodAffinity cycle's first round; K13–K16: the latest
@@ -159,6 +187,12 @@ Phases, all of which must pass (any failure exits non-zero):
 6d. K24–K26 on the arguments of their latest call on the
    DeviceClaimGang/5000Nodes synchronous run, timed as in 6; K26 beside
    ``index_add_`` of the committed pods' demands.
+6e. K27 and K28 on the arguments of their latest call on the
+   PreemptionBasic/5000Nodes synchronous run, K29 on the dense check's
+   inputs (B = 64, N = 8192, P = 32768, 300 priorities), timed as in 6;
+   K27 beside ``index_put_(accumulate=True)`` + ``cumsum``, K29 beside the
+   dense einsum; K13 with the nominated bundle alone (B2, 512 live rows of
+   a 1024-row cap) beside ``index_add_``.
 
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
 on the path that carries each kernel: K1–K8 on the TopologySpreading run,
@@ -167,14 +201,15 @@ NorthStar harness run, K14 and K15 on the pipelined TopologySpreading and
 SchedulingPreferredPodAffinity runs, K17 and K18 on the TopologySpreading
 scan, K19 on the two pod-affinity scans, the C = 512 rows on the full
 auction that gave their arguments, K20–K23 on the GangBasic synchronous
-run, K24–K26 on the DeviceClaimGang synchronous run), the card's name and power limit as
+run, K24–K26 on the DeviceClaimGang synchronous run, K27 and K28 on the
+PreemptionBasic synchronous run, K29 on the dense preemption run), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
 cycles' tables to chiprun_out/profile_cycle.txt,
 chiprun_out/profile_spread_cycle.txt, chiprun_out/profile_affinity_cycle.txt,
-chiprun_out/profile_pipelined_cycle.txt, chiprun_out/profile_gang_cycle.txt and
-chiprun_out/profile_claim_gang_cycle.txt.
+chiprun_out/profile_pipelined_cycle.txt, chiprun_out/profile_gang_cycle.txt,
+chiprun_out/profile_claim_gang_cycle.txt and chiprun_out/profile_preempt_cycle.txt.
 """
 
 from __future__ import annotations
@@ -3268,7 +3303,8 @@ def gang_bindings(device: str):
 
 
 class _FixedClock:
-    """A clock the caller moves: deadlines in the gang paths reproduce."""
+    """A clock the caller moves: deadlines in the gang paths and backoffs in
+    the preemption paths reproduce."""
 
     def __init__(self):
         self.t = 0.0
@@ -3845,6 +3881,587 @@ def time_dra_kernels(last_calls: dict, err: dict) -> list:
         {"B": b, "N": free3.numel(), "commits": n_commit},
         library_fn=lambda: lib.index_add_(0, idx, neg))
     for rr in rows_out:
+        log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
+            f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
+            + (f", library {rr['library_ms']:.5f} ms" if rr["library_ms"] is not None else "")
+            + f"; {rr['shape']}")
+    return rows_out
+
+
+# --- phase 4e: preemption (PreemptionBasic, K27–K29, K13's nominated bundle) -----------
+
+PREEMPT_KERNELS = ("priority_prefix", "candidate_fit", "candidate_dense")
+PREEMPT_SOURCE = "kubernetes_tpu_torch/csrc/preempt.cu"
+PREEMPT_REPLACES = {"priority_prefix": "kubernetes_tpu/whatif/dryrun.py:56",
+                    "candidate_fit": "kubernetes_tpu/whatif/dryrun.py:71",
+                    "candidate_dense": "kubernetes_tpu/whatif/dryrun.py:75"}
+PREEMPT_SYMBOLS = {k: k + "_kernel" for k in PREEMPT_KERNELS}
+DRYRUN = "kubernetes_tpu_torch.whatif.dryrun"
+PREEMPT_TARGETS = {k: (DRYRUN, k, None) for k in PREEMPT_KERNELS}
+PREEMPT_LEVEL_CAP = 128
+
+
+def preempt_case(gen, *, n=8192, p=32768, b=512, r=4, n_prio=128, dead=64):
+    """The candidate mask's inputs on the CPU: 2^25-KiB (32Gi) nodes, the
+    last ``dead`` of them dead; pods with odd-KiB memory requests near 1.6M
+    (float32 sums round) over ``n_prio`` priorities, a twentieth unbound, a
+    twentieth invalid; batch rows across the priorities (some above all),
+    a tenth padding, a twentieth with a failing static bit."""
+    import torch
+
+    alloc = torch.zeros((n, r), dtype=torch.int32)
+    alloc[:, 0] = 4000
+    alloc[:, 1] = 1 << 25
+    alloc[:, r - 1] = 110
+    requested = (alloc.float() * torch.rand((n, r), generator=gen) * 0.98).to(torch.int32)
+    node = torch.randint(0, n, (p,), generator=gen, dtype=torch.int32)
+    node[torch.rand(p, generator=gen) < 0.05] = -1
+    valid = torch.rand(p, generator=gen) >= 0.05
+    prios = torch.arange(n_prio, dtype=torch.int32) * 3 - 40
+    prio = prios[torch.randint(0, n_prio, (p,), generator=gen)]
+    req = torch.zeros((p, r), dtype=torch.int32)
+    req[:, 0] = torch.randint(100, 1000, (p,), generator=gen, dtype=torch.int32)
+    req[:, 1] = torch.randint(700_000, 900_000, (p,), generator=gen, dtype=torch.int32) * 2 + 1
+    req[:, r - 1] = 1
+    bprio = prios[torch.randint(0, n_prio, (b,), generator=gen)] + 1
+    bprio[: b // 16] = int(prios.max()) + 10
+    breq = torch.zeros((b, r), dtype=torch.int32)
+    breq[:, 0] = torch.randint(0, 3000, (b,), generator=gen, dtype=torch.int32)
+    breq[:, 1] = torch.randint(0, 1 << 25, (b,), generator=gen, dtype=torch.int32)
+    breq[:, r - 1] = 1
+    rows_ok = torch.rand(b, generator=gen) >= 0.1
+    bits = torch.where(torch.rand((b, n), generator=gen) < 0.05, 0b1011, 0b1111)
+    bits = torch.where(rows_ok[:, None], bits, 0).to(torch.int32)
+    bits[:, n - dead:] = 0
+    return {"pod_valid": valid, "pod_node": node, "pod_priority": prio, "pod_request": req,
+            "priority": bprio, "request": breq, "allocatable": alloc,
+            "requested": requested, "static_bits": bits}
+
+
+def _levels(prio, valid):
+    import torch
+
+    u = torch.unique(prio[valid])
+    if u.numel() > PREEMPT_LEVEL_CAP:
+        return None
+    out = torch.full((PREEMPT_LEVEL_CAP,), 2 ** 31 - 1, dtype=torch.int32)
+    out[: u.numel()] = u
+    return out
+
+
+def check_preempt_kernels(dev) -> dict:
+    """K27–K29 and K13's nominated bundle against their plain versions,
+    exactly (the plain versions run on CPU copies of the same inputs, whose
+    index_add_ walks its index in order as the reference's scatter does):
+    K27 + K28 at N = 8192, P = 32768, B = 512, R = 4 over 128 live levels
+    with odd-KiB requests on 2^25-KiB nodes, unbound and invalid pods, dead
+    nodes, padding rows and failing static bits, then with 64 batch rows
+    asking exactly for one (node, threshold)'s float32 fit value and 64 for
+    one ulp more; K29 at B = 64 over 300 priorities; K13 with a nominated
+    bundle (nz zero) beside two in-flight bundles."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.kernels import preempt as KP
+    from kubernetes_tpu_torch.kernels.prev_delta import prev_delta_apply, \
+        prev_delta_apply_plain
+
+    gen = torch.Generator().manual_seed(SEED + 27)
+    err = {k: 0.0 for k in PREEMPT_KERNELS}
+    err["prev_delta_apply (nominated)"] = 0.0
+    c = preempt_case(gen)
+    n = c["allocatable"].shape[0]
+    lv = _levels(c["pod_priority"], c["pod_valid"] & (c["pod_node"] >= 0))
+    if lv is None or int((lv < 2 ** 31 - 1).sum()) != PREEMPT_LEVEL_CAP:
+        fail("preempt kernel check: the case does not hold 128 live levels")
+    g = {k: v.to(dev) for k, v in c.items()}
+    pod = ("pod_valid", "pod_node", "pod_priority", "pod_request")
+    prefix, cnt = KP.priority_prefix(*(g[k] for k in pod), lv.to(dev), n)
+    want_p, want_c = KP.priority_prefix_plain(*(c[k] for k in pod), lv, n)
+    torch.cuda.synchronize()
+    err["priority_prefix"] = require_equal("priority_prefix (128 levels)", [
+        ("prefix", prefix.cpu(), want_p), ("prefix_cnt", cnt.cpu(), want_c)])
+    # the boundary rows: the port's float32 fit value for (node, threshold)
+    # and one ulp above it
+    b = c["priority"].shape[0]
+    free = c["allocatable"].float() - c["requested"].float()
+    nodes = torch.randint(0, n - 64, (64,), generator=gen)
+    ths = torch.randint(1, PREEMPT_LEVEL_CAP, (64,), generator=gen)
+    prio_b, req_b = c["priority"].clone(), c["request"].clone()
+    for j in range(64):
+        v = float(free[nodes[j], 1] + want_p[ths[j], nodes[j], 1])
+        step = max(1, int(np.spacing(np.float32(v))))
+        for row, val in ((2 * j, int(v)), (2 * j + 1, int(v) + step)):
+            prio_b[row] = lv[ths[j]]
+            req_b[row] = 0
+            req_b[row, 1] = val
+    c2 = dict(c, priority=prio_b, request=req_b)
+    g2 = {k: v.to(dev) for k, v in c2.items()}
+    side = ("priority", "request", "allocatable", "requested", "static_bits")
+    for name, case, gcase in (("random", c, g), ("boundary", c2, g2)):
+        got = KP.candidate_fit(prefix, cnt, lv.to(dev), *(gcase[k] for k in side), 0b1111)
+        want = KP.candidate_fit_plain(want_p, want_c, lv, *(case[k] for k in side), 0b1111)
+        torch.cuda.synchronize()
+        err["candidate_fit"] = max(err["candidate_fit"], require_equal(
+            f"candidate_fit ({name})", [("mask", got.cpu(), want)]))
+        if not 0 < int(want.sum()) < int((case["static_bits"] == 0b1111).sum()):
+            fail(f"candidate_fit check ({name}): the mask is all one way")
+    hits = sum(bool(want[2 * j, nodes[j]]) and not bool(want[2 * j + 1, nodes[j]])
+               for j in range(64) if bool(c2["static_bits"][2 * j, nodes[j]] == 0b1111)
+               and float(want_c[ths[j], nodes[j]]) > 0)
+    if hits < 16:
+        fail(f"candidate_fit check: only {hits} boundary pairs split as the fit value says")
+    # K29: more than 128 priorities, B = 64
+    d = preempt_case(gen, b=64, n_prio=300)
+    if _levels(d["pod_priority"], d["pod_valid"] & (d["pod_node"] >= 0)) is not None:
+        fail("candidate_dense check: the case has at most 128 priorities")
+    gd = {k: v.to(dev) for k, v in d.items()}
+    got = KP.candidate_dense(*(gd[k] for k in pod), *(gd[k] for k in side), 0b1111)
+    want = KP.candidate_dense_plain(*(d[k] for k in pod), *(d[k] for k in side), 0b1111)
+    torch.cuda.synchronize()
+    err["candidate_dense"] = require_equal("candidate_dense (300 priorities)",
+                                           [("mask", got.cpu(), want)])
+    if not 0 < int(want.sum()):
+        fail("candidate_dense check: no pair passes")
+    # K13: the nominated rows (nz zero) and two in-flight bundles
+    req = c["requested"].to(dev)
+    nz = torch.randint(0, 1000, (n, 2), generator=gen, dtype=torch.int32).to(dev)
+    bundles = []
+    for k_, m in enumerate((1024, 512, 512)):
+        rows = torch.randint(-1, n, (m,), generator=gen, dtype=torch.int32)
+        breq = torch.randint(0, 5000, (m, 4), generator=gen, dtype=torch.int32)
+        bnz = torch.zeros((m, 2), dtype=torch.int32) if k_ == 0 else \
+            torch.randint(0, 5000, (m, 2), generator=gen, dtype=torch.int32)
+        bundles.append(tuple(t.to(dev) for t in (rows, breq, bnz)))
+    got = prev_delta_apply(req, nz, bundles)
+    want = prev_delta_apply_plain(req, nz, bundles)
+    torch.cuda.synchronize()
+    err["prev_delta_apply (nominated)"] = require_equal(
+        "prev_delta_apply (nominated + two in-flight bundles)",
+        [("requested", got[0], want[0]), ("non_zero", got[1], want[1])])
+    log("preempt kernels vs plain: all equal (K27 + K28 at 128 levels with rounding sums, "
+        f"{hits} boundary pairs split; K29 at 300 priorities; K13 with the nominated bundle)")
+    return err
+
+
+def preempt_cluster(dev_name: str, size: str, scale: float = 1.0, clock=None, **kw):
+    """PreemptionBasic's cluster from the port's workload (node_default
+    nodes, pod_low_priority pods scheduled first, pod_high_priority pods
+    created): → (store, synchronous scheduler, workload, measured pods)."""
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+
+    w = build_workload("PreemptionBasic", size, scale=scale)
+    (_, n, nt), (_, p, pt), (_, mp, mt) = ((op.opcode, op.count,
+                                           op.node_template or op.pod_template)
+                                          for op in w.ops)
+    store = ObjectStore()
+    if clock is not None:
+        kw.update(clock=clock, batch_wait=0)
+    sched = TorchScheduler(store, batch_size=w.batch_size, device=dev_name, **kw)
+    sched.presize(n, p + mp)
+    for i in range(n):
+        nd = nt(i)
+        nd.metadata.creation_timestamp = 0.0
+        store.create("Node", nd)
+    for i in range(p):
+        pod = pt(i)
+        pod.metadata.creation_timestamp = float(i)
+        store.create("Pod", pod)
+    sched.run_until_idle(backoff_wait=0)
+    measured = []
+    for i in range(p, p + mp):
+        pod = mt(i)
+        pod.metadata.creation_timestamp = float(i)
+        measured.append(pod)
+    return store, sched, w, measured
+
+
+def preempt_checks(what: str, store, n_nodes: int, n_low: int, n_high: int) -> dict:
+    """Every pod bound, no node over allocatable, exactly 3 · nodes victims
+    and every one of them a low pod, every node holding one high and one
+    low pod; → the counts."""
+    pods = check_bound_and_fit(what, store)
+    names = {p.metadata.name for p in pods}
+    victims = {f"low-{i:06d}" for i in range(n_low)} - names
+    highs = [p for p in pods if p.metadata.name.startswith("high-")]
+    if len(highs) != n_high:
+        fail(f"{what}: {len(highs)} of {n_high} high pods present")
+    if len(victims) != 3 * n_nodes or len(pods) != n_low + n_high - len(victims):
+        fail(f"{what}: {len(victims)} victims, expected {3 * n_nodes} low pods")
+    per_node = {}
+    for p in pods:
+        per_node.setdefault(p.spec.node_name, []).append(p.metadata.name[:3])
+    bad = [k for k, v in per_node.items() if sorted(v) != ["hig", "low"]]
+    if bad or len(per_node) != n_nodes:
+        fail(f"{what}: {len(bad)} nodes not holding one high and one low pod, "
+             f"e.g. {[(k, per_node[k]) for k in bad[:3]]}")
+    return {"victims": len(victims), "nodes": len(per_node)}
+
+
+def preemption_basic_sync(kargs: KernelArgs, out_dir: Path, dev_name: str = "cuda") -> dict:
+    """PreemptionBasic/5000Nodes (5000 nodes of 4 cpu / 32Gi, 20000 low pods
+    of 900m / 500Mi at priority 0 scheduled first, then 5000 high pods of
+    3000m / 500Mi at priority 10; B = 512) through TorchScheduler
+    synchronously, launch counts zeroed just before the high pods and read
+    just after: every high pod bound, exactly 15000 victims (all low pods),
+    every node holding one high and one low pod, no node over allocatable,
+    K1 and K27 + K28 launched, the C++ sweep run; pods/s, attempt p50 / p99,
+    preemption attempts, victims, fast binds, phase walls; then one
+    profiled failing cycle of 512 priority-20 pods that each preempt."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.testutil import make_pod
+    from kubernetes_tpu_torch.whatif import dryrun
+
+    fresh_heap()
+    t0 = time.perf_counter()
+    store, sched, w, measured = preempt_cluster(dev_name, "5000Nodes")
+    setup_s = time.perf_counter() - t0
+    for pod in measured:
+        store.create("Pod", pod)
+    att0, pa0, cyc0 = len(sched.attempt_seconds), sched.preemption_attempts, sched.cycles
+    phase0 = dict(sched.phase_wall)
+    native0 = dryrun.NATIVE_CALLS[0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    with GcWatch() as gcw, kargs:
+        stats = sched.run_until_idle(backoff_wait=0)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    got = preempt_checks("PreemptionBasic", store, 5000, 20000, 5000)
+    for k in ("filter_score_planes", "priority_prefix", "candidate_fit"):
+        if launches[k] <= 0:
+            fail(f"PreemptionBasic: kernel {k} never launched on the main path")
+    if dryrun.NATIVE_CALLS[0] == native0:
+        fail("PreemptionBasic: the C++ reprieve sweep never ran")
+    samples = sorted(sched.attempt_seconds[att0:])
+    rec = {"nodes": 5000, "low_pods": 20000, "pods": 5000, "batch_size": w.batch_size,
+           "setup_s": setup_s, "wall_s": wall, "pods_per_s": stats.scheduled / wall,
+           "attempt_p50_ms": samples[len(samples) // 2] * 1e3,
+           "attempt_p99_ms": samples[min(len(samples) - 1, int(0.99 * len(samples)))] * 1e3,
+           "preemption_attempts": sched.preemption_attempts - pa0,
+           "victims": got["victims"], "fast_binds": sched.fast_binds,
+           "post_filter_errors": sched.post_filter_errors, "cycles": sched.cycles - cyc0,
+           "native_sweeps": dryrun.NATIVE_CALLS[0] - native0,
+           "phase_wall_s": {k: v - phase0[k] for k, v in sched.phase_wall.items()},
+           "launches": launches, "gc_full_collections": gcw.count, "gc_full_s": gcw.seconds}
+    log(f"PreemptionBasic/5000Nodes synchronous (B = {w.batch_size}): {stats.scheduled} high "
+        f"pods bound in {wall:.3f} s = {rec['pods_per_s']:.1f} pods/s; attempt p50 "
+        f"{rec['attempt_p50_ms']:.1f} ms, p99 {rec['attempt_p99_ms']:.1f} ms; "
+        f"{rec['preemption_attempts']} preemption attempts, {got['victims']} victims, "
+        f"{sched.fast_binds} fast binds, {rec['native_sweeps']} C++ sweeps; phase wall "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["phase_wall_s"].items() if v)
+        + "; launches " + ", ".join(f"{k} {launches[k]}" for k in
+                                    ("filter_score_planes", "priority_prefix",
+                                     "candidate_fit", "candidate_dense",
+                                     "prev_delta_apply")))
+    # the profiled failing cycle: 512 pods of 900m at priority 20, each
+    # evicting the low pod of a node (100m free + 900m freed)
+
+    def hungry(i):
+        return (make_pod().name(f"prof-{i:06d}").uid(f"prof-{i:06d}").namespace("default")
+                .req({"cpu": "900m", "memory": "500Mi"}).priority(20).obj())
+
+    rec["profile"] = profile_cycle(sched, out_dir, "PreemptionBasic failing",
+                                   hungry, "profile_preempt_cycle.txt")
+    return {"record": rec, "sched": sched}
+
+
+def preemption_basic_harness(dev_name: str = "cuda") -> dict:
+    """PreemptionBasic/5000Nodes through the port's perf harness
+    (``run_workload``: pipelined, depth 3, B = 512): the same checks as the
+    synchronous run, K27 + K28 launched inside the measured window and by
+    the failure warm before it, no kernel built in the window; pods/s and
+    attempt p50 / p99."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.perf.harness import data_items_to_json, run_workload
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+
+    seen = {}
+
+    def inspect(store, sched):
+        torch.cuda.synchronize()
+        seen["launches"] = dict(kernels.LAUNCHES)
+        seen["checks"] = preempt_checks("PreemptionBasic harness", store, 5000, 20000, 5000)
+        seen["fast_binds"] = sched.fast_binds
+        seen["attempts"] = sched.preemption_attempts
+
+    fresh_heap()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    w = build_workload("PreemptionBasic", "5000Nodes")
+    items = run_workload(w, device=dev_name, inspect=inspect)
+    wall = time.perf_counter() - t
+    by = {it.labels["Metric"]: it.data for it in items}
+    win = by["KernelLaunchesInWindow"]
+    for k in ("filter_score_planes", "priority_prefix", "candidate_fit"):
+        if win[k] <= 0:
+            fail(f"PreemptionBasic harness: kernel {k} never launched in the measured window")
+        if seen["launches"][k] <= win[k]:
+            fail(f"PreemptionBasic harness: kernel {k} did not launch before the window")
+    if by["KernelBuildsInWindow"]["Count"] != 0:
+        fail("PreemptionBasic harness: a kernel was built inside the measured window")
+    att = by["scheduler_scheduling_attempt_duration_seconds"]
+    rec = {"items": json.loads(data_items_to_json(items)), "wall_s": wall,
+           "batch_size": w.batch_size, "pods_per_s": by["SchedulingThroughput"]["Average"],
+           "attempt_p50_ms": att["Perc50"] * 1e3, "attempt_p99_ms": att["Perc99"] * 1e3,
+           "window_launches": win, "window_phase_wall_s": by["PhaseWallBreakdown"],
+           "launches": seen["launches"], "fast_binds": seen["fast_binds"],
+           "preemption_attempts": seen["attempts"], **seen["checks"]}
+    log(f"PreemptionBasic/5000Nodes via perf.harness.run_workload (pipelined, B = "
+        f"{w.batch_size}): {rec['pods_per_s']:.1f} pods/s; attempt p50 "
+        f"{rec['attempt_p50_ms']:.1f} ms, p99 {rec['attempt_p99_ms']:.1f} ms; "
+        f"{rec['victims']} victims, {rec['fast_binds']} fast binds; window phase wall "
+        + ", ".join(f"{k} {v:.3f}" for k, v in by["PhaseWallBreakdown"].items() if v)
+        + "; window launches " + ", ".join(f"{k} {win[k]:.0f}" for k in
+                                           ("filter_score_planes", "priority_prefix",
+                                            "candidate_fit")))
+    return rec
+
+
+def dense_preempt_cluster(dev_name: str, clock):
+    """200 nodes of 4 cpu / 32Gi, each holding four 900m pods at distinct
+    priorities 0–799 (more than 128 levels: the dense form, K29), then 100
+    pods of 3000m at priority 1000."""
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+    from kubernetes_tpu_torch.testutil import make_node, make_pod
+
+    store = ObjectStore()
+    sched = TorchScheduler(store, batch_size=128, device=dev_name, clock=clock,
+                           batch_wait=0)
+    for i in range(200):
+        nd = (make_node().name(f"node-{i:06d}")
+              .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"}).obj())
+        nd.metadata.creation_timestamp = 0.0
+        store.create("Node", nd)
+    for i in range(800):
+        store.create("Pod", make_pod().name(f"low-{i:06d}").uid(f"low-{i:06d}")
+                     .namespace("default").req({"cpu": "900m", "memory": "500Mi"})
+                     .priority((i * 37) % 800).creation_timestamp(float(i)).obj())
+    sched.run_until_idle(backoff_wait=0)
+    measured = [make_pod().name(f"high-{i:06d}").uid(f"high-{i:06d}").namespace("default")
+                .req({"cpu": "3000m", "memory": "500Mi"}).priority(1000)
+                .creation_timestamp(1000.0 + i).obj() for i in range(100)]
+    return store, sched, measured
+
+
+def preempt_bindings(device: str, kind: str):
+    """One preemption run → (bindings, victims, nominations after each
+    step, outcomes, launches): "basic" is PreemptionBasic/500Nodes (500
+    nodes, 2000 low, 500 high; fast binds), "requeue" the same with
+    ``nominated_fast_bind=False`` (every preemptor nominated, requeued and
+    bound on a later cycle: K13's nominated bundle with live rows), "dense"
+    the 200-node cluster whose running pods carry 800 priorities (K29)."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+
+    clock = _FixedClock()
+    if kind == "dense":
+        store, sched, measured = dense_preempt_cluster(device, clock)
+    else:
+        store, sched, _w, measured = preempt_cluster(
+            device, "500Nodes", clock=clock, nominated_fast_bind=kind != "requeue")
+    before = {p.metadata.name for p in store.list("Pod")[0]}
+    for pod in measured:
+        store.create("Pod", pod)
+    kernels.reset_launches()
+    noms = []
+    for _ in range(6):
+        sched.run_until_idle(backoff_wait=0)
+        noms.append(sorted((u, v[0]) for u, v in sched._nominated.items()))
+        clock.t += 11.0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    pods = {p.metadata.name: p.spec.node_name for p in store.list("Pod")[0]}
+    outcomes = {"attempts": sched.preemption_attempts, "fast_binds": sched.fast_binds,
+                "victims_per_preemption": list(sched.preemption_victims),
+                "errors": sched.post_filter_errors}
+    return pods, sorted(before - set(pods)), noms, outcomes, dict(kernels.LAUNCHES)
+
+
+def time_nominated_bundle(dev) -> dict:
+    """K13 with the nominated bundle alone, as a synchronous PreemptionBasic
+    cycle gives it (B2 ``reserve_nominated``): N = 8192, R = 8, the sticky
+    cap of 2 · 512 rows with 512 live; held against its plain version,
+    timed as in 6, beside ``index_add_`` of the live rows' requests."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels.prev_delta import prev_delta_apply, \
+        prev_delta_apply_plain
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    n, r, k = 8192, 8, 1024
+    req = torch.randint(0, 1 << 20, (n, r), generator=gen, dtype=torch.int32).to(dev)
+    nz = torch.randint(0, 1 << 20, (n, 2), generator=gen, dtype=torch.int32).to(dev)
+    rows = torch.full((k,), -1, dtype=torch.int32)
+    rows[:512] = torch.randperm(n, generator=gen)[:512].to(torch.int32)
+    nreq = torch.zeros((k, r), dtype=torch.int32)
+    nreq[:512, 0] = 3000
+    nreq[:512, 1] = 512000
+    nreq[:512, 3] = 1
+    bundle = [(rows.to(dev), nreq.to(dev), torch.zeros((k, 2), dtype=torch.int32).to(dev))]
+    got = prev_delta_apply(req, nz, bundle)
+    want = prev_delta_apply_plain(req, nz, bundle)
+    torch.cuda.synchronize()
+    err = require_equal("prev_delta_apply (nominated bundle alone)",
+                        [("requested", got[0], want[0]), ("non_zero", got[1], want[1])])
+    live = bundle[0][0] >= 0
+    at, add = bundle[0][0][live].long(), bundle[0][1][live]
+    lib = req.clone()
+    # what reserve_nominated needs: each bundle row's node row and requests
+    # read once, the touched requested rows read and written (the wrapper's
+    # copies of the arrays and the bundle's zero nz rows are not the function)
+    n_bytes = k * (4 + 4 * r) + 2 * 512 * r * 4
+    least, bound_by = bound_ms(n_bytes, 512 * r)
+    rec = {"max_abs_err": err, "ms": device_ms(lambda: prev_delta_apply(req, nz, bundle),
+                                               "prev_delta_kernel"),
+           "ms_source": MS_SOURCE[0], "call_ms": time_ms(lambda: prev_delta_apply(req, nz,
+                                                                                  bundle)),
+           "plain_ms": time_ms(lambda: prev_delta_apply_plain(req, nz, bundle), reps=5,
+                               warmup=1),
+           "bound_ms": least, "bound_by": bound_by,
+           "library_ms": device_ms(lambda: lib.index_add_(0, at, add)),
+           "shape": {"N": n, "R": r, "rows": k, "live": 512}}
+    log(f"  prev_delta_apply, the nominated bundle alone: {rec['ms']:.5f} ms device "
+        f"({rec['ms_source']}), bound {least:.7f} ms ({bound_by}), plain "
+        f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.5f} ms")
+    return rec
+
+
+def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) -> list:
+    """K27 and K28 timed on the arguments of their latest call on the
+    PreemptionBasic/5000Nodes synchronous run, K29 on those of its latest
+    call on the dense preemption run (``preempt_bindings("cuda", "dense")``)
+    and, beside it under ``check_case``, on the dense check's inputs (B = 64,
+    N = 8192, P = 32768, 300 priorities); each held once more, exactly,
+    against its plain version (on CPU copies); the bound from the bytes
+    those inputs need.  Library: index_put_(accumulate=True) + cumsum for
+    K27, the dense einsum for K29."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import preempt as KP
+
+    rows_out = []
+
+    def last(name):
+        got = last_calls.get(name)
+        if got is None:
+            fail(f"kernel timing: no recorded path call of {name}")
+        return got[0]
+
+    def cpu(args):
+        return [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+
+    def measure(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        return {"ms": device_ms(fn, PREEMPT_SYMBOLS[name]), "ms_source": MS_SOURCE[0],
+                "call_ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
+                "bound_ms": least, "bound_by": bound_by,
+                "library_ms": device_ms(library_fn) if library_fn else None,
+                "bytes": n_bytes, "ops": n_ops, "shape": shape}
+
+    def row(name, *args, **kw):
+        rows_out.append({"name": name, "route": "cuda", "source": PREEMPT_SOURCE,
+                         "replaces": PREEMPT_REPLACES[name], "launches": None,
+                         "max_abs_err": err[name], **measure(name, *args, **kw)})
+
+    # K27: the pod tier and the levels read once, the [K+1, N, R+1] output
+    # written once (the wrapper's by-node segments are index preparation,
+    # which the function does not need)
+    a27 = last("priority_prefix")
+    valid, node, prio, req, levels, n = a27
+    got = KP.priority_prefix(*a27)
+    want = KP.priority_prefix_plain(*cpu(a27))
+    err["priority_prefix"] = max(err["priority_prefix"], require_equal(
+        "priority_prefix (path shapes)", [("prefix", got[0].cpu(), want[0]),
+                                          ("prefix_cnt", got[1].cpu(), want[1])]))
+    p, r = req.shape
+    k = levels.shape[0]
+    bound = valid & (node >= 0)
+    bucket = torch.searchsorted(levels, prio)
+    kk = torch.where(bound, bucket, k).long()
+    nrow = node.long().clamp(0, n - 1)
+    contrib = torch.cat([req.float(), torch.ones((p, 1), device=req.device)], 1) \
+        * bound[:, None].float()
+    table = torch.zeros((k + 1, n, r + 1), device=req.device)
+    row("priority_prefix", lambda: KP.priority_prefix(*a27),
+        lambda: KP.priority_prefix_plain(*a27),
+        p * (1 + 4 + 4 + 4 * r) + 4 * k + 4 * (k + 1) * n * (r + 1),
+        int(bound.sum()) * (r + 1),
+        {"P": p, "N": n, "R": r, "K": k, "live_levels": int((levels < 2 ** 31 - 1).sum()),
+         "bound_pods": int(bound.sum())},
+        library_fn=lambda: table.zero_().index_put_((kk, nrow), contrib,
+                                                     accumulate=True).cumsum(0))
+
+    # K28: the static bits read, the mask written, the threshold rows of
+    # the prefix read once each, the node and batch rows once
+    a28 = last("candidate_fit")
+    got = KP.candidate_fit(*a28)
+    want = KP.candidate_fit_plain(*cpu(a28))
+    err["candidate_fit"] = max(err["candidate_fit"], require_equal(
+        "candidate_fit (path shapes)", [("mask", got.cpu(), want)]))
+    prefix, cnt, lv, bprio, breq, alloc, used, bits, mask = a28
+    b = bprio.shape[0]
+    n2, r2 = alloc.shape
+    tbs = int(torch.unique(torch.searchsorted(lv, bprio)).numel())
+    row("candidate_fit", lambda: KP.candidate_fit(*a28),
+        lambda: KP.candidate_fit_plain(*a28),
+        5 * b * n2 + tbs * n2 * (r2 + 1) * 4 + 8 * n2 * r2 + b * (r2 + 1) * 4 + 4 * lv.numel(),
+        4 * b * n2 * r2,
+        {"B": b, "N": n2, "R": r2, "threshold_rows": tbs})
+
+    # K29: each (pod, node) walks its node's segment, R float32 adds per
+    # pod below the batch pod; bytes: the static bits read and the mask
+    # written, the pod tier, the node rows and the batch rows read once
+    # (not the wrapper's by-node segments)
+    def dense(a29, what):
+        got = KP.candidate_dense(*a29)
+        want = KP.candidate_dense_plain(*cpu(a29))
+        e = require_equal(f"candidate_dense ({what})", [("mask", got.cpu(), want)])
+        pv, pn, pp, pr, bp, br, al, us, bt, _m = a29
+        b3, n3 = bt.shape
+        p3, r3 = pr.shape
+        bnd = pv & (pn >= 0)
+        below = int(((pp[None, bnd] < bp[:, None]) & (bt.sum(1) > 0)[:, None]).sum())
+        # the dense form as the reference writes it, the [B, P] × [P, R]
+        # factor formed outside the timed call: one einsum over the pod axis
+        lower = (pv[None, :] & (pp[None, :] < bp[:, None])).float()
+        onehot = ((pn.long()[:, None] == torch.arange(n3, device=dev)[None, :])
+                  & (pn >= 0)[:, None]).float()
+        lw = lower[:, :, None] * pr.float()[None]
+        return e, (lambda: KP.candidate_dense(*a29),
+                   lambda: KP.candidate_dense_plain(*a29),
+                   5 * b3 * n3 + p3 * (1 + 4 + 4 + 4 * r3) + 8 * n3 * r3 + b3 * (r3 + 1) * 4,
+                   below * r3,
+                   {"B": b3, "N": n3, "P": p3, "R": r3, "pairs_below": below,
+                    "priorities": int(torch.unique(pp[bnd]).numel())}), \
+            (lambda: torch.einsum("bpr,pn->bnr", lw, onehot))
+
+    got = dense_calls.get("candidate_dense")
+    if got is None:
+        fail("kernel timing: no recorded call of candidate_dense on the dense preemption run")
+    e_path, m_path, lib_path = dense(list(got[0]), "dense preemption run's arguments")
+    gen = torch.Generator().manual_seed(SEED + 29)
+    d = preempt_case(gen, b=64, n_prio=300)
+    g = {k_: v.to(dev) for k_, v in d.items()}
+    a29 = [g[k_] for k_ in ("pod_valid", "pod_node", "pod_priority", "pod_request",
+                            "priority", "request", "allocatable", "requested",
+                            "static_bits")] + [0b1111]
+    e_case, m_case, lib_case = dense(a29, "timing inputs")
+    err["candidate_dense"] = max(err["candidate_dense"], e_path, e_case)
+    row("candidate_dense", *m_path, library_fn=lib_path)
+    rows_out[-1]["check_case"] = measure("candidate_dense", *m_case, library_fn=lib_case)
+    for rr in rows_out + [dict(rows_out[-1]["check_case"], name="candidate_dense (check case)")]:
         log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
             f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
             + (f", library {rr['library_ms']:.5f} ms" if rr["library_ms"] is not None else "")
@@ -4524,6 +5141,7 @@ def main() -> None:
     err.update(scan_err)
     err.update(check_gang_kernels(dev))
     err.update(check_dra_kernels(dev))
+    err.update(check_preempt_kernels(dev))
     record["kernel_check_s"] = time.perf_counter() - t
     out_dir = here / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4617,6 +5235,17 @@ def main() -> None:
     t = time.perf_counter()
     record["device_claim_gang_harness"] = claim_gang_harness()
     record["device_claim_gang_harness"]["phase_s"] = time.perf_counter() - t
+
+    # preemption: PreemptionBasic/5000Nodes synchronous (its K27 / K28
+    # calls kept for the timing phase) and through the perf harness
+    preempt_args = KernelArgs(PREEMPT_TARGETS)
+    t = time.perf_counter()
+    preempt = preemption_basic_sync(preempt_args, out_dir)
+    record["preemption_basic"] = preempt["record"]
+    record["preemption_basic"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    record["preemption_basic_harness"] = preemption_basic_harness()
+    record["preemption_basic_harness"]["phase_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
     gpu_bind, gpu_launch, gpu_cycles, gpu_wall = hetero_bindings("cuda")
@@ -4766,6 +5395,41 @@ def main() -> None:
         f"bindings, claims and claim series ({len(g_res[0])} pods, {g_res[2]}) in "
         f"{time.perf_counter() - t:.1f} s")
 
+    record["preempt_bindings"] = {}
+    for kind_, need in (("basic", ("priority_prefix", "candidate_fit")),
+                        ("requeue", ("priority_prefix", "candidate_fit", "prev_delta_apply")),
+                        ("dense", ("candidate_dense",))):
+        t = time.perf_counter()
+        # the dense run's K29 arguments are kept for the timing phase
+        with KernelArgs(PREEMPT_TARGETS if kind_ == "dense" else {}) as recorded:
+            g_res = preempt_bindings("cuda", kind_)
+        if kind_ == "dense":
+            dense_args = recorded
+        c_res = preempt_bindings("cpu", kind_)
+        for what, a, b in zip(("bindings", "victims", "nominations", "outcomes"),
+                              g_res[:4], c_res[:4]):
+            if a != b:
+                fail(f"preemption ({kind_}): cuda and cpu differ in {what}")
+        pods, victims, noms, outcomes, launches = g_res
+        if not all(pods.values()) or not victims or not outcomes["attempts"]:
+            fail(f"preemption ({kind_}): expected every pod bound after preempting, got "
+                 f"{sum(1 for v in pods.values() if not v)} unbound, {len(victims)} victims")
+        if kind_ == "requeue" and (outcomes["fast_binds"] or not noms[0]):
+            fail("preemption (requeue): expected nominations across cycles, no fast bind")
+        for k_ in need:
+            if launches[k_] <= 0:
+                fail(f"preemption ({kind_}): kernel {k_} never launched ({launches})")
+        record["preempt_bindings"][kind_] = {
+            "pods": len(pods), "victims": len(victims), "nominated_per_step":
+            [len(x) for x in noms], "outcomes": {k_: v for k_, v in outcomes.items()
+                                                 if k_ != "victims_per_preemption"},
+            "launches": launches, "s": time.perf_counter() - t}
+        log(f"preemption ({kind_}): cuda == cpu on bindings, victims, nominations and "
+            f"outcomes ({len(pods)} pods, {len(victims)} victims, nominated per step "
+            f"{[len(x) for x in noms]}, {outcomes['fast_binds']} fast binds; launches "
+            + ", ".join(f"{k_} {launches[k_]}" for k_ in need)
+            + f") in {time.perf_counter() - t:.1f} s")
+
     record["cuda_pipelined_vs_sync"] = {}
     for kind_ in ("northstar", "spread", "preferred", "anti"):
         t = time.perf_counter()
@@ -4777,6 +5441,8 @@ def main() -> None:
             + time_ipa_kernels(pref["sched"], err) + time_pipeline_kernels(path_calls, err))
     gang_rows = time_gang_kernels(gang_args.last, err)
     dra_rows = time_dra_kernels(dra_args.last, err)
+    preempt_rows = time_preempt_kernels(preempt_args.last, dense_args.last, err, dev)
+    record["k13_nominated_bundle"] = time_nominated_bundle(dev)
     scan_args = dict(recorders["TopologySpreading scan"].last)
     scan_args["ipa_update_row"] = \
         recorders["SchedulingPreferredPodAffinity scan"].last["ipa_update_row"]
@@ -4842,6 +5508,19 @@ def main() -> None:
                                      "device_claim_gang_harness"]["launches"][r["name"]],
                                  "GangBasic": gang["record"]["launches"].get(r["name"])}
     rows += dra_rows
+    # K27 / K28: their launches on the PreemptionBasic/5000Nodes synchronous
+    # run; K29 on the dense cluster's cuda run
+    for r in preempt_rows:
+        carry = record["preempt_bindings"]["dense"] if r["name"] == "candidate_dense" \
+            else preempt["record"]
+        r["launches"] = carry["launches"][r["name"]]
+        r["launches_by_path"] = {
+            "PreemptionBasic": preempt["record"]["launches"][r["name"]],
+            "PreemptionBasic harness": record["preemption_basic_harness"]["launches"][
+                r["name"]],
+            **{f"preemption ({k_})": v["launches"][r["name"]]
+               for k_, v in record["preempt_bindings"].items()}}
+    rows += preempt_rows
     record["kernels"] = rows
     record["profile"] = profile_cycle(
         ns["sched"], out_dir, "NorthStar-shaped",

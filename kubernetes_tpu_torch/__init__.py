@@ -20,10 +20,15 @@ Layout (mirrors the JAX package):
   framework/  plugin interface, events, PodBatch compiler, runtime
   plugins/    the default plugin set (main-path plugins, live
               PodTopologySpread and InterPodAffinity, pass-through halves)
-  gang/       in-batch all-or-nothing mask
+  gang/       the gang directory, Coscheduling, the all-or-nothing mask
+  dra/        device claims: the claim index, DynamicResources
   queueing/   the 3-queue PriorityQueue
+  whatif/     preemption's dry run: the candidate mask, the reprieve sweep
+  descheduler/ the eviction gate
   kernels/    CUDA kernel wrappers, plain versions, build/loader
-  csrc/       the .cu sources
+  csrc/       the .cu sources and the host C++ reprieve sweep
+  oracle.py   the reference filters, one (pod, node) at a time
+  preemption.py the Evaluator (DefaultPreemption's PostFilter)
   convert.py  JAX-package arrays (as numpy) → the port's tensors
   scheduler.py TorchScheduler
 """

@@ -8,8 +8,8 @@ Reference: the JAX package's framework/runtime.py — ``PrevBatch`` (:40-63),
 ``select_host`` :299 and ``_apply_dynamic`` :434), the full auction
 ``batch_assign`` (:450-745) and its identity-class dedup form
 ``_batch_assign_dedup`` (:747-977) — and the scheduler's
-``apply_prev_delta`` (scheduler.py:897-916) over K13.  All run through the
-kernels (kernels/): K1 filter bits + raw planes, then the live dynamic
+``reserve_nominated`` and ``apply_prev_delta`` (scheduler.py:889-916) over
+K13.  All run through the kernels (kernels/): K1 filter bits + raw planes, then the live dynamic
 plugins' filters folded into the bit plane (PodTopologySpread: K6,
 InterPodAffinity: K10), K2 normalize + weighted total, then the dynamic
 plugins' scores folded into the total (K7, K11).  The auctions add K3
@@ -111,15 +111,23 @@ class PrevBatch(NamedTuple):
     group_present: tuple = ()
 
 
-def apply_prev_delta(dyn: DynamicState, prevs: Sequence[PrevBatch]) -> DynamicState:
-    """The in-flight batches' request rows added at their decided node rows
-    (the reference's apply_prev_delta, scheduler.py:897-916, for each
-    bundle, oldest first) — K13 on the card.  A new state: the snapshot
-    arrays ``dyn`` may alias stay untouched."""
-    if not prevs:
+def apply_prev_delta(dyn: DynamicState, prevs: Sequence[PrevBatch],
+                     nominated=None) -> DynamicState:
+    """The nominated pods' reservations and the in-flight batches' request
+    rows added at their node rows (the reference's reserve_nominated,
+    scheduler.py:889-895, then its apply_prev_delta, :897-916, for each
+    bundle, oldest first) — K13 on the card, one launch for every bundle.
+    ``nominated`` is (rows i32[K], req i32[K, R]) or None: it adds into
+    ``requested`` only.  A new state: the snapshot arrays ``dyn`` may alias
+    stay untouched."""
+    bundles = [(p.rows, p.req, p.nz) for p in prevs]
+    if nominated is not None:
+        rows, req = nominated
+        nz = torch.zeros((rows.shape[0], 2), dtype=torch.int32, device=rows.device)
+        bundles.insert(0, (rows, req, nz))
+    if not bundles:
         return dyn
-    req, nz = prev_delta_apply(dyn.requested, dyn.non_zero,
-                               [(p.rows, p.req, p.nz) for p in prevs])
+    req, nz = prev_delta_apply(dyn.requested, dyn.non_zero, bundles)
     return DynamicState(requested=req, non_zero=nz)
 
 

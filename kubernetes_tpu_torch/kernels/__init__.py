@@ -40,6 +40,10 @@ than once); ``reset_launches`` zeroes the counts.
                             with resource claims)
   K25 dra_score_into        csrc/dra.cu (the same)
   K26 dra_take              csrc/dra.cu (per auction round or scan step)
+  K27 priority_prefix       csrc/preempt.cu (once per failing batch that may
+                            preempt, with at most 128 scheduled priorities)
+  K28 candidate_fit         csrc/preempt.cu (the same)
+  K29 candidate_dense       csrc/preempt.cu (the same, above 128 priorities)
 
 The full auction runs K1–K4, K6–K8 and K10–K12 at identity classes (one
 class row per pod); the exact scan runs K1, K2, K6, K7, K10 and K11 on one
@@ -47,7 +51,10 @@ pod's row per step, then K17–K19.  Every dispatch ends in K20 (the gang
 mask) and K22 (the packed result); K23 matches the selectors of the
 plugins' inputs, and K21 adds Coscheduling's score where a gang anchors.
 A batch with resource claims adds DynamicResources' filter (K24) and score
-(K25) to every round or step and takes the placed pods' chips (K26).
+(K25) to every round or step and takes the placed pods' chips (K26).  A
+failing batch whose pods may preempt runs K1 on its rows for the static bits
+and the candidate mask (K27 + K28, or K29); the nominated pods' requests
+ride K13 as one more bundle.
 """
 
 from __future__ import annotations
@@ -84,6 +91,9 @@ LAUNCHES: Dict[str, int] = {
     "dra_filter_bits": 0,
     "dra_score_into": 0,
     "dra_take": 0,
+    "priority_prefix": 0,
+    "candidate_fit": 0,
+    "candidate_dense": 0,
 }
 
 

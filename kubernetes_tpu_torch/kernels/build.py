@@ -14,6 +14,10 @@ Numerics flags: ``--fmad=false`` (no multiply contracted into an add),
 square root), never ``--use_fast_math`` — the reference floors float32
 scores, and one ulp can move a floor and so a binding.
 
+The host C++ sources (``HOST_SOURCES``: preemption's reprieve sweep and
+ranking, ``csrc/preempt_sweep.cpp``) build the same way with ``g++ -O2
+-shared -fPIC`` beside them; ``build_all`` starts those too.
+
 A failed build raises; there is no fallback to the plain version.
 """
 
@@ -33,7 +37,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 SOURCES = ("filter_score", "normalize_combine", "topk_rows", "auction", "spread",
            "interpodaffinity", "prev_delta", "scatter_rows", "scan", "gang", "cosched",
-           "diag_pack", "selector_match", "dra")
+           "diag_pack", "selector_match", "dra", "preempt")
+# host C++ libraries (plain C interface, loaded with ctypes like the kernels)
+HOST_SOURCES = ("preempt_sweep",)
+GXX_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -64,23 +71,43 @@ def nvcc_path() -> str:
                        "with the CUDA toolkit (PATH or /usr/local/cuda/bin)")
 
 
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found: the host C++ libraries are built with it")
+
+
+def _is_host(name: str) -> bool:
+    return name in HOST_SOURCES
+
+
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if _is_host(name) else f"{name}.cu")
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = _source(name).read_bytes()
+    flags = GXX_FLAGS if _is_host(name) else NVCC_FLAGS
+    h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
 def _start(name: str):
-    """Start the nvcc build of one source; → (Popen, tmp path, final path)
-    or None when the library is already built."""
+    """Start the build of one source (nvcc, or g++ for a host source); →
+    (Popen, tmp path, final path) or None when the library is already
+    built."""
     global BUILDS
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     BUILDS += 1
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    if _is_host(name):
+        cmd = [gxx_path(), *GXX_FLAGS, "-o", str(tmp), str(_source(name))]
+    else:
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out
@@ -95,15 +122,16 @@ def _finish(name: str, started) -> None:
     proc, tmp, out = started
     text, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+        raise RuntimeError(f"{proc.args[0]} failed for csrc/{_source(name).name} "
                            f"(exit {proc.returncode}):\n{text}")
     os.replace(tmp, out)
     out.with_suffix(".log").write_text(text)
     PTXAS_LOG[name] = text
 
 
-def build_all(names: Iterable[str] = SOURCES) -> List[Path]:
-    """Build every named source in parallel (one nvcc each); → library paths."""
+def build_all(names: Iterable[str] = SOURCES + HOST_SOURCES) -> List[Path]:
+    """Build every named source in parallel (one nvcc or g++ each); →
+    library paths."""
     names = list(names)
     started = {n: _start(n) for n in names}
     for n in names:
@@ -112,7 +140,8 @@ def build_all(names: Iterable[str] = SOURCES) -> List[Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` (or a host source's
+    ``.cpp``), built on first use."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

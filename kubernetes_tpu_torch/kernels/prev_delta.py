@@ -1,11 +1,15 @@
-"""K13: the deep pipeline's in-flight resource delta (CUDA: csrc/prev_delta.cu).
+"""K13: the fused cycle's nominated reservations and in-flight resource delta
+(CUDA: csrc/prev_delta.cu).
 
-Replaces the JAX package's scheduler.py ``_build_jitted.apply_prev_delta``
-(:897-916, ROADMAP Queue B B2): each still-in-flight batch's request rows
-are added into ``requested`` / ``non_zero`` at the node rows its
-device-resident decision chose, before this batch's prepare and
-assignment; rows below 0 add nothing.  Up to two bundles (depth 3),
-oldest first.
+Replaces the JAX package's scheduler.py ``_build_jitted.reserve_nominated``
+(:889-895) and ``apply_prev_delta`` (:897-916, ROADMAP Queue B B2): the
+nominated pods' requests are added into ``requested`` at their nominated
+node rows (a bundle whose ``nz`` rows are zero: ``non_zero`` stays as it
+is), and each still-in-flight batch's request rows into ``requested`` /
+``non_zero`` at the node rows its device-resident decision chose, before
+this batch's prepare and assignment; rows below 0 add nothing.  Up to three
+bundles: the nominated rows, then two in-flight batches (depth 3), oldest
+first.  The adds are int32, so their order changes no bit.
 
 Out of place: the dynamic state starts as an alias of the snapshot's
 ``requested`` / ``non_zero_requested`` (``initial_dynamic_state``), and the
@@ -23,8 +27,8 @@ import torch
 from . import LAUNCHES, bind, ptr, require_cuda, require_dtype, stream_of
 from .build import check, load
 
-# the fused cycle carries at most two in-flight batches (pipeline_depth ≤ 3)
-MAX_BUNDLES = 2
+# the nominated rows and at most two in-flight batches (pipeline_depth ≤ 3)
+MAX_BUNDLES = 3
 
 
 def prev_delta_apply_plain(requested, non_zero, bundles):
@@ -46,7 +50,7 @@ def prev_delta_apply(requested: torch.Tensor, non_zero: torch.Tensor,
     """→ (requested i32[N, R], non_zero i32[N, 2]): copies of the inputs
     with every bundle's ``(rows i32[B0], req i32[B0, R], nz i32[B0, 2])``
     added at its rows ≥ 0.  CPU tensors take the plain version; CUDA tensors
-    copy the two arrays and launch K13 once."""
+    copy the two arrays and launch K13 once for every bundle."""
     bundles = list(bundles)
     if len(bundles) > MAX_BUNDLES:
         raise ValueError(f"prev_delta_apply: at most {MAX_BUNDLES} bundles")

@@ -12,12 +12,15 @@ target — what the JAX package's ``bench.py`` measures.
 Trimmed to what the port runs: the createNodes, createObjects (PodGroups,
 the DRA objects) and createPods opcodes (with ``skip_wait``).  Before the
 measured window: every kernel is built (``kernels/build.py`` build_all),
-then the suite-template warms, the micro-bucket tier bursts (5 × tier
-pods per tier through the real pipelined regime, which fill the
-scheduler's per-tier latency profiles) and a settle dispatch.  The reference's XLA-only warms — the
-anti-affinity scan warm and the priority-1 failure warm — pre-compile
-programs the port does not have, and are left out.  The window freezes
-the warmed heap out of the collector (``gc.freeze``).
+then the failure warm (the reference's :236-262: one 100000-cpu pod that
+fits nowhere, at priority 1 — so a failing batch runs the diagnosis and,
+where a scheduled pod ranks below it, the PostFilter with its candidate mask, K1 + K27 + K28, before the
+window; it nominates nothing), the suite-template warms, the micro-bucket
+tier bursts (5 × tier pods per tier through the real pipelined regime,
+which fill the scheduler's per-tier latency profiles) and a settle
+dispatch.  The reference's anti-affinity scan warm pre-compiles an XLA
+program variant the port does not have, and is left out.  The window
+freezes the warmed heap out of the collector (``gc.freeze``).
 
 Items: SchedulingThroughput, scheduler_scheduling_attempt_duration_seconds
 (as the reference measures it: the batch's algorithm time, from its
@@ -128,10 +131,19 @@ def _quantile(sorted_vals: List[float], q: float) -> float:
 
 
 def _warm(sched: TorchScheduler, store: ObjectStore, tmpl, w: Workload) -> None:
-    """The pre-window warms: the suite-template warms, the micro-bucket tier
-    bursts, the settle dispatch (the reference's run_workload :196-370,
-    without its XLA-only warms)."""
+    """The pre-window warms: the failure warm, the suite-template warms, the
+    micro-bucket tier bursts, the settle dispatch (the reference's
+    run_workload :196-370, without its anti-affinity scan warm)."""
     warm_keys = []
+    # the failure warm: fits no node even with every victim evicted, so
+    # its PostFilter (at priority 1, where a scheduled pod ranks below it)
+    # finds no candidate and nominates nothing
+    warm = (make_pod().name("warmup-pod3").uid("warmup-pod3").namespace("default")
+            .req({"cpu": "100000"}).label("warmup", "1").priority(1).obj())
+    store.create("Pod", warm)
+    sched.schedule_cycle()
+    sched.schedule_cycle()
+    warm_keys.append((warm.metadata.namespace, warm.metadata.name))
 
     def create(i):
         pod = tmpl(i)

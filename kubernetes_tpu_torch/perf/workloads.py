@@ -11,8 +11,8 @@ spread pods).  Each suite has the reference's shape, named sizes
 The port carries the suites whose pods it schedules: SchedulingBasic,
 NorthStar, Density, TopologySpreading, PreferredTopologySpreading,
 SchedulingNodeAffinity, SchedulingPodAntiAffinity, SchedulingPodAffinity,
-SchedulingPreferredPodAffinity, Unschedulable, GangBasic and
-DeviceClaimGang.  ``build_workload`` of any other suite raises
+SchedulingPreferredPodAffinity, Unschedulable, PreemptionBasic, GangBasic
+and DeviceClaimGang.  ``build_workload`` of any other suite raises
 NotImplementedError naming the ROADMAP item that brings what it needs.
 """
 
@@ -64,6 +64,19 @@ def _base_pod(i: int, prefix: str, ns: str = "default"):
 
 def pod_default(i: int, ns: str = "default") -> v1.Pod:
     return _base_pod(i, "pod", ns).req({"cpu": "100m", "memory": "500Mi"}).obj()
+
+
+def pod_low_priority(i: int) -> v1.Pod:
+    return _base_pod(i, "low", "default").req({"cpu": "900m", "memory": "500Mi"}).obj()
+
+
+def pod_high_priority(i: int) -> v1.Pod:
+    return (
+        _base_pod(i, "high", "default")
+        .req({"cpu": "3000m", "memory": "500Mi"})
+        .priority(10)
+        .obj()
+    )
 
 
 def pod_large_cpu(i: int) -> v1.Pod:
@@ -445,6 +458,13 @@ def _device_claim_gang(n, p, mp) -> Workload:
     )
 
 
+def _preemption(n, p, mp) -> Workload:
+    # four 900m low pods fill each 4-cpu node; every 3000m high pod fails,
+    # preempts three of them and binds beside the fourth
+    return _three_ops("PreemptionBasic", node_default, pod_low_priority,
+                      pod_high_priority, n, p, mp)
+
+
 def _unschedulable(n, p, mp) -> Workload:
     # 9-cpu pods never fit a 4-cpu node; they churn the unschedulable queue
     # while the measured pods schedule
@@ -475,6 +495,9 @@ SUITES: Dict[str, Suite] = {
               batch_size={"5000Nodes": 512}),
         Suite("SchedulingPreferredPodAffinity", _preferred_affinity,
               {"500Nodes": (500, 500, 1000), "5000Nodes": (5000, 5000, 1000)},
+              batch_size={"5000Nodes": 512}),
+        Suite("PreemptionBasic", _preemption,
+              {"500Nodes": (500, 2000, 500), "5000Nodes": (5000, 20000, 5000)},
               batch_size={"5000Nodes": 512}),
         Suite("Unschedulable", _unschedulable,
               {"500Nodes/200InitPods": (500, 200, 1000),
@@ -508,16 +531,16 @@ SUITES: Dict[str, Suite] = {
 
 # the reference's other suites, and the ROADMAP items that bring what they need
 UNPORTED: Dict[str, str] = {
-    "PreemptionBasic": "preemption (ROADMAP Queue A item 9, Queue B B15, B16)",
     "SchedulingWithMixedChurn": "selector spread over its churn services (ROADMAP Queue A "
-                                "item 7c) and preemption-capable churn pods (item 9)",
-    "AutoscaleGang": "the autoscaler's counterfactual forks (ROADMAP Queue A item 9, "
+                                "item 10a; its preemption-capable churn pods came with "
+                                "item 9a)",
+    "AutoscaleGang": "the autoscaler's counterfactual forks (ROADMAP Queue A item 9b, "
                      "Queue B B16; its gangs came with item 8a)",
     "TrainingJobFlow": "the TrainingJob controller (ROADMAP Queue A item 10; its gangs "
                        "came with item 8a, its device claims with item 8b)",
     "StatefulChurn": "volume binding (ROADMAP Queue A item 8c)",
     "VolumeZoneSpread": "volume binding (ROADMAP Queue A item 8c)",
-    "Defrag": "the descheduler (ROADMAP Queue A item 9; its gangs came with item 8a)",
+    "Defrag": "the descheduler (ROADMAP Queue A item 9b; its gangs came with item 8a)",
     "SchedulingExtender": "scheduler extenders (ROADMAP Queue A item 6b)",
 }
 

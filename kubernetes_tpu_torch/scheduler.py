@@ -12,8 +12,14 @@ parallel-safety test ``_class_parallel_safe`` :2819, its dedup gate
 ``_dedup_classes`` :2596 and precheck ``_dedup_precheck`` :2733, the host
 half ``host_prepare`` :1645 with ``_host_aux_take`` :138, the fused cycles
 ``fused_greedy`` :954-967 and ``fused_batch`` :969-1017 with
-``apply_prev_delta`` :897, ``_infos_block_deep`` :3523, run_until_idle
-:3777; the DRA wiring :553-562, :589, :718-723, :751-753, :1605; the gang
+``reserve_nominated`` :889 and ``apply_prev_delta`` :897,
+``_infos_block_deep`` :3523, run_until_idle :3777; preemption: the
+nominator ``_nominated`` / ``_fastbound_noms`` :653-664 with their purges
+:803, :1612-1620, :2330-2345, ``_nominated_arrays`` :3494,
+``_priority_levels`` :3583, the candidate program ``cand_mask``
+:1019-1028 and ``_candidate_mask`` :3598 with the speculative dispatch
+:1859-1877, the bind phase's lazy PostFilter context :2209-2330,
+``_run_post_filter`` :3605 and ``_try_nominated_fast_bind`` :3667; the DRA wiring :553-562, :589, :718-723, :751-753, :1605; the gang
 runtime: the directory :582-595, ``_gang_prefilter`` :1223,
 the binding cycle ``_run_reserve_and_bind`` :3364 / ``_finish_bind`` :3428
 with its Permit hold ``_WaitingBind`` :103 and ``_flush_waiting_binds``
@@ -62,6 +68,16 @@ DynamicResources' filter, score and device assume (K24–K26); Reserve picks
 named devices, PreBind commits each claim with CAS (all-or-nothing per
 pod), Unreserve — a gang timeout among its callers — releases them; the
 gang anchor-slice pick counts the gang's pending chip demand.
+A pod that fails its attempt and may preempt (priority above some
+scheduled pod's, preemptionPolicy not Never, not a gang member the gang
+guard holds back, not in a chained batch) runs DefaultPreemption's
+PostFilter: the batch's candidate mask on the device (K1's static bits,
+then K27 + K28 over the priority levels, or K29), the Evaluator's victim
+minimization and 6-criteria ranking on the host, the victims evicted
+through the eviction gate, and the pod fast-bound to its nominated node in
+the same attempt (``nominated_fast_bind``, plain preemptors) or nominated
+and requeued; a nominated pod's request is reserved on its node in every
+later cycle (K13's nominated bundle) until it binds.
 
 ``pipeline=False`` dispatches, completes and binds each batch within one
 ``schedule_cycle``.  ``pipeline=True`` keeps up to ``pipeline_depth``
@@ -79,10 +95,8 @@ work only: the background sync, the fetch and the binds.  Bindings equal
 the JAX scheduler's, pod for pod, in both modes and at every depth.
 
 Scope guard: a batch or cluster that needs anything outside the port —
-volumes, extenders, profiles, a batch
-larger than the auction kernel's one block on cuda, or a failing pod that
-could preempt (a chained batch defers that to the pod's retry, as the
-reference does) — raises NotImplementedError naming the ROADMAP item.  It
+volumes, extenders, profiles, or a batch larger than the auction kernel's
+one block on cuda — raises NotImplementedError naming the ROADMAP item.  It
 never gives a silently different answer.  The port takes no ``rng_key``:
 ties break by the lowest node row (tie noise is ROADMAP Queue A item 6b).
 """
@@ -103,6 +117,8 @@ from .device import resolve_device
 from .dra import DraIndex, DynamicResourcesPlugin
 from .framework import events as fwk_events
 from .api.labels import affinity_term_matches, match_label_selector
+from .api.resource import compute_pod_resource_request
+from .descheduler import EvictionAPI
 from .framework.conflict import conflict_components
 from .framework.events import ActionType, ClusterEvent, EventResource
 from .framework.interface import Code, PluginWithWeight
@@ -123,6 +139,15 @@ from .framework.waiting_pods import WaitingPodsMap
 from .gang import POD_GROUP_LABEL, CoschedulingPlugin, GangDirectory, gang_all_or_nothing
 from .kernels import build as kernel_build
 from .kernels.diag import diag_pack
+from .kernels.filter_score import filter_score_planes
+from .oracle import (
+    fits_resources,
+    node_affinity_fits,
+    node_name_fits,
+    node_schedulable,
+    tolerates_all_hard_taints,
+)
+from .preemption import Evaluator, _is_plain_preemptor
 from .queueing import PriorityQueue
 from .queueing.priority_queue import QueuedPodInfo
 from .sim.store import ADDED, DELETED, MODIFIED, ObjectStore, WatchEvent
@@ -131,6 +156,7 @@ from .state.dictionary import MISSING
 from .state.encoding import ClusterEncoder, apply_scatter
 from .state.node_info import _pod_host_ports
 from .state.units import pow2_round_up as _pow2
+from .whatif.dryrun import PRIORITY_LEVEL_CAP, candidate_mask_device
 
 DEFAULT_SCHEDULER_NAME = "default-scheduler"  # apis/config v1.Pod default
 ASSIGN_MODES = ("auto", "batch", "scan")
@@ -164,6 +190,14 @@ def default_plugins(domain_cap: int, dra_index=None) -> List[PluginWithWeight]:
 # _run_reserve_and_bind outcome: a holds_on_wait Permit plugin (gang
 # Coscheduling) left the pod pending — assume + reserve kept, bind deferred
 _PERMIT_WAIT = object()
+
+
+class _PostFilterStoreFault(RuntimeError):
+    """A store write inside the PostFilter failed (a victim's delete or the
+    nomination's update): the bind phase degrades that pod to
+    nominate-nothing and requeues it (the reference's guard,
+    scheduler.py:2268-2280).  Only store faults take this path; anything
+    else raised inside the PostFilter propagates."""
 
 
 @dataclass
@@ -272,6 +306,18 @@ class _InFlight:
     fetched_at: float = 0.0  # clock() when the result reached the host
     node_names: Optional[List[Optional[str]]] = None  # resolved at _complete
     diag: Optional[np.ndarray] = None  # bool[B, K], unpacked at _complete
+    # the cycle's snapshot and its dynamic state before this batch's
+    # commits (after the nominated reservations and the carries): what
+    # the preemption candidate mask reads
+    dsnap: object = None
+    dyn: object = None
+    # the candidate mask's priority levels (None: the dense form), set at
+    # dispatch for a batch that may preempt; the speculative mask's trip to
+    # the host (a pinned copy and its event) and the mask on the host
+    cand_levels: Optional[np.ndarray] = None
+    cand_pinned: object = None
+    cand_event: object = None
+    cand_np: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -351,6 +397,7 @@ class TorchScheduler:
         coupled_fraction_threshold: float = 0.25,
         extenders: Optional[List] = None,
         profiles: Optional[Dict[str, object]] = None,
+        nominated_fast_bind: bool = True,
     ):
         if assign_mode not in ASSIGN_MODES:
             raise ValueError(f"unknown assign_mode {assign_mode!r}")
@@ -464,6 +511,35 @@ class TorchScheduler:
         # per dispatch that chained on them (known at their completion)
         self.carried_pods = 0
         self.chained_dispatches = 0  # dispatches that chained on in-flight batches
+        # --- preemption (the reference's scheduler.py:597, :628-677) ---
+        # the Evaluator's reprieve sweep runs the C++ pass on the card
+        self.preemption = Evaluator(native=self.device.type == "cuda")
+        # bind a plain preemptor to its nominated node within the failing
+        # attempt (_try_nominated_fast_bind); off = always nominate and requeue
+        self.nominated_fast_bind = nominated_fast_bind
+        # EMA of the batch failure fraction: above 0.25 a batch that may
+        # preempt dispatches its candidate mask with the cycle
+        self._fail_ema = 0.0
+        # nominator: uid → (node name, request units, pod) for pods holding a
+        # nominated node across cycles: their requests are reserved on it in
+        # every fused cycle (K13's nominated bundle) and preemption dry runs
+        # see them there
+        self._nominated: Dict[str, tuple] = {}
+        # uid → dispatch seq at which the pod was preemption-fast-bound: its
+        # nomination stands in for the not-yet-snapshotted assume until the
+        # first dispatch whose snapshot carries the bind (seq strictly
+        # greater) purges it
+        self._fastbound_noms: Dict[str, int] = {}
+        self._dispatch_seq = 0
+        # victim deletes go through the eviction gate with override_pdb
+        self.eviction_api = EvictionAPI(store)
+        # the reference's preemption metrics: PostFilter runs, victims per
+        # preemption, pods fast-bound after preempting; PostFilters that
+        # degraded on a store fault
+        self.preemption_attempts = 0
+        self.preemption_victims: List[int] = []
+        self.fast_binds = 0
+        self.post_filter_errors = 0
         self._unwatch = store.watch(self._on_event)
 
     def _framework(self) -> BatchedFramework:
@@ -584,6 +660,7 @@ class TorchScheduler:
             else:
                 self.queue.update(pod, pod)
         elif ev.type == DELETED:
+            self._nominated.pop(pod.uid, None)
             if assigned or pod.uid in self.cache._pod_states:
                 self.cache.remove_pod(pod)
                 self.queue.move_all_to_active_or_backoff(fwk_events.POD_DELETE)
@@ -893,6 +970,7 @@ class TorchScheduler:
         t0_clk = self.clock()
         builds0 = kernel_build.BUILDS
         cycle = self.queue.scheduling_cycle()
+        self._dispatch_seq += 1
         pad = pad or self.batch_size
         prep = self._take_sync_ahead() if self.overlap_sync else None
         try:
@@ -902,6 +980,13 @@ class TorchScheduler:
             # into the encoder's mirrors before the deferred upload, so the
             # flush rides the same row-scatter as the node sync
             self.dra.flush_to_encoder(self.encoder)
+            # fast-bound nominations whose assume this snapshot now carries:
+            # the reservation would count twice from here on (the marks carry
+            # the seq of the dispatch before their bind phase)
+            for uid, seq in list(self._fastbound_noms.items()):
+                if seq < self._dispatch_seq:
+                    self._fastbound_noms.pop(uid, None)
+                    self._nominated.pop(uid, None)
             t1 = time.perf_counter()
             pods = [qi.pod for qi in infos]
             batch = self.compiler.compile(pods, pad_to=pad)
@@ -925,18 +1010,31 @@ class TorchScheduler:
             self._last_dedup = classes is not None
             t3 = time.perf_counter()
             dsnap, upd = self._deferred_snapshot(prep)
+            nom_rows, nom_req = self._nominated_arrays({qi.pod.uid for qi in infos})
         except Exception:
             self._discard_prep()
             raise
-        node_row, packed, dbatch = self._fused_cycle(
-            batch, mode, classes, coupling, host_auxes, dsnap, upd, carries, gang_seg)
+        node_row, packed, dbatch, dsnap, dyn = self._fused_cycle(
+            batch, mode, classes, coupling, host_auxes, dsnap, upd, carries, gang_seg,
+            nominated=(nom_rows, nom_req))
         self.chained_dispatches += bool(carries)
         fl = _InFlight(infos=infos, batch=batch, dbatch=dbatch, node_row_dev=node_row,
                        packed_dev=packed, t0=t0_clk, cycle=cycle,
                        name_of=dict(self.encoder.row_to_name()), interacts=interacts,
                        node_del_gen=self._node_del_gen, chained=bool(carries),
-                       has_aff=bool(batch.has_affinity), builds0=builds0)
+                       has_aff=bool(batch.has_affinity), builds0=builds0,
+                       dsnap=dsnap, dyn=dyn)
         self._start_fetch(fl)
+        # a chained batch defers preemption to the retry, so neither the
+        # levels nor the speculative mask apply to it; a batch that may
+        # preempt takes its levels now, and when recent batches failed often
+        # its candidate mask goes out with the cycle (the reference's
+        # speculative dispatch, scheduler.py:1859-1877)
+        if not carries and any((p.spec.priority or 0) > 0
+                               and p.spec.preemption_policy != "Never" for p in pods):
+            fl.cand_levels = self._priority_levels()
+            if self._fail_ema > 0.25:
+                self._start_cand_fetch(fl, self._candidate_mask(fl))
         t4 = time.perf_counter()
         self.phase_wall["snapshot"] += t1 - t0
         self.phase_wall["compile"] += t_hp - t1
@@ -988,25 +1086,34 @@ class TorchScheduler:
         fl.fetch_thread.start()
 
     def _fused_cycle(self, batch, mode: str, classes, coupling, host_auxes, dsnap, upd,
-                     prevs: Sequence[PrevBatch], gang_seg: np.ndarray):
+                     prevs: Sequence[PrevBatch], gang_seg: np.ndarray, nominated):
         """The device half of a dispatch → (node_row i32[B], packed i32[3, B],
-        the device batch), all on the device.  ``mode`` is the router's
+        the device batch, the snapshot, the dynamic state before this
+        batch's commits), all on the device.  ``mode`` is the router's
         "batch" or "scan"; ``classes`` the dedup gate's (class_of, rep_rows)
         or None; ``gang_seg`` i32[B] the batch's gang segment ids (−1: no
-        gang).  The dedup engine is the reference's fused_batch dedup
-        branch (scheduler.py:969-1017), the full auction its ``classes is
-        None`` branch (:985-997), the scan its fused_greedy (:954-967); each
-        ends in the gang mask (K20) and the diagnosis + pack (K22)."""
+        gang); ``nominated`` the (rows i32[K], req f32[K, R]) host arrays of
+        ``_nominated_arrays``.  The dedup engine is the reference's
+        fused_batch dedup branch (scheduler.py:969-1017), the full auction
+        its ``classes is None`` branch (:985-997), the scan its fused_greedy
+        (:954-967); each ends in the gang mask (K20) and the diagnosis +
+        pack (K22)."""
         dev = self.device
         fw = self._framework()
         dsnap = apply_scatter(dsnap, upd)
         self.encoder.commit_device(dsnap)
-        # the reference's reserve_nominated (scheduler.py:889) adds only the
-        # requests of pods that preemption nominated; the port has no
-        # preemption (ROADMAP Queue A item 9, Queue B B2), so there are none.
-        # The in-flight carries' requests go in at their decided rows (K13),
-        # into copies: the snapshot stays as the next row-scatter needs it.
-        dyn = apply_prev_delta(initial_dynamic_state(dsnap), prevs)
+        # the reference's reserve_nominated (scheduler.py:889): the nominated
+        # pods' requests at their nominated rows, cast f32 → i32 as there
+        # (``astype(requested.dtype)``), into ``requested`` only; then the
+        # in-flight carries' requests at their decided rows — one K13 launch
+        # for every bundle, into copies: the snapshot stays as the next
+        # row-scatter needs it.  No nominated row: no bundle (all rows −1
+        # add nothing).
+        nom = None
+        if bool((nominated[0] >= 0).any()):
+            nom = (torch.from_numpy(nominated[0]).to(dev),
+                   torch.from_numpy(nominated[1]).to(dev).to(torch.int32))
+        dyn = apply_prev_delta(initial_dynamic_state(dsnap), prevs, nominated=nom)
         dbatch = batch_to_device(batch, dev)
         b = batch.size
         if classes is not None:
@@ -1045,7 +1152,7 @@ class TorchScheduler:
             plane = res.diag_plane
         node_row = gang_all_or_nothing(res.node_row, torch.from_numpy(gang_seg).to(dev))
         packed = diag_pack(plane, self.n_filters, class_t, node_row, res.rounds)
-        return node_row, packed, dbatch
+        return node_row, packed, dbatch, dsnap, dyn
 
     # --- engine routing (the reference's one shared predicate) -------------------
 
@@ -1249,43 +1356,45 @@ class TorchScheduler:
                 node_row[i] = -1  # node gone since dispatch — retry the pod
                 continue
             fl.node_names[i] = name
+            self._nominated.pop(qi.pod.uid, None)
             self.cache.assume_pod(qi.pod, name)
         return node_row
 
     def _bind_phase(self, fl: _InFlight, node_row: np.ndarray) -> CycleStats:
         """The binding cycle of every placed pod (reserve → permit → bind; a
-        gang member whose gang is not complete holds at Permit); diagnose
-        and requeue every failed one; feed the micro-bucket policy's latency
-        profile of the batch's pad tier.
+        gang member whose gang is not complete holds at Permit); diagnosis,
+        preemption and requeue for every failed one; feed the micro-bucket
+        policy's latency profile of the batch's pad tier and the failure EMA
+        (the reference's _bind_phase, scheduler.py:2058-2390).
+
+        A failed pod that may preempt — its priority above the lowest
+        scheduled pod's, preemptionPolicy not Never, its batch not chained
+        (the dry run could neither see nor evict the carried placements: the
+        retry blocks the chain and preempts clean), and the gang guard's
+        leave (only a gang's last missing member preempts) — runs the
+        PostFilter.  Its context (the PDB list, row → node name) and the
+        batch's candidate mask are built at the first such pod; the mask was
+        dispatched with the cycle when recent batches failed often.  A pod
+        fast-bound by its PostFilter counts as scheduled; its nomination
+        outlives this phase (marked with this dispatch seq) so that a batch
+        dispatched before the bind still sees the claim.  A store fault
+        inside the PostFilter degrades that pod to nominate-nothing: it
+        requeues with backoff.
 
         A pod's attempt latency is the reference's (scheduler.py:2093-2111,
         2365-2378): its batch's algorithm time — dispatch start to the
-        moment the result reached the host — plus the pod's own bind
-        segment.  The wait between the fetch and the bind phase (the
-        pipeline's cycles in flight) is not part of it."""
+        moment the result reached the host — plus the pod's own bind or
+        PostFilter segment.  The wait between the fetch and the bind phase
+        (the pipeline's cycles in flight) is not part of it."""
         t0 = time.perf_counter()
         algo = max(fl.fetched_at - fl.t0, 0.0)
         infos = fl.infos
         stats = CycleStats(attempted=len(infos))
-        failing = [i for i in range(len(infos)) if int(node_row[i]) < 0]
-        # a chained batch defers preemption to the retry, as the reference
-        if failing and not fl.chained:
-            valid = self.encoder.pod_valid
-            prios = self.encoder.pod_priority[valid]
-            min_sched_prio = int(prios.min()) if prios.size else 1 << 30
-            for i in failing:
-                pod = infos[i].pod
-                # the gang guard: a member of a gang that cannot fully place
-                # never preempts (the reference's allows_preemption)
-                if pod.spec.preemption_policy != "Never" \
-                        and min_sched_prio < (pod.spec.priority or 0) \
-                        and self.gangs.allows_preemption(pod):
-                    raise NotImplementedError(
-                        f"pod {pod.key()} failed and could preempt: preemption "
-                        "is not ported yet (ROADMAP Queue A item 9)")
         fw = self._framework()
         names = fw.filter_names
         batch_attempts: List[float] = []
+        min_sched_prio = pf_ctx = cand_np = None
+        fast_bound_uids: List[str] = []
         for i, qi in enumerate(infos):
             t_pod = self.clock()
             row = int(node_row[i])
@@ -1317,12 +1426,41 @@ class TorchScheduler:
                     failing_plugins = {names[k] for k in range(len(names))
                                        if not bool(row_bits[k])}
                     qi.unschedulable_plugins = failing_plugins or set(names)
-                stats.unschedulable += 1
-                self.queue.add_unschedulable(qi, fl.cycle)
+                if min_sched_prio is None:
+                    prios = self.encoder.pod_priority[self.encoder.pod_valid]
+                    min_sched_prio = int(prios.min()) if prios.size else 1 << 30
+                fast_bound = None
+                if (qi.pod.spec.preemption_policy != "Never"
+                        and min_sched_prio < (qi.pod.spec.priority or 0)
+                        and not fl.chained
+                        and self.gangs.allows_preemption(qi.pod)):
+                    if pf_ctx is None:
+                        pf_ctx = self._post_filter_context(fl)
+                    if cand_np is None:
+                        cand_np = self._cand_np(fl)
+                    try:
+                        fast_bound = self._run_post_filter(fw, qi, cand_np[i], pf_ctx)
+                    except _PostFilterStoreFault:
+                        self.post_filter_errors += 1
+                        fast_bound = None
+                if fast_bound is not None:
+                    # the "scheduled_fast" outcome: bound in this attempt
+                    fast_bound_uids.append(qi.pod.uid)
+                    stats.scheduled += 1
+                    self.fast_binds += 1
+                else:
+                    stats.unschedulable += 1
+                    self.queue.add_unschedulable(qi, fl.cycle)
             attempt = algo + max(self.clock() - t_pod, 0.0)
             self.attempt_seconds.append(attempt)
             if not held:  # as the reference, a held attempt feeds no tier
                 batch_attempts.append(attempt)
+        # the fast-bound pods' nominations outlive this phase (a batch
+        # dispatched before it runs reads a snapshot without their assumes);
+        # the first dispatch with a later seq purges them
+        for uid in fast_bound_uids:
+            if uid in self._nominated:
+                self._fastbound_noms[uid] = self._dispatch_seq
         stats.batch_seconds = self.clock() - fl.t0
         self.phase_wall["bind"] += time.perf_counter() - t0
         # the pad tier's profile: an EMA (α = 0.5) of the batch's largest
@@ -1334,7 +1472,215 @@ class TorchScheduler:
             tier, hi = fl.batch.size, max(batch_attempts)
             prev = self._tier_p99.get(tier)
             self._tier_p99[tier] = hi if prev is None else 0.5 * prev + 0.5 * hi
+        if stats.attempted:
+            # the EMA drives the speculative candidate mask, so it counts
+            # the attempts that needed preemption: fast-bound pods too
+            frac = (stats.unschedulable + len(fast_bound_uids)) / stats.attempted
+            self._fail_ema = 0.5 * self._fail_ema + 0.5 * frac
         return stats
+
+    # --- preemption (DefaultPreemption's PostFilter) ------------------------------
+
+    # static plugins preemption cannot fix (the reference's _STATIC_PLUGINS,
+    # scheduler.py:3521): their K1 bits gate the candidate mask
+    _STATIC_PLUGINS = ("NodeName", "NodeUnschedulable", "TaintToleration", "NodeAffinity")
+
+    def _nominated_arrays(self, batch_uids: Set[str]):
+        """The nominated pods not in this batch as (rows i32[K] (−1 pad),
+        requests f32[K, R]) — the reference's _nominated_arrays
+        (scheduler.py:3494): K is a sticky pow-2 cap with a floor of twice
+        the batch; a nomination whose node left the encoder is dropped."""
+        rows, reqs = [], []
+        for uid, (node_name, req, _pod) in list(self._nominated.items()):
+            if uid in batch_uids:
+                continue
+            row = self.encoder.node_rows.get(node_name)
+            if row is None:
+                del self._nominated[uid]
+                continue
+            rows.append(row)
+            reqs.append(req)
+        k = max(_pow2(len(rows), 4), getattr(self, "_nom_cap", _pow2(2 * self.batch_size, 4)))
+        self._nom_cap = k
+        r = self.encoder.cfg.num_resource_dims
+        out_rows = np.full(k, -1, dtype=np.int32)
+        out_reqs = np.zeros((k, r), dtype=np.float32)
+        if rows:
+            out_rows[: len(rows)] = rows
+            out_reqs[: len(rows)] = np.asarray(reqs, dtype=np.float32)
+        return out_rows, out_reqs
+
+    def _priority_levels(self) -> Optional[np.ndarray]:
+        """Sorted unique scheduled-pod priorities padded to
+        PRIORITY_LEVEL_CAP with i32-max (the reference's _priority_levels,
+        scheduler.py:3583); None (the dense form, K29) above the cap."""
+        valid = np.asarray(self.encoder.pod_valid)
+        u = np.unique(np.asarray(self.encoder.pod_priority)[valid])
+        if u.size > PRIORITY_LEVEL_CAP:
+            return None
+        out = np.full(PRIORITY_LEVEL_CAP, np.iinfo(np.int32).max, dtype=np.int32)
+        out[: u.size] = u
+        return out
+
+    def _candidate_mask(self, fl: _InFlight) -> torch.Tensor:
+        """bool[B, N] on the device: the reference's candidate program
+        (``cand_mask``, scheduler.py:1019-1028, via _candidate_mask :3598)
+        over the cycle's snapshot and its pre-commit dynamic state.  The
+        static filters are K1's bits over the batch rows (live nodes and
+        valid rows folded in); then K27 + K28 over ``fl.cand_levels``, or
+        K29 without levels."""
+        fw = self._framework()
+        dbatch, dsnap, dyn = fl.dbatch, fl.dsnap, fl.dyn
+        fs_plan = fw.kernel_plans(frozenset())[0]
+        bits, _raw = filter_score_planes(dbatch, dsnap, dyn,
+                                         *fw.static_inputs(dbatch, dsnap, dyn), fs_plan)
+        mask = 0
+        for name in self._STATIC_PLUGINS:
+            mask |= 1 << fs_plan.bit_of[name]
+        levels = None if fl.cand_levels is None else \
+            torch.from_numpy(fl.cand_levels).to(self.device)
+        return candidate_mask_device(dbatch, dsnap, dyn, bits, mask, levels)
+
+    @staticmethod
+    def _start_cand_fetch(fl: _InFlight, cand: torch.Tensor) -> None:
+        """Start the speculative mask's trip to the host: a non_blocking
+        copy into pinned memory and its event (on the CPU it is there)."""
+        if cand.device.type != "cuda":
+            fl.cand_np = cand.numpy()
+            return
+        fl.cand_pinned = torch.empty(cand.shape, dtype=cand.dtype, pin_memory=True)
+        fl.cand_pinned.copy_(cand, non_blocking=True)
+        fl.cand_event = torch.cuda.Event()
+        fl.cand_event.record()
+
+    def _cand_np(self, fl: _InFlight) -> np.ndarray:
+        """The batch's candidate mask on the host: the speculative copy when
+        it was dispatched, else computed now (one device round per failing
+        batch)."""
+        if fl.cand_np is None and fl.cand_event is not None:
+            fl.cand_event.synchronize()
+            fl.cand_np = fl.cand_pinned.numpy().copy()
+        if fl.cand_np is None:
+            fl.cand_np = self._candidate_mask(fl).cpu().numpy()
+        return fl.cand_np
+
+    def _post_filter_context(self, fl: _InFlight):
+        """The batch-hoisted PostFilter context (scheduler.py:2238-2256):
+        the PDB list and row → node name as an object array, from the
+        dispatch-time map (a later sync may reuse a deleted node's row)."""
+        name_of = fl.name_of
+        names_arr = np.full((max(name_of) + 1) if name_of else 0, None, dtype=object)
+        for r, nm in name_of.items():
+            names_arr[r] = nm
+        return self.store.list("PodDisruptionBudget")[0], names_arr
+
+    def _run_post_filter(self, fw, qi: QueuedPodInfo, cand_row: np.ndarray,
+                         pf_ctx) -> Optional[str]:
+        """DefaultPreemption's PostFilter (the reference's _run_post_filter,
+        scheduler.py:3605; scheduler.go:533-552 → preemption.go:138): the
+        candidate nodes from the mask row, the Evaluator's pick, every
+        victim evicted through the gate (override_pdb), the nomination
+        recorded and written, then the fast bind.  → the node name when the
+        pod was fast-bound, else None (nominated and requeued, or nothing to
+        preempt).  A store fault raises _PostFilterStoreFault."""
+        pod = qi.pod
+        if pod.spec.preemption_policy == "Never":
+            return None
+        self.preemption_attempts += 1
+        rows = np.where(cand_row)[0]
+        if rows.size == 0:
+            return None
+        pdbs, names_arr = pf_ctx
+        rows = rows[rows < names_arr.size]
+        picked = names_arr[rows]
+        names = picked[picked != None].tolist()  # noqa: E711 — elementwise
+        nominated: Dict[str, List[v1.Pod]] = {}
+        for _uid, (nn, _req, npod) in self._nominated.items():
+            nominated.setdefault(nn, []).append(npod)
+        cand = self.preemption.preempt(pod, self.snapshot, names, pdbs, nominated=nominated)
+        if cand is None:
+            return None
+        for victim in cand.victims:
+            result = self.eviction_api.evict(
+                victim, reason=f"Preempted by {pod.key()}",
+                policy="preemption", override_pdb=True, pdbs=pdbs)
+            if result.allowed and not result.evicted and result.reason \
+                    and result.reason.startswith("store delete failed"):
+                raise _PostFilterStoreFault(result.reason)
+        self.preemption_victims.append(len(cand.victims))
+        pod.status.nominated_node_name = cand.node_name
+        self._nominated[pod.uid] = (
+            cand.node_name, np.asarray(self.encoder.pod_request_units(pod)), pod)
+        try:
+            self.store.update("Pod", pod)
+        except Exception as e:  # the store's own fault, whatever its type
+            raise _PostFilterStoreFault(f"nomination write failed: {e}") from e
+        if self._try_nominated_fast_bind(fw, qi, cand):
+            return cand.node_name
+        return None
+
+    def _try_nominated_fast_bind(self, fw, qi: QueuedPodInfo, cand) -> bool:
+        """Bind a successful preemptor to its nominated node in the same
+        attempt (the reference's _try_nominated_fast_bind, scheduler.py:3667;
+        the nominated-node fast path of scheduler.go:926-935 with no queue
+        round trip, exact here because the victims are gone at eviction).
+        Only for plain preemptors without scalar requests, after the live
+        cache re-checks the static filters and the fit.  The claimable
+        guard: when a pod of an in-flight batch could fit the node's
+        snapshot-view free space, the preemptor binds only if it fits in
+        what its evictions freed; else it stays nominated and requeues."""
+        if not self.nominated_fast_bind:
+            return False
+        pod = qi.pod
+        has_anti = bool(self.snapshot.have_pods_with_required_anti_affinity_list)
+        if not _is_plain_preemptor(pod, has_anti):
+            return False
+        if compute_pod_resource_request(pod).scalar_resources:
+            return False
+        # the live cache: the evictions above flowed through the watch
+        info = self.cache._nodes.get(cand.node_name)
+        if info is None or info.node is None:
+            return False
+        node = info.node
+        if not (node_name_fits(pod, node) and node_schedulable(pod, node)
+                and node_affinity_fits(pod, node)
+                and tolerates_all_hard_taints(pod, node)
+                and fits_resources(pod, info)):
+            return False
+        row = self.encoder.node_rows.get(cand.node_name)
+        if row is not None and self._inflight_q:
+            free_snap = (self.encoder.allocatable[row].astype(np.int64)
+                         - self.encoder.requested[row])
+            claimable = any(
+                bool(np.any(np.all(
+                    np.asarray(fl2.batch.request)[np.asarray(fl2.batch.valid)]
+                    <= free_snap[None, :], axis=1)))
+                for fl2 in self._inflight_q)
+            if claimable:
+                req = compute_pod_resource_request(pod)
+                freed = np.zeros(4, dtype=np.int64)
+                for victim in cand.victims:
+                    vr = compute_pod_resource_request(victim)
+                    freed += (vr.milli_cpu, vr.memory, vr.ephemeral_storage, 1)
+                need = np.array([req.milli_cpu, req.memory, req.ephemeral_storage, 1],
+                                dtype=np.int64)
+                if not bool(np.all(need <= freed)):
+                    return False
+        pod.status.nominated_node_name = None
+        self.cache.assume_pod(pod, cand.node_name)
+        ok = self._run_reserve_and_bind(fw, qi, cand.node_name)
+        if ok is _PERMIT_WAIT:
+            # a gang member whose gang is not complete: no held fast bind —
+            # cancel the hold (which forgets the assume) and stay nominated
+            self._cancel_waiting_bind(pod.uid)
+            pod.status.nominated_node_name = cand.node_name
+            return False
+        if not ok:
+            self.cache.forget_pod(pod)
+            pod.status.nominated_node_name = cand.node_name
+            return False
+        self.cache.finish_binding(pod)
+        return True
 
     # --- the binding cycle and the Permit hold ------------------------------------
 

@@ -61,6 +61,10 @@ REQUIRED = ("kubernetes_tpu_torch.perf.harness", "kubernetes_tpu_torch.perf.work
             "kubernetes_tpu_torch.dra.api", "kubernetes_tpu_torch.dra.index",
             "kubernetes_tpu_torch.dra.controller", "kubernetes_tpu_torch.dra.plugin",
             "kubernetes_tpu_torch.kernels.dra",
+            "kubernetes_tpu_torch.oracle", "kubernetes_tpu_torch.whatif",
+            "kubernetes_tpu_torch.whatif.dryrun", "kubernetes_tpu_torch.preemption",
+            "kubernetes_tpu_torch.descheduler", "kubernetes_tpu_torch.descheduler.evictions",
+            "kubernetes_tpu_torch.kernels.preempt",
             "kubernetes_tpu_torch.scheduler")
 
 
@@ -132,4 +136,25 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
         torch.ones((2, 2), dtype=torch.int32), req, nz)
     assert commit.tolist() == [True, True] and choice.tolist() == [1, 2]
     assert req[1].tolist() == [1, 1] and req[2].tolist() == [1, 1]
+    # K27–K29: one pod at priority 0 on node 1, a batch pod at priority 5
+    from kubernetes_tpu_torch.kernels.preempt import (
+        candidate_dense,
+        candidate_fit,
+        priority_prefix,
+    )
+
+    one = torch.ones(1, dtype=torch.bool)
+    node = torch.tensor([1], dtype=torch.int32)
+    prio = torch.zeros(1, dtype=torch.int32)
+    preq = torch.full((1, 2), 2, dtype=torch.int32)
+    levels = torch.tensor([0, 2**31 - 1], dtype=torch.int32)
+    prefix, cnt = priority_prefix(one, node, prio, preq, levels, 3)
+    assert prefix[1, 1].tolist() == [2.0, 2.0] and cnt[1].tolist() == [0.0, 1.0, 0.0]
+    alloc = torch.full((3, 2), 4, dtype=torch.int32)
+    args = (torch.tensor([5], dtype=torch.int32), torch.full((1, 2), 3, dtype=torch.int32),
+            alloc, torch.full((3, 2), 3, dtype=torch.int32),
+            torch.ones((1, 3), dtype=torch.int32), 1)
+    fit = candidate_fit(prefix, cnt, levels, *args)
+    assert fit.tolist() == [[False, True, False]]
+    assert candidate_dense(one, node, prio, preq, *args).tolist() == fit.tolist()
     assert all(n == 0 for n in kernels.LAUNCHES.values())

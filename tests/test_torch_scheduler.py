@@ -204,7 +204,18 @@ def test_scope_guard_raises(kind, monkeypatch):
     they bind as the reference binds them, through that engine.  So are
     gang members: one whose PodGroup does not exist stays pending, as in
     the reference.  So are pods with resource claims: one whose claim does
-    not exist stays pending, as in the reference."""
+    not exist stays pending, as in the reference.  So is a failing pod that
+    could preempt: its PostFilter runs, and a pod that fits no node even
+    with every lower-priority pod evicted stays pending, the running pod
+    untouched, as in the reference."""
+    if kind == "preemptor":
+        jb = _guard_bindings("jax", [_GUARD_NODE], [_GUARD_RUNNING],
+                             lambda pkg: _guard_pods(kind, pkg), 16)
+        tb = _guard_bindings("torch", [_GUARD_NODE], [_GUARD_RUNNING],
+                             lambda pkg: _guard_pods(kind, pkg), 16)
+        assert tb == jb
+        assert tb["running"] == "n0" and not tb["preemptor"]
+        return
     if kind in ("gang", "claim"):
         # gang members are in the slice now (the gang runtime): a member of
         # a PodGroup that does not exist is rejected at the Coscheduling
