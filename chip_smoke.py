@@ -5,7 +5,7 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the twenty-nine CUDA kernels from kubernetes_tpu_torch/csrc/ (one
+1. Build the thirty-one CUDA kernels from kubernetes_tpu_torch/csrc/ (one
    nvcc per source) and the host C++ reprieve sweep
    (csrc/preempt_sweep.cpp, g++), all started together.
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
@@ -46,8 +46,14 @@ Phases, all of which must pass (any failure exits non-zero):
    pods, dead nodes, padding rows and failing static bits, and with batch
    rows at a (node, threshold)'s exact float32 fit value and one ulp above;
    K29 (the dense form) at B = 64 over 300 priorities; K13 with the
-   nominated bundle beside two in-flight bundles.  Their plain versions
-   run on CPU copies of the inputs.
+   nominated bundle beside two in-flight bundles.  K30 (the what-if fork
+   masks) at Defrag's shapes (K = 4, N = 8192, P = 16384) with a duplicate
+   victim, −1 pads in every group, a repeated affinity cell, with and
+   without claim-holding victims; K31 (the node-add rows) at
+   AutoscaleGang's shapes (K = 4, 4096 rows a fork) with pads at row 0 and
+   a real add at row 0 with pads behind it (the add must win); K30 on K31's
+   per-fork node arrays; both with K = 4 stacked equal to four K = 1
+   launches.  Their plain versions run on CPU copies of the inputs.
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
    on cuda, synchronous, launch counts zeroed just before and read just
@@ -120,6 +126,21 @@ Phases, all of which must pass (any failure exits non-zero):
    ``perf.harness.run_workload`` (pipelined, B = 512): the same checks,
    K27 + K28 launched by the failure warm before the window and inside it,
    no kernel built in the window.
+4f. Counterfactuals through ``perf.harness.run_workload`` (pipelined, B =
+   512, the suite's controller driven once per measured cycle, launch
+   counts zeroed just before): Defrag/5000Nodes (5000 hosts in 8-host
+   slices, each fragmented by a pre-bound 2-cpu straggler, 312 gangs of 8;
+   the descheduler's slice defragmentation): every gang bound whole inside
+   one slice, no gang member evicted, 8 evictions per freed slice, K1–K4,
+   K20 and K30 inside the window; pods/s, time to full slice p50 / p99,
+   DeschedulerEvictions and WhatIfForks (count and per second), and one
+   profiled evaluate of 4 straggler forks (its device idle share).
+   AutoscaleGang/5000Nodes (1200 initial hosts, 600 gangs of 8; the
+   cluster autoscaler adding whole slices from a NodeGroup): every gang
+   bound whole, the group's nodes those the applied scale-ups created
+   (less any scale-down once the demand was met), K30 and K31 inside the
+   window; pods/s, AutoscalerScaleUps, WhatIfForks per second, time to
+   full slice.
 4b. The full auction and the exact scan at full width (5000 nodes, B =
    512, measured pods with the launch counts zeroed just before them, every
    measured batch through the expected engine, one profiled cycle each):
@@ -161,6 +182,11 @@ Phases, all of which must pass (any failure exits non-zero):
    nominated bundle with live rows), and 200 nodes whose running pods
    carry 800 priorities (the dense form, K29): cuda == cpu on bindings,
    victims, the nominations after every step and the outcomes.
+   Defrag/500Nodes and AutoscaleGang/500Nodes driven synchronously with
+   their controllers on a clock the script moves: cuda == cpu on bindings,
+   evicted pods, the controllers' decisions and fork counts, and on the
+   card a 4-fork evaluate stacked (one K30 / K31 launch) equal to one by
+   one.
 6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
    round; K5–K8: a TopologySpreading cycle's first round; K9–K12: a
    SchedulingPreferredPodAffinity cycle's first round; K13–K16: the latest
@@ -193,6 +219,10 @@ Phases, all of which must pass (any failure exits non-zero):
    K27 beside ``index_put_(accumulate=True)`` + ``cumsum``, K29 beside the
    dense einsum; K13 with the nominated bundle alone (B2, 512 live rows of
    a 1024-row cap) beside ``index_add_``.
+6f. K30 on the arguments of its latest call at the largest fork count on
+   the Defrag harness run, K31 on those of its latest at the largest fork
+   count on the AutoscaleGang harness run, timed as in 6 (no one PyTorch
+   call computes either).
 
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
 on the path that carries each kernel: K1–K8 on the TopologySpreading run,
@@ -202,14 +232,16 @@ SchedulingPreferredPodAffinity runs, K17 and K18 on the TopologySpreading
 scan, K19 on the two pod-affinity scans, the C = 512 rows on the full
 auction that gave their arguments, K20–K23 on the GangBasic synchronous
 run, K24–K26 on the DeviceClaimGang synchronous run, K27 and K28 on the
-PreemptionBasic synchronous run, K29 on the dense preemption run), the card's name and power limit as
+PreemptionBasic synchronous run, K29 on the dense preemption run, K30 on the
+Defrag harness run, K31 on the AutoscaleGang harness run), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
 cycles' tables to chiprun_out/profile_cycle.txt,
 chiprun_out/profile_spread_cycle.txt, chiprun_out/profile_affinity_cycle.txt,
 chiprun_out/profile_pipelined_cycle.txt, chiprun_out/profile_gang_cycle.txt,
-chiprun_out/profile_claim_gang_cycle.txt and chiprun_out/profile_preempt_cycle.txt.
+chiprun_out/profile_claim_gang_cycle.txt, chiprun_out/profile_preempt_cycle.txt and
+chiprun_out/profile_evaluate.txt (the Defrag cluster's 4-fork evaluate).
 """
 
 from __future__ import annotations
@@ -1454,7 +1486,7 @@ def northstar_harness(counters: KernelArgs, out_dir: Path) -> dict:
     w = build_workload("NorthStar", "5000Nodes/10000Pods")
     seen = {}
 
-    def inspect(store, sched):
+    def inspect(store, sched, _ctrl):
         torch.cuda.synchronize()
         seen["launches"] = dict(kernels.LAUNCHES)
         seen["sched"] = sched
@@ -3243,7 +3275,7 @@ def gang_basic_harness(dev_name: str = "cuda") -> dict:
 
     seen = {}
 
-    def inspect(store, sched):
+    def inspect(store, sched, _ctrl):
         torch.cuda.synchronize()
         seen["launches"] = dict(kernels.LAUNCHES)
         check_bound_and_fit("GangBasic harness", store)
@@ -3724,7 +3756,7 @@ def claim_gang_harness(dev_name: str = "cuda") -> dict:
 
     seen = {}
 
-    def inspect(store, sched):
+    def inspect(store, sched, _ctrl):
         torch.cuda.synchronize()
         seen["launches"] = dict(kernels.LAUNCHES)
         seen["claims"] = claim_checks("DeviceClaimGang harness", store)
@@ -4186,7 +4218,7 @@ def preemption_basic_harness(dev_name: str = "cuda") -> dict:
 
     seen = {}
 
-    def inspect(store, sched):
+    def inspect(store, sched, _ctrl):
         torch.cuda.synchronize()
         seen["launches"] = dict(kernels.LAUNCHES)
         seen["checks"] = preempt_checks("PreemptionBasic harness", store, 5000, 20000, 5000)
@@ -4466,6 +4498,607 @@ def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) ->
             f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
             + (f", library {rr['library_ms']:.5f} ms" if rr["library_ms"] is not None else "")
             + f"; {rr['shape']}")
+    return rows_out
+
+
+# --- phases 4f / 6f: counterfactuals (the whatif fork and engine, the descheduler,
+# the cluster autoscaler) ---------------------------------------------------------------
+
+FORK_KERNELS = ("fork_masks", "fork_add_rows")
+FORK_SOURCE = "kubernetes_tpu_torch/csrc/fork.cu"
+FORK_REPLACES = {"fork_masks": "kubernetes_tpu/whatif/fork.py:92",
+                 "fork_add_rows": "kubernetes_tpu/whatif/fork.py:82"}
+FORK_SYMBOLS = {"fork_masks": "fork_", "fork_add_rows": "fork_add_rows_kernel"}
+WHATIF_FORK = "kubernetes_tpu_torch.whatif.fork"
+FORK_TARGETS = {k: (WHATIF_FORK, k, None) for k in FORK_KERNELS}
+
+
+def fork_case(gen, *, k=4, n=8192, p=16384, r=8, g=8, d=8, v=8, a=8, dd=8, chips=True):
+    """K30's inputs on the CPU: the live node / pod / affinity arrays and K
+    payloads — victims with a duplicate, −1 pads in every group, affinity
+    contributions (one repeated), claim-holding victims, node removes."""
+    import torch
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    live = {"node_valid": torch.rand(n, generator=gen) < 0.97,
+            "requested": ri(0, 1 << 20, n, r), "non_zero": ri(0, 1 << 20, n, 2),
+            "claim_allocated": ri(0, 5, n), "pod_valid": torch.rand(p, generator=gen) < 0.9,
+            "pod_request": ri(0, 5000, p, r), "pod_non_zero": ri(0, 5000, p, 2),
+            "aff_counts": ri(0, 50, g, d).float()}
+    vic_p = torch.full((k, v), -1, dtype=torch.int32)
+    vic_n = torch.zeros((k, v), dtype=torch.int32)
+    aff_r = torch.full((k, a), -1, dtype=torch.int32)
+    aff_v = torch.zeros((k, a), dtype=torch.int32)
+    del_r = torch.full((k, dd), -1, dtype=torch.int32)
+    vic_c = torch.zeros((k, v), dtype=torch.int32)
+    for f in range(k):
+        nv = v - 1 - f  # a pad in every fork
+        vic_p[f, :nv] = ri(0, p, nv)
+        vic_p[f, 1] = vic_p[f, 0]  # a duplicate victim
+        vic_n[f, :nv] = ri(0, n, nv)
+        vic_c[f, :nv] = ri(0, 5, nv)
+        na = a - 1 - f
+        aff_r[f, :na] = ri(0, g, na)
+        aff_v[f, :na] = ri(0, d, na)
+        aff_r[f, 1], aff_v[f, 1] = aff_r[f, 0], aff_v[f, 0]
+        del_r[f, : f + 1] = ri(0, n, f + 1)
+    payload = {"vic_pod_rows": vic_p, "vic_node_rows": vic_n, "aff_rows": aff_r,
+               "aff_vals": aff_v, "del_rows": del_r,
+               "vic_claim_chips": vic_c if chips else None}
+    return live, payload
+
+
+def add_case(gen, *, k=4, n=8192, m=4096, real=(3072, 1536, 768, 1)):
+    """K31's inputs on the CPU: the twenty live node arrays (synthetic_snapshot's
+    rows) and K forks of template rows — fork f holds ``real[f]`` real adds on
+    distinct rows, then pads at row 0 (ok = False); the last fork's one real
+    add sits at row 0 with pads behind it."""
+    import torch
+
+    from kubernetes_tpu_torch.state.encoding import NODE_ARRAYS
+
+    snap = synthetic_snapshot(n, gen, "cpu")
+    arrays = [getattr(snap, name) for name in NODE_ARRAYS]
+    rows = torch.zeros((k, m), dtype=torch.int32)
+    ok = torch.zeros((k, m), dtype=torch.bool)
+    for f in range(k):
+        nr = real[f % len(real)]
+        pick = torch.randperm(n - 1, generator=gen)[:nr].to(torch.int32) + 1
+        if f == k - 1:
+            pick[0] = 0  # a real add at row 0, pads behind it
+        rows[f, :nr] = pick
+        ok[f, :nr] = True
+    vals = []
+    for a in arrays:
+        shape = (k, m) + tuple(a.shape[1:])
+        if a.dtype == torch.bool:
+            vals.append(torch.rand(shape, generator=gen) < 0.5)
+        elif a.dtype == torch.int32:
+            vals.append(torch.randint(0, 9000, shape, generator=gen, dtype=torch.int32))
+        else:
+            vals.append(torch.rand(shape, generator=gen) * 100)
+    return arrays, rows, ok, vals
+
+
+def _masks_args(live, payload, node=None):
+    """fork_masks' positional arguments (node arrays from ``node`` when K31
+    gave them per fork) and its keyword."""
+    node = node or {}
+    args = [node.get("node_valid", live["node_valid"]),
+            node.get("requested", live["requested"]),
+            node.get("non_zero_requested", live["non_zero"]),
+            node.get("claim_allocated", live["claim_allocated"]),
+            live["pod_valid"], live["pod_request"], live["pod_non_zero"], live["aff_counts"],
+            payload["vic_pod_rows"], payload["vic_node_rows"], payload["aff_rows"],
+            payload["aff_vals"], payload["del_rows"]]
+    return args, {"vic_claim_chips": payload["vic_claim_chips"]}
+
+
+def _to(x, dev):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k_: _to(v, dev) for k_, v in x.items()}
+    return x
+
+
+def _masks_pairs(got, want):
+    names = ("node_valid", "pod_valid", "requested", "non_zero", "aff_counts",
+             "claim_allocated")
+    return [(nm, a.cpu(), b) for nm, a, b in zip(names, got, want) if b is not None]
+
+
+def check_fork_kernels(dev) -> dict:
+    """K30 and K31 against their plain versions, exactly (the plain versions
+    on CPU copies of the same inputs): K30 at Defrag's shapes (N = 8192, P =
+    16384, R = 8, K = 4 forks of 8 victims, 8 affinity contributions and up
+    to 4 removes) with a duplicate victim, −1 pads in every group, a
+    repeated affinity cell and claim-holding victims, and without the claim
+    plane; K31 at AutoscaleGang's shapes (K = 4, M = 4096 rows a fork, up to
+    3072 real adds) with pads at row 0 and a real add at row 0 with pads
+    behind it, then K30 on K31's per-fork node arrays; K = 4 stacked equal
+    to four K = 1 launches, for both kernels."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import fork as KF
+    from kubernetes_tpu_torch.state.encoding import NODE_ARRAYS
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    err = {k_: 0.0 for k_ in FORK_KERNELS}
+    for chips in (True, False):
+        live, payload = fork_case(gen, chips=chips)
+        args, kw = _masks_args(live, payload)
+        got = KF.fork_masks(*_to(args, dev), **_to(kw, dev))
+        want = KF.fork_masks_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err["fork_masks"] = max(err["fork_masks"], require_equal(
+            f"fork_masks (Defrag shapes, claims {chips})", _masks_pairs(got, want)))
+        # stacked == one launch a fork
+        for f in range(4):
+            one = {k_: (v[f:f + 1] if v is not None else None) for k_, v in payload.items()}
+            a1, kw1 = _masks_args(live, one)
+            g1 = KF.fork_masks(*_to(a1, dev), **_to(kw1, dev))
+            torch.cuda.synchronize()
+            require_equal(f"fork_masks K = 4 vs K = 1 (fork {f})",
+                          [(nm, a[0], b[f].cpu()) for nm, a, b in _masks_pairs(g1, got)])
+    arrays, rows, ok, vals = add_case(gen)
+    got = KF.fork_add_rows(_to(arrays, dev), rows.to(dev), ok.to(dev), _to(vals, dev))
+    want = KF.fork_add_rows_plain(arrays, rows, ok, vals)
+    torch.cuda.synchronize()
+    err["fork_add_rows"] = require_equal(
+        "fork_add_rows (AutoscaleGang shapes)",
+        [(nm, a.cpu(), b) for nm, a, b in zip(NODE_ARRAYS, got, want)])
+    # the row-0 add wins over the pads behind it
+    last = rows.shape[0] - 1
+    j0 = int((rows[last] == 0).nonzero()[0])
+    for nm, a, v in zip(NODE_ARRAYS, got, vals):
+        if not _equal(a[last, 0].cpu(), v[last, j0]):
+            fail(f"fork_add_rows: the row-0 add of the last fork lost to a pad in {nm}")
+    for f in range(rows.shape[0]):
+        g1 = KF.fork_add_rows(_to(arrays, dev), rows[f:f + 1].to(dev), ok[f:f + 1].to(dev),
+                              [v[f:f + 1].to(dev) for v in vals])
+        torch.cuda.synchronize()
+        require_equal(f"fork_add_rows K = 4 vs K = 1 (fork {f})",
+                      [(nm, a[0].cpu(), b[f].cpu()) for nm, a, b in zip(NODE_ARRAYS, g1, got)])
+    # K30 on K31's per-fork node arrays (a fork set that adds nodes)
+    live, payload = fork_case(gen)
+    args, kw = _masks_args(live, payload, dict(zip(NODE_ARRAYS, want)))
+    args_dev, _ = _masks_args(_to(live, dev), _to(payload, dev), dict(zip(NODE_ARRAYS, got)))
+    got2 = KF.fork_masks(*args_dev, **_to(kw, dev))
+    want2 = KF.fork_masks_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err["fork_masks"] = max(err["fork_masks"], require_equal(
+        "fork_masks on fork_add_rows' per-fork node arrays", _masks_pairs(got2, want2)))
+    log("fork kernels vs plain: all equal (K30 at Defrag's shapes with duplicates, pads, "
+        "affinity cells and claim chips, K = 4 == 4 × K = 1; K31 at AutoscaleGang's shapes, "
+        "the row-0 add kept, K = 4 == 4 × K = 1; K30 on K31's output)")
+    return err
+
+
+def fork_key(name, args):
+    """The latest call of each fork kernel at each fork count K."""
+    return name, int(args[8].shape[0] if name == "fork_masks" else args[1].shape[0])
+
+
+def _run_controlled(suite: str, size: str, dev_name: str, clock=None, max_steps: int = 400):
+    """``suite`` at ``size`` driven synchronously with its controller (the
+    harness's cycle → sync_once loop, on a clock the caller moves 1 s a
+    step when given): → (store, sched, ctrl, measured pod names)."""
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+
+    w = build_workload(suite, size)
+    store = ObjectStore()
+    kw = {"clock": clock} if clock is not None else {}
+    sched = TorchScheduler(store, batch_size=w.batch_size, device=dev_name, batch_wait=0, **kw)
+    ctrl = w.make_descheduler(store, sched)
+    node_idx = pod_idx = 0
+    measured = []
+    for op in w.ops:
+        if op.opcode == "createNodes":
+            for _ in range(op.count):
+                store.create("Node", op.node_template(node_idx))
+                node_idx += 1
+        elif op.opcode == "createObjects":
+            for j in range(op.count):
+                store.create(*op.object_template(j))
+        else:
+            for _ in range(op.count):
+                p = op.pod_template(pod_idx)
+                store.create("Pod", p)
+                pod_idx += 1
+                if op.collect_metrics:
+                    measured.append(p.metadata.name)
+            if not op.collect_metrics:
+                sched.run_until_idle(backoff_wait=0)
+    for _ in range(max_steps):
+        sched.schedule_cycle()
+        ctrl.sync_once()
+        if clock is not None:
+            clock.t += 1.0
+        if all(store.get("Pod", "default", n).spec.node_name for n in measured):
+            break
+    return store, sched, ctrl, measured
+
+
+def _straggler_forks(store, engine_mod, n_slices: int = 4):
+    """Fork specs evicting the stragglers of the first ``n_slices`` slices
+    that still hold some, and a fresh gang of 8 to place."""
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    by_slice = {}
+    slice_of = {n.metadata.name: n.metadata.labels.get(SLICE_LABEL)
+                for n in store.list("Node")[0]}
+    for p in store.list("Pod")[0]:
+        if p.metadata.labels.get("strag") == "1" and p.spec.node_name:
+            by_slice.setdefault(slice_of[p.spec.node_name], []).append(p)
+    picks = sorted(by_slice)[:n_slices]
+    forks = [engine_mod.ForkSpec(victims=by_slice[s], note=s) for s in picks]
+    pending = [make_pod().name(f"probe-{i}").uid(f"probe-{i}").namespace("default")
+               .label(POD_GROUP_LABEL, "probe").req({"cpu": "3000m", "memory": "500Mi"}).obj()
+               for i in range(8)]
+    return pending, forks
+
+
+def defrag_checks(what: str, store, ctrl, gang_size: int = 8) -> dict:
+    """Every gang bound whole inside one slice, no gang member evicted, 8
+    evictions per freed slice."""
+    slice_of = {n.metadata.name: n.metadata.labels.get(SLICE_LABEL)
+                for n in store.list("Node")[0]}
+    pods = {p.metadata.name: p for p in store.list("Pod")[0]}
+    gangs = {}
+    strag_left = {}
+    for name, p in pods.items():
+        g = p.metadata.labels.get(POD_GROUP_LABEL)
+        if g:
+            if not p.spec.node_name:
+                fail(f"{what}: gang pod {name} unbound")
+            gangs.setdefault(g, set()).add(slice_of[p.spec.node_name])
+        elif p.metadata.labels.get("strag") == "1":
+            strag_left[slice_of[p.spec.node_name]] = strag_left.get(
+                slice_of[p.spec.node_name], 0) + 1
+    split = sum(1 for s in gangs.values() if len(s) != 1)
+    members = sum(1 for p in pods.values() if POD_GROUP_LABEL in p.metadata.labels)
+    n_strag = sum(1 for n in slice_of if n.startswith("node-"))
+    evicted = n_strag - sum(strag_left.values())
+    freed = len({s for s in slice_of.values()}) - len(strag_left)
+    gate = sum(v for (_p, r), v in ctrl.evictions.results.items() if r == "evicted")
+    if split or members != gang_size * len(gangs):
+        fail(f"{what}: {split} gangs over more than one slice, {members} members for "
+             f"{len(gangs)} gangs")
+    if evicted != gang_size * freed or evicted != gate:
+        fail(f"{what}: {evicted} stragglers evicted for {freed} freed slices "
+             f"({gate} through the gate)")
+    return {"gangs": len(gangs), "evicted": evicted, "freed_slices": freed,
+            "gangs_split_over_slices": split}
+
+
+def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
+    """One K-fork evaluate under torch.profiler: its wall, the device time by
+    kernel, the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    engine.evaluate(pending, forks)  # warm the batch shape
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        preds = engine.evaluate(pending, forks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    if preds is None:
+        fail("profiled evaluate: the engine refused")
+
+    def dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(((dev_us(e) / 1e3, e.count, e.key) for e in events), reverse=True)
+    lines = [f"one evaluate of {len(forks)} forks, {len(pending)} pending pods, under "
+             f"torch.profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms",
+             f"{'device ms':>10} {'count':>6}  name"]
+    lines += [f"{ms:10.4f} {cnt:6d}  {name}" for ms, cnt, name in top]
+    (out_dir / fname).write_text("\n".join(lines) + "\n")
+    rec = {"forks": len(forks), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
+           "placed": [p.placed for p in preds], "top": [[ms, c, n] for ms, c, n in top[:12]]}
+    log(f"profiled evaluate ({len(forks)} forks): wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.3f} ms" + (f" (idle share {rec['device_idle_share']:.4f})" if busy_ms
+                               else " (the profiler recorded no device time: not measured)"))
+    return rec
+
+
+def _controller_harness(suite: str, out_dir: Path, dev_name: str, inspect_more,
+                        created=None) -> tuple:
+    """``suite``/5000Nodes through ``perf.harness.run_workload`` with launch
+    counts zeroed just before and read in ``inspect``; → (items by metric,
+    record).  ``created``, when given, collects the nodes each scale-up
+    apply created (the autoscaler's decisions of every sync)."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.perf.harness import data_items_to_json, run_workload
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+
+    seen = {}
+
+    def inspect(store, sched, ctrl):
+        torch.cuda.synchronize()
+        seen["launches"] = dict(kernels.LAUNCHES)
+        seen["phase_wall_s"] = dict(sched.phase_wall)
+        seen.update(inspect_more(store, sched, ctrl))
+
+    fresh_heap()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    w = build_workload(suite, "5000Nodes")
+    if created is not None:
+        make = w.make_descheduler
+
+        def make_logged(store, sched):
+            ctrl = make(store, sched)
+            sync = ctrl.sync_once
+
+            def sync_once():
+                ctrl.last_decisions = []
+                changed = sync()
+                created.extend(d.count for d in ctrl.last_decisions if d.direction == "up"
+                               and d.result in ("applied", "error"))
+                return changed
+
+            ctrl.sync_once = sync_once
+            return ctrl
+
+        w.make_descheduler = make_logged
+    items = run_workload(w, device=dev_name, inspect=inspect)
+    wall = time.perf_counter() - t
+    by = {it.labels["Metric"]: it.data for it in items}
+    win = by["KernelLaunchesInWindow"]
+    if by["KernelBuildsInWindow"]["Count"] != 0:
+        fail(f"{suite} harness: a kernel was built inside the measured window")
+    tfs = by["TimeToFullSlice"]
+    rec = {"items": json.loads(data_items_to_json(items)), "wall_s": wall,
+           "batch_size": w.batch_size, "pods_per_s": by["SchedulingThroughput"]["Average"],
+           "gangs_per_s": by["GangThroughput"]["Average"],
+           "gangs": by["GangThroughput"]["Gangs"],
+           "time_to_full_slice_p50_s": tfs["Perc50"], "time_to_full_slice_p99_s": tfs["Perc99"],
+           "whatif_forks": by["WhatIfForks"]["Count"],
+           "whatif_forks_per_s": by["WhatIfForks"]["PerSecond"],
+           "window_launches": win, "window_phase_wall_s": by["PhaseWallBreakdown"],
+           **seen}
+    return by, rec
+
+
+def defrag_harness(out_dir: Path, dev_name: str = "cuda") -> dict:
+    """Defrag/5000Nodes through ``run_workload`` (5000 hosts in 8-host
+    slices, each fragmented by a pre-bound straggler; 312 gangs of 8; B =
+    512; the descheduler driven once per measured cycle): every gang bound
+    whole inside one slice, no gang member evicted, 8 evictions per freed
+    slice, K30 launched inside the window; pods/s, time to full slice,
+    evictions and forks per second, and one profiled evaluate of 4 forks."""
+
+    def more(store, sched, ctrl):
+        out = {"checks": defrag_checks("Defrag harness", store, ctrl),
+               "planner_solves": len(ctrl.planner.durations),
+               "planner_s": sum(ctrl.planner.durations),
+               "plans": {f"{a}/{b}": v for (a, b), v in ctrl.plans.items()}}
+        from kubernetes_tpu_torch import whatif
+
+        pending, forks = _straggler_forks(store, whatif)
+        out["profile_evaluate"] = profile_evaluate(ctrl.planner.engine, pending, forks,
+                                                   out_dir, "profile_evaluate.txt")
+        return out
+
+    by, rec = _controller_harness("Defrag", out_dir, dev_name, more)
+    win = rec["window_launches"]
+    for k_ in PATH_KERNELS[:4] + ("gang_all_or_nothing", "fork_masks"):
+        if win[k_] <= 0:
+            fail(f"Defrag harness: kernel {k_} never launched in the measured window")
+    if rec["gangs"] != 312 or rec["checks"]["gangs"] != 312:
+        fail(f"Defrag harness: {rec['gangs']:.0f} of 312 gangs whole in the window")
+    ev = by["DeschedulerEvictions"]
+    rec.update(evictions=ev["Count"], evictions_per_s=ev["PerSecond"])
+    log(f"Defrag/5000Nodes via perf.harness.run_workload (pipelined, B = {rec['batch_size']}):"
+        f" {rec['pods_per_s']:.1f} pods/s, {rec['gangs_per_s']:.2f} gangs/s; time to full "
+        f"slice p50 {rec['time_to_full_slice_p50_s']:.3f} s, p99 "
+        f"{rec['time_to_full_slice_p99_s']:.3f} s; {ev['Count']:.0f} evictions "
+        f"({ev['PerSecond']:.2f}/s) freeing {rec['checks']['freed_slices']} slices; "
+        f"{rec['whatif_forks']:.0f} what-if forks ({rec['whatif_forks_per_s']:.2f}/s) over "
+        f"{rec['planner_solves']} planner solves ({rec['planner_s']:.2f} s); window launches "
+        + ", ".join(f"{k_} {win[k_]:.0f}" for k_ in ("fork_masks", "auction_resolve_commit",
+                                                      "gang_all_or_nothing")))
+    return rec
+
+
+def autoscale_harness(out_dir: Path, dev_name: str = "cuda") -> dict:
+    """AutoscaleGang/5000Nodes through ``run_workload`` (1200 initial hosts,
+    600 gangs of 8, B = 512; the cluster autoscaler driven once per
+    measured cycle, adding whole slices from a NodeGroup): every gang bound
+    whole, the added nodes those of the applied scale-ups, K30 and K31
+    launched inside the window; pods/s, scale-ups, forks per second, time
+    to full slice."""
+
+    def more(store, sched, ctrl):
+        from kubernetes_tpu_torch.autoscaler import NODE_GROUP_LABEL
+
+        pods = store.list("Pod")[0]
+        gangs = {}
+        for p in pods:
+            g = p.metadata.labels.get(POD_GROUP_LABEL)
+            if g:
+                if not p.spec.node_name:
+                    fail(f"AutoscaleGang harness: gang pod {p.metadata.name} unbound")
+                gangs[g] = gangs.get(g, 0) + 1
+        added = sum(1 for n in store.list("Node")[0]
+                    if n.metadata.labels.get(NODE_GROUP_LABEL) == "asg")
+        return {"gangs_whole": sum(1 for c in gangs.values() if c == 8),
+                "nodes_added": added, "node_tier": int(sched.encoder.node_valid.shape[0]),
+                "decisions": {f"{a}/{b}": v for (a, b), v in ctrl.decisions.items()}}
+
+    created = []
+    by, rec = _controller_harness("AutoscaleGang", out_dir, dev_name, more, created)
+    # the group's nodes: every node the scale-ups created, less those a
+    # scale-down removed once the demand was met
+    downs = rec["decisions"].get("down/applied", 0)
+    if rec["nodes_added"] != sum(created) - downs:
+        fail(f"AutoscaleGang harness: {rec['nodes_added']} group nodes, the scale-ups "
+             f"created {sum(created)} and {downs} scale-downs removed nodes")
+    rec["scale_up_counts"] = created
+    win = rec["window_launches"]
+    for k_ in PATH_KERNELS[:4] + ("gang_all_or_nothing", "fork_masks", "fork_add_rows"):
+        if win[k_] <= 0:
+            fail(f"AutoscaleGang harness: kernel {k_} never launched in the measured window")
+    if rec["gangs"] != 600 or rec["gangs_whole"] != 600:
+        fail(f"AutoscaleGang harness: {rec['gangs']:.0f} of 600 gangs whole in the window")
+    ups = by["AutoscalerScaleUps"]["Count"]
+    rec["scale_ups"] = ups
+    log(f"AutoscaleGang/5000Nodes via perf.harness.run_workload (pipelined, B = "
+        f"{rec['batch_size']}): {rec['pods_per_s']:.1f} pods/s, {rec['gangs_per_s']:.2f} "
+        f"gangs/s; time to full slice p50 {rec['time_to_full_slice_p50_s']:.3f} s, p99 "
+        f"{rec['time_to_full_slice_p99_s']:.3f} s; {ups:.0f} scale-ups adding "
+        f"{rec['nodes_added']} nodes (node tier {rec['node_tier']}); "
+        f"{rec['whatif_forks']:.0f} what-if forks ({rec['whatif_forks_per_s']:.2f}/s); "
+        f"window launches " + ", ".join(f"{k_} {win[k_]:.0f}" for k_ in FORK_KERNELS))
+    return rec
+
+
+def whatif_bindings(device: str, suite: str):
+    """``suite``/500Nodes driven synchronously with its controller on a clock
+    the script moves → (bindings, evicted pods, decisions, forks, launches,
+    the stacked-vs-one-by-one predictions of 4 forks on the final cluster)."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels, whatif
+    from kubernetes_tpu_torch.api.objects import ObjectMeta
+    from kubernetes_tpu_torch.autoscaler import NodeGroup, materialize_nodes
+
+    kernels.reset_launches()
+    store, sched, ctrl, measured = _run_controlled(suite, "500Nodes", device, _FixedClock())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    pods = {p.metadata.name: p.spec.node_name for p in store.list("Pod")[0]}
+    engine = ctrl.planner.engine if hasattr(ctrl, "planner") else ctrl.engine
+    if suite == "Defrag":
+        decisions = {f"{a}/{b}": v for (a, b), v in ctrl.plans.items()}
+        pending, forks = _straggler_forks(store, whatif, 2)
+    else:
+        decisions = {f"{a}/{b}": v for (a, b), v in ctrl.decisions.items()}
+        pending, forks = _straggler_forks(store, whatif, 0)
+    forks = forks + [
+        whatif.ForkSpec(add_nodes=materialize_nodes(
+            NodeGroup(metadata=ObjectMeta(name="probe-ng", namespace="default"), max_size=64,
+                      capacity={"cpu": "4", "memory": "32Gi", "pods": "110"}, slice_size=8),
+            8, 0, 0, SLICE_LABEL)),
+        whatif.ForkSpec(remove_nodes=[n.metadata.name for n in store.list("Node")[0]][:16])]
+    vm = [p.placements for p in engine.evaluate(pending, forks, vmapped=True)]
+    seq = [p.placements for p in engine.evaluate(pending, forks, vmapped=False)]
+    if vm != seq:
+        fail(f"{suite}/500Nodes on {device}: the stacked evaluate differs from the one-by-one")
+    forks_n = engine.forks
+    evicted = sorted({f"strag-{i:06d}" for i in range(512)} - set(pods)) \
+        if suite == "Defrag" else []
+    unbound = [n for n in measured if not pods.get(n)]
+    if unbound:
+        fail(f"{suite}/500Nodes on {device}: {len(unbound)} measured pods unbound")
+    return pods, evicted, decisions, forks_n, vm, launches
+
+
+def time_fork_kernels(masks_calls: dict, add_calls: dict, err: dict) -> list:
+    """K30 on the arguments of its latest call at the largest fork count on
+    the Defrag/5000Nodes harness run, K31 on those of its latest call at the
+    largest fork count on the AutoscaleGang/5000Nodes run; each held once
+    more, exactly, against its plain version (on CPU copies), timed as in 6;
+    the bound from the bytes those inputs need.  No one PyTorch call
+    computes either function."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import fork as KF
+    from kubernetes_tpu_torch.state.encoding import NODE_ARRAYS
+
+    def latest(calls, name):
+        keys = [k_ for k_ in calls if k_[0] == name]
+        if not keys:
+            fail(f"kernel timing: no recorded path call of {name}")
+        return calls[max(keys, key=lambda k_: k_[1])]
+
+    def cpu(x):
+        return _to(x, "cpu")
+
+    rows_out = []
+
+    def row(name, fn, plain_fn, n_bytes, n_ops, shape):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        rows_out.append({"name": name, "route": "cuda", "source": FORK_SOURCE,
+                         "replaces": FORK_REPLACES[name], "launches": None,
+                         "max_abs_err": err[name],
+                         "ms": device_ms(fn, FORK_SYMBOLS[name]), "ms_source": MS_SOURCE[0],
+                         "call_ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
+                         "bound_ms": least, "bound_by": bound_by, "library_ms": None,
+                         "bytes": n_bytes, "ops": n_ops, "shape": shape})
+
+    args, kw = latest(masks_calls, "fork_masks")
+    got = KF.fork_masks(*args, **kw)
+    want = KF.fork_masks_plain(*cpu(list(args)), **cpu(kw))
+    torch.cuda.synchronize()
+    err["fork_masks"] = max(err["fork_masks"], require_equal(
+        "fork_masks (path shapes)", _masks_pairs(got, want)))
+    (nv, req, nz, claim, pv, preq, pnz, aff, vp, vn, ar, av, dr) = args
+    chips = kw.get("vic_claim_chips")
+    k = vp.shape[0]
+    n, r = req.shape[-2:]
+    p = pv.shape[0]
+    g, d = aff.shape
+    per_fork = req.dim() == 3
+    node_one = n * (1 + 4 * r + 8 + (4 if chips is not None else 0))
+    live_v = int((vp >= 0).sum())
+    # bases read once (the node group once a fork when K31 gave it per fork),
+    # the K copies written once, the payload and the victims' pod rows read
+    n_bytes = (node_one * (k if per_fork else 1) + p + 4 * g * d
+               + k * (node_one + p + 4 * g * d)
+               + vp.numel() * (8 + (4 if chips is not None else 0)) + ar.numel() * 8
+               + dr.numel() * 4 + live_v * (4 * r + 8))
+    n_ops = live_v * (r + 2 + (1 if chips is not None else 0)) + int((ar >= 0).sum())
+    row("fork_masks", lambda: KF.fork_masks(*args, **kw),
+        lambda: KF.fork_masks_plain(*args, **kw), n_bytes, n_ops,
+        {"K": k, "N": n, "P": p, "R": r, "G": g, "D": d, "V": vp.shape[1],
+         "A": ar.shape[1], "D_rows": dr.shape[1], "live_victims": live_v,
+         "claim_plane": chips is not None, "node_arrays_per_fork": per_fork})
+
+    args, kw = latest(add_calls, "fork_add_rows")
+    arrays, rows, ok, vals = args
+    got = KF.fork_add_rows(*args, **kw)
+    want = KF.fork_add_rows_plain(cpu(list(arrays)), rows.cpu(), ok.cpu(), cpu(list(vals)))
+    torch.cuda.synchronize()
+    err["fork_add_rows"] = max(err["fork_add_rows"], require_equal(
+        "fork_add_rows (path shapes)",
+        [(nm, a.cpu(), b) for nm, a, b in zip(NODE_ARRAYS, got, want)]))
+    k, m = rows.shape
+    n = arrays[0].shape[0]
+    row_bytes = sum(a[0].numel() * a.element_size() for a in arrays)
+    # the base read once, the K copies written once, each real add's payload
+    # row read once (K31 never reads a pad's row), and rows / ok read for
+    # every slot
+    n_bytes = n * row_bytes + k * n * row_bytes + int(ok.sum()) * row_bytes + k * m * 5
+    row("fork_add_rows", lambda: KF.fork_add_rows(*args, **kw),
+        lambda: KF.fork_add_rows_plain(*args, **kw), n_bytes, 0,
+        {"K": k, "N": n, "M": m, "real_adds": int(ok.sum()), "row_bytes": row_bytes})
+    for rr in rows_out:
+        log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['ms_source']}; {rr['call_ms']:.4f} "
+            f"ms a call), bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain "
+            f"{rr['plain_ms']:.4f} ms; {rr['shape']}")
     return rows_out
 
 
@@ -4838,9 +5471,96 @@ def rows512(args):
 
 
 def scan_recorder():
+    """K17–K19's latest calls, and the latest one-row calls of K1, K2, K6,
+    K7, K10 and K11 (the scan's step, for their bounds at one row)."""
+    def one_batch_row(a):
+        return a[0].valid.shape[0] == 1
+
+    def one_row(a):
+        return a[0].shape[0] == 1
+
+    def one_plugin_row(a):
+        return a[1].shape[0] == 1
+
     return KernelArgs({"scan_select_assume": (RT, "scan_select_assume", None),
                        "spread_update_row": (SPREAD_PLUGIN, "spread_update_row", None),
-                       "ipa_update_row": (IPA_PLUGIN, "ipa_update_row", None)})
+                       "ipa_update_row": (IPA_PLUGIN, "ipa_update_row", None),
+                       "filter_score_planes": (RT, "filter_score_planes", one_batch_row),
+                       "normalize_combine": (RT, "normalize_combine", one_row),
+                       "spread_filter_bits": (SPREAD_PLUGIN, "spread_filter_bits",
+                                              one_plugin_row),
+                       "spread_score_combine": (SPREAD_PLUGIN, "spread_score_combine",
+                                                one_plugin_row),
+                       "ipa_filter_bits": (IPA_PLUGIN, "ipa_filter_bits", one_plugin_row),
+                       "ipa_score_combine": (IPA_PLUGIN, "ipa_score_combine",
+                                             one_plugin_row)})
+
+
+def b9_row_bounds(spread_calls: dict, ipa_calls: dict) -> dict:
+    """The least time of K1, K2, K6 and K7 (their latest one-row calls on the
+    TopologySpreading scan) and K10 and K11 (on the
+    SchedulingPreferredPodAffinity scan) on one pod's row — the exact scan's
+    step (B9) — by the formulas of time_kernels, time_spread_kernels and
+    time_ipa_kernels at C = 1: name → {bytes, ops, bound_ms, bound_by}."""
+    from kubernetes_tpu_torch.kernels import interpodaffinity as KI
+    from kubernetes_tpu_torch.kernels import spread as KSp
+    from kubernetes_tpu_torch.kernels.filter_score import filter_score_planes
+    from kubernetes_tpu_torch.kernels.normalize import normalize_combine
+
+    def last(calls, name):
+        got = calls.get(name)
+        if got is None:
+            fail(f"B9 row bounds: no recorded one-row call of {name}")
+        return got[0]
+
+    work = {}
+    a1 = last(spread_calls, "filter_score_planes")
+    rep, snap, dyn, na_mask, na_pref, img, _plan = a1
+    bits, raw = filter_score_planes(*a1)
+    work["filter_score_planes"] = k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw)
+    bits2, full2, raw2, plan2 = last(spread_calls, "normalize_combine")
+    total, feas = normalize_combine(bits2, full2, raw2, plan2)
+    n_feas = int(feas.sum())
+    work["normalize_combine"] = (nbytes(bits2, total, feas) + 4 * raw2.shape[0] * n_feas,
+                                 n_feas * raw2.shape[0] * 4)
+    aux6, bits6 = last(spread_calls, "spread_filter_bits")[:2]
+    c, cc, d1 = aux6.hard_counts.shape
+    n = bits6.shape[1]
+    n_hard = int(aux6.hard_valid.sum())
+    n_fail = int((~KSp.spread_filter_plane(aux6)).sum())
+    work["spread_filter_bits"] = (
+        nbytes(aux6.hard_counts, aux6.hard_present, aux6.hard_valid, aux6.max_skew,
+               aux6.min_domains, aux6.self_match) + n_hard * n * 5 + 8 * n_fail,
+        4 * n_hard * n + c * cc * d1)
+    aux7, bits7, full7 = last(spread_calls, "spread_score_combine")[:3]
+    d1 = aux7.hard_counts.shape[-1]
+    feas_mask = bits7 == full7
+    soft_feas = feas_mask[:, None, :] & aux7.soft_valid[:, :, None]
+    n_soft = int(aux7.soft_valid.sum())
+    n_feas_soft = int(soft_feas.sum())
+    n_scored_soft = int((soft_feas & aux7.has_key).sum())
+    n_feas7 = int(feas_mask.sum())
+    work["spread_score_combine"] = (
+        nbytes(bits7, aux7.soft_valid) + 8 * n_feas7 + n_feas_soft + 4 * n_scored_soft
+        + n_soft * (4 * d1 + 4 + 4), 8 * n_feas7 + 6 * n_scored_soft)
+    aux10, bits10 = last(ipa_calls, "ipa_filter_bits")[:2]
+    n10 = bits10.shape[1]
+    work["ipa_filter_bits"] = (nbytes(aux10.exist_anti_block, aux10.block_dyn)
+                               + 8 * int((~KI.ipa_filter_plane(aux10)).sum()), 2 * n10)
+    aux11, bits11, full11 = last(ipa_calls, "ipa_score_combine")[:3]
+    t = aux11.dom_paff.shape[1]
+    n_feas11 = int((bits11 == full11).sum())
+    work["ipa_score_combine"] = (nbytes(bits11, aux11.paff_weight)
+                                 + n_feas11 * (4 + 4 + 8 * t + 8),
+                                 n_feas11 * (2 * t + 3 + 2 + 5))
+    out = {}
+    for name, (n_bytes, n_ops) in work.items():
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        out[name] = {"bytes": n_bytes, "ops": n_ops, "bound_ms": least, "bound_by": bound_by}
+    log("B9 rows (one pod's row on the scans, N = "
+        f"{n}): " + ", ".join(f"{k_} {v['bound_ms']:.7f} ms ({v['bound_by']})"
+                              for k_, v in out.items()))
+    return out
 
 
 def full_recorder():
@@ -5142,6 +5862,7 @@ def main() -> None:
     err.update(check_gang_kernels(dev))
     err.update(check_dra_kernels(dev))
     err.update(check_preempt_kernels(dev))
+    err.update(check_fork_kernels(dev))
     record["kernel_check_s"] = time.perf_counter() - t
     out_dir = here / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5246,6 +5967,17 @@ def main() -> None:
     t = time.perf_counter()
     record["preemption_basic_harness"] = preemption_basic_harness()
     record["preemption_basic_harness"]["phase_s"] = time.perf_counter() - t
+
+    # counterfactuals: Defrag and AutoscaleGang at 5000Nodes through the perf
+    # harness (K30 / K31's latest calls kept for the timing phase)
+    with KernelArgs(FORK_TARGETS, key=fork_key) as defrag_args:
+        t = time.perf_counter()
+        record["defrag_harness"] = defrag_harness(out_dir)
+        record["defrag_harness"]["phase_s"] = time.perf_counter() - t
+    with KernelArgs(FORK_TARGETS, key=fork_key) as auto_args:
+        t = time.perf_counter()
+        record["autoscale_harness"] = autoscale_harness(out_dir)
+        record["autoscale_harness"]["phase_s"] = time.perf_counter() - t
 
     t = time.perf_counter()
     gpu_bind, gpu_launch, gpu_cycles, gpu_wall = hetero_bindings("cuda")
@@ -5430,6 +6162,28 @@ def main() -> None:
             + ", ".join(f"{k_} {launches[k_]}" for k_ in need)
             + f") in {time.perf_counter() - t:.1f} s")
 
+    record["whatif_bindings"] = {}
+    for suite in ("Defrag", "AutoscaleGang"):
+        t = time.perf_counter()
+        g_res, c_res = whatif_bindings("cuda", suite), whatif_bindings("cpu", suite)
+        for what, a, b in zip(("bindings", "evicted pods", "decisions", "fork counts",
+                               "stacked predictions"), g_res[:5], c_res[:5]):
+            if a != b:
+                fail(f"{suite}/500Nodes: cuda and cpu differ in {what}")
+        pods, evicted, decisions, forks_n, _vm, launches = g_res
+        need = FORK_KERNELS if suite == "AutoscaleGang" else ("fork_masks",)
+        for k_ in need + ("gang_all_or_nothing",):
+            if launches[k_] <= 0:
+                fail(f"{suite}/500Nodes: kernel {k_} never launched ({launches})")
+        record["whatif_bindings"][suite] = {
+            "pods": len(pods), "evicted": len(evicted), "decisions": decisions,
+            "forks": forks_n, "launches": launches, "s": time.perf_counter() - t}
+        log(f"{suite}/500Nodes driven synchronously with its controller: cuda == cpu on "
+            f"bindings, evicted pods, decisions and fork counts ({len(pods)} pods, "
+            f"{len(evicted)} evicted, {decisions}, {forks_n} forks), stacked == one-by-one "
+            f"on the card; launches " + ", ".join(f"{k_} {launches[k_]}" for k_ in need)
+            + f" ({time.perf_counter() - t:.1f} s)")
+
     record["cuda_pipelined_vs_sync"] = {}
     for kind_ in ("northstar", "spread", "preferred", "anti"):
         t = time.perf_counter()
@@ -5443,6 +6197,7 @@ def main() -> None:
     dra_rows = time_dra_kernels(dra_args.last, err)
     preempt_rows = time_preempt_kernels(preempt_args.last, dense_args.last, err, dev)
     record["k13_nominated_bundle"] = time_nominated_bundle(dev)
+    fork_rows = time_fork_kernels(defrag_args.last, auto_args.last, err)
     scan_args = dict(recorders["TopologySpreading scan"].last)
     scan_args["ipa_update_row"] = \
         recorders["SchedulingPreferredPodAffinity scan"].last["ipa_update_row"]
@@ -5454,6 +6209,9 @@ def main() -> None:
     full_args["spread_update_classes"] = \
         recorders["TopologySpreading priority 10, full auction"].last["spread_update_classes"]
     engine_rows = time_engine_kernels(scan_args, full_args, err, reuse_err, dev)
+    record["b9_row_bounds"] = b9_row_bounds(
+        recorders["TopologySpreading scan"].last,
+        recorders["SchedulingPreferredPodAffinity scan"].last)
     # device_ms's fallback, held against the profiler on one elementwise op
     # (4M floats), so that a run that needs it uses a method checked here
     x = torch.zeros(1 << 22, device=dev)
@@ -5521,6 +6279,16 @@ def main() -> None:
             **{f"preemption ({k_})": v["launches"][r["name"]]
                for k_, v in record["preempt_bindings"].items()}}
     rows += preempt_rows
+    # K30 on the Defrag harness run, K31 on the AutoscaleGang harness run
+    fork_paths = {"Defrag harness": record["defrag_harness"],
+                  "AutoscaleGang harness": record["autoscale_harness"],
+                  **{f"{k_}/500Nodes (sync)": v for k_, v in
+                     record["whatif_bindings"].items()}}
+    for r in fork_rows:
+        carry = "Defrag harness" if r["name"] == "fork_masks" else "AutoscaleGang harness"
+        r["launches"] = fork_paths[carry]["launches"][r["name"]]
+        r["launches_by_path"] = {p_: v["launches"][r["name"]] for p_, v in fork_paths.items()}
+    rows += fork_rows
     record["kernels"] = rows
     record["profile"] = profile_cycle(
         ns["sched"], out_dir, "NorthStar-shaped",

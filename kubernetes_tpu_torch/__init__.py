@@ -23,8 +23,11 @@ Layout (mirrors the JAX package):
   gang/       the gang directory, Coscheduling, the all-or-nothing mask
   dra/        device claims: the claim index, DynamicResources
   queueing/   the 3-queue PriorityQueue
-  whatif/     preemption's dry run: the candidate mask, the reprieve sweep
-  descheduler/ the eviction gate
+  whatif/     counterfactuals: snapshot forks, the what-if engine, and
+              preemption's dry run (the candidate mask, the reprieve sweep)
+  descheduler/ the eviction gate, the what-if planner, the policies and the
+              controller loop
+  autoscaler/ NodeGroups and the cluster autoscaler
   kernels/    CUDA kernel wrappers, plain versions, build/loader
   csrc/       the .cu sources and the host C++ reprieve sweep
   oracle.py   the reference filters, one (pod, node) at a time

@@ -9,8 +9,9 @@ kernels.  A compiled-selector or term-group field of a PodBatch is itself a
 dict of its fields.  Dtypes are kept (bool / int32 / float32).  The
 snapshot carries the existing-pod affinity groups (``aff_*``) like every
 other field; ``ipa_aux_from_numpy`` carries a prepared InterPodAffinity
-aux, ``cosched_aux_from_numpy`` Coscheduling's anchor-slice aux and
-``dra_aux_from_numpy`` DynamicResources' claim aux.
+aux, ``cosched_aux_from_numpy`` Coscheduling's anchor-slice aux,
+``dra_aux_from_numpy`` DynamicResources' claim aux and
+``fork_payload_from_numpy`` a what-if fork payload.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from .gang.coscheduling import CoschedAux
 from .plugins.interpodaffinity import DEFAULT_HARD_POD_AFFINITY_WEIGHT, IPAAux
 from .state.encoding import SNAPSHOT_FIELDS, DeviceSnapshot
 from .state.selectors import CompiledLabelSelectors, CompiledNodeSelectors
+from .whatif.fork import ForkPayload
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -142,3 +144,25 @@ def dra_aux_from_numpy(host_aux: Mapping[str, np.ndarray], claim_capacity,
                   pinned=_tensor(np.asarray(host_aux["pinned"], dtype=np.int32), dev),
                   blocked=_tensor(np.asarray(host_aux["blocked"], dtype=bool), dev),
                   free=_tensor(free, dev), capacity=_tensor(cap, dev))
+
+
+def fork_payload_from_numpy(payload) -> ForkPayload:
+    """The port's ForkPayload from the JAX package's (its fields by name:
+    numpy arrays, one fork or K stacked; ``add_vals`` in the encoders'
+    common node-array order).  The payload stays on the host, as the
+    reference's does; ``apply_fork`` uploads it to the snapshot's device."""
+
+    def arr(a, dtype):
+        return None if a is None else np.array(a, dtype=dtype, copy=True, order="C")
+
+    vals = getattr(payload, "add_vals", None)
+    return ForkPayload(
+        vic_pod_rows=arr(payload.vic_pod_rows, np.int32),
+        vic_node_rows=arr(payload.vic_node_rows, np.int32),
+        aff_rows=arr(payload.aff_rows, np.int32),
+        aff_vals=arr(payload.aff_vals, np.int32),
+        del_rows=arr(payload.del_rows, np.int32),
+        add_rows=arr(getattr(payload, "add_rows", None), np.int32),
+        add_ok=arr(getattr(payload, "add_ok", None), bool),
+        add_vals=None if vals is None else tuple(np.array(v, copy=True) for v in vals),
+        vic_claim_chips=arr(getattr(payload, "vic_claim_chips", None), np.int32))

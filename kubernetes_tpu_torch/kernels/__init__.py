@@ -44,6 +44,9 @@ than once); ``reset_launches`` zeroes the counts.
                             preempt, with at most 128 scheduled priorities)
   K28 candidate_fit         csrc/preempt.cu (the same)
   K29 candidate_dense       csrc/preempt.cu (the same, above 128 priorities)
+  K30 fork_masks            csrc/fork.cu (one launch per what-if evaluate over K
+                            forks, or per fork when not stacked)
+  K31 fork_add_rows         csrc/fork.cu (the same, when a fork adds nodes)
 
 The full auction runs K1–K4, K6–K8 and K10–K12 at identity classes (one
 class row per pod); the exact scan runs K1, K2, K6, K7, K10 and K11 on one
@@ -54,7 +57,9 @@ A batch with resource claims adds DynamicResources' filter (K24) and score
 (K25) to every round or step and takes the placed pods' chips (K26).  A
 failing batch whose pods may preempt runs K1 on its rows for the static bits
 and the candidate mask (K27 + K28, or K29); the nominated pods' requests
-ride K13 as one more bundle.
+ride K13 as one more bundle.  A what-if evaluate (whatif/engine.py) forks
+the snapshot with K30 (and K31 when a fork adds nodes), then solves each
+fork through the same engines, K13's nominated bundle and K20.
 """
 
 from __future__ import annotations
@@ -94,6 +99,8 @@ LAUNCHES: Dict[str, int] = {
     "priority_prefix": 0,
     "candidate_fit": 0,
     "candidate_dense": 0,
+    "fork_masks": 0,
+    "fork_add_rows": 0,
 }
 
 

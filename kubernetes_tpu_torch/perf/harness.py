@@ -41,6 +41,16 @@ the reference's Perc50 / Perc90 / Max) (the reference's harness.py:431-460,
 allocated in the window and per second: the window's delta of
 DynamicResources' "allocated" counter, so the warm pods' commits do not
 count; the reference's :467-474, :636-644).
+
+A workload with a driven controller (``Workload.make_descheduler``: the
+Defrag suite's descheduler, AutoscaleGang's cluster autoscaler) gets one
+``sync_once`` after every measured ``schedule_cycle``, behind the
+overlapped sync's barrier (``join_sync_ahead``; the reference's :534-538),
+and its items: DeschedulerEvictions (the controller's gate evictions, count
+and per second) or AutoscalerScaleUps (scale-up decisions applied), and
+WhatIfForks (the forks its what-if engine evaluated, count and per second;
+the reference emits it for the autoscaler, the port for both).  The
+window still ends at the last bind.
 """
 
 from __future__ import annotations
@@ -92,6 +102,12 @@ class Workload:
     # DRA suites (DeviceClaimGang): the ClaimsAllocated item, from the
     # window's delta of DynamicResources' "allocated" counter
     dra: bool = False
+    # (store, sched) → a controller with sync_once(), driven once per
+    # measured cycle: the Defrag suite's descheduler (DeschedulerEvictions)
+    # or, with ``autoscaler``, AutoscaleGang's cluster autoscaler
+    # (AutoscalerScaleUps); both add WhatIfForks
+    make_descheduler: Optional[Callable] = None
+    autoscaler: bool = False
 
 
 @dataclass
@@ -191,7 +207,7 @@ def _warm(sched: TorchScheduler, store: ObjectStore, tmpl, w: Workload) -> None:
 
 
 def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
-             w: Workload, clock) -> List[DataItem]:
+             w: Workload, clock, ctrl=None) -> List[DataItem]:
     """Drive cycles until every pod of the measured op is bound (the
     reference's window loop) → the window's items."""
     pending = {(p.namespace, p.metadata.name) for p in created}
@@ -240,11 +256,17 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
         while done < target and cycle < max_cycles:
             done_pre = done
             stats = sched.schedule_cycle()
+            if ctrl is not None:
+                # an external reader of the snapshot and the encoder: the
+                # background sync's barrier first
+                sched.join_sync_ahead()
+                ctrl.sync_once()
             if done > done_pre:
                 t_last = clock()
             if stats.attempted == 0 and stats.in_flight == 0 and done == done_pre:
-                # pods may be waiting out their backoff or held at Permit:
-                # spin rather than misread the empty active queue as done
+                # pods may be waiting out their backoff or held at Permit
+                # (or were just made schedulable by the controller): spin
+                # rather than misread the empty active queue as done
                 a, b, u = sched.queue.pending_count()
                 if (a == 0 and b == 0 and u == 0 and stats.waiting == 0) \
                         or waited > 30.0:
@@ -267,6 +289,7 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
         gc.unfreeze()
         unwatch()
     samples = sorted(sched.attempt_seconds[att0:])
+    ctrl_items = _controller_items(ctrl, w, total_s) if ctrl is not None else []
     dra_items = []
     if w.dra:
         allocated = float(sched.dra_plugin.claims_allocated["allocated"] - claims0)
@@ -312,7 +335,33 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
         DataItem(labels={"Name": w.name, "Metric": "PipelineInWindow"},
                  data={k: float(v - pipe0[k]) for k, v in _pipeline_counts(sched).items()},
                  unit="count"),
-    ] + dra_items + gang_items
+    ] + ctrl_items + dra_items + gang_items
+
+
+def _per_s(n: float, total_s: float) -> float:
+    return round(n / total_s, 2) if total_s > 0 else 0.0
+
+
+def _controller_items(ctrl, w: Workload, total_s: float) -> List[DataItem]:
+    """The driven controller's items (the reference's :590-632):
+    AutoscalerScaleUps or DeschedulerEvictions, then WhatIfForks."""
+    if w.autoscaler:
+        ups = float(ctrl.decisions.get(("up", "applied"), 0))
+        items = [DataItem(labels={"Name": w.name, "Metric": "AutoscalerScaleUps"},
+                          data={"Count": ups}, unit="decisions")]
+        engine = ctrl.engine
+    else:
+        evicted = float(sum(v for (_policy, result), v in ctrl.evictions.results.items()
+                            if result in ("evicted", "overridden")))
+        items = [DataItem(labels={"Name": w.name, "Metric": "DeschedulerEvictions"},
+                          data={"Count": evicted, "PerSecond": _per_s(evicted, total_s)},
+                          unit="evictions/s")]
+        engine = ctrl.planner.engine
+    forks = float(engine.forks)
+    items.append(DataItem(labels={"Name": w.name, "Metric": "WhatIfForks"},
+                          data={"Count": forks, "PerSecond": _per_s(forks, total_s)},
+                          unit="forks/s"))
+    return items
 
 
 def _pipeline_counts(sched: TorchScheduler) -> Dict[str, int]:
@@ -325,12 +374,13 @@ def _pipeline_counts(sched: TorchScheduler) -> Dict[str, int]:
 
 
 def run_workload(w: Workload, device="cuda", clock=time.perf_counter,
-                 inspect: Optional[Callable[[ObjectStore, TorchScheduler], None]] = None,
+                 inspect: Optional[Callable[[ObjectStore, TorchScheduler, object], None]] = None,
                  overlap_sync: object = "auto") -> List[DataItem]:
     """Run ``w`` end to end on ``device`` (``"cuda"`` unless the caller asks
     for the CPU; raises without a card) → the measured op's items.
-    ``inspect(store, sched)``, when given, sees the cluster once every op
-    has run; ``overlap_sync`` is passed to the scheduler."""
+    ``inspect(store, sched, ctrl)``, when given, sees the cluster once
+    every op has run (``ctrl`` is the driven controller, None when the
+    workload has none); ``overlap_sync`` is passed to the scheduler."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         kernel_build.build_all()
@@ -343,6 +393,7 @@ def run_workload(w: Workload, device="cuda", clock=time.perf_counter,
         sum(op.count for op in w.ops if op.opcode == "createNodes"),
         sum(op.count for op in w.ops if op.opcode == "createPods")
         + (3 * w.batch_size if w.latency_target_ms is not None else 0))
+    ctrl = w.make_descheduler(store, sched) if w.make_descheduler is not None else None
     items: List[DataItem] = []
     node_idx = pod_idx = 0
     for op in w.ops:
@@ -368,7 +419,7 @@ def run_workload(w: Workload, device="cuda", clock=time.perf_counter,
                 created.append(p)
                 pod_idx += 1
             if op.collect_metrics:
-                items += _measure(sched, store, created, w, clock)
+                items += _measure(sched, store, created, w, clock, ctrl)
             elif not op.skip_wait:
                 sched.run_until_idle()
         else:
@@ -377,7 +428,7 @@ def run_workload(w: Workload, device="cuda", clock=time.perf_counter,
                 "and createPods (the others come with the suites that need them, ROADMAP "
                 "Queue A items 9-10)")
     if inspect is not None:
-        inspect(store, sched)
+        inspect(store, sched, ctrl)
     sched.close()
     return items
 

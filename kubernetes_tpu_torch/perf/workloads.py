@@ -11,9 +11,10 @@ spread pods).  Each suite has the reference's shape, named sizes
 The port carries the suites whose pods it schedules: SchedulingBasic,
 NorthStar, Density, TopologySpreading, PreferredTopologySpreading,
 SchedulingNodeAffinity, SchedulingPodAntiAffinity, SchedulingPodAffinity,
-SchedulingPreferredPodAffinity, Unschedulable, PreemptionBasic, GangBasic
-and DeviceClaimGang.  ``build_workload`` of any other suite raises
-NotImplementedError naming the ROADMAP item that brings what it needs.
+SchedulingPreferredPodAffinity, Unschedulable, PreemptionBasic, GangBasic,
+DeviceClaimGang, Defrag and AutoscaleGang.  ``build_workload`` of any other
+suite raises NotImplementedError naming the ROADMAP item that brings what it
+needs.
 """
 
 from __future__ import annotations
@@ -218,6 +219,113 @@ def podgroup_template(gang_size: int = GANG_SIZE) -> Callable[[int], tuple]:
         return ("PodGroup", pg)
 
     return tmpl
+
+
+def straggler_per_host() -> Callable[[int], v1.Pod]:
+    """Straggler i lands PRE-BOUND on host i (a 2-cpu pod on a 4-cpu host):
+    with one on EVERY host no slice — and no set of hosts — can take a
+    3-cpu gang member, so the gangs are blocked until the descheduler frees
+    whole slices.  Warm indices (≥ 9M) yield tiny UNBOUND pods that fit
+    beside any straggler (the warms exercise the normal bind path)."""
+
+    def tmpl(i: int) -> v1.Pod:
+        if i >= 9_000_000:
+            return _base_pod(i, "stragwarm", "default").req({"cpu": "1m"}).obj()
+        return (
+            _base_pod(i, "strag", "default")
+            .req({"cpu": "2000m", "memory": "500Mi"})
+            .label("strag", "1")
+            .node(f"node-{i:06d}")
+            .obj()
+        )
+
+    return tmpl
+
+
+def _defrag(n, p, mp) -> Workload:
+    """Defrag (the reference's perf/workloads.py:480-525): every host starts
+    fragmented by a pre-bound straggler; the gangs are unschedulable until
+    the descheduler's slice-defrag policy evicts whole straggler sets (each
+    group of candidate slices scored by one K-fork evaluate) — measures
+    time to a free slice (TimeToFullSlice spans defrag + gang bind) and
+    evictions/s (DeschedulerEvictions)."""
+    from ..descheduler import DeschedulerController, SliceDefragmentation
+
+    gs = GANG_SIZE if mp >= GANG_SIZE else max(2, mp)
+    n_slices = max(1, n // gs)
+    ngangs = max(1, min(mp // gs, n_slices))
+    stragglers = min(p, n) if p else n
+    strag_tmpl = straggler_per_host()
+    gang_tmpl = pod_gang(gs)
+
+    def make_descheduler(store, sched):
+        # 16 gangs served per sync keeps the 5000-node size (312 waiting
+        # gangs) inside the harness's cycle budget; each freed slice costs
+        # gs straggler evictions
+        return DeschedulerController(
+            store, sched, policies=[SliceDefragmentation(max_gangs_per_sync=16)],
+            max_evictions_per_sync=16 * gs)
+
+    return Workload(
+        name="Defrag",
+        ops=[
+            Op("createNodes", n, node_template=node_sliced(gs)),
+            # pre-bound stragglers: the post-op run_until_idle is a no-op
+            Op("createPods", stragglers, pod_template=strag_tmpl),
+            Op("createObjects", ngangs, object_template=podgroup_template(gs)),
+            # the harness's pod index continues past the stragglers: shift so
+            # gang pod i still references pg-{i // gs}
+            Op("createPods", ngangs * gs,
+               pod_template=lambda i: gang_tmpl(i if i >= 9_000_000 else i - stragglers),
+               collect_metrics=True),
+        ],
+        batch_size=64,
+        gang_size=gs,
+        make_descheduler=make_descheduler,
+    )
+
+
+def _autoscale_gang(n, p, mp) -> Workload:
+    """AutoscaleGang (the reference's perf/workloads.py:528-568): gang demand
+    outnumbers the initial capacity — only the first slices' worth of gangs
+    seat; the rest starve until the cluster autoscaler simulates and
+    applies scale-ups from a NodeGroup (whole fresh slices per decision,
+    node-add forks).  Measures time to capacity (TimeToFullSlice spans
+    starve → scale-up → bind), scale-ups applied and what-if forks/s.  The
+    node tier grows inside the window by design."""
+    from ..autoscaler import ClusterAutoscaler, NodeGroup
+
+    gs = GANG_SIZE if mp >= GANG_SIZE else max(2, mp)
+    ngangs = max(1, mp // gs)
+    need = ngangs * gs
+
+    def nodegroup_template(i: int):
+        ng = NodeGroup(
+            metadata=v1.ObjectMeta(name="asg", namespace="default"),
+            min_size=0, max_size=need + gs,
+            capacity={"cpu": "4", "memory": "32Gi", "pods": "110"},
+            slice_size=gs,
+        )
+        return ("NodeGroup", ng)
+
+    def make_autoscaler(store, sched):
+        # one sync per measured cycle; the candidate sizes capped so a
+        # sync's evaluate stays a handful of forks
+        return ClusterAutoscaler(store, sched, max_simulated_sizes=4)
+
+    return Workload(
+        name="AutoscaleGang",
+        ops=[
+            Op("createNodes", n, node_template=node_sliced(gs)),
+            Op("createObjects", 1, object_template=nodegroup_template),
+            Op("createObjects", ngangs, object_template=podgroup_template(gs)),
+            Op("createPods", ngangs * gs, pod_template=pod_gang(gs), collect_metrics=True),
+        ],
+        batch_size=64,
+        gang_size=gs,
+        make_descheduler=make_autoscaler,
+        autoscaler=True,
+    )
 
 
 # --- Dynamic resource allocation (DRA) -------------------------------------------
@@ -526,6 +634,19 @@ SUITES: Dict[str, Suite] = {
               {"64Nodes": (64, 0, 56), "500Nodes": (500, 0, 480),
                "5000Nodes": (5000, 0, 4800)},
               batch_size={"5000Nodes": 512}),
+        # the cluster autoscaler: the initial capacity seats a quarter of the
+        # gangs, the rest starve until simulated-then-applied scale-ups add
+        # whole slices; sizes are (initial nodes, 0, measured gang pods)
+        Suite("AutoscaleGang", _autoscale_gang,
+              {"64Nodes": (16, 0, 56), "500Nodes": (120, 0, 480),
+               "5000Nodes": (1200, 0, 4800)},
+              batch_size={"5000Nodes": 512}),
+        # the descheduler: every host fragmented by a pre-bound straggler,
+        # the gangs blocked until the defrag policy frees whole slices
+        Suite("Defrag", _defrag,
+              {"64Nodes": (64, 64, 32), "500Nodes": (512, 512, 256),
+               "5000Nodes": (5000, 5000, 2496)},
+              batch_size={"5000Nodes": 512}),
     ]
 }
 
@@ -534,13 +655,10 @@ UNPORTED: Dict[str, str] = {
     "SchedulingWithMixedChurn": "selector spread over its churn services (ROADMAP Queue A "
                                 "item 10a; its preemption-capable churn pods came with "
                                 "item 9a)",
-    "AutoscaleGang": "the autoscaler's counterfactual forks (ROADMAP Queue A item 9b, "
-                     "Queue B B16; its gangs came with item 8a)",
     "TrainingJobFlow": "the TrainingJob controller (ROADMAP Queue A item 10; its gangs "
                        "came with item 8a, its device claims with item 8b)",
     "StatefulChurn": "volume binding (ROADMAP Queue A item 8c)",
     "VolumeZoneSpread": "volume binding (ROADMAP Queue A item 8c)",
-    "Defrag": "the descheduler (ROADMAP Queue A item 9b; its gangs came with item 8a)",
     "SchedulingExtender": "scheduler extenders (ROADMAP Queue A item 6b)",
 }
 

@@ -820,7 +820,7 @@ class TorchScheduler:
             return False
         if not self.pipeline:
             return True
-        self._join_sync_ahead()  # the fit scan reads the encoder's mirrors
+        self.join_sync_ahead()  # the fit scan reads the encoder's mirrors
         enc = self.encoder
         valid = np.asarray(enc.node_valid)
         free = enc.allocatable[valid].astype(np.int64) - enc.requested[valid]
@@ -907,7 +907,11 @@ class TorchScheduler:
         self._sync_ahead = rec
         rec.thread.start()
 
-    def _join_sync_ahead(self) -> None:
+    def join_sync_ahead(self) -> None:
+        """Barrier for readers of the snapshot and the encoder (the
+        descheduler and autoscaler driven between cycles, the fit scan, the
+        commit): joins the background sync without consuming its payload
+        (the reference's join_sync_ahead)."""
         rec = self._sync_ahead
         if rec is not None and rec.thread is not None:
             rec.thread.join()
@@ -915,16 +919,31 @@ class TorchScheduler:
             self.phase_wall["sync_overlap"] += rec.wall
             rec.wall = 0.0
 
+    def _pop_sync_ahead(self) -> Optional[_SyncAhead]:
+        """Join the background sync and take its record (None when none
+        ran), raising its error as the dispatch that would have taken it."""
+        self.join_sync_ahead()
+        rec, self._sync_ahead = self._sync_ahead, None
+        if rec is not None and rec.error is not None:
+            raise rec.error
+        return rec
+
+    def fold_sync_ahead(self) -> None:
+        """Join the background sync and fold its payload back: its rows go
+        back to the encoder's dirty sets (a caller's own upload then carries
+        them) and the next dispatch syncs itself.  The what-if engine calls
+        this before it syncs and uploads the encoder."""
+        rec = self._pop_sync_ahead()
+        if rec is not None and rec.upd is not None:
+            self.encoder.restore_dirty(rec.consumed)
+
     def _take_sync_ahead(self) -> Optional[_SyncAhead]:
         """Join and take the background sync at dispatch: the record, or
         None when none ran or a node delete landed after its capture (the
         payload is then folded back and the dispatch syncs itself)."""
-        self._join_sync_ahead()
-        rec, self._sync_ahead = self._sync_ahead, None
+        rec = self._pop_sync_ahead()
         if rec is None:
             return None
-        if rec.error is not None:
-            raise rec.error
         if rec.node_del_gen != self._node_del_gen:
             if rec.upd is not None:
                 self.encoder.restore_dirty(rec.consumed)
@@ -1343,7 +1362,7 @@ class TorchScheduler:
         self.rounds_total += int(packed[2, 0])
         # the background sync reads cache clones; the assumes below write
         # the cache — join it first
-        self._join_sync_ahead()
+        self.join_sync_ahead()
         fl.node_names = [None] * len(fl.infos)
         for i, qi in enumerate(fl.infos):
             row = int(node_row[i])
@@ -1895,10 +1914,7 @@ class TorchScheduler:
         unwatch, self._unwatch = self._unwatch, None
         if unwatch is not None:
             unwatch()
-        self._join_sync_ahead()
-        rec, self._sync_ahead = self._sync_ahead, None
-        if rec is not None and rec.error is not None:
-            raise rec.error
+        self._pop_sync_ahead()
 
 
 __all__ = ["TorchScheduler", "default_plugins"]

@@ -771,6 +771,9 @@ _POD_ARRAYS = [
 _AFF_ARRAYS = [
     "aff_valid", "aff_kind", "aff_weight", "aff_slot", "aff_counts",
 ]
+# the node-row arrays, in the reference's order: a what-if node-add fork
+# captures and activates template rows of each (whatif/fork.py)
+NODE_ARRAYS = _NODE_ARRAYS
 
 # node tiers at or below this take the always-full upload path in
 # to_device_deferred (the reference's small-cluster rule)

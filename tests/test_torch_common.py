@@ -104,6 +104,24 @@ def pod_descs(rng, k: int, templates=TEMPLATES, prefix="p", start_ts=0.0) -> Lis
     return out
 
 
+def port_sync_pdbs(store) -> None:
+    """The reference disruption controller's ``sync_pdbs`` arithmetic
+    (controllers/disruption.py:42-73) for integer minAvailable, on a port
+    store: the port has no disruption controller, and its eviction gate
+    reads ``disruptions_allowed``."""
+    from kubernetes_tpu_torch.api.labels import match_label_selector
+
+    pods, _ = store.list("Pod")
+    for pdb in store.list("PodDisruptionBudget")[0]:
+        matching = [p for p in pods if p.namespace == pdb.metadata.namespace
+                    and match_label_selector(pdb.selector, p.metadata.labels)]
+        healthy = sum(1 for p in matching if p.spec.node_name)
+        desired = max(0, int(pdb.min_available or 0))
+        pdb.expected_pods, pdb.current_healthy = len(matching), healthy
+        pdb.desired_healthy, pdb.disruptions_allowed = desired, max(0, healthy - desired)
+        store.update("PodDisruptionBudget", pdb)
+
+
 def scheduled_descs(rng, k: int, node_names: List[str], prefix="s") -> List[Dict]:
     out = []
     for i in range(k):

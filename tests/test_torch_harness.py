@@ -70,7 +70,7 @@ def test_run_workload_on_cpu_binds_every_measured_pod(suite, size):
     w = tw.build_workload(suite, size, scale=0.02)
     seen = {}
 
-    def inspect(store, sched):
+    def inspect(store, sched, _ctrl):
         pods, _ = store.list("Pod")
         measured = w.ops[-1].pod_template
         names = {measured(i).metadata.name for i in range(w.ops[1].count,

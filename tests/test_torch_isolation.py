@@ -65,6 +65,12 @@ REQUIRED = ("kubernetes_tpu_torch.perf.harness", "kubernetes_tpu_torch.perf.work
             "kubernetes_tpu_torch.whatif.dryrun", "kubernetes_tpu_torch.preemption",
             "kubernetes_tpu_torch.descheduler", "kubernetes_tpu_torch.descheduler.evictions",
             "kubernetes_tpu_torch.kernels.preempt",
+            "kubernetes_tpu_torch.kernels.fork", "kubernetes_tpu_torch.whatif.fork",
+            "kubernetes_tpu_torch.whatif.engine", "kubernetes_tpu_torch.descheduler.planner",
+            "kubernetes_tpu_torch.descheduler.policies",
+            "kubernetes_tpu_torch.descheduler.controller", "kubernetes_tpu_torch.autoscaler",
+            "kubernetes_tpu_torch.autoscaler.api", "kubernetes_tpu_torch.autoscaler.controller",
+            "kubernetes_tpu_torch.convert",
             "kubernetes_tpu_torch.scheduler")
 
 
@@ -157,4 +163,27 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     fit = candidate_fit(prefix, cnt, levels, *args)
     assert fit.tolist() == [[False, True, False]]
     assert candidate_dense(one, node, prio, preq, *args).tolist() == fit.tolist()
+    # K30 / K31: two forks of a 3-node, 2-pod snapshot — fork 0 evicts pod 1
+    # (on node 2) and removes node 0, fork 1 adds a template row at node 1
+    from kubernetes_tpu_torch.kernels.fork import fork_add_rows, fork_masks
+
+    i32 = torch.int32
+    nv = torch.ones(3, dtype=torch.bool)
+    req = torch.full((3, 2), 5, dtype=i32)
+    nz = torch.full((3, 2), 5, dtype=i32)
+    pod_req = torch.ones((2, 2), dtype=i32)
+    aff = torch.ones((2, 2))
+    got = fork_masks(nv, req, nz, None, torch.ones(2, dtype=torch.bool), pod_req, pod_req,
+                     aff, torch.tensor([[1], [-1]], dtype=i32),
+                     torch.tensor([[2], [0]], dtype=i32), torch.tensor([[1], [-1]], dtype=i32),
+                     torch.tensor([[0], [0]], dtype=i32), torch.tensor([[0], [-1]], dtype=i32))
+    assert got[0].tolist() == [[False, True, True], [True, True, True]]
+    assert got[1].tolist() == [[True, False], [True, True]]
+    assert got[2][0, 2].tolist() == [4, 4] and got[2][1].tolist() == req.tolist()
+    assert got[4][0].tolist() == [[1.0, 1.0], [0.0, 1.0]] and got[5] is None
+    (added,) = fork_add_rows([req], torch.tensor([[0, 0], [1, 0]], dtype=i32),
+                             torch.tensor([[False, False], [True, False]]),
+                             [torch.full((2, 2, 2), 9, dtype=i32)])
+    assert added[0].tolist() == req.tolist()
+    assert added[1].tolist() == [[5, 5], [9, 9], [5, 5]]
     assert all(n == 0 for n in kernels.LAUNCHES.values())

@@ -721,7 +721,7 @@ def test_preemption_basic_harness_equals_reference(monkeypatch):
     w_j = jw.build_workload("PreemptionBasic", "500Nodes", scale=0.04)
     seen = {}
 
-    def inspect(store, sched):
+    def inspect(store, sched, _ctrl):
         seen["pods"] = {p.metadata.name: p.spec.node_name for p in store.list("Pod")[0]}
         seen["victims"] = list(sched.preemption_victims)
         seen["fast"] = sched.fast_binds
