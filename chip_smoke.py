@@ -5,7 +5,7 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the thirty-one CUDA kernels from kubernetes_tpu_torch/csrc/ (one
+1. Build the thirty-two CUDA kernels from kubernetes_tpu_torch/csrc/ (one
    nvcc per source) and the host C++ reprieve sweep
    (csrc/preempt_sweep.cpp, g++), all started together.
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
@@ -54,6 +54,11 @@ Phases, all of which must pass (any failure exits non-zero):
    a real add at row 0 with pads behind it (the add must win); K30 on K31's
    per-fork node arrays; both with K = 4 stacked equal to four K = 1
    launches.  Their plain versions run on CPU copies of the inputs.
+   K32 (SelectorSpread's score) at C = 512 and C = 1 over N = 8192 and on
+   rows whose maxima run 1–399 over every count, at weights 1 and 2, with
+   an all-masked row and rows without zone counts; K1 under MostAllocated
+   and RequestedToCapacityRatio (the default shape, a descending one and
+   one with a flat segment) at C = 512 and C = 1 over N = 8192.
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
    on cuda, synchronous, launch counts zeroed just before and read just
@@ -141,6 +146,25 @@ Phases, all of which must pass (any failure exits non-zero):
    (less any scale-down once the demand was met), K30 and K31 inside the
    window; pods/s, AutoscalerScaleUps, WhatIfForks per second, time to
    full slice.
+4g. Scheduler profiles at full width (5000 node_zoned(ZONES3) nodes, 64
+   Services and 64 ReplicaSets selecting app=web-i, 1000 replicas pre-bound
+   unevenly, 8 pods naming an unknown scheduler; one TorchScheduler with
+   three profiles as ``profiles=`` factories, B = 512): default-scheduler
+   (the default set plus SelectorSpread at weight 1 with the store) takes
+   2048 replicas, bin-packing (Fit under MostAllocated, from a
+   KubeSchedulerConfiguration) 2048 pods of 128 request sizes, rtcr (Fit
+   under RequestedToCapacityRatio at the default shape) 1024, one profile's
+   wave after another, the launch counts zeroed just before and read just
+   after: every pod bound by its own profile, the unknown scheduler's pods
+   pending, no node past capacity, SelectorSpread's batches on the full
+   auction (the dedup gate refuses its pod-indexed counts), bin-packing's
+   on the dedup engine, K1 in every wave and K32 in the default profile's
+   wave only; pods/s, routes and phase_wall["host_prepare"] per profile;
+   one more default-scheduler cycle of 512 replicas under torch.profiler
+   (its device idle share); synchronous, then pipelined.  Then SchedulingWithMixedChurn/5000Nodes
+   through ``perf.harness.run_workload`` (the churn hook before every
+   measured cycle): every measured pod bound, a churn pod bound, K1–K4 in
+   the window.
 4b. The full auction and the exact scan at full width (5000 nodes, B =
    512, measured pods with the launch counts zeroed just before them, every
    measured batch through the expected engine, one profiled cycle each):
@@ -186,7 +210,10 @@ Phases, all of which must pass (any failure exits non-zero):
    their controllers on a clock the script moves: cuda == cpu on bindings,
    evicted pods, the controllers' decisions and fork counts, and on the
    card a 4-fork evaluate stacked (one K30 / K31 launch) equal to one by
-   one.
+   one.  The profiles path cut to 1000 nodes (200 pre-bound, 512 + 512 +
+   256 pods): cuda == cpu on bindings and routes, K32 launched.
+   SchedulingWithMixedChurn/1000Nodes through ``run_workload``: cuda ==
+   cpu bindings.
 6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
    round; K5–K8: a TopologySpreading cycle's first round; K9–K12: a
    SchedulingPreferredPodAffinity cycle's first round; K13–K16: the latest
@@ -223,6 +250,10 @@ Phases, all of which must pass (any failure exits non-zero):
    the Defrag harness run, K31 on those of its latest at the largest fork
    count on the AutoscaleGang harness run, timed as in 6 (no one PyTorch
    call computes either).
+6g. K32 on the arguments of its latest [C, N] call on the profiles path's
+   synchronous run, and K1 on those of its latest call under MostAllocated
+   and under RequestedToCapacityRatio there, timed as in 6 (no one PyTorch
+   call computes either).
 
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
 on the path that carries each kernel: K1–K8 on the TopologySpreading run,
@@ -233,7 +264,9 @@ scan, K19 on the two pod-affinity scans, the C = 512 rows on the full
 auction that gave their arguments, K20–K23 on the GangBasic synchronous
 run, K24–K26 on the DeviceClaimGang synchronous run, K27 and K28 on the
 PreemptionBasic synchronous run, K29 on the dense preemption run, K30 on the
-Defrag harness run, K31 on the AutoscaleGang harness run), the card's name and power limit as
+Defrag harness run, K31 on the AutoscaleGang harness run, K32 and K1's
+MostAllocated / RequestedToCapacityRatio rows on the profiles path's
+synchronous run, in the wave of their profile), the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
@@ -241,7 +274,9 @@ cycles' tables to chiprun_out/profile_cycle.txt,
 chiprun_out/profile_spread_cycle.txt, chiprun_out/profile_affinity_cycle.txt,
 chiprun_out/profile_pipelined_cycle.txt, chiprun_out/profile_gang_cycle.txt,
 chiprun_out/profile_claim_gang_cycle.txt, chiprun_out/profile_preempt_cycle.txt and
-chiprun_out/profile_evaluate.txt (the Defrag cluster's 4-fork evaluate).
+chiprun_out/profile_evaluate.txt (the Defrag cluster's 4-fork evaluate) and
+chiprun_out/profile_profiles_cycle.txt (one default-scheduler cycle of the
+profiles path, SelectorSpread's K32 in it).
 """
 
 from __future__ import annotations
@@ -2477,8 +2512,8 @@ def time_kernels(sched, err: dict) -> list:
     na = NodeAffinityPlugin()
     na_mask, na_pref = na.filter(rep, snap, dyn), na.score(rep, snap, dyn)
     img = image_scaled_by_id(snap)
-    fs_plan, comb_plan = sched.fw.kernel_plans()
-    full = (1 << sched.n_filters) - 1
+    fs_plan, comb_plan = sched._framework().kernel_plans()
+    full = (1 << len(sched._framework().filter_names)) - 1
     c, n = rep.valid.shape[0], snap.num_nodes
     b, k = 512, min(512, n)
 
@@ -2625,7 +2660,7 @@ def time_spread_kernels(sched, err: dict) -> list:
     live = frozenset({"PodTopologySpread"})
     fs_plan, comb_plan = fw.kernel_plans(live)
     bit = fs_plan.dynamic_bits["PodTopologySpread"]
-    full = (1 << sched.n_filters) - 1
+    full = (1 << len(fw.filter_names)) - 1
     bits, raw = filter_score_planes(rep, snap, dyn, *fw.static_inputs(rep, snap, dyn),
                                     fs_plan)
     seeded = bits.clone()
@@ -2807,7 +2842,7 @@ def time_ipa_kernels(sched, err: dict) -> list:
     live = frozenset({"InterPodAffinity"})
     fs_plan, comb_plan = fw.kernel_plans(live)
     bit = fs_plan.dynamic_bits["InterPodAffinity"]
-    full = (1 << sched.n_filters) - 1
+    full = (1 << len(fw.filter_names)) - 1
     bits, raw = filter_score_planes(rep, snap, dyn, *fw.static_inputs(rep, snap, dyn),
                                     fs_plan)
     seeded = bits.clone()
@@ -5105,6 +5140,482 @@ def time_fork_kernels(masks_calls: dict, add_calls: dict, err: dict) -> list:
 # --- phase 7: where one cycle's device time goes ----------------------------------------
 
 
+# --- K32, Fit's strategies in K1, and the profiles path ----------------------------
+
+K1_SOURCE = "kubernetes_tpu_torch/csrc/filter_score.cu"
+K32_SOURCE = "kubernetes_tpu_torch/csrc/selectorspread.cu"
+K32_REPLACES = "kubernetes_tpu/plugins/selectorspread.py:109"
+FIT_REPLACES = "kubernetes_tpu/plugins/noderesources.py:82"
+PROFILE_NAMES = ("default-scheduler", "bin-packing", "rtcr")
+FIT_STRATEGIES = {"bin-packing": "MostAllocated", "rtcr": "RequestedToCapacityRatio"}
+PROFILE_TARGETS = {
+    "selector_spread_score": ("kubernetes_tpu_torch.plugins.selectorspread",
+                              "selector_spread_score", None),
+    "filter_score_planes": (RT, "filter_score_planes", None),
+}
+
+
+def profile_key(name, args):
+    """K32's latest call on [C, N] rows and on one row; K1's latest call under
+    each Fit strategy (on rows and on one row)."""
+    one_row = args[0].shape[0] == 1 if name == "selector_spread_score" \
+        else args[0].valid.shape[0] == 1
+    if name == "filter_score_planes":
+        return (name, args[-1].strategy, one_row)
+    return (name, one_row)
+
+
+def fit_plan(fs_plan, strategy: str, shape=None):
+    """``fs_plan`` with a Fit plugin of ``strategy`` (and shape points)."""
+    import dataclasses
+
+    from kubernetes_tpu_torch.plugins.noderesources import FitPlugin
+
+    return dataclasses.replace(fs_plan, fit=FitPlugin(strategy, shape=shape))
+
+
+def k32_case(gen, c: int, n: int, *, maxima=None):
+    """K32's inputs: bits (a 0.7 mask of ``full`` = 7), count and zone-count
+    planes with row maxima up to 399 (or the given per-row ``maxima`` over
+    every count 0..max), has_zone with holes; an all-masked row and rows
+    without zone counts."""
+    import torch
+
+    if maxima is not None:
+        c, n = len(maxima), max(maxima) + 1
+        counts = torch.zeros((c, n))
+        zone = torch.zeros((c, n))
+        mask = torch.zeros((c, n), dtype=torch.bool)
+        for i, m in enumerate(maxima):
+            counts[i, : m + 1] = torch.arange(m + 1).float()
+            zone[i, : m + 1] = torch.round(torch.linspace(0, 3 * m, m + 1))
+            mask[i, : min(i + 2, m + 1)] = True
+    else:
+        mx = torch.randint(1, 400, (c, 1), generator=gen).float()
+        counts = torch.floor(torch.rand((c, n), generator=gen) * (mx + 1))
+        zone = torch.floor(torch.rand((c, n), generator=gen) * (3 * mx + 1))
+        mask = torch.rand((c, n), generator=gen) < 0.7
+        if c > 8:
+            zone[:4] = 0
+            mask[5] = False
+    has_zone = torch.rand(n, generator=gen) < 0.8
+    bits = torch.where(mask, 7, 3).to(torch.int32)
+    total = torch.where(mask, torch.randint(0, 600, (c, n), generator=gen).float(),
+                        float("-inf"))
+    return bits, 7, total, counts, zone, has_zone
+
+
+def check_profile_kernels(dev) -> dict:
+    """K32 (C = 512, C = 1, every row maximum 1–399, weights 1 and 2) and K1
+    under MostAllocated and RequestedToCapacityRatio (the default shape, a
+    descending one, one with a flat segment) at C = 512 and C = 1 over N =
+    8192, against their plain versions on the same CUDA tensors."""
+    import torch
+
+    from kubernetes_tpu_torch.framework.interface import DynamicState
+    from kubernetes_tpu_torch.kernels import selectorspread as KSS
+    from kubernetes_tpu_torch.kernels.filter_score import (
+        filter_score_planes,
+        filter_score_planes_plain,
+    )
+    from kubernetes_tpu_torch.plugins.trivial import image_scaled_by_id
+
+    gen = torch.Generator().manual_seed(SEED + 32)
+    err = {"selector_spread_score": 0.0, "filter_score_planes": 0.0}
+    cases = {"selector_spread_score": 0, "filter_score_planes": 0}
+    for what, kw in (("C=512", {"c": 512, "n": 8192}), ("C=1", {"c": 1, "n": 8192}),
+                     ("maxima 1-399", {"c": 0, "n": 0, "maxima": list(range(1, 400))})):
+        case = [t.to(dev) if isinstance(t, torch.Tensor) else t for t in k32_case(gen, **kw)]
+        bits, full, total, counts, zone, has_zone = case
+        for weight in (1.0, 2.0):
+            got = KSS.selector_spread_score(bits, full, total.clone(), counts, zone, has_zone,
+                                            weight)
+            want = KSS.selector_spread_score_into_plain(bits, full, total.clone(), counts, zone,
+                                                        has_zone, weight)
+            torch.cuda.synchronize()
+            err["selector_spread_score"] = max(err["selector_spread_score"], require_equal(
+                f"selector_spread_score {what} w={weight}", [("total", got, want)]))
+            cases["selector_spread_score"] += 1
+    fw, (fs_plan, _comb) = framework_plans()
+    snap = synthetic_snapshot(8192, gen, dev)
+    dyn = DynamicState(requested=snap.requested, non_zero=snap.non_zero_requested)
+    img = image_scaled_by_id(snap)
+    for c in (512, 1):
+        rep, na_mask, na_pref = synthetic_classes(max(c, 4), 8192, gen, dev)
+        if c == 1:
+            rep = SimpleNamespace(**{k: v[:1] for k, v in vars(rep).items()})
+            na_mask, na_pref = na_mask[:1], na_pref[:1]
+        for strategy, shape in (("MostAllocated", None), ("RequestedToCapacityRatio", None),
+                                ("RequestedToCapacityRatio", [(0, 10), (100, 0)]),
+                                ("RequestedToCapacityRatio",
+                                 [(0, 0), (30, 7), (30, 2), (70, 9), (100, 3)])):
+            plan = fit_plan(fs_plan, strategy, shape)
+            kb, kr = filter_score_planes(rep, snap, dyn, na_mask, na_pref, img, plan)
+            pb, pr = filter_score_planes_plain(rep, snap, dyn, na_mask, na_pref, img, plan)
+            torch.cuda.synchronize()
+            err["filter_score_planes"] = max(err["filter_score_planes"], require_equal(
+                f"filter_score_planes {strategy} {shape} C={c}",
+                [("bits", kb, pb), ("raw", kr, pr)]))
+            cases["filter_score_planes"] += 1
+            if c > 1 and len(torch.unique(kr[2])) < 10:
+                fail(f"filter_score_planes {strategy}: the Fit plane is nearly flat")
+    log(f"profile kernels vs plain: all equal ({json.dumps(cases)})")
+    return {"selector_spread_score": err["selector_spread_score"],
+            "filter_score_planes (strategies)": err["filter_score_planes"]}
+
+
+def profile_factories(store):
+    """schedulerName → plugins factory: the default set plus SelectorSpread at
+    weight 1 with the store (upstream v1beta2's default), Fit under
+    MostAllocated (the upstream "Resource Bin Packing" configuration) and
+    Fit under RequestedToCapacityRatio at the default shape — the last two
+    built from a KubeSchedulerConfiguration."""
+    from kubernetes_tpu_torch import config
+    from kubernetes_tpu_torch import plugins as P
+    from kubernetes_tpu_torch.framework.interface import PluginWithWeight
+    from kubernetes_tpu_torch.scheduler import default_plugins
+
+    cfg = config.load_config({
+        "apiVersion": "kubescheduler.config.k8s.io/v1beta3",
+        "profiles": [{"schedulerName": name, "pluginConfig": [{
+            "name": "NodeResourcesFit", "args": {"scoringStrategy": {
+                "type": strat, "resources": [{"name": "cpu", "weight": 1},
+                                             {"name": "memory", "weight": 1}]}}}]}
+            for name, strat in FIT_STRATEGIES.items()]})
+    out = {"default-scheduler": lambda d: default_plugins(d) + [
+        PluginWithWeight(P.SelectorSpreadPlugin(store), 1)]}
+    for name in FIT_STRATEGIES:
+        out[name] = lambda d, _p=cfg.profile(name): config.build_plugins_for_profile(
+            _p, domain_cap=d)
+    return out
+
+
+def profile_pod(prof: str, i: int, n_apps: int = 64):
+    """The profiles path's pending pods: a replica of app web-(i mod 64) for
+    the default profile (100m / 200Mi); hetero_pod-shaped pods of 128
+    request sizes (cpu 100m + (i mod 128)m, 500Mi) for the Fit profiles."""
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    if prof == "default-scheduler":
+        p = (make_pod().name(f"web-{i:06d}").uid(f"web-{i:06d}").namespace("default")
+             .creation_timestamp(2e6 + i).label("app", f"web-{i % n_apps}")
+             .req({"cpu": "100m", "memory": "200Mi"}).obj())
+    else:
+        p = hetero_pod(400 * (i // 128) + i % 128, prefix=prof[:3], ts0=3e6)
+    p.spec.scheduler_name = prof
+    return p
+
+
+def profiles_cluster(dev_name: str, n_nodes: int, n_bound: int, pipeline: bool = False,
+                     n_apps: int = 64):
+    """node_zoned(ZONES3) nodes, 64 Services and 64 ReplicaSets selecting
+    app=web-i, ``n_bound`` replicas pre-bound unevenly (a geometric spread
+    over the nodes), and 8 pods naming an unknown scheduler; a
+    TorchScheduler with the three profiles (B = 512) → (store, sched)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.api import objects as v1
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    store = ObjectStore()
+    sched = TorchScheduler(store, batch_size=512, device=dev_name, pipeline=pipeline,
+                           profiles=profile_factories(store))
+    sched.presize(n_nodes, n_bound + 6000)
+    for i in range(n_nodes):
+        store.create("Node", zoned_node(i))
+    for i in range(n_apps):
+        meta = v1.ObjectMeta(name=f"web-{i}", namespace="default")
+        store.create("Service", v1.Service(metadata=meta, selector={"app": f"web-{i}"}))
+        store.create("ReplicaSet", v1.ReplicaSet(
+            metadata=v1.ObjectMeta(name=f"web-{i}", namespace="default"),
+            selector=v1.LabelSelector(match_labels={"app": f"web-{i}"})))
+    rng = np.random.default_rng(SEED)
+    for k in range(n_bound):
+        node = min(int(rng.geometric(8.0 / n_nodes)), n_nodes) - 1
+        store.create("Pod", make_pod().name(f"rep-{k:06d}").uid(f"rep-{k:06d}")
+                     .namespace("default").label("app", f"web-{k % n_apps}")
+                     .req({"cpu": "100m", "memory": "200Mi"})
+                     .node(f"node-{node:06d}").obj())
+    for i in range(8):
+        p = default_pod(i, "nobody")
+        p.spec.scheduler_name = "someone-else"
+        store.create("Pod", p)
+    return store, sched
+
+
+SCAN_WAVE = "default-scheduler (scan)"
+
+
+def run_profile_waves(store, sched, sizes, scan: int) -> dict:
+    """Each profile's pods created and scheduled to idle in turn, then
+    ``scan`` more default-scheduler replicas under ``assign_mode="scan"``
+    (the route a coupled default-scheduler batch takes; K32 at C = 1 in
+    every step) → per wave: pods, wall, pods/s, the engine route of each
+    dispatch, the kernels' launches in it, its host_prepare wall, the
+    nodes its pods landed on."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+
+    routes = route_counter(sched)
+    out = {}
+    waves = [(prof, prof, count, 0) for prof, count in zip(PROFILE_NAMES, sizes)]
+    waves.append((SCAN_WAVE, "default-scheduler", scan, 50000))
+    for wave, prof, count, start in waves:
+        before, r0 = dict(kernels.LAUNCHES), len(routes)
+        hp0 = sched.phase_wall["host_prepare"]
+        pods = [profile_pod(prof, start + i) for i in range(count)]
+        mode0 = sched.assign_mode
+        if wave == SCAN_WAVE:
+            sched.assign_mode = "scan"
+        t0 = time.perf_counter()
+        for p in pods:
+            store.create("Pod", p)
+        try:
+            sched.run_until_idle()
+        finally:
+            sched.assign_mode = mode0
+        if sched.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {p.metadata.name: store.get("Pod", "default", p.metadata.name).spec.node_name
+               for p in pods}
+        out[wave] = {"pods": count, "bound": sum(1 for v in got.values() if v),
+                     "wall_s": wall, "pods_per_s": count / wall if wall > 0 else 0.0,
+                     "routes": routes[r0:], "bindings": got,
+                     "nodes_used": len(set(got.values()) - {""}),
+                     "host_prepare_s": sched.phase_wall["host_prepare"] - hp0,
+                     "launches": {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}}
+    return out
+
+
+def profiles_checks(what: str, store, waves) -> None:
+    """Every profile's pods bound by its own profile (and no node past its
+    capacity), the unknown scheduler's pods pending, SelectorSpread's
+    batches on the full auction, bin-packing's on the dedup engine."""
+    pods, _ = store.list("Pod")
+    unknown = [p for p in pods if p.spec.scheduler_name == "someone-else"]
+    if len(unknown) != 8 or any(p.spec.node_name for p in unknown):
+        fail(f"{what}: the 8 pods naming an unknown scheduler did not stay pending")
+    for prof, w in waves.items():
+        if w["bound"] != w["pods"]:
+            fail(f"{what}: {prof} bound {w['bound']} of {w['pods']} pods")
+    for p in [p for p in pods if p.spec.scheduler_name != "someone-else"]:
+        if not p.spec.node_name:
+            fail(f"{what}: pod {p.metadata.name} unbound")
+    check_bound_and_fit(what, _Bound(store))
+    if set(waves["default-scheduler"]["routes"]) != {"full"}:
+        fail(f"{what}: SelectorSpread batches took {waves['default-scheduler']['routes']}, "
+             "not the full auction")
+    if "dedup" not in waves["bin-packing"]["routes"]:
+        fail(f"{what}: bin-packing batches took {waves['bin-packing']['routes']}, no dedup")
+    if set(waves[SCAN_WAVE]["routes"]) != {"scan"}:
+        fail(f"{what}: the scan wave took {waves[SCAN_WAVE]['routes']}")
+
+
+class _Bound:
+    """A store view of the bound pods only (check_bound_and_fit's input)."""
+
+    def __init__(self, store):
+        self._store = store
+
+    def list(self, kind):
+        objs, rv = self._store.list(kind)
+        return [o for o in objs if o.spec.node_name], rv
+
+
+def profiles_path(dev_name: str = "cuda", pipeline: bool = False, out_dir: Path = None) -> dict:
+    """The profiles path at full width: 5000 node_zoned(ZONES3) nodes, 1000
+    pre-bound replicas, then 2048 replicas under default-scheduler (+
+    SelectorSpread), 2048 under bin-packing, 1024 under rtcr, B = 512, and
+    512 more default-scheduler replicas through the exact scan; the launch
+    counts zeroed just before and read just after.  With
+    ``out_dir``, one more default-scheduler cycle of 512 replicas under
+    torch.profiler (its device idle share)."""
+    from kubernetes_tpu_torch import kernels
+
+    store, sched = profiles_cluster(dev_name, 5000, 1000, pipeline=pipeline)
+    phase0 = dict(sched.phase_wall)
+    kernels.reset_launches()
+    waves = run_profile_waves(store, sched, (2048, 2048, 1024), scan=512)
+    launches = dict(kernels.LAUNCHES)
+    what = "profiles path" + (" (pipelined)" if pipeline else "")
+    profiles_checks(what, store, waves)
+    need = {"default-scheduler": ("filter_score_planes", "selector_spread_score",
+                                  "normalize_combine", "topk_rows", "auction_resolve_commit"),
+            "bin-packing": ("filter_score_planes", "normalize_combine"),
+            "rtcr": ("filter_score_planes", "normalize_combine"),
+            SCAN_WAVE: ("filter_score_planes", "selector_spread_score", "scan_select_assume")}
+    for prof, ks in need.items():
+        for k in ks:
+            if waves[prof]["launches"][k] <= 0:
+                fail(f"{what}: kernel {k} never launched in the {prof} wave")
+    for prof in FIT_STRATEGIES:
+        if waves[prof]["launches"]["selector_spread_score"]:
+            fail(f"{what}: K32 launched in the {prof} wave (no SelectorSpread there)")
+    hp = sched.phase_wall["host_prepare"] - phase0["host_prepare"]
+    rec = {"launches": launches, "host_prepare_s": hp,
+           "phase_wall_s": {k: sched.phase_wall[k] - phase0[k] for k in sched.phase_wall},
+           "waves": {p: {k: v for k, v in w.items() if k != "bindings"}
+                     for p, w in waves.items()}}
+    for prof, w in waves.items():
+        log(f"{what}, {prof}: {w['pods']} pods in {w['wall_s']:.2f} s = "
+            f"{w['pods_per_s']:.1f} pods/s on {w['nodes_used']} nodes; routes {w['routes']}; "
+            f"K1 {w['launches']['filter_score_planes']}, K32 "
+            f"{w['launches']['selector_spread_score']}")
+    log(f"{what}: host_prepare {hp:.3f} s (by wave: "
+        + ", ".join(f"{p} {w['host_prepare_s']:.3f}" for p, w in waves.items())
+        + f"); the 8 unknown-scheduler pods pending; launches K1 "
+        f"{launches['filter_score_planes']}, K32 {launches['selector_spread_score']}")
+    if out_dir is not None:
+        rec["profile"] = profile_cycle(
+            sched, out_dir, "profiles path default-scheduler (SelectorSpread)",
+            lambda i: profile_pod("default-scheduler", 100000 + i), "profile_profiles_cycle.txt")
+    sched.close()
+    return {"record": rec, "waves": waves}
+
+
+def profiles_bindings(device: str):
+    """The profiles path cut to 1000 nodes (200 pre-bound, 512 + 512 + 256
+    pods, 256 through the scan) → (bindings by wave, routes by wave,
+    launches)."""
+    from kubernetes_tpu_torch import kernels
+
+    store, sched = profiles_cluster(device, 1000, 200)
+    kernels.reset_launches()
+    waves = run_profile_waves(store, sched, (512, 512, 256), scan=256)
+    profiles_checks(f"profiles cut to 1000 nodes ({device})", store, waves)
+    sched.close()
+    return ({p: w["bindings"] for p, w in waves.items()},
+            {p: w["routes"] for p, w in waves.items()}, dict(kernels.LAUNCHES))
+
+
+def mixed_churn_harness(dev_name: str, size: str):
+    """SchedulingWithMixedChurn/``size`` through ``perf.harness.run_workload``
+    (the churn hook before every measured cycle) → (summary, bindings,
+    launches in the run)."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.perf.harness import run_workload
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+
+    w = build_workload("SchedulingWithMixedChurn", size)
+    seen = {}
+
+    def inspect(store, _sched, _ctrl):
+        seen["pods"] = {p.metadata.name: p.spec.node_name for p in store.list("Pod")[0]}
+
+    kernels.reset_launches()
+    items = run_workload(w, device=dev_name, inspect=inspect)
+    launches = dict(kernels.LAUNCHES)
+    measured = [w.ops[-1].pod_template(i).metadata.name for i in range(w.ops[-1].count)]
+    unbound = [n for n in measured if not seen["pods"].get(n)]
+    if unbound:
+        fail(f"SchedulingWithMixedChurn/{size} on {dev_name}: {len(unbound)} measured pods "
+             f"unbound")
+    churn = {n: v for n, v in seen["pods"].items() if n.startswith("churn-pod")}
+    if not churn or not any(churn.values()):
+        fail(f"SchedulingWithMixedChurn/{size} on {dev_name}: no churn pod bound")
+    return harness_summary(items), seen["pods"], launches
+
+
+def time_profile_kernels(last_calls: dict, waves: dict, err: dict) -> list:
+    """K32 on the arguments of its latest [C, N] call and its latest
+    one-row (scan step) call on the profiles path's synchronous run, and
+    K1 on those of its latest call under MostAllocated and under
+    RequestedToCapacityRatio there (and, beside each, the same call under
+    LeastAllocated), timed as in 6 and held once more against their plain
+    versions; the bounds from those inputs."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import selectorspread as KSS
+    from kubernetes_tpu_torch.kernels.filter_score import (
+        filter_score_planes,
+        filter_score_planes_plain,
+    )
+    from kubernetes_tpu_torch.plugins.noderesources import STRATEGY_CODE
+
+    rows_out = []
+
+    def last(key):
+        got = last_calls.get(key)
+        if got is None:
+            fail(f"kernel timing: no recorded profiles-path call of {key}")
+        return got[0]
+
+    def row(name, err_key, src, replaces, symbol, fn, plain_fn, n_bytes, n_ops, shape,
+            launches):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        rows_out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": err[err_key],
+            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
+            "plain_ms": time_ms(plain_fn, reps=5, warmup=1), "bound_ms": least,
+            "bound_by": bound_by, "library_ms": None, "bytes": n_bytes, "ops": n_ops,
+            "shape": shape})
+
+    # K32: the pass bits read over every entry; both count planes and the
+    # total read, and the total written, on the masked entries only (an
+    # unmasked entry, node-tier padding included, is skipped after its bit
+    # test); has_zone read.  One bit test an entry; on a masked entry the
+    # two max steps and ~10 float steps
+    for one_row, wave in ((False, "default-scheduler"), (True, SCAN_WAVE)):
+        bits, full, total, counts, zone, has_zone, weight = last(
+            ("selector_spread_score", one_row))
+        base = total.clone()
+        got = KSS.selector_spread_score(bits, full, base.clone(), counts, zone, has_zone, weight)
+        want = KSS.selector_spread_score_into_plain(bits, full, base.clone(), counts, zone,
+                                                    has_zone, weight)
+        err["selector_spread_score"] = max(err["selector_spread_score"], require_equal(
+            f"selector_spread_score (path shapes, {wave})", [("total", got, want)]))
+        c, n = bits.shape
+        masked = int((bits == full).sum())
+        work = base.clone()
+        row("selector_spread_score" + (" (scan row)" if one_row else ""),
+            "selector_spread_score", K32_SOURCE, K32_REPLACES, "selector_spread_score_kernel",
+            lambda a=(bits, full, work, counts, zone, has_zone, weight):
+                KSS.selector_spread_score(*a),
+            lambda a=(bits, full, base, counts, zone, has_zone, weight):
+                KSS.selector_spread_score_into_plain(*a[:2], a[2].clone(), *a[3:]),
+            nbytes(bits, has_zone) + 16 * masked, c * n + 12 * masked,
+            {"C": c, "N": n, "masked": masked, "wave": wave},
+            waves[wave]["launches"]["selector_spread_score"])
+    for prof, strategy in FIT_STRATEGIES.items():
+        args = last(("filter_score_planes", STRATEGY_CODE[strategy], False))
+        bits1, raw1 = filter_score_planes(*args)
+        pb, pr = filter_score_planes_plain(*args)
+        err["filter_score_planes (strategies)"] = max(
+            err["filter_score_planes (strategies)"], require_equal(
+                f"filter_score_planes {strategy} (path shapes)",
+                [("bits", bits1, pb), ("raw", raw1, pr)]))
+        n_bytes, n_ops = k1_work(*args[:6], bits1, raw1)
+        plan = args[-1]
+        s_pts = plan.fit.shape_x.shape[0]
+        cc, nn = bits1.shape
+        if strategy == "RequestedToCapacityRatio":
+            # per (row, node, resource) the interpolation's binary search
+            # (a compare and an index step a level) and its 6 float steps
+            levels = int(s_pts).bit_length()
+            n_ops += cc * nn * args[1].allocatable.shape[1] * (2 * levels + 6)
+        row(f"filter_score_planes ({strategy})", "filter_score_planes (strategies)",
+            K1_SOURCE, FIT_REPLACES, "filter_score_kernel", lambda a=args: filter_score_planes(*a),
+            lambda a=args: filter_score_planes_plain(*a), n_bytes, n_ops,
+            {"C": cc, "N": nn, "strategy": strategy, "profile": prof},
+            waves[prof]["launches"]["filter_score_planes"])
+        # the same call under LeastAllocated: what the strategy switch costs
+        least = (*args[:-1], fit_plan(plan, "LeastAllocated"))
+        rows_out[-1]["least_allocated_ms"] = device_ms(
+            lambda a=least: filter_score_planes(*a), "filter_score_kernel")
+    for rr in rows_out:
+        least = (f", LeastAllocated on the same call {rr['least_allocated_ms']:.5f} ms"
+                 if "least_allocated_ms" in rr else "")
+        log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
+            f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
+            f"{least}; {rr['shape']}; launches {rr['launches']}")
+    return rows_out
+
+
 def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str,
                   n_pods: int = 512) -> dict:
     """One more cycle of ``n_pods`` pods from ``make_pod(i)`` on ``sched``'s
@@ -5863,6 +6374,7 @@ def main() -> None:
     err.update(check_dra_kernels(dev))
     err.update(check_preempt_kernels(dev))
     err.update(check_fork_kernels(dev))
+    err.update(check_profile_kernels(dev))
     record["kernel_check_s"] = time.perf_counter() - t
     out_dir = here / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5978,6 +6490,28 @@ def main() -> None:
         t = time.perf_counter()
         record["autoscale_harness"] = autoscale_harness(out_dir)
         record["autoscale_harness"]["phase_s"] = time.perf_counter() - t
+
+    # scheduler profiles: SelectorSpread (K32) and Fit's strategies (K1) at
+    # 5000 nodes, synchronous (its K32 / K1 calls kept for the timing
+    # phase) and pipelined; then SchedulingWithMixedChurn through the harness
+    with KernelArgs(PROFILE_TARGETS, key=profile_key) as profile_args:
+        t = time.perf_counter()
+        prof = profiles_path(out_dir=out_dir)
+        record["profiles_path"] = prof["record"]
+        record["profiles_path"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    record["profiles_path_pipelined"] = profiles_path(pipeline=True)["record"]
+    record["profiles_path_pipelined"]["phase_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    mc, _mc_pods, mc_launch = mixed_churn_harness("cuda", "5000Nodes")
+    for k_ in PATH_KERNELS[:4]:
+        if mc["window_launches"][k_] <= 0:
+            fail(f"SchedulingWithMixedChurn/5000Nodes: kernel {k_} not launched in the window")
+    record["mixed_churn_harness"] = {**mc, "launches": mc_launch,
+                                     "phase_s": time.perf_counter() - t}
+    log(f"SchedulingWithMixedChurn/5000Nodes through run_workload: {mc['pods_per_s']} pods/s, "
+        f"attempt p50 {mc['attempt_p50_ms']:.1f} / p99 {mc['attempt_p99_ms']:.1f} ms, "
+        f"window {mc['window_pipeline']}; {record['mixed_churn_harness']['phase_s']:.1f} s")
 
     t = time.perf_counter()
     gpu_bind, gpu_launch, gpu_cycles, gpu_wall = hetero_bindings("cuda")
@@ -6184,6 +6718,33 @@ def main() -> None:
             f"on the card; launches " + ", ".join(f"{k_} {launches[k_]}" for k_ in need)
             + f" ({time.perf_counter() - t:.1f} s)")
 
+    t = time.perf_counter()
+    (gb, gr, gl), (cb, cr, _) = profiles_bindings("cuda"), profiles_bindings("cpu")
+    if gb != cb:
+        diff = [(p_, k_) for p_ in gb for k_ in gb[p_] if gb[p_][k_] != cb[p_].get(k_)]
+        fail(f"profiles cut to 1000 nodes: cuda and cpu bindings differ for {len(diff)} "
+             f"pods, e.g. {diff[:3]}")
+    if gr != cr:
+        fail(f"profiles cut to 1000 nodes: cuda routes {gr} differ from cpu routes {cr}")
+    if gl["selector_spread_score"] <= 0:
+        fail("profiles cut to 1000 nodes: K32 never launched")
+    record["profiles_bindings"] = {"pods": {p_: len(v) for p_, v in gb.items()},
+                                   "routes": gr, "launches": gl,
+                                   "s": time.perf_counter() - t}
+    log(f"profiles cut to 1000 nodes: cuda == cpu bindings and routes "
+        f"({ {p_: len(v) for p_, v in gb.items()} }) in {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _, g_pods, g_launch = mixed_churn_harness("cuda", "1000Nodes")
+    _, c_pods, _ = mixed_churn_harness("cpu", "1000Nodes")
+    if g_pods != c_pods:
+        diff = [k_ for k_ in g_pods if g_pods[k_] != c_pods.get(k_)]
+        fail(f"SchedulingWithMixedChurn/1000Nodes: cuda and cpu bindings differ for "
+             f"{len(diff)} pods, e.g. {diff[:3]}")
+    record["mixed_churn_bindings"] = {"pods": len(g_pods), "launches": g_launch,
+                                      "s": time.perf_counter() - t}
+    log(f"SchedulingWithMixedChurn/1000Nodes through run_workload: cuda == cpu bindings "
+        f"({len(g_pods)} pods) in {time.perf_counter() - t:.1f} s")
+
     record["cuda_pipelined_vs_sync"] = {}
     for kind_ in ("northstar", "spread", "preferred", "anti"):
         t = time.perf_counter()
@@ -6198,6 +6759,7 @@ def main() -> None:
     preempt_rows = time_preempt_kernels(preempt_args.last, dense_args.last, err, dev)
     record["k13_nominated_bundle"] = time_nominated_bundle(dev)
     fork_rows = time_fork_kernels(defrag_args.last, auto_args.last, err)
+    profile_rows = time_profile_kernels(profile_args.last, prof["waves"], err)
     scan_args = dict(recorders["TopologySpreading scan"].last)
     scan_args["ipa_update_row"] = \
         recorders["SchedulingPreferredPodAffinity scan"].last["ipa_update_row"]
@@ -6289,6 +6851,17 @@ def main() -> None:
         r["launches"] = fork_paths[carry]["launches"][r["name"]]
         r["launches_by_path"] = {p_: v["launches"][r["name"]] for p_, v in fork_paths.items()}
     rows += fork_rows
+    # K32 and K1's strategy rows: their launches on the profiles path's
+    # synchronous run (K1: in the wave of the profile with that strategy)
+    for r in profile_rows:
+        r["launches_by_path"] = {
+            "profiles path": record["profiles_path"]["launches"].get(
+                r["name"].split(" ")[0]),
+            "profiles path (pipelined)": record["profiles_path_pipelined"]["launches"].get(
+                r["name"].split(" ")[0])}
+        if r["launches"] <= 0:
+            fail(f"{r['name']}: no launch on the profiles path")
+    rows += profile_rows
     record["kernels"] = rows
     record["profile"] = profile_cycle(
         ns["sched"], out_dir, "NorthStar-shaped",

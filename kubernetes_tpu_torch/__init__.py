@@ -20,6 +20,8 @@ Layout (mirrors the JAX package):
   framework/  plugin interface, events, PodBatch compiler, runtime
   plugins/    the default plugin set (main-path plugins, live
               PodTopologySpread and InterPodAffinity, pass-through halves)
+              and SelectorSpread
+  config/     KubeSchedulerConfiguration: profiles → plugin sets
   gang/       the gang directory, Coscheduling, the all-or-nothing mask
   dra/        device claims: the claim index, DynamicResources
   queueing/   the 3-queue PriorityQueue
@@ -30,10 +32,11 @@ Layout (mirrors the JAX package):
   autoscaler/ NodeGroups and the cluster autoscaler
   kernels/    CUDA kernel wrappers, plain versions, build/loader
   csrc/       the .cu sources and the host C++ reprieve sweep
+  ops/        shared tensor primitives (segment sums, a float32 FMA)
   oracle.py   the reference filters, one (pod, node) at a time
   preemption.py the Evaluator (DefaultPreemption's PostFilter)
   convert.py  JAX-package arrays (as numpy) → the port's tensors
-  scheduler.py TorchScheduler
+  scheduler.py TorchScheduler (one framework per scheduler profile)
 """
 
 __version__ = "0.1.0"

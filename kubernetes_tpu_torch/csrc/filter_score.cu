@@ -5,13 +5,14 @@
 // framework/runtime.py _batch_assign_dedup.dense_rep builds each round from
 // plugins/trivial.py (NodeUnschedulable :74, NodeName :26, NodePorts :45,
 // ImageLocality score :89), plugins/tainttoleration.py (:25-63),
-// plugins/noderesources.py (fit_filter :28, FitPlugin.score :82,
-// BalancedAllocationPlugin.score :169) and the precomputed NodeAffinity
-// planes (plugins/nodeaffinity.py).
+// plugins/noderesources.py (fit_filter :28, FitPlugin.score :82-126 under
+// its three strategies, BalancedAllocationPlugin.score :169) and the
+// precomputed NodeAffinity planes (plugins/nodeaffinity.py).
 //
 // Output: an i32[C, N] pass-bit plane (bit k set when filter plugin k of the
 // framework's filter order passes; live_nodes and the class's valid flag are
-// folded in, so a dead node or a padding class row has no bit set) and five
+// folded in, so a dead node or a padding class row has no bit set; a filter
+// the profile does not run has bit index -1 and sets nothing) and five
 // raw f32 planes [5, C, N]: TaintToleration, NodeAffinity, Fit,
 // BalancedAllocation, ImageLocality.
 //
@@ -24,6 +25,15 @@
 // built with --fmad=false -prec-div=true -prec-sqrt=true, so no multiply
 // is contracted into an add and every division and square root is
 // correctly rounded; the floors then land where the reference's do.
+//
+// Fit's score follows the profile's scoring strategy (a switch on
+// Extra.strategy): LeastAllocated floor((alloc - total) * 100 / alloc),
+// MostAllocated floor(total * 100 / alloc) (0 where total > alloc), or
+// RequestedToCapacityRatio: util = min(total / alloc, 1) * 100 (100 where
+// alloc = 0) through the shape's points as jnp.interp computes it (its
+// binary search, then fp[i-1] + (delta / dx) * df as ONE fused
+// multiply-add: XLA:CPU contracts it, so __fmaf_rn here), not floored per
+// resource; only sum(w * per_dim) / sum(w) is floored.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,6 +47,11 @@
 #define MAX_NODE_SCORE 100.0f
 #define MIN_THRESHOLD 24117248.0f  // 23 MiB
 #define MAX_CONTAINER_THRESHOLD 1048576000LL  // 1000 MiB
+#define STRATEGY_LEAST 0
+#define STRATEGY_MOST 1
+#define STRATEGY_RTCR 2
+// np.spacing(np.finfo(float32).eps): jnp.interp's flat-segment threshold
+#define DX_EPS 0x1p-46f
 
 struct ClassRows {
   const uint8_t* valid;        // [C]
@@ -78,8 +93,12 @@ struct Extra {
   int num_ids;
   const float* fit_w;         // [R] Fit weights
   const uint8_t* ba_sel;      // [R] BalancedAllocation resource selection
-  int bit_unsched, bit_name, bit_taint, bit_affinity, bit_ports, bit_fit;
+  int bit_unsched, bit_name, bit_taint, bit_affinity, bit_ports, bit_fit;  // -1: absent
   int pass_bits;              // bits of the pass-through filters
+  int strategy;               // Fit's scoring strategy (STRATEGY_*)
+  const float* shape_x;       // [S] RequestedToCapacityRatio utilization points
+  const float* shape_y;       // [S] their scores (x 10)
+  int n_shape;
   // dictionary ids (state/dictionary.py): the node.kubernetes.io/unschedulable
   // taint key and the 0.0.0.0 host IP
   int id_unsched_taint, id_wildcard_ip;
@@ -95,6 +114,29 @@ __device__ __forceinline__ bool tolerates(const ClassRows& cr, int c, int j,
   const bool effect_ok = (pe == -1) || (pe == te);
   const bool value_ok = (cr.tol_op[o] == TOL_OP_EXISTS) || (cr.tol_val[o] == tv);
   return key_ok && effect_ok && value_ok;
+}
+
+// jnp.interp(x, xp, fp) in float32, as jax computes it: searchsorted(xp, x,
+// side="right") by ceil(log2(S + 1)) halvings of [0, S) (left while
+// x < xp[mid]), the segment clipped to [1, S - 1], fp[0] / fp[S - 1] outside.
+__device__ __forceinline__ float rtcr_interp(float x, const float* xp, const float* fp,
+                                             int S) {
+  int levels = 0;
+  while ((1 << levels) < S + 1) ++levels;
+  int low = 0, high = S;
+  for (int l = 0; l < levels; ++l) {
+    const int mid = (low + high) / 2;
+    if (x < xp[min(mid, S - 1)]) high = mid; else low = mid;
+  }
+  const int i = min(max(high, 1), S - 1);
+  const float df = __fsub_rn(fp[i], fp[i - 1]);
+  const float dx = __fsub_rn(xp[i], xp[i - 1]);
+  const float delta = __fsub_rn(x, xp[i - 1]);
+  const bool dx0 = fabsf(dx) <= DX_EPS;
+  float f = dx0 ? fp[i - 1] : __fmaf_rn(__fdiv_rn(delta, dx), df, fp[i - 1]);
+  if (x < xp[0]) f = fp[0];
+  if (x > xp[S - 1]) f = fp[S - 1];
+  return f;
 }
 
 __global__ void filter_score_kernel(int C, int N, int R, ClassRows cr,
@@ -159,7 +201,7 @@ __global__ void filter_score_kernel(int C, int N, int R, ClassRows cr,
     }
   }
 
-  // --- Fit filter + LeastAllocated score; BalancedAllocation -----------------
+  // --- Fit filter + the strategy's score; BalancedAllocation -------------------
   bool f_fit = true;
   float wsum = 0.0f, wscore = 0.0f;
   float ba_sum = 0.0f;
@@ -181,8 +223,16 @@ __global__ void filter_score_kernel(int C, int N, int R, ClassRows cr,
     }
     const float total = __fadd_rn(nz_node, nz_pod);
     float per_dim = 0.0f;
-    if (!(alloc == 0.0f || total > alloc)) {
-      const float num = __fmul_rn(__fsub_rn(alloc, total), MAX_NODE_SCORE);
+    if (ex.strategy == STRATEGY_RTCR) {
+      const float util =
+          (alloc == 0.0f)
+              ? MAX_NODE_SCORE
+              : __fmul_rn(fminf(__fdiv_rn(total, fmaxf(alloc, 1.0f)), 1.0f), MAX_NODE_SCORE);
+      per_dim = rtcr_interp(util, ex.shape_x, ex.shape_y, ex.n_shape);
+    } else if (!(alloc == 0.0f || total > alloc)) {
+      const float num = (ex.strategy == STRATEGY_MOST)
+                            ? __fmul_rn(total, MAX_NODE_SCORE)
+                            : __fmul_rn(__fsub_rn(alloc, total), MAX_NODE_SCORE);
       per_dim = floorf(__fdiv_rn(num, fmaxf(alloc, 1.0f)));
     }
     const float w = ex.fit_w[r];
@@ -248,12 +298,12 @@ __global__ void filter_score_kernel(int C, int N, int R, ClassRows cr,
   int b = 0;
   if (nr.live[n] && cr.valid[c]) {
     b = ex.pass_bits;
-    if (f_unsched) b |= 1 << ex.bit_unsched;
-    if (f_name) b |= 1 << ex.bit_name;
-    if (f_taint) b |= 1 << ex.bit_taint;
-    if (ex.na_mask[cn]) b |= 1 << ex.bit_affinity;
-    if (f_ports) b |= 1 << ex.bit_ports;
-    if (f_fit) b |= 1 << ex.bit_fit;
+    if (f_unsched && ex.bit_unsched >= 0) b |= 1 << ex.bit_unsched;
+    if (f_name && ex.bit_name >= 0) b |= 1 << ex.bit_name;
+    if (f_taint && ex.bit_taint >= 0) b |= 1 << ex.bit_taint;
+    if (ex.na_mask[cn] && ex.bit_affinity >= 0) b |= 1 << ex.bit_affinity;
+    if (f_ports && ex.bit_ports >= 0) b |= 1 << ex.bit_ports;
+    if (f_fit && ex.bit_fit >= 0) b |= 1 << ex.bit_fit;
   }
   bits[cn] = b;
   raw[0 * plane + cn] = (float)prefer_count;
@@ -280,6 +330,7 @@ extern "C" int launch_filter_score(
     int bit_unsched, int bit_name, int bit_taint, int bit_affinity,
     int bit_ports, int bit_fit, int pass_bits,
     int id_unsched_taint, int id_wildcard_ip,
+    int strategy, const void* shape_x, const void* shape_y, int n_shape,
     void* bits, void* raw, void* stream) {
   ClassRows cr{(const uint8_t*)c_valid, (const int32_t*)c_request,
                (const int32_t*)c_non_zero, (const int32_t*)c_node_name_id,
@@ -298,7 +349,8 @@ extern "C" int launch_filter_score(
   Extra ex{(const uint8_t*)na_mask, (const float*)na_pref,
            (const float*)img_scaled, num_ids, (const float*)fit_w,
            (const uint8_t*)ba_sel, bit_unsched, bit_name, bit_taint,
-           bit_affinity, bit_ports, bit_fit, pass_bits, id_unsched_taint,
+           bit_affinity, bit_ports, bit_fit, pass_bits, strategy,
+           (const float*)shape_x, (const float*)shape_y, n_shape, id_unsched_taint,
            id_wildcard_ip};
   const int threads = 256;
   dim3 grid((N + threads - 1) / threads, C);

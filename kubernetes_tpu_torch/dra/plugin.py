@@ -83,6 +83,12 @@ class DynamicResourcesPlugin(Plugin):
         self.claims_allocated: Dict[str, int] = {k: 0 for k in CLAIM_RESULTS}
         self.allocation_durations: List[float] = []
 
+    def attach_dra_index(self, index: DraIndex) -> None:
+        """Wire the scheduler's DraIndex in (a profile's plugins factory
+        takes only the domain cap; the scheduler attaches the index to every
+        framework it builds, as it attaches the gang directory)."""
+        self.index = index
+
     def events_to_register(self):
         return [
             ClusterEvent(EventResource.RESOURCE_CLAIM, ActionType.ALL),

@@ -12,7 +12,7 @@ Reference: the JAX package's framework/runtime.py — ``PrevBatch`` (:40-63),
 K13.  All run through the kernels (kernels/): K1 filter bits + raw planes, then the live dynamic
 plugins' filters folded into the bit plane (PodTopologySpread: K6,
 InterPodAffinity: K10), K2 normalize + weighted total, then the dynamic
-plugins' scores folded into the total (K7, K11).  The auctions add K3
+plugins' scores folded into the total (K7, K11, SelectorSpread's K32).  The auctions add K3
 top-K candidates in (value desc, row asc) order, K4 the propose/resolve
 auction with its scatter-add commit, and the dynamic plugins' round
 updates (K8, K12); the full auction is the dedup engine at one class per
@@ -321,19 +321,27 @@ class BatchedFramework:
     def kernel_plans(self, live: frozenset = frozenset()):
         """(FilterScorePlan, CombinePlan) for this plugin list, given the
         names of the dynamic plugins whose aux is live.  The kernels
-        evaluate the main-path plugins.  A pass-through half (the volume
-        filters) contributes its filter as a bit K1 sets.  A live dynamic
-        plugin (PodTopologySpread, InterPodAffinity, DynamicResources) has
-        its bit seeded by K1 as passing — its filter with no aux — and
-        written by its own kernel (K6, K10, K24), and its score added by its
-        kernel (K7, K11, K25); with no aux its score is the constant of its
+        evaluate any subset of the default plugins, at any weights: a kernel
+        filter the profile does not run has no bit (K1 sets nothing for
+        it), and a raw plane whose plugin the profile does not score with
+        takes weight 0 in K2's plan (its plane is finite, so it adds 0).  A
+        pass-through half (the volume filters) contributes its filter as a
+        bit K1 sets.  A live dynamic plugin (PodTopologySpread,
+        InterPodAffinity, DynamicResources, SelectorSpread) has its bit
+        seeded by K1 as passing — its filter with no aux — and written by
+        its own kernel (K6, K10, K24), and its score added by its kernel
+        (K7, K11, K25, K32); with no aux its score is the constant of its
         normalized all-zero plane (200 for PodTopologySpread, 0 for
         InterPodAffinity and DynamicResources), folded into ``const_add``.
         Coscheduling likewise: live (K21) when a row of the batch anchors a
-        gang, else the constant 0 of its all-False plane."""
+        gang, else the constant 0 of its all-False plane.  A plugin with no
+        kernel path raises, naming its ROADMAP item."""
         if live in self._plans:
             return self._plans[live]
         names = self.filter_names
+        if len(names) > 31:
+            raise NotImplementedError(
+                f"{len(names)} filter plugins: the pass-bit plane holds 31")
         bit_of, dynamic_bits, pass_bits = {}, {}, 0
         for k, pw in enumerate(self.filter_plugins):
             p = pw.plugin
@@ -348,12 +356,8 @@ class BatchedFramework:
                 raise NotImplementedError(
                     f"filter plugin {p.name} has no kernel path in the dedup "
                     "engine yet (ROADMAP Queue B)")
-        missing = [n for n in KERNEL_FILTERS if n not in bit_of]
-        if missing or len(names) > 31:
-            raise NotImplementedError(
-                f"the dedup kernels need the default filter set; missing {missing}")
         fit = balanced = None
-        weights = {}
+        weights = {n: 0.0 for n in RAW_PLANES}
         const_add = 0.0
         for pw in self.score_plugins:
             p = pw.plugin
@@ -372,10 +376,6 @@ class BatchedFramework:
                 raise NotImplementedError(
                     f"score plugin {p.name} has no kernel path in the dedup "
                     "engine yet (ROADMAP Queue B)")
-        if set(weights) != set(RAW_PLANES) or fit is None or balanced is None:
-            raise NotImplementedError(
-                "the dedup kernels need the default score set "
-                f"{RAW_PLANES}; have {sorted(weights)}")
         self._plans[live] = (
             FilterScorePlan(fit=fit, balanced=balanced, bit_of=bit_of,
                             pass_bits=pass_bits, dynamic_bits=dynamic_bits),

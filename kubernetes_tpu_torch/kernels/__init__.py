@@ -47,12 +47,16 @@ than once); ``reset_launches`` zeroes the counts.
   K30 fork_masks            csrc/fork.cu (one launch per what-if evaluate over K
                             forks, or per fork when not stacked)
   K31 fork_add_rows         csrc/fork.cu (the same, when a fork adds nodes)
+  K32 selector_spread_score csrc/selectorspread.cu (per round or scan step of
+                            a batch under a profile with SelectorSpread)
 
 The full auction runs K1–K4, K6–K8 and K10–K12 at identity classes (one
 class row per pod); the exact scan runs K1, K2, K6, K7, K10 and K11 on one
 pod's row per step, then K17–K19.  Every dispatch ends in K20 (the gang
 mask) and K22 (the packed result); K23 matches the selectors of the
 plugins' inputs, and K21 adds Coscheduling's score where a gang anchors.
+Under a profile with SelectorSpread, K32 adds its score to every round or
+step; K1 computes Fit's plane under the profile's scoring strategy.
 A batch with resource claims adds DynamicResources' filter (K24) and score
 (K25) to every round or step and takes the placed pods' chips (K26).  A
 failing batch whose pods may preempt runs K1 on its rows for the static bits
@@ -101,6 +105,7 @@ LAUNCHES: Dict[str, int] = {
     "candidate_dense": 0,
     "fork_masks": 0,
     "fork_add_rows": 0,
+    "selector_spread_score": 0,
 }
 
 

@@ -37,7 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
 SOURCES = ("filter_score", "normalize_combine", "topk_rows", "auction", "spread",
            "interpodaffinity", "prev_delta", "scatter_rows", "scan", "gang", "cosched",
-           "diag_pack", "selector_match", "dra", "preempt", "fork")
+           "diag_pack", "selector_match", "dra", "preempt", "fork", "selectorspread")
 # host C++ libraries (plain C interface, loaded with ctypes like the kernels)
 HOST_SOURCES = ("preempt_sweep",)
 GXX_FLAGS = ["-O2", "-shared", "-fPIC"]

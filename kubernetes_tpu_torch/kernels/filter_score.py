@@ -5,22 +5,32 @@ Replaces the JAX package's per-round plane build in
 framework/runtime.py ``_batch_assign_dedup.dense_rep`` (:852-867) for the
 main-path plugins.  Output: ``bits i32[C, N]`` — bit k set when filter
 plugin k (the framework's filter order) passes, with ``live_nodes`` and the
-class's valid flag folded in, so the feasibility mask is "all bits set" —
-and ``raw f32[5, C, N]``: TaintToleration, NodeAffinity, Fit,
-BalancedAllocation, ImageLocality.  NodeAffinity's planes come in
-precomputed (selector matching, ROADMAP B4) and ImageLocality's per-id
-spread-scaled sizes too (small scatters, plugins/trivial.py).
+class's valid flag folded in, so the feasibility mask is "all bits set";
+a kernel filter the profile does not run has no bit — and ``raw f32[5, C,
+N]``: TaintToleration, NodeAffinity, Fit (under the profile's scoring
+strategy: LeastAllocated, MostAllocated or RequestedToCapacityRatio with
+its shape points), BalancedAllocation, ImageLocality.  NodeAffinity's
+planes come in precomputed (selector matching, ROADMAP B4) and
+ImageLocality's per-id spread-scaled sizes too (small scatters,
+plugins/trivial.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from types import SimpleNamespace
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ..framework.interface import DynamicState
-from ..plugins.noderesources import BalancedAllocationPlugin, FitPlugin, fit_filter
+from ..plugins.noderesources import (
+    STRATEGY_CODE,
+    BalancedAllocationPlugin,
+    FitPlugin,
+    fit_filter,
+)
 from ..plugins.tainttoleration import TaintTolerationPlugin
 from ..plugins.trivial import (
     NodeNamePlugin,
@@ -54,26 +64,41 @@ def pod_row(batch, i: int) -> SimpleNamespace:
 @dataclass
 class FilterScorePlan:
     """Static per-framework inputs: the Fit / BalancedAllocation plugin
-    objects (their weight and selection vectors), the bit position of each
-    kernel filter in the framework's filter order, the OR of the bits K1
-    sets on every live node of a valid row (the pass-through filters', and
-    the dynamic filters' as seeds), and the bit of each dynamic filter that
-    its own kernel writes afterwards."""
+    objects (their weight and selection vectors, Fit's strategy and shape
+    points; None when the profile does not score with the plugin: its
+    plane is then all 0), the bit position of each kernel filter in the
+    framework's filter order (absent: the profile does not run it), the OR
+    of the bits K1 sets on every live node of a valid row (the pass-through
+    filters', and the dynamic filters' as seeds), and the bit of each
+    dynamic filter that its own kernel writes afterwards."""
 
-    fit: FitPlugin
-    balanced: BalancedAllocationPlugin
+    fit: Optional[FitPlugin]
+    balanced: Optional[BalancedAllocationPlugin]
     bit_of: dict  # KERNEL_FILTERS name → bit
     pass_bits: int
     dynamic_bits: dict = field(default_factory=dict)  # plugin name → bit
 
-    def vectors(self, device):
-        """(Fit weights f32[R], BalancedAllocation selection bool[R]) on
-        ``device``, uploaded once per device."""
+    @property
+    def strategy(self) -> int:
+        """Fit's strategy code (STRATEGY_CODE; LeastAllocated without Fit)."""
+        return STRATEGY_CODE[self.fit.strategy] if self.fit is not None else 0
+
+    def vectors(self, device, r: int = 8):
+        """(Fit weights f32[R], BalancedAllocation selection bool[R], Fit's
+        shape points x and y f32[S]) on ``device``, uploaded once per
+        device; zero weights and no selection for an absent plugin."""
         cache = self.__dict__.setdefault("_vectors", {})
         key = str(device)
         if key not in cache:
-            cache[key] = (torch.from_numpy(self.fit.weights).to(device),
-                          torch.from_numpy(self.balanced.sel).to(device))
+            if self.fit is not None:
+                fit = self.fit
+                weights = fit.weights
+            else:  # only the default shape points are read: a valid launch
+                fit = FitPlugin()
+                weights = np.zeros(r, np.float32)
+            sel = self.balanced.sel if self.balanced is not None else np.zeros(r, bool)
+            cache[key] = tuple(torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                               for v in (weights, sel, fit.shape_x, fit.shape_y))
         return cache[key]
 
 
@@ -91,15 +116,17 @@ def filter_score_planes_plain(rep, snap, dyn: DynamicState, na_mask, na_pref,
     c, n = rep.valid.shape[0], snap.num_nodes
     bits = torch.full((c, n), plan.pass_bits, dtype=torch.int32, device=snap.device)
     for name in KERNEL_FILTERS:
-        plane = filt[name].expand(c, n).to(torch.int32)
-        bits = bits | (plane << plan.bit_of[name])
+        if name in plan.bit_of:
+            plane = filt[name].expand(c, n).to(torch.int32)
+            bits = bits | (plane << plan.bit_of[name])
     live = live_nodes(snap)[None, :] & rep.valid[:, None]
     bits = torch.where(live, bits, 0)
+    zero = torch.zeros((c, n), dtype=torch.float32, device=snap.device)
     raw = torch.stack([
         TaintTolerationPlugin().score(rep, snap, dyn),
         na_pref.to(torch.float32),
-        plan.fit.score(rep, snap, dyn),
-        plan.balanced.score(rep, snap, dyn),
+        plan.fit.score(rep, snap, dyn) if plan.fit is not None else zero,
+        plan.balanced.score(rep, snap, dyn) if plan.balanced is not None else zero,
         image_locality_plane(rep.image_ids, snap, img_scaled),
     ])
     return bits, raw
@@ -113,7 +140,7 @@ def _fn():
     if _FN is None:
         _FN = bind(load("filter_score"), "launch_filter_score",
                    "iii" + "p" * 12 + "iii" + "p" * 13 + "iii" + "ppp" + "i"
-                   + "pp" + "i" * 9 + "pp" + "p")
+                   + "pp" + "i" * 9 + "ippi" + "pp" + "p")
     return _FN
 
 
@@ -134,19 +161,20 @@ def filter_score_planes(rep, snap, dyn: DynamicState, na_mask, na_pref,
              snap.taint_vals, snap.taint_effects, snap.ports, snap.ports_ip,
              snap.image_ids]
     nodes = [t.contiguous() for t in nodes]
-    fit_w, ba_sel = plan.vectors(dev)
+    fit_w, ba_sel, shape_x, shape_y = plan.vectors(dev, r)
     na_mask = na_mask.contiguous()
     na_pref = na_pref.to(torch.float32).contiguous()
     img_scaled = img_scaled.contiguous()
     require_cuda("filter_score_planes", *cls, *nodes, na_mask, na_pref,
-                 img_scaled, fit_w, ba_sel)
+                 img_scaled, fit_w, ba_sel, shape_x, shape_y)
     name = "filter_score_planes"
     require_dtype(name, torch.bool, cls[0], cls[4], nodes[0], nodes[1], nodes[3],
                   na_mask, ba_sel)
     require_dtype(name, torch.int32, *cls[1:4], *cls[5:], *nodes[2:3], *nodes[4:])
-    require_dtype(name, torch.float32, na_pref, img_scaled, fit_w)
+    require_dtype(name, torch.float32, na_pref, img_scaled, fit_w, shape_x, shape_y)
     if rep.request.shape[1] != r or fit_w.shape[0] != r or ba_sel.shape[0] != r \
-            or na_mask.shape != (c, n) or na_pref.shape != (c, n):
+            or na_mask.shape != (c, n) or na_pref.shape != (c, n) \
+            or shape_x.shape != shape_y.shape or shape_x.shape[0] < 2:
         raise ValueError(f"{name}: inconsistent shapes")
     bits = torch.empty((c, n), dtype=torch.int32, device=dev)
     raw = torch.empty((5, c, n), dtype=torch.float32, device=dev)
@@ -158,9 +186,10 @@ def filter_score_planes(rep, snap, dyn: DynamicState, na_mask, na_pref,
         snap.taint_keys.shape[1], snap.ports.shape[1], snap.image_ids.shape[1],
         ptr(na_mask), ptr(na_pref), ptr(img_scaled), img_scaled.shape[0],
         ptr(fit_w), ptr(ba_sel),
-        b["NodeUnschedulable"], b["NodeName"], b["TaintToleration"],
-        b["NodeAffinity"], b["NodePorts"], b["NodeResourcesFit"], plan.pass_bits,
-        ID_UNSCHEDULABLE_TAINT, ID_WILDCARD_IP, ptr(bits), ptr(raw), stream_of(dev))
+        *(b.get(k, -1) for k in KERNEL_FILTERS), plan.pass_bits,
+        ID_UNSCHEDULABLE_TAINT, ID_WILDCARD_IP,
+        plan.strategy, ptr(shape_x), ptr(shape_y), shape_x.shape[0],
+        ptr(bits), ptr(raw), stream_of(dev))
     check(err, "filter_score_planes")
     LAUNCHES["filter_score_planes"] += 1
     return bits, raw

@@ -18,8 +18,11 @@ where a scheduled pod ranks below it, the PostFilter with its candidate mask, K1
 window; it nominates nothing), the suite-template warms, the micro-bucket
 tier bursts (5 × tier pods per tier through the real pipelined regime,
 which fill the scheduler's per-tier latency profiles) and a settle
-dispatch.  The reference's anti-affinity scan warm pre-compiles an XLA
-program variant the port does not have, and is left out.  The window
+dispatch, and for a churn suite (``Workload.churn_between_cycles``) two
+calls of its hook with the objects they created deleted again (the
+reference's :372-410).  The reference's anti-affinity scan warm
+pre-compiles an XLA program variant the port does not have, and is left
+out.  A churn suite's hook runs before every measured cycle.  The window
 freezes the warmed heap out of the collector (``gc.freeze``).
 
 Items: SchedulingThroughput, scheduler_scheduling_attempt_duration_seconds
@@ -108,6 +111,10 @@ class Workload:
     # (AutoscalerScaleUps); both add WhatIfForks
     make_descheduler: Optional[Callable] = None
     autoscaler: bool = False
+    # recreate-mode churn (SchedulingWithMixedChurn): called with (store,
+    # cycle index) before every measured scheduling cycle — the
+    # synchronous form of scheduler_perf's background churn goroutine
+    churn_between_cycles: Optional[Callable] = None
 
 
 @dataclass
@@ -204,6 +211,37 @@ def _warm(sched: TorchScheduler, store: ObjectStore, tmpl, w: Workload) -> None:
         sched.schedule_cycle()
         sched.run_until_idle(max_cycles=4)
         store.delete("Pod", ns, name)
+    if w.churn_between_cycles is not None:
+        _warm_churn(sched, store, w)
+
+
+def _warm_churn(sched: TorchScheduler, store: ObjectStore, w: Workload) -> None:
+    """The churn hook twice before the window (the reference's
+    run_workload :372-410): its objects' first appearance and the recreate
+    path (a second call with the same cycle index deletes and re-adds
+    them, then a full upload) run outside the window; every object the
+    calls created is deleted again.  The hook must only have created
+    objects: one that removed pre-existing state would change the window's
+    declared initial cluster."""
+    def key(o):
+        return (getattr(o.metadata, "namespace", "") or "", o.metadata.name)
+
+    pre = {kind: {key(o) for o in store.list(kind)[0]} for kind in ("Node", "Pod", "Service")}
+    w.churn_between_cycles(store, 0)
+    sched.schedule_cycle()
+    sched.schedule_cycle()
+    w.churn_between_cycles(store, 0)
+    sched.encoder.force_full_next()
+    sched.schedule_cycle()
+    sched.schedule_cycle()
+    for kind, had in pre.items():
+        for o in list(store.list(kind)[0]):
+            ns, name = key(o)
+            if (ns, name) not in had:
+                store.delete(kind, ns, name)
+        missing = had - {key(o) for o in store.list(kind)[0]}
+        assert not missing, (f"churn hook removed pre-existing {kind} objects during "
+                             f"warmup: {sorted(missing)[:4]}")
 
 
 def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
@@ -254,6 +292,8 @@ def _measure(sched: TorchScheduler, store: ObjectStore, created: List[v1.Pod],
             if w.latency_target_ms is not None else w.batch_size
         max_cycles = max(64, 4 * (target // max(pad, 1) + 1))
         while done < target and cycle < max_cycles:
+            if w.churn_between_cycles is not None:
+                w.churn_between_cycles(store, cycle)
             done_pre = done
             stats = sched.schedule_cycle()
             if ctrl is not None:

@@ -11,8 +11,9 @@ spread pods).  Each suite has the reference's shape, named sizes
 The port carries the suites whose pods it schedules: SchedulingBasic,
 NorthStar, Density, TopologySpreading, PreferredTopologySpreading,
 SchedulingNodeAffinity, SchedulingPodAntiAffinity, SchedulingPodAffinity,
-SchedulingPreferredPodAffinity, Unschedulable, PreemptionBasic, GangBasic,
-DeviceClaimGang, Defrag and AutoscaleGang.  ``build_workload`` of any other
+SchedulingPreferredPodAffinity, Unschedulable, PreemptionBasic,
+SchedulingWithMixedChurn, GangBasic, DeviceClaimGang, Defrag and
+AutoscaleGang.  ``build_workload`` of any other
 suite raises NotImplementedError naming the ROADMAP item that brings what it
 needs.
 """
@@ -580,6 +581,41 @@ def _unschedulable(n, p, mp) -> Workload:
                       skip_init=True)
 
 
+def _mixed_churn(n, p, mp) -> Workload:
+    """SchedulingWithMixedChurn (the reference's _mixed_churn, :973-1011):
+    recreate-mode churn between cycles — one node, one priority-10 pod and
+    one Service recreated per interval — beside default pods.  The churn
+    Services reach no plugin of the default set."""
+    def churn(store, cycle: int):
+        name = f"churn-node-{cycle % 8:03d}"
+        if store.get("Node", "", name) is not None:
+            store.delete("Node", "", name)
+        store.create("Node", make_node().name(name)
+                     .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"}).obj())
+        pname = f"churn-pod-{cycle % 8:03d}"
+        if store.get("Pod", "default", pname) is not None:
+            store.delete("Pod", "default", pname)
+        store.create("Pod", make_pod().name(pname).uid(f"{pname}-{cycle}")
+                     .namespace("default").priority(10)
+                     .req({"cpu": "1", "memory": "500Mi"}).obj())
+        svc = v1.Service(metadata=v1.ObjectMeta(name=f"churn-svc-{cycle % 8:03d}",
+                                                namespace="default"),
+                         selector={"app": "none"})
+        if store.get("Service", "default", svc.metadata.name) is not None:
+            store.delete("Service", "default", svc.metadata.name)
+        store.create("Service", svc)
+
+    return Workload(
+        name="SchedulingWithMixedChurn",
+        ops=[
+            Op("createNodes", n, node_template=node_default),
+            Op("createPods", mp, pod_template=pod_default, collect_metrics=True),
+        ],
+        batch_size=256,
+        churn_between_cycles=churn,
+    )
+
+
 SUITES: Dict[str, Suite] = {
     s.name: s
     for s in [
@@ -611,6 +647,9 @@ SUITES: Dict[str, Suite] = {
               {"500Nodes/200InitPods": (500, 200, 1000),
                "5000Nodes/200InitPods": (5000, 200, 5000)},
               batch_size={"5000Nodes/200InitPods": 512}),
+        Suite("SchedulingWithMixedChurn", _mixed_churn,
+              {"1000Nodes": (1000, 0, 1000), "5000Nodes": (5000, 0, 2000)},
+              batch_size={"5000Nodes": 512}),
         # the north-star configuration: 5k nodes, 10k pending pods
         Suite("NorthStar", _basic,
               {"5000Nodes/10000Pods": (5000, 2000, 10000), "100kNodes": (100_352, 0, 2000)},
@@ -652,9 +691,6 @@ SUITES: Dict[str, Suite] = {
 
 # the reference's other suites, and the ROADMAP items that bring what they need
 UNPORTED: Dict[str, str] = {
-    "SchedulingWithMixedChurn": "selector spread over its churn services (ROADMAP Queue A "
-                                "item 10a; its preemption-capable churn pods came with "
-                                "item 9a)",
     "TrainingJobFlow": "the TrainingJob controller (ROADMAP Queue A item 10; its gangs "
                        "came with item 8a, its device claims with item 8b)",
     "StatefulChurn": "volume binding (ROADMAP Queue A item 8c)",

@@ -24,3 +24,4 @@ from .passthrough import (  # noqa: F401
 )
 from .podtopologyspread import PodTopologySpreadPlugin  # noqa: F401
 from .interpodaffinity import InterPodAffinityPlugin  # noqa: F401
+from .selectorspread import SelectorSpreadPlugin  # noqa: F401

@@ -13,7 +13,10 @@ parallel-safety test ``_class_parallel_safe`` :2819, its dedup gate
 half ``host_prepare`` :1645 with ``_host_aux_take`` :138, the fused cycles
 ``fused_greedy`` :954-967 and ``fused_batch`` :969-1017 with
 ``reserve_nominated`` :889 and ``apply_prev_delta`` :897,
-``_infos_block_deep`` :3523, run_until_idle :3777; preemption: the
+``_infos_block_deep`` :3523, run_until_idle :3777; the profiles
+(``profiles`` :367, :382-386, the profile map and the union event map
+:565-580, ``_profile_of`` :843, ``_framework`` :859-878, the in-flight
+record's ``profile`` / ``fw`` :273-279); preemption: the
 nominator ``_nominated`` / ``_fastbound_noms`` :653-664 with their purges
 :803, :1612-1620, :2330-2345, ``_nominated_arrays`` :3494,
 ``_priority_levels`` :3583, the candidate program ``cand_mask``
@@ -94,9 +97,17 @@ the host every round (ROADMAP Queue B B5) — so the pipeline overlaps host
 work only: the background sync, the fetch and the binds.  Bindings equal
 the JAX scheduler's, pod for pod, in both modes and at every depth.
 
+Profiles: ``profiles`` maps a schedulerName to a plugins factory
+(``domain_cap → [PluginWithWeight]``, config/componentconfig.py builds
+them from a KubeSchedulerConfiguration); each profile gets its own
+BatchedFramework, all sharing the queue, the cache and the encoder; a batch
+holds one profile's pods (the queue groups by schedulerName) and runs on
+its framework, and a pending pod naming no profile of this scheduler is
+ignored.  Without ``profiles`` the one profile is ``default_plugins``.
+
 Scope guard: a batch or cluster that needs anything outside the port —
-volumes, extenders, profiles, or a batch larger than the auction kernel's
-one block on cuda — raises NotImplementedError naming the ROADMAP item.  It
+volumes, extenders, or a batch larger than the auction kernel's one block
+on cuda — raises NotImplementedError naming the ROADMAP item.  It
 never gives a silently different answer.  The port takes no ``rng_key``:
 ties break by the lowest node row (tie noise is ROADMAP Queue A item 6b).
 """
@@ -165,7 +176,8 @@ ASSIGN_MODES = ("auto", "batch", "scan")
 def default_plugins(domain_cap: int, dra_index=None) -> List[PluginWithWeight]:
     """Default plugin set + weights, in the reference's order
     (apis/config/v1beta3/default_plugins.go:32-51); ``dra_index`` is the
-    scheduler's DraIndex, which DynamicResources resolves claims in."""
+    scheduler's DraIndex, which DynamicResources resolves claims in (the
+    scheduler attaches it to every framework it builds)."""
     PW = PluginWithWeight
     return [
         PW(CoschedulingPlugin(), 1),
@@ -240,8 +252,9 @@ def _pod_out_of_scope(p: v1.Pod) -> Optional[str]:
     return None
 
 
-def _dra_plugin(fw: BatchedFramework) -> DynamicResourcesPlugin:
-    return next(pw.plugin for pw in fw.plugins if pw.plugin.name == "DynamicResources")
+def _dra_plugin(fw: BatchedFramework) -> Optional[DynamicResourcesPlugin]:
+    return next((pw.plugin for pw in fw.plugins if pw.plugin.name == "DynamicResources"),
+                None)
 
 
 def _pod_blocks_static(p: v1.Pod) -> bool:
@@ -318,6 +331,11 @@ class _InFlight:
     cand_pinned: object = None
     cand_event: object = None
     cand_np: Optional[np.ndarray] = None
+    # the batch's profile and the framework it was dispatched with (a
+    # domain growth may rebuild the profile's framework before the bind
+    # phase, so the record owns it)
+    profile: str = DEFAULT_SCHEDULER_NAME
+    fw: object = None
 
 
 @dataclass
@@ -404,9 +422,6 @@ class TorchScheduler:
         if extenders:
             raise NotImplementedError(
                 "scheduler extenders are not ported yet (ROADMAP Queue A item 6b)")
-        if profiles:
-            raise NotImplementedError(
-                "scheduler profiles are not ported yet (ROADMAP Queue A item 10)")
         if torch.device(device).type == "cuda" and batch_size > 1024:
             raise NotImplementedError(
                 f"batch_size={batch_size} on cuda: the auction kernel runs one "
@@ -463,10 +478,19 @@ class TorchScheduler:
         # (_dispatch) and read by DynamicResources' Reserve / PreBind and the
         # gang anchor-slice resolver (the reference's scheduler.py:553-589)
         self.dra = DraIndex(store)
+        # the profile map: schedulerName → plugins factory (domain_cap →
+        # [PluginWithWeight]); each profile gets its own framework, all
+        # sharing this scheduler's queue, cache and encoder (profile.NewMap)
+        self.profiles: Dict[str, object] = (
+            dict(profiles) if profiles else {DEFAULT_SCHEDULER_NAME: default_plugins})
+        self._fws: Dict[str, BatchedFramework] = {}
+        # the event map is the union of every profile's registrations
+        # (scheduler.go:347-362)
         event_map: Dict[ClusterEvent, Set[str]] = {}
-        for pw in default_plugins(8):
-            for ev in pw.plugin.events_to_register():
-                event_map.setdefault(ev, set()).add(pw.plugin.name)
+        for factory in self.profiles.values():
+            for pw in factory(8):
+                for ev in pw.plugin.events_to_register():
+                    event_map.setdefault(ev, set()).add(pw.plugin.name)
         # the gang runtime (the reference's scheduler.py:582-595): one
         # directory wired into the Coscheduling plugin; its less is the
         # Coscheduling QueueSort (gang cohesion over PrioritySort) and its
@@ -485,8 +509,7 @@ class TorchScheduler:
         # members keep their assume + reserve until the gang completes or
         # the wait deadline fires — flushed at the end of every cycle)
         self._waiting_binds: Dict[str, _WaitingBind] = {}
-        self.fw = self._framework()
-        self.n_filters = len(self.fw.filter_names)
+        self._framework()
         # wall per phase (seconds, summed over cycles): "host_prepare" is the
         # plugins' host halves (InterPodAffinity's existing-pod match matrix);
         # "partition" is the conflict partition, the engine routing and the
@@ -517,9 +540,9 @@ class TorchScheduler:
         # bind a plain preemptor to its nominated node within the failing
         # attempt (_try_nominated_fast_bind); off = always nominate and requeue
         self.nominated_fast_bind = nominated_fast_bind
-        # EMA of the batch failure fraction: above 0.25 a batch that may
-        # preempt dispatches its candidate mask with the cycle
-        self._fail_ema = 0.0
+        # per profile, an EMA of the batch failure fraction: above 0.25 a
+        # batch that may preempt dispatches its candidate mask with the cycle
+        self._fail_ema: Dict[str, float] = {}
         # nominator: uid → (node name, request units, pod) for pods holding a
         # nominated node across cycles: their requests are reserved on it in
         # every fused cycle (K13's nominated bundle) and preemption dry runs
@@ -542,30 +565,53 @@ class TorchScheduler:
         self.post_filter_errors = 0
         self._unwatch = store.watch(self._on_event)
 
-    def _framework(self) -> BatchedFramework:
-        """The framework for the encoder's current domain_cap, rebuilt when
-        it grows (the reference's _framework, scheduler.py:859-878)."""
+    def _profile_of(self, pod: v1.Pod) -> str:
+        """frameworkForPod (scheduler.go:719): the pod's schedulerName, the
+        default profile's name when unset (the reference's _profile_of)."""
+        return pod.spec.scheduler_name or DEFAULT_SCHEDULER_NAME
+
+    def _framework(self, profile: Optional[str] = None) -> BatchedFramework:
+        """The framework of ``profile`` (when None: the default profile, or
+        the first profile when the scheduler holds no default-scheduler) for
+        the encoder's current domain_cap; a domain growth rebuilds every
+        profile's (the reference's _framework, scheduler.py:859-878)."""
+        if profile is None:
+            profile = DEFAULT_SCHEDULER_NAME if DEFAULT_SCHEDULER_NAME in self.profiles \
+                else next(iter(self.profiles))
         d = self.encoder.domain_cap
         if d != self._fw_domain_cap:
-            prev = getattr(self, "fw", None)
-            self.fw = BatchedFramework(default_plugins(d, dra_index=self.dra))
+            prev, self._fws = self._fws, {}
             self._fw_domain_cap = d
-            # wire the Coscheduling plugin to the shared gang directory
-            for pw in self.fw.plugins:
-                attach = getattr(pw.plugin, "attach_gang_directory", None)
+            for name, old in prev.items():
+                self._fws[name] = self._build_framework(name, d, old)
+        fw = self._fws.get(profile)
+        if fw is None:
+            fw = self._fws[profile] = self._build_framework(profile, d)
+        return fw
+
+    def _build_framework(self, profile: str, d: int, old=None) -> BatchedFramework:
+        """A profile's framework at domain cap ``d``: the gang directory and
+        the DRA index reach its plugins through their attach hooks (a
+        factory takes only the domain cap); ``old``, the framework it
+        replaces, hands its DRA series over (the reference's are
+        process-wide metrics)."""
+        fw = BatchedFramework(self.profiles[profile](d))
+        for pw in fw.plugins:
+            for hook, target in (("attach_gang_directory", self.gangs),
+                                 ("attach_dra_index", self.dra)):
+                attach = getattr(pw.plugin, hook, None)
                 if attach is not None:
-                    attach(self.gangs)
-            if prev is not None:
-                # the DRA series outlive a rebuilt framework (the
-                # reference's are process-wide metrics)
-                old, new = _dra_plugin(prev), _dra_plugin(self.fw)
-                new.claims_allocated = old.claims_allocated
-                new.allocation_durations = old.allocation_durations
-        return self.fw
+                    attach(target)
+        o, n = (_dra_plugin(old) if old is not None else None), _dra_plugin(fw)
+        if o is not None and n is not None:
+            n.claims_allocated = o.claims_allocated
+            n.allocation_durations = o.allocation_durations
+        return fw
 
     @property
-    def dra_plugin(self) -> DynamicResourcesPlugin:
-        """The live DynamicResources plugin (its claim series)."""
+    def dra_plugin(self) -> Optional[DynamicResourcesPlugin]:
+        """The live DynamicResources plugin of the default profile (its
+        claim series); None when that profile does not run it."""
         return _dra_plugin(self._framework())
 
     # --- event handlers (eventhandlers.go:251+) ------------------------------
@@ -633,10 +679,10 @@ class TorchScheduler:
     def _on_pod_event(self, ev: WatchEvent):
         pod: v1.Pod = ev.obj
         assigned = bool(pod.spec.node_name)
-        # responsibleForPod: only pods naming this scheduler enter the queue;
+        # responsibleForPod: only pods naming one of this scheduler's
+        # profiles enter the queue;
         # assigned pods always feed the cache (they occupy resources)
-        if not assigned and (pod.spec.scheduler_name or DEFAULT_SCHEDULER_NAME) \
-                != DEFAULT_SCHEDULER_NAME:
+        if not assigned and self._profile_of(pod) not in self.profiles:
             return
         if ev.type == DELETED and pod.uid in self._waiting_binds:
             # a gang member deleted while holding its Permit wait: abort the
@@ -697,7 +743,7 @@ class TorchScheduler:
             self._await_backoff_wave()
         infos = self.queue.pop_batch(
             self.batch_size,
-            group_key=lambda qi: qi.pod.spec.scheduler_name or DEFAULT_SCHEDULER_NAME)
+            group_key=lambda qi: self._profile_of(qi.pod))
         # the gang PreFilter quorum gate: a member whose group is below
         # minMember can never form the gang — rejected here, before any
         # compile or device work
@@ -1015,15 +1061,17 @@ class TorchScheduler:
             self.gangs.stage_batch(pods)
             gang_seg = self.gangs.gang_segments(pods, batch.size)
             t_hp = time.perf_counter()
-            fw = self._framework()
+            # the batch's profile (the queue groups a batch by schedulerName)
+            profile = self._profile_of(pods[0])
+            fw = self._framework(profile)
             host_auxes = fw.host_prepare(batch, self.snapshot, self.encoder,
                                          namespace_labels=self.namespace_labels)
             t2 = time.perf_counter()
             carries = self._carries(prevs, batch)
-            mode, coupling, _info = self.engine_choice(batch)
+            mode, coupling, _info = self.engine_choice(batch, fw=fw)
             classes = None
             if mode == "batch":
-                class_of, rep_rows, _why = self._dedup_classes(batch, host_auxes)
+                class_of, rep_rows, _why = self._dedup_classes(batch, host_auxes, fw=fw)
                 if class_of is not None:
                     classes = (class_of, rep_rows)
             self._last_dedup = classes is not None
@@ -1035,14 +1083,14 @@ class TorchScheduler:
             raise
         node_row, packed, dbatch, dsnap, dyn = self._fused_cycle(
             batch, mode, classes, coupling, host_auxes, dsnap, upd, carries, gang_seg,
-            nominated=(nom_rows, nom_req))
+            nominated=(nom_rows, nom_req), fw=fw)
         self.chained_dispatches += bool(carries)
         fl = _InFlight(infos=infos, batch=batch, dbatch=dbatch, node_row_dev=node_row,
                        packed_dev=packed, t0=t0_clk, cycle=cycle,
                        name_of=dict(self.encoder.row_to_name()), interacts=interacts,
                        node_del_gen=self._node_del_gen, chained=bool(carries),
                        has_aff=bool(batch.has_affinity), builds0=builds0,
-                       dsnap=dsnap, dyn=dyn)
+                       dsnap=dsnap, dyn=dyn, profile=profile, fw=fw)
         self._start_fetch(fl)
         # a chained batch defers preemption to the retry, so neither the
         # levels nor the speculative mask apply to it; a batch that may
@@ -1052,7 +1100,7 @@ class TorchScheduler:
         if not carries and any((p.spec.priority or 0) > 0
                                and p.spec.preemption_policy != "Never" for p in pods):
             fl.cand_levels = self._priority_levels()
-            if self._fail_ema > 0.25:
+            if self._fail_ema.get(profile, 0.0) > 0.25:
                 self._start_cand_fetch(fl, self._candidate_mask(fl))
         t4 = time.perf_counter()
         self.phase_wall["snapshot"] += t1 - t0
@@ -1105,20 +1153,20 @@ class TorchScheduler:
         fl.fetch_thread.start()
 
     def _fused_cycle(self, batch, mode: str, classes, coupling, host_auxes, dsnap, upd,
-                     prevs: Sequence[PrevBatch], gang_seg: np.ndarray, nominated):
+                     prevs: Sequence[PrevBatch], gang_seg: np.ndarray, nominated, fw):
         """The device half of a dispatch → (node_row i32[B], packed i32[3, B],
         the device batch, the snapshot, the dynamic state before this
         batch's commits), all on the device.  ``mode`` is the router's
         "batch" or "scan"; ``classes`` the dedup gate's (class_of, rep_rows)
         or None; ``gang_seg`` i32[B] the batch's gang segment ids (−1: no
         gang); ``nominated`` the (rows i32[K], req f32[K, R]) host arrays of
-        ``_nominated_arrays``.  The dedup engine is the reference's
+        ``_nominated_arrays``; ``fw`` the batch's profile's framework.  The
+        dedup engine is the reference's
         fused_batch dedup branch (scheduler.py:969-1017), the full auction
         its ``classes is None`` branch (:985-997), the scan its fused_greedy
         (:954-967); each ends in the gang mask (K20) and the diagnosis +
         pack (K22)."""
         dev = self.device
-        fw = self._framework()
         dsnap = apply_scatter(dsnap, upd)
         self.encoder.commit_device(dsnap)
         # the reference's reserve_nominated (scheduler.py:889): the nominated
@@ -1170,19 +1218,20 @@ class TorchScheduler:
             # K10), as the reference diagnoses with the prepared auxes
             plane = res.diag_plane
         node_row = gang_all_or_nothing(res.node_row, torch.from_numpy(gang_seg).to(dev))
-        packed = diag_pack(plane, self.n_filters, class_t, node_row, res.rounds)
+        packed = diag_pack(plane, len(fw.filter_names), class_t, node_row, res.rounds)
         return node_row, packed, dbatch, dsnap, dyn
 
     # --- engine routing (the reference's one shared predicate) -------------------
 
-    def engine_choice(self, batch):
+    def engine_choice(self, batch, fw):
         """(mode, coupling, partition info): "batch" (the auction engines)
         or "scan" — the reference's engine_choice (scheduler.py:2679).
         ``assign_mode="scan"`` always scans (no partition); "batch" always
         takes the auctions.  Under "auto" the conflict partition is first
         relaxed for parallel-safe single-class components; a batch whose
         largest coupled component exceeds ``coupled_fraction_threshold``
-        of its valid pods scans unless the dedup precheck admits it."""
+        of its valid pods scans unless the dedup precheck admits it.  ``fw``
+        is the batch's profile's framework."""
         if self.assign_mode == "scan":
             return "scan", None, None
         info = conflict_components(batch.pods, batch.size,
@@ -1193,7 +1242,7 @@ class TorchScheduler:
         if self.assign_mode == "batch" or info.max_multi <= max(
                 1, int(self.coupled_fraction_threshold * n_valid)):
             return "batch", coupling, info
-        if self._dedup_precheck(batch):
+        if self._dedup_precheck(batch, fw):
             return "batch", coupling, info
         return "scan", coupling, info
 
@@ -1205,10 +1254,10 @@ class TorchScheduler:
             (p.spec.priority or 0) > 0 and p.spec.preemption_policy != "Never"
             for p in batch.pods)
 
-    def _class_hooks_ok(self) -> bool:
-        """Every dynamic plugin with per-pod update hooks also has the
-        class-level hook the dedup engine needs."""
-        for pw in self.fw.plugins:
+    def _class_hooks_ok(self, fw) -> bool:
+        """Every dynamic plugin of ``fw`` with per-pod update hooks also has
+        the class-level hook the dedup engine needs."""
+        for pw in fw.plugins:
             p = pw.plugin
             if p.dynamic and (getattr(p, "update", None) is not None
                               or getattr(p, "update_batch", None) is not None) \
@@ -1216,12 +1265,12 @@ class TorchScheduler:
                 return False
         return True
 
-    def _dedup_precheck(self, batch) -> bool:
+    def _dedup_precheck(self, batch, fw) -> bool:
         """The router's scan→auction upgrade check (the reference's
         _dedup_precheck, scheduler.py:2733): class hooks present, no gang
         members, volumes or resource claims, no pod that could preempt, at
         most B/2 identity classes."""
-        if not self._class_hooks_ok():
+        if not self._class_hooks_ok(fw):
             return False
         for p in batch.pods:
             if POD_GROUP_LABEL in p.metadata.labels or getattr(p.spec, "volumes", None) \
@@ -1232,7 +1281,7 @@ class TorchScheduler:
         _class_of, reps = identity_classes(batch)
         return len(reps) * 2 <= batch.size
 
-    def _dedup_classes(self, batch, host_auxes=None):
+    def _dedup_classes(self, batch, host_auxes, fw):
         """The identity-class dedup gate (the reference's _dedup_classes,
         scheduler.py:2596-2677, for a scheduler with no tie noise): →
         (class_of i32[B], rep_rows i64[Cp], None), or (None, None, reason)
@@ -1243,9 +1292,10 @@ class TorchScheduler:
         A non-None host aux is admitted when its plugin has a rep view
         (``host_aux_take``: InterPodAffinity's match matrix).  Cp is the
         pow-2 bucket of the class count (floor 4), padded with the first
-        rep."""
+        rep.  ``fw``: the batch's profile's framework; SelectorSpread's pod-indexed counts have no rep view, so its
+        batches take the full auction ("pod_indexed_aux")."""
         if batch.has_affinity or batch.has_spread:
-            if not self._class_hooks_ok():
+            if not self._class_hooks_ok(fw):
                 return None, None, "class_hook"
             if self._batch_can_preempt(batch):
                 return None, None, "preemption"
@@ -1262,7 +1312,7 @@ class TorchScheduler:
                 return None, None, "gang_anchor"
             if not any(pw.plugin.name == name
                        and getattr(pw.plugin, "host_aux_take", None) is not None
-                       for pw in self.fw.plugins):
+                       for pw in fw.plugins):
                 return None, None, "pod_indexed_aux"
         class_of, reps = identity_classes(batch)
         if len(reps) * 2 > batch.size:
@@ -1358,7 +1408,7 @@ class TorchScheduler:
         packed = fl.fetched
         node_row = packed[0].copy()
         self.carried_pods += fl.carried * int((node_row >= 0).sum())
-        fl.diag = _unpack_diag(packed[1], self.n_filters)
+        fl.diag = _unpack_diag(packed[1], len(fl.fw.filter_names))
         self.rounds_total += int(packed[2, 0])
         # the background sync reads cache clones; the assumes below write
         # the cache — join it first
@@ -1409,7 +1459,7 @@ class TorchScheduler:
         algo = max(fl.fetched_at - fl.t0, 0.0)
         infos = fl.infos
         stats = CycleStats(attempted=len(infos))
-        fw = self._framework()
+        fw = fl.fw
         names = fw.filter_names
         batch_attempts: List[float] = []
         min_sched_prio = pf_ctx = cand_np = None
@@ -1495,7 +1545,8 @@ class TorchScheduler:
             # the EMA drives the speculative candidate mask, so it counts
             # the attempts that needed preemption: fast-bound pods too
             frac = (stats.unschedulable + len(fast_bound_uids)) / stats.attempted
-            self._fail_ema = 0.5 * self._fail_ema + 0.5 * frac
+            self._fail_ema[fl.profile] = 0.5 * self._fail_ema.get(fl.profile, 0.0) \
+                + 0.5 * frac
         return stats
 
     # --- preemption (DefaultPreemption's PostFilter) ------------------------------
@@ -1548,14 +1599,15 @@ class TorchScheduler:
         static filters are K1's bits over the batch rows (live nodes and
         valid rows folded in); then K27 + K28 over ``fl.cand_levels``, or
         K29 without levels."""
-        fw = self._framework()
+        fw = fl.fw
         dbatch, dsnap, dyn = fl.dbatch, fl.dsnap, fl.dyn
         fs_plan = fw.kernel_plans(frozenset())[0]
         bits, _raw = filter_score_planes(dbatch, dsnap, dyn,
                                          *fw.static_inputs(dbatch, dsnap, dyn), fs_plan)
         mask = 0
         for name in self._STATIC_PLUGINS:
-            mask |= 1 << fs_plan.bit_of[name]
+            if name in fs_plan.bit_of:  # a static filter the profile runs
+                mask |= 1 << fs_plan.bit_of[name]
         levels = None if fl.cand_levels is None else \
             torch.from_numpy(fl.cand_levels).to(self.device)
         return candidate_mask_device(dbatch, dsnap, dyn, bits, mask, levels)

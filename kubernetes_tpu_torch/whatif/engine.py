@@ -137,9 +137,10 @@ class WhatIfEngine:
         pods = self.order_pending(pending)
         batch = sched.compiler.compile(pods, pad_to=sched.batch_size)
         payloads, views, added_names = self._build_forks(forks)
-        # the framework after the fork build: scratch template encodes may
-        # grow the topology domain, and _framework rebuilds for it
-        fw = sched._framework()
+        # the framework of the first pending pod's profile, after the fork
+        # build: scratch template encodes may grow the topology domain, and
+        # _framework rebuilds for it (the reference's whatif/engine.py:133-134)
+        fw = sched._framework(sched._profile_of(pods[0]))
         dsnap = enc.to_device()
         sched.gangs.stage_batch(pods)
         gang_seg = sched.gangs.gang_segments(pods, batch.size)
@@ -147,7 +148,7 @@ class WhatIfEngine:
                                       namespace_labels=sched.namespace_labels)
                       for view in views]
         nom_rows, nom_req = sched._nominated_arrays({p.uid for p in pods})
-        mode, coupling = self._route(batch)
+        mode, coupling = self._route(batch, fw)
         dev = sched.device
         dbatch = batch_to_device(batch, dev)
         nom = None
@@ -323,9 +324,9 @@ class WhatIfEngine:
 
     # --- engine routing ---------------------------------------------------------
 
-    def _route(self, batch):
+    def _route(self, batch, fw):
         """The scheduler's OWN engine-choice predicate: a fork's solve
         routes exactly like the real dispatch will — "batch" (the full
         auction) or "scan"."""
-        mode, coupling, _info = self.sched.engine_choice(batch)
+        mode, coupling, _info = self.sched.engine_choice(batch, fw=fw)
         return ("batch", coupling) if mode == "batch" else ("scan", None)

@@ -468,14 +468,14 @@ def test_routing_equals_reference(kind):
     rep_j, rep_t = make_pod_obj("jax", pods[0]), make_pod_obj("torch", pods[0])
     assert jsched._class_parallel_safe(rep_j) == tsched._class_parallel_safe(rep_t)
     jmode, jc, _ = jsched.engine_choice(jb)
-    tmode, tc, _ = tsched.engine_choice(tb)
+    tmode, tc, _ = tsched.engine_choice(tb, tfw)
     assert jmode == tmode == expect[0]
     for f in ("reads", "solo", "comp", "multi"):
         _eq(getattr(jc, f), getattr(tc, f), f)
     jhost = jfw.host_prepare(jb, jsched.snapshot, jsched.encoder)
     thost = tfw.host_prepare(tb, tsched.snapshot, tsched.encoder)
     jcls = jsched._dedup_classes(jb, jhost, fw=jfw)
-    tcls = tsched._dedup_classes(tb, thost)
+    tcls = tsched._dedup_classes(tb, thost, tfw)
     if jcls is None:
         assert tcls[0] is None and tcls[2]
     else:

@@ -7,10 +7,14 @@
 * Every other suite of the reference raises NotImplementedError naming
   its ROADMAP item.
 * ``run_workload`` of the port on ``device="cpu"`` at scale 0.02 runs
-  NorthStar, TopologySpreading and SchedulingPodAntiAffinity to the end:
+  NorthStar, TopologySpreading, SchedulingPodAntiAffinity and
+  SchedulingWithMixedChurn to the end:
   every measured pod bound, the reference's item names and labels (with
   KernelBuildsInWindow for its XLACompilesInWindow), no kernel built in the
   window; the default device raises without a card.
+* SchedulingWithMixedChurn at the reference's test scale through both
+  harnesses: the churn hook's warm calls and its call before every
+  measured cycle give the reference's bindings, churn pods included.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ from __future__ import annotations
 import pytest
 import torch
 
+from kubernetes_tpu.perf import harness as jh
 from kubernetes_tpu.perf import workloads as jw
+from kubernetes_tpu.sim.store import ObjectStore as JStore
 from kubernetes_tpu_torch.perf import workloads as tw
 from kubernetes_tpu_torch.perf.harness import data_items_to_json, run_workload
 
@@ -65,7 +71,8 @@ def test_the_other_suites_name_their_roadmap_item():
 
 @pytest.mark.parametrize("suite,size", [("NorthStar", "5000Nodes/10000Pods"),
                                         ("TopologySpreading", "5000Nodes"),
-                                        ("SchedulingPodAntiAffinity", "5000Nodes")])
+                                        ("SchedulingPodAntiAffinity", "5000Nodes"),
+                                        ("SchedulingWithMixedChurn", "5000Nodes")])
 def test_run_workload_on_cpu_binds_every_measured_pod(suite, size):
     w = tw.build_workload(suite, size, scale=0.02)
     seen = {}
@@ -73,15 +80,16 @@ def test_run_workload_on_cpu_binds_every_measured_pod(suite, size):
     def inspect(store, sched, _ctrl):
         pods, _ = store.list("Pod")
         measured = w.ops[-1].pod_template
-        names = {measured(i).metadata.name for i in range(w.ops[1].count,
-                                                           w.ops[1].count + w.ops[2].count)}
+        # the measured pods' indices follow the earlier createPods ops'
+        first = sum(op.count for op in w.ops[:-1] if op.opcode == "createPods")
+        names = {measured(i).metadata.name for i in range(first, first + w.ops[-1].count)}
         seen["unbound"] = [p.metadata.name for p in pods
                            if p.metadata.name in names and not p.spec.node_name]
         seen["measured"] = sum(1 for p in pods if p.metadata.name in names)
         seen["tiers"] = dict(sched._tier_p99)
 
     items = run_workload(w, device="cpu", inspect=inspect)
-    assert seen["measured"] == w.ops[2].count and not seen["unbound"]
+    assert seen["measured"] == w.ops[-1].count and not seen["unbound"]
     by_metric = {it.labels["Metric"]: it for it in items}
     assert set(by_metric) == {"SchedulingThroughput",
                               "scheduler_scheduling_attempt_duration_seconds",
@@ -115,3 +123,38 @@ def test_run_workload_defaults_to_cuda():
         pytest.skip("a CUDA device is present: the default resolves to it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_workload(tw.build_workload("NorthStar", "5000Nodes/10000Pods", scale=0.001))
+
+
+def test_mixed_churn_bindings_equal_reference(monkeypatch):
+    """SchedulingWithMixedChurn/1000Nodes at the reference's test scale
+    (tests/test_perf_workloads.py: scale 0.01, B = 8) through both
+    harnesses: the same bindings, the churn nodes and pods included."""
+    w_t = tw.build_workload("SchedulingWithMixedChurn", "1000Nodes", scale=0.01)
+    w_j = jw.build_workload("SchedulingWithMixedChurn", "1000Nodes", scale=0.01)
+    w_t.batch_size = w_j.batch_size = 8
+    assert w_t.churn_between_cycles is not None
+    seen = {}
+
+    def inspect(store, _sched, _ctrl):
+        seen["pods"] = {p.metadata.name: p.spec.node_name for p in store.list("Pod")[0]}
+        seen["nodes"] = sorted(n.metadata.name for n in store.list("Node")[0])
+
+    items = run_workload(w_t, device="cpu", inspect=inspect)
+    stores = []
+
+    class Store(JStore):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            stores.append(self)
+
+    monkeypatch.setattr(jh, "ObjectStore", Store)
+    jh.run_workload(w_j)
+    monkeypatch.undo()
+    assert seen["pods"] == {p.metadata.name: p.spec.node_name
+                            for p in stores[0].list("Pod")[0]}
+    assert seen["nodes"] == sorted(n.metadata.name for n in stores[0].list("Node")[0])
+    churn = [name for name, node in seen["pods"].items() if name.startswith("churn-pod")]
+    assert churn and any(seen["pods"][n] for n in churn)
+    assert any(node.startswith("churn-node") for node in seen["pods"].values())
+    by = {it.labels["Metric"]: it.data for it in items}
+    assert by["SchedulingThroughput"]["Average"] > 0

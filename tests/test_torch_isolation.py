@@ -71,6 +71,9 @@ REQUIRED = ("kubernetes_tpu_torch.perf.harness", "kubernetes_tpu_torch.perf.work
             "kubernetes_tpu_torch.descheduler.controller", "kubernetes_tpu_torch.autoscaler",
             "kubernetes_tpu_torch.autoscaler.api", "kubernetes_tpu_torch.autoscaler.controller",
             "kubernetes_tpu_torch.convert",
+            "kubernetes_tpu_torch.config", "kubernetes_tpu_torch.config.componentconfig",
+            "kubernetes_tpu_torch.plugins.selectorspread",
+            "kubernetes_tpu_torch.kernels.selectorspread", "kubernetes_tpu_torch.ops.fma",
             "kubernetes_tpu_torch.scheduler")
 
 
@@ -186,4 +189,15 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
                              [torch.full((2, 2, 2), 9, dtype=i32)])
     assert added[0].tolist() == req.tolist()
     assert added[1].tolist() == [[5, 5], [9, 9], [5, 5]]
+    # K32: row 0 masked on nodes 0 and 1 (counts 2 and 0, max 2; node 1
+    # alone in its zone with count 0, the zone max 2): node 0 scores
+    # floor(0.33333334·0 + 0.6666667·0) = 0, node 1 floor(33.333334 +
+    # 66.66667) = 100; the unmasked node 2 keeps −inf
+    from kubernetes_tpu_torch.kernels.selectorspread import selector_spread_score
+
+    total = torch.tensor([[1.0, 1.0, float("-inf")]])
+    got = selector_spread_score(torch.tensor([[3, 3, 1]], dtype=i32), 3, total,
+                                torch.tensor([[2.0, 0.0, 5.0]]), torch.tensor([[2.0, 0.0, 9.0]]),
+                                torch.tensor([True, True, False]), 2.0)
+    assert got is total and total.tolist() == [[1.0, 201.0, float("-inf")]]
     assert all(n == 0 for n in kernels.LAUNCHES.values())

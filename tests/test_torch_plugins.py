@@ -247,3 +247,98 @@ def test_floor_boundary_scores_are_exact():
     b = ba.score(p["tbatch"], p["tsnap"], p["tdyn"])
     assert torch.all(f[0, :8] == 75.0)
     assert torch.all(b[0, :8] == 100.0)
+
+
+# --- Fit's three scoring strategies (LeastAllocated, MostAllocated, RTCR) ------------
+
+FIT_CASES = [
+    ("LeastAllocated", None, None),
+    ("MostAllocated", None, None),
+    ("MostAllocated", None, {"cpu": 3, "memory": 1}),
+    ("RequestedToCapacityRatio", None, None),  # the default shape
+    ("RequestedToCapacityRatio", [(0, 10), (100, 0)], None),  # descending
+    # a flat segment (dx = 0 at 30), a point left of 0 and one past 100
+    ("RequestedToCapacityRatio", [(0, 0), (30, 7), (30, 2), (70, 9), (100, 3)],
+     {"cpu": 3, "memory": 5}),
+    ("RequestedToCapacityRatio", [(10, 3), (50, 8), (90, 1)], None),
+]
+
+
+def _fit_inputs(seed: int):
+    """Random node / pod arrays with zero allocatables, over-full nodes,
+    extended resources and totals on exact floor boundaries."""
+    rng = np.random.default_rng(seed)
+    n, b, r = 2048, 48, 8
+    alloc = rng.integers(0, 5000, (n, r)).astype(np.int32)
+    alloc[:, 0] = rng.choice([1000, 3500, 4000, 400, 0], n)
+    alloc[rng.random((n, r)) < 0.05] = 0
+    req = (alloc * rng.random((n, r))).astype(np.int32)
+    nz = np.stack([req[:, 0], req[:, 1]], axis=1).astype(np.int32)
+    nz[rng.random(n) < 0.3] += 100
+    preq = rng.integers(0, 300, (b, r)).astype(np.int32)
+    preq[:, 4:] *= rng.random((b, 4)) < 0.3
+    pnz = np.stack([preq[:, 0], preq[:, 1]], axis=1).astype(np.int32)
+    # floor boundaries: totals that are exact multiples of alloc / 100
+    pnz[:8, 0] = [0, 250, 40, 1000, 350, 1, 999, 4000]
+    nz[:64, 0] = 0
+    return alloc, req, nz, preq, pnz
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("strategy,shape,resources", FIT_CASES)
+def test_fit_strategies_plain_equal_reference(strategy, shape, resources, seed):
+    """FitPlugin.score of the port equals the JAX plugin's under jax.jit
+    for every strategy, bit for bit (RTCR through jnp.interp's binary
+    search and its fused multiply-add)."""
+    from types import SimpleNamespace as NS
+
+    from kubernetes_tpu.plugins.noderesources import FitPlugin as JFit
+    from kubernetes_tpu_torch.plugins.noderesources import FitPlugin as TFit
+
+    alloc, req, nz, preq, pnz = _fit_inputs(seed)
+    jp = JFit(strategy, resources=resources, shape=shape)
+    tp = TFit(strategy, resources=resources, shape=shape)
+    want = np.asarray(jax.jit(lambda a, rq, z, pr, pz: jp.score(
+        NS(request=pr, non_zero=pz), NS(allocatable=a), NS(requested=rq, non_zero=z)))(
+        alloc, req, nz, preq, pnz))
+    t = torch.from_numpy
+    got = tp.score(NS(request=t(preq), non_zero=t(pnz)), NS(allocatable=t(alloc)),
+                   NS(requested=t(req), non_zero=t(nz))).numpy()
+    _eq(want, got, f"Fit {strategy} {shape}")
+    assert len(np.unique(want)) > 10
+
+
+def test_rtcr_interp_equals_jnp_interp():
+    """rtcr_interp equals jnp.interp under jax.jit over a dense utilization
+    grid, for ascending, descending and flat-segment shapes."""
+    from kubernetes_tpu_torch.plugins.noderesources import rtcr_interp
+
+    x = np.linspace(-5, 105, 110001).astype(np.float32)
+    for pts in ([(0, 0), (100, 100)], [(0, 100), (100, 0)],
+                [(0, 0), (30, 70), (30, 20), (70, 90), (100, 30)], [(10, 30), (90, 10)]):
+        xp = np.asarray([p[0] for p in pts], np.float32)
+        fp = np.asarray([p[1] for p in pts], np.float32)
+        want = np.asarray(jax.jit(jnp.interp)(x, xp, fp))
+        got = rtcr_interp(torch.from_numpy(x), torch.from_numpy(xp), torch.from_numpy(fp))
+        _eq(want, got, f"interp {pts}")
+
+
+@pytest.mark.parametrize("strategy,shape,resources", FIT_CASES[1:6])
+def test_k1_fit_plane_under_strategies_equals_reference(problem, strategy, shape, resources):
+    """K1's plain version with a plan whose Fit plugin uses the strategy:
+    its Fit raw plane equals the reference plugin's score on the encoded
+    cluster."""
+    from kubernetes_tpu.plugins.noderesources import FitPlugin as JFit
+    from kubernetes_tpu_torch.plugins.noderesources import FitPlugin as TFit
+
+    p = problem
+    jp = JFit(strategy, resources=resources, shape=shape)
+    want = np.asarray(jax.jit(lambda b, s, d: jp.score(b, s, d))(p["batch"], p["dsnap"],
+                                                                   p["dyn"]))
+    fs_plan, _ = p["tfw"].kernel_plans()
+    plan = dataclasses.replace(fs_plan, fit=TFit(strategy, resources=resources, shape=shape))
+    na = NodeAffinityPlugin()
+    _bits, raw = filter_score_planes_plain(
+        p["tbatch"], p["tsnap"], p["tdyn"], na.filter(p["tbatch"], p["tsnap"], p["tdyn"]),
+        na.score(p["tbatch"], p["tsnap"], p["tdyn"]), image_scaled_by_id(p["tsnap"]), plan)
+    _eq(want, raw[2], f"K1 Fit plane {strategy}")

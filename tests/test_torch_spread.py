@@ -346,13 +346,13 @@ def test_routing_equals_reference(kind):
     jb = jsched.compiler.compile([make_pod_obj("jax", d) for d in pods], pad_to=32)
     tb = tsched.compiler.compile([make_pod_obj("torch", d) for d in pods], pad_to=32)
     jmode, jc, _ = jsched.engine_choice(jb)
-    tmode, tc, _ = tsched.engine_choice(tb)
+    tmode, tc, _ = tsched.engine_choice(tb, tsched._framework())
     assert jmode == tmode
     for f in ("reads", "solo", "comp", "multi"):
         _eq(getattr(jc, f), getattr(tc, f), f)
     host_auxes = jfw.host_prepare(jb, jsched.snapshot, jsched.encoder)
     jcls = jsched._dedup_classes(jb, host_auxes, fw=jfw)
-    tcls = tsched._dedup_classes(tb)
+    tcls = tsched._dedup_classes(tb, None, tsched._framework())
     if jcls is None:
         assert tcls[0] is None and tcls[2]
     else:
