@@ -5,7 +5,7 @@
 
 Phases, all of which must pass (any failure exits non-zero):
 
-1. Build the thirty-two CUDA kernels from kubernetes_tpu_torch/csrc/ (one
+1. Build the thirty-three CUDA kernels from kubernetes_tpu_torch/csrc/ (one
    nvcc per source) and the host C++ reprieve sweep
    (csrc/preempt_sweep.cpp, g++), all started together.
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
@@ -59,6 +59,13 @@ Phases, all of which must pass (any failure exits non-zero):
    an all-masked row and rows without zone counts; K1 under MostAllocated
    and RequestedToCapacityRatio (the default shape, a descending one and
    one with a flat segment) at C = 512 and C = 1 over N = 8192.
+   K33 (the threefry tie noise) on the keys (0, 0), (0, 7) and (2³² − 1,
+   2³² − 1): the split of 512 keys, a (512, 8192) noised plane and 512 step
+   rows, bit for bit; the plain version against jax.random's words for
+   PRNGKey(7) (literals in this script) and K33's row under that key too;
+   K17's keyed mode on all-tie rows, an all −inf row, a feasible and an
+   infeasible nominated row and a tie at the last node; K2's packed mode
+   at C = 512 and C = 1 over N = 8192 (−inf exactly off the mask).
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
    on cuda, synchronous, launch counts zeroed just before and read just
@@ -165,6 +172,26 @@ Phases, all of which must pass (any failure exits non-zero):
    through ``perf.harness.run_workload`` (the churn hook before every
    measured cycle): every measured pod bound, a churn pod bound, K1–K4 in
    the window.
+4h. Extenders and the keyed tie noise.  The extender path at full width:
+   5000 node_zoned(ZONES3) nodes, 2000 pre-bound pods, 4096 pod_default
+   pods and 32 DoNotSchedule spread pods (a batch of them takes a round
+   each) through TorchScheduler(batch_size=512, extenders=[one
+   HTTPExtender]) against a TPUScoreExtenderServer in a spawn subprocess
+   whose filter rejects every node whose index is 3 mod 7 and whose
+   prioritize scores (index · 37) mod 11 (k_cap 500), synchronous, then
+   with the async walk: every pod bound, only on approved nodes, no node
+   past capacity, the spread held, K1, K2 packed and K13 launched; rounds
+   per batch, extender_wait, pods/s, attempt p50 / p99.  Then
+   SchedulingExtender/500Nodes through ``perf.harness.run_workload``: every
+   measured pod bound, K2 packed in the window, no kernel built in it.
+   Then rng_key=(0, 7) (the reference's PRNGKey(7)) on NorthStar's 5000
+   nodes with 4096 pods (the full auction: the dedup gate falls back under
+   "rng_key"), the same with assign_mode="scan" for 512 pods, and
+   TopologySpreading/5000Nodes with 1024 spread pods (the router scans the
+   coupled batches) and 256 under assign_mode="batch" (the full auction, a
+   commit a round): every pod bound, the spread held, K33 launched, K17's
+   keyed mode where the scan runs; each beside the same cell without a key
+   (pods/s, attempt p99, nodes used).
 4b. The full auction and the exact scan at full width (5000 nodes, B =
    512, measured pods with the launch counts zeroed just before them, every
    measured batch through the expected engine, one profiled cycle each):
@@ -213,7 +240,10 @@ Phases, all of which must pass (any failure exits non-zero):
    one.  The profiles path cut to 1000 nodes (200 pre-bound, 512 + 512 +
    256 pods): cuda == cpu on bindings and routes, K32 launched.
    SchedulingWithMixedChurn/1000Nodes through ``run_workload``: cuda ==
-   cpu bindings.
+   cpu bindings.  The extender path at 1000 nodes (200 pre-bound, 512 pods
+   and 16 spread pods), synchronous and async, and the keyed auction and
+   the keyed scan at 1000 nodes (512 pods): cuda == cpu bindings (and
+   rounds).
 6. Per-kernel timing at the paths' shapes (K1–K4: a NorthStar cycle's first
    round; K5–K8: a TopologySpreading cycle's first round; K9–K12: a
    SchedulingPreferredPodAffinity cycle's first round; K13–K16: the latest
@@ -254,6 +284,11 @@ Phases, all of which must pass (any failure exits non-zero):
    synchronous run, and K1 on those of its latest call under MostAllocated
    and under RequestedToCapacityRatio there, timed as in 6 (no one PyTorch
    call computes either).
+6h. K33 (its noise plane at the last keyed full auction's latest [512,
+   8192] round, its step keys and a step row on the last keyed scan),
+   K17's keyed mode on that scan's latest step and K2's packed mode on the
+   extender path's latest round, timed as in 6 (no one PyTorch call
+   computes any of them).
 
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
 on the path that carries each kernel: K1–K8 on the TopologySpreading run,
@@ -266,7 +301,11 @@ run, K24–K26 on the DeviceClaimGang synchronous run, K27 and K28 on the
 PreemptionBasic synchronous run, K29 on the dense preemption run, K30 on the
 Defrag harness run, K31 on the AutoscaleGang harness run, K32 and K1's
 MostAllocated / RequestedToCapacityRatio rows on the profiles path's
-synchronous run, in the wave of their profile), the card's name and power limit as
+synchronous run, in the wave of their profile, K33's plane on the keyed
+TopologySpreading full auction, its step keys and rows and K17's keyed
+mode on the keyed TopologySpreading scan, K2's packed mode on the
+synchronous extender path),
+the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 A detailed record goes to chiprun_out/chip_smoke.json, the profiled
@@ -6146,8 +6185,9 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
     # K17: pod i's bit and total rows read once, its nominated row, valid
     # flag and request rows; the node's requested / non_zero rows read and
     # written; per node a compare, a count and a max
+    # the path's calls carry a 13th argument, the keyed mode's noise (None)
     (bits, full, total, i, nominated, valid, request, pod_nz, requested, node_nz, node_row,
-     feas), _ = scan_args["scan_select_assume"]
+     feas) = scan_args["scan_select_assume"][0][:12]
     n, r = requested.shape
     out = [requested.clone(), node_nz.clone(), node_row.clone(), feas.clone()]
     a17 = (bits, full, total, i, nominated, valid, request, pod_nz)
@@ -6332,6 +6372,606 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
     return rows
 
 
+# --- extenders and the keyed tie noise (K33, K17's keyed mode, K2's packed mode) ---
+
+K33_SOURCE = "kubernetes_tpu_torch/csrc/tie_noise.cu"
+K33_REPLACES = "kubernetes_tpu/framework/runtime.py:546"
+K17_SOURCE = "kubernetes_tpu_torch/csrc/scan.cu"
+K17_KEYED_REPLACES = "kubernetes_tpu/framework/runtime.py:299"
+K2_SOURCE = "kubernetes_tpu_torch/csrc/normalize_combine.cu"
+K2_PACKED_REPLACES = "kubernetes_tpu/framework/runtime.py:225"
+# jax.random at jax 0.9.0 (threefry2x32, jax_threefry_partitionable=True):
+# split(PRNGKey(7), 3) and the float32 words of uniform(PRNGKey(7), (8,)),
+# written here so the plain version is pinned without JAX on the card's host
+JAX_SPLIT_KEY7 = ((3625411723, 1954958720), (195045567, 4062205631), (966301609, 1948237315))
+JAX_UNIFORM_KEY7 = (1059885352, 1064927358, 1050349136, 1055084168, 1060838242, 1059161242,
+                    1055238244, 1053994408)
+TIE_KEYS = ((0, 0), (0, 7), (0xFFFFFFFF, 0xFFFFFFFF))
+RNG_KEY = (0, 7)  # the reference's jax.random.PRNGKey(7)
+EXT_KERNELS = ("filter_score_planes", "normalize_combine_packed", "prev_delta_apply")
+KEYED_TARGETS = {
+    "tie_plane": (RT, "tie_plane", None),
+    "tie_row": (RT, "tie_row", None),
+    "tie_split": (RT, "tie_split", None),
+    "scan_select_keyed": (RT, "scan_select_assume", lambda a: len(a) > 12 and a[12] is not None),
+}
+PACKED_TARGETS = {"normalize_combine_packed": (RT, "normalize_combine", None)}
+
+
+def check_extender_kernels(dev) -> dict:
+    """K33 on the keys (0, 0), (0, 7) and (2³² − 1, 2³² − 1): the split of 512
+    keys, a (512, 8192) noised plane and 512 step rows, bit for bit against
+    the plain version (ops/prng.py) on the same CUDA tensors, and the plain
+    version against jax.random's words for PRNGKey(7) (literals); K17's
+    keyed mode on all-tie rows, an all −inf row, a feasible and an
+    infeasible nominated row and a tie at the last node; K2's packed mode at
+    C = 512 and C = 1 over N = 8192."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.kernels import tie_noise as KT
+    from kubernetes_tpu_torch.kernels.normalize import normalize_combine, normalize_combine_plain
+    from kubernetes_tpu_torch.ops import prng
+
+    gen = torch.Generator().manual_seed(SEED + 33)
+    err = {"tie_noise": 0.0, "scan_select_keyed": 0.0, "normalize_combine_packed": 0.0}
+    # the plain version against the literal jax.random words
+    words = (prng.uniform((0, 7), (8,)).view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+    if words.tolist() != list(JAX_UNIFORM_KEY7):
+        fail(f"prng.uniform(PRNGKey(7), (8,)): {words.tolist()} != jax.random's")
+    if [tuple(r) for r in prng.split((0, 7), 3).tolist()] != list(JAX_SPLIT_KEY7):
+        fail("prng.split(PRNGKey(7), 3) differs from jax.random's")
+    row7 = KT.tie_row(KT.key_rows((0, 7), dev), 0, 8)
+    torch.cuda.synchronize()
+    if (row7.cpu().view(torch.int32).to(torch.int64) & 0xFFFFFFFF).tolist() != \
+            list(JAX_UNIFORM_KEY7):
+        fail("tie_row (K33) under PRNGKey(7) differs from jax.random's words")
+    b, n = 512, 8192
+    full = 7
+    for key in TIE_KEYS:
+        keys = KT.tie_split(key, b, dev)
+        want = KT.tie_split_plain(key, b, device=dev)
+        torch.cuda.synchronize()
+        err["tie_noise"] = max(err["tie_noise"], require_equal(
+            f"tie_split {key}", [("keys", keys, want)]))
+        bits = torch.where(torch.rand((b, n), generator=gen) < 0.8, full, 3).to(torch.int32)
+        total = torch.where(bits == full, torch.randint(0, 700, (b, n), generator=gen).float(),
+                            float("-inf"))
+        bits, total = bits.to(dev), total.to(dev)
+        got = KT.tie_plane(key, bits, full, total.clone())
+        plain = KT.tie_plane_plain(key, bits, full, total.clone())
+        torch.cuda.synchronize()
+        err["tie_noise"] = max(err["tie_noise"], require_equal(
+            f"tie_plane {key}", [("total", got, plain)]))
+        # the float32 add rounds to the total's ulp, so a draw just below
+        # 0.5 may land on total + 0.5 exactly, never beyond
+        noise = got - total
+        on = bits == full
+        if bool(((noise[on] < 0) | (noise[on] > 0.5)).any()) or \
+                bool(torch.isfinite(got[~on]).any()):
+            fail(f"tie_plane {key}: noise outside [0, 0.5] or written off the mask")
+        for k in (0, 1, b // 2, b - 1):
+            r_k = KT.tie_row(keys, k, n)
+            r_p = KT.tie_row_plain(keys, k, n)
+            torch.cuda.synchronize()
+            err["tie_noise"] = max(err["tie_noise"], require_equal(
+                f"tie_row {key} step {k}", [("row", r_k, r_p)]))
+    # K17 keyed
+    r = 8
+    valid = torch.ones(b, dtype=torch.bool, device=dev)
+    request = torch.randint(0, 3000, (b, r), generator=gen, dtype=torch.int32).to(dev)
+    pod_nz = torch.randint(0, 3000, (b, 2), generator=gen, dtype=torch.int32).to(dev)
+    keys = KT.tie_split((0, 7), b, dev)
+    fullk = (1 << 16) - 1
+    kinds = ("all ties", "ties with holes", "all -inf", "nominated feasible",
+             "nominated infeasible", "tie at the last node")
+    for k, kind in enumerate(kinds):
+        bits = torch.where(torch.rand(n, generator=gen) < 0.7, fullk, fullk & ~4).to(torch.int32)
+        total = torch.full((n,), 250.0)
+        nom = -1
+        if kind == "all ties":
+            bits[:] = fullk
+        elif kind == "all -inf":
+            bits[:] = 0
+        elif kind == "nominated feasible":
+            bits[4000], nom = fullk, 4000
+        elif kind == "nominated infeasible":
+            bits[77], nom = 0, 77
+        elif kind == "tie at the last node":
+            total = torch.randint(0, 100, (n,), generator=gen).float()
+            bits[n - 1], total[n - 1] = fullk, 999.0
+            bits[5], total[5] = fullk, 999.0
+        total = torch.where(bits == fullk, total, float("-inf"))
+        bits, total = bits[None].to(dev), total[None].to(dev)
+        noise = KT.tie_row(keys, k, n)
+        nominated = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        nominated[k] = nom
+        outs_k = [torch.randint(0, 4000, (n, r), generator=gen, dtype=torch.int32).to(dev),
+                  torch.randint(0, 4000, (n, 2), generator=gen, dtype=torch.int32).to(dev),
+                  torch.full((b,), -7, dtype=torch.int32, device=dev),
+                  torch.full((b,), -7, dtype=torch.int32, device=dev)]
+        outs_p = [t.clone() for t in outs_k]
+        args = (bits, fullk, total, k, nominated, valid, request, pod_nz)
+        KS.scan_select_assume(*args, *outs_k, noise)
+        KS.scan_select_assume_plain(*args, *outs_p, noise)
+        torch.cuda.synchronize()
+        err["scan_select_keyed"] = max(err["scan_select_keyed"], require_equal(
+            f"scan_select_assume keyed ({kind})",
+            [(f, a, c) for f, a, c in zip(("requested", "non_zero", "node_row",
+                                           "feasible_count"), outs_k, outs_p)]))
+        row = int(outs_k[2][k])
+        if kind == "all -inf" and row != -1:
+            fail("scan_select_assume keyed: placed a pod on an infeasible row")
+        if kind == "nominated feasible" and row != 4000:
+            fail("scan_select_assume keyed: the feasible nominated row was not taken")
+        if kind == "tie at the last node" and row not in (5, n - 1):
+            fail(f"scan_select_assume keyed: {row} is not one of the tied maxima")
+        if kind == "all ties":
+            want = int(torch.argmax(noise))
+            if row != want:
+                fail(f"scan_select_assume keyed: all ties went to {row}, not {want}")
+    # K2 packed at C = 512 and C = 1
+    fw, (_fs_plan, comb_plan) = framework_plans()
+    fullf = (1 << len(fw.filter_names)) - 1
+    for c in (512, 1):
+        bits = torch.where(torch.rand((c, n), generator=gen) < 0.6, fullf,
+                           fullf & ~(1 << 3)).to(torch.int32).to(dev)
+        raw = (torch.rand((5, c, n), generator=gen) * 100).floor().to(dev)
+        got = normalize_combine(bits, fullf, raw, comb_plan, packed=True)
+        want, _feas = normalize_combine_plain(bits, fullf, raw, comb_plan)
+        torch.cuda.synchronize()
+        err["normalize_combine_packed"] = max(err["normalize_combine_packed"], require_equal(
+            f"normalize_combine packed C={c}", [("packed", got, want)]))
+        if not torch.equal(torch.isinf(got), bits != fullf):
+            fail(f"normalize_combine packed C={c}: -inf not exactly off the mask")
+    log("extender / tie-noise kernels vs plain: all equal (K33 on 3 keys, K17 keyed on "
+        f"{len(kinds)} rows, K2 packed at C = 512 and 1); the plain version equals "
+        "jax.random's PRNGKey(7) words")
+    return err
+
+
+def extender_score_fn(pod_dict, names):
+    """The chip run's extender: rejects every node whose index is 3 mod 7,
+    scores (index · 37) mod 11 (non-uniform, so the merge decides ties)."""
+    idx = {n: int(n.rsplit("-", 1)[1]) for n in names}
+    return ([n for n in names if idx[n] % 7 != 3],
+            {n: (idx[n] * 37) % 11 for n in names})
+
+
+def start_extender_server():
+    """extender_score_fn behind a TPUScoreExtenderServer in a spawn
+    subprocess → (url, stop)."""
+    import multiprocessing as mp
+    from functools import partial
+
+    from kubernetes_tpu_torch.extender import run_subprocess_score_server
+
+    ctx = mp.get_context("spawn")
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=partial(run_subprocess_score_server, extender_score_fn),
+                       args=(child,), daemon=True)
+    proc.start()
+    if not parent.poll(60):
+        proc.terminate()
+        fail("the extender subprocess did not start")
+    port = parent.recv()
+
+    def stop():
+        proc.terminate()
+        proc.join(timeout=5)
+
+    return f"http://127.0.0.1:{port}", stop
+
+
+def extender_run(dev_name: str, url: str, n_nodes: int, n_pre: int, n_pods: int,
+                 n_spread: int, async_: bool) -> dict:
+    """``n_nodes`` zoned nodes, ``n_pre`` pre-bound pod_default pods, then
+    ``n_pods`` pod_default pods and ``n_spread`` DoNotSchedule spread pods
+    (one coupled component: a batch of them needs a round each) through
+    TorchScheduler(batch_size=512, extenders=[one HTTPExtender]), synchronous
+    or with the async walk (pipelined); the launch counts zeroed just before
+    and read just after.  Checks: every pod bound, only on a node the
+    extender approves, no node past capacity, the spread held."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.extender import ExtenderConfig, HTTPExtender
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    what = f"extender path {n_nodes} nodes ({'async' if async_ else 'sync'}, {dev_name})"
+    fresh_heap()
+    store = ObjectStore()
+    for i in range(n_nodes):
+        store.create("Node", zoned_node(i))
+    for i in range(n_pre):
+        store.create("Pod", make_pod().name(f"pre-{i:06d}").uid(f"pre-{i:06d}")
+                     .namespace("default").req({"cpu": "100m", "memory": "500Mi"})
+                     .node(f"node-{i % n_nodes:06d}").obj())
+    ext = HTTPExtender(ExtenderConfig(url_prefix=url, filter_verb="filter",
+                                      prioritize_verb="prioritize", weight=1,
+                                      node_cache_capable=True))
+    sched = TorchScheduler(store, batch_size=512, device=dev_name, pipeline=async_,
+                           async_extenders=async_, extenders=[ext])
+    sched.presize(n_nodes, n_pre + n_pods + n_spread)
+    for i in range(n_pods):
+        store.create("Pod", default_pod(i, "ext"))
+    for i in range(n_spread):
+        store.create("Pod", spread_pod(i, "extspread", ts0=1e7))
+    pw0 = dict(sched.phase_wall)
+    if dev_name == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    stats = sched.run_until_idle()
+    if dev_name == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    pods = check_bound_and_fit(what, store)
+    measured = [p for p in pods if p.metadata.name.startswith("ext")]
+    if stats.scheduled != n_pods + n_spread or len(measured) != n_pods + n_spread:
+        fail(f"{what}: scheduled {stats.scheduled} of {n_pods + n_spread}")
+    bad = [p.metadata.name for p in measured if int(p.spec.node_name[5:]) % 7 == 3]
+    if bad:
+        fail(f"{what}: {len(bad)} pods on nodes the extender rejects, e.g. {bad[:3]}")
+    zc = zone_counts(pods, "extspread-")
+    if n_spread and max(zc) - min(zc) > 5:
+        fail(f"{what}: zone skew {zc} exceeds maxSkew 5")
+    att = np.asarray(sched.attempt_seconds[-(n_pods + n_spread):])
+    phase = {k: sched.phase_wall[k] - pw0[k] for k in pw0}
+    rec = {"nodes": n_nodes, "pre_bound": n_pre, "pods": n_pods, "spread_pods": n_spread,
+           "batch_size": 512, "async": async_, "wall_s": wall,
+           "pods_per_s": (n_pods + n_spread) / wall, "cycles": sched.cycles,
+           "rounds": sched.rounds_total,
+           "rounds_per_batch": sched.rounds_total / max(sched.cycles, 1),
+           "extender_wait_s": phase["extender_wait"], "phase_wall_s": phase,
+           "attempt_p50_ms": float(np.percentile(att, 50) * 1e3),
+           "attempt_p99_ms": float(np.percentile(att, 99) * 1e3),
+           "callouts": dict(ext.callouts), "zone_counts": zc, "launches": launches}
+    bindings = {p.metadata.name: p.spec.node_name for p in measured}
+    sched.close()
+    ext.close()
+    return {"record": rec, "bindings": bindings}
+
+
+def extender_path(url: str, async_: bool) -> dict:
+    """The extender path at full width: 5000 zoned nodes, 2000 pre-bound
+    pods, 4096 pod_default pods and 32 spread pods (k_cap 500)."""
+    out = extender_run("cuda", url, 5000, 2000, 4096, 32, async_)
+    rec = out["record"]
+    for k in EXT_KERNELS:
+        if rec["launches"][k] <= 0:
+            fail(f"extender path ({'async' if async_ else 'sync'}): kernel {k} never launched")
+    if rec["launches"]["tie_noise"]:
+        fail("extender path: K33 launched without a key")
+    log(f"extender path 5000 nodes ({'async' if async_ else 'sync'}): {rec['pods'] + 32} pods "
+        f"in {rec['wall_s']:.2f} s = {rec['pods_per_s']:.1f} pods/s, "
+        f"{rec['rounds_per_batch']:.2f} rounds/batch ({rec['rounds']} rounds, "
+        f"{rec['cycles']} batches), extender_wait {rec['extender_wait_s']:.3f} s, attempt "
+        f"p50 {rec['attempt_p50_ms']:.1f} / p99 {rec['attempt_p99_ms']:.1f} ms; callouts "
+        f"{rec['callouts']}; zones {rec['zone_counts']}; launches K1 "
+        f"{rec['launches']['filter_score_planes']}, K2 packed "
+        f"{rec['launches']['normalize_combine_packed']}, K13 "
+        f"{rec['launches']['prev_delta_apply']}; phase wall (s) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rec["phase_wall_s"].items()))
+    return out
+
+
+def extender_harness() -> dict:
+    """SchedulingExtender/500Nodes through ``perf.harness.run_workload`` (its
+    subprocess extender, B = 384): every measured pod bound, no kernel
+    built in the window."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.perf.harness import run_workload
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+
+    w = build_workload("SchedulingExtender", "500Nodes")
+    seen = {}
+
+    def inspect(store, sched, _ctrl):
+        seen["pods"] = {p.metadata.name: p.spec.node_name for p in store.list("Pod")[0]}
+        seen["rounds"], seen["cycles"] = sched.rounds_total, sched.cycles
+
+    kernels.reset_launches()
+    items = run_workload(w, device="cuda", inspect=inspect)
+    launches = dict(kernels.LAUNCHES)
+    by = {it.labels["Metric"]: it.data for it in items}
+    first = sum(op.count for op in w.ops[:-1] if op.opcode == "createPods")
+    measured = [w.ops[-1].pod_template(i).metadata.name
+                for i in range(first, first + w.ops[-1].count)]
+    unbound = [n for n in measured if not seen["pods"].get(n)]
+    if unbound:
+        fail(f"SchedulingExtender/500Nodes: {len(unbound)} measured pods unbound")
+    if by["KernelBuildsInWindow"]["Count"]:
+        fail("SchedulingExtender/500Nodes: a kernel was built in the measured window")
+    if by["KernelLaunchesInWindow"]["normalize_combine_packed"] <= 0:
+        fail("SchedulingExtender/500Nodes: K2's packed mode not launched in the window")
+    rec = {**harness_summary(items), "extender_wait_s": by["PhaseWallBreakdown"]["extender_wait"],
+           "window_launches": by["KernelLaunchesInWindow"], "launches": launches,
+           "rounds": seen["rounds"], "cycles": seen["cycles"]}
+    log(f"SchedulingExtender/500Nodes through run_workload: {rec['pods_per_s']} pods/s, "
+        f"attempt p50 {rec['attempt_p50_ms']:.1f} / p99 {rec['attempt_p99_ms']:.1f} ms, "
+        f"extender_wait {rec['extender_wait_s']:.3f} s, every measured pod bound, no "
+        f"kernel built in the window")
+    return rec
+
+
+def dedup_reasons(sched) -> list:
+    """Record the dedup gate's fallback reason of every batch dispatch."""
+    reasons = []
+    orig = sched._dedup_classes
+
+    def gate(*a, **kw):
+        out = orig(*a, **kw)
+        reasons.append(out[2])
+        return out
+
+    sched._dedup_classes = gate
+    return reasons
+
+
+def keyed_run(dev_name: str, kind: str, key, mode: str = "auto", n_nodes: int = 5000,
+              n_pre: int = 2000, n_pods: int = 4096) -> dict:
+    """A keyed (or keyless) run, the launch counts zeroed just before and read
+    just after → record and bindings.  "northstar": node_default nodes,
+    ``n_pre`` pre-bound pods, ``n_pods`` pod_default pods; "spread":
+    TopologySpreading's cluster (``n_pre`` pod_default pods scheduled
+    first), then ``n_pods`` DoNotSchedule spread pods."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.sim.store import ObjectStore
+    from kubernetes_tpu_torch.testutil import make_node, make_pod
+
+    tag = "keyed" if key is not None else "keyless"
+    what = f"{kind} {n_nodes} nodes, {tag}, {mode} ({dev_name})"
+    fresh_heap()
+    kw = {} if key is None else {"rng_key": key}
+    if kind == "northstar":
+        store = ObjectStore()
+        for i in range(n_nodes):
+            store.create("Node", make_node().name(f"node-{i:06d}")
+                         .capacity({"cpu": "4", "memory": "32Gi", "pods": "110"}).obj())
+        for i in range(n_pre):
+            store.create("Pod", make_pod().name(f"pre-{i:06d}").uid(f"pre-{i:06d}")
+                         .namespace("default").req({"cpu": "100m", "memory": "500Mi"})
+                         .node(f"node-{i % n_nodes:06d}").obj())
+        sched = TorchScheduler(store, batch_size=512, device=dev_name, assign_mode=mode, **kw)
+        sched.presize(n_nodes, n_pre + n_pods)
+        make = lambda i: default_pod(i, "kp")  # noqa: E731
+    else:
+        sched = spread_cluster(dev_name, n_nodes, n_pre, assign_mode=mode, **kw)
+        store = sched.store
+        make = lambda i: spread_pod(i, "ks", ts0=2e7)  # noqa: E731
+    routes = route_counter(sched)
+    reasons = dedup_reasons(sched)
+    for i in range(n_pods):
+        store.create("Pod", make(i))
+    if dev_name == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    stats = sched.run_until_idle()
+    if dev_name == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    pods = check_bound_and_fit(what, store)
+    if stats.scheduled != n_pods:
+        fail(f"{what}: scheduled {stats.scheduled} of {n_pods}")
+    zc = zone_counts(pods, "ks-") if kind == "spread" else None
+    if zc is not None and max(zc) - min(zc) > 5:
+        fail(f"{what}: zone skew {zc} exceeds maxSkew 5")
+    att = np.asarray(sched.attempt_seconds[-n_pods:])
+    rec = {"nodes": n_nodes, "first_pods": n_pre, "pods": n_pods, "mode": mode, "key": key,
+           "wall_s": wall, "pods_per_s": n_pods / wall, "routes": sorted(set(routes)),
+           "dedup_fallbacks": sorted({r for r in reasons if r}),
+           "attempt_p50_ms": float(np.percentile(att, 50) * 1e3),
+           "attempt_p99_ms": float(np.percentile(att, 99) * 1e3),
+           "nodes_used": len({p.spec.node_name for p in pods
+                              if p.metadata.name.startswith(("kp", "ks"))}),
+           "zone_counts": zc, "launches": launches}
+    bindings = {p.metadata.name: p.spec.node_name for p in pods}
+    sched.close()
+    return {"record": rec, "bindings": bindings}
+
+
+KEYED_RUNS = (
+    # (label, kind, mode, pods, engine the batches must take)
+    ("NorthStar keyed", "northstar", "auto", 4096, "full"),
+    ("NorthStar keyed scan", "northstar", "scan", 512, "scan"),
+    ("TopologySpreading keyed", "spread", "auto", 1024, "scan"),
+    ("TopologySpreading keyed, full auction", "spread", "batch", 256, "full"),
+)
+
+
+def keyed_paths() -> dict:
+    """NorthStar's 5000 nodes with 4096 pods and TopologySpreading/5000Nodes
+    (1024 spread pods; 256 more under assign_mode="batch") with
+    rng_key=(0, 7): the full auction (the dedup gate falls back under
+    "rng_key"), the scan (assign_mode="scan"; the router scans the coupled
+    spread batches), every pod bound, the spread held, K33 launched, K17 in
+    its keyed mode where the scan runs; each beside the same cell without a
+    key."""
+    out = {}
+    for label, kind, mode, n_pods, engine in KEYED_RUNS:
+        n_pre = 2000 if kind == "northstar" else 5000
+        keyed = keyed_run("cuda", kind, RNG_KEY, mode, n_pre=n_pre, n_pods=n_pods)["record"]
+        plain = keyed_run("cuda", kind, None, mode, n_pre=n_pre, n_pods=n_pods)["record"]
+        if keyed["routes"] != [engine]:
+            fail(f"{label}: the batches took {keyed['routes']}, not {engine}")
+        if engine == "full" and keyed["dedup_fallbacks"] != ["rng_key"]:
+            fail(f"{label}: dedup fallbacks {keyed['dedup_fallbacks']}, not rng_key")
+        need = ("tie_noise",) + (("scan_select_keyed",) if engine == "scan" else
+                                 ("topk_rows", "auction_resolve_commit"))
+        for k in need:
+            if keyed["launches"][k] <= 0:
+                fail(f"{label}: kernel {k} never launched")
+        if plain["launches"]["tie_noise"] or plain["launches"]["scan_select_keyed"]:
+            fail(f"{label} without a key: a keyed kernel launched")
+        out[label] = {"keyed": keyed, "keyless": plain}
+        log(f"{label}, 5000 nodes / {n_pods} pods: {keyed['pods_per_s']:.1f} pods/s keyed "
+            f"({keyed['routes']}, fallbacks {keyed['dedup_fallbacks']}) vs "
+            f"{plain['pods_per_s']:.1f} without a key ({plain['routes']}); attempt p99 "
+            f"{keyed['attempt_p99_ms']:.1f} vs {plain['attempt_p99_ms']:.1f} ms; nodes used "
+            f"{keyed['nodes_used']} vs {plain['nodes_used']}; zones {keyed['zone_counts']}; "
+            f"launches K33 {keyed['launches']['tie_noise']}, K17 keyed "
+            f"{keyed['launches']['scan_select_keyed']}")
+    return out
+
+
+def extender_cuda_vs_cpu(url: str) -> dict:
+    """cuda == cpu at 1000 nodes: the extender path (200 pre-bound, 512 pods
+    and 16 spread pods) synchronous and async, and the keyed auction and
+    keyed scan (512 pods)."""
+    out = {}
+    for async_ in (False, True):
+        t = time.perf_counter()
+        g = extender_run("cuda", url, 1000, 200, 512, 16, async_)
+        c = extender_run("cpu", url, 1000, 200, 512, 16, async_)
+        if g["bindings"] != c["bindings"]:
+            diff = [k for k in g["bindings"] if g["bindings"][k] != c["bindings"].get(k)]
+            fail(f"extender path 1000 nodes ({'async' if async_ else 'sync'}): cuda and cpu "
+                 f"bindings differ for {len(diff)} pods, e.g. {diff[:3]}")
+        if g["record"]["rounds"] != c["record"]["rounds"]:
+            fail("extender path 1000 nodes: cuda and cpu rounds differ")
+        label = f"extender {'async' if async_ else 'sync'}"
+        out[label] = {"pods": len(g["bindings"]), "rounds": g["record"]["rounds"],
+                      "s": time.perf_counter() - t}
+        log(f"{label}, 1000 nodes: cuda == cpu bindings ({len(g['bindings'])} pods, "
+            f"{g['record']['rounds']} rounds) in {out[label]['s']:.1f} s")
+    for label, kind, mode in (("keyed auction", "northstar", "auto"),
+                              ("keyed scan", "northstar", "scan")):
+        t = time.perf_counter()
+        g = keyed_run("cuda", kind, RNG_KEY, mode, n_nodes=1000, n_pre=200, n_pods=512)
+        c = keyed_run("cpu", kind, RNG_KEY, mode, n_nodes=1000, n_pre=200, n_pods=512)
+        if g["bindings"] != c["bindings"]:
+            diff = [k for k in g["bindings"] if g["bindings"][k] != c["bindings"].get(k)]
+            fail(f"{label}, 1000 nodes: cuda and cpu bindings differ for {len(diff)} pods, "
+                 f"e.g. {diff[:3]}")
+        if g["record"]["launches"]["tie_noise"] <= 0:
+            fail(f"{label}, 1000 nodes: K33 never launched")
+        out[label] = {"pods": 512, "routes": g["record"]["routes"],
+                      "s": time.perf_counter() - t}
+        log(f"{label}, 1000 nodes: cuda == cpu bindings (512 pods, routes "
+            f"{g['record']['routes']}) in {out[label]['s']:.1f} s")
+    return out
+
+
+def time_extender_kernels(keyed_calls: dict, packed_calls: dict, err: dict,
+                          launches: dict) -> list:
+    """K33 (the noise plane, the step keys and a step row), K17's keyed mode
+    and K2's packed mode on the arguments of their latest call on the keyed
+    paths and the extender path, timed as in 6 and held once more against
+    their plain versions; the bounds from those inputs.  ``launches``: each
+    row's launches on the path whose call it times ("plane": the last keyed
+    full auction, "scan": the last keyed scan, "packed": the extender
+    path)."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.kernels import tie_noise as KT
+    from kubernetes_tpu_torch.kernels.normalize import normalize_combine, normalize_combine_plain
+
+    rows_out = []
+
+    def last(calls, key):
+        got = calls.get(key)
+        if got is None:
+            fail(f"kernel timing: no recorded call of {key}")
+        return got
+
+    def row(name, err_key, src, replaces, symbol, fn, plain_fn, n_bytes, n_ops, shape,
+            n_launch, library=None):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        rows_out.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": n_launch, "max_abs_err": err[err_key],
+            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
+            "plain_ms": time_ms(plain_fn, reps=5, warmup=1), "bound_ms": least,
+            "bound_by": bound_by, "library_ms": library, "bytes": n_bytes, "ops": n_ops,
+            "shape": shape})
+
+    # threefry2x32: 20 rounds of an add, a rotate (two shifts and an or) and
+    # an xor, 5 key injections of three adds; the bits to a float, 3 more
+    tf_ops = 20 * 5 + 5 * 3 + 3
+    (key, bits, full, total), _kw = last(keyed_calls, "tie_plane")
+    base = total.clone()
+    got = KT.tie_plane(key, bits, full, base.clone())
+    want = KT.tie_plane_plain(key, bits, full, base.clone())
+    err["tie_noise"] = max(err["tie_noise"], require_equal(
+        "tie_plane (path shapes)", [("total", got, want)]))
+    c, n = bits.shape
+    masked = int((bits == full).sum())
+    work = base.clone()
+    row("tie_noise (plane)", "tie_noise", K33_SOURCE, K33_REPLACES, "tie_plane_kernel",
+        lambda a=(key, bits, full, work): KT.tie_plane(*a),
+        lambda a=(key, bits, full, base): KT.tie_plane_plain(*a[:3], a[3].clone()),
+        nbytes(bits) + 8 * masked, c * n + masked * (tf_ops + 2),
+        {"C": c, "N": n, "masked": masked}, launches["plane"])
+    (key, b, dev), _kw = last(keyed_calls, "tie_split")
+    row("tie_noise (step keys)", "tie_noise", K33_SOURCE,
+        "kubernetes_tpu/framework/runtime.py:397", "tie_split_kernel",
+        lambda: KT.tie_split(key, b, dev), lambda: KT.tie_split_plain(key, b, device=dev),
+        8 * b, b * tf_ops, {"B": b}, launches["scan"]["tie_noise"])
+    (keys, k, n_row), _kw = last(keyed_calls, "tie_row")
+    row("tie_noise (step row)", "tie_noise", K33_SOURCE,
+        "kubernetes_tpu/framework/runtime.py:307", "tie_row_kernel",
+        lambda: KT.tie_row(keys, k, n_row), lambda: KT.tie_row_plain(keys, k, n_row),
+        8 + 4 * n_row, n_row * tf_ops, {"N": n_row, "step": k}, launches["scan"]["tie_noise"])
+    args, _kw = last(keyed_calls, "scan_select_keyed")
+    (sbits, sfull, stotal, i, nominated, valid, request, pod_nz, requested, node_nz,
+     node_row, feas, noise) = args
+    outs_k = [t.clone() for t in (requested, node_nz, node_row, feas)]
+    outs_p = [t.clone() for t in outs_k]
+    KS.scan_select_assume(sbits, sfull, stotal, i, nominated, valid, request, pod_nz,
+                          *outs_k, noise)
+    KS.scan_select_assume_plain(sbits, sfull, stotal, i, nominated, valid, request, pod_nz,
+                                *outs_p, noise)
+    err["scan_select_keyed"] = max(err["scan_select_keyed"], require_equal(
+        "scan_select_assume keyed (path shapes)",
+        [(f, a, c_) for f, a, c_ in zip("rnsf", outs_k, outs_p)]))
+    n_s = sbits.shape[-1]
+    r_dims = request.shape[1]
+    # the bit row, the total row and the noise row read once; the step's
+    # request rows read and the node's rows written
+    s_bytes = 12 * n_s + 4 * (2 * r_dims + 4) + 8
+    work = [t.clone() for t in (requested, node_nz, node_row, feas)]
+    row("scan_select_assume (keyed)", "scan_select_keyed", K17_SOURCE, K17_KEYED_REPLACES,
+        "scan_select_kernel",
+        lambda: KS.scan_select_assume(sbits, sfull, stotal, i, nominated, valid, request,
+                                      pod_nz, *work, noise),
+        lambda: KS.scan_select_assume_plain(sbits, sfull, stotal, i, nominated, valid,
+                                            request, pod_nz,
+                                            *[t.clone() for t in work], noise),
+        s_bytes, 6 * n_s, {"N": n_s, "R": r_dims}, launches["scan"]["scan_select_keyed"])
+    (pbits, pfull, praw, plan), kw = last(packed_calls, "normalize_combine_packed")
+    if not kw.get("packed"):
+        fail("kernel timing: the extender path's latest K2 call was not the packed mode")
+    got = normalize_combine(pbits, pfull, praw, plan, packed=True)
+    want, _f = normalize_combine_plain(pbits, pfull, praw, plan)
+    err["normalize_combine_packed"] = max(err["normalize_combine_packed"], require_equal(
+        "normalize_combine packed (path shapes)", [("packed", got, want)]))
+    cc, nn = pbits.shape
+    n_planes = praw.shape[0]
+    row("normalize_combine (packed)", "normalize_combine_packed", K2_SOURCE,
+        K2_PACKED_REPLACES, "normalize_combine_kernel",
+        lambda: normalize_combine(pbits, pfull, praw, plan, packed=True),
+        lambda: normalize_combine_plain(pbits, pfull, praw, plan),
+        nbytes(pbits, praw) + 4 * cc * nn, cc * nn * (1 + 6 * n_planes),
+        {"C": cc, "N": nn, "planes": n_planes}, launches["packed"])
+    for rr in rows_out:
+        log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
+            f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms; "
+            f"{rr['shape']}; launches {rr['launches']}")
+    return rows_out
+
+
 def main() -> None:
     here = Path(__file__).resolve().parent
     if not (here / "kubernetes_tpu_torch" / "csrc").is_dir():
@@ -6375,6 +7015,7 @@ def main() -> None:
     err.update(check_preempt_kernels(dev))
     err.update(check_fork_kernels(dev))
     err.update(check_profile_kernels(dev))
+    err.update(check_extender_kernels(dev))
     record["kernel_check_s"] = time.perf_counter() - t
     out_dir = here / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -6512,6 +7153,33 @@ def main() -> None:
     log(f"SchedulingWithMixedChurn/5000Nodes through run_workload: {mc['pods_per_s']} pods/s, "
         f"attempt p50 {mc['attempt_p50_ms']:.1f} / p99 {mc['attempt_p99_ms']:.1f} ms, "
         f"window {mc['window_pipeline']}; {record['mixed_churn_harness']['phase_s']:.1f} s")
+
+    # extenders: the round walk at 5000 nodes with a subprocess extender,
+    # synchronous (K2 packed's calls kept for the timing phase) and async,
+    # then SchedulingExtender/500Nodes through the harness; the keyed tie
+    # noise: the full auction and the scan with rng_key (K33 / K17 keyed
+    # calls kept), each beside the same cell without a key
+    ext_url, stop_ext = start_extender_server()
+    try:
+        with KernelArgs(PACKED_TARGETS) as packed_args:
+            t = time.perf_counter()
+            record["extender_path"] = extender_path(ext_url, False)["record"]
+            record["extender_path"]["phase_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        record["extender_path_async"] = extender_path(ext_url, True)["record"]
+        record["extender_path_async"]["phase_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        record["extender_harness"] = extender_harness()
+        record["extender_harness"]["phase_s"] = time.perf_counter() - t
+        with KernelArgs(KEYED_TARGETS) as keyed_args:
+            t = time.perf_counter()
+            record["keyed_paths"] = keyed_paths()
+            record["keyed_paths_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        record["extender_cuda_vs_cpu"] = extender_cuda_vs_cpu(ext_url)
+        record["extender_cuda_vs_cpu_s"] = time.perf_counter() - t
+    finally:
+        stop_ext()
 
     t = time.perf_counter()
     gpu_bind, gpu_launch, gpu_cycles, gpu_wall = hetero_bindings("cuda")
@@ -6760,6 +7428,14 @@ def main() -> None:
     record["k13_nominated_bundle"] = time_nominated_bundle(dev)
     fork_rows = time_fork_kernels(defrag_args.last, auto_args.last, err)
     profile_rows = time_profile_kernels(profile_args.last, prof["waves"], err)
+    ext_rows = time_extender_kernels(
+        keyed_args.last, packed_args.last, err,
+        # the runs whose calls were recorded last: KEYED_RUNS' last full
+        # auction and last scan
+        {"plane": record["keyed_paths"]["TopologySpreading keyed, full auction"]["keyed"][
+            "launches"]["tie_noise"],
+         "scan": record["keyed_paths"]["TopologySpreading keyed"]["keyed"]["launches"],
+         "packed": record["extender_path"]["launches"]["normalize_combine_packed"]})
     scan_args = dict(recorders["TopologySpreading scan"].last)
     scan_args["ipa_update_row"] = \
         recorders["SchedulingPreferredPodAffinity scan"].last["ipa_update_row"]
@@ -6862,6 +7538,20 @@ def main() -> None:
         if r["launches"] <= 0:
             fail(f"{r['name']}: no launch on the profiles path")
     rows += profile_rows
+    # K33, K17 keyed and K2 packed: their launches on the keyed paths and
+    # the extender path (the rows carry them); every path that ran them
+    ext_paths = {"extender path": record["extender_path"],
+                 "extender path (async)": record["extender_path_async"],
+                 **{f"{k_} ({t_})": v[t_] for k_, v in record["keyed_paths"].items()
+                    for t_ in ("keyed", "keyless")}}
+    for r in ext_rows:
+        kname = {"scan_select_assume (keyed)": "scan_select_keyed",
+                 "normalize_combine (packed)": "normalize_combine_packed"}.get(r["name"],
+                                                                              "tie_noise")
+        r["launches_by_path"] = {p_: v["launches"][kname] for p_, v in ext_paths.items()}
+        if r["launches"] <= 0:
+            fail(f"{r['name']}: no launch on the path that carries it")
+    rows += ext_rows
     record["kernels"] = rows
     record["profile"] = profile_cycle(
         ns["sched"], out_dir, "NorthStar-shaped",

@@ -32,11 +32,16 @@ Layout (mirrors the JAX package):
   autoscaler/ NodeGroups and the cluster autoscaler
   kernels/    CUDA kernel wrappers, plain versions, build/loader
   csrc/       the .cu sources and the host C++ reprieve sweep
-  ops/        shared tensor primitives (segment sums, a float32 FMA)
+  ops/        shared tensor primitives (segment sums, a float32 FMA, JAX's
+              threefry random bits for the rng_key tie noise)
   oracle.py   the reference filters, one (pod, node) at a time
-  preemption.py the Evaluator (DefaultPreemption's PostFilter)
+  preemption.py the Evaluator (DefaultPreemption's PostFilter), with the
+              preemption-capable extenders' callout
+  extender.py the HTTP extender client and the extender score server
+              (standard library only)
   convert.py  JAX-package arrays (as numpy) → the port's tensors
-  scheduler.py TorchScheduler (one framework per scheduler profile)
+  scheduler.py TorchScheduler (one framework per scheduler profile; the
+              round-based extender walk; the rng_key tie noise)
 """
 
 __version__ = "0.1.0"

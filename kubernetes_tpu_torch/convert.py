@@ -10,8 +10,9 @@ dict of its fields.  Dtypes are kept (bool / int32 / float32).  The
 snapshot carries the existing-pod affinity groups (``aff_*``) like every
 other field; ``ipa_aux_from_numpy`` carries a prepared InterPodAffinity
 aux, ``cosched_aux_from_numpy`` Coscheduling's anchor-slice aux,
-``dra_aux_from_numpy`` DynamicResources' claim aux and
-``fork_payload_from_numpy`` a what-if fork payload.
+``dra_aux_from_numpy`` DynamicResources' claim aux,
+``fork_payload_from_numpy`` a what-if fork payload and ``key_from_jax`` a
+PRNG key (the scheduler's ``rng_key``).
 """
 
 from __future__ import annotations
@@ -166,3 +167,12 @@ def fork_payload_from_numpy(payload) -> ForkPayload:
         add_ok=arr(getattr(payload, "add_ok", None), bool),
         add_vals=None if vals is None else tuple(np.array(v, copy=True) for v in vals),
         vic_claim_chips=arr(getattr(payload, "vic_claim_chips", None), np.int32))
+
+
+def key_from_jax(np_key_data) -> torch.Tensor:
+    """A JAX PRNG key's data (``np.asarray(jax.random.PRNGKey(s))`` or
+    ``jax.random.key_data(k)``: two uint32 words) → the port's key, a (2,)
+    uint32 tensor on the host (``TorchScheduler(rng_key=...)`` and the
+    engines' ``key`` take it, as they take a pair of ints)."""
+    words = np.asarray(np_key_data, dtype=np.uint32).reshape(2)
+    return torch.from_numpy(words.copy())

@@ -18,6 +18,11 @@
 // memory.  Numerics: `raw * 100 / max` is a multiply then a correctly
 // rounded divide (--fmad=false -prec-div=true), as in the reference; every
 // weighted term is an integer, so the sum is exact in any order.
+//
+// Packed mode (feas == NULL): the extender rounds' compute_packed
+// (runtime.py:225, jitted at scheduler.py:1052) — the same one pass, the
+// plane alone as the round's single f32 [B, N] fetch, -inf where the filter
+// bits miss `full`, and no feasible count written.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,7 +75,7 @@ __global__ void normalize_combine_kernel(int C, int N, int P,
   if (tid == 0) {
     int total_cnt = 0;
     for (int w = 0; w < (int)(blockDim.x / 32); ++w) total_cnt += s_cnt[w];
-    feas[c] = total_cnt;
+    if (feas != nullptr) feas[c] = total_cnt;
     for (int p = 0; p < P; ++p) {
       float mx = -INFINITY;
       for (int w = 0; w < (int)(blockDim.x / 32); ++w) mx = fmaxf(mx, s_max[p][w]);

@@ -7,7 +7,9 @@ Reference: the JAX package's framework/runtime.py — ``PrevBatch`` (:40-63),
 (:199-255), the exact serial scan ``greedy_assign`` (:327-432, with
 ``select_host`` :299 and ``_apply_dynamic`` :434), the full auction
 ``batch_assign`` (:450-745) and its identity-class dedup form
-``_batch_assign_dedup`` (:747-977) — and the scheduler's
+``_batch_assign_dedup`` (:747-977), the extender path's round programs
+``compute_packed`` (:225), ``compute_static`` / ``compute_row`` (:259-297)
+and ``apply_commits`` (:979-1020) — and the scheduler's
 ``reserve_nominated`` and ``apply_prev_delta`` (scheduler.py:889-916) over
 K13.  All run through the kernels (kernels/): K1 filter bits + raw planes, then the live dynamic
 plugins' filters folded into the bit plane (PodTopologySpread: K6,
@@ -27,7 +29,16 @@ result are K22's (``pack_diag`` / ``diagnose_bits_from_plane`` are its
 plain pieces).  On CPU tensors each kernel wrapper takes its plain torch
 version.
 
-Ties break by lowest node row (deterministic; no tie noise).
+Ties break by the lowest node row without a key.  With a key (the
+scheduler's ``rng_key``, two uint32 words) the scan and the full auction
+draw the reference's threefry tie noise through K33 (kernels/tie_noise.py,
+plain version ops/prng.py): the scan splits the key into one key per step
+and K17's keyed mode takes the largest noise among the tied maxima; the
+full auction adds 0.5 · uniform(key, [B, N]) to the total where the mask
+holds, before K3.  The dedup engine takes no key (the scheduler's gate
+falls back to the full auction), as in the reference.  The extender
+rounds' packed plane is K2's packed mode; ``apply_commits`` is one K13
+bundle plus the dynamic plugins' class updates at identity classes.
 """
 
 from __future__ import annotations
@@ -57,11 +68,13 @@ from ..kernels.normalize import (
 )
 from ..kernels.prev_delta import prev_delta_apply
 from ..kernels.scan import scan_select_assume
+from ..kernels.tie_noise import key_rows, tie_plane, tie_row, tie_split
 from ..kernels.topk import topk_rows
 from ..plugins.nodeaffinity import NodeAffinityPlugin
 from ..plugins.noderesources import BalancedAllocationPlugin, FitPlugin
 from ..plugins.passthrough import _PassFilter
 from ..plugins.trivial import image_scaled_by_id
+from ..state.encoding import live_nodes
 
 _RAW_KIND = {
     "TaintToleration": KIND_DEFAULT_REVERSED,
@@ -316,6 +329,111 @@ class BatchedFramework:
         bits, _ = self.planes(batch, snap, dyn, auxes)
         return diagnose_bits_from_plane(bits, len(self.filter_names))
 
+    # --- the extender path's round programs ------------------------------------
+
+    def compute_packed(self, batch, snap, dyn, auxes=None):
+        """compute() as one f32[B, N], −inf where a node is infeasible (the
+        reference's compute_packed, runtime.py:225): K1, the live dynamic
+        filters, K2's packed mode (the plane alone, −inf where the bits
+        miss ``full``), the live dynamic scores.  The extender walk fetches
+        this one plane per round."""
+        live = self._live(auxes)
+        bits, raw = self.planes(batch, snap, dyn, auxes)
+        full = self._full()
+        total = normalize_combine(bits, full, raw,
+                                  self.kernel_plans(self._live_names(live))[1], packed=True)
+        return self._fold_scores(live, bits, full, total)
+
+    def compute_static(self, batch, snap, dyn, auxes=None):
+        """(static_mask bool[B, N], static_raw): the dynamic-state-free
+        feasibility mask and the raw score planes of the non-dynamic scoring
+        plugins, in plugin order (the reference's compute_static,
+        runtime.py:259).  The mask is K1's bits of the non-dynamic filters
+        on live nodes of valid rows; the raw planes are K1's
+        (TaintToleration, NodeAffinity, ImageLocality) or, for a plugin K1
+        does not score (Coscheduling), the plugin's own."""
+        fs_plan, _ = self.kernel_plans(frozenset())
+        bits, raw = filter_score_planes(batch, snap, dyn,
+                                        *self.static_inputs(batch, snap, dyn), fs_plan)
+        sbits = 0
+        for k, pw in enumerate(self.filter_plugins):
+            if not pw.plugin.dynamic:
+                sbits |= 1 << k
+        static_mask = (live_nodes(snap)[None, :] & batch.valid[:, None]
+                       & ((bits & sbits) == sbits))
+        static_raw = []
+        for pw, aux in zip(self.plugins, auxes if auxes is not None
+                           else [None] * len(self.plugins)):
+            p = pw.plugin
+            if not hasattr(p, "score") or p.dynamic:
+                continue
+            if p.name in RAW_PLANES:
+                static_raw.append(raw[RAW_PLANES.index(p.name)])
+            else:
+                static_raw.append(p.score(batch, snap, dyn, aux))
+        return static_mask, tuple(static_raw)
+
+    def compute_row(self, batch, snap, dyn, auxes, static_mask, static_raw, i: int):
+        """Pod i's feasibility row bool[N] and weighted total f32[N] (−inf
+        off the row) against the current dynamic state (the reference's
+        compute_row, runtime.py:274) — the scan's step row: K1 over the
+        pod's one row (its static half equals ``static_mask[i]`` /
+        ``static_raw``'s rows, recomputed in the same launch), the live
+        dynamic plugins' row filters and scores, K2.  ``static_mask[i]`` is
+        folded in, so a narrower caller mask narrows the row."""
+        live = [(pw, pw.plugin.row(aux, i)) for pw, aux in self._live(auxes)]
+        fs_plan, comb_plan = self.kernel_plans(self._live_names(live))
+        full = self._full()
+        bits, total = self._step_row(batch, i, snap, dyn, live, fs_plan, comb_plan, full,
+                                     self.static_inputs(batch, snap, dyn))
+        row_mask = (bits[0] == full) & static_mask[i]
+        return row_mask, torch.where(row_mask, total[0], float("-inf"))
+
+    def apply_commits(self, batch, snap, dyn, auxes, commit, choice):
+        """One round's simultaneous placements (commit bool[B], choice
+        i32[B]) added to the dynamic state and to every live dynamic
+        plugin's aux (the reference's apply_commits, runtime.py:979) → new
+        (dyn, auxes); the inputs are not modified.
+
+        The resources are one K13 bundle: the rows ``where(commit, choice,
+        −1)`` with the request and non-zero rows passed through float32, as
+        the reference's one-hot einsum rounds them (a request above 2^24
+        units rounds the same way; the extender walk commits at most one pod
+        a node, so every einsum sum there has one term).  Each live dynamic
+        plugin takes the commits through its ``update_batch_classes`` at
+        identity classes (K8, K12, K26) — the reference's update_batch at
+        pod granularity — on an engine copy of its aux; a plugin with only a
+        per-pod ``update`` runs it for each committed pod in row order (the
+        reference's fori_loop fallback, :1006-1019)."""
+        dev = dyn.requested.device
+        b = batch.valid.shape[0]
+        commit = torch.as_tensor(commit).to(device=dev, dtype=torch.bool)
+        choice = torch.as_tensor(choice).to(device=dev, dtype=torch.int32)
+        rows = torch.where(commit, choice, -1).to(torch.int32)
+        req, nz = prev_delta_apply(
+            dyn.requested, dyn.non_zero,
+            [(rows, batch.request.to(torch.float32).to(torch.int32),
+              batch.non_zero.to(torch.float32).to(torch.int32))])
+        new_dyn = DynamicState(requested=req, non_zero=nz)
+        out = list(auxes) if auxes is not None else [None] * len(self.plugins)
+        ident = None
+        for k, pw in enumerate(self.plugins):
+            p, aux = pw.plugin, out[k]
+            if not p.dynamic or aux is None:
+                continue
+            if getattr(p, "update_batch_classes", None) is not None:
+                if ident is None:
+                    ident = torch.arange(b, device=dev)
+                aux = p.engine_copy(aux)
+                p.update_batch_classes(aux, commit, choice, ident)
+                out[k] = aux
+            elif getattr(p, "update", None) is not None:
+                aux = p.engine_copy(aux)
+                for i in torch.nonzero(commit).flatten().tolist():
+                    p.update(aux, i, choice[i:i + 1], batch, snap)
+                out[k] = aux
+        return new_dyn, tuple(out)
+
     # --- the dedup engine's kernel plans -------------------------------------
 
     def kernel_plans(self, live: frozenset = frozenset()):
@@ -387,10 +505,35 @@ class BatchedFramework:
 
     # --- the exact serial scan (B9) ---------------------------------------------
 
-    def greedy_assign(self, batch, snap, dyn, auxes, order) -> AssignResult:
+    @staticmethod
+    def select_host(row_scores, row_mask, key=None):
+        """The argmax with tie handling (the reference's select_host,
+        runtime.py:299): the first maximum without a key; with a key the
+        argmax of where(masked == max, noise, −1) — a uniform draw among the
+        tied maxima (noise: uniform(key, [N]), K33), the first row on equal
+        noise; an all-−inf row is all ties."""
+        masked = torch.where(row_mask, row_scores, float("-inf"))
+        if key is None:
+            return torch.argmax(masked)
+        noise = tie_row(key_rows(key, masked.device), 0, masked.shape[0])
+        return torch.argmax(torch.where(masked == masked.max(), noise, -1.0))
+
+    def _step_row(self, batch, i: int, snap, dyn, rows, fs_plan, comb_plan, full, static):
+        """Pod i's row against ``dyn``: K1 over its one row, the live
+        dynamic plugins' row filters (``rows``: their row auxes), K2, their
+        row scores → (bits i32[1, N], total f32[1, N])."""
+        na_mask, na_pref, img_scaled = static
+        bits, raw = filter_score_planes(pod_row(batch, i), snap, dyn, na_mask[i:i + 1],
+                                        na_pref[i:i + 1], img_scaled, fs_plan)
+        self._fold_filters(rows, bits, fs_plan)
+        total, _ = normalize_combine(bits, full, raw, comb_plan)
+        self._fold_scores(rows, bits, full, total)
+        return bits, total
+
+    def greedy_assign(self, batch, snap, dyn, auxes, order, key=None) -> AssignResult:
         """Schedule the batch pod by pod in ``order`` with exact
         greedy-sequential semantics (the reference's greedy_assign,
-        runtime.py:327-432, with no tie noise), bit for bit.
+        runtime.py:327-432), bit for bit, with or without tie noise.
 
         Each step computes pod i's row against the carried state: K1 over
         the pod's single row (the static filters and scores as in the
@@ -399,7 +542,9 @@ class BatchedFramework:
         dynamic plugins' filter and score on their aux row (K6 / K10, K7 /
         K11), K2's normalized weighted total; then K17 selects the node
         (``select_host``: the first maximum, the nominated row when it is
-        feasible) and assumes the pod's request into ``dyn``, writing
+        feasible; with ``key`` K17's keyed mode over the step's K33 noise
+        row, from ``split(key, B)[k]`` at scan position k) and assumes the
+        pod's request into ``dyn``, writing
         ``node_row[i]`` on the device, and ``_apply_dynamic`` runs each live
         plugin's ``update`` (K18, K19), which reads that node there.  The
         host knows the trip count — the positions of ``order`` up to the
@@ -417,22 +562,21 @@ class BatchedFramework:
         live = self._live(auxes)
         fs_plan, comb_plan = self.kernel_plans(self._live_names(live))
         full = self._full()
-        na_mask, na_pref, img_scaled = self.static_inputs(batch, snap, dyn)
+        static = self.static_inputs(batch, snap, dyn)
         live = [(pw, pw.plugin.engine_copy(aux)) for pw, aux in live]
         dyn = DynamicState(requested=dyn.requested.clone(), non_zero=dyn.non_zero.clone())
         node_row = torch.full((b,), -1, dtype=torch.int32, device=dev)
         feasible_count = torch.zeros((b,), dtype=torch.int32, device=dev)
+        keys = tie_split(key, b, dev) if key is not None and n_valid else None
         for k in range(n_valid):
             i = int(order[k])
             rows = [(pw, pw.plugin.row(aux, i)) for pw, aux in live]
-            bits, raw = filter_score_planes(pod_row(batch, i), snap, dyn, na_mask[i:i + 1],
-                                            na_pref[i:i + 1], img_scaled, fs_plan)
-            self._fold_filters(rows, bits, fs_plan)
-            total, _ = normalize_combine(bits, full, raw, comb_plan)
-            self._fold_scores(rows, bits, full, total)
+            bits, total = self._step_row(batch, i, snap, dyn, rows, fs_plan, comb_plan,
+                                         full, static)
+            noise = None if keys is None else tie_row(keys, k, snap.num_nodes)
             scan_select_assume(bits, full, total, i, batch.nominated_row, batch.valid,
                                batch.request, batch.non_zero, dyn.requested, dyn.non_zero,
-                               node_row, feasible_count)
+                               node_row, feasible_count, noise)
             self._apply_dynamic(live, i, node_row[i:i + 1], batch, snap)
         return AssignResult(node_row=node_row, feasible_count=feasible_count, dyn=dyn,
                             rounds=n_valid)
@@ -451,10 +595,12 @@ class BatchedFramework:
     # --- the full auction (B8) and its identity-class dedup form -----------------
 
     def batch_assign(self, batch, snap, dyn, auxes, order, coupling: CouplingFlags,
-                     classes=None) -> AssignResult:
+                     key=None, classes=None) -> AssignResult:
         """Whole-batch parallel assignment (the reference's batch_assign,
-        runtime.py:450-745, ``key=None``), bit for bit.  ``classes`` selects
-        the identity-class dedup path (``_batch_assign_dedup``); without it
+        runtime.py:450-745), bit for bit.  ``classes`` selects the
+        identity-class dedup path (``_batch_assign_dedup``) when there is
+        no ``key``, as in the reference (the per-pod noise cannot ride
+        class-shared planes); without it
         the full path runs the dedup engine at one class per pod — the
         reference's update_batch is update_batch_classes at pod
         granularity (podtopologyspread.py:341-347), its per-pod planes are
@@ -463,14 +609,18 @@ class BatchedFramework:
         (runtime.py:761-770) — over the full-batch ``auxes``.  The full
         path adds each round's commits to the dynamic state through a
         float32 one-hot contraction; a request above 2^24 units rounds
-        there, and so it does here."""
-        if classes is not None:
+        there, and so it does here.  With ``key`` each round adds K33's
+        noise plane, 0.5 · uniform(key, [B, N]) where the mask holds, to
+        the total before K3 — the reference's ``eff`` (:588-589) — so K3's
+        (value desc, row asc) order is its first argmax over ``eff``; N is
+        the snapshot's padded node capacity, as there."""
+        if classes is not None and key is None:
             return self._batch_assign_dedup(batch, snap, dyn, auxes, order, coupling,
                                             classes)
         ident = torch.arange(batch.valid.shape[0], device=snap.device)
         return self._auction(batch, snap, dyn, order, coupling, ident, batch, auxes,
                              batch.request.to(torch.float32).to(torch.int32),
-                             batch.non_zero.to(torch.float32).to(torch.int32))
+                             batch.non_zero.to(torch.float32).to(torch.int32), key=key)
 
     def _batch_assign_dedup(self, batch, snap, dyn, auxes, order,
                             coupling: CouplingFlags, classes) -> AssignResult:
@@ -492,7 +642,7 @@ class BatchedFramework:
                              rep_auxes, batch.request, batch.non_zero)
 
     def _auction(self, batch, snap, dyn, order, coupling: CouplingFlags, class_of,
-                 rep_batch, rep_auxes, commit_request, commit_nz) -> AssignResult:
+                 rep_batch, rep_auxes, commit_request, commit_nz, key=None) -> AssignResult:
         """The auction rounds over class rows ``rep_batch`` (pod b's row is
         ``class_of[b]``) with the live rep auxes; K4 adds each winner's
         ``commit_request`` / ``commit_nz`` row at its node.  A coupled
@@ -556,6 +706,8 @@ class BatchedFramework:
                 diag_plane = bits
             total, feas_cnt = normalize_combine(bits, full, raw, comb_plan)
             self._fold_scores(live, bits, full, total)
+            if key is not None:  # the full auction only (one row per pod)
+                tie_plane(key, bits, full, total)
             mask_r = bits == full
             feasible = (feas_cnt > 0)[class_of]
             cand_val, cand_idx = topk_rows(total, kcand)

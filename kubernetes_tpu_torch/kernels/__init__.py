@@ -49,6 +49,15 @@ than once); ``reset_launches`` zeroes the counts.
   K31 fork_add_rows         csrc/fork.cu (the same, when a fork adds nodes)
   K32 selector_spread_score csrc/selectorspread.cu (per round or scan step of
                             a batch under a profile with SelectorSpread)
+  K33 tie_noise             csrc/tie_noise.cu (a scheduler with an rng_key: the
+                            full auction's noise plane once per round, the
+                            scan's step keys once per batch and one noise row
+                            per step)
+
+K2 has a packed mode (``normalize_combine_packed``: the plane alone, −inf off
+the mask, no feasible count) for the extender rounds' ``compute_packed``, and
+K17 a keyed mode (``scan_select_keyed``: the uniform draw among the tied
+maxima) for a scheduler with an rng_key; each mode counts its own launches.
 
 The full auction runs K1–K4, K6–K8 and K10–K12 at identity classes (one
 class row per pod); the exact scan runs K1, K2, K6, K7, K10 and K11 on one
@@ -106,6 +115,9 @@ LAUNCHES: Dict[str, int] = {
     "fork_masks": 0,
     "fork_add_rows": 0,
     "selector_spread_score": 0,
+    "tie_noise": 0,
+    "normalize_combine_packed": 0,
+    "scan_select_keyed": 0,
 }
 
 
@@ -114,13 +126,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-_CTYPE = {"i": ctypes.c_int, "l": ctypes.c_longlong, "p": ctypes.c_void_p,
-          "f": ctypes.c_float}
+_CTYPE = {"i": ctypes.c_int, "u": ctypes.c_uint, "l": ctypes.c_longlong,
+          "p": ctypes.c_void_p, "f": ctypes.c_float}
 
 
 def bind(lib, name: str, spec: str):
     """The C launch function ``name`` with argtypes from ``spec`` (one letter
-    per argument: i = int, l = long long, p = pointer, f = float); returns cudaError_t."""
+    per argument: i = int, u = unsigned int, l = long long, p = pointer,
+    f = float); returns cudaError_t."""
     fn = getattr(lib, name)
     fn.argtypes = [_CTYPE[ch] for ch in spec]
     fn.restype = ctypes.c_int

@@ -6,6 +6,10 @@ as ``_batch_assign_dedup.dense_rep`` (:857-867) applies it per round:
 ``total = Σ_plugin weight · floor(normalize(raw))`` with −inf where the
 node is infeasible, plus the row's feasible-node count.  The feasibility
 mask is "every filter bit set" of K1's bit plane.
+
+Packed mode (``packed=True``): the extender rounds' ``compute_packed``
+(runtime.py:225) — the plane alone, −inf where the filter bits miss
+``full``, written in the same single pass with no feasible count.
 """
 
 from __future__ import annotations
@@ -71,11 +75,13 @@ def _fn():
     return _FN
 
 
-def normalize_combine(bits, full: int, raw, plan: CombinePlan):
-    """→ (total f32[C, N], feasible count i32[C]).  CPU tensors take the
-    plain version; CUDA tensors launch K2."""
+def normalize_combine(bits, full: int, raw, plan: CombinePlan, packed: bool = False):
+    """→ (total f32[C, N], feasible count i32[C]); with ``packed`` the total
+    alone (K2's packed mode).  CPU tensors take the plain version; CUDA
+    tensors launch K2."""
     if not bits.is_cuda:
-        return normalize_combine_plain(bits, full, raw, plan)
+        total, feas = normalize_combine_plain(bits, full, raw, plan)
+        return total if packed else (total, feas)
     c, n = bits.shape
     p = raw.shape[0]
     dev = bits.device
@@ -87,10 +93,13 @@ def normalize_combine(bits, full: int, raw, plan: CombinePlan):
     if raw.shape[1:] != bits.shape or len(plan.kinds) != p:
         raise ValueError("normalize_combine: inconsistent shapes")
     total = torch.empty((c, n), dtype=torch.float32, device=dev)
-    feas = torch.empty((c,), dtype=torch.int32, device=dev)
+    feas = None if packed else torch.empty((c,), dtype=torch.int32, device=dev)
     err = _fn()(c, n, p, ptr(bits), int(full), ptr(raw), ptr(kinds),
-                ptr(weights), float(plan.const_add), ptr(total), ptr(feas),
-                stream_of(dev))
+                ptr(weights), float(plan.const_add), ptr(total),
+                None if feas is None else ptr(feas), stream_of(dev))
     check(err, "normalize_combine")
+    if packed:
+        LAUNCHES["normalize_combine_packed"] += 1
+        return total
     LAUNCHES["normalize_combine"] += 1
     return total, feas

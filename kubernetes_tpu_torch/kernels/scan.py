@@ -2,12 +2,17 @@
 i's node from its folded row and assume it (CUDA: csrc/scan.cu).
 
 Replaces the JAX package's greedy_assign step (framework/runtime.py:358-393)
-with ``select_host`` (:299-308, no tie noise) and the resource half of
+with ``select_host`` (:299-308) and the resource half of
 ``_apply_dynamic`` (:434-438).  The row is K1's pass bits and K2's total
 for pod i, with the dynamic plugins' filters and scores folded in; the
 node and the feasible count go to ``node_row[i]`` / ``feasible_count[i]``
 on the device, where the next kernels of the step read them, so a step
 needs no read on the host.
+
+Keyed mode (``noise``, the step's uniform row from K33): the reference's
+``select_host`` with a key (:305-308) — the largest noise among the tied
+maxima, the first row on equal noise, every row a tie when none is
+feasible; the nominated path and the infeasible rule are unchanged.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from .build import check, load
 
 
 def scan_select_assume_plain(bits, full: int, total, i: int, nominated, valid, request,
-                             pod_nz, requested, node_nz, node_row, feasible_count):
+                             pod_nz, requested, node_nz, node_row, feasible_count,
+                             noise=None):
     """The plain torch version (no read on the host): the row's feasible
     count, the first maximum of the masked total (row 0 when nothing is
     feasible), the nominated row when it is feasible, −1 out for an
@@ -29,7 +35,12 @@ def scan_select_assume_plain(bits, full: int, total, i: int, nominated, valid, r
     n = bits.shape[-1]
     mask = bits.reshape(n) == full
     cnt = mask.sum(dtype=torch.int32)
-    best = torch.argmax(torch.where(mask, total.reshape(n), float("-inf")))
+    masked = torch.where(mask, total.reshape(n), float("-inf"))
+    if noise is None:
+        best = torch.argmax(masked)
+    else:
+        ties = masked == masked.max()
+        best = torch.argmax(torch.where(ties, noise.reshape(n), -1.0))
     nom = nominated[i:i + 1].long()
     nomc = nom.clamp(0, n - 1)
     nom_ok = (nom >= 0) & mask.index_select(0, nomc)
@@ -51,21 +62,23 @@ _FN = None
 def _fn():
     global _FN
     if _FN is None:
-        _FN = bind(load("scan"), "launch_scan_select", "iiii" + "p" * 10 + "p")
+        _FN = bind(load("scan"), "launch_scan_select", "iiii" + "p" * 11 + "p")
     return _FN
 
 
 def scan_select_assume(bits, full: int, total, i: int, nominated, valid, request, pod_nz,
-                       requested, node_nz, node_row, feasible_count):
+                       requested, node_nz, node_row, feasible_count, noise=None):
     """Pod i's step: ``bits`` i32[1, N] and ``total`` f32[1, N] its row;
     ``nominated`` i32[B], ``valid`` bool[B], ``request`` i32[B, R],
     ``pod_nz`` i32[B, 2] the batch's rows; ``requested`` i32[N, R] and
     ``node_nz`` i32[N, 2] the dynamic state and ``node_row`` /
-    ``feasible_count`` i32[B] the scan's outputs, all updated in place.
+    ``feasible_count`` i32[B] the scan's outputs, all updated in place;
+    ``noise`` f32[N] the step's draw (keyed mode) or None.
     CPU tensors take the plain version; CUDA tensors launch K17."""
     if not bits.is_cuda:
         return scan_select_assume_plain(bits, full, total, i, nominated, valid, request,
-                                        pod_nz, requested, node_nz, node_row, feasible_count)
+                                        pod_nz, requested, node_nz, node_row, feasible_count,
+                                        noise)
     n = bits.shape[-1]
     b, r = request.shape
     ins = [bits, total, nominated, valid, request, pod_nz]
@@ -74,11 +87,17 @@ def scan_select_assume(bits, full: int, total, i: int, nominated, valid, request
     require_dtype("scan_select_assume", torch.int32, bits, nominated, request, pod_nz,
                   *outs)
     require_dtype("scan_select_assume", torch.float32, total)
+    if noise is not None:
+        require_cuda("scan_select_assume", bits, noise)
+        require_dtype("scan_select_assume", torch.float32, noise)
+        if noise.numel() != n:
+            raise ValueError("scan_select_assume: the noise row must be [N]")
     require_dtype("scan_select_assume", torch.bool, valid)
     if bits.numel() != n or total.numel() != n or requested.shape != (n, r) \
             or node_nz.shape != (n, 2) or node_row.shape != (b,) \
             or feasible_count.shape != (b,) or not 0 <= i < b:
         raise ValueError("scan_select_assume: inconsistent shapes")
-    err = _fn()(n, r, int(full), int(i), *map(ptr, ins), *map(ptr, outs), stream_of(dev))
+    err = _fn()(n, r, int(full), int(i), *map(ptr, ins), *map(ptr, outs),
+                None if noise is None else ptr(noise), stream_of(dev))
     check(err, "scan_select_assume")
-    LAUNCHES["scan_select_assume"] += 1
+    LAUNCHES["scan_select_assume" if noise is None else "scan_select_keyed"] += 1

@@ -115,6 +115,10 @@ class Workload:
     # cycle index) before every measured scheduling cycle — the
     # synchronous form of scheduler_perf's background churn goroutine
     churn_between_cycles: Optional[Callable] = None
+    # () → (extenders, stop): the suites that measure the extender path
+    # (SchedulingExtender: one subprocess extender); the harness passes
+    # the extenders to the scheduler and calls stop at the end
+    make_extenders: Optional[Callable] = None
 
 
 @dataclass
@@ -418,15 +422,30 @@ def run_workload(w: Workload, device="cuda", clock=time.perf_counter,
                  overlap_sync: object = "auto") -> List[DataItem]:
     """Run ``w`` end to end on ``device`` (``"cuda"`` unless the caller asks
     for the CPU; raises without a card) → the measured op's items.
-    ``inspect(store, sched, ctrl)``, when given, sees the cluster once
-    every op has run (``ctrl`` is the driven controller, None when the
-    workload has none); ``overlap_sync`` is passed to the scheduler."""
+    ``clock`` times the window and is the scheduler's clock too (its
+    attempt latencies and the micro-bucket policy's tier profiles read
+    it).  ``inspect(store, sched, ctrl)``, when given, sees the cluster
+    once every op has run (``ctrl`` is the driven controller, None when the
+    workload has none); ``overlap_sync`` is passed to the scheduler.  A
+    workload with ``make_extenders`` runs with its extenders, stopped at
+    the end."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         kernel_build.build_all()
+    extenders, stop_extenders = (w.make_extenders() if w.make_extenders is not None
+                                 else ([], None))
+    try:
+        return _run(w, dev, clock, inspect, overlap_sync, extenders)
+    finally:
+        if stop_extenders is not None:
+            stop_extenders()
+
+
+def _run(w: Workload, dev, clock, inspect, overlap_sync, extenders) -> List[DataItem]:
     store = ObjectStore()
     sched = TorchScheduler(store, batch_size=w.batch_size, device=dev, pipeline=True,
-                           latency_target_ms=w.latency_target_ms, overlap_sync=overlap_sync)
+                           latency_target_ms=w.latency_target_ms, overlap_sync=overlap_sync,
+                           clock=clock, extenders=extenders)
     # the run's full extent up front, with headroom for the tier bursts:
     # no tier grows mid-run
     sched.presize(
@@ -469,7 +488,7 @@ def run_workload(w: Workload, device="cuda", clock=time.perf_counter,
                 "Queue A items 9-10)")
     if inspect is not None:
         inspect(store, sched, ctrl)
-    sched.close()
+    sched.close()  # the store watch and the extender-callout pool
     return items
 
 

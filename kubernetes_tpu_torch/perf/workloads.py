@@ -12,8 +12,8 @@ The port carries the suites whose pods it schedules: SchedulingBasic,
 NorthStar, Density, TopologySpreading, PreferredTopologySpreading,
 SchedulingNodeAffinity, SchedulingPodAntiAffinity, SchedulingPodAffinity,
 SchedulingPreferredPodAffinity, Unschedulable, PreemptionBasic,
-SchedulingWithMixedChurn, GangBasic, DeviceClaimGang, Defrag and
-AutoscaleGang.  ``build_workload`` of any other
+SchedulingWithMixedChurn, SchedulingExtender, GangBasic, DeviceClaimGang,
+Defrag and AutoscaleGang.  ``build_workload`` of any other
 suite raises NotImplementedError naming the ROADMAP item that brings what it
 needs.
 """
@@ -489,6 +489,55 @@ def _basic(n, p, mp) -> Workload:
     return _three_ops("SchedulingBasic", node_default, pod_default, pod_default, n, p, mp)
 
 
+def _extender(n, p, mp) -> Workload:
+    """SchedulingBasic's shape with one HTTP extender on the path (the
+    reference's _extender, workloads.py:332-381): the round-based extender
+    cadence.  The extender runs in a subprocess, as a real extender would,
+    so the protocol cost measured is the scheduler's client and the wire,
+    not the extender's handler sharing the scheduler's interpreter."""
+    import multiprocessing as mp_
+
+    from ..extender import ExtenderConfig, HTTPExtender
+
+    def make_extenders():
+        # the subprocess target lives in extender.py: a spawn child imports
+        # only the standard library, not torch behind the perf package
+        from functools import partial
+
+        from ..extender import run_subprocess_score_server, uniform_score_fn
+
+        ctx = mp_.get_context("spawn")
+        parent, child = ctx.Pipe()
+        proc = ctx.Process(target=partial(run_subprocess_score_server, uniform_score_fn),
+                           args=(child,), daemon=True)
+        proc.start()
+        if not parent.poll(60):
+            proc.terminate()
+            raise RuntimeError("extender subprocess failed to start")
+        port = parent.recv()
+        ext = HTTPExtender(ExtenderConfig(
+            url_prefix=f"http://127.0.0.1:{port}", filter_verb="filter",
+            prioritize_verb="prioritize", weight=1, node_cache_capable=True))
+
+        def stop():
+            ext.close()
+            proc.terminate()
+            proc.join(timeout=5)
+
+        return [ext], stop
+
+    return Workload(
+        name="SchedulingExtender",
+        ops=[
+            Op("createNodes", n, node_template=node_default),
+            Op("createPods", p, pod_template=pod_default),
+            Op("createPods", mp, pod_template=pod_default, collect_metrics=True),
+        ],
+        batch_size=256,
+        make_extenders=make_extenders,
+    )
+
+
 def _anti_affinity(n, p, mp) -> Workload:
     return _three_ops("SchedulingPodAntiAffinity", node_unique_hostname,
                       pod_anti_affinity("sched-0"), pod_anti_affinity("sched-1"), n, p, mp)
@@ -650,6 +699,11 @@ SUITES: Dict[str, Suite] = {
         Suite("SchedulingWithMixedChurn", _mixed_churn,
               {"1000Nodes": (1000, 0, 1000), "5000Nodes": (5000, 0, 2000)},
               batch_size={"5000Nodes": 512}),
+        # one subprocess extender on the path; the batch (384) stays under
+        # the node count, so the one-commit-per-node rule lets every pod
+        # commit in the first round
+        Suite("SchedulingExtender", _extender,
+              {"500Nodes": (500, 500, 1000)}, batch_size=384),
         # the north-star configuration: 5k nodes, 10k pending pods
         Suite("NorthStar", _basic,
               {"5000Nodes/10000Pods": (5000, 2000, 10000), "100kNodes": (100_352, 0, 2000)},
@@ -695,7 +749,6 @@ UNPORTED: Dict[str, str] = {
                        "came with item 8a, its device claims with item 8b)",
     "StatefulChurn": "volume binding (ROADMAP Queue A item 8c)",
     "VolumeZoneSpread": "volume binding (ROADMAP Queue A item 8c)",
-    "SchedulingExtender": "scheduler extenders (ROADMAP Queue A item 6b)",
 }
 
 

@@ -4,7 +4,7 @@ Reference: the JAX package's preemption.py (``Candidate``, ``PlainTables``,
 ``pods_with_pdb_violation``, ``more_important``, the ``Evaluator`` :101 with
 ``plain_tables`` :120, ``preempt_plain`` :238, ``select_victims_on_node``
 :321, ``select_victims_vectorized`` :420, ``pick_one_node`` :558,
-``preempt`` :589), itself after pkg/scheduler/framework/preemption/
+``preempt`` :589, ``_call_extenders`` :652), itself after pkg/scheduler/framework/preemption/
 preemption.go (Evaluator.Preempt :138, findCandidates :198,
 DryRunPreemption :546, SelectCandidate :301, pickOneNodeForPreemption
 :397) and defaultpreemption/default_preemption.go (SelectVictimsOnNode
@@ -19,8 +19,9 @@ and the reprieve sweep (``sweep_and_rank``: the C++ pass with
 ``native=True``, else its numpy version), for the others through the
 oracle's reference-exact filters, node by node.
 
-Extenders are not ported (ROADMAP Queue A item 6b): ``preempt`` refuses a
-non-empty extender list.
+With preemption-capable extenders in play every candidate is materialized
+(the vectorized dry run for plain preemptors) and each interested extender
+filters the candidate map through ProcessPreemption before the ranking.
 """
 
 from __future__ import annotations
@@ -585,17 +586,17 @@ class Evaluator:
         nominated: Optional[Dict[str, List[v1.Pod]]] = None,
         extenders: Sequence = (),
     ) -> Optional[Candidate]:
-        """Evaluate candidates (already device-prefiltered) and pick one.
+        """Evaluate candidates (already device-prefiltered), consult the
+        preemption-capable extenders, pick one.
 
         Candidate cap mirrors default_preemption.go:110-127:
-        max(100, 10%·n) unless overridden.  ``extenders`` must be empty:
-        the preemption callout to extenders (preemption.go callExtenders)
-        comes with them (ROADMAP Queue A item 6b).
+        max(100, 10%·n) unless overridden.  The extender callout mirrors
+        preemption.go callExtenders → HTTPExtender.ProcessPreemption
+        (extender.go:164-207): each interested, preemption-capable extender
+        filters the candidate map in turn; a non-ignorable error raises
+        ExtenderError and aborts the attempt (the reference's preempt,
+        preemption.py:587-650).
         """
-        if extenders:
-            raise NotImplementedError(
-                "preemption with scheduler extenders is not ported yet "
-                "(ROADMAP Queue A item 6b)")
         n = len(snapshot.node_info_list)
         cap = max_candidates or max(100, n // 10)
         node_infos = snapshot.node_info_list
@@ -611,27 +612,69 @@ class Evaluator:
             _is_plain_preemptor(pod, has_anti)
             and not compute_pod_resource_request(pod).scalar_resources
         )
-        if vectorizable:
+        wants_all_candidates = any(
+            getattr(e, "supports_preemption", False) and e.is_interested(pod)
+            for e in extenders
+        )
+        if vectorizable and not wants_all_candidates:
             # shared-tables fast path: ranking needs only the winner, so the
             # per-candidate Candidate materialization (and the per-preemptor
             # table rebuild) is skipped entirely
             tables = self.plain_tables(snapshot, pod.spec.priority or 0, pdbs)
             return self.preempt_plain(pod, tables, pool, nominated=nominated)
-        # the serial dry run, node by node (the reference's vectorized
-        # branch here serves only extender callouts, which the port refuses)
         by_name = snapshot.node_info_map
-        for name in pool:
-            info = by_name.get(name)
-            if info is None:
-                continue
-            c = self.select_victims_on_node(
-                pod, info, node_infos, pdbs,
-                cluster_has_req_anti_affinity=has_anti,
-                nominated=nominated,
-            )
-            if c is not None:
-                candidates.append(c)
+        cand_infos = [by_name[name] for name in pool if name in by_name]
+        if vectorizable:
+            # every candidate materialized for the extenders
+            results = self.select_victims_vectorized(pod, cand_infos, pdbs,
+                                                     nominated=nominated)
+            candidates = [c for c in results if c is not None]
+        else:
+            for info in cand_infos:
+                c = self.select_victims_on_node(
+                    pod, info, node_infos, pdbs,
+                    cluster_has_req_anti_affinity=has_anti,
+                    nominated=nominated,
+                )
+                if c is not None:
+                    candidates.append(c)
+        candidates = self._call_extenders(pod, candidates, extenders)
         return self.pick_one_node(candidates)
+
+    def _call_extenders(self, pod: v1.Pod, candidates: List[Candidate],
+                        extenders: Sequence) -> List[Candidate]:
+        """Each interested, preemption-capable extender keeps the subset of
+        the candidates (and of their victims) it accepts, in turn (the
+        reference's _call_extenders, preemption.py:652-680)."""
+        if not candidates:
+            return candidates
+        for ext in extenders:
+            if not getattr(ext, "supports_preemption", False):
+                continue
+            if not ext.is_interested(pod):
+                continue
+            victim_map = {
+                c.node_name: {
+                    "pods": list(c.victims),
+                    "numPDBViolations": c.num_pdb_violations,
+                }
+                for c in candidates
+            }
+            filtered = ext.process_preemption(pod, victim_map)
+            by_node = {c.node_name: c for c in candidates}
+            out = []
+            for node, entry in filtered.items():
+                c = by_node.get(node)
+                if c is None:
+                    continue
+                keep = {p.uid for p in entry["pods"]}
+                victims = [p for p in c.victims if p.uid in keep]
+                if victims:
+                    out.append(Candidate(node, victims, entry["numPDBViolations"]))
+            candidates = out
+            if not candidates:
+                break
+        return candidates
 
 
 def _argmin(pool, key):

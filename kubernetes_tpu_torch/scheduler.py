@@ -1,7 +1,7 @@
 """TorchScheduler: the end-to-end scheduling loop on the port, synchronous or
 pipelined.
 
-Reference: the JAX package's TPUScheduler with no tie noise (scheduler.py:
+Reference: the JAX package's TPUScheduler (scheduler.py:
 watch handlers :705-800, the pipelined ``schedule_cycle`` :1066-1221 with
 ``_InFlight`` :239, ``_SyncAhead`` :325, the overlapped sync :1319-1453,
 the micro-bucket policy :1455-1520, ``_dispatch_batch`` and ``_bg_fetch``
@@ -26,7 +26,13 @@ nominator ``_nominated`` / ``_fastbound_noms`` :653-664 with their purges
 runtime: the directory :582-595, ``_gang_prefilter`` :1223,
 the binding cycle ``_run_reserve_and_bind`` :3364 / ``_finish_bind`` :3428
 with its Permit hold ``_WaitingBind`` :103 and ``_flush_waiting_binds``
-:2409), itself after pkg/scheduler/scheduler.go (scheduleOne :496, assume
+:2409); the extender path: the constructor's ``extenders`` /
+``serialize_extender_callouts`` / ``async_extenders`` :598-627, the
+dispatch branch :1672-1795 with ``prepare_packed`` :1030-1039, the walk
+join :1969-1990, ``_num_feasible_nodes`` :155, ``_capture_walk_state``
+:2921, ``_assign_with_extenders`` :2942, ``_ext_pool`` :3270; the tie
+noise ``rng_key`` :362, :574, :2588-2593, :2628, :2743), itself after
+pkg/scheduler/scheduler.go (scheduleOne :496, assume
 :424, bind :446, the async binding goroutine :623) and eventhandlers.go
 (addAllEventHandlers :251).
 
@@ -105,15 +111,41 @@ holds one profile's pods (the queue groups by schedulerName) and runs on
 its framework, and a pending pod naming no profile of this scheduler is
 ignored.  Without ``profiles`` the one profile is ``default_plugins``.
 
+Extenders: with ``extenders`` (extender.py HTTPExtender clients) every
+batch takes the round-based extender walk instead of the engines: the
+first round's packed plane comes with the dispatch (``prepare_packed``:
+K16, K13's nominated bundle, the plugins' prepare, ``compute_packed`` — K1
++ K2's packed mode); each round the host walks the unresolved pods in
+order, calls each interested extender's filter and prioritize (concurrently
+on a 16-worker pool, or serialized per ``serialize_extender_callouts``),
+merges the weighted extender scores into the device totals, commits at most
+one pod a node (a host ledger re-checks the fit; a coupled pod commits only
+as its component's first accept of the round), and the round's commits go
+to the device through ``apply_commits`` (K13 + the dynamic plugins' class
+updates) before the next round's ``compute_packed``.  The candidate list an
+extender sees is capped at ``_num_feasible_nodes`` and striped over the
+batch, rotating per round.  With ``async_extenders`` (default: when
+pipelined) the walk runs on a background thread that ``_complete`` joins;
+its callout wall is the ``extender_wait`` phase.  The Evaluator consults
+preemption-capable extenders.  Extender batches never chain, never
+sub-bucket and never fast-bind a preemptor that such an extender may veto.
+
+Tie noise: ``rng_key`` (two uint32 words, the reference's
+``jax.random.PRNGKey(s)`` is ``(0, s)``) draws the reference's threefry
+tie noise in the full auction and the scan (K33, K17's keyed mode); the
+dedup engine takes no key, so every batch that would dedup takes the full
+auction (the reference's ``dedup_fallback("rng_key")``).  Without it ties
+break by the lowest node row.
+
 Scope guard: a batch or cluster that needs anything outside the port —
-volumes, extenders, or a batch larger than the auction kernel's one block
-on cuda — raises NotImplementedError naming the ROADMAP item.  It
-never gives a silently different answer.  The port takes no ``rng_key``:
-ties break by the lowest node row (tie noise is ROADMAP Queue A item 6b).
+volumes, or a batch larger than the auction kernel's one block on cuda —
+raises NotImplementedError naming the ROADMAP item.  It never gives a
+silently different answer.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from dataclasses import dataclass
@@ -130,6 +162,7 @@ from .framework import events as fwk_events
 from .api.labels import affinity_term_matches, match_label_selector
 from .api.resource import compute_pod_resource_request
 from .descheduler import EvictionAPI
+from .extender import ExtenderError, _node_to_dict
 from .framework.conflict import conflict_components
 from .framework.events import ActionType, ClusterEvent, EventResource
 from .framework.interface import Code, PluginWithWeight
@@ -151,6 +184,7 @@ from .gang import POD_GROUP_LABEL, CoschedulingPlugin, GangDirectory, gang_all_o
 from .kernels import build as kernel_build
 from .kernels.diag import diag_pack
 from .kernels.filter_score import filter_score_planes
+from .ops.prng import key_of
 from .oracle import (
     fits_resources,
     node_affinity_fits,
@@ -245,6 +279,19 @@ def _unpack_diag(bits: np.ndarray, n_filters: int) -> np.ndarray:
     ).astype(bool)
 
 
+def _num_feasible_nodes(n_all: int) -> int:
+    """numFeasibleNodesToFind (scheduler.go:852-872, the reference's
+    _num_feasible_nodes, scheduler.py:155, default percentageOfNodesToScore
+    0): at most 100 nodes are never sampled; above that the adaptive
+    percentage 50 − n/125 applies (floor 5%, floor 100 nodes).  The engines
+    score every node; this bound caps the candidate list shipped to the
+    extenders per callout — the subset the reference's extenders see."""
+    if n_all <= 100:
+        return n_all
+    pct = min(max(50 - n_all // 125, 5), 100)
+    return max(100, n_all * pct // 100)
+
+
 def _pod_out_of_scope(p: v1.Pod) -> Optional[str]:
     """Why a pending pod needs something outside this slice, or None."""
     if getattr(p.spec, "volumes", None):
@@ -336,6 +383,17 @@ class _InFlight:
     # phase, so the record owns it)
     profile: str = DEFAULT_SCHEDULER_NAME
     fw: object = None
+    # the engine: "batch" / "scan" (the fused cycle) or "extender" (the
+    # round walk); the extender walk's result: the plugins' auxes at
+    # dispatch (its failing pods' diagnosis reads them), each pod's
+    # algorithm latency (dispatch start → its own round's decision), the
+    # rounds run, and an exception the async walk died with (raised again
+    # at _complete, which requeues the batch)
+    engine: str = "batch"
+    auxes: object = None
+    algo_lat: Optional[np.ndarray] = None
+    rounds: int = 0
+    walk_error: Optional[BaseException] = None
 
 
 @dataclass
@@ -416,12 +474,17 @@ class TorchScheduler:
         extenders: Optional[List] = None,
         profiles: Optional[Dict[str, object]] = None,
         nominated_fast_bind: bool = True,
+        rng_key=None,
+        serialize_extender_callouts: str = "auto",
+        async_extenders: object = "auto",
     ):
         if assign_mode not in ASSIGN_MODES:
             raise ValueError(f"unknown assign_mode {assign_mode!r}")
-        if extenders:
-            raise NotImplementedError(
-                "scheduler extenders are not ported yet (ROADMAP Queue A item 6b)")
+        if serialize_extender_callouts not in ("auto", "always", "never"):
+            raise ValueError(
+                f"unknown serialize_extender_callouts {serialize_extender_callouts!r}")
+        if async_extenders not in ("auto", True, False):
+            raise ValueError(f"unknown async_extenders {async_extenders!r}")
         if torch.device(device).type == "cuda" and batch_size > 1024:
             raise NotImplementedError(
                 f"batch_size={batch_size} on cuda: the auction kernel runs one "
@@ -437,6 +500,20 @@ class TorchScheduler:
         self.coupled_fraction_threshold = coupled_fraction_threshold
         self.pipeline = pipeline
         self.pipeline_depth = pipeline_depth
+        # the tie-noise key as two uint32 words (None: lowest-row ties)
+        self.rng_key = None if rng_key is None else key_of(rng_key)
+        # the extenders (extender.py clients) and their callout cadence:
+        # "auto" serializes a round's callouts when an extender declares
+        # managedResources (a stateful extender must see requests in commit
+        # order), "always" / "never" force either cadence; the async walk
+        # runs on a background thread, on exactly when pipelined under
+        # "auto" (the reference's scheduler.py:598-627)
+        self.extenders = list(extenders or [])
+        self.serialize_extender_callouts = serialize_extender_callouts
+        self.async_extenders = pipeline if async_extenders == "auto" else bool(async_extenders)
+        self._ext_pool_lock = threading.Lock()
+        self._ext_pool_obj = None
+        self._ext_round_warmed = False
         # chain affinity batches on the card (the reference: on any backend
         # but its CPU one); on the CPU the chain still runs while the last
         # dispatch deduped (_chain_affinity_now)
@@ -517,10 +594,13 @@ class TorchScheduler:
         # to the [3, B] result on the card (the round loop syncs with it);
         # "fetch" is the wait for that result at completion; "queue_wait" the
         # hold for a backoff wave; "sync_overlap" the background sync's wall
-        # — off the critical path, not part of any cycle's wall
+        # — off the critical path, not part of any cycle's wall;
+        # "extender_wait" the extender walk's callout wall (the join of an
+        # async walk)
         self.phase_wall: Dict[str, float] = {
             k: 0.0 for k in ("snapshot", "compile", "host_prepare", "partition", "device",
-                             "fetch", "bind", "queue_wait", "sync_overlap")}
+                             "fetch", "extender_wait", "bind", "queue_wait",
+                             "sync_overlap")}
         self.cycles = 0
         self.rounds_total = 0
         # host wall spent in the dedup engine's per-round read of its loop
@@ -763,7 +843,9 @@ class TorchScheduler:
         completed = []
         while len(inflight) > tail:
             fl = inflight.pop(0)
-            completed.append((fl, self._complete(fl)))
+            rows = self._complete_or_requeue(fl, stats)
+            if rows is not None:
+                completed.append((fl, rows))
         nxt = None
         if infos:
             nxt = self._dispatch(infos, prevs=inflight[len(inflight) - tail:],
@@ -775,7 +857,9 @@ class TorchScheduler:
             if self.pipeline:
                 inflight.append(nxt)
             else:
-                self._merge(stats, self._bind_phase(nxt, self._complete(nxt)))
+                rows = self._complete_or_requeue(nxt, stats)
+                if rows is not None:
+                    self._merge(stats, self._bind_phase(nxt, rows))
         # resolve the gang Permit holds: released members bind now (the last
         # sibling's permit this cycle allowed them), expired ones roll the
         # whole gang back and requeue it atomically
@@ -788,6 +872,23 @@ class TorchScheduler:
         if self.overlap_sync and (inflight or stats.attempted):
             self._spawn_sync_ahead()
         return stats
+
+    def _complete_or_requeue(self, fl: _InFlight, stats: CycleStats) -> Optional[np.ndarray]:
+        """``_complete``, with the reference's completion guard for an
+        extender batch whose async walk died (scheduler.py:1153-1166):
+        nothing was assumed, so every pod requeues through the backoff queue
+        (unless it was deleted meanwhile) and the loop goes on → None.  Any
+        other fault propagates."""
+        try:
+            return self._complete(fl)
+        except Exception:
+            if fl.walk_error is None:
+                raise
+            for qi in fl.infos:
+                if self.store.get("Pod", qi.pod.namespace, qi.pod.metadata.name) is not None:
+                    self.queue.requeue_after_error(qi)
+            stats.attempted += len(fl.infos)
+            return None
 
     def _gang_prefilter(self, infos: List[QueuedPodInfo],
                         stats: CycleStats) -> List[QueuedPodInfo]:
@@ -823,7 +924,7 @@ class TorchScheduler:
         interacts, an affinity batch under a batch without affinity content
         (its terms would have no tables to land in), a batch dispatched
         before a node delete, or one of another pad tier."""
-        if not (infos and self.pipeline) or interacts:
+        if not (infos and self.pipeline) or interacts or self.extenders:
             return 0
         has_aff = any(_pod_has_affinity(qi.pod) for qi in infos)
         limit = 1 if pad < self.batch_size else self.pipeline_depth - 1
@@ -864,7 +965,7 @@ class TorchScheduler:
                 preempt_qis.append(qi)
         if not preempt_qis:
             return False
-        if not self.pipeline:
+        if not self.pipeline or self.extenders:
             return True
         self.join_sync_ahead()  # the fit scan reads the encoder's mirrors
         enc = self.encoder
@@ -901,7 +1002,8 @@ class TorchScheduler:
         can ride the chain; ``_forced_bucket`` overrides (warms)."""
         if self._forced_bucket:
             return max(1, min(self._forced_bucket, self.batch_size))
-        if self.latency_target_ms is None or not infos or interacts or not self.pipeline:
+        if self.latency_target_ms is None or not infos or interacts or not self.pipeline \
+                or self.extenders:
             return self.batch_size
         return self._bucket_from_latency()
 
@@ -1067,23 +1169,47 @@ class TorchScheduler:
             host_auxes = fw.host_prepare(batch, self.snapshot, self.encoder,
                                          namespace_labels=self.namespace_labels)
             t2 = time.perf_counter()
-            carries = self._carries(prevs, batch)
-            mode, coupling, _info = self.engine_choice(batch, fw=fw)
-            classes = None
-            if mode == "batch":
-                class_of, rep_rows, _why = self._dedup_classes(batch, host_auxes, fw=fw)
-                if class_of is not None:
-                    classes = (class_of, rep_rows)
-            self._last_dedup = classes is not None
+            carries, mode, coupling, classes = [], "extender", None, None
+            if not self.extenders:
+                carries = self._carries(prevs, batch)
+                mode, coupling, _info = self.engine_choice(batch, fw=fw)
+                if mode == "batch":
+                    class_of, rep_rows, _why = self._dedup_classes(batch, host_auxes, fw=fw)
+                    if class_of is not None:
+                        classes = (class_of, rep_rows)
+                self._last_dedup = classes is not None
             t3 = time.perf_counter()
             dsnap, upd = self._deferred_snapshot(prep)
             nom_rows, nom_req = self._nominated_arrays({qi.pod.uid for qi in infos})
         except Exception:
             self._discard_prep()
             raise
+        if mode == "extender":
+            # the callout wall spent inside is the extender_wait phase
+            fl, wait = self._extender_cycle(infos, batch, fw, profile, host_auxes, dsnap, upd,
+                                            (nom_rows, nom_req), t0_clk, cycle, builds0)
+        else:
+            wait = 0.0
+            fl = self._fused_dispatch(infos, pods, batch, mode, classes, coupling, host_auxes,
+                                      dsnap, upd, carries, gang_seg, (nom_rows, nom_req), fw,
+                                      profile, t0_clk, cycle, interacts, builds0)
+        t4 = time.perf_counter()
+        self.phase_wall["snapshot"] += t1 - t0
+        self.phase_wall["compile"] += t_hp - t1
+        self.phase_wall["host_prepare"] += t2 - t_hp
+        self.phase_wall["partition"] += t3 - t2
+        self.phase_wall["device"] += max(t4 - t3 - wait, 0.0)
+        return fl
+
+    def _fused_dispatch(self, infos, pods, batch, mode, classes, coupling, host_auxes, dsnap,
+                        upd, carries, gang_seg, nominated, fw, profile: str, t0_clk: float,
+                        cycle: int, interacts: bool, builds0: int) -> _InFlight:
+        """The engines' dispatch: the fused cycle, the in-flight record and
+        the start of its fetch, and for a batch that may preempt its
+        priority levels (and the speculative candidate mask)."""
         node_row, packed, dbatch, dsnap, dyn = self._fused_cycle(
             batch, mode, classes, coupling, host_auxes, dsnap, upd, carries, gang_seg,
-            nominated=(nom_rows, nom_req), fw=fw)
+            nominated=nominated, fw=fw)
         self.chained_dispatches += bool(carries)
         fl = _InFlight(infos=infos, batch=batch, dbatch=dbatch, node_row_dev=node_row,
                        packed_dev=packed, t0=t0_clk, cycle=cycle,
@@ -1102,12 +1228,6 @@ class TorchScheduler:
             fl.cand_levels = self._priority_levels()
             if self._fail_ema.get(profile, 0.0) > 0.25:
                 self._start_cand_fetch(fl, self._candidate_mask(fl))
-        t4 = time.perf_counter()
-        self.phase_wall["snapshot"] += t1 - t0
-        self.phase_wall["compile"] += t_hp - t1
-        self.phase_wall["host_prepare"] += t2 - t_hp
-        self.phase_wall["partition"] += t3 - t2
-        self.phase_wall["device"] += t4 - t3
         return fl
 
     def _carries(self, prevs: Sequence[_InFlight], batch) -> List[PrevBatch]:
@@ -1152,6 +1272,332 @@ class TorchScheduler:
         fl.fetch_thread = threading.Thread(target=_bg_fetch, daemon=True)
         fl.fetch_thread.start()
 
+    def _nominated_bundle(self, nominated):
+        """The nominated pods' (rows, requests) as a K13 bundle on the card,
+        the requests cast f32 → i32 as the reference's reserve_nominated
+        does; None when no row is nominated (all −1 add nothing)."""
+        if not bool((nominated[0] >= 0).any()):
+            return None
+        return (torch.from_numpy(nominated[0]).to(self.device),
+                torch.from_numpy(nominated[1]).to(self.device).to(torch.int32))
+
+    def _extender_cycle(self, infos, batch, fw, profile: str, host_auxes, dsnap, upd,
+                        nominated, t0_clk: float, cycle: int, builds0: int):
+        """The extender path's dispatch (the reference's extender branch of
+        _dispatch_batch, scheduler.py:1672-1795) → (the in-flight record,
+        the callout wall spent here).  The first round rides one program,
+        the reference's ``prepare_packed`` (:1030-1039): the deferred
+        scatter (K16), the nominated reservations (K13), the plugins'
+        prepare at pod rows, ``compute_packed`` (K1 + K2 packed).  The
+        first extender dispatch also runs ``compute_packed``,
+        ``apply_commits`` and ``diagnose_bits`` once (the reference's
+        pre-window warm).  Then the round walk runs here, or on a
+        background thread with ``async_extenders`` (its inputs captured
+        here, on the dispatch thread), which _complete joins."""
+        dsnap = apply_scatter(dsnap, upd)
+        self.encoder.commit_device(dsnap)
+        dyn = apply_prev_delta(initial_dynamic_state(dsnap), (),
+                               nominated=self._nominated_bundle(nominated))
+        dbatch = batch_to_device(batch, self.device)
+        auxes = fw.prepare(dbatch, dsnap, dyn, host_auxes)
+        packed0 = fw.compute_packed(dbatch, dsnap, dyn, auxes)
+        if not self._ext_round_warmed:
+            self._ext_round_warmed = True
+            b = batch.size
+            fw.compute_packed(dbatch, dsnap, dyn, auxes)
+            fw.apply_commits(dbatch, dsnap, dyn, auxes, np.zeros(b, dtype=bool),
+                             np.zeros(b, dtype=np.int32))
+            fw.diagnose_bits(dbatch, dsnap, dyn, auxes)
+        fl = _InFlight(infos=infos, batch=batch, dbatch=dbatch, node_row_dev=None,
+                       packed_dev=None, t0=t0_clk, cycle=cycle,
+                       name_of=dict(self.encoder.row_to_name()), interacts=True,
+                       node_del_gen=self._node_del_gen, has_aff=bool(batch.has_affinity),
+                       builds0=builds0, dsnap=dsnap, dyn=dyn, profile=profile, fw=fw,
+                       engine="extender", auxes=auxes)
+        pods = [qi.pod for qi in infos]
+        if self.async_extenders:
+            captured = self._capture_walk_state()
+
+            def _walk(rec=fl, clk=self.clock):
+                try:
+                    rec.fetched, rec.algo_lat, rec.rounds, _wait = self._assign_with_extenders(
+                        fw, batch, dbatch, dsnap, dyn, auxes, pods, t0_clk,
+                        packed0=packed0, nom=nominated, captured=captured)
+                except Exception as e:  # raised again at _complete: the batch requeues
+                    rec.walk_error = e
+                rec.fetched_at = clk()
+
+            fl.fetch_thread = threading.Thread(target=_walk, daemon=True)
+            fl.fetch_thread.start()
+            return fl, 0.0
+        fl.fetched, fl.algo_lat, fl.rounds, wait = self._assign_with_extenders(
+            fw, batch, dbatch, dsnap, dyn, auxes, pods, t0_clk, packed0=packed0,
+            nom=nominated)
+        fl.fetched_at = self.clock()
+        self.phase_wall["extender_wait"] += wait
+        return fl, wait
+
+    def _capture_walk_state(self):
+        """Everything the extender walk reads of the live scheduler, copied
+        on the dispatch thread before an async walk starts (the reference's
+        _capture_walk_state, scheduler.py:2921): row ↔ name maps, the
+        encoder's allocatable and requested mirrors, and the node objects
+        when an extender is not nodeCacheCapable (it receives manifests)."""
+        name_of = dict(self.encoder.row_to_name())
+        row_of = dict(self.encoder.node_rows)
+        alloc = np.array(self.encoder.allocatable, dtype=np.float64)
+        requested = np.array(self.encoder.requested, dtype=np.float64)
+        node_objs = None
+        if any((e.cfg.filter_verb or e.cfg.prioritize_verb)
+               and not e.cfg.node_cache_capable for e in self.extenders):
+            node_objs = {name: info.node for name, info in self.cache._nodes.items()
+                         if info.node is not None}
+        return name_of, row_of, alloc, requested, node_objs
+
+    def _assign_with_extenders(self, fw, batch, dbatch, dsnap, dyn, auxes, pods,
+                               t0: float, packed0=None, nom=None, captured=None):
+        """The round-based extender assignment (the reference's
+        _assign_with_extenders, scheduler.py:2942-3268;
+        findNodesThatPassExtenders, scheduler.go:1035, and the extender
+        prioritize merge :1146-1185), host code around two device
+        programs: each round one ``compute_packed`` plane (the first came
+        with the dispatch) is fetched; the host walks the unresolved pods
+        in order with their extender callouts; the round's accepts go to
+        the device in one ``apply_commits`` when a later round follows.
+
+        Round-exactness: at most one pod commits a node per round, so
+        node-local filters checked against the round-start state stay
+        valid; a host ledger re-checks the fit with the round's earlier
+        accepts applied and defers a pod that no longer fits; a coupled
+        reader commits only as its conflict component's first accept of
+        the round, and a required-anti-affinity commit closes its
+        component for the round.  An extender sees at most ``k_cap``
+        feasible nodes (``_num_feasible_nodes``), striped over the batch
+        and rotating per round; a pod whose capped windows have not all
+        been seen retries for up to that many rounds without progress.
+
+        ``batch`` is the host PodBatch, ``dbatch`` its device copy.  →
+        (node_row i32[B], each pod's algorithm latency from ``t0`` to its
+        own round's decision, rounds run, callout wall).  The walk reads no
+        live scheduler state: ``captured`` (``_capture_walk_state``, taken
+        on the dispatch thread) carries it, so an async walk is safe while
+        the bind phase and the next sync change the live structures."""
+        b = batch.size
+        out = np.full(b, -1, dtype=np.int32)
+        algo_lat = np.zeros(b)
+        if captured is None:  # a synchronous walk: nothing mutates meanwhile
+            captured = self._capture_walk_state()
+        name_of, row_of, alloc, requested, node_objs = captured
+        requested = np.array(requested)  # the walk's own ledger
+        info = conflict_components(batch.pods, batch.size,
+                                   namespace_labels=self.namespace_labels)
+        cpl = coupling_flags(batch, info=info)
+        reads, solo, cpl_comp, cpl_multi = cpl.reads, cpl.solo, cpl.comp, cpl.multi
+        # per-feasible-set callout fragments: templated pods share mask rows,
+        # so the name list and its JSON build once per distinct row per walk
+        feas_cache: Dict[tuple, tuple] = {}  # (round, window, mask row bytes) → hit
+        names_json_cache: Dict[tuple, bytes] = {}
+
+        def names_bytes(names) -> bytes:
+            key = tuple(names)
+            v = names_json_cache.get(key)
+            if v is None:
+                v = names_json_cache[key] = json.dumps(names).encode()
+            return v
+
+        # a non-nodeCacheCapable extender receives full node manifests
+        # (ExtenderArgs.Nodes, extender.go:416) for both verbs
+        node_manifests = None
+        if node_objs is not None:
+            manifest_cache: Dict[tuple, bytes] = {}
+
+            def node_manifests(names):
+                key = tuple(names)
+                got = manifest_cache.get(key)
+                if got is None:
+                    got = manifest_cache[key] = json.dumps(
+                        [_node_to_dict(node_objs[n]) for n in names if n in node_objs]).encode()
+                return got
+
+        callout_wait = 0.0
+        if nom is not None:
+            nom_rows = np.asarray(nom[0])
+            nom_req = np.asarray(nom[1], dtype=np.float64)
+            rows_ = np.clip(nom_rows, 0, requested.shape[0] - 1)
+            np.add.at(requested, rows_, np.where((nom_rows >= 0)[:, None], nom_req, 0.0))
+        req_pod = np.asarray(batch.request, dtype=np.float64)  # [B, R]
+        valid = np.asarray(batch.valid, dtype=bool)
+        unresolved = [i for i in range(len(pods)) if valid[i]]
+        # the candidate-list bound; the window rotates by k_cap per round
+        # (the reference's nextStartNodeIndex analog)
+        k_cap = _num_feasible_nodes(len(name_of))
+        mode = self.serialize_extender_callouts
+        serialize = mode == "always" or (
+            mode == "auto" and any(getattr(e.cfg, "managed_resources", None)
+                                   for e in self.extenders))
+        no_prog_rounds = 0
+        rounds = 0
+        while unresolved and rounds <= b:
+            rounds += 1
+            plane = packed0 if rounds == 1 and packed0 is not None \
+                else fw.compute_packed(dbatch, dsnap, dyn, auxes)
+            scores = plane.cpu().numpy()
+            mask = np.isfinite(scores)
+            claimed_mask = np.zeros(alloc.shape[0], dtype=bool)
+            n_claimed = 0
+            claimed_comps: Set[int] = set()  # components with a commit this round
+            closed_comps: Set[int] = set()  # components a solo commit closed
+            commit = np.zeros(b, dtype=bool)
+            choice = np.zeros(b, dtype=np.int32)
+            still: List[int] = []
+
+            def window(feas, i):
+                """The candidate sampling: at most k_cap rows, the windows
+                striped across the batch (pods land in ⌈feasible / k_cap⌉
+                groups) and rotating per round → (rows, window count)."""
+                if len(feas) <= k_cap:
+                    return feas, 1
+                n_win = -(-len(feas) // k_cap)
+                start = (((i % n_win) + rounds - 1) * k_cap) % len(feas)
+                idx = (np.arange(k_cap) + start) % len(feas)
+                return feas[idx], n_win
+
+            def callout(i):
+                pod = pods[i]
+                if serialize and n_claimed:
+                    # the serialized cadence: the sent list drops nodes the
+                    # round's earlier accepts filled (per pod, never cached)
+                    feas = np.where(mask[i])[0]
+                    live = np.all((req_pod[i] == 0)
+                                  | (req_pod[i] <= alloc[feas] - requested[feas]), axis=1)
+                    feas, n_win = window(feas[live], i)
+                    row_names = [name_of[r] for r in feas if r in name_of]
+                    row_json = None
+                else:
+                    nfeas = int(np.count_nonzero(mask[i]))
+                    n_win = max(1, -(-nfeas // k_cap))
+                    key = (rounds, i % n_win, mask[i].tobytes())
+                    hit = feas_cache.get(key)
+                    if hit is None:
+                        feas, n_win = window(np.where(mask[i])[0], i)
+                        row_names = [name_of[r] for r in feas if r in name_of]
+                        hit = feas_cache[key] = (feas, row_names,
+                                                 json.dumps(row_names).encode(), n_win)
+                    feas, row_names, row_json, n_win = hit
+                # managed-resources gating (extender.go:444-471)
+                exts = [e for e in self.extenders if e.is_interested(pod)]
+                try:
+                    names, names_json = row_names, row_json
+                    for ext in exts:
+                        names, _failed = ext.filter(pod, names, names_json=names_json,
+                                                    node_manifests=node_manifests)
+                        names_json = None  # a reply list re-encodes (cached)
+                        if not names:
+                            break
+                    ranked_total: Dict[str, float] = {}
+                    echoed = names == row_names
+                    if names:
+                        pr_json = (row_json if echoed and row_json is not None
+                                   else names_bytes(names))
+                        for ext in exts:
+                            try:
+                                for n, sc in ext.prioritize(
+                                        pod, names, names_json=pr_json,
+                                        node_manifests=node_manifests).items():
+                                    ranked_total[n] = ranked_total.get(n, 0.0) + sc
+                            except ExtenderError:
+                                continue  # prioritize errors are ignored (:1152)
+                    # every extender echoed the request list: the approved
+                    # rows are the window's rows
+                    return names, (feas if echoed else None), ranked_total, None, n_win
+                except ExtenderError as e:  # not ignorable: the pod is unschedulable
+                    return None, None, None, e, n_win
+
+            if serialize or len(unresolved) <= 1:
+                results = {}  # filled on demand, in commit order
+            else:
+                t_w = self.clock()
+                results = dict(zip(unresolved, self._ext_pool().map(callout, unresolved)))
+                callout_wait += self.clock() - t_w
+
+            for i in unresolved:
+                # rule (c) per component: a required-anti commit closes the
+                # component's later rows this round
+                if cpl_multi[i] and int(cpl_comp[i]) in closed_comps:
+                    still.append(i)
+                    continue
+                # a reader's row is exact only while no component-mate
+                # committed before it this round
+                if reads[i] and cpl_multi[i] and int(cpl_comp[i]) in claimed_comps:
+                    still.append(i)
+                    continue
+                if i in results:
+                    approved, rows_hint, ranked, err, n_win = results[i]
+                else:
+                    t_w = self.clock()
+                    approved, rows_hint, ranked, err, n_win = callout(i)
+                    callout_wait += self.clock() - t_w
+                if err is not None:
+                    algo_lat[i] = self.clock() - t0
+                    continue
+                if rows_hint is not None:
+                    rows = rows_hint
+                else:
+                    rows = np.fromiter((row_of[n] for n in approved), dtype=np.int64,
+                                       count=len(approved))
+                # the ledger re-check: the round's earlier accepts may have
+                # filled a node (resource dims only — node-local sets are safe
+                # under the one-commit-per-node rule)
+                ok = ~claimed_mask[rows]
+                ok &= np.all((req_pod[i] == 0)
+                             | (req_pod[i] <= alloc[rows] - requested[rows]), axis=1)
+                if not ok.any():
+                    # nothing left this round: retry when others committed or
+                    # a capped window has not been swept, else unschedulable
+                    if n_claimed or still or (n_win > 1 and no_prog_rounds < n_win):
+                        still.append(i)
+                    else:
+                        algo_lat[i] = self.clock() - t0
+                    continue
+                merged = scores[i, rows]
+                if ranked:
+                    merged = merged + np.fromiter((ranked.get(n, 0.0) for n in approved),
+                                                  dtype=np.float64, count=len(approved))
+                merged = np.where(ok, merged, -np.inf)
+                row = int(rows[int(np.argmax(merged))])
+                out[i] = row
+                commit[i] = True
+                choice[i] = row
+                claimed_mask[row] = True
+                n_claimed += 1
+                requested[row] += req_pod[i]
+                algo_lat[i] = self.clock() - t0
+                if cpl_multi[i]:
+                    claimed_comps.add(int(cpl_comp[i]))
+                    if solo[i]:
+                        closed_comps.add(int(cpl_comp[i]))  # rule (c)
+            if commit.any() and still:
+                # the committed state feeds only later rounds
+                dyn, auxes = fw.apply_commits(dbatch, dsnap, dyn, auxes, commit, choice)
+            no_prog_rounds = 0 if n_claimed else no_prog_rounds + 1
+            unresolved = still
+        for i in unresolved:  # pods left at the rounds bound
+            algo_lat[i] = self.clock() - t0
+        return out, algo_lat, rounds, callout_wait
+
+    def _ext_pool(self):
+        """The persistent extender-callout pool (the reference's _ext_pool,
+        scheduler.py:3270): 16 workers, the reference's extender fan-out,
+        kept across rounds and batches with their keep-alive sockets;
+        released by close()."""
+        with self._ext_pool_lock:
+            if self._ext_pool_obj is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._ext_pool_obj = ThreadPoolExecutor(
+                    max_workers=16, thread_name_prefix="extender-callout")
+            return self._ext_pool_obj
+
     def _fused_cycle(self, batch, mode: str, classes, coupling, host_auxes, dsnap, upd,
                      prevs: Sequence[PrevBatch], gang_seg: np.ndarray, nominated, fw):
         """The device half of a dispatch → (node_row i32[B], packed i32[3, B],
@@ -1176,11 +1622,8 @@ class TorchScheduler:
         # for every bundle, into copies: the snapshot stays as the next
         # row-scatter needs it.  No nominated row: no bundle (all rows −1
         # add nothing).
-        nom = None
-        if bool((nominated[0] >= 0).any()):
-            nom = (torch.from_numpy(nominated[0]).to(dev),
-                   torch.from_numpy(nominated[1]).to(dev).to(torch.int32))
-        dyn = apply_prev_delta(initial_dynamic_state(dsnap), prevs, nominated=nom)
+        dyn = apply_prev_delta(initial_dynamic_state(dsnap), prevs,
+                               nominated=self._nominated_bundle(nominated))
         dbatch = batch_to_device(batch, dev)
         b = batch.size
         if classes is not None:
@@ -1203,7 +1646,7 @@ class TorchScheduler:
             # the diagnosis reads the state before the scan (the reference's
             # fused_greedy diagnoses with the pre-scan dyn and auxes)
             plane = fw.planes(dbatch, dsnap, dyn, auxes)[0]
-            res = fw.greedy_assign(dbatch, dsnap, dyn, auxes, np.arange(b))
+            res = fw.greedy_assign(dbatch, dsnap, dyn, auxes, np.arange(b), key=self.rng_key)
         else:
             order = torch.arange(b, dtype=torch.int32, device=dev)
             if classes is not None:
@@ -1211,7 +1654,8 @@ class TorchScheduler:
                 res = fw.batch_assign(dbatch, dsnap, dyn, None, order, coupling,
                                       classes=(class_t, rows, auxes))
             else:
-                res = fw.batch_assign(dbatch, dsnap, dyn, auxes, order, coupling)
+                res = fw.batch_assign(dbatch, dsnap, dyn, auxes, order, coupling,
+                                      key=self.rng_key)
             self.round_read_s += res.host_read_s
             # a dispatched batch holds at least one valid pod, so round 0
             # ran; its bit plane carries the dynamic plugins' bits (K6,
@@ -1269,8 +1713,8 @@ class TorchScheduler:
         """The router's scan→auction upgrade check (the reference's
         _dedup_precheck, scheduler.py:2733): class hooks present, no gang
         members, volumes or resource claims, no pod that could preempt, at
-        most B/2 identity classes."""
-        if not self._class_hooks_ok(fw):
+        most B/2 identity classes, and no tie-noise key."""
+        if self.rng_key is not None or not self._class_hooks_ok(fw):
             return False
         for p in batch.pods:
             if POD_GROUP_LABEL in p.metadata.labels or getattr(p.spec, "volumes", None) \
@@ -1283,17 +1727,19 @@ class TorchScheduler:
 
     def _dedup_classes(self, batch, host_auxes, fw):
         """The identity-class dedup gate (the reference's _dedup_classes,
-        scheduler.py:2596-2677, for a scheduler with no tie noise): →
-        (class_of i32[B], rep_rows i64[Cp], None), or (None, None, reason)
-        when the batch takes the full auction, ``reason`` the label the
-        reference counts it under (``scheduler_dedup_fallback_total``):
-        "class_hook", "preemption", "gang_anchor", "pod_indexed_aux" or
-        "heterogeneous".
+        scheduler.py:2596-2677): → (class_of i32[B], rep_rows i64[Cp],
+        None), or (None, None, reason) when the batch takes the full
+        auction, ``reason`` the label the reference counts it under
+        (``scheduler_dedup_fallback_total``): "rng_key" (per-pod tie noise
+        cannot ride class-shared planes), "class_hook", "preemption",
+        "gang_anchor", "pod_indexed_aux" or "heterogeneous".
         A non-None host aux is admitted when its plugin has a rep view
         (``host_aux_take``: InterPodAffinity's match matrix).  Cp is the
         pow-2 bucket of the class count (floor 4), padded with the first
         rep.  ``fw``: the batch's profile's framework; SelectorSpread's pod-indexed counts have no rep view, so its
         batches take the full auction ("pod_indexed_aux")."""
+        if self.rng_key is not None:
+            return None, None, "rng_key"
         if batch.has_affinity or batch.has_spread:
             if not self._class_hooks_ok(fw):
                 return None, None, "class_hook"
@@ -1404,12 +1850,21 @@ class TorchScheduler:
         if fl.fetch_thread is not None:
             fl.fetch_thread.join()
             fl.fetch_thread = None
-        self.phase_wall["fetch"] += time.perf_counter() - t_f
-        packed = fl.fetched
-        node_row = packed[0].copy()
-        self.carried_pods += fl.carried * int((node_row >= 0).sum())
-        fl.diag = _unpack_diag(packed[1], len(fl.fw.filter_names))
-        self.rounds_total += int(packed[2, 0])
+        if fl.engine == "extender":
+            # the walk's join waits on callouts, not a device fetch; a walk
+            # that died surfaces here (the caller requeues the batch)
+            self.phase_wall["extender_wait"] += time.perf_counter() - t_f
+            if fl.walk_error is not None:
+                raise fl.walk_error
+            node_row = np.array(fl.fetched, dtype=np.int32)
+            self.rounds_total += int(fl.rounds)
+        else:
+            self.phase_wall["fetch"] += time.perf_counter() - t_f
+            packed = fl.fetched
+            node_row = packed[0].copy()
+            self.carried_pods += fl.carried * int((node_row >= 0).sum())
+            fl.diag = _unpack_diag(packed[1], len(fl.fw.filter_names))
+            self.rounds_total += int(packed[2, 0])
         # the background sync reads cache clones; the assumes below write
         # the cache — join it first
         self.join_sync_ahead()
@@ -1485,6 +1940,12 @@ class TorchScheduler:
                                       qi.pod.metadata.name) is not None:
                         self.queue.add_unschedulable(qi, fl.cycle)
             else:
+                if fl.diag is None:
+                    # an extender batch carries no packed diagnosis: one
+                    # diagnose_bits over the dispatch-time state for the
+                    # whole failing batch (the reference's diag_bits)
+                    fl.diag = fw.diagnose_bits(fl.dbatch, fl.dsnap, fl.dyn,
+                                               fl.auxes).cpu().numpy()
                 row_bits = fl.diag[i]
                 if bool(np.all(row_bits)) and self.gangs.is_member(qi.pod):
                     # every filter left the pod a node yet none came back:
@@ -1520,7 +1981,9 @@ class TorchScheduler:
                 else:
                     stats.unschedulable += 1
                     self.queue.add_unschedulable(qi, fl.cycle)
-            attempt = algo + max(self.clock() - t_pod, 0.0)
+            # an extender batch decides each pod at its own round
+            pod_algo = algo if fl.algo_lat is None else float(fl.algo_lat[i])
+            attempt = pod_algo + max(self.clock() - t_pod, 0.0)
             self.attempt_seconds.append(attempt)
             if not held:  # as the reference, a held attempt feeds no tier
                 batch_attempts.append(attempt)
@@ -1668,7 +2131,13 @@ class TorchScheduler:
         nominated: Dict[str, List[v1.Pod]] = {}
         for _uid, (nn, _req, npod) in self._nominated.items():
             nominated.setdefault(nn, []).append(npod)
-        cand = self.preemption.preempt(pod, self.snapshot, names, pdbs, nominated=nominated)
+        try:
+            cand = self.preemption.preempt(pod, self.snapshot, names, pdbs,
+                                           nominated=nominated, extenders=self.extenders)
+        except ExtenderError:
+            # a non-ignorable extender failure aborts this preemption attempt
+            # (preemption.go callExtenders); the pod retries later
+            return None
         if cand is None:
             return None
         for victim in cand.victims:
@@ -1707,6 +2176,10 @@ class TorchScheduler:
         if not _is_plain_preemptor(pod, has_anti):
             return False
         if compute_pod_resource_request(pod).scalar_resources:
+            return False
+        # a preemption-capable extender may veto what the dry run verified
+        if any(getattr(e, "supports_preemption", False) and e.is_interested(pod)
+               for e in self.extenders):
             return False
         # the live cache: the evictions above flowed through the watch
         info = self.cache._nodes.get(cand.node_name)
@@ -1960,12 +2433,16 @@ class TorchScheduler:
         return total
 
     def close(self) -> None:
-        """Stop watching the store and join any background sync, raising its
-        error if it failed.  Batches still in flight stay unbound (drive
-        ``run_until_idle`` first)."""
+        """Stop watching the store, release the extender-callout pool and
+        join any background sync, raising its error if it failed.  Batches
+        still in flight stay unbound (drive ``run_until_idle`` first)."""
         unwatch, self._unwatch = self._unwatch, None
         if unwatch is not None:
             unwatch()
+        with self._ext_pool_lock:
+            pool, self._ext_pool_obj = self._ext_pool_obj, None
+        if pool is not None:
+            pool.shutdown(wait=True)
         self._pop_sync_ahead()
 
 

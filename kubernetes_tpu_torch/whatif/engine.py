@@ -14,7 +14,9 @@ to the live DeviceSnapshot and the scheduler's assignment semantics re-run
 on it: the same engine routing (``engine_choice``: the full auction, never
 the dedup engine, or the exact scan), the nominated pods' reservations
 (K13's nominated bundle), the same gang all-or-nothing mask (K20), the
-same deterministic tie-breaks.  The reference's jitted body
+same tie-breaks: the lowest row, or the scheduler's ``rng_key`` noise (K33)
+in every fork's solve, as the reference passes ``sched.rng_key``
+(engine.py:161, :170).  The reference's jitted body
 (engine.py:370-380) becomes: the fork kernels (K30, and K31 when a fork
 adds nodes), ``initial_dynamic_state`` + the nominated bundle,
 ``fw.prepare``, ``fw.batch_assign`` or ``fw.greedy_assign``, K20.  Its
@@ -161,7 +163,8 @@ class WhatIfEngine:
         else:
             fsnaps = [apply_fork(dsnap, p) for p in payloads]
         # every solve is queued before any result is read back
-        rows_dev = [self._solve(fw, mode, dbatch, fsnap, aux, coupling, nom, seg)
+        rows_dev = [self._solve(fw, mode, dbatch, fsnap, aux, coupling, nom, seg,
+                                sched.rng_key)
                     for fsnap, aux in zip(fsnaps, host_auxes)]
         rows_k = [r.cpu().numpy() for r in rows_dev]
         # the forked snapshots are NEVER committed back to the encoder
@@ -182,17 +185,18 @@ class WhatIfEngine:
         return out
 
     @staticmethod
-    def _solve(fw, mode: str, dbatch, fsnap, host_aux, coupling, nom, seg) -> torch.Tensor:
-        """One fork's solve (the reference's jitted ``body``) → i32[B] node
-        rows on the device."""
+    def _solve(fw, mode: str, dbatch, fsnap, host_aux, coupling, nom, seg,
+               key=None) -> torch.Tensor:
+        """One fork's solve (the reference's jitted ``body``) under the
+        scheduler's tie-noise ``key`` → i32[B] node rows on the device."""
         dyn = apply_prev_delta(initial_dynamic_state(fsnap), (), nominated=nom)
         auxes = fw.prepare(dbatch, fsnap, dyn, host_aux)
         b = dbatch.valid.shape[0]
         if mode == "batch":
             order = torch.arange(b, dtype=torch.int32, device=fsnap.device)
-            res = fw.batch_assign(dbatch, fsnap, dyn, auxes, order, coupling)
+            res = fw.batch_assign(dbatch, fsnap, dyn, auxes, order, coupling, key=key)
         else:
-            res = fw.greedy_assign(dbatch, fsnap, dyn, auxes, np.arange(b))
+            res = fw.greedy_assign(dbatch, fsnap, dyn, auxes, np.arange(b), key=key)
         return gang_all_or_nothing(res.node_row, seg)
 
     # --- fork payload construction -------------------------------------------

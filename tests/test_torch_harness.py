@@ -7,17 +7,22 @@
 * Every other suite of the reference raises NotImplementedError naming
   its ROADMAP item.
 * ``run_workload`` of the port on ``device="cpu"`` at scale 0.02 runs
-  NorthStar, TopologySpreading, SchedulingPodAntiAffinity and
-  SchedulingWithMixedChurn to the end:
+  NorthStar, TopologySpreading, SchedulingPodAntiAffinity,
+  SchedulingWithMixedChurn and SchedulingExtender (its subprocess
+  extender on the path) to the end:
   every measured pod bound, the reference's item names and labels (with
   KernelBuildsInWindow for its XLACompilesInWindow), no kernel built in the
-  window; the default device raises without a card.
+  window; NorthStar runs on a stepped clock (every read 0.1 s after the
+  last), so its micro-bucket policy takes a sub-bucket on any host and the
+  window's batches chain; the default device raises without a card.
 * SchedulingWithMixedChurn at the reference's test scale through both
   harnesses: the churn hook's warm calls and its call before every
   measured cycle give the reference's bindings, churn pods included.
 """
 
 from __future__ import annotations
+
+import time
 
 import pytest
 import torch
@@ -69,10 +74,22 @@ def test_the_other_suites_name_their_roadmap_item():
             tw.build_workload(suite, size)
 
 
+def _stepped_clock(step: float):
+    """A clock that advances ``step`` seconds at every read."""
+    t = [0.0]
+
+    def clock():
+        t[0] += step
+        return t[0]
+
+    return clock
+
+
 @pytest.mark.parametrize("suite,size", [("NorthStar", "5000Nodes/10000Pods"),
                                         ("TopologySpreading", "5000Nodes"),
                                         ("SchedulingPodAntiAffinity", "5000Nodes"),
-                                        ("SchedulingWithMixedChurn", "5000Nodes")])
+                                        ("SchedulingWithMixedChurn", "5000Nodes"),
+                                        ("SchedulingExtender", "500Nodes")])
 def test_run_workload_on_cpu_binds_every_measured_pod(suite, size):
     w = tw.build_workload(suite, size, scale=0.02)
     seen = {}
@@ -88,7 +105,12 @@ def test_run_workload_on_cpu_binds_every_measured_pod(suite, size):
         seen["measured"] = sum(1 for p in pods if p.metadata.name in names)
         seen["tiers"] = dict(sched._tier_p99)
 
-    items = run_workload(w, device="cpu", inspect=inspect)
+    # NorthStar: every attempt spans at least two clock reads, 0.2 s, over
+    # 90% of the 200 ms target at every tier, so the policy takes its
+    # smallest tier whatever the host's speed (the harness passes its clock
+    # to the scheduler)
+    clock = _stepped_clock(0.1) if suite == "NorthStar" else time.perf_counter
+    items = run_workload(w, device="cpu", inspect=inspect, clock=clock)
     assert seen["measured"] == w.ops[-1].count and not seen["unbound"]
     by_metric = {it.labels["Metric"]: it for it in items}
     assert set(by_metric) == {"SchedulingThroughput",

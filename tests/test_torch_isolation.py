@@ -74,6 +74,8 @@ REQUIRED = ("kubernetes_tpu_torch.perf.harness", "kubernetes_tpu_torch.perf.work
             "kubernetes_tpu_torch.config", "kubernetes_tpu_torch.config.componentconfig",
             "kubernetes_tpu_torch.plugins.selectorspread",
             "kubernetes_tpu_torch.kernels.selectorspread", "kubernetes_tpu_torch.ops.fma",
+            "kubernetes_tpu_torch.extender", "kubernetes_tpu_torch.ops.prng",
+            "kubernetes_tpu_torch.kernels.tie_noise",
             "kubernetes_tpu_torch.scheduler")
 
 
@@ -200,4 +202,44 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
                                 torch.tensor([[2.0, 0.0, 5.0]]), torch.tensor([[2.0, 0.0, 9.0]]),
                                 torch.tensor([True, True, False]), 2.0)
     assert got is total and total.tolist() == [[1.0, 201.0, float("-inf")]]
+    # K33: PRNGKey(7)'s split and uniform words (jax.random at jax 0.9,
+    # threefry partitionable), the ×0.5 plane on the masked nodes only, a
+    # step row from a split key
+    from kubernetes_tpu_torch.kernels.tie_noise import tie_plane, tie_row, tie_split
+
+    keys = tie_split((0, 7), 3, "cpu")
+    assert (keys.to(torch.int64) & 0xFFFFFFFF).tolist() == [
+        [3625411723, 1954958720], [195045567, 4062205631], [966301609, 1948237315]]
+    words = [1059885352, 1064927358, 1050349136, 1055084168]
+    u = torch.tensor(words, dtype=torch.int32).view(torch.float32)
+    total = torch.tensor([[3.0, 3.0, float("-inf"), 1.0]])
+    got = tie_plane((0, 7), torch.tensor([[7, 7, 0, 3]], dtype=i32), 7, total)
+    want = (torch.full((2,), 3.0) + 0.5 * u[:2]).tolist()  # float32 adds
+    assert got is total and total.tolist() == [want + [float("-inf"), 1.0]]
+    row = tie_row(keys, 1, 5)
+    assert row.shape == (5,) and bool(((row >= 0) & (row < 1)).all())
+    # K17 keyed: an all −inf row is all ties (the largest noise wins); K2's
+    # packed mode returns the plane alone
+    from kubernetes_tpu_torch.kernels.normalize import CombinePlan, normalize_combine
+    from kubernetes_tpu_torch.kernels.scan import scan_select_assume
+
+    node_row = torch.full((1,), -1, dtype=i32)
+    cnt = torch.zeros(1, dtype=i32)
+    noise = torch.tensor([0.1, 0.9, 0.3])
+    scan_select_assume(torch.zeros((1, 3), dtype=i32), 1,
+                       torch.full((1, 3), float("-inf")), 0, torch.tensor([-1], dtype=i32),
+                       torch.tensor([True]), torch.ones((1, 2), dtype=i32),
+                       torch.ones((1, 2), dtype=i32), torch.zeros((3, 2), dtype=i32),
+                       torch.zeros((3, 2), dtype=i32), node_row, cnt, noise)
+    assert node_row.tolist() == [-1] and cnt.tolist() == [0]
+    scan_select_assume(torch.ones((1, 3), dtype=i32), 1, torch.tensor([[2.0, 5.0, 5.0]]), 0,
+                       torch.tensor([-1], dtype=i32), torch.tensor([True]),
+                       torch.ones((1, 2), dtype=i32), torch.ones((1, 2), dtype=i32),
+                       torch.zeros((3, 2), dtype=i32), torch.zeros((3, 2), dtype=i32),
+                       node_row, cnt, torch.tensor([0.9, 0.2, 0.4]))
+    assert node_row.tolist() == [2] and cnt.tolist() == [3]
+    plan = CombinePlan(kinds=(0,), weights=(2.0,), const_add=1.0)
+    packed = normalize_combine(torch.tensor([[1, 0]], dtype=i32), 1,
+                               torch.tensor([[[3.0, 4.0]]]), plan, packed=True)
+    assert packed.tolist() == [[7.0, float("-inf")]]
     assert all(n == 0 for n in kernels.LAUNCHES.values())

@@ -270,15 +270,21 @@ def test_scope_guard_raises_for_a_batch_too_heterogeneous_to_dedup(monkeypatch):
 
 
 def test_scope_guard_raises_for_pipeline_and_extenders():
-    """pipeline=True is in scope (tests/test_torch_pipeline.py); extenders,
-    pipelined or not, and a depth the fused cycle cannot carry are not."""
+    """pipeline=True is in scope (tests/test_torch_pipeline.py) and so are
+    extenders, pipelined or not (tests/test_torch_extender.py); a depth the
+    fused cycle cannot carry and an unknown extender callout cadence are
+    not."""
     TorchScheduler(TStore(), device="cpu", pipeline=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TorchScheduler(TStore(), device="cpu", pipeline=True, extenders=[object()])
-    with pytest.raises(NotImplementedError):
-        TorchScheduler(TStore(), device="cpu", extenders=[object()])
+    sched = TorchScheduler(TStore(), device="cpu", pipeline=True, extenders=[object()])
+    assert sched.async_extenders and len(sched.extenders) == 1
+    sched = TorchScheduler(TStore(), device="cpu", extenders=[object()])
+    assert not sched.async_extenders
     with pytest.raises(ValueError):
         TorchScheduler(TStore(), device="cpu", pipeline=True, pipeline_depth=0)
+    with pytest.raises(ValueError, match="serialize_extender_callouts"):
+        TorchScheduler(TStore(), device="cpu", serialize_extender_callouts="sometimes")
+    with pytest.raises(ValueError, match="async_extenders"):
+        TorchScheduler(TStore(), device="cpu", async_extenders="yes")
 
 
 def test_scope_guard_raises_for_a_cuda_batch_beyond_one_block():
