@@ -11,7 +11,15 @@ Phases, all of which must pass (any failure exits non-zero):
 2. Kernel-vs-plain: each kernel against its plain torch version on the same
    CUDA tensors, exactly equal.  K1–K4: random and adversarial inputs
    (all-tie rows, −inf rows, floor-boundary values) at N = 8192 and
-   N = 131072.  K5–K8: every domain empty, nodes without the key,
+   N = 131072.  K3 besides over the grid C ∈ {1, 4, 512} × N ∈ {20, 500,
+   5000, 8192, 131072} × K ∈ {1, 20, 64, 384, 512, 1024} (K ≤ N), with a
+   row whose K-th value is tied across hundreds of columns around the
+   middle, bit for bit and one launch a call.  K4 besides on one class
+   with 5% nominated pods (in and out of the list), one class with fewer
+   finite entries than bidders, one class with 30% of the pods resolved
+   and the positions permuted (the closed form must end each), two classes
+   with one list, 400 overlapping classes and N = 131072.  K5–K8: every
+   domain empty, nodes without the key,
    minDomains above the present domains, all raw scores 0, ignored (NaN)
    nodes, five domains with counts 379 and 4927, 3 and 64 domains, one and
    two constraints.  K9–K12: tables and planes, keyless nodes, an
@@ -252,13 +260,20 @@ Phases, all of which must pass (any failure exits non-zero):
    queued behind a spin kernel, named in the row's ``ms_source``; one
    elementwise op is timed both ways as a check),
    beside the plain version's wall and, where one PyTorch call computes the
-   same function (K3: torch.topk; K13: Tensor.index_add_; K16:
+   same function (K3: torch.topk and torch.sort(stable=True); K13:
+   Tensor.index_add_, the dead rows masked inside the timed call; K16:
    Tensor.index_copy per array), that call's time; the least time the card
    could take (the larger of the bytes over 3.35 TB/s and the scalar
-   operations over the 67 TFLOP/s float32 peak) from the inputs.
+   operations over the 67 TFLOP/s float32 peak) from the inputs.  K3 and K4
+   here and at C = 512 (6b) are timed by one method, their libraries too
+   (the queued-events fallback for all of them if any one needs it); K4
+   beside its fixpoint's iterations.  compute_static / compute_row (the
+   extender rounds' programs) at B = 512, N = 8192, held against the same
+   methods with K1, K2 and K23 swapped for their plain versions.
 7. One more NorthStar-shaped, TopologySpreading and
    SchedulingPreferredPodAffinity cycle under torch.profiler: the cycle's
-   wall, device time by kernel, and the device's idle share.
+   wall, device time by kernel, and the device's idle share (K3's and K4's
+   share of the busy time in every profiled cycle).
 
 6b. K17–K19 on the arguments of their latest call on the scan paths (K19
    in both count forms) and K1–K4, K8 and K12 at C = 512 on the full
@@ -269,17 +284,20 @@ Phases, all of which must pass (any failure exits non-zero):
    mask (``index_add_`` + gather).
 6d. K24–K26 on the arguments of their latest call on the
    DeviceClaimGang/5000Nodes synchronous run, timed as in 6; K26 beside
-   ``index_add_`` of the committed pods' demands.
+   ``index_add_`` of the committed pods' demands (the masking inside the
+   timed call, both sides by one method).
 6e. K27 and K28 on the arguments of their latest call on the
    PreemptionBasic/5000Nodes synchronous run, K29 on the dense check's
    inputs (B = 64, N = 8192, P = 32768, 300 priorities), timed as in 6;
    K27 beside ``index_put_(accumulate=True)`` + ``cumsum``, K29 beside the
    dense einsum; K13 with the nominated bundle alone (B2, 512 live rows of
-   a 1024-row cap) beside ``index_add_``.
+   a 1024-row cap) beside ``index_add_`` (the masking inside the timed
+   call, both sides by one method).
 6f. K30 on the arguments of its latest call at the largest fork count on
    the Defrag harness run, K31 on those of its latest at the largest fork
    count on the AutoscaleGang harness run, timed as in 6 (no one PyTorch
-   call computes either).
+   call computes either); the profiled 4-fork evaluate's bound, the sum of
+   its launches' bounds.
 6g. K32 on the arguments of its latest [C, N] call on the profiles path's
    synchronous run, and K1 on those of its latest call under MostAllocated
    and under RequestedToCapacityRatio there, timed as in 6 (no one PyTorch
@@ -414,8 +432,8 @@ def device_ms(fn, kernel: str = None, reps: int = 20, warmup: int = 3) -> float:
     device activities when None), over ``reps`` calls.  Unlike CUDA-event
     timing of back-to-back calls, this excludes the host's launch overhead,
     which for a microsecond kernel is most of the wall.  A profiler session
-    that records no matching device time, or for a named kernel a number of
-    records that is not a whole multiple of ``reps``, is tried twice more;
+    that records no matching device time, or a number of matching records
+    that is not a whole multiple of ``reps``, is tried twice more;
     if none does, the calls are timed queued behind a spin kernel
     (``queued_device_ms``, device time too) and ``MS_SOURCE`` says so."""
     import torch
@@ -439,17 +457,83 @@ def device_ms(fn, kernel: str = None, reps: int = 20, warmup: int = 3) -> float:
                 v = getattr(e, "self_device_time_total", None)
                 total_us += v if v is not None else getattr(e, "self_cuda_time_total", 0)
                 n_events += e.count
-        # a named kernel launches the same number of times in every call: a
-        # session that kept fewer of its records would read low
-        if total_us > 0 and (kernel is None or n_events % reps == 0):
+        # every call launches the same activities: a session that kept fewer
+        # of their records (a whole call's or a named kernel's) would read low
+        if total_us > 0 and n_events % reps == 0:
             return total_us / reps / 1e3
         if total_us > 0:
-            log(f"  the profiler kept {n_events} records of {kernel} over {reps} calls")
+            log(f"  the profiler kept {n_events} records of {kernel or 'the call'} over "
+                f"{reps} calls")
     MS_SOURCE[0] = "queued_events"
     ms = queued_device_ms(fn, reps)
     log(f"  the profiler recorded no whole device time for {kernel or 'the call'} (three "
         f"sessions): {ms:.5f} ms a call queued behind a spin kernel instead")
     return ms
+
+
+def ms_one_method(fn, kernel: str = None, *library_fns) -> tuple:
+    """(the call's device ms, each library call's device ms, the method):
+    ``device_ms`` for all of them, or — when any one of them needs the
+    queued-events fallback — ``queued_device_ms`` for all, so that a kernel
+    and its yardsticks are never timed two ways."""
+    ms = device_ms(fn, kernel)
+    sources = {MS_SOURCE[0]}
+    libs = []
+    for lib in library_fns:
+        libs.append(device_ms(lib))
+        sources.add(MS_SOURCE[0])
+    if sources != {"profiler"}:
+        ms = queued_device_ms(fn)
+        libs = [queued_device_ms(lib) for lib in library_fns]
+    MS_SOURCE[0] = "profiler" if sources == {"profiler"} else "queued_events"
+    return ms, libs, MS_SOURCE[0]
+
+
+def kernel_hit(name: str, symbol: str) -> bool:
+    """Does the profiler's activity ``name`` belong to kernel ``symbol``
+    (a plain or a templated kernel: ``symbol(`` or ``void symbol<...>(``)?"""
+    name = name[5:] if name.startswith("void ") else name
+    return name.startswith(symbol + "(") or name.startswith(symbol + "<")
+
+
+# K3 and K4 at both of their shapes (NorthStar's C = 4 round, the
+# heterogeneous backlog's C = 512 round): label → (the kernel's call, its
+# symbol, its library calls by row key), so that main can time all of them
+# by one method
+ROUND_CALLS = {}
+
+
+def time_round_kernels(rows) -> str:
+    """K3's and K4's rows at both shapes, and their library calls, timed by
+    one method (the profiler, or the queued-events fallback for all of them
+    if any one needs it) → the method."""
+    got = {r["name"]: r for r in rows if r["name"] in ROUND_CALLS}
+    if len(got) != len(ROUND_CALLS):
+        fail(f"K3 / K4 timing: rows {sorted(got)} of {sorted(ROUND_CALLS)}")
+    times, sources = {}, set()
+    for label, (fn, symbol, libs) in ROUND_CALLS.items():
+        times[label] = {"ms": device_ms(fn, symbol)}
+        sources.add(MS_SOURCE[0])
+        for k, f in libs.items():
+            times[label][k] = device_ms(f)
+            sources.add(MS_SOURCE[0])
+    method = "profiler" if sources == {"profiler"} else "queued_events"
+    for label, (fn, symbol, libs) in ROUND_CALLS.items():
+        if method == "queued_events":
+            times[label] = {"ms": queued_device_ms(fn),
+                            **{k: queued_device_ms(f) for k, f in libs.items()}}
+        r = got[label]
+        r.update(times[label])
+        r["ms_source"] = method
+        if "iterations" in r:
+            r["ms_per_iteration"] = r["ms"] / max(r["iterations"], 1)
+    log("K3 / K4 at both shapes, one method (" + method + "): " + "; ".join(
+        f"{label} {got[label]['ms']:.5f} ms"
+        + "".join(f", {k} {got[label][k]:.5f}" for k in ROUND_CALLS[label][2])
+        + (f", {got[label]['iterations']} iterations ({got[label]['prefix_steps']} "
+           "by the prefix form)" if "iterations" in got[label] else "")
+        for label in ROUND_CALLS))
+    return method
 
 
 def nbytes(*tensors) -> int:
@@ -662,7 +746,7 @@ def check_kernels(dev) -> dict:
         normalize_combine,
         normalize_combine_plain,
     )
-    from kubernetes_tpu_torch.kernels.topk import topk_rows, topk_rows_plain
+    from kubernetes_tpu_torch.kernels.topk import topk_rows_plain
     from kubernetes_tpu_torch.plugins.trivial import image_scaled_by_id
 
     gen = torch.Generator().manual_seed(SEED)
@@ -713,11 +797,7 @@ def check_kernels(dev) -> dict:
         ]).to(dev)
         rows = torch.cat([rows, kt], dim=0)
         for k in (512, 1024):
-            kv, ki = topk_rows(rows, k)
-            pv, pi = topk_rows_plain(rows, k)
-            torch.cuda.synchronize()
-            err["topk_rows"] = max(err["topk_rows"], require_equal(
-                f"topk_rows N={n} K={k}", [("values", kv, pv), ("columns", ki, pi)]))
+            err["topk_rows"] = max(err["topk_rows"], topk_equal(f"N={n} K={k}", rows, k))
             cases["topk_rows"] += 1
 
         # K4: identical-pod contention on one class list, mixed classes,
@@ -752,7 +832,176 @@ def check_kernels(dev) -> dict:
             cases["auction_resolve_commit"] += 1
             if mode == "identical" and int(kc.sum()) < 256:
                 fail("auction_resolve_commit: identical pods committed too few")
+    err["topk_rows"] = max(err["topk_rows"], check_topk_grid(dev, cases))
+    err["auction_resolve_commit"] = max(err["auction_resolve_commit"],
+                                        check_auction_cases(dev, gen, cases))
     log(f"kernel-vs-plain: all equal ({json.dumps(cases)})")
+    return err
+
+
+def topk_equal(what: str, rows, k: int) -> float:
+    """K3 on ``rows`` against its plain version, bit for bit (the values'
+    bits too: −0.0 stays −0.0), in one launch."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels.topk import topk_rows, topk_rows_plain
+
+    before = kernels.LAUNCHES["topk_rows"]
+    kv, ki = topk_rows(rows, k)
+    if kernels.LAUNCHES["topk_rows"] - before != 1:
+        fail(f"topk_rows {what}: {kernels.LAUNCHES['topk_rows'] - before} launches, not one")
+    pv, pi = topk_rows_plain(rows, k)
+    torch.cuda.synchronize()
+    return require_equal(f"topk_rows {what}", [
+        ("values", kv, pv), ("columns", ki, pi),
+        ("value bits", kv.view(torch.int32), pv.view(torch.int32))])
+
+
+TOPK_GRID_C = (1, 4, 512)
+TOPK_GRID_N = (20, 500, 5000, 8192, 131072)
+TOPK_GRID_K = (1, 20, 64, 384, 512, 1024)
+
+
+def topk_rows_case(c: int, n: int, k: int, gen, dev):
+    """[C, N] rows for K3's grid: the adversarial rows (all-tie, all −inf,
+    ties with −inf holes, ±0.0, 99.9% −inf, and ties at the K-th value
+    across hundreds of columns around the middle, where a cluster's row
+    splits between two blocks: K/2 larger values scattered, then a run of
+    5.0 over the middle 600 columns) rotated by
+    the case, then random rows of small integers with −inf holes and of
+    normal draws (made on the card)."""
+    import torch
+
+    def tied_kth():
+        row = torch.randint(0, 3, (n,), generator=gen).float()
+        row[torch.randperm(n, generator=gen)[: k // 2]] = 10.0
+        row[max(n // 2 - 300, 0): n // 2 + 300] = 5.0
+        return row
+
+    adv = [
+        torch.full((n,), 300.0),
+        torch.full((n,), float("-inf")),
+        torch.where(torch.rand(n, generator=gen) < 0.5, float("-inf"),
+                    torch.randint(0, 4, (n,), generator=gen).float()),
+        torch.where(torch.rand(n, generator=gen) < 0.5, -0.0, 0.0),
+        torch.where(torch.rand(n, generator=gen) < 0.999, float("-inf"), 7.0),
+        tied_kth(),
+    ]
+    shift = (n + k) % len(adv)
+    adv = adv[shift:] + adv[:shift]
+    rows = torch.stack(adv[:c]).to(dev)
+    if c > len(adv):
+        g = torch.Generator(device=dev).manual_seed(SEED + n + k)
+        m = c - len(adv)
+        ints = torch.randint(0, 50, (m, n), generator=g, device=dev).float()
+        holes = torch.rand((m, n), generator=g, device=dev) < 0.3
+        ints = torch.where(holes, float("-inf"), ints)
+        normal = torch.randn((m, n), generator=g, device=dev)
+        rnd = torch.where((torch.arange(m, device=dev) % 2 == 0)[:, None], ints, normal)
+        rows = torch.cat([rows, rnd])
+    return rows
+
+
+def check_topk_grid(dev, cases: dict) -> float:
+    """K3 over C ∈ TOPK_GRID_C × N ∈ TOPK_GRID_N × K ∈ TOPK_GRID_K (K <= N),
+    bit for bit against its plain version, one launch a call."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    err = 0.0
+    for c in TOPK_GRID_C:
+        for n in TOPK_GRID_N:
+            for k in TOPK_GRID_K:
+                if k > n:
+                    continue
+                rows = topk_rows_case(c, n, k, gen, dev)
+                err = max(err, topk_equal(f"C={c} N={n} K={k}", rows, k))
+                cases["topk_rows"] += 1
+    return err
+
+
+def auction_case(gen, dev, *, n=8192, b=512, k=512, classes=1, nominated=0.0,
+                 resolved=0.0, permuted=True, finite=None, same_list=False, overlap=False):
+    """K4's inputs: ``classes`` candidate lists (the top K of random class
+    rows, as K3 gives them; ``finite``: only that many finite entries a row;
+    ``same_list``: every class the first's row; ``overlap``: one base row
+    plus small per-class noise, so the lists share most nodes, as the
+    heterogeneous backlog's classes do); ``nominated`` of the pods with a
+    nominated row, half of them on a node of their list; ``resolved`` of
+    the pods not unresolved; positions permuted or in order."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels.topk import topk_rows_plain
+
+    if overlap:
+        base = torch.randint(0, 100, (n,), generator=gen).float()
+        vals = base + torch.randint(0, 3, (classes, n), generator=gen).float()
+    else:
+        vals = torch.randint(0, 20, (classes, n), generator=gen).float()
+    vals[torch.rand(classes, n, generator=gen) < 0.1] = float("-inf")
+    if finite is not None:
+        vals[:, finite:] = float("-inf")
+    if same_list:
+        vals[1:] = vals[0]
+    cand_val, cand_idx = topk_rows_plain(vals, k)
+    class_of = torch.randint(0, classes, (b,), generator=gen)
+    unres = torch.rand(b, generator=gen) >= resolved
+    nom_ok = torch.rand(b, generator=gen) < nominated
+    in_list = cand_idx[class_of, torch.randint(0, k, (b,), generator=gen)].long()
+    nom = torch.where(torch.rand(b, generator=gen) < 0.5, in_list,
+                      torch.randint(0, n, (b,), generator=gen))
+    pos_of = torch.randperm(b, generator=gen) if permuted else torch.arange(b)
+    request = torch.randint(1, 500, (b, 8), generator=gen, dtype=torch.int32)
+    pod_nz = request[:, :2].clone()
+    requested = torch.randint(0, 1 << 20, (n, 8), generator=gen, dtype=torch.int32)
+    node_nz = requested[:, :2].clone()
+    args = [t.to(dev) for t in (cand_val, cand_idx, class_of, pos_of, unres, nom, nom_ok,
+                                request, pod_nz)]
+    return args, requested.to(dev), node_nz.to(dev)
+
+
+# K4's phase-2 cases: name → (auction_case keywords, must the one-class
+# closed form end the fixpoint within four iterations)
+AUCTION_CASES = {
+    "one class, 5% nominated": (dict(nominated=0.05), True),
+    "one class, fewer finite entries than bidders": (dict(finite=300), True),
+    "one class, 30% resolved, permuted": (dict(resolved=0.3), True),
+    "two classes, one list": (dict(classes=2, same_list=True), None),
+    "400 overlapping classes": (dict(classes=400, overlap=True, nominated=0.05,
+                                     resolved=0.1), None),
+    "N = 131072": (dict(n=131072, classes=8, nominated=0.1, resolved=0.1), None),
+    "N = 131072, one class": (dict(n=131072), True),
+}
+
+
+def check_auction_cases(dev, gen, cases: dict) -> float:
+    """K4 on AUCTION_CASES against its plain version: commit, choice,
+    requested and non_zero equal; the closed form ends the one-class cases."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels.auction import (
+        auction_resolve_commit,
+        auction_resolve_commit_plain,
+    )
+
+    err = 0.0
+    for name, (kw, closed) in AUCTION_CASES.items():
+        args, req, nz = auction_case(gen, dev, **kw)
+        kreq, knz = req.clone(), nz.clone()
+        kc, kch, iters = auction_resolve_commit(*args, kreq, knz, count_iters=True)
+        pc, pch = auction_resolve_commit_plain(*args, req, nz)
+        torch.cuda.synchronize()
+        err = max(err, require_equal(f"auction_resolve_commit ({name})", [
+            ("commit", kc, pc), ("choice", kch, pch), ("requested", kreq, req),
+            ("non_zero", knz, nz)]))
+        it, steps = iters.tolist()
+        if closed and not (steps >= 1 and it <= 4):
+            fail(f"auction_resolve_commit ({name}): the closed form did not end the "
+                 f"fixpoint ({it} iterations, {steps} by the prefix form)")
+        log(f"  auction_resolve_commit ({name}): {int(kc.sum())} commits, {it} iterations, "
+            f"{steps} by the prefix form")
+        cases["auction_resolve_commit"] += 1
     return err
 
 
@@ -1788,13 +2037,14 @@ def time_pipeline_kernels(last_calls: dict, err: dict) -> list:
     def row(name, src, replaces, symbol, fn, plain_fn, n_bytes, n_ops, shape,
             library_fn=None):
         least, bound_by = bound_ms(n_bytes, n_ops)
+        ms, libs, source = ms_one_method(fn, symbol, *([library_fn] if library_fn else []))
         rows_out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": None, "max_abs_err": err[name],
-            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
+            "ms": ms, "ms_source": source, "call_ms": time_ms(fn),
             "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
             "bound_ms": least, "bound_by": bound_by,
-            "library_ms": device_ms(library_fn) if library_fn else None,
+            "library_ms": libs[0] if libs else None,
             "bytes": n_bytes, "ops": n_ops, "shape": shape})
 
     def last(key):
@@ -2568,10 +2818,11 @@ def time_kernels(sched, err: dict) -> list:
     pv, pi = topk_rows_plain(total, k)
     err["topk_rows"] = max(err["topk_rows"], require_equal(
         "topk_rows (NorthStar)", [("values", cv, pv), ("columns", ci, pi)]))
-    class_t = torch.from_numpy(class_of.astype(np.int64)).to(dev)
-    pos_of = torch.arange(b, device=dev)
+    # int32 index inputs, as the engine passes them (no conversion in the call)
+    class_t = torch.from_numpy(class_of.astype(np.int32)).to(dev)
+    pos_of = torch.arange(b, dtype=torch.int32, device=dev)
     unres = dbatch.valid.clone()
-    nom = torch.zeros(b, dtype=torch.long, device=dev)
+    nom = torch.zeros(b, dtype=torch.int32, device=dev)
     nom_ok = torch.zeros(b, dtype=torch.bool, device=dev)
     a_args = (cv, ci, class_t, pos_of, unres, nom, nom_ok, dbatch.request, dbatch.non_zero)
     kreq, knz = dyn.requested.clone(), dyn.non_zero.clone()
@@ -2595,13 +2846,14 @@ def time_kernels(sched, err: dict) -> list:
         events: its host launches and syncs are part of its cost);
         library_ms: the library call's device time per call."""
         least, bound_by = bound_ms(n_bytes, n_ops)
+        ms, libs, source = ms_one_method(fn, symbol, *([library_fn] if library_fn else []))
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": None, "max_abs_err": err[name],
-            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
+            "ms": ms, "ms_source": source, "call_ms": time_ms(fn),
             "plain_ms": time_ms(plain_fn, reps=plain_reps, warmup=1),
             "bound_ms": least, "bound_by": bound_by,
-            "library_ms": device_ms(library_fn) if library_fn else None,
+            "library_ms": libs[0] if libs else None,
             "bytes": n_bytes, "ops": n_ops, "shape": {"C": c, "N": n, "B": b, "K": k},
         })
 
@@ -2619,11 +2871,13 @@ def time_kernels(sched, err: dict) -> list:
         nbytes(bits, raw, total, feas), c * n * raw.shape[0] * 4)
     # a selection compares every entry at least once
     row("topk_rows", "kubernetes_tpu_torch/csrc/topk_rows.cu",
-        "kubernetes_tpu/framework/runtime.py:875", "topk_pass_kernel",
+        "kubernetes_tpu/framework/runtime.py:875", "topk_select_kernel",
         lambda: topk_rows(total, k), lambda: topk_rows_plain(total, k),
         nbytes(total) + c * k * 8, c * n, library_fn=lambda: torch.topk(total, k, dim=1))
-    rows[-1]["library_sort_ms"] = device_ms(
-        lambda: torch.sort(total, dim=1, descending=True, stable=True))
+    ROUND_CALLS["topk_rows"] = (
+        lambda: topk_rows(total, k), "topk_select_kernel",
+        {"library_ms": lambda: torch.topk(total, k, dim=1),
+         "library_sort_ms": lambda: torch.sort(total, dim=1, descending=True, stable=True)})
     # K4 reads its index inputs as int32 and writes only the committed rows
     # of requested / non_zero; each commit takes at least one bid, one
     # resolve and its R + 2 adds
@@ -2635,7 +2889,129 @@ def time_kernels(sched, err: dict) -> list:
         lambda: auction_resolve_commit(*a_args, work_req, work_nz),
         lambda: auction_resolve_commit_plain(*a_args, work_req, work_nz),
         k4_bytes, commits * (r + 4), plain_reps=3)
+    rows[-1].update(auction_iterations(a_args, dyn.requested, dyn.non_zero))
+    ROUND_CALLS["auction_resolve_commit"] = (
+        lambda: auction_resolve_commit(*a_args, work_req, work_nz), "auction_kernel", {})
     return rows
+
+
+def auction_iterations(args, requested, node_nz) -> dict:
+    """K4's fixpoint iterations on these inputs (its ``iters`` output, read
+    here only) and how many were steps of the closed form's prefix form."""
+    from kubernetes_tpu_torch.kernels.auction import auction_resolve_commit
+
+    _c, _ch, iters = auction_resolve_commit(*args, requested.clone(), node_nz.clone(),
+                                            count_iters=True)
+    it, steps = iters.tolist()
+    return {"iterations": it, "prefix_steps": steps}
+
+
+def time_extender_programs(sched, err: dict) -> list:
+    """compute_static and compute_row (the reference's runtime.py:259,
+    274; the extender rounds' programs, which no path of the port calls)
+    once each at B = 512, N = 8192 (the extender path's shape) on the
+    NorthStar snapshot, held against the same methods with K1, K2 and K23
+    swapped for their plain versions (``plain_kernels``), timed as in 6
+    (device time of the whole call).  Bound: compute_static is K1 at C = B
+    plus the mask written; compute_row K1 and K2 on one row."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.framework.interface import DynamicState
+    from kubernetes_tpu_torch.framework.podbatch import batch_to_device
+    from kubernetes_tpu_torch.kernels.filter_score import filter_score_planes, pod_row
+    from kubernetes_tpu_torch.testutil import make_pod
+
+    snap = sched.encoder.to_device(force_full=True)
+    pods = [make_pod().name(f"x{i}").uid(f"x{i}").namespace("default")
+            .req({"cpu": "100m", "memory": "500Mi"}).obj() for i in range(512)]
+    batch = sched.compiler.compile(pods, pad_to=512)
+    dyn = DynamicState(requested=snap.requested.clone(),
+                       non_zero=snap.non_zero_requested.clone())
+    fw = sched._framework()
+    dbatch = batch_to_device(batch, sched.device)
+    got = fw.compute_static(dbatch, snap, dyn)
+    with plain_kernels():
+        want = fw.compute_static(dbatch, snap, dyn)
+    torch.cuda.synchronize()
+    err["compute_static"] = require_equal("compute_static (B = 512)", [
+        ("static_mask", got[0], want[0])] + [
+        (f"static_raw[{i}]", a, b_) for i, (a, b_) in enumerate(zip(got[1], want[1]))])
+    mask, raw = got
+    i = int(np.flatnonzero(batch.valid)[-1])
+    row_got = fw.compute_row(dbatch, snap, dyn, None, mask, raw, i)
+    with plain_kernels():
+        row_want = fw.compute_row(dbatch, snap, dyn, None, mask, raw, i)
+    torch.cuda.synchronize()
+    err["compute_row"] = require_equal("compute_row (one row)", [
+        ("row_mask", row_got[0], row_want[0]), ("total", row_got[1], row_want[1])])
+    static = fw.static_inputs(dbatch, snap, dyn)
+    fs_plan, _ = fw.kernel_plans(frozenset())
+    bits, raw5 = filter_score_planes(dbatch, snap, dyn, *static, fs_plan)
+    k1_b, k1_o = k1_work(dbatch, snap, dyn, *static, bits, raw5)
+    one = pod_row(dbatch, i)
+    rbits, rraw = filter_score_planes(one, snap, dyn, static[0][i:i + 1],
+                                      static[1][i:i + 1], static[2], fs_plan)
+    r1_b, r1_o = k1_work(one, snap, dyn, static[0][i:i + 1], static[1][i:i + 1],
+                         static[2], rbits, rraw)
+    b, n = mask.shape
+    out = []
+    for name, fn, plain, n_bytes, n_ops in (
+            ("compute_static", lambda: fw.compute_static(dbatch, snap, dyn),
+             lambda: plain_call(fw.compute_static, dbatch, snap, dyn),
+             k1_b + b * n, k1_o),
+            # K2 on the row: the bits and the raw planes read where feasible,
+            # the total written
+            ("compute_row", lambda: fw.compute_row(dbatch, snap, dyn, None, mask, raw, i),
+             lambda: plain_call(fw.compute_row, dbatch, snap, dyn, None, mask, raw, i),
+             r1_b + 4 * n * (1 + rraw.shape[0]) + 4 * n, r1_o + 4 * n * rraw.shape[0])):
+        least, bound_by = bound_ms(n_bytes, n_ops)
+        out.append({
+            "name": name, "route": "cuda", "source": "kubernetes_tpu_torch/framework/runtime.py",
+            "replaces": "kubernetes_tpu/framework/runtime.py:"
+                        + ("259" if name == "compute_static" else "274"),
+            "launches": 0, "max_abs_err": err[name], "ms": device_ms(fn),
+            "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
+            "plain_ms": time_ms(plain, reps=5, warmup=1), "bound_ms": least,
+            "bound_by": bound_by, "library_ms": None, "bytes": n_bytes, "ops": n_ops,
+            "shape": {"B": b, "N": n, "row": i if name == "compute_row" else None}})
+        log(f"  {name}: {out[-1]['ms']:.5f} ms device ({out[-1]['ms_source']}), bound "
+            f"{least:.7f} ms ({bound_by}), plain {out[-1]['plain_ms']:.4f} ms")
+    return out
+
+
+PLAIN_SWAPS = (
+    ("kubernetes_tpu_torch.framework.runtime", "filter_score_planes",
+     "kubernetes_tpu_torch.kernels.filter_score", "filter_score_planes_plain"),
+    ("kubernetes_tpu_torch.framework.runtime", "normalize_combine",
+     "kubernetes_tpu_torch.kernels.normalize", "normalize_combine_plain"),
+    ("kubernetes_tpu_torch.state.selectors", "selector_match",
+     "kubernetes_tpu_torch.kernels.selectors", "selector_match_plain"),
+)
+
+
+class plain_kernels:
+    """For the ``with`` block the runtime's K1 and K2 and the selectors'
+    K23 are their plain versions (the same call sites, on the card)."""
+
+    def __enter__(self):
+        import importlib
+
+        self._saved = []
+        for mod_name, attr, plain_mod, plain_attr in PLAIN_SWAPS:
+            mod = importlib.import_module(mod_name)
+            self._saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, getattr(importlib.import_module(plain_mod), plain_attr))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def plain_call(fn, *args):
+    with plain_kernels():
+        return fn(*args)
 
 
 def k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw):
@@ -3473,13 +3849,15 @@ def time_gang_kernels(last_calls: dict, err: dict) -> list:
 
     def row(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None):
         least, bound_by = bound_ms(n_bytes, n_ops)
+        ms, libs, source = ms_one_method(fn, GANG_SYMBOLS[name],
+                                         *([library_fn] if library_fn else []))
         rows_out.append({
             "name": name, "route": "cuda", "source": GANG_SOURCES[name],
             "replaces": GANG_REPLACES[name], "launches": None, "max_abs_err": err[name],
-            "ms": device_ms(fn, GANG_SYMBOLS[name]), "ms_source": MS_SOURCE[0],
+            "ms": ms, "ms_source": source,
             "call_ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
             "bound_ms": least, "bound_by": bound_by,
-            "library_ms": device_ms(library_fn) if library_fn else None,
+            "library_ms": libs[0] if libs else None,
             "bytes": n_bytes, "ops": n_ops, "shape": shape})
 
     # K20: node_row and gang_seg read, the rows written
@@ -3913,13 +4291,15 @@ def time_dra_kernels(last_calls: dict, err: dict) -> list:
 
     def row(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None):
         least, bound_by = bound_ms(n_bytes, n_ops)
+        ms, libs, source = ms_one_method(fn, DRA_SYMBOLS[name],
+                                         *([library_fn] if library_fn else []))
         rows_out.append({
             "name": name, "route": "cuda", "source": DRA_SOURCE,
             "replaces": DRA_REPLACES[name], "launches": None, "max_abs_err": err[name],
-            "ms": device_ms(fn, DRA_SYMBOLS[name]), "ms_source": MS_SOURCE[0],
+            "ms": ms, "ms_source": source,
             "call_ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
             "bound_ms": least, "bound_by": bound_by,
-            "library_ms": device_ms(library_fn) if library_fn else None,
+            "library_ms": libs[0] if libs else None,
             "bytes": n_bytes, "ops": n_ops, "shape": shape})
 
     # K24: demand / pinned / blocked and free read once, the failing
@@ -3963,7 +4343,8 @@ def time_dra_kernels(last_calls: dict, err: dict) -> list:
 
     # K26: commit, choice and demand read once, each committed pod's node
     # read and written; one subtraction a commit.  Library: index_add_ of
-    # the committed pods' demands (the same function on the same inputs)
+    # the committed pods' demands, the dead rows masked inside the timed
+    # call (the same function on the kernel's inputs)
     (free3, choice, demand3), kw = last("dra_take")
     commit, class_of = kw.get("commit"), kw.get("class_of")
     base = free3.clone()
@@ -3972,20 +4353,26 @@ def time_dra_kernels(last_calls: dict, err: dict) -> list:
     err["dra_take"] = max(err["dra_take"], require_equal(
         "dra_take (path shapes)", [("free", got, want)]))
     b = choice.numel()
-    taken = commit if commit is not None else choice >= 0
-    n_commit = int(taken.sum())
-    idx = choice.long()[taken]
-    rows_ = torch.arange(b, device=choice.device) if class_of is None else class_of.long()
-    neg = -demand3[rows_][taken]
+    n_commit = int((commit if commit is not None else choice >= 0).sum())
     work = base.clone()
     lib = base.clone()
+    n_free = free3.shape[0]
+
+    def library_take():
+        ch = choice.reshape(-1).long()
+        take = (ch >= 0) & (ch < n_free)
+        if commit is not None:
+            take = take & commit.reshape(-1)
+        d = demand3.reshape(-1)
+        d = d if class_of is None else d[class_of.long()]
+        return lib.index_add_(0, torch.where(take, ch, 0), torch.where(take, -d, 0))
     row("dra_take", lambda: KR.dra_take(work, choice, demand3, commit=commit,
                                         class_of=class_of),
         lambda: KR.dra_take_plain(base.clone(), choice, demand3, commit=commit,
                                   class_of=class_of),
         b * (1 + 4 + 4) + 8 * n_commit, n_commit,
         {"B": b, "N": free3.numel(), "commits": n_commit},
-        library_fn=lambda: lib.index_add_(0, idx, neg))
+        library_fn=library_take)
     for rr in rows_out:
         log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
             f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
@@ -4421,22 +4808,26 @@ def time_nominated_bundle(dev) -> dict:
     torch.cuda.synchronize()
     err = require_equal("prev_delta_apply (nominated bundle alone)",
                         [("requested", got[0], want[0]), ("non_zero", got[1], want[1])])
-    live = bundle[0][0] >= 0
-    at, add = bundle[0][0][live].long(), bundle[0][1][live]
     lib = req.clone()
+
+    def library_add():
+        # reserve_nominated's adds from the bundle as given: the dead rows
+        # (−1) masked inside the timed call
+        at, add = bundle[0][0], bundle[0][1]
+        live = (at >= 0)[:, None]
+        return lib.index_add_(0, at.long().clamp(0, n - 1), torch.where(live, add, 0))
     # what reserve_nominated needs: each bundle row's node row and requests
     # read once, the touched requested rows read and written (the wrapper's
     # copies of the arrays and the bundle's zero nz rows are not the function)
     n_bytes = k * (4 + 4 * r) + 2 * 512 * r * 4
     least, bound_by = bound_ms(n_bytes, 512 * r)
-    rec = {"max_abs_err": err, "ms": device_ms(lambda: prev_delta_apply(req, nz, bundle),
-                                               "prev_delta_kernel"),
-           "ms_source": MS_SOURCE[0], "call_ms": time_ms(lambda: prev_delta_apply(req, nz,
-                                                                                  bundle)),
+    ms, (lib_ms,), source = ms_one_method(lambda: prev_delta_apply(req, nz, bundle),
+                                          "prev_delta_kernel", library_add)
+    rec = {"max_abs_err": err, "ms": ms, "ms_source": source,
+           "call_ms": time_ms(lambda: prev_delta_apply(req, nz, bundle)),
            "plain_ms": time_ms(lambda: prev_delta_apply_plain(req, nz, bundle), reps=5,
                                warmup=1),
-           "bound_ms": least, "bound_by": bound_by,
-           "library_ms": device_ms(lambda: lib.index_add_(0, at, add)),
+           "bound_ms": least, "bound_by": bound_by, "library_ms": lib_ms,
            "shape": {"N": n, "R": r, "rows": k, "live": 512}}
     log(f"  prev_delta_apply, the nominated bundle alone: {rec['ms']:.5f} ms device "
         f"({rec['ms_source']}), bound {least:.7f} ms ({bound_by}), plain "
@@ -4470,10 +4861,12 @@ def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) ->
 
     def measure(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None):
         least, bound_by = bound_ms(n_bytes, n_ops)
-        return {"ms": device_ms(fn, PREEMPT_SYMBOLS[name]), "ms_source": MS_SOURCE[0],
+        ms, libs, source = ms_one_method(fn, PREEMPT_SYMBOLS[name],
+                                         *([library_fn] if library_fn else []))
+        return {"ms": ms, "ms_source": source,
                 "call_ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
                 "bound_ms": least, "bound_by": bound_by,
-                "library_ms": device_ms(library_fn) if library_fn else None,
+                "library_ms": libs[0] if libs else None,
                 "bytes": n_bytes, "ops": n_ops, "shape": shape}
 
     def row(name, *args, **kw):
@@ -4861,14 +5254,19 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from kubernetes_tpu_torch import kernels
+
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     engine.evaluate(pending, forks)  # warm the batch shape
     torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
     with profile(activities=acts) as prof:
         t = time.perf_counter()
         preds = engine.evaluate(pending, forks)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    launched = {k_: v - before.get(k_, 0) for k_, v in kernels.LAUNCHES.items()
+                if v != before.get(k_, 0)}
     if preds is None:
         fail("profiled evaluate: the engine refused")
 
@@ -4885,12 +5283,50 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
     lines += [f"{ms:10.4f} {cnt:6d}  {name}" for ms, cnt, name in top]
     (out_dir / fname).write_text("\n".join(lines) + "\n")
     rec = {"forks": len(forks), "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "launches": launched,
            "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
            "placed": [p.placed for p in preds], "top": [[ms, c, n] for ms, c, n in top[:12]]}
     log(f"profiled evaluate ({len(forks)} forks): wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.3f} ms" + (f" (idle share {rec['device_idle_share']:.4f})" if busy_ms
                                else " (the profiler recorded no device time: not measured)"))
     return rec
+
+
+def step2_order(rows: list) -> list:
+    """The port's order for redesigning kernels: first those slower than
+    the one PyTorch call that computes the same function (largest factor
+    first), then the rest by launches × (time − bound) on the path that
+    carries them."""
+    slower = sorted((r for r in rows if r["library_ms"] and r["ms"] > r["library_ms"]),
+                    key=lambda r: r["ms"] / r["library_ms"], reverse=True)
+    rest = sorted((r for r in rows if r not in slower),
+                  key=lambda r: (r["launches"] or 0) * (r["ms"] - r["bound_ms"]), reverse=True)
+    out = [{"name": r["name"], "ms": r["ms"], "library_ms": r["library_ms"],
+            "factor": r["ms"] / r["library_ms"]} for r in slower]
+    out += [{"name": r["name"], "ms": r["ms"], "bound_ms": r["bound_ms"],
+             "launches": r["launches"],
+             "loss_ms": (r["launches"] or 0) * (r["ms"] - r["bound_ms"])} for r in rest]
+    log("step-2 order: " + "; ".join(
+        f"{o['name']} " + (f"{o['factor']:.2f}x its library call" if "factor" in o
+                           else f"{o['loss_ms']:.3f} ms lost ({o['launches']} launches)")
+        for o in out[:6]))
+    return out
+
+
+def kfork_bound(evaluate: dict, rows: list, row_bounds: dict) -> dict:
+    """The profiled K-fork evaluate's bound: the sum over its launches of
+    each kernel's least time a launch — K1 and K2 on one pod's row (the scan's
+    step, ``row_bounds``), every other kernel at its timing row's shape."""
+    per = {r["name"]: r["bound_ms"] / 1.0 for r in rows}
+    per.update({k_: v["bound_ms"] for k_, v in row_bounds.items()})
+    terms = {k_: n * per[k_] for k_, n in evaluate["launches"].items() if k_ in per}
+    missing = sorted(k_ for k_ in evaluate["launches"] if k_ not in per)
+    out = {"bound_ms": sum(terms.values()), "terms_ms": terms, "launches":
+           evaluate["launches"], "no_row": missing, "device_busy_ms": evaluate["device_busy_ms"]}
+    log(f"K-fork evaluate ({evaluate['forks']} forks): bound {out['bound_ms']:.5f} ms, the sum "
+        f"of its launches' bounds ({evaluate['launches']}); on the card "
+        f"{evaluate['device_busy_ms']:.3f} ms" + (f"; no bound for {missing}" if missing else ""))
+    return out
 
 
 def _controller_harness(suite: str, out_dir: Path, dev_name: str, inspect_more,
@@ -5655,6 +6091,21 @@ def time_profile_kernels(last_calls: dict, waves: dict, err: dict) -> list:
     return rows_out
 
 
+ROUND_SYMBOLS = {"topk_rows": "topk_select_kernel", "auction_resolve_commit": "auction_kernel"}
+
+
+def round_kernel_share(top, busy_ms: float) -> dict:
+    """K3's and K4's device ms, launches and share of the busy time in a
+    profiled window (``top``: (ms, count, name) by activity)."""
+    out = {}
+    for k_, sym in ROUND_SYMBOLS.items():
+        hits = [(ms, cnt) for ms, cnt, name in top if kernel_hit(name, sym)]
+        ms = sum(m for m, _ in hits)
+        out[k_] = {"ms": ms, "count": sum(c_ for _, c_ in hits),
+                   "share": ms / busy_ms if busy_ms else None}
+    return out
+
+
 def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str,
                   n_pods: int = 512) -> dict:
     """One more cycle of ``n_pods`` pods from ``make_pod(i)`` on ``sched``'s
@@ -5696,11 +6147,15 @@ def profile_cycle(sched, out_dir: Path, what: str, make_pod, fname: str,
     (out_dir / fname).write_text("\n".join(lines) + "\n")
     rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "rounds": rounds,
            "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
-           "top": [[ms, cnt, name] for ms, cnt, name in top[:12]]}
+           "top": [[ms, cnt, name] for ms, cnt, name in top[:12]],
+           "round_kernels": round_kernel_share(top, busy_ms)}
     if busy_ms:
         log(f"profiled {what} cycle ({rounds} rounds): wall {wall_ms:.2f} ms, device busy "
             f"{busy_ms:.3f} ms (idle share {rec['device_idle_share']:.4f}); top: "
-            + "; ".join(f"{name[:40]} {ms:.3f} ms" for ms, _, name in top[:6]))
+            + "; ".join(f"{name[:40]} {ms:.3f} ms" for ms, _, name in top[:6])
+            + "; K3 / K4: " + ", ".join(
+                f"{k_} {v['ms']:.4f} ms x {v['count']} ({v['share']:.3f} of busy)"
+                for k_, v in rec["round_kernels"].items()))
     else:
         log(f"profiled {what} cycle: the profiler recorded no device time (not measured)")
     return rec
@@ -6173,13 +6628,14 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
     def row(name, label, src, replaces, symbol, fn, plain_fn, n_bytes, n_ops, shape,
             max_err, library_fn=None):
         least, bound_by = bound_ms(n_bytes, n_ops)
+        ms, libs, source = ms_one_method(fn, symbol, *([library_fn] if library_fn else []))
         rows.append({
             "name": label, "kernel": name, "symbol": symbol, "route": "cuda", "source": src,
             "replaces": replaces, "launches": None, "max_abs_err": max_err,
-            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
+            "ms": ms, "ms_source": source, "call_ms": time_ms(fn),
             "plain_ms": time_ms(plain_fn, reps=5, warmup=1), "bound_ms": least,
             "bound_by": bound_by,
-            "library_ms": device_ms(library_fn) if library_fn else None,
+            "library_ms": libs[0] if libs else None,
             "bytes": n_bytes, "ops": n_ops, "shape": shape})
 
     # K17: pod i's bit and total rows read once, its nominated row, valid
@@ -6294,10 +6750,14 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
         reuse_err["normalize_combine"])
     (eff, k), _ = full_args["topk_rows"]
     row("topk_rows", "topk_rows (C = 512)", "kubernetes_tpu_torch/csrc/topk_rows.cu",
-        "kubernetes_tpu/framework/runtime.py:571", "topk_pass_kernel",
+        "kubernetes_tpu/framework/runtime.py:571", "topk_select_kernel",
         lambda: topk_rows(eff, k), lambda: topk_rows_plain(eff, k),
         nbytes(eff) + c * k * 8, c * n, dict(shape, K=k), reuse_err["topk_rows"],
         library_fn=lambda: torch.topk(eff, k, dim=1))
+    ROUND_CALLS["topk_rows (C = 512)"] = (
+        lambda: topk_rows(eff, k), "topk_select_kernel",
+        {"library_ms": lambda: torch.topk(eff, k, dim=1),
+         "library_sort_ms": lambda: torch.sort(eff, dim=1, descending=True, stable=True)})
     a4, _ = full_args["auction_resolve_commit"]
     kreq, knz = a4[9].clone(), a4[10].clone()
     kc, _kch = auction_resolve_commit(*a4[:9], kreq, knz)
@@ -6314,6 +6774,10 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
         lambda: auction_resolve_commit_plain(*a4[:9], a4[9].clone(), a4[10].clone()),
         k4_bytes, commits * (rr + 4), dict(shape, commits=commits),
         reuse_err["auction_resolve_commit"])
+    rows[-1].update(auction_iterations(a4[:9], a4[9], a4[10]))
+    w_req, w_nz = a4[9].clone(), a4[10].clone()
+    ROUND_CALLS["auction_resolve_commit (C = 512)"] = (
+        lambda: auction_resolve_commit(*a4[:9], w_req, w_nz), "auction_kernel", {})
 
     # K12 at C = 512 on SchedulingPodAntiAffinity's latest full-auction round
     (aux, commit, choice, class_t), _ = full_args["ipa_update_classes"]
@@ -7447,6 +7911,8 @@ def main() -> None:
     full_args["spread_update_classes"] = \
         recorders["TopologySpreading priority 10, full auction"].last["spread_update_classes"]
     engine_rows = time_engine_kernels(scan_args, full_args, err, reuse_err, dev)
+    record["round_kernels_method"] = time_round_kernels(rows + engine_rows)
+    record["extender_programs"] = time_extender_programs(ns["sched"], err)
     record["b9_row_bounds"] = b9_row_bounds(
         recorders["TopologySpreading scan"].last,
         recorders["SchedulingPreferredPodAffinity scan"].last)
@@ -7480,7 +7946,7 @@ def main() -> None:
         # the kernel's device time per launch inside the path's profiled
         # cycle (idle gaps between launches; the timed calls run back to back)
         hits = [(ms, cnt) for ms, cnt, name in run["profile"].get("top", [])
-                if name.startswith(r["symbol"] + "(")]
+                if kernel_hit(name, r["symbol"])]
         r["path_ms"] = sum(ms for ms, _ in hits) / max(sum(c for _, c in hits), 1) \
             if hits else None
         r["launches_by_path"] = {p_: v["launches"].get(r["kernel"])
@@ -7552,6 +8018,9 @@ def main() -> None:
         if r["launches"] <= 0:
             fail(f"{r['name']}: no launch on the path that carries it")
     rows += ext_rows
+    record["kfork_solve_bound"] = kfork_bound(record["defrag_harness"]["profile_evaluate"],
+                                              rows, record["b9_row_bounds"])
+    record["step2_order"] = step2_order(rows)
     record["kernels"] = rows
     record["profile"] = profile_cycle(
         ns["sched"], out_dir, "NorthStar-shaped",

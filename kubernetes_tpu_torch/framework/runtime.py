@@ -681,6 +681,8 @@ class BatchedFramework:
             0, order, arange_b)
         nom = batch.nominated_row.long().clamp(0, n_cap - 1)
         nom_set = batch.nominated_row >= 0
+        # K4 reads its index inputs as int32: converted once, not every round
+        class_i32, pos_i32, nom_i32 = (t.to(torch.int32) for t in (class_of, pos_of, nom))
         # the engine's working copies of the dynamic state (updated in place)
         dyn = DynamicState(requested=dyn.requested.clone(),
                            non_zero=dyn.non_zero.clone())
@@ -724,7 +726,7 @@ class BatchedFramework:
             unresolved0 = active & feasible & (~reader | is_head) & ~comp_closed
 
             commit, choice = auction_resolve_commit(
-                cand_val, cand_idx, class_of, pos_of, unresolved0, nom, nom_ok,
+                cand_val, cand_idx, class_i32, pos_i32, unresolved0, nom_i32, nom_ok,
                 commit_request, commit_nz, dyn.requested, dyn.non_zero)
             for pw, aux in live:
                 fn = getattr(pw.plugin, "update_batch_classes", None)

@@ -4,8 +4,8 @@ versions.
 Each wrapper takes the plain version for tensors that lie on the CPU and
 launches its kernel for CUDA tensors (raising if the launch fails — there
 is no fallback).  ``LAUNCHES`` counts, per kernel, its launches on the
-card (K3 and K9 launch once per pass, so one wrapper call may count more
-than once); ``reset_launches`` zeroes the counts.
+card (K9 launches once per pass, so one of its wrapper calls may count
+more than once); ``reset_launches`` zeroes the counts.
 
   K1 filter_score_planes  csrc/filter_score.cu
   K2 normalize_combine    csrc/normalize_combine.cu

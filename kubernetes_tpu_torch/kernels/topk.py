@@ -23,46 +23,36 @@ def topk_rows_plain(eff: torch.Tensor, k: int):
 
 
 _FN = None
-_CHUNK = None
+_MAX_K = None
 
 
 def _fn():
-    global _FN, _CHUNK
+    global _FN, _MAX_K
     if _FN is None:
         lib = load("topk_rows")
-        _CHUNK = int(bind(lib, "topk_chunk", "")())
-        _FN = bind(lib, "launch_topk_pass", "iippiiippp")
+        _MAX_K = int(bind(lib, "topk_max_k", "")())
+        _FN = bind(lib, "launch_topk_rows", "iiipppp")
     return _FN
 
 
 def topk_rows(eff: torch.Tensor, k: int):
     """→ (values f32[C, k], columns i32[C, k]).  CPU tensors take the plain
-    version; CUDA tensors launch K3 once per pass: each pass keeps the best
-    k of every CHUNK survivors, so it shrinks the survivors only while
-    k <= CHUNK / 2 (the scheduler's k = min(B, N) <= 1024)."""
+    version; CUDA tensors launch K3 once: a radix select of each row's k-th
+    key, then a sort of the k selected entries (0 < k <= min(N, 1024); the
+    scheduler's k = min(B, N) <= 1024)."""
     if not eff.is_cuda:
         return topk_rows_plain(eff, k)
     c, n = eff.shape
-    if not 0 < k <= n:
-        raise ValueError(f"topk_rows: need 0 < k <= N, got k={k}, N={n}")
     eff = eff.contiguous()
     dev = require_cuda("topk_rows", eff)
     if eff.dtype != torch.float32:
         raise ValueError("topk_rows: eff must be float32")
     fn = _fn()
-    if k > _CHUNK // 2:
-        raise ValueError(f"topk_rows: k={k} exceeds half the chunk size {_CHUNK}")
-    stream = stream_of(dev)
-    cand, length = None, n
-    while True:
-        nchunks = -(-length // _CHUNK)
-        out = torch.empty((c, nchunks * k), dtype=torch.int32, device=dev)
-        last = nchunks == 1
-        vals = torch.empty((c, k), dtype=torch.float32, device=dev) if last else None
-        err = fn(c, n, ptr(eff), 0 if cand is None else ptr(cand), length, k,
-                 nchunks, ptr(out), ptr(vals) if last else 0, stream)
-        check(err, "topk_rows")
-        LAUNCHES["topk_rows"] += 1
-        if last:
-            return vals, out
-        cand, length = out, nchunks * k
+    if not 0 < k <= min(n, _MAX_K) or c < 1:
+        raise ValueError(f"topk_rows: need C >= 1 and 0 < k <= min(N, {_MAX_K}), "
+                         f"got C={c}, k={k}, N={n}")
+    vals = torch.empty((c, k), dtype=torch.float32, device=dev)
+    cols = torch.empty((c, k), dtype=torch.int32, device=dev)
+    check(fn(c, n, k, ptr(eff), ptr(cols), ptr(vals), stream_of(dev)), "topk_rows")
+    LAUNCHES["topk_rows"] += 1
+    return vals, cols

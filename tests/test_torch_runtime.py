@@ -219,6 +219,28 @@ def test_topk_plain_matches_lax_top_k():
         assert np.array_equal(np.asarray(ji)[finite], ti.numpy()[finite])
 
 
+def test_topk_plain_matches_lax_top_k_at_k1024():
+    """K = 1024 over N = 5000 with the K-th value tied across hundreds of
+    columns (512 larger values scattered, a run of 600 equal values in the
+    middle; one row with −inf holes below them): values and columns equal
+    lax.top_k's, ties by ascending column."""
+    rng = np.random.default_rng(10)
+    n, k = 5000, 1024
+    rows = []
+    for _ in range(3):
+        row = rng.integers(0, 3, size=n).astype(np.float32)
+        row[rng.permutation(n)[: k // 2]] = 10.0
+        row[n // 2 - 300: n // 2 + 300] = 5.0
+        rows.append(row)
+    eff = np.stack(rows)
+    eff[2, (rng.random(n) < 0.3) & (eff[2] < 5.0)] = -np.inf  # holes below the ties
+    jv, ji = jax.lax.top_k(jnp.asarray(eff), k)
+    tv, ti = topk_rows_plain(torch.from_numpy(eff), k)
+    assert np.array_equal(np.asarray(jv), tv.numpy())
+    assert np.array_equal(np.asarray(ji), ti.numpy())
+    assert (tv.numpy()[:, -1] == 5.0).all()
+
+
 def test_dedup_matches_coupled_spread_component():
     """A coupled batch: self-matching DoNotSchedule spread pods (one
     component, one commit per round), ScheduleAnyway pods whose selector
