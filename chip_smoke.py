@@ -496,20 +496,21 @@ def kernel_hit(name: str, symbol: str) -> bool:
     return name.startswith(symbol + "(") or name.startswith(symbol + "<")
 
 
-# K3 and K4 at both of their shapes (NorthStar's C = 4 round, the
-# heterogeneous backlog's C = 512 round): label → (the kernel's call, its
+# K2, K3 and K4 at every shape they have a row for (NorthStar's C = 4
+# round, the heterogeneous backlog's C = 512 round; K2 also at the scan
+# step's C = 1 and in its packed mode): label → (the kernel's call, its
 # symbol, its library calls by row key), so that main can time all of them
 # by one method
 ROUND_CALLS = {}
 
 
 def time_round_kernels(rows) -> str:
-    """K3's and K4's rows at both shapes, and their library calls, timed by
-    one method (the profiler, or the queued-events fallback for all of them
-    if any one needs it) → the method."""
+    """K2's, K3's and K4's rows, and their library calls, timed by one
+    method (the profiler, or the queued-events fallback for all of them if
+    any one needs it) → the method."""
     got = {r["name"]: r for r in rows if r["name"] in ROUND_CALLS}
     if len(got) != len(ROUND_CALLS):
-        fail(f"K3 / K4 timing: rows {sorted(got)} of {sorted(ROUND_CALLS)}")
+        fail(f"K2 / K3 / K4 timing: rows {sorted(got)} of {sorted(ROUND_CALLS)}")
     times, sources = {}, set()
     for label, (fn, symbol, libs) in ROUND_CALLS.items():
         times[label] = {"ms": device_ms(fn, symbol)}
@@ -527,7 +528,7 @@ def time_round_kernels(rows) -> str:
         r["ms_source"] = method
         if "iterations" in r:
             r["ms_per_iteration"] = r["ms"] / max(r["iterations"], 1)
-    log("K3 / K4 at both shapes, one method (" + method + "): " + "; ".join(
+    log("K2 / K3 / K4 rows, one method (" + method + "): " + "; ".join(
         f"{label} {got[label]['ms']:.5f} ms"
         + "".join(f", {k} {got[label][k]:.5f}" for k in ROUND_CALLS[label][2])
         + (f", {got[label]['iterations']} iterations ({got[label]['prefix_steps']} "
@@ -833,6 +834,7 @@ def check_kernels(dev) -> dict:
             if mode == "identical" and int(kc.sum()) < 256:
                 fail("auction_resolve_commit: identical pods committed too few")
     err["topk_rows"] = max(err["topk_rows"], check_topk_grid(dev, cases))
+    err["normalize_combine"] = max(err["normalize_combine"], check_normalize_grid(dev, cases))
     err["auction_resolve_commit"] = max(err["auction_resolve_commit"],
                                         check_auction_cases(dev, gen, cases))
     log(f"kernel-vs-plain: all equal ({json.dumps(cases)})")
@@ -918,6 +920,119 @@ def check_topk_grid(dev, cases: dict) -> float:
                 rows = topk_rows_case(c, n, k, gen, dev)
                 err = max(err, topk_equal(f"C={c} N={n} K={k}", rows, k))
                 cases["topk_rows"] += 1
+    return err
+
+
+NORM_GRID_C = (1, 4, 16, 17, 512)
+NORM_GRID_N = (20, 500, 5000, 8192, 131072)
+NORM_GRID_P = (1, 5, 8)
+# the kinds a P-plane case takes (0 identity, 1 default, 2 reversed): the
+# framework's five planes at P = 5 (Fit, BalancedAllocation, ImageLocality
+# identity; NodeAffinity default; TaintToleration reversed)
+NORM_KINDS = {1: ((1,), (2,), (0,)), 5: ((0, 0, 0, 1, 2),), 8: ((1, 2, 0, 1, 2, 0, 1, 2),)}
+NORM_FULL = 0b1111111
+
+
+def normalize_case(c: int, n: int, p: int, case: int, dev, *, misalign: bool = False):
+    """K2's inputs for one grid case, made on the card from a seed: a bit
+    plane (7 filter bits, ~70% of the nodes feasible; in every other case
+    the last quarter of the nodes dead, bits 0) and P raw planes of
+    small integers and fractions, with larger values on infeasible nodes
+    (which no maximum may take); special rows, rotated by the case at C =
+    1: no feasible node, every normalized plane's maximum 0 on the feasible
+    nodes, and a maximum on a floor boundary (values max · k / 100, which
+    land on or just beside an integer after the scaling); ``misalign``: the
+    bit plane and the raw planes start 4 bytes past an alignment boundary
+    (the kernel's scalar path).  → (bits, raw, plan)"""
+    import torch
+
+    from kubernetes_tpu_torch.kernels.normalize import CombinePlan
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7919 * c + 31 * n + p + case)
+
+    def fresh(shape, dtype):
+        if not misalign:
+            return torch.empty(shape, dtype=dtype, device=dev)
+        flat = torch.empty(int(torch.tensor(shape).prod()) + 1, dtype=dtype, device=dev)
+        return flat[1:].view(shape)
+
+    bits = fresh((c, n), torch.int32)
+    drop = torch.randint(0, 7, (c, n), generator=g, device=dev)
+    feasible = torch.rand((c, n), generator=g, device=dev) < 0.7
+    bits.copy_(torch.where(feasible, NORM_FULL, NORM_FULL & ~(1 << drop)))
+    if case % 2:  # a node tier's dead rows: the last quarter's bits 0
+        bits[:, n - n // 4:] = 0
+    raw = fresh((p, c, n), torch.float32)
+    ints = torch.randint(0, 101, (p, c, n), generator=g, device=dev).float()
+    frac = torch.rand((p, c, n), generator=g, device=dev) * 100
+    vals = torch.where(torch.rand((p, c, n), generator=g, device=dev) < 0.5, ints, frac)
+    raw.copy_(torch.where(feasible[None], vals, vals + 1000.0))
+    special = [0, 1, 2] if c >= 4 else [[None, 0, 1, 2][case % 4]]
+    for row, kind in zip(range(1, 4), special):
+        r = row if c >= 4 else 0
+        if kind is None:
+            continue
+        if kind == 0:  # no feasible node
+            bits[r] = NORM_FULL & ~1
+        elif kind == 1:  # maxima 0 on the feasible nodes, larger off them
+            raw[:, r] = torch.where(feasible[r][None], 0.0, raw[:, r])
+        else:  # a maximum on a floor boundary
+            mx = torch.tensor([7.0, 3.0, 0.3, 12.5, 99.0, 0.07, 1e-3, 33.0])[:p].to(dev)
+            k = torch.randint(0, 101, (p, n), generator=g, device=dev).float()
+            edge = (mx[:, None] * k / 100.0).float()
+            edge[:, 0] = mx
+            raw[:, r] = torch.where(feasible[r][None], edge, raw[:, r])
+            bits[r, 0] = NORM_FULL
+    kinds = NORM_KINDS[p][(case // len(NORM_GRID_P)) % len(NORM_KINDS[p])]
+    weights = tuple(float((case + 3 * j) % 5) for j in range(p))
+    plan = CombinePlan(kinds=kinds, weights=weights, const_add=float(case % 3) * 100.0)
+    return bits, raw, plan
+
+
+def normalize_equal(what: str, bits, raw, plan) -> float:
+    """K2 on (bits, raw, plan) against its plain version in both modes, the
+    totals bit for bit (their int32 views) and the feasible counts exactly,
+    one launch a call."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels.normalize import normalize_combine, \
+        normalize_combine_plain
+
+    before = dict(kernels.LAUNCHES)
+    kt, kf = normalize_combine(bits, NORM_FULL, raw, plan)
+    kp = normalize_combine(bits, NORM_FULL, raw, plan, packed=True)
+    got = {k_: kernels.LAUNCHES[k_] - before[k_]
+           for k_ in ("normalize_combine", "normalize_combine_packed")}
+    if got != {"normalize_combine": 1, "normalize_combine_packed": 1}:
+        fail(f"normalize_combine {what}: launches {got}, not one a call")
+    pt, pf = normalize_combine_plain(bits, NORM_FULL, raw, plan)
+    torch.cuda.synchronize()
+    return require_equal(f"normalize_combine {what}", [
+        ("total", kt, pt), ("feasible", kf, pf), ("packed", kp, pt),
+        ("total bits", kt.view(torch.int32), pt.view(torch.int32)),
+        ("packed bits", kp.view(torch.int32), pt.view(torch.int32))])
+
+
+def check_normalize_grid(dev, cases: dict) -> float:
+    """K2 over C ∈ NORM_GRID_C × N ∈ NORM_GRID_N × P ∈ NORM_GRID_P (each
+    kind at P = 1 over the cases, the framework's kinds at P = 5), full and
+    packed, bit for bit; then N = 4099 and misaligned planes (the scalar
+    path) at C = 4 and 512."""
+    err, case = 0.0, 0
+    for c in NORM_GRID_C:
+        for n in NORM_GRID_N:
+            for p in NORM_GRID_P:
+                err = max(err, normalize_equal(f"C={c} N={n} P={p}",
+                                               *normalize_case(c, n, p, case, dev)))
+                cases["normalize_combine"] += 1
+                case += 1
+    for c in (4, 512):
+        for n, mis in ((4099, False), (8192, True)):
+            err = max(err, normalize_equal(f"C={c} N={n} (scalar path)",
+                                           *normalize_case(c, n, 5, case, dev, misalign=mis)))
+            cases["normalize_combine"] += 1
+            case += 1
     return err
 
 
@@ -2863,12 +2978,17 @@ def time_kernels(sched, err: dict) -> list:
         lambda: filter_score_planes(rep, snap, dyn, na_mask, na_pref, img, fs_plan),
         lambda: filter_score_planes_plain(rep, snap, dyn, na_mask, na_pref, img, fs_plan),
         *k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw))
-    # per (class, node, plane): the row max, the scaling, the floor, the add
+    # per (class, feasible node, plane): the row max, the scaling, the
+    # floor, the add; K2 reads the raw planes only on feasible nodes
+    n_feas = int(feas.sum())
     row("normalize_combine", "kubernetes_tpu_torch/csrc/normalize_combine.cu",
         "kubernetes_tpu/framework/runtime.py:857", "normalize_combine_kernel",
         lambda: normalize_combine(bits, full, raw, comb_plan),
         lambda: normalize_combine_plain(bits, full, raw, comb_plan),
-        nbytes(bits, raw, total, feas), c * n * raw.shape[0] * 4)
+        nbytes(bits, total, feas) + 4 * raw.shape[0] * n_feas, n_feas * raw.shape[0] * 4)
+    rows[-1]["shape"]["feasible"] = n_feas
+    ROUND_CALLS["normalize_combine"] = (
+        lambda: normalize_combine(bits, full, raw, comb_plan), "normalize_combine_kernel", {})
     # a selection compares every entry at least once
     row("topk_rows", "kubernetes_tpu_torch/csrc/topk_rows.cu",
         "kubernetes_tpu/framework/runtime.py:875", "topk_select_kernel",
@@ -4504,18 +4624,17 @@ def check_preempt_kernels(dev) -> dict:
                and float(want_c[ths[j], nodes[j]]) > 0)
     if hits < 16:
         fail(f"candidate_fit check: only {hits} boundary pairs split as the fit value says")
-    # K29: more than 128 priorities, B = 64
+    # K29: more than 128 priorities, B = 64; then the tier's edge cases
     d = preempt_case(gen, b=64, n_prio=300)
     if _levels(d["pod_priority"], d["pod_valid"] & (d["pod_node"] >= 0)) is not None:
         fail("candidate_dense check: the case has at most 128 priorities")
-    gd = {k: v.to(dev) for k, v in d.items()}
-    got = KP.candidate_dense(*(gd[k] for k in pod), *(gd[k] for k in side), 0b1111)
-    want = KP.candidate_dense_plain(*(d[k] for k in pod), *(d[k] for k in side), 0b1111)
-    torch.cuda.synchronize()
-    err["candidate_dense"] = require_equal("candidate_dense (300 priorities)",
-                                           [("mask", got.cpu(), want)])
-    if not 0 < int(want.sum()):
+    err["candidate_dense"] = dense_equal("300 priorities", d, dev)
+    if not 0 < int(KP.candidate_dense_plain(*(d[k] for k in pod), *(d[k] for k in side),
+                                            0b1111).sum()):
         fail("candidate_dense check: no pair passes")
+    for name, case in dense_cases(gen).items():
+        err["candidate_dense"] = max(err["candidate_dense"], dense_equal(name, case, dev))
+    dense_single_launch({k: v.to(dev) for k, v in d.items()})
     # K13: the nominated rows (nz zero) and two in-flight bundles
     req = c["requested"].to(dev)
     nz = torch.randint(0, 1000, (n, 2), generator=gen, dtype=torch.int32).to(dev)
@@ -4533,8 +4652,130 @@ def check_preempt_kernels(dev) -> dict:
         "prev_delta_apply (nominated + two in-flight bundles)",
         [("requested", got[0], want[0]), ("non_zero", got[1], want[1])])
     log("preempt kernels vs plain: all equal (K27 + K28 at 128 levels with rounding sums, "
-        f"{hits} boundary pairs split; K29 at 300 priorities; K13 with the nominated bundle)")
+        f"{hits} boundary pairs split; K29 at 300 priorities and on {len(DENSE_CASES)} edge "
+        "cases, one kernel a call and no sort; K13 with the nominated bundle)")
     return err
+
+
+DENSE_POD = ("pod_valid", "pod_node", "pod_priority", "pod_request")
+DENSE_SIDE = ("priority", "request", "allocatable", "requested", "static_bits")
+DENSE_CASES = ("skewed node, rounding sums", "every pod invalid", "every pod unbound",
+               "empty nodes, B = 37, N = 1000", "R = 8", "R = 12", "R = 16",
+               "misaligned tier, P = 3001")
+
+
+def dense_equal(what: str, case: dict, dev) -> float:
+    """K29 on ``case`` (CPU tensors, copied to the card as they are)
+    against its plain version on the CPU copies, bit for bit, in one
+    launch."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import preempt as KP
+
+    g = {k: case[k].to(dev) for k in DENSE_POD + DENSE_SIDE}
+    if "pod_node_offset" in case:  # the tier's node column 4 bytes past a boundary
+        flat = torch.empty(case["pod_node"].numel() + 1, dtype=torch.int32, device=dev)
+        flat[1:] = g["pod_node"]
+        g["pod_node"] = flat[1:]
+    before = kernels.LAUNCHES["candidate_dense"]
+    got = KP.candidate_dense(*(g[k] for k in DENSE_POD), *(g[k] for k in DENSE_SIDE), 0b1111)
+    if kernels.LAUNCHES["candidate_dense"] - before != 1:
+        fail(f"candidate_dense ({what}): not one launch")
+    want = KP.candidate_dense_plain(*(case[k] for k in DENSE_POD),
+                                    *(case[k] for k in DENSE_SIDE), 0b1111)
+    torch.cuda.synchronize()
+    return require_equal(f"candidate_dense ({what})", [("mask", got.cpu(), want)])
+
+
+def dense_cases(gen) -> dict:
+    """K29's edge cases (CPU tensors, more than 128 priorities each): a
+    skewed tier whose node 7 holds 6000 pods (more than a 4096-row chunk
+    and a 1024-entry round) at odd-KiB requests whose sums pass 2^24, with
+    batch rows asking exactly for that node's float32 fit value and one ulp
+    more; every pod invalid; every pod unbound; pods on the even nodes of
+    the first half only, at B = 37 and N = 1000 (neither a multiple of a
+    block's tile); R = 8 (the path's), 12 and 16; a tier of 3001 rows whose
+    node column starts off a 16-byte boundary."""
+    import numpy as np
+    import torch
+
+    out = {}
+    n, p, b, r = 2000, 20000, 70, 4
+    c = preempt_case(gen, n=n, p=p, b=b, r=r, n_prio=300, dead=40)
+    node = c["pod_node"]
+    node[:6000] = 7
+    node[6000:] = torch.randint(0, n // 2, (p - 6000,), generator=gen, dtype=torch.int32)
+    c["pod_valid"][:6000] = True
+    c["pod_request"][:6000, 1] = torch.randint(100_000, 150_000, (6000,), generator=gen,
+                                               dtype=torch.int32) * 2 + 1
+    c["static_bits"][:, 7] = 0b1111
+    prio_b, req_b = c["priority"], c["request"]
+    for j, thr in enumerate((-1, 200, 500, 900)):
+        lower = (c["pod_valid"] & (node == 7) & (c["pod_priority"] < thr)).numpy()
+        freed = np.cumsum(c["pod_request"][:, 1].numpy()[lower].astype(np.float32),
+                          dtype=np.float32)[-1] if lower.any() else np.float32(0)
+        base = np.float32(c["allocatable"][7, 1]) - np.float32(c["requested"][7, 1])
+        v = np.float32(base + freed)
+        for k, val in enumerate((int(v), int(v) + max(1, int(np.spacing(v))))):
+            row = 2 * j + k
+            prio_b[row], req_b[row] = thr, 0
+            req_b[row, 1] = val
+    out[DENSE_CASES[0]] = c
+    c = preempt_case(gen, n=600, p=4000, b=40, n_prio=300)
+    c["pod_valid"][:] = False
+    out[DENSE_CASES[1]] = c
+    c = preempt_case(gen, n=600, p=4000, b=40, n_prio=300)
+    c["pod_node"][:] = -1
+    out[DENSE_CASES[2]] = c
+    c = preempt_case(gen, n=1000, p=6000, b=37, n_prio=300, dead=10)
+    c["pod_node"][:] = torch.randint(0, 250, (6000,), generator=gen, dtype=torch.int32) * 2
+    out[DENSE_CASES[3]] = c
+    for name, rr in zip(DENSE_CASES[4:7], (8, 12, 16)):
+        out[name] = preempt_case(gen, n=1000, p=5000, b=45, r=rr, n_prio=300, dead=10)
+    c = preempt_case(gen, n=700, p=3001, b=33, n_prio=300, dead=5)
+    c["pod_node_offset"] = True
+    out[DENSE_CASES[7]] = c
+    if list(out) != list(DENSE_CASES):
+        fail("candidate_dense cases: names out of order")
+    return out
+
+
+def dense_single_launch(g: dict) -> None:
+    """One K29 call under the profiler: at most one device activity, K29's
+    own, and no sort, searchsorted or other torch op than an empty output
+    on the host; it fails if none of three sessions records the kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetes_tpu_torch.kernels import preempt as KP
+
+    def call():
+        return KP.candidate_dense(*(g[k] for k in DENSE_POD), *(g[k] for k in DENSE_SIDE),
+                                  0b1111)
+
+    call()
+    torch.cuda.synchronize()
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        device = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  for _ in range(e.count)]
+        host = sorted({e.key for e in prof.key_averages()
+                       if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")})
+        if any("sort" in k_.lower() for k_ in device + host):
+            fail(f"candidate_dense: a sort in the call's records ({device}, {host})")
+        if [k_ for k_ in host if not k_.startswith("aten::empty")]:
+            fail(f"candidate_dense: torch ops beside the kernel on the host: {host}")
+        if len(device) > 1 or any(not kernel_hit(k_, "candidate_dense_kernel") for k_ in device):
+            fail(f"candidate_dense: {len(device)} device activities in one call: {device}")
+        if device:
+            log(f"  candidate_dense: one call, device activities {device}, host ops {host}")
+            return
+    fail("candidate_dense: the profiler recorded no device activity of one call in three "
+         f"sessions (host ops {host}), so its one launch is not shown")
 
 
 def preempt_cluster(dev_name: str, size: str, scale: float = 1.0, clock=None, **kw):
@@ -4861,8 +5102,11 @@ def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) ->
 
     def measure(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None):
         least, bound_by = bound_ms(n_bytes, n_ops)
-        ms, libs, source = ms_one_method(fn, PREEMPT_SYMBOLS[name],
-                                         *([library_fn] if library_fn else []))
+        # K29: the whole call's device time (its one kernel; a design that
+        # prepared indices before it would be timed with them)
+        ms, libs, source = ms_one_method(
+            fn, None if name == "candidate_dense" else PREEMPT_SYMBOLS[name],
+            *([library_fn] if library_fn else []))
         return {"ms": ms, "ms_source": source,
                 "call_ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
                 "bound_ms": least, "bound_by": bound_by,
@@ -4919,10 +5163,9 @@ def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) ->
         4 * b * n2 * r2,
         {"B": b, "N": n2, "R": r2, "threshold_rows": tbs})
 
-    # K29: each (pod, node) walks its node's segment, R float32 adds per
-    # pod below the batch pod; bytes: the static bits read and the mask
-    # written, the pod tier, the node rows and the batch rows read once
-    # (not the wrapper's by-node segments)
+    # K29: each (pod, node) adds the requests of its node's pods below the
+    # batch pod, R float32 adds a pod; bytes: the static bits read and the
+    # mask written, the pod tier, the node rows and the batch rows read once
     def dense(a29, what):
         got = KP.candidate_dense(*a29)
         want = KP.candidate_dense_plain(*cpu(a29))
@@ -5292,11 +5535,19 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
     return rec
 
 
-def step2_order(rows: list) -> list:
-    """The port's order for redesigning kernels: first those slower than
-    the one PyTorch call that computes the same function (largest factor
-    first), then the rest by launches × (time − bound) on the path that
-    carries them."""
+# kernels already redesigned for Hopper in the port's step 2 (every row of
+# theirs, at every shape and mode): K2, K3, K4 and K29
+REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense")
+
+
+def step2_order(rows: list) -> dict:
+    """The port's order for redesigning kernels, over the rows of kernels
+    not yet redesigned (``REDESIGNED``'s rows are named as skipped): first
+    those slower than the one PyTorch call that computes the same function
+    (largest factor first), then the rest by launches × (time − bound) on
+    the path that carries them."""
+    skipped = [r["name"] for r in rows if r["name"].split(" (")[0] in REDESIGNED]
+    rows = [r for r in rows if r["name"] not in skipped]
     slower = sorted((r for r in rows if r["library_ms"] and r["ms"] > r["library_ms"]),
                     key=lambda r: r["ms"] / r["library_ms"], reverse=True)
     rest = sorted((r for r in rows if r not in slower),
@@ -5306,11 +5557,11 @@ def step2_order(rows: list) -> list:
     out += [{"name": r["name"], "ms": r["ms"], "bound_ms": r["bound_ms"],
              "launches": r["launches"],
              "loss_ms": (r["launches"] or 0) * (r["ms"] - r["bound_ms"])} for r in rest]
-    log("step-2 order: " + "; ".join(
+    log(f"step-2 order (skipped, redesigned: {', '.join(skipped)}): " + "; ".join(
         f"{o['name']} " + (f"{o['factor']:.2f}x its library call" if "factor" in o
                            else f"{o['loss_ms']:.3f} ms lost ({o['launches']} launches)")
         for o in out[:6]))
-    return out
+    return {"skipped": skipped, "order": out}
 
 
 def kfork_bound(evaluate: dict, rows: list, row_bounds: dict) -> dict:
@@ -6463,6 +6714,7 @@ ENGINE_CARRIER = {
     "ipa_update_row (tables)": "SchedulingPodAffinity scan",
     "filter_score_planes (C = 512)": "heterogeneous backlog",
     "normalize_combine (C = 512)": "heterogeneous backlog",
+    "normalize_combine (C = 1)": "TopologySpreading scan",
     "topk_rows (C = 512)": "heterogeneous backlog",
     "auction_resolve_commit (C = 512)": "heterogeneous backlog",
     "ipa_update_classes (C = 512)": "SchedulingPodAntiAffinity priority 10",
@@ -6748,6 +7000,26 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
         nbytes(bits2, total, feas) + 4 * raw2.shape[0] * n_feas,
         n_feas * raw2.shape[0] * 4, dict(shape, feasible=n_feas),
         reuse_err["normalize_combine"])
+    ROUND_CALLS["normalize_combine (C = 512)"] = (
+        lambda: normalize_combine(bits2, full2, raw2, plan2), "normalize_combine_kernel", {})
+    # K2 on one pod's row, as the exact scan launches it every step (the
+    # TopologySpreading scan's latest step)
+    (bits1, full1, raw1, plan1), _ = scan_args["normalize_combine"]
+    total1, feas1 = normalize_combine(bits1, full1, raw1, plan1)
+    pt1, pf1 = normalize_combine_plain(bits1, full1, raw1, plan1)
+    err1 = require_equal("normalize_combine (C = 1, path shapes)",
+                         [("total", total1, pt1), ("feasible", feas1, pf1)])
+    n_feas1 = int(feas1.sum())
+    row("normalize_combine", "normalize_combine (C = 1)",
+        "kubernetes_tpu_torch/csrc/normalize_combine.cu",
+        "kubernetes_tpu/framework/runtime.py:364", "normalize_combine_kernel",
+        lambda: normalize_combine(bits1, full1, raw1, plan1),
+        lambda: normalize_combine_plain(bits1, full1, raw1, plan1),
+        nbytes(bits1, total1, feas1) + 4 * raw1.shape[0] * n_feas1,
+        n_feas1 * raw1.shape[0] * 4, {"C": 1, "N": bits1.shape[1], "feasible": n_feas1},
+        max(err["normalize_combine"], err1))
+    ROUND_CALLS["normalize_combine (C = 1)"] = (
+        lambda: normalize_combine(bits1, full1, raw1, plan1), "normalize_combine_kernel", {})
     (eff, k), _ = full_args["topk_rows"]
     row("topk_rows", "topk_rows (C = 512)", "kubernetes_tpu_torch/csrc/topk_rows.cu",
         "kubernetes_tpu/framework/runtime.py:571", "topk_select_kernel",
@@ -7423,12 +7695,17 @@ def time_extender_kernels(keyed_calls: dict, packed_calls: dict, err: dict,
         "normalize_combine packed (path shapes)", [("packed", got, want)]))
     cc, nn = pbits.shape
     n_planes = praw.shape[0]
+    # as K2's other rows: the raw planes read only on feasible nodes
+    n_feas = int((pbits == pfull).sum())
     row("normalize_combine (packed)", "normalize_combine_packed", K2_SOURCE,
         K2_PACKED_REPLACES, "normalize_combine_kernel",
         lambda: normalize_combine(pbits, pfull, praw, plan, packed=True),
         lambda: normalize_combine_plain(pbits, pfull, praw, plan),
-        nbytes(pbits, praw) + 4 * cc * nn, cc * nn * (1 + 6 * n_planes),
-        {"C": cc, "N": nn, "planes": n_planes}, launches["packed"])
+        nbytes(pbits) + 4 * n_planes * n_feas + 4 * cc * nn, n_feas * n_planes * 4,
+        {"C": cc, "N": nn, "planes": n_planes, "feasible": n_feas}, launches["packed"])
+    ROUND_CALLS["normalize_combine (packed)"] = (
+        lambda: normalize_combine(pbits, pfull, praw, plan, packed=True),
+        "normalize_combine_kernel", {})
     for rr in rows_out:
         log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
             f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms; "
@@ -7911,7 +8188,7 @@ def main() -> None:
     full_args["spread_update_classes"] = \
         recorders["TopologySpreading priority 10, full auction"].last["spread_update_classes"]
     engine_rows = time_engine_kernels(scan_args, full_args, err, reuse_err, dev)
-    record["round_kernels_method"] = time_round_kernels(rows + engine_rows)
+    record["round_kernels_method"] = time_round_kernels(rows + engine_rows + ext_rows)
     record["extender_programs"] = time_extender_programs(ns["sched"], err)
     record["b9_row_bounds"] = b9_row_bounds(
         recorders["TopologySpreading scan"].last,

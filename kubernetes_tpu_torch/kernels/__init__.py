@@ -8,7 +8,9 @@ card (K9 launches once per pass, so one of its wrapper calls may count
 more than once); ``reset_launches`` zeroes the counts.
 
   K1 filter_score_planes  csrc/filter_score.cu
-  K2 normalize_combine    csrc/normalize_combine.cu
+  K2 normalize_combine    csrc/normalize_combine.cu (one launch: a row over a
+                          cluster of up to 8 blocks at C <= 16, each plane
+                          read once)
   K3 topk_rows            csrc/topk_rows.cu
   K4 auction_resolve_commit csrc/auction.cu
   K5 spread_prepare_counts  csrc/spread.cu
@@ -43,7 +45,9 @@ more than once); ``reset_launches`` zeroes the counts.
   K27 priority_prefix       csrc/preempt.cu (once per failing batch that may
                             preempt, with at most 128 scheduled priorities)
   K28 candidate_fit         csrc/preempt.cu (the same)
-  K29 candidate_dense       csrc/preempt.cu (the same, above 128 priorities)
+  K29 candidate_dense       csrc/preempt.cu (the same, above 128 priorities;
+                            one launch, the tier gathered by node tile in
+                            row order in the kernel, no sort)
   K30 fork_masks            csrc/fork.cu (one launch per what-if evaluate over K
                             forks, or per fork when not stacked)
   K31 fork_add_rows         csrc/fork.cu (the same, when a fork adds nodes)

@@ -25,9 +25,15 @@ The static filters come in as K1's pass-bit plane (``static_bits i32[B,
 N]``, zero on dead nodes and padding rows) and the OR of the static
 plugins' bits (``static_mask``); a row passes where every masked bit is set.
 
-CPU tensors take the plain versions; CUDA tensors launch the kernels.  The
-per-node pod segments the kernels walk (pod rows sorted stably by node) are
-built by ``node_segments`` with torch ops — index preparation.
+CPU tensors take the plain versions; CUDA tensors launch the kernels.  K27
+walks per-node pod segments (pod rows sorted stably by node) that
+``node_segments`` builds with torch ops — index preparation.  K29 builds
+nothing outside its one launch: each block streams the pod tier in row
+order, ``DENSE_CHUNK`` rows a chunk, gathers the valid pods bound to its
+``DENSE_TILE`` nodes into a list that keeps their row order (``DENSE_CAP``
+entries a round), and each lane sums its node's entries of that list in
+list order — so each node's pods are visited in ascending row order, as
+``node_segments`` orders them, with no sort.
 """
 
 from __future__ import annotations
@@ -45,6 +51,11 @@ CUMSUM_BASE = 16
 # one block: K ≤ 16 · 16
 MAX_LEVELS = 256
 MAX_R = 16
+# K29's layout (csrc/preempt.cu): nodes a block, pod rows a chunk, gathered
+# pods a round
+DENSE_TILE = 32
+DENSE_CHUNK = 4096
+DENSE_CAP = 1024
 
 
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -246,23 +257,32 @@ def candidate_dense(pod_valid: torch.Tensor, pod_node: torch.Tensor,
     """→ bool[B, N] without levels: per (batch pod, node) the requests of the
     node's pods below the pod's priority, the fit, at least one victim, the
     static bits.  CPU tensors take the plain version; CUDA tensors launch
-    K29."""
+    K29 — one launch and no other device work, so every input must already
+    be contiguous and of the snapshot's dtype (bool validity, int32 else)."""
     if not pod_request.is_cuda:
         return candidate_dense_plain(pod_valid, pod_node, pod_priority, pod_request,
                                      priority, request, allocatable, requested,
                                      static_bits, static_mask)
     name = "candidate_dense"
-    pprio, preq = _pod_tier(name, pod_valid, pod_node, pod_priority, pod_request)
-    (prio, req, alloc, used, bits), b, n, r = _batch_side(
-        name, priority, request, allocatable, requested, static_bits)
-    if preq.shape[1] != r:
-        raise ValueError(f"{name}: inconsistent resource dimensions")
-    perm, offsets = node_segments(pod_valid, pod_node, n)
-    out = torch.empty((b, n), dtype=torch.bool, device=preq.device)
-    dev = require_cuda(name, perm, offsets, out)
-    err = _fn("launch_candidate_dense", "iii" + "p" * 9 + "i" + "pp")(
-        b, n, r, ptr(perm), ptr(offsets), ptr(pprio), ptr(preq), ptr(prio), ptr(req),
-        ptr(alloc), ptr(used), ptr(bits), int(static_mask), ptr(out), stream_of(dev))
+    t = (pod_node, pod_priority, pod_request, priority, request, allocatable, requested,
+         static_bits)
+    dev = require_cuda(name, pod_valid, *t)
+    require_dtype(name, torch.bool, pod_valid)
+    require_dtype(name, torch.int32, *t)
+    p = pod_valid.shape[0]
+    b, n = static_bits.shape
+    r = request.shape[1]
+    if pod_node.shape != (p,) or pod_priority.shape != (p,) or pod_request.shape != (p, r) \
+            or priority.shape != (b,) or request.shape != (b, r) \
+            or allocatable.shape != (n, r) or requested.shape != (n, r):
+        raise ValueError(f"{name}: inconsistent shapes")
+    if r > MAX_R:
+        raise ValueError(f"{name}: at most {MAX_R} resource dimensions")
+    out = torch.empty((b, n), dtype=torch.bool, device=dev)
+    err = _fn("launch_candidate_dense", "iiii" + "p" * 9 + "i" + "pp")(
+        b, n, r, p, ptr(pod_valid), ptr(pod_node), ptr(pod_priority), ptr(pod_request),
+        ptr(priority), ptr(request), ptr(allocatable), ptr(requested), ptr(static_bits),
+        int(static_mask), ptr(out), stream_of(dev))
     check(err, name)
     LAUNCHES[name] += 1
     return out

@@ -342,3 +342,83 @@ def test_k1_fit_plane_under_strategies_equals_reference(problem, strategy, shape
         p["tbatch"], p["tsnap"], p["tdyn"], na.filter(p["tbatch"], p["tsnap"], p["tdyn"]),
         na.score(p["tbatch"], p["tsnap"], p["tdyn"]), image_scaled_by_id(p["tsnap"]), plan)
     _eq(want, raw[2], f"K1 Fit plane {strategy}")
+
+
+# --- K2's plain version against the reference's run_scores / compute_packed ---------
+
+
+class _GivenPlane:
+    """A plugin of the reference's framework whose plane is its prepared
+    aux: a filter when ``normalizer`` is None, else a score plane that
+    ``normalizer`` (a reference plugin) normalizes."""
+
+    def __init__(self, name, normalizer=None):
+        self.name = name
+        if normalizer is None:
+            self.filter = lambda batch, snap, dyn, aux: aux
+        else:
+            self.score = lambda batch, snap, dyn, aux, mask=None: aux
+            self.normalize = normalizer.normalize
+
+    def prepare(self, batch, snap, dyn, host_aux):
+        return host_aux
+
+
+@pytest.mark.parametrize("special", ["random", "zero max", "no feasible node"])
+@pytest.mark.parametrize("c", [1, 4, 32])
+def test_normalize_combine_plain_equals_run_scores(c, special):
+    """K2's plain version (total, feasible count, packed mode) against the
+    reference's run_scores and compute_packed over the same planes, made
+    from a numpy seed: Fit's identity, NodeAffinity's default and
+    TaintToleration's reversed normalize, a zero plane under the reversed
+    kind (the port's const_add), integer and fractional scores; one row
+    whose normalized planes have maximum 0 on the feasible nodes (larger
+    values off them) or that has no feasible node."""
+    from kubernetes_tpu.framework.interface import PluginWithWeight
+    from kubernetes_tpu.plugins.nodeaffinity import NodeAffinityPlugin
+    from kubernetes_tpu.plugins.noderesources import FitPlugin
+    from kubernetes_tpu.plugins.tainttoleration import TaintTolerationPlugin
+    from kubernetes_tpu_torch.kernels.normalize import CombinePlan, normalize_combine
+
+    rng = np.random.default_rng(100 * c + len(special))
+    n, full = 40, 0b111
+    kinds, weights = (0, 1, 2, 1, 0), (1, 2, 1, 3, 1)
+    norm_of = {0: FitPlugin(), 1: NodeAffinityPlugin(), 2: TaintTolerationPlugin()}
+    mask = rng.random((c, n)) < 0.7
+    raw = np.where(rng.random((5, c, n)) < 0.5, rng.integers(0, 101, (5, c, n)),
+                   rng.random((5, c, n)) * 100).astype(np.float32)
+    row = 0 if c == 1 else 1
+    if special == "zero max":
+        for p_, k in enumerate(kinds):
+            if k:
+                raw[p_, row] = np.where(mask[row], 0.0, raw[p_, row] + 50.0)
+    elif special == "no feasible node":
+        mask[row] = False
+    bits = np.where(mask, full, full & ~(1 << rng.integers(0, 3, (c, n)))).astype(np.int32)
+
+    plugins = [PluginWithWeight(_GivenPlane("Mask"), 1)]
+    plugins += [PluginWithWeight(_GivenPlane(f"P{p_}", norm_of[k]), w)
+                for p_, (k, w) in enumerate(zip(kinds, weights))]
+    plugins.append(PluginWithWeight(_GivenPlane("Zero", TaintTolerationPlugin()), 2))
+    fw = JFramework(plugins)
+    batch = dataclasses.make_dataclass("B", ["valid"])(jnp.ones(c, bool))
+    snap = dataclasses.make_dataclass("S", ["node_valid"])(jnp.ones(n, bool))
+    auxes = (jnp.asarray(mask),) + tuple(jnp.asarray(x) for x in raw) \
+        + (jnp.zeros((c, n), jnp.float32),)
+    want = np.asarray(jax.jit(lambda a: fw.run_scores(batch, snap, None, a, a[0]))(auxes))
+    want_packed = np.asarray(jax.jit(lambda a: fw.compute_packed(batch, snap, None, a))(auxes))
+
+    plan = CombinePlan(kinds=kinds, weights=tuple(float(w) for w in weights),
+                       const_add=2 * 100.0)
+    tb, tr = torch.from_numpy(bits), torch.from_numpy(raw)
+    total, feas = normalize_combine_plain(tb, full, tr, plan)
+    _eq(want, total, "K2 total")
+    _eq(mask.sum(axis=1).astype(np.int32), feas, "K2 feasible count")
+    _eq(want_packed, normalize_combine(tb, full, tr, plan, packed=True), "K2 packed")
+    if special == "zero max":  # the normalized planes give 0 (default) and 100 (reversed)
+        ident = sum(w * np.floor(raw[p_, row]) for p_, (k, w) in enumerate(zip(kinds, weights))
+                    if k == 0)
+        _eq(np.where(mask[row], ident + 100.0 + 200.0, -np.inf).astype(np.float32),
+            total[row], "K2 zero-max row")
+    if special == "no feasible node":
+        assert int(feas[row]) == 0 and bool(torch.isinf(total[row]).all())

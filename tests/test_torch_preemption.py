@@ -60,9 +60,14 @@ from kubernetes_tpu.state.cache import Snapshot as JSnapshot
 from kubernetes_tpu.whatif import dryrun as jdry
 from kubernetes_tpu_torch.kernels import LAUNCHES, reset_launches
 from kubernetes_tpu_torch.kernels.preempt import (
+    DENSE_CAP,
+    DENSE_CHUNK,
+    DENSE_TILE,
     blocked_cumsum,
     candidate_dense,
+    candidate_dense_plain,
     candidate_fit,
+    node_segments,
     priority_prefix,
     priority_prefix_plain,
 )
@@ -271,6 +276,140 @@ def test_levels_float32_order_pins_reference():
         rev[bk, c["pod_node"][p_]] = np.float32(rev[bk, c["pod_node"][p_]]
                                                 + np.float32(c["pod_request"][p_, 1]))
     assert not np.array_equal(rev, table)
+
+
+def _row_order_freed(c: dict, thr: int, reverse: bool = False):
+    """(f32[N, R], i64[N]): per node, the requests of its valid pods below
+    ``thr`` added in float32 one pod at a time from 0 in ascending pod-row
+    order (descending with ``reverse``), and their count."""
+    n, r = c["alloc"].shape
+    freed = np.zeros((n, r), np.float32)
+    cnt = np.zeros(n, np.int64)
+    rows = np.flatnonzero(c["pod_valid"] & (c["pod_node"] >= 0) & (c["pod_priority"] < thr))
+    for p_ in (rows[::-1] if reverse else rows):
+        nd = c["pod_node"][p_]
+        freed[nd] = freed[nd] + c["pod_request"][p_].astype(np.float32)
+        cnt[nd] += 1
+    return freed, cnt
+
+
+def _dense_mask_by_loop(a: dict, reverse: bool = False) -> np.ndarray:
+    """bool[B, N]: the dense candidate mask with each (pod, node) sum taken
+    by ``_row_order_freed``, the fit in float32 as the reference writes it."""
+    base = a["alloc"].astype(np.float32) - a["requested"].astype(np.float32)
+    sums = {}
+    out = np.zeros(a["static_ok"].shape, bool)
+    for i, thr in enumerate(a["priority"]):
+        if thr not in sums:
+            sums[thr] = _row_order_freed(a, int(thr), reverse)
+        freed, cnt = sums[thr]
+        req = a["request"][i].astype(np.float32)[None, :]
+        fits = ((req == 0) | (req <= base + freed)).all(axis=1)
+        out[i] = fits & (cnt > 0) & a["static_ok"][i]
+    return out
+
+
+def test_dense_float32_order_pins_row_order():
+    """Above 128 priorities the dense form (K29's plain version) sums each
+    node's lower-priority pods in ascending pod-row order: on odd-KiB
+    requests whose sums pass 2^24, each batch pod asks for exactly that
+    sum's float32 fit value on one node and a twin one ulp more, and the
+    plain version equals a numpy float32 loop in row order on every pair.
+    The same loop in descending row order flips at least one pair, so the
+    order is what the pin holds."""
+    c = _odd_kib_cluster(11, n=8, per_node=160, n_levels=400)
+    assert _levels_of(c) is None
+    n = c["alloc"].shape[0]
+    base = c["alloc"].astype(np.float32) - c["requested"].astype(np.float32)
+    rows, prios, targets = [], [], []
+    for thr in (3, 20, 90, 250, 1000):
+        freed, cnt = _row_order_freed(c, thr)
+        for node in range(n):
+            if cnt[node] == 0:
+                continue
+            v = np.float32(base[node, 1] + freed[node, 1])
+            ulp = max(1, int(np.spacing(v)))
+            targets.append(node)
+            rows += [int(v), int(v) + ulp]
+            prios += [thr, thr]
+    b = len(rows)
+    req = np.zeros((b, 4), np.int32)
+    req[:, 1] = rows
+    a = dict(c, request=req, priority=np.asarray(prios, np.int32),
+             static_ok=np.ones((b, n), bool))
+    got = _torch_candidate_mask(a, None)
+    want = _dense_mask_by_loop(a)
+    assert np.array_equal(got, want)
+    assert len(targets) >= 4 * n
+    for k, node in enumerate(targets):
+        assert got[2 * k, node] and not got[2 * k + 1, node]
+    assert not np.array_equal(_dense_mask_by_loop(a, reverse=True), want)
+
+
+def _dense_visit_order(pod_valid, pod_node, n: int) -> list:
+    """Per node, the pod rows K29's lane for that node adds, in the order it
+    adds them — a numpy mirror of csrc/preempt.cu's index arithmetic: per
+    tile of DENSE_TILE nodes the tier in chunks of DENSE_CHUNK rows, 256
+    threads of DENSE_CHUNK / 256 consecutive rows each; a thread's pods of
+    the tile placed at its warp's inclusive scan of the counts less its own,
+    plus the scan of the warps' totals; the list in rounds of DENSE_CAP
+    entries and groups of 32, each lane taking its node's entries of a
+    group lowest first."""
+    threads, p = 256, pod_node.size
+    ppt = DENSE_CHUNK // threads
+    order = [[] for _ in range(-(-n // DENSE_TILE) * DENSE_TILE)]
+    for n0 in range(0, n, DENSE_TILE):
+        for c0 in range(0, p, DENSE_CHUNK):
+            rows = c0 + np.arange(threads)[:, None] * ppt + np.arange(ppt)[None, :]
+            inb = rows < p
+            rr = np.where(inb, rows, 0)
+            flag = inb & pod_valid[rr] & (pod_node[rr] >= n0) & (pod_node[rr] < n0 + DENSE_TILE)
+            mine = flag.sum(axis=1)
+            incl = np.concatenate([np.cumsum(w) for w in mine.reshape(-1, 32)])
+            wsum = incl.reshape(-1, 32)[:, -1]
+            first = incl - mine + np.concatenate([[0], np.cumsum(wsum)[:-1]])[
+                np.arange(threads) // 32]
+            lst = np.full(int(wsum.sum()), -1)
+            for t in range(threads):
+                lst[first[t]:first[t] + mine[t]] = rows[t][flag[t]]
+            assert (lst >= 0).all()
+            for rb in range(0, lst.size, DENSE_CAP):
+                rnd = lst[rb:rb + DENSE_CAP]
+                for g in range(0, rnd.size, 32):
+                    grp = rnd[g:g + 32]
+                    local = pod_node[grp] - n0
+                    for lane in range(DENSE_TILE):
+                        order[n0 + lane] += [int(x) for x in grp[local == lane]]
+    return order[:n]
+
+
+@pytest.mark.parametrize("case", ["skewed", "spread"])
+def test_dense_gather_order_equals_node_segments(case):
+    """K29's chunked tile gather visits each node's pods in node_segments'
+    stable order (ascending row within a node): on a tier whose node 5
+    holds ~5000 pods across every chunk (more than a round a chunk) and
+    node 40 1200 pods inside one chunk, with empty nodes, invalid and
+    unbound pods, P not a multiple of a thread's rows and N not a multiple
+    of the tile; and on a uniform tier."""
+    rng = np.random.default_rng(5 if case == "skewed" else 6)
+    if case == "skewed":
+        n, p = 70, 3 * DENSE_CHUNK + 777
+        node = rng.integers(0, 60, p).astype(np.int32)
+        node[rng.random(p) < 0.4] = 5
+        node[DENSE_CHUNK:DENSE_CHUNK + 1200] = 40
+    else:
+        n, p = 33, 5000
+        node = rng.integers(0, n, p).astype(np.int32)
+    node[rng.random(p) < 0.05] = -1
+    valid = rng.random(p) >= 0.1
+    order = _dense_visit_order(valid, node, n)
+    perm, offsets = node_segments(torch.from_numpy(valid), torch.from_numpy(node), n)
+    perm, offsets = perm.tolist(), offsets.tolist()
+    for k in range(n):
+        assert order[k] == perm[offsets[k]:offsets[k + 1]], k
+    if case == "skewed":
+        assert len(order[5]) > DENSE_CHUNK and len(order[40]) > DENSE_CAP
+        assert not any(order[60:])
 
 
 @pytest.mark.parametrize("k", [16, 40, 128, 256])
