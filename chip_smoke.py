@@ -1200,6 +1200,7 @@ def check_spread_kernels(dev) -> dict:
         spread_case("all raw scores 0 (max 0)", gen, dev, n_dom=5, counts=[0]),
         spread_case("no soft constraint", gen, dev, soft=False, cc=2),
         spread_case("no feasible node", gen, dev, mask_frac=0.0),
+        spread_case("N = 1001 (scalar loads), 2 constraints", gen, dev, n=1001, cc=2),
     ]
     err = {k: 0.0 for k in ("spread_prepare_counts", "spread_filter_bits",
                             "spread_score_combine", "spread_update_classes")}
@@ -1720,12 +1721,15 @@ def check_scan_kernels(dev) -> dict:
     ipa_full = []
     for what, kw in (("tables", {}), ("planes, hostname domains", dict(d=8192, n_dom=5000)),
                      ("anti-affinity only, planes", dict(d=8192, n_dom=5000, t=1,
-                                                          present=("req_anti_affinity",)))):
+                                                          present=("req_anti_affinity",))),
+                     ("tables, N = 1001 (scalar loads)", dict(n=1001))):
         cs = ipa_case(f"K19, {what}", gen, dev, c=b, **kw)
-        ipa_full.append(cs)
+        if "n" not in kw:
+            ipa_full.append(cs)
         aux = cs["aux"]
+        nc = aux.exist_anti_block.shape[1]
         keyless = (aux.dom_anti[0, 0] >= cs["d"]).nonzero()
-        nodes = [int(torch.randint(0, n, (1,), generator=gen)), n - 1, -1]
+        nodes = [int(torch.randint(0, nc, (1,), generator=gen)), nc - 1, -1]
         if keyless.numel():
             nodes.append(int(keyless[0, 0]))
         for i in (0, 1, 300):
@@ -3287,22 +3291,14 @@ def time_spread_kernels(sched, err: dict) -> list:
         nbytes(aux.hard_counts, aux.hard_present, aux.hard_valid, aux.max_skew,
                aux.min_domains, aux.self_match) + n_hard * n * 5 + 8 * n_fail,
         4 * n_hard * n + c * cc * d1)
-    # K7: the bit plane (the feasibility mask) and soft_valid read once; the
-    # total read and written on feasible nodes; for the soft constraints
-    # only: has_key on feasible nodes, dom_val on scored ones, their table
-    # row, maxSkew and log-table entry; per feasible (row, node) the
-    # normalization, floor, scale and add, per scored soft term six more
-    feas_mask = bits == full
-    soft_feas = feas_mask[:, None, :] & aux.soft_valid[:, :, None]  # [C, Cc, N]
-    n_soft = int(aux.soft_valid.sum())
-    n_feas_soft = int(soft_feas.sum())
-    n_scored_soft = int((soft_feas & aux.has_key).sum())
-    n_feas = int(feas_mask.sum())
+    # K7 (k7_work), one device activity a call
     row("spread_score_combine", "spread_score_kernel",
         lambda: K.spread_score_combine(aux, bits, full, work_total, weight),
         lambda: K.spread_score_combine_plain(aux, bits, full, work_total.clone(), weight),
-        nbytes(bits, aux.soft_valid) + 8 * n_feas + n_feas_soft + 4 * n_scored_soft
-        + n_soft * (4 * d1 + 4 + 4), 8 * n_feas + 6 * n_scored_soft)
+        *k7_work(aux, bits, full))
+    one_device_activity("spread_score_combine (TopologySpreading)",
+                        lambda: K.spread_score_combine(aux, bits, full, work_total, weight),
+                        "spread_score_kernel", "spread_score_combine")
     # K8: the commit flags read once; per committed pod its node and class
     # (int32) and each row's match bit; per matched row its two counted
     # bits and its domain; per table add a read and a write
@@ -3317,6 +3313,61 @@ def time_spread_kernels(sched, err: dict) -> list:
         lambda: K.spread_update_classes_plain(work_aux, commit, choice, class_t),
         b + commits * (8 + c * cc) + int(mp.sum()) * (2 + 4) + 8 * adds, adds)
     return rows
+
+
+def k7_work(aux, bits, full: int) -> tuple:
+    """K7's bytes and operations on these inputs: the bit plane (the
+    feasibility mask) and soft_valid read once; the total read and written
+    on feasible nodes; for the soft constraints only: has_key on feasible
+    nodes, dom_val on scored ones, their table row, maxSkew and log-table
+    entry; per feasible (row, node) the normalization, floor, scale and add,
+    per scored soft term six more."""
+    feas_mask = bits == full
+    soft_feas = feas_mask[:, None, :] & aux.soft_valid[:, :, None]  # [C, Cc, N]
+    n_soft = int(aux.soft_valid.sum())
+    n_scored_soft = int((soft_feas & aux.has_key).sum())
+    n_feas = int(feas_mask.sum())
+    d1 = aux.soft_counts.shape[-1]
+    return (nbytes(bits, aux.soft_valid) + 8 * n_feas + int(soft_feas.sum())
+            + 4 * n_scored_soft + n_soft * (4 * d1 + 4 + 4), 8 * n_feas + 6 * n_scored_soft)
+
+
+def one_device_activity(label: str, call, symbol: str, key: str, reps: int = 20) -> list:
+    """``reps`` calls under the profiler: the wrapper's count ``key`` rises
+    by exactly ``reps`` (one launch a call), and every device activity the
+    session records is the kernel ``symbol``'s (no torch op on the card
+    beside it) — at least one and at most ``reps`` (a session may lose
+    records, never add them); fails if none of three sessions records one.
+    → the torch ops the calls ran on the host in that session."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubernetes_tpu_torch.kernels import LAUNCHES
+
+    call()
+    torch.cuda.synchronize()
+    for _attempt in range(3):
+        before = LAUNCHES[key]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        if LAUNCHES[key] - before != reps:
+            fail(f"{label}: {LAUNCHES[key] - before} launches in {reps} calls")
+        device = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  for _ in range(e.count)]
+        host = sorted({e.key for e in prof.key_averages()
+                       if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")})
+        if len(device) > reps or any(not kernel_hit(k_, symbol) for k_ in device):
+            fail(f"{label}: {len(device)} device activities in {reps} calls: "
+                 f"{sorted(set(device))}")
+        if device:
+            log(f"  {label}: {reps} calls, {reps} launches, the session's {len(device)} "
+                f"device activities all {symbol}; host ops {host}")
+            return host
+    fail(f"{label}: the profiler recorded no device activity of {reps} calls in three "
+         "sessions")
 
 
 SPREAD_REPLACES = {
@@ -4742,40 +4793,18 @@ def dense_cases(gen) -> dict:
 
 
 def dense_single_launch(g: dict) -> None:
-    """One K29 call under the profiler: at most one device activity, K29's
-    own, and no sort, searchsorted or other torch op than an empty output
-    on the host; it fails if none of three sessions records the kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """K29 calls under the profiler: one launch a call, no device activity
+    but K29's own, and no sort, searchsorted or other torch op than an empty
+    output on the host."""
     from kubernetes_tpu_torch.kernels import preempt as KP
 
-    def call():
-        return KP.candidate_dense(*(g[k] for k in DENSE_POD), *(g[k] for k in DENSE_SIDE),
-                                  0b1111)
-
-    call()
-    torch.cuda.synchronize()
-    for _attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        device = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                  for _ in range(e.count)]
-        host = sorted({e.key for e in prof.key_averages()
-                       if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")})
-        if any("sort" in k_.lower() for k_ in device + host):
-            fail(f"candidate_dense: a sort in the call's records ({device}, {host})")
-        if [k_ for k_ in host if not k_.startswith("aten::empty")]:
-            fail(f"candidate_dense: torch ops beside the kernel on the host: {host}")
-        if len(device) > 1 or any(not kernel_hit(k_, "candidate_dense_kernel") for k_ in device):
-            fail(f"candidate_dense: {len(device)} device activities in one call: {device}")
-        if device:
-            log(f"  candidate_dense: one call, device activities {device}, host ops {host}")
-            return
-    fail("candidate_dense: the profiler recorded no device activity of one call in three "
-         f"sessions (host ops {host}), so its one launch is not shown")
+    host = one_device_activity(
+        "candidate_dense",
+        lambda: KP.candidate_dense(*(g[k] for k in DENSE_POD), *(g[k] for k in DENSE_SIDE),
+                                   0b1111),
+        "candidate_dense_kernel", "candidate_dense")
+    if [k_ for k_ in host if not k_.startswith("aten::empty")]:
+        fail(f"candidate_dense: torch ops beside the kernel on the host: {host}")
 
 
 def preempt_cluster(dev_name: str, size: str, scale: float = 1.0, clock=None, **kw):
@@ -5536,8 +5565,9 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 
 
 # kernels already redesigned for Hopper in the port's step 2 (every row of
-# theirs, at every shape and mode): K2, K3, K4 and K29
-REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense")
+# theirs, at every shape and mode): K2, K3, K4, K29, K19 and K7
+REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
+              "ipa_update_row", "spread_score_combine")
 
 
 def step2_order(rows: list) -> dict:
@@ -6715,6 +6745,7 @@ ENGINE_CARRIER = {
     "filter_score_planes (C = 512)": "heterogeneous backlog",
     "normalize_combine (C = 512)": "heterogeneous backlog",
     "normalize_combine (C = 1)": "TopologySpreading scan",
+    "spread_score_combine (C = 1)": "TopologySpreading scan",
     "topk_rows (C = 512)": "heterogeneous backlog",
     "auction_resolve_commit (C = 512)": "heterogeneous backlog",
     "ipa_update_classes (C = 512)": "SchedulingPodAntiAffinity priority 10",
@@ -6789,17 +6820,7 @@ def b9_row_bounds(spread_calls: dict, ipa_calls: dict) -> dict:
         nbytes(aux6.hard_counts, aux6.hard_present, aux6.hard_valid, aux6.max_skew,
                aux6.min_domains, aux6.self_match) + n_hard * n * 5 + 8 * n_fail,
         4 * n_hard * n + c * cc * d1)
-    aux7, bits7, full7 = last(spread_calls, "spread_score_combine")[:3]
-    d1 = aux7.hard_counts.shape[-1]
-    feas_mask = bits7 == full7
-    soft_feas = feas_mask[:, None, :] & aux7.soft_valid[:, :, None]
-    n_soft = int(aux7.soft_valid.sum())
-    n_feas_soft = int(soft_feas.sum())
-    n_scored_soft = int((soft_feas & aux7.has_key).sum())
-    n_feas7 = int(feas_mask.sum())
-    work["spread_score_combine"] = (
-        nbytes(bits7, aux7.soft_valid) + 8 * n_feas7 + n_feas_soft + 4 * n_scored_soft
-        + n_soft * (4 * d1 + 4 + 4), 8 * n_feas7 + 6 * n_scored_soft)
+    work["spread_score_combine"] = k7_work(*last(spread_calls, "spread_score_combine")[:3])
     aux10, bits10 = last(ipa_calls, "ipa_filter_bits")[:2]
     n10 = bits10.shape[1]
     work["ipa_filter_bits"] = (nbytes(aux10.exist_anti_block, aux10.block_dyn)
@@ -6974,6 +6995,9 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
             nbytes_, nops,
             {"B": aux.exist_anti_block.shape[0], "N": n_, "D": d, "present": list(aux.present),
              "planes": form == "planes"}, err["ipa_update_row"])
+        one_device_activity(f"ipa_update_row ({form})",
+                            lambda: KI.ipa_update_row(work, i, at), "ipa_update_row_kernel",
+                            "ipa_update_row")
 
     # the reused kernels at C = B = 512 on the heterogeneous backlog's latest
     # full-auction round (the formulas of time_kernels)
@@ -7020,6 +7044,26 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
         max(err["normalize_combine"], err1))
     ROUND_CALLS["normalize_combine (C = 1)"] = (
         lambda: normalize_combine(bits1, full1, raw1, plan1), "normalize_combine_kernel", {})
+    # K7 on one pod's row, as the exact scan launches it every step (the
+    # TopologySpreading scan's latest step)
+    (aux7, bits7, full7, total7, weight7), _ = scan_args["spread_score_combine"]
+    kt7, pt7 = total7.clone(), total7.clone()
+    KSp.spread_score_combine(aux7, bits7, full7, kt7, weight7)
+    KSp.spread_score_combine_plain(aux7, bits7, full7, pt7, weight7)
+    err7 = require_equal("spread_score_combine (C = 1, path shapes)", [("total", kt7, pt7)])
+    work7 = total7.clone()
+    row("spread_score_combine", "spread_score_combine (C = 1)",
+        "kubernetes_tpu_torch/csrc/spread.cu",
+        "kubernetes_tpu/plugins/podtopologyspread.py:186", "spread_score_kernel",
+        lambda: KSp.spread_score_combine(aux7, bits7, full7, work7, weight7),
+        lambda: KSp.spread_score_combine_plain(aux7, bits7, full7, work7.clone(), weight7),
+        *k7_work(aux7, bits7, full7),
+        {"C": 1, "Cc": aux7.dom_val.shape[1], "N": bits7.shape[1],
+         "soft": int(aux7.soft_valid.sum())},
+        max(reuse_err["spread_score_combine"], err7))
+    one_device_activity("spread_score_combine (C = 1)",
+                        lambda: KSp.spread_score_combine(aux7, bits7, full7, work7, weight7),
+                        "spread_score_kernel", "spread_score_combine")
     (eff, k), _ = full_args["topk_rows"]
     row("topk_rows", "topk_rows (C = 512)", "kubernetes_tpu_torch/csrc/topk_rows.cu",
         "kubernetes_tpu/framework/runtime.py:571", "topk_select_kernel",
@@ -8322,5 +8366,56 @@ def main() -> None:
           flush=True)
 
 
+def child_pids() -> list:
+    """The processes whose parent is this one, from /proc."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            stat = Path(f"/proc/{d}/stat").read_text()
+        except OSError:
+            continue
+        # the command name may hold spaces or parentheses: the parent's pid is
+        # the second field after the last ')'
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            out.append(int(d))
+    return out
+
+
+def stop_children() -> None:
+    """Stop and reap every process the script started, whether it passed or
+    failed: the spawn extender servers still alive, multiprocessing's
+    resource tracker (started with the first spawn child, it runs until its
+    pipe closes, so it would outlive the script), then any other child."""
+    import signal
+
+    mp = sys.modules.get("multiprocessing")
+    if mp is not None:
+        for proc in mp.active_children():
+            proc.terminate()
+            proc.join(5)
+        from multiprocessing import resource_tracker
+
+        tracker = resource_tracker._resource_tracker
+        if hasattr(tracker, "_stop"):
+            tracker._stop()
+        elif tracker._fd is not None:
+            os.close(tracker._fd)
+            os.waitpid(tracker._pid, 0)
+            tracker._fd = tracker._pid = None
+    for pid in child_pids():
+        print(f"chip_smoke: stopping leftover child process {pid}", file=sys.stderr,
+              flush=True)
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+
+
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()

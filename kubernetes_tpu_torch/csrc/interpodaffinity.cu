@@ -66,21 +66,36 @@
 //
 // K19 ipa_update_row: the scan's step update (update, :447-530) — pod i
 //   placed on the node K17 wrote to node_row[i] (read on the card; < 0: no
-//   change), at full-batch rows B, both count forms, one launch for every
-//   present term group.  One thread per (pending pod j, node n): (1, 2, 4)
-//   each of j's terms that pod i matches, where pod i's node has the key,
-//   adds one to j's plane over the nodes of that domain (planes form) or,
-//   by the row's first thread, to j's table at the domain (tables form),
-//   and the keyed required-affinity terms add to aff_total[j]; (3) pod i's
-//   own required anti-affinity terms that match j block n when n shares the
-//   term's domain at pod i's node; (5) pod i's own terms score j at such n:
-//   + hardPodAffinityWeight per required-affinity term, then + the weight
-//   of each preferred-affinity term, then − the weight of each preferred
-//   anti-affinity term, added to score_dyn in the reference's order.  Each
-//   (j, t, n) cell has one writer: no atomics.  The reference rewrites the
-//   same [B, T, N] planes with one-hot compares.  Bound: bytes (j's domain
-//   planes of every group with a term pod i matches, read once, and
-//   score_dyn read; a few of them written).
+//   change, and every block exits after that one read), at full-batch rows
+//   B, both count forms, every present term group in one launch.  Bound:
+//   bytes — the domain rows of j's count terms that gain pod i (planes),
+//   pod i's own domain rows, and score_dyn / block_dyn only where one of pod
+//   i's terms matches j, on the nodes of that term's domain.
+//   Design.  A block owns a tile of 4096 nodes (256 threads, four 16-byte
+//   vectors each) for a run of R pending rows, R set for about four blocks
+//   an SM (R = 2 at B = 512, N = 8192: 256 blocks; picked over 1 and 4
+//   rows and 2048-node tiles by timing them on the H100, PERF.md):
+//   * flags first: one thread per (row, term) reads the few bytes of row j
+//     — whether j's term gains pod i (i matches it, every one of j's terms
+//     for required affinity, and pod i's node has the key) and at which
+//     domain, and whether pod i's term matches j.  The tables form's point
+//     add and the keyed required terms' aff_total mass are done there, once,
+//     by the first tile's blocks: one thread per (j, t), no node loop;
+//   * pod i's rows once a block: for each of its terms, which of the
+//     thread's nodes share the domain of pod i's node, staged in shared
+//     memory (one bit per (term, node));
+//   * the walk: a row with no flag costs its flag bytes; the planes form's
+//     compare-add streams only the count rows that gain pod i (every vector
+//     loaded before any is used, the counts read and written only in
+//     vectors holding the domain); block_dyn and score_dyn are touched only
+//     in rows that one of pod i's terms matches, on the vectors holding
+//     nodes of its domain (one vector a row on a hostname step).
+//   Exactness: each (j, t, n) cell has one writer, no atomics on the planes;
+//   the score adds + hardPodAffinityWeight per required-affinity term, then
+//   + the preferred-affinity weights, then − the preferred anti-affinity
+//   weights, each group's plane summed in term order, with __fadd_rn /
+//   __fsub_rn (integer-valued f32 below 2^24).  The reference rewrites the
+//   same [B, T, N] planes with one-hot compares.
 //
 // Numerics (built with --fmad=false): every score term is an integer-valued
 // float32 below 2^24, so sums are exact in any order; the normalization is
@@ -661,84 +676,292 @@ struct RowGroup {
   float w_scalar;
 };
 
+// the four term groups in the reference's order (GROUP_REQ_AFF,
+// GROUP_REQ_ANTI, preferred affinity, preferred anti-affinity); a term k
+// of pod i counts over the groups' terms in that order
+struct RowGroups {
+  RowGroup g[4];
+};
+
 #define ROW_THREADS 256
+#define ROW_ITEMS 4            // vectors a thread: a tile of ROW_THREADS · ROW_ITEMS · VEC nodes
+#define ROW_MAX_RUN 8          // pending rows a block walks
+#define ROW_TARGET_BLOCKS 528  // four blocks an SM of the H100's 132
 
-__device__ __forceinline__ bool count_inc(const RowGroup& g, int j, int t, int B, int N,
-                                          int D, int i, int node, bool all_cross,
-                                          const uint8_t* row_valid, int* dat) {
-  // pending pod j's term (j, t) gains pod i where i matches it and pod i's
-  // node has the term's key
-  const long long jt = (long long)j * g.T + t;
-  const bool match = all_cross ? row_valid[jt] : g.cross[jt * B + i];
-  if (!match) return false;
-  *dat = g.dom[jt * N + node];
-  return *dat < D;
+template <int VEC>
+__device__ __forceinline__ void row_load(const int32_t* p, int (&o)[VEC]) {
+  if constexpr (VEC == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  } else {
+    o[0] = __ldg(p);
+  }
 }
 
-__device__ __forceinline__ void bump_counts(const RowGroup& g, int j, int n, int B, int N,
-                                            int D, int i, int node, bool all_cross,
-                                            const uint8_t* row_valid, int* mass) {
-  for (int t = 0; t < g.T; ++t) {
-    int dat;
-    if (!count_inc(g, j, t, B, N, D, i, node, all_cross, row_valid, &dat)) continue;
-    const long long jt = (long long)j * g.T + t;
-    if (g.W == N) {  // planes: every node of the domain
-      if (g.dom[jt * N + n] == dat) g.cnt[jt * N + n] += 1;
-    } else if (n == 0) {  // tables: one add, by the row's first thread
-      g.cnt[jt * g.W + dat] += 1;
+// the first node of vector it of this thread in the block's tile
+template <int VEC>
+__device__ __forceinline__ int row_node(int n0, int it, int tid) {
+  return n0 + (it * ROW_THREADS + tid) * VEC;
+}
+
+// planes form: count row (j, t) gains pod i on every node of the tile in
+// pod i's node's domain `dat` — the row's domains streamed in vectors
+// (every load issued before any is used), the counts read and written
+// only in vectors that hold such a node
+template <int VEC>
+__device__ __forceinline__ void planes_add(const int32_t* __restrict__ drow,
+                                           int32_t* __restrict__ crow, int n0, int N,
+                                           int tid, int dat) {
+  int v[ROW_ITEMS][VEC];
+#pragma unroll
+  for (int it = 0; it < ROW_ITEMS; ++it) {
+    const int nb = row_node<VEC>(n0, it, tid);
+    if (nb < N) {
+      row_load<VEC>(drow + nb, v[it]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[it][e] = -1;
     }
-    *mass += 1;
+  }
+#pragma unroll
+  for (int it = 0; it < ROW_ITEMS; ++it) {
+    unsigned hit = 0;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) hit |= (v[it][e] == dat ? 1u : 0u) << e;
+    if (!hit) continue;
+    int32_t* p = crow + row_node<VEC>(n0, it, tid);
+    if constexpr (VEC == 4) {
+      int4 c = *reinterpret_cast<int4*>(p);
+      c.x += hit & 1u; c.y += (hit >> 1) & 1u; c.z += (hit >> 2) & 1u; c.w += (hit >> 3) & 1u;
+      *reinterpret_cast<int4*>(p) = c;
+    } else {
+      p[0] += 1;
+    }
   }
 }
 
-__device__ __forceinline__ float own_plane(const RowGroup& g, int j, int n, int B, int N,
-                                           int D, int i, int node) {
-  // Σ_t weight(i, t) over pod i's terms that match pod j and share pod i's
-  // node's domain at node n (the reference's plane(), one (j, n) entry)
-  float s = 0.0f;
-  for (int t = 0; t < g.T; ++t) {
-    const long long it = (long long)i * g.T + t;
-    if (!g.cross[it * B + j]) continue;
-    const int dv = g.dom[it * N + n];
-    if (dv >= D || dv != g.dom[it * N + node]) continue;
-    s = __fadd_rn(s, g.wt ? g.wt[it] : g.w_scalar);
-  }
-  return s;
-}
-
+// grid: (node tiles, runs of R pending rows); dynamic shared memory: pod i's
+// same-domain bits of this thread's nodes per term k (u16 [K][ROW_THREADS]),
+// pod i's term weights (f32 [K]), and the run's per-row flags — the domain
+// at pod i's node of each planes count term that gains pod i, else −1
+// (i32 [R][K]), and whether pod i's term k matches the row (u8 [R][K])
+template <int VEC>
 __global__ void __launch_bounds__(ROW_THREADS) ipa_update_row_kernel(
-    int B, int N, int D, int i, const int32_t* __restrict__ node_at,  // pod i's node
-    RowGroup aff, const uint8_t* __restrict__ aff_cross_all,  // [B, B]
-    const uint8_t* __restrict__ req_aff_valid,                // [B, T1]
-    int32_t* __restrict__ aff_total,                          // [B]
-    RowGroup anti, RowGroup paff, RowGroup panti,
+    int B, int N, int D, int i, int K, int R, const int32_t* __restrict__ node_at,
+    const RowGroups gs, const uint8_t* __restrict__ aff_cross_all,  // [B, B]
+    const uint8_t* __restrict__ req_aff_valid,                      // [B, T1]
+    int32_t* __restrict__ aff_total,                                // [B]
     uint8_t* __restrict__ block_dyn, float* __restrict__ score_dyn) {
-  const int node = *node_at;
+  constexpr int TILE = ROW_THREADS * ROW_ITEMS * VEC;
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  uint16_t* s_same = reinterpret_cast<uint16_t*>(row_smem);
+  float* s_w = reinterpret_cast<float*>(s_same + (size_t)K * ROW_THREADS);
+  int32_t* s_dat = reinterpret_cast<int32_t*>(s_w + K);
+  uint8_t* s_own = reinterpret_cast<uint8_t*>(s_dat + R * K);
+  // per row: bit 0 a planes count term gains pod i, bit 1 a term of pod i
+  // scores the row, bit 2 a required anti-affinity term of pod i blocks it
+  __shared__ int s_row[ROW_MAX_RUN];
+  __shared__ int s_mass[ROW_MAX_RUN];
+
+  const int node = __ldg(node_at);
   if (node < 0) return;  // pod i was not placed: the step changes nothing
-  const int j = blockIdx.y;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  // 1), 2), 4): pod j's count state gains pod i
-  if (aff.T && aff_cross_all[(long long)j * B + i]) {
-    int mass = 0;
-    bump_counts(aff, j, n, B, N, D, i, node, true, req_aff_valid, &mass);
-    if (n == 0 && mass) aff_total[j] += mass;  // the table mass, one per keyed term
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * TILE;
+  const int j0 = blockIdx.y * R;
+  const int rows = min(R, B - j0);
+  if (tid < ROW_MAX_RUN) {
+    s_row[tid] = 0;
+    s_mass[tid] = 0;
   }
-  int unused = 0;
-  if (anti.T) bump_counts(anti, j, n, B, N, D, i, node, false, nullptr, &unused);
-  if (paff.T) bump_counts(paff, j, n, B, N, D, i, node, false, nullptr, &unused);
-  if (panti.T) bump_counts(panti, j, n, B, N, D, i, node, false, nullptr, &unused);
-  // 3): pod i's own required anti-affinity terms block pod j on their domains
-  const long long jn = (long long)j * N + n;
-  if (anti.T && own_plane(anti, j, n, B, N, D, i, node) > 0.0f) block_dyn[jn] = 1;
-  // 5): pod i's own terms score pod j, added in the reference's order
-  float s = score_dyn[jn];
-  const float s0 = s;
-  if (aff.T) s = __fadd_rn(s, own_plane(aff, j, n, B, N, D, i, node));
-  if (paff.T) s = __fadd_rn(s, own_plane(paff, j, n, B, N, D, i, node));
-  if (panti.T) s = __fsub_rn(s, own_plane(panti, j, n, B, N, D, i, node));
-  if (s != s0) score_dyn[jn] = s;
+  __syncthreads();
+
+  // (a) the run's per-row flags, one thread per (row, term), before any
+  // plane is touched.  The tables form's point add (and the row's
+  // aff_total mass) is done here, once, by the first tile's block.
+  for (int x = tid; x < rows * K; x += ROW_THREADS) {
+    const int r = x / K, k = x - r * K, j = j0 + r;
+    int off = 0;
+#pragma unroll
+    for (int gi = 0; gi < 4; ++gi) {
+      const RowGroup& g = gs.g[gi];
+      if (k >= off && k < off + g.T) {
+        const int t = k - off;
+        const long long jt = (long long)j * g.T + t;
+        // pending pod j's term (j, t) gains pod i where i matches it (every
+        // one of j's terms, for required affinity) and pod i's node has the key
+        const bool match = gi == GROUP_REQ_AFF
+                               ? (aff_cross_all[(long long)j * B + i] && req_aff_valid[jt])
+                               : g.cross[jt * B + i] != 0;
+        int dat = -1;
+        if (match) {
+          const int dv = __ldg(g.dom + jt * N + node);
+          if (dv < D) dat = dv;
+        }
+        const bool planes = g.W == N;
+        if (dat >= 0) {
+          if (planes) {
+            atomicOr(&s_row[r], 1);
+          } else if (blockIdx.x == 0) {
+            g.cnt[jt * g.W + dat] += 1;
+          }
+          if (gi == GROUP_REQ_AFF) atomicAdd(&s_mass[r], 1);
+        }
+        s_dat[x] = planes ? dat : -1;
+        const bool own = g.cross[((long long)i * g.T + t) * B + j] != 0;
+        s_own[x] = own ? 1 : 0;
+        if (own) atomicOr(&s_row[r], gi == GROUP_REQ_ANTI ? 4 : 2);
+      }
+      off += g.T;
+    }
+  }
+
+  // (b) pod i's rows, read once a block: for each of its terms, which of
+  // this thread's nodes share the domain of pod i's node (staged in shared
+  // memory, read back by the same thread only)
+  int koff = 0;
+#pragma unroll
+  for (int gi = 0; gi < 4; ++gi) {
+    const RowGroup& g = gs.g[gi];
+    for (int t = 0; t < g.T; ++t) {
+      const long long it_ = (long long)i * g.T + t;
+      const int32_t* drow = g.dom + it_ * N;
+      const int di = __ldg(drow + node);
+      unsigned m = 0;
+      if (di < D) {
+        int v[ROW_ITEMS][VEC];
+#pragma unroll
+        for (int it = 0; it < ROW_ITEMS; ++it) {
+          const int nb = row_node<VEC>(n0, it, tid);
+          if (nb < N) {
+            row_load<VEC>(drow + nb, v[it]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) v[it][e] = -1;
+          }
+        }
+#pragma unroll
+        for (int it = 0; it < ROW_ITEMS; ++it)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) m |= (v[it][e] == di ? 1u : 0u) << (it * VEC + e);
+      }
+      s_same[(koff + t) * ROW_THREADS + tid] = (uint16_t)m;
+      if (tid == 0) s_w[koff + t] = g.wt ? __ldg(g.wt + it_) : g.w_scalar;
+    }
+    koff += g.T;
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && tid < rows && s_mass[tid]) aff_total[j0 + tid] += s_mass[tid];
+
+  // (c) the walk: only the rows a flag names, only the planes they name
+  for (int r = 0; r < rows; ++r) {
+    const int flags = s_row[r];
+    if (!flags) continue;
+    const long long j = j0 + r;
+    const int32_t* dat_r = s_dat + r * K;
+    const uint8_t* own_r = s_own + r * K;
+    if (flags & 1) {  // (1, 2, 4) planes: j's count rows that gain pod i
+      int off = 0;
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) {
+        const RowGroup& g = gs.g[gi];
+        if (g.W == N) {
+          for (int t = 0; t < g.T; ++t) {
+            const int dat = dat_r[off + t];
+            if (dat < 0) continue;
+            const long long row = (j * g.T + t) * (long long)N;
+            planes_add<VEC>(g.dom + row, g.cnt + row, n0, N, tid, dat);
+          }
+        }
+        off += g.T;
+      }
+    }
+    if (flags & 4) {  // (3) pod i's required anti-affinity terms block j on their domains
+      const int off = gs.g[GROUP_REQ_AFF].T;
+      unsigned hit = 0;
+      for (int t = 0; t < gs.g[GROUP_REQ_ANTI].T; ++t)
+        if (own_r[off + t]) hit |= s_same[(off + t) * ROW_THREADS + tid];
+      while (hit) {
+        const int b = __ffs(hit) - 1;
+        hit &= hit - 1;
+        block_dyn[j * N + row_node<VEC>(n0, b / VEC, tid) + b % VEC] = 1;
+      }
+    }
+    if (flags & 2) {  // (5) pod i's own terms score j on their domains
+      unsigned touch = 0;
+      int off = 0;
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) {
+        if (gi != GROUP_REQ_ANTI)
+          for (int t = 0; t < gs.g[gi].T; ++t)
+            if (own_r[off + t]) touch |= s_same[(off + t) * ROW_THREADS + tid];
+        off += gs.g[gi].T;
+      }
+      if (!touch) continue;
+      // every vector's load issued before any is used
+      float* srow = score_dyn + j * N;
+      float x[ROW_ITEMS][VEC];
+#pragma unroll
+      for (int it = 0; it < ROW_ITEMS; ++it) {
+        if (!((touch >> (it * VEC)) & ((1u << VEC) - 1u))) continue;
+        const float* p = srow + row_node<VEC>(n0, it, tid);
+        if constexpr (VEC == 4) {
+          const float4 f = *reinterpret_cast<const float4*>(p);
+          x[it][0] = f.x; x[it][1] = f.y; x[it][2] = f.z; x[it][3] = f.w;
+        } else {
+          x[it][0] = p[0];
+        }
+      }
+      // + hardPodAffinityWeight per required-affinity term, + each
+      // preferred-affinity weight, − each preferred anti-affinity weight:
+      // each group's plane summed in term order, then added; an unchanged
+      // value keeps its bits (only a −0 could come back as +0)
+#pragma unroll
+      for (int it = 0; it < ROW_ITEMS; ++it) {
+        const unsigned vm = (touch >> (it * VEC)) & ((1u << VEC) - 1u);
+        if (!vm) continue;
+        float x0[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) x0[e] = x[it][e];
+        int o = 0;
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi) {
+          const int T = gs.g[gi].T;
+          if (gi != GROUP_REQ_ANTI && T) {
+            float pl[VEC];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) pl[e] = 0.0f;
+            for (int t = 0; t < T; ++t) {
+              if (!own_r[o + t]) continue;
+              const unsigned m =
+                  (s_same[(o + t) * ROW_THREADS + tid] >> (it * VEC)) & ((1u << VEC) - 1u);
+              if (!m) continue;
+              const float w = s_w[o + t];
+#pragma unroll
+              for (int e = 0; e < VEC; ++e)
+                if ((m >> e) & 1u) pl[e] = __fadd_rn(pl[e], w);
+            }
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              if ((vm >> e) & 1u)
+                x[it][e] = gi == 3 ? __fsub_rn(x[it][e], pl[e]) : __fadd_rn(x[it][e], pl[e]);
+          }
+          o += T;
+        }
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if (x[it][e] == x0[e]) x[it][e] = x0[e];
+        float* p = srow + row_node<VEC>(n0, it, tid);
+        if constexpr (VEC == 4) {
+          *reinterpret_cast<float4*>(p) = make_float4(x[it][0], x[it][1], x[it][2], x[it][3]);
+        } else {
+          p[0] = x[it][0];
+        }
+      }
+    }
+  }
 }
+
+static bool row_aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 extern "C" int launch_ipa_update_row(
     int B, int N, int D, int i, const void* node_at,
@@ -750,20 +973,49 @@ extern "C" int launch_ipa_update_row(
     int T4, int W4, const void* dom_panti, void* panti_cnt, const void* panti_cross,
     const void* panti_weight,
     void* block_dyn, void* score_dyn, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  RowGroup aff{T1, W1, (const int32_t*)dom_aff, (int32_t*)aff_cnt,
-               (const uint8_t*)aff_term_cross, nullptr, hard_weight};
+  const int K = T1 + T2 + T3 + T4;
+  if (B <= 0 || N <= 0 || K <= 0) return 0;
+  RowGroups gs;
+  gs.g[GROUP_REQ_AFF] = RowGroup{T1, W1, (const int32_t*)dom_aff, (int32_t*)aff_cnt,
+                                 (const uint8_t*)aff_term_cross, nullptr, hard_weight};
   // the block reads only whether a term hits: weight 1
-  RowGroup anti{T2, W2, (const int32_t*)dom_anti, (int32_t*)anti_cnt,
-                (const uint8_t*)anti_cross, nullptr, 1.0f};
-  RowGroup paff{T3, W3, (const int32_t*)dom_paff, (int32_t*)paff_cnt,
-                (const uint8_t*)paff_cross, (const float*)paff_weight, 0.0f};
-  RowGroup panti{T4, W4, (const int32_t*)dom_panti, (int32_t*)panti_cnt,
-                 (const uint8_t*)panti_cross, (const float*)panti_weight, 0.0f};
-  dim3 grid((N + ROW_THREADS - 1) / ROW_THREADS, B);
-  ipa_update_row_kernel<<<grid, ROW_THREADS, 0, (cudaStream_t)stream>>>(
-      B, N, D, i, (const int32_t*)node_at, aff, (const uint8_t*)aff_cross_all,
-      (const uint8_t*)req_aff_valid, (int32_t*)aff_total, anti, paff, panti,
-      (uint8_t*)block_dyn, (float*)score_dyn);
+  gs.g[GROUP_REQ_ANTI] = RowGroup{T2, W2, (const int32_t*)dom_anti, (int32_t*)anti_cnt,
+                                  (const uint8_t*)anti_cross, nullptr, 1.0f};
+  gs.g[2] = RowGroup{T3, W3, (const int32_t*)dom_paff, (int32_t*)paff_cnt,
+                     (const uint8_t*)paff_cross, (const float*)paff_weight, 0.0f};
+  gs.g[3] = RowGroup{T4, W4, (const int32_t*)dom_panti, (int32_t*)panti_cnt,
+                     (const uint8_t*)panti_cross, (const float*)panti_weight, 0.0f};
+  // 16-byte vectors where every row of the planes starts on a 16-byte boundary
+  bool vec4 = N % 4 == 0 && row_aligned16(score_dyn);
+  for (int gi = 0; gi < 4; ++gi) {
+    const RowGroup& g = gs.g[gi];
+    if (g.T) vec4 = vec4 && row_aligned16(g.dom) && (g.W != N || row_aligned16(g.cnt));
+  }
+  const int tile = ROW_THREADS * ROW_ITEMS * (vec4 ? 4 : 1);
+  const int tiles = (N + tile - 1) / tile;
+  // rows a block: about four blocks an SM over the whole grid
+  int R = (int)(((long long)B * tiles + ROW_TARGET_BLOCKS - 1) / ROW_TARGET_BLOCKS);
+  R = R < 1 ? 1 : (R > ROW_MAX_RUN ? ROW_MAX_RUN : R);
+  const size_t smem = (size_t)K * ROW_THREADS * 2 + (size_t)K * 4 + (size_t)R * K * 5;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const void* fn = vec4 ? (const void*)ipa_update_row_kernel<4> : (const void*)ipa_update_row_kernel<1>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid(tiles, (B + R - 1) / R);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec4) {
+    ipa_update_row_kernel<4><<<grid, ROW_THREADS, smem, s>>>(
+        B, N, D, i, K, R, (const int32_t*)node_at, gs, (const uint8_t*)aff_cross_all,
+        (const uint8_t*)req_aff_valid, (int32_t*)aff_total, (uint8_t*)block_dyn,
+        (float*)score_dyn);
+  } else {
+    ipa_update_row_kernel<1><<<grid, ROW_THREADS, smem, s>>>(
+        B, N, D, i, K, R, (const int32_t*)node_at, gs, (const uint8_t*)aff_cross_all,
+        (const uint8_t*)req_aff_valid, (int32_t*)aff_total, (uint8_t*)block_dyn,
+        (float*)score_dyn);
+  }
   return (int)cudaGetLastError();
 }

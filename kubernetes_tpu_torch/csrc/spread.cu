@@ -22,12 +22,22 @@
 // K6 spread_filter_bits: one thread per (class row, node); each block first
 //   reduces the row's minimum over present domains in shared memory.
 //   Clears the filter's bit in K1's pass-bit plane in place.  Bound: bytes.
-// K7 spread_score_combine: one block per class row, four sweeps over the
-//   row: the scored nodes' present domains (a shared-memory bitmap), their
-//   count per constraint (topo_size), the raw score's max and min over the
-//   valid nodes, then the normalized, floored, weighted score added into K2's
-//   total.  Bound: bytes (dom_val and the bit plane read three times, total
-//   read and written once) — at C = 4 the four blocks leave the card idle.
+// K7 spread_score_combine: score + normalize + the weighted floor into K2's
+//   total.  Bound: bytes (the bit plane read once, the total read and
+//   written on feasible nodes, has_key / dom_val of the soft constraints).
+//   A row with no soft constraint (DoNotSchedule: TopologySpreading) scores
+//   0 everywhere, so its feasible nodes normalize to 100: one pass over the
+//   bits and the total, total += weight · 100.  Otherwise one read: each
+//   thread keeps its nodes' feasible / scored masks and raw scores in
+//   registers; the scored nodes' domains go into a shared-memory bitmap per
+//   constraint; at most 16 rows a row is split over a thread-block cluster
+//   of up to 8 blocks (cudaLaunchKernelEx; the plan, cluster size and slice,
+//   a by-value kernel parameter), whose bitmaps are OR-merged through
+//   distributed shared memory (topo_size by popcount) and whose max / min
+//   partials are pushed into every block of the cluster — two cluster
+//   barriers; above 16 rows one block a row (two at the 100k-node tier).
+//   The raw score is computed once, after the merge, and the normalize /
+//   floor / weight / add is written from registers.
 // K8 spread_update_classes: one thread per (committed pod, class
 //   constraint row); integer atomics into the tables.  O(B · C · Cc) where
 //   the reference's einsum is O(C · Cc · N).  Bound: latency.
@@ -52,9 +62,12 @@
 // from the TOPO_LOG table (XLA:CPU's float32 log bits); the normalization is
 // 100 · ((max + min) − s) / max with a correctly rounded divide.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define MAX_CC 8
 #define BIG (1 << 30)
@@ -86,36 +99,6 @@ __device__ __forceinline__ int block_sum_int(int v, int* scratch) {
   if (threadIdx.x == 0) {
     int r = 0;
     for (int w = 0; w < (int)(blockDim.x / 32); ++w) r += scratch[w];
-    scratch[0] = r;
-  }
-  __syncthreads();
-  return scratch[0];
-}
-
-__device__ __forceinline__ float block_max_float(float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffff, v, off));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float r = scratch[0];
-    for (int w = 1; w < (int)(blockDim.x / 32); ++w) r = fmaxf(r, scratch[w]);
-    scratch[0] = r;
-  }
-  __syncthreads();
-  return scratch[0];
-}
-
-__device__ __forceinline__ float block_min_float(float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_down_sync(0xffffffff, v, off));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float r = scratch[0];
-    for (int w = 1; w < (int)(blockDim.x / 32); ++w) r = fminf(r, scratch[w]);
     scratch[0] = r;
   }
   __syncthreads();
@@ -243,7 +226,10 @@ extern "C" int launch_spread_filter(int C, int Cc, int N, int D1, const void* co
 
 // --- K7 -----------------------------------------------------------------------------
 
-#define SCORE_THREADS 1024
+#define SCORE_MAX_THREADS 512
+#define SCORE_ITEMS 4          // vectors a thread keeps in registers
+#define SCORE_MAX_CLUSTER 8
+#define SCORE_WORDS 257        // a constraint's present-domain bits: D + 1 ≤ 8193
 
 struct ScoreRow {
   int C, Cc, N, D1, full;
@@ -255,97 +241,388 @@ struct ScoreRow {
   const uint8_t* has_key;     // [C, Cc, N]
 };
 
-// node n of row c is scored: feasible and carrying every soft constraint's key
-__device__ __forceinline__ bool scored_node(const ScoreRow& r, int c, int n) {
-  if (r.bits[(long long)c * r.N + n] != r.full) return false;
-  for (int k = 0; k < r.Cc; ++k) {
-    const int ck = c * r.Cc + k;
-    if (r.soft_valid[ck] && !r.has_key[(long long)ck * r.N + n]) return false;
-  }
-  return true;
+// the launch's shape, a kernel parameter: CL blocks a row (a thread-block
+// cluster when CL > 1), block r of a row taking the nodes [r S, (r + 1) S)
+struct ScorePlan {
+  int CL;
+  int S;
+  float weight;
+};
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// the raw score of node n (NaN where a soft row's node is not scored)
-__device__ __forceinline__ float raw_score(const ScoreRow& r, int c, int n, bool has_soft,
-                                           const uint8_t* s_present, const float* s_w) {
-  if (!has_soft) return 0.0f;
-  if (!scored_node(r, c, n)) return __int_as_float(0x7fc00000);  // NaN
-  float s = 0.0f;
-  for (int k = 0; k < r.Cc; ++k) {
-    const int ck = c * r.Cc + k;
-    float term = 0.0f;
-    const long long on = (long long)ck * r.N + n;
-    if (r.soft_valid[ck] && r.has_key[on]) {
-      const int dv = r.dom_val[on];
-      if (s_present[k * r.D1 + dv]) {
-        const float cnt = (float)r.counts[(long long)ck * r.D1 + dv];
-        term = __fadd_rn(__fmul_rn(cnt, s_w[k]), __fsub_rn((float)r.max_skew[ck], 1.0f));
-      }
-    }
-    s = __fadd_rn(s, term);
+template <int VEC>
+__device__ __forceinline__ void ld_i32(const int32_t* p, int (&o)[VEC]) {
+  if constexpr (VEC == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  } else {
+    o[0] = __ldg(p);
   }
-  return rintf(s);
 }
 
-__global__ void __launch_bounds__(SCORE_THREADS) spread_score_kernel(ScoreRow r, const float* __restrict__ topo_log,
-                                    int topo_log_len, float weight,
-                                    float* __restrict__ total) {
-  extern __shared__ uint8_t s_present[];  // [Cc, D1]
-  __shared__ float fscratch[SCORE_THREADS / 32];
-  __shared__ int iscratch[SCORE_THREADS / 32];
-  __shared__ float s_w[MAX_CC];
-  __shared__ int s_topo[MAX_CC];
-  const int c = blockIdx.x;
+template <int VEC>
+__device__ __forceinline__ unsigned ld_flags(const uint8_t* p) {
+  if constexpr (VEC == 4) {
+    const uchar4 v = __ldg(reinterpret_cast<const uchar4*>(p));
+    return (v.x ? 1u : 0u) | (v.y ? 2u : 0u) | (v.z ? 4u : 0u) | (v.w ? 8u : 0u);
+  } else {
+    return __ldg(p) ? 1u : 0u;
+  }
+}
+
+// vector v of a row slice: its feasible nodes (all filter bits set) and its
+// scored ones (feasible and carrying every soft constraint's key), as masks
+template <int VEC>
+__device__ __forceinline__ void node_masks(const ScoreRow& r, int c, int n, unsigned soft,
+                                           unsigned* fm, unsigned* sm) {
+  int b[VEC];
+  ld_i32<VEC>(r.bits + (size_t)c * r.N + n, b);
+  unsigned f = 0;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) f |= (b[e] == r.full ? 1u : 0u) << e;
+  unsigned s = f;
+  for (int k = 0; k < r.Cc && s; ++k)
+    if ((soft >> k) & 1u) s &= ld_flags<VEC>(r.has_key + (size_t)(c * r.Cc + k) * r.N + n);
+  *fm = f;
+  *sm = s;
+}
+
+// the scored nodes' domains under each soft constraint into the block's
+// present-domain bits (a word is read before it is written: after the
+// first node of a domain the rest read a set bit)
+template <int VEC>
+__device__ __forceinline__ void mark_present(const ScoreRow& r, int c, int n, unsigned soft,
+                                             unsigned sm, uint32_t* s_present, int Wd) {
   const int D = r.D1 - 1;
-  for (int i = threadIdx.x; i < r.Cc * r.D1; i += blockDim.x) s_present[i] = 0;
-  __syncthreads();
-  // sweep 1: domains present among the scored nodes
-  for (int n = threadIdx.x; n < r.N; n += blockDim.x) {
-    if (!scored_node(r, c, n)) continue;
-    for (int k = 0; k < r.Cc; ++k) {
-      const int dv = r.dom_val[(long long)(c * r.Cc + k) * r.N + n];
-      if (dv < D) s_present[k * r.D1 + dv] = 1;
+  for (int k = 0; k < r.Cc && sm; ++k) {
+    if (!((soft >> k) & 1u)) continue;
+    int dv[VEC];
+    ld_i32<VEC>(r.dom_val + (size_t)(c * r.Cc + k) * r.N + n, dv);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if (!((sm >> e) & 1u) || dv[e] >= D) continue;
+      uint32_t* w = s_present + k * Wd + (dv[e] >> 5);
+      const uint32_t bit = 1u << (dv[e] & 31);
+      if (!(*w & bit)) atomicOr(w, bit);
     }
   }
-  __syncthreads();
-  // sweep 2: topo_size per constraint, and its weight log(topo_size + 2)
+}
+
+// the raw score of the scored nodes of vector v (0 elsewhere): the
+// constraint terms cnt · w + (maxSkew − 1) summed in constraint order, then
+// rounded half to even.  A scored node's domain is present (the node itself
+// made it so) whenever it is below D, so the term needs no present bits.
+template <int VEC>
+__device__ __forceinline__ void raw_scores(const ScoreRow& r, int c, int n, unsigned soft,
+                                           unsigned sm, const float* s_w, float (&raw)[VEC]) {
+  const int D = r.D1 - 1;
+  float s[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) s[e] = 0.0f;
   for (int k = 0; k < r.Cc; ++k) {
-    int cnt = 0;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) cnt += s_present[k * r.D1 + d];
-    cnt = block_sum_int(cnt, iscratch);
-    if (threadIdx.x == 0) s_topo[k] = cnt;
-    __syncthreads();
+    const int ck = c * r.Cc + k;
+    if (!((soft >> k) & 1u)) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s[e] = __fadd_rn(s[e], 0.0f);
+      continue;
+    }
+    int dv[VEC];
+    ld_i32<VEC>(r.dom_val + (size_t)ck * r.N + n, dv);
+    const float skew = __fsub_rn((float)__ldg(r.max_skew + ck), 1.0f);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float term = 0.0f;
+      if (((sm >> e) & 1u) && dv[e] < D) {
+        const float cnt = (float)__ldg(r.counts + (size_t)ck * r.D1 + dv[e]);
+        term = __fadd_rn(__fmul_rn(cnt, s_w[k]), skew);
+      }
+      s[e] = __fadd_rn(s[e], term);
+    }
   }
-  if (threadIdx.x < r.Cc) s_w[threadIdx.x] = topo_log[min(s_topo[threadIdx.x], topo_log_len - 1)];
-  bool has_soft = false;
-  for (int k = 0; k < r.Cc; ++k) has_soft = has_soft || r.soft_valid[c * r.Cc + k];
-  __syncthreads();
-  // sweep 3: max and min of the raw score over the valid (feasible, not NaN) nodes
-  float mx = -INFINITY, mn = INFINITY;
-  for (int n = threadIdx.x; n < r.N; n += blockDim.x) {
-    if (r.bits[(long long)c * r.N + n] != r.full) continue;
-    const float v = raw_score(r, c, n, has_soft, s_present, s_w);
-    if (isnan(v)) continue;
-    mx = fmaxf(mx, v);
-    mn = fminf(mn, v);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) raw[e] = rintf(s[e]);
+}
+
+// total += weight · floor(normalize(raw)) on the feasible nodes of vector v
+// (0 where a feasible node is not scored; the infeasible are not written)
+template <int VEC>
+__device__ __forceinline__ void add_scores(float* p, unsigned fm, unsigned sm,
+                                           const float (&raw)[VEC], float mx, float mn,
+                                           float weight) {
+  float t[VEC];
+  if constexpr (VEC == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    t[0] = v.x; t[1] = v.y; t[2] = v.z; t[3] = v.w;
+  } else {
+    t[0] = p[0];
   }
-  mx = block_max_float(mx, fscratch);
-  mn = block_min_float(mn, fscratch);
-  if (!isfinite(mx)) mx = 0.0f;
-  if (!isfinite(mn)) mn = 0.0f;
-  // sweep 4: normalize, floor, weight, add into the total (−inf off the mask)
-  float* trow = total + (long long)c * r.N;
-  for (int n = threadIdx.x; n < r.N; n += blockDim.x) {
-    if (r.bits[(long long)c * r.N + n] != r.full) continue;
-    const float v = raw_score(r, c, n, has_soft, s_present, s_w);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    if (!((fm >> e) & 1u)) continue;
     float out = 0.0f;
-    if (!isnan(v)) {
+    if ((sm >> e) & 1u) {
       out = (mx == 0.0f)
                 ? MAX_NODE_SCORE
-                : __fdiv_rn(__fmul_rn(MAX_NODE_SCORE, __fsub_rn(__fadd_rn(mx, mn), v)), mx);
+                : __fdiv_rn(__fmul_rn(MAX_NODE_SCORE, __fsub_rn(__fadd_rn(mx, mn), raw[e])), mx);
     }
-    trow[n] = __fadd_rn(trow[n], __fmul_rn(weight, floorf(out)));
+    t[e] = __fadd_rn(t[e], __fmul_rn(weight, floorf(out)));
   }
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(t[0], t[1], t[2], t[3]);
+  } else {
+    p[0] = t[0];
+  }
+}
+
+// grid: C rows of CL consecutive blocks (a cluster when CL > 1)
+template <int VEC>
+__global__ void __launch_bounds__(SCORE_MAX_THREADS)
+spread_score_kernel(ScoreRow r, const float* __restrict__ topo_log, int topo_log_len,
+                    const ScorePlan plan, float* __restrict__ total) {
+  constexpr unsigned VM = (1u << VEC) - 1u;
+  __shared__ uint32_t s_present[MAX_CC * SCORE_WORDS];
+  __shared__ float s_wmax[SCORE_MAX_THREADS / 32], s_wmin[SCORE_MAX_THREADS / 32];
+  __shared__ float s_pmax[SCORE_MAX_CLUSTER], s_pmin[SCORE_MAX_CLUSTER];
+  __shared__ int s_topo[MAX_CC];
+  __shared__ float s_w[MAX_CC];
+
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int CL = plan.CL;
+  const int c = blockIdx.x / CL, rank = blockIdx.x % CL;
+  const int lo = min(rank * plan.S, r.N), nvec = (min(lo + plan.S, r.N) - lo) / VEC;
+  float* trow = total + (size_t)c * r.N + lo;
+  unsigned soft = 0;
+  for (int k = 0; k < r.Cc; ++k) soft |= (r.soft_valid[c * r.Cc + k] ? 1u : 0u) << k;
+
+  if (!soft) {
+    // no soft constraint: every raw score is 0, so every feasible node
+    // normalizes to 100 — one pass over the bits and the total, and no
+    // block of the row waits on another
+    const float add = __fmul_rn(plan.weight, MAX_NODE_SCORE);
+    for (int v = tid; v < nvec; v += nt) {
+      int b[VEC];
+      ld_i32<VEC>(r.bits + (size_t)c * r.N + lo + (size_t)v * VEC, b);
+      unsigned fm = 0;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) fm |= (b[e] == r.full ? 1u : 0u) << e;
+      if (!fm) continue;
+      float* p = trow + (size_t)v * VEC;
+      float t[VEC];
+      if constexpr (VEC == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(p);
+        t[0] = x.x; t[1] = x.y; t[2] = x.z; t[3] = x.w;
+      } else {
+        t[0] = p[0];
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if ((fm >> e) & 1u) t[e] = __fadd_rn(t[e], add);
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(p) = make_float4(t[0], t[1], t[2], t[3]);
+      } else {
+        p[0] = t[0];
+      }
+    }
+    return;
+  }
+
+  const int Wd = (r.D1 + 31) >> 5;
+  for (int x = tid; x < r.Cc * Wd; x += nt) s_present[x] = 0u;
+  if (tid < MAX_CC) s_topo[tid] = 0;
+  __syncthreads();
+
+  // --- the one read: each thread's first SCORE_ITEMS vectors keep their
+  // feasible and scored masks in registers; the scored nodes' domains go
+  // into the block's present bits -------------------------------------------
+  unsigned fmask = 0u, smask = 0u;
+#pragma unroll
+  for (int it = 0; it < SCORE_ITEMS; ++it) {
+    const int v = it * nt + tid;
+    if (v < nvec) {
+      unsigned f, s;
+      node_masks<VEC>(r, c, lo + v * VEC, soft, &f, &s);
+      mark_present<VEC>(r, c, lo + v * VEC, soft, s, s_present, Wd);
+      fmask |= f << (it * VEC);
+      smask |= s << (it * VEC);
+    }
+  }
+  for (int v = SCORE_ITEMS * nt + tid; v < nvec; v += nt) {  // a slice longer than that
+    unsigned f, s;
+    node_masks<VEC>(r, c, lo + v * VEC, soft, &f, &s);
+    mark_present<VEC>(r, c, lo + v * VEC, soft, s, s_present, Wd);
+  }
+
+  // --- the row's present domains: OR over the cluster's blocks (distributed
+  // shared memory), topo_size by popcount, the weight log(topo_size + 2)
+  // from the table ----------------------------------------------------------
+  if (CL > 1) {
+    __syncthreads();
+    cluster_arrive_release();
+    cluster_wait_acquire();  // every block of the row has its bits
+  } else {
+    __syncthreads();
+  }
+  for (int x = tid; x < r.Cc * Wd; x += nt) {
+    const int k = x / Wd;
+    if (!((soft >> k) & 1u)) continue;
+    uint32_t m = s_present[x];
+    if (CL > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      for (int q = 0; q < CL; ++q)
+        if (q != rank) m |= *cluster.map_shared_rank(&s_present[x], q);
+    }
+    if (m) atomicAdd(&s_topo[k], __popc(m));
+  }
+  __syncthreads();
+  if (tid < r.Cc) s_w[tid] = __ldg(topo_log + min(s_topo[tid], topo_log_len - 1));
+  __syncthreads();
+
+  // --- the raw score, once, kept in registers; its max and min over the
+  // scored nodes ------------------------------------------------------------
+  float raw[SCORE_ITEMS][VEC];
+  float mx = -INFINITY, mn = INFINITY;
+#pragma unroll
+  for (int it = 0; it < SCORE_ITEMS; ++it) {
+    const unsigned sm = (smask >> (it * VEC)) & VM;
+    if (sm) {
+      raw_scores<VEC>(r, c, lo + (it * nt + tid) * VEC, soft, sm, s_w, raw[it]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if ((sm >> e) & 1u) {
+          mx = fmaxf(mx, raw[it][e]);
+          mn = fminf(mn, raw[it][e]);
+        }
+    }
+  }
+  for (int v = SCORE_ITEMS * nt + tid; v < nvec; v += nt) {
+    unsigned f, s;
+    node_masks<VEC>(r, c, lo + v * VEC, soft, &f, &s);
+    if (!s) continue;
+    float rr[VEC];
+    raw_scores<VEC>(r, c, lo + v * VEC, soft, s, s_w, rr);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      if ((s >> e) & 1u) {
+        mx = fmaxf(mx, rr[e]);
+        mn = fminf(mn, rr[e]);
+      }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+  }
+  if (lane == 0) {
+    s_wmax[warp] = mx;
+    s_wmin[warp] = mn;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = nt >> 5;
+    mx = lane < nw ? s_wmax[lane] : -INFINITY;
+    mn = lane < nw ? s_wmin[lane] : INFINITY;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    }
+  }
+  if (CL > 1) {
+    // warp 0's lane q pushes the block's partials into block q; one
+    // cluster barrier later every block holds the row's (and no block
+    // reads another's shared memory after it)
+    if (warp == 0 && lane < CL) {
+      cg::cluster_group cluster = cg::this_cluster();
+      *cluster.map_shared_rank(&s_pmax[rank], lane) = mx;
+      *cluster.map_shared_rank(&s_pmin[rank], lane) = mn;
+    }
+    __syncwarp();
+    cluster_arrive_release();
+    cluster_wait_acquire();
+  } else {
+    if (tid == 0) {
+      s_pmax[0] = mx;
+      s_pmin[0] = mn;
+    }
+    __syncthreads();
+  }
+  mx = -INFINITY;
+  mn = INFINITY;
+  for (int q = 0; q < CL; ++q) {
+    mx = fmaxf(mx, s_pmax[q]);
+    mn = fminf(mn, s_pmin[q]);
+  }
+  if (!isfinite(mx)) mx = 0.0f;
+  if (!isfinite(mn)) mn = 0.0f;
+
+  // --- normalize, floor, weight, add into the total, from registers --------
+#pragma unroll
+  for (int it = 0; it < SCORE_ITEMS; ++it) {
+    const unsigned fm = (fmask >> (it * VEC)) & VM;
+    if (fm)
+      add_scores<VEC>(trow + (size_t)(it * nt + tid) * VEC, fm, (smask >> (it * VEC)) & VM,
+                      raw[it], mx, mn, plan.weight);
+  }
+  for (int v = SCORE_ITEMS * nt + tid; v < nvec; v += nt) {
+    unsigned f, s;
+    node_masks<VEC>(r, c, lo + v * VEC, soft, &f, &s);
+    if (!f) continue;
+    float rr[VEC];
+    raw_scores<VEC>(r, c, lo + v * VEC, soft, s, s_w, rr);
+    add_scores<VEC>(trow + (size_t)v * VEC, f, s, rr, mx, mn, plan.weight);
+  }
+}
+
+// the plan: up to 8 blocks a row while a row is longer than 1024 nodes a
+// block (at most 16 rows: a scan step, a TopologySpreading round) or than
+// SCORE_MAX_THREADS threads' registers' worth (more rows: one block a row
+// at N = 8192); threads a whole number of warps covering the block's
+// slice, a vector a thread at most 16 rows and SCORE_ITEMS above that
+static void score_config(int C, int N, int VEC, ScorePlan* plan, int* threads) {
+  const long long per_block = C <= 16 ? 1024 : (long long)SCORE_MAX_THREADS * SCORE_ITEMS * VEC;
+  int cl = 1;
+  while (cl < SCORE_MAX_CLUSTER && cl * per_block < N) cl <<= 1;
+  const int S = ((N + cl - 1) / cl + VEC - 1) / VEC * VEC;
+  const int per_thread = C <= 16 ? VEC : VEC * SCORE_ITEMS;
+  int t = ((S + per_thread - 1) / per_thread + 31) / 32 * 32;
+  if (t < 32) t = 32;
+  if (t > SCORE_MAX_THREADS) t = SCORE_MAX_THREADS;
+  plan->CL = cl;
+  plan->S = S;
+  *threads = t;
+}
+
+static bool score_aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0; }
+
+template <int VEC>
+static int launch_score(const ScoreRow& r, const float* topo_log, int topo_log_len,
+                        float weight, float* total, cudaStream_t stream) {
+  ScorePlan plan;
+  int threads;
+  score_config(r.C, r.N, VEC, &plan, &threads);
+  plan.weight = weight;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(r.C * plan.CL));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)plan.CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = plan.CL > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, spread_score_kernel<VEC>, r, topo_log,
+                                     topo_log_len, plan, total);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 extern "C" int launch_spread_score(int C, int Cc, int N, int D1, const void* bits, int full,
@@ -354,21 +631,18 @@ extern "C" int launch_spread_score(int C, int Cc, int N, int D1, const void* bit
                                    const void* has_key, const void* topo_log,
                                    int topo_log_len, float weight, void* total,
                                    void* stream) {
-  if (Cc > MAX_CC) return (int)cudaErrorInvalidValue;
+  if (Cc > MAX_CC || (D1 + 31) / 32 > SCORE_WORDS) return (int)cudaErrorInvalidValue;
   if (C <= 0 || N <= 0) return 0;
-  const size_t smem = (size_t)Cc * D1;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(spread_score_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   ScoreRow r{C, Cc, N, D1, full, (const int32_t*)bits, (const int32_t*)counts,
              (const uint8_t*)soft_valid, (const int32_t*)max_skew,
              (const int32_t*)dom_val, (const uint8_t*)has_key};
-  spread_score_kernel<<<C, SCORE_THREADS, smem, (cudaStream_t)stream>>>(
-      r, (const float*)topo_log, topo_log_len, weight, (float*)total);
-  return (int)cudaGetLastError();
+  // 16-byte vectors where every row starts on a 16-byte boundary (has_key's
+  // 4-byte vectors on a 4-byte one)
+  const bool vec4 = N % 4 == 0 && score_aligned(bits, 16) && score_aligned(dom_val, 16) &&
+                    score_aligned(total, 16) && score_aligned(has_key, 4);
+  cudaStream_t s = (cudaStream_t)stream;
+  return vec4 ? launch_score<4>(r, (const float*)topo_log, topo_log_len, weight, (float*)total, s)
+              : launch_score<1>(r, (const float*)topo_log, topo_log_len, weight, (float*)total, s);
 }
 
 // --- K8 -----------------------------------------------------------------------------

@@ -135,8 +135,15 @@ def build_all(names: Iterable[str] = SOURCES + HOST_SOURCES) -> List[Path]:
     library paths."""
     names = list(names)
     started = {n: _start(n) for n in names}
-    for n in names:
-        _finish(n, started[n])
+    try:
+        for n in names:
+            _finish(n, started[n])
+    finally:
+        # a failed build leaves no compiler of the others running
+        for s in started.values():
+            if s is not None and s[0].poll() is None:
+                s[0].kill()
+                s[0].wait()
     return [_lib_path(n) for n in names]
 
 

@@ -66,6 +66,9 @@ KIND_SCORE_REQ = 2
 _GROUP_CODE = {name: k for k, name in enumerate(AFFINITY_GROUPS)}
 # K12 keeps one int per domain of a row in shared memory
 MAX_SHARED_DOMAINS = (227 * 1024) // 4 - 64
+# K19 stages pod i's same-domain bits (2 bytes a thread of 256) and each
+# pending row's flags for every term of the four groups in shared memory
+MAX_ROW_TERMS = 400
 
 
 def read_counts(cnt: torch.Tensor, dom: torch.Tensor) -> torch.Tensor:
@@ -684,8 +687,9 @@ def ipa_update_row(aux, i: int, node_row):
     """Add pod i, placed at ``node_row`` (i32[1] on the device, written there
     by K17; below 0: not placed), into the full-batch aux's count state,
     ``aff_total``, ``block_dyn`` and ``score_dyn``, in place.  CPU tensors
-    take the plain version; CUDA tensors launch K19 once for every present
-    term group, one thread per (pending pod, node)."""
+    take the plain version; CUDA tensors launch K19 once, every present
+    term group in the one launch: blocks of node tiles over runs of pending
+    rows, touching only the rows and nodes the step changes."""
     if not node_row.is_cuda:
         return ipa_update_row_plain(aux, i, node_row)
     b, n = aux.exist_anti_block.shape
@@ -718,6 +722,10 @@ def ipa_update_row(aux, i: int, node_row):
         if dom.shape != (b, t, n) or cross.shape != (b, t, b) or cnt.shape[:2] != (b, t):
             raise ValueError(f"ipa_update_row: inconsistent {name} shapes")
         args += [t, cnt.shape[-1], ptr(dom), ptr(cnt), ptr(cross)] + [ptr(x) for x in extra]
+    terms = sum(args[k] for k in (0, 7, 12, 18))
+    if terms > MAX_ROW_TERMS:
+        raise ValueError(f"ipa_update_row: {terms} terms a pod over the four groups, more "
+                         f"than the {MAX_ROW_TERMS} K19 stages in shared memory")
     # launch_ipa_update_row's order: aff (T1, W1, dom, cnt, own cross, all-terms
     # cross, row validity), aff_total and the hard weight, then anti, paff, panti
     aff, rest = args[:7], args[7:]

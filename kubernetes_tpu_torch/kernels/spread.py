@@ -287,7 +287,8 @@ def spread_score_combine_plain(aux, bits, full: int, total, weight: float):
 def spread_score_combine(aux, bits, full: int, total, weight: float):
     """Add PodTopologySpread's weighted, floored, normalized score into K2's
     total f32[C, N] in place; the feasibility mask is "all bits of ``bits``
-    set".  CPU tensors take the plain version; CUDA tensors launch K7."""
+    set".  CPU tensors take the plain version; CUDA tensors launch K7 once
+    (a row over a thread-block cluster at small C)."""
     if not bits.is_cuda:
         return spread_score_combine_plain(aux, bits, full, total, weight)
     c, cc, d1 = aux.soft_counts.shape

@@ -1,7 +1,8 @@
-"""K2 (normalize_combine) and K29 (candidate_dense) timed on synthetic
-inputs at the shapes their paths give them, for the copy of
-``kubernetes_tpu_torch`` under ``--root``, so that two trees (a parent and
-a change, unpacked side by side) are timed by the same methods on one card:
+"""K2 (normalize_combine), K29 (candidate_dense), K19 (ipa_update_row) and
+K7 (spread_score_combine) timed on synthetic inputs at the shapes their
+paths give them, for the copy of ``kubernetes_tpu_torch`` under
+``--root``, so that two trees (a parent and a change, unpacked side by
+side) are timed by the same methods on one card:
 
     python3 kubernetes_tpu_torch/perf/kernel_ab.py --root build/parent --out chiprun_out/ab_1.json
     python3 kubernetes_tpu_torch/perf/kernel_ab.py --root . --out chiprun_out/ab_2.json
@@ -17,7 +18,13 @@ and in its packed mode at C = 512 over 5000 live nodes; K29 at the dense
 preemption path's shape (B = 128, 200 live nodes of a 256-row tier, 800
 pods at 800 priorities in a 1024-row tier, R = 8) and at the check case's
 (``chip_smoke.preempt_case``: N = 8192, P = 32768, R = 4, 300 priorities)
-with B = 64 and B = 512.  Needs a CUDA card; imports nothing of JAX.
+with B = 64 and B = 512; K19 at B = 512, N = 8192 (5000 live nodes) in
+the planes form (SchedulingPreferredPodAffinity's hostname preferred
+affinity, D = 8192) and the tables form (SchedulingPodAffinity's required
+affinity on one zone, D = 8), and a step whose ``node_row`` is -1; K7 on
+N = 8192 at C = 4 with no soft constraint (TopologySpreading), C = 4 with a
+ScheduleAnyway constraint on three zones, C = 1 (the scan's step) and
+C = 512 (the full auction).  Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -72,6 +79,89 @@ def k29_path_inputs(dev):
     return [torch.from_numpy(a).to(dev) for a in arrays] + [0b1111]
 
 
+def k19_inputs(form: str, dev, seed: int = 19):
+    """A full-batch InterPodAffinity aux (B = 512, N = 8192, 5000 live
+    nodes) with one present term group of one term a pod, every pending pod
+    matching every term: "planes" — preferred affinity on the hostname
+    (each live node its own domain, D = 8192, weight 1–100), "tables" —
+    required affinity on one zone holding every live node (D = 8)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.plugins.interpodaffinity import IPAAux
+
+    rng = np.random.default_rng(seed)
+    b, n, live = 512, 8192, 5000
+    planes = form == "planes"
+    d = 8192 if planes else 8
+    width = n if planes else d + 1
+    present = "pref_affinity" if planes else "req_affinity"
+    node_dom = np.full(n, d, np.int32)
+    node_dom[:live] = np.arange(live) if planes else 0
+    groups = {}
+    for g in ("req_affinity", "req_anti_affinity", "pref_affinity", "pref_anti_affinity"):
+        if g == present:
+            dom = np.broadcast_to(node_dom, (b, 1, n)).copy()
+            cnt = rng.integers(0, 4, (b, 1, width)).astype(np.int32)
+            cross = np.ones((b, 1, b), bool)
+        else:
+            dom = np.full((b, 1, n), d, np.int32)
+            cnt = np.zeros((b, 1, width), np.int32)
+            cross = np.zeros((b, 1, b), bool)
+        groups[g] = [torch.from_numpy(x).to(dev) for x in (dom, cnt, cross)]
+    t = {k: torch.from_numpy(v).to(dev) for k, v in {
+        "aff_total": rng.integers(0, 100, b).astype(np.int32),
+        "score_dyn": rng.integers(-50, 50, (b, n)).astype(np.float32),
+        "paff_weight": rng.integers(1, 101, (b, 1)).astype(np.float32),
+    }.items()}
+    ra, an, pa, pn = (groups[g] for g in ("req_affinity", "req_anti_affinity",
+                                          "pref_affinity", "pref_anti_affinity"))
+    return IPAAux(
+        dom_aff=ra[0], dom_anti=an[0], dom_paff=pa[0], dom_panti=pn[0],
+        aff_cnt=ra[1], anti_cnt=an[1], paff_cnt=pa[1], panti_cnt=pn[1],
+        aff_total=t["aff_total"], self_match_all=torch.ones(b, dtype=torch.bool, device=dev),
+        exist_anti_block=torch.zeros((b, n), dtype=torch.bool, device=dev),
+        score_static=torch.zeros((b, n), dtype=torch.float32, device=dev),
+        aff_term_cross=ra[2], aff_cross_all=ra[2][:, 0, :].clone(), anti_cross=an[2],
+        paff_cross=pa[2], panti_cross=pn[2],
+        block_dyn=torch.zeros((b, n), dtype=torch.bool, device=dev), score_dyn=t["score_dyn"],
+        depth=d, present=(present,),
+        req_aff_valid=torch.full((b, 1), not planes, dtype=torch.bool, device=dev),
+        paff_weight=t["paff_weight"],
+        panti_weight=torch.zeros((b, 1), dtype=torch.float32, device=dev), hard_weight=1.0)
+
+
+def k7_inputs(c: int, soft: bool, dev, seed: int = 7):
+    """A PodTopologySpread aux of ``c`` class rows on N = 8192 (5000 live
+    nodes in three zones, D = 4) with one constraint on the zone —
+    DoNotSchedule (no soft row) or ScheduleAnyway (maxSkew 1, counts
+    0–400) —, a bit plane of 7 filter bits with ~70% of the live nodes
+    feasible, and K2's total (finite where feasible, −inf elsewhere)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + c)
+    n, live, d = 8192, 5000, 4
+    full = 0b1111111
+    zone = np.full(n, d, np.int32)
+    zone[:live] = np.arange(live) % 3
+    dom_val = np.broadcast_to(zone, (c, 1, n)).copy()
+    has_key = dom_val < d
+    drop = rng.integers(0, 7, (c, n))
+    feasible = (rng.random((c, n)) < 0.7) & (np.arange(n) < live)
+    bits = np.where(feasible, full, full & ~(1 << drop)).astype(np.int32)
+    total = np.where(feasible, rng.integers(0, 400, (c, n)), -np.inf).astype(np.float32)
+    aux = types.SimpleNamespace(
+        soft_counts=torch.from_numpy(rng.integers(0, 400, (c, 1, d + 1)).astype(np.int32)),
+        soft_valid=torch.full((c, 1), soft), max_skew=torch.ones((c, 1), dtype=torch.int32),
+        dom_val=torch.from_numpy(dom_val), has_key=torch.from_numpy(has_key))
+    for k, v in vars(aux).items():
+        setattr(aux, k, v.to(dev))
+    return aux, torch.from_numpy(bits).to(dev), full, torch.from_numpy(total).to(dev)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the tree whose kubernetes_tpu_torch to time")
@@ -91,7 +181,10 @@ def main() -> None:
         normalize_combine,
         normalize_combine_plain,
     )
+    from kubernetes_tpu_torch.kernels.interpodaffinity import ipa_update_row, ipa_update_row_plain
     from kubernetes_tpu_torch.kernels.preempt import candidate_dense, candidate_dense_plain
+    from kubernetes_tpu_torch.kernels.spread import spread_score_combine, spread_score_combine_plain
+    from kubernetes_tpu_torch.plugins.interpodaffinity import InterPodAffinityPlugin
 
     for mod in (cs, kernels):
         if not str(Path(mod.__file__).resolve()).startswith(str(root)):
@@ -101,6 +194,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     build.load("normalize_combine")
     build.load("preempt")
+    build.load("interpodaffinity")
+    build.load("spread")
     plan = CombinePlan(kinds=(0, 0, 0, 1, 2), weights=(1.0, 1.0, 1.0, 1.0, 1.0), const_add=0.0)
     rows = []
 
@@ -140,6 +235,36 @@ def main() -> None:
         add(f"candidate_dense ({label})", lambda a_=a: candidate_dense(*a_),
             bool(torch.equal(got, want)), B=a[4].shape[0], N=a[6].shape[0],
             P=a[0].shape[0], R=a[3].shape[1])
+
+    iplug = InterPodAffinityPlugin()
+    for form, placed in (("planes", True), ("tables", True), ("planes", False)):
+        aux = k19_inputs(form, dev)
+        i = 137
+        at = torch.tensor([1234 if placed else -1], dtype=torch.int32, device=dev)
+        ka, pa = iplug.engine_copy(aux), iplug.engine_copy(aux)
+        ipa_update_row(ka, i, at)
+        ipa_update_row_plain(pa, i, at)
+        fields = ("aff_cnt", "anti_cnt", "paff_cnt", "panti_cnt", "aff_total", "block_dyn",
+                  "score_dyn")
+        equal = all(torch.equal(getattr(ka, f), getattr(pa, f)) for f in fields)
+        if placed:
+            equal = equal and not torch.equal(ka.score_dyn, aux.score_dyn)
+        work = iplug.engine_copy(aux)
+        add(f"ipa_update_row ({form}{'' if placed else ', node_row -1'})",
+            lambda w_=work, a_=at: ipa_update_row(w_, i, a_), bool(equal),
+            B=512, N=8192, D=aux.depth, present=list(aux.present))
+
+    for c, soft in ((4, False), (4, True), (1, False), (512, False)):
+        aux, bits, full, total = k7_inputs(c, soft, dev)
+        kt, pt = total.clone(), total.clone()
+        spread_score_combine(aux, bits, full, kt, 2.0)
+        spread_score_combine_plain(aux, bits, full, pt, 2.0)
+        equal = torch.equal(kt.view(torch.int32), pt.view(torch.int32)) \
+            and not torch.equal(kt, total)
+        work = total.clone()
+        add("spread_score_combine" + (" (ScheduleAnyway)" if soft else ""),
+            lambda a_=aux, b_=bits, f_=full, w_=work: spread_score_combine(a_, b_, f_, w_, 2.0),
+            bool(equal), C=c, N=8192, Cc=1, soft=soft)
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"root": str(root), "card": card.strip(),
