@@ -54,7 +54,11 @@ Phases, all of which must pass (any failure exits non-zero):
    pods, dead nodes, padding rows and failing static bits, and with batch
    rows at a (node, threshold)'s exact float32 fit value and one ulp above;
    K29 (the dense form) at B = 64 over 300 priorities; K13 with the
-   nominated bundle beside two in-flight bundles.  K30 (the what-if fork
+   nominated bundle (no nz rows) beside two in-flight bundles, rows past N
+   among them, at the path's sizes and in several staging chunks.  K1
+   also past every width it stages (R = 12, 16 taints, ports and images a
+   node, 12 a class, a 40-point RTCR shape) and at C and N that cut its
+   tiles and class chunks unevenly.  K30 (the what-if fork
    masks) at Defrag's shapes (K = 4, N = 8192, P = 16384) with a duplicate
    victim, −1 pads in every group, a repeated affinity cell, with and
    without claim-holding victims; K31 (the node-add rows) at
@@ -261,7 +265,8 @@ Phases, all of which must pass (any failure exits non-zero):
    elementwise op is timed both ways as a check),
    beside the plain version's wall and, where one PyTorch call computes the
    same function (K3: torch.topk and torch.sort(stable=True); K13:
-   Tensor.index_add_, the dead rows masked inside the timed call; K16:
+   Tensor.index_add_, the dead rows masked inside the timed call, K13 and
+   it also by queued events side by side; K16:
    Tensor.index_copy per array), that call's time; the least time the card
    could take (the larger of the bytes over 3.35 TB/s and the scalar
    operations over the 67 TFLOP/s float32 peak) from the inputs.  K3 and K4
@@ -276,8 +281,9 @@ Phases, all of which must pass (any failure exits non-zero):
    share of the busy time in every profiled cycle).
 
 6b. K17–K19 on the arguments of their latest call on the scan paths (K19
-   in both count forms) and K1–K4, K8 and K12 at C = 512 on the full
-   auctions' latest rounds, timed as in 6.
+   in both count forms), K1, K2 and K7 on the TopologySpreading scan's
+   one-row step, and K1–K4, K8 and K12 at C = 512 on the full auctions'
+   latest rounds, timed as in 6.
 6c. K20–K23 on the arguments of their latest call on the GangBasic/5000Nodes
    synchronous run (K23: the node-affinity filter's node-selector call),
    timed as in 6; K20 beside the one PyTorch pair that computes the same
@@ -291,8 +297,8 @@ Phases, all of which must pass (any failure exits non-zero):
    inputs (B = 64, N = 8192, P = 32768, 300 priorities), timed as in 6;
    K27 beside ``index_put_(accumulate=True)`` + ``cumsum``, K29 beside the
    dense einsum; K13 with the nominated bundle alone (B2, 512 live rows of
-   a 1024-row cap) beside ``index_add_`` (the masking inside the timed
-   call, both sides by one method).
+   a 1024-row cap, no nz rows) beside ``index_add_`` (the masking inside
+   the timed call, both sides by one method, and both by queued events).
 6f. K30 on the arguments of its latest call at the largest fork count on
    the Defrag harness run, K31 on those of its latest at the largest fork
    count on the AutoscaleGang harness run, timed as in 6 (no one PyTorch
@@ -720,6 +726,69 @@ def synthetic_classes(c: int, n: int, gen, device):
     return rep, na_mask, na_pref
 
 
+def wide_k1_case(c: int, n: int, gen, device, strategy: str):
+    """K1's inputs past every width its shared-memory staging holds: R = 12
+    (an extended dimension weighted in Fit and selected by
+    BalancedAllocation, requested by half the classes), nodes with up to 16
+    taints, host ports and images (most past the staged counts), classes
+    with 12 tolerations, host ports and image ids (many past theirs), and
+    under RequestedToCapacityRatio a 40-point shape (past the staged
+    points) → (rep, snap, dyn, na_mask, na_pref, plan)."""
+    import dataclasses
+
+    import torch
+
+    from kubernetes_tpu_torch.plugins.noderesources import BalancedAllocationPlugin, FitPlugin
+
+    w = 16
+    snap = synthetic_snapshot(n, gen, device)
+    rep, na_mask, na_pref = synthetic_classes(c, n, gen, device)
+
+    def ri(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, dtype=torch.int32)
+
+    def pick(vals, *shape):
+        v = torch.tensor(vals, dtype=torch.int32)
+        return v[torch.randint(0, len(vals), shape, generator=gen)]
+
+    def widen(t, extra):
+        return torch.cat([t.cpu(), extra], 1).to(device)
+
+    alloc = widen(snap.allocatable, torch.where(torch.rand((n, 4), generator=gen) < 0.7,
+                                                ri(1, 9, n, 4), 0))
+    requested = widen(snap.requested, ri(0, 5, n, 4))
+    snap = dataclasses.replace(snap, allocatable=alloc, requested=requested, **{
+        k: v.to(device) for k, v in {
+            "taint_keys": pick([-1, 3, 10, 11, 12], n, w), "taint_vals": pick([20, 21], n, w),
+            "taint_effects": pick([-1, 0, 1, 1, 2], n, w),
+            "ports": pick([-1, 8080, 9090, 7000, 7001, 65536 + 53], n, w),
+            "ports_ip": pick([6, 30, 31], n, w),
+            "image_ids": pick([-1, 40, 41, 42, 43, 44, 45], n, w),
+            "image_sizes": torch.rand((n, w), generator=gen) * 1e9}.items()})
+    dyn = SimpleNamespace(requested=snap.requested, non_zero=snap.non_zero_requested)
+    tt = 12
+    rep.request = widen(rep.request, torch.where(torch.rand((c, 4), generator=gen) < 0.5,
+                                                 ri(1, 4, c, 4), 0))
+    rep.tol_valid = (torch.rand((c, tt), generator=gen) < 0.9).to(device)
+    rep.tol_key = pick([-1, 3, 10, 11, 12], c, tt).to(device)
+    rep.tol_val = pick([20, 21], c, tt).to(device)
+    rep.tol_op = pick([0, 1], c, tt).to(device)
+    rep.tol_effect = pick([-1, 0, 1, 2], c, tt).to(device)
+    rep.ports = pick([-1, 8080, 9090, 7000, 7002], c, tt).to(device)
+    rep.ports_ip = pick([6, 30, 31], c, tt).to(device)
+    rep.image_ids = pick([-1, 40, 41, 42, 43, 46], c, tt).to(device)
+    ext = {"example.com/a": 9, "example.com/b": 11}
+    shape = [(2.5 * i, (i * 7) % 11) for i in range(40)] if strategy == \
+        "RequestedToCapacityRatio" else None
+    fit = FitPlugin(strategy, resources={"cpu": 1, "memory": 1, "example.com/a": 3},
+                    num_resource_dims=12, extended_index=ext, shape=shape)
+    ba = BalancedAllocationPlugin(resources={"cpu": 1, "memory": 1, "example.com/b": 1},
+                                  num_resource_dims=12, extended_index=ext)
+    _fw, (fs_plan, _c) = framework_plans()
+    plan = dataclasses.replace(fs_plan, fit=fit, balanced=ba)
+    return rep, snap, dyn, na_mask, na_pref, plan
+
+
 def framework_plans():
     from kubernetes_tpu_torch.framework.runtime import BatchedFramework
     from kubernetes_tpu_torch.scheduler import default_plugins
@@ -833,6 +902,30 @@ def check_kernels(dev) -> dict:
             cases["auction_resolve_commit"] += 1
             if mode == "identical" and int(kc.sum()) < 256:
                 fail("auction_resolve_commit: identical pods committed too few")
+    # K1 past its staged widths (every overflow path), and over C and N
+    # that cut its node tiles and class chunks unevenly
+    for strategy in ("LeastAllocated", "RequestedToCapacityRatio"):
+        rep, snap, dyn, na_mask, na_pref, plan = wide_k1_case(37, 1000, gen, dev, strategy)
+        img = image_scaled_by_id(snap)
+        kb, kr = filter_score_planes(rep, snap, dyn, na_mask, na_pref, img, plan)
+        pb, pr = filter_score_planes_plain(rep, snap, dyn, na_mask, na_pref, img, plan)
+        torch.cuda.synchronize()
+        err["filter_score_planes"] = max(err["filter_score_planes"], require_equal(
+            f"filter_score_planes wide rows, {strategy}", [("bits", kb, pb), ("raw", kr, pr)]))
+        cases["filter_score_planes"] += 1
+    for c, n in ((1, 8192), (3, 700), (17, 129), (100, 5000), (513, 1000)):
+        snap = synthetic_snapshot(n, gen, dev)
+        dyn = DynamicState(requested=snap.requested, non_zero=snap.non_zero_requested)
+        rep, na_mask, na_pref = synthetic_classes(max(c, 2), n, gen, dev)
+        rep = SimpleNamespace(**{k: v[:c] for k, v in vars(rep).items()})
+        na_mask, na_pref = na_mask[:c], na_pref[:c]
+        img = image_scaled_by_id(snap)
+        kb, kr = filter_score_planes(rep, snap, dyn, na_mask, na_pref, img, fs_plan)
+        pb, pr = filter_score_planes_plain(rep, snap, dyn, na_mask, na_pref, img, fs_plan)
+        torch.cuda.synchronize()
+        err["filter_score_planes"] = max(err["filter_score_planes"], require_equal(
+            f"filter_score_planes C={c} N={n}", [("bits", kb, pb), ("raw", kr, pr)]))
+        cases["filter_score_planes"] += 1
     err["topk_rows"] = max(err["topk_rows"], check_topk_grid(dev, cases))
     err["normalize_combine"] = max(err["normalize_combine"], check_normalize_grid(dev, cases))
     err["auction_resolve_commit"] = max(err["auction_resolve_commit"],
@@ -2172,8 +2265,8 @@ def time_pipeline_kernels(last_calls: dict, err: dict) -> list:
             fail(f"kernel timing: no recorded path call of {key[0]}")
         return got[0]
 
-    # K13: in-place adds into the copies; bytes: the bundles, and the rows
-    # they touch read and written
+    # K13: one launch writes the new arrays with the adds folded in; bytes:
+    # the bundles, and the rows they touch read and written
     requested, non_zero, bundles = last(("prev_delta_apply", 0))
     kr, kn = KD.prev_delta_apply(requested, non_zero, bundles)
     pr, pn = KD.prev_delta_apply_plain(requested, non_zero, bundles)
@@ -2182,22 +2275,38 @@ def time_pipeline_kernels(last_calls: dict, err: dict) -> list:
     r = requested.shape[1]
     placed = torch.cat([b[0][b[0] >= 0] for b in bundles])
     touched = int(placed.unique().numel())
-    b_bytes = sum(nbytes(*b) for b in bundles)
+    b_bytes = sum(nbytes(*(t for t in b if t is not None)) for b in bundles)
     all_rows = torch.cat([b[0] for b in bundles])
     ok = (all_rows >= 0)[:, None]
     at = all_rows.long().clamp(0, requested.shape[0] - 1)
     all_req = torch.where(ok, torch.cat([b[1] for b in bundles]), 0)
-    all_nz = torch.where(ok, torch.cat([b[2] for b in bundles]), 0)
+    all_nz = torch.where(ok, torch.cat([torch.zeros_like(b[1][:, :2]) if b[2] is None
+                                        else b[2] for b in bundles]), 0)
     work_r, work_n = requested.clone(), non_zero.clone()
+
+    def library():
+        work_r.index_add_(0, at, all_req)
+        work_n.index_add_(0, at, all_nz)
+
+    def k13():
+        return KD.prev_delta_apply(requested, non_zero, bundles)
+
     row("prev_delta_apply", "kubernetes_tpu_torch/csrc/prev_delta.cu",
-        "kubernetes_tpu/scheduler.py:897", "prev_delta_kernel",
-        lambda: KD.prev_delta_apply(requested, non_zero, bundles),
+        "kubernetes_tpu/scheduler.py:897", "prev_delta_kernel", k13,
         lambda: KD.prev_delta_apply_plain(requested, non_zero, bundles),
         b_bytes + touched * (r + 2) * 4 * 2, int(placed.numel()) * (r + 2),
         {"N": requested.shape[0], "R": r, "bundles": len(bundles),
          "B0": [int(b[0].numel()) for b in bundles], "placed": int(placed.numel())},
-        library_fn=lambda: (work_r.index_add_(0, at, all_req),
-                            work_n.index_add_(0, at, all_nz)))
+        library_fn=library)
+    # the other method beside it, the library call timed the same way
+    rows_out[-1]["queued_ms"] = queued_device_ms(k13)
+    rows_out[-1]["library_queued_ms"] = queued_device_ms(library)
+    one_device_activity("prev_delta_apply (path shapes)", k13, "prev_delta_kernel",
+                        "prev_delta_apply", sessions=6, must_record=False)
+    log(f"  prev_delta_apply (path shapes): {rows_out[-1]['ms']:.5f} ms "
+        f"({rows_out[-1]['ms_source']}) against index_add_'s "
+        f"{rows_out[-1]['library_ms']:.5f}; queued {rows_out[-1]['queued_ms']:.5f} against "
+        f"{rows_out[-1]['library_queued_ms']:.5f}")
 
     # K16: the node group (the largest): every array read and written once,
     # the payload read once
@@ -2982,6 +3091,11 @@ def time_kernels(sched, err: dict) -> list:
         lambda: filter_score_planes(rep, snap, dyn, na_mask, na_pref, img, fs_plan),
         lambda: filter_score_planes_plain(rep, snap, dyn, na_mask, na_pref, img, fs_plan),
         *k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw))
+    one_device_activity("filter_score_planes (NorthStar)",
+                        lambda: filter_score_planes(rep, snap, dyn, na_mask, na_pref, img,
+                                                    fs_plan),
+                        "filter_score_kernel", "filter_score_planes", sessions=6,
+                        must_record=False)
     # per (class, feasible node, plane): the row max, the scaling, the
     # floor, the add; K2 reads the raw planes only on feasible nodes
     n_feas = int(feas.sum())
@@ -3332,12 +3446,14 @@ def k7_work(aux, bits, full: int) -> tuple:
             + 4 * n_scored_soft + n_soft * (4 * d1 + 4 + 4), 8 * n_feas + 6 * n_scored_soft)
 
 
-def one_device_activity(label: str, call, symbol: str, key: str, reps: int = 20) -> list:
+def one_device_activity(label: str, call, symbol: str, key: str, reps: int = 20,
+                        sessions: int = 3, must_record: bool = True) -> list:
     """``reps`` calls under the profiler: the wrapper's count ``key`` rises
     by exactly ``reps`` (one launch a call), and every device activity the
     session records is the kernel ``symbol``'s (no torch op on the card
     beside it) — at least one and at most ``reps`` (a session may lose
-    records, never add them); fails if none of three sessions records one.
+    records, never add them); if none of ``sessions`` sessions records one,
+    fails (``must_record``) or logs that the profiler could not tell.
     → the torch ops the calls ran on the host in that session."""
     import torch
     from torch.autograd import DeviceType
@@ -3347,7 +3463,7 @@ def one_device_activity(label: str, call, symbol: str, key: str, reps: int = 20)
 
     call()
     torch.cuda.synchronize()
-    for _attempt in range(3):
+    for _attempt in range(sessions):
         before = LAUNCHES[key]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -3366,8 +3482,12 @@ def one_device_activity(label: str, call, symbol: str, key: str, reps: int = 20)
             log(f"  {label}: {reps} calls, {reps} launches, the session's {len(device)} "
                 f"device activities all {symbol}; host ops {host}")
             return host
-    fail(f"{label}: the profiler recorded no device activity of {reps} calls in three "
-         "sessions")
+    msg = (f"{label}: the profiler recorded no device activity of {reps} calls in "
+           f"{sessions} sessions")
+    if must_record:
+        fail(msg)
+    log(f"  {msg} (one activity a call not verified by it)")
+    return []
 
 
 SPREAD_REPLACES = {
@@ -4622,10 +4742,13 @@ def check_preempt_kernels(dev) -> dict:
     nodes, padding rows and failing static bits, then with 64 batch rows
     asking exactly for one (node, threshold)'s float32 fit value and 64 for
     one ulp more; K29 at B = 64 over 300 priorities; K13 with a nominated
-    bundle (nz zero) beside two in-flight bundles."""
+    bundle (no nz rows) beside two in-flight bundles, rows past N among
+    them, at the path's sizes and at sizes that take several staging
+    chunks, one launch a call."""
     import numpy as np
     import torch
 
+    from kubernetes_tpu_torch.kernels import LAUNCHES
     from kubernetes_tpu_torch.kernels import preempt as KP
     from kubernetes_tpu_torch.kernels.prev_delta import prev_delta_apply, \
         prev_delta_apply_plain
@@ -4686,22 +4809,29 @@ def check_preempt_kernels(dev) -> dict:
     for name, case in dense_cases(gen).items():
         err["candidate_dense"] = max(err["candidate_dense"], dense_equal(name, case, dev))
     dense_single_launch({k: v.to(dev) for k, v in d.items()})
-    # K13: the nominated rows (nz zero) and two in-flight bundles
+    # K13: the nominated rows (no nz rows) and two in-flight bundles, rows
+    # past N (clipped to N - 1) among them; then bundles of odd sizes whose
+    # rows take more than one staging chunk
     req = c["requested"].to(dev)
     nz = torch.randint(0, 1000, (n, 2), generator=gen, dtype=torch.int32).to(dev)
-    bundles = []
-    for k_, m in enumerate((1024, 512, 512)):
-        rows = torch.randint(-1, n, (m,), generator=gen, dtype=torch.int32)
-        breq = torch.randint(0, 5000, (m, 4), generator=gen, dtype=torch.int32)
-        bnz = torch.zeros((m, 2), dtype=torch.int32) if k_ == 0 else \
-            torch.randint(0, 5000, (m, 2), generator=gen, dtype=torch.int32)
-        bundles.append(tuple(t.to(dev) for t in (rows, breq, bnz)))
-    got = prev_delta_apply(req, nz, bundles)
-    want = prev_delta_apply_plain(req, nz, bundles)
-    torch.cuda.synchronize()
-    err["prev_delta_apply (nominated)"] = require_equal(
-        "prev_delta_apply (nominated + two in-flight bundles)",
-        [("requested", got[0], want[0]), ("non_zero", got[1], want[1])])
+    for sizes in ((1024, 512, 512), (4099, 1023, 2045)):
+        bundles = []
+        for k_, m in enumerate(sizes):
+            rows = torch.randint(-1, n + 3, (m,), generator=gen, dtype=torch.int32)
+            breq = torch.randint(0, 5000, (m, 4), generator=gen, dtype=torch.int32)
+            bnz = None if k_ == 0 else \
+                torch.randint(0, 5000, (m, 2), generator=gen, dtype=torch.int32).to(dev)
+            bundles.append((rows.to(dev), breq.to(dev), bnz))
+        before = LAUNCHES["prev_delta_apply"]
+        got = prev_delta_apply(req, nz, bundles)
+        if LAUNCHES["prev_delta_apply"] - before != 1:
+            fail(f"prev_delta_apply {sizes}: {LAUNCHES['prev_delta_apply'] - before} launches")
+        want = prev_delta_apply_plain(req, nz, bundles)
+        torch.cuda.synchronize()
+        err["prev_delta_apply (nominated)"] = max(err["prev_delta_apply (nominated)"],
+                                                  require_equal(
+            f"prev_delta_apply (nominated + two in-flight bundles, {sizes})",
+            [("requested", got[0], want[0]), ("non_zero", got[1], want[1])]))
     log("preempt kernels vs plain: all equal (K27 + K28 at 128 levels with rounding sums, "
         f"{hits} boundary pairs split; K29 at 300 priorities and on {len(DENSE_CASES)} edge "
         "cases, one kernel a call and no sort; K13 with the nominated bundle)")
@@ -5055,8 +5185,10 @@ def preempt_bindings(device: str, kind: str):
 def time_nominated_bundle(dev) -> dict:
     """K13 with the nominated bundle alone, as a synchronous PreemptionBasic
     cycle gives it (B2 ``reserve_nominated``): N = 8192, R = 8, the sticky
-    cap of 2 · 512 rows with 512 live; held against its plain version,
-    timed as in 6, beside ``index_add_`` of the live rows' requests."""
+    cap of 2 · 512 rows with 512 live, no nz rows; held against its plain
+    version, timed as in 6 and by queued events, beside ``index_add_`` of
+    the live rows' requests timed by the same methods; one device activity
+    a call."""
     import torch
 
     from kubernetes_tpu_torch.kernels.prev_delta import prev_delta_apply, \
@@ -5072,7 +5204,7 @@ def time_nominated_bundle(dev) -> dict:
     nreq[:512, 0] = 3000
     nreq[:512, 1] = 512000
     nreq[:512, 3] = 1
-    bundle = [(rows.to(dev), nreq.to(dev), torch.zeros((k, 2), dtype=torch.int32).to(dev))]
+    bundle = [(rows.to(dev), nreq.to(dev), None)]  # no nz rows
     got = prev_delta_apply(req, nz, bundle)
     want = prev_delta_apply_plain(req, nz, bundle)
     torch.cuda.synchronize()
@@ -5093,7 +5225,12 @@ def time_nominated_bundle(dev) -> dict:
     least, bound_by = bound_ms(n_bytes, 512 * r)
     ms, (lib_ms,), source = ms_one_method(lambda: prev_delta_apply(req, nz, bundle),
                                           "prev_delta_kernel", library_add)
+    one_device_activity("prev_delta_apply (nominated bundle alone)",
+                        lambda: prev_delta_apply(req, nz, bundle), "prev_delta_kernel",
+                        "prev_delta_apply", sessions=6, must_record=False)
     rec = {"max_abs_err": err, "ms": ms, "ms_source": source,
+           "queued_ms": queued_device_ms(lambda: prev_delta_apply(req, nz, bundle)),
+           "library_queued_ms": queued_device_ms(library_add),
            "call_ms": time_ms(lambda: prev_delta_apply(req, nz, bundle)),
            "plain_ms": time_ms(lambda: prev_delta_apply_plain(req, nz, bundle), reps=5,
                                warmup=1),
@@ -5101,7 +5238,8 @@ def time_nominated_bundle(dev) -> dict:
            "shape": {"N": n, "R": r, "rows": k, "live": 512}}
     log(f"  prev_delta_apply, the nominated bundle alone: {rec['ms']:.5f} ms device "
         f"({rec['ms_source']}), bound {least:.7f} ms ({bound_by}), plain "
-        f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.5f} ms")
+        f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.5f} ms; queued "
+        f"{rec['queued_ms']:.5f} against {rec['library_queued_ms']:.5f}")
     return rec
 
 
@@ -5565,9 +5703,10 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 
 
 # kernels already redesigned for Hopper in the port's step 2 (every row of
-# theirs, at every shape and mode): K2, K3, K4, K29, K19 and K7
+# theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13 and K1
 REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
-              "ipa_update_row", "spread_score_combine")
+              "ipa_update_row", "spread_score_combine", "prev_delta_apply",
+              "filter_score_planes")
 
 
 def step2_order(rows: list) -> dict:
@@ -6744,6 +6883,7 @@ ENGINE_CARRIER = {
     "ipa_update_row (tables)": "SchedulingPodAffinity scan",
     "filter_score_planes (C = 512)": "heterogeneous backlog",
     "normalize_combine (C = 512)": "heterogeneous backlog",
+    "filter_score_planes (C = 1)": "TopologySpreading scan",
     "normalize_combine (C = 1)": "TopologySpreading scan",
     "spread_score_combine (C = 1)": "TopologySpreading scan",
     "topk_rows (C = 512)": "heterogeneous backlog",
@@ -7026,6 +7166,21 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
         reuse_err["normalize_combine"])
     ROUND_CALLS["normalize_combine (C = 512)"] = (
         lambda: normalize_combine(bits2, full2, raw2, plan2), "normalize_combine_kernel", {})
+    # K1 on one pod's row, as the exact scan launches it every step (the
+    # TopologySpreading scan's latest step)
+    a1_1, _ = scan_args["filter_score_planes"]
+    kb1, kr1 = filter_score_planes(*a1_1)
+    pb1, pr1 = filter_score_planes_plain(*a1_1)
+    err1_1 = require_equal("filter_score_planes (C = 1, path shapes)",
+                           [("bits", kb1, pb1), ("raw", kr1, pr1)])
+    row("filter_score_planes", "filter_score_planes (C = 1)",
+        "kubernetes_tpu_torch/csrc/filter_score.cu", "kubernetes_tpu/framework/runtime.py:361",
+        "filter_score_kernel", lambda: filter_score_planes(*a1_1),
+        lambda: filter_score_planes_plain(*a1_1), *k1_work(*a1_1[:6], kb1, kr1),
+        {"C": 1, "N": kb1.shape[1]}, max(err["filter_score_planes"], err1_1))
+    one_device_activity("filter_score_planes (C = 1)", lambda: filter_score_planes(*a1_1),
+                        "filter_score_kernel", "filter_score_planes", sessions=6,
+                        must_record=False)
     # K2 on one pod's row, as the exact scan launches it every step (the
     # TopologySpreading scan's latest step)
     (bits1, full1, raw1, plan1), _ = scan_args["normalize_combine"]

@@ -131,13 +131,12 @@ def apply_prev_delta(dyn: DynamicState, prevs: Sequence[PrevBatch],
     scheduler.py:889-895, then its apply_prev_delta, :897-916, for each
     bundle, oldest first) — K13 on the card, one launch for every bundle.
     ``nominated`` is (rows i32[K], req i32[K, R]) or None: it adds into
-    ``requested`` only.  A new state: the snapshot arrays ``dyn`` may alias
-    stay untouched."""
+    ``requested`` only (a bundle with no ``nz`` rows).  A new state: the
+    snapshot arrays ``dyn`` may alias stay untouched."""
     bundles = [(p.rows, p.req, p.nz) for p in prevs]
     if nominated is not None:
         rows, req = nominated
-        nz = torch.zeros((rows.shape[0], 2), dtype=torch.int32, device=rows.device)
-        bundles.insert(0, (rows, req, nz))
+        bundles.insert(0, (rows, req, None))
     if not bundles:
         return dyn
     req, nz = prev_delta_apply(dyn.requested, dyn.non_zero, bundles)

@@ -7,7 +7,8 @@ is no fallback).  ``LAUNCHES`` counts, per kernel, its launches on the
 card (K9 launches once per pass, so one of its wrapper calls may count
 more than once); ``reset_launches`` zeroes the counts.
 
-  K1 filter_score_planes  csrc/filter_score.cu
+  K1 filter_score_planes  csrc/filter_score.cu (node tiles × class chunks,
+                          the class rows and invariants staged once a block)
   K2 normalize_combine    csrc/normalize_combine.cu (one launch: a row over a
                           cluster of up to 8 blocks at C <= 16, each plane
                           read once)
@@ -23,7 +24,8 @@ more than once); ``reset_launches`` zeroes the counts.
   K11 ipa_score_combine     csrc/interpodaffinity.cu
   K12 ipa_update_classes    csrc/interpodaffinity.cu (one launch per present
                             term group)
-  K13 prev_delta_apply      csrc/prev_delta.cu
+  K13 prev_delta_apply      csrc/prev_delta.cu (one launch a call: node tiles,
+                            the copy fused in, shared-memory adds)
   K14 spread_chain_prev     csrc/spread.cu
   K15 ipa_chain_prev        csrc/interpodaffinity.cu (one launch per present
                             term group of this batch, and per prev term group

@@ -147,7 +147,7 @@ def _fn():
 def filter_score_planes(rep, snap, dyn: DynamicState, na_mask, na_pref,
                         img_scaled, plan: FilterScorePlan):
     """→ (bits i32[C, N], raw f32[5, C, N]).  CPU tensors take the plain
-    version; CUDA tensors launch K1."""
+    version; CUDA tensors launch K1 (one launch, no other device work)."""
     if not snap.node_valid.is_cuda:
         return filter_score_planes_plain(rep, snap, dyn, na_mask, na_pref,
                                          img_scaled, plan)
@@ -155,8 +155,8 @@ def filter_score_planes(rep, snap, dyn: DynamicState, na_mask, na_pref,
     r = snap.allocatable.shape[1]
     dev = snap.device
     cls = [getattr(rep, f).contiguous() for f in ROW_FIELDS]
-    live = live_nodes(snap).contiguous()
-    nodes = [live, snap.node_valid, snap.node_name_ids, snap.unschedulable,
+    # live_nodes (node_valid & node_ready) is folded in by the kernel
+    nodes = [snap.node_ready, snap.node_valid, snap.node_name_ids, snap.unschedulable,
              snap.allocatable, dyn.requested, dyn.non_zero, snap.taint_keys,
              snap.taint_vals, snap.taint_effects, snap.ports, snap.ports_ip,
              snap.image_ids]

@@ -1,6 +1,7 @@
-"""K2 (normalize_combine), K29 (candidate_dense), K19 (ipa_update_row) and
-K7 (spread_score_combine) timed on synthetic inputs at the shapes their
-paths give them, for the copy of ``kubernetes_tpu_torch`` under
+"""K2 (normalize_combine), K29 (candidate_dense), K19 (ipa_update_row), K7
+(spread_score_combine), K1 (filter_score_planes) and K13
+(prev_delta_apply) timed on synthetic inputs at the shapes their paths
+give them, for the copy of ``kubernetes_tpu_torch`` under
 ``--root``, so that two trees (a parent and a change, unpacked side by
 side) are timed by the same methods on one card:
 
@@ -24,15 +25,30 @@ affinity, D = 8192) and the tables form (SchedulingPodAffinity's required
 affinity on one zone, D = 8), and a step whose ``node_row`` is -1; K7 on
 N = 8192 at C = 4 with no soft constraint (TopologySpreading), C = 4 with a
 ScheduleAnyway constraint on three zones, C = 1 (the scan's step) and
-C = 512 (the full auction).  Needs a CUDA card; imports nothing of JAX.
+C = 512 (the full auction); K1 on N = 8192 (5000 live ``node_default``
+nodes, no taint, port or image, as the NorthStar and heterogeneous-backlog
+clusters) at C = 1 (the scan's step), 4 (a NorthStar round) and 512 (the
+heterogeneous backlog's classes, cpu 100m + (i mod 400)m), Fit under
+MostAllocated and RequestedToCapacityRatio at C = 128 (the profiles path's
+dedup rounds), and at C = 512 on ``chip_smoke.synthetic_snapshot``'s
+adversarial nodes (taints, ports, images on most of them); K13 with the
+pipelined path's two in-flight bundles (2 × 512 pods, N = 8192, R = 8) and
+with the nominated bundle alone (512 of 1024 rows live, no ``nz`` rows —
+a zero tensor for a tree whose wrapper needs one), each beside
+``index_add_`` into the same arrays timed by the same method.  K1's and
+K13's rows carry their bound (``chip_smoke.k1_work`` / the bytes the
+adds need, over the card's rates).  Needs a CUDA card; imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 
@@ -162,6 +178,82 @@ def k7_inputs(c: int, soft: bool, dev, seed: int = 7):
     return aux, torch.from_numpy(bits).to(dev), full, torch.from_numpy(total).to(dev)
 
 
+def k1_inputs(c: int, base, dev, seed: int = 1):
+    """K1's arguments at the dedup / scan paths' shape, on ``base`` (a
+    DeviceSnapshot of N = 8192 rows) rewritten to 5000 live
+    ``node_default`` nodes (4 cpu, 32Gi, 110 pods; requests 0–75% used), no
+    taint, port or image; ``c`` class rows of cpu 100m + (i mod 400)m, 500Mi
+    and one pod each, no toleration, port or image; NodeAffinity's planes
+    all-pass and zero."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + c)
+    n, live, r = 8192, 5000, 8
+    alloc = np.zeros((n, r), np.int32)
+    alloc[:live, 0], alloc[:live, 1], alloc[:live, 3] = 4000, 32 << 20, 110
+    req = np.zeros((n, r), np.int32)
+    req[:live, 0] = rng.integers(0, 3000, live)
+    req[:live, 1] = rng.integers(0, 24 << 20, live)
+    req[:live, 3] = rng.integers(0, 80, live)
+    valid = np.arange(n) < live
+
+    def i32(*shape, v=-1):
+        return torch.full(shape, v, dtype=torch.int32, device=dev)
+
+    snap = dataclasses.replace(base, **{k: torch.from_numpy(v).to(dev) for k, v in {
+        "allocatable": alloc, "requested": req, "non_zero_requested": req[:, :2].copy(),
+        "node_valid": valid, "node_ready": valid.copy(),
+        "unschedulable": np.zeros(n, bool)}.items()},
+        taint_keys=i32(n, 8), taint_vals=i32(n, 8), taint_effects=i32(n, 8),
+        ports=i32(n, 8), ports_ip=i32(n, 8), image_ids=i32(n, 8))
+    creq = np.zeros((c, r), np.int32)
+    creq[:, 0] = 100 + np.arange(c) % 400
+    creq[:, 1], creq[:, 3] = 512000, 1
+    rep = types.SimpleNamespace(
+        valid=torch.ones(c, dtype=torch.bool, device=dev),
+        request=torch.from_numpy(creq).to(dev),
+        non_zero=torch.from_numpy(creq[:, :2].copy()).to(dev), node_name_id=i32(c),
+        tol_valid=torch.zeros((c, 2), dtype=torch.bool, device=dev), tol_key=i32(c, 2),
+        tol_val=i32(c, 2), tol_op=i32(c, 2), tol_effect=i32(c, 2), ports=i32(c, 2),
+        ports_ip=i32(c, 2), image_ids=i32(c, 2))
+    dyn = types.SimpleNamespace(requested=snap.requested, non_zero=snap.non_zero_requested)
+    na_mask = torch.ones((c, n), dtype=torch.bool, device=dev)
+    na_pref = torch.zeros((c, n), dtype=torch.float32, device=dev)
+    return rep, snap, dyn, na_mask, na_pref
+
+
+def k13_inputs(kind: str, dev, seed: int = 13):
+    """(requested, non_zero, bundles): "path" — two in-flight bundles of 512
+    pod_default pods (100m / 500Mi, one pod) on N = 8192, R = 8, their rows
+    on the 5000 live nodes (pods sharing a node) with 16 unplaced (−1) each;
+    "nominated" — one bundle of 1024 rows, 512 live at distinct nodes
+    (3000m / 500Mi), no ``nz`` rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n, r = 8192, 8
+    requested = torch.from_numpy(rng.integers(0, 1 << 20, (n, r)).astype(np.int32)).to(dev)
+    non_zero = torch.from_numpy(rng.integers(0, 1 << 20, (n, 2)).astype(np.int32)).to(dev)
+    bundles = []
+    if kind == "path":
+        for _ in range(2):
+            rows = rng.integers(0, 5000, 512).astype(np.int32)
+            rows[rng.permutation(512)[:16]] = -1
+            req = np.zeros((512, r), np.int32)
+            req[:, 0], req[:, 1], req[:, 3] = 100, 512000, 1
+            bundles.append(tuple(torch.from_numpy(a).to(dev)
+                                 for a in (rows, req, req[:, :2].copy())))
+    else:
+        rows = np.full(1024, -1, np.int32)
+        rows[:512] = rng.permutation(n)[:512]
+        req = np.zeros((1024, r), np.int32)
+        req[:512, 0], req[:512, 1], req[:512, 3] = 3000, 512000, 1
+        bundles.append((torch.from_numpy(rows).to(dev), torch.from_numpy(req).to(dev), None))
+    return requested, non_zero, bundles
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the tree whose kubernetes_tpu_torch to time")
@@ -184,7 +276,14 @@ def main() -> None:
     from kubernetes_tpu_torch.kernels.interpodaffinity import ipa_update_row, ipa_update_row_plain
     from kubernetes_tpu_torch.kernels.preempt import candidate_dense, candidate_dense_plain
     from kubernetes_tpu_torch.kernels.spread import spread_score_combine, spread_score_combine_plain
+    from kubernetes_tpu_torch.kernels.filter_score import (
+        filter_score_planes,
+        filter_score_planes_plain,
+    )
+    from kubernetes_tpu_torch.kernels.prev_delta import prev_delta_apply, prev_delta_apply_plain
     from kubernetes_tpu_torch.plugins.interpodaffinity import InterPodAffinityPlugin
+    from kubernetes_tpu_torch.plugins.noderesources import FitPlugin
+    from kubernetes_tpu_torch.plugins.trivial import image_scaled_by_id
 
     for mod in (cs, kernels):
         if not str(Path(mod.__file__).resolve()).startswith(str(root)):
@@ -196,6 +295,8 @@ def main() -> None:
     build.load("preempt")
     build.load("interpodaffinity")
     build.load("spread")
+    build.load("filter_score")
+    build.load("prev_delta")
     plan = CombinePlan(kinds=(0, 0, 0, 1, 2), weights=(1.0, 1.0, 1.0, 1.0, 1.0), const_add=0.0)
     rows = []
 
@@ -265,6 +366,71 @@ def main() -> None:
         add("spread_score_combine" + (" (ScheduleAnyway)" if soft else ""),
             lambda a_=aux, b_=bits, f_=full, w_=work: spread_score_combine(a_, b_, f_, w_, 2.0),
             bool(equal), C=c, N=8192, Cc=1, soft=soft)
+
+    fw, (fs_plan, _comb) = cs.framework_plans()
+    gen = torch.Generator().manual_seed(cs.SEED + 1)
+    k1_cases = [(c, "LeastAllocated", "path") for c in (1, 4, 512)]
+    k1_cases += [(128, s_, "path") for s_ in ("MostAllocated", "RequestedToCapacityRatio")]
+    k1_cases.append((512, "LeastAllocated", "synthetic"))
+    base = cs.synthetic_snapshot(8192, gen, dev)
+    for c, strategy, nodes in k1_cases:
+        if nodes == "path":
+            rep, snap, dyn, na_mask, na_pref = k1_inputs(c, base, dev)
+        else:
+            snap = cs.synthetic_snapshot(8192, gen, dev)
+            dyn = types.SimpleNamespace(requested=snap.requested,
+                                        non_zero=snap.non_zero_requested)
+            rep, na_mask, na_pref = cs.synthetic_classes(c, 8192, gen, dev)
+        img = image_scaled_by_id(snap)
+        plan = fs_plan if strategy == "LeastAllocated" else \
+            dataclasses.replace(fs_plan, fit=FitPlugin(strategy))
+        a1 = (rep, snap, dyn, na_mask, na_pref, img, plan)
+        kb, kr = filter_score_planes(*a1)
+        pb, pr = filter_score_planes_plain(*a1)
+        equal = torch.equal(kb, pb) and torch.equal(kr.view(torch.int32), pr.view(torch.int32))
+        least, by = cs.bound_ms(*cs.k1_work(rep, snap, dyn, na_mask, na_pref, img, kb, kr))
+        add("filter_score_planes" + ("" if strategy == "LeastAllocated" else f" ({strategy})")
+            + ("" if nodes == "path" else " (synthetic nodes)"),
+            lambda a_=a1: filter_score_planes(*a_), bool(equal), C=c, N=8192,
+            strategy=strategy, nodes=nodes, bound_ms=least, bound_by=by)
+
+    for kind in ("path", "nominated"):
+        requested, non_zero, bundles = k13_inputs(kind, dev)
+        try:  # a tree whose wrapper takes no null nz gets the zero rows
+            prev_delta_apply(requested, non_zero, bundles)
+        except (TypeError, AttributeError, RuntimeError):
+            bundles = [(rw, rq, torch.zeros((rw.shape[0], 2), dtype=torch.int32, device=dev))
+                       for rw, rq, _nz in bundles]
+        kr_, kn_ = prev_delta_apply(requested, non_zero, bundles)
+        pr_, pn_ = prev_delta_apply_plain(requested, non_zero, bundles)
+        equal = torch.equal(kr_, pr_) and torch.equal(kn_, pn_) \
+            and not torch.equal(kr_, requested)
+        n, r = requested.shape
+        rows_all = torch.cat([b[0] for b in bundles])
+        live = rows_all >= 0
+        at = rows_all.long().clamp(0, n - 1)
+        add_req = torch.where(live[:, None], torch.cat([b[1] for b in bundles]), 0)
+        with_nz = [b for b in bundles if b[2] is not None and bool(b[2].any())]
+        add_nz = torch.where(live[:, None], torch.cat([b[2] for b in bundles]), 0) \
+            if with_nz else None
+        lib_r, lib_n = requested.clone(), non_zero.clone()
+
+        def library(at_=at, ar=add_req, an=add_nz, lr=lib_r, ln=lib_n):
+            lr.index_add_(0, at_, ar)
+            if an is not None:
+                ln.index_add_(0, at_, an)
+        # what the adds need: each bundle row's node row and request rows read
+        # once, the touched node rows read and written
+        placed = int(live.sum())
+        touched = int(at[live].unique().numel())
+        width = r + (2 if add_nz is not None else 0)
+        n_bytes = 4 * rows_all.numel() * (1 + width) + touched * width * 4 * 2
+        least, by = cs.bound_ms(n_bytes, placed * width)
+        fn = (lambda q=requested, z=non_zero, b_=bundles: prev_delta_apply(q, z, b_))
+        add(f"prev_delta_apply ({kind})", fn, bool(equal), N=n, R=r, bundles=len(bundles),
+            rows=int(rows_all.numel()), placed=placed, bound_ms=least, bound_by=by,
+            library_ms=cs.device_ms(library), library_ms_source=cs.MS_SOURCE[0],
+            library_queued_ms=cs.queued_device_ms(library))
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"root": str(root), "card": card.strip(),
