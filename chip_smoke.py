@@ -26,7 +26,11 @@ Phases, all of which must pass (any failure exits non-zero):
    all-trash group, aff_total 0 with and without a self-match, an
    all-masked row, normalization over max − min of 97 and 100 (the top
    node must score 100), negative raw scores, and index groups of every
-   kind.  K13–K16: rows of −1, two bundles on one node, a no-op bundle;
+   kind; K11 and K12 also at kernel_work.py's shapes, K12 on a tables
+   bucket of 65536 domains and at B = 6000 (two compaction passes); one
+   launch a call of K11 and K12 proven by a CUDA graph (as of K1, K7, K13,
+   K19 and K29 later).  K13–K16: rows of −1, two bundles on one node, a
+   no-op bundle;
    word and odd row widths with duplicate pad rows; unplaced and invalid
    prev pods; both IPA count forms, a carry with and without prev terms,
    an all-invalid prev term group.  K17–K19 (the exact scan's step): ties
@@ -282,8 +286,9 @@ Phases, all of which must pass (any failure exits non-zero):
 
 6b. K17–K19 on the arguments of their latest call on the scan paths (K19
    in both count forms), K1, K2 and K7 on the TopologySpreading scan's
-   one-row step, and K1–K4, K8 and K12 at C = 512 on the full auctions'
-   latest rounds, timed as in 6.
+   one-row step and K11 on the SchedulingPreferredPodAffinity scan's, and
+   K1–K4, K8, K11 and K12 at C = 512 on the full auctions' latest rounds,
+   timed as in 6.
 6c. K20–K23 on the arguments of their latest call on the GangBasic/5000Nodes
    synchronous run (K23: the node-affinity filter's node-selector call),
    timed as in 6; K20 beside the one PyTorch pair that computes the same
@@ -353,8 +358,10 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (same sheet)
+# the bound formulas and K11 / K12's synthetic inputs, shared with kernel_ab.py
+from kubernetes_tpu_torch.perf import kernel_work as KW
+from kubernetes_tpu_torch.perf.kernel_work import bound_ms, k1_work, k7_work, nbytes
+
 SEED = 20261016
 IPA_KERNELS = ("ipa_prepare", "ipa_filter_bits", "ipa_score_combine", "ipa_update_classes")
 # K1–K12 in order: K1–K4 carry every path, K5–K8 the spread path, K9–K12
@@ -541,18 +548,6 @@ def time_round_kernels(rows) -> str:
            "by the prefix form)" if "iterations" in got[label] else "")
         for label in ROUND_CALLS))
     return method
-
-
-def nbytes(*tensors) -> int:
-    return int(sum(t.numel() * t.element_size() for t in tensors))
-
-
-def bound_ms(n_bytes: int, n_ops: int):
-    """(the least time in ms, what bounds it): the larger of the bytes over
-    the memory rate and the scalar operations over the float32 peak."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def max_abs_err(a, b) -> float:
@@ -1352,6 +1347,14 @@ IPA_MUTABLE = ("aff_cnt", "anti_cnt", "paff_cnt", "panti_cnt", "aff_total", "blo
                "score_dyn")
 
 
+def strided_view(x):
+    """``x``'s values as a view that is not contiguous: its last axis cut
+    from a tensor twice as wide."""
+    import torch
+
+    return torch.cat([x, x], dim=-1)[..., :x.shape[-1]]
+
+
 def ipa_case(name: str, gen, dev, *, c=4, t=2, n=8192, p=8192, b=512, d=8, n_dom=3,
              keyless=0.1, present=IPA_GROUPS, trash_group=None, static=None, dyn_zero=False,
              mask_frac=0.9):
@@ -1435,7 +1438,7 @@ def ipa_case(name: str, gen, dev, *, c=4, t=2, n=8192, p=8192, b=512, d=8, n_dom
         bits=to(bits), total=to(total),
         match=to(rnd(c, t, p) < 0.3), pod_node=to(ints(-1, n, p)), pod_valid=to(rnd(p) < 0.9),
         existing={k: to(v) for k, v in existing.items()},
-        commit=to(rnd(b) < 0.3), choice=to(ints(0, n, b)), class_of=to(ints(0, c, b)))
+        commit=to(rnd(b) < 0.3), choice=to(ints(0, n, b)), class_of=to(ints(0, c, b).long()))
 
 
 def check_ipa_kernels(dev) -> dict:
@@ -1516,13 +1519,73 @@ def check_ipa_kernels(dev) -> dict:
         err["ipa_update_classes"] = max(err["ipa_update_classes"], require_equal(
             f"ipa_update_classes ({what})",
             [(f, getattr(ka, f), getattr(pa, f)) for f in IPA_MUTABLE]))
+    # K11 and K12 at the redesign's shapes (kernel_work.py's inputs: the
+    # dedup round, the scan's step, the full auction, zone tables with both
+    # preferred groups; one commit, zone tables, the anti-affinity round at
+    # C = 512, all four groups) and K12 on a tables-form bucket of 65536
+    # domains, beyond what one block could keep as a domain-sized array
+    for label in KW.K11_CASES:
+        aux, bits, full, total = KW.k11_inputs(label, dev)
+        kt, pt = total.clone(), total.clone()
+        K.ipa_score_combine(aux, bits, full, kt, 2.0)
+        K.ipa_score_combine_plain(aux, bits, full, pt, 2.0)
+        torch.cuda.synchronize()
+        err["ipa_score_combine"] = max(err["ipa_score_combine"], require_equal(
+            f"ipa_score_combine ({label})", [("total", kt, pt)]))
+        if torch.equal(kt, total):
+            fail(f"ipa_score_combine ({label}): the total did not move")
+    cases12 = [(label, KW.k12_inputs(label, dev)) for label in KW.K12_CASES]
+    wide = KW.k12_inputs("C = 4, tables", dev, d=65536)
+    if wide[0].depth <= K.MAX_SHARED_DOMAINS:
+        fail("ipa check: the wide tables case is not past a domain-sized shared array")
+    cases12.append(("C = 4, tables, 65536 domains", wide))
+    # B = 6000: the commits compacted in two passes (4096 a block)
+    aux, commit, choice, class_of = KW.k12_inputs("C = 4, four groups", dev, b=6000)
+    commit = torch.rand(6000, generator=gen).to(dev) < 0.5
+    cases12.append(("C = 4, four groups, B = 6000, two compaction passes",
+                    (aux, commit, choice, class_of)))
+    # every group's domains, cross and extras as strided views: the wrapper's
+    # contiguous copies must all live until the one launch reads them
+    aux, commit, choice, class_of = KW.k12_inputs("C = 4, four groups", dev)
+    views = {f: strided_view(getattr(aux, f)) for f in (
+        "dom_aff", "dom_anti", "dom_paff", "dom_panti", "aff_term_cross", "anti_cross",
+        "paff_cross", "panti_cross", "aff_cross_all", "req_aff_valid", "paff_weight",
+        "panti_weight")}
+    if any(v.is_contiguous() for v in views.values()):
+        fail("ipa check: a strided view of the four-group case is contiguous")
+    cases12.append(("C = 4, four groups, strided views",
+                    (aux._replace(**views), commit, choice, class_of)))
+    for label, (aux, commit, choice, class_of) in cases12:
+        ka, pa = plug.engine_copy(aux), plug.engine_copy(aux)
+        K.ipa_update_classes(ka, commit, choice, class_of)
+        K.ipa_update_classes_plain(pa, commit, choice, class_of)
+        torch.cuda.synchronize()
+        err["ipa_update_classes"] = max(err["ipa_update_classes"], require_equal(
+            f"ipa_update_classes ({label})",
+            [(f, getattr(ka, f), getattr(pa, f)) for f in IPA_MUTABLE]))
+        if all(torch.equal(getattr(ka, f), getattr(aux, f)) for f in IPA_MUTABLE):
+            fail(f"ipa_update_classes ({label}): the round changed nothing")
+    # one launch a call: K11 split over a cluster (C = 4) and one block a row
+    # (C = 512), K12 with all four groups present
+    for label in ("C = 4, planes", "C = 512, anti-affinity classes"):
+        aux, bits, full, total = KW.k11_inputs(label, dev)
+        one_device_activity(f"ipa_score_combine ({label})",
+                            lambda a_=aux, b_=bits, f_=full, t_=total:
+                            K.ipa_score_combine(a_, b_, f_, t_, 2.0),
+                            "ipa_score_kernel", "ipa_score_combine")
+    aux, commit, choice, class_of = KW.k12_inputs("C = 4, four groups", dev)
+    work = plug.engine_copy(aux)
+    one_device_activity("ipa_update_classes (four groups)",
+                        lambda: K.ipa_update_classes(work, commit, choice, class_of),
+                        "ipa_update_kernel", "ipa_update_classes")
     # the adversarial cases hit what they are named for
     if not bool((K.ipa_raw_plane(cases[5]["aux"]) < 0).any()):
         fail("ipa check: the preferred anti-affinity case produced no negative raw score")
     first = K.ipa_filter_plane(cases[4]["aux"])
     if not bool(first[0].any()) or bool(first[1].any()):
         fail("ipa check: the first-pod escape did not pass row 0 alone")
-    log(f"affinity kernels vs plain: all equal over {len(cases)} cases")
+    log(f"affinity kernels vs plain: all equal over {len(cases)} cases, K11 at "
+        f"{len(KW.K11_CASES)} and K12 at {len(cases12)} more shapes")
     return err
 
 
@@ -2302,7 +2365,7 @@ def time_pipeline_kernels(last_calls: dict, err: dict) -> list:
     rows_out[-1]["queued_ms"] = queued_device_ms(k13)
     rows_out[-1]["library_queued_ms"] = queued_device_ms(library)
     one_device_activity("prev_delta_apply (path shapes)", k13, "prev_delta_kernel",
-                        "prev_delta_apply", sessions=6, must_record=False)
+                        "prev_delta_apply")
     log(f"  prev_delta_apply (path shapes): {rows_out[-1]['ms']:.5f} ms "
         f"({rows_out[-1]['ms_source']}) against index_add_'s "
         f"{rows_out[-1]['library_ms']:.5f}; queued {rows_out[-1]['queued_ms']:.5f} against "
@@ -3094,8 +3157,7 @@ def time_kernels(sched, err: dict) -> list:
     one_device_activity("filter_score_planes (NorthStar)",
                         lambda: filter_score_planes(rep, snap, dyn, na_mask, na_pref, img,
                                                     fs_plan),
-                        "filter_score_kernel", "filter_score_planes", sessions=6,
-                        must_record=False)
+                        "filter_score_kernel", "filter_score_planes")
     # per (class, feasible node, plane): the row max, the scaling, the
     # floor, the add; K2 reads the raw planes only on feasible nodes
     n_feas = int(feas.sum())
@@ -3252,30 +3314,6 @@ def plain_call(fn, *args):
         return fn(*args)
 
 
-def k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw):
-    """(bytes, operations) K1 needs on these inputs: every input read once
-    and both outputs written once; per (class, node) the taint × toleration
-    matches, port × port and image × image compares and ~12 arithmetic
-    steps per resource dimension."""
-    c, n = bits.shape
-    k1_in = [rep.valid, rep.request, rep.non_zero, rep.node_name_id, rep.tol_valid,
-             rep.tol_key, rep.tol_val, rep.tol_op, rep.tol_effect, rep.ports,
-             rep.ports_ip, rep.image_ids, snap.node_valid, snap.node_ready,
-             snap.node_name_ids, snap.unschedulable, snap.allocatable, dyn.requested,
-             dyn.non_zero, snap.taint_keys, snap.taint_vals, snap.taint_effects,
-             snap.ports, snap.ports_ip, snap.image_ids, na_mask, na_pref]
-    # of ImageLocality's per-id table K1 needs only the entries at the class
-    # rows' image ids, one f32 each
-    img_gathered = int((rep.image_ids >= 0).sum()) * img.element_size()
-    pod_t, pod_p, pod_i = (rep.tol_key.shape[1], rep.ports.shape[1],
-                           rep.image_ids.shape[1])
-    node_t, node_p, node_i = (snap.taint_keys.shape[1], snap.ports.shape[1],
-                              snap.image_ids.shape[1])
-    r = dyn.requested.shape[1]
-    ops = c * n * (node_t * pod_t + pod_p * node_p + pod_i * node_i + 12 * r)
-    return nbytes(*k1_in, bits, raw) + img_gathered, ops
-
-
 # --- phase 6: K5–K8 at the TopologySpreading shapes --------------------------------------
 
 
@@ -3429,65 +3467,113 @@ def time_spread_kernels(sched, err: dict) -> list:
     return rows
 
 
-def k7_work(aux, bits, full: int) -> tuple:
-    """K7's bytes and operations on these inputs: the bit plane (the
-    feasibility mask) and soft_valid read once; the total read and written
-    on feasible nodes; for the soft constraints only: has_key on feasible
-    nodes, dom_val on scored ones, their table row, maxSkew and log-table
-    entry; per feasible (row, node) the normalization, floor, scale and add,
-    per scored soft term six more."""
-    feas_mask = bits == full
-    soft_feas = feas_mask[:, None, :] & aux.soft_valid[:, :, None]  # [C, Cc, N]
-    n_soft = int(aux.soft_valid.sum())
-    n_scored_soft = int((soft_feas & aux.has_key).sum())
-    n_feas = int(feas_mask.sum())
-    d1 = aux.soft_counts.shape[-1]
-    return (nbytes(bits, aux.soft_valid) + 8 * n_feas + int(soft_feas.sum())
-            + 4 * n_scored_soft + n_soft * (4 * d1 + 4 + 4), 8 * n_feas + 6 * n_scored_soft)
+_CU = {}
 
 
-def one_device_activity(label: str, call, symbol: str, key: str, reps: int = 20,
-                        sessions: int = 3, must_record: bool = True) -> list:
-    """``reps`` calls under the profiler: the wrapper's count ``key`` rises
-    by exactly ``reps`` (one launch a call), and every device activity the
-    session records is the kernel ``symbol``'s (no torch op on the card
-    beside it) — at least one and at most ``reps`` (a session may lose
-    records, never add them); if none of ``sessions`` sessions records one,
-    fails (``must_record``) or logs that the profiler could not tell.
-    → the torch ops the calls ran on the host in that session."""
+def _driver() -> dict:
+    """The CUDA driver API (libcuda) calls that read a graph's kernel nodes,
+    typed, by name (None where the driver lacks one: then the check names
+    no kernel, and fails)."""
+    import ctypes
+
+    if not _CU:
+        cu = ctypes.CDLL("libcuda.so.1")
+        vp, sz = ctypes.c_void_p, ctypes.c_size_t
+        for name, args in (("cuGraphGetNodes", [vp, ctypes.POINTER(vp), ctypes.POINTER(sz)]),
+                           ("cuGraphNodeGetType", [vp, ctypes.POINTER(ctypes.c_int)]),
+                           ("cuGraphKernelNodeGetParams_v2", [vp, ctypes.c_void_p]),
+                           ("cuFuncGetName", [ctypes.POINTER(ctypes.c_char_p), vp]),
+                           ("cuKernelGetName", [ctypes.POINTER(ctypes.c_char_p), vp])):
+            fn = getattr(cu, name, None)
+            if fn is not None:
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _CU[name] = fn
+    return _CU
+
+
+def graph_nodes(call, calls: int) -> list:
+    """``calls`` calls captured into a CUDA graph (``torch.cuda.graph``,
+    relaxed mode, the graph kept and never run), then the graph's nodes
+    read through the driver API: → [(node type, kernel name or None)], in
+    the graph's order.  A call that synchronizes or reads the card on the
+    host breaks the capture, and raises."""
+    import ctypes
+
+    import torch
+
+    class KernelParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                    ("args", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    cu = _driver()
+    call()  # built, loaded and launched once outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            call()
+    try:
+        handle = ctypes.c_void_p(graph.raw_cuda_graph())
+        count = ctypes.c_size_t(0)
+        cu["cuGraphGetNodes"](handle, None, ctypes.byref(count))
+        nodes = (ctypes.c_void_p * max(count.value, 1))()
+        cu["cuGraphGetNodes"](handle, nodes, ctypes.byref(count))
+        out = []
+        for k in range(count.value):
+            kind = ctypes.c_int(-1)
+            cu["cuGraphNodeGetType"](nodes[k], ctypes.byref(kind))
+            name, got, params = None, ctypes.c_char_p(), KernelParams()
+            if kind.value == 0 \
+                    and cu["cuGraphKernelNodeGetParams_v2"](nodes[k], ctypes.byref(params)) == 0:
+                if params.func and cu["cuFuncGetName"] \
+                        and cu["cuFuncGetName"](ctypes.byref(got), params.func) == 0:
+                    name = got.value.decode()
+                elif params.kern and cu["cuKernelGetName"] \
+                        and cu["cuKernelGetName"](ctypes.byref(got), params.kern) == 0:
+                    name = got.value.decode()
+            out.append((kind.value, name))  # kind 0: CU_GRAPH_NODE_TYPE_KERNEL
+        return out
+    finally:
+        graph.reset()
+
+
+def one_device_activity(label: str, call, symbol: str, key: str, calls: int = 3,
+                        host_ops: bool = False) -> list:
+    """One launch a call, proven without the profiler: ``calls`` calls
+    captured in a CUDA graph (``graph_nodes``) raise the wrapper's count
+    ``key`` by exactly ``calls``, and the graph holds exactly ``calls``
+    nodes, each a kernel node of the kernel ``symbol`` (its mangled name
+    holds it) — no torch op, copy or memset on the card beside it.  Fails
+    otherwise.  With ``host_ops``, one more call under the profiler (host
+    activities only) → the torch ops the call ran on the host."""
+    from kubernetes_tpu_torch.kernels import LAUNCHES
+
+    before = LAUNCHES[key]
+    nodes = graph_nodes(call, calls)
+    launched = LAUNCHES[key] - before - 1  # the warm-up call launched once too
+    names = [nm for kind, nm in nodes]
+    if launched != calls:
+        fail(f"{label}: {launched} launches in {calls} calls")
+    if len(nodes) != calls or any(kind != 0 for kind, _ in nodes) \
+            or any(nm is None or symbol not in nm for nm in names):
+        fail(f"{label}: the graph of {calls} calls holds {nodes}, not {calls} kernel nodes "
+             f"of {symbol}")
+    log(f"  {label}: {calls} calls, {calls} launches, a graph of {calls} kernel nodes, all "
+        f"{sorted(set(names))}")
+    if not host_ops:
+        return []
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kubernetes_tpu_torch.kernels import LAUNCHES
-
-    call()
-    torch.cuda.synchronize()
-    for _attempt in range(sessions):
-        before = LAUNCHES[key]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                call()
-            torch.cuda.synchronize()
-        if LAUNCHES[key] - before != reps:
-            fail(f"{label}: {LAUNCHES[key] - before} launches in {reps} calls")
-        device = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                  for _ in range(e.count)]
-        host = sorted({e.key for e in prof.key_averages()
-                       if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")})
-        if len(device) > reps or any(not kernel_hit(k_, symbol) for k_ in device):
-            fail(f"{label}: {len(device)} device activities in {reps} calls: "
-                 f"{sorted(set(device))}")
-        if device:
-            log(f"  {label}: {reps} calls, {reps} launches, the session's {len(device)} "
-                f"device activities all {symbol}; host ops {host}")
-            return host
-    msg = (f"{label}: the profiler recorded no device activity of {reps} calls in "
-           f"{sessions} sessions")
-    if must_record:
-        fail(msg)
-    log(f"  {msg} (one activity a call not verified by it)")
-    return []
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type != DeviceType.CUDA and e.key.startswith("aten::")})
 
 
 SPREAD_REPLACES = {
@@ -3647,39 +3733,16 @@ def time_ipa_kernels(sched, err: dict) -> list:
         lambda: K.ipa_filter_bits(aux, work_bits, bit),
         lambda: K.ipa_filter_bits_plain(aux, work_bits.clone(), bit),
         nbytes(aux.exist_anti_block, aux.block_dyn) + 8 * n_fail, 2 * c * n)
-    # K11: the bit plane read once; on feasible nodes the static and dynamic
-    # score, each preferred term's domain and count, and the total read and
-    # written; the term weights; per feasible node the raw sum (2 per term
-    # + 3), the min / max and the normalization, floor, scale and add (5)
-    n_feas = int((bits == full).sum())
+    # K11 and K12: kernel_work.py's k11_work / k12_work (the bytes and
+    # operations each must move and do on these inputs)
     row("ipa_score_combine", "ipa_score_kernel",
         lambda: K.ipa_score_combine(aux, bits, full, work_total, weight),
         lambda: K.ipa_score_combine_plain(aux, bits, full, work_total.clone(), weight),
-        nbytes(bits, aux.paff_weight) + n_feas * (4 + 4 + 8 * t + 8),
-        n_feas * (2 * t + 3 + 2 + 5))
-    # K12: the commit flags read once, the committed pods' node and class;
-    # per (count row, commit) its cross byte and the node's domain; every
-    # count row and committer row that this round's commit reaches reads its
-    # dom row and adds into the planes / score on the committed domain's
-    # nodes (read and write)
-    committed = torch.nonzero(commit, as_tuple=True)[0]
-    ks = class_t[committed]
-    ns_ = choice[committed].long().clamp(0, n - 1)
-    hit_rows = aux.paff_cross[:, :, ks].any(dim=-1)  # [C, T] count rows reached
-    committer = torch.zeros(c, dtype=torch.bool, device=dev)
-    committer[ks] = True
-    dom_at = aux.dom_paff[:, :, ns_]  # [C, T, commits]
-    same = ((aux.dom_paff[:, :, :, None] == dom_at[:, :, None, :])
-            & (dom_at[:, :, None, :] < d)).any(dim=-1)  # [C, T, N] committed domains
-    n_same = int((same & hit_rows[:, :, None]).sum())
-    n_score = int((same.sum(dim=-1) * aux.paff_cross.sum(dim=-1) * committer[:, None]).sum())
-    k12_rows = int(hit_rows.sum()) + int(committer.sum()) * t
+        *KW.k11_work(aux, bits, full))
     row("ipa_update_classes", "ipa_update_kernel",
         lambda: K.ipa_update_classes(work_aux, commit, choice, class_t),
         lambda: K.ipa_update_classes_plain(work_aux, commit, choice, class_t),
-        b + len(committed) * 8 + c * t * len(committed) * 5 + k12_rows * 4 * n
-        + 8 * n_same + 8 * n_score,
-        c * t * len(committed) + k12_rows * n + n_same + n_score)
+        *KW.k12_work(aux, commit, choice, class_t))
     return rows
 
 
@@ -4923,16 +4986,16 @@ def dense_cases(gen) -> dict:
 
 
 def dense_single_launch(g: dict) -> None:
-    """K29 calls under the profiler: one launch a call, no device activity
-    but K29's own, and no sort, searchsorted or other torch op than an empty
-    output on the host."""
+    """K29 calls captured in a graph: one launch a call, no device activity
+    but K29's own; and under the profiler no sort, searchsorted or other
+    torch op than an empty output on the host."""
     from kubernetes_tpu_torch.kernels import preempt as KP
 
     host = one_device_activity(
         "candidate_dense",
         lambda: KP.candidate_dense(*(g[k] for k in DENSE_POD), *(g[k] for k in DENSE_SIDE),
                                    0b1111),
-        "candidate_dense_kernel", "candidate_dense")
+        "candidate_dense_kernel", "candidate_dense", host_ops=True)
     if [k_ for k_ in host if not k_.startswith("aten::empty")]:
         fail(f"candidate_dense: torch ops beside the kernel on the host: {host}")
 
@@ -5227,7 +5290,7 @@ def time_nominated_bundle(dev) -> dict:
                                           "prev_delta_kernel", library_add)
     one_device_activity("prev_delta_apply (nominated bundle alone)",
                         lambda: prev_delta_apply(req, nz, bundle), "prev_delta_kernel",
-                        "prev_delta_apply", sessions=6, must_record=False)
+                        "prev_delta_apply")
     rec = {"max_abs_err": err, "ms": ms, "ms_source": source,
            "queued_ms": queued_device_ms(lambda: prev_delta_apply(req, nz, bundle)),
            "library_queued_ms": queued_device_ms(library_add),
@@ -5703,10 +5766,11 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 
 
 # kernels already redesigned for Hopper in the port's step 2 (every row of
-# theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13 and K1
+# theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13, K1, K11
+# and K12
 REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
               "ipa_update_row", "spread_score_combine", "prev_delta_apply",
-              "filter_score_planes")
+              "filter_score_planes", "ipa_score_combine", "ipa_update_classes")
 
 
 def step2_order(rows: list) -> dict:
@@ -6890,6 +6954,8 @@ ENGINE_CARRIER = {
     "auction_resolve_commit (C = 512)": "heterogeneous backlog",
     "ipa_update_classes (C = 512)": "SchedulingPodAntiAffinity priority 10",
     "spread_update_classes (C = 512)": "TopologySpreading priority 10, full auction",
+    "ipa_score_combine (C = 1)": "SchedulingPreferredPodAffinity scan",
+    "ipa_score_combine (C = 512)": "SchedulingPodAntiAffinity priority 10",
 }
 
 
@@ -6965,12 +7031,7 @@ def b9_row_bounds(spread_calls: dict, ipa_calls: dict) -> dict:
     n10 = bits10.shape[1]
     work["ipa_filter_bits"] = (nbytes(aux10.exist_anti_block, aux10.block_dyn)
                                + 8 * int((~KI.ipa_filter_plane(aux10)).sum()), 2 * n10)
-    aux11, bits11, full11 = last(ipa_calls, "ipa_score_combine")[:3]
-    t = aux11.dom_paff.shape[1]
-    n_feas11 = int((bits11 == full11).sum())
-    work["ipa_score_combine"] = (nbytes(bits11, aux11.paff_weight)
-                                 + n_feas11 * (4 + 4 + 8 * t + 8),
-                                 n_feas11 * (2 * t + 3 + 2 + 5))
+    work["ipa_score_combine"] = KW.k11_work(*last(ipa_calls, "ipa_score_combine")[:3])
     out = {}
     for name, (n_bytes, n_ops) in work.items():
         least, bound_by = bound_ms(n_bytes, n_ops)
@@ -6989,6 +7050,8 @@ def full_recorder():
                        "ipa_update_classes": (IPA_PLUGIN, "ipa_update_classes",
                                               lambda a: a[0].exist_anti_block.shape[0]
                                               == 512),
+                       "ipa_score_combine": (IPA_PLUGIN, "ipa_score_combine",
+                                             lambda a: a[1].shape[0] == 512),
                        "spread_update_classes": (SPREAD_PLUGIN, "spread_update_classes",
                                                  lambda a: a[0].match_pending.shape[0]
                                                  == 512)})
@@ -7009,8 +7072,9 @@ SCAN_SOURCES = {
 def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: dict,
                         dev) -> list:
     """K17–K19 on the arguments of their latest call on the scan paths (K19
-    in both count forms), and K1–K4, K8 and K12 at C = B = 512 class rows —
-    K1–K4 on the heterogeneous backlog's latest full-auction round, K12 on
+    in both count forms), K1, K2, K7 and K11 on the scans' one row, and
+    K1–K4, K8, K11 and K12 at C = B = 512 class rows — K1–K4 on the
+    heterogeneous backlog's latest full-auction round, K11 and K12 on
     SchedulingPodAntiAffinity's, K8 on TopologySpreading's at priority 10
     through the full auction: device time, the plain version's wall and the
     least time the card could take, from what these inputs need."""
@@ -7179,8 +7243,7 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
         lambda: filter_score_planes_plain(*a1_1), *k1_work(*a1_1[:6], kb1, kr1),
         {"C": 1, "N": kb1.shape[1]}, max(err["filter_score_planes"], err1_1))
     one_device_activity("filter_score_planes (C = 1)", lambda: filter_score_planes(*a1_1),
-                        "filter_score_kernel", "filter_score_planes", sessions=6,
-                        must_record=False)
+                        "filter_score_kernel", "filter_score_planes")
     # K2 on one pod's row, as the exact scan launches it every step (the
     # TopologySpreading scan's latest step)
     (bits1, full1, raw1, plan1), _ = scan_args["normalize_combine"]
@@ -7219,6 +7282,26 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
     one_device_activity("spread_score_combine (C = 1)",
                         lambda: KSp.spread_score_combine(aux7, bits7, full7, work7, weight7),
                         "spread_score_kernel", "spread_score_combine")
+    # K11 on one pod's row (the SchedulingPreferredPodAffinity scan's latest
+    # step) and at C = 512 (SchedulingPodAntiAffinity priority 10's latest
+    # full-auction round)
+    for label, args11 in (("ipa_score_combine (C = 1)", scan_args["ipa_score_combine"]),
+                          ("ipa_score_combine (C = 512)", full_args["ipa_score_combine"])):
+        (aux11, bits11, full11, total11, weight11), _ = args11
+        kt11, pt11 = total11.clone(), total11.clone()
+        KI.ipa_score_combine(aux11, bits11, full11, kt11, weight11)
+        KI.ipa_score_combine_plain(aux11, bits11, full11, pt11, weight11)
+        err11 = require_equal(f"{label}, path shapes", [("total", kt11, pt11)])
+        work11 = total11.clone()
+        row("ipa_score_combine", label, "kubernetes_tpu_torch/csrc/interpodaffinity.cu",
+            "kubernetes_tpu/plugins/interpodaffinity.py:368", "ipa_score_kernel",
+            lambda a_=aux11, b_=bits11, f_=full11, w_=work11, g_=weight11:
+            KI.ipa_score_combine(a_, b_, f_, w_, g_),
+            lambda a_=aux11, b_=bits11, f_=full11, w_=work11, g_=weight11:
+            KI.ipa_score_combine_plain(a_, b_, f_, w_.clone(), g_),
+            *KW.k11_work(aux11, bits11, full11),
+            {"C": bits11.shape[0], "N": bits11.shape[1], "present": list(aux11.present)},
+            max(reuse_err["ipa_score_combine"], err11))
     (eff, k), _ = full_args["topk_rows"]
     row("topk_rows", "topk_rows (C = 512)", "kubernetes_tpu_torch/csrc/topk_rows.cu",
         "kubernetes_tpu/framework/runtime.py:571", "topk_select_kernel",
@@ -7254,23 +7337,9 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
     (aux, commit, choice, class_t), _ = full_args["ipa_update_classes"]
     work = iplug.engine_copy(aux)
     committed = torch.nonzero(commit, as_tuple=True)[0]
-    ks = class_t[committed].long()
-    ns_ = choice[committed].long().clamp(0, aux.exist_anti_block.shape[1] - 1)
     c, n = aux.exist_anti_block.shape
     d = aux.depth
-    k12_bytes, k12_ops = commit.numel() + len(committed) * 8, 0
-    for g in aux.present:
-        dom_f, _cnt_f = KI.GROUP_FIELDS[g]
-        dom = getattr(aux, dom_f)
-        t = dom.shape[1]
-        cross = {"req_affinity": aux.aff_term_cross, "req_anti_affinity": aux.anti_cross,
-                 "pref_affinity": aux.paff_cross, "pref_anti_affinity": aux.panti_cross}[g]
-        hit_rows = cross[:, :, ks].any(dim=-1)
-        committer = torch.zeros(c, dtype=torch.bool, device=dev)
-        committer[ks] = True
-        rows_ = int(hit_rows.sum()) + int(committer.sum()) * t
-        k12_bytes += c * t * len(committed) * 5 + rows_ * 4 * n
-        k12_ops += c * t * len(committed) + rows_ * n
+    k12_bytes, k12_ops = KW.k12_work(aux, commit, choice, class_t)
     row("ipa_update_classes", "ipa_update_classes (C = 512)",
         "kubernetes_tpu_torch/csrc/interpodaffinity.cu",
         "kubernetes_tpu/plugins/interpodaffinity.py:766", "ipa_update_kernel",
@@ -8384,6 +8453,10 @@ def main() -> None:
     full_args = dict(recorders["heterogeneous backlog"].last)
     full_args["ipa_update_classes"] = \
         recorders["SchedulingPodAntiAffinity priority 10"].last["ipa_update_classes"]
+    full_args["ipa_score_combine"] = \
+        recorders["SchedulingPodAntiAffinity priority 10"].last["ipa_score_combine"]
+    scan_args["ipa_score_combine"] = \
+        recorders["SchedulingPreferredPodAffinity scan"].last["ipa_score_combine"]
     full_args["spread_update_classes"] = \
         recorders["TopologySpreading priority 10, full auction"].last["spread_update_classes"]
     engine_rows = time_engine_kernels(scan_args, full_args, err, reuse_err, dev)

@@ -29,21 +29,58 @@
 //             weight · count.  Bound: bytes (node_topo and the planes).
 // K10 ipa_filter: one thread per (class row, node); clears the filter's bit
 //   of K1's pass-bit plane in place.  Bound: bytes.
-// K11 ipa_score: one block per class row, two sweeps: the raw score's max
-//   and min over the feasible nodes, then the normalized, floored, weighted
-//   score added into K2's total.  Bound: bytes — at C = 4 the four blocks
-//   leave the card idle.
-// K12 ipa_update: one launch per present term group, one block per
-//   (term row) in two halves.  A count row (pending class c, term t) folds
-//   the round's matching commits into a shared-memory domain delta and adds
-//   it to its table, or to its plane over the nodes of those domains.  A
-//   committer row (class k, term t) folds class k's commits the same way
-//   and, on every node of a committed domain, ORs the block (required
-//   anti-affinity) or adds ±weight · commits into the score of each class
-//   its term matches (float atomics of integer values: exact in any order).
-//   O(commits · C · T + C · T · N) against the reference's O(C · T · N)
-//   one-hot contractions.  Bound: latency (one commit a round on the
-//   preferred-affinity suite).
+// K11 ipa_score: score + normalize + the weighted floor into K2's total, one
+//   launch a call, one pass.  Bound: bytes (the bit plane read once; on
+//   feasible nodes the static and dynamic scores, each preferred term's
+//   domain and count, and the total read and written).
+//   Design.  At most 16 rows (the scan's C = 1, a dedup round's C = 4) a
+//   row is split over a thread-block cluster of up to 8 blocks of 1024
+//   nodes or more (cudaLaunchKernelEx), a 16-byte vector a thread, every
+//   load issued before any is used; above 16 rows (the full auction's
+//   C = 512) one block a row, four vectors a thread of up to 512, a
+//   vector's values read only where its bits hold a feasible node.  Each thread computes its
+//   nodes' raw scores once (the preferred groups' terms in term order, then
+//   the static and dynamic scores) and keeps them and the totals in
+//   registers; the row's max and min reduce as a pair — warp shuffles, one
+//   shared-memory round, one push through distributed shared memory across
+//   the cluster (its barrier split: arrived at the start, waited on before
+//   the push) — and the total is written from the registers (a slice
+//   longer than the registers hold reads its rest again to write it).
+//   Nodes off the mask keep their bits; ±inf are the empty partials'
+//   identities; a diff not finite or ≤ 0 scores 0.
+// K12 ipa_update: update_batch_classes, every present term group in one
+//   launch (a by-value plan of the four groups), a grid of (row slots, node
+//   tiles): per group C · T count rows (pending class c, term t), then
+//   C · T committer rows (class k, term t).  Bound: latency at one commit a
+//   round (the preferred-affinity suite), bytes at the full auction's
+//   hundreds (the reached rows' domains).
+//   Design.  Flags first: a block stages its row's C class bytes (the count
+//   cross of its term, or the classes the committer's term matches) and
+//   compacts the round's commits once — 16 flags a thread as a 16-byte
+//   vector with their classes and nodes loaded at once, a warp-aggregated
+//   append — into (class, clamped node) entries; its row's committed
+//   domains (a count row: the commits its cross takes; a committer row: its
+//   own class's; nodes without the key count nowhere) go into an
+//   open-addressed table keyed by domain, sized by the round's commits and
+//   at most half full: no domain-sized array, so no domain limit.  A row
+//   the round does not reach exits there.  A count row adds aff_total's
+//   mass once (required affinity), a table's counts at its committed
+//   domains once (no node walk), a plane's on its tile's nodes of those
+//   domains (the counts read and written only in vectors that hold one).
+//   A committer row compacts its classes j once, then on its tile's nodes
+//   of its committed domains ORs the block (required anti-affinity) or adds
+//   ±weight · commits into each class's score — by the hit node's thread at
+//   most 16 classes, by its warp above that.  At most 16 rows (latency
+//   counts) the tile's domains, and a plane row's counts, are loaded with
+//   the flags, one vector a thread of 256, every class and node with the
+//   commit flags; above (bytes count), a tile of 8192 nodes a block of 512
+//   (four vectors a thread), a plane count row's domains loaded with the
+//   flags (the round reaches most of them), the rest after the flags.
+//   Exactness: each count cell has one writer (its row's tile block); the
+//   score adds are float atomics of integer values, exact in any order below
+//   2^24, with the group's sign and weight as the reference's; the block is
+//   a store of 1.  O(commits · C · T) for the flags against the reference's
+//   O(C · T · N) one-hot contractions over every row.
 // K15 ipa_chain_prev: a still-in-flight batch's placements folded into this
 //   batch's state before the rounds (deep pipeline), in two launch functions:
 //   count: one launch per present term group of this batch, one block per
@@ -101,9 +138,13 @@
 // float32 below 2^24, so sums are exact in any order; the normalization is
 // __fdiv_rn(__fmul_rn(100, s − min), max − min), in the reference's order.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define MAX_NODE_SCORE 100.0f
 #define KIND_BLOCK 0
@@ -122,36 +163,6 @@ __device__ __forceinline__ int block_sum_int(int v, int* scratch) {
   if (threadIdx.x == 0) {
     int r = 0;
     for (int w = 0; w < (int)(blockDim.x / 32); ++w) r += scratch[w];
-    scratch[0] = r;
-  }
-  __syncthreads();
-  return scratch[0];
-}
-
-__device__ __forceinline__ float block_max_float(float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_down_sync(0xffffffff, v, off));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float r = scratch[0];
-    for (int w = 1; w < (int)(blockDim.x / 32); ++w) r = fmaxf(r, scratch[w]);
-    scratch[0] = r;
-  }
-  __syncthreads();
-  return scratch[0];
-}
-
-__device__ __forceinline__ float block_min_float(float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v = fminf(v, __shfl_down_sync(0xffffffff, v, off));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float r = scratch[0];
-    for (int w = 1; w < (int)(blockDim.x / 32); ++w) r = fminf(r, scratch[w]);
     scratch[0] = r;
   }
   __syncthreads();
@@ -348,7 +359,8 @@ extern "C" int launch_ipa_filter(int C, int N, int D, int bit, int T1, int W1,
 
 // --- K11 ---------------------------------------------------------------------------------
 
-#define SCORE_THREADS 1024
+#define SCORE_THREADS 512  // at most: a block of the one-block-a-row form
+#define SCORE_CLUSTER 8    // blocks a row at most (a thread-block cluster)
 
 struct ScoreGroup {
   int T, W;
@@ -357,60 +369,320 @@ struct ScoreGroup {
   const float* weight;  // [C, T]
 };
 
-// Σ_t weight · count over the terms whose domain is live at node n
-__device__ __forceinline__ float group_sum(const ScoreGroup& g, int c, int N, int D, int n) {
-  float s = 0.0f;
+// the call, a by-value kernel parameter: CL blocks a row (a cluster when
+// CL > 1), block r of a row taking the nodes [r S, (r + 1) S)
+struct ScoreArgs {
+  int C, N, D, full, S, CL;
+  const int32_t* bits;         // [C, N]
+  ScoreGroup paff, panti;
+  const float* score_static;   // [C, N]
+  const float* score_dyn;      // [C, N]
+  float weight;
+  float* total;                // [C, N]
+};
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <int VEC>
+__device__ __forceinline__ void ld_i32(const int32_t* p, int (&o)[VEC]) {
+  if constexpr (VEC == 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void ld_f32(const float* p, float (&o)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
+
+// s + Σ_t weight · count over the group's terms whose domain is live at
+// each node of the vectors in `use` (bit it), added to `s` term by term in
+// term order; each term's loads are issued for every vector before any is
+// used
+template <int VEC, int ITEMS>
+__device__ __forceinline__ void group_sums(const ScoreGroup& g, int c, int N, int D,
+                                           const int (&nb)[ITEMS], unsigned use,
+                                           float (&s)[ITEMS][VEC]) {
   for (int t = 0; t < g.T; ++t) {
     const long long row = (long long)c * g.T + t;
-    const int dv = g.dom[row * N + n];
-    float term = 0.0f;
-    if (dv < D) term = __fmul_rn((float)read_count(g.cnt, g.W, N, row, n, dv), g.weight[row]);
-    s = __fadd_rn(s, term);
+    const int32_t* drow = g.dom + row * N;
+    const float w = __ldg(g.weight + row);
+    int dv[ITEMS][VEC], ct[ITEMS][VEC];
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      if ((use >> it) & 1u) {
+        ld_i32<VEC>(drow + nb[it], dv[it]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) dv[it][e] = D;
+      }
+    }
+    if (g.W == N) {
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it) {
+        if ((use >> it) & 1u) {
+          ld_i32<VEC>(g.cnt + row * N + nb[it], ct[it]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) ct[it][e] = 0;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          ct[it][e] = dv[it][e] < D ? __ldg(g.cnt + row * g.W + dv[it][e]) : 0;
+    }
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float term = dv[it][e] < D ? __fmul_rn((float)ct[it][e], w) : 0.0f;
+        s[it][e] = __fadd_rn(s[it][e], term);
+      }
   }
-  return s;
 }
 
-// the raw score of node n: own + score_static + score_dyn
-__device__ __forceinline__ float raw_score(const ScoreGroup& paff, const ScoreGroup& panti,
-                                           const float* score_static, const float* score_dyn,
-                                           int c, int N, int D, int n) {
-  float own = 0.0f;
-  if (paff.dom) own = __fadd_rn(own, group_sum(paff, c, N, D, n));
-  if (panti.dom) own = __fsub_rn(own, group_sum(panti, c, N, D, n));
-  const long long cn = (long long)c * N + n;
-  return __fadd_rn(__fadd_rn(own, score_static[cn]), score_dyn[cn]);
+// ITEMS vectors of this thread (vector it at v0 + it · nt + tid of the
+// block's slice): their nodes `nb` and the raw scores `x` of the vectors
+// read, → the feasible nodes (bit it · VEC + e).  The split form
+// (ITEMS = 1, latency counts) issues every load before any is used and
+// reads the totals with them; the one-block-a-row form (ITEMS > 1, bytes
+// count) reads a vector's values only where its bits hold a feasible node,
+// and its totals only to write them.
+template <int VEC, int ITEMS>
+__device__ __forceinline__ unsigned score_chunk(const ScoreArgs& a, int c, int lo, int nvec,
+                                                int v0, float (&x)[ITEMS][VEC],
+                                                float (&tot)[ITEMS][VEC], int (&nb)[ITEMS]) {
+  constexpr bool only_feasible = ITEMS > 1;
+  constexpr unsigned VMASK = (1u << VEC) - 1u;
+  const size_t rowoff = (size_t)c * a.N;
+  int b[ITEMS][VEC];
+  unsigned live = 0;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int v = v0 + it * (int)blockDim.x + (int)threadIdx.x;
+    nb[it] = lo + v * VEC;
+    if (v < nvec) {
+      live |= 1u << it;
+      ld_i32<VEC>(a.bits + rowoff + nb[it], b[it]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) b[it][e] = ~a.full;
+    }
+  }
+  unsigned fm = 0;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      if (b[it][e] == a.full) fm |= 1u << (it * VEC + e);
+  unsigned use = 0;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it)
+    if (only_feasible ? ((fm >> (it * VEC)) & VMASK) != 0u : ((live >> it) & 1u) != 0u)
+      use |= 1u << it;
+  float st[ITEMS][VEC], dy[ITEMS][VEC];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    if ((use >> it) & 1u) {
+      ld_f32<VEC>(a.score_static + rowoff + nb[it], st[it]);
+      ld_f32<VEC>(a.score_dyn + rowoff + nb[it], dy[it]);
+      if (!only_feasible) ld_f32<VEC>(a.total + rowoff + nb[it], tot[it]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) st[it][e] = dy[it][e] = 0.0f;
+    }
+  }
+  // own (+ the preferred-affinity sum, − the preferred anti-affinity sum),
+  // then + static, + dynamic; 0 + the first sum is that sum (it starts at
+  // +0 and so is never −0)
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) x[it][e] = 0.0f;
+  if (a.paff.dom) group_sums<VEC, ITEMS>(a.paff, c, a.N, a.D, nb, use, x);
+  if (a.panti.dom) {
+    float sn[ITEMS][VEC];
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sn[it][e] = 0.0f;
+    group_sums<VEC, ITEMS>(a.panti, c, a.N, a.D, nb, use, sn);
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) x[it][e] = __fsub_rn(x[it][e], sn[it][e]);
+  }
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) x[it][e] = __fadd_rn(__fadd_rn(x[it][e], st[it][e]), dy[it][e]);
+  return fm;
 }
 
-__global__ void __launch_bounds__(SCORE_THREADS) ipa_score_kernel(
-    int C, int N, int D, int full, const int32_t* __restrict__ bits, ScoreGroup paff,
-    ScoreGroup panti, const float* __restrict__ score_static,
-    const float* __restrict__ score_dyn, float weight, float* __restrict__ total) {
-  __shared__ float scratch[SCORE_THREADS / 32];
-  const int c = blockIdx.x;
-  const int32_t* brow = bits + (long long)c * N;
-  // sweep 1: max and min of the raw score over the feasible nodes
+// total + weight · floor(100 (v − mn) / diff) on feasible nodes (0 unless
+// diff is finite and positive); the other nodes keep their bits.  The
+// one-block-a-row form reads its totals here, every vector's before any is
+// used.
+template <int VEC, int ITEMS>
+__device__ __forceinline__ void score_write(const ScoreArgs& a, int c, unsigned fm, float mn,
+                                            float diff, bool ok, const float (&x)[ITEMS][VEC],
+                                            float (&tot)[ITEMS][VEC], const int (&nb)[ITEMS]) {
+  constexpr unsigned VMASK = (1u << VEC) - 1u;
+  float* trow = a.total + (size_t)c * a.N;
+  if (ITEMS > 1) {
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it)
+      if ((fm >> (it * VEC)) & VMASK) ld_f32<VEC>(trow + nb[it], tot[it]);
+  }
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    if (!((fm >> (it * VEC)) & VMASK)) continue;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if (!((fm >> (it * VEC + e)) & 1u)) continue;
+      const float out =
+          ok ? __fdiv_rn(__fmul_rn(MAX_NODE_SCORE, __fsub_rn(x[it][e], mn)), diff) : 0.0f;
+      tot[it][e] = __fadd_rn(tot[it][e], __fmul_rn(a.weight, floorf(out)));
+    }
+    float* p = trow + nb[it];
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(tot[it][0], tot[it][1], tot[it][2], tot[it][3]);
+    } else {
+      p[0] = tot[it][0];
+    }
+  }
+}
+
+// grid: C rows of CL blocks (a cluster when CL > 1)
+template <int VEC, int ITEMS>
+__global__ void __launch_bounds__(SCORE_THREADS) ipa_score_kernel(const ScoreArgs a) {
+  __shared__ float s_wmax[SCORE_THREADS / 32], s_wmin[SCORE_THREADS / 32];
+  __shared__ float s_pmax[SCORE_CLUSTER], s_pmin[SCORE_CLUSTER];  // by block rank
+  const int CL = a.CL;
+  if (CL > 1) cluster_arrive_relaxed();  // this block runs; waited on before the push
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int c = blockIdx.x / CL, rank = blockIdx.x % CL;
+  const int lo = min(rank * a.S, a.N), nvec = (min(lo + a.S, a.N) - lo) / VEC;
+  const int span = ITEMS * nt;  // vectors a thread block keeps in registers
+
+  // --- the one read: raw scores (and totals) kept in registers ------------
+  float x[ITEMS][VEC], tot[ITEMS][VEC];
+  int nb[ITEMS];
+  const unsigned fm = score_chunk<VEC, ITEMS>(a, c, lo, nvec, 0, x, tot, nb);
   float mx = -INFINITY, mn = INFINITY;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    if (brow[n] != full) continue;
-    const float v = raw_score(paff, panti, score_static, score_dyn, c, N, D, n);
-    mx = fmaxf(mx, v);
-    mn = fminf(mn, v);
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      if ((fm >> (it * VEC + e)) & 1u) {
+        mx = fmaxf(mx, x[it][e]);
+        mn = fminf(mn, x[it][e]);
+      }
+  // the rest of a slice longer than the registers hold (read again to write)
+  for (int v0 = span; v0 < nvec; v0 += span) {
+    float xr[ITEMS][VEC], tr[ITEMS][VEC];
+    int nr[ITEMS];
+    const unsigned f = score_chunk<VEC, ITEMS>(a, c, lo, nvec, v0, xr, tr, nr);
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if ((f >> (it * VEC + e)) & 1u) {
+          mx = fmaxf(mx, xr[it][e]);
+          mn = fminf(mn, xr[it][e]);
+        }
   }
-  mx = block_max_float(mx, scratch);
-  mn = block_min_float(mn, scratch);
+
+  // --- max and min, paired: warp shuffles, one shared round, the cluster --
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+  }
+  if (lane == 0) {
+    s_wmax[warp] = mx;
+    s_wmin[warp] = mn;
+  }
+  __syncthreads();
+  mx = -INFINITY;
+  mn = INFINITY;
+  for (int w = 0; w < (nt >> 5); ++w) {
+    mx = fmaxf(mx, s_wmax[w]);
+    mn = fminf(mn, s_wmin[w]);
+  }
+  if (CL > 1) {
+    cluster_wait_acquire();  // every block of the cluster runs
+    // lane q of warp 0 pushes the block's pair into block q; one cluster
+    // barrier later every block holds the row's (and none reads another's
+    // shared memory after it)
+    if (warp == 0 && lane < CL) {
+      cg::cluster_group cluster = cg::this_cluster();
+      *cluster.map_shared_rank(&s_pmax[rank], lane) = mx;
+      *cluster.map_shared_rank(&s_pmin[rank], lane) = mn;
+    }
+    __syncwarp();
+    cluster_arrive_release();
+    cluster_wait_acquire();
+    mx = -INFINITY;
+    mn = INFINITY;
+    for (int q = 0; q < CL; ++q) {
+      mx = fmaxf(mx, s_pmax[q]);
+      mn = fminf(mn, s_pmin[q]);
+    }
+  }
   const float diff = __fsub_rn(mx, mn);
   const bool ok = isfinite(diff) && diff > 0.0f;
-  // sweep 2: normalize, floor, weight, add into the total (−inf off the mask)
-  float* trow = total + (long long)c * N;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    if (brow[n] != full) continue;
-    float out = 0.0f;
-    if (ok) {
-      const float v = raw_score(paff, panti, score_static, score_dyn, c, N, D, n);
-      out = __fdiv_rn(__fmul_rn(MAX_NODE_SCORE, __fsub_rn(v, mn)), diff);
-    }
-    trow[n] = __fadd_rn(trow[n], __fmul_rn(weight, floorf(out)));
+
+  // --- the write, from registers ------------------------------------------
+  score_write<VEC, ITEMS>(a, c, fm, mn, diff, ok, x, tot, nb);
+  for (int v0 = span; v0 < nvec; v0 += span) {
+    float xr[ITEMS][VEC], tr[ITEMS][VEC];
+    int nr[ITEMS];
+    const unsigned f = score_chunk<VEC, ITEMS>(a, c, lo, nvec, v0, xr, tr, nr);
+    score_write<VEC, ITEMS>(a, c, f, mn, diff, ok, xr, tr, nr);
   }
+}
+
+template <int VEC, int ITEMS>
+static int launch_score(const ScoreArgs& a, int threads, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(a.C * a.CL));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)a.CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.CL > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, ipa_score_kernel<VEC, ITEMS>, a);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 extern "C" int launch_ipa_score(int C, int N, int D, int full, const void* bits, int T3,
@@ -420,130 +692,483 @@ extern "C" int launch_ipa_score(int C, int N, int D, int full, const void* bits,
                                 const void* score_static, const void* score_dyn,
                                 float weight, void* total, void* stream) {
   if (C <= 0 || N <= 0) return 0;
-  ScoreGroup paff{T3, W3, (const int32_t*)dom_paff, (const int32_t*)paff_cnt,
-                  (const float*)paff_w};
-  ScoreGroup panti{T4, W4, (const int32_t*)dom_panti, (const int32_t*)panti_cnt,
-                   (const float*)panti_w};
-  ipa_score_kernel<<<C, SCORE_THREADS, 0, (cudaStream_t)stream>>>(
-      C, N, D, full, (const int32_t*)bits, paff, panti, (const float*)score_static,
-      (const float*)score_dyn, weight, (float*)total);
-  return (int)cudaGetLastError();
+  ScoreArgs a;
+  a.C = C; a.N = N; a.D = D; a.full = full;
+  a.bits = (const int32_t*)bits;
+  a.paff = ScoreGroup{T3, W3, (const int32_t*)dom_paff, (const int32_t*)paff_cnt,
+                      (const float*)paff_w};
+  a.panti = ScoreGroup{T4, W4, (const int32_t*)dom_panti, (const int32_t*)panti_cnt,
+                       (const float*)panti_w};
+  a.score_static = (const float*)score_static;
+  a.score_dyn = (const float*)score_dyn;
+  a.weight = weight;
+  a.total = (float*)total;
+  // 16-byte vectors where every row of every plane read by node starts on a
+  // 16-byte boundary (a table is read by domain, one word at a time)
+  bool vec4 = N % 4 == 0 && aligned16(bits) && aligned16(score_static) &&
+              aligned16(score_dyn) && aligned16(total);
+  if (a.paff.dom) vec4 = vec4 && aligned16(dom_paff) && (W3 != N || aligned16(paff_cnt));
+  if (a.panti.dom) vec4 = vec4 && aligned16(dom_panti) && (W4 != N || aligned16(panti_cnt));
+  const int vec = vec4 ? 4 : 1;
+  // at most 16 rows (the scan's C = 1, a dedup round's C = 4) a row is split
+  // over up to 8 blocks of 1024 nodes or more, a vector a thread; above that
+  // the rows fill the card: one block a row, four vectors a thread of 512
+  // (on the H100 faster than two a thread of 1024, which spill more under
+  // their 64-register cap; PERF.md)
+  const bool split = C <= 16;
+  const int items = split ? 1 : 4;
+  int cl = 1;
+  if (split)
+    while (cl < SCORE_CLUSTER && (long long)cl * 1024 < N) cl <<= 1;
+  const int S = ((N + cl - 1) / cl + vec - 1) / vec * vec;
+  int threads = ((S / vec + items - 1) / items + 31) / 32 * 32;
+  threads = threads < 32 ? 32 : (threads > SCORE_THREADS ? SCORE_THREADS : threads);
+  a.S = S;
+  a.CL = cl;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec4) return split ? launch_score<4, 1>(a, threads, s) : launch_score<4, 4>(a, threads, s);
+  return split ? launch_score<1, 1>(a, threads, s) : launch_score<1, 4>(a, threads, s);
 }
 
 // --- K12 ---------------------------------------------------------------------------------
 
-#define UPDATE_THREADS 256
+#define UPDATE_THREADS 512  // at most: the one-tile-a-row form
+#define UPDATE_EMPTY -1
+#define UPDATE_FEW_CLASSES 16  // a committer row's classes written by the hit node's thread
 
-__global__ void __launch_bounds__(UPDATE_THREADS) ipa_update_kernel(
-    int group, int B, int C, int T, int N, int D, int planes,
-    const uint8_t* __restrict__ commit,     // [B]
-    const int32_t* __restrict__ choice,     // [B]
-    const int32_t* __restrict__ class_of,   // [B]
-    const int32_t* __restrict__ dom,        // [C, T, N]
-    const uint8_t* __restrict__ cross3,     // [C, T, C] count cross, or null
-    const uint8_t* __restrict__ cross2,     // [C, C] all-terms cross (with row_valid)
-    const uint8_t* __restrict__ row_valid,  // [C, T]
-    const uint8_t* __restrict__ own_cross,  // [C, T, C]: term (k, t) matches class j
-    const float* __restrict__ wt,           // [C, T] or null (use w_scalar)
-    float w_scalar, float sign,
-    int32_t* __restrict__ cnt,              // [C, T, N] planes or [C, T, D + 1] tables
-    int32_t* __restrict__ total,            // [C] or null
-    uint8_t* __restrict__ block_dyn,        // [C, N]
-    float* __restrict__ score_dyn) {        // [C, N]
-  extern __shared__ int delta[];            // [D]: commits per domain of this row
-  __shared__ int scratch[UPDATE_THREADS / 32];
-  const int rows = C * T;
-  const bool own_half = blockIdx.x >= rows;
-  const int row = own_half ? blockIdx.x - rows : blockIdx.x;  // c * T + t
-  const int c = row / T;
-  const int32_t* drow = dom + (long long)row * N;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) delta[d] = 0;
-  __syncthreads();
-  bool any = false;
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
-    if (!commit[i]) continue;
-    const int k = class_of[i];
-    bool take;
-    if (own_half) {
-      take = k == c;  // the committer's own term (c, t)
-    } else if (cross3) {
-      take = cross3[(long long)row * C + k];
-    } else {
-      take = cross2[(long long)c * C + k] && row_valid[row];
-    }
-    if (!take) continue;
-    const int n = min(max(choice[i], 0), N - 1);
-    const int dv = drow[n];
-    if (dv < D) {  // commits on nodes without the key count nowhere
-      atomicAdd(&delta[dv], 1);
-      any = true;
+// one term group of the class view (T = 0: the group is absent)
+struct UpdateGroup {
+  int T, W;              // terms a row, count width: N (planes) or D + 1 (tables)
+  const int32_t* dom;    // [C, T, N]
+  int32_t* cnt;          // [C, T, W]
+  const uint8_t* cross;  // [C, T, C] count cross; null: the all-terms cross × row validity
+  const uint8_t* own;    // [C, T, C]: the committer's term (k, t) matches class j
+  const float* wt;       // [C, T] or null (w_scalar)
+  float w_scalar;
+  int slot0;             // the group's first row slot: C · T count rows, then C · T committer rows
+};
+
+// the call, a by-value kernel parameter
+struct UpdatePlan {
+  UpdateGroup g[4];           // GROUP_REQ_AFF, GROUP_REQ_ANTI, preferred affinity, preferred anti
+  const uint8_t* cross_all;   // [C, C]
+  const uint8_t* row_valid;   // [C, T1]
+  int32_t* aff_total;         // [C]
+  uint8_t* block_dyn;         // [C, N]
+  float* score_dyn;           // [C, N]
+  const uint8_t* commit;      // [B]
+  const int32_t* choice;      // [B] node rows
+  const long long* class_of;  // [B] class rows (the auction's int64 index, read as it is)
+  int B, C, N, D;
+  int CH;                     // commits compacted a pass (16 a thread)
+  int lgH;                    // log2 of the domain table's slots
+};
+
+// this thread's `cnt` entries appended after the warp's lower lanes' (one
+// shared atomic a warp) → its first slot; every lane calls it
+__device__ __forceinline__ int warp_append(int cnt, int* counter) {
+  const int lane = threadIdx.x & 31;
+  int incl = cnt;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  int base = 0;
+  if (lane == 31) base = atomicAdd(counter, incl);
+  base = __shfl_sync(0xffffffffu, base, 31);
+  return base + incl - cnt;
+}
+
+// the committed domains of a row: an open-addressed table (2^lg slots, at
+// most half of them used) of domain → commits
+__device__ __forceinline__ unsigned dom_slot(int d, int lg) {
+  return ((unsigned)d * 0x9E3779B1u) >> (32 - lg);
+}
+
+__device__ __forceinline__ void table_add(int* key, int* val, int lg, int d) {
+  const unsigned m = (1u << lg) - 1u;
+  for (unsigned h = dom_slot(d, lg);; h = (h + 1u) & m) {
+    const int k = atomicCAS(&key[h], UPDATE_EMPTY, d);
+    if (k == UPDATE_EMPTY || k == d) {
+      atomicAdd(&val[h], 1);
+      return;
     }
   }
-  if (!__syncthreads_or(any)) return;
-  if (!own_half) {
-    // the pending row's count: table += delta, or plane += delta[dom]
-    int mass = 0;
-    for (int d = threadIdx.x; d < D; d += blockDim.x) {
-      const int v = delta[d];
-      mass += v;
-      if (!planes && v) cnt[(long long)row * (D + 1) + d] += v;
+}
+
+__device__ __forceinline__ int table_get(const int* key, const int* val, int lg, int d) {
+  const unsigned m = (1u << lg) - 1u;
+  for (unsigned h = dom_slot(d, lg);; h = (h + 1u) & m) {
+    const int k = key[h];
+    if (k == d) return val[h];
+    if (k == UPDATE_EMPTY) return 0;
+  }
+}
+
+// the commits [base, base + 16 nt): each thread's 16 flags (a 16-byte vector
+// where aligned), compacted into (class, clamped node) entries; with `spec`
+// (latency counts) every class and node is loaded with the flags, else only
+// the committed ones'
+__device__ __forceinline__ void compact_commits(const UpdatePlan& p, int base, bool spec,
+                                                int* s_nc, int* s_ek, int* s_en) {
+  const int i0 = base + (int)threadIdx.x * 16;
+  unsigned fl = 0;
+  int kk[16], nn[16];
+  if (i0 < p.B) {
+    if (i0 + 16 <= p.B && aligned16(p.commit + i0)) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p.commit + i0));
+      const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if ((w[e >> 2] >> (8 * (e & 3))) & 0xffu) fl |= 1u << e;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        if (i0 + e < p.B && p.commit[i0 + e]) fl |= 1u << e;
     }
-    if (planes) {
-      for (int n = threadIdx.x; n < N; n += blockDim.x) {
-        const int dv = drow[n];
-        if (dv < D) {
-          const int v = delta[dv];
-          if (v) cnt[(long long)row * N + n] += v;
-        }
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const bool in = i0 + e < p.B && (spec || ((fl >> e) & 1u));
+      kk[e] = in ? (int)__ldg(p.class_of + i0 + e) : -1;
+      nn[e] = in ? __ldg(p.choice + i0 + e) : 0;
+    }
+  }
+  int o = warp_append(__popc(fl), s_nc);
+#pragma unroll
+  for (int e = 0; e < 16; ++e)
+    if ((fl >> e) & 1u) {
+      s_ek[o] = kk[e];
+      s_en[o] = min(max(nn[e], 0), p.N - 1);
+      ++o;
+    }
+}
+
+template <int VEC, int ITEMS, int NT>
+__device__ __forceinline__ void load_tile(const int32_t* drow, int n0, int N,
+                                          int (&dv)[ITEMS][VEC]) {
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const int nb = n0 + (it * NT + (int)threadIdx.x) * VEC;
+    if (nb < N) {
+      ld_i32<VEC>(drow + nb, dv[it]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) dv[it][e] = INT_MAX;
+    }
+  }
+}
+
+// grid: (row slots, node tiles of NT · ITEMS · VEC nodes).
+// Dynamic shared memory: the row's C flag bytes (rounded to 16), the
+// compacted commits' classes and nodes (CH each), the domain table's keys
+// and counts (2^lgH each), the committer row's class list (C).
+template <int VEC, int ITEMS, int NT>
+__global__ void __launch_bounds__(NT, 1024 / NT) ipa_update_kernel(const UpdatePlan p) {
+  constexpr int TILE = NT * ITEMS * VEC;
+  constexpr bool SMALL = ITEMS == 1;  // the form of at most 16 rows (latency counts)
+  extern __shared__ __align__(16) unsigned char upd_smem[];
+  __shared__ int s_nc, s_nj;
+  __shared__ int s_red[NT / 32];
+  const int C = p.C, N = p.N, D = p.D;
+  uint8_t* s_flag = upd_smem;
+  int* s_ek = reinterpret_cast<int*>(upd_smem + ((C + 15) & ~15));
+  int* s_en = s_ek + p.CH;
+  int* s_key = s_en + p.CH;
+  int* s_val = s_key + (1 << p.lgH);
+  int* s_j = s_val + (1 << p.lgH);
+  const int tid = threadIdx.x;
+
+  // the row slot → group, half, class row c and term t
+  int gi = 0;
+#pragma unroll
+  for (int q = 1; q < 4; ++q)
+    if (p.g[q].T && (int)blockIdx.x >= p.g[q].slot0) gi = q;
+  UpdateGroup G = p.g[0];
+  if (gi == 1) G = p.g[1];
+  if (gi == 2) G = p.g[2];
+  if (gi == 3) G = p.g[3];
+  const int T = G.T;
+  const int local = blockIdx.x - G.slot0;
+  const bool owner = local >= C * T;  // a committer row
+  const int rt = owner ? local - C * T : local;  // c · T + t
+  const int c = rt / T;
+  const bool planes = G.W == N;
+  const int n0 = blockIdx.y * TILE;
+  if (!owner && !planes && blockIdx.y) return;  // a table row is one block's
+  if (!owner && gi == GROUP_REQ_AFF && !__ldg(p.row_valid + rt)) return;
+  const int32_t* drow = G.dom + (size_t)rt * N;
+
+  // (a) flags first: the row's class bytes staged (the count cross of its
+  // term, or the classes the committer's term matches), the tile's domains
+  // prefetched where latency counts (C <= 16) and on a plane's count row
+  // (which the full auction's round reaches on most rows)
+  const uint8_t* frow = owner ? G.own + (size_t)rt * C
+                              : (G.cross ? G.cross + (size_t)rt * C : p.cross_all + (size_t)c * C);
+  if ((C & 15) == 0 && aligned16(frow)) {
+    for (int x = tid; x < C / 16; x += NT)
+      reinterpret_cast<uint4*>(s_flag)[x] = __ldg(reinterpret_cast<const uint4*>(frow) + x);
+  } else {
+    for (int x = tid; x < C; x += NT) s_flag[x] = __ldg(frow + x);
+  }
+  const bool prefetch = SMALL || (!owner && planes);
+  int dv[ITEMS][VEC], cv[ITEMS][VEC];
+  if (prefetch && (owner || planes)) load_tile<VEC, ITEMS, NT>(drow, n0, N, dv);
+  // at most 16 rows a plane's count row reads its tile's counts with them
+  // too (written back only in the vectors that gain)
+  if (SMALL && !owner && planes) load_tile<VEC, ITEMS, NT>(G.cnt + (size_t)rt * N, n0, N, cv);
+  if (tid == 0) {
+    s_nc = 0;
+    s_nj = 0;
+  }
+  __syncthreads();
+
+  // (b) the commits compacted once, and the row's committed domains into the
+  // table: a count row takes the commits its cross names, a committer row
+  // its own class's; commits on nodes without the key count nowhere
+  int lg = p.lgH, mine = 0;
+  auto take_entries = [&](int nc) {
+    for (int e = tid; e < nc; e += NT) {
+      const int k = s_ek[e];
+      if (k < 0 || k >= C || !(owner ? k == c : s_flag[k] != 0)) continue;
+      const int d = __ldg(drow + s_en[e]);
+      if (d < D) {
+        table_add(s_key, s_val, lg, d);
+        ++mine;
       }
     }
-    if (total) {
-      mass = block_sum_int(mass, scratch);
-      if (threadIdx.x == 0) atomicAdd(&total[c], mass);
+  };
+  if (p.B <= p.CH) {  // one pass: the table sized by the round's commits
+    compact_commits(p, 0, SMALL, &s_nc, s_ek, s_en);
+    __syncthreads();
+    const int nc = s_nc;
+    if (nc == 0) return;
+    lg = 1;
+    while ((1 << lg) < 2 * nc && lg < p.lgH) ++lg;
+    for (int h = tid; h < (1 << lg); h += NT) {
+      s_key[h] = UPDATE_EMPTY;
+      s_val[h] = 0;
+    }
+    __syncthreads();
+    take_entries(nc);
+  } else {
+    for (int h = tid; h < (1 << lg); h += NT) {
+      s_key[h] = UPDATE_EMPTY;
+      s_val[h] = 0;
+    }
+    for (int base = 0; base < p.B; base += p.CH) {
+      __syncthreads();
+      compact_commits(p, base, SMALL, &s_nc, s_ek, s_en);
+      __syncthreads();
+      take_entries(s_nc);
+      __syncthreads();
+      if (tid == 0) s_nc = 0;
+    }
+  }
+  if (!__syncthreads_or(mine)) return;  // the round does not reach this row
+
+  if (!owner) {
+    // (c) a count row: aff_total's mass once a row, a table's adds at the
+    // committed domains, a plane's on the tile's nodes of those domains
+    if (gi == GROUP_REQ_AFF && blockIdx.y == 0) {
+      const int m = block_sum_int(mine, s_red);
+      if (tid == 0) atomicAdd(p.aff_total + c, m);
+    }
+    if (!planes) {
+      int32_t* crow = G.cnt + (size_t)rt * G.W;
+      for (int h = tid; h < (1 << lg); h += NT) {
+        const int k = s_key[h];
+        if (k != UPDATE_EMPTY) crow[k] += s_val[h];
+      }
+      return;
+    }
+    if (!prefetch) load_tile<VEC, ITEMS, NT>(drow, n0, N, dv);
+    int32_t* crow = G.cnt + (size_t)rt * N;
+    int m[ITEMS][VEC];
+    unsigned vm[ITEMS];
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      vm[it] = 0;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        m[it][e] = dv[it][e] < D ? table_get(s_key, s_val, lg, dv[it][e]) : 0;
+        if (m[it][e]) vm[it] |= 1u << e;
+      }
+    }
+    // above 16 rows every hit vector's counts loaded now, before any is written
+    if (!SMALL) {
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it)
+        if (vm[it]) ld_i32<VEC>(crow + n0 + (it * NT + tid) * VEC, cv[it]);
+    }
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      if (!vm[it]) continue;
+      int32_t* q = crow + n0 + (it * NT + tid) * VEC;
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<int4*>(q) = make_int4(cv[it][0] + m[it][0], cv[it][1] + m[it][1],
+                                                cv[it][2] + m[it][2], cv[it][3] + m[it][3]);
+      } else {
+        q[0] = cv[it][0] + m[it][0];
+      }
     }
     return;
   }
-  // the committers' own term (c, t): block or score the classes it matches
-  // on every node of a committed domain
-  const float w = wt ? wt[row] : w_scalar;
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const int dv = drow[n];
-    if (dv >= D) continue;
-    const int m = delta[dv];
-    if (!m) continue;
-    for (int j = 0; j < C; ++j) {
-      if (!own_cross[(long long)row * C + j]) continue;
-      const long long jn = (long long)j * N + n;
-      if (group == GROUP_REQ_ANTI) {
-        block_dyn[jn] = 1;
-      } else {
-        atomicAdd(&score_dyn[jn], __fmul_rn(sign, __fmul_rn(w, (float)m)));
+
+  // (d) a committer row: the classes its term matches compacted once, then
+  // on the tile's nodes of its committed domains the block (required
+  // anti-affinity) or ±weight · commits into each such class's score (float
+  // atomics of integer values: exact in any order below 2^24)
+  for (int x0 = 0; x0 < C; x0 += 16 * NT) {
+    const int x = x0 + tid * 16;
+    unsigned fl = 0;
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if (x + e < C && s_flag[x + e]) fl |= 1u << e;
+    int o = warp_append(__popc(fl), &s_nj);
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      if ((fl >> e) & 1u) s_j[o++] = x + e;
+  }
+  __syncthreads();
+  const int nj = s_nj;
+  if (nj == 0) return;
+  if (!prefetch) load_tile<VEC, ITEMS, NT>(drow, n0, N, dv);
+  const bool block = gi == GROUP_REQ_ANTI;
+  const float w = block ? 0.0f : (G.wt ? __ldg(G.wt + rt) : G.w_scalar);
+  const float sign = gi == 3 ? -1.0f : 1.0f;
+  int m[ITEMS][VEC];
+  unsigned vm[ITEMS];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    vm[it] = 0;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      m[it][e] = dv[it][e] < D ? table_get(s_key, s_val, lg, dv[it][e]) : 0;
+      if (m[it][e]) vm[it] |= 1u << e;
+    }
+  }
+  auto put = [&](int j, int n, int mv) {
+    const size_t jn = (size_t)j * N + n;
+    if (block) {
+      p.block_dyn[jn] = 1;
+    } else {
+      atomicAdd(p.score_dyn + jn, __fmul_rn(sign, __fmul_rn(w, (float)mv)));
+    }
+  };
+  if (nj <= UPDATE_FEW_CLASSES) {  // the hit node's thread writes its classes
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      if (!vm[it]) continue;
+      const int nb = n0 + (it * NT + tid) * VEC;
+      for (int jj = 0; jj < nj; ++jj) {
+        const int j = s_j[jj];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if ((vm[it] >> e) & 1u) put(j, nb + e, m[it][e]);
+      }
+    }
+  } else {  // the warp writes a hit vector's classes together
+    const int lane = tid & 31;
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      unsigned lanes = __ballot_sync(0xffffffffu, vm[it] != 0u);
+      while (lanes) {
+        const int src = __ffs(lanes) - 1;
+        lanes &= lanes - 1u;
+        const int nb = __shfl_sync(0xffffffffu, n0 + (it * NT + tid) * VEC, src);
+        const unsigned hm = __shfl_sync(0xffffffffu, vm[it], src);
+        int mv[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) mv[e] = __shfl_sync(0xffffffffu, m[it][e], src);
+        for (int jj = lane; jj < nj; jj += 32) {
+          const int j = s_j[jj];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            if ((hm >> e) & 1u) put(j, nb + e, mv[e]);
+        }
       }
     }
   }
 }
 
-extern "C" int launch_ipa_update(int group, int B, int C, int T, int N, int D, int planes,
-                                 const void* commit, const void* choice,
-                                 const void* class_of, const void* dom, const void* cross3,
-                                 const void* cross2, const void* row_valid,
-                                 const void* own_cross, const void* wt, float w_scalar,
-                                 float sign, void* cnt, void* total, void* block_dyn,
-                                 void* score_dyn, void* stream) {
-  if (B <= 0 || C <= 0 || T <= 0 || D <= 0) return 0;
-  const size_t smem = (size_t)D * sizeof(int);
+extern "C" int launch_ipa_update(
+    int B, int C, int N, int D, const void* commit, const void* choice, const void* class_of,
+    int T1, int W1, const void* dom_aff, void* aff_cnt, const void* aff_term_cross,
+    const void* aff_cross_all, const void* req_aff_valid, void* aff_total, float hard_weight,
+    int T2, int W2, const void* dom_anti, void* anti_cnt, const void* anti_cross,
+    int T3, int W3, const void* dom_paff, void* paff_cnt, const void* paff_cross,
+    const void* paff_weight,
+    int T4, int W4, const void* dom_panti, void* panti_cnt, const void* panti_cross,
+    const void* panti_weight,
+    void* block_dyn, void* score_dyn, void* stream) {
+  if (B <= 0 || C <= 0 || N <= 0 || D <= 0) return 0;
+  UpdatePlan p;
+  p.g[GROUP_REQ_AFF] = UpdateGroup{T1, W1, (const int32_t*)dom_aff, (int32_t*)aff_cnt, nullptr,
+                                   (const uint8_t*)aff_term_cross, nullptr, hard_weight, 0};
+  p.g[GROUP_REQ_ANTI] = UpdateGroup{T2, W2, (const int32_t*)dom_anti, (int32_t*)anti_cnt,
+                                    (const uint8_t*)anti_cross, (const uint8_t*)anti_cross,
+                                    nullptr, 0.0f, 0};
+  p.g[2] = UpdateGroup{T3, W3, (const int32_t*)dom_paff, (int32_t*)paff_cnt,
+                       (const uint8_t*)paff_cross, (const uint8_t*)paff_cross,
+                       (const float*)paff_weight, 0.0f, 0};
+  p.g[3] = UpdateGroup{T4, W4, (const int32_t*)dom_panti, (int32_t*)panti_cnt,
+                       (const uint8_t*)panti_cross, (const uint8_t*)panti_cross,
+                       (const float*)panti_weight, 0.0f, 0};
+  p.cross_all = (const uint8_t*)aff_cross_all;
+  p.row_valid = (const uint8_t*)req_aff_valid;
+  p.aff_total = (int32_t*)aff_total;
+  p.block_dyn = (uint8_t*)block_dyn;
+  p.score_dyn = (float*)score_dyn;
+  p.commit = (const uint8_t*)commit;
+  p.choice = (const int32_t*)choice;
+  p.class_of = (const long long*)class_of;
+  p.B = B; p.C = C; p.N = N; p.D = D;
+  long long slots = 0;
+  bool vec4 = N % 4 == 0;
+  for (int gi = 0; gi < 4; ++gi) {
+    UpdateGroup& g = p.g[gi];
+    g.slot0 = (int)slots;
+    if (!g.T) continue;
+    slots += 2LL * C * g.T;
+    vec4 = vec4 && aligned16(g.dom) && (g.W != N || aligned16(g.cnt));
+  }
+  if (slots == 0) return 0;
+  if (slots > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // at most 16 rows a vector a thread and tiles of 1024 nodes (latency
+  // counts); above, a tile of 8192 nodes (four vectors a thread of 512):
+  // each block's flags and table serve the whole row at N = 8192
+  const bool small = C <= 16;
+  const int nt = small ? 256 : UPDATE_THREADS;
+  p.CH = B < 16 * nt ? B : 16 * nt;
+  // the table holds at most min(B, D) domains, at most half full
+  const long long most = B < D ? B : D;
+  p.lgH = 1;
+  while ((1LL << p.lgH) < 2 * most) ++p.lgH;
+  const size_t smem = (size_t)((C + 15) & ~15) + 8 * (size_t)p.CH +
+                      8 * ((size_t)1 << p.lgH) + 4 * (size_t)C;
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  const int vec = vec4 ? 4 : 1;
+  const int items = small ? 1 : 4;
+  const void* fn = vec4 ? (small ? (const void*)ipa_update_kernel<4, 1, 256>
+                                 : (const void*)ipa_update_kernel<4, 4, UPDATE_THREADS>)
+                        : (small ? (const void*)ipa_update_kernel<1, 1, 256>
+                                 : (const void*)ipa_update_kernel<1, 4, UPDATE_THREADS>);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ipa_update_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ipa_update_kernel<<<2 * C * T, UPDATE_THREADS, smem, (cudaStream_t)stream>>>(
-      group, B, C, T, N, D, planes, (const uint8_t*)commit, (const int32_t*)choice,
-      (const int32_t*)class_of, (const int32_t*)dom, (const uint8_t*)cross3,
-      (const uint8_t*)cross2, (const uint8_t*)row_valid, (const uint8_t*)own_cross,
-      (const float*)wt, w_scalar, sign, (int32_t*)cnt, (int32_t*)total,
-      (uint8_t*)block_dyn, (float*)score_dyn);
+  const int tile = nt * items * vec;
+  dim3 grid((unsigned)slots, (unsigned)((N + tile - 1) / tile));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec4) {
+    if (small) ipa_update_kernel<4, 1, 256><<<grid, nt, smem, s>>>(p);
+    else ipa_update_kernel<4, 4, UPDATE_THREADS><<<grid, nt, smem, s>>>(p);
+  } else {
+    if (small) ipa_update_kernel<1, 1, 256><<<grid, nt, smem, s>>>(p);
+    else ipa_update_kernel<1, 4, UPDATE_THREADS><<<grid, nt, smem, s>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -961,8 +1586,6 @@ __global__ void __launch_bounds__(ROW_THREADS) ipa_update_row_kernel(
   }
 }
 
-static bool row_aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
-
 extern "C" int launch_ipa_update_row(
     int B, int N, int D, int i, const void* node_at,
     int T1, int W1, const void* dom_aff, void* aff_cnt, const void* aff_term_cross,
@@ -986,10 +1609,10 @@ extern "C" int launch_ipa_update_row(
   gs.g[3] = RowGroup{T4, W4, (const int32_t*)dom_panti, (int32_t*)panti_cnt,
                      (const uint8_t*)panti_cross, (const float*)panti_weight, 0.0f};
   // 16-byte vectors where every row of the planes starts on a 16-byte boundary
-  bool vec4 = N % 4 == 0 && row_aligned16(score_dyn);
+  bool vec4 = N % 4 == 0 && aligned16(score_dyn);
   for (int gi = 0; gi < 4; ++gi) {
     const RowGroup& g = gs.g[gi];
-    if (g.T) vec4 = vec4 && row_aligned16(g.dom) && (g.W != N || row_aligned16(g.cnt));
+    if (g.T) vec4 = vec4 && aligned16(g.dom) && (g.W != N || aligned16(g.cnt));
   }
   const int tile = ROW_THREADS * ROW_ITEMS * (vec4 ? 4 : 1);
   const int tiles = (N + tile - 1) / tile;

@@ -21,9 +21,12 @@ more than once); ``reset_launches`` zeroes the counts.
   K9 ipa_prepare            csrc/interpodaffinity.cu (ipa_prepare_counts,
                             ipa_existing_planes: one count per pass)
   K10 ipa_filter_bits       csrc/interpodaffinity.cu
-  K11 ipa_score_combine     csrc/interpodaffinity.cu
-  K12 ipa_update_classes    csrc/interpodaffinity.cu (one launch per present
-                            term group)
+  K11 ipa_score_combine     csrc/interpodaffinity.cu (one pass: a row over a
+                            cluster of up to 8 blocks at C <= 16)
+  K12 ipa_update_classes    csrc/interpodaffinity.cu (one launch a call for
+                            every term group: commits compacted once a
+                            block, domains keyed in a small table, node
+                            tiles)
   K13 prev_delta_apply      csrc/prev_delta.cu (one launch a call: node tiles,
                             the copy fused in, shared-memory adds)
   K14 spread_chain_prev     csrc/spread.cu

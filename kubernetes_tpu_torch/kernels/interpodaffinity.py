@@ -14,9 +14,12 @@ gathers and scatters they are built on (ROADMAP Queue B, B10 and B12):
                              (:280-321, pass 3)
   K10 ipa_filter_bits        ``filter`` (:337-364) into K1's pass-bit plane
   K11 ipa_score_combine      ``score`` (:368-385) + ``normalize`` (:387-398)
-                             + the weighted floor into K2's total
+                             + the weighted floor into K2's total, one
+                             pass: at most 16 rows a row over a cluster of
+                             up to 8 blocks, one block a row above that
   K12 ipa_update_classes     ``update_batch_classes`` (:676-764), once per
-                             auction round and present term group
+                             auction round, every present term group in
+                             one launch
   K15 ipa_chain_prev         ``chain_prev`` (:533-670): a still-in-flight
                              batch's placements (deep pipeline) — this
                              batch's terms against the prev pods' labels
@@ -62,13 +65,19 @@ MAX_NODE_SCORE = 100.0
 # the affinity index's group kinds (state/affinity_index.py)
 KIND_BLOCK = 0
 KIND_SCORE_REQ = 2
-# K12's code for each term group (its kernel's GROUP_* constants)
-_GROUP_CODE = {name: k for k, name in enumerate(AFFINITY_GROUPS)}
-# K12 keeps one int per domain of a row in shared memory
+# K15 keeps one int per domain of a row in shared memory
 MAX_SHARED_DOMAINS = (227 * 1024) // 4 - 64
 # K19 stages pod i's same-domain bits (2 bytes a thread of 256) and each
 # pending row's flags for every term of the four groups in shared memory
 MAX_ROW_TERMS = 400
+
+# each term group's (domain, count state) fields of the aux
+GROUP_FIELDS = {
+    "req_affinity": ("dom_aff", "aff_cnt"),
+    "req_anti_affinity": ("dom_anti", "anti_cnt"),
+    "pref_affinity": ("dom_paff", "paff_cnt"),
+    "pref_anti_affinity": ("dom_panti", "panti_cnt"),
+}
 
 
 def read_counts(cnt: torch.Tensor, dom: torch.Tensor) -> torch.Tensor:
@@ -308,7 +317,11 @@ def ipa_score_combine_plain(aux, bits, full: int, total, weight: float):
 def ipa_score_combine(aux, bits, full: int, total, weight: float):
     """Add InterPodAffinity's weighted, floored, normalized score into K2's
     total f32[C, N] in place; the feasibility mask is "all bits of ``bits``
-    set".  CPU tensors take the plain version; CUDA tensors launch K11."""
+    set".  CPU tensors take the plain version; CUDA tensors launch K11
+    once: each thread computes its nodes' raw scores once and keeps them in
+    registers, the row's max and min reduce as a pair (at most 16 rows
+    across a thread-block cluster of up to 8 blocks a row), and the total
+    is written from the registers."""
     if not bits.is_cuda:
         return ipa_score_combine_plain(aux, bits, full, total, weight)
     c, n = bits.shape
@@ -344,24 +357,47 @@ def ipa_score_combine(aux, bits, full: int, total, weight: float):
     return total
 
 
+def _term_group_args(aux, fn: str, rows: int, n: int) -> tuple:
+    """The four term groups of ``aux`` (``rows`` pending rows on ``n``
+    nodes) as K12's and K19's launch functions take them, in the
+    reference's group order: each group's terms a row T, count width W, dom,
+    counts and own cross ``[rows, T, rows]`` (term (k, t) matches row j),
+    then the all-terms cross and the row validity (required affinity) or
+    the weights (the preferred groups); zeros for an absent group.  →
+    (args, the tensors the pointers name): the caller holds the second
+    until the launch is queued, so that a contiguous copy of a view is not
+    freed, and its memory handed to the next copy, before the kernel reads
+    it."""
+    args, held = [], []
+    for name in AFFINITY_GROUPS:
+        dom_f, cnt_f = GROUP_FIELDS[name]
+        dom, cnt = getattr(aux, dom_f), getattr(aux, cnt_f)
+        own = {"req_affinity": aux.aff_term_cross, "req_anti_affinity": aux.anti_cross,
+               "pref_affinity": aux.paff_cross, "pref_anti_affinity": aux.panti_cross}[name]
+        extra = []
+        if name == "req_affinity":
+            extra = [aux.aff_cross_all, aux.req_aff_valid]
+        elif name != "req_anti_affinity":
+            extra = [aux.paff_weight if name == "pref_affinity" else aux.panti_weight]
+        if name not in aux.present:
+            args += [0, 0, 0, 0, 0] + [0] * len(extra)
+            continue
+        t = dom.shape[1]
+        dom, own = dom.contiguous(), own.contiguous()
+        extra = [x.contiguous() for x in extra]
+        if not cnt.is_contiguous():
+            raise ValueError(f"{fn}: counts must be contiguous (updated in place)")
+        require_cuda(fn, dom, cnt, own, *extra)
+        require_dtype(fn, torch.int32, dom, cnt)
+        require_dtype(fn, torch.bool, own)
+        if dom.shape != (rows, t, n) or own.shape != (rows, t, rows) or cnt.shape[:2] != (rows, t):
+            raise ValueError(f"{fn}: inconsistent {name} shapes")
+        args += [t, cnt.shape[-1], ptr(dom), ptr(cnt), ptr(own)] + [ptr(x) for x in extra]
+        held += [dom, own, *extra]
+    return args, held
+
+
 # --- K12 ipa_update_classes ---------------------------------------------------------
-
-
-def _group_update_parts(aux, name: str):
-    """(dom, count state, the count cross [C, T, C] or None with the 2-D
-    all-terms cross and the row validity, the committer's own cross
-    [C, T, C], per-term weight [C, T] or None, scalar weight, sign) of one
-    term group."""
-    if name == "req_affinity":
-        return (aux.dom_aff, aux.aff_cnt, None, aux.aff_term_cross, None,
-                aux.hard_weight, 1.0)
-    if name == "req_anti_affinity":
-        return aux.dom_anti, aux.anti_cnt, aux.anti_cross, aux.anti_cross, None, 0.0, 0.0
-    if name == "pref_affinity":
-        return (aux.dom_paff, aux.paff_cnt, aux.paff_cross, aux.paff_cross,
-                aux.paff_weight, 0.0, 1.0)
-    return (aux.dom_panti, aux.panti_cnt, aux.panti_cross, aux.panti_cross,
-            aux.panti_weight, 0.0, -1.0)
 
 
 def ipa_update_classes_plain(aux, commit, choice, class_of):
@@ -419,77 +455,42 @@ def ipa_update_classes_plain(aux, commit, choice, class_of):
 
 def ipa_update_classes(aux, commit, choice, class_of):
     """Add one auction round's commits (``commit`` bool[B], ``choice`` i32[B]
-    node rows, ``class_of`` [B] class rows) into the class view's count
-    state, ``aff_total``, ``block_dyn`` and ``score_dyn``, in place.  CPU
-    tensors take the plain version; CUDA tensors launch K12 once per present
-    term group: the commits fold into a per-row domain delta (O(commits ·
-    C · T)), then each row the round reached makes one pass over its nodes
-    to bump its counts, or the block / score of the classes its term
-    matches on the committed domains — O(C · T · N) at most, against the
-    reference's one-hot contractions over every row."""
+    node rows and ``class_of`` i64[B] class rows, as the auction passes
+    them) into the class view's count state, ``aff_total``, ``block_dyn``
+    and ``score_dyn``, in place.  CPU tensors take the plain version; CUDA tensors launch K12
+    once, every present term group in the one launch: each block compacts
+    the round's commits, keys its row's committed domains in a small table
+    (no domain-sized array), and a row no commit reaches exits there; a
+    reached row adds at the committed domains of its table, or walks its
+    tile of nodes for the planes and for the classes its term matches."""
     if not commit.is_cuda:
         return ipa_update_classes_plain(aux, commit, choice, class_of)
-    d = aux.depth
-    if d > MAX_SHARED_DOMAINS:
-        raise NotImplementedError(
-            f"ipa_update_classes: a domain bucket of {d} exceeds the {MAX_SHARED_DOMAINS} "
-            "domains one block keeps in shared memory (hostname affinity on more than "
-            "~57k nodes: ROADMAP Queue B B12)")
     b = commit.shape[0]
     c, n = aux.exist_anti_block.shape
-    rnd = [commit.contiguous(), choice.to(torch.int32).contiguous(),
-           class_of.to(torch.int32).contiguous()]
-    fixed = [aux.block_dyn, aux.score_dyn, aux.aff_total]
-    for x in fixed:
-        if not x.is_contiguous():
-            raise ValueError("ipa_update_classes: state must be contiguous (updated in place)")
-    dev = require_cuda("ipa_update_classes", *rnd, *fixed)
-    require_dtype("ipa_update_classes", torch.bool, rnd[0], fixed[0])
-    require_dtype("ipa_update_classes", torch.int32, rnd[1], rnd[2], fixed[2])
-    require_dtype("ipa_update_classes", torch.float32, fixed[1])
-    if rnd[1].shape != (b,) or rnd[2].shape != (b,) or fixed[1].shape != (c, n):
+    fixed = [commit, choice, class_of, aux.block_dyn, aux.score_dyn, aux.aff_total]
+    dev = require_cuda("ipa_update_classes", *fixed)
+    require_dtype("ipa_update_classes", torch.bool, commit, aux.block_dyn)
+    require_dtype("ipa_update_classes", torch.int32, aux.aff_total)
+    require_dtype("ipa_update_classes", torch.float32, aux.score_dyn)
+    require_dtype("ipa_update_classes", torch.int32, choice)
+    require_dtype("ipa_update_classes", torch.int64, class_of)
+    if choice.shape != (b,) or class_of.shape != (b,) or aux.score_dyn.shape != (c, n):
         raise ValueError("ipa_update_classes: inconsistent shapes")
-    for name in AFFINITY_GROUPS:
-        if name not in aux.present:
-            continue
-        dom, cnt, count_cross, own_cross, wt, w_scalar, sign = _group_update_parts(aux, name)
-        t = dom.shape[1]
-        parts = [dom.contiguous(), own_cross.contiguous()]
-        if count_cross is None:  # required affinity: all-terms cross × row validity
-            parts += [aux.aff_cross_all.contiguous(), aux.req_aff_valid.contiguous()]
-        else:
-            parts += [count_cross.contiguous()]
-        if wt is not None:
-            parts.append(wt.contiguous())
-        if not cnt.is_contiguous():
-            raise ValueError("ipa_update_classes: counts must be contiguous (updated in place)")
-        require_cuda("ipa_update_classes", cnt, *parts)
-        require_dtype("ipa_update_classes", torch.int32, parts[0], cnt)
-        if parts[0].shape != (c, t, n) or parts[1].shape != (c, t, c):
-            raise ValueError(f"ipa_update_classes: inconsistent {name} shapes")
-        cross3 = 0 if count_cross is None else ptr(parts[2])
-        cross2 = ptr(parts[2]) if count_cross is None else 0
-        row_valid = ptr(parts[3]) if count_cross is None else 0
-        err = _fn("launch_ipa_update", "iiiiiii" + "ppp" + "p" * 5 + "pff" + "pppp" + "p")(
-            _GROUP_CODE[name], b, c, t, n, d, int(_is_planes(cnt, n)),
-            *map(ptr, rnd), ptr(parts[0]), cross3, cross2, row_valid, ptr(parts[1]),
-            ptr(parts[-1]) if wt is not None else 0, float(w_scalar), float(sign),
-            ptr(cnt), ptr(fixed[2]) if name == "req_affinity" else 0,
-            ptr(fixed[0]), ptr(fixed[1]), stream_of(dev))
-        check(err, f"ipa_update_classes ({name})")
-        LAUNCHES["ipa_update_classes"] += 1
+    args, _held = _term_group_args(aux, "ipa_update_classes", c, n)
+    # launch_ipa_update's order: aff (T1, W1, dom, cnt, own cross, all-terms
+    # cross, row validity), aff_total and the hard weight, then anti, paff, panti
+    aff, rest = args[:7], args[7:]
+    err = _fn("launch_ipa_update", "iiii" + "ppp" + "iipppppp" + "f" + "iippp"
+              + "iipppp" + "iipppp" + "pp" + "p")(
+        b, c, n, aux.depth, ptr(commit), ptr(choice), ptr(class_of), *aff,
+        ptr(aux.aff_total), float(aux.hard_weight), *rest, ptr(aux.block_dyn),
+        ptr(aux.score_dyn), stream_of(dev))
+    check(err, "ipa_update_classes")
+    LAUNCHES["ipa_update_classes"] += 1
     return aux
 
 
 # --- K15 ipa_chain_prev -------------------------------------------------------------
-
-# each term group's (domain, count state) fields of the aux
-GROUP_FIELDS = {
-    "req_affinity": ("dom_aff", "aff_cnt"),
-    "req_anti_affinity": ("dom_anti", "anti_cnt"),
-    "pref_affinity": ("dom_paff", "paff_cnt"),
-    "pref_anti_affinity": ("dom_panti", "panti_cnt"),
-}
 
 
 class OwnTerms(NamedTuple):
@@ -700,28 +701,7 @@ def ipa_update_row(aux, i: int, node_row):
     require_dtype("ipa_update_row", torch.float32, aux.score_dyn)
     if node_row.numel() != 1 or aux.score_dyn.shape != (b, n) or not 0 <= i < b:
         raise ValueError("ipa_update_row: inconsistent shapes")
-    args = []
-    for name in AFFINITY_GROUPS:
-        dom_f, cnt_f = GROUP_FIELDS[name]
-        dom, cnt = getattr(aux, dom_f), getattr(aux, cnt_f)
-        cross = {"req_affinity": aux.aff_term_cross, "req_anti_affinity": aux.anti_cross,
-                 "pref_affinity": aux.paff_cross,
-                 "pref_anti_affinity": aux.panti_cross}[name]
-        extra = []
-        if name == "req_affinity":
-            extra = [aux.aff_cross_all, aux.req_aff_valid]
-        elif name != "req_anti_affinity":
-            extra = [aux.paff_weight if name == "pref_affinity" else aux.panti_weight]
-        if name not in aux.present:
-            args += [0, 0, 0, 0, 0] + [0] * len(extra)
-            continue
-        t = dom.shape[1]
-        require_cuda("ipa_update_row", dom, cnt, cross, *extra)
-        require_dtype("ipa_update_row", torch.int32, dom, cnt)
-        require_dtype("ipa_update_row", torch.bool, cross)
-        if dom.shape != (b, t, n) or cross.shape != (b, t, b) or cnt.shape[:2] != (b, t):
-            raise ValueError(f"ipa_update_row: inconsistent {name} shapes")
-        args += [t, cnt.shape[-1], ptr(dom), ptr(cnt), ptr(cross)] + [ptr(x) for x in extra]
+    args, _held = _term_group_args(aux, "ipa_update_row", b, n)
     terms = sum(args[k] for k in (0, 7, 12, 18))
     if terms > MAX_ROW_TERMS:
         raise ValueError(f"ipa_update_row: {terms} terms a pod over the four groups, more "

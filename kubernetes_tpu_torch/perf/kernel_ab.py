@@ -1,7 +1,7 @@
-"""K2 (normalize_combine), K29 (candidate_dense), K19 (ipa_update_row), K7
-(spread_score_combine), K1 (filter_score_planes) and K13
-(prev_delta_apply) timed on synthetic inputs at the shapes their paths
-give them, for the copy of ``kubernetes_tpu_torch`` under
+"""K2 (normalize_combine), K29 (candidate_dense), K19 (ipa_update_row), K11
+(ipa_score_combine), K12 (ipa_update_classes), K7 (spread_score_combine),
+K1 (filter_score_planes) and K13 (prev_delta_apply) timed on synthetic
+inputs at the shapes their paths give them, for the copy of ``kubernetes_tpu_torch`` under
 ``--root``, so that two trees (a parent and a change, unpacked side by
 side) are timed by the same methods on one card:
 
@@ -22,7 +22,11 @@ pods at 800 priorities in a 1024-row tier, R = 8) and at the check case's
 with B = 64 and B = 512; K19 at B = 512, N = 8192 (5000 live nodes) in
 the planes form (SchedulingPreferredPodAffinity's hostname preferred
 affinity, D = 8192) and the tables form (SchedulingPodAffinity's required
-affinity on one zone, D = 8), and a step whose ``node_row`` is -1; K7 on
+affinity on one zone, D = 8), and a step whose ``node_row`` is -1; K11
+and K12 at ``kernel_work.K11_CASES`` / ``K12_CASES`` (``ipa_view``'s class
+views: the dedup round and the scan's step on hostname planes, the full
+auction's C = 512, zone tables; one commit, the anti-affinity round's 384
+commits at C = 512, all four groups), with their bounds; K7 on
 N = 8192 at C = 4 with no soft constraint (TopologySpreading), C = 4 with a
 ScheduleAnyway constraint on three zones, C = 1 (the scan's step) and
 C = 512 (the full auction); K1 on N = 8192 (5000 live ``node_default``
@@ -36,9 +40,11 @@ pipelined path's two in-flight bundles (2 × 512 pods, N = 8192, R = 8) and
 with the nominated bundle alone (512 of 1024 rows live, no ``nz`` rows —
 a zero tensor for a tree whose wrapper needs one), each beside
 ``index_add_`` into the same arrays timed by the same method.  K1's and
-K13's rows carry their bound (``chip_smoke.k1_work`` / the bytes the
-adds need, over the card's rates).  Needs a CUDA card; imports nothing of
-JAX.
+K13's rows carry their bound (``kernel_work.k1_work`` / the bytes the
+adds need, over the card's rates).  The bound formulas and K11 / K12's
+inputs are ``kernel_work.py`` beside this file, whichever tree ``--root``
+names: both trees are held to the same bound.  Needs a CUDA card; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +56,18 @@ import subprocess
 import sys
 import types
 from pathlib import Path
+
+
+def _kernel_work():
+    """This file's sibling kernel_work.py, loaded by its path (the
+    ``kubernetes_tpu_torch`` on the import path is the one under ``--root``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "kernel_work", Path(__file__).resolve().with_name("kernel_work.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def k2_inputs(c: int, n: int, seed: int, dev, feasible: float = 0.7):
@@ -266,6 +284,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("kernel_ab: no CUDA card")
     import chip_smoke as cs
+
+    kw = _kernel_work()
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.kernels import build
     from kubernetes_tpu_torch.kernels.normalize import (
@@ -355,6 +375,43 @@ def main() -> None:
             lambda w_=work, a_=at: ipa_update_row(w_, i, a_), bool(equal),
             B=512, N=8192, D=aux.depth, present=list(aux.present))
 
+    from kubernetes_tpu_torch.kernels.interpodaffinity import (
+        ipa_score_combine,
+        ipa_score_combine_plain,
+        ipa_update_classes,
+        ipa_update_classes_plain,
+    )
+
+    for label in kw.K11_CASES:
+        aux, bits, full, total = kw.k11_inputs(label, dev)
+        kt, pt = total.clone(), total.clone()
+        ipa_score_combine(aux, bits, full, kt, 2.0)
+        ipa_score_combine_plain(aux, bits, full, pt, 2.0)
+        equal = torch.equal(kt.view(torch.int32), pt.view(torch.int32)) \
+            and not torch.equal(kt, total)
+        least, by = kw.bound_ms(*kw.k11_work(aux, bits, full))
+        work = total.clone()
+        add(f"ipa_score_combine ({label})",
+            lambda a_=aux, b_=bits, f_=full, w_=work: ipa_score_combine(a_, b_, f_, w_, 2.0),
+            bool(equal), C=bits.shape[0], N=8192, D=aux.depth, present=list(aux.present),
+            bound_ms=least, bound_by=by)
+
+    fields = ("aff_cnt", "anti_cnt", "paff_cnt", "panti_cnt", "aff_total", "block_dyn",
+              "score_dyn")
+    for label in kw.K12_CASES:
+        aux, commit, choice, class_of = kw.k12_inputs(label, dev)
+        ka, pa = iplug.engine_copy(aux), iplug.engine_copy(aux)
+        ipa_update_classes(ka, commit, choice, class_of)
+        ipa_update_classes_plain(pa, commit, choice, class_of)
+        equal = all(torch.equal(getattr(ka, f), getattr(pa, f)) for f in fields) \
+            and not all(torch.equal(getattr(ka, f), getattr(aux, f)) for f in fields)
+        least, by = kw.bound_ms(*kw.k12_work(aux, commit, choice, class_of))
+        work = iplug.engine_copy(aux)
+        add(f"ipa_update_classes ({label})",
+            lambda w_=work, a_=commit, b_=choice, c_=class_of: ipa_update_classes(w_, a_, b_, c_),
+            bool(equal), C=aux.score_dyn.shape[0], N=8192, D=aux.depth,
+            present=list(aux.present), commits=int(commit.sum()), bound_ms=least, bound_by=by)
+
     for c, soft in ((4, False), (4, True), (1, False), (512, False)):
         aux, bits, full, total = k7_inputs(c, soft, dev)
         kt, pt = total.clone(), total.clone()
@@ -388,7 +445,7 @@ def main() -> None:
         kb, kr = filter_score_planes(*a1)
         pb, pr = filter_score_planes_plain(*a1)
         equal = torch.equal(kb, pb) and torch.equal(kr.view(torch.int32), pr.view(torch.int32))
-        least, by = cs.bound_ms(*cs.k1_work(rep, snap, dyn, na_mask, na_pref, img, kb, kr))
+        least, by = kw.bound_ms(*kw.k1_work(rep, snap, dyn, na_mask, na_pref, img, kb, kr))
         add("filter_score_planes" + ("" if strategy == "LeastAllocated" else f" ({strategy})")
             + ("" if nodes == "path" else " (synthetic nodes)"),
             lambda a_=a1: filter_score_planes(*a_), bool(equal), C=c, N=8192,
@@ -425,7 +482,7 @@ def main() -> None:
         touched = int(at[live].unique().numel())
         width = r + (2 if add_nz is not None else 0)
         n_bytes = 4 * rows_all.numel() * (1 + width) + touched * width * 4 * 2
-        least, by = cs.bound_ms(n_bytes, placed * width)
+        least, by = kw.bound_ms(n_bytes, placed * width)
         fn = (lambda q=requested, z=non_zero, b_=bundles: prev_delta_apply(q, z, b_))
         add(f"prev_delta_apply ({kind})", fn, bool(equal), N=n, R=r, bundles=len(bundles),
             rows=int(rows_all.numel()), placed=placed, bound_ms=least, bound_by=by,

@@ -1,0 +1,308 @@
+"""The bytes and operations each kernel must move and do on given inputs
+(``*_work``, the basis of ``bound_ms``), and the synthetic inputs that
+``chip_smoke.py`` and ``kernel_ab.py`` both build for K11 and K12.
+
+A bound counts what the function needs on this data: each input read
+once, each output written once, and only the cells the data reaches.  The
+rates are the H100 SXM's from NVIDIA's data sheet.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (same sheet)
+
+
+def nbytes(*tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def bound_ms(n_bytes: int, n_ops: int):
+    """(the least time in ms, what bounds it): the larger of the bytes over
+    the memory rate and the scalar operations over the float32 peak."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw):
+    """(bytes, operations) K1 needs on these inputs: every input read once
+    and both outputs written once; per (class, node) the taint × toleration
+    matches, port × port and image × image compares and ~12 arithmetic
+    steps per resource dimension."""
+    c, n = bits.shape
+    k1_in = [rep.valid, rep.request, rep.non_zero, rep.node_name_id, rep.tol_valid,
+             rep.tol_key, rep.tol_val, rep.tol_op, rep.tol_effect, rep.ports,
+             rep.ports_ip, rep.image_ids, snap.node_valid, snap.node_ready,
+             snap.node_name_ids, snap.unschedulable, snap.allocatable, dyn.requested,
+             dyn.non_zero, snap.taint_keys, snap.taint_vals, snap.taint_effects,
+             snap.ports, snap.ports_ip, snap.image_ids, na_mask, na_pref]
+    # of ImageLocality's per-id table K1 needs only the entries at the class
+    # rows' image ids, one f32 each
+    img_gathered = int((rep.image_ids >= 0).sum()) * img.element_size()
+    pod_t, pod_p, pod_i = (rep.tol_key.shape[1], rep.ports.shape[1],
+                           rep.image_ids.shape[1])
+    node_t, node_p, node_i = (snap.taint_keys.shape[1], snap.ports.shape[1],
+                              snap.image_ids.shape[1])
+    r = dyn.requested.shape[1]
+    ops = c * n * (node_t * pod_t + pod_p * node_p + pod_i * node_i + 12 * r)
+    return nbytes(*k1_in, bits, raw) + img_gathered, ops
+
+
+def k7_work(aux, bits, full: int) -> tuple:
+    """K7's bytes and operations on these inputs: the bit plane (the
+    feasibility mask) and soft_valid read once; the total read and written
+    on feasible nodes; for the soft constraints only: has_key on feasible
+    nodes, dom_val on scored ones, their table row, maxSkew and log-table
+    entry; per feasible (row, node) the normalization, floor, scale and add,
+    per scored soft term six more."""
+    feas_mask = bits == full
+    soft_feas = feas_mask[:, None, :] & aux.soft_valid[:, :, None]  # [C, Cc, N]
+    n_soft = int(aux.soft_valid.sum())
+    n_scored_soft = int((soft_feas & aux.has_key).sum())
+    n_feas = int(feas_mask.sum())
+    d1 = aux.soft_counts.shape[-1]
+    return (nbytes(bits, aux.soft_valid) + 8 * n_feas + int(soft_feas.sum())
+            + 4 * n_scored_soft + n_soft * (4 * d1 + 4 + 4), 8 * n_feas + 6 * n_scored_soft)
+
+
+# --- K11 and K12: InterPodAffinity's class views ---------------------------------
+
+
+def ipa_view(c: int, form: str, present, dev, *, t: int = 1, seed: int = 11,
+             cross_p: float = 1.0, n: int = 8192, live: int = 5000, d: int = None):
+    """An InterPodAffinity class view (IPAAux) of ``c`` class rows on N
+    nodes (``live`` of them live, the rest without the key) with ``t``
+    terms a row in each group of ``present``: "planes" — hostname keys,
+    each live node its own domain (D = 8192), counts per node; "tables" —
+    zone keys, three zones (D = 8), counts per domain; ``d`` another domain
+    bucket for the tables form, the live nodes spread over it at random.
+    A term matches a class with probability ``cross_p`` (the suites'
+    pods all match); weights 1–100, counts 0–3, static and dynamic scores
+    integers."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.plugins.interpodaffinity import IPAAux
+
+    rng = np.random.default_rng(seed + c)
+    planes = form == "planes"
+    d = d or (8192 if planes else 8)
+    width = n if planes else d + 1
+    node_dom = np.full(n, d, np.int32)
+    node_dom[:live] = np.arange(live) if planes and d >= live else \
+        (np.arange(live) % 3 if d == 8 else rng.integers(0, d, live))
+    groups = {}
+    for g in ("req_affinity", "req_anti_affinity", "pref_affinity", "pref_anti_affinity"):
+        on = g in present
+        dom = np.broadcast_to(node_dom, (c, t, n)).copy() if on else np.full((c, t, n), d, np.int32)
+        tbl = rng.integers(0, 4, (c, t, d + 1)).astype(np.int32)
+        cnt = np.take_along_axis(tbl, dom, axis=2) if planes else tbl
+        cross = (rng.random((c, t, c)) < cross_p) if on else np.zeros((c, t, c), bool)
+        groups[g] = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in (dom, cnt if on else np.zeros_like(cnt), cross)]
+    ra, an, pa, pn = (groups[g] for g in ("req_affinity", "req_anti_affinity",
+                                          "pref_affinity", "pref_anti_affinity"))
+
+    def f32(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    return IPAAux(
+        dom_aff=ra[0], dom_anti=an[0], dom_paff=pa[0], dom_panti=pn[0],
+        aff_cnt=ra[1], anti_cnt=an[1], paff_cnt=pa[1], panti_cnt=pn[1],
+        aff_total=torch.from_numpy(rng.integers(0, 100, c).astype(np.int32)).to(dev),
+        self_match_all=torch.ones(c, dtype=torch.bool, device=dev),
+        exist_anti_block=torch.zeros((c, n), dtype=torch.bool, device=dev),
+        score_static=f32(rng.integers(0, 100, (c, n))),
+        aff_term_cross=ra[2], aff_cross_all=ra[2][:, 0, :].clone(), anti_cross=an[2],
+        paff_cross=pa[2], panti_cross=pn[2],
+        block_dyn=torch.zeros((c, n), dtype=torch.bool, device=dev),
+        score_dyn=f32(rng.integers(-50, 50, (c, n))), depth=d, present=tuple(present),
+        req_aff_valid=torch.full((c, t), "req_affinity" in present, dtype=torch.bool,
+                                 device=dev),
+        paff_weight=f32(rng.integers(1, 101, (c, t))),
+        panti_weight=f32(rng.integers(1, 101, (c, t))), hard_weight=1.0)
+
+
+# K11's shapes: label → (C, form, present groups)
+K11_CASES = {
+    "C = 4, planes": (4, "planes", ("pref_affinity",)),
+    "C = 1, planes": (1, "planes", ("pref_affinity",)),
+    "C = 512, anti-affinity classes": (512, "planes", ("req_anti_affinity",)),
+    "C = 4, tables, both preferred groups": (4, "tables", ("pref_affinity",
+                                                            "pref_anti_affinity")),
+}
+
+
+def k11_inputs(label: str, dev, seed: int = 11):
+    """(aux, bits, full, total) at K11's shape ``label``: SchedulingPreferred
+    PodAffinity's dedup round (C = 4, one preferred-affinity term on the
+    hostname, D = 8192) and the scan's step (C = 1); the full auction's
+    anti-affinity classes (C = 512: no preferred term, only the static and
+    dynamic scores); C = 4 on zone tables with both preferred groups.  A
+    bit plane of 7 filter bits with ~70% of the 5000 live nodes feasible,
+    and K2's total (finite where feasible, −inf elsewhere)."""
+    import numpy as np
+    import torch
+
+    c, form, present = K11_CASES[label]
+    aux = ipa_view(c, form, present, dev, seed=seed)
+    rng = np.random.default_rng(seed + 7 * c)
+    n, live, full = 8192, 5000, 0b1111111
+    feasible = (rng.random((c, n)) < 0.7) & (np.arange(n) < live)
+    bits = np.where(feasible, full, full & ~(1 << rng.integers(0, 7, (c, n)))).astype(np.int32)
+    total = np.where(feasible, rng.integers(0, 400, (c, n)), -np.inf).astype(np.float32)
+    return aux, torch.from_numpy(bits).to(dev), full, torch.from_numpy(total).to(dev)
+
+
+# K12's shapes: label → (C, form, present groups, commits, term cross probability)
+K12_CASES = {
+    "C = 4, planes, one commit": (4, "planes", ("pref_affinity",), 1, 1.0),
+    "C = 4, tables": (4, "tables", ("req_affinity",), 1, 1.0),
+    "C = 512, anti-affinity round": (512, "planes", ("req_anti_affinity",), 384, 1.0),
+    "C = 4, four groups": (4, "planes", ("req_affinity", "req_anti_affinity",
+                                         "pref_affinity", "pref_anti_affinity"), 4, 0.5),
+}
+
+
+def k12_inputs(label: str, dev, seed: int = 12, d: int = None, b: int = 512):
+    """(aux, commit, choice, class_of) at K12's shape ``label``, B = 512:
+    the coupled round (C = 4, one commit, SchedulingPreferredPodAffinity's
+    hostname planes); the tables form (C = 4, required affinity on three
+    zones, D = 8 — or ``d`` domains); the full auction's anti-affinity
+    round (C = 512 identity classes, 384 commits on distinct live nodes,
+    every pod matching every term: each commit blocks its node for every
+    class); all four groups present (C = 4, one commit a class).  ``choice``
+    i32 and ``class_of`` i64, as the engines pass them; ``b`` another batch
+    size."""
+    import numpy as np
+    import torch
+
+    c, form, present, commits, cross_p = K12_CASES[label]
+    aux = ipa_view(c, form, present, dev, seed=seed, cross_p=cross_p, d=d)
+    rng = np.random.default_rng(seed + c)
+    live = 5000
+    commit = np.zeros(b, bool)
+    at = rng.permutation(b)[:commits]
+    commit[at] = True
+    choice = rng.integers(0, live, b).astype(np.int32)
+    choice[at] = rng.permutation(live)[:commits]
+    class_of = (np.arange(b) if c == b else rng.integers(0, c, b)).astype(np.int64)
+    if commits <= c:
+        class_of[at] = np.arange(commits)
+    return (aux,) + tuple(torch.from_numpy(x).to(dev) for x in (commit, choice, class_of))
+
+
+def k11_work(aux, bits, full: int) -> tuple:
+    """(bytes, operations) K11 must move and do on these inputs: the bit
+    plane and the term weights read once; on feasible nodes the static and
+    dynamic scores read, the total read and written, and each preferred
+    term's domain read; a term's count read per feasible node with the key
+    where the counts are planes, once per domain of the row's feasible
+    nodes where they are tables; per feasible node the raw sum (2 per term
+    + 3), the max / min and the normalization, floor, scale and add (5)."""
+    import torch
+
+    feas = bits == full
+    n_feas = int(feas.sum())
+    n_bytes = nbytes(bits) + n_feas * (4 + 4 + 8)
+    terms = 0
+    for g, name in (("paff", "pref_affinity"), ("panti", "pref_anti_affinity")):
+        if name not in aux.present:
+            continue
+        dom, cnt = getattr(aux, f"dom_{g}"), getattr(aux, f"{g}_cnt")
+        t, n = dom.shape[1], dom.shape[2]
+        terms += t
+        keyed = feas[:, None, :] & (dom < aux.depth)
+        if cnt.shape[-1] == n:
+            counts = int(keyed.sum())
+        else:
+            seen = torch.zeros(cnt.shape, dtype=torch.bool, device=dom.device)
+            seen.scatter_(2, torch.where(keyed, dom, aux.depth).long(), True)
+            counts = int(seen[:, :, :aux.depth].sum())
+        n_bytes += nbytes(getattr(aux, f"{g}_weight")) + 4 * t * n_feas + 4 * counts
+    return n_bytes, n_feas * (2 * terms + 3 + 2 + 5)
+
+
+def k12_work(aux, commit, choice, class_of) -> tuple:
+    """(bytes, operations) K12 must move and do on this round, each cell
+    counted once: the commit flags, each commit's node and class; per
+    group the cross bytes at the committed classes (required affinity: the
+    all-terms cross there and the row validity); a (class, term) domain row
+    read whole where the row walks its nodes — a reached plane row, or a
+    committer row (a term of a committed class, at a node with the key,
+    matching some class) —, else its words at the committed nodes its cross
+    takes; the counts read and written on the nodes of a plane row's
+    committed domains or at a table row's, aff_total on the rows reached;
+    the cross row of each term of a committed class whose node has the key,
+    a committer row's weight; then each block_dyn cell the round sets
+    written, and each score_dyn cell it moves read and written, once."""
+    import torch
+
+    c, n = aux.score_dyn.shape
+    d = aux.depth
+    dev = aux.score_dyn.device
+    committed = torch.nonzero(commit, as_tuple=True)[0]
+    ks = class_of[committed].long()
+    ns = choice[committed].long().clamp(0, n - 1)
+    nc = int(committed.numel())
+    n_bytes = commit.numel() + nc * (choice.element_size() + class_of.element_size())
+    ops = commit.numel()
+    if not nc:
+        return n_bytes, ops
+    n_k = int(torch.unique(ks).numel())
+    nodes, node_at = torch.unique(ns, return_inverse=True)
+    block = torch.zeros((c, n), dtype=torch.bool, device=dev)
+    score = torch.zeros((c, n), dtype=torch.bool, device=dev)
+    for name, g, own in (("req_affinity", "aff", aux.aff_term_cross),
+                         ("req_anti_affinity", "anti", aux.anti_cross),
+                         ("pref_affinity", "paff", aux.paff_cross),
+                         ("pref_anti_affinity", "panti", aux.panti_cross)):
+        if name not in aux.present:
+            continue
+        dom, cnt = getattr(aux, f"dom_{g}"), getattr(aux, f"{g}_cnt")
+        t = dom.shape[1]
+        planes = cnt.shape[-1] == n
+        if name == "req_affinity":
+            take = aux.aff_cross_all[:, None, ks] & aux.req_aff_valid[:, :, None]
+            n_bytes += c * n_k + nbytes(aux.req_aff_valid)
+        else:
+            take = own[:, :, ks]
+            n_bytes += c * t * n_k
+        ops += c * t * nc
+        dom_at = dom[:, :, ns]  # [C, T, commits]
+        hit = take & (dom_at < d)
+        # each count row's committed domains
+        mark = torch.zeros((c, t, d + 1), dtype=torch.bool, device=dev)
+        mark.scatter_(2, torch.where(hit, dom_at, d).long(), True)
+        mark[:, :, d] = False
+        # each committer row's: class k's commits at their node's domain
+        dom_k = dom[ks, :, ns]  # [commits, T]
+        kk = ks[:, None].expand(nc, t)
+        tt = torch.arange(t, device=dev)[None].expand(nc, t)
+        keyed = dom_k < d
+        asked = torch.zeros((c, t), dtype=torch.bool, device=dev)
+        asked[kk[keyed], tt[keyed]] = True
+        live = keyed & own.any(dim=-1)[kk, tt]
+        mine = torch.zeros((c, t, d + 1), dtype=torch.bool, device=dev)
+        mine[kk[live], tt[live], dom_k[live].long()] = True
+        gain = mark.gather(2, dom.long())
+        same = mine.gather(2, dom.long())
+        reached, rows = mark.any(dim=-1), same.any(dim=-1)
+        whole = (reached | rows) if planes else rows
+        took = torch.zeros((c, t, nodes.numel()), dtype=torch.float32, device=dev)
+        took.index_add_(2, node_at, take.to(torch.float32))
+        n_bytes += 4 * n * int(whole.sum()) + 4 * int(((took > 0) & ~whole[:, :, None]).sum())
+        n_bytes += 8 * int(gain.sum() if planes else mark.sum())
+        ops += n * int(whole.sum())
+        if name == "req_affinity":
+            n_bytes += 8 * int(reached.any(dim=1).sum())
+        # a term's cross row (the committed classes' bytes are counted above)
+        n_bytes += int(asked.sum()) * (c if name == "req_affinity" else c - n_k)
+        if name in ("pref_affinity", "pref_anti_affinity"):
+            n_bytes += 4 * int(rows.sum())
+        cells = torch.einsum("ktj,ktn->jn", (own & rows[:, :, None]).to(torch.float32),
+                             same.to(torch.float32)) > 0
+        ops += int(cells.sum())
+        (block if name == "req_anti_affinity" else score).logical_or_(cells)
+    return n_bytes + int(block.sum()) + 8 * int(score.sum()), ops
