@@ -29,14 +29,17 @@ Phases, all of which must pass (any failure exits non-zero):
    kind; K11 and K12 also at kernel_work.py's shapes, K12 on a tables
    bucket of 65536 domains and at B = 6000 (two compaction passes); one
    launch a call of K11 and K12 proven by a CUDA graph (as of K1, K7, K13,
-   K19 and K29 later).  K13–K16: rows of −1, two bundles on one node, a
-   no-op bundle;
+   K17 keyless and keyed, K19 and K29 later).  K13–K16: rows of −1, two
+   bundles on one node, a no-op bundle;
    word and odd row widths with duplicate pad rows; unplaced and invalid
    prev pods; both IPA count forms, a carry with and without prev terms,
    an all-invalid prev term group.  K17–K19 (the exact scan's step): ties
    across the whole row, an all-infeasible row, a nominated row that is
    infeasible, feasible, past the bucket or the last node, a padding pod,
-   the maximum at the last node; K18 / K19 at full-batch rows B = 512 with
+   the maximum at the last node; K17 keyless and keyed also at N = 1, 31,
+   5000, 8191 and 8192 with ties and equal noise either side of every
+   cluster slice and vector tail, a +0.0 / −0.0 tie and unaligned views
+   (``k17_split_cases``); K18 / K19 at full-batch rows B = 512 with
    the pod on a live node, a keyless node, the last node and none, K19 in
    both count forms.  K1–K4, K6–K8 and K10–K12 again at C = 512 rows
    (identity classes, as the full auction runs them) and K1, K2, K6, K7,
@@ -358,8 +361,10 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
-# the bound formulas and K11 / K12's synthetic inputs, shared with kernel_ab.py
+# the bound formulas, K11 / K12's synthetic inputs and K17's plan, shared
+# with kernel_ab.py
 from kubernetes_tpu_torch.perf import kernel_work as KW
+from kubernetes_tpu_torch.perf.host_timer import host_issue_us
 from kubernetes_tpu_torch.perf.kernel_work import bound_ms, k1_work, k7_work, nbytes
 
 SEED = 20261016
@@ -1730,6 +1735,116 @@ def check_pipeline_kernels(dev) -> dict:
 
 SCAN_KERNELS = ("scan_select_assume", "spread_update_row", "ipa_update_row")
 
+# K17's rows beyond the path's N = 8192: one block (1, 31), a cluster whose
+# slices end off the vector grid (5000, 8191), the path's own
+K17_SIZES = (1, 31, 5000, 8191, 8192)
+K17_SPLIT_KINDS = ("ties across slices", "plus and minus zero", "all infeasible",
+                   "nominated feasible", "nominated infeasible", "padding pod")
+
+
+def k17_plan_check() -> None:
+    """K17's plan in csrc/scan.cu (``scan_select_plan``) equal to the copy in
+    ``kernel_work.k17_plan`` that the tie cases here, in ``kernel_ab.py``
+    and in the CPU mirror take their slice boundaries from."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels.build import load
+
+    fn = load("scan").scan_select_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    differ = []
+    for n in (1, 4, 31, 500, 512, 1024, 1025, 2048, 4096, 4097, 5000, 8191, 8192, 100000):
+        for vec in (1, 4):
+            fn(n, vec, out)
+            if tuple(out) != KW.k17_plan(n, vec):
+                differ.append((n, vec, tuple(out), KW.k17_plan(n, vec)))
+    if differ:
+        fail(f"scan_select_plan differs from kernel_work.k17_plan: {differ}")
+    else:
+        log("scan_select_assume: the kernel's plan equals kernel_work.k17_plan")
+
+
+def k17_split_cases(dev, gen, keyed: bool) -> float:
+    """K17 (keyless, or keyed over a noise row) against its plain version on
+    the same CUDA tensors at ``K17_SIZES``: the maximum tied on the rows
+    either side of every slice boundary and vector tail (keyed, with the
+    same largest noise there: the lower row must win), a row of +0.0 and
+    −0.0 totals (a tie, as == says), an all-infeasible row, a feasible and
+    an infeasible nominated row, a padding pod; at N = 31 and 8191 also as
+    row 1 of a [2, N] buffer (a view 4 N bytes in: not 16-byte aligned, the
+    scalar form).  → the largest difference (0: exactly equal)."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels import scan as KS
+
+    b, r, full, i = 64, 8, (1 << 16) - 1, 5
+    request = torch.randint(0, 3000, (b, r), generator=gen, dtype=torch.int32).to(dev)
+    pod_nz = torch.randint(0, 3000, (b, 2), generator=gen, dtype=torch.int32).to(dev)
+    what = "scan_select_assume" + (" keyed" if keyed else "")
+    err = 0.0
+    cases = [(n, kind, False) for n in K17_SIZES for kind in K17_SPLIT_KINDS]
+    cases += [(n, "ties across slices", True) for n in (31, 8191)]
+    for n, kind, view in cases:
+        bits = torch.where(torch.rand(n, generator=gen) < 0.7, full, full & ~4).to(torch.int32)
+        total = torch.randint(0, 400, (n,), generator=gen).float()
+        noise = torch.rand(n, generator=gen) * 0.75
+        nom, valid = -1, torch.ones(b, dtype=torch.bool)
+        tied = KW.k17_tie_rows(n)
+        if kind == "ties across slices":
+            bits[tied], total[tied], noise[tied] = full, 999.0, 0.875
+        elif kind == "plus and minus zero":
+            total = torch.where(torch.arange(n) % 2 == 0, -0.0, 0.0)
+            bits[0] = full
+        elif kind == "all infeasible":
+            bits[:] = full & ~1
+        elif kind == "nominated feasible":
+            nom = n // 2
+            bits[nom] = full
+        elif kind == "nominated infeasible":
+            nom = n // 2
+            bits[nom] = 0
+        elif kind == "padding pod":
+            valid[i] = False
+        total = torch.where(bits == full, total, float("-inf"))
+        rows = [x.to(dev) for x in (bits, total, noise)]
+        if view:  # row 1 of a [2, N] buffer: 4 N bytes in, not 16-byte aligned
+            rows = [torch.stack([torch.zeros_like(x), x])[1] for x in rows]
+        bits_d, total_d, noise_d = rows
+        if view and (bits_d.data_ptr() % 16 == 0 or not bits_d.is_contiguous()):
+            fail(f"{what}: the N = {n} view case is aligned or not contiguous")
+        nominated = torch.full((b,), -1, dtype=torch.int32)
+        nominated[i] = nom
+        outs_k = [torch.randint(0, 4000, (n, r), generator=gen, dtype=torch.int32).to(dev),
+                  torch.randint(0, 4000, (n, 2), generator=gen, dtype=torch.int32).to(dev),
+                  torch.full((b,), -7, dtype=torch.int32, device=dev),
+                  torch.full((b,), -7, dtype=torch.int32, device=dev)]
+        outs_p = [t.clone() for t in outs_k]
+        args = (bits_d[None], full, total_d[None], i, nominated.to(dev), valid.to(dev),
+                request, pod_nz)
+        z = noise_d if keyed else None
+        KS.scan_select_assume(*args, *outs_k, z)
+        KS.scan_select_assume_plain(*args, *outs_p, z)
+        torch.cuda.synchronize()
+        label = f"{what} (N = {n}, {kind}{', unaligned view' if view else ''})"
+        err = max(err, require_equal(label, [
+            (f, a, c) for f, a, c in zip(("requested", "non_zero", "node_row",
+                                           "feasible_count"), outs_k, outs_p)]))
+        row = int(outs_k[2][i])
+        if kind == "ties across slices" and row != tied[0]:
+            fail(f"{label}: went to {row}, not the lowest tied row {tied[0]}")
+        if kind == "plus and minus zero" and not keyed and row != 0:
+            fail(f"{label}: went to {row}, not the first of the tied zeros")
+        if kind in ("all infeasible", "padding pod") and row != -1:
+            fail(f"{label}: placed a pod it must not")
+        if kind == "nominated feasible" and row != n // 2:
+            fail(f"{label}: the feasible nominated row was not taken")
+    log(f"  {what}: equal to the plain version on {len(cases)} cases at N = "
+        f"{', '.join(map(str, K17_SIZES))} (slice boundaries, vector tails, ±0, unaligned "
+        f"views)")
+    return err
+
 
 def full_rows_spread_case(name, gen, dev, *, b=512, cc=2, n=8192, **kw):
     """A spread_case at full-batch rows: every pod its own class row, the
@@ -1747,7 +1862,9 @@ def check_scan_kernels(dev) -> dict:
     """K17–K19 against their plain versions, exactly equal, on random and
     adversarial inputs — K17: ties across the whole row, an all-infeasible
     row, a nominated row that is infeasible, feasible, out of the bucket or
-    at the last node, a padding pod, the maximum at the last node; K18 and
+    at the last node, a padding pod, the maximum at the last node, and
+    ``k17_split_cases`` (other N, ties across the cluster's slices, the
+    kernel's plan held against ``kernel_work.k17_plan``); K18 and
     K19 (both count forms) at full-batch rows B = 512 with pod i on a live
     node, a keyless node, the last node and no node.  Then the reused
     kernels at the shapes the full auction and the scan give them: K1–K4,
@@ -1850,6 +1967,10 @@ def check_scan_kernels(dev) -> dict:
                     fail(f"scan_select_assume ({kind}, pod {i}): placed a pod it must not")
             if kind == "nominated feasible" and i != b - 1 and row != 4000:
                 fail("scan_select_assume: the feasible nominated row was not taken")
+
+    k17_plan_check()
+    err["scan_select_assume"] = max(err["scan_select_assume"],
+                                    k17_split_cases(dev, gen, keyed=False))
 
     # K18: full-batch rows, two constraints, keyless nodes
     splug = PodTopologySpreadPlugin()
@@ -5766,11 +5887,12 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 
 
 # kernels already redesigned for Hopper in the port's step 2 (every row of
-# theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13, K1, K11
-# and K12
+# theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13, K1, K11,
+# K12 and K17 (keyless and keyed)
 REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
               "ipa_update_row", "spread_score_combine", "prev_delta_apply",
-              "filter_score_planes", "ipa_score_combine", "ipa_update_classes")
+              "filter_score_planes", "ipa_score_combine", "ipa_update_classes",
+              "scan_select_assume")
 
 
 def step2_order(rows: list) -> dict:
@@ -7115,21 +7237,24 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
             "library_ms": libs[0] if libs else None,
             "bytes": n_bytes, "ops": n_ops, "shape": shape})
 
-    # K17: pod i's bit and total rows read once, its nominated row, valid
-    # flag and request rows; the node's requested / non_zero rows read and
-    # written; per node a compare, a count and a max
+    # K17: kernel_work.k17_work (the bit row read once, the total on
+    # feasible nodes, the step's own rows, the assume's node rows when placed)
     # the path's calls carry a 13th argument, the keyed mode's noise (None)
     (bits, full, total, i, nominated, valid, request, pod_nz, requested, node_nz, node_row,
      feas) = scan_args["scan_select_assume"][0][:12]
     n, r = requested.shape
     out = [requested.clone(), node_nz.clone(), node_row.clone(), feas.clone()]
     a17 = (bits, full, total, i, nominated, valid, request, pod_nz)
+    k17 = (lambda: KS.scan_select_assume(*a17, *out))
     row("scan_select_assume", "scan_select_assume", SCAN_SOURCES["scan_select_assume"],
-        SCAN_REPLACES["scan_select_assume"], "scan_select_kernel",
-        lambda: KS.scan_select_assume(*a17, *out),
+        SCAN_REPLACES["scan_select_assume"], "scan_select_kernel", k17,
         lambda: KS.scan_select_assume_plain(*a17, *[o.clone() for o in out]),
-        nbytes(bits, total) + 4 + 1 + 4 * (r + 2) + 2 * 4 * (r + 2) + 8, 3 * n,
-        {"N": n, "R": r}, err["scan_select_assume"])
+        *KW.k17_work(bits, full, total, i, nominated, valid, request), {"N": n, "R": r},
+        err["scan_select_assume"])
+    rows[-1]["host_us"] = host_issue_us(k17)
+    log(f"  scan_select_assume: the host issues a call in {rows[-1]['host_us']:.2f} us "
+        f"(1000 queued calls)")
+    one_device_activity("scan_select_assume", k17, "scan_select_kernel", "scan_select_assume")
 
     # K18: pod i's match column and, per matching row, the node's domain and
     # counted bits; a read and a write per table add
@@ -7408,7 +7533,8 @@ def check_extender_kernels(dev) -> dict:
     the plain version (ops/prng.py) on the same CUDA tensors, and the plain
     version against jax.random's words for PRNGKey(7) (literals); K17's
     keyed mode on all-tie rows, an all −inf row, a feasible and an
-    infeasible nominated row and a tie at the last node; K2's packed mode at
+    infeasible nominated row and a tie at the last node, and
+    ``k17_split_cases`` keyed (equal noise across slices); K2's packed mode at
     C = 512 and C = 1 over N = 8192."""
     import torch
 
@@ -7514,6 +7640,8 @@ def check_extender_kernels(dev) -> dict:
             want = int(torch.argmax(noise))
             if row != want:
                 fail(f"scan_select_assume keyed: all ties went to {row}, not {want}")
+    err["scan_select_keyed"] = max(err["scan_select_keyed"],
+                                   k17_split_cases(dev, gen, keyed=True))
     # K2 packed at C = 512 and C = 1
     fw, (_fs_plan, comb_plan) = framework_plans()
     fullf = (1 << len(fw.filter_names)) - 1
@@ -7942,18 +8070,21 @@ def time_extender_kernels(keyed_calls: dict, packed_calls: dict, err: dict,
         [(f, a, c_) for f, a, c_ in zip("rnsf", outs_k, outs_p)]))
     n_s = sbits.shape[-1]
     r_dims = request.shape[1]
-    # the bit row, the total row and the noise row read once; the step's
-    # request rows read and the node's rows written
-    s_bytes = 12 * n_s + 4 * (2 * r_dims + 4) + 8
     work = [t.clone() for t in (requested, node_nz, node_row, feas)]
+    k17 = (lambda: KS.scan_select_assume(sbits, sfull, stotal, i, nominated, valid, request,
+                                         pod_nz, *work, noise))
     row("scan_select_assume (keyed)", "scan_select_keyed", K17_SOURCE, K17_KEYED_REPLACES,
-        "scan_select_kernel",
-        lambda: KS.scan_select_assume(sbits, sfull, stotal, i, nominated, valid, request,
-                                      pod_nz, *work, noise),
+        "scan_select_kernel", k17,
         lambda: KS.scan_select_assume_plain(sbits, sfull, stotal, i, nominated, valid,
                                             request, pod_nz,
                                             *[t.clone() for t in work], noise),
-        s_bytes, 6 * n_s, {"N": n_s, "R": r_dims}, launches["scan"]["scan_select_keyed"])
+        *KW.k17_work(sbits, sfull, stotal, i, nominated, valid, request, noise),
+        {"N": n_s, "R": r_dims}, launches["scan"]["scan_select_keyed"])
+    rows_out[-1]["host_us"] = host_issue_us(k17)
+    log(f"  scan_select_assume (keyed): the host issues a call in "
+        f"{rows_out[-1]['host_us']:.2f} us (1000 queued calls)")
+    one_device_activity("scan_select_assume (keyed)", k17, "scan_select_kernel",
+                        "scan_select_keyed")
     (pbits, pfull, praw, plan), kw = last(packed_calls, "normalize_combine_packed")
     if not kw.get("packed"):
         fail("kernel timing: the extender path's latest K2 call was not the packed mode")

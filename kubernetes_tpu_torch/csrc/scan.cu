@@ -18,34 +18,133 @@
 // all -inf row is all ties.  The noise row is K33's uniform draw under the
 // step's key.  The nominated path and the infeasible rule are unchanged.
 //
-// One block of up to 1024 threads: each thread folds a strided slice of the
-// row into (feasible count, best value, best row) and a warp-shuffle then
-// shared-memory reduction combines them — best is the larger value, the
-// lower row on a tie.  In keyed mode the maximum goes to every thread
-// through shared memory and a second strided pass reduces (noise, row) over
-// the ties the same way.  Thread 0 finishes the step.  Bound: bytes (the bit
-// row and the total row read once, a few dozen bytes written); at one row
-// the card is mostly idle — the launch latency is the step's cost.
+// Bound on the card: bytes (the bit row and the total row, and the noise
+// row keyed, read once; a few dozen bytes of the step's own rows).  At one
+// row that is ~20 ns of the card's bandwidth, so latency sets the time:
+// how many SMs stream the row, how many dependent round trips follow it.
+//
+// Design.
+//   * A row is split over a thread-block cluster of CL blocks (CL in 1, 2,
+//     4, 8; launched with cudaLaunchKernelEx), block r taking the nodes
+//     [r S, min((r + 1) S, N)), S a multiple of 4.  ``select_plan`` gives a
+//     block about 1024 nodes, a 16-byte vector a thread: N = 8192 is a
+//     cluster of 8 blocks of 256 threads; N <= 1024 (the small tiers, the
+//     tests' rows, N = 1) one block and no cluster.
+//   * One read.  Each thread issues its loads (int4 bits, float4 total and
+//     noise) before its first compare.  The last slice's N mod 4 nodes go
+//     one a thread; a row whose pointers are not 16-byte aligned (a view)
+//     takes the scalar form throughout (VEC = 1).
+//   * One pass in both modes.  Each thread folds (count, value, noise, row)
+//     in the order value descending, noise descending, row ascending: the
+//     first argmax keyless (no noise), and keyed the argmax of
+//     where(masked == max, noise, -1) — noise >= 0 beats the -1 of every
+//     row below the maximum, every row at the maximum is a tie (all of them
+//     when the row is all -inf), +0.0 and -0.0 tie as == says, equal noise
+//     goes to the lower row.  The order is total, so any merge order gives
+//     the same result: warp shuffles, one shared-memory step across the
+//     warps, then each block's partial pushed into the leader block (rank
+//     0) through distributed shared memory behind one cluster barrier (the
+//     barrier that makes the push safe — every block running — is split:
+//     arrived at entry, waited on before the push).  No float arithmetic,
+//     only compares; the count is an integer add.
+//   * The step's own inputs are prefetched at entry by the leader's warp 0:
+//     lane 31 loads nominated[i] and valid[i] (then bits[clamp(nom)], once
+//     its row is folded), lanes 0..R+1 request[i, :] and pod_nz[i, :].  They
+//     overlap the row instead of following the reduction.
+//   * The assume is R + 2 fire-and-forget adds (atomicAdd with the result
+//     unused: a reduction to global memory, exact for int32, one writer a
+//     step) by those lanes; node_row[i] and feasible_count[i] are plain
+//     stores.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define SELECT_THREADS 1024
+namespace cg = cooperative_groups;
 
-struct Best {
+#define SELECT_MAX_THREADS 1024
+#define SELECT_MAX_CLUSTER 8
+#define SELECT_NODES_PER_BLOCK 1024
+#define FULL_MASK 0xffffffffu
+
+// the launch's shape, a kernel parameter: CL blocks, block r taking the
+// nodes [r S, min((r + 1) S, N))
+struct SelectPlan {
+  int CL;
+  int S;
+};
+
+// a partial of the row: its feasible count and its best (value, noise, row)
+struct Part {
+  int c;
   float v;
+  float z;
   int n;
 };
 
-__device__ __forceinline__ Best better(Best a, Best b) {
-  // the larger value; on a tie the lower row (a first-max argmax)
-  if (b.v > a.v || (b.v == a.v && b.n < a.n)) return b;
-  return a;
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(SELECT_THREADS) scan_select_kernel(
-    int N, int R, int full, int i,
+// the larger value; on equal values (+0.0 == -0.0) the larger noise (keyed);
+// then the lower row
+template <bool KEYED>
+__device__ __forceinline__ bool beats(const Part& b, const Part& a) {
+  if (b.v != a.v) return b.v > a.v;
+  if (KEYED && b.z != a.z) return b.z > a.z;
+  return b.n < a.n;
+}
+
+template <bool KEYED>
+__device__ __forceinline__ Part merge(const Part& a, const Part& b) {
+  Part o = beats<KEYED>(b, a) ? b : a;
+  o.c = a.c + b.c;
+  return o;
+}
+
+// the identity: no node, -inf, noise -1 (below every draw), the sentinel row
+// N (above every row)
+__device__ __forceinline__ Part none(int N) { return Part{0, -INFINITY, -1.0f, N}; }
+
+// every lane ends with the warp's merge (the order is total, so the
+// butterfly's two operand orders agree)
+template <bool KEYED>
+__device__ __forceinline__ Part warp_merge(Part p) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Part o;
+    o.c = __shfl_xor_sync(FULL_MASK, p.c, off);
+    o.v = __shfl_xor_sync(FULL_MASK, p.v, off);
+    o.z = KEYED ? __shfl_xor_sync(FULL_MASK, p.z, off) : p.z;
+    o.n = __shfl_xor_sync(FULL_MASK, p.n, off);
+    p = merge<KEYED>(p, o);
+  }
+  return p;
+}
+
+template <bool KEYED>
+__device__ __forceinline__ void fold(Part& p, int b, int full, float t, float z, int n) {
+  const bool m = b == full;
+  p.c += m;
+  const Part q{0, m ? t : -INFINITY, z, n};
+  if (beats<KEYED>(q, p)) {
+    p.v = q.v;
+    p.z = q.z;
+    p.n = q.n;
+  }
+}
+
+// grid: CL blocks, one cluster when CL > 1
+template <int VEC, bool KEYED>
+__global__ void __launch_bounds__(SELECT_MAX_THREADS) scan_select_kernel(
+    int N, int R, int full, int i, const SelectPlan plan,
     const int32_t* __restrict__ bits,      // [N] pod i's pass bits
     const float* __restrict__ total,       // [N] pod i's total (−inf off the mask)
     const int32_t* __restrict__ nominated, // [B] nominated node row, < 0 none
@@ -56,83 +155,162 @@ __global__ void __launch_bounds__(SELECT_THREADS) scan_select_kernel(
     int32_t* __restrict__ node_nz,         // [N, 2] in/out
     int32_t* __restrict__ node_row,        // [B] out at i
     int32_t* __restrict__ feasible_count,  // [B] out at i
-    const float* __restrict__ noise) {     // [N] the step's draw, or NULL
-  __shared__ int s_cnt[SELECT_THREADS / 32];
-  __shared__ float s_v[SELECT_THREADS / 32];
-  __shared__ int s_n[SELECT_THREADS / 32];
-  __shared__ float s_max;
-  int cnt = 0;
-  // the sentinel row N loses every tie, so an all −inf row selects row 0
-  Best best{-INFINITY, N};
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const bool m = bits[n] == full;
-    cnt += m;
-    best = better(best, Best{m ? total[n] : -INFINITY, n});
+    const float* __restrict__ noise) {     // [N] the step's draw (keyed)
+  __shared__ Part s_warp[SELECT_MAX_THREADS / 32];
+  __shared__ Part s_cl[SELECT_MAX_CLUSTER];
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int CL = plan.CL, rank = blockIdx.x;
+  if (CL > 1) cluster_arrive_relaxed();  // this block runs; waited on before the push
+
+  // --- the step's own inputs, prefetched by the leader's warp 0 -----------
+  const bool lead = rank == 0 && warp == 0;
+  int nom = -1, vld = 0, pre = 0;
+  if (lead) {
+    if (lane == 31) {
+      nom = __ldg(nominated + i);
+      vld = __ldg(valid + i);
+    }
+    if (lane < R) pre = __ldg(request + (size_t)i * R + lane);
+    else if (lane < R + 2) pre = __ldg(pod_nz + (size_t)i * 2 + (lane - R));
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    cnt += __shfl_down_sync(0xffffffff, cnt, off);
-    Best o{__shfl_down_sync(0xffffffff, best.v, off), __shfl_down_sync(0xffffffff, best.n, off)};
-    best = better(best, o);
+
+  // --- the one read of the slice, folded -----------------------------------
+  const int lo = min(rank * plan.S, N), hi = min(lo + plan.S, N);
+  const int nvec = (hi - lo) / VEC, tail = lo + nvec * VEC;
+  Part p = none(N);
+  for (int v = tid; v < nvec; v += nt) {
+    const int n0 = lo + v * VEC;
+    int b[VEC];
+    float t[VEC], z[VEC];
+    if constexpr (VEC == 4) {
+      const int4 bv = __ldg(reinterpret_cast<const int4*>(bits + n0));
+      const float4 tv = __ldg(reinterpret_cast<const float4*>(total + n0));
+      b[0] = bv.x; b[1] = bv.y; b[2] = bv.z; b[3] = bv.w;
+      t[0] = tv.x; t[1] = tv.y; t[2] = tv.z; t[3] = tv.w;
+      if constexpr (KEYED) {
+        const float4 zv = __ldg(reinterpret_cast<const float4*>(noise + n0));
+        z[0] = zv.x; z[1] = zv.y; z[2] = zv.z; z[3] = zv.w;
+      }
+    } else {
+      b[0] = __ldg(bits + n0);
+      t[0] = __ldg(total + n0);
+      if constexpr (KEYED) z[0] = __ldg(noise + n0);
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) fold<KEYED>(p, b[e], full, t[e], KEYED ? z[e] : -1.0f, n0 + e);
   }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    s_cnt[warp] = cnt;
-    s_v[warp] = best.v;
-    s_n[warp] = best.n;
+  if (tail + tid < hi) {  // the last slice's N mod 4 nodes, one a thread
+    const int n = tail + tid;
+    fold<KEYED>(p, __ldg(bits + n), full, __ldg(total + n),
+                KEYED ? __ldg(noise + n) : -1.0f, n);
   }
+  int nomc = 0, nom_ok = 0;
+  if (lead && lane == 31) {  // the one dependent read: the nominated row's bits
+    nomc = min(max(nom, 0), N - 1);
+    nom_ok = nom >= 0 && __ldg(bits + nomc) == full;
+  }
+
+  // --- the block's partial: warp shuffles, one shared-memory step ----------
+  p = warp_merge<KEYED>(p);
+  if (lane == 0) s_warp[warp] = p;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int c = 0;
-    Best b{-INFINITY, N};
-    for (int w = 0; w < (int)(blockDim.x / 32); ++w) {
-      c += s_cnt[w];
-      b = better(b, Best{s_v[w], s_n[w]});
-    }
-    s_cnt[0] = c;
-    s_n[0] = b.n;
-    s_max = b.v;
+  if (warp == 0) {
+    p = lane < (nt >> 5) ? s_warp[lane] : none(N);
+    p = warp_merge<KEYED>(p);
   }
-  __syncthreads();
-  cnt = s_cnt[0];
-  best = Best{s_max, s_n[0]};
-  if (noise != nullptr) {
-    // the uniform draw among the tied maxima (noise >= 0 beats the -1 of
-    // every other row, so only ties compete)
-    const float mx = s_max;
-    Best tie{-1.0f, N};
-    for (int n = threadIdx.x; n < N; n += blockDim.x) {
-      const float v = bits[n] == full ? total[n] : -INFINITY;
-      tie = better(tie, Best{v == mx ? noise[n] : -1.0f, n});
+
+  // --- the row's: every block's partial pushed into the leader ------------
+  if (CL > 1) {
+    cluster_wait_acquire();  // every block of the cluster runs
+    if (tid == 0) {
+      cg::cluster_group cluster = cg::this_cluster();
+      *cluster.map_shared_rank(&s_cl[rank], 0) = p;
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      Best o{__shfl_down_sync(0xffffffff, tie.v, off), __shfl_down_sync(0xffffffff, tie.n, off)};
-      tie = better(tie, o);
-    }
-    __syncthreads();  // every thread has read s_n[0] and s_max
-    if (lane == 0) {
-      s_v[warp] = tie.v;
-      s_n[warp] = tie.n;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      tie = Best{-1.0f, N};
-      for (int w = 0; w < (int)(blockDim.x / 32); ++w) tie = better(tie, Best{s_v[w], s_n[w]});
-      best = tie;
+    __syncwarp();
+    cluster_arrive_release();
+    cluster_wait_acquire();  // the leader holds every partial
+    if (rank != 0) return;
+    if (warp == 0) {
+      p = lane < CL ? s_cl[lane] : none(N);
+      p = warp_merge<KEYED>(p);
     }
   }
-  if (threadIdx.x != 0) return;
-  const bool feasible = cnt > 0;
-  int node = best.n;
-  const int nom = nominated[i];
-  const int nomc = min(max(nom, 0), N - 1);
-  if (nom >= 0 && bits[nomc] == full) node = nomc;  // nominated-node fast path
+  if (warp != 0) return;
+
+  // --- the step: node, outputs and the assume, by the leader's warp 0 -----
+  nom_ok = __shfl_sync(FULL_MASK, nom_ok, 31);
+  nomc = __shfl_sync(FULL_MASK, nomc, 31);
+  vld = __shfl_sync(FULL_MASK, vld, 31);
+  const bool feasible = p.c > 0;
+  int node = nom_ok ? nomc : p.n;  // nominated-node fast path
   if (!feasible) node = 0;
-  const bool placed = feasible && valid[i];
-  node_row[i] = placed ? node : -1;
-  feasible_count[i] = cnt;
+  const bool placed = feasible && vld;
+  if (lane == 0) {
+    node_row[i] = placed ? node : -1;
+    feasible_count[i] = p.c;
+  }
   if (!placed) return;
-  for (int r = 0; r < R; ++r) requested[(long long)node * R + r] += request[(long long)i * R + r];
-  for (int k = 0; k < 2; ++k) node_nz[(long long)node * 2 + k] += pod_nz[(long long)i * 2 + k];
+  for (int r = lane; r < R + 2; r += 32) {
+    int add = pre;
+    if (r >= 32)
+      add = r < R ? __ldg(request + (size_t)i * R + r) : __ldg(pod_nz + (size_t)i * 2 + (r - R));
+    if (r < R) atomicAdd(requested + (size_t)node * R + r, add);
+    else atomicAdd(node_nz + (size_t)node * 2 + (r - R), add);
+  }
+}
+
+// the plan: the fewest blocks (a power of two, at most 8) of at most 1024
+// nodes; threads a whole number of warps covering a block's vectors
+static void select_plan(int N, int VEC, SelectPlan* plan, int* threads) {
+  int cl = 1;
+  while (cl < SELECT_MAX_CLUSTER && (long long)cl * SELECT_NODES_PER_BLOCK < N) cl <<= 1;
+  const int S = ((N + cl - 1) / cl + 3) / 4 * 4;
+  int t = ((S + VEC - 1) / VEC + 31) / 32 * 32;
+  if (t < 32) t = 32;
+  if (t > SELECT_MAX_THREADS) t = SELECT_MAX_THREADS;
+  plan->CL = cl;
+  plan->S = S;
+  *threads = t;
+}
+
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+template <int VEC, bool KEYED>
+static int launch_select(int N, int R, int full, int i, const int32_t* bits, const float* total,
+                         const int32_t* nominated, const uint8_t* valid, const int32_t* request,
+                         const int32_t* pod_nz, int32_t* requested, int32_t* node_nz,
+                         int32_t* node_row, int32_t* feasible_count, const float* noise,
+                         cudaStream_t stream) {
+  SelectPlan plan;
+  int threads;
+  select_plan(N, VEC, &plan, &threads);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)plan.CL);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)plan.CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = plan.CL > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, scan_select_kernel<VEC, KEYED>, N, R, full, i, plan,
+                                     bits, total, nominated, valid, request, pod_nz, requested,
+                                     node_nz, node_row, feasible_count, noise);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// the plan for a row of N nodes in vectors of VEC, as the launch takes it:
+// out = {CL, S, threads} (the Python copy, kernel_work.k17_plan, is held
+// against this one on the card)
+extern "C" void scan_select_plan(int N, int VEC, int* out) {
+  SelectPlan plan;
+  select_plan(N, VEC, &plan, out + 2);
+  out[0] = plan.CL;
+  out[1] = plan.S;
 }
 
 extern "C" int launch_scan_select(int N, int R, int full, int i, const void* bits,
@@ -141,12 +319,14 @@ extern "C" int launch_scan_select(int N, int R, int full, int i, const void* bit
                                   void* node_nz, void* node_row, void* feasible_count,
                                   const void* noise, void* stream) {
   if (N <= 0) return 0;
-  int threads = 32;
-  while (threads < N && threads < SELECT_THREADS) threads *= 2;
-  scan_select_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
-      N, R, full, i, (const int32_t*)bits, (const float*)total, (const int32_t*)nominated,
-      (const uint8_t*)valid, (const int32_t*)request, (const int32_t*)pod_nz,
-      (int32_t*)requested, (int32_t*)node_nz, (int32_t*)node_row, (int32_t*)feasible_count,
-      (const float*)noise);
-  return (int)cudaGetLastError();
+  if (R < 0) return (int)cudaErrorInvalidValue;
+  // 16-byte vectors where every row read starts on a 16-byte boundary
+  const bool vec4 = aligned16(bits) && aligned16(total) && (noise == nullptr || aligned16(noise));
+  const bool keyed = noise != nullptr;
+  const auto go = vec4 ? (keyed ? launch_select<4, true> : launch_select<4, false>)
+                       : (keyed ? launch_select<1, true> : launch_select<1, false>);
+  return go(N, R, full, i, (const int32_t*)bits, (const float*)total, (const int32_t*)nominated,
+            (const uint8_t*)valid, (const int32_t*)request, (const int32_t*)pod_nz,
+            (int32_t*)requested, (int32_t*)node_nz, (int32_t*)node_row,
+            (int32_t*)feasible_count, (const float*)noise, (cudaStream_t)stream);
 }

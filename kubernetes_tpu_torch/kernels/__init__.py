@@ -34,7 +34,9 @@ more than once); ``reset_launches`` zeroes the counts.
                             term group of this batch, and per prev term group
                             with a valid term)
   K16 scatter_rows          csrc/scatter_rows.cu (one launch per array group)
-  K17 scan_select_assume    csrc/scan.cu (the exact scan: one launch per step)
+  K17 scan_select_assume    csrc/scan.cu (the exact scan: one launch per step,
+                            one pass over the row split across a cluster
+                            of up to 8 blocks)
   K18 spread_update_row     csrc/spread.cu (one launch per scan step)
   K19 ipa_update_row        csrc/interpodaffinity.cu (one launch per scan step)
   K20 gang_all_or_nothing   csrc/gang.cu (one launch per dispatch)

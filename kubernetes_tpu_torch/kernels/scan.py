@@ -13,6 +13,13 @@ Keyed mode (``noise``, the step's uniform row from K33): the reference's
 ``select_host`` with a key (:305-308) — the largest noise among the tied
 maxima, the first row on equal noise, every row a tie when none is
 feasible; the nominated path and the infeasible rule are unchanged.
+
+The kernel is one launch a step in both modes: one pass over the row split
+across a thread-block cluster of up to 8 blocks (one block at N <= 1024),
+each thread folding (count, value, noise, row) in one total order, the
+blocks' partials merged in the leader block through distributed shared
+memory; the step's own rows are read while the row streams, and the
+assume is R + 2 atomic adds whose results nothing waits on.
 """
 
 from __future__ import annotations

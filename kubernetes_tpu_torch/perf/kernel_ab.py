@@ -1,6 +1,7 @@
 """K2 (normalize_combine), K29 (candidate_dense), K19 (ipa_update_row), K11
 (ipa_score_combine), K12 (ipa_update_classes), K7 (spread_score_combine),
-K1 (filter_score_planes) and K13 (prev_delta_apply) timed on synthetic
+K1 (filter_score_planes), K13 (prev_delta_apply) and K17
+(scan_select_assume, keyless and keyed) timed on synthetic
 inputs at the shapes their paths give them, for the copy of ``kubernetes_tpu_torch`` under
 ``--root``, so that two trees (a parent and a change, unpacked side by
 side) are timed by the same methods on one card:
@@ -39,12 +40,18 @@ adversarial nodes (taints, ports, images on most of them); K13 with the
 pipelined path's two in-flight bundles (2 × 512 pods, N = 8192, R = 8) and
 with the nominated bundle alone (512 of 1024 rows live, no ``nz`` rows —
 a zero tensor for a tree whose wrapper needs one), each beside
-``index_add_`` into the same arrays timed by the same method.  K1's and
-K13's rows carry their bound (``kernel_work.k1_work`` / the bytes the
-adds need, over the card's rates).  The bound formulas and K11 / K12's
-inputs are ``kernel_work.py`` beside this file, whichever tree ``--root``
-names: both trees are held to the same bound.  Needs a CUDA card; imports
-nothing of JAX.
+``index_add_`` into the same arrays timed by the same method; K17 at
+``K17_CASES`` (the TopologySpreading scan's step — N = 8192, 5000 live
+nodes, R = 8, a cluster of 8 — and the 500-node what-if forks' — N = 512,
+500 live, one block; ties and equal noise across the plan's slice
+boundaries, all-tied rows), each row with ``host_us``, the host's issue
+time of one wrapper call over 1000 queued calls (``host_timer.py``).
+K1's, K13's and K17's rows carry their bound (``kernel_work.k1_work`` /
+the bytes the adds need / ``kernel_work.k17_work``, over the card's
+rates).  The bound formulas, K11 / K12's inputs, K17's plan and the host
+timer are ``kernel_work.py`` and ``host_timer.py`` beside this file,
+whichever tree ``--root`` names: both trees are held to the same bound
+and timed by the same method.  Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -58,13 +65,13 @@ import types
 from pathlib import Path
 
 
-def _kernel_work():
-    """This file's sibling kernel_work.py, loaded by its path (the
+def _sibling(name: str):
+    """This file's sibling ``name``.py, loaded by its path (the
     ``kubernetes_tpu_torch`` on the import path is the one under ``--root``)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "kernel_work", Path(__file__).resolve().with_name("kernel_work.py"))
+        name, Path(__file__).resolve().with_name(f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -272,6 +279,63 @@ def k13_inputs(kind: str, dev, seed: int = 13):
     return requested, non_zero, bundles
 
 
+# K17's shapes: label → (keyed, ties, N, live) — the TopologySpreading
+# scan's step (a cluster of 8) and the 500-node what-if forks' (one block)
+K17_CASES = {
+    "keyless, ties across slices": (False, "slices", 8192, 5000),
+    "keyless, all tied": (False, "all", 8192, 5000),
+    "keyed, equal noise across slices": (True, "slices", 8192, 5000),
+    "keyed, all tied": (True, "all", 8192, 5000),
+    "keyless, N = 512, ties": (False, "slices", 512, 500),
+    "keyed, N = 512, equal noise": (True, "slices", 512, 500),
+}
+
+
+def k17_tied(label: str, kw) -> list:
+    """The rows that hold the maximum (and, keyed, the same largest noise)
+    in a "slices" case: those of ``kw.k17_tie_rows`` among the live nodes —
+    either side of each slice boundary — or, in one block, the rows either
+    side of the live nodes' middle.  The lowest must win."""
+    _keyed, _ties, n, live = K17_CASES[label]
+    return [a for a in kw.k17_tie_rows(n) if a < live] or [live // 2 - 1, live // 2]
+
+
+def k17_inputs(label: str, dev, kw, seed: int = 17):
+    """K17's arguments at ``label``: a bit row of 7 filter bits with ~70%
+    of the live nodes feasible and K2's total (integers 0–400, −inf off the
+    mask); "slices" puts the row's maximum on the feasible rows
+    ``k17_tied`` names (and, keyed, the same largest noise on them), "all"
+    gives every feasible node the same total (the spread cell's rows);
+    keyed, a uniform noise row.  Pod 137 of B = 512 (R = 8, not nominated,
+    valid) on random requested / non_zero rows → (bits, full, total, i,
+    nominated, valid, request, pod_nz, requested, node_nz, node_row,
+    feasible_count, noise or None)."""
+    import numpy as np
+    import torch
+
+    keyed, ties, n, live = K17_CASES[label]
+    rng = np.random.default_rng(seed + keyed + 2 * (ties == "all") + 4 * (n != 8192))
+    b, r, full, i = 512, 8, 0b1111111, 137
+    feasible = (rng.random(n) < 0.7) & (np.arange(n) < live)
+    bits = np.where(feasible, full, full & ~(1 << rng.integers(0, 7, n))).astype(np.int32)
+    total = rng.integers(0, 400, n).astype(np.float32)
+    noise = rng.random(n, dtype=np.float32)
+    if ties == "all":
+        total[:] = 250.0
+    else:
+        at = k17_tied(label, kw)
+        bits[at], total[at], noise[at] = full, 500.0, np.float32(0.9999)
+    total = np.where(bits == full, total, -np.inf).astype(np.float32)
+    arrays = [bits[None], total[None], np.full(b, -1, np.int32), np.ones(b, bool),
+              rng.integers(0, 3000, (b, r)).astype(np.int32),
+              rng.integers(0, 3000, (b, 2)).astype(np.int32),
+              rng.integers(0, 1 << 20, (n, r)).astype(np.int32),
+              rng.integers(0, 1 << 20, (n, 2)).astype(np.int32),
+              np.full(b, -1, np.int32), np.zeros(b, np.int32)]
+    t = [torch.from_numpy(a).to(dev) for a in arrays]
+    return (t[0], full, t[1], i, *t[2:], torch.from_numpy(noise).to(dev) if keyed else None)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the tree whose kubernetes_tpu_torch to time")
@@ -285,7 +349,8 @@ def main() -> None:
         sys.exit("kernel_ab: no CUDA card")
     import chip_smoke as cs
 
-    kw = _kernel_work()
+    kw = _sibling("kernel_work")
+    host_issue_us = _sibling("host_timer").host_issue_us
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.kernels import build
     from kubernetes_tpu_torch.kernels.normalize import (
@@ -301,6 +366,7 @@ def main() -> None:
         filter_score_planes_plain,
     )
     from kubernetes_tpu_torch.kernels.prev_delta import prev_delta_apply, prev_delta_apply_plain
+    from kubernetes_tpu_torch.kernels.scan import scan_select_assume, scan_select_assume_plain
     from kubernetes_tpu_torch.plugins.interpodaffinity import InterPodAffinityPlugin
     from kubernetes_tpu_torch.plugins.noderesources import FitPlugin
     from kubernetes_tpu_torch.plugins.trivial import image_scaled_by_id
@@ -317,6 +383,7 @@ def main() -> None:
     build.load("spread")
     build.load("filter_score")
     build.load("prev_delta")
+    build.load("scan")
     plan = CombinePlan(kinds=(0, 0, 0, 1, 2), weights=(1.0, 1.0, 1.0, 1.0, 1.0), const_add=0.0)
     rows = []
 
@@ -488,6 +555,23 @@ def main() -> None:
             rows=int(rows_all.numel()), placed=placed, bound_ms=least, bound_by=by,
             library_ms=cs.device_ms(library), library_ms_source=cs.MS_SOURCE[0],
             library_queued_ms=cs.queued_device_ms(library))
+
+    for label in K17_CASES:
+        keyed, ties, n, live = K17_CASES[label]
+        a17 = k17_inputs(label, dev, kw)
+        i, noise = a17[3], a17[12]
+        ko, po = [t.clone() for t in a17[8:12]], [t.clone() for t in a17[8:12]]
+        scan_select_assume(*a17[:8], *ko, noise)
+        scan_select_assume_plain(*a17[:8], *po, noise)
+        node = int(ko[2][i])
+        equal = all(torch.equal(x, y) for x, y in zip(ko, po)) and node >= 0 \
+            and (ties == "all" or node == min(k17_tied(label, kw)))  # the lowest tied row
+        least, by = kw.bound_ms(*kw.k17_work(a17[0], a17[1], a17[2], i, a17[4], a17[5],
+                                             a17[6], noise))
+        work = [t.clone() for t in a17[8:12]]
+        fn = (lambda a_=a17, w_=work: scan_select_assume(*a_[:8], *w_, a_[12]))
+        add(f"scan_select_assume ({label})", fn, bool(equal), N=n, R=8, live=live,
+            node=node, bound_ms=least, bound_by=by, host_us=host_issue_us(fn))
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"root": str(root), "card": card.strip(),

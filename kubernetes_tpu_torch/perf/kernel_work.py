@@ -1,6 +1,8 @@
 """The bytes and operations each kernel must move and do on given inputs
-(``*_work``, the basis of ``bound_ms``), and the synthetic inputs that
-``chip_smoke.py`` and ``kernel_ab.py`` both build for K11 and K12.
+(``*_work``, the basis of ``bound_ms``), the synthetic inputs that
+``chip_smoke.py`` and ``kernel_ab.py`` both build for K11 and K12, and
+K17's launch plan, whose slice boundaries both scripts' tie cases and the
+CPU mirror of K17 take from here (``k17_plan``, ``k17_tie_rows``).
 
 A bound counts what the function needs on this data: each input read
 once, each output written once, and only the cells the data reaches.  The
@@ -47,6 +49,57 @@ def k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw):
     r = dyn.requested.shape[1]
     ops = c * n * (node_t * pod_t + pod_p * node_p + pod_i * node_i + 12 * r)
     return nbytes(*k1_in, bits, raw) + img_gathered, ops
+
+
+def k17_work(bits, full: int, total, i: int, nominated, valid, request,
+             noise=None) -> tuple:
+    """(bytes, operations) one K17 step must move and do on these inputs:
+    the bit row read once; the total only on feasible nodes; keyed, the
+    noise only at the tied maxima of the masked total (every node when the
+    maximum is −inf, none feasible: then every node ties); pod i's
+    nominated row and valid flag, the nominated node's bits when it names
+    one; both outputs at i written; and when the pod is placed its request
+    and non-zero rows read and the node's requested / non_zero rows read
+    and written.  Per node a compare, a count and the value compare (the
+    noise compare too, keyed)."""
+    n = bits.shape[-1]
+    r = request.shape[1]
+    mask = bits.reshape(n) == full
+    n_feas = int(mask.sum())
+    placed = n_feas > 0 and bool(valid[i])
+    n_bytes = 4 * n + 4 * n_feas + 4 + 1 + 8
+    if noise is not None:
+        import torch
+
+        masked = torch.where(mask, total.reshape(n), float("-inf"))
+        n_bytes += 4 * int((masked == masked.max()).sum())
+    n_bytes += 4 if int(nominated[i]) >= 0 else 0
+    n_bytes += 4 * (r + 2) * 3 if placed else 0
+    return n_bytes, n * (3 + (noise is not None))
+
+
+def k17_plan(n: int, vec: int = 4, cl: int = None) -> tuple:
+    """(CL, S, threads): K17's launch plan for a row of ``n`` nodes, a copy
+    of ``select_plan`` in csrc/scan.cu (``chip_smoke.py`` holds the two
+    together on the card) — the fewest blocks, a power of two up to 8, of
+    at most 1024 nodes (or ``cl`` blocks); S, a block's slice, a multiple
+    of 4; threads a whole number of warps covering the slice's vectors of
+    ``vec`` nodes, 32 to 1024."""
+    if cl is None:
+        cl = 1
+        while cl < 8 and cl * 1024 < n:
+            cl *= 2
+    s = ((n + cl - 1) // cl + 3) // 4 * 4
+    return cl, s, min(max(((s + vec - 1) // vec + 31) // 32 * 32, 32), 1024)
+
+
+def k17_tie_rows(n: int) -> list:
+    """The rows either side of each of K17's slice boundaries and of the
+    last slice's vector tail, and the last row."""
+    cl, s, _t = k17_plan(n)
+    at = [q * s + d for q in range(1, cl) for d in (-1, 0)]
+    at += [n - n % 4 - 1, n - n % 4] if n % 4 and n > 4 else []
+    return sorted({a for a in at + [n - 1] if 0 <= a < n})
 
 
 def k7_work(aux, bits, full: int) -> tuple:
