@@ -353,6 +353,7 @@ profiles path, SelectorSpread's K32 in it).
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import os
 import subprocess
@@ -1218,11 +1219,12 @@ def check_auction_cases(dev, gen, cases: dict) -> float:
 
 def spread_case(name: str, gen, dev, *, c=4, cc=1, n=8192, p=8192, b=512, d=8, n_dom=3,
                 keyless=0.0, counted=0.9, min_domains=0, counts=None, mask_frac=0.9,
-                soft=True):
+                soft=True, hard=0.8):
     """A synthetic PodTopologySpread class view (the TSAux fields) plus the
     round inputs, on ``dev``: ``n_dom`` live domains of ``d``, ``keyless``
     of the nodes without the key, ``counts`` forced soft/hard count values
-    on the live domains, ``min_domains`` on every constraint."""
+    on the live domains, ``min_domains`` on every constraint, ``hard`` the
+    share of hard constraints."""
     import torch
 
     from kubernetes_tpu_torch.plugins.podtopologyspread import TSAux
@@ -1246,7 +1248,7 @@ def spread_case(name: str, gen, dev, *, c=4, cc=1, n=8192, p=8192, b=512, d=8, n
     hard_present = (rnd(c, cc, d + 1) < 0.8)
     hard_present[..., n_dom:] = False
     aux = TSAux(
-        hard_valid=rnd(c, cc) < 0.8,
+        hard_valid=rnd(c, cc) < hard,
         soft_valid=(rnd(c, cc) < 0.8) if soft else torch.zeros((c, cc), dtype=torch.bool),
         max_skew=torch.randint(1, 4, (c, cc), generator=gen, dtype=torch.int32),
         min_domains=torch.full((c, cc), min_domains, dtype=torch.int32),
@@ -1277,7 +1279,8 @@ def check_spread_kernels(dev) -> dict:
     every domain empty, nodes without the key, minDomains above the present
     domains, a row whose raw scores are all 0 (max 0), ignored (NaN) nodes,
     five domains with counts of 379 and 4927 under maxSkew 1, 3 and 64
-    domains, one and two constraints — every output exactly equal."""
+    domains, one and two constraints, hostname tables, one row (C = 1) whose
+    filter clears bits — every output exactly equal."""
     import torch
 
     from kubernetes_tpu_torch.kernels import spread as K
@@ -1294,6 +1297,16 @@ def check_spread_kernels(dev) -> dict:
         spread_case("no soft constraint", gen, dev, soft=False, cc=2),
         spread_case("no feasible node", gen, dev, mask_frac=0.0),
         spread_case("N = 1001 (scalar loads), 2 constraints", gen, dev, n=1001, cc=2),
+        spread_case("hostname bucket (D + 1 = 8193), 2 constraints", gen, dev, cc=2, d=8192,
+                    n_dom=5000, keyless=0.1),
+        spread_case("hostname bucket, minDomains above present (counts 1 / 2)", gen, dev,
+                    d=8192, n_dom=5000, min_domains=4500, counts=[1, 2]),
+        spread_case("hostname bucket, N = 1001 (scalar loads, one block)", gen, dev, n=1001,
+                    d=8192, n_dom=900, min_domains=800, counts=[3, 5]),
+        spread_case("C = 1 (the scan's step), keyless nodes", gen, dev, c=1, keyless=0.2,
+                    hard=1.0),
+        spread_case("C = 1, hostname bucket", gen, dev, c=1, d=8192, n_dom=5000, keyless=0.1,
+                    hard=1.0),
     ]
     err = {k: 0.0 for k in ("spread_prepare_counts", "spread_filter_bits",
                             "spread_score_combine", "spread_update_classes")}
@@ -1341,8 +1354,38 @@ def check_spread_kernels(dev) -> dict:
         fail("spread check: the 379-count case did not score round(379 · log 7) = 738")
     if not bool(torch.isnan(K.spread_raw_plane(cases[2]["aux"])).any()):
         fail("spread check: the keyless case produced no ignored (NaN) node")
+    md = cases[11]["aux"]
+    if torch.equal(K.spread_filter_plane(md), K.spread_filter_plane(md, False)):
+        fail("spread check: minDomains changed no verdict on the hostname bucket")
+    for cs in cases[13:]:  # a kernel that stores nothing differs from the plain version
+        if torch.equal(K.spread_filter_bits_plain(cs["aux"], cs["bits"].clone(), 3), cs["bits"]):
+            fail(f"spread check: the filter cleared no bit in the case {cs['name']}")
+    k6_plan_check()
     log(f"spread kernels vs plain: all equal over {len(cases)} cases")
     return err
+
+
+def k6_plan_check() -> None:
+    """K6's plan in csrc/spread.cu (``spread_filter_plan``) equal to the copy
+    in ``kernel_work.k6_plan`` that the CPU mirror walks."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels.build import load
+
+    fn = load("spread").spread_filter_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 4)()
+    differ = []
+    for n, d1, vec in itertools.product((1, 31, 500, 1001, 1024, 1025, 5000, 8192, 131072),
+                                        (9, 33, 65, 8193), (1, 4)):
+        fn(n, d1, vec, out)
+        if tuple(out) != KW.k6_plan(n, d1, vec):
+            differ.append((n, d1, vec, tuple(out), KW.k6_plan(n, d1, vec)))
+    if differ:
+        fail(f"spread_filter_plan differs from kernel_work.k6_plan: {differ[:4]}")
+    else:
+        log("spread_filter_bits: the kernel's plan equals kernel_work.k6_plan")
 
 
 # --- phase 2: K9–K12 vs plain -------------------------------------------------------------
@@ -2085,6 +2128,16 @@ def check_scan_kernels(dev) -> dict:
             "spread_update_classes (C = 512, identity classes)",
             [("hard_counts", ka.hard_counts, pa.hard_counts),
              ("soft_counts", ka.soft_counts, pa.soft_counts)]))
+    # K6 at C = 512 on a hostname bucket: a row's table split across a cluster
+    hcs = full_rows_spread_case("K6, C = 512, hostname bucket", gen, dev, d=8192, n_dom=5000,
+                                keyless=0.1)
+    kb, pb = hcs["bits"].clone(), hcs["bits"].clone()
+    KSp.spread_filter_bits(hcs["aux"], kb, 3)
+    KSp.spread_filter_bits_plain(hcs["aux"], pb, 3)
+    torch.cuda.synchronize()
+    reuse["spread_filter_bits"] = max(reuse["spread_filter_bits"], require_equal(
+        "spread_filter_bits (C = 512, hostname bucket)", [("bits", kb, pb)]))
+    del hcs
     for cs in ipa_full[:2]:
         ident = torch.arange(b, device=dev)
         for label, aux, bits, total in (
@@ -2125,13 +2178,17 @@ class KernelArgs:
     """Kernel wrappers, wrapped where the path looks them up: keeps the
     arguments of the latest call of each (under ``key(name, args)``, by
     default its name) where its ``keep(args)`` holds, for timing at the
-    path's shapes.  ``install()`` wraps them for the rest of the run; as a
-    context manager it wraps them for the ``with`` block."""
+    path's shapes.  Of the names in ``seeded`` (kernels that update their
+    second argument in place) it keeps that argument as a copy taken before
+    the call: the plane as the path handed it over.  ``install()`` wraps
+    them for the rest of the run; as a context manager it wraps them for
+    the ``with`` block."""
 
-    def __init__(self, targets, key=None):
+    def __init__(self, targets, key=None, seeded=()):
         # name → (module, attribute, keep or None)
         self.targets = targets
         self.key = key or (lambda name, args: name)
+        self.seeded = frozenset(seeded)
         self.last = {}
         self._saved = []
 
@@ -2155,7 +2212,8 @@ class KernelArgs:
     def _wrap(self, name, fn, keep):
         def wrapped(*args, **kw):
             if keep is None or keep(args):
-                self.last[self.key(name, args)] = (args, kw)
+                kept = (args[0], args[1].clone(), *args[2:]) if name in self.seeded else args
+                self.last[self.key(name, args)] = (kept, kw)
             return fn(*args, **kw)
 
         return wrapped
@@ -3527,12 +3585,18 @@ def time_spread_kernels(sched, err: dict) -> list:
     work_aux = plug.engine_copy(aux)
     rows = []
 
-    def row(name, symbol, fn, plain_fn, n_bytes, n_ops):
+    def row(name, symbol, fn, plain_fn, n_bytes, n_ops, device_fn=None, less=None):
+        # device_fn: what the device time is taken on, when not fn; less: the
+        # call it begins with, taken off when the queued-events fallback
+        # timed the two together
         least, bound_by = bound_ms(n_bytes, n_ops)
+        ms = device_ms(device_fn or fn, symbol)
+        if less is not None and MS_SOURCE[0] != "profiler":
+            ms -= queued_device_ms(less)
         rows.append({
             "name": name, "route": "cuda", "source": "kubernetes_tpu_torch/csrc/spread.cu",
             "replaces": SPREAD_REPLACES[name], "launches": None, "max_abs_err": err[name],
-            "ms": device_ms(fn, symbol), "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
+            "ms": ms, "ms_source": MS_SOURCE[0], "call_ms": time_ms(fn),
             "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
             "bound_ms": least, "bound_by": bound_by, "library_ms": None,
             "bytes": n_bytes, "ops": n_ops,
@@ -3552,18 +3616,26 @@ def time_spread_kernels(sched, err: dict) -> list:
         lambda: K.spread_prepare_counts(*a5), lambda: K.spread_prepare_counts_plain(*a5),
         nbytes(match_sched, aux.dom_val, aux.counted_hard) + 4 * int(matched.any(dim=0).sum())
         + int(hit_nodes.sum()) + 9 * c * cc * d1, 4 * n_match + c * cc * n)
-    # K6: the hard tables and the per-constraint scalars read once, dom_val
-    # and has_key for the hard constraints' rows; the bit plane read and
-    # written only where the filter fails; per (hard row, node) a gather, an
-    # add, two compares
-    n_hard = int(aux.hard_valid.sum())
-    n_fail = int((~K.spread_filter_plane(aux)).sum())
+    # K6 on the plane as K1 seeded it, as the path hands it over: each timed
+    # call copies it in first and only the kernel's device time counts
+    # (k6_work on that plane); ms_filtered on a plane it already filtered
+    # (no word changes); one device activity a call
+    def reseed():
+        work_bits.copy_(seeded)
+
+    def seeded_k6():
+        reseed()
+        K.spread_filter_bits(aux, work_bits, bit)
+
     row("spread_filter_bits", "spread_filter_kernel",
         lambda: K.spread_filter_bits(aux, work_bits, bit),
-        lambda: K.spread_filter_bits_plain(aux, work_bits.clone(), bit),
-        nbytes(aux.hard_counts, aux.hard_present, aux.hard_valid, aux.max_skew,
-               aux.min_domains, aux.self_match) + n_hard * n * 5 + 8 * n_fail,
-        4 * n_hard * n + c * cc * d1)
+        lambda: K.spread_filter_bits_plain(aux, seeded.clone(), bit),
+        *KW.k6_work(aux, seeded, bit), device_fn=seeded_k6, less=reseed)
+    rows[-1]["ms_filtered"] = device_ms(lambda: K.spread_filter_bits(aux, work_bits, bit),
+                                        "spread_filter_kernel")
+    one_device_activity("spread_filter_bits (TopologySpreading, C = 4)",
+                        lambda: K.spread_filter_bits(aux, work_bits, bit),
+                        "spread_filter_kernel", "spread_filter_bits")
     # K7 (k7_work), one device activity a call
     row("spread_score_combine", "spread_score_kernel",
         lambda: K.spread_score_combine(aux, bits, full, work_total, weight),
@@ -5888,11 +5960,11 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 
 # kernels already redesigned for Hopper in the port's step 2 (every row of
 # theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13, K1, K11,
-# K12 and K17 (keyless and keyed)
+# K12, K17 (keyless and keyed), K6 and K18
 REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
               "ipa_update_row", "spread_score_combine", "prev_delta_apply",
               "filter_score_planes", "ipa_score_combine", "ipa_update_classes",
-              "scan_select_assume")
+              "scan_select_assume", "spread_filter_bits", "spread_update_row")
 
 
 def step2_order(rows: list) -> dict:
@@ -7072,6 +7144,8 @@ ENGINE_CARRIER = {
     "filter_score_planes (C = 1)": "TopologySpreading scan",
     "normalize_combine (C = 1)": "TopologySpreading scan",
     "spread_score_combine (C = 1)": "TopologySpreading scan",
+    "spread_filter_bits (C = 1)": "TopologySpreading scan",
+    "spread_filter_bits (C = 512)": "TopologySpreading priority 10, full auction",
     "topk_rows (C = 512)": "heterogeneous backlog",
     "auction_resolve_commit (C = 512)": "heterogeneous backlog",
     "ipa_update_classes (C = 512)": "SchedulingPodAntiAffinity priority 10",
@@ -7109,7 +7183,8 @@ def scan_recorder():
                                                 one_plugin_row),
                        "ipa_filter_bits": (IPA_PLUGIN, "ipa_filter_bits", one_plugin_row),
                        "ipa_score_combine": (IPA_PLUGIN, "ipa_score_combine",
-                                             one_plugin_row)})
+                                             one_plugin_row)},
+                      seeded=("spread_filter_bits",))
 
 
 def b9_row_bounds(spread_calls: dict, ipa_calls: dict) -> dict:
@@ -7119,7 +7194,6 @@ def b9_row_bounds(spread_calls: dict, ipa_calls: dict) -> dict:
     step (B9) — by the formulas of time_kernels, time_spread_kernels and
     time_ipa_kernels at C = 1: name → {bytes, ops, bound_ms, bound_by}."""
     from kubernetes_tpu_torch.kernels import interpodaffinity as KI
-    from kubernetes_tpu_torch.kernels import spread as KSp
     from kubernetes_tpu_torch.kernels.filter_score import filter_score_planes
     from kubernetes_tpu_torch.kernels.normalize import normalize_combine
 
@@ -7139,15 +7213,9 @@ def b9_row_bounds(spread_calls: dict, ipa_calls: dict) -> dict:
     n_feas = int(feas.sum())
     work["normalize_combine"] = (nbytes(bits2, total, feas) + 4 * raw2.shape[0] * n_feas,
                                  n_feas * raw2.shape[0] * 4)
-    aux6, bits6 = last(spread_calls, "spread_filter_bits")[:2]
-    c, cc, d1 = aux6.hard_counts.shape
+    aux6, bits6, bit6 = last(spread_calls, "spread_filter_bits")[:3]
     n = bits6.shape[1]
-    n_hard = int(aux6.hard_valid.sum())
-    n_fail = int((~KSp.spread_filter_plane(aux6)).sum())
-    work["spread_filter_bits"] = (
-        nbytes(aux6.hard_counts, aux6.hard_present, aux6.hard_valid, aux6.max_skew,
-               aux6.min_domains, aux6.self_match) + n_hard * n * 5 + 8 * n_fail,
-        4 * n_hard * n + c * cc * d1)
+    work["spread_filter_bits"] = KW.k6_work(aux6, bits6, bit6)
     work["spread_score_combine"] = k7_work(*last(spread_calls, "spread_score_combine")[:3])
     aux10, bits10 = last(ipa_calls, "ipa_filter_bits")[:2]
     n10 = bits10.shape[1]
@@ -7176,7 +7244,10 @@ def full_recorder():
                                              lambda a: a[1].shape[0] == 512),
                        "spread_update_classes": (SPREAD_PLUGIN, "spread_update_classes",
                                                  lambda a: a[0].match_pending.shape[0]
-                                                 == 512)})
+                                                 == 512),
+                       "spread_filter_bits": (SPREAD_PLUGIN, "spread_filter_bits",
+                                              lambda a: a[1].shape[0] == 512)},
+                      seeded=("spread_filter_bits",))
 
 
 SCAN_REPLACES = {
@@ -7225,9 +7296,15 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
     iplug = InterPodAffinityPlugin()
 
     def row(name, label, src, replaces, symbol, fn, plain_fn, n_bytes, n_ops, shape,
-            max_err, library_fn=None):
+            max_err, library_fn=None, device_fn=None, less=None):
+        # device_fn: what the device time is taken on, when not fn; less: the
+        # call it begins with, taken off when the queued-events fallback
+        # timed the two together
         least, bound_by = bound_ms(n_bytes, n_ops)
-        ms, libs, source = ms_one_method(fn, symbol, *([library_fn] if library_fn else []))
+        ms, libs, source = ms_one_method(device_fn or fn, symbol,
+                                         *([library_fn] if library_fn else []))
+        if less is not None and source != "profiler":
+            ms -= queued_device_ms(less)
         rows.append({
             "name": label, "kernel": name, "symbol": symbol, "route": "cuda", "source": src,
             "replaces": replaces, "launches": None, "max_abs_err": max_err,
@@ -7256,24 +7333,24 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
         f"(1000 queued calls)")
     one_device_activity("scan_select_assume", k17, "scan_select_kernel", "scan_select_assume")
 
-    # K18: pod i's match column and, per matching row, the node's domain and
-    # counted bits; a read and a write per table add
+    # K18 (kernel_work.k18_work: pod i's match column and, per matching
+    # row, the node's domain and counted bits; a read and a write per table
+    # add), one device activity a call
     (aux, i, at), _ = scan_args["spread_update_row"]
     plug = PodTopologySpreadPlugin()
     work = plug.engine_copy(aux)
     b, cc, _bp = aux.match_pending.shape
-    node = max(int(at.reshape(-1)[0]), 0)
-    hit = aux.match_pending[:, :, i]
-    n_hit = int(hit.sum())
-    adds = int((hit & aux.counted_hard[:, node][:, None]).sum()
-               + (hit & aux.counted_soft[:, node][:, None]).sum())
+    k18 = (lambda: KSp.spread_update_row(work, i, at))
     row("spread_update_row", "spread_update_row", SCAN_SOURCES["spread_update_row"],
-        SCAN_REPLACES["spread_update_row"], "spread_update_row_kernel",
-        lambda: KSp.spread_update_row(work, i, at),
+        SCAN_REPLACES["spread_update_row"], "spread_update_row_kernel", k18,
         lambda: KSp.spread_update_row_plain(plug.engine_copy(aux), i, at),
-        4 + b * cc + n_hit * 4 + 2 * b + 8 * adds, b * cc,
-        {"B": b, "Cc": cc, "N": aux.dom_val.shape[-1], "D+1": aux.hard_counts.shape[-1]},
+        *KW.k18_work(aux, i, at),
+        {"B": b, "Cc": cc, "N": aux.dom_val.shape[-1], "D+1": aux.hard_counts.shape[-1],
+         "node": int(at.reshape(-1)[0])},
         err["spread_update_row"])
+    rows[-1]["host_us"] = host_issue_us(k18)
+    one_device_activity("spread_update_row", k18, "spread_update_row_kernel",
+                        "spread_update_row")
 
     # K19, per count form: per pending row (j, t) pod i matches, the domain
     # at the node, and for planes the row's dom and count read and the
@@ -7407,6 +7484,43 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
     one_device_activity("spread_score_combine (C = 1)",
                         lambda: KSp.spread_score_combine(aux7, bits7, full7, work7, weight7),
                         "spread_score_kernel", "spread_score_combine")
+    # K6 on one pod's row (the TopologySpreading scan's latest step) and at
+    # C = 512 (the spread full auction's latest round), on the plane as the
+    # path handed it over (the recorder's copy from before the call): each
+    # timed call copies it in first and only the kernel's device time
+    # counts; k6_work on that plane; ms_filtered on a plane K6 already
+    # filtered (no word changes); cleared, the bits the filter took off
+    for label, key, args6 in (
+            ("spread_filter_bits (C = 1)", "spread_filter_bits", scan_args["spread_filter_bits"]),
+            ("spread_filter_bits (C = 512)", "spread_filter_bits",
+             full_args["spread_filter_bits"])):
+        (aux6, bits6, bit6, md6), _ = args6
+        kb6, pb6 = bits6.clone(), bits6.clone()
+        KSp.spread_filter_bits(aux6, kb6, bit6, md6)
+        KSp.spread_filter_bits_plain(aux6, pb6, bit6, md6)
+        err6 = require_equal(f"{label}, path shapes", [("bits", kb6, pb6)])
+        cleared = int((kb6 != bits6).sum())
+        work6 = bits6.clone()
+
+        def reseed(w_=work6, s_=bits6):
+            w_.copy_(s_)
+
+        def seeded6(a_=aux6, w_=work6, b_=bit6, m_=md6, r_=reseed):
+            r_()
+            KSp.spread_filter_bits(a_, w_, b_, m_)
+
+        call6 = (lambda a_=aux6, w_=work6, b_=bit6, m_=md6: KSp.spread_filter_bits(a_, w_, b_, m_))
+        row(key, label, "kubernetes_tpu_torch/csrc/spread.cu",
+            "kubernetes_tpu/plugins/podtopologyspread.py:166", "spread_filter_kernel", call6,
+            lambda a_=aux6, s_=bits6, b_=bit6, m_=md6:
+            KSp.spread_filter_bits_plain(a_, s_.clone(), b_, m_),
+            *KW.k6_work(aux6, bits6, bit6),
+            {"C": bits6.shape[0], "Cc": aux6.dom_val.shape[1], "N": bits6.shape[1],
+             "D+1": aux6.hard_counts.shape[-1], "cleared": cleared},
+            max(reuse_err["spread_filter_bits"], err6), device_fn=seeded6, less=reseed)
+        rows[-1]["ms_filtered"] = device_ms(call6, "spread_filter_kernel")
+        rows[-1]["host_us"] = host_issue_us(call6)
+        one_device_activity(label, call6, "spread_filter_kernel", "spread_filter_bits")
     # K11 on one pod's row (the SchedulingPreferredPodAffinity scan's latest
     # step) and at C = 512 (SchedulingPodAntiAffinity priority 10's latest
     # full-auction round)
@@ -8590,6 +8704,8 @@ def main() -> None:
         recorders["SchedulingPreferredPodAffinity scan"].last["ipa_score_combine"]
     full_args["spread_update_classes"] = \
         recorders["TopologySpreading priority 10, full auction"].last["spread_update_classes"]
+    full_args["spread_filter_bits"] = \
+        recorders["TopologySpreading priority 10, full auction"].last["spread_filter_bits"]
     engine_rows = time_engine_kernels(scan_args, full_args, err, reuse_err, dev)
     record["round_kernels_method"] = time_round_kernels(rows + engine_rows + ext_rows)
     record["extender_programs"] = time_extender_programs(ns["sched"], err)

@@ -19,9 +19,24 @@
 //   pod→node one-hot, 268 MB of float32 at P = N = 8192), and one thread per
 //   (constraint row, node) marks the present domains.  Bound: bytes (the
 //   match plane and dom_val, read once).
-// K6 spread_filter_bits: one thread per (class row, node); each block first
-//   reduces the row's minimum over present domains in shared memory.
-//   Clears the filter's bit in K1's pass-bit plane in place.  Bound: bytes.
+// K6 spread_filter_bits: clears the filter's bit in K1's pass-bit plane in
+//   place.  Bound: bytes (the tables once, dom_val / has_key of the hard
+//   constraints, the bits where the filter fails); at C = 1–4 latency.  One
+//   pass: each thread issues its 4-node vector's loads (bits, every
+//   constraint's dom_val and has_key) at entry, before any barrier.  The
+//   test matchNum + selfMatch − min ≤ maxSkew depends only on the domain, so
+//   it is built once per (constraint, domain) as a bitmap and a node's test
+//   is its key and one bit.  Up to 32 domains (a zone
+//   key) every warp loads the row's tables and scalars with its node loads
+//   and builds each constraint's word in registers with warp reductions and
+//   a ballot: no barrier at all.  Above (a hostname key, up to 8193) the
+//   words live in shared memory and a row's blocks form a cluster of up to 8
+//   (cudaLaunchKernelEx) that split the table by whole verdict words: past
+//   a first cluster barrier every block reads the others' partial minima
+//   and present counts through distributed shared memory and pushes its
+//   words (from the counts its reduction loaded, kept in registers) into
+//   every block, a second barrier before they are read.  A bit
+//   vector is written back only where a word changes.
 // K7 spread_score_combine: score + normalize + the weighted floor into K2's
 //   total.  Bound: bytes (the bit plane read once, the total read and
 //   written on feasible nodes, has_key / dom_val of the soft constraints).
@@ -54,7 +69,16 @@
 //   matches pod i: one add at the node's domain (the trash slot for a
 //   keyless node, as the reference's point scatter) where the node counts
 //   for j.  No one-hot, no host read.  Bound: latency (B · Cc threads, the
-//   match column read once).
+//   match column read once).  The node's load cannot be avoided; after it
+//   one round trip carries the match byte with the node's domain and
+//   counted flags, and the add is an atomic add that nothing waits on, in
+//   place of the read-modify-write: two dependent round trips where there
+//   were four.  (Loading the row's table rows with the node, to store
+//   count + 1 from registers, was measured slower than the old kernel: 18
+//   strided loads a thread; loading the match byte with the node made a
+//   step whose node is −1 wait on it.)  The match column stays strided
+//   (Bp bytes apart): one round trip either way, and a transposed copy
+//   would cost a launch and an aux field each batch.
 //
 // Numerics (built with --fmad=false): the score term is cnt · w + (maxSkew −
 // 1) as a rounded multiply then a rounded add, summed over the constraints in
@@ -72,38 +96,6 @@ namespace cg = cooperative_groups;
 #define MAX_CC 8
 #define BIG (1 << 30)
 #define MAX_NODE_SCORE 100.0f
-
-// --- block reductions (blockDim.x a multiple of 32, at most 1024) ---------------
-
-__device__ __forceinline__ int block_min_int(int v, int* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v = min(v, __shfl_down_sync(0xffffffff, v, off));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int r = scratch[0];
-    for (int w = 1; w < (int)(blockDim.x / 32); ++w) r = min(r, scratch[w]);
-    scratch[0] = r;
-  }
-  __syncthreads();
-  return scratch[0];
-}
-
-__device__ __forceinline__ int block_sum_int(int v, int* scratch) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffff, v, off);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int r = 0;
-    for (int w = 0; w < (int)(blockDim.x / 32); ++w) r += scratch[w];
-    scratch[0] = r;
-  }
-  __syncthreads();
-  return scratch[0];
-}
 
 // --- K5 -----------------------------------------------------------------------------
 
@@ -156,98 +148,7 @@ extern "C" int launch_spread_prepare(int C, int Cc, int P, int N, int D1,
   return (int)cudaGetLastError();
 }
 
-// --- K6 -----------------------------------------------------------------------------
-
-#define FILTER_THREADS 256
-
-__global__ void __launch_bounds__(FILTER_THREADS) spread_filter_kernel(int C, int Cc, int N, int D1,
-                                     const int32_t* __restrict__ counts,  // [C, Cc, D1]
-                                     const uint8_t* __restrict__ present,  // [C, Cc, D1]
-                                     const uint8_t* __restrict__ hard_valid,  // [C, Cc]
-                                     const int32_t* __restrict__ max_skew,  // [C, Cc]
-                                     const int32_t* __restrict__ min_domains,  // [C, Cc]
-                                     const uint8_t* __restrict__ self_match,  // [C, Cc]
-                                     const int32_t* __restrict__ dom_val,  // [C, Cc, N]
-                                     const uint8_t* __restrict__ has_key,  // [C, Cc, N]
-                                     int enable_min_domains, int bit,
-                                     int32_t* __restrict__ bits) {  // [C, N]
-  __shared__ int scratch[FILTER_THREADS / 32];
-  __shared__ int s_min[MAX_CC];
-  const int c = blockIdx.y;
-  // the row's global minimum over present domains, per constraint
-  for (int k = 0; k < Cc; ++k) {
-    const long long o = (long long)(c * Cc + k) * D1;
-    int m = BIG, cnt = 0;
-    for (int d = threadIdx.x; d < D1; d += blockDim.x) {
-      if (present[o + d]) {
-        m = min(m, counts[o + d]);
-        cnt += 1;
-      }
-    }
-    m = block_min_int(m, scratch);
-    cnt = block_sum_int(cnt, scratch);
-    if (threadIdx.x == 0) {
-      const int md = min_domains[c * Cc + k];
-      if (enable_min_domains && md > 0 && cnt < md) m = 0;
-      s_min[k] = m;
-    }
-    __syncthreads();
-  }
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  bool ok = true;
-  for (int k = 0; k < Cc; ++k) {
-    const int ck = c * Cc + k;
-    if (!hard_valid[ck]) continue;
-    const long long on = (long long)ck * N + n;
-    const int dv = dom_val[on];
-    const int skew = counts[(long long)ck * D1 + dv] + (self_match[ck] ? 1 : 0) - s_min[k];
-    if (!(has_key[on] && skew <= max_skew[ck])) ok = false;
-  }
-  if (!ok) bits[(long long)c * N + n] &= ~(1 << bit);
-}
-
-extern "C" int launch_spread_filter(int C, int Cc, int N, int D1, const void* counts,
-                                    const void* present, const void* hard_valid,
-                                    const void* max_skew, const void* min_domains,
-                                    const void* self_match, const void* dom_val,
-                                    const void* has_key, int enable_min_domains, int bit,
-                                    void* bits, void* stream) {
-  if (Cc > MAX_CC) return (int)cudaErrorInvalidValue;
-  if (C <= 0 || N <= 0) return 0;
-  dim3 grid((N + FILTER_THREADS - 1) / FILTER_THREADS, C);
-  spread_filter_kernel<<<grid, FILTER_THREADS, 0, (cudaStream_t)stream>>>(
-      C, Cc, N, D1, (const int32_t*)counts, (const uint8_t*)present,
-      (const uint8_t*)hard_valid, (const int32_t*)max_skew, (const int32_t*)min_domains,
-      (const uint8_t*)self_match, (const int32_t*)dom_val, (const uint8_t*)has_key,
-      enable_min_domains, bit, (int32_t*)bits);
-  return (int)cudaGetLastError();
-}
-
-// --- K7 -----------------------------------------------------------------------------
-
-#define SCORE_MAX_THREADS 512
-#define SCORE_ITEMS 4          // vectors a thread keeps in registers
-#define SCORE_MAX_CLUSTER 8
-#define SCORE_WORDS 257        // a constraint's present-domain bits: D + 1 ≤ 8193
-
-struct ScoreRow {
-  int C, Cc, N, D1, full;
-  const int32_t* bits;        // [C, N]
-  const int32_t* counts;      // [C, Cc, D1] soft counts
-  const uint8_t* soft_valid;  // [C, Cc]
-  const int32_t* max_skew;    // [C, Cc]
-  const int32_t* dom_val;     // [C, Cc, N]
-  const uint8_t* has_key;     // [C, Cc, N]
-};
-
-// the launch's shape, a kernel parameter: CL blocks a row (a thread-block
-// cluster when CL > 1), block r of a row taking the nodes [r S, (r + 1) S)
-struct ScorePlan {
-  int CL;
-  int S;
-  float weight;
-};
+// --- shared by K6, K7 and K18 ------------------------------------------------------
 
 __device__ __forceinline__ void cluster_arrive_release() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
@@ -275,6 +176,425 @@ __device__ __forceinline__ unsigned ld_flags(const uint8_t* p) {
     return __ldg(p) ? 1u : 0u;
   }
 }
+
+// loads issued where they stand: a volatile asm is neither dropped nor sunk
+// into the one branch that uses its result, so a prefetch stays a prefetch
+// across an early exit or a barrier
+template <int VEC>
+__device__ __forceinline__ void ld_early_i32(const int32_t* p, int (&o)[VEC]) {
+  if constexpr (VEC == 4) {
+    asm volatile("ld.global.v4.s32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(o[0]), "=r"(o[1]), "=r"(o[2]), "=r"(o[3]) : "l"(p));
+  } else {
+    asm volatile("ld.global.s32 %0, [%1];" : "=r"(o[0]) : "l"(p));
+  }
+}
+
+// VEC bool bytes → bit e set where byte e is not 0
+template <int VEC>
+__device__ __forceinline__ unsigned ld_early_flags(const uint8_t* p) {
+  unsigned v;
+  if constexpr (VEC == 4) {
+    asm volatile("ld.global.u32 %0, [%1];" : "=r"(v) : "l"(p));
+    return ((v & 0xffu) ? 1u : 0u) | ((v & 0xff00u) ? 2u : 0u) | ((v & 0xff0000u) ? 4u : 0u) |
+           ((v & 0xff000000u) ? 8u : 0u);
+  } else {
+    asm volatile("ld.global.u8 %0, [%1];" : "=r"(v) : "l"(p));
+    return v ? 1u : 0u;
+  }
+}
+
+static bool aligned_to(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0; }
+
+// --- K6 -----------------------------------------------------------------------------
+
+#define FILTER_THREADS 256
+#define FILTER_MAX_CLUSTER 8
+#define FILTER_WORDS 257    // a constraint's verdict bits: D + 1 ≤ 8193 (TOPO_LOG_MAX + 1)
+#define FILTER_SMALL_D1 32  // a table whose verdict is one word: one warp builds it
+#define FILTER_PRE 5        // a large table's verdict words a warp builds from registers
+
+struct FilterRow {
+  int C, Cc, N, D1, enable_min_domains, bit;
+  const int32_t* counts;       // [C, Cc, D1] hard counts
+  const uint8_t* present;      // [C, Cc, D1]
+  const uint8_t* hard_valid;   // [C, Cc]
+  const int32_t* max_skew;     // [C, Cc]
+  const int32_t* min_domains;  // [C, Cc]
+  const uint8_t* self_match;   // [C, Cc]
+  const int32_t* dom_val;      // [C, Cc, N]
+  const uint8_t* has_key;      // [C, Cc, N]
+  int32_t* bits;               // [C, N], updated in place
+};
+
+// the launch's shape, a kernel parameter: NB blocks a row, block r taking
+// the nodes [r · threads · VEC, (r + 1) · threads · VEC), one vector a
+// thread; above FILTER_SMALL_D1 domains, CL consecutive blocks of a row (a
+// thread-block cluster when CL > 1) split the table, block q building the
+// verdict words [q WS, (q + 1) WS) of every hard constraint
+struct FilterPlan {
+  int NB;
+  int CL;
+  int WS;
+};
+
+// a constraint's scalars: minDomains, selfMatch (0 / 1) and maxSkew
+struct FilterScalars {
+  int md, sf, ms;
+};
+
+__device__ __forceinline__ FilterScalars filter_scalars(const FilterRow& r, size_t ck) {
+  int md[1], ms[1];
+  ld_early_i32<1>(r.min_domains + ck, md);
+  ld_early_i32<1>(r.max_skew + ck, ms);
+  return {md[0], (int)ld_early_flags<1>(r.self_match + ck), ms[0]};
+}
+
+// the constraint's global minimum over present domains (BIG when none is
+// present), lowered to 0 where minDomains asks for more domains than are
+// present: the reference's min_match
+__device__ __forceinline__ int filter_min(const FilterRow& r, const FilterScalars& f, int m,
+                                          int n_present) {
+  return (r.enable_min_domains && f.md > 0 && n_present < f.md) ? 0 : m;
+}
+
+// a domain's verdict: matchNum + selfMatch − min ≤ maxSkew
+__device__ __forceinline__ bool filter_ok(const FilterScalars& f, int count, int mn) {
+  return count + f.sf - mn <= f.ms;
+}
+
+// grid: C rows of NB consecutive blocks (clusters of CL when CL > 1);
+// LARGE: a table above FILTER_SMALL_D1 domains (its own kernel, so that the
+// small form keeps its own registers)
+template <int VEC, int KMAX, bool LARGE>
+__global__ void __launch_bounds__(FILTER_THREADS)
+spread_filter_kernel(FilterRow r, const FilterPlan plan) {
+  __shared__ uint32_t s_verdict[MAX_CC * FILTER_WORDS];
+  __shared__ int s_wmin[FILTER_THREADS / 32][KMAX], s_wcnt[FILTER_THREADS / 32][KMAX];
+  __shared__ int s_pmin[KMAX], s_pcnt[KMAX];
+  __shared__ FilterScalars s_f[KMAX];
+
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = nt >> 5;
+  const int c = blockIdx.x / plan.NB, blk = blockIdx.x % plan.NB;
+  const int CL = plan.CL, rank = blk % CL;
+  const int Cc = r.Cc, D1 = r.D1;
+  const size_t ck0 = (size_t)c * Cc;
+  const int n = (blk * nt + tid) * VEC;
+  const bool mine = n < r.N;
+
+  // --- the node loads first, before any barrier: the bit vector, and every
+  // constraint's domains and key flags (a soft constraint's too: the hard
+  // flags are not known yet) ---------------------------------------------------
+  int b[VEC];
+  int dv[KMAX][VEC];
+  unsigned hk[KMAX];
+  if (mine) {
+    ld_early_i32<VEC>(r.bits + (size_t)c * r.N + n, b);
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < Cc) {
+        ld_early_i32<VEC>(r.dom_val + (ck0 + k) * r.N + n, dv[k]);
+        hk[k] = ld_early_flags<VEC>(r.has_key + (ck0 + k) * r.N + n);
+      }
+    }
+  }
+  // with them the row's hard flags, and on a small table every
+  // constraint's scalars and one domain a lane (every warp loads them)
+  unsigned hard = 0;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+    if (k < Cc && ld_early_flags<1>(r.hard_valid + ck0 + k)) hard |= 1u << k;
+  constexpr bool small = !LARGE;
+  FilterScalars fk[KMAX];
+  int cnt[KMAX][1];
+  unsigned pres[KMAX];
+  if constexpr (small) {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      cnt[k][0] = 0;
+      pres[k] = 0;
+      if (k < Cc) {
+        fk[k] = filter_scalars(r, ck0 + k);
+        if (lane < D1) {
+          ld_early_i32<1>(r.counts + (ck0 + k) * D1 + lane, cnt[k]);
+          pres[k] = ld_early_flags<1>(r.present + (ck0 + k) * D1 + lane);
+        }
+      }
+    }
+  } else if (tid < Cc) {
+    fk[0] = filter_scalars(r, ck0 + tid);
+  }
+  if (!hard) return;  // no hard constraint in the row: the filter passes everywhere
+
+  const int W = (D1 + 31) >> 5;
+  uint32_t word[KMAX];
+  if constexpr (small) {
+    // --- a small table (a zone key: D + 1 = 9): every warp builds each hard
+    // constraint's verdict word in registers from one lane a domain, the
+    // minimum and the present count by warp reductions, the verdict by a
+    // ballot: no barrier ---------------------------------------------------------
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      word[k] = 0;
+      if (k < Cc && ((hard >> k) & 1u)) {
+        const bool p = pres[k];
+        const int m = __reduce_min_sync(0xffffffffu, p ? cnt[k][0] : BIG);
+        const int mn = filter_min(r, fk[k], m, __popc(__ballot_sync(0xffffffffu, p)));
+        word[k] = __ballot_sync(0xffffffffu, lane < D1 && filter_ok(fk[k], cnt[k][0], mn));
+      }
+    }
+  } else {
+    if (tid < Cc) s_f[tid] = fk[0];  // read after the first barrier below
+    // --- a large table (a hostname key: D + 1 up to 8193): the cluster's
+    // blocks each reduce a slice of whole verdict words; past a cluster
+    // barrier every block reads the others' partial minima and present
+    // counts through distributed shared memory, then builds its slice's
+    // words and pushes them into every block of the cluster (CL = 1: the
+    // block does all of it) -------------------------------------------------------
+    const int w_lo = min(rank * plan.WS, W), w_hi = min(w_lo + plan.WS, W);
+    const int d_lo = w_lo * 32, d_hi = min(w_hi * 32, D1);
+    // a thread's first FILTER_PRE domains of the slice (d_lo + tid + i nt)
+    // are the lanes of its warp's first FILTER_PRE verdict words (w_lo +
+    // warp + i nw): their counts, loaded for the reduction, stay in
+    // registers for the verdict
+    int m[KMAX], np[KMAX], pre[KMAX][FILTER_PRE];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      m[k] = BIG;
+      np[k] = 0;
+      if (k < Cc && ((hard >> k) & 1u)) {
+        const size_t o = (ck0 + k) * D1;
+#pragma unroll
+        for (int i = 0; i < FILTER_PRE; ++i) {
+          const int d = d_lo + tid + i * nt;
+          pre[k][i] = 0;
+          if (d < d_hi) {
+            pre[k][i] = __ldg(r.counts + o + d);
+            if (__ldg(r.present + o + d)) {
+              m[k] = min(m[k], pre[k][i]);
+              np[k] += 1;
+            }
+          }
+        }
+#pragma unroll 4
+        for (int d = d_lo + tid + FILTER_PRE * nt; d < d_hi; d += nt) {
+          const int x = __ldg(r.counts + o + d);
+          if (__ldg(r.present + o + d)) {
+            m[k] = min(m[k], x);
+            np[k] += 1;
+          }
+        }
+      }
+      m[k] = __reduce_min_sync(0xffffffffu, m[k]);
+      np[k] = __reduce_add_sync(0xffffffffu, np[k]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        s_wmin[warp][k] = m[k];
+        s_wcnt[warp][k] = np[k];
+      }
+    }
+    __syncthreads();
+    if (tid < Cc) {
+      int mm = BIG, cc = 0;
+      for (int w = 0; w < nw; ++w) {
+        mm = min(mm, s_wmin[w][tid]);
+        cc += s_wcnt[w][tid];
+      }
+      s_pmin[tid] = mm;
+      s_pcnt[tid] = cc;
+    }
+    // no block touches another's shared memory before this barrier: past
+    // it every block of the cluster runs and holds its slice's partials
+    if (CL > 1) {
+      cluster_arrive_release();
+      cluster_wait_acquire();
+    } else {
+      __syncthreads();
+    }
+    // a verdict word into every block of the cluster
+    auto put = [&](int k, int w, unsigned word) {
+      if (CL > 1) {
+        if (lane < CL) *cg::this_cluster().map_shared_rank(&s_verdict[k * W + w], lane) = word;
+      } else if (lane == 0) {
+        s_verdict[k * W + w] = word;
+      }
+    };
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k >= Cc || !((hard >> k) & 1u)) continue;
+      int mm = s_pmin[k], cc = s_pcnt[k];
+      if (CL > 1) {  // lane q reads block q's partials
+        int x = BIG, y = 0;
+        if (lane < CL) {
+          cg::cluster_group cluster = cg::this_cluster();
+          x = *cluster.map_shared_rank(&s_pmin[k], lane);
+          y = *cluster.map_shared_rank(&s_pcnt[k], lane);
+        }
+        mm = __reduce_min_sync(0xffffffffu, x);
+        cc = __reduce_add_sync(0xffffffffu, y);
+      }
+      const FilterScalars f = s_f[k];
+      const int mn = filter_min(r, f, mm, cc);
+#pragma unroll
+      for (int i = 0; i < FILTER_PRE; ++i) {
+        const int w = w_lo + warp + i * nw;
+        if (w < w_hi)
+          put(k, w, __ballot_sync(0xffffffffu, w * 32 + lane < D1 && filter_ok(f, pre[k][i], mn)));
+      }
+      const int32_t* row = r.counts + (ck0 + k) * D1;
+      for (int w = w_lo + warp + FILTER_PRE * nw; w < w_hi; w += nw) {
+        const int d = w * 32 + lane;
+        put(k, w, __ballot_sync(0xffffffffu, d < D1 && filter_ok(f, __ldg(row + d), mn)));
+      }
+    }
+    if (CL > 1) {
+      cluster_arrive_release();
+      cluster_wait_acquire();  // every block holds every verdict word
+    } else {
+      __syncthreads();
+    }
+  }
+
+  // --- each node: its key and a shared-memory verdict bit per hard
+  // constraint; the bit vector written back only where a word changes ---------
+  if (!mine) return;
+  unsigned fail = 0;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= Cc || !((hard >> k) & 1u)) continue;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const int d = dv[k][e];
+      const uint32_t w = small ? word[k] : s_verdict[k * W + (d >> 5)];
+      const bool ok = ((hk[k] >> e) & 1u) && (unsigned)d < (unsigned)D1 && ((w >> (d & 31)) & 1u);
+      if (!ok) fail |= 1u << e;
+    }
+  }
+  const int m_bit = 1 << r.bit;
+  bool changed = false;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    if (((fail >> e) & 1u) && (b[e] & m_bit)) {
+      b[e] &= ~m_bit;
+      changed = true;
+    }
+  }
+  if (!changed) return;
+  int32_t* bp = r.bits + (size_t)c * r.N + n;
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<int4*>(bp) = make_int4(b[0], b[1], b[2], b[3]);
+  } else {
+    *bp = b[0];
+  }
+}
+
+// the plan: one vector a thread, threads a whole number of warps up to
+// FILTER_THREADS covering the row, as many blocks as the row needs; above
+// FILTER_SMALL_D1 domains clusters of up to 8 blocks, the
+// fewest powers of two covering a row, its block count rounded up to one
+static void filter_plan(int N, int D1, int VEC, FilterPlan* plan, int* threads) {
+  int t = ((N + VEC - 1) / VEC + 31) / 32 * 32;
+  if (t < 32) t = 32;
+  if (t > FILTER_THREADS) t = FILTER_THREADS;
+  const int nb = (N + t * VEC - 1) / (t * VEC);
+  int cl = 1;
+  if (D1 > FILTER_SMALL_D1)
+    while (cl < FILTER_MAX_CLUSTER && cl < nb) cl <<= 1;
+  const int W = (D1 + 31) / 32;
+  plan->NB = (nb + cl - 1) / cl * cl;
+  plan->CL = cl;
+  plan->WS = (W + cl - 1) / cl;
+  *threads = t;
+}
+
+// the plan as K6 takes it, for the host's copy (kernel_work.k6_plan) to be
+// held against: out = {threads, NB, CL, WS}
+extern "C" void spread_filter_plan(int N, int D1, int VEC, int* out) {
+  FilterPlan plan;
+  filter_plan(N, D1, VEC, &plan, out);
+  out[1] = plan.NB;
+  out[2] = plan.CL;
+  out[3] = plan.WS;
+}
+
+template <int VEC, int KMAX>
+static int launch_filter(const FilterRow& r, cudaStream_t stream) {
+  FilterPlan plan;
+  int threads;
+  filter_plan(r.N, r.D1, VEC, &plan, &threads);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(r.C * plan.NB));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)plan.CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = plan.CL > 1 ? 1 : 0;
+  cudaError_t e = r.D1 > FILTER_SMALL_D1
+                      ? cudaLaunchKernelEx(&cfg, spread_filter_kernel<VEC, KMAX, true>, r, plan)
+                      : cudaLaunchKernelEx(&cfg, spread_filter_kernel<VEC, KMAX, false>, r, plan);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+static int launch_filter_k(const FilterRow& r, cudaStream_t stream) {
+  if (r.Cc == 1) return launch_filter<VEC, 1>(r, stream);
+  if (r.Cc == 2) return launch_filter<VEC, 2>(r, stream);
+  return launch_filter<VEC, MAX_CC>(r, stream);
+}
+
+extern "C" int launch_spread_filter(int C, int Cc, int N, int D1, const void* counts,
+                                    const void* present, const void* hard_valid,
+                                    const void* max_skew, const void* min_domains,
+                                    const void* self_match, const void* dom_val,
+                                    const void* has_key, int enable_min_domains, int bit,
+                                    void* bits, void* stream) {
+  if (Cc > MAX_CC || (D1 + 31) / 32 > FILTER_WORDS) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || N <= 0 || Cc <= 0) return 0;
+  FilterRow r{C, Cc, N, D1, enable_min_domains, bit, (const int32_t*)counts,
+              (const uint8_t*)present, (const uint8_t*)hard_valid, (const int32_t*)max_skew,
+              (const int32_t*)min_domains, (const uint8_t*)self_match,
+              (const int32_t*)dom_val, (const uint8_t*)has_key, (int32_t*)bits};
+  // 16-byte vectors where every row starts on a 16-byte boundary (has_key's
+  // 4-byte vectors on a 4-byte one)
+  const bool vec4 = N % 4 == 0 && aligned_to(bits, 16) && aligned_to(dom_val, 16) &&
+                    aligned_to(has_key, 4);
+  cudaStream_t s = (cudaStream_t)stream;
+  return vec4 ? launch_filter_k<4>(r, s) : launch_filter_k<1>(r, s);
+}
+
+// --- K7 -----------------------------------------------------------------------------
+
+#define SCORE_MAX_THREADS 512
+#define SCORE_ITEMS 4          // vectors a thread keeps in registers
+#define SCORE_MAX_CLUSTER 8
+#define SCORE_WORDS 257        // a constraint's present-domain bits: D + 1 ≤ 8193
+
+struct ScoreRow {
+  int C, Cc, N, D1, full;
+  const int32_t* bits;        // [C, N]
+  const int32_t* counts;      // [C, Cc, D1] soft counts
+  const uint8_t* soft_valid;  // [C, Cc]
+  const int32_t* max_skew;    // [C, Cc]
+  const int32_t* dom_val;     // [C, Cc, N]
+  const uint8_t* has_key;     // [C, Cc, N]
+};
+
+// the launch's shape, a kernel parameter: CL blocks a row (a thread-block
+// cluster when CL > 1), block r of a row taking the nodes [r S, (r + 1) S)
+struct ScorePlan {
+  int CL;
+  int S;
+  float weight;
+};
 
 // vector v of a row slice: its feasible nodes (all filter bits set) and its
 // scored ones (feasible and carrying every soft constraint's key), as masks
@@ -598,8 +918,6 @@ static void score_config(int C, int N, int VEC, ScorePlan* plan, int* threads) {
   *threads = t;
 }
 
-static bool score_aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0; }
-
 template <int VEC>
 static int launch_score(const ScoreRow& r, const float* topo_log, int topo_log_len,
                         float weight, float* total, cudaStream_t stream) {
@@ -638,8 +956,8 @@ extern "C" int launch_spread_score(int C, int Cc, int N, int D1, const void* bit
              (const int32_t*)dom_val, (const uint8_t*)has_key};
   // 16-byte vectors where every row starts on a 16-byte boundary (has_key's
   // 4-byte vectors on a 4-byte one)
-  const bool vec4 = N % 4 == 0 && score_aligned(bits, 16) && score_aligned(dom_val, 16) &&
-                    score_aligned(total, 16) && score_aligned(has_key, 4);
+  const bool vec4 = N % 4 == 0 && aligned_to(bits, 16) && aligned_to(dom_val, 16) &&
+                    aligned_to(total, 16) && aligned_to(has_key, 4);
   cudaStream_t s = (cudaStream_t)stream;
   return vec4 ? launch_score<4>(r, (const float*)topo_log, topo_log_len, weight, (float*)total, s)
               : launch_score<1>(r, (const float*)topo_log, topo_log_len, weight, (float*)total, s);
@@ -724,24 +1042,39 @@ extern "C" int launch_spread_chain(int B0, int C, int Cc, int N, int D1, const v
 
 // --- K18 ----------------------------------------------------------------------------
 
-__global__ void spread_update_row_kernel(int B, int Cc, int Bp, int N, int D1, int i,
-                                         const int32_t* __restrict__ node_at,  // pod i's node
-                                         const uint8_t* __restrict__ match_pending,  // [B, Cc, Bp]
-                                         const uint8_t* __restrict__ counted_hard,  // [B, N]
-                                         const uint8_t* __restrict__ counted_soft,  // [B, N]
-                                         const int32_t* __restrict__ dom_val,  // [B, Cc, N]
-                                         int32_t* __restrict__ hard,  // [B, Cc, D1]
-                                         int32_t* __restrict__ soft) {
+#define UPDATE_ROW_THREADS 128
+
+// one thread a (pending pod j, constraint) row: pod i's node first (below
+// 0 the thread exits after that one load, as before); then one round trip
+// for the row's match byte with the node's domain and j's counted flags;
+// a matching row adds 1 with an atomic add whose result nothing waits on
+// (no read of the count first)
+__global__ void __launch_bounds__(UPDATE_ROW_THREADS)
+spread_update_row_kernel(int B, int Cc, int Bp, int N, int D1, int i,
+                         const int32_t* __restrict__ node_at,  // pod i's node
+                         const uint8_t* __restrict__ match_pending,  // [B, Cc, Bp]
+                         const uint8_t* __restrict__ counted_hard,  // [B, N]
+                         const uint8_t* __restrict__ counted_soft,  // [B, N]
+                         const int32_t* __restrict__ dom_val,  // [B, Cc, N]
+                         int32_t* __restrict__ hard,  // [B, Cc, D1]
+                         int32_t* __restrict__ soft) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;  // j * Cc + cc
   if (row >= B * Cc) return;
-  const int n = *node_at;
-  if (n < 0) return;  // pod i was not placed: the step changes nothing
-  if (!match_pending[(long long)row * Bp + i]) return;
+  const int node = *node_at;
+  if (node < 0) return;  // pod i was not placed: the step changes nothing
+  // --- one round trip: the match byte, the node's domain (the trash slot
+  // for a keyless node) and whether the node counts for j ------------------------
+  const int n = min(node, N - 1);  // the reference clips the node row
   const int j = row / Cc;
-  const int dv = dom_val[(long long)row * N + n];  // the trash slot for a keyless node
-  // one thread owns each (j, cc) row: plain adds, no other thread writes it
-  if (counted_hard[(long long)j * N + n]) hard[(long long)row * D1 + dv] += 1;
-  if (counted_soft[(long long)j * N + n]) soft[(long long)row * D1 + dv] += 1;
+  int dv[1];
+  ld_early_i32<1>(dom_val + (size_t)row * N + n, dv);
+  const unsigned ch = ld_early_flags<1>(counted_hard + (size_t)j * N + n);
+  const unsigned cs = ld_early_flags<1>(counted_soft + (size_t)j * N + n);
+  if (!ld_early_flags<1>(match_pending + (size_t)row * Bp + i)) return;  // j's selector misses pod i
+  // one thread owns each (j, cc) row, so the atomic is not there for a race:
+  // it adds where the count is without a read that the thread would wait on
+  if (ch) atomicAdd(hard + (size_t)row * D1 + dv[0], 1);
+  if (cs) atomicAdd(soft + (size_t)row * D1 + dv[0], 1);
 }
 
 extern "C" int launch_spread_update_row(int B, int Cc, int Bp, int N, int D1, int i,
@@ -749,11 +1082,10 @@ extern "C" int launch_spread_update_row(int B, int Cc, int Bp, int N, int D1, in
                                         const void* counted_hard, const void* counted_soft,
                                         const void* dom_val, void* hard, void* soft,
                                         void* stream) {
-  if (B <= 0 || Cc <= 0) return 0;
-  const int threads = 256;
+  if (B <= 0 || Cc <= 0 || N <= 0) return 0;
   const int rows = B * Cc;
-  spread_update_row_kernel<<<(rows + threads - 1) / threads, threads, 0,
-                             (cudaStream_t)stream>>>(
+  const int blocks = (rows + UPDATE_ROW_THREADS - 1) / UPDATE_ROW_THREADS;
+  spread_update_row_kernel<<<blocks, UPDATE_ROW_THREADS, 0, (cudaStream_t)stream>>>(
       B, Cc, Bp, N, D1, i, (const int32_t*)node_at, (const uint8_t*)match_pending,
       (const uint8_t*)counted_hard, (const uint8_t*)counted_soft, (const int32_t*)dom_val,
       (int32_t*)hard, (int32_t*)soft);

@@ -204,13 +204,16 @@ def spread_filter_bits(aux, bits, bit: int, enable_min_domains: bool = True):
     i32[C, N] in place: K1 seeds ``bit`` on every live node of a valid row
     (the filter's no-constraint plane); this clears it where a hard
     constraint fails or the node lacks its key.  CPU tensors take the plain
-    version; CUDA tensors launch K6."""
+    version; CUDA tensors launch K6 once: the per-domain verdict in shared
+    memory, a hostname-sized table (above 32 domains) split across a
+    thread-block cluster of a row's blocks."""
     if not bits.is_cuda:
         return spread_filter_bits_plain(aux, bits, bit, enable_min_domains)
     c, cc, d1 = aux.hard_counts.shape
     n = bits.shape[1]
     if cc > MAX_CONSTRAINTS:
         raise ValueError(f"spread_filter_bits: more than {MAX_CONSTRAINTS} constraints")
+    check_domain_bucket(d1 - 1)
     args = [t.contiguous() for t in (aux.hard_counts, aux.hard_present, aux.hard_valid,
                                      aux.max_skew, aux.min_domains, aux.self_match,
                                      aux.dom_val, aux.has_key)]
@@ -448,7 +451,8 @@ def spread_update_row(aux, i: int, node_row):
     by K17; below 0: not placed), into the full-batch tables
     ``aux.hard_counts`` / ``aux.soft_counts`` in place.  CPU tensors take
     the plain version; CUDA tensors launch K18, one thread per (pending
-    pod, constraint)."""
+    pod, constraint): the node, then one round trip (the match byte, the
+    node's domain and counted flags) and an add that waits on nothing."""
     if not node_row.is_cuda:
         return spread_update_row_plain(aux, i, node_row)
     b, cc, bp = aux.match_pending.shape

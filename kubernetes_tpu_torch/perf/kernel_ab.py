@@ -1,7 +1,8 @@
 """K2 (normalize_combine), K29 (candidate_dense), K19 (ipa_update_row), K11
 (ipa_score_combine), K12 (ipa_update_classes), K7 (spread_score_combine),
-K1 (filter_score_planes), K13 (prev_delta_apply) and K17
-(scan_select_assume, keyless and keyed) timed on synthetic
+K1 (filter_score_planes), K13 (prev_delta_apply), K17
+(scan_select_assume, keyless and keyed), K6 (spread_filter_bits) and K18
+(spread_update_row) timed on synthetic
 inputs at the shapes their paths give them, for the copy of ``kubernetes_tpu_torch`` under
 ``--root``, so that two trees (a parent and a change, unpacked side by
 side) are timed by the same methods on one card:
@@ -44,14 +45,27 @@ a zero tensor for a tree whose wrapper needs one), each beside
 ``K17_CASES`` (the TopologySpreading scan's step — N = 8192, 5000 live
 nodes, R = 8, a cluster of 8 — and the 500-node what-if forks' — N = 512,
 500 live, one block; ties and equal noise across the plan's slice
-boundaries, all-tied rows), each row with ``host_us``, the host's issue
-time of one wrapper call over 1000 queued calls (``host_timer.py``).
-K1's, K13's and K17's rows carry their bound (``kernel_work.k1_work`` /
-the bytes the adds need / ``kernel_work.k17_work``, over the card's
-rates).  The bound formulas, K11 / K12's inputs, K17's plan and the host
-timer are ``kernel_work.py`` and ``host_timer.py`` beside this file,
-whichever tree ``--root`` names: both trees are held to the same bound
-and timed by the same method.  Needs a CUDA card; imports nothing of JAX.
+boundaries, all-tied rows); K6 at ``K6_CASES`` (``spread_aux``: N = 8192,
+5000 live nodes, one hard constraint — C = 1 (the scan's step), 4 (a
+TopologySpreading round) and 512 (the full auction) on the zone tables,
+D + 1 = 9; C = 512 on a hostname table, D + 1 = 8193, split across a
+cluster; minDomains above the present domains at C = 4 and on the
+hostname table).  K6 filters in place, so each of its timed calls first
+copies the plane as K1 seeded it into the plane it filters, as the path
+hands it over: ``ms`` is the K6 kernel's own device time on that plane,
+``queued_ms`` has the copy's own queued time taken off, and
+``ms_filtered`` is K6 on a plane it already filtered (no word changes,
+no store).  K18 at ``K18_CASES`` (B = 512 on the zone tables, every
+pod matching: Cc = 1 and 2, pod i on a dead keyless node, ``node_row``
+−1).  The K6, K17 and K18 rows carry ``host_us``, the host's issue time
+of one wrapper call over 1000 queued calls (``host_timer.py``).  K1's,
+K6's, K13's, K17's and K18's rows carry their bound
+(``kernel_work.k1_work`` / ``k6_work`` / the bytes the adds need /
+``k17_work`` / ``k18_work``, over the card's rates). The bound formulas,
+K11 / K12's inputs, K17's plan and the host timer are ``kernel_work.py``
+and ``host_timer.py`` beside this file, whichever tree ``--root`` names:
+both trees are held to the same bound and timed by the same method. Needs a
+CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -203,6 +217,70 @@ def k7_inputs(c: int, soft: bool, dev, seed: int = 7):
     return aux, torch.from_numpy(bits).to(dev), full, torch.from_numpy(total).to(dev)
 
 
+def spread_aux(c: int, cc: int, d: int, dev, *, seed: int = 6, b: int = 1,
+               min_domains: bool = False):
+    """A PodTopologySpread aux (TSAux) of ``c`` rows and ``cc`` hard
+    constraints on N = 8192 nodes, 5000 of them live: a zone key (``d`` =
+    8: live node i in zone i mod 3, counts 100–105 a zone and 112 in zone
+    0, so that zone 0 fails under maxSkew 5, the TopologySpreading suite's)
+    or a hostname key (``d`` = 8192: live node i
+    its own domain, counts 0–3, maxSkew 1); the 3192 dead rows without the
+    key and not counted; every pod self-matching; ``min_domains`` asks for
+    one domain more than are present (the minimum becomes 0).  ``b``
+    pending pods a row in ``match_pending`` (every pod matching every
+    selector: the suite's)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.plugins.podtopologyspread import TSAux
+
+    rng = np.random.default_rng(seed + c + 10 * cc + d)
+    n, live = 8192, 5000
+    node_dom = np.full(n, d, np.int32)
+    node_dom[:live] = np.arange(live) % 3 if d == 8 else np.arange(live)
+    n_dom = 3 if d == 8 else live
+    dom_val = np.broadcast_to(node_dom, (c, cc, n)).copy()
+    counts = (rng.integers(100, 106, (c, cc, d + 1)) if d == 8
+              else rng.integers(0, 4, (c, cc, d + 1))).astype(np.int32)
+    if d == 8:
+        counts[:, :, 0] = 112
+    present = np.zeros((c, cc, d + 1), bool)
+    present[:, :, :n_dom] = True
+    counted = np.broadcast_to(np.arange(n) < live, (c, n)).copy()
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return TSAux(
+        hard_valid=t(np.ones((c, cc), bool)), soft_valid=t(np.zeros((c, cc), bool)),
+        max_skew=t(np.full((c, cc), 5 if d == 8 else 1, np.int32)),
+        min_domains=t(np.full((c, cc), n_dom + 1 if min_domains else 0, np.int32)),
+        self_match=t(np.ones((c, cc), bool)), dom_val=t(dom_val), has_key=t(dom_val < d),
+        counted_hard=t(counted), counted_soft=t(counted), hard_counts=t(counts),
+        soft_counts=t(counts.copy()), hard_present=t(present),
+        match_pending=t(np.ones((c, cc, b), bool)))
+
+
+# K6's shapes: label → (C, D, minDomains)
+K6_CASES = {
+    "C = 1, zones": (1, 8, False),
+    "C = 4, zones": (4, 8, False),
+    "C = 512, zones": (512, 8, False),
+    "C = 4, zones, minDomains": (4, 8, True),
+    "C = 512, hostname": (512, 8192, False),
+    "C = 512, hostname, minDomains": (512, 8192, True),
+}
+
+# K18's shapes: label → (Cc, node): B = 512 on the zone tables, pod i on a
+# live node, on a dead keyless one, or not placed
+K18_CASES = {
+    "Cc = 1": (1, 1234),
+    "Cc = 2": (2, 1234),
+    "keyless node": (1, 6000),
+    "node_row -1": (1, -1),
+}
+
+
 def k1_inputs(c: int, base, dev, seed: int = 1):
     """K1's arguments at the dedup / scan paths' shape, on ``base`` (a
     DeviceSnapshot of N = 8192 rows) rewritten to 5000 live
@@ -343,6 +421,7 @@ def main() -> None:
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path[0] = str(root)  # the tree under --root, not this file's
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -387,10 +466,13 @@ def main() -> None:
     plan = CombinePlan(kinds=(0, 0, 0, 1, 2), weights=(1.0, 1.0, 1.0, 1.0, 1.0), const_add=0.0)
     rows = []
 
-    def add(name, fn, equal, **shape):
-        ms = cs.device_ms(fn)
+    def add(name, fn, equal, kernel=None, less=None, **shape):
+        # ``kernel``: only its device activities count; ``less``: a call
+        # that each call of ``fn`` begins with, its queued time taken off
+        ms = cs.device_ms(fn, kernel)
+        queued = cs.queued_device_ms(fn) - (cs.queued_device_ms(less) if less else 0.0)
         row = {"name": name, "ms": ms, "ms_source": cs.MS_SOURCE[0],
-               "queued_ms": cs.queued_device_ms(fn), "equal": equal, **shape}
+               "queued_ms": queued, "equal": equal, **shape}
         rows.append(row)
         print(f"{root.name}: {name} {ms:.5f} ms ({row['ms_source']}), {row['queued_ms']:.5f} "
               f"ms queued ({'equal' if equal else 'DIFFERS'}) {shape}", flush=True)
@@ -571,6 +653,61 @@ def main() -> None:
         work = [t.clone() for t in a17[8:12]]
         fn = (lambda a_=a17, w_=work: scan_select_assume(*a_[:8], *w_, a_[12]))
         add(f"scan_select_assume ({label})", fn, bool(equal), N=n, R=8, live=live,
+            node=node, bound_ms=least, bound_by=by, host_us=host_issue_us(fn))
+
+    from kubernetes_tpu_torch.kernels.spread import (
+        spread_filter_bits,
+        spread_filter_bits_plain,
+        spread_update_row,
+        spread_update_row_plain,
+    )
+    from kubernetes_tpu_torch.plugins.podtopologyspread import PodTopologySpreadPlugin
+
+    for label, (c, d, md) in K6_CASES.items():
+        aux = spread_aux(c, 1, d, dev, min_domains=md)
+        rng = np.random.default_rng(c + d)
+        full, bit = 0b1111111, 3
+        seeded = np.where(rng.random((c, 8192)) < 0.7, full, full & ~(1 << rng.integers(
+            0, 7, (c, 8192)))).astype(np.int32)
+        seeded[:, 5000:] = 0
+        seeded = torch.from_numpy(seeded).to(dev)
+        kb, pb = seeded.clone(), seeded.clone()
+        spread_filter_bits(aux, kb, bit, True)
+        spread_filter_bits_plain(aux, pb, bit, True)
+        equal = torch.equal(kb, pb) and not torch.equal(kb, seeded)
+        work = seeded.clone()
+
+        def reseed(w_=work, s_=seeded):
+            w_.copy_(s_)
+
+        def fn(a_=aux, w_=work, r_=reseed):  # the path's state: the plane as seeded
+            r_()
+            spread_filter_bits(a_, w_, bit, True)
+
+        done = kb.clone()  # already filtered: no word changes
+        call = (lambda a_=aux, w_=done: spread_filter_bits(a_, w_, bit, True))
+        least, by = kw.bound_ms(*kw.k6_work(aux, seeded, bit))
+        add(f"spread_filter_bits ({label})", fn, bool(equal), kernel="spread_filter_kernel",
+            less=reseed, C=c, N=8192, live=5000, D1=d + 1, min_domains=md, bound_ms=least,
+            bound_by=by, ms_filtered=cs.device_ms(call, "spread_filter_kernel"),
+            host_us=host_issue_us(call))
+
+    splug = PodTopologySpreadPlugin()
+    for label, (cc, node) in K18_CASES.items():
+        aux = spread_aux(512, cc, 8, dev, b=512)
+        i = 137
+        at = torch.tensor([node], dtype=torch.int32, device=dev)
+        ka, pa = splug.engine_copy(aux), splug.engine_copy(aux)
+        spread_update_row(ka, i, at)
+        spread_update_row_plain(pa, i, at)
+        equal = torch.equal(ka.hard_counts, pa.hard_counts) \
+            and torch.equal(ka.soft_counts, pa.soft_counts)
+        moved = not torch.equal(ka.hard_counts, aux.hard_counts)
+        equal = equal and moved == (node == 1234)  # a dead node is not counted
+        work = splug.engine_copy(aux)
+        fn = (lambda w_=work, a_=at: spread_update_row(w_, i, a_))
+        least, by = kw.bound_ms(*kw.k18_work(aux, i, at))
+        add(f"spread_update_row ({label})", fn, bool(equal), B=512, Cc=cc, N=8192, D1=9,
             node=node, bound_ms=least, bound_by=by, host_us=host_issue_us(fn))
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

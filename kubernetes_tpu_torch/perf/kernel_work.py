@@ -1,8 +1,8 @@
 """The bytes and operations each kernel must move and do on given inputs
 (``*_work``, the basis of ``bound_ms``), the synthetic inputs that
-``chip_smoke.py`` and ``kernel_ab.py`` both build for K11 and K12, and
-K17's launch plan, whose slice boundaries both scripts' tie cases and the
-CPU mirror of K17 take from here (``k17_plan``, ``k17_tie_rows``).
+``chip_smoke.py`` and ``kernel_ab.py`` both build for K11 and K12, and the
+launch plans of K6 and K17, whose splits both scripts' cases and the CPU
+mirrors take from here (``k6_plan``, ``k17_plan``, ``k17_tie_rows``).
 
 A bound counts what the function needs on this data: each input read
 once, each output written once, and only the cells the data reaches.  The
@@ -100,6 +100,63 @@ def k17_tie_rows(n: int) -> list:
     at = [q * s + d for q in range(1, cl) for d in (-1, 0)]
     at += [n - n % 4 - 1, n - n % 4] if n % 4 and n > 4 else []
     return sorted({a for a in at + [n - 1] if 0 <= a < n})
+
+
+def k6_plan(n: int, d1: int, vec: int = 4) -> tuple:
+    """(threads, NB, CL, WS): K6's launch plan for rows of ``n`` nodes and
+    ``d1`` domains, a copy of ``filter_plan`` in csrc/spread.cu
+    (``chip_smoke.py`` holds the two together on the card) — one vector of
+    ``vec`` nodes a thread, threads a whole number of warps from 32 to 256
+    covering the row, NB blocks a row; above 32 domains a
+    row's blocks in clusters of CL, a power of two up to 8 and the fewest
+    that cover the row's blocks (NB rounded up to a multiple of it), block
+    q of a cluster building the verdict words [q WS, (q + 1) WS)."""
+    t = min(max(((n + vec - 1) // vec + 31) // 32 * 32, 32), 256)
+    nb = (n + t * vec - 1) // (t * vec)
+    cl = 1
+    if d1 > 32:
+        while cl < 8 and cl < nb:
+            cl *= 2
+    w = (d1 + 31) // 32
+    return t, (nb + cl - 1) // cl * cl, cl, (w + cl - 1) // cl
+
+
+def k6_work(aux, bits, bit: int) -> tuple:
+    """(bytes, operations) K6 must move and do on these inputs: the hard
+    tables and the per-constraint scalars read once; dom_val and has_key on
+    the hard constraints' rows only; the bit plane read where the filter
+    fails and written where it fails on a set ``bit`` (where the word
+    changes).  Per (hard row, node) a gather, an add and two compares, per
+    table entry a compare."""
+    from kubernetes_tpu_torch.kernels.spread import spread_filter_plane
+
+    c, cc, d1 = aux.hard_counts.shape
+    n = bits.shape[1]
+    n_hard = int(aux.hard_valid.sum())
+    fail = ~spread_filter_plane(aux)
+    n_clear = int((fail & (((bits >> bit) & 1) == 1)).sum())
+    return (nbytes(aux.hard_counts, aux.hard_present, aux.hard_valid, aux.max_skew,
+                   aux.min_domains, aux.self_match) + 5 * n_hard * n
+            + 4 * int(fail.sum()) + 4 * n_clear, 4 * n_hard * n + c * cc * d1)
+
+
+def k18_work(aux, i: int, node_row) -> tuple:
+    """(bytes, operations) one K18 step must move and do: pod i's node
+    (nothing more when it is below 0: not placed); then pod i's match
+    column (a byte a (pending pod, constraint) row), each matching row's
+    domain at the node, each pending pod with a matching row its two
+    counted flags there, and a read and a write per table add.  Per row a
+    compare, per add an add."""
+    node = int(node_row.reshape(-1)[0])
+    if node < 0:
+        return 4, 0
+    b, cc, _bp = aux.match_pending.shape
+    at = min(node, aux.dom_val.shape[-1] - 1)
+    hit = aux.match_pending[:, :, i]  # [B, Cc]
+    adds = int((hit & aux.counted_hard[:, at][:, None]).sum()
+               + (hit & aux.counted_soft[:, at][:, None]).sum())
+    return (4 + b * cc + 4 * int(hit.sum()) + 2 * int(hit.any(dim=1).sum()) + 8 * adds,
+            b * cc + adds)
 
 
 def k7_work(aux, bits, full: int) -> tuple:
