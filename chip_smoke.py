@@ -72,10 +72,18 @@ Phases, all of which must pass (any failure exits non-zero):
    AutoscaleGang's shapes (K = 4, 4096 rows a fork) with pads at row 0 and
    a real add at row 0 with pads behind it (the add must win); K30 on K31's
    per-fork node arrays; both with K = 4 stacked equal to four K = 1
-   launches.  Their plain versions run on CPU copies of the inputs.
-   K32 (SelectorSpread's score) at C = 512 and C = 1 over N = 8192 and on
-   rows whose maxima run 1–399 over every count, at weights 1 and 2, with
-   an all-masked row and rows without zone counts; K1 under MostAllocated
+   launches; K30 also at its tile edges (N = 8190, P = 16383, G × D = 35,
+   entries either side of a tile boundary, rows past the end and below 0)
+   and past a warp's staging slots.  Their plain versions run on CPU
+   copies of the inputs.  One launch a call of K30 proven by a CUDA graph
+   on Defrag's shapes and on per-fork node arrays.
+   K32 (SelectorSpread's score) at C = 512, 17, 16, 4 and 1 over N = 8192,
+   at N = 8190 (a scalar tail; C = 4: the scalar form), 1000 and 100000,
+   and on rows whose maxima run 1–399 over every count, at weights 1 and 2,
+   with an all-masked row, rows without zone counts, rows with every or no
+   entry masked and counts all 0; its split plan against
+   kernel_work.k32_plan; one launch a call at C = 1 and 512 proven by a
+   CUDA graph; K1 under MostAllocated
    and RequestedToCapacityRatio (the default shape, a descending one and
    one with a flat segment) at C = 512 and C = 1 over N = 8192.
    K33 (the threefry tie noise) on the keys (0, 0), (0, 7) and (2³² − 1,
@@ -5641,7 +5649,7 @@ FORK_KERNELS = ("fork_masks", "fork_add_rows")
 FORK_SOURCE = "kubernetes_tpu_torch/csrc/fork.cu"
 FORK_REPLACES = {"fork_masks": "kubernetes_tpu/whatif/fork.py:92",
                  "fork_add_rows": "kubernetes_tpu/whatif/fork.py:82"}
-FORK_SYMBOLS = {"fork_masks": "fork_", "fork_add_rows": "fork_add_rows_kernel"}
+FORK_SYMBOLS = {"fork_masks": "fork_masks_kernel", "fork_add_rows": "fork_add_rows_kernel"}
 WHATIF_FORK = "kubernetes_tpu_torch.whatif.fork"
 FORK_TARGETS = {k: (WHATIF_FORK, k, None) for k in FORK_KERNELS}
 
@@ -5680,6 +5688,39 @@ def fork_case(gen, *, k=4, n=8192, p=16384, r=8, g=8, d=8, v=8, a=8, dd=8, chips
     payload = {"vic_pod_rows": vic_p, "vic_node_rows": vic_n, "aff_rows": aff_r,
                "aff_vals": aff_v, "del_rows": del_r,
                "vic_claim_chips": vic_c if chips else None}
+    return live, payload
+
+
+def fork_edge_case(gen, *, chips=True):
+    """K30's tile edges on the CPU: N = 8190, P = 16383 and G × D = 7 × 5
+    (none a whole number of tiles, and node_valid, claim_allocated,
+    pod_valid and aff_counts not 16-byte vectors), K = 4 forks of V = A =
+    D_rows = 512 entries: victims, removes and affinity cells on either side
+    of a tile boundary and on the last row, rows past the end (clipped) and
+    below 0 (a victim's node: row 0), duplicates, −1 pads; fork 3 puts 512
+    victims on node 5 (pods 0–511), 512 removes on node 130 and 512
+    contributions on one cell, more than a warp's staging slots hold (the
+    tile walks the payload in global memory)."""
+    import torch
+
+    live, payload = fork_case(gen, k=4, n=8190, p=16383, g=7, d=5, v=512, a=512, dd=512,
+                              chips=chips)
+    vp, vn, vc = payload["vic_pod_rows"], payload["vic_node_rows"], payload["vic_claim_chips"]
+    ar, av, dr = payload["aff_rows"], payload["aff_vals"], payload["del_rows"]
+    edge_p = [4095, 4096, 16382, 20000, 4095, 0]
+    edge_n = [127, 128, 8189, 9000, 127, -3]
+    for f in range(3):
+        vp[f, :6] = torch.tensor(edge_p, dtype=torch.int32)
+        vn[f, :6] = torch.tensor(edge_n, dtype=torch.int32)
+        dr[f, :5] = torch.tensor([127, 128, 8189, 9999, 128], dtype=torch.int32)
+        ar[f, :5] = torch.tensor([6, 9, 0, 6, 3], dtype=torch.int32)
+        av[f, :5] = torch.tensor([4, 0, -1, 4, 7], dtype=torch.int32)
+    vp[3] = torch.arange(512, dtype=torch.int32)
+    vn[3] = 5
+    dr[3] = 130
+    ar[3], av[3] = 2, 3
+    if vc is not None:
+        vc[3] = 1
     return live, payload
 
 
@@ -5803,14 +5844,34 @@ def check_fork_kernels(dev) -> dict:
     live, payload = fork_case(gen)
     args, kw = _masks_args(live, payload, dict(zip(NODE_ARRAYS, want)))
     args_dev, _ = _masks_args(_to(live, dev), _to(payload, dev), dict(zip(NODE_ARRAYS, got)))
+    auto_args = (args_dev, _to(kw, dev))
     got2 = KF.fork_masks(*args_dev, **_to(kw, dev))
     want2 = KF.fork_masks_plain(*args, **kw)
     torch.cuda.synchronize()
     err["fork_masks"] = max(err["fork_masks"], require_equal(
         "fork_masks on fork_add_rows' per-fork node arrays", _masks_pairs(got2, want2)))
+    # K30 at its tile edges and past its staging slots, with and without claims
+    for chips in (True, False):
+        live, payload = fork_edge_case(gen, chips=chips)
+        args, kw = _masks_args(live, payload)
+        got = KF.fork_masks(*_to(args, dev), **_to(kw, dev))
+        want = KF.fork_masks_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err["fork_masks"] = max(err["fork_masks"], require_equal(
+            f"fork_masks (tile edges, claims {chips})", _masks_pairs(got, want)))
+    # one launch a call: K30 on Defrag's shapes and on K31's per-fork node
+    # arrays (AutoscaleGang's)
+    live, payload = fork_case(gen)
+    args, kw = _masks_args(_to(live, dev), _to(payload, dev))
+    one_device_activity("fork_masks (Defrag shapes)", lambda: KF.fork_masks(*args, **kw),
+                        FORK_SYMBOLS["fork_masks"], "fork_masks")
+    one_device_activity("fork_masks (AutoscaleGang, per-fork node arrays)",
+                        lambda: KF.fork_masks(*auto_args[0], **auto_args[1]),
+                        FORK_SYMBOLS["fork_masks"], "fork_masks")
     log("fork kernels vs plain: all equal (K30 at Defrag's shapes with duplicates, pads, "
-        "affinity cells and claim chips, K = 4 == 4 × K = 1; K31 at AutoscaleGang's shapes, "
-        "the row-0 add kept, K = 4 == 4 × K = 1; K30 on K31's output)")
+        "affinity cells and claim chips, K = 4 == 4 × K = 1, at its tile edges and past its "
+        "staging slots; K31 at AutoscaleGang's shapes, the row-0 add kept, K = 4 == 4 × K = "
+        "1; K30 on K31's output)")
     return err
 
 
@@ -5960,11 +6021,12 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 
 # kernels already redesigned for Hopper in the port's step 2 (every row of
 # theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13, K1, K11,
-# K12, K17 (keyless and keyed), K6 and K18
+# K12, K17 (keyless and keyed), K6, K18, K32 and K30
 REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
               "ipa_update_row", "spread_score_combine", "prev_delta_apply",
               "filter_score_planes", "ipa_score_combine", "ipa_update_classes",
-              "scan_select_assume", "spread_filter_bits", "spread_update_row")
+              "scan_select_assume", "spread_filter_bits", "spread_update_row",
+              "selector_spread_score", "fork_masks")
 
 
 def step2_order(rows: list) -> dict:
@@ -6250,15 +6312,8 @@ def time_fork_kernels(masks_calls: dict, add_calls: dict, err: dict) -> list:
     p = pv.shape[0]
     g, d = aff.shape
     per_fork = req.dim() == 3
-    node_one = n * (1 + 4 * r + 8 + (4 if chips is not None else 0))
     live_v = int((vp >= 0).sum())
-    # bases read once (the node group once a fork when K31 gave it per fork),
-    # the K copies written once, the payload and the victims' pod rows read
-    n_bytes = (node_one * (k if per_fork else 1) + p + 4 * g * d
-               + k * (node_one + p + 4 * g * d)
-               + vp.numel() * (8 + (4 if chips is not None else 0)) + ar.numel() * 8
-               + dr.numel() * 4 + live_v * (4 * r + 8))
-    n_ops = live_v * (r + 2 + (1 if chips is not None else 0)) + int((ar >= 0).sum())
+    n_bytes, n_ops = KW.k30_work(args, kw)
     row("fork_masks", lambda: KF.fork_masks(*args, **kw),
         lambda: KF.fork_masks_plain(*args, **kw), n_bytes, n_ops,
         {"K": k, "N": n, "P": p, "R": r, "G": g, "D": d, "V": vp.shape[1],
@@ -6327,11 +6382,13 @@ def fit_plan(fs_plan, strategy: str, shape=None):
     return dataclasses.replace(fs_plan, fit=FitPlugin(strategy, shape=shape))
 
 
-def k32_case(gen, c: int, n: int, *, maxima=None):
+def k32_case(gen, c: int, n: int, *, maxima=None, kind=None):
     """K32's inputs: bits (a 0.7 mask of ``full`` = 7), count and zone-count
     planes with row maxima up to 399 (or the given per-row ``maxima`` over
     every count 0..max), has_zone with holes; an all-masked row and rows
-    without zone counts."""
+    without zone counts.  ``kind``: "all" every entry in the mask, "none"
+    no entry in it, "zero counts" every count 0 (max 0: each score 100),
+    "zero zones" every zone count 0."""
     import torch
 
     if maxima is not None:
@@ -6351,6 +6408,14 @@ def k32_case(gen, c: int, n: int, *, maxima=None):
         if c > 8:
             zone[:4] = 0
             mask[5] = False
+        if kind == "all":
+            mask[:] = True
+        elif kind == "none":
+            mask[:] = False
+        elif kind == "zero counts":
+            counts.zero_()
+        elif kind == "zero zones":
+            zone.zero_()
     has_zone = torch.rand(n, generator=gen) < 0.8
     bits = torch.where(mask, 7, 3).to(torch.int32)
     total = torch.where(mask, torch.randint(0, 600, (c, n), generator=gen).float(),
@@ -6358,11 +6423,54 @@ def k32_case(gen, c: int, n: int, *, maxima=None):
     return bits, 7, total, counts, zone, has_zone
 
 
+def k32_plan_check() -> None:
+    """K32's split plan in csrc/selectorspread.cu (``selector_spread_split_plan``)
+    equal to the copy in ``kernel_work.k32_plan`` that the CPU mirror takes
+    its slices from."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels.build import load
+
+    fn = load("selectorspread").selector_spread_split_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    differ = []
+    for n in (1, 4, 31, 500, 1000, 1024, 1025, 4097, 5000, 8190, 8191, 8192, 100000):
+        for vec in (1, 4):
+            fn(n, vec, out)
+            if tuple(out) != KW.k32_plan(n, vec):
+                differ.append((n, vec, tuple(out), KW.k32_plan(n, vec)))
+    if differ:
+        fail(f"selector_spread_split_plan differs from kernel_work.k32_plan: {differ}")
+    else:
+        log("selector_spread_score: the kernel's plan equals kernel_work.k32_plan")
+
+
+# K32's exact checks: label → k32_case's arguments (the split form at C <= 16:
+# vectors with a scalar tail at N = 8190 and C = 1, the scalar form where C >
+# 1 rows do not start on 16-byte boundaries, one block at N = 1000, more than
+# a vector a thread at N = 100000; one block a row at C = 17 and 512)
+K32_CHECKS = {"C=512": {"c": 512, "n": 8192}, "C=1": {"c": 1, "n": 8192},
+              "maxima 1-399": {"c": 0, "n": 0, "maxima": list(range(1, 400))},
+              "C=1 N=8190 (tail)": {"c": 1, "n": 8190},
+              "C=4 N=8190 (scalar form)": {"c": 4, "n": 8190},
+              "C=16": {"c": 16, "n": 8192}, "C=17": {"c": 17, "n": 8192},
+              "C=1 N=1000": {"c": 1, "n": 1000}, "C=1 N=100000": {"c": 1, "n": 100000},
+              "C=1 all masked": {"c": 1, "n": 8192, "kind": "all"},
+              "C=1 none masked": {"c": 1, "n": 8192, "kind": "none"},
+              "C=1 counts 0": {"c": 1, "n": 8192, "kind": "zero counts"},
+              "C=1 zone counts 0": {"c": 1, "n": 8192, "kind": "zero zones"}}
+
+
 def check_profile_kernels(dev) -> dict:
-    """K32 (C = 512, C = 1, every row maximum 1–399, weights 1 and 2) and K1
-    under MostAllocated and RequestedToCapacityRatio (the default shape, a
-    descending one, one with a flat segment) at C = 512 and C = 1 over N =
-    8192, against their plain versions on the same CUDA tensors."""
+    """K32 (``K32_CHECKS``: C = 512, 17, 16, 4 and 1, every row maximum
+    1–399, N = 8190, 1000 and 100000, all / no entries masked, zero counts
+    and zone counts; weights 1 and 2; its split plan; one launch a call at C
+    = 1 and C = 512) and K1 under MostAllocated and RequestedToCapacityRatio
+    (the default shape, a descending one, one with a flat segment) at C = 512
+    and C = 1 over N = 8192, against their plain versions on the same CUDA
+    tensors."""
     import torch
 
     from kubernetes_tpu_torch.framework.interface import DynamicState
@@ -6376,8 +6484,8 @@ def check_profile_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(SEED + 32)
     err = {"selector_spread_score": 0.0, "filter_score_planes": 0.0}
     cases = {"selector_spread_score": 0, "filter_score_planes": 0}
-    for what, kw in (("C=512", {"c": 512, "n": 8192}), ("C=1", {"c": 1, "n": 8192}),
-                     ("maxima 1-399", {"c": 0, "n": 0, "maxima": list(range(1, 400))})):
+    k32_plan_check()
+    for what, kw in K32_CHECKS.items():
         case = [t.to(dev) if isinstance(t, torch.Tensor) else t for t in k32_case(gen, **kw)]
         bits, full, total, counts, zone, has_zone = case
         for weight in (1.0, 2.0):
@@ -6389,6 +6497,17 @@ def check_profile_kernels(dev) -> dict:
             err["selector_spread_score"] = max(err["selector_spread_score"], require_equal(
                 f"selector_spread_score {what} w={weight}", [("total", got, want)]))
             cases["selector_spread_score"] += 1
+            if kw.get("kind") == "none" and not torch.equal(got, total):
+                fail("selector_spread_score with no entry masked changed the total")
+    # one launch a call: the split form on the scan's row, one block a row at C = 512
+    for what, c, symbol in (("C = 1", 1, "selector_spread_score_split_kernel"),
+                            ("C = 512", 512, "selector_spread_score_rows_kernel")):
+        bits, full, total, counts, zone, has_zone = [
+            t.to(dev) if isinstance(t, torch.Tensor) else t for t in k32_case(gen, c, 8192)]
+        one_device_activity(f"selector_spread_score ({what})",
+                            lambda a=(bits, full, total, counts, zone, has_zone):
+                            KSS.selector_spread_score(*a, 1.0),
+                            symbol, "selector_spread_score")
     fw, (fs_plan, _comb) = framework_plans()
     snap = synthetic_snapshot(8192, gen, dev)
     dyn = DynamicState(requested=snap.requested, non_zero=snap.non_zero_requested)
@@ -6708,11 +6827,8 @@ def time_profile_kernels(last_calls: dict, waves: dict, err: dict) -> list:
             "bound_by": bound_by, "library_ms": None, "bytes": n_bytes, "ops": n_ops,
             "shape": shape})
 
-    # K32: the pass bits read over every entry; both count planes and the
-    # total read, and the total written, on the masked entries only (an
-    # unmasked entry, node-tier padding included, is skipped after its bit
-    # test); has_zone read.  One bit test an entry; on a masked entry the
-    # two max steps and ~10 float steps
+    # K32: the bound from kernel_work.k32_work; the scan's row runs the split
+    # form, the full auction's rows one block a row
     for one_row, wave in ((False, "default-scheduler"), (True, SCAN_WAVE)):
         bits, full, total, counts, zone, has_zone, weight = last(
             ("selector_spread_score", one_row))
@@ -6725,14 +6841,16 @@ def time_profile_kernels(last_calls: dict, waves: dict, err: dict) -> list:
         c, n = bits.shape
         masked = int((bits == full).sum())
         work = base.clone()
+        n_bytes, n_ops = KW.k32_work(bits, full, has_zone)
         row("selector_spread_score" + (" (scan row)" if one_row else ""),
-            "selector_spread_score", K32_SOURCE, K32_REPLACES, "selector_spread_score_kernel",
+            "selector_spread_score", K32_SOURCE, K32_REPLACES,
+            "selector_spread_score_split_kernel" if c <= 16
+            else "selector_spread_score_rows_kernel",
             lambda a=(bits, full, work, counts, zone, has_zone, weight):
                 KSS.selector_spread_score(*a),
             lambda a=(bits, full, base, counts, zone, has_zone, weight):
                 KSS.selector_spread_score_into_plain(*a[:2], a[2].clone(), *a[3:]),
-            nbytes(bits, has_zone) + 16 * masked, c * n + 12 * masked,
-            {"C": c, "N": n, "masked": masked, "wave": wave},
+            n_bytes, n_ops, {"C": c, "N": n, "masked": masked, "wave": wave},
             waves[wave]["launches"]["selector_spread_score"])
     for prof, strategy in FIT_STRATEGIES.items():
         args = last(("filter_score_planes", STRATEGY_CODE[strategy], False))

@@ -56,10 +56,13 @@ more than once); ``reset_launches`` zeroes the counts.
                             one launch, the tier gathered by node tile in
                             row order in the kernel, no sort)
   K30 fork_masks            csrc/fork.cu (one launch per what-if evaluate over K
-                            forks, or per fork when not stacked)
+                            forks, or per fork when not stacked: output
+                            tiles, the copy and the entries in one pass)
   K31 fork_add_rows         csrc/fork.cu (the same, when a fork adds nodes)
   K32 selector_spread_score csrc/selectorspread.cu (per round or scan step of
-                            a batch under a profile with SelectorSpread)
+                            a batch under a profile with SelectorSpread; one
+                            pass over a row split across a cluster of up to
+                            8 blocks at C <= 16)
   K33 tie_noise             csrc/tie_noise.cu (a scheduler with an rng_key: the
                             full auction's noise plane once per round, the
                             scan's step keys once per batch and one noise row

@@ -7,8 +7,10 @@ Queue B B16), which whatif/engine.py vmaps over K stacked payloads
 
 * K30 ``fork_masks`` — node-remove, victim-mask (pods, their requests,
   their claim chips) and the affinity-table mask, for K forks in one
-  launch: the copy into ``[K, ...]`` is the kernel's first pass, the
-  scatters its second.
+  launch: each block owns one output tile of one fork (node rows, a piece
+  of ``pod_valid`` or of ``aff_counts``), stages the fork's entries that
+  land in it, and writes each element of the tile once, copied from its
+  base with the entries applied.
 * K31 ``fork_add_rows`` — the node-add: each fork's captured template rows
   written into its own ``[K, N, ...]`` copy of the twenty node arrays.  A
   pad (``ok`` false) writes nothing, so a real add wins over a pad at its
@@ -76,11 +78,14 @@ def fork_masks_plain(node_valid, requested, non_zero, claim_allocated, pod_valid
         0, nrow, torch.where(okc, -pod_request[prow.reshape(-1)], 0)).view(k, n, r)
     nz = nz.reshape(k * n, 2).index_add_(
         0, nrow, torch.where(okc, -pod_non_zero[prow.reshape(-1)], 0)).view(k, n, 2)
-    # affinity mask: −1.0 per contribution (integer counts: exact in any order)
-    ok_a = aff_rows >= 0
-    cell = (fork * (g * d) + aff_rows.long().clamp(0, g - 1) * d
-            + aff_vals.long().clamp(0, d - 1)).reshape(-1)
-    aff = aff.reshape(-1).index_add_(0, cell, -ok_a.to(aff.dtype).reshape(-1)).view(k, g, d)
+    # affinity mask: −1.0 per contribution (integer counts: exact in any
+    # order); an empty table (G or D of 0) takes none, as the reference's
+    # scatter drops them
+    if g * d:
+        ok_a = aff_rows >= 0
+        cell = (fork * (g * d) + aff_rows.long().clamp(0, g - 1) * d
+                + aff_vals.long().clamp(0, d - 1)).reshape(-1)
+        aff = aff.reshape(-1).index_add_(0, cell, -ok_a.to(aff.dtype).reshape(-1)).view(k, g, d)
     claim = None
     if vic_claim_chips is not None:
         claim = _per_fork(claim_allocated, k, 1).reshape(-1).index_add_(

@@ -16,7 +16,8 @@ double and rounded to float32 (0.33333334, not ``1 − 0.6666667f``), and
 ``fma(0.33333334, node, 0.6666667 · zone)``: XLA:CPU contracts the
 reference's ``a · node + b · zone`` so (a separate product and sum flip
 the floor of about 3 in a million blends).  CPU tensors take the plain version; CUDA tensors
-launch K32.
+launch K32: at most 16 rows (the exact scan's one row) a row split across a
+thread-block cluster in one pass, above that one block a row.
 """
 
 from __future__ import annotations

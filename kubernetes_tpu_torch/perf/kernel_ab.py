@@ -1,8 +1,9 @@
 """K2 (normalize_combine), K29 (candidate_dense), K19 (ipa_update_row), K11
 (ipa_score_combine), K12 (ipa_update_classes), K7 (spread_score_combine),
 K1 (filter_score_planes), K13 (prev_delta_apply), K17
-(scan_select_assume, keyless and keyed), K6 (spread_filter_bits) and K18
-(spread_update_row) timed on synthetic
+(scan_select_assume, keyless and keyed), K6 (spread_filter_bits), K18
+(spread_update_row), K32 (selector_spread_score) and K30 (fork_masks)
+timed on synthetic
 inputs at the shapes their paths give them, for the copy of ``kubernetes_tpu_torch`` under
 ``--root``, so that two trees (a parent and a change, unpacked side by
 side) are timed by the same methods on one card:
@@ -57,11 +58,21 @@ hands it over: ``ms`` is the K6 kernel's own device time on that plane,
 ``ms_filtered`` is K6 on a plane it already filtered (no word changes,
 no store).  K18 at ``K18_CASES`` (B = 512 on the zone tables, every
 pod matching: Cc = 1 and 2, pod i on a dead keyless node, ``node_row``
-−1).  The K6, K17 and K18 rows carry ``host_us``, the host's issue time
-of one wrapper call over 1000 queued calls (``host_timer.py``).  K1's,
-K6's, K13's, K17's and K18's rows carry their bound
+−1).  K32 at ``K32_CASES`` (N = 8192, 5000 live nodes: the profiles
+path's scan row at C = 1 and its default-scheduler wave at C = 512; at
+C = 1 a row with every entry masked, one whose counts are all 0 — max 0,
+every score 100 —, one whose zone counts are all 0, and N = 8190, a row
+with a scalar tail).  K30 at ``K30_CASES`` (Defrag's K = 4 forks: N =
+8192, P = 16384, R = 8, G = D = 8, 8 victims, 8 affinity contributions and
+up to 4 removes a fork, −1 pads in each; with the claim plane; on per-fork
+node arrays as K31 hands them over on AutoscaleGang; K = 1; a duplicate
+victim and a duplicate affinity cell in every fork).  The K6, K17, K18,
+K32 and K30 rows carry ``host_us``, the host's issue time of one wrapper
+call over 1000 queued calls (``host_timer.py``).  K1's, K6's, K13's,
+K17's, K18's, K32's and K30's rows carry their bound
 (``kernel_work.k1_work`` / ``k6_work`` / the bytes the adds need /
-``k17_work`` / ``k18_work``, over the card's rates). The bound formulas,
+``k17_work`` / ``k18_work`` / ``k32_work`` / ``k30_work``, over the card's
+rates). The bound formulas,
 K11 / K12's inputs, K17's plan and the host timer are ``kernel_work.py``
 and ``host_timer.py`` beside this file, whichever tree ``--root`` names:
 both trees are held to the same bound and timed by the same method. Needs a
@@ -281,6 +292,94 @@ K18_CASES = {
 }
 
 
+# K32's shapes: label → (C, N, kind)
+K32_CASES = {
+    "C = 1, scan row": (1, 8192, None),
+    "C = 512, default-scheduler wave": (512, 8192, None),
+    "C = 1, every entry masked": (1, 8192, "all"),
+    "C = 1, counts 0 (max 0: every score 100)": (1, 8192, "zero counts"),
+    "C = 1, zone counts 0": (1, 8192, "zero zones"),
+    "C = 1, N = 8190 (unaligned tail)": (1, 8190, None),
+}
+
+
+def k32_inputs(label: str, dev, seed: int = 32):
+    """K32's arguments at ``label``: a bit plane of 7 filter bits with ~70%
+    of the 5000 live nodes in the mask (kind "all": every entry), counts
+    0–max and zone counts 0–3·max with a row maximum 1–399 (kind "zero
+    counts" / "zero zones": all 0), has_zone on ~80% of the live nodes, and
+    a total of integers 0–600 on the mask, −inf off it → (bits, full,
+    total, counts, zone_counts, has_zone)."""
+    import numpy as np
+    import torch
+
+    c, n, kind = K32_CASES[label]
+    rng = np.random.default_rng(seed + c + n + 7 * len(kind or ""))
+    full, live = 0b1111111, min(5000, n)
+    mask = (rng.random((c, n)) < 0.7) & (np.arange(n) < live)
+    if kind == "all":
+        mask[:] = True
+    bits = np.where(mask, full, full & ~(1 << rng.integers(0, 7, (c, n)))).astype(np.int32)
+    mx = rng.integers(1, 400, (c, 1))
+    counts = np.floor(rng.random((c, n)) * (mx + 1)).astype(np.float32)
+    zone = np.floor(rng.random((c, n)) * (3 * mx + 1)).astype(np.float32)
+    if kind == "zero counts":
+        counts[:] = 0.0
+    if kind == "zero zones":
+        zone[:] = 0.0
+    has_zone = (rng.random(n) < 0.8) & (np.arange(n) < live)
+    total = np.where(mask, rng.integers(0, 600, (c, n)), -np.inf).astype(np.float32)
+    t = [torch.from_numpy(x).to(dev) for x in (bits, total, counts, zone, has_zone)]
+    return t[0], full, t[1], t[2], t[3], t[4]
+
+
+# K30's shapes: label → (K, claim plane, per-fork node arrays, duplicates)
+K30_CASES = {
+    "Defrag, K = 4": (4, False, False, False),
+    "Defrag, K = 4, claim plane": (4, True, False, False),
+    "AutoscaleGang, per-fork node arrays": (4, False, True, False),
+    "K = 1": (1, False, False, False),
+    "duplicate victims and affinity cells": (4, True, False, True),
+}
+
+
+def k30_inputs(label: str, dev, seed: int = 30):
+    """``fork_masks``' arguments at ``label`` → (args, kw): N = 8192 nodes
+    (victims on the 5000 live ones), P = 16384 pods, R = 8, G = D = 8; fork
+    f holds 7 − f mod 4 victims, as many affinity contributions and
+    f mod 4 + 1 removes, −1 pads behind them; the node arrays live, or one
+    per fork (K31's output); ``duplicates`` lists each fork's first victim
+    and first affinity cell twice."""
+    import numpy as np
+    import torch
+
+    k, chips, per_fork, dups = K30_CASES[label]
+    rng = np.random.default_rng(seed + k + 2 * chips + 4 * per_fork + 8 * dups)
+    n, p, r, g, d, v, a, dd = 8192, 16384, 8, 8, 8, 8, 8, 8
+    lead = (k,) if per_fork else ()
+
+    def i32(lo, hi, shape):
+        return rng.integers(lo, hi, shape).astype(np.int32)
+
+    node = [rng.random(lead + (n,)) < 0.97, i32(0, 1 << 20, lead + (n, r)),
+            i32(0, 1 << 20, lead + (n, 2)), i32(0, 5, lead + (n,))]
+    live = [rng.random(p) < 0.9, i32(0, 5000, (p, r)), i32(0, 5000, (p, 2)),
+            rng.integers(0, 50, (g, d)).astype(np.float32)]
+    vp, vn, vc = np.full((k, v), -1, np.int32), np.zeros((k, v), np.int32), np.zeros((k, v), np.int32)
+    ar, av, dr = np.full((k, a), -1, np.int32), np.zeros((k, a), np.int32), np.full((k, dd), -1, np.int32)
+    for f in range(k):
+        m = 7 - f % 4
+        vp[f, :m], vn[f, :m], vc[f, :m] = i32(0, p, m), i32(0, 5000, m), i32(0, 5, m)
+        ar[f, :m], av[f, :m] = i32(0, g, m), i32(0, d, m)
+        dr[f, :f % 4 + 1] = i32(0, 5000, f % 4 + 1)
+        if dups:
+            vp[f, 1], vn[f, 1], vc[f, 1] = vp[f, 0], vn[f, 0], vc[f, 0]
+            ar[f, 1], av[f, 1] = ar[f, 0], av[f, 0]
+    t = [torch.from_numpy(x).to(dev) for x in node + live + [vp, vn, ar, av, dr]]
+    args = [t[0], t[1], t[2], t[3], t[4], t[5], t[6], t[7], *t[8:]]
+    return args, {"vic_claim_chips": torch.from_numpy(vc).to(dev) if chips else None}
+
+
 def k1_inputs(c: int, base, dev, seed: int = 1):
     """K1's arguments at the dedup / scan paths' shape, on ``base`` (a
     DeviceSnapshot of N = 8192 rows) rewritten to 5000 live
@@ -463,6 +562,8 @@ def main() -> None:
     build.load("filter_score")
     build.load("prev_delta")
     build.load("scan")
+    build.load("selectorspread")
+    build.load("fork")
     plan = CombinePlan(kinds=(0, 0, 0, 1, 2), weights=(1.0, 1.0, 1.0, 1.0, 1.0), const_add=0.0)
     rows = []
 
@@ -709,6 +810,38 @@ def main() -> None:
         least, by = kw.bound_ms(*kw.k18_work(aux, i, at))
         add(f"spread_update_row ({label})", fn, bool(equal), B=512, Cc=cc, N=8192, D1=9,
             node=node, bound_ms=least, bound_by=by, host_us=host_issue_us(fn))
+
+    from kubernetes_tpu_torch.kernels.fork import fork_masks, fork_masks_plain
+    from kubernetes_tpu_torch.kernels.selectorspread import (
+        selector_spread_score,
+        selector_spread_score_into_plain,
+    )
+
+    for label, (c, n, kind) in K32_CASES.items():
+        bits, full, total, counts, zone, has_zone = k32_inputs(label, dev)
+        kt, pt = total.clone(), total.clone()
+        selector_spread_score(bits, full, kt, counts, zone, has_zone, 1.0)
+        selector_spread_score_into_plain(bits, full, pt, counts, zone, has_zone, 1.0)
+        equal = torch.equal(kt.view(torch.int32), pt.view(torch.int32)) \
+            and not torch.equal(kt, total)
+        work = total.clone()
+        fn = (lambda a_=(bits, full, work, counts, zone, has_zone):
+              selector_spread_score(*a_, 1.0))
+        least, by = kw.bound_ms(*kw.k32_work(bits, full, has_zone))
+        add(f"selector_spread_score ({label})", fn, bool(equal), C=c, N=n,
+            masked=int((bits == full).sum()), bound_ms=least, bound_by=by,
+            host_us=host_issue_us(fn))
+
+    for label, (k, chips, per_fork, dups) in K30_CASES.items():
+        a30, kw30 = k30_inputs(label, dev)
+        got = fork_masks(*a30, **kw30)
+        want = fork_masks_plain(*a30, **kw30)  # the plain version on the card
+        equal = all((x is None and y is None) or torch.equal(x, y) for x, y in zip(got, want))
+        fn = (lambda a_=a30, k_=kw30: fork_masks(*a_, **k_))
+        least, by = kw.bound_ms(*kw.k30_work(a30, kw30))
+        add(f"fork_masks ({label})", fn, bool(equal), K=k, N=8192, P=16384, R=8,
+            claim_plane=chips, node_arrays_per_fork=per_fork, bound_ms=least, bound_by=by,
+            host_us=host_issue_us(fn))
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"root": str(root), "card": card.strip(),

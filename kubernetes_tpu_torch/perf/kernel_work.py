@@ -1,8 +1,9 @@
 """The bytes and operations each kernel must move and do on given inputs
 (``*_work``, the basis of ``bound_ms``), the synthetic inputs that
 ``chip_smoke.py`` and ``kernel_ab.py`` both build for K11 and K12, and the
-launch plans of K6 and K17, whose splits both scripts' cases and the CPU
-mirrors take from here (``k6_plan``, ``k17_plan``, ``k17_tie_rows``).
+launch plans of K6, K17 and K32 and K30's tiles, whose splits both
+scripts' cases and the CPU mirrors take from here (``k6_plan``,
+``k17_plan``, ``k17_tie_rows``, ``k32_plan``, ``K30_*``).
 
 A bound counts what the function needs on this data: each input read
 once, each output written once, and only the cells the data reaches.  The
@@ -100,6 +101,59 @@ def k17_tie_rows(n: int) -> list:
     at = [q * s + d for q in range(1, cl) for d in (-1, 0)]
     at += [n - n % 4 - 1, n - n % 4] if n % 4 and n > 4 else []
     return sorted({a for a in at + [n - 1] if 0 <= a < n})
+
+
+def k32_plan(n: int, vec: int = 4) -> tuple:
+    """(CL, S, threads): K32's launch plan for a lone row (at most 16 rows)
+    of ``n`` nodes, a copy of ``split_plan`` in csrc/selectorspread.cu
+    (``chip_smoke.py`` holds the two together on the card).  It splits a
+    row as K17's plan does: the fewest blocks, a power of two up to 8, of
+    at most 1024 nodes; S a multiple of 4; threads a whole number of warps
+    covering the slice's vectors of ``vec`` nodes, 32 to 1024."""
+    return k17_plan(n, vec)
+
+
+def k32_work(bits, full: int, has_zone) -> tuple:
+    """(bytes, operations) K32 must move and do on these inputs: the bit
+    plane read over every entry and has_zone once; on the masked entries
+    only both count planes and the total read and the total written (16
+    bytes an entry: an unmasked entry, node-tier padding included, is
+    skipped after its bit test).  One bit test an entry; on a masked entry
+    the two max steps and ~10 float steps."""
+    c, n = bits.shape
+    masked = int((bits == full).sum())
+    return nbytes(bits, has_zone) + 16 * masked, c * n + 12 * masked
+
+
+# K30's tiles and staging slots, a copy of csrc/fork.cu's NODE_TILE,
+# POD_TILE, AFF_TILE, THREADS and SEG: a block owns NODE_TILE nodes' rows,
+# POD_TILE pods or AFF_TILE affinity cells of one fork, and each of its
+# THREADS / 32 warps stages at most SEG of a group's entries for its tile
+K30_NODE_TILE, K30_POD_TILE, K30_AFF_TILE = 128, 4096, 1024
+K30_THREADS, K30_SEG = 256, 32
+
+
+def k30_work(args, kw) -> tuple:
+    """(bytes, operations) K30 must move and do on ``fork_masks``' arguments
+    ``args`` / ``kw``: the bases read once (the node group once a fork
+    when K31 gave it per fork), the K copies written once, the payload read
+    once and each live victim's pod_request / pod_non_zero rows read once.
+    Per live victim a subtract per resource, non-zero and claim column, per
+    live affinity contribution one."""
+    (nv, req, nz, claim, pv, preq, pnz, aff, vp, vn, ar, av, dr) = args
+    chips = kw.get("vic_claim_chips") is not None
+    k = vp.shape[0]
+    n, r = req.shape[-2:]
+    p = pv.shape[0]
+    g, d = aff.shape
+    per_fork = req.dim() == 3
+    node_one = n * (1 + 4 * r + 8 + (4 if chips else 0))
+    live_v = int((vp >= 0).sum())
+    n_bytes = (node_one * (k if per_fork else 1) + p + 4 * g * d
+               + k * (node_one + p + 4 * g * d)
+               + vp.numel() * (8 + (4 if chips else 0)) + ar.numel() * 8
+               + dr.numel() * 4 + live_v * (4 * r + 8))
+    return n_bytes, live_v * (r + 2 + (1 if chips else 0)) + int((ar >= 0).sum())
 
 
 def k6_plan(n: int, d1: int, vec: int = 4) -> tuple:
