@@ -28,10 +28,13 @@ Phases, all of which must pass (any failure exits non-zero):
    node must score 100), negative raw scores, and index groups of every
    kind; K11 and K12 also at kernel_work.py's shapes, K12 on a tables
    bucket of 65536 domains and at B = 6000 (two compaction passes); one
-   launch a call of K11 and K12 proven by a CUDA graph (as of K1, K7, K13,
-   K17 keyless and keyed, K19 and K29 later).  K13–K16: rows of −1, two
-   bundles on one node, a no-op bundle;
-   word and odd row widths with duplicate pad rows; unplaced and invalid
+   launch a call of K11 and K12 proven by a CUDA graph (as of K1, K7, K8,
+   K13, K16, K17 keyless and keyed, K19 and K29 later).  K8 with class_of
+   int64 and int32, and at C = 512 on a hostname table.  K13–K16: rows of
+   −1, two bundles on one node, a no-op bundle;
+   word and odd row widths with duplicate pad rows, 12-byte, bool and
+   3-byte rows at N = 8190 aligned and one element into their storage,
+   k = 0, K16's plan against kernel_work.k16_plan; unplaced and invalid
    prev pods; both IPA count forms, a carry with and without prev terms,
    an all-invalid prev term group.  K17–K19 (the exact scan's step): ties
    across the whole row, an all-infeasible row, a nominated row that is
@@ -1288,7 +1291,8 @@ def check_spread_kernels(dev) -> dict:
     domains, a row whose raw scores are all 0 (max 0), ignored (NaN) nodes,
     five domains with counts of 379 and 4927 under maxSkew 1, 3 and 64
     domains, one and two constraints, hostname tables, one row (C = 1) whose
-    filter clears bits — every output exactly equal."""
+    filter clears bits; K8 with class_of int64 and int32 — every output
+    exactly equal."""
     import torch
 
     from kubernetes_tpu_torch.kernels import spread as K
@@ -1342,17 +1346,19 @@ def check_spread_kernels(dev) -> dict:
         torch.cuda.synchronize()
         err["spread_score_combine"] = max(err["spread_score_combine"], require_equal(
             f"spread_score_combine ({what})", [("total", kt, pt)]))
-        ka = aux._replace(hard_counts=aux.hard_counts.clone(),
-                          soft_counts=aux.soft_counts.clone())
-        pa = aux._replace(hard_counts=aux.hard_counts.clone(),
-                          soft_counts=aux.soft_counts.clone())
-        K.spread_update_classes(ka, cs["commit"], cs["choice"], cs["class_of"])
-        K.spread_update_classes_plain(pa, cs["commit"], cs["choice"], cs["class_of"])
-        torch.cuda.synchronize()
-        err["spread_update_classes"] = max(err["spread_update_classes"], require_equal(
-            f"spread_update_classes ({what})",
-            [("hard_counts", ka.hard_counts, pa.hard_counts),
-             ("soft_counts", ka.soft_counts, pa.soft_counts)]))
+        # K8 reads the engines' int64; the wrapper widens int32 first
+        for class_of in (cs["class_of"], cs["class_of"].to(torch.int32)):
+            ka = aux._replace(hard_counts=aux.hard_counts.clone(),
+                              soft_counts=aux.soft_counts.clone())
+            pa = aux._replace(hard_counts=aux.hard_counts.clone(),
+                              soft_counts=aux.soft_counts.clone())
+            K.spread_update_classes(ka, cs["commit"], cs["choice"], class_of)
+            K.spread_update_classes_plain(pa, cs["commit"], cs["choice"], class_of)
+            torch.cuda.synchronize()
+            err["spread_update_classes"] = max(err["spread_update_classes"], require_equal(
+                f"spread_update_classes ({what}, class_of {str(class_of.dtype)[6:]})",
+                [("hard_counts", ka.hard_counts, pa.hard_counts),
+                 ("soft_counts", ka.soft_counts, pa.soft_counts)]))
     # the adversarial cases hit what they are named for
     c379 = cases[5]
     raw = K.spread_raw_plane(c379["aux"], c379["bits"] == c379["full"])
@@ -1371,6 +1377,31 @@ def check_spread_kernels(dev) -> dict:
     k6_plan_check()
     log(f"spread kernels vs plain: all equal over {len(cases)} cases")
     return err
+
+
+def k16_plan_check() -> None:
+    """K16's plan in csrc/scatter_rows.cu (``scatter_rows_plan``) equal to
+    the copy in ``kernel_work.k16_plan`` that the CPU mirror walks."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels.build import load
+
+    fn = load("scatter_rows").scatter_rows_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    differ = []
+    for rb, n, al16, al4 in itertools.product((0, 1, 2, 3, 4, 8, 12, 16, 24, 32, 48, 64, 1024,
+                                                4096, 8192, 65536), (1, 37, 8190, 8192, 100000),
+                                               (0, 1), (0, 1)):
+        fn(rb, n, al16, al4, out)
+        want = KW.k16_plan(rb, n, bool(al16), bool(al4))
+        if tuple(out) != want:
+            differ.append((rb, n, al16, al4, tuple(out), want))
+    if differ:
+        fail(f"scatter_rows_plan differs from kernel_work.k16_plan: {differ[:4]}")
+    else:
+        log("scatter_rows: the kernel's plan equals kernel_work.k16_plan")
 
 
 def k6_plan_check() -> None:
@@ -1654,7 +1685,9 @@ def check_pipeline_kernels(dev) -> dict:
     """K13–K16 against their plain versions, exactly equal: K13 with rows of
     −1, two bundles on one node, a no-op bundle and no bundle; K16 over
     bool / int32 / float32 arrays of word and odd row widths with duplicate
-    pad rows, at the node and pod tiers; K14 with unplaced and invalid prev
+    pad rows, at the node and pod tiers, on 12-byte, bool and 3-byte rows at
+    N = 8190 aligned and one element into their storage, with k = 0, and
+    its plan against ``kernel_work.k16_plan``; K14 with unplaced and invalid prev
     pods, one and two constraints; K15 in both count forms, with and
     without the prev terms (a carry with and without groups), an all-invalid
     prev term group and every weight sign.  The inputs stay unchanged."""
@@ -1720,6 +1753,34 @@ def check_pipeline_kernels(dev) -> dict:
             f"scatter_rows ({n_rows} rows, {k} payload rows)",
             [(f"array {i}", g, w) for i, (g, w) in enumerate(zip(got, want))]
             + [(f"input {i}", a, b) for i, (a, b) in enumerate(zip(arrays, before))]))
+    # K16 on 12-byte rows (4-byte words), a bool row and N = 8190 (no whole
+    # number of tiles), unaligned (views one element into their storage:
+    # 4-byte words, or bytes for the bool rows), and with k = 0
+    n_rows, k_real, k = 8190, 300, 512
+    rows = torch.randperm(n_rows, generator=gen)[:k_real].sort().values
+    padded = torch.cat([rows, rows[:1].expand(k - k_real)]).to(dev)
+    for what, shift in (("aligned", 0), ("unaligned", 1)):
+        arrays, vals = [], []
+        for shape, make in (((n_rows, 3), lambda *sh: ints(-50, 50, *sh)),
+                            ((n_rows,), lambda *sh: torch.rand(sh, generator=gen) < 0.5),
+                            ((n_rows, 3), lambda *sh: torch.rand(sh, generator=gen) < 0.5),
+                            ((n_rows, 2), lambda *sh: ints(-50, 50, *sh))):
+            for rows_of, out in ((n_rows, arrays), (k, vals)):
+                x = make(rows_of * (shape[1] if len(shape) > 1 else 1) + shift).to(dev)
+                out.append(x[shift:].reshape((rows_of,) + shape[1:]))
+        for v in vals:
+            v[k_real:] = v[0]
+        for kk in (k, 0):
+            rows_k, vals_k = padded[:kk], [v[:kk] for v in vals]
+            got = KS.scatter_rows(arrays, rows_k, vals_k)
+            want = KS.scatter_rows_plain(arrays, rows_k, vals_k)
+            torch.cuda.synchronize()
+            err["scatter_rows"] = max(err["scatter_rows"], require_equal(
+                f"scatter_rows (12-byte, bool and 3-byte rows, N = {n_rows}, {what}, k = {kk})",
+                [(f"array {i}", g, w) for i, (g, w) in enumerate(zip(got, want))]))
+            if kk == 0 and not all(torch.equal(g, a) for g, a in zip(got, arrays)):
+                fail(f"scatter_rows ({what}, k = 0): an array changed")
+    k16_plan_check()
 
     # K14
     for cc in (1, 2):
@@ -2145,7 +2206,16 @@ def check_scan_kernels(dev) -> dict:
     torch.cuda.synchronize()
     reuse["spread_filter_bits"] = max(reuse["spread_filter_bits"], require_equal(
         "spread_filter_bits (C = 512, hostname bucket)", [("bits", kb, pb)]))
-    del hcs
+    # K8 at C = 512 on the hostname table (D + 1 = 8193): identity classes
+    ka, pa = splug.engine_copy(hcs["aux"]), splug.engine_copy(hcs["aux"])
+    KSp.spread_update_classes(ka, hcs["commit"], hcs["choice"], hcs["class_of"])
+    KSp.spread_update_classes_plain(pa, hcs["commit"], hcs["choice"], hcs["class_of"])
+    torch.cuda.synchronize()
+    reuse["spread_update_classes"] = max(reuse["spread_update_classes"], require_equal(
+        "spread_update_classes (C = 512, hostname bucket)",
+        [("hard_counts", ka.hard_counts, pa.hard_counts),
+         ("soft_counts", ka.soft_counts, pa.soft_counts)]))
+    del hcs, ka, pa
     for cs in ipa_full[:2]:
         ident = torch.arange(b, device=dev)
         for label, aux, bits, total in (
@@ -2558,8 +2628,8 @@ def time_pipeline_kernels(last_calls: dict, err: dict) -> list:
         f"{rows_out[-1]['library_ms']:.5f}; queued {rows_out[-1]['queued_ms']:.5f} against "
         f"{rows_out[-1]['library_queued_ms']:.5f}")
 
-    # K16: the node group (the largest): every array read and written once,
-    # the payload read once
+    # K16: the node group (the largest), bound kernel_work.k16_work; one
+    # kernel node a call there and with k = 0
     node_key = max((k for k in last_calls if k[0] == "scatter_rows"), key=lambda k: k[1])
     arrays, rows_t, vals = last(node_key)
     got = KS.scatter_rows(arrays, rows_t, vals)
@@ -2572,10 +2642,16 @@ def time_pipeline_kernels(last_calls: dict, err: dict) -> list:
         "kubernetes_tpu/state/encoding.py:168,883", "scatter_rows_kernel",
         lambda: KS.scatter_rows(arrays, rows_t, vals),
         lambda: KS.scatter_rows_plain(arrays, rows_t, vals),
-        2 * nbytes(*arrays) + nbytes(rows_t, *vals), 0,
+        *KW.k16_work(arrays, rows_t, vals),
         {"arrays": len(arrays), "rows": arrays[0].shape[0], "payload_rows": rows_t.numel(),
          "distinct": int(rows_t.unique().numel())},
         library_fn=lambda: [a.index_copy(0, rl, v) for a, v in zip(arrays, vals)])
+    one_device_activity("scatter_rows (node group, path shapes)",
+                        lambda: KS.scatter_rows(arrays, rows_t, vals), "scatter_rows_kernel",
+                        "scatter_rows")
+    one_device_activity("scatter_rows (node group, k = 0)",
+                        lambda: KS.scatter_rows(arrays, rows_t[:0], [v[:0] for v in vals]),
+                        "scatter_rows_kernel", "scatter_rows")
 
     # K14: per matched placed prev pod, its node's counted flags and domain,
     # and the tables' read-modify-write where it counts
@@ -3652,19 +3728,15 @@ def time_spread_kernels(sched, err: dict) -> list:
     one_device_activity("spread_score_combine (TopologySpreading)",
                         lambda: K.spread_score_combine(aux, bits, full, work_total, weight),
                         "spread_score_kernel", "spread_score_combine")
-    # K8: the commit flags read once; per committed pod its node and class
-    # (int32) and each row's match bit; per matched row its two counted
-    # bits and its domain; per table add a read and a write
-    committed = torch.nonzero(commit, as_tuple=True)[0]
-    ks = class_t[committed]
-    ns = choice[committed].long().clamp(0, n - 1)
-    mp = aux.match_pending[:, :, ks]  # [C, Cc, commits]
-    adds = int((aux.counted_hard[:, ns][:, None, :] & mp).sum()
-               + (aux.counted_soft[:, ns][:, None, :] & mp).sum())
+    # K8 (k8_work) with the auction's own int64 class_of; one kernel node a
+    # call through the plugin's hook (no cast beside it)
     row("spread_update_classes", "spread_update_kernel",
         lambda: K.spread_update_classes(work_aux, commit, choice, class_t),
         lambda: K.spread_update_classes_plain(work_aux, commit, choice, class_t),
-        b + commits * (8 + c * cc) + int(mp.sum()) * (2 + 4) + 8 * adds, adds)
+        *KW.k8_work(aux, commit, choice, class_t))
+    one_device_activity("spread_update_classes (TopologySpreading, C = 4, int64 class_of)",
+                        lambda: plug.update_batch_classes(work_aux, commit, choice, class_t),
+                        "spread_update_kernel", "spread_update_classes")
     return rows
 
 
@@ -6021,12 +6093,12 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 
 # kernels already redesigned for Hopper in the port's step 2 (every row of
 # theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13, K1, K11,
-# K12, K17 (keyless and keyed), K6, K18, K32 and K30
+# K12, K17 (keyless and keyed), K6, K18, K32, K30, K8 and K16
 REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
               "ipa_update_row", "spread_score_combine", "prev_delta_apply",
               "filter_score_planes", "ipa_score_combine", "ipa_update_classes",
               "scan_select_assume", "spread_filter_bits", "spread_update_row",
-              "selector_spread_score", "fork_masks")
+              "selector_spread_score", "fork_masks", "spread_update_classes", "scatter_rows")
 
 
 def step2_order(rows: list) -> dict:
@@ -7706,30 +7778,29 @@ def time_engine_kernels(scan_args: dict, full_args: dict, err: dict, reuse_err: 
                              "present": list(aux.present)},
         reuse_err["ipa_update_classes"])
 
-    # K8 at C = 512 on the spread full auction's latest round: the commit
-    # flags read once; per committed pod its node and class and each row's
-    # match bit; per matched row its two counted bits and its domain; per
-    # table add a read and a write
+    # K8 at C = 512 on the spread full auction's latest round (k8_work), with
+    # the auction's own int64 class_of; one kernel node a call through the
+    # plugin's hook
     (aux8, commit, choice, class_t), _ = full_args["spread_update_classes"]
     splug = PodTopologySpreadPlugin()
     work8 = splug.engine_copy(aux8)
     c, cc, _cp = aux8.match_pending.shape
     n = aux8.dom_val.shape[-1]
-    committed = torch.nonzero(commit, as_tuple=True)[0]
-    ks = class_t[committed].long()
-    ns8 = choice[committed].long().clamp(0, n - 1)
-    mp = aux8.match_pending[:, :, ks]
-    adds = int((aux8.counted_hard[:, ns8][:, None, :] & mp).sum()
-               + (aux8.counted_soft[:, ns8][:, None, :] & mp).sum())
+    if class_t.dtype != torch.int64:
+        fail(f"spread_update_classes (C = 512): the auction handed over {class_t.dtype}, "
+             f"not int64")
     row("spread_update_classes", "spread_update_classes (C = 512)",
         "kubernetes_tpu_torch/csrc/spread.cu", "kubernetes_tpu/plugins/podtopologyspread.py:366",
         "spread_update_kernel",
         lambda: KSp.spread_update_classes(work8, commit, choice, class_t),
         lambda: KSp.spread_update_classes_plain(splug.engine_copy(aux8), commit, choice,
                                                 class_t),
-        commit.numel() + len(committed) * (8 + c * cc) + int(mp.sum()) * 6 + 8 * adds, adds,
+        *KW.k8_work(aux8, commit, choice, class_t),
         {"C": c, "Cc": cc, "N": n, "D+1": aux8.hard_counts.shape[-1],
-         "commits": len(committed)}, reuse_err["spread_update_classes"])
+         "commits": int(commit.sum())}, reuse_err["spread_update_classes"])
+    one_device_activity("spread_update_classes (C = 512, identity classes, int64 class_of)",
+                        lambda: splug.update_batch_classes(work8, commit, choice, class_t),
+                        "spread_update_kernel", "spread_update_classes")
     return rows
 
 

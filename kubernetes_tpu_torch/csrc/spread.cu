@@ -53,9 +53,21 @@
 //   barriers; above 16 rows one block a row (two at the 100k-node tier).
 //   The raw score is computed once, after the merge, and the normalize /
 //   floor / weight / add is written from registers.
-// K8 spread_update_classes: one thread per (committed pod, class
-//   constraint row); integer atomics into the tables.  O(B · C · Cc) where
-//   the reference's einsum is O(C · Cc · N).  Bound: latency.
+// K8 spread_update_classes: one auction round's commits into the class
+//   tables.  O(B · C · Cc) where the reference's einsum is O(C · Cc · N).
+//   Bound: latency (a round of TopologySpreading commits one pod).  One
+//   launch a call: class_of is read as the engines hand it over (int64),
+//   choice as int32, so the wrapper makes no copy on the path's dtypes.  One thread a (pod, class constraint row), a warp 32
+//   consecutive pods of one row, so the per-pod inputs are a warp's three
+//   coalesced loads.  Two dependent round trips where there were five: the
+//   pod's commit flag, class and node are issued together at entry, with
+//   no branch between them; then, for a committed pod, the row's match
+//   byte with the node's domain and counted flags at once; then the adds,
+//   atomic adds that nothing waits on, a warp's adds to one domain summed
+//   first.  (Measured slower, PERF.md §6: a thread owning a pod and a group
+//   of up to 8 rows, 2.54 µs on the one-commit round at C = 4 where a row a
+//   thread takes 1.46; summing a block's adds in shared memory, a barrier
+//   more on the path's one-commit rounds.)
 // K14 spread_chain_prev: the deep pipeline's chain hook — a still-in-flight
 //   batch's placements folded into this batch's tables (chain_prev,
 //   :306-339).  One thread per (class constraint row, prev pod): a placed
@@ -148,7 +160,7 @@ extern "C" int launch_spread_prepare(int C, int Cc, int P, int N, int D1,
   return (int)cudaGetLastError();
 }
 
-// --- shared by K6, K7 and K18 ------------------------------------------------------
+// --- shared by K6–K8 and K18 ------------------------------------------------------
 
 __device__ __forceinline__ void cluster_arrive_release() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
@@ -965,26 +977,72 @@ extern "C" int launch_spread_score(int C, int Cc, int N, int D1, const void* bit
 
 // --- K8 -----------------------------------------------------------------------------
 
-__global__ void spread_update_kernel(int B, int C, int Cc, int Cp, int N, int D1,
-                                     const uint8_t* __restrict__ commit,  // [B]
-                                     const int32_t* __restrict__ choice,  // [B]
-                                     const int32_t* __restrict__ class_of,  // [B]
-                                     const uint8_t* __restrict__ match_pending,  // [C, Cc, Cp]
-                                     const uint8_t* __restrict__ counted_hard,  // [C, N]
-                                     const uint8_t* __restrict__ counted_soft,  // [C, N]
-                                     const int32_t* __restrict__ dom_val,  // [C, Cc, N]
-                                     int32_t* __restrict__ hard,  // [C, Cc, D1]
-                                     int32_t* __restrict__ soft) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+#define UPDATE_THREADS 256
+
+// a pod's class row (int64), issued where it stands
+__device__ __forceinline__ long long ld_early_class(const long long* p) {
+  long long v;
+  asm volatile("ld.global.s64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+// one thread a (pod i, class constraint row); a warp 32 consecutive pods of
+// one row.  Round trip 1: i's commit flag, class and node, all issued
+// before the test on the flag (a warp with no committed pod stops there).
+// Round trip 2, for a committed pod: the row's match byte at i's class with
+// the row's domain and its class row's counted flags at i's node.  Then the
+// adds, atomic adds that nothing waits on: a lone adding lane adds 1; where
+// more lanes of the warp add, their adds to one domain of a table are summed
+// by their lowest lane (__match_any_sync), one atomic add a sum.
+__global__ void __launch_bounds__(UPDATE_THREADS)
+spread_update_kernel(int B, int Cc, int Cp, int N, int D1,
+                     const uint8_t* __restrict__ commit,  // [B]
+                     const int32_t* __restrict__ choice,  // [B]
+                     const long long* __restrict__ class_of,  // [B]
+                     const uint8_t* __restrict__ match_pending,  // [C, Cc, Cp]
+                     const uint8_t* __restrict__ counted_hard,  // [C, N]
+                     const uint8_t* __restrict__ counted_soft,  // [C, N]
+                     const int32_t* __restrict__ dom_val,  // [C, Cc, N]
+                     int32_t* __restrict__ hard,  // [C, Cc, D1]
+                     int32_t* __restrict__ soft) {
+  const int i = blockIdx.x * UPDATE_THREADS + threadIdx.x;
   const int row = blockIdx.y;  // c * Cc + cc
-  if (i >= B || !commit[i]) return;
-  const int k = class_of[i];
-  if (!match_pending[(long long)row * Cp + k]) return;
-  const int c = row / Cc;
-  const int n = min(max(choice[i], 0), N - 1);
-  const int dv = dom_val[(long long)row * N + n];
-  if (counted_hard[(long long)c * N + n]) atomicAdd(&hard[(long long)row * D1 + dv], 1);
-  if (counted_soft[(long long)c * N + n]) atomicAdd(&soft[(long long)row * D1 + dv], 1);
+  // --- round trip 1 -----------------------------------------------------------------
+  unsigned com = 0u;
+  long long k = 0;
+  int ch[1] = {0};
+  if (i < B) {
+    com = ld_early_flags<1>(commit + i);
+    k = ld_early_class(class_of + i);
+    ld_early_i32<1>(choice + i, ch);
+  }
+  if (!__any_sync(0xffffffffu, com)) return;
+  // --- round trip 2 -----------------------------------------------------------------
+  unsigned m = 0u, h = 0u, s = 0u;
+  int dv = -1;
+  if (com) {
+    const int n = min(max(ch[0], 0), N - 1);  // the reference clips the node row
+    const int c = row / Cc;
+    int d[1];
+    m = ld_early_flags<1>(match_pending + (size_t)row * Cp + k);
+    ld_early_i32<1>(dom_val + (size_t)row * N + n, d);
+    h = ld_early_flags<1>(counted_hard + (size_t)c * N + n);
+    s = ld_early_flags<1>(counted_soft + (size_t)c * N + n);
+    dv = d[0];
+  }
+  // --- the adds ------------------------------------------------------------------------
+  const int lane = threadIdx.x & 31;
+  const bool add_h = m && h, add_s = m && s;
+  const unsigned adders = __ballot_sync(0xffffffffu, add_h || add_s);
+  if (!(adders & (adders - 1))) {  // at most one lane adds: nothing to sum
+    if (add_h) atomicAdd(hard + (size_t)row * D1 + dv, 1);
+    if (add_s) atomicAdd(soft + (size_t)row * D1 + dv, 1);
+    return;
+  }
+  const unsigned ph = __match_any_sync(0xffffffffu, add_h ? dv : -1);
+  const unsigned ps = __match_any_sync(0xffffffffu, add_s ? dv : -1);
+  if (add_h && lane == __ffs(ph) - 1) atomicAdd(hard + (size_t)row * D1 + dv, __popc(ph));
+  if (add_s && lane == __ffs(ps) - 1) atomicAdd(soft + (size_t)row * D1 + dv, __popc(ps));
 }
 
 extern "C" int launch_spread_update(int B, int C, int Cc, int Cp, int N, int D1,
@@ -993,14 +1051,13 @@ extern "C" int launch_spread_update(int B, int C, int Cc, int Cp, int N, int D1,
                                     const void* counted_hard, const void* counted_soft,
                                     const void* dom_val, void* hard, void* soft,
                                     void* stream) {
-  if (B <= 0 || C <= 0 || Cc <= 0) return 0;
-  const int threads = 256;
-  dim3 grid((B + threads - 1) / threads, C * Cc);
-  spread_update_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      B, C, Cc, Cp, N, D1, (const uint8_t*)commit, (const int32_t*)choice,
-      (const int32_t*)class_of, (const uint8_t*)match_pending,
-      (const uint8_t*)counted_hard, (const uint8_t*)counted_soft,
-      (const int32_t*)dom_val, (int32_t*)hard, (int32_t*)soft);
+  if (B <= 0 || C <= 0 || Cc <= 0 || N <= 0) return 0;
+  const dim3 grid((B + UPDATE_THREADS - 1) / UPDATE_THREADS, C * Cc);
+  spread_update_kernel<<<grid, UPDATE_THREADS, 0, (cudaStream_t)stream>>>(
+      B, Cc, Cp, N, D1, (const uint8_t*)commit, (const int32_t*)choice,
+      (const long long*)class_of, (const uint8_t*)match_pending,
+      (const uint8_t*)counted_hard, (const uint8_t*)counted_soft, (const int32_t*)dom_val,
+      (int32_t*)hard, (int32_t*)soft);
   return (int)cudaGetLastError();
 }
 

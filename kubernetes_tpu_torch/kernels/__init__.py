@@ -17,7 +17,9 @@ more than once); ``reset_launches`` zeroes the counts.
   K5 spread_prepare_counts  csrc/spread.cu
   K6 spread_filter_bits     csrc/spread.cu
   K7 spread_score_combine   csrc/spread.cu
-  K8 spread_update_classes  csrc/spread.cu
+  K8 spread_update_classes  csrc/spread.cu (one launch a call, class_of read
+                            as the engines' int64: a thread a (pod, row), two
+                            dependent round trips, a warp's adds summed)
   K9 ipa_prepare            csrc/interpodaffinity.cu (ipa_prepare_counts,
                             ipa_existing_planes: one count per pass)
   K10 ipa_filter_bits       csrc/interpodaffinity.cu
@@ -33,7 +35,9 @@ more than once); ``reset_launches`` zeroes the counts.
   K15 ipa_chain_prev        csrc/interpodaffinity.cu (one launch per present
                             term group of this batch, and per prev term group
                             with a valid term)
-  K16 scatter_rows          csrc/scatter_rows.cu (one launch per array group)
+  K16 scatter_rows          csrc/scatter_rows.cu (one launch per array group:
+                            tiles of one array's rows over the whole card,
+                            16-byte vectors, loads ahead of stores)
   K17 scan_select_assume    csrc/scan.cu (the exact scan: one launch per step,
                             one pass over the row split across a cluster
                             of up to 8 blocks)

@@ -9,7 +9,10 @@ an in-flight batch still holds the previous snapshot).
 The payload's row list is padded to a power of two by repeating a row with
 equal values, so duplicate rows are harmless in any write order.  CPU
 tensors take the plain version (``index_copy`` per array); CUDA tensors
-launch K16 once for the whole group.
+launch K16 once for the whole group: tiles of one array's rows sized to
+fill the card, 16-byte vectors where the row bytes and pointers allow
+(narrow rows as a run of rows), each thread's loads issued before its
+first store, each output byte written once.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def scatter_rows(arrays: Sequence[torch.Tensor], rows: torch.Tensor,
     """→ new arrays, one per input array (all with the same leading row
     count): row ``rows[j]`` from ``vals[a][j]``, every other row from
     ``arrays[a]``.  CPU tensors take the plain version; CUDA tensors launch
-    K16 once for the group."""
+    K16 once for the group (``rows`` read as int64: the encoder's payload
+    is int64, so that is no copy on the path)."""
     arrays, vals = list(arrays), list(vals)
     if len(arrays) != len(vals):
         raise ValueError("scatter_rows: one payload per array")

@@ -341,12 +341,16 @@ def spread_update_classes_plain(aux, commit, choice, class_of) -> Tuple:
 
 def spread_update_classes(aux, commit, choice, class_of) -> Tuple:
     """Add one auction round's commits (``commit`` bool[B], ``choice``
-    i32[B] node rows, ``class_of`` [B] class rows) into the class tables
-    ``aux.hard_counts`` / ``aux.soft_counts`` in place: each committed pod
-    counts for every (class row, constraint) whose selector matches its
-    class and whose counted nodes include its node.  CPU tensors take the
-    plain version; CUDA tensors launch K8, one thread per (pod, class
-    constraint), O(B · C · Cc) instead of the reference's O(C · Cc · N)."""
+    i32[B] node rows, ``class_of`` [B] integer class rows) into the
+    class tables ``aux.hard_counts`` / ``aux.soft_counts`` in place: each
+    committed pod counts for every (class row, constraint) whose selector
+    matches its class and whose counted nodes include its node.  CPU
+    tensors take the plain version; CUDA tensors launch K8 once, with no
+    copy of the path's inputs (int64 ``class_of``, as the engines pass it;
+    another integer dtype is widened first): a thread a (pod, row), the
+    pod's inputs, then the row's match byte and node bytes, then the adds
+    (a warp's adds to one domain summed first) — O(B · C · Cc) instead of
+    the reference's O(C · Cc · N)."""
     if not commit.is_cuda:
         return spread_update_classes_plain(aux, commit, choice, class_of)
     c, cc, cp = aux.match_pending.shape
@@ -354,7 +358,7 @@ def spread_update_classes(aux, commit, choice, class_of) -> Tuple:
     n = aux.dom_val.shape[-1]
     d1 = aux.hard_counts.shape[-1]
     args = [commit.contiguous(), choice.to(torch.int32).contiguous(),
-            class_of.to(torch.int32).contiguous()]
+            class_of.to(torch.int64).contiguous()]
     args += [t.contiguous() for t in (aux.match_pending, aux.counted_hard,
                                       aux.counted_soft, aux.dom_val)]
     for t in (aux.hard_counts, aux.soft_counts):

@@ -2,8 +2,8 @@
 (ipa_score_combine), K12 (ipa_update_classes), K7 (spread_score_combine),
 K1 (filter_score_planes), K13 (prev_delta_apply), K17
 (scan_select_assume, keyless and keyed), K6 (spread_filter_bits), K18
-(spread_update_row), K32 (selector_spread_score) and K30 (fork_masks)
-timed on synthetic
+(spread_update_row), K32 (selector_spread_score), K30 (fork_masks), K8
+(spread_update_classes) and K16 (scatter_rows) timed on synthetic
 inputs at the shapes their paths give them, for the copy of ``kubernetes_tpu_torch`` under
 ``--root``, so that two trees (a parent and a change, unpacked side by
 side) are timed by the same methods on one card:
@@ -66,13 +66,26 @@ with a scalar tail).  K30 at ``K30_CASES`` (Defrag's K = 4 forks: N =
 8192, P = 16384, R = 8, G = D = 8, 8 victims, 8 affinity contributions and
 up to 4 removes a fork, −1 pads in each; with the claim plane; on per-fork
 node arrays as K31 hands them over on AutoscaleGang; K = 1; a duplicate
-victim and a duplicate affinity cell in every fork).  The K6, K17, K18,
-K32 and K30 rows carry ``host_us``, the host's issue time of one wrapper
-call over 1000 queued calls (``host_timer.py``).  K1's, K6's, K13's,
-K17's, K18's, K32's and K30's rows carry their bound
-(``kernel_work.k1_work`` / ``k6_work`` / the bytes the adds need /
-``k17_work`` / ``k18_work`` / ``k32_work`` / ``k30_work``, over the card's
-rates). The bound formulas,
+victim and a duplicate affinity cell in every fork).  K8 at ``K8_CASES``
+(B = 512 on ``spread_aux``'s tables: TopologySpreading's C = 4 round with
+one commit, ``class_of`` int64 as the engines pass it and int32, which
+the wrapper widens first; the full
+auction's identity classes, C = 512, with the path's one commit and with
+384 commits on the zone tables and on a hostname table, D + 1 = 8193; a
+round with no commit; every pod committed to one node): ``ms`` is every
+device activity of the call (a tree that casts ``class_of`` launches its
+cast there too), ``ms_kernel`` the K8 kernel's own.  K16 at ``K16_CASES``
+(the encoder's node group, 20 arrays at N = 8192 with the NorthStar
+path's payload, 400 dirty rows padded to 512; its pod group at P = 16384;
+its affinity group, G = 1024 with 256-domain count rows; the node group
+with k = 0 and with 100 rows padded to 512; bool, 12-byte and 3-byte rows
+at N = 8190), each beside ``index_copy`` per array timed by the same
+method.  The K6, K17, K18, K32, K30, K8 and K16 rows carry ``host_us``,
+the host's issue time of one wrapper call over 1000 queued calls
+(``host_timer.py``).  K1's, K6's, K13's, K17's, K18's, K32's, K30's, K8's
+and K16's rows carry their bound (``kernel_work.k1_work`` / ``k6_work`` /
+the bytes the adds need / ``k17_work`` / ``k18_work`` / ``k32_work`` /
+``k30_work`` / ``k8_work`` / ``k16_work``, over the card's rates). The bound formulas,
 K11 / K12's inputs, K17's plan and the host timer are ``kernel_work.py``
 and ``host_timer.py`` beside this file, whichever tree ``--root`` names:
 both trees are held to the same bound and timed by the same method. Needs a
@@ -333,6 +346,90 @@ def k32_inputs(label: str, dev, seed: int = 32):
     return t[0], full, t[1], t[2], t[3], t[4]
 
 
+# K8's shapes: label → (C, D, commits, class_of dtype, kind): B = 512 on
+# ``spread_aux``'s tables (one constraint, every pod matching every
+# selector), C = 4 the TopologySpreading round's class rows, C = 512 the
+# full auction's identity classes; kind "one node": every pod committed
+# to one node
+K8_CASES = {
+    "C = 4, one commit, int64 class_of": (4, 8, 1, "int64", None),
+    "C = 4, one commit, int32 class_of": (4, 8, 1, "int32", None),
+    "C = 512, identity classes, one commit": (512, 8, 1, "int64", None),
+    "C = 512, identity classes, 384 commits, zones": (512, 8, 384, "int64", None),
+    "C = 512, identity classes, 384 commits, hostname (D + 1 = 8193)":
+        (512, 8192, 384, "int64", None),
+    "C = 4, no commit": (4, 8, 0, "int64", None),
+    "C = 4, every pod committed to one node": (4, 8, 512, "int64", "one node"),
+}
+
+
+def k8_inputs(label: str, dev, seed: int = 8):
+    """(aux, commit, choice, class_of) at K8's shape ``label``: the commits
+    on distinct live nodes (kind "one node": all on node 1234), ``choice``
+    i32 and ``class_of`` as the engines pass them (int64; or int32)."""
+    import numpy as np
+    import torch
+
+    c, d, commits, dtype, kind = K8_CASES[label]
+    b = 512
+    aux = spread_aux(c, 1, d, dev, b=c)
+    rng = np.random.default_rng(seed + c + d + commits)
+    commit = np.zeros(b, bool)
+    commit[rng.permutation(b)[:commits]] = True
+    choice = rng.integers(0, 5000, b).astype(np.int32)
+    choice[commit] = 1234 if kind == "one node" else rng.permutation(5000)[:commits]
+    class_of = (np.arange(b) if c == b else rng.integers(0, c, b)).astype(dtype)
+    return (aux,) + tuple(torch.from_numpy(x).to(dev) for x in (commit, choice, class_of))
+
+
+# K16's array groups: (row shape, dtype) per array — the encoder's node
+# group (20 arrays, 535 bytes a node), its pod group (8 arrays) and its
+# affinity group (5 arrays, the counts 256 domains wide)
+K16_GROUPS = {
+    "node": [((), "bool"), ((), "int32"), ((8,), "int32"), ((8,), "int32"), ((2,), "int32"),
+             ((16,), "int32"), ((16,), "int32"), ((16,), "float32"), ((8,), "int32"),
+             ((8,), "int32"), ((8,), "int32"), ((8,), "int32"), ((8,), "int32"),
+             ((8,), "int32"), ((8,), "int32"), ((8,), "float32"), ((), "bool"), ((), "bool"),
+             ((), "int32"), ((), "int32")],
+    "pod": [((), "bool"), ((), "int32"), ((), "int32"), ((8,), "int32"), ((8,), "int32"),
+            ((), "int32"), ((8,), "int32"), ((2,), "int32")],
+    "affinity": [((), "bool"), ((), "int32"), ((), "float32"), ((), "int32"),
+                 ((256,), "float32")],
+    "bool, 12-byte and 3-byte rows": [((), "bool"), ((3,), "int32"), ((3,), "bool")],
+}
+# K16's shapes: label → (group, rows, dirty rows, payload rows)
+K16_CASES = {
+    "node group, N = 8192 (NorthStar path)": ("node", 8192, 400, 512),
+    "pod group, P = 16384": ("pod", 16384, 512, 512),
+    "affinity group, G = 1024": ("affinity", 1024, 5, 8),
+    "node group, k = 0": ("node", 8192, 0, 0),
+    "node group, 100 rows padded to 512": ("node", 8192, 100, 512),
+    "bool, 12-byte and 3-byte rows, N = 8190": ("bool, 12-byte and 3-byte rows", 8190, 300, 512),
+}
+
+
+def k16_inputs(label: str, dev, seed: int = 16):
+    """(arrays, rows, vals) at K16's shape ``label``: random arrays of the
+    group's widths; ``dirty`` distinct rows padded to ``k`` by repeating the
+    first (rows int64, as the encoder's payload), new values on the dirty
+    rows and a pad carrying its row's value."""
+    import numpy as np
+    import torch
+
+    group, n, dirty, k = K16_CASES[label]
+    rng = np.random.default_rng(seed + n + dirty)
+    arrays, vals = [], []
+    rows = np.sort(rng.permutation(n)[:dirty]).astype(np.int64)
+    rows = np.concatenate([rows, np.full(k - dirty, rows[0] if dirty else 0, np.int64)])
+    for shape, dtype in K16_GROUPS[group]:
+        a = rng.integers(-99, 99, (n,) + shape).astype(dtype)
+        v = rng.integers(-99, 99, (k,) + shape).astype(dtype)
+        v[dirty:] = v[0] if dirty else v[dirty:]
+        arrays.append(torch.from_numpy(a).to(dev))
+        vals.append(torch.from_numpy(v).to(dev))
+    return arrays, torch.from_numpy(rows).to(dev), vals
+
+
 # K30's shapes: label → (K, claim plane, per-fork node arrays, duplicates)
 K30_CASES = {
     "Defrag, K = 4": (4, False, False, False),
@@ -564,6 +661,7 @@ def main() -> None:
     build.load("scan")
     build.load("selectorspread")
     build.load("fork")
+    build.load("scatter_rows")
     plan = CombinePlan(kinds=(0, 0, 0, 1, 2), weights=(1.0, 1.0, 1.0, 1.0, 1.0), const_add=0.0)
     rows = []
 
@@ -841,6 +939,49 @@ def main() -> None:
         least, by = kw.bound_ms(*kw.k30_work(a30, kw30))
         add(f"fork_masks ({label})", fn, bool(equal), K=k, N=8192, P=16384, R=8,
             claim_plane=chips, node_arrays_per_fork=per_fork, bound_ms=least, bound_by=by,
+            host_us=host_issue_us(fn))
+
+    from kubernetes_tpu_torch.kernels.scatter import scatter_rows, scatter_rows_plain
+    from kubernetes_tpu_torch.kernels.spread import (
+        spread_update_classes,
+        spread_update_classes_plain,
+    )
+
+    for label, (c, d, commits, dtype, kind) in K8_CASES.items():
+        aux, commit, choice, class_of = k8_inputs(label, dev)
+        ka, pa = splug.engine_copy(aux), splug.engine_copy(aux)
+        spread_update_classes(ka, commit, choice, class_of)
+        spread_update_classes_plain(pa, commit, choice, class_of)
+        equal = torch.equal(ka.hard_counts, pa.hard_counts) \
+            and torch.equal(ka.soft_counts, pa.soft_counts) \
+            and torch.equal(ka.hard_counts, aux.hard_counts) == (commits == 0)
+        work = splug.engine_copy(aux)
+        fn = (lambda w_=work, a_=commit, b_=choice, c_=class_of:
+              spread_update_classes(w_, a_, b_, c_))
+        least, by = kw.bound_ms(*kw.k8_work(aux, commit, choice, class_of))
+        # ms: every device activity of the call (a tree that casts class_of
+        # launches its cast there too); ms_kernel: the K8 kernel's own
+        add(f"spread_update_classes ({label})", fn, bool(equal), C=c, Cc=1, B=512, N=8192,
+            D1=d + 1, commits=commits, class_of=dtype, bound_ms=least, bound_by=by,
+            ms_kernel=cs.device_ms(fn, "spread_update_kernel"), host_us=host_issue_us(fn))
+
+    for label, (group, n, dirty, k) in K16_CASES.items():
+        arrays, rows16, vals = k16_inputs(label, dev)
+        before = [a.clone() for a in arrays]
+        got = scatter_rows(arrays, rows16, vals)
+        want = scatter_rows_plain(arrays, rows16, vals)
+        equal = all(torch.equal(g, w_) for g, w_ in zip(got, want)) \
+            and all(torch.equal(a, b_) for a, b_ in zip(arrays, before)) \
+            and any(not torch.equal(g, a) for g, a in zip(got, arrays)) == (dirty > 0)
+        fn = (lambda a_=arrays, r_=rows16, v_=vals: scatter_rows(a_, r_, v_))
+
+        def library(a_=arrays, r_=rows16, v_=vals):
+            return [a.index_copy(0, r_, v) for a, v in zip(a_, v_)]
+
+        least, by = kw.bound_ms(*kw.k16_work(arrays, rows16, vals))
+        add(f"scatter_rows ({label})", fn, bool(equal), arrays=len(arrays), rows=n,
+            dirty=dirty, payload_rows=k, bytes=kw.nbytes(*arrays), bound_ms=least, bound_by=by,
+            library_ms=cs.device_ms(library), library_ms_source=cs.MS_SOURCE[0],
             host_us=host_issue_us(fn))
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -1,9 +1,9 @@
 """The bytes and operations each kernel must move and do on given inputs
 (``*_work``, the basis of ``bound_ms``), the synthetic inputs that
 ``chip_smoke.py`` and ``kernel_ab.py`` both build for K11 and K12, and the
-launch plans of K6, K17 and K32 and K30's tiles, whose splits both
+launch plans of K6, K16, K17 and K32 and K30's tiles, whose splits both
 scripts' cases and the CPU mirrors take from here (``k6_plan``,
-``k17_plan``, ``k17_tie_rows``, ``k32_plan``, ``K30_*``).
+``k16_plan``, ``k17_plan``, ``k17_tie_rows``, ``k32_plan``, ``K30_*``).
 
 A bound counts what the function needs on this data: each input read
 once, each output written once, and only the cells the data reaches.  The
@@ -211,6 +211,67 @@ def k18_work(aux, i: int, node_row) -> tuple:
                + (hit & aux.counted_soft[:, at][:, None]).sum())
     return (4 + b * cc + 4 * int(hit.sum()) + 2 * int(hit.any(dim=1).sum()) + 8 * adds,
             b * cc + adds)
+
+
+def k8_work(aux, commit, choice, class_of) -> tuple:
+    """(bytes, operations) one K8 round must move and do: every pod's
+    commit flag; per committed pod its node and class at their widths
+    (int64 ``class_of`` at 8 bytes), the match byte of every (class,
+    constraint) row at its class, at its node the domain of each matching
+    row and the two counted flags of each class row with a matching row; a
+    read and a write per table add.  Per committed pod a test a row, per
+    add an add."""
+    c, cc, _cp = aux.match_pending.shape
+    n = aux.dom_val.shape[-1]
+    committed = commit.nonzero(as_tuple=True)[0]
+    ks = class_of[committed].long()
+    ns = choice[committed].long().clamp(0, n - 1)
+    mp = aux.match_pending[:, :, ks]  # [C, Cc, commits]
+    adds = int((aux.counted_hard[:, ns][:, None, :] & mp).sum()
+               + (aux.counted_soft[:, ns][:, None, :] & mp).sum())
+    nc = int(committed.numel())
+    per_commit = choice.element_size() + class_of.element_size() + c * cc
+    return (nbytes(commit) + nc * per_commit + 4 * int(mp.sum())
+            + 2 * int(mp.any(dim=1).sum()) + 8 * adds, nc * c * cc + adds)
+
+
+# K16's block and tiles, a copy of csrc/scatter_rows.cu's THREADS, UNROLL and
+# MAX_TILE_ROWS: a block of THREADS threads owns a tile of THREADS · UNROLL
+# vectors of one array (at most MAX_TILE_ROWS rows, at least one)
+K16_THREADS, K16_UNROLL, K16_MAX_TILE_ROWS = 256, 2, 1024
+
+
+def k16_plan(row_bytes: int, n_rows: int, aligned16: bool = True, aligned4: bool = True,
+             *, tile_vectors: int = K16_THREADS * K16_UNROLL,
+             max_tile_rows: int = K16_MAX_TILE_ROWS) -> tuple:
+    """(vector bytes, tile rows, blocks): K16's plan for one array of
+    ``n_rows`` rows of ``row_bytes`` bytes, a copy of ``array_plan`` in
+    csrc/scatter_rows.cu (``chip_smoke.py`` holds the two together on the
+    card) — 16-byte vectors where the three pointers are 16-byte aligned and
+    a row is whole vectors or divides one, else 4-byte words where they are
+    4-byte aligned and a row is whole words, else bytes; a tile of ``tile_vectors`` vectors, at least one row
+    and at most ``max_tile_rows``; no block for a zero-width array."""
+    rb = row_bytes
+    v = 1
+    if rb > 0 and aligned16 and (rb % 16 == 0 or 16 % rb == 0):
+        v = 16
+    elif rb > 0 and aligned4 and rb % 4 == 0:
+        v = 4
+    tile_bytes = tile_vectors * v
+    tr = min(1 if rb >= tile_bytes else tile_bytes // max(rb, 1), max_tile_rows)
+    return v, tr, (n_rows + tr - 1) // tr if rb > 0 else 0
+
+
+def k16_work(arrays, rows, vals) -> tuple:
+    """(bytes, operations) K16 must move on one array group: every output
+    array written once, each old array read on its clean rows only (a
+    dirty row comes from the payload), the payload's row list read once and
+    its values once at each distinct dirty row (a pad repeats a row with
+    equal values).  No arithmetic."""
+    n = arrays[0].shape[0]
+    per_row = sum(a.numel() * a.element_size() for a in arrays) // n if n else 0
+    dirty = int(rows.unique().numel()) if rows.numel() else 0
+    return n * per_row + (n - dirty) * per_row + nbytes(rows) + dirty * per_row, 0
 
 
 def k7_work(aux, bits, full: int) -> tuple:

@@ -23,6 +23,10 @@ code on one card:
   (``chip_smoke._controller_harness``: the descheduler once a measured
   cycle, its what-if forks through K30); the harness's SchedulingThroughput.
   Each run must launch K30 in the window.
+* "NorthStar": NorthStar/5000Nodes/10000Pods through
+  ``perf.harness.run_workload`` (pipelined, depth 3, the 200 ms target: K13
+  and K16 every cycle); the harness's SchedulingThroughput.  Each run must
+  launch K16 in the window.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -37,7 +41,7 @@ import sys
 import time
 from pathlib import Path
 
-CELLS = ("TopologySpreading scan", "profiles scan wave", "Defrag")
+CELLS = ("TopologySpreading scan", "profiles scan wave", "Defrag", "NorthStar")
 
 
 def topology_scan(cs, torch, kernels) -> dict:
@@ -82,6 +86,21 @@ def defrag(cs, torch, kernels, out_dir: Path) -> dict:
             "gangs": rec["gangs"], "window_fork_masks": forks}
 
 
+def northstar(cs, torch, kernels) -> dict:
+    from kubernetes_tpu_torch.perf.harness import run_workload
+    from kubernetes_tpu_torch.perf.workloads import build_workload
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    items = run_workload(build_workload("NorthStar", "5000Nodes/10000Pods"), device="cuda")
+    wall = time.perf_counter() - t
+    summ = cs.harness_summary(items)
+    k16 = summ["window_launches"]["scatter_rows"]
+    if k16 <= 0:
+        sys.exit("scan_rate: NorthStar launched no K16 in its window")
+    return {"pods_per_s": summ["pods_per_s"], "wall_s": wall, "window_scatter_rows": k16}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the tree whose kubernetes_tpu_torch to run")
@@ -112,6 +131,8 @@ def main() -> None:
             run = topology_scan(cs, torch, kernels)
         elif args.cell == "profiles scan wave":
             run = profiles_scan_wave(cs, torch, kernels)
+        elif args.cell == "NorthStar":
+            run = northstar(cs, torch, kernels)
         else:
             run = defrag(cs, torch, kernels, Path(args.out).parent)
         runs.append(run)
