@@ -29,7 +29,10 @@ Phases, all of which must pass (any failure exits non-zero):
    kind; K11 and K12 also at kernel_work.py's shapes, K12 on a tables
    bucket of 65536 domains and at B = 6000 (two compaction passes); one
    launch a call of K11 and K12 proven by a CUDA graph (as of K1, K7, K8,
-   K13, K16, K17 keyless and keyed, K19 and K29 later).  K8 with class_of
+   K10, K13, K16, K17 keyless and keyed, K19, K27 and K29 later).  K10 at
+   kernel_work.K10_CASES (required affinity on zone tables, required
+   anti-affinity on hostname planes, no required term; C = 1, 4 and 512;
+   N = 8190).  K8 with class_of
    int64 and int32, and at C = 512 on a hostname table.  K13–K16: rows of
    −1, two bundles on one node, a no-op bundle;
    word and odd row widths with duplicate pad rows, 12-byte, bool and
@@ -63,7 +66,13 @@ Phases, all of which must pass (any failure exits non-zero):
    requests on 2^25-KiB nodes (float32 sums round), unbound and invalid
    pods, dead nodes, padding rows and failing static bits, and with batch
    rows at a (node, threshold)'s exact float32 fit value and one ulp above;
-   K29 (the dense form) at B = 64 over 300 priorities; K13 with the
+   K27 also at kernel_work.K27_CASES (the path's two live levels, a node
+   holding 6000 pods, more than a round; R = 16 over 128 levels, in
+   windows), at N = 1000 and 999, R = 5, with no live level (every level
+   a pad), and on a tier whose node column is off a 16-byte boundary; one
+   kernel node a call and no torch op beside it; its plan against
+   kernel_work.k27_plan; K29 (the dense form) at B = 64 over 300
+   priorities; K13 with the
    nominated bundle (no nz rows) beside two in-flight bundles, rows past N
    among them, at the path's sizes and in several staging chunks.  K1
    also past every width it stages (R = 12, 16 taints, ports and images a
@@ -1665,6 +1674,26 @@ def check_ipa_kernels(dev) -> dict:
     one_device_activity("ipa_update_classes (four groups)",
                         lambda: K.ipa_update_classes(work, commit, choice, class_of),
                         "ipa_update_kernel", "ipa_update_classes")
+    # K10 at kernel_work.K10_CASES (C = 1, 4, 512; zone tables with required
+    # affinity, hostname planes with required anti-affinity, no required
+    # term; N = 8190), bit for bit, and one launch a call
+    for label in KW.K10_CASES:
+        aux, seeded, bit = KW.k10_inputs(label, dev)
+        kb, pb = seeded.clone(), seeded.clone()
+        K.ipa_filter_bits(aux, kb, bit)
+        K.ipa_filter_bits_plain(aux, pb, bit)
+        torch.cuda.synchronize()
+        err["ipa_filter_bits"] = max(err["ipa_filter_bits"], require_equal(
+            f"ipa_filter_bits ({label})", [("bits", kb, pb)]))
+        if torch.equal(kb, seeded) != (KW.K10_CASES[label][2] == ("pref_affinity",)):
+            fail(f"ipa_filter_bits ({label}): bits cleared where the case has no required "
+                 "term or block, or none where it has")
+    for label in ("C = 4, planes, no required term", "C = 4, tables, required affinity",
+                  "C = 512, planes, required anti-affinity"):
+        aux, seeded, bit = KW.k10_inputs(label, dev)
+        one_device_activity(f"ipa_filter_bits ({label})",
+                            lambda a_=aux, b_=seeded.clone(): K.ipa_filter_bits(a_, b_, bit),
+                            "ipa_filter_kernel", "ipa_filter_bits")
     # the adversarial cases hit what they are named for
     if not bool((K.ipa_raw_plane(cases[5]["aux"]) < 0).any()):
         fail("ipa check: the preferred anti-affinity case produced no negative raw score")
@@ -3998,14 +4027,12 @@ def time_ipa_kernels(sched, err: dict) -> list:
         lambda: (K.ipa_prepare_counts(*a9), K.ipa_existing_planes(*e9)),
         lambda: (K.ipa_prepare_counts_plain(*a9), K.ipa_existing_planes_plain(*e9)),
         k9_bytes, k9_ops)
-    # K10 (no required term in this batch): the existing-pod block and the
-    # dynamic block planes read once; the bit plane read and written only
-    # where the filter fails
-    n_fail = int((~K.ipa_filter_plane(aux)).sum())
+    # K10 (no required term in this batch): kernel_work.k10_work on the plane
+    # as K1 seeded it
     row("ipa_filter_bits", "ipa_filter_kernel",
         lambda: K.ipa_filter_bits(aux, work_bits, bit),
         lambda: K.ipa_filter_bits_plain(aux, work_bits.clone(), bit),
-        nbytes(aux.exist_anti_block, aux.block_dyn) + 8 * n_fail, 2 * c * n)
+        *KW.k10_work(aux, seeded, bit))
     # K11 and K12: kernel_work.py's k11_work / k12_work (the bytes and
     # operations each must move and do on these inputs)
     row("ipa_score_combine", "ipa_score_kernel",
@@ -5104,6 +5131,7 @@ def check_preempt_kernels(dev) -> dict:
     torch.cuda.synchronize()
     err["priority_prefix"] = require_equal("priority_prefix (128 levels)", [
         ("prefix", prefix.cpu(), want_p), ("prefix_cnt", cnt.cpu(), want_c)])
+    err["priority_prefix"] = max(err["priority_prefix"], prefix_cases_equal(gen, dev))
     # the boundary rows: the port's float32 fit value for (node, threshold)
     # and one ulp above it
     b = c["priority"].shape[0]
@@ -5168,10 +5196,87 @@ def check_preempt_kernels(dev) -> dict:
                                                   require_equal(
             f"prev_delta_apply (nominated + two in-flight bundles, {sizes})",
             [("requested", got[0], want[0]), ("non_zero", got[1], want[1])]))
+    k27_plan_check()
+    a27 = KW.k27_inputs("path", dev)
+    host = one_device_activity("priority_prefix (path shapes)",
+                               lambda: KP.priority_prefix(*a27), "priority_prefix_kernel",
+                               "priority_prefix", host_ops=True)
+    if [k_ for k_ in host if not k_.startswith("aten::empty")]:
+        fail(f"priority_prefix: torch ops beside the kernel on the host: {host}")
     log("preempt kernels vs plain: all equal (K27 + K28 at 128 levels with rounding sums, "
         f"{hits} boundary pairs split; K29 at 300 priorities and on {len(DENSE_CASES)} edge "
         "cases, one kernel a call and no sort; K13 with the nominated bundle)")
     return err
+
+
+def prefix_cases_equal(gen, dev) -> float:
+    """K27 against its plain version on CPU copies, bit for bit, one launch a
+    call: kernel_work.K27_CASES (the path's two live levels, a hot node past
+    a round, R = 16 over 128 levels in windows) and edge cases — N = 1000
+    (not a multiple of the tile) and 999 (no 16-byte count rows), R = 5
+    (scalar request rows), two live levels of 2 and no live level, a tier
+    of 3001 rows whose node column starts 4 bytes past a boundary."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import preempt as KP
+
+    pod = ("pod_valid", "pod_node", "pod_priority", "pod_request")
+    cases = {label: KW.k27_inputs(label, dev) for label in KW.K27_CASES}
+    for name, kw_ in (("N = 1000", dict(n=1000, p=6000)), ("N = 999", dict(n=999, p=6000)),
+                      ("R = 5", dict(n=1000, p=5000, r=5)),
+                      ("misaligned tier, P = 3001", dict(n=700, p=3001))):
+        c = preempt_case(gen, b=8, **kw_)
+        lv = _levels(c["pod_priority"], c["pod_valid"] & (c["pod_node"] >= 0))
+        args = [c[k].to(dev) for k in pod]
+        if name.startswith("misaligned"):
+            flat = torch.empty(args[1].numel() + 1, dtype=torch.int32, device=dev)
+            flat[1:] = args[1]
+            args[1] = flat[1:]
+        cases[name] = (*args, lv.to(dev), c["allocatable"].shape[0])
+    c = preempt_case(gen, n=600, p=4000, b=8, n_prio=2)
+    cases["no live level"] = (*(c[k].to(dev) for k in pod),
+                              torch.full((128,), 2 ** 31 - 1, dtype=torch.int32, device=dev), 600)
+    err = 0.0
+    for name, a in cases.items():
+        before = kernels.LAUNCHES["priority_prefix"]
+        got = KP.priority_prefix(*a)
+        if kernels.LAUNCHES["priority_prefix"] - before != 1:
+            fail(f"priority_prefix ({name}): not one launch")
+        want = KP.priority_prefix_plain(*[x.cpu() if isinstance(x, torch.Tensor) else x
+                                          for x in a])
+        torch.cuda.synchronize()
+        err = max(err, require_equal(f"priority_prefix ({name})", [
+            ("prefix", got[0].cpu(), want[0]), ("prefix_cnt", got[1].cpu(), want[1])]))
+        if name != "no live level" and not float(want[1].max()) > 0:
+            fail(f"priority_prefix ({name}): no pod counted")
+    hot = cases["hot node"]
+    if int(((hot[0] & (hot[1] == 7)).sum())) <= KP.PREFIX_CAP:
+        fail("priority_prefix: the hot node holds no more pods than a round")
+    if KW.k27_plan(16, 128)[0] >= 128:
+        fail("priority_prefix: R = 16 over 128 levels takes no second window")
+    log(f"priority_prefix: equal on {len(cases)} more cases, one launch each")
+    return err
+
+
+def k27_plan_check() -> None:
+    """K27's plan in csrc/preempt.cu (``priority_prefix_plan``) equal to the
+    copy in ``kernel_work.k27_plan`` that the CPU mirror walks."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels.build import load
+
+    fn = load("preempt").priority_prefix_plan
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    differ = []
+    for r, k in itertools.product(range(17), (0, 1, 16, 17, 128, 256)):
+        if fn(r, k, out) != 0 or tuple(out) != KW.k27_plan(r, k):
+            differ.append((r, k, tuple(out), KW.k27_plan(r, k)))
+    if differ:
+        fail(f"priority_prefix_plan differs from kernel_work.k27_plan: {differ[:4]}")
+    log("priority_prefix: the kernel's plan equals kernel_work.k27_plan")
 
 
 DENSE_POD = ("pod_valid", "pod_node", "pod_priority", "pod_request")
@@ -5605,10 +5710,10 @@ def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) ->
 
     def measure(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None):
         least, bound_by = bound_ms(n_bytes, n_ops)
-        # K29: the whole call's device time (its one kernel; a design that
-        # prepared indices before it would be timed with them)
+        # K27 and K29: the whole call's device time (their one kernel; a
+        # design that prepared indices before it is timed with them)
         ms, libs, source = ms_one_method(
-            fn, None if name == "candidate_dense" else PREEMPT_SYMBOLS[name],
+            fn, None if name in ("candidate_dense", "priority_prefix") else PREEMPT_SYMBOLS[name],
             *([library_fn] if library_fn else []))
         return {"ms": ms, "ms_source": source,
                 "call_ms": time_ms(fn), "plain_ms": time_ms(plain_fn, reps=5, warmup=1),
@@ -5621,9 +5726,8 @@ def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) ->
                          "replaces": PREEMPT_REPLACES[name], "launches": None,
                          "max_abs_err": err[name], **measure(name, *args, **kw)})
 
-    # K27: the pod tier and the levels read once, the [K+1, N, R+1] output
-    # written once (the wrapper's by-node segments are index preparation,
-    # which the function does not need)
+    # K27: kernel_work.k27_work (the tier it needs, the levels, the
+    # [K+1, N, R+1] output written once)
     a27 = last("priority_prefix")
     valid, node, prio, req, levels, n = a27
     got = KP.priority_prefix(*a27)
@@ -5641,9 +5745,7 @@ def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) ->
         * bound[:, None].float()
     table = torch.zeros((k + 1, n, r + 1), device=req.device)
     row("priority_prefix", lambda: KP.priority_prefix(*a27),
-        lambda: KP.priority_prefix_plain(*a27),
-        p * (1 + 4 + 4 + 4 * r) + 4 * k + 4 * (k + 1) * n * (r + 1),
-        int(bound.sum()) * (r + 1),
+        lambda: KP.priority_prefix_plain(*a27), *KW.k27_work(*a27),
         {"P": p, "N": n, "R": r, "K": k, "live_levels": int((levels < 2 ** 31 - 1).sum()),
          "bound_pods": int(bound.sum())},
         library_fn=lambda: table.zero_().index_put_((kk, nrow), contrib,
@@ -6093,12 +6195,13 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 
 # kernels already redesigned for Hopper in the port's step 2 (every row of
 # theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13, K1, K11,
-# K12, K17 (keyless and keyed), K6, K18, K32, K30, K8 and K16
+# K12, K17 (keyless and keyed), K6, K18, K32, K30, K8, K16, K27 and K10
 REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
               "ipa_update_row", "spread_score_combine", "prev_delta_apply",
               "filter_score_planes", "ipa_score_combine", "ipa_update_classes",
               "scan_select_assume", "spread_filter_bits", "spread_update_row",
-              "selector_spread_score", "fork_masks", "spread_update_classes", "scatter_rows")
+              "selector_spread_score", "fork_masks", "spread_update_classes", "scatter_rows",
+              "priority_prefix", "ipa_filter_bits")
 
 
 def step2_order(rows: list) -> dict:
@@ -7374,7 +7477,7 @@ def scan_recorder():
                        "ipa_filter_bits": (IPA_PLUGIN, "ipa_filter_bits", one_plugin_row),
                        "ipa_score_combine": (IPA_PLUGIN, "ipa_score_combine",
                                              one_plugin_row)},
-                      seeded=("spread_filter_bits",))
+                      seeded=("spread_filter_bits", "ipa_filter_bits"))
 
 
 def b9_row_bounds(spread_calls: dict, ipa_calls: dict) -> dict:
@@ -7383,7 +7486,6 @@ def b9_row_bounds(spread_calls: dict, ipa_calls: dict) -> dict:
     SchedulingPreferredPodAffinity scan) on one pod's row — the exact scan's
     step (B9) — by the formulas of time_kernels, time_spread_kernels and
     time_ipa_kernels at C = 1: name → {bytes, ops, bound_ms, bound_by}."""
-    from kubernetes_tpu_torch.kernels import interpodaffinity as KI
     from kubernetes_tpu_torch.kernels.filter_score import filter_score_planes
     from kubernetes_tpu_torch.kernels.normalize import normalize_combine
 
@@ -7407,10 +7509,7 @@ def b9_row_bounds(spread_calls: dict, ipa_calls: dict) -> dict:
     n = bits6.shape[1]
     work["spread_filter_bits"] = KW.k6_work(aux6, bits6, bit6)
     work["spread_score_combine"] = k7_work(*last(spread_calls, "spread_score_combine")[:3])
-    aux10, bits10 = last(ipa_calls, "ipa_filter_bits")[:2]
-    n10 = bits10.shape[1]
-    work["ipa_filter_bits"] = (nbytes(aux10.exist_anti_block, aux10.block_dyn)
-                               + 8 * int((~KI.ipa_filter_plane(aux10)).sum()), 2 * n10)
+    work["ipa_filter_bits"] = KW.k10_work(*last(ipa_calls, "ipa_filter_bits")[:3])
     work["ipa_score_combine"] = KW.k11_work(*last(ipa_calls, "ipa_score_combine")[:3])
     out = {}
     for name, (n_bytes, n_ops) in work.items():

@@ -27,8 +27,15 @@
 //             the owner count at the node's domain under the group's key;
 //             a matched BLOCK group with an owner blocks, the others add
 //             weight · count.  Bound: bytes (node_topo and the planes).
-// K10 ipa_filter: one thread per (class row, node); clears the filter's bit
-//   of K1's pass-bit plane in place.  Bound: bytes.
+// K10 ipa_filter: clears the filter's bit of K1's pass-bit plane in place,
+//   one launch a call.  Bound: latency (a launch and a round trip or two; by
+//   bytes, the block planes, each present term's domains and counts, and the
+//   bits where they fail).  Design: a thread owns a run of 4 nodes of a row;
+//   every load at entry (volatile asm, int4 and 4-byte words), at most one
+//   dependent round trip (the tables' counts at the nodes' domains, every
+//   term and node together), the verdict in registers, an int4 store only
+//   where a bit clears; with no required term, the bits read only where a
+//   block fails.
 // K11 ipa_score: score + normalize + the weighted floor into K2's total, one
 //   launch a call, one pass.  Bound: bytes (the bit plane read once; on
 //   feasible nodes the static and dynamic scores, each preferred term's
@@ -289,54 +296,255 @@ extern "C" int launch_ipa_existing(int G, int C, int N, int K, int Dw, const voi
   return (int)cudaGetLastError();
 }
 
-// --- K10 ---------------------------------------------------------------------------------
-
-// count of term row `row` at node n: the plane entry, or the table at the
-// node's domain (the trash slot included, as the reference's gather reads it)
-__device__ __forceinline__ int read_count(const int32_t* cnt, int W, int N, long long row,
-                                          int n, int dv) {
-  return (W == N) ? cnt[row * N + n] : cnt[row * W + dv];
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15u) == 0;
 }
 
-__global__ void ipa_filter_kernel(int C, int N, int D, int bit,
-                                  int T1, int W1,
-                                  const uint8_t* __restrict__ aff_valid,   // [C, T1] or null
-                                  const int32_t* __restrict__ dom_aff,     // [C, T1, N]
-                                  const int32_t* __restrict__ aff_cnt,     // [C, T1, W1]
-                                  const int32_t* __restrict__ aff_total,   // [C]
-                                  const uint8_t* __restrict__ self_match,  // [C]
-                                  int T2, int W2,
-                                  const int32_t* __restrict__ dom_anti,    // [C, T2, N] or null
-                                  const int32_t* __restrict__ anti_cnt,    // [C, T2, W2]
-                                  const uint8_t* __restrict__ exist,       // [C, N]
-                                  const uint8_t* __restrict__ block_dyn,   // [C, N]
-                                  int32_t* __restrict__ bits) {            // [C, N]
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+// --- K10 ---------------------------------------------------------------------------------
+// A thread owns a run of FILTER_RUN nodes of one row (blockIdx.y).  With a
+// required term every load goes out at entry, before any is tested: the
+// run's bits as int4, its exist / block_dyn bytes as one word each, the
+// row's flags, and for the first TB terms of each present group the domains
+// (and, planes form, the counts) as int4 -- volatile asm loads, which no
+// early exit or branch sinks.  Tables form: the count at each node's domain
+// is the one dependent load, issued for every term and node of the run
+// together, and only where the node's bit is set and no block already fails
+// it.  With no required term (the path's batch) only a block fails a node:
+// the run loads its two block words, and its bits only where one is set.
+// The verdict stays in registers; bits go back as int4 only where a node's
+// bit clears.  A run past N's end, or in a row of N not a multiple of 4,
+// takes the scalar form: the same loads, one element each, all still at
+// entry; terms past the first TB of a group take further passes.  Four
+// nodes a thread and 128 threads a block measured faster than 16 nodes or
+// 256 threads (PERF.md, the kernel table).
+#define FILTER_RUN 4
+#define FILTER_THREADS 128
+
+struct FilterArgs {
+  int C, N, D, bit;
+  int T1, W1;
+  const uint8_t* aff_valid;   // [C, T1] or null (no required-affinity group)
+  const int32_t* dom_aff;     // [C, T1, N]
+  const int32_t* aff_cnt;     // [C, T1, W1]
+  const int32_t* aff_total;   // [C]
+  const uint8_t* self_match;  // [C]
+  int T2, W2;
+  const int32_t* dom_anti;    // [C, T2, N] or null
+  const int32_t* anti_cnt;    // [C, T2, W2]
+  const uint8_t* exist;       // [C, N]
+  const uint8_t* block_dyn;   // [C, N]
+  int32_t* bits;              // [C, N], updated in place
+  int vec;                    // N a multiple of 4 and every array 16-byte aligned
+};
+
+// a run's int32 from p: one int4 load (vec), else the first n one at a time
+// (0 past n)
+__device__ __forceinline__ void filter_ld_i32(const int32_t* p, int (&o)[FILTER_RUN], bool vec,
+                                              int n) {
+  if (vec) {
+    asm volatile("ld.global.v4.s32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(o[0]), "=r"(o[1]), "=r"(o[2]), "=r"(o[3]) : "l"(p));
+  } else {
+#pragma unroll
+    for (int k = 0; k < FILTER_RUN; ++k) {
+      o[k] = 0;
+      if (k < n) asm volatile("ld.global.s32 %0, [%1];" : "=r"(o[k]) : "l"(p + k));
+    }
+  }
+}
+
+// a run's bool bytes from p → bit k set where byte k is not 0: one word
+// (vec), else the first n bytes one at a time
+__device__ __forceinline__ unsigned filter_ld_flags(const uint8_t* p, bool vec, int n) {
+  unsigned w = 0u;
+  if (vec) {
+    asm volatile("ld.global.u32 %0, [%1];" : "=r"(w) : "l"(p));
+  } else {
+#pragma unroll
+    for (int k = 0; k < FILTER_RUN; ++k) {
+      unsigned b = 0u;
+      if (k < n) asm volatile("ld.global.u8 %0, [%1];" : "=r"(b) : "l"(p + k));
+      w |= b << (8 * k);
+    }
+  }
+  unsigned f = 0u;
+#pragma unroll
+  for (int k = 0; k < FILTER_RUN; ++k)
+    if ((w >> (8 * k)) & 0xffu) f |= 1u << k;
+  return f;
+}
+
+__device__ __forceinline__ unsigned filter_ld_u8(const uint8_t* p) {
+  unsigned v;
+  asm volatile("ld.global.u8 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ int filter_ld_one(const int32_t* p) {
+  int v;
+  asm volatile("ld.global.s32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// the run's bits back where `clear` has a node: an int4 (vec), else each
+// such node's word
+__device__ __forceinline__ void filter_store(int32_t* p, int (&bw)[FILTER_RUN], unsigned clear,
+                                             int bit, bool vec) {
+#pragma unroll
+  for (int k = 0; k < FILTER_RUN; ++k)
+    if ((clear >> k) & 1u) bw[k] &= ~(1 << bit);
+  if (vec) {
+    *reinterpret_cast<int4*>(p) = make_int4(bw[0], bw[1], bw[2], bw[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < FILTER_RUN; ++k)
+      if ((clear >> k) & 1u) p[k] = bw[k];
+  }
+}
+
+// up to TB terms [t0, t0 + TB) of one group on a run: domains and counts
+// (the node's own, planes form; at its domain, tables form)
+template <int TB>
+struct FilterTerms {
+  int dom[TB][FILTER_RUN];
+  int cnt[TB][FILTER_RUN];
+  unsigned valid;  // bit t: term t0 + t takes part
+};
+
+template <int TB>
+__device__ __forceinline__ void filter_terms_load(FilterTerms<TB>& g, const int32_t* dom,
+                                                  const int32_t* cnt, int T, int W, int N,
+                                                  int c, int t0, int n0, bool vec, int n) {
+#pragma unroll
+  for (int t = 0; t < TB; ++t) {
+    if (t0 + t >= T) break;
+    const long long row = (long long)c * T + t0 + t;
+    filter_ld_i32(dom + row * N + n0, g.dom[t], vec, n);
+    if (W == N) filter_ld_i32(cnt + row * N + n0, g.cnt[t], vec, n);
+  }
+}
+
+// tables form: the counts at the domains of the nodes in `need`, every load
+// issued before any is used (a domain of D or more reads nothing: no key)
+template <int TB>
+__device__ __forceinline__ void filter_terms_counts(FilterTerms<TB>& g, const int32_t* cnt,
+                                                    int T, int W, int N, int D, int c, int t0,
+                                                    unsigned need) {
+  if (W == N) return;
+#pragma unroll
+  for (int t = 0; t < TB; ++t) {
+    if (t0 + t >= T) break;
+    const int32_t* crow = cnt + ((long long)c * T + t0 + t) * W;
+#pragma unroll
+    for (int k = 0; k < FILTER_RUN; ++k)
+      g.cnt[t][k] = ((need >> k) & 1u) && ((g.valid >> t) & 1u) && g.dom[t][k] < D
+                        ? __ldg(crow + g.dom[t][k]) : 0;
+  }
+}
+
+// one pass over terms [t0, t0 + TB) of both groups: loads (the first pass's
+// were issued at entry), then the tables' counts, then the verdict bits
+template <int TB>
+__device__ __forceinline__ void filter_terms_pass(const FilterArgs& a, int c, int t0,
+                                                  unsigned need, FilterTerms<TB>& fa,
+                                                  FilterTerms<TB>& fn, unsigned& unkeyed,
+                                                  unsigned& empty, unsigned& blocked) {
+  if (a.dom_aff) filter_terms_counts<TB>(fa, a.aff_cnt, a.T1, a.W1, a.N, a.D, c, t0, need);
+  if (a.dom_anti) filter_terms_counts<TB>(fn, a.anti_cnt, a.T2, a.W2, a.N, a.D, c, t0, need);
+#pragma unroll
+  for (int t = 0; t < TB; ++t) {
+#pragma unroll
+    for (int k = 0; k < FILTER_RUN; ++k) {
+      if (a.dom_aff && t0 + t < a.T1 && ((fa.valid >> t) & 1u)) {
+        if (fa.dom[t][k] >= a.D) unkeyed |= 1u << k;
+        if (fa.cnt[t][k] <= 0) empty |= 1u << k;
+      }
+      if (a.dom_anti && t0 + t < a.T2 && fn.dom[t][k] < a.D && fn.cnt[t][k] > 0)
+        blocked |= 1u << k;
+    }
+  }
+}
+
+// the run of nodes [n0, n0 + n) of row c: vector loads and stores where
+// `vec`, else one element at a time
+template <int TB>
+__device__ __forceinline__ void filter_run(const FilterArgs& a, int c, int n0, bool vec, int n) {
+  const long long at = (long long)c * a.N + n0;
+  int bw[FILTER_RUN];
+  if (!a.dom_aff && !a.dom_anti) {
+    // no required term: only a block fails a node; the bits where one does
+    const unsigned fb = filter_ld_flags(a.exist + at, vec, n) |
+                        filter_ld_flags(a.block_dyn + at, vec, n);
+    if (!fb) return;
+    filter_ld_i32(a.bits + at, bw, vec, n);
+    unsigned clear = 0u;
+#pragma unroll
+    for (int k = 0; k < FILTER_RUN; ++k)
+      if (((fb >> k) & 1u) && ((bw[k] >> a.bit) & 1)) clear |= 1u << k;
+    if (clear) filter_store(a.bits + at, bw, clear, a.bit, vec);
+    return;
+  }
+  filter_ld_i32(a.bits + at, bw, vec, n);
+  const unsigned ex = filter_ld_flags(a.exist + at, vec, n);
+  const unsigned bd = filter_ld_flags(a.block_dyn + at, vec, n);
+  int total = 0;
+  unsigned self = 0u;
+  FilterTerms<TB> fa, fn;
+  fa.valid = fn.valid = (1u << TB) - 1u;
+  if (a.dom_aff) {
+    total = filter_ld_one(a.aff_total + c);
+    self = filter_ld_u8(a.self_match + c);
+    unsigned v[TB];
+#pragma unroll
+    for (int t = 0; t < TB; ++t)
+      v[t] = t < a.T1 ? filter_ld_u8(a.aff_valid + (long long)c * a.T1 + t) : 0u;
+    filter_terms_load<TB>(fa, a.dom_aff, a.aff_cnt, a.T1, a.W1, a.N, c, 0, n0, vec, n);
+    fa.valid = 0u;
+#pragma unroll
+    for (int t = 0; t < TB; ++t) fa.valid |= (v[t] ? 1u : 0u) << t;
+  }
+  if (a.dom_anti)
+    filter_terms_load<TB>(fn, a.dom_anti, a.anti_cnt, a.T2, a.W2, a.N, c, 0, n0, vec, n);
+
+  // the nodes whose bit is set; of them, those no block fails already are
+  // the ones the terms decide
+  unsigned set = 0u;
+#pragma unroll
+  for (int k = 0; k < FILTER_RUN; ++k) set |= (unsigned)((bw[k] >> a.bit) & 1) << k;
+  const unsigned need = set & ~(ex | bd);
+  unsigned unkeyed = 0u, empty = 0u, blocked = 0u;
+  if (need) {
+    filter_terms_pass<TB>(a, c, 0, need, fa, fn, unkeyed, empty, blocked);
+    const int tmax = max(a.dom_aff ? a.T1 : 0, a.dom_anti ? a.T2 : 0);
+    for (int t0 = TB; t0 < tmax; t0 += TB) {
+      if (a.dom_aff) {
+        filter_terms_load<TB>(fa, a.dom_aff, a.aff_cnt, a.T1, a.W1, a.N, c, t0, n0, vec, n);
+        fa.valid = 0u;
+#pragma unroll
+        for (int t = 0; t < TB; ++t)
+          if (t0 + t < a.T1 && __ldg(a.aff_valid + (long long)c * a.T1 + t0 + t))
+            fa.valid |= 1u << t;
+      }
+      if (a.dom_anti)
+        filter_terms_load<TB>(fn, a.dom_anti, a.anti_cnt, a.T2, a.W2, a.N, c, t0, n0, vec, n);
+      filter_terms_pass<TB>(a, c, t0, need, fa, fn, unkeyed, empty, blocked);
+    }
+  }
+  // required affinity: every valid term keyed, and matched or the first pod
+  // of its series; no required anti-affinity match; no block
+  unsigned fail = blocked;
+  if (a.dom_aff) fail |= unkeyed | ((total == 0 && self) ? 0u : empty);
+  const unsigned clear = (set & (ex | bd)) | (need & fail);
+  if (clear) filter_store(a.bits + at, bw, clear, a.bit, vec);
+}
+
+template <int TB>
+__global__ void __launch_bounds__(FILTER_THREADS) ipa_filter_kernel(const FilterArgs a) {
   const int c = blockIdx.y;
-  if (n >= N) return;
-  bool ok = true;
-  if (aff_valid) {
-    bool keys_all = true, pods_exist = true;
-    for (int t = 0; t < T1; ++t) {
-      const long long row = (long long)c * T1 + t;
-      if (!aff_valid[row]) continue;
-      const int dv = dom_aff[row * N + n];
-      if (dv >= D) keys_all = false;
-      if (read_count(aff_cnt, W1, N, row, n, dv) <= 0) pods_exist = false;
-    }
-    const bool first_pod = aff_total[c] == 0 && self_match[c];
-    ok = keys_all && (pods_exist || first_pod);
-  }
-  if (dom_anti) {
-    for (int t = 0; t < T2; ++t) {
-      const long long row = (long long)c * T2 + t;
-      const int dv = dom_anti[row * N + n];
-      if (dv < D && read_count(anti_cnt, W2, N, row, n, dv) > 0) ok = false;
-    }
-  }
-  const long long cn = (long long)c * N + n;
-  if (exist[cn] || block_dyn[cn]) ok = false;
-  if (!ok) bits[cn] &= ~(1 << bit);
+  const int n0 = (blockIdx.x * FILTER_THREADS + threadIdx.x) * FILTER_RUN;
+  if (n0 >= a.N) return;
+  const int n = min(FILTER_RUN, a.N - n0);
+  filter_run<TB>(a, c, n0, a.vec && n == FILTER_RUN, n);
 }
 
 extern "C" int launch_ipa_filter(int C, int N, int D, int bit, int T1, int W1,
@@ -347,13 +555,27 @@ extern "C" int launch_ipa_filter(int C, int N, int D, int bit, int T1, int W1,
                                  const void* exist, const void* block_dyn, void* bits,
                                  void* stream) {
   if (C <= 0 || N <= 0) return 0;
-  const int threads = 256;
-  dim3 grid((N + threads - 1) / threads, C);
-  ipa_filter_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      C, N, D, bit, T1, W1, (const uint8_t*)aff_valid, (const int32_t*)dom_aff,
-      (const int32_t*)aff_cnt, (const int32_t*)aff_total, (const uint8_t*)self_match, T2,
-      W2, (const int32_t*)dom_anti, (const int32_t*)anti_cnt, (const uint8_t*)exist,
-      (const uint8_t*)block_dyn, (int32_t*)bits);
+  if (C > 65535) return (int)cudaErrorInvalidValue;
+  FilterArgs a;
+  a.C = C; a.N = N; a.D = D; a.bit = bit;
+  a.T1 = T1; a.W1 = W1;
+  a.aff_valid = (const uint8_t*)aff_valid; a.dom_aff = (const int32_t*)dom_aff;
+  a.aff_cnt = (const int32_t*)aff_cnt; a.aff_total = (const int32_t*)aff_total;
+  a.self_match = (const uint8_t*)self_match;
+  a.T2 = T2; a.W2 = W2;
+  a.dom_anti = (const int32_t*)dom_anti; a.anti_cnt = (const int32_t*)anti_cnt;
+  a.exist = (const uint8_t*)exist; a.block_dyn = (const uint8_t*)block_dyn;
+  a.bits = (int32_t*)bits;
+  a.vec = N % 4 == 0 && aligned16(exist) && aligned16(block_dyn) && aligned16(bits)
+          && (!dom_aff || (aligned16(dom_aff) && (W1 != N || aligned16(aff_cnt))))
+          && (!dom_anti || (aligned16(dom_anti) && (W2 != N || aligned16(anti_cnt))));
+  const long long runs = (N + FILTER_RUN - 1) / FILTER_RUN;
+  const dim3 grid((unsigned)((runs + FILTER_THREADS - 1) / FILTER_THREADS), (unsigned)C);
+  // two terms a pass where a present group has more than one
+  if ((dom_aff && T1 > 1) || (dom_anti && T2 > 1))
+    ipa_filter_kernel<2><<<grid, FILTER_THREADS, 0, (cudaStream_t)stream>>>(a);
+  else
+    ipa_filter_kernel<1><<<grid, FILTER_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -380,10 +602,6 @@ struct ScoreArgs {
   float weight;
   float* total;                // [C, N]
 };
-
-__host__ __device__ __forceinline__ bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15u) == 0;
-}
 
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");

@@ -22,17 +22,43 @@
 //   * the fit is (alloc - requested) first, then + freed, each one correctly
 //     rounded operation (the library builds with --fmad=false).
 // A float atomicAdd would sum in arrival order, so no kernel here uses one:
-// each thread owns its output and adds its node's pods in row order.  K27
-// walks a per-node segment (pod rows sorted stably by node, built by the
-// wrapper's ``node_segments`` -- index preparation, not the function); K29
-// gathers its nodes' pods itself, in row order, in the one launch.
+// one lane owns each sum and adds its node's pods in row order.  K27 and K29
+// gather their nodes' pods themselves, in row order, in their one launch:
+// no sort.
 //
-// K27: one thread per (node, channel), channel R = the pod count.  The
-//   thread zeroes its column of the [K+1, N, *] output, adds each pod of its
-//   segment into row bucket + 1 (bucket = searchsorted(levels, priority,
-//   left); invalid and unbound pods are not in any segment), then scans rows
-//   1..K in place.  Bound: bytes (the [K+1, N, R+1] output, ~21 MB at
-//   K = 128, N = 8192, R = 4; each element written twice and read once).
+// K27: the whole call in one launch, no sort, each output element written
+//   once.  A block owns a tile of 64 nodes (one block an SM).  It streams
+//   the pod tier in ascending row order, PREFIX_CHUNK rows a chunk and 16
+//   consecutive rows a thread (K29's 16-byte loads, the next chunk's issued
+//   before this one is placed), and gathers the valid bound pods of its tile
+//   (a node past N counts at N - 1, as the reference clips it) into a list
+//   that keeps their row order: each thread's count, a warp scan, a scan of
+//   the warps' totals.  The list grows across chunks; when it holds
+//   PREFIX_CAP entries (and once at the end) it is flushed: each entry's
+//   priority and requests loaded at once, its bucket found once by
+//   lower_bound over the levels in shared memory, its requests converted
+//   once; then warp w walks the list for channels w and w + 16 -- per group
+//   of 32 entries each lane loads one entry, the entries of each node come
+//   together as a mask (__match_any_sync), and each lane takes its nodes'
+//   entries low bit first by shuffle -- adding with __fadd_rn into the
+//   level totals, in registers for a window of at most 4 levels (the path's
+//   2 live levels), else in shared memory.  So every (level, node, channel)
+//   total is summed in ascending pod-row order from 0, however many rounds
+//   a node's pods take.  Only the live levels are kept: Lw = the levels
+//   below i32-max, plus the first i32-max pad (a pod at i32-max lands
+//   there).  Where Lw levels do not fit shared memory (the plan's window
+//   W, a multiple of 16), the levels go in windows: each re-walks the list
+//   (re-streams the tier if the list overflowed a round) and the scan's
+//   carry passes between windows through shared memory.  Then each
+//   element's carry into each live 16-level block is computed once, and
+//   each (output vector, block) pair -- a node's 4 channels or 4 nodes'
+//   counts as a 16-byte store, a scalar where R or N is not a multiple of
+//   4 -- runs XLA:CPU's blocked recurrence from registers and writes its
+//   block's rows once, coalesced across the warp; the rows past the last
+//   live level follow from the same recurrence (each adds 0.0).  Nothing
+//   the kernel writes is read back.  Bound: bytes (the [K+1, N, R+1] output
+//   written once, ~38 MB at N = 8192, R = 8, K = 128); each block re-reads
+//   the tier's node and valid columns from L2, 5 bytes a row.
 // K28: one thread per (batch pod, node): the threshold row
 //   tb = searchsorted(levels, priority_b) of prefix / prefix_cnt, the fit over
 //   R, has-victims (count > 0) and the static bits (bits & mask == mask; K1's
@@ -78,48 +104,433 @@ __device__ __forceinline__ int lower_bound(const int32_t* lv, int K, int32_t x) 
   return lo;
 }
 
-__global__ void priority_prefix_kernel(int N, int R, int K,
-                                       const int64_t* __restrict__ perm,
-                                       const int64_t* __restrict__ offsets,
-                                       const int32_t* __restrict__ prio,
-                                       const int32_t* __restrict__ req,
-                                       const int32_t* __restrict__ levels,
-                                       float* __restrict__ prefix,
-                                       float* __restrict__ prefix_cnt) {
-  __shared__ int32_t lv[MAX_LEVELS];
-  for (int i = threadIdx.x; i < K; i += blockDim.x) lv[i] = levels[i];
-  __syncthreads();
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (long long)N * (R + 1)) return;
-  const int n = (int)(tid / (R + 1));
-  const int c = (int)(tid % (R + 1));
-  // this thread's column: element t at col[t * stride]
-  float* col;
-  long long stride;
-  if (c < R) { col = prefix + (long long)n * R + c; stride = (long long)N * R; }
-  else { col = prefix_cnt + n; stride = N; }
-  for (int t = 0; t <= K; ++t) col[t * stride] = 0.0f;
-  // the level totals, each in ascending pod-row order
-  const long long s0 = offsets[n], s1 = offsets[n + 1];
-  for (long long j = s0; j < s1; ++j) {
-    const long long p = perm[j];
-    const int b = lower_bound(lv, K, prio[p]);
-    if (b >= K) continue;  // the reference's overflow bucket
-    const float v = c < R ? __int2float_rn(req[p * R + c]) : 1.0f;
-    float* at = col + (long long)(b + 1) * stride;
-    *at = __fadd_rn(*at, v);
-  }
-  // rows 1..K: XLA:CPU's blocked cumulative sum
-  float excl = 0.0f;
-  for (int blk = 0; blk * BLOCK_BASE < K; ++blk) {
-    float run = 0.0f;
-    const int len = min(BLOCK_BASE, K - blk * BLOCK_BASE);
-    for (int i = 0; i < len; ++i) {
-      float* at = col + (long long)(1 + blk * BLOCK_BASE + i) * stride;
-      run = i == 0 ? *at : __fadd_rn(run, *at);
-      *at = blk == 0 ? run : __fadd_rn(run, excl);
+// --- the pod tier, as K27 and K29 stream it ------------------------------------------------
+#define DENSE_PPT 16  // consecutive tier rows a thread loads
+#define FULL_MASK 0xffffffffu
+
+// DENSE_PPT rows from r0: their nodes (−1 past the tier) and their valid
+// bits; 16-byte loads where the tier's arrays allow
+__device__ __forceinline__ void load_pods(const uint8_t* __restrict__ valid,
+                                          const int32_t* __restrict__ node, int P,
+                                          long long r0, int vec, int (&nd)[DENSE_PPT],
+                                          unsigned& vm) {
+  vm = 0u;
+  if (vec && r0 + DENSE_PPT <= P) {
+    const int4* np = reinterpret_cast<const int4*>(node + r0);
+#pragma unroll
+    for (int q = 0; q < DENSE_PPT / 4; ++q) {
+      const int4 v = __ldg(np + q);
+      nd[4 * q] = v.x; nd[4 * q + 1] = v.y; nd[4 * q + 2] = v.z; nd[4 * q + 3] = v.w;
     }
-    excl = blk == 0 ? run : __fadd_rn(excl, run);
+    const uint4 vv = __ldg(reinterpret_cast<const uint4*>(valid + r0));
+    const unsigned w[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+    for (int j = 0; j < DENSE_PPT; ++j)
+      if ((w[j >> 2] >> (8 * (j & 3))) & 0xffu) vm |= 1u << j;
+  } else {
+#pragma unroll
+    for (int j = 0; j < DENSE_PPT; ++j) {
+      const long long r = r0 + j;
+      nd[j] = r < P ? __ldg(node + r) : -1;
+      if (r < P && __ldg(valid + r)) vm |= 1u << j;
+    }
+  }
+}
+
+// --- K27 ---------------------------------------------------------------------
+// A block: PREFIX_TILE nodes (two a lane), PREFIX_THREADS threads, one block
+// an SM; the tier in chunks of PREFIX_CHUNK rows, the gathered list flushed
+// every PREFIX_CAP entries.  Dynamic shared memory: tot f32[W][R+1][TILE]
+// (the window's level totals), exb f32[W/16 + 1][R+1][TILE] (the scan's
+// carry into each of the window's live 16-level blocks, then past them),
+// then the list's requests f32[CAP][R], rows i32[CAP], levels i16[CAP] and
+// nodes u8[CAP].  A 32-node tile (two blocks an SM) and a 128-node tile
+// both measured slower than 64 (PERF.md, the kernel table).
+#define PREFIX_TILE 64
+#define PREFIX_WARPS 16
+#define PREFIX_THREADS (PREFIX_WARPS * 32)
+#define PREFIX_CHUNK (PREFIX_THREADS * DENSE_PPT)
+#define PREFIX_CAP 1024
+#define PREFIX_MAX_SMEM (200 * 1024)  // dynamic bytes
+#define PREFIX_REG_LEVELS 4           // a window this small sums in registers
+
+static size_t prefix_list_bytes(int R) {
+  return (size_t)PREFIX_CAP * (4 * (size_t)R + 4 + 2 + 1);
+}
+
+// the window (levels a pass keeps in shared memory, a multiple of 16, at
+// most K rounded up) and the dynamic shared memory for R requests and K
+// levels; cudaErrorInvalidValue where not even 16 levels fit
+static int prefix_plan(int R, int K, int* window, size_t* smem) {
+  const size_t per_level = (size_t)PREFIX_TILE * (R + 1) * 4, list = prefix_list_bytes(R);
+  const int k16 = K > BLOCK_BASE ? (K + BLOCK_BASE - 1) / BLOCK_BASE * BLOCK_BASE : BLOCK_BASE;
+  int w = 0;
+  for (int c = BLOCK_BASE; c <= k16; c += BLOCK_BASE)
+    if (list + (size_t)(c + c / BLOCK_BASE + 1) * per_level <= PREFIX_MAX_SMEM) w = c;
+  if (!w) return (int)cudaErrorInvalidValue;
+  *window = w;
+  *smem = list + (size_t)(w + w / BLOCK_BASE + 1) * per_level;
+  return 0;
+}
+
+struct PrefixList {
+  float* tot;
+  float* exb;
+  float* req;
+  int32_t* row;
+  int16_t* lvl;
+  uint8_t* node;
+};
+
+// the list's entries [0, len): each one's priority and requests loaded at
+// once (two entries a thread, every load issued before the first store),
+// its bucket by lower_bound over the Lw live levels (−1 where the reference
+// drops it, a bucket of K), its requests converted once
+template <int RB>
+__device__ __forceinline__ void prefix_load_list(const PrefixList& s, int len, int R, int K,
+                                                 int Lw, const int32_t* lv,
+                                                 const int32_t* __restrict__ pprio,
+                                                 const int32_t* __restrict__ preq) {
+  for (int e0 = 0; e0 < len; e0 += 2 * PREFIX_THREADS) {
+    int32_t pr[2], q[2][RB];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = e0 + u * PREFIX_THREADS + threadIdx.x;
+      const long long row = e < len ? s.row[e] : 0;
+      pr[u] = e < len ? __ldg(pprio + row) : 0;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) q[u][r] = (e < len && r < R) ? __ldg(preq + row * R + r) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = e0 + u * PREFIX_THREADS + threadIdx.x;
+      if (e >= len) continue;
+      const int b = lower_bound(lv, Lw, pr[u]);
+      s.lvl[e] = (int16_t)(b < K ? b : -1);
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        if (r < R) s.req[e * R + r] = __int2float_rn(q[u][r]);
+    }
+  }
+}
+
+__device__ __forceinline__ float* prefix_cell(const PrefixList& s, int C1, int l, int ch, int h) {
+  return s.tot + ((size_t)l * C1 + ch) * PREFIX_TILE + h;
+}
+
+// the window's levels [w0, w0 + wn) of the list's entries [0, len) into tot:
+// warp w owns channels w and w + 16 (the count is channel R), lane j nodes j,
+// j + 32, ...  Per group of 32 entries each lane loads one entry (its level
+// and the warp's channels' values) and the entries of each node come
+// together as a mask (__match_any_sync); then, for as long as any lane has
+// an entry left, each lane takes its node's next one, low bit first, by
+// shuffle from the lane that loaded it -- so each sum is in list order,
+// which is row order, and a node holding the whole group costs 32 shuffle
+// rounds, not 32 trips to shared memory.  A window of at most
+// PREFIX_REG_LEVELS levels sums in registers (loaded from tot, stored
+// back); a wider one adds into tot directly.
+__device__ __forceinline__ void prefix_walk(const PrefixList& s, int len, int R, int w0,
+                                            int wn, unsigned (*s_mask)[PREFIX_TILE]) {
+  constexpr int HN = PREFIX_TILE / 32;  // nodes a lane
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, C1 = R + 1;
+  if (warp >= C1) return;
+  const bool two = warp + PREFIX_WARPS < C1;  // a second channel
+  const int ch1 = two ? warp + PREFIX_WARPS : warp;
+  const bool reg = wn <= PREFIX_REG_LEVELS;
+  float acc[PREFIX_REG_LEVELS][HN][2];
+#pragma unroll
+  for (int q = 0; q < PREFIX_REG_LEVELS; ++q)
+#pragma unroll
+    for (int hh = 0; hh < HN; ++hh) {
+      const int h = lane + 32 * hh;
+      acc[q][hh][0] = reg && q < wn ? *prefix_cell(s, C1, q, warp, h) : 0.0f;
+      acc[q][hh][1] = reg && q < wn && two ? *prefix_cell(s, C1, q, ch1, h) : 0.0f;
+    }
+  for (int g = 0; g < len; g += 32) {
+#pragma unroll
+    for (int hh = 0; hh < HN; ++hh) s_mask[warp][lane + 32 * hh] = 0u;
+    __syncwarp();
+    const int e = g + lane;
+    int key = -1, my_l = 0;
+    float my0 = 0.0f, my1 = 0.0f;
+    if (e < len) {
+      const int l = s.lvl[e] - w0;
+      if (l >= 0 && l < wn) {
+        key = s.node[e];
+        my_l = l;
+        my0 = warp < R ? s.req[e * R + warp] : 1.0f;
+        my1 = ch1 < R ? s.req[e * R + ch1] : 1.0f;
+      }
+    }
+    const unsigned peers = __match_any_sync(FULL_MASK, key);
+    if (key >= 0 && lane == __ffs(peers) - 1) s_mask[warp][key] = peers;
+    __syncwarp();
+#pragma unroll
+    for (int hh = 0; hh < HN; ++hh) {
+      const int h = lane + 32 * hh;
+      unsigned mk = s_mask[warp][h];
+      while (__any_sync(FULL_MASK, mk != 0u)) {
+        const bool has = mk != 0u;
+        const int j = has ? __ffs(mk) - 1 : lane;
+        mk &= mk - 1u;
+        const int l = __shfl_sync(FULL_MASK, my_l, j);
+        const float v0 = __shfl_sync(FULL_MASK, my0, j);
+        const float v1 = __shfl_sync(FULL_MASK, my1, j);
+        if (!has) continue;
+        if (reg) {
+#pragma unroll
+          for (int q = 0; q < PREFIX_REG_LEVELS; ++q) {
+            if (q != l) continue;
+            acc[q][hh][0] = __fadd_rn(acc[q][hh][0], v0);
+            if (two) acc[q][hh][1] = __fadd_rn(acc[q][hh][1], v1);
+          }
+        } else {
+          float* a0 = prefix_cell(s, C1, l, warp, h);
+          *a0 = __fadd_rn(*a0, v0);
+          if (two) {
+            float* a1 = prefix_cell(s, C1, l, ch1, h);
+            *a1 = __fadd_rn(*a1, v1);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  }
+  if (reg) {
+#pragma unroll
+    for (int q = 0; q < PREFIX_REG_LEVELS; ++q)
+#pragma unroll
+      for (int hh = 0; hh < HN; ++hh) {
+        if (q >= wn) continue;
+        *prefix_cell(s, C1, q, warp, lane + 32 * hh) = acc[q][hh][0];
+        if (two) *prefix_cell(s, C1, q, ch1, lane + 32 * hh) = acc[q][hh][1];
+      }
+  }
+}
+
+// one output vector's rows of one 16-level block b: WIDTH elements (channels
+// ch0.. of node h, dc = 1, dh = 0; or channel R of nodes h.., dc = 0, dh = 1)
+// at out (row 0) + t * rs.  XLA:CPU's blocked recurrence from registers:
+// an inclusive run inside the block, plus the carry into the block (b > 0);
+// a live block reads its levels below Lw from tot and its carry from exb, a
+// block past the live levels adds 0.0 and takes the carry past them.  Row 0
+// (zero) by block 0.
+template <int WIDTH>
+__device__ __forceinline__ void prefix_block_rows(const PrefixList& s, float* __restrict__ out,
+                                                  long long rs, int C1, int h, int ch0, int dc,
+                                                  int dh, int K, int Lw, int w0, int b,
+                                                  int b_lo, int b_live) {
+  const bool live = b < b_live;
+  float excl[WIDTH], x[BLOCK_BASE][WIDTH];
+#pragma unroll
+  for (int k = 0; k < WIDTH; ++k)
+    excl[k] = s.exb[((size_t)(min(b, b_live) - b_lo) * C1 + ch0 + k * dc) * PREFIX_TILE + h +
+                    k * dh];
+  if (!live) {
+    // the carry past the live levels, then one block of zeros each
+    for (int d = b_live; d < b; ++d)
+#pragma unroll
+      for (int k = 0; k < WIDTH; ++k) excl[k] = __fadd_rn(excl[k], 0.0f);
+  }
+  const int len = min(BLOCK_BASE, K - b * BLOCK_BASE);
+#pragma unroll
+  for (int i = 0; i < BLOCK_BASE; ++i) {
+    const int level = b * BLOCK_BASE + i;
+    const bool in = live && i < len && level < Lw;
+#pragma unroll
+    for (int k = 0; k < WIDTH; ++k)
+      x[i][k] = in ? s.tot[((size_t)(level - w0) * C1 + ch0 + k * dc) * PREFIX_TILE + h + k * dh]
+                   : 0.0f;
+  }
+  if (b == 0) {
+    if constexpr (WIDTH == 4)
+      *reinterpret_cast<float4*>(out) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    else
+      out[0] = 0.0f;
+  }
+  float run[WIDTH];
+#pragma unroll
+  for (int i = 0; i < BLOCK_BASE; ++i) {
+    if (i >= len) break;
+    float y[WIDTH];
+#pragma unroll
+    for (int k = 0; k < WIDTH; ++k) {
+      run[k] = i == 0 ? x[i][k] : __fadd_rn(run[k], x[i][k]);
+      y[k] = b == 0 ? run[k] : __fadd_rn(run[k], excl[k]);
+    }
+    float* at = out + (long long)(b * BLOCK_BASE + i + 1) * rs;
+    if constexpr (WIDTH == 4)
+      *reinterpret_cast<float4*>(at) = make_float4(y[0], y[1], y[2], y[3]);
+    else
+      at[0] = y[0];
+  }
+}
+
+template <int RB>
+__global__ void __launch_bounds__(PREFIX_THREADS, 1)
+priority_prefix_kernel(int N, int R, int K, int P, int W, int vec,
+                       const uint8_t* __restrict__ pvalid, const int32_t* __restrict__ pnode,
+                       const int32_t* __restrict__ pprio, const int32_t* __restrict__ preq,
+                       const int32_t* __restrict__ levels, float* __restrict__ prefix,
+                       float* __restrict__ prefix_cnt) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int32_t lv[MAX_LEVELS];
+  __shared__ int s_wsum[2][PREFIX_WARPS];  // the warps' gathered counts, by chunk parity
+  __shared__ unsigned s_mask[PREFIX_WARPS][PREFIX_TILE];
+  const int C1 = R + 1;
+  PrefixList s;
+  s.tot = reinterpret_cast<float*>(smem);
+  s.exb = s.tot + (size_t)W * C1 * PREFIX_TILE;
+  s.req = s.exb + (size_t)(W / BLOCK_BASE + 1) * C1 * PREFIX_TILE;
+  s.row = reinterpret_cast<int32_t*>(s.req + (size_t)PREFIX_CAP * R);
+  s.lvl = reinterpret_cast<int16_t*>(s.row + PREFIX_CAP);
+  s.node = reinterpret_cast<uint8_t*>(s.lvl + PREFIX_CAP);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * PREFIX_TILE;
+  for (int i = tid; i < K; i += PREFIX_THREADS) lv[i] = levels[i];
+  __syncthreads();
+  // the buckets a pod can take: the levels below i32-max and the first pad
+  const int Lw = min(K, lower_bound(lv, K, INT_MAX) + 1);
+
+  // the output vectors: (node, 4 channels) of prefix and (4 nodes) of
+  // prefix_cnt where 16-byte stores line up, else one element
+  const bool al = ((uintptr_t)prefix & 15u) == 0 && ((uintptr_t)prefix_cnt & 15u) == 0;
+  const bool vreq = al && R % 4 == 0, vcnt = al && N % 4 == 0;
+  const int nreq = vreq ? PREFIX_TILE * R / 4 : PREFIX_TILE * R;
+  const int items = nreq + (vcnt ? PREFIX_TILE / 4 : PREFIX_TILE);
+
+  bool listed = false;  // the whole list stayed in shared memory (no overflow)
+  int len = 0;
+  for (int w0 = 0; w0 == 0 || w0 < Lw; w0 += W) {
+    const int wn = max(0, min(W, Lw - w0));
+    const bool last = w0 + W >= Lw;
+    for (int i = tid; i < wn * C1 * PREFIX_TILE; i += PREFIX_THREADS) s.tot[i] = 0.0f;
+    __syncthreads();
+    if (listed) {
+      prefix_walk(s, len, R, w0, wn, s_mask);
+    } else if (wn > 0) {
+      // stream the tier: the tile's pods in row order, flushed a round at a time
+      bool overflow = false;
+      len = 0;
+      int nd[DENSE_PPT];
+      unsigned vm;
+      load_pods(pvalid, pnode, P, (long long)tid * DENSE_PPT, vec, nd, vm);
+      for (long long c0 = 0, parity = 0; c0 < P; c0 += PREFIX_CHUNK, parity ^= 1) {
+        unsigned fm = 0u, loc[DENSE_PPT / 4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int j = 0; j < DENSE_PPT; ++j) {
+          const int l = min(nd[j], N - 1) - n0;
+          if (((vm >> j) & 1u) && nd[j] >= 0 && l >= 0 && l < PREFIX_TILE) {
+            fm |= 1u << j;
+            loc[j >> 2] |= (unsigned)l << (8 * (j & 3));
+          }
+        }
+        if (c0 + PREFIX_CHUNK < P)  // the next chunk's rows, in flight while this one's placed
+          load_pods(pvalid, pnode, P, c0 + PREFIX_CHUNK + (long long)tid * DENSE_PPT, vec, nd,
+                    vm);
+        const int mine = __popc(fm);
+        int incl = mine;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int y = __shfl_up_sync(FULL_MASK, incl, off);
+          if (lane >= off) incl += y;
+        }
+        if (lane == 31) s_wsum[parity][warp] = incl;
+        __syncthreads();
+        int first = incl - mine, total = 0;
+#pragma unroll
+        for (int w = 0; w < PREFIX_WARPS; ++w) {
+          const int sw = s_wsum[parity][w];
+          if (w < warp) first += sw;
+          total += sw;
+        }
+        for (int base = 0; base < total;) {
+          const int take = min(total - base, PREFIX_CAP - len);
+          int idx = first;
+#pragma unroll
+          for (int j = 0; j < DENSE_PPT; ++j) {
+            if (!((fm >> j) & 1u)) continue;
+            if (idx >= base && idx < base + take) {
+              s.row[len + idx - base] = (int32_t)(c0 + tid * DENSE_PPT + j);
+              s.node[len + idx - base] = (uint8_t)((loc[j >> 2] >> (8 * (j & 3))) & 0xffu);
+            }
+            ++idx;
+          }
+          len += take;
+          base += take;
+          if (len == PREFIX_CAP) {  // a full round: load, walk, start the list again
+            __syncthreads();
+            prefix_load_list<RB>(s, len, R, K, Lw, lv, pprio, preq);
+            __syncthreads();
+            prefix_walk(s, len, R, w0, wn, s_mask);
+            __syncthreads();
+            len = 0;
+            overflow = true;
+          }
+        }
+      }
+      if (len > 0) {
+        __syncthreads();
+        prefix_load_list<RB>(s, len, R, K, Lw, lv, pprio, preq);
+        __syncthreads();
+        prefix_walk(s, len, R, w0, wn, s_mask);
+      }
+      listed = !overflow;
+    }
+    __syncthreads();
+    // the window's 16-level blocks: [b_lo, b_live) hold live levels; on the
+    // last window every block up to K follows.  First each element's carry
+    // into each live block (exb), then each (output vector, block) writes
+    // its rows.
+    const int b_lo = w0 / BLOCK_BASE;
+    const int b_live = (w0 + wn + BLOCK_BASE - 1) / BLOCK_BASE;
+    const int b_hi = last ? (K + BLOCK_BASE - 1) / BLOCK_BASE : (w0 + W) / BLOCK_BASE;
+    for (int i = tid; i < C1 * PREFIX_TILE; i += PREFIX_THREADS) {
+      const int ch = i / PREFIX_TILE, h = i % PREFIX_TILE;
+      const size_t at = (size_t)ch * PREFIX_TILE + h, step = (size_t)C1 * PREFIX_TILE;
+      // the carry into this window: the last window's carry past its blocks
+      float e = w0 == 0 ? 0.0f : s.exb[(size_t)(W / BLOCK_BASE) * step + at];
+      for (int b = b_lo; b < b_live; ++b) {
+        s.exb[(size_t)(b - b_lo) * step + at] = e;
+        float run = 0.0f;
+        for (int q = 0; q < BLOCK_BASE && b * BLOCK_BASE + q < K; ++q) {
+          const int level = b * BLOCK_BASE + q;
+          const float x = level < Lw ? s.tot[(size_t)(level - w0) * step + at] : 0.0f;
+          run = q == 0 ? x : __fadd_rn(run, x);
+        }
+        e = b == 0 ? run : __fadd_rn(e, run);
+      }
+      s.exb[(size_t)(b_live - b_lo) * step + at] = e;
+      if (!last) s.exb[(size_t)(W / BLOCK_BASE) * step + at] = e;
+    }
+    __syncthreads();
+    const int nb = max(b_hi - b_lo, 1);  // K = 0: block 0 writes row 0
+    for (int it = tid; it < items * nb; it += PREFIX_THREADS) {
+      const int v = it % items, b = b_lo + it / items;
+      if (v < nreq) {
+        const int f = vreq ? 4 * v : v;
+        const int h = f / max(R, 1), ch0 = f % max(R, 1);
+        if (n0 + h >= N) continue;
+        float* out = prefix + (long long)(n0 + h) * R + ch0;
+        if (vreq)
+          prefix_block_rows<4>(s, out, (long long)N * R, C1, h, ch0, 1, 0, K, Lw, w0, b, b_lo,
+                               b_live);
+        else
+          prefix_block_rows<1>(s, out, (long long)N * R, C1, h, ch0, 1, 0, K, Lw, w0, b, b_lo,
+                               b_live);
+      } else {
+        const int h = vcnt ? 4 * (v - nreq) : v - nreq;
+        if (n0 + h >= N) continue;
+        if (vcnt)
+          prefix_block_rows<4>(s, prefix_cnt + n0 + h, N, C1, h, R, 0, 1, K, Lw, w0, b, b_lo,
+                               b_live);
+        else
+          prefix_block_rows<1>(s, prefix_cnt + n0 + h, N, C1, h, R, 0, 1, K, Lw, w0, b, b_lo,
+                               b_live);
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -171,45 +582,14 @@ __global__ void candidate_fit_kernel(int B, int N, int R, int K,
 // tile's pods in row order into shared memory, DENSE_CAP a round.
 #define DENSE_TILE 32
 #define DENSE_WARPS 8
-#define DENSE_PPT 16
 #define DENSE_CHUNK (DENSE_WARPS * 32 * DENSE_PPT)
 #define DENSE_CAP 1024
-#define FULL_MASK 0xffffffffu
 
 // batch rows a thread carries: KB * (RB + 1) registers of sums and counts
 template <int RB>
 struct DenseRows {
   static constexpr int value = RB <= 4 ? 8 : (RB <= 8 ? 4 : 2);
 };
-
-// DENSE_PPT rows from r0: their nodes (−1 past the tier) and their valid
-// bits; 16-byte loads where the tier's arrays allow
-__device__ __forceinline__ void load_pods(const uint8_t* __restrict__ valid,
-                                          const int32_t* __restrict__ node, int P,
-                                          long long r0, int vec, int (&nd)[DENSE_PPT],
-                                          unsigned& vm) {
-  vm = 0u;
-  if (vec && r0 + DENSE_PPT <= P) {
-    const int4* np = reinterpret_cast<const int4*>(node + r0);
-#pragma unroll
-    for (int q = 0; q < DENSE_PPT / 4; ++q) {
-      const int4 v = __ldg(np + q);
-      nd[4 * q] = v.x; nd[4 * q + 1] = v.y; nd[4 * q + 2] = v.z; nd[4 * q + 3] = v.w;
-    }
-    const uint4 vv = __ldg(reinterpret_cast<const uint4*>(valid + r0));
-    const unsigned w[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-    for (int j = 0; j < DENSE_PPT; ++j)
-      if ((w[j >> 2] >> (8 * (j & 3))) & 0xffu) vm |= 1u << j;
-  } else {
-#pragma unroll
-    for (int j = 0; j < DENSE_PPT; ++j) {
-      const long long r = r0 + j;
-      nd[j] = r < P ? __ldg(node + r) : -1;
-      if (r < P && __ldg(valid + r)) vm |= 1u << j;
-    }
-  }
-}
 
 template <int RB>
 __global__ void __launch_bounds__(DENSE_WARPS * 32, 2)
@@ -365,18 +745,59 @@ static int blocks_for(long long total, int threads) {
   return (int)((total + threads - 1) / threads);
 }
 
-extern "C" int launch_priority_prefix(int N, int R, int K, const void* perm,
-                                      const void* offsets, const void* prio,
-                                      const void* req, const void* levels, void* prefix,
-                                      void* prefix_cnt, void* stream) {
-  if (K > MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)N * (R + 1);
-  if (total <= 0) return 0;
-  const int threads = 128;
-  priority_prefix_kernel<<<blocks_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
-      N, R, K, (const int64_t*)perm, (const int64_t*)offsets, (const int32_t*)prio,
-      (const int32_t*)req, (const int32_t*)levels, (float*)prefix, (float*)prefix_cnt);
+template <int RB>
+static int launch_prefix(int N, int R, int K, int P, const void* pod_valid, const void* pod_node,
+                         const void* pod_prio, const void* pod_req, const void* levels,
+                         void* prefix, void* prefix_cnt, cudaStream_t stream) {
+  int window;
+  size_t smem;
+  const int e = prefix_plan(R, K, &window, &smem);
+  if (e) return e;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t a = cudaFuncSetAttribute(priority_prefix_kernel<RB>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               PREFIX_MAX_SMEM);
+    if (a != cudaSuccess) return (int)a;
+    attr_set = true;
+  }
+  const int vec = ((uintptr_t)pod_valid % 16 == 0 && (uintptr_t)pod_node % 16 == 0) ? 1 : 0;
+  priority_prefix_kernel<RB><<<(N + PREFIX_TILE - 1) / PREFIX_TILE, PREFIX_THREADS, smem,
+                               stream>>>(
+      N, R, K, P, window, vec, (const uint8_t*)pod_valid, (const int32_t*)pod_node,
+      (const int32_t*)pod_prio, (const int32_t*)pod_req, (const int32_t*)levels,
+      (float*)prefix, (float*)prefix_cnt);
   return (int)cudaGetLastError();
+}
+
+extern "C" int launch_priority_prefix(int N, int R, int K, int P, const void* pod_valid,
+                                      const void* pod_node, const void* pod_prio,
+                                      const void* pod_req, const void* levels, void* prefix,
+                                      void* prefix_cnt, void* stream) {
+  if (K < 0 || K > MAX_LEVELS || R < 0 || R > MAX_R || N < 0 || P < 0)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (R <= 4)
+    return launch_prefix<4>(N, R, K, P, pod_valid, pod_node, pod_prio, pod_req, levels, prefix,
+                            prefix_cnt, st);
+  if (R <= 8)
+    return launch_prefix<8>(N, R, K, P, pod_valid, pod_node, pod_prio, pod_req, levels, prefix,
+                            prefix_cnt, st);
+  return launch_prefix<16>(N, R, K, P, pod_valid, pod_node, pod_prio, pod_req, levels, prefix,
+                           prefix_cnt, st);
+}
+
+// K27's plan, for the CPU mirror's copy (kernel_work.k27_plan): out[0] the
+// window in levels, out[1] the dynamic shared memory in bytes
+extern "C" int priority_prefix_plan(int R, int K, int* out) {
+  int window;
+  size_t smem;
+  const int e = prefix_plan(R, K, &window, &smem);
+  if (e) return e;
+  out[0] = window;
+  out[1] = (int)smem;
+  return 0;
 }
 
 extern "C" int launch_candidate_fit(int B, int N, int R, int K, const void* prefix,

@@ -22,7 +22,10 @@ more than once); ``reset_launches`` zeroes the counts.
                             dependent round trips, a warp's adds summed)
   K9 ipa_prepare            csrc/interpodaffinity.cu (ipa_prepare_counts,
                             ipa_existing_planes: one count per pass)
-  K10 ipa_filter_bits       csrc/interpodaffinity.cu
+  K10 ipa_filter_bits       csrc/interpodaffinity.cu (one launch a call: a
+                            run of nodes a thread, every load at entry, one
+                            dependent round trip at most, a store only
+                            where a bit clears)
   K11 ipa_score_combine     csrc/interpodaffinity.cu (one pass: a row over a
                             cluster of up to 8 blocks at C <= 16)
   K12 ipa_update_classes    csrc/interpodaffinity.cu (one launch a call for
@@ -54,7 +57,10 @@ more than once); ``reset_launches`` zeroes the counts.
   K25 dra_score_into        csrc/dra.cu (the same)
   K26 dra_take              csrc/dra.cu (per auction round or scan step)
   K27 priority_prefix       csrc/preempt.cu (once per failing batch that may
-                            preempt, with at most 128 scheduled priorities)
+                            preempt, with at most 128 scheduled priorities;
+                            one launch, the tier gathered by node tile in
+                            row order in the kernel, no sort, each output
+                            element written once)
   K28 candidate_fit         csrc/preempt.cu (the same)
   K29 candidate_dense       csrc/preempt.cu (the same, above 128 priorities;
                             one launch, the tier gathered by node tile in

@@ -12,7 +12,11 @@ gathers and scatters they are built on (ROADMAP Queue B, B10 and B12):
                              the expansion of the existing-pod affinity
                              index into the block and static score planes
                              (:280-321, pass 3)
-  K10 ipa_filter_bits        ``filter`` (:337-364) into K1's pass-bit plane
+  K10 ipa_filter_bits        ``filter`` (:337-364) into K1's pass-bit plane:
+                             a run of ``FILTER_RUN`` nodes a thread, every
+                             load at entry (the bits only where a block
+                             fails, without a required term), a store only
+                             where a bit clears
   K11 ipa_score_combine      ``score`` (:368-385) + ``normalize`` (:387-398)
                              + the weighted floor into K2's total, one
                              pass: at most 16 rows a row over a cluster of
@@ -228,11 +232,17 @@ def ipa_filter_bits_plain(aux, bits, bit: int):
     return bits
 
 
+# K10's run: the nodes of a row one thread owns (csrc/interpodaffinity.cu)
+FILTER_RUN = 4
+
+
 def ipa_filter_bits(aux, bits, bit: int):
     """Write InterPodAffinity's filter into the pass-bit plane ``bits``
     i32[C, N] in place: K1 seeds ``bit`` on every live node of a valid row
     (the filter's plane with no aux); this clears it where the filter fails.
-    CPU tensors take the plain version; CUDA tensors launch K10."""
+    CPU tensors take the plain version; CUDA tensors launch K10 — one
+    launch, and no other device work where the aux's arrays are contiguous
+    (as the plugin builds them)."""
     if not bits.is_cuda:
         return ipa_filter_bits_plain(aux, bits, bit)
     c, n = bits.shape

@@ -26,14 +26,14 @@ N]``, zero on dead nodes and padding rows) and the OR of the static
 plugins' bits (``static_mask``); a row passes where every masked bit is set.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels.  K27
-walks per-node pod segments (pod rows sorted stably by node) that
-``node_segments`` builds with torch ops — index preparation.  K29 builds
-nothing outside its one launch: each block streams the pod tier in row
-order, ``DENSE_CHUNK`` rows a chunk, gathers the valid pods bound to its
-``DENSE_TILE`` nodes into a list that keeps their row order (``DENSE_CAP``
-entries a round), and each lane sums its node's entries of that list in
-list order — so each node's pods are visited in ascending row order, as
-``node_segments`` orders them, with no sort.
+and K29 build nothing outside their one launch: each block streams the pod
+tier in row order, a chunk at a time, gathers the valid pods bound to its
+tile of nodes into a list that keeps their row order (``PREFIX_CAP`` /
+``DENSE_CAP`` entries a round), and one lane sums each node's entries of
+that list in list order — so each node's pods are visited in ascending row
+order, as ``node_segments`` orders them, with no sort.  K27 keeps its live
+levels' totals in shared memory (in windows of ``kernel_work.k27_plan``
+levels where they do not fit) and writes each output element once.
 """
 
 from __future__ import annotations
@@ -56,6 +56,10 @@ MAX_R = 16
 DENSE_TILE = 32
 DENSE_CHUNK = 4096
 DENSE_CAP = 1024
+# K27's: nodes a block, pod rows a chunk, gathered pods a round
+PREFIX_TILE = 64
+PREFIX_CHUNK = 8192
+PREFIX_CAP = 1024
 
 
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -168,14 +172,9 @@ def _fn(name: str, spec: str):
     return fn
 
 
-def _pod_tier(name, pod_valid, pod_node, pod_priority, pod_request):
-    prio = pod_priority.to(torch.int32).contiguous()
-    req = pod_request.to(torch.int32).contiguous()
-    require_cuda(name, pod_valid, pod_node, prio, req)
-    require_dtype(name, torch.bool, pod_valid)
-    if req.shape[1] > MAX_R:
-        raise ValueError(f"{name}: at most {MAX_R} resource dimensions")
-    return prio, req
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as contiguous int32: itself (no torch op) where it already is."""
+    return (x if x.dtype == torch.int32 else x.to(torch.int32)).contiguous()
 
 
 def priority_prefix(pod_valid: torch.Tensor, pod_node: torch.Tensor,
@@ -184,22 +183,27 @@ def priority_prefix(pod_valid: torch.Tensor, pod_node: torch.Tensor,
     """→ (prefix f32[K+1, N, R], prefix_cnt f32[K+1, N]): row t holds the
     request totals and pod counts, per node, over the priority levels
     strictly below t.  CPU tensors take the plain version; CUDA tensors
-    launch K27."""
+    launch K27 — one launch, and no other device work where the tier is
+    already int32 (as the snapshot holds it)."""
     if not pod_request.is_cuda:
         return priority_prefix_plain(pod_valid, pod_node, pod_priority, pod_request,
                                      levels, n)
     name = "priority_prefix"
-    prio, req = _pod_tier(name, pod_valid, pod_node, pod_priority, pod_request)
-    levels = levels.to(torch.int32).contiguous()
+    node, prio, req, levels = map(_i32, (pod_node, pod_priority, pod_request, levels))
+    dev = require_cuda(name, pod_valid, node, prio, req, levels)
+    require_dtype(name, torch.bool, pod_valid)
     k, r = levels.shape[0], req.shape[1]
+    if r > MAX_R:
+        raise ValueError(f"{name}: at most {MAX_R} resource dimensions")
     if k > MAX_LEVELS:
         raise ValueError(f"{name}: at most {MAX_LEVELS} levels")
-    perm, offsets = node_segments(pod_valid, pod_node, n)
-    prefix = torch.empty((k + 1, n, r), dtype=torch.float32, device=req.device)
-    prefix_cnt = torch.empty((k + 1, n), dtype=torch.float32, device=req.device)
-    dev = require_cuda(name, perm, offsets, levels, prefix, prefix_cnt)
-    err = _fn("launch_priority_prefix", "iii" + "p" * 8)(
-        n, r, k, ptr(perm), ptr(offsets), ptr(prio), ptr(req), ptr(levels),
+    p = req.shape[0]
+    if pod_valid.shape != (p,) or node.shape != (p,) or prio.shape != (p,):
+        raise ValueError(f"{name}: inconsistent pod tier shapes")
+    prefix = torch.empty((k + 1, n, r), dtype=torch.float32, device=dev)
+    prefix_cnt = torch.empty((k + 1, n), dtype=torch.float32, device=dev)
+    err = _fn("launch_priority_prefix", "iiii" + "p" * 8)(
+        n, r, k, p, ptr(pod_valid), ptr(node), ptr(prio), ptr(req), ptr(levels),
         ptr(prefix), ptr(prefix_cnt), stream_of(dev))
     check(err, name)
     LAUNCHES[name] += 1

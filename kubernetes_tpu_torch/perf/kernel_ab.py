@@ -3,7 +3,8 @@
 K1 (filter_score_planes), K13 (prev_delta_apply), K17
 (scan_select_assume, keyless and keyed), K6 (spread_filter_bits), K18
 (spread_update_row), K32 (selector_spread_score), K30 (fork_masks), K8
-(spread_update_classes) and K16 (scatter_rows) timed on synthetic
+(spread_update_classes), K16 (scatter_rows), K27 (priority_prefix) and
+K10 (ipa_filter_bits) timed on synthetic
 inputs at the shapes their paths give them, for the copy of ``kubernetes_tpu_torch`` under
 ``--root``, so that two trees (a parent and a change, unpacked side by
 side) are timed by the same methods on one card:
@@ -80,12 +81,23 @@ path's payload, 400 dirty rows padded to 512; its pod group at P = 16384;
 its affinity group, G = 1024 with 256-domain count rows; the node group
 with k = 0 and with 100 rows padded to 512; bool, 12-byte and 3-byte rows
 at N = 8190), each beside ``index_copy`` per array timed by the same
-method.  The K6, K17, K18, K32, K30, K8 and K16 rows carry ``host_us``,
-the host's issue time of one wrapper call over 1000 queued calls
-(``host_timer.py``).  K1's, K6's, K13's, K17's, K18's, K32's, K30's, K8's
-and K16's rows carry their bound (``kernel_work.k1_work`` / ``k6_work`` /
-the bytes the adds need / ``k17_work`` / ``k18_work`` / ``k32_work`` /
-``k30_work`` / ``k8_work`` / ``k16_work``, over the card's rates). The bound formulas,
+method.  K27 at ``kernel_work.K27_CASES`` (PreemptionBasic's path: P =
+32768, N = 8192, R = 8, two live levels; the check case's 128 levels at
+R = 4; a node holding 6000 pods; R = 16 over 128 levels), ``ms`` the whole
+call's device time (a tree that sorts before its kernel is timed with its
+sort), held against the plain version on CPU copies.  K10 at
+``kernel_work.K10_CASES`` (C = 4 hostname planes with no required term, the
+path's; zone tables with required affinity and hostname planes with
+required anti-affinity at C = 1, 4 and 512; N = 8190), on the plane as K1
+seeded it as K6 is, ``ms_filtered`` on a plane already filtered.  ``--only
+name,...`` times only the rows of those kernels (the others are still
+checked).  The K6, K17, K18, K32, K30, K8, K16, K27 and K10 rows carry
+``host_us``, the host's issue time of one wrapper call over 1000 queued calls
+(``host_timer.py``).  K1's, K6's, K13's, K17's, K18's, K32's, K30's, K8's,
+K16's, K27's and K10's rows carry their bound (``kernel_work.k1_work`` /
+``k6_work`` / the bytes the adds need / ``k17_work`` / ``k18_work`` /
+``k32_work`` / ``k30_work`` / ``k8_work`` / ``k16_work`` / ``k27_work`` /
+``k10_work``, over the card's rates). The bound formulas,
 K11 / K12's inputs, K17's plan and the host timer are ``kernel_work.py``
 and ``host_timer.py`` beside this file, whichever tree ``--root`` names:
 both trees are held to the same bound and timed by the same method. Needs a
@@ -614,7 +626,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the tree whose kubernetes_tpu_torch to time")
     ap.add_argument("--out", required=True, help="where to write the rows (JSON)")
+    ap.add_argument("--only", default="", help="comma-separated kernel names: time only "
+                    "their rows (the others are still checked)")
     args = ap.parse_args()
+    only = {x for x in args.only.split(",") if x}
     root = Path(args.root).resolve()
     sys.path[0] = str(root)  # the tree under --root, not this file's
     import numpy as np
@@ -668,6 +683,10 @@ def main() -> None:
     def add(name, fn, equal, kernel=None, less=None, **shape):
         # ``kernel``: only its device activities count; ``less``: a call
         # that each call of ``fn`` begins with, its queued time taken off
+        if only and name.split(" (")[0] not in only:
+            if not equal:
+                rows.append({"name": name, "equal": False})
+            return
         ms = cs.device_ms(fn, kernel)
         queued = cs.queued_device_ms(fn) - (cs.queued_device_ms(less) if less else 0.0)
         row = {"name": name, "ms": ms, "ms_source": cs.MS_SOURCE[0],
@@ -983,6 +1002,51 @@ def main() -> None:
             dirty=dirty, payload_rows=k, bytes=kw.nbytes(*arrays), bound_ms=least, bound_by=by,
             library_ms=cs.device_ms(library), library_ms_source=cs.MS_SOURCE[0],
             host_us=host_issue_us(fn))
+
+    from kubernetes_tpu_torch.kernels import interpodaffinity as KI
+    from kubernetes_tpu_torch.kernels import preempt as KP
+
+    # K27: the whole call (a tree that sorts before its kernel is timed with
+    # its sort), held against the plain version on CPU copies (the card's
+    # index_add_ adds in no fixed order)
+    build.load("preempt")
+    for label, (n, live, p, r, n_prio, hot) in kw.K27_CASES.items():
+        a27 = kw.k27_inputs(label, dev)
+        want = KP.priority_prefix_plain(*[x.cpu() if torch.is_tensor(x) else x for x in a27])
+        got = KP.priority_prefix(*a27)
+        equal = torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        least, by = kw.bound_ms(*kw.k27_work(*a27))
+        fn = (lambda a_=a27: KP.priority_prefix(*a_))
+        add(f"priority_prefix ({label})", fn, bool(equal), N=n, live=live, P=p, R=r,
+            live_levels=n_prio, hot_node_pods=hot, bound_ms=least, bound_by=by,
+            host_us=host_issue_us(fn))
+
+    # K10 on the plane as K1 seeded it: each timed call first copies it in
+    # (``ms`` the K10 kernel's own device time, ``queued_ms`` with the copy's
+    # taken off); ``ms_filtered`` on a plane it already filtered (no store)
+    for label, (c, form, present, n) in kw.K10_CASES.items():
+        aux, seeded, bit = kw.k10_inputs(label, dev)
+        kb, pb = seeded.clone(), seeded.clone()
+        KI.ipa_filter_bits(aux, kb, bit)
+        KI.ipa_filter_bits_plain(aux, pb, bit)
+        equal = torch.equal(kb, pb) \
+            and torch.equal(kb, seeded) == (present == ("pref_affinity",))
+        work = seeded.clone()
+
+        def reseed(w_=work, s_=seeded):
+            w_.copy_(s_)
+
+        def fn(a_=aux, w_=work, r_=reseed):
+            r_()
+            KI.ipa_filter_bits(a_, w_, bit)
+
+        done = kb.clone()
+        call = (lambda a_=aux, w_=done: KI.ipa_filter_bits(a_, w_, bit))
+        least, by = kw.bound_ms(*kw.k10_work(aux, seeded, bit))
+        add(f"ipa_filter_bits ({label})", fn, bool(equal), kernel="ipa_filter_kernel",
+            less=reseed, C=c, N=n, form=form, present=list(present), bound_ms=least,
+            bound_by=by, ms_filtered=cs.device_ms(call, "ipa_filter_kernel"),
+            host_us=host_issue_us(call))
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"root": str(root), "card": card.strip(),

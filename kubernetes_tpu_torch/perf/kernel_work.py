@@ -1,9 +1,10 @@
 """The bytes and operations each kernel must move and do on given inputs
 (``*_work``, the basis of ``bound_ms``), the synthetic inputs that
-``chip_smoke.py`` and ``kernel_ab.py`` both build for K11 and K12, and the
-launch plans of K6, K16, K17 and K32 and K30's tiles, whose splits both
-scripts' cases and the CPU mirrors take from here (``k6_plan``,
-``k16_plan``, ``k17_plan``, ``k17_tie_rows``, ``k32_plan``, ``K30_*``).
+``chip_smoke.py`` and ``kernel_ab.py`` both build for K10, K11, K12 and
+K27, and the launch plans of K6, K16, K17, K27 and K32 and K30's tiles,
+whose splits both scripts' cases and the CPU mirrors take from here
+(``k6_plan``, ``k16_plan``, ``k17_plan``, ``k17_tie_rows``, ``k27_plan``,
+``k32_plan``, ``K30_*``).
 
 A bound counts what the function needs on this data: each input read
 once, each output written once, and only the cells the data reaches.  The
@@ -531,3 +532,186 @@ def k12_work(aux, commit, choice, class_of) -> tuple:
         ops += int(cells.sum())
         (block if name == "req_anti_affinity" else score).logical_or_(cells)
     return n_bytes + int(block.sum()) + 8 * int(score.sum()), ops
+
+
+# --- K10: InterPodAffinity's filter into the bit plane ---------------------------
+
+
+def k10_work(aux, bits, bit: int) -> tuple:
+    """(bytes, operations) K10 must move and do on these inputs: the
+    existing-pod and dynamic block planes read once; with required
+    affinity the row flags (term validity, aff_total, self_match) and, per
+    valid term row, its domain row and its counts — a plane's at every
+    keyed node, a table's once per keyed domain; with required
+    anti-affinity the same for every term row with a keyed node; the bit
+    plane read where the filter fails and written where it fails on a set
+    ``bit``.  Per (row, node) two tests, per (term row, node) two more."""
+    import torch
+
+    from kubernetes_tpu_torch.kernels.interpodaffinity import ipa_filter_plane
+
+    c, n = bits.shape
+    d = aux.depth
+    n_bytes = nbytes(aux.exist_anti_block, aux.block_dyn)
+    term_rows = 0
+    for name, g in (("req_affinity", "aff"), ("req_anti_affinity", "anti")):
+        if name not in aux.present:
+            continue
+        dom, cnt = getattr(aux, f"dom_{g}"), getattr(aux, f"{g}_cnt")
+        keyed = dom < d  # [C, T, N]
+        if name == "req_affinity":
+            rows = aux.req_aff_valid
+            n_bytes += nbytes(aux.req_aff_valid, aux.aff_total, aux.self_match_all)
+        else:
+            rows = keyed.any(dim=-1)
+        keyed = keyed & rows[:, :, None]
+        n_rows = int(rows.sum())
+        term_rows += n_rows
+        n_bytes += 4 * n * n_rows
+        if cnt.shape[-1] == n:
+            n_bytes += 4 * int(keyed.sum())
+        else:
+            seen = torch.zeros(cnt.shape, dtype=torch.bool, device=dom.device)
+            seen.scatter_(2, torch.where(keyed, dom, d).long(), True)
+            n_bytes += 4 * int(seen[:, :, :d].sum())
+    fail = ~ipa_filter_plane(aux)
+    n_clear = int((fail & (((bits >> bit) & 1) == 1)).sum())
+    return n_bytes + 4 * int(fail.sum()) + 4 * n_clear, 2 * c * n + 2 * term_rows * n
+
+
+# K10's shapes: label → (C, form, present groups, N); the path's batch has no
+# required term (SchedulingPreferredPodAffinity), SchedulingPodAffinity's
+# required affinity on zone tables, SchedulingPodAntiAffinity's required
+# anti-affinity on hostname planes; C = 4 a dedup round, 1 the scan's row,
+# 512 the full auction
+K10_CASES = {
+    "C = 4, planes, no required term": (4, "planes", ("pref_affinity",), 8192),
+    "C = 4, tables, required affinity": (4, "tables", ("req_affinity",), 8192),
+    "C = 1, tables, required affinity": (1, "tables", ("req_affinity",), 8192),
+    "C = 512, tables, required affinity": (512, "tables", ("req_affinity",), 8192),
+    "C = 4, planes, required anti-affinity": (4, "planes", ("req_anti_affinity",), 8192),
+    "C = 1, planes, required anti-affinity": (1, "planes", ("req_anti_affinity",), 8192),
+    "C = 512, planes, required anti-affinity": (512, "planes", ("req_anti_affinity",), 8192),
+    "C = 4, tables, required affinity, N = 8190": (4, "tables", ("req_affinity",), 8190),
+}
+
+
+def k10_inputs(label: str, dev, seed: int = 10):
+    """(aux, bits, bit) at K10's shape ``label``: ``ipa_view``'s class view
+    (5000 live nodes, the rest without the key; counts 0–3, so some nodes
+    match and some do not; aff_total 0–99 with a self-match, so a row of 0
+    takes the first-pod escape) and K1's bit plane (7 filter bits, ~70% of
+    the live nodes with every bit, dead nodes 0); bit 3 is the filter's.
+    With a required term, a block on 1% of the nodes in each of the
+    existing-pod and dynamic planes; without one (the path's batch) no
+    block, so the filter clears nothing, as on the path."""
+    import numpy as np
+    import torch
+
+    c, form, present, n = K10_CASES[label]
+    aux = ipa_view(c, form, present, dev, seed=seed, n=n)
+    rng = np.random.default_rng(seed + c)
+    live, full = 5000, 0b1111111
+    bits = np.where(rng.random((c, n)) < 0.7, full,
+                    full & ~(1 << rng.integers(0, 7, (c, n)))).astype(np.int32)
+    bits[:, live:] = 0
+    frac = 0.01 if {"req_affinity", "req_anti_affinity"} & set(present) else 0.0
+    aux = aux._replace(
+        exist_anti_block=torch.from_numpy(rng.random((c, n)) < frac).to(dev),
+        block_dyn=torch.from_numpy(rng.random((c, n)) < frac).to(dev))
+    return aux, torch.from_numpy(bits).to(dev), 3
+
+
+# --- K27: the priority-level prefix -------------------------------------------------
+
+# K27's block, a copy of csrc/preempt.cu's PREFIX_* and BLOCK_BASE: a tile
+# of K27_TILE nodes, a list of K27_CAP gathered pods a round, at most
+# K27_MAX_SMEM dynamic bytes (one block an SM)
+K27_TILE, K27_CAP, K27_MAX_SMEM, K27_BASE = 64, 1024, 200 * 1024, 16
+
+
+def k27_plan(r: int, k: int) -> tuple:
+    """(window, dynamic shared bytes): K27's plan for ``r`` requests and
+    ``k`` levels, a copy of ``prefix_plan`` in csrc/preempt.cu
+    (``chip_smoke.py`` holds the two together on the card): the list's
+    K27_CAP entries (4·r + 7 bytes each), then the largest window of w
+    levels (a multiple of 16, at most k rounded up to 16) whose totals and
+    w / 16 + 1 carry rows (r + 1 floats a node each) fit beside it."""
+    per_level = K27_TILE * (r + 1) * 4
+    lst = K27_CAP * (4 * r + 7)
+    k16 = max(K27_BASE, -(-k // K27_BASE) * K27_BASE)
+    fits = [c for c in range(K27_BASE, k16 + 1, K27_BASE)
+            if lst + (c + c // K27_BASE + 1) * per_level <= K27_MAX_SMEM]
+    if not fits:
+        raise ValueError(f"k27_plan: no window fits R = {r}")
+    w = fits[-1]
+    return w, lst + (w + w // K27_BASE + 1) * per_level
+
+
+def k27_work(pod_valid, pod_node, pod_priority, pod_request, levels, n: int) -> tuple:
+    """(bytes, operations) K27 must move and do on these inputs: the valid
+    flags of the tier; each valid pod's node; each valid bound pod's
+    priority, and its requests where its bucket is below K (the reference
+    drops the rest); the levels; the [K+1, N, R] and [K+1, N] outputs
+    written once.  An add a (kept pod, channel) and a (level, node,
+    channel) of the prefix."""
+    import torch
+
+    p, r = pod_request.shape
+    k = levels.shape[0]
+    bound = pod_valid & (pod_node >= 0)
+    kept = bound & (torch.searchsorted(levels, pod_priority) < k)
+    n_kept = int(kept.sum())
+    n_bytes = (nbytes(pod_valid) + 4 * int(pod_valid.sum()) + 4 * int(bound.sum())
+               + 4 * r * n_kept + 4 * k + 4 * (k + 1) * n * (r + 1))
+    return n_bytes, n_kept * (r + 1) + k * n * (r + 1)
+
+
+# K27's shapes: label → (N, live nodes, P, R, priorities, hot-node pods); the
+# path's (PreemptionBasic/5000Nodes: two live levels, ~10.8k bound pods of a
+# 32768-row tier), the check case's 128 levels on odd-KiB requests, a node
+# holding more pods than a round, and R = 16 over 128 levels (windows); the
+# path with a quarter of the tier (one chunk), with one request (a fifth of
+# the output) and a node holding 1500 pods split where the time goes
+K27_CASES = {
+    "path": (8192, 5000, 32768, 8, 2, 0),
+    "check case, 128 levels": (8192, 8192, 32768, 4, 128, 0),
+    "hot node": (8192, 5000, 32768, 8, 2, 6000),
+    "R = 16, 128 levels": (8192, 8192, 32768, 16, 128, 0),
+    "path, P = 8192": (8192, 5000, 8192, 8, 2, 0),
+    "path, R = 1": (8192, 5000, 32768, 1, 2, 0),
+    "hot node, 1500 pods": (8192, 5000, 32768, 8, 2, 1500),
+}
+
+
+def k27_inputs(label: str, dev, seed: int = 27):
+    """(pod_valid, pod_node, pod_priority, pod_request, levels, n) at K27's
+    shape ``label``: pods bound to the live nodes at random (a third of the
+    tier, the rest invalid or unbound, as a snapshot's tier between its
+    high-water mark and its bucket), odd-KiB memory requests near 1.6M so
+    the float32 sums round, priorities over the case's levels; the hot
+    node's pods on node 7; the levels padded with i32-max to 128."""
+    import numpy as np
+    import torch
+
+    n, live, p, r, n_prio, hot = K27_CASES[label]
+    rng = np.random.default_rng(seed)
+    node = rng.integers(0, live, p).astype(np.int32)
+    valid = rng.random(p) < (0.33 if n_prio <= 2 else 0.9)
+    node[rng.random(p) < 0.05] = -1
+    if hot:
+        node[:hot] = 7
+        valid[:hot] = True
+    prios = (np.arange(n_prio) * 10).astype(np.int32)
+    prio = prios[rng.integers(0, n_prio, p)]
+    req = np.zeros((p, r), np.int32)
+    req[:, 0] = rng.integers(100, 1000, p)
+    if r > 1:
+        req[:, 1] = rng.integers(700_000, 900_000, p) * 2 + 1
+    if r > 2:
+        req[:, 2:] = rng.integers(0, 8, (p, r - 2))
+        req[:, r - 1] = 1
+    levels = np.full(128, np.iinfo(np.int32).max, np.int32)
+    levels[:n_prio] = prios
+    t = [torch.from_numpy(x).to(dev) for x in (valid, node, prio, req, levels)]
+    return (*t, n)
