@@ -42,20 +42,23 @@ Phases, all of which must pass (any failure exits non-zero):
    an all-invalid prev term group.  K17–K19 (the exact scan's step): ties
    across the whole row, an all-infeasible row, a nominated row that is
    infeasible, feasible, past the bucket or the last node, a padding pod,
-   the maximum at the last node; K17 keyless and keyed also at N = 1, 31,
-   5000, 8191 and 8192 with ties and equal noise either side of every
-   cluster slice and vector tail, a +0.0 / −0.0 tie and unaligned views
-   (``k17_split_cases``); K18 / K19 at full-batch rows B = 512 with
-   the pod on a live node, a keyless node, the last node and none, K19 in
-   both count forms.  K1–K4, K6–K8 and K10–K12 again at C = 512 rows
-   (identity classes, as the full auction runs them) and K1, K2, K6, K7,
-   K10 and K11 on one row (as the scan runs them).  K20–K23 at GangBasic's
+   the maximum at the last node; K17 keyless and keyed (under real step
+   keys) also at N = 1, 31, 5000, 8191 and 8192 with ties either side of
+   every cluster slice and vector tail, equal draws across slices, a +0.0
+   / −0.0 tie and unaligned views (``k17_split_cases``); K18 / K19 at
+   full-batch rows B = 512 with the pod on a live node, a keyless node,
+   the last node and none, K19 in both count forms.  K1–K4, K6–K8 and
+   K10–K12 again at C = 512 rows (identity classes, as the full auction
+   runs them) and K1, K2, K6, K7, K10 and K11 on one row (as the scan runs
+   them).  K20–K23 at GangBasic's
    shapes: K20 with gangs of 8 at B = 512 and 1024, no gangs, one
    incomplete gang; K21 on 512 anchored rows over 8192 nodes in slices of
    8 with a row whose anchor slice holds no feasible node, anchor −2, and
    on one row; K22 at C = B = 512, on class-gathered rows and at 31
    filters; K23 with every operator, NaN and absent keys, empty terms,
-   match_all / match_none, both numeric forms and the numeric path off.
+   match_all / match_none, both numeric forms and the numeric path off,
+   and ``kernel_work.K23_CASES`` (U = 512 distinct rows, O = 8190, 20
+   label columns) and label views off 16-byte alignment.
    K24–K26 (DynamicResources) at C = 1, 64 and 512 rows over N = 8192
    (pinned, blocked and zero-demand rows, nodes without inventory, negative
    free; K25 at weights 1 and 2), K25 over the floor grid (capacity 1–256 ×
@@ -102,8 +105,9 @@ Phases, all of which must pass (any failure exits non-zero):
    2³² − 1): the split of 512 keys, a (512, 8192) noised plane and 512 step
    rows, bit for bit; the plain version against jax.random's words for
    PRNGKey(7) (literals in this script) and K33's row under that key too;
-   K17's keyed mode on all-tie rows, an all −inf row, a feasible and an
-   infeasible nominated row and a tie at the last node; K2's packed mode
+   K17's keyed mode (its draws made in the kernel under the step key) on
+   all-tie rows, an all −inf row, a feasible and an infeasible nominated
+   row and a tie at the last node; K2's packed mode
    at C = 512 and C = 1 over N = 8192 (−inf exactly off the mask).
 3. NorthStar/5000Nodes/10000Pods (5000 node_default nodes, 2000 pre-bound
    and 10000 pending pod_default pods) through TorchScheduler(batch_size=512)
@@ -229,8 +233,9 @@ Phases, all of which must pass (any failure exits non-zero):
    TopologySpreading/5000Nodes with 1024 spread pods (the router scans the
    coupled batches) and 256 under assign_mode="batch" (the full auction, a
    commit a round): every pod bound, the spread held, K33 launched, K17's
-   keyed mode where the scan runs; each beside the same cell without a key
-   (pods/s, attempt p99, nodes used).
+   keyed mode where the scan runs — there K33's split once a batch and
+   its step row never, by its per-entry counts; each beside the same cell
+   without a key (pods/s, attempt p99, nodes used).
 4b. The full auction and the exact scan at full width (5000 nodes, B =
    512, measured pods with the launch counts zeroed just before them, every
    measured batch through the expected engine, one profiled cycle each):
@@ -315,7 +320,7 @@ Phases, all of which must pass (any failure exits non-zero):
 6c. K20–K23 on the arguments of their latest call on the GangBasic/5000Nodes
    synchronous run (K23: the node-affinity filter's node-selector call),
    timed as in 6; K20 beside the one PyTorch pair that computes the same
-   mask (``index_add_`` + gather).
+   mask (``index_add_`` + gather); K23 one kernel node a call.
 6d. K24–K26 on the arguments of their latest call on the
    DeviceClaimGang/5000Nodes synchronous run, timed as in 6; K26 beside
    ``index_add_`` of the committed pods' demands (the masking inside the
@@ -337,10 +342,11 @@ Phases, all of which must pass (any failure exits non-zero):
    and under RequestedToCapacityRatio there, timed as in 6 (no one PyTorch
    call computes either).
 6h. K33 (its noise plane at the last keyed full auction's latest [512,
-   8192] round, its step keys and a step row on the last keyed scan),
-   K17's keyed mode on that scan's latest step and K2's packed mode on the
-   extender path's latest round, timed as in 6 (no one PyTorch call
-   computes any of them).
+   8192] round, its step keys on the last keyed scan, and select_host's
+   step row at that scan's N — the scan no longer launches it), K17's
+   keyed mode on that scan's latest step (one kernel node a call) and K2's
+   packed mode on the extender path's latest round, timed as in 6 (no one
+   PyTorch call computes any of them).
 
 Output: progress lines, a ``{"kernels": [...]}`` line (``launches`` counted
 on the path that carries each kernel: K1–K8 on the TopologySpreading run,
@@ -354,9 +360,9 @@ PreemptionBasic synchronous run, K29 on the dense preemption run, K30 on the
 Defrag harness run, K31 on the AutoscaleGang harness run, K32 and K1's
 MostAllocated / RequestedToCapacityRatio rows on the profiles path's
 synchronous run, in the wave of their profile, K33's plane on the keyed
-TopologySpreading full auction, its step keys and rows and K17's keyed
-mode on the keyed TopologySpreading scan, K2's packed mode on the
-synchronous extender path),
+TopologySpreading full auction, its step keys, its step row (0) and K17's
+keyed mode on the keyed TopologySpreading scan — each K33 entry by its own
+count —, K2's packed mode on the synchronous extender path),
 the card's name and power limit as
 nvidia-smi prints them, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1908,33 +1914,45 @@ def k17_plan_check() -> None:
 
 
 def k17_split_cases(dev, gen, keyed: bool) -> float:
-    """K17 (keyless, or keyed over a noise row) against its plain version on
-    the same CUDA tensors at ``K17_SIZES``: the maximum tied on the rows
-    either side of every slice boundary and vector tail (keyed, with the
-    same largest noise there: the lower row must win), a row of +0.0 and
-    −0.0 totals (a tie, as == says), an all-infeasible row, a feasible and
-    an infeasible nominated row, a padding pod; at N = 31 and 8191 also as
-    row 1 of a [2, N] buffer (a view 4 N bytes in: not 16-byte aligned, the
-    scalar form).  → the largest difference (0: exactly equal)."""
+    """K17 (keyless, or keyed under the step keys of PRNGKey(7)) against its
+    plain version on the same CUDA tensors at ``K17_SIZES``: the maximum
+    tied on the rows either side of every slice boundary and vector tail
+    (keyless the lowest must win, keyed the largest draw among them), a row
+    of +0.0 and −0.0 totals (a tie, as == says), an all-infeasible row, a
+    feasible and an infeasible nominated row, a padding pod; keyed also the
+    maximum on two rows in different slices whose draws are equal under the
+    step's key (``kernel_work.k17_equal_noise``: the lower must win) at N =
+    5000, 8191 and 8192; at N = 31 and 8191 also as row 1 of a [2, N]
+    buffer (a view 4 N bytes in: not 16-byte aligned, the scalar form).  →
+    the largest difference (0: exactly equal)."""
     import torch
 
     from kubernetes_tpu_torch.kernels import scan as KS
+    from kubernetes_tpu_torch.kernels import tie_noise as KT
+    from kubernetes_tpu_torch.ops import prng
 
     b, r, full, i = 64, 8, (1 << 16) - 1, 5
     request = torch.randint(0, 3000, (b, r), generator=gen, dtype=torch.int32).to(dev)
     pod_nz = torch.randint(0, 3000, (b, 2), generator=gen, dtype=torch.int32).to(dev)
+    keys = KT.tie_split(RNG_KEY, b, dev) if keyed else None
     what = "scan_select_assume" + (" keyed" if keyed else "")
     err = 0.0
     cases = [(n, kind, False) for n in K17_SIZES for kind in K17_SPLIT_KINDS]
     cases += [(n, "ties across slices", True) for n in (31, 8191)]
-    for n, kind, view in cases:
+    if keyed:
+        cases += [(n, "equal noise across slices", False) for n in (5000, 8191, 8192)]
+    for c_, (n, kind, view) in enumerate(cases):
         bits = torch.where(torch.rand(n, generator=gen) < 0.7, full, full & ~4).to(torch.int32)
         total = torch.randint(0, 400, (n,), generator=gen).float()
-        noise = torch.rand(n, generator=gen) * 0.75
         nom, valid = -1, torch.ones(b, dtype=torch.bool)
+        k = c_ % b
         tied = KW.k17_tie_rows(n)
         if kind == "ties across slices":
-            bits[tied], total[tied], noise[tied] = full, 999.0, 0.875
+            bits[tied], total[tied] = full, 999.0
+        elif kind == "equal noise across slices":
+            k, lo, hi = KW.k17_equal_noise(keys, n)
+            tied = [lo, hi]
+            bits[tied], total[tied] = full, 999.0
         elif kind == "plus and minus zero":
             total = torch.where(torch.arange(n) % 2 == 0, -0.0, 0.0)
             bits[0] = full
@@ -1949,10 +1967,10 @@ def k17_split_cases(dev, gen, keyed: bool) -> float:
         elif kind == "padding pod":
             valid[i] = False
         total = torch.where(bits == full, total, float("-inf"))
-        rows = [x.to(dev) for x in (bits, total, noise)]
+        rows = [x.to(dev) for x in (bits, total)]
         if view:  # row 1 of a [2, N] buffer: 4 N bytes in, not 16-byte aligned
             rows = [torch.stack([torch.zeros_like(x), x])[1] for x in rows]
-        bits_d, total_d, noise_d = rows
+        bits_d, total_d = rows
         if view and (bits_d.data_ptr() % 16 == 0 or not bits_d.is_contiguous()):
             fail(f"{what}: the N = {n} view case is aligned or not contiguous")
         nominated = torch.full((b,), -1, dtype=torch.int32)
@@ -1964,17 +1982,21 @@ def k17_split_cases(dev, gen, keyed: bool) -> float:
         outs_p = [t.clone() for t in outs_k]
         args = (bits_d[None], full, total_d[None], i, nominated.to(dev), valid.to(dev),
                 request, pod_nz)
-        z = noise_d if keyed else None
-        KS.scan_select_assume(*args, *outs_k, z)
-        KS.scan_select_assume_plain(*args, *outs_p, z)
+        tail = (keys, k) if keyed else ()
+        KS.scan_select_assume(*args, *outs_k, *tail)
+        KS.scan_select_assume_plain(*args, *outs_p, *tail)
         torch.cuda.synchronize()
         label = f"{what} (N = {n}, {kind}{', unaligned view' if view else ''})"
         err = max(err, require_equal(label, [
             (f, a, c) for f, a, c in zip(("requested", "non_zero", "node_row",
                                            "feasible_count"), outs_k, outs_p)]))
         row = int(outs_k[2][i])
-        if kind == "ties across slices" and row != tied[0]:
-            fail(f"{label}: went to {row}, not the lowest tied row {tied[0]}")
+        want = tied[0]
+        if keyed and kind == "ties across slices":
+            z = prng.uniform(keys[k].cpu().to(torch.int64) & prng.MASK32, (n,))
+            want = tied[int(torch.argmax(z[tied]))]  # the first of equal draws
+        if kind in ("ties across slices", "equal noise across slices") and row != want:
+            fail(f"{label}: went to {row}, not the tied row {want}")
         if kind == "plus and minus zero" and not keyed and row != 0:
             fail(f"{label}: went to {row}, not the first of the tied zeros")
         if kind in ("all infeasible", "padding pod") and row != -1:
@@ -1983,7 +2005,7 @@ def k17_split_cases(dev, gen, keyed: bool) -> float:
             fail(f"{label}: the feasible nominated row was not taken")
     log(f"  {what}: equal to the plain version on {len(cases)} cases at N = "
         f"{', '.join(map(str, K17_SIZES))} (slice boundaries, vector tails, ±0, unaligned "
-        f"views)")
+        "views" + (", equal draws across slices under a real key" if keyed else "") + ")")
     return err
 
 
@@ -4059,7 +4081,7 @@ GANG_REPLACES = {"gang_all_or_nothing": "kubernetes_tpu/gang/device.py:17",
                  "selector_match": "kubernetes_tpu/state/selectors.py:299"}
 GANG_SYMBOLS = {"gang_all_or_nothing": "gang_all_or_nothing_kernel",
                 "cosched_score_into": "cosched_score_into_kernel",
-                "diag_pack": "diag_pack_kernel", "selector_match": "selector_"}
+                "diag_pack": "diag_pack_kernel", "selector_match": "selector_match_kernel"}
 SLICE_LABEL = "tpu.kubernetes.io/slice"
 POD_GROUP_LABEL = "pod-group.scheduling/name"
 
@@ -4139,7 +4161,9 @@ def check_gang_kernels(dev) -> dict:
     anchor −2, one row; K22 at 31 filters, on class-gathered rows and on
     one row per pod; K23 with every operator, NaN and absent keys, empty
     terms, match_all / match_none, a side-table and a vals_num form, the
-    numeric path off, and at the path's node-affinity shape."""
+    numeric path off, at the path's node-affinity shape, and on
+    ``kernel_work.K23_CASES`` (U = 512 distinct rows, O = 8190, 20 label
+    columns) and unaligned label views."""
     import torch
 
     from kubernetes_tpu_torch.kernels import cosched as KC
@@ -4232,10 +4256,26 @@ def check_gang_kernels(dev) -> dict:
          cns.index),
         ("requirement rows, no index", lab, (None, None, None), None, True, None),
     ]
-    for what, req, opt, vn, has_num, index in sel_cases:
-        kw = dict(vals_num=vn, numeric=numeric, has_numeric=has_num, index=index)
-        got = KS.selector_match(*req, *opt, keys, vals, **kw)
-        want = KS.selector_match_plain(*req, *opt, keys, vals, **kw)
+    calls = [(what, (*req, *opt, keys, vals),
+              dict(vals_num=vn, numeric=numeric, has_numeric=has_num, index=index))
+             for what, req, opt, vn, has_num, index in sel_cases]
+    # the hot cases: kernel_work.K23_CASES (U = 512 distinct rows, O = 8190,
+    # labels past 16 columns in shared memory, ...) and the path's shape on
+    # label views 4 bytes off 16-byte alignment (the scalar label loads)
+    for label in KW.K23_CASES:
+        args, kw = KW.k23_inputs(label, dev)
+        calls.append((label, args, kw))
+    args, kw = KW.k23_inputs("O = 8190", dev)
+    off = [torch.zeros(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+           for x in args[7:9]]
+    for v_, x in zip(off, args[7:9]):
+        v_.copy_(x)
+    if off[0].data_ptr() % 16 == 0 or not off[0].is_contiguous():
+        fail("selector_match check: the label view is aligned or not contiguous")
+    calls.append(("unaligned label views, O = 8190", (*args[:7], *off), kw))
+    for what, args, kw in calls:
+        got = KS.selector_match(*args, **kw)
+        want = KS.selector_match_plain(*args, **kw)
         torch.cuda.synchronize()
         err["selector_match"] = max(err["selector_match"], require_equal(
             f"selector_match ({what})", [("match", got, want)]))
@@ -4560,9 +4600,10 @@ def time_gang_kernels(last_calls: dict, err: dict) -> list:
         {"C": plane.shape[0], "N": plane.shape[1], "B": b2, "filters": nf,
          "classes": class_of is not None})
 
-    # K23: the node-affinity filter's node-selector call (the wider mode):
-    # label sets, selectors and the numbers read once, [B, O] written;
-    # one key compare per (row, term, requirement, object, label column)
+    # K23: the node-affinity filter's node-selector call (the wider mode);
+    # kernel_work.k23_work: label sets, selectors, the numbers and the index
+    # read once, [B, O] written once; one key compare per (row, term,
+    # requirement, object, label column).  One kernel node a call.
     args, kw = last(("selector_match", "node"))
     got, want = KS.selector_match(*args, **kw), KS.selector_match_plain(*args, **kw)
     err["selector_match"] = max(err["selector_match"], require_equal(
@@ -4570,16 +4611,13 @@ def time_gang_kernels(last_calls: dict, err: dict) -> list:
     req_key, keys = args[0], args[7]
     u, t, s_ = req_key.shape
     o, lab = keys.shape
-    sel_bytes = nbytes(*(a for a in args[:7] if a is not None))
-    nums = ([kw.get("vals_num") if kw.get("vals_num") is not None else kw.get("numeric")]
-            if kw.get("has_numeric", True) else [])
     row("selector_match", lambda: KS.selector_match(*args, **kw),
-        lambda: KS.selector_match_plain(*args, **kw),
-        sel_bytes + nbytes(keys, args[8], *nums)
-        + got.numel() + (nbytes(kw["index"]) if kw.get("index") is not None else 0),
-        u * t * s_ * o * lab,
+        lambda: KS.selector_match_plain(*args, **kw), *KW.k23_work(*args, **kw),
         {"U": u, "T": t, "S": s_, "O": o, "L": lab, "B": got.shape[0],
          "has_numeric": bool(kw.get("has_numeric", True))})
+    one_device_activity("selector_match (path shapes)",
+                        lambda: KS.selector_match(*args, **kw), "selector_match_kernel",
+                        "selector_match")
     for rr in rows_out:
         log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
             f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
@@ -6194,24 +6232,31 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 
 
 # kernels already redesigned for Hopper in the port's step 2 (every row of
-# theirs, at every shape and mode): K2, K3, K4, K29, K19, K7, K13, K1, K11,
-# K12, K17 (keyless and keyed), K6, K18, K32, K30, K8, K16, K27 and K10
+# theirs, at every shape and mode, or the one row a full name names): K2,
+# K3, K4, K29, K19, K7, K13, K1, K11, K12, K17 (keyless and keyed), K6,
+# K18, K32, K30, K8, K16, K27, K10, K33's step row and K23
 REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
               "ipa_update_row", "spread_score_combine", "prev_delta_apply",
               "filter_score_planes", "ipa_score_combine", "ipa_update_classes",
               "scan_select_assume", "spread_filter_bits", "spread_update_row",
               "selector_spread_score", "fork_masks", "spread_update_classes", "scatter_rows",
-              "priority_prefix", "ipa_filter_bits")
+              "priority_prefix", "ipa_filter_bits", "tie_noise (step row)", "selector_match")
 
 
 def step2_order(rows: list) -> dict:
     """The port's order for redesigning kernels, over the rows of kernels
-    not yet redesigned (``REDESIGNED``'s rows are named as skipped): first
-    those slower than the one PyTorch call that computes the same function
-    (largest factor first), then the rest by launches × (time − bound) on
-    the path that carries them."""
-    skipped = [r["name"] for r in rows if r["name"].split(" (")[0] in REDESIGNED]
+    not yet redesigned (``REDESIGNED``'s rows, by kernel or by full name,
+    are named as skipped) and not left alone — a row that reaches half its
+    bound or more and is no slower than its library call is named as left
+    alone: first those slower than the one PyTorch call that computes the
+    same function (largest factor first), then the rest by launches ×
+    (time − bound) on the path that carries them."""
+    skipped = [r["name"] for r in rows
+               if r["name"] in REDESIGNED or r["name"].split(" (")[0] in REDESIGNED]
     rows = [r for r in rows if r["name"] not in skipped]
+    alone = [r["name"] for r in rows if r["bound_ms"] >= 0.5 * r["ms"]
+             and (r["library_ms"] is None or r["ms"] <= r["library_ms"])]
+    rows = [r for r in rows if r["name"] not in alone]
     slower = sorted((r for r in rows if r["library_ms"] and r["ms"] > r["library_ms"]),
                     key=lambda r: r["ms"] / r["library_ms"], reverse=True)
     rest = sorted((r for r in rows if r not in slower),
@@ -6221,11 +6266,12 @@ def step2_order(rows: list) -> dict:
     out += [{"name": r["name"], "ms": r["ms"], "bound_ms": r["bound_ms"],
              "launches": r["launches"],
              "loss_ms": (r["launches"] or 0) * (r["ms"] - r["bound_ms"])} for r in rest]
-    log(f"step-2 order (skipped, redesigned: {', '.join(skipped)}): " + "; ".join(
-        f"{o['name']} " + (f"{o['factor']:.2f}x its library call" if "factor" in o
-                           else f"{o['loss_ms']:.3f} ms lost ({o['launches']} launches)")
-        for o in out[:6]))
-    return {"skipped": skipped, "order": out}
+    log(f"step-2 order (skipped, redesigned: {', '.join(skipped)}; left alone, at half "
+        f"their bound or more: {', '.join(alone) or 'none'}): " + "; ".join(
+            f"{o['name']} " + (f"{o['factor']:.2f}x its library call" if "factor" in o
+                               else f"{o['loss_ms']:.3f} ms lost ({o['launches']} launches)")
+            for o in out[:6]))
+    return {"skipped": skipped, "left_alone": alone, "order": out}
 
 
 def kfork_bound(evaluate: dict, rows: list, row_bounds: dict) -> dict:
@@ -7922,7 +7968,6 @@ RNG_KEY = (0, 7)  # the reference's jax.random.PRNGKey(7)
 EXT_KERNELS = ("filter_score_planes", "normalize_combine_packed", "prev_delta_apply")
 KEYED_TARGETS = {
     "tie_plane": (RT, "tie_plane", None),
-    "tie_row": (RT, "tie_row", None),
     "tie_split": (RT, "tie_split", None),
     "scan_select_keyed": (RT, "scan_select_assume", lambda a: len(a) > 12 and a[12] is not None),
 }
@@ -7934,10 +7979,11 @@ def check_extender_kernels(dev) -> dict:
     keys, a (512, 8192) noised plane and 512 step rows, bit for bit against
     the plain version (ops/prng.py) on the same CUDA tensors, and the plain
     version against jax.random's words for PRNGKey(7) (literals); K17's
-    keyed mode on all-tie rows, an all −inf row, a feasible and an
-    infeasible nominated row and a tie at the last node, and
-    ``k17_split_cases`` keyed (equal noise across slices); K2's packed mode at
-    C = 512 and C = 1 over N = 8192."""
+    keyed mode under the step keys of PRNGKey(7) (its draws made in the
+    kernel; the chosen rows held against K33's step rows) on all-tie rows,
+    an all −inf row, a feasible and an infeasible nominated row and a tie
+    at the last node, and ``k17_split_cases`` keyed (equal draws across
+    slices); K2's packed mode at C = 512 and C = 1 over N = 8192."""
     import torch
 
     from kubernetes_tpu_torch.kernels import scan as KS
@@ -8015,7 +8061,7 @@ def check_extender_kernels(dev) -> dict:
             bits[5], total[5] = fullk, 999.0
         total = torch.where(bits == fullk, total, float("-inf"))
         bits, total = bits[None].to(dev), total[None].to(dev)
-        noise = KT.tie_row(keys, k, n)
+        noise = KT.tie_row(keys, k, n)  # the step's draws, as K17 makes them
         nominated = torch.full((b,), -1, dtype=torch.int32, device=dev)
         nominated[k] = nom
         outs_k = [torch.randint(0, 4000, (n, r), generator=gen, dtype=torch.int32).to(dev),
@@ -8024,8 +8070,8 @@ def check_extender_kernels(dev) -> dict:
                   torch.full((b,), -7, dtype=torch.int32, device=dev)]
         outs_p = [t.clone() for t in outs_k]
         args = (bits, fullk, total, k, nominated, valid, request, pod_nz)
-        KS.scan_select_assume(*args, *outs_k, noise)
-        KS.scan_select_assume_plain(*args, *outs_p, noise)
+        KS.scan_select_assume(*args, *outs_k, keys, k)
+        KS.scan_select_assume_plain(*args, *outs_p, keys, k)
         torch.cuda.synchronize()
         err["scan_select_keyed"] = max(err["scan_select_keyed"], require_equal(
             f"scan_select_assume keyed ({kind})",
@@ -8042,6 +8088,11 @@ def check_extender_kernels(dev) -> dict:
             want = int(torch.argmax(noise))
             if row != want:
                 fail(f"scan_select_assume keyed: all ties went to {row}, not {want}")
+        if kind == "tie at the last node":
+            want = (5, n - 1)[int(noise[n - 1] > noise[5])]
+            if row != want:
+                fail(f"scan_select_assume keyed: the tie at the last node went to {row}, "
+                     f"not {want}")
     err["scan_select_keyed"] = max(err["scan_select_keyed"],
                                    k17_split_cases(dev, gen, keyed=True))
     # K2 packed at C = 512 and C = 1
@@ -8304,6 +8355,7 @@ def keyed_run(dev_name: str, kind: str, key, mode: str = "auto", n_nodes: int = 
     att = np.asarray(sched.attempt_seconds[-n_pods:])
     rec = {"nodes": n_nodes, "first_pods": n_pre, "pods": n_pods, "mode": mode, "key": key,
            "wall_s": wall, "pods_per_s": n_pods / wall, "routes": sorted(set(routes)),
+           "dispatches": {r_: routes.count(r_) for r_ in sorted(set(routes))},
            "dedup_fallbacks": sorted({r for r in reasons if r}),
            "attempt_p50_ms": float(np.percentile(att, 50) * 1e3),
            "attempt_p99_ms": float(np.percentile(att, 99) * 1e3),
@@ -8348,14 +8400,23 @@ def keyed_paths() -> dict:
                 fail(f"{label}: kernel {k} never launched")
         if plain["launches"]["tie_noise"] or plain["launches"]["scan_select_keyed"]:
             fail(f"{label} without a key: a keyed kernel launched")
+        ln = keyed["launches"]
+        if ln["tie_noise"] != ln["tie_split"] + ln["tie_plane"] + ln["tie_row"]:
+            fail(f"{label}: K33's count {ln['tie_noise']} is not its entries' sum")
+        if engine == "scan" and (ln["tie_row"] or ln["tie_plane"]
+                                 or ln["tie_split"] != keyed["dispatches"]["scan"]):
+            fail(f"{label}: the keyed scan launched tie_row {ln['tie_row']} and tie_plane "
+                 f"{ln['tie_plane']} times and tie_split {ln['tie_split']} times in "
+                 f"{keyed['dispatches']['scan']} batches (0, 0 and once a batch expected)")
         out[label] = {"keyed": keyed, "keyless": plain}
         log(f"{label}, 5000 nodes / {n_pods} pods: {keyed['pods_per_s']:.1f} pods/s keyed "
             f"({keyed['routes']}, fallbacks {keyed['dedup_fallbacks']}) vs "
             f"{plain['pods_per_s']:.1f} without a key ({plain['routes']}); attempt p99 "
             f"{keyed['attempt_p99_ms']:.1f} vs {plain['attempt_p99_ms']:.1f} ms; nodes used "
             f"{keyed['nodes_used']} vs {plain['nodes_used']}; zones {keyed['zone_counts']}; "
-            f"launches K33 {keyed['launches']['tie_noise']}, K17 keyed "
-            f"{keyed['launches']['scan_select_keyed']}")
+            f"launches K33 {ln['tie_noise']} (split {ln['tie_split']}, plane "
+            f"{ln['tie_plane']}, row {ln['tie_row']}), K17 keyed "
+            f"{ln['scan_select_keyed']}")
     return out
 
 
@@ -8399,13 +8460,14 @@ def extender_cuda_vs_cpu(url: str) -> dict:
 
 def time_extender_kernels(keyed_calls: dict, packed_calls: dict, err: dict,
                           launches: dict) -> list:
-    """K33 (the noise plane, the step keys and a step row), K17's keyed mode
-    and K2's packed mode on the arguments of their latest call on the keyed
-    paths and the extender path, timed as in 6 and held once more against
-    their plain versions; the bounds from those inputs.  ``launches``: each
-    row's launches on the path whose call it times ("plane": the last keyed
-    full auction, "scan": the last keyed scan, "packed": the extender
-    path)."""
+    """K33 (the noise plane, the step keys and — off the scan since K17
+    draws inside — select_host's step row at the scan's N), K17's keyed
+    mode and K2's packed mode on the arguments of their latest call on the
+    keyed paths and the extender path, timed as in 6 and held once more
+    against their plain versions; the bounds from those inputs.
+    ``launches``: each row's launches on the path whose call it times
+    ("plane": the last keyed full auction's ``tie_plane``, "scan": the last
+    keyed scan's counts, "packed": the extender path)."""
     import torch
 
     from kubernetes_tpu_torch.kernels import scan as KS
@@ -8431,9 +8493,7 @@ def time_extender_kernels(keyed_calls: dict, packed_calls: dict, err: dict,
             "bound_by": bound_by, "library_ms": library, "bytes": n_bytes, "ops": n_ops,
             "shape": shape})
 
-    # threefry2x32: 20 rounds of an add, a rotate (two shifts and an or) and
-    # an xor, 5 key injections of three adds; the bits to a float, 3 more
-    tf_ops = 20 * 5 + 5 * 3 + 3
+    tf_ops = KW.THREEFRY_OPS
     (key, bits, full, total), _kw = last(keyed_calls, "tie_plane")
     base = total.clone()
     got = KT.tie_plane(key, bits, full, base.clone())
@@ -8452,21 +8512,28 @@ def time_extender_kernels(keyed_calls: dict, packed_calls: dict, err: dict,
     row("tie_noise (step keys)", "tie_noise", K33_SOURCE,
         "kubernetes_tpu/framework/runtime.py:397", "tie_split_kernel",
         lambda: KT.tie_split(key, b, dev), lambda: KT.tie_split_plain(key, b, device=dev),
-        8 * b, b * tf_ops, {"B": b}, launches["scan"]["tie_noise"])
-    (keys, k, n_row), _kw = last(keyed_calls, "tie_row")
+        8 * b, b * tf_ops, {"B": b}, launches["scan"]["tie_split"])
+    # the step row is no longer drawn on the scan (K17 draws inside): timed
+    # as select_host's draw at the scan's N, its launches the scan's (0)
+    args, _kw = last(keyed_calls, "scan_select_keyed")
+    n_row = args[0].shape[-1]
+    krow = KT.key_rows(key, dev)
+    got, want = KT.tie_row(krow, 0, n_row), KT.tie_row_plain(krow, 0, n_row)
+    err["tie_noise"] = max(err["tie_noise"], require_equal(
+        "tie_row (select_host's draw)", [("row", got, want)]))
     row("tie_noise (step row)", "tie_noise", K33_SOURCE,
         "kubernetes_tpu/framework/runtime.py:307", "tie_row_kernel",
-        lambda: KT.tie_row(keys, k, n_row), lambda: KT.tie_row_plain(keys, k, n_row),
-        8 + 4 * n_row, n_row * tf_ops, {"N": n_row, "step": k}, launches["scan"]["tie_noise"])
-    args, _kw = last(keyed_calls, "scan_select_keyed")
+        lambda: KT.tie_row(krow, 0, n_row), lambda: KT.tie_row_plain(krow, 0, n_row),
+        8 + 4 * n_row, n_row * tf_ops, {"N": n_row, "key": "select_host's"},
+        launches["scan"]["tie_row"])
     (sbits, sfull, stotal, i, nominated, valid, request, pod_nz, requested, node_nz,
-     node_row, feas, noise) = args
+     node_row, feas, keys, k) = args
     outs_k = [t.clone() for t in (requested, node_nz, node_row, feas)]
     outs_p = [t.clone() for t in outs_k]
     KS.scan_select_assume(sbits, sfull, stotal, i, nominated, valid, request, pod_nz,
-                          *outs_k, noise)
+                          *outs_k, keys, k)
     KS.scan_select_assume_plain(sbits, sfull, stotal, i, nominated, valid, request, pod_nz,
-                                *outs_p, noise)
+                                *outs_p, keys, k)
     err["scan_select_keyed"] = max(err["scan_select_keyed"], require_equal(
         "scan_select_assume keyed (path shapes)",
         [(f, a, c_) for f, a, c_ in zip("rnsf", outs_k, outs_p)]))
@@ -8474,14 +8541,14 @@ def time_extender_kernels(keyed_calls: dict, packed_calls: dict, err: dict,
     r_dims = request.shape[1]
     work = [t.clone() for t in (requested, node_nz, node_row, feas)]
     k17 = (lambda: KS.scan_select_assume(sbits, sfull, stotal, i, nominated, valid, request,
-                                         pod_nz, *work, noise))
+                                         pod_nz, *work, keys, k))
     row("scan_select_assume (keyed)", "scan_select_keyed", K17_SOURCE, K17_KEYED_REPLACES,
         "scan_select_kernel", k17,
         lambda: KS.scan_select_assume_plain(sbits, sfull, stotal, i, nominated, valid,
                                             request, pod_nz,
-                                            *[t.clone() for t in work], noise),
-        *KW.k17_work(sbits, sfull, stotal, i, nominated, valid, request, noise),
-        {"N": n_s, "R": r_dims}, launches["scan"]["scan_select_keyed"])
+                                            *[t.clone() for t in work], keys, k),
+        *KW.k17_work(sbits, sfull, stotal, i, nominated, valid, request, keys),
+        {"N": n_s, "R": r_dims, "step": k}, launches["scan"]["scan_select_keyed"])
     rows_out[-1]["host_us"] = host_issue_us(k17)
     log(f"  scan_select_assume (keyed): the host issues a call in "
         f"{rows_out[-1]['host_us']:.2f} us (1000 queued calls)")
@@ -8975,7 +9042,7 @@ def main() -> None:
         # the runs whose calls were recorded last: KEYED_RUNS' last full
         # auction and last scan
         {"plane": record["keyed_paths"]["TopologySpreading keyed, full auction"]["keyed"][
-            "launches"]["tie_noise"],
+            "launches"]["tie_plane"],
          "scan": record["keyed_paths"]["TopologySpreading keyed"]["keyed"]["launches"],
          "packed": record["extender_path"]["launches"]["normalize_combine_packed"]})
     scan_args = dict(recorders["TopologySpreading scan"].last)
@@ -9096,10 +9163,14 @@ def main() -> None:
                     for t_ in ("keyed", "keyless")}}
     for r in ext_rows:
         kname = {"scan_select_assume (keyed)": "scan_select_keyed",
-                 "normalize_combine (packed)": "normalize_combine_packed"}.get(r["name"],
-                                                                              "tie_noise")
+                 "normalize_combine (packed)": "normalize_combine_packed",
+                 "tie_noise (plane)": "tie_plane", "tie_noise (step keys)": "tie_split",
+                 "tie_noise (step row)": "tie_row"}[r["name"]]
         r["launches_by_path"] = {p_: v["launches"][kname] for p_, v in ext_paths.items()}
-        if r["launches"] <= 0:
+        if kname == "tie_row":  # select_host's draw: no path launches it
+            if any(r["launches_by_path"].values()):
+                fail(f"{r['name']}: launched on a path {r['launches_by_path']}")
+        elif r["launches"] <= 0:
             fail(f"{r['name']}: no launch on the path that carries it")
     rows += ext_rows
     record["kfork_solve_bound"] = kfork_bound(record["defrag_harness"]["profile_evaluate"],

@@ -12,14 +12,19 @@
 // where the next step's update kernels (K18, K19) read the node: the scan
 // queues every step back to back with no read on the host.
 //
-// Keyed mode (noise != NULL; the reference's select_host with a key,
-// :305-308): the node is the argmax of where(masked == max, noise, -1) —
-// the largest noise among the tied maxima, the lower row on equal noise; an
-// all -inf row is all ties.  The noise row is K33's uniform draw under the
-// step's key.  The nominated path and the infeasible rule are unchanged.
+// Keyed mode (keys != NULL; the reference's select_host with a key,
+// :305-308, under greedy_assign's step keys, :397, :421): the node is the
+// argmax of where(masked == max, noise, -1) — the largest noise among the
+// tied maxima, the lower row on equal noise; an all -inf row is all ties.
+// The noise at node n is u(n), threefry2x32 of the step's key keys[k] (the
+// table from K33's split, k the scan position) at the counter (0, n),
+// drawn here beside the fold that reads it (threefry.cuh, shared with
+// K33): no noise row and no K33 launch a step.  The nominated path and the
+// infeasible rule are unchanged.
 //
-// Bound on the card: bytes (the bit row and the total row, and the noise
-// row keyed, read once; a few dozen bytes of the step's own rows).  At one
+// Bound on the card: bytes (the bit row and the total row read once, the
+// step's 8-byte key keyed; a few dozen bytes of the step's own rows) —
+// and, keyed, ~120 integer operations a draw.  At one
 // row that is ~20 ns of the card's bandwidth, so latency sets the time:
 // how many SMs stream the row, how many dependent round trips follow it.
 //
@@ -30,11 +35,19 @@
 //     block about 1024 nodes, a 16-byte vector a thread: N = 8192 is a
 //     cluster of 8 blocks of 256 threads; N <= 1024 (the small tiers, the
 //     tests' rows, N = 1) one block and no cluster.
-//   * One read.  Each thread issues its loads (int4 bits, float4 total and
-//     noise) before its first compare.  The last slice's N mod 4 nodes go
-//     one a thread; a row whose pointers are not 16-byte aligned (a view)
-//     takes the scalar form throughout (VEC = 1).
-//   * One pass in both modes.  Each thread folds (count, value, noise, row)
+//   * One read.  Each thread issues its loads (int4 bits, float4 total;
+//     keyed, the step's two key words) before its first compare.  The last
+//     slice's N mod 4 nodes go one a thread; a row whose pointers are not
+//     16-byte aligned (a view) takes the scalar form throughout (VEC = 1).
+//   * Keyed, every node of a thread's vector is drawn, the four threefry
+//     chains computed together (independent rounds, interleaved) once the
+//     key has come — it is loaded first of all — then folded with the
+//     values.  Drawing only where the fold can use a draw (a thread's nodes
+//     equal to its local maximum of the masked total) was measured against
+//     it and lost on the card: a warp that holds a tie inside one thread
+//     (frequent on real rows, every warp on an all-tied row) draws whole
+//     vectors anyway, after a second pass.
+//   * One fold in both modes.  Each thread folds (count, value, noise, row)
 //     in the order value descending, noise descending, row ascending: the
 //     first argmax keyless (no noise), and keyed the argmax of
 //     where(masked == max, noise, -1) — noise >= 0 beats the -1 of every
@@ -60,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -155,12 +170,19 @@ __global__ void __launch_bounds__(SELECT_MAX_THREADS) scan_select_kernel(
     int32_t* __restrict__ node_nz,         // [N, 2] in/out
     int32_t* __restrict__ node_row,        // [B] out at i
     int32_t* __restrict__ feasible_count,  // [B] out at i
-    const float* __restrict__ noise) {     // [N] the step's draw (keyed)
+    const int32_t* __restrict__ keys,      // [b, 2] the batch's step keys (keyed)
+    int k) {                               // the scan position: the step's key row
   __shared__ Part s_warp[SELECT_MAX_THREADS / 32];
   __shared__ Part s_cl[SELECT_MAX_CLUSTER];
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int CL = plan.CL, rank = blockIdx.x;
   if (CL > 1) cluster_arrive_relaxed();  // this block runs; waited on before the push
+
+  uint32_t k0 = 0, k1 = 0;
+  if constexpr (KEYED) {  // the step's key, first of every load
+    k0 = (uint32_t)__ldg(keys + 2 * k);
+    k1 = (uint32_t)__ldg(keys + 2 * k + 1);
+  }
 
   // --- the step's own inputs, prefetched by the leader's warp 0 -----------
   const bool lead = rank == 0 && warp == 0;
@@ -187,22 +209,21 @@ __global__ void __launch_bounds__(SELECT_MAX_THREADS) scan_select_kernel(
       const float4 tv = __ldg(reinterpret_cast<const float4*>(total + n0));
       b[0] = bv.x; b[1] = bv.y; b[2] = bv.z; b[3] = bv.w;
       t[0] = tv.x; t[1] = tv.y; t[2] = tv.z; t[3] = tv.w;
-      if constexpr (KEYED) {
-        const float4 zv = __ldg(reinterpret_cast<const float4*>(noise + n0));
-        z[0] = zv.x; z[1] = zv.y; z[2] = zv.z; z[3] = zv.w;
-      }
     } else {
       b[0] = __ldg(bits + n0);
       t[0] = __ldg(total + n0);
-      if constexpr (KEYED) z[0] = __ldg(noise + n0);
     }
+    // keyed, a vector's draws computed together: they need only the key, so
+    // their rounds run while the row's loads are in flight
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) fold<KEYED>(p, b[e], full, t[e], KEYED ? z[e] : -1.0f, n0 + e);
+    for (int e = 0; e < VEC; ++e) z[e] = KEYED ? uniform_at(k0, k1, n0 + e) : -1.0f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) fold<KEYED>(p, b[e], full, t[e], z[e], n0 + e);
   }
   if (tail + tid < hi) {  // the last slice's N mod 4 nodes, one a thread
     const int n = tail + tid;
-    fold<KEYED>(p, __ldg(bits + n), full, __ldg(total + n),
-                KEYED ? __ldg(noise + n) : -1.0f, n);
+    const float z = KEYED ? uniform_at(k0, k1, n) : -1.0f;
+    fold<KEYED>(p, __ldg(bits + n), full, __ldg(total + n), z, n);
   }
   int nomc = 0, nom_ok = 0;
   if (lead && lane == 31) {  // the one dependent read: the nominated row's bits
@@ -279,7 +300,7 @@ template <int VEC, bool KEYED>
 static int launch_select(int N, int R, int full, int i, const int32_t* bits, const float* total,
                          const int32_t* nominated, const uint8_t* valid, const int32_t* request,
                          const int32_t* pod_nz, int32_t* requested, int32_t* node_nz,
-                         int32_t* node_row, int32_t* feasible_count, const float* noise,
+                         int32_t* node_row, int32_t* feasible_count, const int32_t* keys, int k,
                          cudaStream_t stream) {
   SelectPlan plan;
   int threads;
@@ -298,7 +319,7 @@ static int launch_select(int N, int R, int full, int i, const int32_t* bits, con
   cfg.numAttrs = plan.CL > 1 ? 1 : 0;
   cudaError_t e = cudaLaunchKernelEx(&cfg, scan_select_kernel<VEC, KEYED>, N, R, full, i, plan,
                                      bits, total, nominated, valid, request, pod_nz, requested,
-                                     node_nz, node_row, feasible_count, noise);
+                                     node_nz, node_row, feasible_count, keys, k);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -313,20 +334,22 @@ extern "C" void scan_select_plan(int N, int VEC, int* out) {
   out[1] = plan.S;
 }
 
+// keys: the batch's int32 [b, 2] step keys and k the step's row (keyed), or
+// null (keyless)
 extern "C" int launch_scan_select(int N, int R, int full, int i, const void* bits,
                                   const void* total, const void* nominated, const void* valid,
                                   const void* request, const void* pod_nz, void* requested,
                                   void* node_nz, void* node_row, void* feasible_count,
-                                  const void* noise, void* stream) {
+                                  const void* keys, int k, void* stream) {
   if (N <= 0) return 0;
-  if (R < 0) return (int)cudaErrorInvalidValue;
-  // 16-byte vectors where every row read starts on a 16-byte boundary
-  const bool vec4 = aligned16(bits) && aligned16(total) && (noise == nullptr || aligned16(noise));
-  const bool keyed = noise != nullptr;
+  if (R < 0 || (keys != nullptr && k < 0)) return (int)cudaErrorInvalidValue;
+  // 16-byte vectors where both rows start on a 16-byte boundary
+  const bool vec4 = aligned16(bits) && aligned16(total);
+  const bool keyed = keys != nullptr;
   const auto go = vec4 ? (keyed ? launch_select<4, true> : launch_select<4, false>)
                        : (keyed ? launch_select<1, true> : launch_select<1, false>);
   return go(N, R, full, i, (const int32_t*)bits, (const float*)total, (const int32_t*)nominated,
             (const uint8_t*)valid, (const int32_t*)request, (const int32_t*)pod_nz,
             (int32_t*)requested, (int32_t*)node_nz, (int32_t*)node_row,
-            (int32_t*)feasible_count, (const float*)noise, (cudaStream_t)stream);
+            (int32_t*)feasible_count, (const int32_t*)keys, k, (cudaStream_t)stream);
 }

@@ -3,8 +3,9 @@
 //
 // Replaces (JAX package): the jax.random draws of framework/runtime.py under
 // jax_threefry_partitionable=True — greedy_assign's per-step keys
-// (jax.random.split(key, b), :397) and their uniform rows
-// (select_host's jax.random.uniform(keys[k], (N,)), :307, :421), and
+// (jax.random.split(key, b), :397), select_host's uniform row
+// (jax.random.uniform(key, (N,)), :307; greedy_assign's steps, :421, draw
+// theirs inside K17's keyed pass), and
 // batch_assign's noise plane (jax.random.uniform(key, (b, N)) * 0.5 added to
 // the scores where the mask holds, :546-548, :588-589).
 //
@@ -15,12 +16,13 @@
 //          and the add is one correctly rounded float add (__fadd_rn), as
 //          XLA:CPU's; totals are integer-valued, so the noise reorders ties
 //          only.  Off the mask total stays -inf (K2 wrote it there).
-//   row:   noise[n] = u(n) under keys[k], the scan's k-th step key (k is the
-//          scan position, not the pod row), read from the card.
+//   row:   noise[n] = u(n) under keys[k] (k a row of the key table, read
+//          from the card): select_host's draw.  The scan's steps draw
+//          inside K17's keyed pass instead.
 //
-// Threefry-2x32: 20 rounds of add / rotate-left / xor, rotations (13, 15, 26,
-// 6) then (17, 29, 16, 24), the key schedule (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-// injected after every 4 rounds with the injection index added to word 1.
+// The threefry rounds and the uniform are threefry.cuh's, which K17's keyed
+// mode (scan.cu) includes too: one copy of the device code.
+//
 // Bound on the card: the plane's bytes (the total read and written, the bit
 // plane read: 12 bytes an element) against ~120 integer operations an
 // element; the split and the row are a few kB — launch latency.  Design: a
@@ -29,34 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
-                                             uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int g = 0; g < 5; ++g) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[g & 1][r]) ^ x0;
-    }
-    x0 += ks[(g + 1) % 3];
-    x1 += ks[(g + 2) % 3] + (uint32_t)(g + 1);
-  }
-}
-
-__device__ __forceinline__ float uniform_at(uint32_t k0, uint32_t k1, unsigned long long j) {
-  uint32_t x0 = (uint32_t)(j >> 32), x1 = (uint32_t)(j & 0xFFFFFFFFull);
-  threefry2x32(k0, k1, x0, x1);
-  const uint32_t w = ((x0 ^ x1) >> 9) | 0x3F800000u;
-  return __fsub_rn(__uint_as_float(w), 1.0f);
-}
+#include "threefry.cuh"
 
 __global__ void tie_split_kernel(uint32_t k0, uint32_t k1, int n, uint32_t* __restrict__ keys) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {

@@ -541,8 +541,9 @@ class BatchedFramework:
         dynamic plugins' filter and score on their aux row (K6 / K10, K7 /
         K11), K2's normalized weighted total; then K17 selects the node
         (``select_host``: the first maximum, the nominated row when it is
-        feasible; with ``key`` K17's keyed mode over the step's K33 noise
-        row, from ``split(key, B)[k]`` at scan position k) and assumes the
+        feasible; with ``key`` K17's keyed mode under the step's key
+        ``split(key, B)[k]`` at scan position k, the keys K33's split made
+        once a batch, the noise drawn inside K17) and assumes the
         pod's request into ``dyn``, writing
         ``node_row[i]`` on the device, and ``_apply_dynamic`` runs each live
         plugin's ``update`` (K18, K19), which reads that node there.  The
@@ -572,10 +573,9 @@ class BatchedFramework:
             rows = [(pw, pw.plugin.row(aux, i)) for pw, aux in live]
             bits, total = self._step_row(batch, i, snap, dyn, rows, fs_plan, comb_plan,
                                          full, static)
-            noise = None if keys is None else tie_row(keys, k, snap.num_nodes)
             scan_select_assume(bits, full, total, i, batch.nominated_row, batch.valid,
                                batch.request, batch.non_zero, dyn.requested, dyn.non_zero,
-                               node_row, feasible_count, noise)
+                               node_row, feasible_count, keys, k)
             self._apply_dynamic(live, i, node_row[i:i + 1], batch, snap)
         return AssignResult(node_row=node_row, feasible_count=feasible_count, dyn=dyn,
                             rounds=n_valid)

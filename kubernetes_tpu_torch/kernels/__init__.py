@@ -43,7 +43,8 @@ more than once); ``reset_launches`` zeroes the counts.
                             16-byte vectors, loads ahead of stores)
   K17 scan_select_assume    csrc/scan.cu (the exact scan: one launch per step,
                             one pass over the row split across a cluster
-                            of up to 8 blocks)
+                            of up to 8 blocks; keyed, the step's noise
+                            drawn inside, a thread's four nodes together)
   K18 spread_update_row     csrc/spread.cu (one launch per scan step)
   K19 ipa_update_row        csrc/interpodaffinity.cu (one launch per scan step)
   K20 gang_all_or_nothing   csrc/gang.cu (one launch per dispatch)
@@ -51,7 +52,11 @@ more than once); ``reset_launches`` zeroes the counts.
                             batch that anchors a gang)
   K22 diag_pack             csrc/diag_pack.cu (one launch per dispatch)
   K23 selector_match        csrc/selector_match.cu (one launch per selector
-                            matrix: the unique rows, then the gather by index)
+                            matrix: object tiles × chunks of result rows,
+                            each label set read once into registers, the
+                            rows' (row, term) verdicts as ballot words in
+                            shared memory, the result written once in
+                            16-byte stores)
   K24 dra_filter_bits       csrc/dra.cu (per round or scan step of a batch
                             with resource claims)
   K25 dra_score_into        csrc/dra.cu (the same)
@@ -75,13 +80,15 @@ more than once); ``reset_launches`` zeroes the counts.
                             8 blocks at C <= 16)
   K33 tie_noise             csrc/tie_noise.cu (a scheduler with an rng_key: the
                             full auction's noise plane once per round, the
-                            scan's step keys once per batch and one noise row
-                            per step)
+                            scan's step keys once per batch; each entry —
+                            tie_split, tie_plane, tie_row — counted apart
+                            as well, ``tie_noise`` their sum)
 
 K2 has a packed mode (``normalize_combine_packed``: the plane alone, −inf off
 the mask, no feasible count) for the extender rounds' ``compute_packed``, and
 K17 a keyed mode (``scan_select_keyed``: the uniform draw among the tied
-maxima) for a scheduler with an rng_key; each mode counts its own launches.
+maxima, under the step's key) for a scheduler with an rng_key; each mode
+counts its own launches.
 
 The full auction runs K1–K4, K6–K8 and K10–K12 at identity classes (one
 class row per pod); the exact scan runs K1, K2, K6, K7, K10 and K11 on one
@@ -140,6 +147,9 @@ LAUNCHES: Dict[str, int] = {
     "fork_add_rows": 0,
     "selector_spread_score": 0,
     "tie_noise": 0,
+    "tie_split": 0,
+    "tie_plane": 0,
+    "tie_row": 0,
     "normalize_combine_packed": 0,
     "scan_select_keyed": 0,
 }

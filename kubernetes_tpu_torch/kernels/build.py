@@ -5,9 +5,10 @@ Each ``csrc/<name>.cu`` exports plain C launch functions and is compiled by
 ``ctypes``.  Nothing is built when a module is imported: the first call that
 needs a library builds it, into ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``), under a name that carries the hash of
-the source and the flags — an edited source rebuilds, an unchanged one
-loads the library already built.  ``build_all`` starts one ``nvcc`` per
-source at once and waits for all of them.
+the source, the csrc/ headers it includes and the flags — an edited source
+or header rebuilds, an unchanged one loads the library already built.
+``build_all`` starts one ``nvcc`` per source at once and waits for all of
+them.
 
 Numerics flags: ``--fmad=false`` (no multiply contracted into an add),
 ``-prec-div=true`` and ``-prec-sqrt=true`` (correctly rounded division and
@@ -87,8 +88,20 @@ def _source(name: str) -> Path:
     return CSRC / (f"{name}.cpp" if _is_host(name) else f"{name}.cu")
 
 
+def _headers(src: bytes) -> bytes:
+    """The bytes of every csrc/ header a source includes by a quoted name
+    (``#include "threefry.cuh"``), so that an edited header rebuilds."""
+    out = b""
+    for line in src.splitlines():
+        line = line.strip()
+        if line.startswith(b'#include "'):
+            out += (CSRC / line.split(b'"')[1].decode()).read_bytes()
+    return out
+
+
 def _lib_path(name: str) -> Path:
     src = _source(name).read_bytes()
+    src += _headers(src)
     flags = GXX_FLAGS if _is_host(name) else NVCC_FLAGS
     h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"

@@ -8,8 +8,14 @@ and ``flat_selector_matrix`` (:52), which call them.  Requirement sets
 ``[U, T, S]`` (key, op, values ``[V]``, numeric right-hand side) against
 label sets ``[O, L]`` → ``bool[B, O]`` through the per-pod ``index``.
 
-The plain version is the reference's broadcast compare; the kernel runs one
-thread per (unique row, object) over the same rules, then gathers by index.
+The plain version is the reference's broadcast compare.  The kernel is one
+launch a call over object tiles × chunks of the result rows (``plan_for``):
+a thread reads its object's label set once into registers; the block
+stages the rows it needs — every unique row, the chunk's rows, or the
+chunk's distinct rows — into shared memory in one round of loads; its row
+groups evaluate (row, term) items, each verdict of a warp one ballot word
+in shared memory; the result is written once, 16 objects a 16-byte store.
+No ``[U, O]`` matrix goes through global memory.
 The compiled selector arrays are uploaded once per batch
 (``framework/podbatch.batch_to_device``): on the card the wrapper takes
 device tensors only and uploads nothing.  CPU tensors take the plain
@@ -118,6 +124,19 @@ def selector_match_plain(req_key, req_op, req_vals, req_num, term_valid, match_a
     return m if index is None else m[_as(index, dev).long()]
 
 
+def plan_for(u: int, t: int) -> tuple:
+    """(objects a block, result rows a block) for U unique rows of T terms,
+    blocks of 256 threads whose row groups share a tile's (row, term)
+    items: at most 4 items, 128 objects and 256 rows (two row groups, one
+    item or two each: 128 blocks at O = 8192, B = 512); at most 32 unique
+    rows, 64 objects and every row (four row groups; each object evaluated
+    once); more, 128 objects and 16 rows (a block's items bounded by its
+    chunk's rows, many blocks)."""
+    if u * t <= 4:
+        return (128, 256)
+    return (64, 512) if u <= 32 else (128, 16)
+
+
 _FN = None
 
 
@@ -125,7 +144,7 @@ def _fn():
     global _FN
     if _FN is None:
         _FN = bind(load("selector_match"), "launch_selector_match",
-                   "iiiiiiii" + "ppppppp" + "pppp" + "i" + "pppp")
+                   "iiiiiiii" + "ppppppp" + "pppp" + "i" + "pp" + "ii" + "p")
     return _FN
 
 
@@ -205,15 +224,15 @@ def selector_match(req_key, req_op, req_vals, req_num, term_valid, match_all, ma
             raise ValueError(f"selector_match: index must be a tensor on {dev}")
         idx = index.to(torch.int32).contiguous()
         b = idx.shape[0]
-    m_u = torch.empty((u, o), dtype=torch.uint8, device=dev)
     out = torch.empty((b, o), dtype=torch.bool, device=dev)
     if u == 0 or o == 0 or b == 0:
         return out
+    tile, chunk = plan_for(u, t)
     err = _fn()(u, t, s, v, o, lab, b, int(bool(has_numeric)), ptr(rk), ptr(rop), ptr(rv),
                 ptr(rn), _ptr_or_null(opt.get("term_valid")),
                 _ptr_or_null(opt.get("match_all")), _ptr_or_null(opt.get("match_none")),
                 ptr(keys), ptr(vals), _ptr_or_null(vn), _ptr_or_null(nt), d,
-                _ptr_or_null(idx), ptr(m_u), ptr(out), stream_of(dev))
+                _ptr_or_null(idx), ptr(out), tile, chunk, stream_of(dev))
     check(err, "selector_match")
     LAUNCHES["selector_match"] += 1
     return out

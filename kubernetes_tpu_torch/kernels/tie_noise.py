@@ -1,16 +1,20 @@
 """K33 ``tie_noise``: the keyed engines' threefry tie noise (CUDA:
-csrc/tie_noise.cu), three entries, one thread an element.
+csrc/tie_noise.cu, the rounds in csrc/threefry.cuh), three entries, one
+thread an element.
 
 Replaces the JAX package's ``jax.random`` draws in framework/runtime.py:
-``greedy_assign``'s per-step keys (``jax.random.split(key, b)``, :397)
-and each step's uniform row (``select_host``, :307, :421), and
-``batch_assign``'s ``[B, N]`` plane (``uniform(key, (b, N)) * 0.5`` added
-to the scores where the mask holds, :546-548, :588-589).  The plain
-versions are ops/prng.py's threefry2x32, bit for bit equal to
-``jax.random`` under ``jax_threefry_partitionable=True``.
+``greedy_assign``'s per-step keys (``jax.random.split(key, b)``, :397),
+``select_host``'s uniform row (:307), and ``batch_assign``'s ``[B, N]``
+plane (``uniform(key, (b, N)) * 0.5`` added to the scores where the mask
+holds, :546-548, :588-589).  The scan's steps (:421) draw their rows
+inside K17's keyed pass (kernels/scan.py), from the keys ``tie_split``
+makes.  The plain versions are ops/prng.py's threefry2x32, bit for bit
+equal to ``jax.random`` under ``jax_threefry_partitionable=True``.
 
 Keys on the device are int32 ``[b, 2]`` tensors holding the uint32 words'
-bits.  CPU tensors take the plain versions; CUDA tensors launch K33.
+bits.  CPU tensors take the plain versions; CUDA tensors launch K33.  Each
+entry counts its own launches (``LAUNCHES["tie_split"]``, ``["tie_plane"]``,
+``["tie_row"]``) and ``LAUNCHES["tie_noise"]`` their sum.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ def tie_plane_plain(key, bits: torch.Tensor, full: int, total: torch.Tensor) -> 
 
 
 def tie_row_plain(keys: torch.Tensor, k: int, n: int) -> torch.Tensor:
-    """uniform(keys[k], (n,)): the scan's k-th step row."""
+    """uniform(keys[k], (n,)): the row drawn under key row k."""
     return prng.uniform(keys[k].to(torch.int64) & prng.MASK32, (n,), device=keys.device)
 
 
@@ -62,6 +66,11 @@ def _fn(name: str, spec: str):
     return fn
 
 
+def _count(entry: str) -> None:
+    LAUNCHES[entry] += 1
+    LAUNCHES["tie_noise"] += 1
+
+
 def tie_split(key, n: int, device) -> torch.Tensor:
     """→ int32[n, 2]: the batch's step keys ``split(key, n)`` on ``device``.
     A CPU device takes the plain version; a CUDA device launches K33."""
@@ -72,7 +81,7 @@ def tie_split(key, n: int, device) -> torch.Tensor:
     keys = torch.empty((n, 2), dtype=torch.int32, device=device)
     err = _fn("launch_tie_split", "uuipp")(k0, k1, n, ptr(keys), stream_of(device))
     check(err, "tie_split")
-    LAUNCHES["tie_noise"] += 1
+    _count("tie_split")
     return keys
 
 
@@ -91,13 +100,14 @@ def tie_plane(key, bits: torch.Tensor, full: int, total: torch.Tensor) -> torch.
     err = _fn("launch_tie_plane", "uulippp")(k0, k1, total.numel(), int(full), ptr(bits),
                                              ptr(total), stream_of(dev))
     check(err, "tie_plane")
-    LAUNCHES["tie_noise"] += 1
+    _count("tie_plane")
     return total
 
 
 def tie_row(keys: torch.Tensor, k: int, n: int) -> torch.Tensor:
-    """→ f32[n]: the k-th step's uniform row under ``keys`` int32[b, 2].
-    CPU tensors take the plain version; CUDA tensors launch K33."""
+    """→ f32[n]: the uniform row under key row k of ``keys`` int32[b, 2]
+    (``select_host``'s draw: ``key_rows(key)`` and k = 0).  CPU tensors
+    take the plain version; CUDA tensors launch K33."""
     if not keys.is_cuda:
         return tie_row_plain(keys, k, n)
     dev = require_cuda("tie_row", keys)
@@ -107,5 +117,5 @@ def tie_row(keys: torch.Tensor, k: int, n: int) -> torch.Tensor:
     noise = torch.empty((n,), dtype=torch.float32, device=dev)
     err = _fn("launch_tie_row", "pipp")(ptr(keys), int(k), int(n), ptr(noise), stream_of(dev))
     check(err, "tie_row")
-    LAUNCHES["tie_noise"] += 1
+    _count("tie_row")
     return noise

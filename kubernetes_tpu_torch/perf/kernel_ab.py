@@ -3,8 +3,8 @@
 K1 (filter_score_planes), K13 (prev_delta_apply), K17
 (scan_select_assume, keyless and keyed), K6 (spread_filter_bits), K18
 (spread_update_row), K32 (selector_spread_score), K30 (fork_masks), K8
-(spread_update_classes), K16 (scatter_rows), K27 (priority_prefix) and
-K10 (ipa_filter_bits) timed on synthetic
+(spread_update_classes), K16 (scatter_rows), K27 (priority_prefix), K10
+(ipa_filter_bits) and K23 (selector_match) timed on synthetic
 inputs at the shapes their paths give them, for the copy of ``kubernetes_tpu_torch`` under
 ``--root``, so that two trees (a parent and a change, unpacked side by
 side) are timed by the same methods on one card:
@@ -46,8 +46,13 @@ a zero tensor for a tree whose wrapper needs one), each beside
 ``index_add_`` into the same arrays timed by the same method; K17 at
 ``K17_CASES`` (the TopologySpreading scan's step — N = 8192, 5000 live
 nodes, R = 8, a cluster of 8 — and the 500-node what-if forks' — N = 512,
-500 live, one block; ties and equal noise across the plan's slice
-boundaries, all-tied rows); K6 at ``K6_CASES`` (``spread_aux``: N = 8192,
+500 live, one block; ties across the plan's slice boundaries, keyed two
+rows whose draws under the step's key are equal (``kernel_work.
+k17_equal_noise``), all-tied rows), the K17 kernel's own time; keyed, the
+step keys of PRNGKey(7) — a tree whose K17 takes the key gets it, one
+whose K17 takes a noise row gets K33's ``tie_row`` under it — and a
+", the step" row beside each, the step as the scan issues it (the
+parent's ``tie_row`` + K17, the change's one launch); K6 at ``K6_CASES`` (``spread_aux``: N = 8192,
 5000 live nodes, one hard constraint — C = 1 (the scan's step), 4 (a
 TopologySpreading round) and 512 (the full auction) on the zone tables,
 D + 1 = 9; C = 512 on a hostname table, D + 1 = 8193, split across a
@@ -81,7 +86,15 @@ path's payload, 400 dirty rows padded to 512; its pod group at P = 16384;
 its affinity group, G = 1024 with 256-domain count rows; the node group
 with k = 0 and with 100 rows padded to 512; bool, 12-byte and 3-byte rows
 at N = 8190), each beside ``index_copy`` per array timed by the same
-method.  K27 at ``kernel_work.K27_CASES`` (PreemptionBasic's path: P =
+method.  K23 at ``kernel_work.K23_CASES`` (GangBasic's node-affinity call
+— U = 2 node selectors of T = 2 terms of S = 4 requirements over O = 8192
+nodes of L = 16 labels, B = 512 —, label selectors with the side table,
+``vals_num`` and the numeric side off, requirement rows with no index, U =
+512 distinct rows, O = 8190, 20 label columns), and on a tree with
+``selectors.plan_for`` its path, label selectors, requirement rows and U =
+512 rows again under other tiles (64, 128 objects) and chunks (16 to 512
+rows).  K27 at
+``kernel_work.K27_CASES`` (PreemptionBasic's path: P =
 32768, N = 8192, R = 8, two live levels; the check case's 128 levels at
 R = 4; a node holding 6000 pods; R = 16 over 128 levels), ``ms`` the whole
 call's device time (a tree that sorts before its kernel is timed with its
@@ -94,10 +107,10 @@ name,...`` times only the rows of those kernels (the others are still
 checked).  The K6, K17, K18, K32, K30, K8, K16, K27 and K10 rows carry
 ``host_us``, the host's issue time of one wrapper call over 1000 queued calls
 (``host_timer.py``).  K1's, K6's, K13's, K17's, K18's, K32's, K30's, K8's,
-K16's, K27's and K10's rows carry their bound (``kernel_work.k1_work`` /
+K16's, K27's, K10's and K23's rows carry their bound (``kernel_work.k1_work`` /
 ``k6_work`` / the bytes the adds need / ``k17_work`` / ``k18_work`` /
 ``k32_work`` / ``k30_work`` / ``k8_work`` / ``k16_work`` / ``k27_work`` /
-``k10_work``, over the card's rates). The bound formulas,
+``k10_work`` / ``k23_work``, over the card's rates). The bound formulas,
 K11 / K12's inputs, K17's plan and the host timer are ``kernel_work.py``
 and ``host_timer.py`` beside this file, whichever tree ``--root`` names:
 both trees are held to the same bound and timed by the same method. Needs a
@@ -108,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import subprocess
 import sys
@@ -577,27 +591,24 @@ K17_CASES = {
 }
 
 
-def k17_tied(label: str, kw) -> list:
-    """The rows that hold the maximum (and, keyed, the same largest noise)
-    in a "slices" case: those of ``kw.k17_tie_rows`` among the live nodes —
-    either side of each slice boundary — or, in one block, the rows either
-    side of the live nodes' middle.  The lowest must win."""
-    _keyed, _ties, n, live = K17_CASES[label]
-    return [a for a in kw.k17_tie_rows(n) if a < live] or [live // 2 - 1, live // 2]
-
-
 def k17_inputs(label: str, dev, kw, seed: int = 17):
     """K17's arguments at ``label``: a bit row of 7 filter bits with ~70%
     of the live nodes feasible and K2's total (integers 0–400, −inf off the
-    mask); "slices" puts the row's maximum on the feasible rows
-    ``k17_tied`` names (and, keyed, the same largest noise on them), "all"
-    gives every feasible node the same total (the spread cell's rows);
-    keyed, a uniform noise row.  Pod 137 of B = 512 (R = 8, not nominated,
-    valid) on random requested / non_zero rows → (bits, full, total, i,
-    nominated, valid, request, pod_nz, requested, node_nz, node_row,
-    feasible_count, noise or None)."""
+    mask); "slices" puts the row's maximum on feasible rows across the
+    plan's slices — keyless ``kw.k17_tie_rows``'s (either side of each slice
+    boundary) or, in one block, either side of the live nodes' middle;
+    keyed the pair ``kw.k17_equal_noise`` finds, two rows whose draws under
+    the step's key are equal — and the lowest of them must win; "all" gives
+    every feasible node the same total (the spread cell's rows).  Keyed,
+    the step keys are ``split(PRNGKey(7), 512)`` and the step is the
+    found pair's key row (pod 137's otherwise).  Pod 137 of B = 512 (R = 8,
+    not nominated, valid) on random requested / non_zero rows → ((bits,
+    full, total, i, nominated, valid, request, pod_nz, requested, node_nz,
+    node_row, feasible_count), keys or None, k, the tied rows)."""
     import numpy as np
     import torch
+
+    from kubernetes_tpu_torch.kernels.tie_noise import tie_split_plain
 
     keyed, ties, n, live = K17_CASES[label]
     rng = np.random.default_rng(seed + keyed + 2 * (ties == "all") + 4 * (n != 8192))
@@ -605,12 +616,16 @@ def k17_inputs(label: str, dev, kw, seed: int = 17):
     feasible = (rng.random(n) < 0.7) & (np.arange(n) < live)
     bits = np.where(feasible, full, full & ~(1 << rng.integers(0, 7, n))).astype(np.int32)
     total = rng.integers(0, 400, n).astype(np.float32)
-    noise = rng.random(n, dtype=np.float32)
+    keys = tie_split_plain((0, 7), b, device=dev) if keyed else None
+    k, at = i, []
     if ties == "all":
         total[:] = 250.0
+    elif keyed:
+        k, lo, hi = kw.k17_equal_noise(keys, n, live)
+        at = [lo, hi]
     else:
-        at = k17_tied(label, kw)
-        bits[at], total[at], noise[at] = full, 500.0, np.float32(0.9999)
+        at = [a for a in kw.k17_tie_rows(n) if a < live] or [live // 2 - 1, live // 2]
+    bits[at], total[at] = full, 500.0
     total = np.where(bits == full, total, -np.inf).astype(np.float32)
     arrays = [bits[None], total[None], np.full(b, -1, np.int32), np.ones(b, bool),
               rng.integers(0, 3000, (b, r)).astype(np.int32),
@@ -619,7 +634,24 @@ def k17_inputs(label: str, dev, kw, seed: int = 17):
               rng.integers(0, 1 << 20, (n, 2)).astype(np.int32),
               np.full(b, -1, np.int32), np.zeros(b, np.int32)]
     t = [torch.from_numpy(a).to(dev) for a in arrays]
-    return (t[0], full, t[1], i, *t[2:], torch.from_numpy(noise).to(dev) if keyed else None)
+    return (t[0], full, t[1], i, *t[2:]), keys, k, at
+
+
+def k17_expected(a17, keys, k) -> int:
+    """The step's node by ``select_host``'s rule on the host: the first
+    maximum keyless, keyed the largest draw among the tied maxima (the
+    first row on equal draws)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import prng
+
+    n = a17[0].shape[-1]
+    masked = torch.where(a17[0].reshape(n).cpu() == a17[1], a17[2].reshape(n).cpu(),
+                         float("-inf"))
+    if keys is None:
+        return int(torch.argmax(masked))
+    noise = prng.uniform(keys[k].cpu().to(torch.int64) & prng.MASK32, (n,))
+    return int(torch.argmax(torch.where(masked == masked.max(), noise, -1.0)))
 
 
 def main() -> None:
@@ -856,22 +888,79 @@ def main() -> None:
             library_ms=cs.device_ms(library), library_ms_source=cs.MS_SOURCE[0],
             library_queued_ms=cs.queued_device_ms(library))
 
+    # K17: a tree whose keyed mode takes the step's key (one launch a step)
+    # or its noise row (K33's tie_row first: the step is two launches)
+    from kubernetes_tpu_torch.kernels.tie_noise import tie_row
+
+    by_key = "keys" in inspect.signature(scan_select_assume).parameters
+    build.load("tie_noise")
     for label in K17_CASES:
         keyed, ties, n, live = K17_CASES[label]
-        a17 = k17_inputs(label, dev, kw)
-        i, noise = a17[3], a17[12]
+        a17, keys, k, tied = k17_inputs(label, dev, kw)
+        i = a17[3]
+        if keys is None:
+            tail = ()
+        elif by_key:
+            tail = (keys, k)
+        else:
+            tail = (tie_row(keys, k, n),)
         ko, po = [t.clone() for t in a17[8:12]], [t.clone() for t in a17[8:12]]
-        scan_select_assume(*a17[:8], *ko, noise)
-        scan_select_assume_plain(*a17[:8], *po, noise)
+        scan_select_assume(*a17[:8], *ko, *tail)
+        scan_select_assume_plain(*a17[:8], *po, *tail)
         node = int(ko[2][i])
-        equal = all(torch.equal(x, y) for x, y in zip(ko, po)) and node >= 0 \
-            and (ties == "all" or node == min(k17_tied(label, kw)))  # the lowest tied row
+        want = k17_expected(a17, keys, k)
+        equal = all(torch.equal(x, y) for x, y in zip(ko, po)) and node == want \
+            and (ties == "all" or node == min(tied))  # the lowest tied row
         least, by = kw.bound_ms(*kw.k17_work(a17[0], a17[1], a17[2], i, a17[4], a17[5],
-                                             a17[6], noise))
+                                             a17[6], keys))
         work = [t.clone() for t in a17[8:12]]
-        fn = (lambda a_=a17, w_=work: scan_select_assume(*a_[:8], *w_, a_[12]))
-        add(f"scan_select_assume ({label})", fn, bool(equal), N=n, R=8, live=live,
-            node=node, bound_ms=least, bound_by=by, host_us=host_issue_us(fn))
+        fn = (lambda a_=a17, w_=work, t_=tail: scan_select_assume(*a_[:8], *w_, *t_))
+        add(f"scan_select_assume ({label})", fn, bool(equal), kernel="scan_select_kernel",
+            N=n, R=8, live=live, node=node, bound_ms=least, bound_by=by,
+            host_us=host_issue_us(fn))
+        if keys is None:
+            continue
+        # the keyed step as the scan issues it: the parent's tie_row + K17,
+        # the change's one launch
+        if by_key:
+            step = fn
+        else:
+            def step(a_=a17, w_=work, ks=keys, k_=k, n_=n):
+                scan_select_assume(*a_[:8], *w_, tie_row(ks, k_, n_))
+        add(f"scan_select_assume ({label}, the step)", step, bool(equal), N=n, R=8,
+            live=live, launches=1 if by_key else 2, bound_ms=least, bound_by=by,
+            host_us=host_issue_us(step))
+
+    # K23 at K23_CASES, and some under other launch plans where the tree
+    # chooses one (``selectors.plan_for``: objects a block, rows a block)
+    from kubernetes_tpu_torch.kernels import selectors as KSEL
+
+    build.load("selector_match")
+    plans = [None]
+    if hasattr(KSEL, "plan_for"):
+        plans += [(64, 32), (64, 512), (128, 16), (128, 32), (128, 128), (128, 256)]
+    for label in kw.K23_CASES:
+        a23, kw23 = kw.k23_inputs(label, dev)
+        want = KSEL.selector_match_plain(*a23, **kw23)
+        least, by = kw.bound_ms(*kw.k23_work(*a23, **kw23))
+        mode, u, t, s_, o, lab, b, index, numeric = kw.K23_CASES[label]
+        for plan_ in plans if label.startswith(("path", "U = 512", "label selectors, side",
+                                                "requirement rows")) else [None]:
+            def fn(a_=a23, k_=kw23, p_=plan_):
+                if p_ is None:
+                    return KSEL.selector_match(*a_, **k_)
+                keep, KSEL.plan_for = KSEL.plan_for, lambda _u, _t: p_
+                try:
+                    return KSEL.selector_match(*a_, **k_)
+                finally:
+                    KSEL.plan_for = keep
+            got = fn()
+            equal = bool(torch.equal(got, want)) and 0 < int(want.sum()) < want.numel()
+            add(f"selector_match ({label}" + ("" if plan_ is None else f", plan {plan_}") + ")",
+                fn, equal, U=u, T=t, S=s_, O=o, L=lab, B=b, mode=mode, index=index,
+                numeric=numeric,
+                plan=list(plan_ or (KSEL.plan_for(u, t) if hasattr(KSEL, "plan_for") else ())),
+                bound_ms=least, bound_by=by)
 
     from kubernetes_tpu_torch.kernels.spread import (
         spread_filter_bits,

@@ -1,10 +1,10 @@
 """The bytes and operations each kernel must move and do on given inputs
 (``*_work``, the basis of ``bound_ms``), the synthetic inputs that
-``chip_smoke.py`` and ``kernel_ab.py`` both build for K10, K11, K12 and
-K27, and the launch plans of K6, K16, K17, K27 and K32 and K30's tiles,
-whose splits both scripts' cases and the CPU mirrors take from here
-(``k6_plan``, ``k16_plan``, ``k17_plan``, ``k17_tie_rows``, ``k27_plan``,
-``k32_plan``, ``K30_*``).
+``chip_smoke.py`` and ``kernel_ab.py`` both build for K10, K11, K12, K23
+and K27, and the launch plans of K6, K16, K17, K27 and K32 and K30's
+tiles, whose splits both scripts' cases and the CPU mirrors take from here
+(``k6_plan``, ``k16_plan``, ``k17_plan``, ``k17_tie_rows``,
+``k17_equal_noise``, ``k27_plan``, ``k32_plan``, ``K30_*``).
 
 A bound counts what the function needs on this data: each input read
 once, each output written once, and only the cells the data reaches.  The
@@ -53,31 +53,41 @@ def k1_work(rep, snap, dyn, na_mask, na_pref, img, bits, raw):
     return nbytes(*k1_in, bits, raw) + img_gathered, ops
 
 
+# threefry2x32 and the uniform: 20 rounds of an add, a rotate (two shifts and
+# an or) and an xor, 5 key injections of three adds; the bits to a float, 3
+THREEFRY_OPS = 20 * 5 + 5 * 3 + 3
+
+
 def k17_work(bits, full: int, total, i: int, nominated, valid, request,
-             noise=None) -> tuple:
+             keys=None) -> tuple:
     """(bytes, operations) one K17 step must move and do on these inputs:
     the bit row read once; the total only on feasible nodes; keyed, the
-    noise only at the tied maxima of the masked total (every node when the
-    maximum is −inf, none feasible: then every node ties); pod i's
-    nominated row and valid flag, the nominated node's bits when it names
-    one; both outputs at i written; and when the pod is placed its request
-    and non-zero rows read and the node's requested / non_zero rows read
-    and written.  Per node a compare, a count and the value compare (the
-    noise compare too, keyed)."""
+    step's 8-byte key, and a threefry and a noise compare at each tied
+    maximum of the masked total where the answer depends on the draws: a
+    placed pod that the nominated path does not take, on a row with two or
+    more tied maxima (one maximum wins whatever its draw; an infeasible,
+    padding or nominated pod's node is not the draw's); pod i's nominated
+    row and valid flag, the nominated node's bits when it names one; both
+    outputs at i written; and when the pod is placed its request and
+    non-zero rows read and the node's requested / non_zero rows read and
+    written.  Per node a compare, a count and the value compare."""
     n = bits.shape[-1]
     r = request.shape[1]
     mask = bits.reshape(n) == full
     n_feas = int(mask.sum())
     placed = n_feas > 0 and bool(valid[i])
     n_bytes = 4 * n + 4 * n_feas + 4 + 1 + 8
-    if noise is not None:
-        import torch
-
-        masked = torch.where(mask, total.reshape(n), float("-inf"))
-        n_bytes += 4 * int((masked == masked.max()).sum())
+    ops = 3 * n
+    if keys is not None:
+        n_bytes += 8
+        nom = int(nominated[i])
+        if placed and not (nom >= 0 and bool(mask[min(nom, n - 1)])):
+            feas_total = total.reshape(n)[mask]
+            ties = int((feas_total == feas_total.max()).sum())
+            ops += ties * (THREEFRY_OPS + 1) if ties > 1 else 0
     n_bytes += 4 if int(nominated[i]) >= 0 else 0
     n_bytes += 4 * (r + 2) * 3 if placed else 0
-    return n_bytes, n * (3 + (noise is not None))
+    return n_bytes, ops
 
 
 def k17_plan(n: int, vec: int = 4, cl: int = None) -> tuple:
@@ -102,6 +112,117 @@ def k17_tie_rows(n: int) -> list:
     at = [q * s + d for q in range(1, cl) for d in (-1, 0)]
     at += [n - n % 4 - 1, n - n % 4] if n % 4 and n > 4 else []
     return sorted({a for a in at + [n - 1] if 0 <= a < n})
+
+
+def k23_work(req_key, req_op, req_vals, req_num, term_valid, match_all, match_none, keys,
+             vals, vals_num=None, numeric=None, has_numeric: bool = True,
+             index=None) -> tuple:
+    """(bytes, operations) K23 must move and do on ``selector_match``'s
+    arguments: the label sets (keys, values and, with the numeric side on,
+    ``vals_num`` or else the side table) read once, the requirement arrays
+    once, the index once and the bool ``[B, O]`` result written once; one
+    key compare per (unique row, term, requirement, object, label
+    column)."""
+    u, t, s = req_key.shape
+    o, lab = keys.shape
+    reqs = [a for a in (req_key, req_op, req_vals, req_num, term_valid, match_all,
+                        match_none) if a is not None]
+    nums = [vals_num if vals_num is not None else numeric] if has_numeric else []
+    b = u if index is None else index.shape[0]
+    n_bytes = nbytes(*reqs, keys, vals, *[x for x in nums if x is not None]) + b * o
+    n_bytes += nbytes(index) if index is not None else 0
+    return n_bytes, u * t * s * o * lab
+
+
+def k17_equal_noise(keys, n: int, live: int = None) -> tuple:
+    """(k, a, b): the first row k of the key table ``keys`` (int32 [b, 2])
+    whose uniform row of ``n`` draws holds an equal pair a < b below
+    ``live`` in different slices of ``k17_plan(n)`` (any pair in one
+    block) — a tie on the noise that only the row order breaks, found under
+    real keys."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import prng
+
+    live = n if live is None else live
+    cl, s, _t = k17_plan(n)
+    words = keys.cpu().to(torch.int64) & prng.MASK32
+    for k in range(words.shape[0]):
+        z = prng.uniform(words[k], (n,))[:live]
+        order = torch.argsort(z, stable=True)
+        zs = z[order]
+        for j in torch.nonzero(zs[1:] == zs[:-1]).flatten().tolist():
+            a, b = sorted((int(order[j]), int(order[j + 1])))
+            if cl == 1 or a // s != b // s:
+                return k, a, b
+    raise ValueError(f"no key row with equal noise across slices at N = {n}")
+
+
+# K23's shapes: label → (mode, U, T, S, O, L, B, index, numeric) — mode
+# "node" (term_valid, match_all) or "label" (T = 1, match_none); index
+# "repeats" (B rows over the U unique rows), "permuted" (B = U, each row
+# once) or None (B = U); numeric "off", "table" (the side table) or
+# "vals_num".  The first is GangBasic's node-affinity call.
+K23_CASES = {
+    "path: node selectors, U = 2": ("node", 2, 2, 4, 8192, 16, 512, "repeats", "off"),
+    "label selectors, side table": ("label", 12, 1, 4, 8192, 8, 512, "repeats", "table"),
+    "label selectors, vals_num": ("label", 12, 1, 4, 8192, 8, 512, "repeats", "vals_num"),
+    "label selectors, numeric off": ("label", 12, 1, 4, 8192, 8, 512, "repeats", "off"),
+    "requirement rows, no index": ("label", 64, 1, 4, 8192, 8, 64, None, "table"),
+    "U = 512 distinct rows": ("node", 512, 2, 4, 8192, 16, 512, "permuted", "vals_num"),
+    "O = 8190": ("node", 2, 2, 4, 8190, 16, 512, "repeats", "off"),
+    "L = 20, labels in shared memory": ("label", 12, 1, 4, 4096, 20, 512, "repeats",
+                                        "vals_num"),
+}
+
+
+def k23_inputs(label, dev, seed: int = 23) -> tuple:
+    """``selector_match``'s arguments at ``K23_CASES[label]`` (or at a
+    shape tuple of the same form) → (args, kw):
+    objects with up to L distinct keys of a pool of 24 (−1 padded), value
+    ids 0–63 (the side table's numbers integers, every ninth NaN);
+    requirements of every op code, the pad op and an unknown one, absent
+    and negative keys, value lists with −1 pads, NaN right-hand sides;
+    node mode with a few invalid terms and match_all rows, label mode with
+    match_none rows (none on requirement rows with no index)."""
+    import numpy as np
+    import torch
+
+    mode, u, t, s_, o, lab, b, index, numeric = K23_CASES.get(label, label)
+    rng = np.random.default_rng(seed + u + o + lab)
+    pool, n_vals, v = 24, 64, 4
+    keys = np.full((o, lab), -1, np.int32)
+    vals = np.full((o, lab), -1, np.int32)
+    for j in range(o):
+        ks = rng.permutation(pool)[: int(rng.integers(0, lab + 1))]
+        keys[j, : ks.size] = ks
+        vals[j, : ks.size] = rng.integers(0, n_vals, ks.size)
+    table = np.arange(n_vals, dtype=np.float32) - 20.0
+    table[::9] = np.nan
+    vals_num = np.where(vals >= 0, table[np.clip(vals, 0, n_vals - 1)], np.nan)
+    op = rng.choice([-1, 0, 1, 2, 3, 4, 5, 9], size=(u, t, s_),
+                    p=[0.1, 0.25, 0.2, 0.15, 0.1, 0.09, 0.09, 0.02]).astype(np.int32)
+    req_key = rng.integers(-1, pool + 2, (u, t, s_)).astype(np.int32)
+    req_vals = rng.integers(-1, n_vals, (u, t, s_, v)).astype(np.int32)
+    req_num = rng.integers(-20, 40, (u, t, s_)).astype(np.float32)
+    req_num[rng.random((u, t, s_)) < 0.1] = np.nan
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    opt = [None, None, None]
+    if mode == "node":
+        opt[0] = i32(rng.random((u, t)) < 0.85)
+        opt[1] = i32(rng.random(u) < 0.1)
+    elif index is not None:
+        opt[2] = i32(rng.random(u) < 0.1)
+    idx = None
+    if index == "repeats":
+        idx = i32(rng.integers(0, u, b).astype(np.int32))
+    elif index == "permuted":
+        idx = i32(rng.permutation(u).astype(np.int32))
+    args = (i32(req_key), i32(op), i32(req_vals), i32(req_num), *opt, i32(keys), i32(vals))
+    kw = {"vals_num": i32(vals_num.astype(np.float32)) if numeric == "vals_num" else None,
+          "numeric": i32(table) if numeric == "table" else None,
+          "has_numeric": numeric != "off", "index": idx}
+    return args, kw
 
 
 def k32_plan(n: int, vec: int = 4) -> tuple:

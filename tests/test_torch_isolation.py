@@ -218,26 +218,27 @@ def test_kernel_wrappers_take_plain_versions_on_cpu():
     assert got is total and total.tolist() == [want + [float("-inf"), 1.0]]
     row = tie_row(keys, 1, 5)
     assert row.shape == (5,) and bool(((row >= 0) & (row < 1)).all())
-    # K17 keyed: an all −inf row is all ties (the largest noise wins); K2's
+    # K17 keyed, under the step keys: an all −inf row places nothing; a tie
+    # goes to the larger draw of the step's key (K33's row under it); K2's
     # packed mode returns the plane alone
     from kubernetes_tpu_torch.kernels.normalize import CombinePlan, normalize_combine
     from kubernetes_tpu_torch.kernels.scan import scan_select_assume
 
     node_row = torch.full((1,), -1, dtype=i32)
     cnt = torch.zeros(1, dtype=i32)
-    noise = torch.tensor([0.1, 0.9, 0.3])
     scan_select_assume(torch.zeros((1, 3), dtype=i32), 1,
                        torch.full((1, 3), float("-inf")), 0, torch.tensor([-1], dtype=i32),
                        torch.tensor([True]), torch.ones((1, 2), dtype=i32),
                        torch.ones((1, 2), dtype=i32), torch.zeros((3, 2), dtype=i32),
-                       torch.zeros((3, 2), dtype=i32), node_row, cnt, noise)
+                       torch.zeros((3, 2), dtype=i32), node_row, cnt, keys, 2)
     assert node_row.tolist() == [-1] and cnt.tolist() == [0]
     scan_select_assume(torch.ones((1, 3), dtype=i32), 1, torch.tensor([[2.0, 5.0, 5.0]]), 0,
                        torch.tensor([-1], dtype=i32), torch.tensor([True]),
                        torch.ones((1, 2), dtype=i32), torch.ones((1, 2), dtype=i32),
                        torch.zeros((3, 2), dtype=i32), torch.zeros((3, 2), dtype=i32),
-                       node_row, cnt, torch.tensor([0.9, 0.2, 0.4]))
-    assert node_row.tolist() == [2] and cnt.tolist() == [3]
+                       node_row, cnt, keys, 1)
+    z = tie_row(keys, 1, 3)
+    assert node_row.tolist() == [1 + int(z[2] > z[1])] and cnt.tolist() == [3]
     plan = CombinePlan(kinds=(0,), weights=(2.0,), const_add=1.0)
     packed = normalize_combine(torch.tensor([[1, 0]], dtype=i32), 1,
                                torch.tensor([[[3.0, 4.0]]]), plan, packed=True)

@@ -27,8 +27,9 @@ held against the reference on the CPU:
   infeasible nominated row, one past the bucket, a padding pod, an
   all-infeasible pod; node rows, feasible counts and the assumed
   requested / non_zero equal the reference's, keyless and keyed, and so
-  does the port's plain version on the same rows.  Last, K17's bound
-  (``kernel_work.k17_work``) counts only the cells a step needs.
+  does the port's plain version on the same rows (keyed, under the step
+  keys of the same key).  Last, K17's bound (``kernel_work.k17_work``)
+  counts only the cells a step needs, keyed a threefry a node.
 
 Tolerance: exact (only compares and integer adds).
 """
@@ -48,7 +49,8 @@ from kubernetes_tpu.framework.interface import DynamicState as JDyn
 from kubernetes_tpu.framework.interface import PluginWithWeight
 from kubernetes_tpu.framework.runtime import BatchedFramework as JFramework
 from kubernetes_tpu_torch.kernels.scan import scan_select_assume
-from kubernetes_tpu_torch.perf.kernel_work import k17_plan, k17_tie_rows, k17_work
+from kubernetes_tpu_torch.kernels.tie_noise import tie_split
+from kubernetes_tpu_torch.perf.kernel_work import THREEFRY_OPS, k17_plan, k17_tie_rows, k17_work
 
 FULL = 0b1111111
 INF = float("inf")
@@ -267,8 +269,9 @@ def test_k17_plan_splits_as_the_kernel_does():
 @pytest.mark.parametrize("kind", ["three tied maxima", "all infeasible", "nominated padding"])
 def test_k17_work_counts_only_what_the_step_needs(kind, keyed):
     """K17's bound reads the bit row whole, the total only on feasible nodes
-    and, keyed, the noise only at the tied maxima (every node when none is
-    feasible); the assume's rows only when the pod is placed."""
+    and, keyed, the step's 8-byte key, with a threefry at each tied maximum
+    where the placed pod's node is the draw's;
+    the assume's rows only when the pod is placed."""
     n, b, r, i = 64, 4, 3, 2
     bits = torch.full((1, n), FULL & ~2, dtype=torch.int32)
     total = torch.full((1, n), -INF)
@@ -280,15 +283,19 @@ def test_k17_work_counts_only_what_the_step_needs(kind, keyed):
     valid = torch.ones(b, dtype=torch.bool)
     if kind == "nominated padding":
         nominated[i], valid[i] = 8, False
-    noise = torch.rand(n) if keyed else None
+    keys = tie_split((0, 7), b, "cpu") if keyed else None
     got, ops = k17_work(bits, FULL, total, i, nominated, valid,
-                        torch.zeros((b, r), dtype=torch.int32), noise)
+                        torch.zeros((b, r), dtype=torch.int32), keys)
     n_feas = 0 if kind == "all infeasible" else 10
     want = 4 * n + 4 * n_feas + 4 + 1 + 8
-    want += (4 * (3 if n_feas else n)) if keyed else 0
+    want += 8 if keyed else 0
     want += 4 if kind == "nominated padding" else 0
     want += 4 * (r + 2) * 3 if kind == "three tied maxima" else 0
-    assert (got, ops) == (want, n * (3 + keyed))
+    # keyed, a threefry and the noise compare at each of the three tied 9s
+    # where the pod is placed; the other two pods' nodes are not the draws'
+    ties = 3 if kind == "three tied maxima" else 0
+    want_ops = 3 * n + (ties * (THREEFRY_OPS + 1) if keyed else 0)
+    assert (got, ops) == (want, want_ops)
 
 
 # --- the whole step through the reference's greedy_assign ----------------------------------
@@ -385,7 +392,7 @@ def step_ref(request):
         if keyed else None
     want = {"node_row": np.asarray(res.node_row), "feasible_count": np.asarray(res.feasible_count),
             "requested": np.asarray(res.dyn.requested), "node_nz": np.asarray(res.dyn.non_zero)}
-    return n, p, noise, want
+    return n, p, noise, want, (0, 11) if keyed else None
 
 
 def _step_rows(p, i: int):
@@ -399,7 +406,7 @@ def _step_rows(p, i: int):
 
 @pytest.mark.parametrize("slicing", ["plan", "plan, scalar", "CL = 2", "CL = 8"])
 def test_k17_step_equals_greedy_assign(step_ref, slicing):
-    n, p, noise, want = step_ref
+    n, p, noise, want, _key = step_ref
     cl, vec = SLICINGS[slicing]
     b = len(STEP_KINDS)
     requested, node_nz = p["requested"].copy(), p["node_nz"].copy()
@@ -423,9 +430,11 @@ def test_k17_step_equals_greedy_assign(step_ref, slicing):
 
 def test_k17_plain_step_equals_greedy_assign(step_ref):
     """The port's K17 on CPU tensors (its plain version), step by step on
-    the same rows, equals the reference too."""
-    n, p, noise, want = step_ref
+    the same rows, equals the reference too — keyed under the step keys
+    K33's split makes from the same key, step k its key row k."""
+    n, p, _noise, want, key = step_ref
     b = len(STEP_KINDS)
+    keys = None if key is None else tie_split(key, b, "cpu")
     t = {k: torch.from_numpy(p[k].copy()) for k in ("nominated", "valid", "request", "pod_nz",
                                                     "requested", "node_nz")}
     node_row = torch.full((b,), -1, dtype=torch.int32)
@@ -435,7 +444,7 @@ def test_k17_plain_step_equals_greedy_assign(step_ref):
         scan_select_assume(torch.from_numpy(bits)[None], FULL, torch.from_numpy(total)[None],
                            k, t["nominated"], t["valid"], t["request"], t["pod_nz"],
                            t["requested"], t["node_nz"], node_row, feas,
-                           None if noise is None else torch.from_numpy(noise[k].copy()))
+                           *(() if keys is None else (keys, k)))
     np.testing.assert_array_equal(node_row.numpy(), want["node_row"])
     np.testing.assert_array_equal(feas.numpy(), want["feasible_count"])
     np.testing.assert_array_equal(t["requested"].numpy(), want["requested"])
