@@ -63,12 +63,21 @@ Phases, all of which must pass (any failure exits non-zero):
    (pinned, blocked and zero-demand rows, nodes without inventory, negative
    free; K25 at weights 1 and 2), K25 over the floor grid (capacity 1–256 ×
    used 0–capacity, equal to the integer floor, the pins (61, 61) and
-   (53, 100)), K26 as an auction round, at class rows and as a scan step.
+   (53, 100)), K26 as an auction round, at class rows and as a scan step;
+   K25 also at kernel_work.K25_CASES (the DeviceClaimGang path's C = 64,
+   C = 512, C = 1, N = 8190, no feasible entry, random claims, the floor
+   grid) and on a bit plane off 16-byte boundaries, its plan against
+   kernel_work.k25_plan, one kernel node a call.
    K27 + K28 (the preemption candidate mask over priority levels) at N =
    8192, P = 32768, B = 512, R = 4 with 128 live levels, odd-KiB memory
    requests on 2^25-KiB nodes (float32 sums round), unbound and invalid
    pods, dead nodes, padding rows and failing static bits, and with batch
    rows at a (node, threshold)'s exact float32 fit value and one ulp above;
+   K28 also at kernel_work.K28_CASES (the path's two live levels, 128
+   levels with more thresholds a row group than slots, ulp-boundary rows,
+   R = 4 and 16, N = 8190, mostly failing static bits), at B = 37, N =
+   1000, R = 5 and on static bits off 16-byte boundaries, one kernel node
+   a call, its plan against kernel_work.k28_plan;
    K27 also at kernel_work.K27_CASES (the path's two live levels, a node
    holding 6000 pods, more than a round; R = 16 over 128 levels, in
    windows), at N = 1000 and 999, R = 5, with no live level (every level
@@ -4743,8 +4752,58 @@ def check_dra_kernels(dev) -> dict:
     at = {p: k for k, p in enumerate(pairs)}
     if float(got[0, at[(61, 61)]]) != 100.0 or float(got[0, at[(53, 100)]]) != 53.0:
         fail("dra_score_into check: a floor pin moved")
+    err["dra_score_into"] = max(err["dra_score_into"], score_cases_equal(dev))
     log(f"DRA kernels vs plain: all equal ({', '.join(DRA_KERNELS)}; floor grid of "
         f"{len(pairs)} pairs)")
+    return err
+
+
+def score_cases_equal(dev) -> float:
+    """K25 against its plain version on CPU copies, bit for bit, one launch
+    a call: kernel_work.K25_CASES (the DeviceClaimGang path's C = 64, C =
+    512, C = 1, N = 8190, no feasible entry, random claims, the floor grid)
+    and a bit plane off 16-byte boundaries; its plan against
+    kernel_work.k25_plan; on the path, one kernel node a call."""
+    import ctypes
+
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import dra as KR
+    from kubernetes_tpu_torch.kernels.build import load
+
+    plan = load("dra").dra_score_plan
+    plan.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    differ = [(c, n) for c in (0, 1, 4, 5, 64, 132, 512, 1024, 4096)
+              for n in (1, 8190, 8192, 33152, 100000)
+              if plan(c, n, out) != 0 or tuple(out) != KW.k25_plan(c, n)]
+    if differ:
+        fail(f"dra_score_plan differs from kernel_work.k25_plan at {differ[:4]}")
+    cases = {label: KW.k25_inputs(label, dev) for label in KW.K25_CASES}
+    a = list(cases["C = 64, path"])
+    flat = torch.empty(a[0].numel() + 1, dtype=torch.int32, device=dev)
+    flat[1:] = a[0].reshape(-1)
+    a[0] = flat[1:].reshape(a[0].shape)
+    cases["bits off 16 bytes"] = tuple(a)
+    err = 0.0
+    for name, (bits, full, total, cap, free, demand, weight) in cases.items():
+        before = kernels.LAUNCHES["dra_score_into"]
+        got = KR.dra_score_into(bits, full, total.clone(), cap, free, demand, weight)
+        if kernels.LAUNCHES["dra_score_into"] - before != 1:
+            fail(f"dra_score_into ({name}): not one launch")
+        want = KR.dra_score_into_plain(bits.cpu(), full, total.cpu(), cap.cpu(), free.cpu(),
+                                       demand.cpu(), weight)
+        torch.cuda.synchronize()
+        err = max(err, require_equal(f"dra_score_into ({name})", [("total", got.cpu(), want)]))
+    bits, full, total, cap, free, demand, weight = cases["C = 64, path"]
+    work = total.clone()
+    one_device_activity("dra_score_into (path shapes)",
+                        lambda: KR.dra_score_into(bits, full, work, cap, free, demand, weight),
+                        "dra_score_into_kernel", "dra_score_into")
+    log(f"dra_score_into: equal on {len(cases)} cases, one launch each; its plan equal to "
+        "kernel_work.k25_plan")
     return err
 
 
@@ -4981,10 +5040,14 @@ def time_dra_kernels(last_calls: dict, err: dict) -> list:
             fail(f"kernel timing: no recorded path call of {name}")
         return got
 
-    def row(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None):
+    def row(name, fn, plain_fn, n_bytes, n_ops, shape, library_fn=None, queued=False):
         least, bound_by = bound_ms(n_bytes, n_ops)
-        ms, libs, source = ms_one_method(fn, DRA_SYMBOLS[name],
-                                         *([library_fn] if library_fn else []))
+        if queued:  # queued behind a spin kernel, its library call too
+            ms, source = queued_device_ms(fn), "queued_events"
+            libs = [queued_device_ms(library_fn)] if library_fn else []
+        else:
+            ms, libs, source = ms_one_method(fn, DRA_SYMBOLS[name],
+                                             *([library_fn] if library_fn else []))
         rows_out.append({
             "name": name, "route": "cuda", "source": DRA_SOURCE,
             "replaces": DRA_REPLACES[name], "launches": None, "max_abs_err": err[name],
@@ -5013,8 +5076,9 @@ def time_dra_kernels(last_calls: dict, err: dict) -> list:
         9 * c + 4 * n + 8 * n_fail, 4 * c * n,
         {"C": c, "N": n, "failing": n_fail, "demand_rows": int((demand > 0).sum())})
 
-    # K25: the bit plane read, the feasible entries' totals read and written,
-    # cap / free and demand once; six float32 operations a scored entry
+    # K25: kernel_work.k25_work (the bit plane read, the feasible entries'
+    # totals read and written, cap / free and demand once; six float32
+    # operations a scored entry)
     (bits2, full, total, cap, free2, demand2, weight), _ = last("dra_score_into")
     base = total.clone()
     got = KR.dra_score_into(bits2, full, base.clone(), cap, free2, demand2, weight)
@@ -5030,13 +5094,15 @@ def time_dra_kernels(last_calls: dict, err: dict) -> list:
                                                     weight),
         lambda: KR.dra_score_into_plain(bits2, full, base.clone(), cap, free2, demand2,
                                         weight),
-        4 * c2 * n2 + 8 * n_feas + 8 * n2 + 4 * c2, 6 * n_scored,
+        *KW.k25_work(bits2, full, base, cap, free2, demand2, weight),
         {"C": c2, "N": n2, "feasible": n_feas, "scored": n_scored})
 
     # K26: commit, choice and demand read once, each committed pod's node
     # read and written; one subtraction a commit.  Library: index_add_ of
     # the committed pods' demands, the dead rows masked inside the timed
-    # call (the same function on the kernel's inputs)
+    # call (the same function on the kernel's inputs).  Both by queued
+    # events: the profiler's reading of this sub-2 µs launch moved between
+    # runs
     (free3, choice, demand3), kw = last("dra_take")
     commit, class_of = kw.get("commit"), kw.get("class_of")
     base = free3.clone()
@@ -5064,7 +5130,7 @@ def time_dra_kernels(last_calls: dict, err: dict) -> list:
                                   class_of=class_of),
         b * (1 + 4 + 4) + 8 * n_commit, n_commit,
         {"B": b, "N": free3.numel(), "commits": n_commit},
-        library_fn=library_take)
+        library_fn=library_take, queued=True)
     for rr in rows_out:
         log(f"  {rr['name']}: {rr['ms']:.5f} ms device ({rr['call_ms']:.4f} ms a call), "
             f"bound {rr['bound_ms']:.7f} ms ({rr['bound_by']}), plain {rr['plain_ms']:.4f} ms"
@@ -5234,6 +5300,8 @@ def check_preempt_kernels(dev) -> dict:
                                                   require_equal(
             f"prev_delta_apply (nominated + two in-flight bundles, {sizes})",
             [("requested", got[0], want[0]), ("non_zero", got[1], want[1])]))
+    k28_plan_check()
+    err["candidate_fit"] = max(err["candidate_fit"], fit_cases_equal(dev))
     k27_plan_check()
     a27 = KW.k27_inputs("path", dev)
     host = one_device_activity("priority_prefix (path shapes)",
@@ -5295,6 +5363,69 @@ def prefix_cases_equal(gen, dev) -> float:
         fail("priority_prefix: R = 16 over 128 levels takes no second window")
     log(f"priority_prefix: equal on {len(cases)} more cases, one launch each")
     return err
+
+
+def fit_cases_equal(dev) -> float:
+    """K28 against its plain version on CPU copies, bit for bit, one launch
+    a call: kernel_work.K28_CASES (the path's two live levels, the check
+    case's 128 levels with more distinct thresholds in a row group than
+    slots, ulp-boundary rows, R = 4 and 16, N = 8190, static bits that
+    mostly fail), B = 37 and N = 1000 (a part group and a part tile), R =
+    5 (scalar threshold rows), and static bits off 16-byte boundaries; on
+    the path, one kernel node a call."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import preempt as KP
+
+    cases = {label: KW.k28_inputs(label, dev) for label in KW.K28_CASES}
+    gen = torch.Generator().manual_seed(SEED + 28)
+    c = preempt_case(gen, n=1000, p=6000, b=37, r=5, n_prio=20)
+    lv = _levels(c["pod_priority"], c["pod_valid"] & (c["pod_node"] >= 0))
+    pod = [c[k] for k in ("pod_valid", "pod_node", "pod_priority", "pod_request")]
+    pre = KP.priority_prefix_plain(*pod, lv, 1000)
+    side = [c[k] for k in ("priority", "request", "allocatable", "requested", "static_bits")]
+    cases["B = 37, N = 1000, R = 5"] = tuple(x.to(dev) for x in (*pre, lv, *side)) + (0b1111,)
+    a = list(cases["path"])
+    flat = torch.empty(a[7].numel() + 1, dtype=torch.int32, device=dev)
+    flat[1:] = a[7].reshape(-1)
+    a[7] = flat[1:].reshape(a[7].shape)
+    cases["static bits off 16 bytes"] = tuple(a)
+    err = 0.0
+    for name, a in cases.items():
+        before = kernels.LAUNCHES["candidate_fit"]
+        got = KP.candidate_fit(*a)
+        if kernels.LAUNCHES["candidate_fit"] - before != 1:
+            fail(f"candidate_fit ({name}): not one launch")
+        want = KP.candidate_fit_plain(*[x.cpu() if isinstance(x, torch.Tensor) else x
+                                        for x in a])
+        torch.cuda.synchronize()
+        err = max(err, require_equal(f"candidate_fit ({name})", [("mask", got.cpu(), want)]))
+        if name != "static bits mostly fail" and not 0 < int(want.sum()) < want.numel():
+            fail(f"candidate_fit ({name}): the mask is all one way")
+    a = cases["path"]
+    one_device_activity("candidate_fit (path shapes)", lambda: KP.candidate_fit(*a),
+                        "candidate_fit_kernel", "candidate_fit")
+    log(f"candidate_fit: equal on {len(cases)} cases, one launch each")
+    return err
+
+
+def k28_plan_check() -> None:
+    """K28's plan in csrc/preempt.cu (``candidate_fit_plan``) equal to the
+    copy in ``kernel_work.k28_plan`` that the CPU mirror walks."""
+    import ctypes
+
+    from kubernetes_tpu_torch.kernels.build import load
+
+    fn = load("preempt").candidate_fit_plan
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    differ = [(r, tuple(out), KW.k28_plan(r)) for r in range(17)
+              if fn(r, out) != 0 or tuple(out) != KW.k28_plan(r)]
+    if differ:
+        fail(f"candidate_fit_plan differs from kernel_work.k28_plan: {differ[:4]}")
+    log("candidate_fit: the kernel's plan equals kernel_work.k28_plan")
 
 
 def k27_plan_check() -> None:
@@ -5789,8 +5920,9 @@ def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) ->
         library_fn=lambda: table.zero_().index_put_((kk, nrow), contrib,
                                                      accumulate=True).cumsum(0))
 
-    # K28: the static bits read, the mask written, the threshold rows of
-    # the prefix read once each, the node and batch rows once
+    # K28: kernel_work.k28_work (the static bits read, the mask written, the
+    # threshold rows of the prefix read once each, the node and batch rows
+    # once)
     a28 = last("candidate_fit")
     got = KP.candidate_fit(*a28)
     want = KP.candidate_fit_plain(*cpu(a28))
@@ -5801,9 +5933,7 @@ def time_preempt_kernels(last_calls: dict, dense_calls: dict, err: dict, dev) ->
     n2, r2 = alloc.shape
     tbs = int(torch.unique(torch.searchsorted(lv, bprio)).numel())
     row("candidate_fit", lambda: KP.candidate_fit(*a28),
-        lambda: KP.candidate_fit_plain(*a28),
-        5 * b * n2 + tbs * n2 * (r2 + 1) * 4 + 8 * n2 * r2 + b * (r2 + 1) * 4 + 4 * lv.numel(),
-        4 * b * n2 * r2,
+        lambda: KP.candidate_fit_plain(*a28), *KW.k28_work(*a28),
         {"B": b, "N": n2, "R": r2, "threshold_rows": tbs})
 
     # K29: each (pod, node) adds the requests of its node's pods below the
@@ -6234,13 +6364,14 @@ def profile_evaluate(engine, pending, forks, out_dir: Path, fname: str) -> dict:
 # kernels already redesigned for Hopper in the port's step 2 (every row of
 # theirs, at every shape and mode, or the one row a full name names): K2,
 # K3, K4, K29, K19, K7, K13, K1, K11, K12, K17 (keyless and keyed), K6,
-# K18, K32, K30, K8, K16, K27, K10, K33's step row and K23
+# K18, K32, K30, K8, K16, K27, K10, K33's step row, K23, K28 and K25
 REDESIGNED = ("normalize_combine", "topk_rows", "auction_resolve_commit", "candidate_dense",
               "ipa_update_row", "spread_score_combine", "prev_delta_apply",
               "filter_score_planes", "ipa_score_combine", "ipa_update_classes",
               "scan_select_assume", "spread_filter_bits", "spread_update_row",
               "selector_spread_score", "fork_masks", "spread_update_classes", "scatter_rows",
-              "priority_prefix", "ipa_filter_bits", "tie_noise (step row)", "selector_match")
+              "priority_prefix", "ipa_filter_bits", "tie_noise (step row)", "selector_match",
+              "candidate_fit", "dra_score_into")
 
 
 def step2_order(rows: list) -> dict:

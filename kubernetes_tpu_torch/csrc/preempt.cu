@@ -59,10 +59,37 @@
 //   the kernel writes is read back.  Bound: bytes (the [K+1, N, R+1] output
 //   written once, ~38 MB at N = 8192, R = 8, K = 128); each block re-reads
 //   the tier's node and valid columns from L2, 5 bytes a row.
-// K28: one thread per (batch pod, node): the threshold row
-//   tb = searchsorted(levels, priority_b) of prefix / prefix_cnt, the fit over
-//   R, has-victims (count > 0) and the static bits (bits & mask == mask; K1's
-//   plane, zero on dead nodes and padding rows).  Bound: bytes.
+// K28: per (batch pod b, node n) the threshold row tb = searchsorted(levels,
+//   priority_b) of prefix / prefix_cnt, the fit over R, has-victims (count >
+//   0) and the static bits (bits & mask == mask; K1's plane, zero on dead
+//   nodes and padding rows).  A block owns a tile of 128 nodes and a group
+//   of 128 batch rows (two blocks an SM: one wave at B = 512).  At
+//   entry each thread issues its rows' static bits -- 16 consecutive nodes
+//   a row, four 16-byte loads -- and the block's cp.async copies of the
+//   tile's alloc / requested rows, transposed to [R][tile + 4] as they land.
+//   Each row's tb is found once (lower_bound over the levels in shared
+//   memory) and flagged in a shared array over the K + 1 rows; warp 0 gives
+//   the group's distinct thresholds slots in ascending order (as many as
+//   fit_plan's shared memory holds, more on fewer channels).  Each slot's
+//   threshold rows of the tile come in by cp.async, and the block computes,
+//   in place, free[slot][r][n] = (float(alloc) - float(requested)) +
+//   prefix[tb][n][r] -- exactly the value the reference compares -- and the
+//   slot's has-victims bits, a 16-bit word a thread's chunk.  Then each
+//   thread takes a row and its 16 nodes: the row's requests as floats from
+//   shared memory into registers, channels whose request is 0 skipped
+//   (the reference's req == 0), each other channel's 16 free values in four
+//   16-byte shared loads (the chunk order rotated so a quarter warp hits 8
+//   bank groups), one compare a node -- a row whose slot and requests equal
+//   the last staged row the thread tested reuses its fit bits (on the path
+//   every row asks the same); the 16 answers as one 16-byte store.
+//   A row whose threshold found no slot (more distinct thresholds in a
+//   group than slots: the 128-level check case) reads its threshold row
+//   from global memory in 16-byte vectors against the staged base -- the
+//   same arithmetic.  No 64-bit divide, and no branch holds a load back.
+//   Rows or nodes that break a 16-byte boundary (N not a multiple of 16)
+//   take scalar loads and stores.  Bound: bytes (the [B, N] bits read and
+//   the mask written once); the tile's node and threshold rows are L2
+//   reads, once for every 128 batch rows.
 // K29: the whole call in one launch, no sort.  A block takes a tile of 32
 //   nodes (one a lane) and a slice of batch rows (KB a thread, one warp's
 //   rows interleaved with the next's; KB = 8, 4 or 2 as R <= 4, 8 or 16, so
@@ -102,6 +129,17 @@ __device__ __forceinline__ int lower_bound(const int32_t* lv, int K, int32_t x) 
     if (lv[mid] < x) lo = mid + 1; else hi = mid;
   }
   return lo;
+}
+
+// a 4-byte cp.async from global to shared memory; cp_async_wait waits for
+// this thread's copies
+__device__ __forceinline__ void cp_async4(int* dst, const int32_t* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // --- the pod tier, as K27 and K29 stream it ------------------------------------------------
@@ -534,45 +572,285 @@ priority_prefix_kernel(int N, int R, int K, int P, int W, int vec,
   }
 }
 
-// the fit of one (batch pod, node) given the freed vector
-__device__ __forceinline__ bool fits_freed(int R, const int32_t* __restrict__ rq,
-                                           const int32_t* __restrict__ alloc,
-                                           const int32_t* __restrict__ requested,
-                                           const float* freed, long long fstride) {
-  for (int r = 0; r < R; ++r) {
-    const float q = __int2float_rn(rq[r]);
-    if (q == 0.0f) continue;
-    const float base = __fsub_rn(__int2float_rn(alloc[r]), __int2float_rn(requested[r]));
-    if (!(q <= __fadd_rn(base, freed[r * fstride]))) return false;
-  }
-  return true;
+// --- K28 ---------------------------------------------------------------------
+// A block: a tile of FIT_TILE nodes x FIT_GROUP batch rows, FIT_THREADS
+// threads; thread (p, t) takes rows p, p + FIT_RP, ... of the group and the
+// tile's nodes [16t, 16t + 16).
+#define FIT_THREADS 256
+#define FIT_GROUP 128         // batch rows a block: 256 blocks at B = 512, N = 8192
+#define FIT_NPT 16            // consecutive nodes a thread
+#define FIT_TPR 8             // threads a row
+#define FIT_TILE (FIT_NPT * FIT_TPR)
+#define FIT_RP (FIT_THREADS / FIT_TPR)  // rows a pass
+#define FIT_SMEM (40 * 1024)  // dynamic shared bytes: the tile's rows and the slots
+
+// K28's plan for R channels: the slots (the distinct threshold rows of a
+// group staged in shared memory; more go to the overflow path) and the
+// dynamic shared bytes -- base and requested [R][FIT_TILE + 4] each, then
+// per slot free [R][FIT_TILE + 4], the counts [FIT_TILE] and their masks
+// [FIT_TPR]
+static int fit_plan(int R, int* slots, size_t* smem) {
+  const size_t ntp = FIT_TILE + 4;
+  const size_t fixed = 8 * (size_t)R * ntp;
+  const size_t per = 4 * (size_t)R * ntp + 4 * FIT_TILE + 4 * FIT_TPR;
+  const size_t s = fixed >= FIT_SMEM ? 0 : (FIT_SMEM - fixed) / per;
+  *slots = (int)(s < FIT_GROUP ? s : FIT_GROUP);
+  *smem = fixed + (size_t)*slots * per;
+  return 0;
 }
 
-__global__ void candidate_fit_kernel(int B, int N, int R, int K,
-                                     const float* __restrict__ prefix,
-                                     const float* __restrict__ prefix_cnt,
-                                     const int32_t* __restrict__ levels,
-                                     const int32_t* __restrict__ priority,
-                                     const int32_t* __restrict__ request,
-                                     const int32_t* __restrict__ alloc,
-                                     const int32_t* __restrict__ requested,
-                                     const int32_t* __restrict__ bits, int32_t mask,
-                                     uint8_t* __restrict__ out) {
-  __shared__ int32_t lv[MAX_LEVELS];
-  for (int i = threadIdx.x; i < K; i += blockDim.x) lv[i] = levels[i];
-  __syncthreads();
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (long long)B * N) return;
-  const int b = (int)(tid / N);
-  const int n = (int)(tid % N);
-  bool ok = (bits[tid] & mask) == mask;
-  if (ok) {
-    const long long tb = lower_bound(lv, K, priority[b]);
-    ok = prefix_cnt[tb * N + n] > 0.0f
-         && fits_freed(R, request + (long long)b * R, alloc + (long long)n * R,
-                       requested + (long long)n * R, prefix + (tb * N + n) * R, 1);
+// the 16-byte pattern of 4 answers (nibble ``m`` of a thread's mask): a
+// byte 0 / 1 each
+__device__ __forceinline__ uint32_t fit_bytes(uint32_t m) {
+  return ((m & 0xfu) * 0x00204081u) & 0x01010101u;
+}
+
+template <int RB>
+__global__ void __launch_bounds__(FIT_THREADS, 2)
+candidate_fit_kernel(int B, int N, int R, int K, int slots, int vec,
+                     const float* __restrict__ prefix, const float* __restrict__ prefix_cnt,
+                     const int32_t* __restrict__ levels, const int32_t* __restrict__ priority,
+                     const int32_t* __restrict__ request, const int32_t* __restrict__ alloc,
+                     const int32_t* __restrict__ requested, const int32_t* __restrict__ bits,
+                     int32_t mask, uint8_t* __restrict__ out) {
+  constexpr int NT = FIT_TILE, NTP = NT + 4, TPR = FIT_TPR, RP = FIT_RP;
+  constexpr int RPT = FIT_GROUP / RP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_base = reinterpret_cast<float*>(smem);                  // [R][NTP]
+  int32_t* s_rq = reinterpret_cast<int32_t*>(s_base + R * NTP);    // [R][NTP]
+  float* s_free = reinterpret_cast<float*>(s_rq + R * NTP);        // [slots][R][NTP]
+  float* s_cnt = s_free + (size_t)slots * R * NTP;                 // [slots][NT]
+  uint32_t* s_cm = reinterpret_cast<uint32_t*>(s_cnt + slots * NT);  // [slots][TPR]
+  __shared__ int32_t s_lv[MAX_LEVELS];
+  __shared__ int s_slot[MAX_LEVELS + 1];  // a threshold's flag, then its slot
+  __shared__ int s_stb[FIT_GROUP];        // a slot's threshold row
+  __shared__ int s_rtb[FIT_GROUP], s_rslot[FIT_GROUP];
+  __shared__ float s_req[FIT_GROUP * RB];
+  __shared__ int s_nslots;
+
+  const int tid = threadIdx.x, t = tid % TPR, p = tid / TPR;
+  const int n0 = blockIdx.x * NT, b0 = blockIdx.y * FIT_GROUP;
+  const int h0 = t * FIT_NPT, n = n0 + h0;
+  // this thread's nodes below N: node n + e is one where e < left.  No
+  // min / max here: ptxas for sm_90a folded "min(16, N - n) == 16" into the
+  // predicate of a VIMNMX and took the 16-byte path on part chunks
+  const int left = N - n;
+  const bool vbits = (vec & 1) && left >= FIT_NPT;
+
+  // every row's static bits, all issued before anything waits
+  int32_t w[RPT][FIT_NPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int b = b0 + p + k * RP;
+    const long long g = (long long)b * N + n;
+    if (b < B && vbits && (g & 3) == 0) {
+      const int4* src = reinterpret_cast<const int4*>(bits + g);
+#pragma unroll
+      for (int q = 0; q < FIT_NPT / 4; ++q) {
+        const int4 v = __ldg(src + q);
+        w[k][4 * q] = v.x; w[k][4 * q + 1] = v.y; w[k][4 * q + 2] = v.z; w[k][4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < FIT_NPT; ++e) w[k][e] = (b < B && e < left) ? __ldg(bits + g + e) : 0;
+    }
   }
-  out[tid] = ok ? 1 : 0;
+  // the tile's node rows, transposed into [R][NTP] as they land
+  const long long nr0 = (long long)n0 * R;
+  for (int f = tid; f < NT * R; f += FIT_THREADS) {
+    const int h = f / R, r = f - h * R;
+    if (n0 + h < N) {
+      cp_async4(reinterpret_cast<int*>(s_base + r * NTP + h), alloc + nr0 + f);
+      cp_async4(s_rq + r * NTP + h, requested + nr0 + f);
+    }
+  }
+  for (int i = tid; i < K; i += FIT_THREADS) s_lv[i] = __ldg(levels + i);
+  for (int i = tid; i <= K; i += FIT_THREADS) s_slot[i] = 0;
+  for (int i = tid; i < FIT_GROUP * RB; i += FIT_THREADS) {
+    const int row = i / RB, r = i - row * RB, b = b0 + row;
+    s_req[i] = (b < B && r < R) ? __int2float_rn(__ldg(request + (long long)b * R + r)) : 0.0f;
+  }
+  const bool has_row = tid < FIT_GROUP && b0 + tid < B;
+  const int32_t prio = has_row ? __ldg(priority + b0 + tid) : 0;
+  __syncthreads();
+  // each row's threshold once; the group's distinct thresholds flagged
+  if (has_row) {
+    const int tb = lower_bound(s_lv, K, prio);
+    s_rtb[tid] = tb;
+    s_slot[tb] = 1;
+  }
+  __syncthreads();
+  // warp 0 gives the flagged thresholds slots in ascending order; past
+  // ``slots`` a threshold gets -1 (its rows take the overflow path)
+  if (tid < 32) {
+    int run = 0;
+    for (int base = 0; base <= K; base += 32) {
+      const int i = base + tid;
+      const int f = i <= K ? s_slot[i] : 0;
+      const unsigned bal = __ballot_sync(FULL_MASK, f);
+      const int idx = run + __popc(bal & ((1u << tid) - 1u));
+      if (f) {
+        s_slot[i] = idx < slots ? idx : -1;
+        if (idx < slots) s_stb[idx] = i;
+      }
+      run += __popc(bal);
+    }
+    if (tid == 0) s_nslots = min(run, slots);
+  }
+  __syncthreads();
+  const int ns = s_nslots;
+  if (has_row) s_rslot[tid] = s_slot[s_rtb[tid]];
+  // the slots' threshold rows of the tile: prefix transposed, the counts
+  for (int s = 0; s < ns; ++s) {
+    const long long row = (long long)s_stb[s] * N + n0;
+    const float* pr = prefix + row * R;
+    for (int f = tid; f < NT * R; f += FIT_THREADS) {
+      const int h = f / R, r = f - h * R;
+      if (n0 + h < N)
+        cp_async4(reinterpret_cast<int*>(s_free + ((size_t)s * R + r) * NTP + h),
+                  reinterpret_cast<const int32_t*>(pr + f));
+    }
+    for (int h = tid; h < NT; h += FIT_THREADS)
+      if (n0 + h < N)
+        cp_async4(reinterpret_cast<int*>(s_cnt + s * NT + h),
+                  reinterpret_cast<const int32_t*>(prefix_cnt + row + h));
+  }
+  cp_async_wait();
+  __syncthreads();
+  // free = (float(alloc) - float(requested)) + prefix[tb], in place: the
+  // value the fit compares against, one correctly rounded step each
+  for (int i = tid; i < R * NT; i += FIT_THREADS) {
+    const int r = i / NT, h = i % NT;
+    if (n0 + h >= N) continue;
+    const int at = r * NTP + h;
+    const float base = __fsub_rn(__int2float_rn(reinterpret_cast<const int32_t*>(s_base)[at]),
+                                 __int2float_rn(s_rq[at]));
+    s_base[at] = base;
+    for (int s = 0; s < ns; ++s) {
+      float* fp = s_free + (size_t)s * R * NTP + at;
+      *fp = __fadd_rn(base, *fp);
+    }
+  }
+  // the slots' has-victims bits, a 16-node word a thread's chunk
+  for (int i = tid; i < ns * TPR; i += FIT_THREADS) {
+    const int s = i / TPR, c = i - s * TPR;
+    uint32_t m = 0u;
+#pragma unroll
+    for (int e = 0; e < FIT_NPT; ++e) {
+      const int h = c * FIT_NPT + e;
+      if (n0 + h < N && s_cnt[s * NT + h] > 0.0f) m |= 1u << e;
+    }
+    s_cm[s * TPR + c] = m;
+  }
+  __syncthreads();
+
+  // the fit: a row and 16 nodes a thread; a staged row's free values in
+  // 16-byte shared loads, the 8 threads of a quarter warp on 8 distinct
+  // bank groups (the chunk order rotated by t / 2)
+  // A staged row whose slot and requests equal the last staged row this
+  // thread tested takes that row's fit bits (the same inputs give the same
+  // compares): on the path every row of a group asks the same
+  const int rot = (t >> 1) & 3;
+  int memo_slot = -1;
+  float memo_q[RB];
+  uint32_t memo_fail = 0u;
+#pragma unroll
+  for (int r = 0; r < RB; ++r) memo_q[r] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const int row = p + k * RP, b = b0 + row;
+    if (b >= B) continue;
+    uint32_t ok = 0u;
+#pragma unroll
+    for (int e = 0; e < FIT_NPT; ++e)
+      if (e < left && (w[k][e] & mask) == mask) ok |= 1u << e;
+    if (ok) {
+      float q[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) q[r] = s_req[row * RB + r];  // 0 past R
+      const int slot = s_rslot[row];
+      uint32_t fail = 0u, cm = 0u;
+      bool same = slot >= 0 && slot == memo_slot;
+#pragma unroll
+      for (int r = 0; r < RB; ++r) same = same && q[r] == memo_q[r];
+      if (same) {
+        cm = s_cm[slot * TPR + t];
+        fail = memo_fail;
+      } else if (slot >= 0) {
+        cm = s_cm[slot * TPR + t];
+        const float* fr = s_free + (size_t)slot * R * NTP + h0;
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          if (q[r] == 0.0f) continue;
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) {
+            const int c = (qq + rot) & 3;
+            const float4 f = *reinterpret_cast<const float4*>(fr + r * NTP + 4 * c);
+            const uint32_t m = (uint32_t)!(q[r] <= f.x) | (uint32_t)!(q[r] <= f.y) << 1
+                               | (uint32_t)!(q[r] <= f.z) << 2 | (uint32_t)!(q[r] <= f.w) << 3;
+            fail |= m << (4 * c);
+          }
+        }
+        memo_slot = slot;
+        memo_fail = fail;
+#pragma unroll
+        for (int r = 0; r < RB; ++r) memo_q[r] = q[r];
+      } else {
+        // overflow: the threshold row from global memory, 16-byte loads
+        // where its rows allow, against the staged base
+        const long long rowb = (long long)s_rtb[row] * N + n;
+        if (vbits && (vec & 2) && (rowb & 3) == 0) {
+#pragma unroll
+          for (int q4 = 0; q4 < FIT_NPT / 4; ++q4) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(prefix_cnt + rowb) + q4);
+            cm |= ((uint32_t)(v.x > 0.0f) | (uint32_t)(v.y > 0.0f) << 1
+                   | (uint32_t)(v.z > 0.0f) << 2 | (uint32_t)(v.w > 0.0f) << 3) << (4 * q4);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < FIT_NPT; ++e)
+            if (e < left && __ldg(prefix_cnt + rowb + e) > 0.0f) cm |= 1u << e;
+        }
+        const bool v4 = (vec & 2) && R == RB && (RB & 3) == 0;
+#pragma unroll
+        for (int e = 0; e < FIT_NPT; ++e) {
+          if (e >= left) continue;
+          const float* pe = prefix + (rowb + e) * R;
+          float pv[RB];
+          if (v4) {
+#pragma unroll
+            for (int j = 0; j < RB / 4; ++j) {
+              const float4 v = __ldg(reinterpret_cast<const float4*>(pe) + j);
+              pv[4 * j] = v.x; pv[4 * j + 1] = v.y; pv[4 * j + 2] = v.z; pv[4 * j + 3] = v.w;
+            }
+          } else {
+#pragma unroll
+            for (int r = 0; r < RB; ++r) pv[r] = (r < R && q[r] != 0.0f) ? __ldg(pe + r) : 0.0f;
+          }
+#pragma unroll
+          for (int r = 0; r < RB; ++r)
+            if (q[r] != 0.0f && !(q[r] <= __fadd_rn(s_base[r * NTP + h0 + e], pv[r])))
+              fail |= 1u << e;
+        }
+      }
+      ok &= cm & ~fail;
+    }
+    // the 16 answers: one 16-byte store where the row allows
+    const long long g = (long long)b * N + n;
+    uint8_t* o = out + g;
+    if (vbits && (g & 15) == 0) {
+      *reinterpret_cast<uint4*>(o) =
+          make_uint4(fit_bytes(ok), fit_bytes(ok >> 4), fit_bytes(ok >> 8), fit_bytes(ok >> 12));
+    } else if (vbits && (g & 3) == 0) {
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4)
+        reinterpret_cast<uint32_t*>(o)[q4] = fit_bytes(ok >> (4 * q4));
+    } else {
+#pragma unroll
+      for (int e = 0; e < FIT_NPT; ++e)
+        if (e < left) o[e] = (uint8_t)((ok >> e) & 1u);
+    }
+  }
 }
 
 // --- K29 ---------------------------------------------------------------------
@@ -741,10 +1019,6 @@ candidate_dense_kernel(int B, int N, int R, int P, int vec,
   }
 }
 
-static int blocks_for(long long total, int threads) {
-  return (int)((total + threads - 1) / threads);
-}
-
 template <int RB>
 static int launch_prefix(int N, int R, int K, int P, const void* pod_valid, const void* pod_node,
                          const void* pod_prio, const void* pod_req, const void* levels,
@@ -800,20 +1074,65 @@ extern "C" int priority_prefix_plan(int R, int K, int* out) {
   return 0;
 }
 
+template <int RB>
+static int launch_fit(int B, int N, int R, int K, const void* prefix, const void* prefix_cnt,
+                      const void* levels, const void* priority, const void* request,
+                      const void* alloc, const void* requested, const void* bits, int mask,
+                      void* out, cudaStream_t stream) {
+  int slots;
+  size_t smem;
+  const int e = fit_plan(R, &slots, &smem);
+  if (e) return e;
+  const long long gy = ((long long)B + FIT_GROUP - 1) / FIT_GROUP;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t a = cudaFuncSetAttribute(candidate_fit_kernel<RB>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               FIT_SMEM);
+    if (a != cudaSuccess) return (int)a;
+    attr_set = true;
+  }
+  const int vec = (((uintptr_t)bits % 16 == 0 && (uintptr_t)out % 16 == 0) ? 1 : 0)
+                  | (((uintptr_t)prefix % 16 == 0 && (uintptr_t)prefix_cnt % 16 == 0) ? 2 : 0);
+  const dim3 grid((unsigned)((N + FIT_TILE - 1) / FIT_TILE), (unsigned)gy);
+  candidate_fit_kernel<RB><<<grid, FIT_THREADS, smem, stream>>>(
+      B, N, R, K, slots, vec, (const float*)prefix, (const float*)prefix_cnt,
+      (const int32_t*)levels, (const int32_t*)priority, (const int32_t*)request,
+      (const int32_t*)alloc, (const int32_t*)requested, (const int32_t*)bits, (int32_t)mask,
+      (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int launch_candidate_fit(int B, int N, int R, int K, const void* prefix,
                                     const void* prefix_cnt, const void* levels,
                                     const void* priority, const void* request,
                                     const void* alloc, const void* requested,
                                     const void* bits, int mask, void* out, void* stream) {
-  if (K > MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)B * N;
-  if (total <= 0) return 0;
-  const int threads = 256;
-  candidate_fit_kernel<<<blocks_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
-      B, N, R, K, (const float*)prefix, (const float*)prefix_cnt, (const int32_t*)levels,
-      (const int32_t*)priority, (const int32_t*)request, (const int32_t*)alloc,
-      (const int32_t*)requested, (const int32_t*)bits, (int32_t)mask, (uint8_t*)out);
-  return (int)cudaGetLastError();
+  if (K < 0 || K > MAX_LEVELS || R < 0 || R > MAX_R || B < 0 || N < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || N == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (R <= 4)
+    return launch_fit<4>(B, N, R, K, prefix, prefix_cnt, levels, priority, request, alloc,
+                         requested, bits, mask, out, st);
+  if (R <= 8)
+    return launch_fit<8>(B, N, R, K, prefix, prefix_cnt, levels, priority, request, alloc,
+                         requested, bits, mask, out, st);
+  return launch_fit<16>(B, N, R, K, prefix, prefix_cnt, levels, priority, request, alloc,
+                        requested, bits, mask, out, st);
+}
+
+// K28's plan, for the CPU mirror's copy (kernel_work.k28_plan): out[0] the
+// slots, out[1] the dynamic shared memory in bytes
+extern "C" int candidate_fit_plan(int R, int* out) {
+  if (R < 0 || R > MAX_R) return (int)cudaErrorInvalidValue;
+  int slots;
+  size_t smem;
+  fit_plan(R, &slots, &smem);
+  out[0] = slots;
+  out[1] = (int)smem;
+  return 0;
 }
 
 template <int RB>

@@ -59,14 +59,20 @@ more than once); ``reset_launches`` zeroes the counts.
                             16-byte stores)
   K24 dra_filter_bits       csrc/dra.cu (per round or scan step of a batch
                             with resource claims)
-  K25 dra_score_into        csrc/dra.cu (the same)
+  K25 dra_score_into        csrc/dra.cu (the same; 4 nodes of 1–8 rows a
+                            thread, bits, cap and free loaded at entry, a
+                            row's totals only where an entry is feasible,
+                            a 16-byte store there)
   K26 dra_take              csrc/dra.cu (per auction round or scan step)
   K27 priority_prefix       csrc/preempt.cu (once per failing batch that may
                             preempt, with at most 128 scheduled priorities;
                             one launch, the tier gathered by node tile in
                             row order in the kernel, no sort, each output
                             element written once)
-  K28 candidate_fit         csrc/preempt.cu (the same)
+  K28 candidate_fit         csrc/preempt.cu (the same; a block a tile of
+                            128 nodes × 128 batch rows, the group's distinct
+                            threshold rows staged once, 16 nodes a thread
+                            in 16-byte loads and one 16-byte store)
   K29 candidate_dense       csrc/preempt.cu (the same, above 128 priorities;
                             one launch, the tier gathered by node tile in
                             row order in the kernel, no sort)

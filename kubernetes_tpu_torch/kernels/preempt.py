@@ -33,7 +33,13 @@ tile of nodes into a list that keeps their row order (``PREFIX_CAP`` /
 that list in list order — so each node's pods are visited in ascending row
 order, as ``node_segments`` orders them, with no sort.  K27 keeps its live
 levels' totals in shared memory (in windows of ``kernel_work.k27_plan``
-levels where they do not fit) and writes each output element once.
+levels where they do not fit) and writes each output element once.  K28
+takes a tile of ``FIT_TILE`` nodes × ``FIT_GROUP`` batch rows a block:
+each row's threshold is found once, the group's distinct threshold rows
+are staged once as the free values the fit compares (``kernel_work.
+k28_plan`` slots; a row past them reads its threshold row from global
+memory), and a thread tests 16 nodes of a row, its static bits in 16-byte
+loads and its answers in one 16-byte store.
 """
 
 from __future__ import annotations
@@ -56,6 +62,12 @@ MAX_R = 16
 DENSE_TILE = 32
 DENSE_CHUNK = 4096
 DENSE_CAP = 1024
+# K28's: nodes a block, batch rows a block, nodes a thread, dynamic shared
+# bytes a block (the staged rows and the threshold slots)
+FIT_TILE = 128
+FIT_GROUP = 128
+FIT_NPT = 16
+FIT_SMEM = 40 * 1024
 # K27's: nodes a block, pod rows a chunk, gathered pods a round
 PREFIX_TILE = 64
 PREFIX_CHUNK = 8192
@@ -243,6 +255,10 @@ def candidate_fit(prefix: torch.Tensor, prefix_cnt: torch.Tensor, levels: torch.
     if prefix.shape != (k + 1, n, r) or prefix_cnt.shape != (k + 1, n):
         raise ValueError(f"{name}: inconsistent prefix shapes")
     require_dtype(name, torch.float32, prefix, prefix_cnt)
+    if r > MAX_R:
+        raise ValueError(f"{name}: at most {MAX_R} resource dimensions")
+    if k > MAX_LEVELS:
+        raise ValueError(f"{name}: at most {MAX_LEVELS} levels")
     out = torch.empty((b, n), dtype=torch.bool, device=prefix.device)
     dev = require_cuda(name, prefix, prefix_cnt, levels, out)
     err = _fn("launch_candidate_fit", "iiii" + "p" * 8 + "i" + "pp")(

@@ -4,10 +4,11 @@ K1 (filter_score_planes), K13 (prev_delta_apply), K17
 (scan_select_assume, keyless and keyed), K6 (spread_filter_bits), K18
 (spread_update_row), K32 (selector_spread_score), K30 (fork_masks), K8
 (spread_update_classes), K16 (scatter_rows), K27 (priority_prefix), K10
-(ipa_filter_bits) and K23 (selector_match) timed on synthetic
-inputs at the shapes their paths give them, for the copy of ``kubernetes_tpu_torch`` under
-``--root``, so that two trees (a parent and a change, unpacked side by
-side) are timed by the same methods on one card:
+(ipa_filter_bits), K23 (selector_match), K28 (candidate_fit) and K25
+(dra_score_into) timed on synthetic inputs at the shapes their paths give
+them, for the copy of ``kubernetes_tpu_torch`` under ``--root``, so that
+two trees (a parent and a change, unpacked side by side) are timed by the
+same methods on one card:
 
     python3 kubernetes_tpu_torch/perf/kernel_ab.py --root build/parent --out chiprun_out/ab_1.json
     python3 kubernetes_tpu_torch/perf/kernel_ab.py --root . --out chiprun_out/ab_2.json
@@ -102,15 +103,23 @@ sort), held against the plain version on CPU copies.  K10 at
 ``kernel_work.K10_CASES`` (C = 4 hostname planes with no required term, the
 path's; zone tables with required affinity and hostname planes with
 required anti-affinity at C = 1, 4 and 512; N = 8190), on the plane as K1
-seeded it as K6 is, ``ms_filtered`` on a plane already filtered.  ``--only
-name,...`` times only the rows of those kernels (the others are still
-checked).  The K6, K17, K18, K32, K30, K8, K16, K27 and K10 rows carry
-``host_us``, the host's issue time of one wrapper call over 1000 queued calls
+seeded it as K6 is, ``ms_filtered`` on a plane already filtered.  K28 at
+``kernel_work.K28_CASES`` (PreemptionBasic's path: B = 512, N = 8192, R =
+8, two live levels; the check case's 128 levels with batch rows across
+them; ulp-boundary rows; R = 4 and 16; N = 8190; static bits that mostly
+fail), the whole call.  K25 at ``kernel_work.K25_CASES`` (the
+DeviceClaimGang path's C = 64, the harness's C = 512, the scan's C = 1, N
+= 8190, no feasible entry, random claims, the floor grid), each timed call
+adding into a copy of the totals.  ``--only name,...`` times only the rows
+of those kernels (the others are still checked).  The K6, K17, K18, K32,
+K30, K8, K16, K27, K10, K28 and K25 rows carry ``host_us``, the host's
+issue time of one wrapper call over 1000 queued calls
 (``host_timer.py``).  K1's, K6's, K13's, K17's, K18's, K32's, K30's, K8's,
-K16's, K27's, K10's and K23's rows carry their bound (``kernel_work.k1_work`` /
-``k6_work`` / the bytes the adds need / ``k17_work`` / ``k18_work`` /
-``k32_work`` / ``k30_work`` / ``k8_work`` / ``k16_work`` / ``k27_work`` /
-``k10_work`` / ``k23_work``, over the card's rates). The bound formulas,
+K16's, K27's, K10's, K23's, K28's and K25's rows carry their bound
+(``kernel_work.k1_work`` / ``k6_work`` / the bytes the adds need /
+``k17_work`` / ``k18_work`` / ``k32_work`` / ``k30_work`` / ``k8_work`` /
+``k16_work`` / ``k27_work`` / ``k10_work`` / ``k23_work`` / ``k28_work`` /
+``k25_work``, over the card's rates). The bound formulas,
 K11 / K12's inputs, K17's plan and the host timer are ``kernel_work.py``
 and ``host_timer.py`` beside this file, whichever tree ``--root`` names:
 both trees are held to the same bound and timed by the same method. Needs a
@@ -1136,6 +1145,40 @@ def main() -> None:
             less=reseed, C=c, N=n, form=form, present=list(present), bound_ms=least,
             bound_by=by, ms_filtered=cs.device_ms(call, "ipa_filter_kernel"),
             host_us=host_issue_us(call))
+
+    # K28 at K28_CASES, the whole call, held against the plain version on
+    # CPU copies
+    def cpu_args(a):
+        return [x.cpu() if torch.is_tensor(x) else x for x in a]
+
+    for label in kw.K28_CASES:
+        b, n, live, r, n_prio, kind = kw.K28_CASES[label]
+        a28 = kw.k28_inputs(label, dev)
+        want = KP.candidate_fit_plain(*cpu_args(a28))
+        equal = torch.equal(KP.candidate_fit(*a28).cpu(), want)
+        least, by = kw.bound_ms(*kw.k28_work(*a28))
+        fn = (lambda a_=a28: KP.candidate_fit(*a_))
+        add(f"candidate_fit ({label})", fn, bool(equal), B=b, N=n, live=live, R=r,
+            levels=n_prio, kind=kind, bound_ms=least, bound_by=by, host_us=host_issue_us(fn))
+
+    # K25 at K25_CASES on a copy of the totals (each timed call adds into
+    # it again), held against the plain version on CPU copies
+    from kubernetes_tpu_torch.kernels import dra as KR
+
+    build.load("dra")
+    for label in kw.K25_CASES:
+        a25 = kw.k25_inputs(label, dev)
+        bits, full, total, cap, free, demand, weight = a25
+        want = KR.dra_score_into_plain(*[x.clone() if torch.is_tensor(x) else x
+                                         for x in cpu_args(a25)])
+        equal = torch.equal(KR.dra_score_into(bits, full, total.clone(), cap, free, demand,
+                                              weight).cpu(), want)
+        least, by = kw.bound_ms(*kw.k25_work(*a25))
+        work = total.clone()
+        fn = (lambda w_=work, a_=a25: KR.dra_score_into(a_[0], a_[1], w_, *a_[3:]))
+        add(f"dra_score_into ({label})", fn, bool(equal), C=bits.shape[0], N=bits.shape[1],
+            feasible=int((bits == full).sum()), bound_ms=least, bound_by=by,
+            host_us=host_issue_us(fn))
 
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps({"root": str(root), "card": card.strip(),

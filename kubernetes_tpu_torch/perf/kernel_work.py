@@ -1,10 +1,11 @@
 """The bytes and operations each kernel must move and do on given inputs
 (``*_work``, the basis of ``bound_ms``), the synthetic inputs that
-``chip_smoke.py`` and ``kernel_ab.py`` both build for K10, K11, K12, K23
-and K27, and the launch plans of K6, K16, K17, K27 and K32 and K30's
-tiles, whose splits both scripts' cases and the CPU mirrors take from here
-(``k6_plan``, ``k16_plan``, ``k17_plan``, ``k17_tie_rows``,
-``k17_equal_noise``, ``k27_plan``, ``k32_plan``, ``K30_*``).
+``chip_smoke.py`` and ``kernel_ab.py`` both build for K10, K11, K12, K23,
+K25, K27 and K28, and the launch plans of K6, K16, K17, K25, K27, K28 and
+K32 and K30's tiles, whose splits both scripts' cases and the CPU mirrors
+take from here (``k6_plan``, ``k16_plan``, ``k17_plan``, ``k17_tie_rows``,
+``k17_equal_noise``, ``k25_plan``, ``k27_plan``, ``k28_plan``,
+``k32_plan``, ``K30_*``).
 
 A bound counts what the function needs on this data: each input read
 once, each output written once, and only the cells the data reaches.  The
@@ -805,18 +806,15 @@ K27_CASES = {
 }
 
 
-def k27_inputs(label: str, dev, seed: int = 27):
-    """(pod_valid, pod_node, pod_priority, pod_request, levels, n) at K27's
-    shape ``label``: pods bound to the live nodes at random (a third of the
-    tier, the rest invalid or unbound, as a snapshot's tier between its
-    high-water mark and its bucket), odd-KiB memory requests near 1.6M so
-    the float32 sums round, priorities over the case's levels; the hot
-    node's pods on node 7; the levels padded with i32-max to 128."""
+def _pod_tier(n: int, live: int, p: int, r: int, n_prio: int, hot: int, rng):
+    """A pod tier as numpy arrays (valid, node, priority, request, levels):
+    pods bound to the ``live`` nodes at random (a third of the tier with
+    two levels, else 90%, valid; a twentieth unbound), odd-KiB memory
+    requests near 1.6M so the float32 sums round, priorities ``10 · k``
+    over ``n_prio`` levels; ``hot`` pods on node 7; the levels padded with
+    i32-max to 128."""
     import numpy as np
-    import torch
 
-    n, live, p, r, n_prio, hot = K27_CASES[label]
-    rng = np.random.default_rng(seed)
     node = rng.integers(0, live, p).astype(np.int32)
     valid = rng.random(p) < (0.33 if n_prio <= 2 else 0.9)
     node[rng.random(p) < 0.05] = -1
@@ -834,5 +832,225 @@ def k27_inputs(label: str, dev, seed: int = 27):
         req[:, r - 1] = 1
     levels = np.full(128, np.iinfo(np.int32).max, np.int32)
     levels[:n_prio] = prios
-    t = [torch.from_numpy(x).to(dev) for x in (valid, node, prio, req, levels)]
+    return valid, node, prio, req, levels
+
+
+def k27_inputs(label: str, dev, seed: int = 27):
+    """(pod_valid, pod_node, pod_priority, pod_request, levels, n) at K27's
+    shape ``label``: ``_pod_tier``'s tier."""
+    import numpy as np
+    import torch
+
+    n, live, p, r, n_prio, hot = K27_CASES[label]
+    rng = np.random.default_rng(seed)
+    t = [torch.from_numpy(x).to(dev) for x in _pod_tier(n, live, p, r, n_prio, hot, rng)]
     return (*t, n)
+
+
+# K28 candidate_fit: the threshold gather and the fit over K27's table --
+# the [B, N] static bits read and the mask written, each distinct threshold
+# row of prefix and prefix_cnt, the node rows, the batch rows and the
+# levels read once; a compare a (row, node, channel)
+
+
+# K28's layout (csrc/preempt.cu FIT_*): nodes a block, batch rows a block,
+# nodes a thread, dynamic shared bytes a block
+K28_TILE, K28_GROUP, K28_NPT, K28_SMEM = 128, 128, 16, 40 * 1024
+
+
+def k28_plan(r: int) -> tuple:
+    """(slots, dynamic shared bytes): K28's plan for ``r`` channels, a copy
+    of ``fit_plan`` in csrc/preempt.cu (``chip_smoke.py`` holds the two
+    together on the card): base and requested [r][K28_TILE + 4] floats,
+    then as many slots as fit K28_SMEM (at most the K28_GROUP rows of a
+    group), each a free row [r][K28_TILE + 4], the counts [K28_TILE] and
+    their 16-node masks."""
+    ntp = K28_TILE + 4
+    fixed = 8 * r * ntp
+    per = 4 * r * ntp + 4 * K28_TILE + 4 * (K28_TILE // K28_NPT)
+    slots = 0 if fixed >= K28_SMEM else min(K28_GROUP, (K28_SMEM - fixed) // per)
+    return slots, fixed + slots * per
+
+
+def k28_work(prefix, prefix_cnt, levels, priority, request, allocatable, requested,
+             static_bits, static_mask: int) -> tuple:
+    """(bytes, operations) K28 must move and do on these inputs: the static
+    bits read and the mask written (5 bytes a pair), each distinct
+    threshold row of prefix and prefix_cnt, alloc and requested, the batch
+    rows' priority and requests and the levels, once each; a compare a
+    (row, node, channel)."""
+    import torch
+
+    b, n = static_bits.shape
+    r = allocatable.shape[1]
+    tbs = int(torch.unique(torch.searchsorted(levels, priority)).numel())
+    n_bytes = (5 * b * n + tbs * n * (r + 1) * 4 + 8 * n * r + b * (r + 1) * 4
+               + 4 * levels.numel())
+    return n_bytes, 4 * b * n * r
+
+
+# K28's shapes: label → (B, N, live nodes, R, priorities, kind); the path
+# (PreemptionBasic/5000Nodes: two live levels, one request shape, batch rows
+# at the top level), the check case's 128 levels with batch rows across them
+# (many distinct thresholds a row group), the ulp-boundary rows (the fit
+# value and one ulp above), R = 4 and 16, N = 8190 (no 16-byte rows) and
+# static bits that mostly fail
+K28_CASES = {
+    "path": (512, 8192, 5000, 8, 2, "path"),
+    "check case, 128 levels": (512, 8192, 8192, 4, 128, "spread"),
+    "boundary rows": (512, 8192, 8192, 4, 128, "boundary"),
+    "R = 4": (512, 8192, 5000, 4, 2, "path"),
+    "R = 16": (512, 8192, 5000, 16, 2, "path"),
+    "N = 8190": (512, 8190, 5000, 8, 2, "path"),
+    "static bits mostly fail": (512, 8192, 5000, 8, 2, "fail"),
+}
+
+
+def k28_inputs(label: str, dev, seed: int = 28) -> tuple:
+    """``candidate_fit``'s arguments at ``K28_CASES[label]``: ``_pod_tier``'s
+    tier over 32768 rows, its prefix by the plain K27 on the CPU; nodes of
+    4000m cpu, 32Gi (2^25 KiB) and 110 pods, requested up to 98% of each;
+    batch rows of 3000m / 500Mi / 1 pod at the top level ("path", a
+    sixteenth at level 0), random requests across the levels ("spread"),
+    or pairs asking exactly a node's float32 fit value at a threshold and
+    one ulp more ("boundary"); static bits (mask 0b1111) set on the live
+    nodes but for 2% of them (95% with "fail")."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.kernels.preempt import priority_prefix_plain
+
+    b, n, live, r, n_prio, kind = K28_CASES[label]
+    rng = np.random.default_rng(seed)
+    tier = [torch.from_numpy(x) for x in _pod_tier(n, live, 32768, r, n_prio, 0, rng)]
+    lv = tier[4]
+    prefix, cnt = priority_prefix_plain(*tier, n)
+    alloc = np.zeros((n, r), np.int32)
+    alloc[:, 0] = 4000
+    if r > 1:
+        alloc[:, 1] = 1 << 25
+    if r > 2:
+        alloc[:, r - 1] = 110
+    requested = (alloc * rng.uniform(0.5, 0.98, (n, r))).astype(np.int32)
+    req = np.zeros((b, r), np.int32)
+    prios = lv.numpy()[:n_prio]
+    if kind == "spread":
+        prio = prios[rng.integers(0, n_prio, b)] + 1
+        req[:, 0] = rng.integers(0, 3000, b)
+        if r > 1:
+            req[:, 1] = rng.integers(0, 1 << 25, b)
+    else:
+        prio = np.full(b, prios[-1], np.int32)
+        prio[: b // 16] = prios[0]
+        req[:, 0] = 3000
+        if r > 1:
+            req[:, 1] = 512_000
+    if r > 2:
+        req[:, r - 1] = 1
+    if kind == "boundary":
+        free = alloc.astype(np.float32) - requested.astype(np.float32)
+        pf = prefix.numpy()
+        req[:] = 0
+        for j in range(b // 2):
+            node = int(rng.integers(0, live))
+            th = int(rng.integers(1, n_prio + 1))
+            v = float(np.float32(free[node, 1] + pf[th, node, 1]))
+            ulp = max(1, int(np.spacing(np.float32(v))))
+            prio[2 * j: 2 * j + 2] = lv[th] if th < n_prio else prios[-1] + 1
+            req[2 * j, 1], req[2 * j + 1, 1] = int(v), int(v) + ulp
+    fail_p = 0.95 if kind == "fail" else 0.02
+    bits = np.where(rng.random((b, n)) < fail_p, 0b1011, 0b1111).astype(np.int32)
+    bits[:, live:] = 0
+    t = [x.to(dev) for x in (prefix, cnt, lv)]
+    t += [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+          for x in (prio.astype(np.int32), req, alloc, requested, bits)]
+    return (*t, 0b1111)
+
+
+# K25 dra_score_into: DynamicResources' score added into K2's total
+
+
+def k25_plan(c: int, n: int) -> tuple:
+    """(rows a thread, nodes a thread): K25's plan, a copy of ``score_plan``
+    in csrc/dra.cu (``chip_smoke.py`` holds the two together on the card):
+    4 nodes of the fewest of 1, 2, 4, 8 rows that keep ceil(C / rows) ·
+    ceil(N / 4) threads to one wave of the card (132 SMs × 2048); one node
+    of one row a thread where C · ceil(N / 4) is under 132 × 256."""
+    vecs = -(-n // 4)
+    if c * vecs < 132 * 256:
+        return 1, 1
+    rows = 1
+    while rows < 8 and -(-c // rows) * vecs > 132 * 2048:
+        rows *= 2
+    return rows, 4
+
+
+def k25_work(bits, full: int, total, cap, free, demand, weight) -> tuple:
+    """(bytes, operations) K25 must move and do on these inputs: the bit
+    plane read; the feasible entries' totals read and written; cap / free
+    and demand once; six float32 operations a scored entry (feasible, with
+    demand, on a node with inventory)."""
+    c, n = bits.shape
+    feas = bits == full
+    n_feas = int(feas.sum())
+    n_scored = int((feas & (demand[:, None] > 0) & (cap[None, :] > 0)).sum())
+    return 4 * c * n + 8 * n_feas + 8 * n + 4 * c, 6 * n_scored
+
+
+# K25's shapes: label → (C, N, kind); the DeviceClaimGang path's claim
+# rounds (B = 64; a 4-chip claim a pod, one 4-chip slice a live host, half
+# of them taken), the harness's C = 512 and the scan's C = 1; N = 8190 (no
+# 16-byte rows); no feasible entry; random claims (demand 0–8, capacities
+# 0–16, some over-allocated); the floor grid (capacity 1–256 × used)
+K25_CASES = {
+    "C = 64, path": (64, 8192, "path"),
+    "C = 512": (512, 8192, "path"),
+    "C = 1": (1, 8192, "path"),
+    "N = 8190": (64, 8190, "path"),
+    "no feasible entry": (64, 8192, "none"),
+    "C = 64, random claims": (64, 8192, "random"),
+    "floor grid": (1, None, "grid"),
+}
+
+
+def k25_inputs(label: str, dev, seed: int = 25) -> tuple:
+    """``dra_score_into``'s arguments (bits, full, total, cap, free, demand,
+    weight) at ``K25_CASES[label]``; the totals hold K2's scores (integers
+    0–400) on feasible entries and −inf elsewhere."""
+    import numpy as np
+    import torch
+
+    c, n, kind = K25_CASES[label]
+    rng = np.random.default_rng(seed)
+    full = (1 << 16) - 1
+    weight = 1.0
+    if kind == "grid":
+        pairs = [(u, cp) for cp in range(1, 257) for u in range(cp + 1)]
+        n = len(pairs)
+        used = np.array([u for u, _ in pairs], np.int32)
+        cap = np.array([cp for _, cp in pairs], np.int32)
+        free = cap - used + 1
+        demand = np.ones(1, np.int32)
+        feas = np.ones((1, n), bool)
+    elif kind == "random":
+        demand = rng.integers(0, 9, c).astype(np.int32)
+        demand[rng.random(c) < 0.2] = 0
+        cap = np.array([0, 2, 4, 8, 16], np.int32)[rng.integers(0, 5, n)]
+        cap[5000:] = 0
+        free = cap - np.minimum(rng.integers(0, 18, n), cap + 3).astype(np.int32)
+        feas = rng.random((c, n)) < 0.7
+        weight = 2.0
+    else:
+        live = 5000
+        demand = np.full(c, 4, np.int32)
+        cap = np.zeros(n, np.int32)
+        cap[:live] = 4
+        free = np.where(rng.random(n) < 0.5, cap, 0).astype(np.int32)
+        feas = np.zeros((c, n), bool) if kind == "none" else \
+            np.broadcast_to((free >= 4)[None, :], (c, n))
+    bits = np.where(feas, full, full & ~(1 << rng.integers(0, 16, (c, n)))).astype(np.int32)
+    total = np.where(feas, rng.integers(0, 401, (c, n)).astype(np.float32),
+                     np.float32(-np.inf)).astype(np.float32)
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+         for x in (bits, total, cap.astype(np.int32), free.astype(np.int32), demand)]
+    return t[0], full, t[1], t[2], t[3], t[4], weight
